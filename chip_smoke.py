@@ -13,14 +13,29 @@ Runs, in order, and exits non-zero at the first failure:
      pre-decoded requests from several threads, in the bf16 and the mixed
      config, with the kernels' launch counts read around the run;
   4. the kernel path's logits against the port's plain fp32 path;
-  5. times: img/s and p50 latency, kernels against the plain path, and each
-     kernel against its twin.
+  5. times: img/s and p50 latency, kernels against the plain path;
+  6. the int8 (W8A8) slice: the int8 GEMM and the row quantizer bit-exact
+     against torch._int_mm and quantize_rows, the three int8-path kernels
+     against their twins (the two W8A8 blocks stage by stage, and the twins
+     with a fault planted shown to fail their bound), and ``quantize_vit`` of
+     the same ViT-L served in the ``auto`` mode through ``BatchingServer``
+     (buckets 1 and 4 run ``w8`` / ``w8a8`` on the fused-qkv attention
+     kernel, 16 and 64 the two W8A8 block kernels), with the launch counts
+     read around the run; every layer of each mode through the kernels
+     against the twins on the same input, and the logits against the port's
+     plain fp32 path; p50 of each int8 mode at batch 1, 8 and 128; device
+     time by kernel of one int8 forward at batch 128 (torch.profiler);
+  7. each of the five kernels at batch 128 against its twin, against the
+     PyTorch library composite that computes the same function, and against
+     its bound on this card.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -28,9 +43,11 @@ import sys
 import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 
@@ -51,6 +68,57 @@ N_REQUESTS = 32
 # round a bf16 activation to its neighbour; 5% of the largest logit.
 E2E_TOL = {"bf16": 0.1, "mixed": 0.05}
 SERVER_TOL = 0.05
+
+# The int8 kernels 9 and 10 against their twins, stage by stage
+# (check_quant_block). The int8 products are exact and both sides round at
+# the same sites, so:
+# - LN codes: the kernel's LN sums in another order than the twin's, so an LN
+#   value can land a few fp32 ulps apart and cross a rounding boundary. At
+#   most INT8_LN_MOVED of the codes may move, each by one step, and a row
+#   scale by at most INT8_LN_SCALE_ULPS fp32 ulps.
+# - The dequant epilogues, run on the kernel's own codes (the qkv rows, the
+#   output): bitwise.
+# - The fp32 rows that the kernel quantizes (attention output, GELU hidden),
+#   against the twin's attention / GELU on the kernel's own qkv / codes:
+#   within INT8_ROWS_TOL of their largest value (the softmax sums in another
+#   order and rounds P to bf16; CUDA's tanhf is not torch's tanh). Their
+#   codes and row scales: bitwise against quantize_rows of the same rows.
+# - The output against the twin (int8_out_check): at most INT8_DIFFER of the
+#   values unequal once rounded to bf16, and each within INT8_ULPS bf16 ulps
+#   of max(|ref|, INT8_FLOOR). Where a code moves upstream, the codes of that
+#   row's next quantization move too, and that row carries its own rounding
+#   noise (a few ulps at small values); in every other row the two sides are
+#   bitwise equal. A kernel that skips the activation quantization, or
+#   rounds what it quantizes to bf16 first, moves most values
+#   (INT8_FAULTS: the twin with that fault planted must fail this check).
+INT8_LN_MOVED, INT8_LN_SCALE_ULPS = 1e-4, 8
+INT8_ROWS_TOL = {"attention": 2.0**-8, "hidden": 1e-6}
+INT8_DIFFER, INT8_ULPS, INT8_FLOOR = 0.10, 8.0, 0.5
+INT8_FAULTS = ("no activation quantization (W8A16)", "activations rounded to bf16 before quantizing")
+# The int8 model, each layer on the same input through the kernels and
+# through the twins (force_backend), held by int8_out_check's two measures:
+# w8 and w8a8 run kernel 3 and PyTorch int8 GEMMs, w8a8_kernel runs kernels
+# 9 and 10. Within a layer the MLP quantizes rows in which the attention half
+# already moved a value by an ulp, so a layer moves more values than one
+# kernel alone. On the H100 (700 W), random ViT-L weights, batch 8: at most
+# 0.016 / 0.010 / 0.071 of a layer's values differ (w8 / w8a8 / w8a8_kernel)
+# and at most 5 / 10 / 11 ulps; a kernel with a planted fault moved 0.49 to
+# 0.80 of the values of one op alone.
+INT8_LAYER_DIFFER, INT8_LAYER_ULPS = 0.15, 16.0
+# The int8 logits against the port's plain fp32 path (accuracy): the JAX
+# package's w8a8_kernel mode was 0.120 from bf16 over 1024 inputs at this
+# config (PERFORMANCE.md:543; an accuracy figure, measured on its TPU). On
+# the H100 the kernel path measured 0.065 / 0.127 / 0.093 (w8 / w8a8 /
+# w8a8_kernel) and the plain int8 path up to 0.097 over these 8 inputs;
+# 0.19 is 1.5x the largest.
+INT8_FP32_TOL = 0.19
+
+# H100 SXM5 peaks (NVIDIA data sheet, dense): the bound of each kernel is the
+# larger of its bytes over the memory rate and its operations over the peak
+# rate of their type.
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -80,6 +148,135 @@ def kernel_tol(ref: torch.Tensor, base, dtype) -> float:
     if dtype == torch.bfloat16:
         tol += 2.0**-7 * ref.abs().max().item()
     return tol
+
+
+def check_close(name, out, ref, base):
+    """Require ``out`` within kernel_tol of ``ref``; returns max |err|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = kernel_tol(ref, base, out.dtype)
+    rel = err / ref.float().abs().max().item()
+    print(f"{name}: max_abs_err {err:.6g} (rel {rel:.3g}) tol {tol:.6g}")
+    require(torch.isfinite(out.float()).all().item(), f"{name}: non-finite output")
+    require(err <= tol, f"{name}: error {err} > {tol}")
+    return err
+
+
+def bf16_ulps(out, ref) -> float:
+    """The largest elementwise |out - ref| in bf16 ulps of max(|ref|,
+    INT8_FLOOR): the ulp of a in [2^(e-1), 2^e) is 2^(e-8)."""
+    ref = ref.float()
+    _, e = torch.frexp(ref.abs().clamp(min=INT8_FLOOR))
+    return ((out.float() - ref).abs() / torch.ldexp(torch.ones_like(ref), e - 8)).max().item()
+
+
+def int8_out_check(out, ref):
+    """(bf16_ulps, the share of values unequal once rounded to bf16, whether
+    both are within INT8_ULPS and INT8_DIFFER)."""
+    ulps = bf16_ulps(out, ref)
+    differ = (out.bfloat16() != ref.bfloat16()).float().mean().item()
+    return ulps, differ, ulps <= INT8_ULPS and differ <= INT8_DIFFER
+
+
+def codes_differ(q, s, q_ref, s_ref):
+    """(codes that differ, largest code step, largest row-scale difference in
+    fp32 ulps) of int8 codes and row scales against a reference."""
+    dq = (q.int() - q_ref.int()).abs()
+    s, s_ref = s.reshape(-1), s_ref.reshape(-1)
+    ulp = torch.ldexp(torch.ones_like(s_ref), torch.frexp(s_ref)[1] - 24)
+    return int((dq > 0).sum().item()), int(dq.max().item()), ((s - s_ref).abs() / ulp).max().item()
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str):
+    """The int8 twins with one of INT8_FAULTS planted."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.ops.quant import quantize_rows
+
+    if fault == INT8_FAULTS[0]:  # the GEMMs take the fp32 rows and dequantized weights
+        patches = dict(
+            quantize_rows=lambda v: (v.float(), torch.ones_like(v[..., :1], dtype=torch.float32)),
+            _quant_gemm=lambda a, s, w, ws: torch.matmul(a, w.float() * ws.reshape(-1)) * s,
+        )
+    else:
+        patches = dict(quantize_rows=lambda v: quantize_rows(v.bfloat16().float()))
+    with mock.patch.multiple(qb, **patches):
+        yield
+
+
+def quant_block_twin(args, heads=None, true_n=None, activation="gelu"):
+    """The twin of kernel 9 (``heads`` given) or kernel 10."""
+    from vit_tpu_torch.ops import quant_block as qb
+
+    if heads is None:
+        return qb.reference_quant_mlp(*args, activation=activation)
+    d = args[3].shape[1] // 3 // heads
+    return qb.xla_quant_attention_block(*args, heads, d**-0.5, true_n=true_n)
+
+
+def check_quant_block(name, args, heads=None, true_n=None, activation="gelu"):
+    """Kernel 9 (``heads`` given) or kernel 10 on ``args`` against its twin,
+    stage by stage (INT8_* above). Prints each stage; returns (the output,
+    the twin's output, max |err|, the failures)."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.ops.block_attention import _ln_f32
+    from vit_tpu_torch.ops.quant import quantize_rows
+
+    st = {}
+    x = args[0]
+    if heads is None:
+        out = qb.fused_quant_mlp(*args, activation=activation, intermediates=st)
+        w_b, s_b, bias = args[6:9]
+    else:
+        out = qb.fused_quant_attention_block(*args, heads, true_n=true_n, intermediates=st)
+        w_b, s_b, bias = args[5:8]
+    ref = quant_block_twin(args, heads, true_n, activation)
+    torch.cuda.synchronize()
+    rows, dim = st["xq"].shape
+    fails = []
+
+    def stage(ok, line):
+        print(f"{name}: {line}")
+        if not ok:
+            fails.append(f"{name}: {line}")
+
+    xq, s_ref = quantize_rows(_ln_f32(x.float(), args[1], args[2]).reshape(rows, dim))
+    moved, step, s_ulps = codes_differ(st["xq"], st["s_row"], xq, s_ref)
+    stage(moved <= INT8_LN_MOVED * xq.numel() and step <= 1 and s_ulps <= INT8_LN_SCALE_ULPS,
+          f"LN codes moved {moved} of {xq.numel()} (largest step {step}; bound "
+          f"{INT8_LN_MOVED:g} of them, one step), row scales within {s_ulps:g} fp32 ulps "
+          f"(bound {INT8_LN_SCALE_ULPS})")
+    g = qb._quant_gemm(st["xq"], st["s_row"].view(-1, 1), args[3], args[4])
+    if heads is None:
+        kind, fp32 = "hidden", st["h"]
+        rows_ref = qb._activate(g + args[5], activation)
+        q2, s2 = st["hq"], st["s_row2"]
+    else:
+        differ = int((st["qkv"] != g.bfloat16()).sum().item())
+        stage(differ == 0, f"qkv rows (dequant epilogue on the kernel's codes) differing "
+                           f"bitwise: {differ} (must be 0)")
+        kind, fp32 = "attention", st["attn"]
+        b, n, _ = x.shape
+        rows_ref = qb._attention_f32(st["qkv"].view(b, n, -1), heads,
+                                     (args[3].shape[1] // 3 // heads) ** -0.5, true_n)
+        rows_ref = rows_ref.reshape(rows, -1)
+        q2, s2 = st["aq"], st["s_row2"]
+    rel = ((fp32 - rows_ref).abs().max() / rows_ref.abs().max()).item()
+    stage(rel <= INT8_ROWS_TOL[kind], f"fp32 {kind} rows against the twin's on the kernel's "
+                                      f"inputs: {rel:.3g} of their max (bound {INT8_ROWS_TOL[kind]:.3g})")
+    moved, step, s_ulps = codes_differ(q2, s2, *quantize_rows(fp32))
+    stage(moved == 0 and s_ulps == 0, f"{kind} codes differing from quantize_rows of the kernel's "
+                                      f"fp32 rows: {moved}, row scales {s_ulps:g} fp32 ulps (must be 0)")
+    o = qb._quant_gemm(q2, s2.view(-1, 1), w_b, s_b) + bias
+    o = (o + x.float().reshape(rows, dim)).to(x.dtype)
+    differ = int((o != out.reshape(rows, dim)).sum().item())
+    stage(differ == 0, f"output (dequant epilogue on the kernel's codes) differing bitwise: "
+                       f"{differ} (must be 0)")
+    err = (out.float() - ref.float()).abs().max().item()
+    ulps, differ, ok = int8_out_check(out, ref)
+    stage(ok, f"output against the twin: max_abs_err {err:.6g}, {ulps:.3g} bf16 ulps of "
+              f"max(|ref|, {INT8_FLOOR}) (bound {INT8_ULPS:g}), {differ:.3g} of the values differ "
+              f"in bf16 (bound {INT8_DIFFER:g})")
+    return out, ref, err, fails
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -188,12 +385,7 @@ def phase_kernels(dev):
         out = ba.fused_attention_block(*a, shape["heads"], **masks)
         ref = ba.xla_attention_block(*a, shape["heads"], shape["d"] ** -0.5, **masks)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = kernel_tol(ref, inp["x"], out.dtype)
-        rel = err / ref.float().abs().max().item()
-        print(f"attention_block {name}: max_abs_err {err:.6g} (rel {rel:.3g}) tol {tol:.6g}")
-        require(torch.isfinite(out.float()).all().item(), f"attention_block {name}: non-finite output")
-        require(err <= tol, f"attention_block {name}: error {err} > {tol}")
+        err = check_close(f"attention_block {name}", out, ref, inp["x"])
         if name.startswith("ViT-L"):
             worst["attention_block"] = max(worst["attention_block"], err)
 
@@ -212,12 +404,7 @@ def phase_kernels(dev):
         out = fused_mlp(**inp, **kw)
         ref = reference_mlp(**inp, **kw)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = kernel_tol(ref, inp["x"] if kw["residual"] else None, out.dtype)
-        rel = err / ref.float().abs().max().item()
-        print(f"fused_mlp {name}: max_abs_err {err:.6g} (rel {rel:.3g}) tol {tol:.6g}")
-        require(torch.isfinite(out.float()).all().item(), f"fused_mlp {name}: non-finite output")
-        require(err <= tol, f"fused_mlp {name}: error {err} > {tol}")
+        err = check_close(f"fused_mlp {name}", out, ref, inp["x"] if kw["residual"] else None)
         if name.startswith("ViT-L"):
             worst["fused_mlp"] = max(worst["fused_mlp"], err)
     return worst
@@ -231,6 +418,27 @@ def build_model(state, dev, config):
     model = ViT(**VIT_L, dtype=dtypes[0], residual_dtype=dtypes[1], device=dev)
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def submit_all(server, requests):
+    """Submit ``requests`` to ``server`` from 4 client threads; returns the
+    result rows and the seconds until the last one came back."""
+    futures = [None] * len(requests)
+
+    def client(idx):
+        for i in idx:
+            futures[i] = server.submit(requests[i])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(k, len(requests), 4),))
+               for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        require(not t.is_alive(), "client thread hung")
+    rows = [f.result(timeout=300) for f in futures]
+    return rows, time.perf_counter() - t0
 
 
 def serve_slice(model, requests, config):
@@ -248,22 +456,7 @@ def serve_slice(model, requests, config):
     t0 = time.perf_counter()
     with BatchingServer(pipe, max_wait_ms=5) as server:  # warms every bucket
         t_warm = time.perf_counter() - t0
-        futures = [None] * len(requests)
-
-        def client(idx):
-            for i in idx:
-                futures[i] = server.submit(requests[i])
-
-        t1 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(range(k, len(requests), 4),))
-                   for k in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-            require(not t.is_alive(), "client thread hung")
-        rows = [f.result(timeout=300) for f in futures]
-        t_serve = time.perf_counter() - t1
+        rows, t_serve = submit_all(server, requests)
     served_batches = forwards[len(pipe.batch_buckets):]
     direct = np.concatenate([pipe(r[None]) for r in requests])
     hook.remove()
@@ -348,25 +541,411 @@ def phase_times(models, dev, smi):
             print(f"{line} [{smi}]")
 
 
+# -- the int8 slice ---------------------------------------------------------
+
+
+def qblock_inputs(gen, b, n, dim, heads, d, dev):
+    from vit_tpu_torch.ops.quant import quantize_channelwise
+
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    wqkv, sqkv = quantize_channelwise(r(dim, 3 * heads * d) / dim**0.5)
+    wout, sout = quantize_channelwise(r(heads * d, dim) / (heads * d) ** 0.5)
+    return dict(x=r(b, n, dim).bfloat16(), ln_scale=1.0 + 0.1 * r(dim), ln_bias=0.1 * r(dim),
+                wqkv_i8=wqkv, sqkv=sqkv, wout_i8=wout, sout=sout, bout=0.1 * r(dim))
+
+
+def qmlp_inputs(gen, b, t, dim, f, x_dtype, dev):
+    from vit_tpu_torch.ops.quant import quantize_channelwise
+
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    w1, s1 = quantize_channelwise(r(dim, f) / dim**0.5)
+    w2, s2 = quantize_channelwise(r(f, dim) / f**0.5)
+    return dict(x=r(b, t, dim).to(x_dtype), ln_scale=1.0 + 0.1 * r(dim), ln_bias=0.1 * r(dim),
+                w1_i8=w1, s1=s1, b1=0.1 * r(f), w2_i8=w2, s2=s2, b2=0.1 * r(dim))
+
+
+QBLOCK_ARGS = ("x", "ln_scale", "ln_bias", "wqkv_i8", "sqkv", "wout_i8", "sout", "bout")
+QMLP_ARGS = ("x", "ln_scale", "ln_bias", "w1_i8", "s1", "b1", "w2_i8", "s2", "b2")
+
+
+def tie_rows(gen, rows, k, dev):
+    """fp32 rows whose largest value is 127, so that the row scale is 1 and
+    every value of the form j + 1/2 lands on a half: round half to even and
+    half away from zero give other codes there. One row is all zero (the
+    scale's 1e-12 floor)."""
+    v = torch.randn(rows, k, generator=gen, device=dev) * 40
+    v = torch.where(torch.rand(rows, k, generator=gen, device=dev) < 0.5, v.round() + 0.5, v)
+    v = v.clamp(-126.5, 126.5)
+    v[:, 0] = 127.0
+    v[1] = 0.0
+    return v
+
+
+def phase_int8_kernels(dev):
+    """The int8 GEMM and row quantizer bit-exact, and kernels 3, 9 and 10
+    against their twins, at the ViT-L shapes (batch 8) and at small masked
+    and bias shapes; the twins with a fault planted must fail the bound of
+    kernels 9 and 10."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.ops.quant import int_mm, quantize_rows
+
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    v = tie_rows(gen, 64, 1024, dev)
+    moved, _, s_ulps = codes_differ(*qb.quant_rows_f32(v), *quantize_rows(v))
+    halves = int((v.frac().abs() == 0.5).sum().item())
+    print(f"quant_rows on rows with {halves} values on a half: codes differing from quantize_rows "
+          f"{moved}, row scales {s_ulps:g} fp32 ulps (must be 0)")
+    require(moved == 0 and s_ulps == 0, f"quant_rows: {moved} codes differ from quantize_rows")
+    rows = 8 * N_TOKENS
+    for m, k, n in ((rows, 1024, 3072), (rows, 1024, 1024), (rows, 1024, 4096), (rows, 4096, 1024),
+                    (37, 256, 48)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        got, ref = qb.gemm_s8_i32(a, b), int_mm(a, b)
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum().item())
+        print(f"gemm_s8 [{m}x{k}] @ [{k}x{n}]: int32 sums differing from torch._int_mm: {differ} "
+              f"(must be 0)")
+        require(differ == 0, f"gemm_s8 {m}x{k}x{n}: {differ} int32 sums differ")
+
+    worst = {"qkv_attention": 0.0, "quant_attention_block": 0.0, "quant_mlp": 0.0}
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    for name, (b, n, heads, d), bshape in (
+        ("ViT-L", (8, N_TOKENS, 16, 64), None),
+        ("bias [1,1,N,N]", (2, 40, 4, 32), (1, 1)),
+        ("bias [B,H,N,N]", (2, 40, 4, 32), (2, 4)),
+    ):
+        qkv = r(b, n, 3 * heads * d).bfloat16()
+        bias = None if bshape is None else r(*bshape, n, n)
+        out = qa.fused_qkv_attention(qkv, heads, bias)
+        ref = qa.xla_qkv_attention(qkv, heads, bias)
+        torch.cuda.synchronize()
+        err = check_close(f"qkv_attention {name}", out, ref, None)
+        if name == "ViT-L":
+            worst["qkv_attention"] = err
+
+    fails = []
+    cases = [
+        ("quant_attention_block ViT-L", qblock_inputs(gen, 8, N_TOKENS, 1024, 16, 64, dev),
+         dict(heads=16)),
+        ("quant_attention_block padded true_n", qblock_inputs(gen, 4, 64, 256, 4, 64, dev),
+         dict(heads=4, true_n=37)),
+        ("quant_mlp ViT-L gelu", qmlp_inputs(gen, 8, N_TOKENS, 1024, 4096, torch.bfloat16, dev),
+         dict(activation="gelu")),
+        ("quant_mlp small fp32 gelu_exact", qmlp_inputs(gen, 2, 33, 256, 512, torch.float32, dev),
+         dict(activation="gelu_exact")),
+    ]
+    for name, inp, kw in cases:
+        a = [inp[k] for k in (QMLP_ARGS if name.startswith("quant_mlp") else QBLOCK_ARGS)]
+        _, ref, err, f = check_quant_block(name, a, **kw)
+        fails += f
+        if "ViT-L" in name:
+            worst[name.split()[0]] = err
+            for fault in INT8_FAULTS:
+                with planted_fault(fault):
+                    bad = quant_block_twin(a, **kw)
+                ulps, differ, ok = int8_out_check(bad, ref)
+                print(f"{name}: the twin with {fault}: {ulps:.3g} bf16 ulps from the twin, "
+                      f"{differ:.3g} of the values differ, max |err| "
+                      f"{(bad.float() - ref.float()).abs().max().item():.6g} (must fail the check)")
+                if ok:
+                    fails.append(f"{name}: the bound does not see {fault}")
+    require(not fails, "; ".join(fails))
+    return worst
+
+
+def serve_int8(qmodel, requests, dev):
+    """BatchingServer -> InferencePipeline -> QuantViT(mode="auto") on the
+    card. Sets the launch counts to 0 before the run and returns them as
+    read just after it; then holds each server row against a direct call in
+    the mode of the bucket its batch rode in."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import InferencePipeline, preprocess
+    from vit_tpu_torch.serving import BatchingServer
+    from vit_tpu_torch.utils.quantize import MODES, W8A8_KERNEL_MIN_BATCH, resolve_quant_mode
+
+    forwards, batches = [], []
+    hook = qmodel.register_forward_hook(lambda m, a, o: forwards.append(a[0].shape[0]))
+    pipe = InferencePipeline(qmodel, image_size=224, batch_size=64)
+    require(pipe.batch_buckets == [1, 4, 16, 64], f"buckets {pipe.batch_buckets}")
+    require([resolve_quant_mode(b) for b in pipe.batch_buckets]
+            == ["w8", "w8a8", "w8a8_kernel", "w8a8_kernel"], "auto modes of the buckets")
+    dispatch = pipe.dispatch
+    pipe.dispatch = lambda raw: (batches.append(np.array(raw)), dispatch(raw))[1]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BatchingServer(pipe, max_wait_ms=5) as server:  # warms every bucket
+        t_warm = time.perf_counter() - t0
+        rows, t_serve = submit_all(server, requests)
+        rows = np.stack(rows)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hook.remove()
+
+    depth = VIT_L["depth"]
+    small = sum(b < W8A8_KERNEL_MIN_BATCH for b in forwards)
+    big = len(forwards) - small
+    print(f"int8 slice: {len(requests)} requests in {t_serve * 1e3:.1f} ms as batches "
+          f"{[len(b) for b in batches]} (warm {t_warm:.2f} s); "
+          f"forwards {forwards}; launches {counts}")
+    require(rows.shape == (len(requests), 1000), f"rows {rows.shape}")
+    require(np.isfinite(rows).all(), "non-finite logits from the int8 server")
+    require(small >= 2 and big >= 2, f"forwards {forwards} miss a bucket")
+    require(counts["qkv_attention"] == depth * small,
+            f"qkv_attention launched {counts['qkv_attention']} times, want {depth} x {small}")
+    for k in ("quant_attention_block", "quant_mlp"):
+        require(counts[k] == depth * big, f"{k} launched {counts[k]} times, want {depth} x {big}")
+    for k in ("attention_block", "fused_mlp"):
+        require(counts[k] == 0, f"the float kernel {k} ran {counts[k]} times on the int8 path")
+
+    x = preprocess(torch.from_numpy(np.stack(requests)).to(dev), image_size=224)
+    with torch.inference_mode():
+        direct = {m: qmodel(x, mode=m).float().cpu().numpy() for m in MODES}
+    worst = 0.0
+    for i, req in enumerate(requests):
+        n = next(len(b) for b in batches if (b == req).all(axis=(1, 2, 3)).any())
+        mode = resolve_quant_mode(pipe._bucket_for(n))
+        worst = max(worst, float(np.abs(rows[i] - direct[mode][i]).max()))
+    tol = SERVER_TOL * float(np.abs(direct["w8a8_kernel"]).max())
+    print(f"int8 slice: server vs direct (same mode) max|dlogit| {worst:.6g} tol {tol:.6g}")
+    require(worst <= tol, f"int8 server rows differ from direct calls by {worst}")
+    return counts
+
+
+def phase_int8_e2e(qmodel, fp32_model, dev, requests):
+    """Each int8 mode at batch 8: every layer through the kernels against the
+    same layer through the twins on the same input (INT8_LAYER_*); the
+    logits against the port's plain fp32 path (INT8_FP32_TOL), and, printed
+    only, against the plain int8 path beside a control."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils.quantize import MODES
+
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    x = preprocess(raw, image_size=224, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with ops.force_backend("torch"):
+            ref32 = fp32_model(preprocess(raw, image_size=224, dtype=torch.float32))
+        # control: the same inputs with one bf16 ulp added to 1% of the values
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        moved = torch.rand(x.shape, generator=gen, device=dev) < 0.01
+        x_ulp = torch.where(moved, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
+        x0 = qmodel.embed(x)
+        for mode in MODES:
+            layer = lambda blk, h: blk(h, mode, torch.bfloat16, qmodel.norm_eps, qmodel.activation)
+            h, ulps, differ = x0, [], []
+            for blk in qmodel.encoder.blocks:
+                k = layer(blk, h)
+                with ops.force_backend("torch"):
+                    h = layer(blk, h)
+                u, dv, _ = int8_out_check(k, h)
+                ulps.append(u)
+                differ.append(dv)
+            print(f"e2e int8 {mode} (batch 8): each layer, kernels vs twins on the same input: "
+                  f"up to {max(differ):.3g} of the values differ in bf16 (bound "
+                  f"{INT8_LAYER_DIFFER:g}), up to {max(ulps):g} bf16 ulps of max(|ref|, "
+                  f"{INT8_FLOOR}) (bound {INT8_LAYER_ULPS:g}); by layer: "
+                  f"{' '.join(f'{dv:.2g}/{u:g}' for u, dv in zip(ulps, differ))}")
+            out = qmodel(x, mode=mode)
+            with ops.force_backend("torch"):
+                plain = qmodel(x, mode=mode)
+                control = (qmodel(x_ulp, mode=mode) - plain).abs().max().item()
+            e_plain = (out - plain).abs().max().item()
+            e_fp32 = (out - ref32).abs().max().item()
+            p_fp32 = (plain - ref32).abs().max().item()
+            top1 = (out.argmax(-1) == ref32.argmax(-1)).float().mean().item()
+            print(f"e2e int8 {mode} (batch 8): logits, kernels vs plain int8 max|dlogit| "
+                  f"{e_plain:.6g} (control: plain vs plain on inputs one ulp apart {control:.6g}); "
+                  f"vs plain fp32: kernels {e_fp32:.6g}, plain int8 {p_fp32:.6g}, tol "
+                  f"{INT8_FP32_TOL} (max|logit| {ref32.abs().max().item():.4g}); top-1 agreement "
+                  f"of the kernels with fp32 {top1:.3f}")
+            require(max(differ) <= INT8_LAYER_DIFFER and max(ulps) <= INT8_LAYER_ULPS,
+                    f"int8 {mode}: a layer is {max(differ):.3g} / {max(ulps):g} ulps from its twins")
+            require(e_fp32 <= INT8_FP32_TOL, f"int8 {mode}: {e_fp32} from the fp32 path")
+
+
+def phase_int8_times(qmodel, dev, smi):
+    """p50 of each int8 mode at batch 1, 8 and 128 (kernel path), and int8
+    img/s at batch 128 in the auto mode, kernels against the plain path in
+    turns (kernel, plain, plain, kernel)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.utils.quantize import MODES
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    with torch.inference_mode():
+        for b in (1, 8, 128):
+            x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
+            for mode in MODES:
+                run = lambda: qmodel(x, mode=mode)
+                p50_ms(run, 2)  # warm-up
+                ms = p50_ms(run, 3 if b == 128 else 5)
+                print(f"int8 times {mode} batch {b}: p50 {ms:.3f} ms [{smi}]")
+        kernel = lambda: qmodel(x)
+
+        def plain():
+            with ops.force_backend("torch"):
+                qmodel(x)
+
+        p50_ms(plain, 1)
+        runs = {kernel: [], plain: []}
+        for f in (kernel, plain, plain, kernel):
+            runs[f].append(p50_ms(f, 3))
+        kern, pl = statistics.mean(runs[kernel]), statistics.mean(runs[plain])
+    print(f"int8 times auto batch 128: img/s kernels {128 / kern * 1e3:.1f}, plain "
+          f"{128 / pl * 1e3:.1f} (p50 {kern:.3f} / {pl:.3f} ms) [{smi}]")
+
+
+def phase_int8_profile(qmodel, dev, smi):
+    """Device time by kernel for one int8 forward at batch 128 in the auto
+    mode, from torch.profiler: where the int8 slice's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(128, 224, 224, 3, generator=torch.Generator(device=dev).manual_seed(SEED + 6),
+                    device=dev).bfloat16()
+    with torch.inference_mode():
+        qmodel(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            qmodel(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile int8 auto batch 128: device busy {busy:.3f} ms in a {wall:.3f} ms forward "
+          f"(host clock, profiler on) [{smi}]")
+    for ms, count, key in rows[:8]:
+        print(f"profile int8 auto batch 128: {ms:8.3f} ms x{count:<4d} {key[:90]}")
+
+
+# -- per-op times at batch 128 --------------------------------------------------
+
+
+def split_heads(qkv, heads):
+    b, n, three_hd = qkv.shape
+    q, k, v = qkv.view(b, n, 3, heads, three_hd // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    return q, k, v
+
+
+def merge_heads(o):
+    b, h, n, d = o.shape
+    return o.transpose(1, 2).reshape(b, n, h * d)
+
+
+def library_attention_block(x, ln_scale, ln_bias, wqkv, wout, bout, heads):
+    """The float block from library calls: F.layer_norm, cuBLAS bf16 GEMMs, SDPA."""
+    dim = x.shape[-1]
+    xn = F.layer_norm(x, (dim,), ln_scale, ln_bias, 1e-6)
+    o = merge_heads(F.scaled_dot_product_attention(*split_heads(torch.matmul(xn, wqkv), heads)))
+    return torch.matmul(o, wout) + bout + x
+
+
+def library_mlp(x, w1, b1, w2, b2, ln_scale, ln_bias):
+    xn = F.layer_norm(x, (x.shape[-1],), ln_scale, ln_bias, 1e-6)
+    h = F.gelu(torch.addmm(b1, xn.flatten(0, -2), w1), approximate="tanh")
+    return torch.addmm(b2, h, w2).view_as(x)
+
+
+def library_quant_block(x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads):
+    """The W8A8 block from library calls: torch._int_mm for both products, SDPA."""
+    from vit_tpu_torch.ops.quant import quantize_rows
+
+    b, n, dim = x.shape
+    xq, sr = quantize_rows(F.layer_norm(x.float(), (dim,), ln_scale, ln_bias, 1e-6))
+    qkv = (torch._int_mm(xq.view(-1, dim), wqkv_i8).float() * sr.view(-1, 1) * sqkv).bfloat16()
+    o = merge_heads(F.scaled_dot_product_attention(*split_heads(qkv.view(b, n, -1), heads)))
+    aq, sr2 = quantize_rows(o.float().view(b * n, -1))
+    out = torch._int_mm(aq, wout_i8).float() * sr2 * sout + bout + x.view(b * n, dim).float()
+    return out.to(x.dtype).view_as(x)
+
+
+def library_quant_mlp(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    from vit_tpu_torch.ops.quant import quantize_rows
+
+    dim = x.shape[-1]
+    xf = x.float().view(-1, dim)
+    xq, sr = quantize_rows(F.layer_norm(xf, (dim,), ln_scale, ln_bias, 1e-6))
+    h = F.gelu(torch._int_mm(xq, w1_i8).float() * sr * s1 + b1, approximate="tanh")
+    hq, sr2 = quantize_rows(h)
+    out = torch._int_mm(hq, w2_i8).float() * sr2 * s2 + b2 + xf
+    return out.to(x.dtype).view_as(x)
+
+
+def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops = bf16_flops / PEAK_BF16 + int8_ops / PEAK_INT8
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_op_times(dev, smi):
-    """Each kernel against its twin at the ViT-L shape, batch 128, bf16."""
+    """Each kernel at the ViT-L shape, batch 128, bf16: its time, its twin's,
+    its library composite's, and its bound."""
     from vit_tpu_torch.ops import block_attention as ba
+    from vit_tpu_torch.ops import quant_block as qb
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
 
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    a_in = attn_inputs(gen, 128, N_TOKENS, 1024, 16, 64, torch.bfloat16, dev)
-    a = [a_in[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
-    m_in = mlp_inputs(gen, 16 * N_TOKENS, 1024, 4096, torch.bfloat16, dev)  # 8 x 16 = 128 images
-    mkw = dict(activation="gelu", residual=False)
+    b, n, dim, heads, d, f = 128, N_TOKENS, 1024, 16, 64, 4096
+    rows, hd = b * n, heads * d
+    attn_flops = 4 * b * heads * n * n * d
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    bf = lambda t: t.bfloat16()
+    ms = {}
     with torch.inference_mode():
-        ms = {
-            "attention_block": (cuda_ms(lambda: ba.fused_attention_block(*a, 16)),
-                                cuda_ms(lambda: ba.xla_attention_block(*a, 16, 0.125), iters=5)),
-            "fused_mlp": (cuda_ms(lambda: fused_mlp(**m_in, **mkw)),
-                          cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=5)),
-        }
-    for k, (kern, plain) in ms.items():
-        print(f"op {k} ViT-L batch 128 bf16: kernel {kern:.3f} ms, twin {plain:.3f} ms [{smi}]")
+        a_in = attn_inputs(gen, b, n, dim, heads, d, torch.bfloat16, dev)
+        a = [a_in[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+        lib_a = [a[0], bf(a[1]), bf(a[2]), a[3], a[4], bf(a[5])]
+        ms["attention_block"] = (
+            cuda_ms(lambda: ba.fused_attention_block(*a, heads)),
+            cuda_ms(lambda: ba.xla_attention_block(*a, heads, d**-0.5), iters=5),
+            cuda_ms(lambda: library_attention_block(*lib_a, heads)),
+            bound(2 * rows * dim * 3 * hd + attn_flops + 2 * rows * hd * dim,
+                  nbytes=size(*a) + size(a[0])),
+        )
+        del a, lib_a, a_in
+        m_in = mlp_inputs(gen, 16 * n, dim, f, torch.bfloat16, dev)  # 8 x 16 = 128 images
+        mkw = dict(activation="gelu", residual=False)
+        lib_m = {k: bf(v) if v.dim() == 1 else v for k, v in m_in.items()}
+        ms["fused_mlp"] = (
+            cuda_ms(lambda: fused_mlp(**m_in, **mkw)),
+            cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=5),
+            cuda_ms(lambda: library_mlp(**lib_m)),
+            bound(4 * rows * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"])),
+        )
+        del m_in, lib_m
+        qkv = torch.randn(b, n, 3 * hd, generator=gen, device=dev).bfloat16()
+        ms["qkv_attention"] = (
+            cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads)),
+            cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=5),
+            cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(*split_heads(qkv, heads)))),
+            bound(attn_flops, nbytes=size(qkv) + rows * hd * 2),
+        )
+        del qkv
+        q_in = qblock_inputs(gen, b, n, dim, heads, d, dev)
+        q = [q_in[k] for k in QBLOCK_ARGS]
+        ms["quant_attention_block"] = (
+            cuda_ms(lambda: qb.fused_quant_attention_block(*q, heads)),
+            cuda_ms(lambda: qb.xla_quant_attention_block(*q, heads, d**-0.5), iters=5),
+            cuda_ms(lambda: library_quant_block(*q, heads)),
+            bound(attn_flops, 2 * rows * dim * 3 * hd + 2 * rows * hd * dim,
+                  nbytes=size(*q) + size(q[0])),
+        )
+        del q, q_in
+        qm_in = qmlp_inputs(gen, 8, 16 * n, dim, f, torch.bfloat16, dev)
+        qm = [qm_in[k] for k in QMLP_ARGS]
+        ms["quant_mlp"] = (
+            cuda_ms(lambda: qb.fused_quant_mlp(*qm)),
+            cuda_ms(lambda: qb.reference_quant_mlp(*qm), iters=5),
+            cuda_ms(lambda: library_quant_mlp(*qm)),
+            bound(int8_ops=4 * rows * dim * f, nbytes=size(*qm) + size(qm[0])),
+        )
+    for k, (kern, plain, lib, (bnd, by)) in ms.items():
+        print(f"op {k} ViT-L batch 128 bf16: kernel {kern:.3f} ms, twin {plain:.3f} ms, "
+              f"library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it) [{smi}]")
     return ms
 
 
@@ -381,7 +960,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from vit_tpu_torch import ops
     from vit_tpu_torch.ops import _build
-    from vit_tpu_torch.utils import from_jax_params
+    from vit_tpu_torch.utils import from_jax_params, quantize_vit
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -399,8 +978,9 @@ def main() -> int:
 
     # 2. kernels against twins
     worst = phase_kernels(dev)
+    worst.update(phase_int8_kernels(dev))
 
-    # 3. the slice, bf16 then mixed
+    # 3. the float slice, bf16 then mixed
     t0 = time.perf_counter()
     state = from_jax_params(vit_l_tree(SEED))
     models = {c: build_model(state, dev, c) for c in ("bf16", "mixed", "fp32")}
@@ -412,25 +992,47 @@ def main() -> int:
     for config in ("bf16", "mixed"):
         serve_slice(models[config], requests, config)
     launches = ops.launch_counts()
-    print(f"main path launches: {launches}")
-    for k, n in launches.items():
-        require(n > 0, f"{k} was not launched on the main path")
+    print(f"float path launches: {launches}")
+    for k in ("attention_block", "fused_mlp"):
+        require(launches[k] > 0, f"{k} was not launched on the float path")
 
     # 4. against the plain path
     phase_e2e(models, dev, requests)
 
     # 5. times
     phase_times(models, dev, smi)
+
+    # 6. the int8 slice: quantize_vit of the bf16 ViT-L, served in the auto mode
+    qmodel = quantize_vit(models["bf16"])
+    int8_launches = serve_int8(qmodel, requests, dev)
+    for k in ("qkv_attention", "quant_attention_block", "quant_mlp"):
+        require(int8_launches[k] > 0, f"{k} was not launched on the int8 path")
+        launches[k] = int8_launches[k]
+    phase_int8_e2e(qmodel, models["fp32"], dev, requests)
+    phase_int8_times(qmodel, dev, smi)
+    phase_int8_profile(qmodel, dev, smi)
+    del models, qmodel
+    torch.cuda.empty_cache()
+
+    # 7. per-op times and bounds
     op_ms = phase_op_times(dev, smi)
 
-    sources = {"attention_block": ("vit_tpu_torch/csrc/attention_block.cu",
-                                   "vit_tpu/ops/block_attention.py:45"),
-               "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:53")}
-    kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
-         "max_abs_err": worst[k], "ms": op_ms[k][0], "plain_ms": op_ms[k][1]}
-        for k, (src, rep) in sources.items()
-    ]
+    sources = {
+        "attention_block": ("vit_tpu_torch/csrc/attention_block.cu",
+                            "vit_tpu/ops/block_attention.py:45"),
+        "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:53"),
+        "qkv_attention": ("vit_tpu_torch/csrc/qkv_attention.cu",
+                          "vit_tpu/ops/qkv_attention.py:32"),
+        "quant_attention_block": ("vit_tpu_torch/csrc/quant_block.cu",
+                                  "vit_tpu/ops/quant_block.py:37"),
+        "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu", "vit_tpu/ops/quant_block.py:189"),
+    }
+    kernels = []
+    for k, (src, rep) in sources.items():
+        kern, plain, lib, (bnd, by) = op_ms[k]
+        kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": launches[k], "max_abs_err": worst[k], "ms": kern,
+                        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

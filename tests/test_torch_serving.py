@@ -40,7 +40,7 @@ def test_preprocess_matches_jax(hw):
 def _model():
     gen = torch.Generator().manual_seed(0)
     model = ViT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=1, heads=2,
-                dim_head=32, mlp_dim=128)
+                dim_head=32, mlp_dim=128, device="cpu")
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=gen))

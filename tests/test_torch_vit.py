@@ -60,7 +60,7 @@ def _models(config, pool="cls"):
     jm = JaxViT(**CFG, pool=pool, dtype=getattr(jnp, dt) if dt else None,
                 residual_dtype=getattr(jnp, rd) if rd else None)
     tm = TorchViT(**CFG, pool=pool, dtype=getattr(torch, dt) if dt else None,
-                  residual_dtype=getattr(torch, rd) if rd else None)
+                  residual_dtype=getattr(torch, rd) if rd else None, device="cpu")
     return jm, tm
 
 
@@ -140,7 +140,7 @@ def test_unported_attention_branches_raise(flag):
     from vit_tpu_torch.nn import Attention
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, **{flag: True})
+        Attention(64, 4, 16, **{flag: True}, device="cpu")
 
 
 def test_cross_attention_raises():
@@ -148,4 +148,34 @@ def test_cross_attention_raises():
 
     x = torch.zeros(1, 5, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16)(x, context=x)
+        Attention(64, 4, 16, device="cpu")(x, context=x)
+
+
+def _constructors():
+    from vit_tpu_torch import nn as tnn
+    from vit_tpu_torch.utils import QuantViT
+
+    return {"ViT": TorchViT, "QuantViT": QuantViT,
+            **{c: getattr(tnn, c) for c in ("Transformer", "EncoderBlock", "FeedForward",
+                                            "Attention", "Dense", "LayerNorm", "PatchEmbed")}}
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["ViT", "Transformer", "EncoderBlock", "FeedForward", "Attention", "Dense", "LayerNorm",
+     "PatchEmbed", "QuantViT"],
+)
+def test_constructors_default_to_the_card(name):
+    import inspect
+
+    assert inspect.signature(_constructors()[name]).parameters["device"].default == "cuda"
+
+
+def test_default_vit_asks_for_the_card():
+    """With no ``device``, a ViT is built on the card; without one (this
+    CPU-only torch) construction raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        assert next(TorchViT(**CFG).parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            TorchViT(**CFG)

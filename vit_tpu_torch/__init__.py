@@ -10,12 +10,15 @@ layout and names so each module has an obvious counterpart:
 - ``vit_tpu_torch.nn``       — patch embedding, fused self-attention block,
                                feed-forward block, encoder stack.
 - ``vit_tpu_torch.models``   — ``ViT``.
-- ``vit_tpu_torch.utils``    — ``from_jax_params``: ``vit_tpu`` variables ->
-                               this package's ``state_dict``.
+- ``vit_tpu_torch.utils``    — ``from_jax_params`` / ``from_jax_quant``:
+                               ``vit_tpu`` trees -> this package's
+                               ``state_dict``; ``quantize_vit`` -> ``QuantViT``,
+                               the int8 (W8A8) ViT.
 - ``vit_tpu_torch.pipeline`` — on-device preprocess + bucketed batches.
 - ``vit_tpu_torch.data``     — native JPEG decode front-end.
 - ``vit_tpu_torch.serving``  — dynamic request batching.
 
+Models are built on the card unless the caller passes ``device="cpu"``.
 Importing the package builds and loads no CUDA code, and never imports JAX.
 """
 

@@ -1,0 +1,30 @@
+// Fused-qkv self-attention for Hopper:
+//   out[b, i, h*Dh:(h+1)*Dh] = softmax(q_h k_h^T * scale + bias[b|0, h|0]) v_h
+// straight off the fused [B, N, 3*H*Dh] bf16 projection, out [B, N, H*Dh] bf16.
+//
+// Replaces vit_tpu/ops/qkv_attention.py::_kernel (the Pallas TPU kernel).
+// The TPU kernel holds one sample's whole fused row panel in VMEM and loops
+// over heads; here one block takes one (batch, head, 32-query tile) and reads
+// its head panels out of the fused rows (attention_core.cuh), so no head
+// transpose or pad copy touches device memory either way.
+//
+// Bound: memory. At ViT-L (n = 197, H = 16, Dh = 64) the op reads the qkv
+// rows once (3 KB a token) and writes the output once (2 KB a token) for
+// ~50 KFLOP a token per head set, far below the H100's ~295 FLOP/byte ridge.
+// The bias, when given, is another N*N fp32 per (batch, head) it varies over.
+// Only bf16 qkv is taken: fp32 qkv (the TPU kernel's Precision.HIGHEST path)
+// is not ported yet, and the wrapper refuses it on the card.
+
+#include "attention_core.cuh"
+#include "common.cuh"
+
+extern "C" int vt_qkv_attention(const void* qkv, const void* bias, int bias_b, int bias_h,
+                                void* out, int B, int N, int H, int Dh, float scale,
+                                void* stream) {
+  using vt::bf16;
+  const vt::attn::ScoreTerms st{static_cast<const float*>(bias), bias_b, bias_h, N, N};
+  const cudaError_t e = vt::attention_core<bf16>(static_cast<const bf16*>(qkv),
+                                                 static_cast<bf16*>(out), B, N, H, Dh, scale, st,
+                                                 static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}

@@ -1,8 +1,9 @@
 """ViT — the vanilla Dosovitskiy encoder (port of ``vit_tpu/models/vit.py``).
 
-Parameters are zeros and ones at construction; load weights with
-``load_state_dict`` (``vit_tpu_torch.utils.from_jax_params`` converts a
-``vit_tpu`` variables tree).
+Parameters are zeros and ones at construction, on the card unless the
+caller passes ``device="cpu"``; load weights with ``load_state_dict``
+(``vit_tpu_torch.utils.from_jax_params`` converts a ``vit_tpu`` variables
+tree).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ class ViT(nn.Module):
                  depth: int, heads: int, mlp_dim: int, pool: str = "cls", dim_head: int = 64,
                  channels: int = 3, activation: str = "gelu", norm_eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None,
-                 residual_dtype: Optional[torch.dtype] = None, device=None):
+                 residual_dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         ih, iw = pair(image_size)
         ph, pw = pair(patch_size)
@@ -40,6 +41,11 @@ class ViT(nn.Module):
         if pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
         self.pool = pool
+        # the constructor's arguments, for quantize_vit to rebuild the model
+        self.config = dict(image_size=image_size, patch_size=patch_size, num_classes=num_classes,
+                           dim=dim, depth=depth, heads=heads, mlp_dim=mlp_dim, pool=pool,
+                           dim_head=dim_head, channels=channels, activation=activation,
+                           norm_eps=norm_eps, dtype=dtype)
         num_patches = (ih // ph) * (iw // pw)
         self.patch_embed = PatchEmbed(dim, ph, channels, out_dtype=residual_dtype or dtype,
                                       device=device)

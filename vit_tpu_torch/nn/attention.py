@@ -16,7 +16,7 @@ from torch import nn
 
 from vit_tpu_torch import ops
 
-_LATER = "not ported yet (ROADMAP.md Queue 1 item 4, attention variants)"
+_LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
 
 
 class Attention(nn.Module):
@@ -30,7 +30,7 @@ class Attention(nn.Module):
                  qkv_bias: bool = False, talking_heads: bool = False,
                  reattention: bool = False, mask_self: bool = False,
                  norm_eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         if qkv_bias or talking_heads or reattention or mask_self:
             raise NotImplementedError(f"qkv_bias / talking_heads / reattention / mask_self: {_LATER}")

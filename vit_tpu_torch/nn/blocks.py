@@ -24,7 +24,7 @@ class FeedForward(nn.Module):
     as in the JAX module."""
 
     def __init__(self, dim: int, hidden_dim: int, *, activation: str = "gelu",
-                 ln_eps: float = 1e-6, dtype: Optional[torch.dtype] = None, device=None):
+                 ln_eps: float = 1e-6, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.activation, self.ln_eps, self.dtype = activation, ln_eps, dtype
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
@@ -50,7 +50,7 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
                  activation: str = "gelu", norm_eps: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.attn = Attention(dim, heads, dim_head, norm_eps=norm_eps, dtype=dtype, device=device)
         self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
@@ -67,7 +67,7 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
                  activation: str = "gelu", norm_eps: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, activation=activation,

@@ -16,7 +16,7 @@ class Dense(nn.Module):
     """flax ``nn.Dense(dtype=float32)``: fp32 ``x @ kernel + bias``, with the
     kernel in flax's ``[in, out]`` layout (not ``nn.Linear``'s ``[out, in]``)."""
 
-    def __init__(self, features_in: int, features: int, *, device=None):
+    def __init__(self, features_in: int, features: int, *, device="cuda"):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(features_in, features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -28,7 +28,7 @@ class Dense(nn.Module):
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: the fast-variance formula in fp32."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-6, device=None):
+    def __init__(self, dim: int, *, eps: float = 1e-6, device="cuda"):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim, device=device))
@@ -44,7 +44,7 @@ class PatchEmbed(nn.Module):
     ``torch.matmul``: it lies outside every TPU kernel."""
 
     def __init__(self, dim: int, patch_size: int, channels: int = 3, *,
-                 out_dtype: Optional[torch.dtype] = None, device=None):
+                 out_dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.patch_size = patch_size
         self.out_dtype = out_dtype

@@ -20,10 +20,20 @@ from vit_tpu_torch.ops._build import launch_counts, reset_launch_counts  # noqa:
 from vit_tpu_torch.ops.block_attention import fused_attention_block, xla_attention_block
 from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
 from vit_tpu_torch.ops.patch_embed import patchify  # noqa: F401
+from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, xla_qkv_attention
+from vit_tpu_torch.ops.quant_block import (
+    fused_quant_attention_block,
+    fused_quant_mlp,
+    reference_quant_mlp,
+    xla_quant_attention_block,
+)
 
 __all__ = [
     "attention_block",
     "mlp",
+    "qkv_attention",
+    "quant_attention_block",
+    "quant_mlp",
     "force_backend",
     "launch_counts",
     "reset_launch_counts",
@@ -31,6 +41,12 @@ __all__ = [
     "xla_attention_block",
     "fused_mlp",
     "reference_mlp",
+    "fused_qkv_attention",
+    "xla_qkv_attention",
+    "fused_quant_attention_block",
+    "xla_quant_attention_block",
+    "fused_quant_mlp",
+    "reference_quant_mlp",
     "patchify",
 ]
 
@@ -92,4 +108,42 @@ def mlp(
     return fn(
         x, w1, b1, w2, b2, ln_scale, ln_bias,
         activation=activation, residual=residual, ln_eps=ln_eps,
+    )
+
+
+def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
+    """Self-attention on the fused qkv layout ``[B, N, 3*H*D]`` ->
+    ``[B, N, H*D]``, with an optional additive bias ``[1|B, 1|H, N, N]``."""
+    if _use_kernel(qkv):
+        return fused_qkv_attention(qkv, heads, bias, scale=scale)
+    return xla_qkv_attention(qkv, heads, bias, scale=scale)
+
+
+def quant_attention_block(
+    x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads: int, *,
+    scale=None, ln_eps=1e-6, true_n=None,
+):
+    """W8A8 attention block (LN -> row quant -> int8 qkv -> attention -> row
+    quant -> int8 out-proj -> +residual). ``true_n`` masks padded keys."""
+    if _use_kernel(x):
+        return fused_quant_attention_block(
+            x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads,
+            scale=scale, ln_eps=ln_eps, true_n=true_n,
+        )
+    if scale is None:
+        scale = (wqkv_i8.shape[1] // 3 // heads) ** -0.5
+    return xla_quant_attention_block(
+        x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads, scale, ln_eps, true_n,
+    )
+
+
+def quant_mlp(
+    x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2, *,
+    activation: str = "gelu", ln_eps: float = 1e-6,
+):
+    """W8A8 MLP block over tokens ``[..., T, D]``: LN, int8 GEMMs, residual."""
+    fn = fused_quant_mlp if _use_kernel(x) else reference_quant_mlp
+    return fn(
+        x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
+        activation=activation, ln_eps=ln_eps,
     )

@@ -1,8 +1,9 @@
 """On-demand build of the Hopper kernels and their launch counters.
 
-``vit_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
-with a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so
-the build takes seconds). The library is named by a hash of the sources and
+Each ``vit_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``, all of
+them at once, and the objects link into one shared library with a plain C
+interface, loaded through ``ctypes`` (no PyTorch headers, so the build
+takes seconds). The library is named by a hash of the sources and
 flags, so an edit rebuilds; it lives in ``vit_tpu_torch/_build/``, which git
 ignores. Nothing is built or loaded until the first kernel launch.
 
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -59,6 +60,47 @@ _SIGNATURES = {
         _I, _I, _I,          # T, D, F
         _I, _I,              # activation, residual
         _F,                  # ln_eps
+        _P,                  # cudaStream_t
+    ],
+    "vt_qkv_attention": [
+        _P,                  # qkv (bf16)
+        _P, _I, _I,          # bias (fp32, NULL = none), bias_b, bias_h (axis is full)
+        _P,                  # out (bf16)
+        _I, _I, _I, _I,      # B, N, heads, dim_head
+        _F,                  # scale
+        _P,                  # cudaStream_t
+    ],
+    "vt_quant_attention_block": [
+        _P,                  # x (bf16)
+        _P, _P,              # ln_scale, ln_bias (fp32)
+        _P, _P, _P, _P,      # wqkv (int8), sqkv (fp32), wout (int8), sout (fp32)
+        _P,                  # bout (fp32)
+        _P,                  # out (bf16)
+        _P, _P, _P, _P,      # scratch: xq (int8), s_row (fp32), qkv (bf16), attn (fp32)
+        _P, _P,              # scratch: aq (int8), s_row2 (fp32)
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F, _I,          # scale, ln_eps, true_n
+        _P,                  # cudaStream_t
+    ],
+    "vt_quant_mlp": [
+        _P, _I,              # x, x_is_fp32
+        _P, _P,              # ln_scale, ln_bias (fp32)
+        _P, _P, _P,          # w1 (int8), s1, b1 (fp32)
+        _P, _P, _P,          # w2 (int8), s2, b2 (fp32)
+        _P,                  # out (x's dtype)
+        _P, _P, _P, _P, _P,  # scratch: xq (int8), s_row, h (fp32), hq (int8), s_row2
+        _I, _I, _I,          # T, D, F
+        _I, _F,              # activation, ln_eps
+        _P,                  # cudaStream_t
+    ],
+    "vt_quant_rows": [
+        _P, _P, _P,          # v [rows, K] fp32, codes [rows, K] int8, row scales fp32
+        _I, _I,              # rows, K
+        _P,                  # cudaStream_t
+    ],
+    "vt_gemm_s8_i32": [
+        _P, _P, _P,          # a [M, K] int8, b [K, N] int8, c [M, N] int32
+        _I, _I, _I,          # M, N, K
         _P,                  # cudaStream_t
     ],
 }
@@ -93,28 +135,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library as ``<name>.log``."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside the library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="obj-"))
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+        jobs = []
+        for src in cu:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmpdir / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        tmp_so = tmpdir / "lib.so"
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp_so), *(str(tmpdir / f"{s.stem}.o") for s in cu)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        so.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
+        os.replace(tmp_so, so)  # atomic: a concurrent process never loads half a file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return so
 
 
@@ -143,7 +199,7 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 # -- launch counters ---------------------------------------------------------
 
-KERNELS = ("attention_block", "fused_mlp")
+KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp")
 _counts = collections.Counter()
 _counts_lock = threading.Lock()
 

@@ -26,6 +26,14 @@ from vit_tpu_torch.ops import _build
 MASK_VALUE = -1e30
 MAX_TOKENS = 1024  # the score rows of one query tile live in shared memory
 
+# torch.exp on the CPU runs MKL's vector math, which sets itself up on its
+# first call. When two threads of one parallel torch.exp make that first call
+# together, one of them can get a low-accuracy exp (1.5e-4 relative instead
+# of 1e-7; 4 of 240 fresh 2-thread processes on a Xeon with MKL 2024.2,
+# tests/torch_exp_race.py). One call on one thread at import sets MKL up
+# before any parallel call.
+torch.exp(torch.zeros(1))
+
 
 def _ln_f32(x, scale, bias, eps=1e-6):
     # flax.linen.LayerNorm's exact op sequence (fast variance, scale folded
@@ -41,6 +49,14 @@ def _mm(a, b, dtype=torch.float32):
     (A bf16 matmul on the CPU rounds its output to bf16; JAX's
     ``preferred_element_type=f32`` does not.)"""
     return torch.matmul(a.float(), b.float()).to(dtype)
+
+
+def _softmax(s):
+    """``jax.nn.softmax``'s op order on fp32 scores: max, exp(s - max), sum,
+    divide."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return p / p.sum(dim=-1, keepdim=True)
 
 
 def key_mask(n: int, true_n: Optional[int], block_tokens: Optional[int], device):
@@ -76,9 +92,7 @@ def xla_attention_block(
     ok = key_mask(n, true_n, block_tokens, x.device)
     if ok is not None:
         s = torch.where(ok, s, torch.full_like(s, MASK_VALUE))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = _softmax(s)
     o = _mm(p.to(v.dtype), v, v.dtype)
     o = o.transpose(1, 2).reshape(b, n, hd).to(wout.dtype)
     out = _mm(o, wout) + bout.float() + x.float()

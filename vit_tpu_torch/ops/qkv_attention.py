@@ -1,0 +1,102 @@
+"""Self-attention straight off the fused qkv projection.
+
+Port of ``vit_tpu/ops/qkv_attention.py``. ``fused_qkv_attention`` is the
+Hopper kernel (``csrc/qkv_attention.cu``, on the attention core it shares
+with the float block); ``xla_qkv_attention`` is its plain PyTorch twin and
+mirrors the JAX twin op for op: fp32 scores of the stored operands, ``*
+scale``, ``+ bias`` in fp32, ``jax.nn.softmax``'s max / exp / sum / divide
+order, P rounded to qkv's dtype before the fp32 P @ V, one rounding to
+qkv's dtype.
+
+Layout: ``qkv`` ``[B, N, 3*H*D]`` laid out ``[q | k | v]``, each part
+``[H, D]``; the output is ``[B, N, H*D]``. No transposes or copies of the
+heads: the kernel reads its head panels out of the fused rows.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vit_tpu_torch.ops import _build
+from vit_tpu_torch.ops.block_attention import MAX_TOKENS, _mm, _softmax
+
+# The fp32 qkv path (the TPU kernel's Precision.HIGHEST) runs only on the twin.
+_FP32_LATER = "fp32 qkv on the card is not ported yet (ROADMAP.md Queue 2 item 3, fp32 path)"
+
+
+def xla_qkv_attention(qkv, heads, bias=None, *, scale=None):
+    """Plain PyTorch twin (``vit_tpu``'s ``xla_qkv_attention``)."""
+    b, n, three_hd = qkv.shape
+    hd = three_hd // 3
+    d = hd // heads
+    if scale is None:
+        scale = d**-0.5
+    q, k, v = qkv.split(hd, dim=-1)
+    split = lambda t: t.reshape(b, n, heads, d).transpose(1, 2)
+    q, k, v = split(q), split(k), split(v)
+    s = _mm(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = _softmax(s)
+    o = _mm(p.to(v.dtype), v, v.dtype)
+    return o.transpose(1, 2).reshape(b, n, hd)
+
+
+def fused_qkv_attention(
+    qkv: torch.Tensor,
+    heads: int,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``qkv`` ``[B, N, 3*H*D]`` bf16 on the card, with an
+    optional additive fp32 bias ``[1|B, 1|H, N, N]``. Returns ``[B, N,
+    H*D]`` bf16, computed on the current stream."""
+    if not qkv.is_cuda:
+        raise ValueError("fused_qkv_attention takes CUDA tensors")
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, N, 3*H*D], got {tuple(qkv.shape)}")
+    if qkv.dtype == torch.float32:
+        raise ValueError(_FP32_LATER)
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"qkv must be bf16, got {qkv.dtype}")
+    b, n, three_hd = qkv.shape
+    if three_hd % 3 or heads <= 0 or (three_hd // 3) % heads:
+        raise ValueError(f"{three_hd} fused columns do not split into q, k, v of {heads} heads")
+    hd = three_hd // 3
+    d = hd // heads
+    if d % 16 or d > 128:
+        raise ValueError(f"the kernel takes dim_head % 16 == 0 and <= 128 (got {d})")
+    if n > MAX_TOKENS:
+        raise NotImplementedError(
+            f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
+            "(ROADMAP.md Queue 2 item 5)"
+        )
+    if b * heads > 65535:
+        raise ValueError(f"batch x heads = {b * heads} > 65535 (one CUDA grid dimension)")
+    bias_b = bias_h = 0
+    if bias is not None:
+        if bias.dim() != 4 or tuple(bias.shape[2:]) != (n, n) or bias.shape[0] not in (1, b) \
+                or bias.shape[1] not in (1, heads):
+            raise ValueError(f"bias must be [1|{b}, 1|{heads}, {n}, {n}], got {tuple(bias.shape)}")
+        if bias.dtype != torch.float32 or bias.device != qkv.device or not bias.is_contiguous():
+            raise TypeError("bias must be a contiguous fp32 tensor on qkv's device")
+        bias_b, bias_h = int(bias.shape[0] == b and b > 1), int(bias.shape[1] == heads and heads > 1)
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    if scale is None:
+        scale = d**-0.5
+
+    lib = _build.load_library()
+    out = torch.empty(b, n, hd, device=qkv.device, dtype=qkv.dtype)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.vt_qkv_attention(
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(), bias_b, bias_h,
+            out.data_ptr(), b, n, heads, d, float(scale), stream,
+        )
+    _build.check(lib, rc, "qkv_attention kernel")
+    _build.count_launch("qkv_attention")
+    return out

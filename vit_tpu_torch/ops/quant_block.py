@@ -1,0 +1,302 @@
+"""The W8A8 encoder blocks: the int8 attention block and the int8 MLP.
+
+Port of ``vit_tpu/ops/quant_block.py``. ``fused_quant_attention_block`` and
+``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``, on the
+int8 GEMM of ``csrc/gemm_s8.cuh``); ``xla_quant_attention_block`` and
+``reference_quant_mlp`` are their plain PyTorch twins, written in the TPU
+kernels' own op order (quant_block.py:58-106, :204-221):
+
+- flax LayerNorm in fp32, quantized per row from fp32 (never rounded first);
+- exact int8 x int8 -> int32 products (``ops.quant.int_mm``);
+- the dequant epilogue ``(acc * s_row) * s_col``, then ``+ bias``, then the
+  residual in fp32, then one cast;
+- attention: qkv in the stream's dtype, fp32 scores, padded keys
+  (``col >= true_n``) masked to -1e30, ``jax.nn.softmax``'s order, P rounded
+  to qkv's dtype, fp32 P @ V; the fp32 attention rows are quantized over all
+  H*Dh columns;
+- MLP: ``gelu`` (tanh form) or ``gelu_exact`` on the fp32 hidden, which is
+  quantized over its whole width.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vit_tpu_torch.ops import _build
+from vit_tpu_torch.ops.block_attention import MASK_VALUE, MAX_TOKENS, _ln_f32, _mm, _softmax
+from vit_tpu_torch.ops.quant import int_mm, quantize_rows
+
+# Activation codes shared with csrc/gemm.cuh (enum Act); the int8 MLP takes two.
+ACTIVATIONS = {"gelu": 1, "gelu_exact": 2}
+
+_FP32_LATER = (
+    "the W8A8 attention-block kernel takes a bf16 stream; fp32 runs only on the "
+    "plain twin (ROADMAP.md Queue 2 item 9, fp32 path)"
+)
+
+
+def _quant_gemm(a_i8, s_row, w_i8, w_scale):
+    """``(acc * s_row) * s_col`` in fp32 of the exact int32 product."""
+    lead = a_i8.shape[:-1]
+    acc = int_mm(a_i8.reshape(-1, a_i8.shape[-1]), w_i8).reshape(*lead, w_i8.shape[1])
+    return acc.float() * s_row * w_scale.reshape(-1)
+
+
+def _activate(h, activation: str):
+    if activation == "gelu":  # jax.nn.gelu's default: the tanh form
+        return F.gelu(h, approximate="tanh")
+    if activation == "gelu_exact":
+        return F.gelu(h)
+    raise ValueError(f"the int8 MLP takes gelu or gelu_exact, got {activation!r}")
+
+
+def _attention_f32(qkv, heads, scale, true_n=None):
+    """The block's attention of ``qkv`` ``[B, N, 3*H*Dh]``: fp32 rows ``[B,
+    N, H*Dh]``, not rounded (they are quantized next)."""
+    b, n, three_hd = qkv.shape
+    hd = three_hd // 3
+    d = hd // heads
+    q, k, v = qkv.split(hd, dim=-1)
+    split = lambda t: t.reshape(b, n, heads, d).transpose(1, 2)
+    q, k, v = split(q), split(k), split(v)
+    s = _mm(q, k.transpose(-1, -2)) * scale
+    if true_n is not None and true_n != n:
+        s = torch.where(torch.arange(n, device=qkv.device) < true_n, s, torch.full_like(s, MASK_VALUE))
+    p = _softmax(s)
+    return _mm(p.to(v.dtype), v).transpose(1, 2).reshape(b, n, hd)
+
+
+def xla_quant_attention_block(
+    x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads, scale,
+    ln_eps=1e-6, true_n=None,
+):
+    """Plain PyTorch twin of the W8A8 attention block:
+    ``x + out_proj_i8(attention(qkv_proj_i8(quant(LN(x)))))``."""
+    xf = x.float()
+    x_i8, s_row = quantize_rows(_ln_f32(xf, ln_scale.float(), ln_bias.float(), ln_eps))
+    qkv = _quant_gemm(x_i8, s_row, wqkv_i8, sqkv).to(x.dtype)
+    a_i8, s_row2 = quantize_rows(_attention_f32(qkv, heads, scale, true_n))
+    out = _quant_gemm(a_i8, s_row2, wout_i8, sout)
+    out = out + bout.float()
+    out = out + xf
+    return out.to(x.dtype)
+
+
+def reference_quant_mlp(
+    x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2, *,
+    activation: str = "gelu", ln_eps: float = 1e-6,
+):
+    """Plain PyTorch twin of the W8A8 MLP:
+    ``x + W2_i8(act(W1_i8(quant(LN(x)))))`` over tokens ``[..., D]``."""
+    xf = x.float()
+    x_i8, s_row = quantize_rows(_ln_f32(xf, ln_scale.float(), ln_bias.float(), ln_eps))
+    h = _quant_gemm(x_i8, s_row, w1_i8, s1) + b1.float()
+    h = _activate(h, activation)
+    h_i8, s_row2 = quantize_rows(h)
+    out = _quant_gemm(h_i8, s_row2, w2_i8, s2) + b2.float()
+    return (out + xf).to(x.dtype)
+
+
+def _check_vec(name, t, size, device):
+    if t.dtype != torch.float32 or t.numel() != size or t.device != device or not t.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous fp32 tensor of {size} values on {device}, "
+                        f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_weight(name, w, shape, device):
+    if w.dtype != torch.int8 or tuple(w.shape) != shape or w.device != device or not w.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous int8 {list(shape)} tensor on {device}, "
+                        f"got {tuple(w.shape)} {w.dtype} on {w.device}")
+
+
+def fused_quant_attention_block(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv_i8: torch.Tensor,
+    sqkv: torch.Tensor,
+    wout_i8: torch.Tensor,
+    sout: torch.Tensor,
+    bout: torch.Tensor,
+    heads: int,
+    *,
+    scale: Optional[float] = None,
+    ln_eps: float = 1e-6,
+    true_n: Optional[int] = None,
+    intermediates: Optional[dict] = None,
+) -> torch.Tensor:
+    """The W8A8 attention block on the card. ``x`` ``[B, N, D]`` bf16;
+    ``wqkv_i8`` ``[D, 3*H*Dh]`` and ``wout_i8`` ``[H*Dh, D]`` int8 with
+    per-output-channel fp32 scales (``[1, N]`` or ``[N]``); ``ln_scale``,
+    ``ln_bias``, ``bout`` fp32 ``[D]``. ``true_n`` masks padded keys. Returns
+    a new tensor of ``x``'s shape and dtype, computed on the current stream.
+    A dict passed as ``intermediates`` receives the stages' rows, ``[B*N,
+    ...]``, for checks: ``xq``, ``s_row`` (LN codes), ``qkv``, ``attn``
+    (fp32), ``aq``, ``s_row2``."""
+    if not x.is_cuda:
+        raise ValueError("fused_quant_attention_block takes CUDA tensors")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
+    if x.dtype == torch.float32:
+        raise ValueError(_FP32_LATER)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bf16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    b, n, dim = x.shape
+    three_hd = wqkv_i8.shape[1] if wqkv_i8.dim() == 2 else -1
+    if three_hd % 3 or heads <= 0 or (three_hd // 3) % heads:
+        raise ValueError(f"wqkv {tuple(wqkv_i8.shape)} does not split into q, k, v of {heads} heads")
+    hd = three_hd // 3
+    d = hd // heads
+    _check_weight("wqkv_i8", wqkv_i8, (dim, three_hd), x.device)
+    _check_weight("wout_i8", wout_i8, (hd, dim), x.device)
+    _check_vec("sqkv", sqkv, three_hd, x.device)
+    _check_vec("sout", sout, dim, x.device)
+    for name, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), ("bout", bout)):
+        _check_vec(name, t, dim, x.device)
+    if dim % 16 or d % 16 or d > 128:
+        raise ValueError(f"the kernel takes D % 16 == 0 and dim_head % 16 == 0, <= 128 (got {dim}, {d})")
+    if n > MAX_TOKENS:
+        raise NotImplementedError(
+            f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
+            "(ROADMAP.md Queue 2 item 5)"
+        )
+    if b * heads > 65535:
+        raise ValueError(f"batch x heads = {b * heads} > 65535 (one CUDA grid dimension)")
+    true_n = n if true_n is None else int(true_n)
+    if not 0 < true_n <= n:
+        raise ValueError(f"true_n={true_n} outside (0, {n}]")
+    if scale is None:
+        scale = d**-0.5
+
+    lib = _build.load_library()
+    rows = b * n
+    dev = x.device
+    xq = torch.empty(rows, dim, device=dev, dtype=torch.int8)
+    s_row = torch.empty(rows, device=dev, dtype=torch.float32)
+    qkv = torch.empty(rows, three_hd, device=dev, dtype=torch.bfloat16)
+    attn = torch.empty(rows, hd, device=dev, dtype=torch.float32)
+    aq = torch.empty(rows, hd, device=dev, dtype=torch.int8)
+    s_row2 = torch.empty(rows, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_quant_attention_block(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv_i8.data_ptr(), sqkv.data_ptr(), wout_i8.data_ptr(), sout.data_ptr(),
+            bout.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), s_row.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+            aq.data_ptr(), s_row2.data_ptr(),
+            b, n, dim, heads, d, float(scale), float(ln_eps), true_n, stream,
+        )
+    _build.check(lib, rc, "quant_attention_block kernel")
+    _build.count_launch("quant_attention_block")
+    if intermediates is not None:
+        intermediates.update(xq=xq, s_row=s_row, qkv=qkv, attn=attn, aq=aq, s_row2=s_row2)
+    return out
+
+
+def fused_quant_mlp(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1_i8: torch.Tensor,
+    s1: torch.Tensor,
+    b1: torch.Tensor,
+    w2_i8: torch.Tensor,
+    s2: torch.Tensor,
+    b2: torch.Tensor,
+    *,
+    activation: str = "gelu",
+    ln_eps: float = 1e-6,
+    intermediates: Optional[dict] = None,
+) -> torch.Tensor:
+    """The W8A8 MLP on the card over tokens ``x`` ``[..., T, D]`` (bf16 or
+    fp32): always LN, always the residual. ``w1_i8`` ``[D, F]``, ``w2_i8``
+    ``[F, D]`` int8 with per-output-channel fp32 scales; biases and LN
+    parameters fp32. Returns ``x``'s shape and dtype. A dict passed as
+    ``intermediates`` receives the stages' rows for checks: ``xq``,
+    ``s_row`` (LN codes), ``h`` (fp32 hidden after the activation), ``hq``,
+    ``s_row2``."""
+    if not x.is_cuda:
+        raise ValueError("fused_quant_mlp takes CUDA tensors")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or fp32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"the int8 MLP takes gelu or gelu_exact, got {activation!r}")
+    dim = x.shape[-1]
+    f = w1_i8.shape[1] if w1_i8.dim() == 2 else -1
+    _check_weight("w1_i8", w1_i8, (dim, f), x.device)
+    _check_weight("w2_i8", w2_i8, (f, dim), x.device)
+    for name, t, size in (("s1", s1, f), ("b1", b1, f), ("s2", s2, dim), ("b2", b2, dim),
+                          ("ln_scale", ln_scale, dim), ("ln_bias", ln_bias, dim)):
+        _check_vec(name, t, size, x.device)
+    if dim % 16 or f % 16:
+        raise ValueError(f"the kernel takes D % 16 == 0 and F % 16 == 0 (got {dim}, {f})")
+
+    lib = _build.load_library()
+    t = x.numel() // dim
+    dev = x.device
+    xq = torch.empty(t, dim, device=dev, dtype=torch.int8)
+    s_row = torch.empty(t, device=dev, dtype=torch.float32)
+    h = torch.empty(t, f, device=dev, dtype=torch.float32)
+    hq = torch.empty(t, f, device=dev, dtype=torch.int8)
+    s_row2 = torch.empty(t, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_quant_mlp(
+            x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2_i8.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), s_row.data_ptr(), h.data_ptr(), hq.data_ptr(), s_row2.data_ptr(),
+            t, dim, f, ACTIVATIONS[activation], float(ln_eps), stream,
+        )
+    _build.check(lib, rc, "quant_mlp kernel")
+    _build.count_launch("quant_mlp")
+    if intermediates is not None:
+        intermediates.update(xq=xq, s_row=s_row, h=h, hq=hq, s_row2=s_row2)
+    return out
+
+
+def quant_rows_f32(v: torch.Tensor):
+    """The kernels' row quantizer alone: ``(int8 codes, fp32 row scales
+    [rows])`` of fp32 rows ``v`` ``[rows, K]`` on the card. For checks
+    against ``quantize_rows``; no model path calls it, and it counts no
+    launch."""
+    if not v.is_cuda or v.dtype != torch.float32 or v.dim() != 2 or not v.is_contiguous():
+        raise ValueError("quant_rows_f32 takes a contiguous fp32 [rows, K] CUDA tensor")
+    rows, k = v.shape
+    lib = _build.load_library()
+    q = torch.empty(rows, k, device=v.device, dtype=torch.int8)
+    s = torch.empty(rows, device=v.device, dtype=torch.float32)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.vt_quant_rows(v.data_ptr(), q.data_ptr(), s.data_ptr(), rows, k, stream)
+    _build.check(lib, rc, "quant_rows kernel")
+    return q, s
+
+
+def gemm_s8_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' int8 GEMM alone: raw int32 sums of ``a [M, K] @ b [K,
+    N]`` (int8, on the card). For exactness checks against
+    ``torch._int_mm``; no model path calls it, and it counts no launch."""
+    if not (a.is_cuda and b.is_cuda) or a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise ValueError("gemm_s8_i32 takes int8 CUDA tensors")
+    m, k = a.shape
+    n = b.shape[1]
+    if b.shape[0] != k or k % 16 or n % 16 or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}: K and N must be multiples of 16")
+    lib = _build.load_library()
+    c = torch.empty(m, n, device=a.device, dtype=torch.int32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.vt_gemm_s8_i32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+    _build.check(lib, rc, "gemm_s8 kernel")
+    return c

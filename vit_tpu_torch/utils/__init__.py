@@ -1,3 +1,9 @@
 """Utilities of the port."""
 
-from vit_tpu_torch.utils.convert import from_jax_params  # noqa: F401
+from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
+from vit_tpu_torch.utils.quantize import (  # noqa: F401
+    W8A8_KERNEL_MIN_BATCH,
+    QuantViT,
+    quantize_vit,
+    resolve_quant_mode,
+)

@@ -15,6 +15,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from vit_tpu_torch.utils.quantize import QUANT_WEIGHTS
+
 _STACKED = "encoder/blocks/"
 
 
@@ -50,4 +52,35 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 state[f"encoder.blocks.{i}.{rest}"] = layer.clone()
         else:
             state[path.replace("/", ".")] = arr
+    return state
+
+
+# vit_tpu's quantize_vit names, in the order of the port's QUANT_WEIGHTS.
+_QUANT_NAMES = ("to_qkv", "to_out", "w1", "w2")
+
+
+def from_jax_quant(qvars: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert ``vit_tpu``'s ``quantize_vit(variables)`` output (``params``
+    without the encoder GEMM kernels, and ``quant/{to_qkv, to_out, w1,
+    w2}/{w, s}`` with int8 ``w`` ``(depth, K, N)`` and fp32 ``s`` ``(depth,
+    1, N)``) into a ``state_dict`` for ``vit_tpu_torch.utils.QuantViT`` that
+    loads with ``strict=True``. The codes stay int8 and keep their layout:
+    layer i's ``quant/to_qkv/w[i]`` becomes ``encoder.blocks.{i}.attn.
+    qkv_kernel``, its scale ``...qkv_kernel_scale``."""
+    attn = qvars["params"]["encoder"]["blocks"]["attn"]
+    if "qkv_bias" in attn:
+        raise NotImplementedError(
+            "quantized trees with a qkv bias (HF/timm imports) are not ported yet "
+            "(ROADMAP.md Queue 1 item 4, qkv-bias layout)"
+        )
+    state = from_jax_params(qvars["params"])
+    for name, (mod, weight) in zip(_QUANT_NAMES, QUANT_WEIGHTS):
+        codes = np.asarray(qvars["quant"][name]["w"])
+        if codes.dtype != np.int8:
+            raise TypeError(f"quant/{name}/w must be int8, got {codes.dtype}")
+        scales = np.asarray(qvars["quant"][name]["s"], dtype=np.float32)
+        for i in range(codes.shape[0]):
+            key = f"encoder.blocks.{i}.{mod}.{weight}"
+            state[key] = torch.from_numpy(codes[i].copy())
+            state[f"{key}_scale"] = torch.from_numpy(scales[i].copy())
     return state
