@@ -25,7 +25,17 @@ Runs, in order, and exits non-zero at the first failure:
      against the twins on the same input, and the logits against the port's
      plain fp32 path; p50 of each int8 mode at batch 1, 8 and 128; device
      time by kernel of one int8 forward at batch 128 (torch.profiler);
-  7. each of the five kernels at batch 128 against its twin, against the
+  7. the head-mixing slice: the talking-heads and re-attention kernels
+     against their twins at the CaiT and DeepViT preset shapes (batch 8) and
+     at n = 197, stage by stage through the wrappers' ``intermediates=``
+     dict, with the twins with a fault planted (a transposed head mix;
+     padded key columns left unzeroed) shown to fail the output bound; the
+     CaiT and DeepViT presets (``vit_tpu/models/presets.py``, random weights
+     from a seed, bf16) served through ``BatchingServer``, with the launch
+     counts per forward; their logits against the port's plain fp32 path
+     beside the plain bf16 path's; img/s and p50 latency, kernels against the
+     plain path; device time by kernel of one forward at batch 128;
+  8. each of the seven kernels at batch 128 against its twin, against the
      PyTorch library composite that computes the same function, and against
      its bound on this card.
 Then one JSON line describes each kernel, and the last line is
@@ -113,11 +123,42 @@ INT8_LAYER_DIFFER, INT8_LAYER_ULPS = 0.15, 16.0
 # 0.19 is 1.5x the largest.
 INT8_FP32_TOL = 0.19
 
+# The CaiT and DeepViT presets: vit_tpu/models/presets.py:56-65 (the upstream
+# README's), bf16. CaiT sees n = 64 patch tokens, DeepViT n = 65.
+CAIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=12, cls_depth=2,
+            heads=16, dim_head=64, mlp_dim=2048)
+DEEPVIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
+               dim_head=64, mlp_dim=2048)
+# Launches per forward of each kernel on the two paths.
+HEAD_MIX_LAUNCHES = {
+    "cait": {"talking_heads_block": 12, "fused_mlp": 14, "attention_block": 0},
+    "deepvit": {"reattention_block": 6, "fused_mlp": 6, "attention_block": 0},
+}
+# Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
+# each stage run by the twin on the kernel's own input to it:
+# - qkv (LN and the qkv GEMM; the LN sums in another order, which can move an
+#   xn value, and the product another, which can move a bf16 rounding): within
+#   HM_ROUND of max |qkv|, one bf16 ulp of the largest value;
+# - the fp32 mixed scores / mixed softmax, from the kernel's qkv, and P / the
+#   normalised r', from the kernel's own mixed rows: within HM_F32 of their
+#   max (fp32 sums in another order, expf and rsqrtf against torch's);
+# - each head's P V on the kernel's own P, and the output epilogue on the
+#   kernel's own attention rows: within HM_ROUND of their max;
+# - the output against the twin from x: kernel_tol, as kernels 1-3. The head
+#   LayerNorm of kernel 8 amplifies rounding upstream of it, which is why the
+#   stages are held apart. The twins with a fault planted must fail it.
+HM_ROUND, HM_F32 = 2.0**-7, 1e-5
+# Logits of the CaiT / DeepViT kernel path against the plain fp32 path: at most
+# HM_E2E_RATIO times the control, the plain bf16 path against plain fp32 on
+# the same weights and inputs.
+HM_E2E_RATIO = 1.5
+
 # H100 SXM5 peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
-# rate of their type.
+# rate of their type (fp32 outside the tensor cores for the head mixes).
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -328,34 +369,93 @@ def _trunc_normal(rng, shape, std):
     return z * np.float32(std)
 
 
-def vit_l_tree(seed: int) -> dict:
-    """A ViT-L variables tree in ``vit_tpu``'s layout, drawn with numpy as
-    ``ViT.init`` draws it: truncated normal(0.02) for cls / pos_embedding,
-    lecun-normal kernels, zero biases, LayerNorm ones and zeros."""
-    rng = np.random.default_rng(seed)
-    c = VIT_L
-    dim, depth, inner, mlp = c["dim"], c["depth"], c["heads"] * c["dim_head"], c["mlp_dim"]
+class _Init:
+    """``vit_tpu``'s initializers, drawn with numpy: lecun-normal kernels,
+    truncated normal(0.02) tokens, normal(0.02) head mixes, zero biases,
+    LayerNorm ones and zeros; each with an optional leading depth axis."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def lecun(self, *shape):
+        return _trunc_normal(self.rng, shape, shape[-2] ** -0.5 / 0.87962566103423978)
+
+    def tokens(self, *shape):
+        return _trunc_normal(self.rng, shape, 0.02)
+
+    def normal(self, *shape):
+        return self.rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    zeros = staticmethod(lambda *shape: np.zeros(shape, np.float32))
+    ones = staticmethod(lambda *shape: np.ones(shape, np.float32))
+    full = staticmethod(lambda value, *shape: np.full(shape, value, np.float32))
+
+
+def _raw_attn(w, depth, dim, inner):
+    return {"norm_scale": w.ones(depth, dim), "norm_bias": w.zeros(depth, dim),
+            "qkv_kernel": w.lecun(depth, dim, 3 * inner), "out_kernel": w.lecun(depth, inner, dim),
+            "out_bias": w.zeros(depth, dim)}
+
+
+def _ff(w, depth, dim, mlp):
+    return {"ln_scale": w.ones(depth, dim), "ln_bias": w.zeros(depth, dim),
+            "w1": w.lecun(depth, dim, mlp), "b1": w.zeros(depth, mlp),
+            "w2": w.lecun(depth, mlp, dim), "b2": w.zeros(depth, dim)}
+
+
+def _patch_embed(w, c):
     patch_dim = c["patch_size"] ** 2 * 3
-    lecun = lambda *shape, fan_in: _trunc_normal(rng, shape, fan_in**-0.5 / 0.87962566103423978)
-    zeros = lambda *shape: np.zeros(shape, np.float32)
-    ones = lambda *shape: np.ones(shape, np.float32)
+    return {"proj": {"kernel": w.lecun(patch_dim, c["dim"]), "bias": w.zeros(c["dim"])}}
+
+
+def _head(w, c):
+    return {"head_norm": {"scale": w.ones(c["dim"]), "bias": w.zeros(c["dim"])},
+            "head": {"kernel": w.lecun(c["dim"], c["num_classes"]),
+                     "bias": w.zeros(c["num_classes"])}}
+
+
+def vit_tree(c: dict, seed: int, reattention: bool = False) -> dict:
+    """A ViT (or, with ``reattention``, DeepViT) variables tree of config
+    ``c`` in ``vit_tpu``'s layout (depth > 1: stacked blocks), drawn as
+    ``init`` draws it. The draws keep one order (tokens, patch embed, blocks,
+    head), so a seed gives the weights of earlier runs."""
+    w = _Init(seed)
+    dim, depth, heads = c["dim"], c["depth"], c["heads"]
+    n_tokens = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    params = {"cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n_tokens, dim),
+              "patch_embed": _patch_embed(w, c)}
+    attn = _raw_attn(w, depth, dim, heads * c["dim_head"])
+    if reattention:
+        attn.update(reattn_weights=w.normal(depth, heads, heads), reattn_scale=w.ones(depth, heads),
+                    reattn_bias=w.zeros(depth, heads))
+    params["encoder"] = {"blocks": {"attn": attn, "ff": _ff(w, depth, dim, c["mlp_dim"])}}
+    return {"params": {**params, **_head(w, c)}}
+
+
+def cait_tree(c: dict, seed: int) -> dict:
+    """A CaiT variables tree of config ``c`` in ``vit_tpu``'s layout (both
+    stages deeper than 1, so stacked), drawn as ``init`` draws it; LayerScale
+    0.1 (model depth <= 18)."""
+    w = _Init(seed)
+    dim, heads, inner, mlp = c["dim"], c["heads"], c["heads"] * c["dim_head"], c["mlp_dim"]
+    n_patches = (c["image_size"] // c["patch_size"]) ** 2
+
+    def stage(depth, attn):
+        attn.update(mix_heads_pre=w.normal(depth, heads, heads),
+                    mix_heads_post=w.normal(depth, heads, heads))
+        return {"blocks": {"attn": attn, "ff": _ff(w, depth, dim, mlp),
+                           "ls_attn": w.full(0.1, depth, dim), "ls_ff": w.full(0.1, depth, dim)}}
+
+    d = c["cls_depth"]
+    cross = {"norm": {"scale": w.ones(d, dim), "bias": w.zeros(d, dim)},
+             "to_q": {"kernel": w.lecun(d, dim, inner)}, "to_kv": {"kernel": w.lecun(d, dim, 2 * inner)},
+             "to_out": {"kernel": w.lecun(d, inner, dim), "bias": w.zeros(d, dim)}}
     return {"params": {
-        "cls": _trunc_normal(rng, (1, 1, dim), 0.02),
-        "pos_embedding": _trunc_normal(rng, (1, N_TOKENS, dim), 0.02),
-        "patch_embed": {"proj": {"kernel": lecun(patch_dim, dim, fan_in=patch_dim),
-                                 "bias": zeros(dim)}},
-        "encoder": {"blocks": {
-            "attn": {"norm_scale": ones(depth, dim), "norm_bias": zeros(depth, dim),
-                     "qkv_kernel": lecun(depth, dim, 3 * inner, fan_in=dim),
-                     "out_kernel": lecun(depth, inner, dim, fan_in=inner),
-                     "out_bias": zeros(depth, dim)},
-            "ff": {"ln_scale": ones(depth, dim), "ln_bias": zeros(depth, dim),
-                   "w1": lecun(depth, dim, mlp, fan_in=dim), "b1": zeros(depth, mlp),
-                   "w2": lecun(depth, mlp, dim, fan_in=mlp), "b2": zeros(depth, dim)},
-        }},
-        "head_norm": {"scale": ones(dim), "bias": zeros(dim)},
-        "head": {"kernel": lecun(dim, c["num_classes"], fan_in=dim),
-                 "bias": zeros(c["num_classes"])},
+        "cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n_patches, dim),
+        "patch_embed": _patch_embed(w, c),
+        "patch_stage": stage(c["depth"], _raw_attn(w, c["depth"], dim, inner)),
+        "cls_stage": stage(d, cross),
+        **_head(w, c),
     }}
 
 
@@ -509,17 +609,16 @@ def p50_ms(fn, reps) -> float:
     return statistics.median(times)
 
 
-def phase_times(models, dev, smi):
-    """img/s at batch 128 and p50 latency at batch 1, 8, 128: kernel path
-    against the plain path on this card, in turns (kernel, plain, plain,
-    kernel)."""
+def phase_times(models, image_size, dev, smi):
+    """img/s at batch 128 and p50 latency at batch 1, 8, 128 of each model
+    (a dict by config name): kernel path against the plain path on this
+    card, in turns (kernel, plain, plain, kernel)."""
     from vit_tpu_torch import ops
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for config in ("bf16", "mixed"):
-        model = models[config]
+    for config, model in models.items():
         for b in (1, 8, 128):
-            x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
+            x = torch.randn(b, image_size, image_size, 3, generator=gen, device=dev).bfloat16()
             with torch.inference_mode():
                 kernel = lambda: model(x)
 
@@ -796,28 +895,257 @@ def phase_int8_times(qmodel, dev, smi):
           f"{128 / pl * 1e3:.1f} (p50 {kern:.3f} / {pl:.3f} ms) [{smi}]")
 
 
-def phase_int8_profile(qmodel, dev, smi):
-    """Device time by kernel for one int8 forward at batch 128 in the auto
-    mode, from torch.profiler: where the int8 slice's time goes."""
+def phase_profile(name, model, image_size, dev, smi):
+    """Device time by kernel for one forward at batch 128, from
+    torch.profiler: where a slice's time goes."""
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(128, 224, 224, 3, generator=torch.Generator(device=dev).manual_seed(SEED + 6),
-                    device=dev).bfloat16()
+    x = torch.randn(128, image_size, image_size, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 6)).bfloat16()
     with torch.inference_mode():
-        qmodel(x)
+        model(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            qmodel(x)
+            model(x)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile int8 auto batch 128: device busy {busy:.3f} ms in a {wall:.3f} ms forward "
+    print(f"profile {name} batch 128: device busy {busy:.3f} ms in a {wall:.3f} ms forward "
           f"(host clock, profiler on) [{smi}]")
     for ms, count, key in rows[:8]:
-        print(f"profile int8 auto batch 128: {ms:8.3f} ms x{count:<4d} {key[:90]}")
+        print(f"profile {name} batch 128: {ms:8.3f} ms x{count:<4d} {key[:90]}")
+
+
+# -- the head-mixing slice: CaiT and DeepViT ---------------------------------
+
+
+def _rb():
+    # ops/__init__ exports a function of the module's own name
+    return importlib.import_module("vit_tpu_torch.ops.reattention_block")
+
+
+def hm_inputs(gen, kind, b, n, dim, heads, d, x_dtype, dev, rln_bias=0.1):
+    """The arguments of kernel 7 (``kind`` "th") or 8 ("ra") before
+    ``heads``: unit-scale products, head mixes at vit_tpu's test scale (0.3),
+    a nonzero head-LN bias."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    a = attn_inputs(gen, b, n, dim, heads, d, x_dtype, dev)
+    args = [a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+    if kind == "th":
+        return args + [0.3 * r(heads, heads), 0.3 * r(heads, heads)]
+    return args + [0.3 * r(heads, heads), 1.0 + 0.1 * r(heads), rln_bias * r(heads)]
+
+
+def head_mix_twin(kind, args, heads, true_n=None, residual=False):
+    d = args[3].shape[1] // 3 // heads
+    if kind == "th":
+        return _rb().xla_talking_heads_block(*args, heads, d**-0.5, residual=residual,
+                                             true_n=true_n)
+    return _rb().xla_reattention_block(*args, heads, d**-0.5, true_n=true_n)
+
+
+def check_head_mix_block(name, kind, args, heads, true_n=None, residual=False):
+    """Kernel 7 or 8 on ``args`` against its twin, stage by stage (HM_* above).
+    Prints each stage; returns (the twin's output, max |err|, the failures)."""
+    from vit_tpu_torch.ops.block_attention import _mm
+
+    rb = _rb()
+    st = {}
+    x = args[0]
+    b, n, _ = x.shape
+    d = args[3].shape[1] // 3 // heads
+    tn = n if true_n is None else true_n
+    if kind == "th":
+        out = rb.fused_talking_heads_block(*args, heads, residual=residual, true_n=true_n,
+                                           intermediates=st)
+        ln_eps = 1e-5
+    else:
+        out = rb.fused_reattention_block(*args, heads, true_n=true_n, intermediates=st)
+        ln_eps, residual = 1e-6, True
+    ref = head_mix_twin(kind, args, heads, true_n, residual)
+    torch.cuda.synchronize()
+    fails = []
+
+    def stage(what, got, want, bound):
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        differ = (got != want).float().mean().item()
+        line = (f"{what}: {rel:.3g} of its max (bound {bound:.3g}); {differ:.3g} of the values "
+                f"not bitwise equal")
+        print(f"{name}: {line}")
+        if not rel <= bound:
+            fails.append(f"{name}: {line}")
+
+    qkv = rb._qkv(x, args[1], args[2], args[3], ln_eps)
+    stage("qkv against the twin's LN and product", st["qkv"], qkv.reshape(b * n, -1), HM_ROUND)
+    s, v = rb._scores(st["qkv"].view(b, n, -1), heads, d**-0.5)
+    if kind == "th":
+        mixed, _ = rb._talking_heads_probs(s, args[6], args[7], true_n)
+        p = rb._mix_heads(rb._softmax(st["mixed"]), args[7])
+        names = ("pre-mixed scores", "post-mixed P")
+    else:
+        mixed, _ = rb._reattention_probs(s, args[6], args[7], args[8], 1e-6, true_n)
+        p = rb._zero_padded_keys(rb._head_layer_norm(st["mixed"], args[7], args[8], 1e-6), true_n)
+        names = ("mixed softmax r", "normalised r'")
+    stage(f"fp32 {names[0]} on the kernel's qkv", st["mixed"][..., :tn], mixed[..., :tn], HM_F32)
+    stage(f"fp32 {names[1]} on the kernel's {names[0]}", st["p"], p, HM_F32)
+    attn = _mm(st["p"].to(v.dtype), v, v.dtype).transpose(1, 2).reshape(b * n, -1)
+    stage("each head's P V on the kernel's P", st["attn"], attn, HM_ROUND)
+    o = _mm(st["attn"], args[4]) + args[5]
+    if residual:
+        o = o + x.float().reshape(b * n, -1)
+    stage("output epilogue on the kernel's attention rows", out.reshape(b * n, -1), o.to(x.dtype),
+          HM_ROUND)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = kernel_tol(ref, x if residual else None, out.dtype)
+    line = f"output against the twin: max_abs_err {err:.6g} tol {tol:.6g}"
+    print(f"{name}: {line}")
+    if not (torch.isfinite(out.float()).all().item() and err <= tol):
+        fails.append(f"{name}: {line}")
+    return ref, err, fails
+
+
+def phase_head_mix_kernels(dev):
+    """Kernels 7 and 8 against their twins, stage by stage, at the CaiT and
+    DeepViT preset shapes (batch 8), at n = 197 (8-row query tiles), on an
+    fp32 stream and on a padded stream; the twins with a fault planted must
+    fail the output bound. Returns max |err| per kernel at the presets."""
+    rb = _rb()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("talking_heads_block CaiT preset", "th", dict(b=8, n=64, dim=1024, heads=16, d=64,
+                                                      x_dtype=bf), {}),
+        ("talking_heads_block n=197", "th", dict(b=4, n=197, dim=1024, heads=16, d=64, x_dtype=bf),
+         {}),
+        ("talking_heads_block fp32 stream, residual", "th", dict(b=2, n=50, dim=256, heads=4, d=64,
+                                                                x_dtype=f32), dict(residual=True)),
+        ("reattention_block DeepViT preset", "ra", dict(b=8, n=65, dim=1024, heads=16, d=64,
+                                                       x_dtype=bf), {}),
+        ("reattention_block n=197", "ra", dict(b=4, n=197, dim=1024, heads=16, d=64, x_dtype=bf),
+         {}),
+        ("reattention_block padded stream", "ra", dict(b=4, n=80, dim=256, heads=4, d=64,
+                                                       x_dtype=bf, rln_bias=0.5), dict(true_n=65)),
+    ]
+    worst, fails = {}, []
+    for name, kind, shape, kw in cases:
+        heads = shape["heads"]
+        args = hm_inputs(gen, kind, dev=dev, **shape)
+        ref, err, f = check_head_mix_block(name, kind, args, heads, **kw)
+        fails += f
+        faults = []
+        if "preset" in name:
+            worst[name.split()[0]] = err
+            mixes = (6, 7) if kind == "th" else (6,)
+            for i in mixes:
+                bad = list(args)
+                bad[i] = args[i].t().contiguous()
+                faults.append((f"head mix {i - 5} transposed", bad, contextlib.nullcontext()))
+        if "padded" in name:
+            hole = mock.patch.object(rb, "_zero_padded_keys", lambda r, true_n: r)
+            faults.append(("padded key columns left unzeroed", args, hole))
+        residual = kind == "ra" or kw.get("residual", False)
+        for fault, bad_args, ctx in faults:
+            with ctx:
+                bad = head_mix_twin(kind, bad_args, heads, kw.get("true_n"), residual)
+            e = (bad.float() - ref.float()).abs().max().item()
+            tol = kernel_tol(ref, args[0] if residual else None, ref.dtype)
+            print(f"{name}: the twin with {fault}: max |err| {e:.6g} against tol {tol:.6g} "
+                  f"(must fail the bound)")
+            if e <= tol:
+                fails.append(f"{name}: the bound does not see {fault}")
+    require(not fails, "; ".join(fails))
+    return worst
+
+
+def build_head_mix_models(dev):
+    """The CaiT and DeepViT presets from weights drawn with a seed, in bf16
+    and fp32, loaded through from_jax_params."""
+    from vit_tpu_torch.models import CaiT, DeepViT
+    from vit_tpu_torch.utils import from_jax_params
+
+    models = {}
+    for fam, ctor, cfg, tree in (
+        ("cait", CaiT, CAIT, lambda: cait_tree(CAIT, SEED + 8)),
+        ("deepvit", DeepViT, DEEPVIT, lambda: vit_tree(DEEPVIT, SEED + 9, reattention=True)),
+    ):
+        tree = tree()
+        for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+            model = ctor(**cfg, dtype=dtype, device=dev)
+            model.load_state_dict(from_jax_params(tree, model.jax_stages), strict=True)
+            models[(fam, config)] = model.eval()
+    return models
+
+
+def serve_head_mix(model, fam, requests):
+    """BatchingServer -> InferencePipeline -> CaiT / DeepViT on the card. Sets
+    the launch counts to 0 before the run and returns them as read just
+    after it; holds each kernel to its launches per forward and the server
+    rows to direct calls."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import InferencePipeline
+    from vit_tpu_torch.serving import BatchingServer
+
+    forwards = []
+    hook = model.register_forward_hook(lambda m, a, o: forwards.append(a[0].shape[0]))
+    pipe = InferencePipeline(model, image_size=256, batch_size=64)
+    require(pipe.batch_buckets == [1, 4, 16, 64], f"buckets {pipe.batch_buckets}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BatchingServer(pipe, max_wait_ms=5) as server:  # warms every bucket
+        t_warm = time.perf_counter() - t0
+        rows, t_serve = submit_all(server, requests)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hook.remove()
+    served = forwards[len(pipe.batch_buckets):]
+    direct = np.concatenate([pipe(r[None]) for r in requests])
+
+    rows = np.stack(rows)
+    require(rows.shape == (len(requests), 1000), f"rows {rows.shape}")
+    require(np.isfinite(rows).all(), f"non-finite logits from the {fam} server")
+    err = float(np.abs(rows - direct).max())
+    tol = SERVER_TOL * float(np.abs(direct).max())
+    per = {k: counts[k] / len(forwards) for k in HEAD_MIX_LAUNCHES[fam]}
+    print(f"slice {fam}: {len(requests)} requests in {t_serve * 1e3:.1f} ms as batches {served} "
+          f"(warm {t_warm:.2f} s); launches {counts} over {len(forwards)} forwards, per forward "
+          f"{per}; server vs direct max|dlogit| {err:.6g} tol {tol:.6g}; bitwise equal "
+          f"{bool(err == 0.0)}")
+    for k, want in HEAD_MIX_LAUNCHES[fam].items():
+        require(counts[k] == want * len(forwards),
+                f"slice {fam}: {k} launched {counts[k]} times for {len(forwards)} forwards, "
+                f"want {want} a forward")
+    require(err <= tol, f"slice {fam}: server rows differ from direct calls by {err}")
+    return counts
+
+
+def phase_head_mix_e2e(models, dev, requests):
+    """CaiT and DeepViT kernel-path logits (bf16) against the port's plain
+    fp32 path, bounded by HM_E2E_RATIO times the control: the plain bf16 path
+    against plain fp32 on the same weights and 8 inputs."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    x32 = preprocess(raw, image_size=256, dtype=torch.float32)
+    x16 = preprocess(raw, image_size=256, dtype=torch.bfloat16)
+    for fam in ("cait", "deepvit"):
+        with torch.inference_mode():
+            with ops.force_backend("torch"):
+                ref = models[(fam, "fp32")](x32)
+                plain = models[(fam, "bf16")](x16)
+            out = models[(fam, "bf16")](x16)
+        err = (out - ref).abs().max().item()
+        control = (plain - ref).abs().max().item()
+        top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"e2e {fam} bf16 kernels vs plain fp32: max|dlogit| {err:.6g}; control (plain bf16 "
+              f"vs plain fp32) {control:.6g}; bound {HM_E2E_RATIO} x control "
+              f"{HM_E2E_RATIO * control:.6g} (max|logit| {ref.abs().max().item():.4g}); top-1 "
+              f"agreement with fp32 {top1:.3f}")
+        require(torch.isfinite(out).all().item(), f"e2e {fam}: non-finite logits")
+        require(err <= HM_E2E_RATIO * control, f"e2e {fam}: {err} > {HM_E2E_RATIO} x {control}")
 
 
 # -- per-op times at batch 128 --------------------------------------------------
@@ -873,16 +1201,42 @@ def library_quant_mlp(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return out.to(x.dtype).view_as(x)
 
 
-def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0):
+def library_talking_heads(x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads):
+    """The talking-heads block from library calls: F.layer_norm, cuBLAS bf16
+    GEMMs and batched products, einsum head mixes, softmax."""
+    dim = x.shape[-1]
+    q, k, v = split_heads(torch.matmul(F.layer_norm(x, (dim,), ln_scale, ln_bias, 1e-5), wqkv),
+                          heads)
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
+    p = torch.softmax(torch.einsum("bhij,hg->bgij", s, mix_pre), dim=-1)
+    p = torch.einsum("bhij,hg->bgij", p, mix_post)
+    return torch.matmul(merge_heads(torch.matmul(p.bfloat16(), v)), wout) + bout
+
+
+def library_reattention(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads):
+    """The re-attention block from library calls: F.layer_norm (also across
+    the heads), cuBLAS bf16 GEMMs and batched products, an einsum head mix,
+    softmax."""
+    dim = x.shape[-1]
+    q, k, v = split_heads(torch.matmul(F.layer_norm(x, (dim,), ln_scale, ln_bias, 1e-6), wqkv),
+                          heads)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5, dim=-1)
+    r = torch.einsum("bhij,hg->bgij", p, mix).permute(0, 2, 3, 1)
+    r = F.layer_norm(r, (heads,), rln_scale, rln_bias, 1e-6).permute(0, 3, 1, 2)
+    return torch.matmul(merge_heads(torch.matmul(r.bfloat16(), v)), wout) + bout + x
+
+
+def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0, fp32_flops=0.0):
     """(ms, "operations" | "bytes"): the least time the card could take."""
-    t_ops = bf16_flops / PEAK_BF16 + int8_ops / PEAK_INT8
+    t_ops = bf16_flops / PEAK_BF16 + int8_ops / PEAK_INT8 + fp32_flops / PEAK_FP32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def phase_op_times(dev, smi):
-    """Each kernel at the ViT-L shape, batch 128, bf16: its time, its twin's,
-    its library composite's, and its bound."""
+    """Each kernel at batch 128, bf16, at the shape of its path (ViT-L, the
+    CaiT or the DeepViT preset): its time, its twin's, its library
+    composite's, and its bound."""
     from vit_tpu_torch.ops import block_attention as ba
     from vit_tpu_torch.ops import quant_block as qb
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
@@ -943,9 +1297,35 @@ def phase_op_times(dev, smi):
             cuda_ms(lambda: library_quant_mlp(*qm)),
             bound(int8_ops=4 * rows * dim * f, nbytes=size(*qm) + size(qm[0])),
         )
+        del qm, qm_in
+        # kernels 7 and 8 at the CaiT (n = 64) and DeepViT (n = 65) presets
+        rb = _rb()
+        for k, kind, n, twin, lib_fn in (
+            ("talking_heads_block", "th", 64, rb.xla_talking_heads_block, library_talking_heads),
+            ("reattention_block", "ra", 65, rb.xla_reattention_block, library_reattention),
+        ):
+            h = hm_inputs(gen, kind, b, n, dim, heads, d, torch.bfloat16, dev)
+            fused = rb.fused_talking_heads_block if kind == "th" else rb.fused_reattention_block
+            lib_h = [h[0], *(bf(t) for t in h[1:3]), h[3], h[4], bf(h[5]), *h[6:]]
+            rows_h = b * n
+            # fp32 head mixes outside the tensor cores: 2 H^2 flops a mix at
+            # each (i, j); the head LayerNorm ~6 H
+            mix_flops = (2 if kind == "th" else 1) * 2 * heads**2 * b * n * n
+            if kind == "ra":
+                mix_flops += 6 * heads * b * n * n
+            ms[k] = (
+                cuda_ms(lambda: fused(*h, heads)),
+                cuda_ms(lambda: twin(*h, heads, d**-0.5), iters=5),
+                cuda_ms(lambda: lib_fn(*lib_h, heads)),
+                bound(2 * rows_h * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows_h * hd * dim,
+                      nbytes=size(*h) + size(h[0]), fp32_flops=mix_flops),
+            )
+            del h, lib_h
+    shapes = {"talking_heads_block": "CaiT preset (n 64)", "reattention_block": "DeepViT preset (n 65)"}
     for k, (kern, plain, lib, (bnd, by)) in ms.items():
-        print(f"op {k} ViT-L batch 128 bf16: kernel {kern:.3f} ms, twin {plain:.3f} ms, "
-              f"library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it) [{smi}]")
+        print(f"op {k} {shapes.get(k, 'ViT-L')} batch 128 bf16: kernel {kern:.3f} ms, twin "
+              f"{plain:.3f} ms, library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} "
+              f"of it) [{smi}]")
     return ms
 
 
@@ -979,10 +1359,11 @@ def main() -> int:
     # 2. kernels against twins
     worst = phase_kernels(dev)
     worst.update(phase_int8_kernels(dev))
+    worst.update(phase_head_mix_kernels(dev))
 
     # 3. the float slice, bf16 then mixed
     t0 = time.perf_counter()
-    state = from_jax_params(vit_l_tree(SEED))
+    state = from_jax_params(vit_tree(VIT_L, SEED))
     models = {c: build_model(state, dev, c) for c in ("bf16", "mixed", "fp32")}
     del state
     print(f"ViT-L weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
@@ -1000,7 +1381,7 @@ def main() -> int:
     phase_e2e(models, dev, requests)
 
     # 5. times
-    phase_times(models, dev, smi)
+    phase_times({c: models[c] for c in ("bf16", "mixed")}, 224, dev, smi)
 
     # 6. the int8 slice: quantize_vit of the bf16 ViT-L, served in the auto mode
     qmodel = quantize_vit(models["bf16"])
@@ -1010,11 +1391,27 @@ def main() -> int:
         launches[k] = int8_launches[k]
     phase_int8_e2e(qmodel, models["fp32"], dev, requests)
     phase_int8_times(qmodel, dev, smi)
-    phase_int8_profile(qmodel, dev, smi)
+    phase_profile("int8 auto", qmodel, 224, dev, smi)
     del models, qmodel
     torch.cuda.empty_cache()
 
-    # 7. per-op times and bounds
+    # 7. the head-mixing slice: the CaiT and DeepViT presets, bf16
+    t0 = time.perf_counter()
+    hm_models = build_head_mix_models(dev)
+    print(f"CaiT and DeepViT weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    for fam, k in (("cait", "talking_heads_block"), ("deepvit", "reattention_block")):
+        counts = serve_head_mix(hm_models[(fam, "bf16")], fam, requests)
+        require(counts[k] > 0, f"{k} was not launched on the {fam} path")
+        launches[k] = counts[k]
+    phase_head_mix_e2e(hm_models, dev, requests)
+    phase_times({f"{fam} bf16": hm_models[(fam, "bf16")] for fam in ("cait", "deepvit")}, 256,
+                dev, smi)
+    for fam in ("cait", "deepvit"):
+        phase_profile(f"{fam} bf16", hm_models[(fam, "bf16")], 256, dev, smi)
+    del hm_models
+    torch.cuda.empty_cache()
+
+    # 8. per-op times and bounds
     op_ms = phase_op_times(dev, smi)
 
     sources = {
@@ -1026,6 +1423,10 @@ def main() -> int:
         "quant_attention_block": ("vit_tpu_torch/csrc/quant_block.cu",
                                   "vit_tpu/ops/quant_block.py:37"),
         "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu", "vit_tpu/ops/quant_block.py:189"),
+        "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu",
+                                "vit_tpu/ops/reattention_block.py:146"),
+        "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu",
+                              "vit_tpu/ops/reattention_block.py:38"),
     }
     kernels = []
     for k, (src, rep) in sources.items():

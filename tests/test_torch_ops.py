@@ -175,7 +175,8 @@ def test_dispatch_cpu_runs_twin_and_counts_nothing():
     tm = {k: _torch(v) for k, v in m.items()}
     torch.testing.assert_close(ops.mlp(**tm), tfm.reference_mlp(**tm), rtol=0, atol=0)
     assert ops.launch_counts() == dict.fromkeys(
-        ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp"), 0
+        ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
+         "talking_heads_block", "reattention_block"), 0
     )
 
 

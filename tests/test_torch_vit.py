@@ -135,27 +135,39 @@ def test_converter_rejects_a_wrong_layout():
         tm.load_state_dict(state, strict=True)
 
 
-@pytest.mark.parametrize("flag", ["qkv_bias", "talking_heads", "reattention", "mask_self"])
+# Each flag in a configuration the port still refuses. Talking heads and
+# re-attention run alone (tests/test_torch_cait_deepvit.py); together, or
+# re-attention without the residual its kernel adds, they raise.
+UNPORTED = {
+    "qkv_bias": {}, "talking_heads": {"reattention": True},
+    "reattention": {"fuse_residual": False}, "mask_self": {}, "learned_temperature": {},
+}
+
+
+@pytest.mark.parametrize("flag", list(UNPORTED))
 def test_unported_attention_branches_raise(flag):
     from vit_tpu_torch.nn import Attention
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, **{flag: True}, device="cpu")
+        Attention(64, 4, 16, **{flag: True}, **UNPORTED[flag], device="cpu")
 
 
 def test_cross_attention_raises():
+    """Cross-attention without a head mix or the low-query path needs the
+    flash kernel, which is not ported."""
     from vit_tpu_torch.nn import Attention
 
     x = torch.zeros(1, 5, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, device="cpu")(x, context=x)
+        Attention(64, 4, 16, cross=True, device="cpu")(x, context=x)
 
 
 def _constructors():
     from vit_tpu_torch import nn as tnn
+    from vit_tpu_torch.models import CaiT, DeepViT
     from vit_tpu_torch.utils import QuantViT
 
-    return {"ViT": TorchViT, "QuantViT": QuantViT,
+    return {"ViT": TorchViT, "QuantViT": QuantViT, "CaiT": CaiT, "DeepViT": DeepViT,
             **{c: getattr(tnn, c) for c in ("Transformer", "EncoderBlock", "FeedForward",
                                             "Attention", "Dense", "LayerNorm", "PatchEmbed")}}
 
@@ -163,7 +175,7 @@ def _constructors():
 @pytest.mark.parametrize(
     "name",
     ["ViT", "Transformer", "EncoderBlock", "FeedForward", "Attention", "Dense", "LayerNorm",
-     "PatchEmbed", "QuantViT"],
+     "PatchEmbed", "QuantViT", "CaiT", "DeepViT"],
 )
 def test_constructors_default_to_the_card(name):
     import inspect
@@ -179,3 +191,13 @@ def test_default_vit_asks_for_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             TorchViT(**CFG)
+
+
+@pytest.mark.parametrize("name", ["CaiT", "DeepViT"])
+def test_default_cait_and_deepvit_ask_for_the_card(name):
+    cfg = dict(CFG, cls_depth=1) if name == "CaiT" else CFG
+    if torch.cuda.is_available():
+        assert next(_constructors()[name](**cfg).parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            _constructors()[name](**cfg)

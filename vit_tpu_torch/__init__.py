@@ -7,9 +7,12 @@ layout and names so each module has an obvious counterpart:
                                built with ``nvcc`` at first use) beside their
                                plain PyTorch twins, and the dispatch between
                                them (CPU tensor -> twin, CUDA tensor -> kernel).
-- ``vit_tpu_torch.nn``       — patch embedding, fused self-attention block,
-                               feed-forward block, encoder stack.
-- ``vit_tpu_torch.models``   — ``ViT``.
+- ``vit_tpu_torch.nn``       — patch embedding, attention (the fused
+                               self-attention blocks, with CaiT's talking
+                               heads or DeepViT's re-attention, and CaiT's
+                               class cross-attention), feed-forward block,
+                               encoder stack.
+- ``vit_tpu_torch.models``   — ``ViT``, ``DeepViT``, ``CaiT``.
 - ``vit_tpu_torch.utils``    — ``from_jax_params`` / ``from_jax_quant``:
                                ``vit_tpu`` trees -> this package's
                                ``state_dict``; ``quantize_vit`` -> ``QuantViT``,
@@ -22,6 +25,6 @@ Models are built on the card unless the caller passes ``device="cpu"``.
 Importing the package builds and loads no CUDA code, and never imports JAX.
 """
 
-from vit_tpu_torch.models import ViT  # noqa: F401
+from vit_tpu_torch.models import CaiT, DeepViT, ViT  # noqa: F401
 
 __version__ = "0.1.0"

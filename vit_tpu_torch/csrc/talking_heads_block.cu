@@ -1,0 +1,69 @@
+// CaiT's talking-heads attention block for Hopper:
+//   out = (softmax(mask(mix_pre^T-mixed (q k^T * scale))) mixed by mix_post) v @ Wout + bout [+ x],
+//   qkv = LN(x) @ Wqkv
+//
+// Replaces vit_tpu/ops/reattention_block.py::_th_kernel (the Pallas TPU
+// kernel). As attention_block.cu, it splits at the GEMM boundaries, storing
+// only what the TPU kernel rounds to bf16 before its next use (xn, qkv at
+// :191-193, each head's P V at :230-234):
+//   1. ln_rows:            flax LayerNorm in fp32 (eps 1e-5 in CaiT) -> bf16 xn
+//   2. gemm_bf16:          xn @ Wqkv -> bf16 qkv                  (compute-bound)
+//   3. head_mix_core:      per (query tile, sample), all heads: scores, the
+//                          pre-softmax mix, mask, softmax, the post-softmax
+//                          mix, P V                      (latency-bound)
+//   4. gemm_bf16:          attn @ Wout + bout [+ x] -> x.dtype    (compute-bound)
+// CaiT's patch stage calls it without the residual: LayerScale gates the
+// delta outside (vit_tpu/nn/attention.py:258-271).
+
+#include "common.cuh"
+#include "gemm.cuh"
+#include "head_mix_core.cuh"
+
+namespace vt {
+namespace {
+
+template <typename T>
+cudaError_t talking_heads_block(const T* x, const float* ln_scale, const float* ln_bias,
+                                const bf16* wqkv, const bf16* wout, const float* bout,
+                                const hmix::Params& prm, T* out, bf16* xn, bf16* qkv,
+                                bf16* attn_out, int B, int N, int D, int H, int Dh, float scale,
+                                float eps, int residual, int true_n, cudaStream_t stream) {
+  const int rows = B * N, HD = H * Dh;
+  cudaError_t e = ln_rows<T>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
+  if (e != cudaSuccess) return e;
+  e = gemm_bf16<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  if (e != cudaSuccess) return e;
+  e = head_mix_core<hmix::kTalkingHeads>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm, stream);
+  if (e != cudaSuccess) return e;
+  return gemm_bf16<T>(attn_out, wout, out, bout, residual ? x : nullptr, kActNone, rows, D, HD,
+                      stream);
+}
+
+}  // namespace
+}  // namespace vt
+
+extern "C" int vt_talking_heads_block(const void* x, int x_is_fp32, const void* ln_scale,
+                                      const void* ln_bias, const void* wqkv, const void* wout,
+                                      const void* bout, const void* mix_pre, const void* mix_post,
+                                      void* out, void* xn, void* qkv, void* attn, void* dbg_mixed,
+                                      void* dbg_p, int B, int N, int D, int H, int Dh, float scale,
+                                      float eps, int residual, int true_n, void* stream) {
+  using vt::bf16;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  const vt::hmix::Params prm{f(mix_pre), f(mix_post), nullptr, nullptr, 0.0f, 0.0f,
+                             static_cast<float*>(dbg_mixed), static_cast<float*>(dbg_p)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (x_is_fp32)
+    e = vt::talking_heads_block<float>(f(x), f(ln_scale), f(ln_bias), h(wqkv), h(wout), f(bout),
+                                       prm, static_cast<float*>(out), static_cast<bf16*>(xn),
+                                       static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D,
+                                       H, Dh, scale, eps, residual, true_n, s);
+  else
+    e = vt::talking_heads_block<bf16>(h(x), f(ln_scale), f(ln_bias), h(wqkv), h(wout), f(bout),
+                                      prm, static_cast<bf16*>(out), static_cast<bf16*>(xn),
+                                      static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D,
+                                      H, Dh, scale, eps, residual, true_n, s);
+  return static_cast<int>(e);
+}

@@ -1,6 +1,8 @@
-"""Models of the port (``ViT`` so far; the rest of the zoo is ROADMAP.md
-Queue 1 item 6)."""
+"""Models of the port: ``ViT``, ``DeepViT`` and ``CaiT`` so far (the rest of
+the zoo is ROADMAP.md Queue 1 item 6)."""
 
+from vit_tpu_torch.models.cait import CaiT
+from vit_tpu_torch.models.deepvit import DeepViT
 from vit_tpu_torch.models.vit import ViT
 
-__all__ = ["ViT"]
+__all__ = ["CaiT", "DeepViT", "ViT"]

@@ -1,10 +1,27 @@
-"""Self-attention block (port of the raw-parameter, fully fusable branch of
-``vit_tpu/nn/attention.py:Attention``, :196-305).
+"""Attention module (port of ``vit_tpu/nn/attention.py:Attention``, :148-504).
 
-Pre-norm self-attention with a fused qkv projection and no qkv bias; the
-whole block, residual included, is one ``ops.attention_block`` call. The
-other branches of the JAX module (qkv bias, cross-attention, talking heads,
-re-attention, LSA) are not ported yet and raise.
+Two of the JAX module's branches are ported; the branch is fixed at
+construction (``cross``), because a PyTorch module owns its parameters
+before its first call:
+
+- **self-attention with raw parameters** (:196-305): pre-norm, a fused qkv
+  projection without bias. The whole block is one kernel call:
+  ``ops.attention_block`` (ViT; the residual inside), ``ops.
+  talking_heads_block`` (CaiT; the residual inside only with
+  ``fuse_residual``) or ``ops.reattention_block`` (DeepViT; the residual
+  inside). On the CPU each runs its plain twin, in the kernel's op order.
+- **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
+  LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
+  ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
+  ``context`` and ``kv_include_self``. Few queries against many keys take
+  the reassociated low-query path (``lowq_cross``; the FLOP gate of :387),
+  the rest the materializing path; both in plain PyTorch, as the JAX package
+  computes them outside any Pallas kernel. Cross-attention that would reach
+  the flash kernel (no head mix, no low-query path) raises.
+
+Still raising, each naming its ROADMAP item: ``qkv_bias``, ``mask_self`` and
+``learned_temperature`` (LSA), both head mixes at once, and a self-attention
+block whose kernel would need an unfused residual it does not have.
 """
 
 from __future__ import annotations
@@ -15,41 +32,176 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
+from vit_tpu_torch.nn.embed import Dense, LayerNorm
+from vit_tpu_torch.ops.block_attention import _ln_f32, _softmax
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
+_FLASH_LATER = "needs the flash-attention kernel, not ported yet (ROADMAP.md Queue 2 item 4)"
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """``[B, N, H*D] -> [B, H, N, D]``."""
+    b, n, hd = x.shape
+    return x.reshape(b, n, heads, hd // heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, N, D] -> [B, N, H*D]``."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _einsum(eq, a, b, dtype=torch.float32):
+    """fp32 einsum of operands already rounded to their dtype (JAX's
+    ``preferred_element_type=f32``), rounded once to ``dtype``."""
+    return torch.einsum(eq, a.float(), b.float()).to(dtype)
 
 
 class Attention(nn.Module):
-    """``x + out_proj(attention(qkv_proj(LN(x))))`` with ``vit_tpu``'s raw
-    parameters: ``norm_scale``, ``norm_bias`` ``[D]``; ``qkv_kernel``
-    ``[D, 3*H*Dh]``; ``out_kernel`` ``[H*Dh, D]``; ``out_bias`` ``[D]``, all
-    fp32. The GEMM weights are cast to ``dtype`` (None: the stream dtype)
-    per call; biases and LN parameters stay fp32."""
+    """Multi-head attention with ``vit_tpu``'s parameter names.
+
+    Self-attention (``cross=False``): ``norm_scale``, ``norm_bias`` ``[D]``;
+    ``qkv_kernel`` ``[D, 3*H*Dh]``; ``out_kernel`` ``[H*Dh, D]``;
+    ``out_bias`` ``[D]``; ``mix_heads_pre`` / ``mix_heads_post`` ``[H, H]``
+    with ``talking_heads``; ``reattn_weights`` ``[H, H]``, ``reattn_scale``,
+    ``reattn_bias`` ``[H]`` with ``reattention``. All fp32; the GEMM weights
+    are cast to ``dtype`` (None: the stream dtype) per call.
+
+    Cross-attention (``cross=True``): ``norm`` (``scale``, ``bias``),
+    ``norm_context`` with ``norm_context``, ``to_q/kernel``,
+    ``to_kv/kernel``, ``to_out/{kernel, bias}``, and the head mixes as
+    above. ``forward(x, context, kv_include_self)``.
+    """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *,
                  qkv_bias: bool = False, talking_heads: bool = False,
                  reattention: bool = False, mask_self: bool = False,
-                 norm_eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
+                 learned_temperature: bool = False, fuse_residual: bool = False,
+                 cross: bool = False, norm_context: bool = False,
+                 lowq_cross: Optional[bool] = None, norm_eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if qkv_bias or talking_heads or reattention or mask_self:
-            raise NotImplementedError(f"qkv_bias / talking_heads / reattention / mask_self: {_LATER}")
+        if qkv_bias or mask_self or learned_temperature:
+            raise NotImplementedError(f"qkv_bias / mask_self / learned_temperature: {_LATER}")
+        if talking_heads and reattention:
+            raise NotImplementedError(f"talking heads together with re-attention: {_LATER}")
+        if heads == 1 and dim_head == dim:
+            raise NotImplementedError(f"attention without an output projection: {_LATER}")
+        if not (cross or talking_heads or fuse_residual):
+            # the attention-block and re-attention kernels add the residual
+            raise NotImplementedError(
+                f"{'re-attention' if reattention else 'attention'} without fuse_residual: {_LATER}"
+            )
         inner = heads * dim_head
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.scale = heads, dim_head, dim_head**-0.5
+        self.talking_heads, self.reattention = talking_heads, reattention
+        self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
         self.norm_eps, self.dtype = norm_eps, dtype
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
-        self.norm_scale = p(dim, fill=1.0)
-        self.norm_bias = p(dim)
-        self.qkv_kernel = p(dim, 3 * inner)
-        self.out_kernel = p(inner, dim)
-        self.out_bias = p(dim)
+        if cross:
+            self.norm = LayerNorm(dim, eps=norm_eps, device=device)
+            self.norm_context = LayerNorm(dim, eps=norm_eps, device=device) if norm_context else None
+            self.to_q = Dense(dim, inner, use_bias=False, dtype=dtype, device=device)
+            self.to_kv = Dense(dim, 2 * inner, use_bias=False, dtype=dtype, device=device)
+            self.to_out = Dense(inner, dim, dtype=dtype, device=device)
+        else:
+            self.norm_scale = p(dim, fill=1.0)
+            self.norm_bias = p(dim)
+            self.qkv_kernel = p(dim, 3 * inner)
+            self.out_kernel = p(inner, dim)
+            self.out_bias = p(dim)
+        if talking_heads:
+            self.mix_heads_pre = p(heads, heads)
+            self.mix_heads_post = p(heads, heads)
+        if reattention:
+            self.reattn_weights = p(heads, heads)
+            self.reattn_scale = p(heads, fill=1.0)
+            self.reattn_bias = p(heads)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if context is not None:
-            raise NotImplementedError(f"cross-attention: {_LATER}")
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                kv_include_self: bool = False) -> torch.Tensor:
+        if self.cross:
+            return self._cross_attention(x, context, kv_include_self)
+        if context is not None or kv_include_self:
+            raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
-        return ops.attention_block(
-            x, self.norm_scale, self.norm_bias,
-            self.qkv_kernel.to(dtype), self.out_kernel.to(dtype), self.out_bias,
-            self.heads, scale=self.dim_head**-0.5, ln_eps=self.norm_eps,
+        w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
+             self.out_kernel.to(dtype), self.out_bias)
+        kw = dict(scale=self.scale, ln_eps=self.norm_eps)
+        if self.talking_heads:
+            return ops.talking_heads_block(*w, self.mix_heads_pre, self.mix_heads_post, self.heads,
+                                           residual=self.fuse_residual, **kw)
+        if self.reattention:
+            return ops.reattention_block(*w, self.reattn_weights, self.reattn_scale,
+                                         self.reattn_bias, self.heads, **kw)
+        return ops.attention_block(*w, self.heads, **kw)
+
+    def _cross_attention(self, x, context, kv_include_self):
+        """The flax branch (vit_tpu/nn/attention.py:356-410)."""
+        if context is None:
+            raise ValueError("cross-attention takes a context")
+        residual = x
+        x = self.norm(x)  # fp32, as flax LayerNorm(dtype=float32)
+        if self.norm_context is not None:
+            context = self.norm_context(context)
+        if kv_include_self:  # JAX's concatenate promotes: LN(x) fp32 with a bf16 context
+            dt = torch.promote_types(x.dtype, context.dtype)
+            kv_src = torch.cat([x.to(dt), context.to(dt)], dim=1)
+        else:
+            kv_src = context
+        q = self.to_q(x)
+        n_q, n_kv, inner = q.shape[1], kv_src.shape[1], self.heads * self.dim_head
+        lowq = (
+            not self.reattention
+            and (self.lowq_cross if self.lowq_cross is not None
+                 else 4 * n_q * (inner + n_kv) <= n_kv * inner)
         )
+        if lowq:
+            out = self._lowq_cross_attention(q, kv_src)
+        else:
+            if not (self.talking_heads or self.reattention):
+                raise NotImplementedError(f"cross-attention of {n_q} queries: {_FLASH_LATER}")
+            k, v = self.to_kv(kv_src).chunk(2, dim=-1)
+            out = merge_heads(self._materializing_attention(
+                split_heads(q, self.heads), split_heads(k, self.heads), split_heads(v, self.heads)))
+        out = self.to_out(out)
+        return out + residual if self.fuse_residual else out
+
+    def _lowq_cross_attention(self, q, context):
+        """Reassociated cross-attention for few queries (vit_tpu/nn/
+        attention.py:424-469): ``q (C W_k)^T = (q W_k^T) C^T`` and
+        ``p (C W_v) = (p C) W_v``, so no op is proportional to the context
+        length times the width twice. Scores stay materialized, so the
+        talking-heads mixes slot in unchanged."""
+        h, e = self.heads, self.dim_head
+        d_model = context.shape[-1]
+        dtype = self.dtype or context.dtype
+        wk, wv = self.to_kv.kernel.chunk(2, dim=-1)
+        wk = wk.reshape(d_model, h, e).to(dtype)
+        wv = wv.reshape(d_model, h, e).to(dtype)
+        qh = split_heads(q, h).to(dtype)
+        c = context.to(dtype)
+        t = _einsum("bhqe,dhe->bhqd", qh, wk, dtype)
+        s = _einsum("bhqd,bjd->bhqj", t, c) * self.scale
+        if self.talking_heads:
+            s = torch.einsum("bhqj,hg->bgqj", s, self.mix_heads_pre)
+        p = _softmax(s)
+        if self.talking_heads:
+            p = torch.einsum("bhqj,hg->bgqj", p, self.mix_heads_post)
+        u = _einsum("bhqj,bjd->bhqd", p.to(c.dtype), c, dtype)
+        return merge_heads(_einsum("bhqd,dhe->bhqe", u, wv, dtype))
+
+    def _materializing_attention(self, q, k, v):
+        """The score-materializing path (vit_tpu/nn/attention.py:471-504):
+        talking-heads mixes and re-attention on ``[B, H, Nq, Nk]`` scores."""
+        s = _einsum("bhid,bhjd->bhij", q, k) * self.scale
+        if self.talking_heads:
+            s = torch.einsum("bhij,hg->bgij", s, self.mix_heads_pre)
+        p = _softmax(s)
+        if self.talking_heads:
+            p = torch.einsum("bhij,hg->bgij", p, self.mix_heads_post)
+        if self.reattention:
+            p = torch.einsum("bhij,hg->bgij", p, self.reattn_weights)
+            p = _ln_f32(p.permute(0, 2, 3, 1), self.reattn_scale, self.reattn_bias, 1e-6)
+            p = p.permute(0, 3, 1, 2)
+        return _einsum("bhij,bhjd->bhid", p.to(v.dtype), v, v.dtype)

@@ -1,5 +1,5 @@
-"""Feed-forward block and encoder stack (port of ``vit_tpu/nn/blocks.py``,
-plain stack only).
+"""Feed-forward block and encoder stack (port of ``vit_tpu/nn/blocks.py``:
+the plain stack and DeepViT's re-attention stack).
 
 The depth is a Python loop over a ``ModuleList``: no ``nn.scan`` analogue,
 no sample packing and no Mosaic row padding, so the stream runs at its real
@@ -46,13 +46,15 @@ class FeedForward(nn.Module):
 
 class EncoderBlock(nn.Module):
     """One pre-norm residual block: fused attention (residual inside the
-    kernel) then ``x + FeedForward(x)`` in the stream dtype."""
+    kernel; DeepViT's re-attention with ``reattention``) then ``x +
+    FeedForward(x)`` in the stream dtype."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
-                 activation: str = "gelu", norm_eps: float = 1e-6,
+                 reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        self.attn = Attention(dim, heads, dim_head, norm_eps=norm_eps, dtype=dtype, device=device)
+        self.attn = Attention(dim, heads, dim_head, reattention=reattention, fuse_residual=True,
+                              norm_eps=norm_eps, dtype=dtype, device=device)
         self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
                               dtype=dtype, device=device)
 
@@ -66,12 +68,12 @@ class Transformer(nn.Module):
     ``blocks.{i}`` holds layer i of ``vit_tpu``'s stacked ``encoder/blocks``."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
-                 activation: str = "gelu", norm_eps: float = 1e-6,
+                 reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.blocks = nn.ModuleList(
-            EncoderBlock(dim, heads, dim_head, mlp_dim, activation=activation,
-                         norm_eps=norm_eps, dtype=dtype, device=device)
+            EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
+                         activation=activation, norm_eps=norm_eps, dtype=dtype, device=device)
             for _ in range(depth)
         )
 

@@ -9,20 +9,27 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.ops.block_attention import _ln_f32
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(dtype=float32)``: fp32 ``x @ kernel + bias``, with the
-    kernel in flax's ``[in, out]`` layout (not ``nn.Linear``'s ``[out, in]``)."""
+    """flax ``nn.Dense``, with the kernel in flax's ``[in, out]`` layout (not
+    ``nn.Linear``'s ``[out, in]``) and fp32 parameters. ``dtype`` (None:
+    fp32, what flax infers from fp32 parameters) is the computation dtype:
+    the input and the kernel are cast to it, the product is rounded once to
+    it, and the bias is cast to it and added in it. With ``dtype=bfloat16``
+    the bias add is a bf16 add, unlike the raw-parameter blocks' fp32 bias."""
 
-    def __init__(self, features_in: int, features: int, *, device="cuda"):
+    def __init__(self, features_in: int, features: int, *, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
+        self.dtype = dtype or torch.float32
         self.kernel = nn.Parameter(torch.zeros(features_in, features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x):
-        return torch.matmul(x.float(), self.kernel) + self.bias
+        y = _mm(x.to(self.dtype), self.kernel.to(self.dtype), self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):

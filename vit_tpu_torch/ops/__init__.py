@@ -27,6 +27,12 @@ from vit_tpu_torch.ops.quant_block import (
     reference_quant_mlp,
     xla_quant_attention_block,
 )
+from vit_tpu_torch.ops.reattention_block import (
+    fused_reattention_block,
+    fused_talking_heads_block,
+    xla_reattention_block,
+    xla_talking_heads_block,
+)
 
 __all__ = [
     "attention_block",
@@ -34,6 +40,8 @@ __all__ = [
     "qkv_attention",
     "quant_attention_block",
     "quant_mlp",
+    "talking_heads_block",
+    "reattention_block",
     "force_backend",
     "launch_counts",
     "reset_launch_counts",
@@ -47,6 +55,10 @@ __all__ = [
     "xla_quant_attention_block",
     "fused_quant_mlp",
     "reference_quant_mlp",
+    "fused_talking_heads_block",
+    "xla_talking_heads_block",
+    "fused_reattention_block",
+    "xla_reattention_block",
     "patchify",
 ]
 
@@ -146,4 +158,41 @@ def quant_mlp(
     return fn(
         x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
         activation=activation, ln_eps=ln_eps,
+    )
+
+
+def talking_heads_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads: int, *,
+    scale=None, ln_eps=1e-5, residual=False,
+):
+    """CaiT talking-heads block (LN -> qkv -> scores -> pre-softmax head mix
+    -> softmax -> post-softmax head mix -> P V -> out-proj [-> +residual])."""
+    if _use_kernel(x):
+        return fused_talking_heads_block(
+            x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads,
+            scale=scale, ln_eps=ln_eps, residual=residual,
+        )
+    if scale is None:
+        scale = (wqkv.shape[1] // 3 // heads) ** -0.5
+    return xla_talking_heads_block(
+        x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads, scale, ln_eps, residual,
+    )
+
+
+def reattention_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads: int, *,
+    scale=None, ln_eps=1e-6, reattn_eps=1e-6,
+):
+    """DeepViT re-attention block (LN -> qkv -> softmax -> head mix ->
+    LayerNorm across heads -> P V -> out-proj -> +residual)."""
+    if _use_kernel(x):
+        return fused_reattention_block(
+            x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads,
+            scale=scale, ln_eps=ln_eps, reattn_eps=reattn_eps,
+        )
+    if scale is None:
+        scale = (wqkv.shape[1] // 3 // heads) ** -0.5
+    return xla_reattention_block(
+        x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads, scale, ln_eps,
+        reattn_eps,
     )

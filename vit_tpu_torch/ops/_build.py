@@ -62,6 +62,30 @@ _SIGNATURES = {
         _F,                  # ln_eps
         _P,                  # cudaStream_t
     ],
+    "vt_talking_heads_block": [
+        _P, _I,              # x, x_is_fp32
+        _P, _P,              # ln_scale, ln_bias (fp32)
+        _P, _P, _P,          # wqkv, wout (bf16), bout (fp32)
+        _P, _P,              # mix_pre, mix_post (fp32 [H, H])
+        _P,                  # out (x's dtype)
+        _P, _P, _P,          # scratch: xn, qkv, attn (bf16)
+        _P, _P,              # NULL or fp32 [B, H, N, N]: mixed scores, post-mixed P
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F, _I, _I,      # scale, ln_eps, residual, true_n
+        _P,                  # cudaStream_t
+    ],
+    "vt_reattention_block": [
+        _P, _I,              # x, x_is_fp32
+        _P, _P,              # ln_scale, ln_bias (fp32)
+        _P, _P, _P,          # wqkv, wout (bf16), bout (fp32)
+        _P, _P, _P,          # mix (fp32 [H, H]), rln_scale, rln_bias (fp32 [H])
+        _P,                  # out (x's dtype)
+        _P, _P, _P,          # scratch: xn, qkv, attn (bf16)
+        _P, _P,              # NULL or fp32 [B, H, N, N]: mixed softmax r, normalised r'
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F, _F, _I,      # scale, ln_eps, reattn_eps, true_n
+        _P,                  # cudaStream_t
+    ],
     "vt_qkv_attention": [
         _P,                  # qkv (bf16)
         _P, _I, _I,          # bias (fp32, NULL = none), bias_b, bias_h (axis is full)
@@ -199,7 +223,8 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 # -- launch counters ---------------------------------------------------------
 
-KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp")
+KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
+           "talking_heads_block", "reattention_block")
 _counts = collections.Counter()
 _counts_lock = threading.Lock()
 

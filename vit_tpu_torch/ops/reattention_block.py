@@ -1,0 +1,310 @@
+"""The head-mixing attention blocks: CaiT's talking heads and DeepViT's
+re-attention.
+
+Port of ``vit_tpu/ops/reattention_block.py``. ``fused_talking_heads_block``
+and ``fused_reattention_block`` are the Hopper kernels
+(``csrc/talking_heads_block.cu``, ``csrc/reattention_block.cu``, on the core
+of ``csrc/head_mix_core.cuh``); ``xla_talking_heads_block`` and
+``xla_reattention_block`` are their plain PyTorch twins, written in the TPU
+kernels' own op order (reattention_block.py:69-143, :184-244):
+
+- flax LayerNorm in fp32, the qkv product rounded once to the weight dtype;
+- fp32 scores ``(q . k) * scale`` per head;
+- each head mix a sequential fp32 sum ``sum_h mix[h, g] * tile_h`` over
+  h = 0..H-1 (one rounding per product and per add, no fused multiply-add);
+- talking heads: pre-mix, padded keys (``col >= true_n``) masked to -1e30,
+  ``jax.nn.softmax``'s order, post-mix;
+- re-attention: masked softmax, mix, then a LayerNorm across the H values of
+  each (i, j): ``mean = sum(r) * (1/H)``, ``var = max(sum(r*r) * (1/H) -
+  mean^2, 0)``, ``(r_g - mean) * (rsqrt(var + eps) * scale_g) + bias_g``;
+  padded key columns are zeroed after it (the LN bias turns them into
+  ``bias_g``);
+- P rounded to the weight dtype, fp32 P @ V, each head's output rounded to
+  the weight dtype; the out product plus ``bout`` (plus ``x``) in fp32,
+  rounded once.
+
+The stage helpers (``_qkv``, ``_scores``, ``_talking_heads_probs``,
+``_reattention_probs``, ``_pv_out``) compose the twins; ``chip_smoke.py``
+runs them on a kernel's own intermediates to hold it stage by stage.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vit_tpu_torch.ops import _build
+from vit_tpu_torch.ops.block_attention import MASK_VALUE, _ln_f32, _mm, _softmax
+
+MAX_TOKENS = 256  # the fp32 score tiles of all heads live in one block's shared memory
+MAX_HEADS = 16
+
+_LATER = "ROADMAP.md Queue 1 item 5, head-mixing kernels beyond n <= 256, H <= 16, bf16 weights"
+
+
+# -- the twins' stages ----------------------------------------------------------
+
+
+def _qkv(x, ln_scale, ln_bias, wqkv, ln_eps):
+    """``[B, N, 3*H*Dh]``: flax LN in fp32, the product rounded once."""
+    xn = _ln_f32(x.float(), ln_scale.float(), ln_bias.float(), ln_eps).to(wqkv.dtype)
+    return _mm(xn, wqkv, wqkv.dtype)
+
+
+def _scores(qkv, heads, scale):
+    """fp32 ``(q . k) * scale`` ``[B, H, N, N]`` and ``v`` ``[B, H, N, Dh]``."""
+    b, n, three_hd = qkv.shape
+    d = three_hd // 3 // heads
+    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    return _mm(q, k.transpose(-1, -2)) * scale, v
+
+
+def _mix_heads(t, mix):
+    """``out[:, g] = sum_h mix[h, g] * t[:, h]``, summed over h in order."""
+    mix = mix.float()
+    w = lambda h: mix[h].view(1, -1, 1, 1)
+    acc = w(0) * t[:, 0:1]
+    for h in range(1, mix.shape[0]):
+        acc = acc + w(h) * t[:, h:h + 1]
+    return acc
+
+
+def _sum_heads(t):
+    acc = t[:, 0:1]
+    for h in range(1, t.shape[1]):
+        acc = acc + t[:, h:h + 1]
+    return acc
+
+
+def _key_cols(n, true_n, device):
+    """``[n]`` bool: the real key columns, or None when all are real."""
+    if true_n is None or true_n == n:
+        return None
+    return torch.arange(n, device=device) < true_n
+
+
+def _mask_keys(s, true_n):
+    ok = _key_cols(s.shape[-1], true_n, s.device)
+    return s if ok is None else torch.where(ok, s, torch.full_like(s, MASK_VALUE))
+
+
+def _zero_padded_keys(r, true_n):
+    ok = _key_cols(r.shape[-1], true_n, r.device)
+    return r if ok is None else torch.where(ok, r, torch.zeros_like(r))
+
+
+def _talking_heads_probs(s, mix_pre, mix_post, true_n=None):
+    """Scores -> (the pre-mixed, masked scores, the post-mixed P), fp32."""
+    mixed = _mask_keys(_mix_heads(s, mix_pre), true_n)
+    return mixed, _mix_heads(_softmax(mixed), mix_post)
+
+
+def _head_layer_norm(r, rln_scale, rln_bias, eps):
+    """LayerNorm across the head axis of ``r`` ``[B, H, N, N]``, in the TPU
+    kernel's order (reattention_block.py:116-123)."""
+    inv_h = 1.0 / r.shape[1]
+    mean = _sum_heads(r) * inv_h
+    var = torch.clamp(_sum_heads(r * r) * inv_h - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps)
+    per_head = lambda t: t.float().view(1, -1, 1, 1)
+    return (r - mean) * (mul * per_head(rln_scale)) + per_head(rln_bias)
+
+
+def _reattention_probs(s, mix, rln_scale, rln_bias, reattn_eps, true_n=None):
+    """Scores -> (the mixed softmax ``r``, the normalised ``r'`` with padded
+    key columns zeroed), fp32."""
+    mixed = _mix_heads(_softmax(_mask_keys(s, true_n)), mix)
+    return mixed, _zero_padded_keys(_head_layer_norm(mixed, rln_scale, rln_bias, reattn_eps), true_n)
+
+
+def _pv_out(p, v, x, wout, bout, residual):
+    """P (rounded to V's dtype) @ V per head, rounded to the weight dtype,
+    heads concatenated, then ``@ wout + bout (+ x)`` in fp32, rounded once."""
+    b, h, n, d = v.shape
+    o = _mm(p.to(v.dtype), v, wout.dtype).transpose(1, 2).reshape(b, n, h * d)
+    out = _mm(o, wout) + bout.float()
+    if residual:
+        out = out + x.float()
+    return out.to(x.dtype)
+
+
+# -- the twins ----------------------------------------------------------------
+
+
+def xla_talking_heads_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads, scale,
+    ln_eps=1e-5, residual=False, true_n=None,
+):
+    """Plain PyTorch twin of the talking-heads kernel (``vit_tpu``'s
+    ``xla_talking_heads_block``): ``out_proj(th_attention(qkv_proj(LN(x))))``
+    (``+ x`` if ``residual``) in the dtype of ``x``."""
+    s, v = _scores(_qkv(x, ln_scale, ln_bias, wqkv, ln_eps), heads, scale)
+    _, p = _talking_heads_probs(s, mix_pre, mix_post, true_n)
+    return _pv_out(p, v, x, wout, bout, residual)
+
+
+def xla_reattention_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads, scale,
+    ln_eps=1e-6, reattn_eps=1e-6, true_n=None,
+):
+    """Plain PyTorch twin of the re-attention kernel (``vit_tpu``'s
+    ``xla_reattention_block``): ``x + out_proj(reattention(qkv_proj(LN(x))))``
+    in the dtype of ``x``."""
+    s, v = _scores(_qkv(x, ln_scale, ln_bias, wqkv, ln_eps), heads, scale)
+    _, p = _reattention_probs(s, mix, rln_scale, rln_bias, reattn_eps, true_n)
+    return _pv_out(p, v, x, wout, bout, True)
+
+
+# -- the kernels ----------------------------------------------------------------
+
+
+def _check_block(name, x, ln_scale, ln_bias, wqkv, wout, bout, heads, mixes):
+    """Validates the operands of either kernel (``mixes``: the head-mix
+    operands by name, each with its shape); returns dim_head."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors")
+    if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be [B, N, D] bf16 or fp32, got {tuple(x.shape)} {x.dtype}")
+    if wqkv.dtype != torch.bfloat16 or wout.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the {name} kernel takes bf16 weights (got {wqkv.dtype}, {wout.dtype}); fp32 "
+            f"weights run only on the plain twin ({_LATER})"
+        )
+    b, n, dim = x.shape
+    hd = wqkv.shape[1] // 3 if wqkv.dim() == 2 else -1
+    if heads <= 0 or hd <= 0 or hd % heads:
+        raise ValueError(f"wqkv {tuple(wqkv.shape)} does not split into q, k, v of {heads} heads")
+    d = hd // heads
+    if tuple(wqkv.shape) != (dim, 3 * hd) or tuple(wout.shape) != (hd, dim):
+        raise ValueError(f"weights {tuple(wqkv.shape)}, {tuple(wout.shape)} do not fit D={dim}")
+    vecs = {"ln_scale": (ln_scale, (dim,)), "ln_bias": (ln_bias, (dim,)), "bout": (bout, (dim,)),
+            **mixes}
+    for k, (t, shape) in vecs.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise TypeError(f"{k} must be fp32 {list(shape)}, got {tuple(t.shape)} {t.dtype}")
+    tensors = [x, wqkv, wout] + [t for t, _ in vecs.values()]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all operands must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("operands must be contiguous")
+    if dim % 8:
+        raise ValueError(f"the kernel takes D % 8 == 0 (got {dim})")
+    if n > MAX_TOKENS or heads > MAX_HEADS or d % 16 or d > 128:
+        raise NotImplementedError(
+            f"n={n}, heads={heads}, dim_head={d}: the {name} kernel takes n <= {MAX_TOKENS}, "
+            f"heads <= {MAX_HEADS} and dim_head % 16 == 0, <= 128 ({_LATER})"
+        )
+    if b > 65535:
+        raise ValueError(f"batch {b} > 65535 (one CUDA grid dimension)")
+    return d
+
+
+def _launch(name, x, heads, d, true_n, intermediates, tensors, scalars):
+    """Allocates the output and scratch, runs the C entry ``vt_<name>`` on
+    the current stream with ``tensors`` (after x) and ``scalars`` (after the
+    shape), checks its rc and counts the launch."""
+    b, n, dim = x.shape
+    hd = heads * d
+    true_n = n if true_n is None else int(true_n)
+    if not 0 < true_n <= n:
+        raise ValueError(f"true_n={true_n} outside (0, {n}]")
+    lib = _build.load_library()
+    rows = b * n
+    opts = dict(device=x.device, dtype=torch.bfloat16)
+    xn = torch.empty(rows, dim, **opts)
+    qkv = torch.empty(rows, 3 * hd, **opts)
+    attn = torch.empty(rows, hd, **opts)
+    out = torch.empty_like(x)
+    mixed = p = None
+    if intermediates is not None:
+        mixed = torch.empty(b, heads, n, n, device=x.device, dtype=torch.float32)
+        p = torch.empty_like(mixed)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"vt_{name}")(
+            x.data_ptr(), int(x.dtype == torch.float32), *(t.data_ptr() for t in tensors),
+            out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ptr(mixed), ptr(p),
+            b, n, dim, heads, d, *scalars, true_n, stream,
+        )
+    _build.check(lib, rc, f"{name} kernel")
+    _build.count_launch(name)
+    if intermediates is not None:
+        intermediates.update(qkv=qkv, mixed=mixed, p=p, attn=attn)
+    return out
+
+
+def fused_talking_heads_block(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+    mix_pre: torch.Tensor,
+    mix_post: torch.Tensor,
+    heads: int,
+    *,
+    scale: Optional[float] = None,
+    ln_eps: float = 1e-5,
+    residual: bool = False,
+    true_n: Optional[int] = None,
+    intermediates: Optional[dict] = None,
+) -> torch.Tensor:
+    """``out_proj(talking_heads_attention(qkv_proj(LN(x))))`` (``+ x`` if
+    ``residual``) on the card.
+
+    ``x`` ``[B, N, D]`` bf16 or fp32; ``wqkv`` ``[D, 3*H*Dh]`` and ``wout``
+    ``[H*Dh, D]`` bf16; ``ln_scale``, ``ln_bias``, ``bout`` fp32 ``[D]``;
+    ``mix_pre``, ``mix_post`` fp32 ``[H, H]``. ``true_n`` masks padded keys.
+    Returns a new tensor of ``x``'s shape and dtype, computed on the current
+    stream. A dict passed as ``intermediates`` receives ``qkv`` ``[B*N,
+    3*H*Dh]``, ``mixed`` (the pre-mixed, masked scores) and ``p`` (the
+    post-mixed P), both fp32 ``[B, H, N, N]``, and ``attn`` ``[B*N, H*Dh]``."""
+    hh = (heads, heads)
+    d = _check_block("talking_heads_block", x, ln_scale, ln_bias, wqkv, wout, bout,
+                              heads, {"mix_pre": (mix_pre, hh), "mix_post": (mix_post, hh)})
+    scale = d**-0.5 if scale is None else scale
+    return _launch(
+        "talking_heads_block", x, heads, d, true_n, intermediates,
+        (ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post),
+        (float(scale), float(ln_eps), int(residual)),
+    )
+
+
+def fused_reattention_block(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+    mix: torch.Tensor,
+    rln_scale: torch.Tensor,
+    rln_bias: torch.Tensor,
+    heads: int,
+    *,
+    scale: Optional[float] = None,
+    ln_eps: float = 1e-6,
+    reattn_eps: float = 1e-6,
+    true_n: Optional[int] = None,
+    intermediates: Optional[dict] = None,
+) -> torch.Tensor:
+    """``x + out_proj(reattention(qkv_proj(LN(x))))`` on the card.
+
+    Operands as in ``fused_talking_heads_block``, with ``mix`` fp32 ``[H,
+    H]`` and ``rln_scale``, ``rln_bias`` fp32 ``[H]``. A dict passed as
+    ``intermediates`` receives ``qkv``, ``mixed`` (the mixed softmax ``r``),
+    ``p`` (the normalised ``r'``, padded key columns zeroed) and ``attn``."""
+    d = _check_block(
+        "reattention_block", x, ln_scale, ln_bias, wqkv, wout, bout, heads,
+        {"mix": (mix, (heads, heads)), "rln_scale": (rln_scale, (heads,)),
+         "rln_bias": (rln_bias, (heads,))},
+    )
+    scale = d**-0.5 if scale is None else scale
+    return _launch(
+        "reattention_block", x, heads, d, true_n, intermediates,
+        (ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias),
+        (float(scale), float(ln_eps), float(reattn_eps)),
+    )

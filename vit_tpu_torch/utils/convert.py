@@ -3,21 +3,28 @@
 Both packages keep flax's names and layout (Dense kernels ``[in, out]``, as
 the kernels consume them; ``vit_tpu/utils/interop.py`` documents the
 transposes to ``nn.Linear``, which the port does not need). The one change
-of layout is the encoder stack: ``vit_tpu`` scans its blocks, so every leaf
-under ``encoder/blocks`` carries a leading depth axis, while the port holds
-one module per layer (``encoder.blocks.{i}``).
+of layout is a stack of blocks: ``vit_tpu`` scans a stage of depth > 1, so
+every leaf under its prefix (``encoder/blocks``, CaiT's ``patch_stage/
+blocks`` and ``cls_stage/blocks``) carries a leading depth axis, while the
+port holds one module per layer (``encoder.blocks.{i}``). A stage of depth
+1 is not scanned: CaiT's keeps its prefix with unstacked leaves, the
+encoder's ``Transformer`` names its layer ``attn_0`` / ``ff_0``. So the
+stages are unstacked by the model's configuration (``model.jax_stages``),
+not by the shapes in the tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from vit_tpu_torch.utils.quantize import QUANT_WEIGHTS
 
-_STACKED = "encoder/blocks/"
+# vit_tpu's Transformer at depth 1 runs its layer unscanned, as attn_0 / ff_0
+_UNSCANNED = re.compile(r"^(?P<stage>.+)/(?P<kind>attn|ff)_0/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -31,27 +38,50 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Convert ``ViT.init``'s variables (nested dicts of numpy arrays, with
-    or without the top ``params`` key) into a ``state_dict`` for
-    ``vit_tpu_torch.models.ViT`` that loads with ``strict=True``:
+def from_jax_params(
+    tree: Mapping[str, Any], stages: Optional[Mapping[str, Optional[int]]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Convert a ``vit_tpu`` model's ``init`` variables (nested dicts of
+    numpy arrays, with or without the top ``params`` key) into a
+    ``state_dict`` for the port's model that loads with ``strict=True``.
 
-    - ``params/{cls, pos_embedding}`` -> ``cls``, ``pos_embedding``;
-    - ``encoder/blocks/{attn,ff}/<name>[depth, ...]`` ->
-      ``encoder.blocks.{i}.{attn,ff}.<name>``, one entry per layer;
+    ``stages`` maps each stack's path prefix to its depth, as the port's
+    models give it (``model.jax_stages``); the default, ``{"encoder/blocks":
+    None}``, is a ViT encoder whose depth is read off the leading axis.
+
+    - ``<stage>/<name>[depth, ...]`` -> ``<stage>.{i}.<name>``, one entry
+      per layer (depth > 1, or None);
+    - ``<stage>/<name>`` -> ``<stage>.0.<name>`` (depth 1), and likewise the
+      unscanned ``encoder/attn_0/<name>`` -> ``encoder.blocks.0.attn.<name>``;
     - every other ``a/b/c`` -> ``a.b.c``.
     """
     if "params" in tree:
         tree = tree["params"]
-    state = {}
+    stages = {"encoder/blocks": None} if stages is None else stages
+    state, seen = {}, set()
     for path, value in _flatten(tree).items():
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
-        if path.startswith(_STACKED):
-            rest = path[len(_STACKED):].replace("/", ".")
-            for i, layer in enumerate(arr.unbind(0)):
-                state[f"encoder.blocks.{i}.{rest}"] = layer.clone()
-        else:
+        m = _UNSCANNED.match(path)
+        if m and stages.get(f"{m['stage']}/blocks") == 1:
+            path = f"{m['stage']}/blocks/{m['kind']}/{path[m.end():]}"
+        stage = next((s for s in stages if path.startswith(s + "/")), None)
+        if stage is None:
             state[path.replace("/", ".")] = arr
+            continue
+        seen.add(stage)
+        key = stage.replace("/", ".")
+        rest = path[len(stage) + 1:].replace("/", ".")
+        depth = stages[stage]
+        if depth == 1:
+            state[f"{key}.0.{rest}"] = arr
+            continue
+        if depth is not None and arr.shape[:1] != (depth,):
+            raise ValueError(f"{path}: leading axis {tuple(arr.shape)[:1]}, not the depth {depth}")
+        for i, layer in enumerate(arr.unbind(0)):
+            state[f"{key}.{i}.{rest}"] = layer.clone()
+    missing = [s for s, depth in stages.items() if depth is not None and s not in seen]
+    if missing:
+        raise ValueError(f"no leaves under {missing} for the depths {[stages[s] for s in missing]}")
     return state
 
 
