@@ -35,7 +35,17 @@ Runs, in order, and exits non-zero at the first failure:
      counts per forward; their logits against the port's plain fp32 path
      beside the plain bf16 path's; img/s and p50 latency, kernels against the
      plain path; device time by kernel of one forward at batch 128;
-  8. each of the seven kernels at batch 128 against its twin, against the
+  8. the Twins-SVT slice: the flash-attention and window-attention kernels
+     against their twins at the shapes of the twins_svt preset (GSA at 64,
+     16, 4 and 1 keys; 7x7 windows; batch 128's 65,536 window-head pairs) and
+     at small shapes (each bias pattern, mask_self, Nq != Nk, Dv != D), with
+     the twins with a fault planted (padded keys unmasked, the bias
+     transposed, windows attending across each other) shown to fail the
+     bound; the preset (random weights from a seed, bf16) served through
+     ``BatchingServer`` with the launch counts per forward; its logits
+     against the port's plain fp32 path beside the plain bf16 path's; img/s
+     and p50 latency; device time by kernel of one forward at batch 128;
+  9. each of the nine kernels at batch 128 against its twin, against the
      PyTorch library composite that computes the same function, and against
      its bound on this card.
 Then one JSON line describes each kernel, and the last line is
@@ -129,11 +139,25 @@ CAIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=12,
             heads=16, dim_head=64, mlp_dim=2048)
 DEEPVIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
                dim_head=64, mlp_dim=2048)
-# Launches per forward of each kernel on the two paths.
-HEAD_MIX_LAUNCHES = {
+# Twins-SVT at the preset twins_svt of vit_tpu/models/presets.py:116-127
+# (224 px, the upstream README's), bf16. GSA attends 3136 / 784 / 196 / 49
+# queries to 64 / 16 / 4 / 1 keys; LSA runs 7x7 windows (S = 49) in stages
+# 1-3.
+TWINS = dict(num_classes=1000,
+             s1_emb_dim=64, s1_patch_size=4, s1_local_patch_size=7, s1_global_k=7, s1_depth=1,
+             s2_emb_dim=128, s2_patch_size=2, s2_local_patch_size=7, s2_global_k=7, s2_depth=1,
+             s3_emb_dim=256, s3_patch_size=2, s3_local_patch_size=7, s3_global_k=7, s3_depth=5,
+             s4_emb_dim=512, s4_patch_size=2, s4_local_patch_size=7, s4_global_k=7, s4_depth=4)
+# Launches per forward of each kernel on the CaiT, DeepViT and Twins-SVT
+# paths. Twins: 14 local layers (stages 1-3), 22 global layers, one MLP
+# after each attention.
+FAMILY_LAUNCHES = {
     "cait": {"talking_heads_block": 12, "fused_mlp": 14, "attention_block": 0},
     "deepvit": {"reattention_block": 6, "fused_mlp": 6, "attention_block": 0},
+    "twins": {"window_attention_block": 14, "flash_attention": 22, "fused_mlp": 36,
+              "attention_block": 0},
 }
+IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224}
 # Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
 # each stage run by the twin on the kernel's own input to it:
 # - qkv (LN and the qkv GEMM; the LN sums in another order, which can move an
@@ -380,6 +404,12 @@ class _Init:
     def lecun(self, *shape):
         return _trunc_normal(self.rng, shape, shape[-2] ** -0.5 / 0.87962566103423978)
 
+    def lecun_conv(self, *shape):
+        """An HWIO conv kernel ``[..., kh, kw, in/groups, out]``: flax's
+        fan-in is kh * kw * in/groups, not the ``shape[-2]`` of a Dense."""
+        fan_in = int(np.prod(shape[-4:-1]))
+        return _trunc_normal(self.rng, shape, fan_in**-0.5 / 0.87962566103423978)
+
     def tokens(self, *shape):
         return _trunc_normal(self.rng, shape, 0.02)
 
@@ -457,6 +487,49 @@ def cait_tree(c: dict, seed: int) -> dict:
         "cls_stage": stage(d, cross),
         **_head(w, c),
     }}
+
+
+def _squeeze_depth(tree: dict) -> dict:
+    """A stage of depth 1 is not scanned: its leaves have no depth axis."""
+    return {k: _squeeze_depth(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
+
+
+def twins_tree(c: dict, seed: int) -> dict:
+    """A Twins-SVT variables tree of config ``c`` (``TwinsSVT``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: a stage of depth > 1 stacked, conv kernels HWIO with
+    their real fan-in, 8 heads of 64 and an MLP of 4x in every stage."""
+    import inspect
+
+    from vit_tpu_torch.models import TwinsSVT
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(TwinsSVT).parameters.items()}, **c}
+    inner, dim_in, peg = 8 * 64, 3, c.get("peg_kernel_size", 3)
+    params = {}
+    for s in range(1, 5):
+        dim, p, k, depth = (c[f"s{s}_{n}"] for n in ("emb_dim", "patch_size", "global_k", "depth"))
+        params[f"embed_{s}"] = {"proj": {"kernel": w.lecun(dim_in * p * p, dim),
+                                         "bias": w.zeros(dim)}}
+        for ab in ("a", "b"):
+            layer = {}
+            if s < 4:
+                layer["local"] = _raw_attn(w, depth, dim, inner)
+                layer["ff1"] = {"ff": _ff(w, depth, dim, 4 * dim)}
+            layer["global"] = {
+                "norm": {"scale": w.ones(depth, dim), "bias": w.zeros(depth, dim)},
+                "to_q": {"kernel": w.lecun(depth, dim, inner)},
+                "to_kv": {"kernel": w.lecun_conv(depth, k, k, dim, 2 * inner)},
+                "to_out": {"kernel": w.lecun(depth, inner, dim), "bias": w.zeros(depth, dim)},
+            }
+            layer["ff2"] = {"ff": _ff(w, depth, dim, 4 * dim)}
+            params[f"block_{ab}_{s}"] = {"layers": layer if depth > 1 else _squeeze_depth(layer)}
+        params[f"peg_{s}"] = {"proj": {"kernel": w.lecun_conv(peg, peg, 1, dim),
+                                       "bias": w.zeros(dim)}}
+        dim_in = dim
+    params["head"] = {"kernel": w.lecun(dim_in, c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
 
 
 # -- phases -------------------------------------------------------------------
@@ -1079,18 +1152,18 @@ def build_head_mix_models(dev):
     return models
 
 
-def serve_head_mix(model, fam, requests):
-    """BatchingServer -> InferencePipeline -> CaiT / DeepViT on the card. Sets
-    the launch counts to 0 before the run and returns them as read just
-    after it; holds each kernel to its launches per forward and the server
-    rows to direct calls."""
+def serve_family(model, fam, requests):
+    """BatchingServer -> InferencePipeline -> CaiT / DeepViT / Twins-SVT on
+    the card. Sets the launch counts to 0 before the run and returns them as
+    read just after it; holds each kernel to its launches per forward and
+    the server rows to direct calls."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.pipeline import InferencePipeline
     from vit_tpu_torch.serving import BatchingServer
 
     forwards = []
     hook = model.register_forward_hook(lambda m, a, o: forwards.append(a[0].shape[0]))
-    pipe = InferencePipeline(model, image_size=256, batch_size=64)
+    pipe = InferencePipeline(model, image_size=IMAGE_SIZE[fam], batch_size=64)
     require(pipe.batch_buckets == [1, 4, 16, 64], f"buckets {pipe.batch_buckets}")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1108,12 +1181,12 @@ def serve_head_mix(model, fam, requests):
     require(np.isfinite(rows).all(), f"non-finite logits from the {fam} server")
     err = float(np.abs(rows - direct).max())
     tol = SERVER_TOL * float(np.abs(direct).max())
-    per = {k: counts[k] / len(forwards) for k in HEAD_MIX_LAUNCHES[fam]}
+    per = {k: counts[k] / len(forwards) for k in FAMILY_LAUNCHES[fam]}
     print(f"slice {fam}: {len(requests)} requests in {t_serve * 1e3:.1f} ms as batches {served} "
           f"(warm {t_warm:.2f} s); launches {counts} over {len(forwards)} forwards, per forward "
           f"{per}; server vs direct max|dlogit| {err:.6g} tol {tol:.6g}; bitwise equal "
           f"{bool(err == 0.0)}")
-    for k, want in HEAD_MIX_LAUNCHES[fam].items():
+    for k, want in FAMILY_LAUNCHES[fam].items():
         require(counts[k] == want * len(forwards),
                 f"slice {fam}: {k} launched {counts[k]} times for {len(forwards)} forwards, "
                 f"want {want} a forward")
@@ -1121,17 +1194,17 @@ def serve_head_mix(model, fam, requests):
     return counts
 
 
-def phase_head_mix_e2e(models, dev, requests):
-    """CaiT and DeepViT kernel-path logits (bf16) against the port's plain
+def phase_family_e2e(models, fams, dev, requests):
+    """Kernel-path logits (bf16) of each family against the port's plain
     fp32 path, bounded by HM_E2E_RATIO times the control: the plain bf16 path
     against plain fp32 on the same weights and 8 inputs."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.pipeline import preprocess
 
     raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
-    x32 = preprocess(raw, image_size=256, dtype=torch.float32)
-    x16 = preprocess(raw, image_size=256, dtype=torch.bfloat16)
-    for fam in ("cait", "deepvit"):
+    for fam in fams:
+        x32 = preprocess(raw, image_size=IMAGE_SIZE[fam], dtype=torch.float32)
+        x16 = preprocess(raw, image_size=IMAGE_SIZE[fam], dtype=torch.bfloat16)
         with torch.inference_mode():
             with ops.force_backend("torch"):
                 ref = models[(fam, "fp32")](x32)
@@ -1146,6 +1219,131 @@ def phase_head_mix_e2e(models, dev, requests):
               f"agreement with fp32 {top1:.3f}")
         require(torch.isfinite(out).all().item(), f"e2e {fam}: non-finite logits")
         require(err <= HM_E2E_RATIO * control, f"e2e {fam}: {err} > {HM_E2E_RATIO} x {control}")
+
+
+# -- the Twins-SVT slice: flash and window attention ----------------------------
+
+
+FLASH_FAULTS = ("padded keys unmasked", "bias transposed")
+
+
+def flash_fault_twin(fault, q, k, v, bias=None, mask_self=False):
+    """The flash twin with one of FLASH_FAULTS planted: the keys padded with
+    zero rows to the kernel's 64-key chunk and left unmasked (Nk must not be
+    a multiple of 64), or the bias added transposed (a square bias)."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    if fault == FLASH_FAULTS[0]:
+        pad = -k.shape[2] % 64
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+        bias = None if bias is None else F.pad(bias, (0, pad))
+    else:
+        bias = bias.mT
+    return fa.reference_attention(q, k, v, bias, mask_self=mask_self)
+
+
+def window_fault_twin(args, heads, bias=None):
+    """The window twin with windows attending across each other: pairs of
+    windows as one window of 2S tokens, the bias tiled over the pair (the
+    TPU kernel's packing without its block-diagonal mask). An even NW."""
+    wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+    nw, s, c = args[0].shape
+    tiled = None if bias is None else bias.reshape(-1, s, s).repeat(1, 2, 2)
+    out = wa.xla_window_attention_block(args[0].reshape(nw // 2, 2 * s, c), *args[1:], heads, tiled)
+    return out.reshape(nw, s, c)
+
+
+def _planted(name, bad, ref, fails):
+    err = (bad.float() - ref.float()).abs().max().item()
+    tol = kernel_tol(ref, None, ref.dtype)
+    print(f"{name}: max |err| {err:.6g} against tol {tol:.6g} (must fail the bound)")
+    if err <= tol:
+        fails.append(f"{name}: the bound does not see the fault")
+
+
+def twins_qkv(gen, b, h, nq, nk, d, dv, dev):
+    """q, k, v as GSA makes them: split_heads views of [B, Nq, H*D] query rows
+    and of the two halves of [B, Nk, 2*H*D] conv rows (Dv == D)."""
+    from vit_tpu_torch.nn.attention import split_heads
+
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    if dv != d:
+        return r(b, h, nq, d), r(b, h, nk, d), r(b, h, nk, dv)
+    k, v = r(b, nk, 2 * h * d).chunk(2, dim=-1)
+    return tuple(split_heads(t, h) for t in (r(b, nq, h * d), k, v))
+
+
+def phase_twins_kernels(dev):
+    """Kernels 4 and 6 against their twins on the card. Kernel 4 at the four
+    GSA shapes of the Twins preset (batch 8; stage 1 also at batch 128) and
+    at small shapes: each bias pattern, mask_self, Nq != Nk, Nk not a
+    multiple of 64, Dv != D. Kernel 6 at the three local shapes (batch 8)
+    without a bias and with a [H, S, S] and a [1, S, S] one, and at batch
+    128's 65,536 (window, head) pairs. The twins with a fault planted must
+    fail the bound. Returns max |err| per kernel at the preset's shapes."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst = {"flash_attention": 0.0, "window_attention_block": 0.0}
+    fails = []
+    gsa = [(f"GSA stage {s} batch {b}", (b, 8, n * n, (n // 7) ** 2, 64, 64), None, False, ())
+           for s, n in enumerate((56, 28, 14, 7), start=1) for b in ((8, 128) if s == 1 else (8,))]
+    small = [
+        ("bias [1,1,N,N], mask_self", (2, 4, 40, 40, 64, 64), (1, 1), True, ()),
+        ("bias [B,H,N,N]", (2, 4, 40, 40, 64, 64), (2, 4), False, (FLASH_FAULTS[1],)),
+        ("bias [1,H,Nq,Nk], Nq != Nk, Nk 49", (2, 4, 100, 49, 64, 64), (1, 4), False,
+         (FLASH_FAULTS[0],)),
+        ("bias [B,1,Nq,Nk], Dv != D, Nk 130, mask_self", (2, 4, 33, 130, 32, 96), (2, 1), True, ()),
+    ]
+    for name, (b, h, nq, nk, d, dv), bshape, ms, faults in gsa + small:
+        q, k, v = twins_qkv(gen, b, h, nq, nk, d, dv, dev)
+        bias = None if bshape is None else r(*bshape, nq, nk)
+        out = fa.flash_attention(q, k, v, bias, mask_self=ms)
+        ref = fa.reference_attention(q, k, v, bias, mask_self=ms)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention {name}", out, ref, None)
+        if name.startswith("GSA"):
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+        for fault in faults:
+            _planted(f"flash_attention {name}: the twin with {fault}",
+                     flash_fault_twin(fault, q, k, v, bias, ms), ref, fails)
+        del q, k, v, out, ref
+    args = ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")
+    for s, (n, dim) in enumerate(((56, 64), (28, 128), (14, 256)), start=1):
+        for b, bias_heads in ((8, None), (8, 8), (8, 1)) + (((128, 8),) if s == 1 else ()):
+            nw = b * (n // 7) ** 2
+            inp = attn_inputs(gen, nw, 49, dim, 8, 64, torch.bfloat16, dev)
+            a = [inp[key] for key in args]
+            bias = None if bias_heads is None else r(bias_heads, 49, 49)
+            name = (f"window_attention_block LSA stage {s} batch {b} ({nw * 8} window-head pairs) "
+                    f"bias {'none' if bias is None else list(bias.shape)}")
+            out = wa.fused_window_attention_block(*a, 8, bias)
+            ref = wa.xla_window_attention_block(*a, 8, bias)
+            torch.cuda.synchronize()
+            worst["window_attention_block"] = max(worst["window_attention_block"],
+                                                  check_close(name, out, ref, None))
+            if s == 1 and b == 8 and bias_heads == 8:
+                _planted(f"{name}: the twin with windows attending across each other",
+                         window_fault_twin(a, 8, bias), ref, fails)
+            del inp, a, out, ref
+    require(not fails, "; ".join(fails))
+    return worst
+
+
+def build_twins_models(dev):
+    """The Twins-SVT preset from weights drawn with a seed, in bf16 and fp32,
+    loaded through from_jax_params."""
+    from vit_tpu_torch.models import TwinsSVT
+    from vit_tpu_torch.utils import from_jax_params
+
+    models = {("twins", config): TwinsSVT(**TWINS, dtype=dtype, device=dev).eval()
+              for config, dtype in (("bf16", torch.bfloat16), ("fp32", None))}
+    state = from_jax_params(twins_tree(TWINS, SEED + 11), models[("twins", "bf16")].jax_stages)
+    for model in models.values():
+        model.load_state_dict(state, strict=True)
+    n = sum(p.numel() for p in models[("twins", "bf16")].parameters())
+    print(f"Twins-SVT preset: {n / 1e6:.1f} M parameters")
+    return models
 
 
 # -- per-op times at batch 128 --------------------------------------------------
@@ -1224,6 +1422,15 @@ def library_reattention(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, 
     r = torch.einsum("bhij,hg->bgij", p, mix).permute(0, 2, 3, 1)
     r = F.layer_norm(r, (heads,), rln_scale, rln_bias, 1e-6).permute(0, 3, 1, 2)
     return torch.matmul(merge_heads(torch.matmul(r.bfloat16(), v)), wout) + bout + x
+
+
+def library_window_block(x, ln_scale, ln_bias, wqkv, wout, bout, heads):
+    """The window block from library calls: F.layer_norm, cuBLAS bf16 GEMMs,
+    SDPA over the windows (no residual)."""
+    dim = x.shape[-1]
+    xn = F.layer_norm(x, (dim,), ln_scale, ln_bias, 1e-5)
+    o = merge_heads(F.scaled_dot_product_attention(*split_heads(torch.matmul(xn, wqkv), heads)))
+    return torch.matmul(o, wout) + bout
 
 
 def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0, fp32_flops=0.0):
@@ -1321,7 +1528,36 @@ def phase_op_times(dev, smi):
                       nbytes=size(*h) + size(h[0]), fp32_flops=mix_flops),
             )
             del h, lib_h
-    shapes = {"talking_heads_block": "CaiT preset (n 64)", "reattention_block": "DeepViT preset (n 65)"}
+        # kernels 4 and 6 at the Twins preset's stage 1: GSA (3136 queries, 64
+        # keys) and LSA (64 windows of 49 tokens an image), no bias
+        fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+        wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+        nq, nk, th = 3136, 64, 8
+        q, k, v = twins_qkv(gen, b, th, nq, nk, d, d, dev)
+        ms["flash_attention"] = (
+            cuda_ms(lambda: fa.flash_attention(q, k, v)),
+            cuda_ms(lambda: fa.reference_attention(q, k, v), iters=5),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            bound(4 * b * th * nq * nk * d, nbytes=size(q, k, v) + size(q)),
+        )
+        del q, k, v
+        nw, sw, cw = b * 64, 49, 64
+        w_in = attn_inputs(gen, nw, sw, cw, th, d, torch.bfloat16, dev)
+        w = [w_in[key] for key in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+        lib_w = [w[0], bf(w[1]), bf(w[2]), w[3], w[4], bf(w[5])]
+        rows_w, hd_w = nw * sw, th * d
+        ms["window_attention_block"] = (
+            cuda_ms(lambda: wa.fused_window_attention_block(*w, th)),
+            cuda_ms(lambda: wa.xla_window_attention_block(*w, th), iters=5),
+            cuda_ms(lambda: library_window_block(*lib_w, th)),
+            bound(2 * rows_w * cw * 3 * hd_w + 4 * nw * th * sw * sw * d + 2 * rows_w * hd_w * cw,
+                  nbytes=size(*w) + size(w[0])),
+        )
+        del w, lib_w, w_in
+    shapes = {"talking_heads_block": "CaiT preset (n 64)",
+              "reattention_block": "DeepViT preset (n 65)",
+              "flash_attention": "Twins GSA stage 1 (3136 x 64 keys)",
+              "window_attention_block": "Twins LSA stage 1 (8192 windows of 49)"}
     for k, (kern, plain, lib, (bnd, by)) in ms.items():
         print(f"op {k} {shapes.get(k, 'ViT-L')} batch 128 bf16: kernel {kern:.3f} ms, twin "
               f"{plain:.3f} ms, library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} "
@@ -1360,6 +1596,7 @@ def main() -> int:
     worst = phase_kernels(dev)
     worst.update(phase_int8_kernels(dev))
     worst.update(phase_head_mix_kernels(dev))
+    worst.update(phase_twins_kernels(dev))
 
     # 3. the float slice, bf16 then mixed
     t0 = time.perf_counter()
@@ -1400,10 +1637,10 @@ def main() -> int:
     hm_models = build_head_mix_models(dev)
     print(f"CaiT and DeepViT weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
     for fam, k in (("cait", "talking_heads_block"), ("deepvit", "reattention_block")):
-        counts = serve_head_mix(hm_models[(fam, "bf16")], fam, requests)
+        counts = serve_family(hm_models[(fam, "bf16")], fam, requests)
         require(counts[k] > 0, f"{k} was not launched on the {fam} path")
         launches[k] = counts[k]
-    phase_head_mix_e2e(hm_models, dev, requests)
+    phase_family_e2e(hm_models, ("cait", "deepvit"), dev, requests)
     phase_times({f"{fam} bf16": hm_models[(fam, "bf16")] for fam in ("cait", "deepvit")}, 256,
                 dev, smi)
     for fam in ("cait", "deepvit"):
@@ -1411,7 +1648,21 @@ def main() -> int:
     del hm_models
     torch.cuda.empty_cache()
 
-    # 8. per-op times and bounds
+    # 8. the Twins-SVT slice: the twins_svt preset, bf16
+    t0 = time.perf_counter()
+    tw_models = build_twins_models(dev)
+    print(f"Twins-SVT weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    counts = serve_family(tw_models[("twins", "bf16")], "twins", requests)
+    for k in ("window_attention_block", "flash_attention"):
+        require(counts[k] > 0, f"{k} was not launched on the Twins-SVT path")
+        launches[k] = counts[k]
+    phase_family_e2e(tw_models, ("twins",), dev, requests)
+    phase_times({"twins bf16": tw_models[("twins", "bf16")]}, 224, dev, smi)
+    phase_profile("twins bf16", tw_models[("twins", "bf16")], 224, dev, smi)
+    del tw_models
+    torch.cuda.empty_cache()
+
+    # 9. per-op times and bounds
     op_ms = phase_op_times(dev, smi)
 
     sources = {
@@ -1427,6 +1678,10 @@ def main() -> int:
                                 "vit_tpu/ops/reattention_block.py:146"),
         "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu",
                               "vit_tpu/ops/reattention_block.py:38"),
+        "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
+                            "vit_tpu/ops/flash_attention.py:45"),
+        "window_attention_block": ("vit_tpu_torch/csrc/window_attention_block.cu",
+                                   "vit_tpu/ops/window_attention.py:54"),
     }
     kernels = []
     for k, (src, rep) in sources.items():

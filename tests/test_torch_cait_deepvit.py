@@ -169,13 +169,25 @@ def _cross(lowq, talking_heads, dtype="float32", norm_context=False, reattention
 @pytest.mark.parametrize("lowq", [True, False])
 def test_cross_attention_matches_jax(lowq, talking_heads):
     tmod, x, ctx, ref = _cross(lowq, talking_heads)
-    if not (lowq or talking_heads):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 4"):
-            tmod(x, ctx, kv_include_self=True)
-        return
     with torch.inference_mode():
         out = tmod(x, ctx, kv_include_self=True).numpy()
     np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+def test_cross_attention_flash_route_matches_jax(mode, dtype, monkeypatch):
+    """No head mix and no low-query path: both packages run ``ops.attention``
+    (vit_tpu/nn/attention.py:401-402), JAX's flash kernel in interpret mode
+    or its XLA reference, the port its twin on the CPU (the flash kernel on
+    the card). fp32 within 2e-5 of the largest output, bf16 within one bf16
+    ulp of it."""
+    monkeypatch.setenv("VIT_TPU_BACKEND", mode)
+    tmod, x, ctx, ref = _cross(False, False, dtype)
+    with torch.inference_mode():
+        out = tmod(x, ctx, kv_include_self=True).float().numpy()
+    tol = 2e-5 if dtype == "float32" else 2.0**-7
+    np.testing.assert_allclose(out, ref, atol=tol * np.abs(ref).max(), rtol=0)
 
 
 def test_cross_attention_norm_context_matches_jax():

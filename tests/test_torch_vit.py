@@ -153,29 +153,36 @@ def test_unported_attention_branches_raise(flag):
 
 
 def test_cross_attention_raises():
-    """Cross-attention without a head mix or the low-query path needs the
-    flash kernel, which is not ported."""
+    """Cross-attention with LSA's ``mask_self`` or a qkv bias is not ported
+    and raises; without a head mix or the low-query path it runs the flash
+    route (``ops.attention``)."""
     from vit_tpu_torch.nn import Attention
 
     x = torch.zeros(1, 5, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, cross=True, device="cpu")(x, context=x)
+    for kw in (dict(mask_self=True), dict(qkv_bias=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Attention(64, 4, 16, cross=True, device="cpu", **kw)
+    with torch.inference_mode():
+        assert Attention(64, 4, 16, cross=True, device="cpu")(x, context=x).shape == (1, 5, 64)
 
 
 def _constructors():
     from vit_tpu_torch import nn as tnn
-    from vit_tpu_torch.models import CaiT, DeepViT
+    from vit_tpu_torch.models import CaiT, DeepViT, TwinsSVT
     from vit_tpu_torch.utils import QuantViT
 
     return {"ViT": TorchViT, "QuantViT": QuantViT, "CaiT": CaiT, "DeepViT": DeepViT,
+            "TwinsSVT": TwinsSVT,
             **{c: getattr(tnn, c) for c in ("Transformer", "EncoderBlock", "FeedForward",
-                                            "Attention", "Dense", "LayerNorm", "PatchEmbed")}}
+                                            "Attention", "Dense", "LayerNorm", "PatchEmbed",
+                                            "Conv", "PEG", "PatchEmbedding", "ConvMLP")}}
 
 
 @pytest.mark.parametrize(
     "name",
     ["ViT", "Transformer", "EncoderBlock", "FeedForward", "Attention", "Dense", "LayerNorm",
-     "PatchEmbed", "QuantViT", "CaiT", "DeepViT"],
+     "PatchEmbed", "QuantViT", "CaiT", "DeepViT", "TwinsSVT", "Conv", "PEG", "PatchEmbedding",
+     "ConvMLP"],
 )
 def test_constructors_default_to_the_card(name):
     import inspect

@@ -1,0 +1,47 @@
+// Multi-head attention with separate q, k, v for Hopper:
+//   out[b, h] = softmax(q[b, h] k[b, h]^T * scale + bias[b|0, h|0], mask_self) v[b, h]
+// q [B, H, Nq, D], k [B, H, Nk, D], v [B, H, Nk, Dv] bf16, out [B, H, Nq, Dv]
+// bf16, each read or written through its own strides.
+//
+// Replaces vit_tpu/ops/flash_attention.py::_attn_kernel (the Pallas TPU
+// kernel). The TPU kernel keeps one (b, h)'s whole K and V resident in VMEM
+// and does one exact softmax per Q tile; here one block takes one (b, h,
+// 32-query tile), keeps the tile's fp32 score rows over all Nk keys in shared
+// memory and streams K and V through in 64-key chunks (attention_core.cuh):
+// the same exact softmax, the same bf16 rounding of P. Keys past Nk do not
+// exist in the kernel (their P is 0), which is the TPU kernel's true_nk mask
+// of its padded keys.
+//
+// No copies: the strides let the kernel read the [B, H, N, D] views that
+// split_heads makes of [B, N, H*D] rows (Twins' GSA queries: 411 MB at stage
+// 1 and batch 128), and write its output as [B, Nq, H, Dv] rows, so that
+// merge_heads is a view.
+//
+// Bound: memory. At Twins-SVT's stage 1 (Nq = 3136, Nk = 64, D = 64) a query
+// row reads 128 B and writes 128 B for ~16 KFLOP, below the H100's ~295
+// FLOP/byte ridge; K and V (16 KB per (b, h)) are re-read from L2 by each of
+// the 98 query tiles. Only bf16 operands are taken: the TPU kernel's fp32
+// Precision.HIGHEST path is not ported, and the wrapper refuses it.
+
+#include "attention_core.cuh"
+#include "common.cuh"
+
+extern "C" int vt_flash_attention(const void* q, long long q_sb, long long q_sh, long long q_sr,
+                                  const void* k, long long k_sb, long long k_sh, long long k_sr,
+                                  const void* v, long long v_sb, long long v_sh, long long v_sr,
+                                  void* out, long long o_sb, long long o_sh, long long o_sr,
+                                  int B, int H, int Nq, int Nk, int D, int Dv, float scale,
+                                  const void* bias, int bias_b, int bias_h, int mask_self,
+                                  void* stream) {
+  using vt::bf16;
+  using namespace vt::attn;
+  const auto in = [](const void* p, long long sb, long long sh, long long sr) {
+    return Operand<const bf16>{static_cast<const bf16*>(p), sb, sh, sr};
+  };
+  const ScoreTerms st{static_cast<const float*>(bias), bias_b, bias_h, Nk, Nk, mask_self};
+  const cudaError_t e = vt::attention_core<bf16>(
+      in(q, q_sb, q_sh, q_sr), in(k, k_sb, k_sh, k_sr), in(v, v_sb, v_sh, v_sr),
+      Operand<bf16>{static_cast<bf16*>(out), o_sb, o_sh, o_sr}, Problem{B, H, Nq, Nk, D, Dv},
+      scale, st, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}

@@ -1,8 +1,9 @@
-"""Models of the port: ``ViT``, ``DeepViT`` and ``CaiT`` so far (the rest of
+"""Models of the port: ``ViT``, ``DeepViT``, ``CaiT`` and ``TwinsSVT`` so far (the rest of
 the zoo is ROADMAP.md Queue 1 item 6)."""
 
 from vit_tpu_torch.models.cait import CaiT
 from vit_tpu_torch.models.deepvit import DeepViT
+from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
 
-__all__ = ["CaiT", "DeepViT", "ViT"]
+__all__ = ["CaiT", "DeepViT", "TwinsSVT", "ViT"]

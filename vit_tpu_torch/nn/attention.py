@@ -15,9 +15,12 @@ before its first call:
   ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
   ``context`` and ``kv_include_self``. Few queries against many keys take
   the reassociated low-query path (``lowq_cross``; the FLOP gate of :387),
-  the rest the materializing path; both in plain PyTorch, as the JAX package
-  computes them outside any Pallas kernel. Cross-attention that would reach
-  the flash kernel (no head mix, no low-query path) raises.
+  in plain PyTorch, as the JAX package computes it outside any Pallas
+  kernel. The rest runs ``ops.attention`` (the flash kernel on the card;
+  :401-402), or, with a head mix, the materializing path in plain PyTorch.
+
+``mha_tokens`` (:70-91) is the functional attention of the window and
+pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
 Still raising, each naming its ROADMAP item: ``qkv_bias``, ``mask_self`` and
 ``learned_temperature`` (LSA), both head mixes at once, and a self-attention
@@ -36,7 +39,6 @@ from vit_tpu_torch.nn.embed import Dense, LayerNorm
 from vit_tpu_torch.ops.block_attention import _ln_f32, _softmax
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
-_FLASH_LATER = "needs the flash-attention kernel, not ported yet (ROADMAP.md Queue 2 item 4)"
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -49,6 +51,17 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """``[B, H, N, D] -> [B, N, H*D]``."""
     b, h, n, d = x.shape
     return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def mha_tokens(q, k, v, heads: int, *, scale=None) -> torch.Tensor:
+    """Multi-head attention over token layouts ``[B, N, H*D]`` -> ``[B, N,
+    H*Dv]`` (``vit_tpu/nn/attention.py:70-91``): split the heads, one
+    ``ops.attention`` (the flash kernel on the card), merge the heads. The
+    splits are views; on the card merging the heads is one too."""
+    q, k, v = (split_heads(t, heads) for t in (q, k, v))
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return merge_heads(ops.attention(q, k, v, scale=scale))
 
 
 def _einsum(eq, a, b, dtype=torch.float32):
@@ -159,11 +172,12 @@ class Attention(nn.Module):
         if lowq:
             out = self._lowq_cross_attention(q, kv_src)
         else:
-            if not (self.talking_heads or self.reattention):
-                raise NotImplementedError(f"cross-attention of {n_q} queries: {_FLASH_LATER}")
             k, v = self.to_kv(kv_src).chunk(2, dim=-1)
-            out = merge_heads(self._materializing_attention(
-                split_heads(q, self.heads), split_heads(k, self.heads), split_heads(v, self.heads)))
+            q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
+            if self.talking_heads or self.reattention:
+                out = merge_heads(self._materializing_attention(q, k, v))
+            else:
+                out = merge_heads(ops.attention(q, k, v, scale=self.scale))
         out = self.to_out(out)
         return out + residual if self.fuse_residual else out
 

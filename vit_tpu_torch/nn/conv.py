@@ -1,0 +1,119 @@
+"""Convolutional modules over NHWC feature maps (port of ``vit_tpu/nn/conv.py``:
+``PEG``, ``PatchEmbedding`` and the LayerNorm branch of ``ConvMLP``, on a
+flax-``nn.Conv`` container).
+
+The convolutions lie outside every TPU kernel (XLA ran them on the TPU), so
+they are ``F.conv2d``; ``ConvMLP`` is the fused MLP kernel over the token
+view, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vit_tpu_torch.core.utils import cdiv, pair
+from vit_tpu_torch.nn.blocks import FeedForward
+from vit_tpu_torch.nn.embed import Dense
+
+
+def same_padding(n: int, k: int, s: int) -> tuple:
+    """TF's SAME padding of one axis (flax ``padding="SAME"``): the total
+    ``max((ceil(n/s) - 1)*s + k - n, 0)``, the odd pixel at the end."""
+    total = max((cdiv(n, s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over ``[B, H, W, C]``, SAME padding. The kernel is
+    kept in PyTorch's OIHW layout (``from_jax_params`` turns flax's HWIO).
+    ``dtype`` (None: fp32, what flax infers from fp32 parameters) is the
+    computation dtype: input and kernel are cast to it, the convolution sums
+    their products in fp32 and rounds once to it, and the bias is cast to it
+    and added in it, after that rounding (``F.conv2d(..., bias)`` would add
+    it before). On the card the convolution runs in the dtype (cuDNN sums
+    bf16 products in fp32); on the CPU a bf16 one runs in fp32 on the
+    rounded operands, because oneDNN's bf16 convolution is wrong at some
+    shapes (16 input channels, 4x4 kernel, stride 4: off by the size of the
+    output). A float32 convolution on the card honours ``torch.backends.
+    cudnn.allow_tf32``: the caller turns TF32 off for an fp32 reference."""
+
+    def __init__(self, features_in: int, features: int, kernel_size, *, strides=1,
+                 feature_group_count: int = 1, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        self.kernel_size, self.strides = pair(kernel_size), pair(strides)
+        self.groups = feature_group_count
+        self.dtype = dtype or torch.float32
+        kh, kw = self.kernel_size
+        self.kernel = nn.Parameter(torch.zeros(features, features_in // self.groups, kh, kw,
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        (kh, kw), (sh, sw) = self.kernel_size, self.strides
+        ph, pw = same_padding(h, kh, sh), same_padding(w, kw, sw)
+        xc = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+        if any(ph + pw):
+            xc = F.pad(xc, (*pw, *ph))
+        w = self.kernel.to(self.dtype)
+        if xc.is_cuda or self.dtype == torch.float32:
+            y = F.conv2d(xc, w, stride=(sh, sw), groups=self.groups)
+        else:
+            y = F.conv2d(xc.float(), w.float(), stride=(sh, sw), groups=self.groups).to(self.dtype)
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class PEG(nn.Module):
+    """Positional Encoding Generator: ``x + depthwise_conv(x)`` (``proj``)."""
+
+    def __init__(self, dim: int, kernel_size: int = 3, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.proj = Conv(dim, dim, kernel_size, feature_group_count=dim, dtype=dtype,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.proj(x)
+
+
+class PatchEmbedding(nn.Module):
+    """Space-to-depth then a Dense (``proj``): ``[B, H, W, C] -> [B, H/p,
+    W/p, dim_out]``. The patch features are channel-major ``(c p1 p2)``, as
+    in ``vit_tpu`` (not ``ops.patchify``'s ``(p1 p2 c)``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, patch_size: int, *,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(dim_in * patch_size * patch_size, dim_out, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.patch_size
+        b, h, w, c = x.shape
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
+        return self.proj(x.reshape(b, h // p, w // p, c * p * p))
+
+
+class ConvMLP(nn.Module):
+    """Conv-1x1 MLP over an NHWC map: the tokens of the map through
+    ``FeedForward`` (``ff``; LayerNorm eps 1e-5), one ``ops.mlp`` call."""
+
+    def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu",
+                 batch_norm: bool = False, ln_eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        if batch_norm:
+            raise NotImplementedError(
+                "ConvMLP with batch_norm (LeViT) is not ported yet (ROADMAP.md Queue 1 item 6)")
+        self.ff = FeedForward(dim, dim * mult, activation=activation, ln_eps=ln_eps, dtype=dtype,
+                              device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        return self.ff(x.reshape(b, h * w, c)).reshape(b, h, w, -1)

@@ -33,16 +33,20 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=float32)``: the fast-variance formula in fp32."""
+    """flax ``nn.LayerNorm(dtype=dtype)``: the statistics and the fast-variance
+    normalisation in fp32, the output cast to ``dtype`` (None: fp32, what
+    flax infers from fp32 parameters)."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-6, device="cuda"):
+    def __init__(self, dim: int, *, eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.scale = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x):
-        return _ln_f32(x.float(), self.scale, self.bias, self.eps)
+        y = _ln_f32(x.float(), self.scale, self.bias, self.eps)
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 class PatchEmbed(nn.Module):

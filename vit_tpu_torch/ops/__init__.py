@@ -18,6 +18,7 @@ from typing import Optional
 
 from vit_tpu_torch.ops._build import launch_counts, reset_launch_counts  # noqa: F401
 from vit_tpu_torch.ops.block_attention import fused_attention_block, xla_attention_block
+from vit_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
 from vit_tpu_torch.ops.patch_embed import patchify  # noqa: F401
 from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, xla_qkv_attention
@@ -33,8 +34,19 @@ from vit_tpu_torch.ops.reattention_block import (
     xla_reattention_block,
     xla_talking_heads_block,
 )
+from vit_tpu_torch.ops.window_attention import (
+    fused_window_attention_block,
+    xla_window_attention_block,
+)
+from vit_tpu_torch.ops.windows import (  # noqa: F401
+    dilated_partition,
+    dilated_unpartition,
+    window_partition,
+    window_unpartition,
+)
 
 __all__ = [
+    "attention",
     "attention_block",
     "mlp",
     "qkv_attention",
@@ -42,6 +54,7 @@ __all__ = [
     "quant_mlp",
     "talking_heads_block",
     "reattention_block",
+    "window_attention_block",
     "force_backend",
     "launch_counts",
     "reset_launch_counts",
@@ -59,7 +72,15 @@ __all__ = [
     "xla_talking_heads_block",
     "fused_reattention_block",
     "xla_reattention_block",
+    "flash_attention",
+    "reference_attention",
+    "fused_window_attention_block",
+    "xla_window_attention_block",
     "patchify",
+    "window_partition",
+    "window_unpartition",
+    "dilated_partition",
+    "dilated_unpartition",
 ]
 
 _backend_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
@@ -87,6 +108,14 @@ def _use_kernel(x) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or twin for device {x.device}")
+
+
+def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
+    """Multi-head attention ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H,
+    Nk, Dv]`` -> ``[B, H, Nq, Dv]``, with an optional additive bias
+    ``[B|1, H|1, Nq, Nk]`` and the ``mask_self`` diagonal (LSA)."""
+    fn = flash_attention if _use_kernel(q) else reference_attention
+    return fn(q, k, v, bias, scale=scale, mask_self=mask_self)
 
 
 def attention_block(
@@ -196,3 +225,13 @@ def reattention_block(
         x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads, scale, ln_eps,
         reattn_eps,
     )
+
+
+def window_attention_block(
+    xw, ln_scale, ln_bias, wqkv, wout, bout, heads: int, bias=None, *, scale=None, ln_eps=1e-5,
+):
+    """Fused multi-window attention block over windowed tokens ``[NW, S, C]``
+    (LN -> qkv -> per-window attention (+ a shared bias ``[1|H, S, S]``) ->
+    out-proj + bias), without the residual."""
+    fn = fused_window_attention_block if _use_kernel(xw) else xla_window_attention_block
+    return fn(xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias, scale=scale, ln_eps=ln_eps)

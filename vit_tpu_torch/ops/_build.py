@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points (csrc/*.cu) and their argument types. Every pointer and the
 # stream are c_void_p: ctypes would pass a bare Python int as a 32-bit int.
@@ -92,6 +93,28 @@ _SIGNATURES = {
         _P,                  # out (bf16)
         _I, _I, _I, _I,      # B, N, heads, dim_head
         _F,                  # scale
+        _P,                  # cudaStream_t
+    ],
+    "vt_flash_attention": [
+        _P, _L, _L, _L,      # q (bf16) and its batch, head, row strides (elements)
+        _P, _L, _L, _L,      # k
+        _P, _L, _L, _L,      # v
+        _P, _L, _L, _L,      # out (bf16)
+        _I, _I, _I, _I,      # B, heads, Nq, Nk
+        _I, _I, _F,          # D, Dv, scale
+        _P, _I, _I,          # bias (fp32, NULL = none), bias_b, bias_h (axis is full)
+        _I,                  # mask_self
+        _P,                  # cudaStream_t
+    ],
+    "vt_window_attention_block": [
+        _P, _I,              # xw, x_is_fp32
+        _P, _P,              # ln_scale, ln_bias (fp32)
+        _P, _P, _P,          # wqkv, wout (bf16), bout (fp32)
+        _P, _I,              # bias (fp32 [1|H, S, S], NULL = none), bias_h (per head)
+        _P,                  # out (xw's dtype)
+        _P, _P, _P,          # scratch: xn, qkv, attn (bf16)
+        _I, _I, _I, _I, _I,  # NW, S, C, heads, dim_head
+        _F, _F,              # scale, ln_eps
         _P,                  # cudaStream_t
     ],
     "vt_quant_attention_block": [
@@ -224,7 +247,7 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 # -- launch counters ---------------------------------------------------------
 
 KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
-           "talking_heads_block", "reattention_block")
+           "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block")
 _counts = collections.Counter()
 _counts_lock = threading.Lock()
 

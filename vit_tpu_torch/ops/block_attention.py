@@ -152,8 +152,6 @@ def fused_attention_block(
             f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
             "(ROADMAP.md Queue 2 item 5)"
         )
-    if b * heads > 65535:
-        raise ValueError(f"batch x heads = {b * heads} > 65535 (one CUDA grid dimension)")
     if block_tokens is not None and (true_n is None or n % block_tokens):
         raise ValueError("block_tokens needs true_n and must divide n")
     if scale is None:

@@ -74,8 +74,6 @@ def fused_qkv_attention(
             f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
             "(ROADMAP.md Queue 2 item 5)"
         )
-    if b * heads > 65535:
-        raise ValueError(f"batch x heads = {b * heads} > 65535 (one CUDA grid dimension)")
     bias_b = bias_h = 0
     if bias is not None:
         if bias.dim() != 4 or tuple(bias.shape[2:]) != (n, n) or bias.shape[0] not in (1, b) \

@@ -165,8 +165,6 @@ def fused_quant_attention_block(
             f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
             "(ROADMAP.md Queue 2 item 5)"
         )
-    if b * heads > 65535:
-        raise ValueError(f"batch x heads = {b * heads} > 65535 (one CUDA grid dimension)")
     true_n = n if true_n is None else int(true_n)
     if not 0 < true_n <= n:
         raise ValueError(f"true_n={true_n} outside (0, {n}]")

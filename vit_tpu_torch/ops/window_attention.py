@@ -1,0 +1,130 @@
+"""Multi-window attention block: LN -> qkv GEMM -> per-window attention (+ a
+shared per-window bias) -> out GEMM + bias. No residual.
+
+Port of ``vit_tpu/ops/window_attention.py``. ``fused_window_attention_block``
+is the Hopper kernel (``csrc/window_attention_block.cu``);
+``xla_window_attention_block`` is its plain PyTorch twin and mirrors the JAX
+twin op for op: flax LayerNorm in fp32 (``block_attention._ln_f32``, the
+formula of ``window_attention.py:45-51``), fp32 products of bf16-rounded
+operands, qkv and each head's P V rounded to the weights' dtype,
+``jax.nn.softmax``'s order, the fp32 bias adds.
+
+The TPU kernel packs G windows into one block-diagonal score tile, a device
+for the TPU's matrix unit; every window's softmax sees only its own keys
+there too, so the port computes each window on its own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vit_tpu_torch.ops import _build
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
+from vit_tpu_torch.ops.flash_attention import check_core_shape
+
+
+def xla_window_attention_block(
+    xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias=None, *, scale=None, ln_eps=1e-5,
+):
+    """Plain PyTorch twin (``vit_tpu``'s ``xla_window_attention_block``):
+    ``out_proj(window_attention(qkv_proj(LN(xw))))`` of ``xw`` ``[NW, S,
+    C]`` in its dtype; ``bias`` reshapes to ``[1|H, S, S]``."""
+    nw, s, _ = xw.shape
+    hd = wqkv.shape[1] // 3
+    d = hd // heads
+    if scale is None:
+        scale = d**-0.5
+    xn = _ln_f32(xw.float(), ln_scale.float(), ln_bias.float(), ln_eps).to(wqkv.dtype)
+    qkv = _mm(xn, wqkv, wqkv.dtype)
+    split = lambda t: t.reshape(nw, s, heads, d).transpose(1, 2)
+    q, k, v = (split(t) for t in qkv.split(hd, dim=-1))
+    sc = _mm(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        sc = sc + bias.reshape(1, -1, s, s).float()
+    p = _softmax(sc)
+    o = _mm(p.to(v.dtype), v, v.dtype)
+    o = o.transpose(1, 2).reshape(nw, s, hd).to(wout.dtype)
+    return (_mm(o, wout) + bout.float()).to(xw.dtype)
+
+
+def fused_window_attention_block(
+    xw: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+    heads: int,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    ln_eps: float = 1e-5,
+) -> torch.Tensor:
+    """``out_proj(window_attention(qkv_proj(LN(xw))))`` on the card.
+
+    ``xw`` ``[NW, S, C]`` bf16 or fp32 (NW = batch x windows); ``wqkv``
+    ``[C, 3*H*Dh]`` and ``wout`` ``[H*Dh, C]`` bf16; ``ln_scale``,
+    ``ln_bias`` and ``bout`` fp32 ``[C]``; ``bias`` an optional per-window
+    bias shared by every window, any shape that reshapes to ``[1|H, S, S]``
+    (fp32 in the kernel). No residual. Returns a new tensor of ``xw``'s shape
+    and dtype, computed on the current stream."""
+    if not xw.is_cuda:
+        raise ValueError("fused_window_attention_block takes CUDA tensors")
+    if xw.dim() != 3 or xw.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"xw must be [NW, S, C] bf16 or fp32, got {tuple(xw.shape)} {xw.dtype}")
+    if wqkv.dtype != torch.bfloat16 or wout.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the window-attention kernel takes bf16 weights (got {wqkv.dtype}, {wout.dtype}); "
+            "fp32 weights run only on the plain twin (ROADMAP.md Queue 2 item 6)"
+        )
+    nw, s, c = xw.shape
+    hd = wqkv.shape[1] // 3
+    if heads <= 0 or hd % heads:
+        raise ValueError(f"{wqkv.shape[1]} qkv columns do not split into {heads} heads")
+    d = hd // heads
+    if tuple(wqkv.shape) != (c, 3 * hd) or tuple(wout.shape) != (hd, c):
+        raise ValueError(f"weights {tuple(wqkv.shape)}, {tuple(wout.shape)} do not fit C={c}")
+    for name, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), ("bout", bout)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise TypeError(f"{name} must be fp32 [{c}], got {tuple(t.shape)} {t.dtype}")
+    tensors = (xw, ln_scale, ln_bias, wqkv, wout, bout)
+    if any(t.device != xw.device for t in tensors):
+        raise ValueError("all operands must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("operands must be contiguous")
+    if c % 8:
+        raise ValueError(f"the kernel takes C % 8 == 0 (got {c})")
+    check_core_shape(s, d, d)
+    bias_h = 0
+    if bias is not None:
+        if bias.numel() % (s * s) or bias.numel() // (s * s) not in (1, heads):
+            raise ValueError(f"bias must reshape to [1|{heads}, {s}, {s}], got {tuple(bias.shape)}")
+        if bias.device != xw.device:
+            raise ValueError("bias must be on xw's device")
+        bias = bias.reshape(-1, s, s).float().contiguous()
+        bias_h = int(bias.shape[0] == heads and heads > 1)
+    if scale is None:
+        scale = d**-0.5
+
+    lib = _build.load_library()
+    rows = nw * s
+    opts = dict(device=xw.device, dtype=torch.bfloat16)
+    xn = torch.empty(rows, c, **opts)
+    qkv = torch.empty(rows, 3 * hd, **opts)
+    attn = torch.empty(rows, hd, **opts)
+    out = torch.empty_like(xw)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream(xw.device).cuda_stream
+        rc = lib.vt_window_attention_block(
+            xw.data_ptr(), int(xw.dtype == torch.float32),
+            ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
+            None if bias is None else bias.data_ptr(), bias_h,
+            out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+            nw, s, c, heads, d, float(scale), float(ln_eps), stream,
+        )
+    _build.check(lib, rc, "window_attention_block kernel")
+    _build.count_launch("window_attention_block")
+    return out

@@ -1,16 +1,23 @@
 """``vit_tpu`` variables -> this package's ``state_dict``.
 
-Both packages keep flax's names and layout (Dense kernels ``[in, out]``, as
-the kernels consume them; ``vit_tpu/utils/interop.py`` documents the
-transposes to ``nn.Linear``, which the port does not need). The one change
-of layout is a stack of blocks: ``vit_tpu`` scans a stage of depth > 1, so
-every leaf under its prefix (``encoder/blocks``, CaiT's ``patch_stage/
-blocks`` and ``cls_stage/blocks``) carries a leading depth axis, while the
-port holds one module per layer (``encoder.blocks.{i}``). A stage of depth
-1 is not scanned: CaiT's keeps its prefix with unstacked leaves, the
-encoder's ``Transformer`` names its layer ``attn_0`` / ``ff_0``. So the
-stages are unstacked by the model's configuration (``model.jax_stages``),
-not by the shapes in the tree.
+Both packages keep flax's names, and the Dense layout (kernels ``[in,
+out]``, as the kernels consume them; ``vit_tpu/utils/interop.py`` documents
+the transposes to ``nn.Linear``, which the port does not need). Two layouts
+change:
+
+- A stack of blocks: ``vit_tpu`` scans a stage of depth > 1, so every leaf
+  under its prefix (``encoder/blocks``, CaiT's ``patch_stage/blocks`` and
+  ``cls_stage/blocks``, Twins-SVT's ``block_{a|b}_{s}/layers``) carries a
+  leading depth axis, while the port holds one module per layer
+  (``encoder.blocks.{i}``). A stage of depth 1 is not scanned: CaiT's and
+  Twins' keep their prefix with unstacked leaves, the encoder's
+  ``Transformer`` names its layer ``attn_0`` / ``ff_0``. So the stages are
+  unstacked by the model's configuration (``model.jax_stages``), not by the
+  shapes in the tree.
+- A conv kernel: flax's HWIO ``[kh, kw, in/groups, out]`` becomes PyTorch's
+  OIHW. Every leaf named ``kernel`` that is 4-D once unstacked is turned (a
+  scanned conv kernel is 5-D and a scanned Dense kernel 3-D, so the turn
+  comes after the unstacking).
 """
 
 from __future__ import annotations
@@ -53,12 +60,19 @@ def from_jax_params(
       per layer (depth > 1, or None);
     - ``<stage>/<name>`` -> ``<stage>.0.<name>`` (depth 1), and likewise the
       unscanned ``encoder/attn_0/<name>`` -> ``encoder.blocks.0.attn.<name>``;
-    - every other ``a/b/c`` -> ``a.b.c``.
+    - every other ``a/b/c`` -> ``a.b.c``;
+    - a 4-D ``kernel`` (a conv's, HWIO) -> OIHW.
     """
     if "params" in tree:
         tree = tree["params"]
     stages = {"encoder/blocks": None} if stages is None else stages
     state, seen = {}, set()
+
+    def put(key, arr):
+        if key.rsplit(".", 1)[-1] == "kernel" and arr.dim() == 4:
+            arr = arr.permute(3, 2, 0, 1).contiguous()
+        state[key] = arr
+
     for path, value in _flatten(tree).items():
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
         m = _UNSCANNED.match(path)
@@ -66,19 +80,19 @@ def from_jax_params(
             path = f"{m['stage']}/blocks/{m['kind']}/{path[m.end():]}"
         stage = next((s for s in stages if path.startswith(s + "/")), None)
         if stage is None:
-            state[path.replace("/", ".")] = arr
+            put(path.replace("/", "."), arr)
             continue
         seen.add(stage)
         key = stage.replace("/", ".")
         rest = path[len(stage) + 1:].replace("/", ".")
         depth = stages[stage]
         if depth == 1:
-            state[f"{key}.0.{rest}"] = arr
+            put(f"{key}.0.{rest}", arr)
             continue
         if depth is not None and arr.shape[:1] != (depth,):
             raise ValueError(f"{path}: leading axis {tuple(arr.shape)[:1]}, not the depth {depth}")
         for i, layer in enumerate(arr.unbind(0)):
-            state[f"{key}.{i}.{rest}"] = layer.clone()
+            put(f"{key}.{i}.{rest}", layer.clone())
     missing = [s for s, depth in stages.items() if depth is not None and s not in seen]
     if missing:
         raise ValueError(f"no leaves under {missing} for the depths {[stages[s] for s in missing]}")
