@@ -47,7 +47,19 @@ Runs, in order, and exits non-zero at the first failure:
      and p50 latency; device time by kernel of one forward at batch 128;
   9. each of the nine kernels at batch 128 against its twin, against the
      PyTorch library composite that computes the same function, and against
-     its bound on this card.
+     its bound on this card;
+ 10. the T2T-ViT slice: the kv-blocked flash kernel against its twin (the same
+     64-key chunk) at the two tokenizer stages of the t2t preset through
+     ``ops.qkv_attention`` on fused qkv rows (3136 tokens of width 147 at
+     batch 8 and 128, 784 of width 1323) and at small shapes, with the twins
+     with a fault planted (alpha dropped, padded keys unmasked, l not
+     rescaled) shown to fail the bound; the MLP kernel at the tokenizer
+     widths 147 and 1323 (fp32 and bf16 stream); the preset (random weights
+     from a seed, bf16) served through ``BatchingServer`` with the launch
+     counts per forward; its logits against the port's plain fp32 path beside
+     the plain bf16 path's; img/s and p50 latency; device time by kernel of
+     one forward at batch 128; the kv-blocked kernel at both stages at batch
+     128 against its twin, SDPA and its bound.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
@@ -148,16 +160,26 @@ TWINS = dict(num_classes=1000,
              s2_emb_dim=128, s2_patch_size=2, s2_local_patch_size=7, s2_global_k=7, s2_depth=1,
              s3_emb_dim=256, s3_patch_size=2, s3_local_patch_size=7, s3_global_k=7, s3_depth=5,
              s4_emb_dim=512, s4_patch_size=2, s4_local_patch_size=7, s4_global_k=7, s4_depth=4)
-# Launches per forward of each kernel on the CaiT, DeepViT and Twins-SVT
-# paths. Twins: 14 local layers (stages 1-3), 22 global layers, one MLP
-# after each attention.
+# T2T-ViT at the preset t2t of vit_tpu/models/presets.py:111-115 (224 px),
+# bf16. Its two tokenizer layers attend 3136 tokens of width 147 and 784 of
+# width 1323 (one head as wide as the token): kernel 5. The encoder (197
+# tokens, 8 heads of 64, depth 5) runs kernels 1 and 2.
+T2T = dict(image_size=224, num_classes=1000, dim=512, depth=5, heads=8, mlp_dim=512,
+           t2t_layers=((7, 4), (3, 2), (3, 2)))
+T2T_STAGES = ((3136, 147), (784, 1323))  # (tokens, width) of the tokenizer layers
+# Launches per forward of each kernel on the CaiT, DeepViT, Twins-SVT and
+# T2T-ViT paths. Twins: 14 local layers (stages 1-3), 22 global layers, one
+# MLP after each attention. T2T: two tokenizer layers (kernel 5 and an MLP
+# each), five encoder layers.
 FAMILY_LAUNCHES = {
     "cait": {"talking_heads_block": 12, "fused_mlp": 14, "attention_block": 0},
     "deepvit": {"reattention_block": 6, "fused_mlp": 6, "attention_block": 0},
     "twins": {"window_attention_block": 14, "flash_attention": 22, "fused_mlp": 36,
               "attention_block": 0},
+    "t2t": {"flash_attention_kv_blocked": 2, "attention_block": 5, "fused_mlp": 7,
+            "qkv_attention": 0, "flash_attention": 0},
 }
-IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224}
+IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224}
 # Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
 # each stage run by the twin on the kernel's own input to it:
 # - qkv (LN and the qkv GEMM; the LN sums in another order, which can move an
@@ -529,6 +551,39 @@ def twins_tree(c: dict, seed: int) -> dict:
         dim_in = dim
     params["head"] = {"kernel": w.lecun(dim_in, c["num_classes"]),
                       "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def t2t_tree(c: dict, seed: int) -> dict:
+    """A T2T-ViT variables tree of config ``c`` (``T2TViT``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: each tokenizer transformer one unscanned layer
+    (``attn_0`` / ``ff_0``, one head as wide as the token, no output
+    projection), the encoder stacked when deeper than 1, ``head_norm``
+    without a bias."""
+    from vit_tpu_torch.core.utils import conv_output_size
+
+    w = _Init(seed)
+    dim, depth = c["dim"], c["depth"]
+    layers = c.get("t2t_layers", ((7, 4), (3, 2), (3, 2)))
+    layer_dim, side, params = c.get("channels", 3), c["image_size"], {}
+    for i, (kernel, stride) in enumerate(layers):
+        layer_dim *= kernel**2
+        side = conv_output_size(side, kernel, stride, stride // 2)
+        if i < len(layers) - 1:
+            attn = _raw_attn(w, 1, layer_dim, layer_dim)
+            del attn["out_kernel"], attn["out_bias"]
+            params[f"t2t_{i}"] = _squeeze_depth(
+                {"attn_0": attn, "ff_0": _ff(w, 1, layer_dim, layer_dim)})
+    params["proj"] = {"kernel": w.lecun(layer_dim, dim), "bias": w.zeros(dim)}
+    params["cls"] = w.tokens(1, 1, dim)
+    params["pos_embedding"] = w.tokens(1, side * side + 1, dim)
+    blocks = {"attn": _raw_attn(w, depth, dim, c["heads"] * c.get("dim_head", 64)),
+              "ff": _ff(w, depth, dim, c["mlp_dim"])}
+    params["encoder"] = ({"blocks": blocks} if depth > 1 else
+                         _squeeze_depth({"attn_0": blocks["attn"], "ff_0": blocks["ff"]}))
+    params["head_norm"] = {"scale": w.ones(dim)}
+    params["head"] = {"kernel": w.lecun(dim, c["num_classes"]), "bias": w.zeros(c["num_classes"])}
     return {"params": params}
 
 
@@ -1241,6 +1296,45 @@ def flash_fault_twin(fault, q, k, v, bias=None, mask_self=False):
     return fa.reference_attention(q, k, v, bias, mask_self=mask_self)
 
 
+KV_FAULTS = ("running max not rescaled (alpha dropped)", "padded keys unmasked",
+             "l not rescaled")
+
+
+def kv_fault_twin(fault, q, k, v, bias=None, mask_self=False, block_k=64):
+    """The kv-blocked twin with one of KV_FAULTS planted: the keys padded with
+    zero rows to a whole chunk and left unmasked (Nk must not be a multiple
+    of ``block_k``), or the online softmax's rescaling by alpha dropped from
+    both the accumulator and l, or from l only."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    if fault == KV_FAULTS[1]:
+        pad = -k.shape[2] % block_k
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+        bias = None if bias is None else F.pad(bias, (0, pad))
+        return fa.reference_attention_kv_blocked(q, k, v, bias, mask_self=mask_self,
+                                                 block_k=block_k)
+    m = l = acc = None
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        s = fa._mm(q, k[:, :, k0:k0 + block_k].transpose(-1, -2)) * q.shape[-1] ** -0.5
+        if bias is not None:
+            s = s + bias[..., k0:k0 + block_k]
+        if mask_self:
+            s = s.masked_fill(rows == torch.arange(k0, k0 + s.shape[-1], device=q.device),
+                              fa.MASK_VALUE)
+        m = s.amax(-1, keepdim=True) if m is None else torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m)
+        pv = fa._mm(p.to(v.dtype), v[:, :, k0:k0 + block_k])
+        if acc is None:
+            l, acc = p.sum(-1, keepdim=True), pv
+            m_prev = m
+            continue
+        alpha = torch.exp(m_prev - m)
+        acc = acc + pv if fault == KV_FAULTS[0] else acc * alpha + pv
+        l = (l if fault in (KV_FAULTS[0], KV_FAULTS[2]) else alpha * l) + p.sum(-1, keepdim=True)
+        m_prev = m
+    return (acc / l).to(v.dtype)
+
+
 def window_fault_twin(args, heads, bias=None):
     """The window twin with windows attending across each other: pairs of
     windows as one window of 2S tokens, the bias tiled over the pair (the
@@ -1565,6 +1659,142 @@ def phase_op_times(dev, smi):
     return ms
 
 
+# -- the T2T-ViT slice: the kv-blocked flash kernel ------------------------------
+
+
+def phase_t2t_kernels(dev):
+    """Kernel 5 against its twin at the kernel's own 64-key chunk, so that
+    both round p at the same places: at the t2t preset's two tokenizer
+    stages through ``ops.qkv_attention`` on fused qkv rows (stage 0 at batch
+    8 and 128, stage 1 at batch 8), and at small shapes (each bias pattern,
+    mask_self, Nq != Nk, Dv != D, Nk not a multiple of 64). The twins with a
+    fault planted (KV_FAULTS) must fail the bound at stage 1 (784 keys: a
+    partial last chunk). Kernel 2 at the tokenizer widths, fp32 and bf16
+    stream. Returns max |err| of kernel 5 at the preset's shapes."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst, fails = 0.0, []
+    for s, (n, d) in enumerate(T2T_STAGES):
+        for b in (8, 128) if s == 0 else (8,):
+            qkv = r(b, n, 3 * d).bfloat16()
+            before = ops.launch_counts()
+            out = ops.qkv_attention(qkv, 1)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            require(after["flash_attention_kv_blocked"] == before["flash_attention_kv_blocked"] + 1
+                    and after["qkv_attention"] == before["qkv_attention"],
+                    f"T2T stage {s}: ops.qkv_attention did not run kernel 5")
+            q, k, v = split_heads(qkv, 1)
+            ref = merge_heads(fa.reference_attention_kv_blocked(q, k, v, block_k=fa.KV_CHUNK))
+            name = f"flash_attention_kv_blocked T2T stage {s} ({n} tokens of width {d}) batch {b}"
+            worst = max(worst, check_close(name, out, ref, None))
+            if s == 1:
+                for fault in KV_FAULTS:
+                    _planted(f"{name}: the twin with {fault}",
+                             merge_heads(kv_fault_twin(fault, q, k, v)), ref, fails)
+            del qkv, out, ref, q, k, v
+    small = [
+        ("bias [1,1,Nq,Nk], mask_self", (2, 3, 40, 200, 16, 16), (1, 1), True),
+        ("bias [B,H,Nq,Nk], Dv != D, Nk 130", (2, 2, 33, 130, 32, 48), (2, 2), False),
+        ("bias [B,1,Nq,Nk], D 147, mask_self", (2, 1, 70, 150, 147, 147), (2, 1), True),
+        ("bias [1,H,Nq,Nk], Nk 64", (1, 2, 65, 64, 64, 64), (1, 2), False),
+        ("D 1323, Nk 150", (1, 1, 100, 150, 1323, 1323), None, False),
+    ]
+    for name, (b, h, nq, nk, d, dv), bshape, ms in small:
+        q, k, v = r(b, h, nq, d).bfloat16(), r(b, h, nk, d).bfloat16(), r(b, h, nk, dv).bfloat16()
+        bias = None if bshape is None else r(*bshape, nq, nk)
+        out = fa.flash_attention_kv_blocked(q, k, v, bias, mask_self=ms)
+        ref = fa.reference_attention_kv_blocked(q, k, v, bias, mask_self=ms, block_k=fa.KV_CHUNK)
+        torch.cuda.synchronize()
+        check_close(f"flash_attention_kv_blocked {name}", out, ref, None)
+    for (n, dim), x_dtype in ((sw, xd) for sw in T2T_STAGES for xd in (torch.float32, torch.bfloat16)):
+        inp = mlp_inputs(gen, n, dim, dim, x_dtype, dev)
+        kw = dict(activation="gelu", residual=False, ln_eps=1e-5)
+        out = fused_mlp(**inp, **kw)
+        ref = reference_mlp(**inp, **kw)
+        torch.cuda.synchronize()
+        check_close(f"fused_mlp T2T width {dim} ({str(x_dtype)[6:]} stream, 8 x {n} tokens)", out,
+                    ref, None)
+    require(not fails, "; ".join(fails))
+    return worst
+
+
+def build_t2t_models(dev):
+    """The t2t preset from weights drawn with a seed, in bf16 and fp32, loaded
+    through from_jax_params."""
+    from vit_tpu_torch.models import T2TViT
+    from vit_tpu_torch.utils import from_jax_params
+
+    models = {("t2t", config): T2TViT(**T2T, dtype=dtype, device=dev).eval()
+              for config, dtype in (("bf16", torch.bfloat16), ("fp32", None))}
+    state = from_jax_params(t2t_tree(T2T, SEED + 13), models[("t2t", "bf16")].jax_stages)
+    for model in models.values():
+        model.load_state_dict(state, strict=True)
+    n = sum(p.numel() for p in models[("t2t", "bf16")].parameters())
+    print(f"T2T-ViT preset: {n / 1e6:.1f} M parameters")
+    return models
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs."""
+    names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+    choice = int(torch._fused_sdp_choice(q, k, v))
+    return names.get(choice, f"backend {choice}")
+
+
+def phase_t2t_op_times(dev, smi):
+    """Kernel 5 at batch 128 at both tokenizer stages of the t2t preset, on
+    the split_heads views of fused qkv rows: its time, its twin's (at the
+    kernel's chunk), SDPA's and its bound; and kernel 2 at stage 1's width.
+    Returns kernel 5's (ms, twin ms, library ms, (bound ms, bound by)) summed
+    over the two stages: its work in one forward."""
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    b, times, flops, nbytes = 128, [0.0, 0.0, 0.0], 0.0, 0.0
+    with torch.inference_mode():
+        for s, (n, d) in enumerate(T2T_STAGES):
+            qkv = torch.randn(b, n, 3 * d, generator=gen, device=dev).bfloat16()
+            q, k, v = split_heads(qkv, 1)
+            kern = cuda_ms(lambda: fa.flash_attention_kv_blocked(q, k, v), iters=10)
+            plain = cuda_ms(lambda: fa.reference_attention_kv_blocked(q, k, v, block_k=fa.KV_CHUNK),
+                            iters=3, warmup=1)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10)
+            f, nb = 4 * b * n * n * d, size(qkv) + b * n * d * 2
+            bnd, by = bound(f, nbytes=nb)
+            print(f"op flash_attention_kv_blocked T2T stage {s} ({n} tokens of width {d}) batch 128 "
+                  f"bf16: kernel {kern:.3f} ms, twin {plain:.3f} ms, library {lib:.3f} ms (SDPA, "
+                  f"{sdpa_backend(q, k, v)} backend), bound {bnd:.4f} ms ({by}; operations "
+                  f"{f / PEAK_BF16 * 1e3:.4f}, bytes {nb / PEAK_BYTES * 1e3:.4f}; "
+                  f"{bnd / kern:.1%} of it) [{smi}]")
+            times = [t + x for t, x in zip(times, (kern, plain, lib))]
+            flops, nbytes = flops + f, nbytes + nb
+            del qkv, q, k, v
+        n, dim = T2T_STAGES[1]
+        m_in = mlp_inputs(gen, 16 * n, dim, dim, torch.bfloat16, dev)  # 8 x 16 = 128 images
+        mkw = dict(activation="gelu", residual=False, ln_eps=1e-5)
+        lib_m = {k: t.bfloat16() if t.dim() == 1 else t for k, t in m_in.items()}
+        kern = cuda_ms(lambda: fused_mlp(**m_in, **mkw), iters=10)
+        plain = cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=3, warmup=1)
+        lib = cuda_ms(lambda: library_mlp(**lib_m))
+        bnd, by = bound(4 * b * n * dim * dim, nbytes=2 * size(m_in["x"]) + size(m_in["w1"], m_in["w2"]))
+        print(f"op fused_mlp T2T stage 1 width {dim} batch 128 bf16: kernel {kern:.3f} ms, twin "
+              f"{plain:.3f} ms, library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} "
+              f"of it) [{smi}]")
+    kern, plain, lib = times
+    bnd = bound(flops, nbytes=nbytes)
+    print(f"op flash_attention_kv_blocked both T2T stages (one forward) batch 128: kernel "
+          f"{kern:.3f} ms, twin {plain:.3f} ms, library {lib:.3f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}; {bnd[0] / kern:.1%} of it) [{smi}]")
+    return kern, plain, lib, bnd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -1665,6 +1895,22 @@ def main() -> int:
     # 9. per-op times and bounds
     op_ms = phase_op_times(dev, smi)
 
+    # 10. the T2T-ViT slice: the t2t preset, bf16
+    worst["flash_attention_kv_blocked"] = phase_t2t_kernels(dev)
+    t0 = time.perf_counter()
+    t2t_models = build_t2t_models(dev)
+    print(f"T2T-ViT weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    counts = serve_family(t2t_models[("t2t", "bf16")], "t2t", requests)
+    require(counts["flash_attention_kv_blocked"] > 0,
+            "flash_attention_kv_blocked was not launched on the T2T-ViT path")
+    launches["flash_attention_kv_blocked"] = counts["flash_attention_kv_blocked"]
+    phase_family_e2e(t2t_models, ("t2t",), dev, requests)
+    phase_times({"t2t bf16": t2t_models[("t2t", "bf16")]}, 224, dev, smi)
+    phase_profile("t2t bf16", t2t_models[("t2t", "bf16")], 224, dev, smi)
+    del t2t_models
+    torch.cuda.empty_cache()
+    op_ms["flash_attention_kv_blocked"] = phase_t2t_op_times(dev, smi)
+
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu",
                             "vit_tpu/ops/block_attention.py:45"),
@@ -1682,6 +1928,8 @@ def main() -> int:
                             "vit_tpu/ops/flash_attention.py:45"),
         "window_attention_block": ("vit_tpu_torch/csrc/window_attention_block.cu",
                                    "vit_tpu/ops/window_attention.py:54"),
+        "flash_attention_kv_blocked": ("vit_tpu_torch/csrc/flash_attention_kv_blocked.cu",
+                                       "vit_tpu/ops/flash_attention.py:209"),
     }
     kernels = []
     for k, (src, rep) in sources.items():

@@ -1,0 +1,261 @@
+"""The kv-blocked (online-softmax) flash kernel: its plain PyTorch twin against
+vit_tpu's Pallas kernel on the CPU, the dispatch between the attention
+kernels, the planted faults chip_smoke holds it to, and, on the card, the
+Hopper kernel against its twin and the MLP kernel at T2T's widths.
+
+``reference_attention_kv_blocked`` twins ``vit_tpu/ops/flash_attention.py:
+_kv_blocked_kernel``. The same numpy inputs go through the twin and through
+JAX's ``_flash_attention_kv_blocked_impl`` in interpret mode, with the same
+``block_k``. JAX is imported inside the tests that use it: the machine with
+the card has no JAX, and runs this file's ``cuda`` tests with
+``python -m pytest --noconftest -m cuda tests/test_torch_kv_blocked.py``.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import KV_FAULTS, kernel_tol, kv_fault_twin
+from vit_tpu_torch import ops
+
+# ops/__init__ exports functions of the modules' own names
+tfa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+tqa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+tfm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
+
+torch.set_num_threads(2)
+
+# Tolerances on max |out - ref|, as a share of max |ref| (|out| ~ 0.1-1).
+# fp32: fp32 products summed in another order on each side (~1e-7 relative
+#   per op): 2e-5.
+# bf16: both sides round p to bf16 at the same places (the same block_k, so
+#   the same running max) and the output once; a sum in another order can
+#   move p or the output to the neighbouring bf16 value: 2^-8, half an ulp
+#   of the largest output.
+TOL = {"float32": 2e-5, "bfloat16": 2.0**-8}
+
+# (dtype, B, H, Nq, Nk, D, Dv, bias shape or None, mask_self, block_k):
+# several kv blocks, Nk not a multiple of the block, the four bias patterns,
+# mask_self, Dv != D, T2T's D = 147.
+KV_CASES = [
+    ("float32", 2, 2, 65, 300, 32, 32, None, False, 128),
+    ("float32", 1, 2, 40, 200, 16, 16, (1, 1), True, 64),
+    ("float32", 2, 2, 33, 130, 32, 48, (2, 2), False, 64),
+    ("float32", 2, 1, 70, 150, 147, 147, (2, 1), True, 64),
+    ("bfloat16", 2, 2, 65, 300, 32, 32, (1, 2), False, 128),
+    ("bfloat16", 1, 2, 40, 200, 16, 16, (1, 1), True, 64),
+    ("bfloat16", 2, 2, 33, 130, 32, 48, (2, 2), False, 64),
+    ("bfloat16", 2, 1, 70, 150, 147, 147, (2, 1), True, 64),
+    ("bfloat16", 1, 1, 20, 100, 147, 147, None, False, 64),
+]
+
+
+def _torch(a, dtype="float32", device="cpu"):
+    t = torch.from_numpy(np.asarray(a, np.float32))
+    return t.to(device=device, dtype=getattr(torch, dtype))
+
+
+def _inputs(seed, b, h, nq, nk, d, dv, bias):
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return dict(q=r(b, h, nq, d), k=r(b, h, nk, d), v=r(b, h, nk, dv),
+                bias=None if bias is None else r(*bias, nq, nk))
+
+
+@pytest.mark.parametrize("dtype,b,h,nq,nk,d,dv,bias,mask_self,block_k", KV_CASES)
+def test_kv_twin_matches_jax_kernel(dtype, b, h, nq, nk, d, dv, bias, mask_self, block_k):
+    import jax.numpy as jnp
+    from vit_tpu.ops.flash_attention import _flash_attention_kv_blocked_impl
+
+    inp = _inputs(1, b, h, nq, nk, d, dv, bias)
+    jx = {k: None if a is None else jnp.asarray(a).astype(getattr(jnp, dtype) if k != "bias"
+                                                          else jnp.float32)
+          for k, a in inp.items()}
+    ref = _flash_attention_kv_blocked_impl(
+        jx["q"], jx["k"], jx["v"], jx["bias"], scale=d**-0.5, mask_self=mask_self,
+        block_q=64, block_k=block_k, interpret=True)
+    t = {k: None if a is None else _torch(a, dtype if k != "bias" else "float32")
+         for k, a in inp.items()}
+    out = tfa.reference_attention_kv_blocked(t["q"], t["k"], t["v"], t["bias"],
+                                             mask_self=mask_self, block_k=block_k)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (b, h, nq, dv)
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= TOL[dtype] * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("nk", [100, 700])
+def test_kv_twin_default_block_is_jax_and_agrees_with_exact_softmax(nk):
+    """The default ``block_k`` is JAX's ``min(512, round_up(Nk, 128))``; in
+    fp32 the online softmax equals the exact one (``reference_attention``)
+    to fp32 rounding."""
+    import jax.numpy as jnp
+    from vit_tpu.ops import flash_attention_kv_blocked
+
+    inp = _inputs(2, 1, 2, 30, nk, 32, 32, (1, 2))
+    ref = flash_attention_kv_blocked(*(jnp.asarray(inp[k]) for k in ("q", "k", "v", "bias")),
+                                     interpret=True)
+    t = [_torch(inp[k]) for k in ("q", "k", "v", "bias")]
+    out = tfa.reference_attention_kv_blocked(*t)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(out.numpy(), tfa.reference_attention(*t).numpy(), atol=2e-6, rtol=0)
+
+
+# (what, q/k/v shapes) -> which twin ops.attention runs on the CPU: the twin
+# of the kernel the card would run.
+ATTENTION_ROUTES = [
+    ("resident core", (1, 2, 40, 40, 64, 64), "reference_attention"),
+    ("D not a multiple of 16", (1, 1, 40, 40, 147, 147), "reference_attention_kv_blocked"),
+    ("D above 128", (1, 1, 20, 30, 256, 256), "reference_attention_kv_blocked"),
+    ("score rows past 227 KB", (1, 1, 8, 1200, 64, 64), "reference_attention_kv_blocked"),
+]
+
+
+@pytest.mark.parametrize("what,shape,twin", ATTENTION_ROUTES)
+def test_attention_dispatch_on_the_cpu_runs_the_card_kernels_twin(what, shape, twin):
+    b, h, nq, nk, d, dv = shape
+    t = [_torch(a) for a in _inputs(3, b, h, nq, nk, d, dv, None).values() if a is not None]
+    ops.reset_launch_counts()
+    out = ops.attention(*t)
+    torch.testing.assert_close(out, getattr(tfa, twin)(*t), rtol=0, atol=0)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+# (what, B, N, heads, D) of a fused qkv tensor -> which twin ops.qkv_attention
+# runs: kernel 3's limits (D % 16, D <= 128, N <= 1024), else ops.attention
+# on per-head views of the fused rows (kernel 4 where its core fits, else 5).
+# T2T's tokenizer stages take kernel 5.
+QKV_ROUTES = [
+    ("kernel 3", 2, 17, 2, 16, "xla_qkv_attention"),
+    ("T2T stage 0 width", 1, 40, 1, 147, "reference_attention_kv_blocked"),
+    ("T2T stage 1 width", 1, 12, 1, 1323, "reference_attention_kv_blocked"),
+    ("1030 tokens: kernel 4", 1, 1030, 2, 16, "reference_attention"),
+    ("1200 tokens: kernel 5", 1, 1200, 2, 16, "reference_attention_kv_blocked"),
+]
+
+
+@pytest.mark.parametrize("what,b,n,heads,d,twin", QKV_ROUTES)
+def test_qkv_dispatch_on_the_cpu_runs_the_card_kernels_twin(what, b, n, heads, d, twin):
+    qkv = _torch(np.random.default_rng(4).standard_normal((b, n, 3 * heads * d)), "bfloat16")
+    ops.reset_launch_counts()
+    out = ops.qkv_attention(qkv, heads)
+    if twin == "xla_qkv_attention":
+        ref = tqa.xla_qkv_attention(qkv, heads)
+    else:
+        q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        ref = getattr(tfa, twin)(q, k, v).transpose(1, 2).reshape(b, n, heads * d)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_t2t_stage_shapes_route_to_the_kv_blocked_kernel_and_fit():
+    """At the t2t preset both tokenizer stages fail kernels 3 and 4 and fit
+    kernel 5: stage 0 with 32 query rows a block (two blocks an SM), stage 1
+    with 16 (one block); the encoder's 197 tokens of 8 x 64 take kernel 3's
+    limits."""
+    assert not tqa.qkv_kernel_fits(3136, 147) and not tfa.core_fits(3136, 147, 147)
+    assert not tqa.qkv_kernel_fits(784, 1323) and not tfa.core_fits(784, 1323, 1323)
+    assert tqa.qkv_kernel_fits(197, 64) and tfa.core_fits(197, 64, 64)
+    qt0, b0 = tfa.kv_blocked_layout(147, 147)
+    qt1, b1 = tfa.kv_blocked_layout(1323, 1323)
+    assert qt0 == 32 and b0 <= tfa.MAX_SMEM // 2
+    assert qt1 == 16 and tfa.MAX_SMEM // 2 < b1 <= tfa.MAX_SMEM
+    assert tfa.kv_blocked_layout(2400, 2400)[0] == 0
+
+
+def test_kv_blocked_wrapper_refuses_cpu_tensors_and_fp32():
+    t = [_torch(a) for a in _inputs(5, 1, 1, 9, 7, 147, 147, None).values() if a is not None]
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_kv_blocked(*t)
+    for nk, d, dv in ((64, 147, 147), (4096, 64, 64)):
+        with pytest.raises(NotImplementedError, match="flash_attention_kv_blocked"):
+            tfa.check_core_shape(nk, d, dv)
+
+
+@pytest.mark.parametrize("fault", KV_FAULTS)
+def test_kv_bound_sees_planted_faults(fault):
+    """Each planted fault moves the output past chip_smoke's bound
+    (``kernel_tol``) at a T2T-like shape: 150 keys in three 64-key chunks,
+    the last one partial, D = 147, bf16."""
+    t = [_torch(a, "bfloat16") for a in _inputs(6, 2, 1, 64, 150, 147, 147, None).values()
+         if a is not None]
+    ref = tfa.reference_attention_kv_blocked(*t, block_k=64)
+    good = kv_fault_twin(None, *t)
+    bad = kv_fault_twin(fault, *t)
+    tol = kernel_tol(ref, None, ref.dtype)
+    assert (good.float() - ref.float()).abs().max().item() <= tol
+    assert (bad.float() - ref.float()).abs().max().item() > tol
+
+
+# -- on the card: kernel 5 against its twin, kernel 2 at T2T's widths ----------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,nq,nk,d,dv,bias,mask_self", [
+    (2, 1, 300, 300, 147, 147, None, False), (1, 1, 100, 150, 1323, 1323, None, False),
+    (2, 3, 40, 200, 16, 16, (1, 1), True), (2, 2, 33, 130, 32, 48, (2, 2), False),
+    (2, 1, 70, 150, 147, 147, (2, 1), True), (1, 2, 65, 64, 64, 64, (1, 2), False),
+])
+def test_kv_blocked_kernel_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_self):
+    inp = _inputs(7, b, h, nq, nk, d, dv, bias)
+    q, k, v = (_torch(inp[n], "bfloat16", cuda) for n in "qkv")
+    tb = None if bias is None else _torch(inp["bias"], "float32", cuda)
+    before = ops.launch_counts()["flash_attention_kv_blocked"]
+    out = tfa.flash_attention_kv_blocked(q, k, v, tb, mask_self=mask_self)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_kv_blocked"] == before + 1
+    ref = tfa.reference_attention_kv_blocked(q, k, v, tb, mask_self=mask_self,
+                                             block_k=tfa.KV_CHUNK)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, nq, dv)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(300, 147), (100, 1323)])
+def test_qkv_attention_runs_kernel_5_on_fused_rows(cuda, n, d):
+    """T2T's tokenizer layout: one head as wide as the token, the fused qkv
+    rows 2-byte aligned; the kernel reads per-head views, no copy."""
+    qkv = _torch(np.random.default_rng(8).standard_normal((2, n, 3 * d)), "bfloat16", cuda)
+    before = ops.launch_counts()
+    out = ops.qkv_attention(qkv, 1)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention_kv_blocked"] == before["flash_attention_kv_blocked"] + 1
+    assert after["qkv_attention"] == before["qkv_attention"]
+    q, k, v = (t.reshape(2, n, 1, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    ref = tfa.reference_attention_kv_blocked(q, k, v, block_k=tfa.KV_CHUNK)
+    ref = ref.transpose(1, 2).reshape(2, n, d)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dim", [147, 1323])
+def test_mlp_kernel_at_t2t_widths_matches_twin(cuda, x_dtype, dim):
+    rng = np.random.default_rng(dim)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    m = dict(x=_torch(r(2, 77, dim), x_dtype, cuda),
+             w1=_torch(r(dim, dim) / dim**0.5, "bfloat16", cuda), b1=_torch(0.1 * r(dim), device=cuda),
+             w2=_torch(r(dim, dim) / dim**0.5, "bfloat16", cuda), b2=_torch(0.1 * r(dim), device=cuda),
+             ln_scale=_torch(1 + 0.1 * r(dim), device=cuda), ln_bias=_torch(0.1 * r(dim), device=cuda))
+    before = ops.launch_counts()["fused_mlp"]
+    out = ops.mlp(**m, residual=False, ln_eps=1e-5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mlp"] == before + 1
+    ref = tfm.reference_mlp(**m, residual=False, ln_eps=1e-5)
+    assert out.dtype == m["x"].dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err

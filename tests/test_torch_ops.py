@@ -176,7 +176,8 @@ def test_dispatch_cpu_runs_twin_and_counts_nothing():
     torch.testing.assert_close(ops.mlp(**tm), tfm.reference_mlp(**tm), rtol=0, atol=0)
     assert ops.launch_counts() == dict.fromkeys(
         ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
-         "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block"),
+         "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block",
+         "flash_attention_kv_blocked"),
         0,
     )
 

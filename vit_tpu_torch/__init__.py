@@ -13,7 +13,8 @@ layout and names so each module has an obvious counterpart:
                                cross-attention, ``mha_tokens``), feed-forward
                                block, encoder stack, conv modules (PEG,
                                patch embedding, conv MLP).
-- ``vit_tpu_torch.models``   — ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT``.
+- ``vit_tpu_torch.models``   — ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT``,
+                               ``T2TViT``.
 - ``vit_tpu_torch.utils``    — ``from_jax_params`` / ``from_jax_quant``:
                                ``vit_tpu`` trees -> this package's
                                ``state_dict``; ``quantize_vit`` -> ``QuantViT``,
@@ -26,6 +27,6 @@ Models are built on the card unless the caller passes ``device="cpu"``.
 Importing the package builds and loads no CUDA code, and never imports JAX.
 """
 
-from vit_tpu_torch.models import CaiT, DeepViT, TwinsSVT, ViT  # noqa: F401
+from vit_tpu_torch.models import CaiT, DeepViT, T2TViT, TwinsSVT, ViT  # noqa: F401
 
 __version__ = "0.1.0"

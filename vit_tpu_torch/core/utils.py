@@ -10,6 +10,10 @@ def pair(t) -> Tuple[Any, Any]:
     return t if isinstance(t, tuple) else (t, t)
 
 
+def conv_output_size(image_size: int, kernel_size: int, stride: int, padding: int = 0) -> int:
+    return int(((image_size - kernel_size + (2 * padding)) / stride) + 1)
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -9,6 +9,9 @@
 //   2. gemm_bf16: xn @ W1 + b1 -> gelu / gelu_exact / hard_swish -> bf16 h
 //   3. gemm_bf16: h @ W2 + b2 (+ x) -> x.dtype, rounded once
 // Both GEMMs are compute-bound at ViT-L from batch 8 up (K, N of 1024/4096).
+// D and F of any size: at T2T's tokenizer widths (147, 1323: rows not 16-byte
+// aligned) the GEMMs load their tiles 2 bytes at a time (gemm.cuh), and the
+// LayerNorm runs over the true width.
 // The hidden h is stored in bf16, exactly where the TPU kernel rounds it
 // (fused_mlp.py:98), so the arithmetic is unchanged; its round trip through
 // device memory (2 x T x F bf16) is the cost of the split. A later PR keeps h

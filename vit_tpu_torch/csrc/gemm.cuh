@@ -9,6 +9,10 @@
 //
 // Bound: compute. At ViT-L (M = B*197, K and N of 1024..4096) every product
 // of the encoder is above the H100's ~295 FLOP/byte ridge from batch 8 up.
+// Rows of A and B are copied 16 bytes at a time with cp.async when K and N
+// are multiples of 8 and the operands 16-byte aligned; otherwise (T2T's
+// tokenizer MLPs, D = F = 147 and 1323) with 2-byte loads, zero past K and N,
+// into the same tiles: the arithmetic is the same either way.
 // Design: 128x128x32 block tiles, a 3-stage cp.async ring in shared memory,
 // 8 warps of WMMA 16x16x16 (each warp a 64x32 tile), and the epilogue
 // through shared memory so the stores are coalesced. No split-K: each output
@@ -65,8 +69,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// K and N must be multiples of 8 (16-byte rows of copy); M is free.
-template <typename OutT>
+// The 8 bf16 at columns [col, col + 8) of a row into shared memory with
+// 2-byte loads, zero past `ncols` or when !ok: rows that are not 16-byte
+// aligned.
+__device__ __forceinline__ void copy8_narrow(bf16* smem, const bf16* row, bool ok, int col,
+                                             int ncols) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(row);
+  unsigned int w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = col + 2 * j;
+    const unsigned int lo = ok && c < ncols ? __ldg(s + c) : 0u;
+    const unsigned int hi = ok && c + 1 < ncols ? __ldg(s + c + 1) : 0u;
+    w[j] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(smem) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// kAligned: K and N multiples of 8 and A, B 16-byte aligned (cp.async rows);
+// otherwise any K and N. M is free.
+template <typename OutT, bool kAligned>
 __global__ void __launch_bounds__(gemm::THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C,
                  const float* __restrict__ bias, const OutT* __restrict__ residual, int act,
@@ -91,14 +113,22 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* _
     for (int c = tid; c < BM * (BK / 8); c += THREADS) {
       const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
       const int gm = m0 + r, gk = k0 + kc;
-      const bool ok = gm < M && gk < K;
-      cp_async16(as + r * A_LD + kc, ok ? A + (size_t)gm * K + gk : A, ok);
+      if (kAligned) {
+        const bool ok = gm < M && gk < K;
+        cp_async16(as + r * A_LD + kc, ok ? A + (size_t)gm * K + gk : A, ok);
+      } else {
+        copy8_narrow(as + r * A_LD + kc, A + (size_t)(gm < M ? gm : 0) * K, gm < M, gk, K);
+      }
     }
     for (int c = tid; c < BK * (BN / 8); c += THREADS) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < K && gn < N;
-      cp_async16(bs + r * B_LD + nc, ok ? B + (size_t)gk * N + gn : B, ok);
+      if (kAligned) {
+        const bool ok = gk < K && gn < N;
+        cp_async16(bs + r * B_LD + nc, ok ? B + (size_t)gk * N + gn : B, ok);
+      } else {
+        copy8_narrow(bs + r * B_LD + nc, B + (size_t)(gk < K ? gk : 0) * N, gk < K, gn, N);
+      }
     }
   };
 
@@ -168,13 +198,14 @@ template <typename OutT>
 cudaError_t gemm_bf16(const bf16* A, const bf16* B, OutT* C, const float* bias,
                       const OutT* residual, int act, int M, int N, int K, cudaStream_t stream) {
   using namespace gemm;
-  cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<OutT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool aligned = K % 8 == 0 && N % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  auto kernel = aligned ? gemm_bf16_kernel<OutT, true> : gemm_bf16_kernel<OutT, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<OutT><<<grid, THREADS, SMEM_BYTES, stream>>>(A, B, C, bias, residual, act, M,
-                                                                 N, K);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(A, B, C, bias, residual, act, M, N, K);
   return cudaGetLastError();
 }
 

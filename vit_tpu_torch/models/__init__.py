@@ -1,9 +1,10 @@
-"""Models of the port: ``ViT``, ``DeepViT``, ``CaiT`` and ``TwinsSVT`` so far (the rest of
-the zoo is ROADMAP.md Queue 1 item 6)."""
+"""Models of the port: ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT`` and ``T2TViT`` so far (the
+rest of the zoo is ROADMAP.md Queue 1 item 6)."""
 
 from vit_tpu_torch.models.cait import CaiT
 from vit_tpu_torch.models.deepvit import DeepViT
+from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
 
-__all__ = ["CaiT", "DeepViT", "TwinsSVT", "ViT"]
+__all__ = ["CaiT", "DeepViT", "T2TViT", "TwinsSVT", "ViT"]

@@ -4,12 +4,19 @@ Two of the JAX module's branches are ported; the branch is fixed at
 construction (``cross``), because a PyTorch module owns its parameters
 before its first call:
 
-- **self-attention with raw parameters** (:196-305): pre-norm, a fused qkv
-  projection without bias. The whole block is one kernel call:
-  ``ops.attention_block`` (ViT; the residual inside), ``ops.
-  talking_heads_block`` (CaiT; the residual inside only with
-  ``fuse_residual``) or ``ops.reattention_block`` (DeepViT; the residual
-  inside). On the CPU each runs its plain twin, in the kernel's op order.
+- **self-attention with raw parameters** (:196-354): pre-norm, a fused qkv
+  projection without bias. With ``fuse_residual`` and an output projection
+  the whole block is one kernel call: ``ops.attention_block`` (ViT; the
+  residual inside), ``ops.talking_heads_block`` (CaiT; the residual inside
+  only with ``fuse_residual``) or ``ops.reattention_block`` (DeepViT; the
+  residual inside). On the CPU each runs its plain twin, in the kernel's op
+  order. Without ``fuse_residual`` (a stack of depth 1, which ``vit_tpu``
+  does not scan) or without an output projection (``heads == 1`` and
+  ``dim_head == dim``: T2T's tokenizer), plain attention takes the unfused
+  branch (:307-354): the LayerNorm and the qkv product outside any kernel,
+  ``ops.qkv_attention``, the optional output projection rounded to the
+  residual's dtype, and the delta returned (the residual added only with
+  ``fuse_residual``).
 - **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
   LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
   ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
@@ -23,8 +30,9 @@ before its first call:
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
 Still raising, each naming its ROADMAP item: ``qkv_bias``, ``mask_self`` and
-``learned_temperature`` (LSA), both head mixes at once, and a self-attention
-block whose kernel would need an unfused residual it does not have.
+``learned_temperature`` (LSA), both head mixes at once, and re-attention or
+talking heads without the output projection, or re-attention without
+``fuse_residual`` (JAX's materializing path).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from torch import nn
 
 from vit_tpu_torch import ops
 from vit_tpu_torch.nn.embed import Dense, LayerNorm
-from vit_tpu_torch.ops.block_attention import _ln_f32, _softmax
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
 
@@ -62,6 +70,16 @@ def mha_tokens(q, k, v, heads: int, *, scale=None) -> torch.Tensor:
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return merge_heads(ops.attention(q, k, v, scale=scale))
+
+
+def _mm_rounded(a, b, dtype):
+    """``a @ b`` accumulated in fp32 and rounded once to ``dtype`` (JAX's
+    ``preferred_element_type=f32`` then ``astype``): on the card a bf16
+    product is one cuBLAS bf16 GEMM, which sums in fp32 and rounds once; a
+    plain product outside any kernel, as XLA's is in ``vit_tpu``."""
+    if a.is_cuda and a.dtype == b.dtype == dtype == torch.bfloat16:
+        return torch.matmul(a, b)
+    return _mm(a, b, dtype)
 
 
 def _einsum(eq, a, b, dtype=torch.float32):
@@ -98,13 +116,13 @@ class Attention(nn.Module):
             raise NotImplementedError(f"qkv_bias / mask_self / learned_temperature: {_LATER}")
         if talking_heads and reattention:
             raise NotImplementedError(f"talking heads together with re-attention: {_LATER}")
-        if heads == 1 and dim_head == dim:
-            raise NotImplementedError(f"attention without an output projection: {_LATER}")
-        if not (cross or talking_heads or fuse_residual):
-            # the attention-block and re-attention kernels add the residual
-            raise NotImplementedError(
-                f"{'re-attention' if reattention else 'attention'} without fuse_residual: {_LATER}"
-            )
+        # vit_tpu/nn/attention.py:157-162
+        self.project_out = not (heads == 1 and dim_head == dim)
+        if (talking_heads or reattention) and not self.project_out:
+            raise NotImplementedError(f"a head mix without an output projection: {_LATER}")
+        if reattention and not (cross or fuse_residual):
+            # the re-attention kernel adds the residual; JAX materializes without it
+            raise NotImplementedError(f"re-attention without fuse_residual: {_LATER}")
         inner = heads * dim_head
         self.heads, self.dim_head, self.scale = heads, dim_head, dim_head**-0.5
         self.talking_heads, self.reattention = talking_heads, reattention
@@ -121,8 +139,9 @@ class Attention(nn.Module):
             self.norm_scale = p(dim, fill=1.0)
             self.norm_bias = p(dim)
             self.qkv_kernel = p(dim, 3 * inner)
-            self.out_kernel = p(inner, dim)
-            self.out_bias = p(dim)
+            if self.project_out:
+                self.out_kernel = p(inner, dim)
+                self.out_bias = p(dim)
         if talking_heads:
             self.mix_heads_pre = p(heads, heads)
             self.mix_heads_post = p(heads, heads)
@@ -138,6 +157,8 @@ class Attention(nn.Module):
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
+        if not (self.talking_heads or self.reattention or (self.fuse_residual and self.project_out)):
+            return self._unfused(x, dtype)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
         kw = dict(scale=self.scale, ln_eps=self.norm_eps)
@@ -148,6 +169,21 @@ class Attention(nn.Module):
             return ops.reattention_block(*w, self.reattn_weights, self.reattn_scale,
                                          self.reattn_bias, self.heads, **kw)
         return ops.attention_block(*w, self.heads, **kw)
+
+    def _unfused(self, x, dtype):
+        """The raw-parameter branch outside the fused block (vit_tpu/nn/
+        attention.py:307-354): flax's LayerNorm in fp32 cast to ``dtype``,
+        the qkv product rounded once, ``ops.qkv_attention`` (the fused-qkv
+        kernel, or the kv-blocked one for widths and lengths it cannot
+        hold), the output projection in fp32 plus its bias rounded to x's
+        dtype. Returns the delta, or the delta plus x with
+        ``fuse_residual``."""
+        xn = _ln_f32(x.float(), self.norm_scale, self.norm_bias, self.norm_eps).to(dtype)
+        qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
+        out = ops.qkv_attention(qkv, self.heads, scale=self.scale)
+        if self.project_out:
+            out = (_mm(out, self.out_kernel.to(dtype)) + self.out_bias).to(x.dtype)
+        return out + x if self.fuse_residual else out
 
     def _cross_attention(self, x, context, kv_include_self):
         """The flax branch (vit_tpu/nn/attention.py:356-410)."""

@@ -3,7 +3,10 @@ the plain stack and DeepViT's re-attention stack).
 
 The depth is a Python loop over a ``ModuleList``: no ``nn.scan`` analogue,
 no sample packing and no Mosaic row padding, so the stream runs at its real
-token count (197 at ViT-L/16 @224).
+token count (197 at ViT-L/16 @224). ``vit_tpu`` scans only stacks deeper
+than 1; its one unscanned layer takes the unfused attention branch and adds
+each delta to the stream in the stream's dtype, and so does the port's
+stack of depth 1.
 """
 
 from __future__ import annotations
@@ -45,39 +48,53 @@ class FeedForward(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """One pre-norm residual block: fused attention (residual inside the
-    kernel; DeepViT's re-attention with ``reattention``) then ``x +
-    FeedForward(x)`` in the stream dtype."""
+    """One pre-norm residual block: attention (with ``fuse_residual``, the
+    residual inside the kernel; DeepViT's re-attention with
+    ``reattention``; without it, ``x + attn(x)``) then ``x + FeedForward(x)``,
+    each sum in JAX's promotion of the two dtypes."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
-                 reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 reattention: bool = False, fuse_residual: bool = True, activation: str = "gelu",
+                 norm_eps: float = 1e-6, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        self.attn = Attention(dim, heads, dim_head, reattention=reattention, fuse_residual=True,
-                              norm_eps=norm_eps, dtype=dtype, device=device)
+        self.fuse_residual = fuse_residual
+        self.attn = Attention(dim, heads, dim_head, reattention=reattention,
+                              fuse_residual=fuse_residual, norm_eps=norm_eps, dtype=dtype,
+                              device=device)
         self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
                               dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.attn(x)
+        x = self.attn(x) if self.fuse_residual else x + self.attn(x)
         return x + self.ff(x)
 
 
 class Transformer(nn.Module):
     """Plain pre-norm encoder: ``depth`` ``EncoderBlock``s in a loop.
-    ``blocks.{i}`` holds layer i of ``vit_tpu``'s stacked ``encoder/blocks``."""
+    ``blocks.{i}`` holds layer i of ``vit_tpu``'s stacked ``encoder/blocks``
+    (at depth 1, its unscanned ``attn_0`` / ``ff_0``). At depth 1 the layer
+    is unfused, as ``vit_tpu``'s unscanned layer (blocks.py:350-357,
+    :402-416): ``x + attn(x)``, then ``x + ff(x)``. Re-attention at depth 1
+    (``vit_tpu``'s materializing path without the residual) builds and
+    loads, and raises when called."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
+        self.unported = depth == 1 and reattention
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
-                         activation=activation, norm_eps=norm_eps, dtype=dtype, device=device)
+                         fuse_residual=depth > 1 or reattention, activation=activation,
+                         norm_eps=norm_eps, dtype=dtype, device=device)
             for _ in range(depth)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.unported:
+            raise NotImplementedError(
+                "re-attention in a stack of depth 1 (vit_tpu's materializing path without the "
+                "residual) is not ported yet (ROADMAP.md Queue 1 item 5, attention variants)")
         for block in self.blocks:
             x = block(x)
         return x

@@ -33,19 +33,20 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=dtype)``: the statistics and the fast-variance
-    normalisation in fp32, the output cast to ``dtype`` (None: fp32, what
-    flax infers from fp32 parameters)."""
+    """flax ``nn.LayerNorm(dtype=dtype, use_bias=use_bias)``: the statistics
+    and the fast-variance normalisation in fp32, the output cast to ``dtype``
+    (None: fp32, what flax infers from fp32 parameters). Without a bias
+    there is no ``bias`` parameter and nothing is added."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
+    def __init__(self, dim: int, *, eps: float = 1e-6, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.eps, self.dtype = eps, dtype
         self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) if use_bias else None
 
     def forward(self, x):
-        y = _ln_f32(x.float(), self.scale, self.bias, self.eps)
+        y = _ln_f32(x.float(), self.scale, 0.0 if self.bias is None else self.bias, self.eps)
         return y if self.dtype is None else y.to(self.dtype)
 
 

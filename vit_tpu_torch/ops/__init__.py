@@ -4,6 +4,9 @@ Dispatch follows the tensor, not an environment variable:
   - a CPU tensor runs the plain twin;
   - a CUDA tensor launches the kernel, and a build or launch failure raises;
   - any other device raises.
+Where two kernels compute one function (``attention``, ``qkv_attention``),
+the shape picks one by the card's limits, on the CPU too: the twin that runs
+is the twin of the kernel the card would run.
 ``force_backend("torch")`` is the one explicit way to run the twins on CUDA
 (comparisons and timings use it; the serving path never does).
 
@@ -18,10 +21,16 @@ from typing import Optional
 
 from vit_tpu_torch.ops._build import launch_counts, reset_launch_counts  # noqa: F401
 from vit_tpu_torch.ops.block_attention import fused_attention_block, xla_attention_block
-from vit_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from vit_tpu_torch.ops.flash_attention import (
+    core_fits,
+    flash_attention,
+    flash_attention_kv_blocked,
+    reference_attention,
+    reference_attention_kv_blocked,
+)
 from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
-from vit_tpu_torch.ops.patch_embed import patchify  # noqa: F401
-from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, xla_qkv_attention
+from vit_tpu_torch.ops.patch_embed import extract_patches, patchify  # noqa: F401
+from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_kernel_fits, xla_qkv_attention
 from vit_tpu_torch.ops.quant_block import (
     fused_quant_attention_block,
     fused_quant_mlp,
@@ -74,9 +83,12 @@ __all__ = [
     "xla_reattention_block",
     "flash_attention",
     "reference_attention",
+    "flash_attention_kv_blocked",
+    "reference_attention_kv_blocked",
     "fused_window_attention_block",
     "xla_window_attention_block",
     "patchify",
+    "extract_patches",
     "window_partition",
     "window_unpartition",
     "dilated_partition",
@@ -113,8 +125,14 @@ def _use_kernel(x) -> bool:
 def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
     """Multi-head attention ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H,
     Nk, Dv]`` -> ``[B, H, Nq, Dv]``, with an optional additive bias
-    ``[B|1, H|1, Nq, Nk]`` and the ``mask_self`` diagonal (LSA)."""
-    fn = flash_attention if _use_kernel(q) else reference_attention
+    ``[B|1, H|1, Nq, Nk]`` and the ``mask_self`` diagonal (LSA). The
+    resident-K/V kernel where its core takes the shape (``core_fits``: D, Dv
+    multiples of 16 up to 128, score rows within shared memory), else the
+    kv-blocked kernel."""
+    if core_fits(k.shape[2], q.shape[3], v.shape[3]):
+        fn = flash_attention if _use_kernel(q) else reference_attention
+    else:
+        fn = flash_attention_kv_blocked if _use_kernel(q) else reference_attention_kv_blocked
     return fn(q, k, v, bias, scale=scale, mask_self=mask_self)
 
 
@@ -154,10 +172,18 @@ def mlp(
 
 def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
     """Self-attention on the fused qkv layout ``[B, N, 3*H*D]`` ->
-    ``[B, N, H*D]``, with an optional additive bias ``[1|B, 1|H, N, N]``."""
-    if _use_kernel(qkv):
-        return fused_qkv_attention(qkv, heads, bias, scale=scale)
-    return xla_qkv_attention(qkv, heads, bias, scale=scale)
+    ``[B, N, H*D]``, with an optional additive bias ``[1|B, 1|H, N, N]``.
+    The fused-qkv kernel where its limits hold (``qkv_kernel_fits``), else
+    ``attention`` on strided per-head views of the fused rows (no copy), as
+    ``vit_tpu``'s dispatcher does for shapes its kernel cannot hold."""
+    b, n, three_hd = qkv.shape
+    if qkv_kernel_fits(n, three_hd // 3 // heads):
+        if _use_kernel(qkv):
+            return fused_qkv_attention(qkv, heads, bias, scale=scale)
+        return xla_qkv_attention(qkv, heads, bias, scale=scale)
+    q, k, v = qkv.view(b, n, 3, heads, three_hd // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    out = attention(q, k, v, bias, scale=scale)
+    return out.transpose(1, 2).reshape(b, n, three_hd // 3)
 
 
 def quant_attention_block(

@@ -106,6 +106,17 @@ _SIGNATURES = {
         _I,                  # mask_self
         _P,                  # cudaStream_t
     ],
+    "vt_flash_attention_kv_blocked": [
+        _P, _L, _L, _L,      # q (bf16) and its batch, head, row strides (elements)
+        _P, _L, _L, _L,      # k
+        _P, _L, _L, _L,      # v
+        _P, _L, _L, _L,      # out (bf16)
+        _I, _I, _I, _I,      # B, heads, Nq, Nk
+        _I, _I, _F,          # D, Dv, scale
+        _P, _I, _I,          # bias (fp32, NULL = none), bias_b, bias_h (axis is full)
+        _I,                  # mask_self
+        _P,                  # cudaStream_t
+    ],
     "vt_window_attention_block": [
         _P, _I,              # xw, x_is_fp32
         _P, _P,              # ln_scale, ln_bias (fp32)
@@ -247,7 +258,8 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 # -- launch counters ---------------------------------------------------------
 
 KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
-           "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block")
+           "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block",
+           "flash_attention_kv_blocked")
 _counts = collections.Counter()
 _counts_lock = threading.Lock()
 

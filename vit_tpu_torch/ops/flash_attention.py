@@ -1,17 +1,21 @@
 """Multi-head attention with separate q, k, v, a bias and the LSA diagonal.
 
-Port of the resident-K/V kernel of ``vit_tpu/ops/flash_attention.py``
-(``_attn_kernel``). ``flash_attention`` is the Hopper kernel
-(``csrc/flash_attention.cu``, on the attention core the other attention
-kernels share); ``reference_attention`` is its plain PyTorch twin and mirrors
-JAX's op for op: fp32 scores of the stored operands, ``* scale``, ``+ bias``
-in fp32, the ``mask_self`` diagonal set to ``MASK_VALUE``,
-``jax.nn.softmax``'s max / exp / sum / divide order, P rounded to v's dtype
-before the fp32 P @ V, one rounding to v's dtype.
+Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
 
-The online-softmax kernel of the same file (``_kv_blocked_kernel``, the
-long-context route) is not ported yet: shapes that would need it raise and
-name its ROADMAP item.
+- the resident-K/V kernel (``_attn_kernel``): ``flash_attention`` is the
+  Hopper kernel (``csrc/flash_attention.cu``, on the attention core the other
+  attention kernels share); ``reference_attention`` is its plain PyTorch twin
+  and mirrors JAX's op for op: fp32 scores of the stored operands, ``*
+  scale``, ``+ bias`` in fp32, the ``mask_self`` diagonal set to
+  ``MASK_VALUE``, ``jax.nn.softmax``'s max / exp / sum / divide order, P
+  rounded to v's dtype before the fp32 P @ V, one rounding to v's dtype.
+- the online-softmax kernel (``_kv_blocked_kernel``, entry
+  ``flash_attention_kv_blocked``): ``flash_attention_kv_blocked`` is the
+  Hopper kernel (``csrc/flash_attention_kv_blocked.cu``), for widths and key
+  counts the resident core cannot hold; ``reference_attention_kv_blocked``
+  is its twin, in the TPU kernel's op order over chunks of ``block_k`` keys:
+  the running max, the running sum and the fp32 accumulator, the
+  unnormalised p rounded to v's dtype, one division at the end.
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ from vit_tpu_torch.ops.block_attention import _mm, _softmax
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SMEM = 232448  # 227 KB, the most shared memory one block may use
 
-_KV_BLOCKED = "needs the kv-blocked flash kernel, not ported yet (ROADMAP.md Queue 2 item 5)"
+_KV_BLOCKED = "run the kv-blocked kernel, flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5)"
+_FP32 = ("fp32 operands (the TPU kernels' Precision.HIGHEST) run only on the twins: neither "
+         "flash_attention nor flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5) takes them")
+KV_CHUNK = 64  # keys per chunk of the kv-blocked kernel (csrc kvb::KC)
 
 
 def smem_bytes(nk: int, d: int, dv: int) -> int:
@@ -54,6 +61,38 @@ def check_core_shape(nk: int, d: int, dv: int) -> None:
             f"memory; longer key sequences {_KV_BLOCKED}")
 
 
+def core_fits(nk: int, d: int, dv: int) -> bool:
+    """Whether the resident-K/V core (kernel 4) takes this shape; if not, the
+    dispatchers run the kv-blocked kernel."""
+    try:
+        check_core_shape(nk, d, dv)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def kv_blocked_layout(d: int, dv: int) -> tuple:
+    """(query rows, shared-memory bytes) of one block of the kv-blocked kernel
+    (``csrc/flash_attention_kv_blocked.cu`` ``layout``): the Q tile, one
+    64 x 64 K or V slice, the fp32 scores and bf16 p of a 64-key chunk, the
+    fp32 accumulator, and m, l, alpha per row. 32 query rows when the block
+    fits half of 227 KB, else 16; (0, bytes) when 16 rows do not fit."""
+    a = lambda v: round_up(v, 128)
+    dp, dvp = round_up(d, 16), round_up(dv, 16)
+
+    def size(qt):
+        kv_off = a(qt * (dp + 8) * 2)
+        s_off = a(kv_off + 64 * 72 * 2)
+        p_off = a(s_off + qt * 68 * 4)
+        acc_off = a(p_off + qt * 72 * 2)
+        stat_off = a(acc_off + qt * (dvp + 4) * 4)
+        return a(stat_off + 3 * qt * 4)
+
+    if size(32) <= MAX_SMEM // 2:
+        return 32, size(32)
+    return (16 if size(16) <= MAX_SMEM else 0), size(16)
+
+
 def reference_attention(q, k, v, bias=None, *, scale=None, mask_self=False):
     """Plain PyTorch twin (``vit_tpu``'s ``reference_attention``):
     ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H, Nk, Dv]`` -> ``[B, H, Nq,
@@ -68,6 +107,92 @@ def reference_attention(q, k, v, bias=None, *, scale=None, mask_self=False):
         s = s.masked_fill(torch.eye(nq, nk, dtype=torch.bool, device=s.device), MASK_VALUE)
     p = _softmax(s)
     return _mm(p.to(v.dtype), v, v.dtype)
+
+
+def reference_attention_kv_blocked(q, k, v, bias=None, *, scale=None, mask_self=False,
+                                   block_k=None):
+    """Plain PyTorch twin of the kv-blocked kernel (``vit_tpu``'s
+    ``_kv_blocked_kernel``, op for op), over chunks of ``block_k`` keys
+    (default JAX's ``min(512, round_up(Nk, 128))``): fp32 scores ``* scale``
+    ``+ bias``, the ``mask_self`` diagonal set to ``MASK_VALUE``; ``m_new =
+    max(m, rowmax s)``, ``alpha = exp(m - m_new)``, ``p = exp(s - m_new)``,
+    ``l = alpha * l + rowsum p``, ``acc = acc * alpha + p.to(v.dtype) @ v``
+    in fp32; ``acc / l`` rounded once to v's dtype. A chunk's padded keys
+    (past Nk) would score ``MASK_VALUE`` and add 0 to l and acc, so they are
+    left out."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    if block_k is None:
+        block_k = min(512, round_up(nk, 128))
+    m = torch.full((b, h, nq, 1), -float("inf"), device=q.device)
+    l = torch.zeros((b, h, nq, 1), device=q.device)
+    acc = torch.zeros((b, h, nq, v.shape[3]), device=q.device)
+    rows = torch.arange(nq, device=q.device)[:, None]
+    for k0 in range(0, nk, block_k):
+        kb, vb = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        s = _mm(q, kb.transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[..., k0:k0 + block_k].float()
+        if mask_self:
+            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
+            s = s.masked_fill(rows == cols, MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _mm(p.to(v.dtype), vb)
+        m = m_new
+    return (acc / l).to(v.dtype)
+
+
+def _check_operands(name, q, k, v, bias):
+    """Shapes, dtypes and devices of a flash kernel's operands; returns
+    (b, h, nq, nk, d, dv, the bias as contiguous fp32 or None, bias_b,
+    bias_h)."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be [B, H, N, D], got {q.shape}, {k.shape}, {v.shape}")
+    if q.dtype == torch.float32:
+        raise NotImplementedError(_FP32)
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, nq, d = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, h, nk, d) or tuple(v.shape) != (b, h, nk, dv) or nq < 1 or nk < 1:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("q, k, v must be on one device")
+    bias_b = bias_h = 0
+    if bias is not None:
+        if bias.dim() != 4 or tuple(bias.shape[2:]) != (nq, nk) or bias.shape[0] not in (1, b) \
+                or bias.shape[1] not in (1, h):
+            raise ValueError(f"bias must be [1|{b}, 1|{h}, {nq}, {nk}], got {tuple(bias.shape)}")
+        if bias.device != q.device:
+            raise ValueError("bias must be on q's device")
+        bias = bias.float().contiguous()
+        bias_b, bias_h = int(bias.shape[0] == b and b > 1), int(bias.shape[1] == h and h > 1)
+    return b, h, nq, nk, d, dv, bias, bias_b, bias_h
+
+
+def _launch(name, entry, q, k, v, bias, bias_b, bias_h, scale, mask_self):
+    b, h, nq, d = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    lib = _build.load_library()
+    out = torch.empty(b, nq, h, dv, device=q.device, dtype=v.dtype).transpose(1, 2)
+    strides = lambda t: (t.data_ptr(), *t.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, entry)(
+            *strides(q), *strides(k), *strides(v), *strides(out),
+            b, h, nq, nk, d, dv, float(d**-0.5 if scale is None else scale),
+            None if bias is None else bias.data_ptr(), bias_b, bias_h, int(mask_self), stream,
+        )
+    _build.check(lib, rc, f"{name} kernel")
+    _build.count_launch(name)
+    return out
 
 
 def flash_attention(
@@ -87,47 +212,39 @@ def flash_attention(
     ``split_heads`` views of ``[B, N, H*D]`` rows need no copy). Returns
     ``[B, H, Nq, Dv]`` bf16, laid out ``[B, Nq, H, Dv]`` in memory so that
     merging the heads is a view; computed on the current stream."""
-    if not q.is_cuda:
-        raise ValueError("flash_attention takes CUDA tensors")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q, k, v must be [B, H, N, D], got {q.shape}, {k.shape}, {v.shape}")
-    if q.dtype == torch.float32:
-        raise NotImplementedError(
-            f"fp32 operands (the TPU kernel's Precision.HIGHEST) {_KV_BLOCKED}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must be bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, nq, d = q.shape
-    nk, dv = k.shape[2], v.shape[3]
-    if tuple(k.shape) != (b, h, nk, d) or tuple(v.shape) != (b, h, nk, dv) or nq < 1 or nk < 1:
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands("flash_attention", q, k, v, bias)
     check_core_shape(nk, d, dv)
-    if any(t.device != q.device for t in (k, v)):
-        raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16
            for t in (q, k, v)):
         raise ValueError("q, k, v must have unit column stride and 16-byte aligned rows")
-    bias_b = bias_h = 0
-    if bias is not None:
-        if bias.dim() != 4 or tuple(bias.shape[2:]) != (nq, nk) or bias.shape[0] not in (1, b) \
-                or bias.shape[1] not in (1, h):
-            raise ValueError(f"bias must be [1|{b}, 1|{h}, {nq}, {nk}], got {tuple(bias.shape)}")
-        if bias.device != q.device:
-            raise ValueError("bias must be on q's device")
-        bias = bias.float().contiguous()
-        bias_b, bias_h = int(bias.shape[0] == b and b > 1), int(bias.shape[1] == h and h > 1)
-    if scale is None:
-        scale = d**-0.5
+    return _launch("flash_attention", "vt_flash_attention", q, k, v, bias, bias_b, bias_h, scale,
+                   mask_self)
 
-    lib = _build.load_library()
-    out = torch.empty(b, nq, h, dv, device=q.device, dtype=v.dtype).transpose(1, 2)
-    strides = lambda t: (t.data_ptr(), *t.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vt_flash_attention(
-            *strides(q), *strides(k), *strides(v), *strides(out),
-            b, h, nq, nk, d, dv, float(scale),
-            None if bias is None else bias.data_ptr(), bias_b, bias_h, int(mask_self), stream,
-        )
-    _build.check(lib, rc, "flash_attention kernel")
-    _build.count_launch("flash_attention")
-    return out
+
+def flash_attention_kv_blocked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    mask_self: bool = False,
+) -> torch.Tensor:
+    """The online-softmax kernel on the card, with ``flash_attention``'s
+    contract: q, k, v bf16 read through their strides, an optional fp32 bias
+    ``[B|1, H|1, Nq, Nk]``, ``mask_self``; returns ``[B, H, Nq, Dv]`` bf16
+    laid out ``[B, Nq, H, Dv]``. Any Nk (K and V stream through in chunks of
+    ``KV_CHUNK`` keys), D and Dv of any size whose block fits shared memory
+    (``kv_blocked_layout``), rows 2-byte aligned (unit column stride): the
+    ``split_heads`` views of T2T's fused qkv rows need no copy. Its twin at
+    ``block_k=KV_CHUNK`` rounds p at the same places."""
+    b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands(
+        "flash_attention_kv_blocked", q, k, v, bias)
+    if kv_blocked_layout(d, dv)[0] == 0:
+        raise NotImplementedError(
+            f"head widths D={d}, Dv={dv}: 16 query rows of the kv-blocked kernel need "
+            f"{kv_blocked_layout(d, dv)[1]} B of shared memory, more than 227 KB")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v must have unit column stride")
+    return _launch("flash_attention_kv_blocked", "vt_flash_attention_kv_blocked", q, k, v, bias,
+                   bias_b, bias_h, scale, mask_self)

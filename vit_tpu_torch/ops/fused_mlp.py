@@ -67,7 +67,9 @@ def fused_mlp(
 ) -> torch.Tensor:
     """The MLP block on the card over tokens ``x`` ``[..., T, D]`` (bf16 or
     fp32); ``w1`` ``[D, F]`` and ``w2`` ``[F, D]`` bf16; biases and LN
-    parameters fp32 or None. Returns ``x``'s shape and dtype."""
+    parameters fp32 or None. D and F of any size: rows that are not 16-byte
+    aligned (D or F not a multiple of 8, as T2T's 147 and 1323) load 2 bytes
+    at a time. Returns ``x``'s shape and dtype."""
     if not x.is_cuda:
         raise ValueError("fused_mlp takes CUDA tensors")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -92,8 +94,6 @@ def fused_mlp(
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
-    if dim % 8 or f % 8:
-        raise ValueError(f"the kernel takes D % 8 == 0 and F % 8 == 0 (got {dim}, {f})")
     if ln_bias is not None and ln_scale is None:
         raise ValueError("ln_bias without ln_scale")
 

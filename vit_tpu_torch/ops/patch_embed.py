@@ -1,8 +1,11 @@
-"""Patch extraction (port of ``vit_tpu/ops/patch_embed.py:patchify``)."""
+"""Patch extraction (port of ``vit_tpu/ops/patch_embed.py``: ``patchify`` and
+``extract_patches``). Both are gathers in plain PyTorch: neither is a Pallas
+kernel in ``vit_tpu``."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def patchify(x: torch.Tensor, patch_h: int, patch_w: int | None = None) -> torch.Tensor:
@@ -14,3 +17,28 @@ def patchify(x: torch.Tensor, patch_h: int, patch_w: int | None = None) -> torch
     gh, gw = h // patch_h, w // patch_w
     x = x.reshape(b, gh, patch_h, gw, patch_w, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, gh * gw, patch_h * patch_w * c)
+
+
+def extract_patches(x: torch.Tensor, kernel: int, stride: int, padding: str = "SAME") -> torch.Tensor:
+    """Overlapping ``kernel`` x ``kernel`` patches at ``stride``, as
+    ``tf.image.extract_patches`` and ``vit_tpu``'s ``extract_patches``:
+    ``[B, H, W, C] -> [B, Ho, Wo, kernel*kernel*C]``, features ordered (row,
+    col, channel). ``SAME`` pads with zeros as TF does (a total of ``max((out
+    - 1) * stride + kernel - n, 0)`` per axis, the smaller half before);
+    ``VALID`` takes only whole windows. A gather, so bitwise equal to both."""
+    b, h, w, c = x.shape
+    if padding == "SAME":
+        pads = []
+        for n in (w, h):  # F.pad takes the last axis first
+            total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+            pads += [total // 2, total - total // 2]
+        x = F.pad(x.permute(0, 3, 1, 2), pads)
+    elif padding == "VALID":
+        x = x.permute(0, 3, 1, 2)
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    cols = F.unfold(x, kernel, stride=stride)  # [B, C*k*k, L], features (c, kh, kw)
+    ho = (x.shape[2] - kernel) // stride + 1
+    wo = (x.shape[3] - kernel) // stride + 1
+    cols = cols.reshape(b, c, kernel * kernel, ho, wo).permute(0, 3, 4, 2, 1)
+    return cols.reshape(b, ho, wo, kernel * kernel * c)

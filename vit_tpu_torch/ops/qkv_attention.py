@@ -26,6 +26,11 @@ from vit_tpu_torch.ops.block_attention import MAX_TOKENS, _mm, _softmax
 _FP32_LATER = "fp32 qkv on the card is not ported yet (ROADMAP.md Queue 2 item 3, fp32 path)"
 
 
+def qkv_kernel_fits(n: int, d: int) -> bool:
+    """Whether the fused-qkv kernel takes ``n`` tokens of head width ``d``."""
+    return d % 16 == 0 and d <= 128 and n <= MAX_TOKENS
+
+
 def xla_qkv_attention(qkv, heads, bias=None, *, scale=None):
     """Plain PyTorch twin (``vit_tpu``'s ``xla_qkv_attention``)."""
     b, n, three_hd = qkv.shape
@@ -68,11 +73,12 @@ def fused_qkv_attention(
     hd = three_hd // 3
     d = hd // heads
     if d % 16 or d > 128:
-        raise ValueError(f"the kernel takes dim_head % 16 == 0 and <= 128 (got {d})")
+        raise ValueError(f"the kernel takes dim_head % 16 == 0 and <= 128 (got {d}); "
+                         "ops.qkv_attention runs other widths on the kv-blocked kernel")
     if n > MAX_TOKENS:
         raise NotImplementedError(
-            f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
-            "(ROADMAP.md Queue 2 item 5)"
+            f"n={n} > {MAX_TOKENS}: ops.qkv_attention runs long sequences on the kv-blocked "
+            "kernel (ROADMAP.md Queue 2 item 5)"
         )
     bias_b = bias_h = 0
     if bias is not None:
