@@ -16,7 +16,8 @@ Runs, in order, and exits non-zero at the first failure:
   5. times: img/s and p50 latency, kernels against the plain path;
   6. the int8 (W8A8) slice: the int8 GEMM and the row quantizer bit-exact
      against torch._int_mm and quantize_rows, the three int8-path kernels
-     against their twins (the two W8A8 blocks stage by stage, and the twins
+     against their twins (the fused-qkv attention at ViT-L batch 1, 8 and
+     128 and at small bias shapes; the two W8A8 blocks stage by stage, and the twins
      with a fault planted shown to fail their bound), and ``quantize_vit`` of
      the same ViT-L served in the ``auto`` mode through ``BatchingServer``
      (buckets 1 and 4 run ``w8`` / ``w8a8`` on the fused-qkv attention
@@ -38,7 +39,8 @@ Runs, in order, and exits non-zero at the first failure:
   8. the Twins-SVT slice: the flash-attention and window-attention kernels
      against their twins at the shapes of the twins_svt preset (GSA at 64,
      16, 4 and 1 keys; 7x7 windows; batch 128's 65,536 window-head pairs) and
-     at small shapes (each bias pattern, mask_self, Nq != Nk, Dv != D), with
+     at small shapes (each bias pattern, mask_self, Nq != Nk, Dv != D, Nk 197
+     and 1,088), with
      the twins with a fault planted (padded keys unmasked, the bias
      transposed, windows attending across each other) shown to fail the
      bound; the preset (random weights from a seed, bf16) served through
@@ -47,7 +49,9 @@ Runs, in order, and exits non-zero at the first failure:
      and p50 latency; device time by kernel of one forward at batch 128;
   9. each of the nine kernels at batch 128 against its twin, against the
      PyTorch library composite that computes the same function, and against
-     its bound on this card;
+     its bound on this card; kernel 3 also at batch 1 and 4 (the int8
+     buckets that run it) and kernel 4 at the other three GSA shapes, each
+     beside SDPA;
  10. the T2T-ViT slice: the kv-blocked flash kernel against its twin (the same
      64-key chunk) at the two tokenizer stages of the t2t preset through
      ``ops.qkv_attention`` on fused qkv rows (3136 tokens of width 147 at
@@ -839,9 +843,12 @@ def phase_int8_kernels(dev):
     worst = {"qkv_attention": 0.0, "quant_attention_block": 0.0, "quant_mlp": 0.0}
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
     for name, (b, n, heads, d), bshape in (
-        ("ViT-L", (8, N_TOKENS, 16, 64), None),
+        ("ViT-L batch 1", (1, N_TOKENS, 16, 64), None),
+        ("ViT-L batch 8", (8, N_TOKENS, 16, 64), None),
+        ("ViT-L batch 128", (128, N_TOKENS, 16, 64), None),
         ("bias [1,1,N,N]", (2, 40, 4, 32), (1, 1)),
         ("bias [B,H,N,N]", (2, 40, 4, 32), (2, 4)),
+        ("n 257 (the streamed core), bias [B,1,N,N]", (2, 257, 4, 64), (2, 1)),
     ):
         qkv = r(b, n, 3 * heads * d).bfloat16()
         bias = None if bshape is None else r(*bshape, n, n)
@@ -849,8 +856,9 @@ def phase_int8_kernels(dev):
         ref = qa.xla_qkv_attention(qkv, heads, bias)
         torch.cuda.synchronize()
         err = check_close(f"qkv_attention {name}", out, ref, None)
-        if name == "ViT-L":
-            worst["qkv_attention"] = err
+        if name.startswith("ViT-L"):
+            worst["qkv_attention"] = max(worst["qkv_attention"], err)
+        del qkv, bias, out, ref
 
     fails = []
     cases = [
@@ -1388,6 +1396,8 @@ def phase_twins_kernels(dev):
         ("bias [1,H,Nq,Nk], Nq != Nk, Nk 49", (2, 4, 100, 49, 64, 64), (1, 4), False,
          (FLASH_FAULTS[0],)),
         ("bias [B,1,Nq,Nk], Dv != D, Nk 130, mask_self", (2, 4, 33, 130, 32, 96), (2, 1), True, ()),
+        ("bias [B,H,Nq,Nk], Nk 197, mask_self", (2, 4, 50, 197, 64, 64), (2, 4), True, ()),
+        ("Nk 1088, Nq != Nk", (2, 2, 70, 1088, 64, 64), None, False, ()),
     ]
     for name, (b, h, nq, nk, d, dv), bshape, ms, faults in gsa + small:
         q, k, v = twins_qkv(gen, b, h, nq, nk, d, dv, dev)
@@ -1536,8 +1546,10 @@ def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0, fp32_flops=0.0):
 
 def phase_op_times(dev, smi):
     """Each kernel at batch 128, bf16, at the shape of its path (ViT-L, the
-    CaiT or the DeepViT preset): its time, its twin's, its library
-    composite's, and its bound."""
+    CaiT or the DeepViT preset, Twins' stage 1): its time, its twin's, its
+    library composite's, and its bound; and lines for kernel 3 at ViT-L
+    batch 1 and 4 and kernel 4 at Twins' GSA stages 2-4. Returns the batch
+    128 figures of the table, by kernel."""
     from vit_tpu_torch.ops import block_attention as ba
     from vit_tpu_torch.ops import quant_block as qb
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
@@ -1549,7 +1561,7 @@ def phase_op_times(dev, smi):
     attn_flops = 4 * b * heads * n * n * d
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     bf = lambda t: t.bfloat16()
-    ms = {}
+    ms, extra = {}, []
     with torch.inference_mode():
         a_in = attn_inputs(gen, b, n, dim, heads, d, torch.bfloat16, dev)
         a = [a_in[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
@@ -1572,14 +1584,20 @@ def phase_op_times(dev, smi):
             bound(4 * rows * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"])),
         )
         del m_in, lib_m
-        qkv = torch.randn(b, n, 3 * hd, generator=gen, device=dev).bfloat16()
-        ms["qkv_attention"] = (
-            cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads)),
-            cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=5),
-            cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(*split_heads(qkv, heads)))),
-            bound(attn_flops, nbytes=size(qkv) + rows * hd * 2),
-        )
-        del qkv
+        # kernel 3 at batch 1 and 4 too: the int8 w8 / w8a8 buckets that run it
+        for bk in (1, 4, 128):
+            qkv = torch.randn(bk, n, 3 * hd, generator=gen, device=dev).bfloat16()
+            times = (
+                cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads)),
+                cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=5),
+                cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(*split_heads(qkv, heads)))),
+                bound(4 * bk * heads * n * n * d, nbytes=size(qkv) + bk * n * hd * 2),
+            )
+            if bk == b:
+                ms["qkv_attention"] = times
+            else:
+                extra.append((f"qkv_attention ViT-L batch {bk} (int8 bucket {bk})", times))
+            del qkv
         q_in = qblock_inputs(gen, b, n, dim, heads, d, dev)
         q = [q_in[k] for k in QBLOCK_ARGS]
         ms["quant_attention_block"] = (
@@ -1626,15 +1644,20 @@ def phase_op_times(dev, smi):
         # keys) and LSA (64 windows of 49 tokens an image), no bias
         fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
         wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
-        nq, nk, th = 3136, 64, 8
-        q, k, v = twins_qkv(gen, b, th, nq, nk, d, d, dev)
-        ms["flash_attention"] = (
-            cuda_ms(lambda: fa.flash_attention(q, k, v)),
-            cuda_ms(lambda: fa.reference_attention(q, k, v), iters=5),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-            bound(4 * b * th * nq * nk * d, nbytes=size(q, k, v) + size(q)),
-        )
-        del q, k, v
+        th = 8
+        for s, (nq, nk) in enumerate(((3136, 64), (784, 16), (196, 4), (49, 1)), start=1):
+            q, k, v = twins_qkv(gen, b, th, nq, nk, d, d, dev)
+            times = (
+                cuda_ms(lambda: fa.flash_attention(q, k, v)),
+                cuda_ms(lambda: fa.reference_attention(q, k, v), iters=5),
+                cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                bound(4 * b * th * nq * nk * d, nbytes=size(q, k, v) + size(q)),
+            )
+            if s == 1:
+                ms["flash_attention"] = times
+            else:
+                extra.append((f"flash_attention Twins GSA stage {s} ({nq} x {nk} keys)", times))
+            del q, k, v
         nw, sw, cw = b * 64, 49, 64
         w_in = attn_inputs(gen, nw, sw, cw, th, d, torch.bfloat16, dev)
         w = [w_in[key] for key in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
@@ -1652,10 +1675,12 @@ def phase_op_times(dev, smi):
               "reattention_block": "DeepViT preset (n 65)",
               "flash_attention": "Twins GSA stage 1 (3136 x 64 keys)",
               "window_attention_block": "Twins LSA stage 1 (8192 windows of 49)"}
-    for k, (kern, plain, lib, (bnd, by)) in ms.items():
-        print(f"op {k} {shapes.get(k, 'ViT-L')} batch 128 bf16: kernel {kern:.3f} ms, twin "
-              f"{plain:.3f} ms, library {lib:.3f} ms, bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} "
-              f"of it) [{smi}]")
+    lines = [(f"{k} {shapes.get(k, 'ViT-L')} batch 128", t) for k, t in ms.items()]
+    for what, (kern, plain, lib, (bnd, by)) in lines + extra:
+        if "batch" not in what:
+            what += " batch 128"
+        print(f"op {what} bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it) [{smi}]")
     return ms
 
 

@@ -286,3 +286,64 @@ def test_window_kernel_takes_65536_window_head_pairs(cuda):
     ref = twa.xla_window_attention_block(*args, 8, tb)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= kernel_tol(ref, None, out.dtype)
+
+
+# -- kernel 4 on the register-resident core (csrc/attention_core_sm90.cuh) -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,nq,nk,d,dv,bias,mask_self", [
+    (2, 3, 40, 1, 64, 64, (2, 3), True), (2, 3, 40, 4, 64, 64, (1, 3), False),
+    (2, 3, 33, 16, 16, 16, (2, 1), True), (2, 3, 100, 64, 64, 16, (1, 1), False),
+    (2, 3, 50, 197, 64, 64, (2, 3), True), (2, 2, 30, 257, 64, 64, (1, 2), False),
+    (1, 2, 20, 1088, 64, 64, None, True), (2, 2, 45, 197, 16, 128, (2, 1), False),
+    (2, 2, 45, 130, 128, 16, None, True), (2, 2, 45, 64, 128, 128, (1, 1), True),
+    (2, 2, 45, 1024, 128, 128, (2, 2), False),
+])
+def test_flash_kernel_edge_shapes(cuda, b, h, nq, nk, d, dv, bias, mask_self):
+    """Nk 1 to 1,088 on either side of the core's resident and streamed
+    variants, Nq != Nk, Dv != D with D, Dv in {16, 64, 128}, every bias
+    pattern, mask_self."""
+    inp = _flash_inputs(21, b, h, nq, nk, d, dv, bias)
+    q, k, v = (_torch(inp[n], "bfloat16", cuda) for n in "qkv")
+    tb = None if bias is None else _torch(inp["bias"], "float32", cuda)
+    out = tfa.flash_attention(q, k, v, tb, mask_self=mask_self)
+    ref = tfa.reference_attention(q, k, v, tb, mask_self=mask_self)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [16, 197])
+def test_flash_kernel_reads_split_heads_views_at_the_resident_variants(cuda, nk):
+    """The split_heads views of [B, N, H*D] rows at 16 and 197 keys (one
+    chunk; four chunks of the 208-key variant) equal the kernel's result on
+    contiguous copies."""
+    from vit_tpu_torch.nn.attention import split_heads
+
+    rng = np.random.default_rng(22)
+    q = split_heads(_torch(rng.standard_normal((2, 150, 8 * 64)), "bfloat16", cuda), 8)
+    kv = _torch(rng.standard_normal((2, nk, 2 * 8 * 64)), "bfloat16", cuda)
+    k, v = (split_heads(t, 8) for t in kv.chunk(2, dim=-1))
+    out = tfa.flash_attention(q, k, v)
+    torch.testing.assert_close(out, tfa.flash_attention(*(t.contiguous() for t in (q, k, v))),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk", [(49, 1), (196, 197)])
+def test_flash_kernel_is_batch_invariant_across_tile_choices(cuda, nq, nk):
+    """A sample alone and inside a batch of 16 take other tile choices
+    (Twins' GSA stage 4; ViT's 197 keys) and come out bitwise equal."""
+    from vit_tpu_torch.ops import _build
+
+    warps = _build.load_library().vt_attention_sm90_warps
+    assert warps(1, 8, nq, nk, 64, 64) != warps(16, 8, nq, nk, 64, 64)
+    inp = _flash_inputs(23, 16, 8, nq, nk, 64, 64, None)
+    q, k, v = (_torch(inp[n], "bfloat16", cuda) for n in "qkv")
+    full = tfa.flash_attention(q, k, v)
+    for i in (0, 9):
+        alone = tfa.flash_attention(*(t[i:i + 1] for t in (q, k, v)))
+        torch.testing.assert_close(alone, full[i:i + 1], rtol=0, atol=0)

@@ -259,3 +259,34 @@ def test_mlp_kernel_at_t2t_widths_matches_twin(cuda, x_dtype, dim):
     assert out.dtype == m["x"].dtype
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+# -- the dispatch contract between kernels 4 and 5 --------------------------------
+
+# core_fits (ops/flash_attention.py) at and around the limits of the
+# resident core's shared-memory contract, pinned: (Nk, D, Dv) -> fits.
+# Kernels 4 and 5 round differently, so which one a shape takes must not
+# move when kernel 4's implementation does.
+CORE_FITS = [
+    (1, 16, 16, True), (197, 64, 64, True), (1024, 64, 64, True), (1088, 64, 64, True),
+    (1089, 64, 64, False), (1152, 64, 64, False), (1024, 128, 128, True),
+    (1025, 128, 128, False), (1024, 128, 64, True), (1025, 128, 64, False),
+    (1088, 64, 128, True), (1089, 64, 128, False), (1088, 48, 48, True), (1089, 48, 48, False),
+    (1088, 80, 80, True), (1089, 80, 80, False), (1089, 16, 16, True), (1, 144, 64, False),
+    (64, 64, 72, False), (64, 72, 64, False),
+]
+# qkv_kernel_fits (ops/qkv_attention.py): (n, head width) -> fits.
+QKV_FITS = [
+    (1, 16, True), (197, 64, True), (1024, 128, True), (1025, 64, False), (1025, 16, False),
+    (197, 72, False), (197, 144, False), (1024, 144, False),
+]
+
+
+@pytest.mark.parametrize("nk,d,dv,fits", CORE_FITS)
+def test_core_fits_is_pinned(nk, d, dv, fits):
+    assert tfa.core_fits(nk, d, dv) is fits
+
+
+@pytest.mark.parametrize("n,d,fits", QKV_FITS)
+def test_qkv_kernel_fits_is_pinned(n, d, fits):
+    assert tqa.qkv_kernel_fits(n, d) is fits

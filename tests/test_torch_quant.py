@@ -446,3 +446,77 @@ def test_int8_kernels_are_batch_invariant(cuda):
     full = ops.quant_mlp(*(m[k] for k in QMLP_ARGS))
     alone = ops.quant_mlp(m["x"][200:201].contiguous(), *(m[k] for k in QMLP_ARGS[1:]))
     torch.testing.assert_close(alone, full[200:201], rtol=0, atol=0)
+
+
+# -- kernel 3 on the register-resident core (csrc/attention_core_sm90.cuh) -------
+
+
+def _sm90_warps(b, h, nq, nk, d, dv):
+    """Warps a block of kernels 3 and 4 take at this shape on this card."""
+    from vit_tpu_torch.ops import _build
+
+    return _build.load_library().vt_attention_sm90_warps(b, h, nq, nk, d, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads,d,bias", [
+    (2, 1, 4, 64, None), (2, 4, 4, 64, (1, 1)), (2, 16, 4, 64, (2, 4)), (2, 64, 4, 64, (1, 4)),
+    (2, 197, 4, 64, (2, 1)), (2, 257, 4, 64, None), (2, 257, 2, 128, (2, 2)),
+    (3, 197, 2, 16, None), (1, 1024, 1, 64, (1, 1)), (2, 100, 3, 48, (2, 3)),
+])
+def test_qkv_attention_kernel_edge_shapes(cuda, b, n, heads, d, bias):
+    """Nk (= n) 1 to 1024 on either side of the core's resident and streamed
+    variants (208 keys at D 64), widths 16 to 128, the bias patterns."""
+    qkv, bi = _qkv_inputs(17, b, n, heads, d, bias)
+    t = _torch(qkv, "bfloat16", cuda)
+    tb = None if bi is None else _torch(bi, "float32", cuda)
+    out = tqa.fused_qkv_attention(t, heads, tb)
+    ref = tqa.xla_qkv_attention(t, heads, tb)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+def test_qkv_attention_kernel_at_vit_l(cuda, b):
+    """ViT-L's 197 tokens, 16 heads of 64: batch 1 (the int8 w8 bucket)
+    and 8."""
+    qkv, _ = _qkv_inputs(18, b, 197, 16, 64, None)
+    t = _torch(qkv, "bfloat16", cuda)
+    out = tqa.fused_qkv_attention(t, 16)
+    ref = tqa.xla_qkv_attention(t, 16)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_divides_exactly_past_e_minus_69(cuda):
+    """A bias that puts scores 80 below their row's max (e ~ 1.8e-35): the
+    warp leaves the hoisted-reciprocal division for __fdiv_rn, and the
+    output stays within the bound of the twin."""
+    qkv, bi = _qkv_inputs(19, 2, 64, 4, 64, (1, 4))
+    bi[..., ::3] -= 80.0
+    t = _torch(qkv, "bfloat16", cuda)
+    tb = _torch(bi, "float32", cuda)
+    out = tqa.fused_qkv_attention(t, 4, tb)
+    ref = tqa.xla_qkv_attention(t, 4, tb)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_is_batch_invariant_across_tile_choices(cuda):
+    """A sample alone (blocks of 5 warps) and inside a batch of 32 (blocks
+    of 7) come out bitwise equal: a row's arithmetic does not depend on the
+    tile choice."""
+    assert _sm90_warps(1, 16, 197, 197, 64, 64) != _sm90_warps(32, 16, 197, 197, 64, 64)
+    qkv, _ = _qkv_inputs(20, 32, 197, 16, 64, None)
+    t = _torch(qkv, "bfloat16", cuda)
+    full = tqa.fused_qkv_attention(t, 16)
+    for i in (0, 17, 31):
+        alone = tqa.fused_qkv_attention(t[i:i + 1].contiguous(), 16)
+        torch.testing.assert_close(alone, full[i:i + 1], rtol=0, atol=0)

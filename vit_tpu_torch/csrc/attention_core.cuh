@@ -1,11 +1,13 @@
-// The softmax-attention core shared by five kernels:
-//   - the float attention block (attention_block.cu): bf16 output, masks;
-//   - the fused-qkv attention (qkv_attention.cu): bf16 output, optional bias;
-//   - the W8A8 attention block (quant_block.cu): fp32 output, true_n mask;
-//   - the flash attention (flash_attention.cu): separate q / k / v, Nq != Nk,
-//     Dv != D, bias, the mask_self diagonal;
-//   - the window attention block (window_attention_block.cu): one window per
-//     batch entry, a per-window bias shared by every window.
+// The softmax-attention core shared by three kernels:
+//   - the float attention block (attention_block.cu, kernel 1): bf16 output,
+//     masks;
+//   - the window attention block (window_attention_block.cu, kernel 6): one
+//     window per batch entry, a per-window bias shared by every window;
+//   - the W8A8 attention block (quant_block.cu, kernel 9): fp32 output,
+//     true_n mask.
+// The fused-qkv attention (kernel 3) and the flash attention (kernel 4) run
+// on the register-resident core of attention_core_sm90.cuh, which computes
+// the same softmax and takes its Operand, Problem and ScoreTerms from here.
 //
 // One block: batch b, head h, query rows [q0, q0 + QT). It reads the q, k and
 // v head panels through their own strides (Operand: the fused [B*N, 3*H*Dh]

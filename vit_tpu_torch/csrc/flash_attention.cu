@@ -5,12 +5,12 @@
 //
 // Replaces vit_tpu/ops/flash_attention.py::_attn_kernel (the Pallas TPU
 // kernel). The TPU kernel keeps one (b, h)'s whole K and V resident in VMEM
-// and does one exact softmax per Q tile; here one block takes one (b, h,
-// 32-query tile), keeps the tile's fp32 score rows over all Nk keys in shared
-// memory and streams K and V through in 64-key chunks (attention_core.cuh):
-// the same exact softmax, the same bf16 rounding of P. Keys past Nk do not
-// exist in the kernel (their P is 0), which is the TPU kernel's true_nk mask
-// of its padded keys.
+// and does one exact softmax per Q tile; here one block takes 1-8 query
+// tiles of 16 rows of one (b, h) and streams K and V through a cp.async ring
+// in 64-key chunks (attention_core_sm90.cuh): the same exact softmax, the
+// same bf16 rounding of the normalised P. Keys past Nk do not exist in the
+// kernel (their P is 0), which is the TPU kernel's true_nk mask of its
+// padded keys.
 //
 // No copies: the strides let the kernel read the [B, H, N, D] views that
 // split_heads makes of [B, N, H*D] rows (Twins' GSA queries: 411 MB at stage
@@ -19,11 +19,15 @@
 //
 // Bound: memory. At Twins-SVT's stage 1 (Nq = 3136, Nk = 64, D = 64) a query
 // row reads 128 B and writes 128 B for ~16 KFLOP, below the H100's ~295
-// FLOP/byte ridge; K and V (16 KB per (b, h)) are re-read from L2 by each of
-// the 98 query tiles. Only bf16 operands are taken: the TPU kernel's fp32
-// Precision.HIGHEST path is not ported, and the wrapper refuses it.
+// FLOP/byte ridge: the op is a stream of q rows in and output rows out. The
+// core loads 128 query rows a block with 16-byte cp.async copies, keeps the
+// 64-key score rows in registers, and writes the output in 16-byte stores;
+// K and V (16 KB per (b, h)) are read from L2 by 25 blocks per (b, h), where
+// 32-row tiles read them 98 times. Only bf16 operands are taken: the TPU
+// kernel's fp32 Precision.HIGHEST path is not ported, and the wrapper
+// refuses it.
 
-#include "attention_core.cuh"
+#include "attention_core_sm90.cuh"
 #include "common.cuh"
 
 extern "C" int vt_flash_attention(const void* q, long long q_sb, long long q_sh, long long q_sr,
@@ -39,9 +43,16 @@ extern "C" int vt_flash_attention(const void* q, long long q_sb, long long q_sh,
     return Operand<const bf16>{static_cast<const bf16*>(p), sb, sh, sr};
   };
   const ScoreTerms st{static_cast<const float*>(bias), bias_b, bias_h, Nk, Nk, mask_self};
-  const cudaError_t e = vt::attention_core<bf16>(
+  const cudaError_t e = vt::attention_core_sm90(
       in(q, q_sb, q_sh, q_sr), in(k, k_sb, k_sh, k_sr), in(v, v_sb, v_sh, v_sr),
       Operand<bf16>{static_cast<bf16*>(out), o_sb, o_sh, o_sr}, Problem{B, H, Nq, Nk, D, Dv},
       scale, st, static_cast<cudaStream_t>(stream));
   return static_cast<int>(e);
+}
+
+// Warps a block of the core takes for this shape on the current card: the
+// tile choice the card tests of batch invariance hold apart.
+extern "C" int vt_attention_sm90_warps(int B, int H, int Nq, int Nk, int D, int Dv) {
+  const vt::attn::Problem pr{B, H, Nq, Nk, D, Dv};
+  return vt::attn90::plan_for(vt::attn90::variant(pr), pr).warps;
 }

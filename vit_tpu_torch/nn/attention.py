@@ -10,13 +10,15 @@ before its first call:
   residual inside), ``ops.talking_heads_block`` (CaiT; the residual inside
   only with ``fuse_residual``) or ``ops.reattention_block`` (DeepViT; the
   residual inside). On the CPU each runs its plain twin, in the kernel's op
-  order. Without ``fuse_residual`` (a stack of depth 1, which ``vit_tpu``
-  does not scan) or without an output projection (``heads == 1`` and
-  ``dim_head == dim``: T2T's tokenizer), plain attention takes the unfused
-  branch (:307-354): the LayerNorm and the qkv product outside any kernel,
-  ``ops.qkv_attention``, the optional output projection rounded to the
-  residual's dtype, and the delta returned (the residual added only with
-  ``fuse_residual``).
+  order. A layer fuses only inside ``vit_tpu``'s two terms (:213-221; n <=
+  1024 tokens, dim x inner x 3 bf16 weights <= 8 MiB: ``Attention.fuses``).
+  Outside them, without ``fuse_residual`` (a stack of depth 1, which
+  ``vit_tpu`` does not scan) or without an output projection (``heads ==
+  1`` and ``dim_head == dim``: T2T's tokenizer), the layer takes the
+  unfused branch (:307-354): the LayerNorm and the qkv product outside any
+  kernel, ``ops.qkv_attention`` (or, with a head mix, the materializing
+  path), the optional output projection rounded to the residual's dtype,
+  and the delta returned (the residual added only with ``fuse_residual``).
 - **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
   LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
   ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
@@ -47,6 +49,14 @@ from vit_tpu_torch.nn.embed import Dense, LayerNorm
 from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
+
+# vit_tpu/nn/attention.py:213-221: vit_tpu fuses a layer into one block
+# kernel only when the fp32 score rows of n tokens and the bf16 qkv and out
+# weights fit the TPU's VMEM. Outside these terms it rounds the attention
+# delta and the residual sum apart, so the port applies the same two terms
+# as a rule of numerics.
+FUSE_MAX_TOKENS = 1024
+FUSE_MAX_WEIGHT_BYTES = 8 * 1024 * 1024  # dim * inner * 3 bf16 values
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -124,7 +134,7 @@ class Attention(nn.Module):
             # the re-attention kernel adds the residual; JAX materializes without it
             raise NotImplementedError(f"re-attention without fuse_residual: {_LATER}")
         inner = heads * dim_head
-        self.heads, self.dim_head, self.scale = heads, dim_head, dim_head**-0.5
+        self.dim, self.heads, self.dim_head, self.scale = dim, heads, dim_head, dim_head**-0.5
         self.talking_heads, self.reattention = talking_heads, reattention
         self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
         self.norm_eps, self.dtype = norm_eps, dtype
@@ -157,7 +167,8 @@ class Attention(nn.Module):
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
-        if not (self.talking_heads or self.reattention or (self.fuse_residual and self.project_out)):
+        mix = self.talking_heads or self.reattention
+        if not (self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
             return self._unfused(x, dtype)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
@@ -170,17 +181,28 @@ class Attention(nn.Module):
                                          self.reattn_bias, self.heads, **kw)
         return ops.attention_block(*w, self.heads, **kw)
 
+    def fuses(self, n: int) -> bool:
+        """Whether a layer of ``n`` tokens runs as one block kernel: inside
+        ``vit_tpu``'s two terms (``FUSE_MAX_TOKENS``,
+        ``FUSE_MAX_WEIGHT_BYTES``), as ``vit_tpu`` decides it."""
+        inner = self.heads * self.dim_head
+        return n <= FUSE_MAX_TOKENS and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES
+
     def _unfused(self, x, dtype):
         """The raw-parameter branch outside the fused block (vit_tpu/nn/
         attention.py:307-354): flax's LayerNorm in fp32 cast to ``dtype``,
         the qkv product rounded once, ``ops.qkv_attention`` (the fused-qkv
         kernel, or the kv-blocked one for widths and lengths it cannot
-        hold), the output projection in fp32 plus its bias rounded to x's
-        dtype. Returns the delta, or the delta plus x with
-        ``fuse_residual``."""
+        hold) or, with a head mix, the materializing path, the output
+        projection in fp32 plus its bias rounded to x's dtype. Returns the
+        delta, or the delta plus x with ``fuse_residual``."""
         xn = _ln_f32(x.float(), self.norm_scale, self.norm_bias, self.norm_eps).to(dtype)
         qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
-        out = ops.qkv_attention(qkv, self.heads, scale=self.scale)
+        if self.talking_heads or self.reattention:
+            q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
+            out = merge_heads(self._materializing_attention(q, k, v))
+        else:
+            out = ops.qkv_attention(qkv, self.heads, scale=self.scale)
         if self.project_out:
             out = (_mm(out, self.out_kernel.to(dtype)) + self.out_bias).to(x.dtype)
         return out + x if self.fuse_residual else out

@@ -106,6 +106,9 @@ _SIGNATURES = {
         _I,                  # mask_self
         _P,                  # cudaStream_t
     ],
+    "vt_attention_sm90_warps": [
+        _I, _I, _I, _I, _I, _I,  # B, heads, Nq, Nk, D, Dv: warps a block of kernels 3 and 4
+    ],
     "vt_flash_attention_kv_blocked": [
         _P, _L, _L, _L,      # q (bf16) and its batch, head, row strides (elements)
         _P, _L, _L, _L,      # k

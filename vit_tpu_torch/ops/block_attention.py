@@ -149,8 +149,9 @@ def fused_attention_block(
         raise ValueError(f"the kernel takes dim_head % 16 == 0, <= 128 and D % 8 == 0 (got {d}, {dim})")
     if n > MAX_TOKENS:
         raise NotImplementedError(
-            f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
-            "(ROADMAP.md Queue 2 item 5)"
+            f"n={n} > {MAX_TOKENS}: the fused block takes at most {MAX_TOKENS} tokens; "
+            "nn.Attention keeps longer layers off it, as vit_tpu does, and runs them unfused "
+            "(ops.qkv_attention)"
         )
     if block_tokens is not None and (true_n is None or n % block_tokens):
         raise ValueError("block_tokens needs true_n and must divide n")

@@ -3,8 +3,9 @@
 Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
 
 - the resident-K/V kernel (``_attn_kernel``): ``flash_attention`` is the
-  Hopper kernel (``csrc/flash_attention.cu``, on the attention core the other
-  attention kernels share); ``reference_attention`` is its plain PyTorch twin
+  Hopper kernel (``csrc/flash_attention.cu``, on the register-resident core
+  of ``csrc/attention_core_sm90.cuh`` it shares with the fused-qkv kernel);
+  ``reference_attention`` is its plain PyTorch twin
   and mirrors JAX's op for op: fp32 scores of the stored operands, ``*
   scale``, ``+ bias`` in fp32, the ``mask_self`` diagonal set to
   ``MASK_VALUE``, ``jax.nn.softmax``'s max / exp / sum / divide order, P
@@ -39,9 +40,14 @@ KV_CHUNK = 64  # keys per chunk of the kv-blocked kernel (csrc kvb::KC)
 
 
 def smem_bytes(nk: int, d: int, dv: int) -> int:
-    """Shared memory of one block of the attention core (``attention_core.cuh``
-    ``layout``): a 32-row Q tile, a 64-key K/V chunk, the fp32 score rows
-    over all ``nk`` keys and the bf16 P rows."""
+    """The resident core's limit on the keys of one (b, h): the shared memory
+    a block of 32 query rows of ``attention_core.cuh`` took (``layout``: the
+    Q tile, a 64-key K/V chunk, the fp32 score rows over all ``nk`` keys and
+    the bf16 P rows). Kernel 4 now runs on ``attention_core_sm90.cuh``, whose
+    score rows stay in registers and which takes any Nk; this function is
+    kept as the dispatch contract between kernels 4 and 5, unchanged, so that
+    no shape moves from one kernel's rounding to the other's
+    (``core_fits``)."""
     a = lambda v: round_up(v, 128)
     n_pad = round_up(nk, 64)
     ldq, ldkv, lds, ldp = d + 8, max(d, dv) + 8, max(n_pad, dv) + 4, n_pad + 8
@@ -50,20 +56,21 @@ def smem_bytes(nk: int, d: int, dv: int) -> int:
 
 
 def check_core_shape(nk: int, d: int, dv: int) -> None:
-    """Raise for a shape the attention core cannot take."""
+    """Raise for a shape kernel 4 does not take (the dispatch contract)."""
     if d % 16 or d > 128 or dv % 16 or dv > 128:
         raise NotImplementedError(
             f"head widths D={d}, Dv={dv}: the kernel takes multiples of 16 up to 128; "
             f"other widths {_KV_BLOCKED}")
     if smem_bytes(nk, d, dv) > MAX_SMEM:
         raise NotImplementedError(
-            f"{nk} keys: the fp32 score rows of a query tile do not fit 227 KB of shared "
-            f"memory; longer key sequences {_KV_BLOCKED}")
+            f"{nk} keys: past kernel 4's limit at these widths (smem_bytes, the dispatch "
+            f"contract); longer key sequences {_KV_BLOCKED}")
 
 
 def core_fits(nk: int, d: int, dv: int) -> bool:
-    """Whether the resident-K/V core (kernel 4) takes this shape; if not, the
-    dispatchers run the kv-blocked kernel."""
+    """Whether kernel 4 takes this shape (the dispatch contract of
+    ``check_core_shape``); if not, the dispatchers run the kv-blocked
+    kernel."""
     try:
         check_core_shape(nk, d, dv)
     except NotImplementedError:

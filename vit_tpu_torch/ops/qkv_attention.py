@@ -1,8 +1,9 @@
 """Self-attention straight off the fused qkv projection.
 
 Port of ``vit_tpu/ops/qkv_attention.py``. ``fused_qkv_attention`` is the
-Hopper kernel (``csrc/qkv_attention.cu``, on the attention core it shares
-with the float block); ``xla_qkv_attention`` is its plain PyTorch twin and
+Hopper kernel (``csrc/qkv_attention.cu``, on the register-resident core of
+``csrc/attention_core_sm90.cuh`` it shares with the flash kernel);
+``xla_qkv_attention`` is its plain PyTorch twin and
 mirrors the JAX twin op for op: fp32 scores of the stored operands, ``*
 scale``, ``+ bias`` in fp32, ``jax.nn.softmax``'s max / exp / sum / divide
 order, P rounded to qkv's dtype before the fp32 P @ V, one rounding to

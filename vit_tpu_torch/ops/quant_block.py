@@ -162,8 +162,9 @@ def fused_quant_attention_block(
         raise ValueError(f"the kernel takes D % 16 == 0 and dim_head % 16 == 0, <= 128 (got {dim}, {d})")
     if n > MAX_TOKENS:
         raise NotImplementedError(
-            f"n={n} > {MAX_TOKENS}: long sequences need the kv-blocked kernel "
-            "(ROADMAP.md Queue 2 item 5)"
+            f"n={n} > {MAX_TOKENS}: the fused W8A8 block takes at most {MAX_TOKENS} tokens; "
+            "nn.Attention keeps longer layers off the fused blocks, as vit_tpu does, and the "
+            "int8 w8 / w8a8 modes run them unfused (ops.qkv_attention)"
         )
     true_n = n if true_n is None else int(true_n)
     if not 0 < true_n <= n:

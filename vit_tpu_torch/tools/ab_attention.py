@@ -1,0 +1,176 @@
+"""Two trees of the repo on one card, in turns: parent, change, change, parent.
+
+    python3 -m vit_tpu_torch.tools.ab_attention PARENT_DIR CHANGE_DIR [--e2e] [--log FILE]
+
+Each turn is a child process that imports the tree's own ``vit_tpu_torch``
+and ``chip_smoke`` (so each side builds and runs its own kernels) and
+measures, at batch 128 unless named:
+- kernel 3 (``fused_qkv_attention``) at ViT-L (197 tokens, 16 heads of 64)
+  at batch 1, 4 and 128, and kernel 4 (``flash_attention``) at the four GSA
+  shapes of the Twins-SVT preset (3136 x 64, 784 x 16, 196 x 4, 49 x 1
+  keys, 8 heads of 64), each as the mean of CUDA events around 20 wrapper
+  calls (what chip_smoke's op lines take) and as device time from
+  ``torch.profiler``;
+- every kernel's time at the shape of PERF.md's table, through the tree's
+  own ``chip_smoke.phase_op_times`` and ``phase_t2t_op_times``;
+- with ``--e2e``: Twins-SVT img/s at batch 128 (bf16) and the int8 ``auto``
+  p50 at batch 1 and 8 (ViT-L), random weights from chip_smoke's seeds.
+
+The parent process prints each side's mean over its two turns, the change
+against the parent, and the card's name and power limit. The children's own
+output goes to ``--log`` (default ``vit_tpu_torch/_build/ab_attention.log``,
+which git ignores).
+Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+TAG = "AB_RESULT "
+GSA = ((3136, 64), (784, 16), (196, 4), (49, 1))
+
+
+def _device_ms(fn, iters=10) -> float:
+    """Device time of ``fn`` in ms: the sum of its kernels' CUDA time in a
+    profiled window of ``iters`` calls, over ``iters``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages())
+    return total / iters / 1e3
+
+
+def child(tree: Path, e2e: bool) -> dict:
+    """The measurements of one turn, in the tree's own code."""
+    sys.path.insert(0, str(tree))
+    import importlib
+
+    import torch
+
+    cs = importlib.import_module("chip_smoke")
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    from vit_tpu_torch.ops import _build
+
+    assert Path(cs.__file__).resolve().parent == tree.resolve(), cs.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    dev = torch.device("cuda:0")
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
+    res = {}
+    with torch.inference_mode():
+        for b in (1, 4, 128):
+            qkv = torch.randn(b, cs.N_TOKENS, 3 * 1024, generator=gen, device=dev).bfloat16()
+            fn = lambda: qa.fused_qkv_attention(qkv, 16)
+            res[f"k3 ViT-L batch {b} ms"] = cs.cuda_ms(fn)
+            res[f"k3 ViT-L batch {b} device ms"] = _device_ms(fn)
+            del qkv
+        for nq, nk in GSA:
+            q, k, v = cs.twins_qkv(gen, 128, 8, nq, nk, 64, 64, dev)
+            fn = lambda: fa.flash_attention(q, k, v)
+            res[f"k4 GSA {nq}x{nk} ms"] = cs.cuda_ms(fn)
+            res[f"k4 GSA {nq}x{nk} device ms"] = _device_ms(fn)
+            del q, k, v
+    torch.cuda.empty_cache()
+    for name, (kern, _, _, _) in cs.phase_op_times(dev, smi).items():
+        res[f"op {name} ms"] = kern
+    res["op flash_attention_kv_blocked ms"] = cs.phase_t2t_op_times(dev, smi)[0]
+    torch.cuda.empty_cache()
+    if e2e:
+        res.update(_e2e(cs, dev))
+    res["card"] = smi
+    return res
+
+
+def _e2e(cs, dev) -> dict:
+    """Twins-SVT img/s at batch 128 (bf16) and int8 auto p50 at batch 1, 8."""
+    import torch
+
+    from vit_tpu_torch.models import TwinsSVT, ViT
+    from vit_tpu_torch.utils import from_jax_params, quantize_vit
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    twins = TwinsSVT(**cs.TWINS, dtype=torch.bfloat16, device=dev).eval()
+    twins.load_state_dict(from_jax_params(cs.twins_tree(cs.TWINS, cs.SEED + 11), twins.jax_stages))
+    with torch.inference_mode():
+        x = torch.randn(128, 224, 224, 3, generator=gen, device=dev).bfloat16()
+        cs.p50_ms(lambda: twins(x), 2)
+        out["twins bf16 batch 128 img/s"] = 128 / cs.p50_ms(lambda: twins(x), 5) * 1e3
+    del twins
+    torch.cuda.empty_cache()
+    vit = ViT(**cs.VIT_L, dtype=torch.bfloat16, device=dev)
+    vit.load_state_dict(from_jax_params(cs.vit_tree(cs.VIT_L, cs.SEED)), strict=True)
+    qmodel = quantize_vit(vit.eval())
+    del vit
+    with torch.inference_mode():
+        for b in (1, 8):
+            x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
+            cs.p50_ms(lambda: qmodel(x), 3)
+            out[f"int8 auto batch {b} p50 ms"] = cs.p50_ms(lambda: qmodel(x), 9)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("change", type=Path)
+    ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--log", type=Path,
+                    default=Path(__file__).resolve().parent.parent / "_build" / "ab_attention.log")
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        print(TAG + json.dumps(child(args.child, args.e2e)), flush=True)
+        return 0
+
+    args.log.parent.mkdir(parents=True, exist_ok=True)
+    turns = [("parent", args.parent), ("change", args.change), ("change", args.change),
+             ("parent", args.parent)]
+    runs = {"parent": [], "change": []}
+    with args.log.open("w") as log:
+        for side, tree in turns:
+            cmd = [sys.executable, str(Path(__file__).resolve()), str(args.parent),
+                   str(args.change), "--child", str(tree.resolve())]
+            cmd += ["--e2e"] if args.e2e else []
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
+            log.write(f"== {side} {tree}\n{proc.stdout}\n{proc.stderr}\n")
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TAG)]
+            if proc.returncode != 0 or not lines:
+                print(f"{side} turn failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+                return 1
+            res = json.loads(lines[-1][len(TAG):])
+            runs[side].append(res)
+            print(f"turn {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
+                                               if not isinstance(v, str)), flush=True)
+    card = runs["change"][0]["card"]
+    for key in runs["parent"][0]:
+        if key == "card" or key not in runs["change"][0]:
+            continue
+        p = statistics.mean(r[key] for r in runs["parent"])
+        c = statistics.mean(r[key] for r in runs["change"])
+        spread = max(abs(runs["parent"][0][key] - runs["parent"][1][key]),
+                     abs(runs["change"][0][key] - runs["change"][1][key]))
+        print(f"ab {key}: parent {p:.4f}, change {c:.4f} ({c / p - 1:+.2%}; largest gap between "
+              f"one side's two turns {spread:.4f}) [{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
