@@ -6,14 +6,18 @@
 Runs, in order, and exits non-zero at the first failure:
   1. the card's name and power limit; the build of ``vit_tpu_torch/csrc``;
   2. each Hopper kernel against its plain PyTorch twin, on the card, at the
-     ViT-L/16 shapes (bf16 stream, and fp32 stream with bf16 weights), and at
-     small shapes with masked keys;
+     ViT-L/16 shapes (bf16 stream, and fp32 stream with bf16 weights; the
+     attention block at batch 1, 8 and 128), and at small shapes with masked
+     keys; the attention block's wgmma GEMM alone against an fp32 product of
+     the same operands at M 1, 197 and 25,216 and three (N, K), both output
+     types, with the twin that reads B transposed shown to fail the bound;
   3. the serving path at the full width of ViT-L/16 @224 (random weights from
      a seed): ``BatchingServer`` -> ``InferencePipeline`` -> ``ViT``, 32
      pre-decoded requests from several threads, in the bf16 and the mixed
      config, with the kernels' launch counts read around the run;
   4. the kernel path's logits against the port's plain fp32 path;
-  5. times: img/s and p50 latency, kernels against the plain path;
+  5. times: img/s and p50 latency, kernels against the plain path; device
+     time by kernel of one bf16 forward at batch 128 (torch.profiler);
   6. the int8 (W8A8) slice: the int8 GEMM and the row quantizer bit-exact
      against torch._int_mm and quantize_rows, the three int8-path kernels
      against their twins (the fused-qkv attention at ViT-L batch 1, 8 and
@@ -49,7 +53,9 @@ Runs, in order, and exits non-zero at the first failure:
      and p50 latency; device time by kernel of one forward at batch 128;
   9. each of the nine kernels at batch 128 against its twin, against the
      PyTorch library composite that computes the same function, and against
-     its bound on this card; kernel 3 also at batch 1 and 4 (the int8
+     its bound on this card; the attention block's device time split into its
+     four launches (torch.profiler), with each GEMM's TFLOP/s beside
+     cuBLAS's on the same operands; kernel 3 also at batch 1 and 4 (the int8
      buckets that run it) and kernel 4 at the other three GSA shapes, each
      beside SDPA;
  10. the T2T-ViT slice: the kv-blocked flash kernel against its twin (the same
@@ -203,6 +209,15 @@ HM_ROUND, HM_F32 = 2.0**-7, 1e-5
 # the same weights and inputs.
 HM_E2E_RATIO = 1.5
 
+# The attention block's wgmma GEMM alone (check_gemm_sm90), against an fp32
+# product of the same bf16 operands plus bias and residual: at most one bf16
+# ulp of the largest output (the last rounding of a bf16 output, with room),
+# plus the sum-order slack of two fp32 sums of K products, 2 K 2^-24 times
+# the row's sum of |a_k b_k| (the tensor cores and torch.matmul add the K
+# products in different orders).
+GEMM_SHAPES = ((3072, 1024), (1024, 1024), (776, 264))  # (N, K): qkv, out, narrow tails
+GEMM_ROWS = (1, N_TOKENS, 128 * N_TOKENS)
+
 # H100 SXM5 peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 # rate of their type (fp32 outside the tensor cores for the head mixes).
@@ -239,6 +254,49 @@ def kernel_tol(ref: torch.Tensor, base, dtype) -> float:
     if dtype == torch.bfloat16:
         tol += 2.0**-7 * ref.abs().max().item()
     return tol
+
+
+def gemm_bound(a, b, ref) -> float:
+    """GEMM_SHAPES' bound: one bf16 ulp of max |ref| plus the fp32
+    sum-order slack of the K products."""
+    _, e = torch.frexp(ref.abs().max())
+    ulp = 2.0 ** (e.item() - 8)
+    slack = 2 * a.shape[1] * 2.0**-24 * (a.float().abs() @ b.float().abs()).max().item()
+    return ulp + slack
+
+
+def check_gemm_sm90(dev) -> None:
+    """The attention block's GEMM alone against an fp32 product of the same
+    operands, at GEMM_ROWS x GEMM_SHAPES in both output types, with bias and
+    residual; at M = 197 the twin that reads B K-major (transposed) must fail
+    the bound."""
+    from vit_tpu_torch.ops import block_attention as ba
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    for m in GEMM_ROWS:
+        for n, k in GEMM_SHAPES:
+            a = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+            b = (torch.randn(k, n, generator=gen, device=dev) / k**0.5).bfloat16()
+            bias = 0.1 * torch.randn(n, generator=gen, device=dev)
+            res = torch.randn(m, n, generator=gen, device=dev)
+            for dt in (torch.bfloat16, torch.float32):
+                out = ba.gemm_sm90(a, b, bias, res.to(dt), dt)
+                ref = a.float() @ b.float() + bias + res.to(dt).float()
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs().max().item()
+                tol = gemm_bound(a, b, ref)
+                name = f"gemm_sm90 M {m} N {n} K {k} -> {str(dt)[6:]}"
+                print(f"{name}: max_abs_err {err:.6g} bound {tol:.6g}")
+                require(torch.isfinite(out).all().item(), f"{name}: non-finite output")
+                require(err <= tol, f"{name}: error {err} > {tol}")
+            if m == N_TOKENS:
+                bad = a.float() @ b.reshape(n, k).t().float() + bias + res
+                bad_err = (bad - ref).abs().max().item()
+                print(f"gemm_sm90 M {m} N {n} K {k}, B read transposed: max |err| {bad_err:.6g} "
+                      f"against bound {tol:.6g} (must fail it)")
+                require(bad_err > tol, f"gemm_sm90 N {n} K {k}: the bound does not see B "
+                        "read transposed")
+            del a, b, res
 
 
 def check_close(name, out, ref, base):
@@ -603,9 +661,11 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"attention_block": 0.0, "fused_mlp": 0.0}
     args = ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")
+    vit_l = dict(n=N_TOKENS, dim=1024, heads=16, d=64)
     attn_cases = [
-        ("ViT-L bf16", dict(b=8, n=N_TOKENS, dim=1024, heads=16, d=64, x_dtype=torch.bfloat16), {}),
-        ("ViT-L mixed", dict(b=8, n=N_TOKENS, dim=1024, heads=16, d=64, x_dtype=torch.float32), {}),
+        (f"ViT-L {cfg} batch {b}", dict(b=b, x_dtype=x_dtype, **vit_l), {})
+        for b in (1, 8, 128) for cfg, x_dtype in (("bf16", torch.bfloat16), ("mixed", torch.float32))
+    ] + [
         ("padded true_n", dict(b=4, n=48, dim=256, heads=4, d=64, x_dtype=torch.bfloat16),
          dict(true_n=37)),
         ("packed block_tokens", dict(b=4, n=80, dim=256, heads=4, d=64, x_dtype=torch.bfloat16),
@@ -620,6 +680,8 @@ def phase_kernels(dev):
         err = check_close(f"attention_block {name}", out, ref, inp["x"])
         if name.startswith("ViT-L"):
             worst["attention_block"] = max(worst["attention_block"], err)
+        del inp, a, out, ref
+    check_gemm_sm90(dev)
 
     mlp_cases = [
         ("ViT-L bf16 ln+gelu", dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=torch.bfloat16),
@@ -1544,6 +1606,44 @@ def bound(bf16_flops=0.0, int8_ops=0.0, nbytes=0.0, fp32_flops=0.0):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# What the names of the attention block's four launches (ab_attention's
+# K1_LAUNCHES) hold, in order: the LayerNorm rows, the wgmma GEMM, the
+# register-resident core, the wgmma GEMM.
+BLOCK_KERNELS = ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "attention_sm90_",
+                 "gemm_bf16_sm90_kernel")
+
+
+def attention_block_launches(a, heads, smi):
+    """One op line: the attention block's device time at these inputs split
+    into its four launches (torch.profiler), each GEMM's TFLOP/s beside one
+    cuBLAS product of the same operands. Fails unless the block ran exactly
+    BLOCK_KERNELS."""
+    from vit_tpu_torch.ops import block_attention as ba
+    from vit_tpu_torch.tools.ab_attention import K1_LAUNCHES, launch_ms
+
+    x, wqkv, wout = a[0], a[3], a[4]
+    split = launch_ms(lambda: ba.fused_attention_block(*a, heads), len(BLOCK_KERNELS))
+    names = [name for name, _ in split]
+    require(all(key in name for key, name in zip(BLOCK_KERNELS, names)),
+            f"attention_block launched {names}, not {list(BLOCK_KERNELS)}")
+    rows, dim = x.shape[0] * x.shape[1], x.shape[2]
+    flops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
+    xn = torch.randn(rows, dim, device=x.device).bfloat16()
+    o = torch.randn(rows, wout.shape[0], device=x.device).bfloat16()
+    cublas = {"qkv gemm": cuda_ms(lambda: xn @ wqkv), "out gemm": cuda_ms(lambda: o @ wout)}
+    parts = []
+    for what, (_, t) in zip(K1_LAUNCHES, split):
+        part = f"{what} {t:.4f} ms"
+        if what in flops:
+            part += (f" ({flops[what] / t / 1e9:.1f} TFLOP/s; cuBLAS {cublas[what]:.4f} ms, "
+                     f"{flops[what] / cublas[what] / 1e9:.1f} TFLOP/s)")
+        parts.append(part)
+    print(f"op attention_block ViT-L batch {x.shape[0]} {str(x.dtype)[6:]} launches (device): "
+          f"{sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
+    print("op attention_block kernels: "
+          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+
+
 def phase_op_times(dev, smi):
     """Each kernel at batch 128, bf16, at the shape of its path (ViT-L, the
     CaiT or the DeepViT preset, Twins' stage 1): its time, its twin's, its
@@ -1573,6 +1673,7 @@ def phase_op_times(dev, smi):
             bound(2 * rows * dim * 3 * hd + attn_flops + 2 * rows * hd * dim,
                   nbytes=size(*a) + size(a[0])),
         )
+        attention_block_launches(a, heads, smi)
         del a, lib_a, a_in
         m_in = mlp_inputs(gen, 16 * n, dim, f, torch.bfloat16, dev)  # 8 x 16 = 128 images
         mkw = dict(activation="gelu", residual=False)
@@ -1874,6 +1975,7 @@ def main() -> int:
 
     # 5. times
     phase_times({c: models[c] for c in ("bf16", "mixed")}, 224, dev, smi)
+    phase_profile("ViT-L bf16", models["bf16"], 224, dev, smi)
 
     # 6. the int8 slice: quantize_vit of the bf16 ViT-L, served in the auto mode
     qmodel = quantize_vit(models["bf16"])
@@ -1937,7 +2039,9 @@ def main() -> int:
     op_ms["flash_attention_kv_blocked"] = phase_t2t_op_times(dev, smi)
 
     sources = {
-        "attention_block": ("vit_tpu_torch/csrc/attention_block.cu",
+        "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
+                            "vit_tpu_torch/csrc/gemm_sm90.cuh, "
+                            "vit_tpu_torch/csrc/attention_core_sm90.cuh",
                             "vit_tpu/ops/block_attention.py:45"),
         "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:53"),
         "qkv_attention": ("vit_tpu_torch/csrc/qkv_attention.cu",

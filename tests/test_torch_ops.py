@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kernel_tol
+from chip_smoke import GEMM_ROWS, GEMM_SHAPES, gemm_bound, kernel_tol
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import block_attention as tba
 
@@ -197,6 +197,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfm.fused_mlp(**m)
 
 
+def test_operands_must_start_on_16_byte_boundaries():
+    """The attention block's TMA loads need 16-byte aligned operands; a view
+    that starts inside its storage is refused before any launch."""
+    w = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16)
+    tba._require_aligned(wqkv=w[:4096].view(64, 64), bout=torch.zeros(64))
+    with pytest.raises(ValueError, match="wqkv does not start on a 16-byte boundary"):
+        tba._require_aligned(wqkv=w[1:4097].view(64, 64))
+    with pytest.raises(ValueError, match="bout"):
+        tba._require_aligned(wqkv=w[8:4104].view(64, 64), bout=torch.zeros(68)[2:66])
+
+
+def test_gemm_sm90_refuses_cpu_tensors():
+    a, b = torch.zeros(4, 64, dtype=torch.bfloat16), torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tba.gemm_sm90(a, b)
+
+
 # -- on the card: each kernel against its twin --------------------------------
 
 
@@ -280,3 +297,56 @@ def test_kernels_are_batch_invariant(cuda):
     full = ops.mlp(**m)
     alone = ops.mlp(**{**m, "x": m["x"][200:201].contiguous()})
     torch.testing.assert_close(alone, full[200:201], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", GEMM_ROWS)
+@pytest.mark.parametrize("n,k", GEMM_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_sm90_matches_fp32_product(cuda, m, n, k, out_dtype):
+    """The attention block's wgmma GEMM against an fp32 product of the same
+    bf16 operands, at its tail shapes (rows past M, a partial N tile, K not
+    a multiple of the 64-wide K slice), within chip_smoke's GEMM bound."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    b = (torch.randn(k, n, generator=gen, device=cuda) / k**0.5).bfloat16()
+    bias = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    res = torch.randn(m, n, generator=gen, device=cuda).to(out_dtype)
+    out = tba.gemm_sm90(a, b, bias, res, out_dtype)
+    ref = a.float() @ b.float() + bias + res.float()
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= gemm_bound(a, b, ref), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_sm90_adds_bias_before_residual(cuda, out_dtype):
+    """C = (A @ B + bias) + residual in fp32: with A @ B = 1, bias = 2^-24
+    and residual = -1, 1 + 2^-24 rounds to 1 (a tie, to even) and C is 0;
+    any other order leaves 2^-24."""
+    m, n, k = 130, 136, 72
+    a = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    a[:, 0] = 1
+    b = torch.zeros(k, n, device=cuda, dtype=torch.bfloat16)
+    b[0] = 1
+    bias = torch.full((n,), 2.0**-24, device=cuda)
+    res = torch.full((m, n), -1.0, device=cuda, dtype=out_dtype)
+    out = tba.gemm_sm90(a, b, bias, res, out_dtype)
+    torch.testing.assert_close(out, torch.zeros_like(out), rtol=0, atol=0)
+    out = tba.gemm_sm90(a, b, bias, None, out_dtype)  # the bias alone still shows
+    assert (out.float() == 1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "mixed"])
+def test_attention_block_is_batch_invariant_at_vit_l_width(cuda, precision):
+    """At ViT-L's width (dim 1024, 16 heads of 64, 197 tokens) sample 4
+    alone comes out bitwise as it does inside a batch of 9: the GEMMs'
+    tiles and the attention plan change with the batch, a row's sums do
+    not."""
+    a = _cast(_attn_inputs(9, 9, 197, 1024, 16, 64), precision, lambda v, dt: _torch(v, dt, cuda))
+    args = [a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+    full = ops.attention_block(*args, 16)
+    alone = ops.attention_block(args[0][4:5].contiguous(), *args[1:], 16)
+    torch.testing.assert_close(alone, full[4:5], rtol=0, atol=0)

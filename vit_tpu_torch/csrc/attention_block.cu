@@ -5,21 +5,24 @@
 // The TPU kernel keeps Wqkv + Wout (~8 MB bf16 at ViT-L) resident in 16 MB of
 // VMEM; an H100 block has 227 KB of shared memory, so this version splits the
 // op at its GEMM boundaries, into four launches:
-//   1. ln_rows:       flax LayerNorm in fp32 -> bf16 xn          (memory-bound)
-//   2. gemm_bf16:     xn @ Wqkv -> bf16 qkv                      (compute-bound)
-//   3. attention_core: per (batch, head, 32-query tile)          (memory-bound
-//                     at n=197: K/V panels and the score rows)
-//   4. gemm_bf16:     attn @ Wout + bout + x -> x.dtype          (compute-bound)
+//   1. ln_rows:             flax LayerNorm in fp32 -> bf16 xn    (memory-bound)
+//   2. gemm_bf16_sm90:      xn @ Wqkv -> bf16 qkv                (compute-bound;
+//                           wgmma fed by TMA, gemm_sm90.cuh)
+//   3. attention_core_sm90: the register-resident exact softmax of
+//                           attention_core_sm90.cuh on the fused qkv rows,
+//                           with the true_n / block_tokens key mask
+//                           (memory- and latency-bound at n = 197)
+//   4. gemm_bf16_sm90:      attn @ Wout + bout + x -> x.dtype    (compute-bound)
 // It stores only what the TPU kernel itself rounds to bf16 before its next
 // use (xn, qkv at block_attention.py:81, the attention output at :120), so
-// the arithmetic is the TPU kernel's. Later PRs fuse LN into the qkv GEMM's
-// prologue, move the GEMMs to wgmma + TMA with a persistent schedule, and run
-// the attention core from registers (an online softmax, held to a tolerance
-// because it rounds differently).
+// the arithmetic is the TPU kernel's: the out product's fp32 accumulator
+// plus bout, then plus x, rounded once to x's dtype (:125-130).
+// At ViT-L batch 128 the two products are 211.5 of the block's 231.8 GFLOP:
+// the block is bound by the tensor cores (0.23 ms at 989 TFLOP/s).
 
-#include "attention_core.cuh"
+#include "attention_core_sm90.cuh"
 #include "common.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace vt {
 namespace {
@@ -33,12 +36,12 @@ cudaError_t attention_block(const T* x, const float* ln_scale, const float* ln_b
   const int rows = B * N, HD = H * Dh;
   cudaError_t e = ln_rows<T>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
   if (e != cudaSuccess) return e;
-  e = gemm_bf16<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  e = gemm_bf16_sm90<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
   if (e != cudaSuccess) return e;
-  e = attention_core<bf16>(qkv, attn_out, B, N, H, Dh, scale,
+  e = attention_core_sm90(qkv, attn_out, B, N, H, Dh, scale,
                           attn::ScoreTerms{nullptr, 0, 0, true_n, bt}, stream);
   if (e != cudaSuccess) return e;
-  return gemm_bf16<T>(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
+  return gemm_bf16_sm90<T>(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
 }
 
 }  // namespace
@@ -64,6 +67,25 @@ extern "C" int vt_attention_block(const void* x, int x_is_fp32, const void* ln_s
                                   static_cast<bf16*>(out), static_cast<bf16*>(xn),
                                   static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D, H,
                                   Dh, scale, eps, true_n, bt, s);
+  return static_cast<int>(e);
+}
+
+// The block's GEMM alone, for checks against an fp32 product:
+// C = round_once(A @ B + bias + residual), C and residual fp32 or bf16.
+extern "C" int vt_gemm_bf16_sm90(const void* a, const void* b, void* c, const void* bias,
+                                 const void* residual, int out_is_fp32, int M, int N, int K,
+                                 void* stream) {
+  using vt::bf16;
+  const auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  const float* bi = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (out_is_fp32)
+    e = vt::gemm_bf16_sm90<float>(h(a), h(b), static_cast<float*>(c), bi,
+                                  static_cast<const float*>(residual), vt::kActNone, M, N, K, s);
+  else
+    e = vt::gemm_bf16_sm90<bf16>(h(a), h(b), static_cast<bf16*>(c), bi, h(residual),
+                                 vt::kActNone, M, N, K, s);
   return static_cast<int>(e);
 }
 

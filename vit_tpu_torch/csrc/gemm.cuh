@@ -1,4 +1,8 @@
-// Tiled bf16 x bf16 -> fp32 GEMM with a fused epilogue, shared by both kernels.
+// Tiled bf16 x bf16 -> fp32 GEMM with a fused epilogue, under the MLP
+// (fused_mlp.cu, kernel 2), the window attention block (kernel 6) and the
+// head-mixing blocks (kernels 7 and 8). The float attention block (kernel 1)
+// runs its products on the wgmma GEMM of gemm_sm90.cuh, which takes the
+// activations (Act, activate) from here.
 //
 //   C[M, N] = round_once( act(A[M, K] @ B[K, N] + bias[N]) + residual[M, N] )
 //
@@ -17,9 +21,10 @@
 // 8 warps of WMMA 16x16x16 (each warp a 64x32 tile), and the epilogue
 // through shared memory so the stores are coalesced. No split-K: each output
 // row's reduction runs over K in one fixed order, so a request's logits do
-// not depend on the batch it rides in. Later PRs replace WMMA with wgmma fed
-// by TMA, fuse the LayerNorm into the A-tile prologue, and walk the tiles
-// with a persistent schedule.
+// not depend on the batch it rides in. Later PRs move these kernels onto
+// gemm_sm90.cuh (its epilogue takes the same activations), fuse the
+// LayerNorm into the A-tile prologue, and walk the tiles with a persistent
+// schedule.
 #pragma once
 
 #include <mma.h>

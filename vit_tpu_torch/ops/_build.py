@@ -52,6 +52,13 @@ _SIGNATURES = {
         _I, _I,              # true_n, block_tokens
         _P,                  # cudaStream_t
     ],
+    "vt_gemm_bf16_sm90": [
+        _P, _P, _P,          # a [M, K], b [K, N] (bf16), c [M, N]
+        _P, _P,              # bias (fp32 [N], NULL = none), residual (c's dtype, NULL = none)
+        _I,                  # out_is_fp32
+        _I, _I, _I,          # M, N, K
+        _P,                  # cudaStream_t
+    ],
     "vt_fused_mlp": [
         _P, _I,              # x, x_is_fp32
         _P, _P,              # ln_scale (NULL = no LN), ln_bias (NULL = 0)

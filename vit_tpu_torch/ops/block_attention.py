@@ -12,7 +12,8 @@ The TPU kernel keeps Wqkv and Wout resident in VMEM across the whole batch.
 On Hopper that does not fit in shared memory, so the kernel splits at its
 GEMM boundaries and stores only the tensors the TPU kernel itself rounds to
 bf16 before their next use (``xn``, qkv, the attention output): the math is
-unchanged.
+unchanged. Its two products run on a wgmma GEMM fed by TMA
+(``csrc/gemm_sm90.cuh``); ``gemm_sm90`` calls that GEMM alone, for checks.
 """
 
 from __future__ import annotations
@@ -99,6 +100,60 @@ def xla_attention_block(
     return out.to(x.dtype)
 
 
+def _require_aligned(**tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary: the
+    kernel's TMA loads and paired stores need it, and a view that starts
+    inside its storage may not."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary "
+                             f"(storage offset {t.storage_offset()})")
+
+
+def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16):
+    """``round_once(a @ b + bias + residual)`` on the card: the wgmma GEMM of
+    the block (``csrc/gemm_sm90.cuh``) alone, for checks against an fp32
+    product of the same operands. ``a`` ``[M, K]`` and ``b`` ``[K, N]`` bf16,
+    N and K multiples of 8; ``bias`` fp32 ``[N]``; ``residual`` ``[M, N]`` of
+    ``out_dtype`` (bf16 or fp32). Returns a new ``[M, N]`` tensor."""
+    if not a.is_cuda:
+        raise ValueError("gemm_sm90 takes CUDA tensors")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2 or b.dim() != 2:
+        raise TypeError(f"a and b must be 2-D bf16, got {a.dtype} {b.dtype}")
+    (m, k), n = a.shape, b.shape[1]
+    if b.shape[0] != k or n % 8 or k % 8:
+        raise ValueError(f"a {tuple(a.shape)} @ b {tuple(b.shape)}: K must agree, N and K % 8 == 0")
+    operands = dict(a=a, b=b)
+    if bias is not None:
+        if bias.dtype != torch.float32 or tuple(bias.shape) != (n,):
+            raise TypeError(f"bias must be fp32 [{n}], got {tuple(bias.shape)} {bias.dtype}")
+        operands["bias"] = bias
+    if residual is not None:
+        if residual.dtype != out_dtype or tuple(residual.shape) != (m, n):
+            raise TypeError(f"residual must be {out_dtype} [{m}, {n}], got "
+                            f"{tuple(residual.shape)} {residual.dtype}")
+        operands["residual"] = residual
+    if any(t.device != a.device for t in operands.values()):
+        raise ValueError("all operands must be on one device")
+    if not all(t.is_contiguous() for t in operands.values()):
+        raise ValueError("operands must be contiguous")
+    _require_aligned(**operands)
+    lib = _build.load_library()
+    c = torch.empty(m, n, device=a.device, dtype=out_dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.vt_gemm_bf16_sm90(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            residual.data_ptr() if residual is not None else None,
+            int(out_dtype == torch.float32), m, n, k, stream,
+        )
+    _build.check(lib, rc, "gemm_sm90 kernel")
+    return c
+
+
 def fused_attention_block(
     x: torch.Tensor,
     ln_scale: torch.Tensor,
@@ -145,6 +200,7 @@ def fused_attention_block(
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
+    _require_aligned(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv, wout=wout, bout=bout)
     if d % 16 or d > 128 or dim % 8:
         raise ValueError(f"the kernel takes dim_head % 16 == 0, <= 128 and D % 8 == 0 (got {d}, {dim})")
     if n > MAX_TOKENS:

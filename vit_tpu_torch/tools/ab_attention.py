@@ -5,6 +5,10 @@
 Each turn is a child process that imports the tree's own ``vit_tpu_torch``
 and ``chip_smoke`` (so each side builds and runs its own kernels) and
 measures, at batch 128 unless named:
+- kernel 1 (``fused_attention_block``) at ViT-L (dim 1024, 197 tokens, 16
+  heads of 64) at batch 1, 8 and 128, in the bf16 and the mixed stream:
+  its device time from ``torch.profiler``, split into its four launches
+  (LayerNorm, qkv GEMM, attention, out GEMM; ``launch_ms``);
 - kernel 3 (``fused_qkv_attention``) at ViT-L (197 tokens, 16 heads of 64)
   at batch 1, 4 and 128, and kernel 4 (``flash_attention``) at the four GSA
   shapes of the Twins-SVT preset (3136 x 64, 784 x 16, 196 x 4, 49 x 1
@@ -13,8 +17,9 @@ measures, at batch 128 unless named:
   ``torch.profiler``;
 - every kernel's time at the shape of PERF.md's table, through the tree's
   own ``chip_smoke.phase_op_times`` and ``phase_t2t_op_times``;
-- with ``--e2e``: Twins-SVT img/s at batch 128 (bf16) and the int8 ``auto``
-  p50 at batch 1 and 8 (ViT-L), random weights from chip_smoke's seeds.
+- with ``--e2e``: ViT-L/16 bf16 img/s at batch 128 and p50 at batch 1,
+  Twins-SVT img/s at batch 128 (bf16) and the int8 ``auto`` p50 at batch 1
+  and 8 (ViT-L), random weights from chip_smoke's seeds.
 
 The parent process prints each side's mean over its two turns, the change
 against the parent, and the card's name and power limit. The children's own
@@ -34,6 +39,7 @@ from pathlib import Path
 
 TAG = "AB_RESULT "
 GSA = ((3136, 64), (784, 16), (196, 4), (49, 1))
+K1_LAUNCHES = ("ln", "qkv gemm", "attention", "out gemm")
 
 
 def _device_ms(fn, iters=10) -> float:
@@ -53,6 +59,44 @@ def _device_ms(fn, iters=10) -> float:
     return total / iters / 1e3
 
 
+def launch_ms(fn, n, iters=10) -> list:
+    """``(kernel name, ms)`` for each of the ``n`` kernel launches of one call
+    of ``fn``, in launch order: the device time of each launch over the last
+    ``iters`` of ``iters + 1`` profiled calls (the profiler can miss the first
+    launches of its window), averaged. Raises unless those calls ran the same
+    kernels in the same order."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 1):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)[-n * iters:]
+    names = [e.name for e in evs[:n]]
+    if len(evs) != n * iters or any(evs[i].name != names[i % n] for i in range(len(evs))):
+        raise RuntimeError(f"{len(evs)} device events do not repeat every {n}: "
+                           f"{[e.name[:120] for e in evs[:2 * n]]}")
+    return [(names[j], sum(evs[i * n + j].time_range.elapsed_us() for i in range(iters))
+             / iters / 1e3) for j in range(n)]
+
+
+def kernel1_ms(cs, ba, gen, dev, b, x_dtype) -> dict:
+    """Kernel 1 at ViT-L batch ``b``: its device time, and that of each of
+    its four launches (K1_LAUNCHES), in ms."""
+    inp = cs.attn_inputs(gen, b, cs.N_TOKENS, 1024, 16, 64, x_dtype, dev)
+    a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+    split = launch_ms(lambda: ba.fused_attention_block(*a, 16), len(K1_LAUNCHES))
+    return {"total": sum(t for _, t in split),
+            **{what: t for what, (_, t) in zip(K1_LAUNCHES, split)},
+            "kernels": [name for name, _ in split]}
+
+
 def child(tree: Path, e2e: bool) -> dict:
     """The measurements of one turn, in the tree's own code."""
     sys.path.insert(0, str(tree))
@@ -61,6 +105,7 @@ def child(tree: Path, e2e: bool) -> dict:
     import torch
 
     cs = importlib.import_module("chip_smoke")
+    ba = importlib.import_module("vit_tpu_torch.ops.block_attention")
     qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
     fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
     from vit_tpu_torch.ops import _build
@@ -75,6 +120,13 @@ def child(tree: Path, e2e: bool) -> dict:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
     res = {}
     with torch.inference_mode():
+        for cfg, x_dtype in (("bf16", torch.bfloat16), ("mixed", torch.float32)):
+            for b in (1, 8, 128):
+                k1 = kernel1_ms(cs, ba, gen, dev, b, x_dtype)
+                res[f"k1 ViT-L {cfg} batch {b} device ms"] = k1["total"]
+                for what in K1_LAUNCHES:
+                    res[f"k1 ViT-L {cfg} batch {b} {what} ms"] = k1[what]
+                res[f"k1 ViT-L {cfg} batch {b} kernels"] = ", ".join(k1["kernels"])
         for b in (1, 4, 128):
             qkv = torch.randn(b, cs.N_TOKENS, 3 * 1024, generator=gen, device=dev).bfloat16()
             fn = lambda: qa.fused_qkv_attention(qkv, 16)
@@ -99,7 +151,8 @@ def child(tree: Path, e2e: bool) -> dict:
 
 
 def _e2e(cs, dev) -> dict:
-    """Twins-SVT img/s at batch 128 (bf16) and int8 auto p50 at batch 1, 8."""
+    """ViT-L bf16 img/s at batch 128 and p50 at batch 1; Twins-SVT img/s at
+    batch 128 (bf16); int8 auto p50 at batch 1, 8."""
     import torch
 
     from vit_tpu_torch.models import TwinsSVT, ViT
@@ -107,6 +160,17 @@ def _e2e(cs, dev) -> dict:
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    vit = ViT(**cs.VIT_L, dtype=torch.bfloat16, device=dev)
+    vit.load_state_dict(from_jax_params(cs.vit_tree(cs.VIT_L, cs.SEED)), strict=True)
+    vit.eval()
+    with torch.inference_mode():
+        for b, reps in ((128, 5), (1, 9)):
+            x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
+            cs.p50_ms(lambda: vit(x), 2)
+            p50 = cs.p50_ms(lambda: vit(x), reps)
+            out[f"vit-l bf16 batch {b} p50 ms"] = p50
+            if b == 128:
+                out["vit-l bf16 batch 128 img/s"] = 128 / p50 * 1e3
     twins = TwinsSVT(**cs.TWINS, dtype=torch.bfloat16, device=dev).eval()
     twins.load_state_dict(from_jax_params(cs.twins_tree(cs.TWINS, cs.SEED + 11), twins.jax_stages))
     with torch.inference_mode():
@@ -115,9 +179,7 @@ def _e2e(cs, dev) -> dict:
         out["twins bf16 batch 128 img/s"] = 128 / cs.p50_ms(lambda: twins(x), 5) * 1e3
     del twins
     torch.cuda.empty_cache()
-    vit = ViT(**cs.VIT_L, dtype=torch.bfloat16, device=dev)
-    vit.load_state_dict(from_jax_params(cs.vit_tree(cs.VIT_L, cs.SEED)), strict=True)
-    qmodel = quantize_vit(vit.eval())
+    qmodel = quantize_vit(vit)
     del vit
     with torch.inference_mode():
         for b in (1, 8):
@@ -162,6 +224,9 @@ def main() -> int:
     card = runs["change"][0]["card"]
     for key in runs["parent"][0]:
         if key == "card" or key not in runs["change"][0]:
+            continue
+        if isinstance(runs["parent"][0][key], str):
+            print(f"ab {key}: parent {runs['parent'][0][key]}; change {runs['change'][0][key]}")
             continue
         p = statistics.mean(r[key] for r in runs["parent"])
         c = statistics.mean(r[key] for r in runs["change"])
