@@ -55,21 +55,26 @@ Runs, in order, and exits non-zero at the first failure:
      PyTorch library composite that computes the same function, and against
      its bound on this card; the attention block's device time split into its
      four launches (torch.profiler), with each GEMM's TFLOP/s beside
-     cuBLAS's on the same operands; kernel 3 also at batch 1 and 4 (the int8
+     cuBLAS's on the same operands; the MLP kernel's three launches the
+     same way at ViT-L batch 1, 8 and 128 (LayerNorm, then both products on
+     the wgmma GEMM, or the run fails); kernel 3 also at batch 1 and 4 (the int8
      buckets that run it) and kernel 4 at the other three GSA shapes, each
      beside SDPA;
  10. the T2T-ViT slice: the kv-blocked flash kernel against its twin (the same
      64-key chunk) at the two tokenizer stages of the t2t preset through
-     ``ops.qkv_attention`` on fused qkv rows (3136 tokens of width 147 at
-     batch 8 and 128, 784 of width 1323) and at small shapes, with the twins
-     with a fault planted (alpha dropped, padded keys unmasked, l not
-     rescaled) shown to fail the bound; the MLP kernel at the tokenizer
-     widths 147 and 1323 (fp32 and bf16 stream); the preset (random weights
+     ``ops.qkv_attention`` on fused qkv rows (3136 tokens of width 147 and
+     784 of width 1323, each at batch 8 and 128) and at small shapes, with
+     the twins with a fault planted (alpha dropped, padded keys unmasked, l
+     not rescaled) shown to fail the bound; the MLP kernel at the tokenizer
+     widths 147 and 1323 (fp32 and bf16 stream), whose products must run on
+     the WMMA GEMM; the preset (random weights
      from a seed, bf16) served through ``BatchingServer`` with the launch
      counts per forward; its logits against the port's plain fp32 path beside
      the plain bf16 path's; img/s and p50 latency; device time by kernel of
      one forward at batch 128; the kv-blocked kernel at both stages at batch
-     128 against its twin, SDPA and its bound.
+     128 against its twin, SDPA and its bound, with its two launches (the
+     layout pass, then the register or the two-phase variant) in device
+     time.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
@@ -455,10 +460,10 @@ def attn_inputs(gen, b, n, dim, heads, d, x_dtype, dev):
     )
 
 
-def mlp_inputs(gen, t, dim, f, x_dtype, dev, ln=True):
+def mlp_inputs(gen, t, dim, f, x_dtype, dev, ln=True, b=8):
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
     inp = dict(
-        x=r(8, t, dim).to(x_dtype),
+        x=r(b, t, dim).to(x_dtype),
         w1=(r(dim, f) / dim**0.5).bfloat16(), b1=0.1 * r(f),
         w2=(r(f, dim) / f**0.5).bfloat16(), b2=0.1 * r(dim),
     )
@@ -684,10 +689,16 @@ def phase_kernels(dev):
     check_gemm_sm90(dev)
 
     mlp_cases = [
-        ("ViT-L bf16 ln+gelu", dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=torch.bfloat16),
+        ("ViT-L bf16 ln+gelu batch 8", dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=torch.bfloat16),
          dict(activation="gelu", residual=False)),
-        ("ViT-L mixed ln+gelu", dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=torch.float32),
+        ("ViT-L mixed ln+gelu batch 8", dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=torch.float32),
          dict(activation="gelu", residual=False)),
+    ] + [  # the main path's timed shape, as the model calls it (with the residual)
+        (f"ViT-L {cfg} ln+gelu+residual batch 128",
+         dict(t=N_TOKENS, dim=1024, f=4096, x_dtype=x_dtype, b=128),
+         dict(activation="gelu", residual=True))
+        for cfg, x_dtype in (("bf16", torch.bfloat16), ("mixed", torch.float32))
+    ] + [
         ("small residual gelu_exact", dict(t=33, dim=256, f=512, x_dtype=torch.bfloat16, ln=False),
          dict(activation="gelu_exact", residual=True)),
         ("small mixed ln+res hard_swish", dict(t=33, dim=256, f=512, x_dtype=torch.float32),
@@ -1644,6 +1655,48 @@ def attention_block_launches(a, heads, smi):
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
 
 
+# What the names of the MLP kernel's three launches hold, by its GEMM route
+# (ops.fused_mlp.gemm_route): the LayerNorm rows, then both products on the
+# wgmma GEMM where D and F are multiples of 8, else on the WMMA GEMM.
+MLP_KERNELS = {"wgmma": ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "gemm_bf16_sm90_kernel"),
+               "wmma": ("ln_rows_kernel", "gemm_bf16_kernel", "gemm_bf16_kernel")}
+MLP_LAUNCHES = ("ln", "fc1 gemm", "fc2 gemm")
+
+
+def mlp_launches(m_in, mkw, what, smi):
+    """One op line: the MLP kernel's device time at these inputs split into
+    its three launches (torch.profiler), each GEMM's TFLOP/s beside one
+    cuBLAS product of the same operands, and the route. Fails unless the
+    launches are the route's MLP_KERNELS."""
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, gemm_route
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    x, w1, w2 = m_in["x"], m_in["w1"], m_in["w2"]
+    dim, f = w1.shape
+    route = gemm_route(dim, f)
+    split = launch_ms(lambda: fused_mlp(**m_in, **mkw), len(MLP_LAUNCHES))
+    names = [name for name, _ in split]
+    require(all(key in name and (route == "wgmma" or "sm90" not in name)
+                for key, name in zip(MLP_KERNELS[route], names)),
+            f"fused_mlp {what} launched {names}, not the {route} route's {list(MLP_KERNELS[route])}")
+    rows = x.numel() // dim
+    flops = {"fc1 gemm": 2 * rows * dim * f, "fc2 gemm": 2 * rows * f * dim}
+    xn = torch.randn(rows, dim, device=x.device).bfloat16()
+    h = torch.randn(rows, f, device=x.device).bfloat16()
+    cublas = {"fc1 gemm": cuda_ms(lambda: xn @ w1), "fc2 gemm": cuda_ms(lambda: h @ w2)}
+    parts = []
+    for part, (_, t) in zip(MLP_LAUNCHES, split):
+        line = f"{part} {t:.4f} ms"
+        if part in flops:
+            line += (f" ({flops[part] / t / 1e9:.1f} TFLOP/s; cuBLAS {cublas[part]:.4f} ms, "
+                     f"{flops[part] / cublas[part] / 1e9:.1f} TFLOP/s)")
+        parts.append(line)
+    print(f"op fused_mlp {what} {str(x.dtype)[6:]} launches (device, {route} route): "
+          f"{sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
+    print(f"op fused_mlp {what} kernels: "
+          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+
+
 def phase_op_times(dev, smi):
     """Each kernel at batch 128, bf16, at the shape of its path (ViT-L, the
     CaiT or the DeepViT preset, Twins' stage 1): its time, its twin's, its
@@ -1684,6 +1737,10 @@ def phase_op_times(dev, smi):
             cuda_ms(lambda: library_mlp(**lib_m)),
             bound(4 * rows * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"])),
         )
+        mlp_launches(m_in, mkw, "ViT-L batch 128", smi)
+        for bk in (1, 8):  # the batch-1 and batch-8 forwards' rows, on the same route
+            x_bk = m_in["x"].reshape(-1, dim)[: bk * n].contiguous()
+            mlp_launches({**m_in, "x": x_bk}, mkw, f"ViT-L batch {bk}", smi)
         del m_in, lib_m
         # kernel 3 at batch 1 and 4 too: the int8 w8 / w8a8 buckets that run it
         for bk in (1, 4, 128):
@@ -1791,8 +1848,8 @@ def phase_op_times(dev, smi):
 def phase_t2t_kernels(dev):
     """Kernel 5 against its twin at the kernel's own 64-key chunk, so that
     both round p at the same places: at the t2t preset's two tokenizer
-    stages through ``ops.qkv_attention`` on fused qkv rows (stage 0 at batch
-    8 and 128, stage 1 at batch 8), and at small shapes (each bias pattern,
+    stages through ``ops.qkv_attention`` on fused qkv rows (both at batch 8
+    and 128: each stage's variant plans its own grid), and at small shapes (each bias pattern,
     mask_self, Nq != Nk, Dv != D, Nk not a multiple of 64). The twins with a
     fault planted (KV_FAULTS) must fail the bound at stage 1 (784 keys: a
     partial last chunk). Kernel 2 at the tokenizer widths, fp32 and bf16
@@ -1805,7 +1862,7 @@ def phase_t2t_kernels(dev):
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
     worst, fails = 0.0, []
     for s, (n, d) in enumerate(T2T_STAGES):
-        for b in (8, 128) if s == 0 else (8,):
+        for b in (8, 128):
             qkv = r(b, n, 3 * d).bfloat16()
             before = ops.launch_counts()
             out = ops.qkv_attention(qkv, 1)
@@ -1829,6 +1886,13 @@ def phase_t2t_kernels(dev):
         ("bias [B,1,Nq,Nk], D 147, mask_self", (2, 1, 70, 150, 147, 147), (2, 1), True),
         ("bias [1,H,Nq,Nk], Nk 64", (1, 2, 65, 64, 64, 64), (1, 2), False),
         ("D 1323, Nk 150", (1, 1, 100, 150, 1323, 1323), None, False),
+        ("two-phase: bias [B,1,Nq,Nk], mask_self, D 1323", (2, 1, 130, 150, 1323, 1323), (2, 1),
+         True),
+        ("two-phase: D 200, Dv 300, Nk 130", (2, 2, 65, 130, 200, 300), (2, 2), True),
+        ("two-phase, p in device memory: T2T stage 1 at image_size 384",
+         (1, 1, 2304, 2304, 1323, 1323), None, False),
+        ("two-phase, p in device memory: bias [B,1,Nq,Nk], mask_self, Dv != D, Nk 1300",
+         (2, 1, 70, 1300, 200, 300), (2, 1), True),
     ]
     for name, (b, h, nq, nk, d, dv), bshape, ms in small:
         q, k, v = r(b, h, nq, d).bfloat16(), r(b, h, nk, d).bfloat16(), r(b, h, nk, dv).bfloat16()
@@ -1845,6 +1909,8 @@ def phase_t2t_kernels(dev):
         torch.cuda.synchronize()
         check_close(f"fused_mlp T2T width {dim} ({str(x_dtype)[6:]} stream, 8 x {n} tokens)", out,
                     ref, None)
+        if x_dtype == torch.bfloat16:
+            mlp_launches(inp, kw, f"T2T width {dim} (8 x {n} tokens)", nvidia_smi())
     require(not fails, "; ".join(fails))
     return worst
 
@@ -1872,13 +1938,21 @@ def sdpa_backend(q, k, v) -> str:
     return names.get(choice, f"backend {choice}")
 
 
+# The attention launch of kernel 5 at each T2T stage (after its layout pass):
+# the register variant at width 147, the two-phase variant at 1323.
+T2T_KV_KERNELS = ("kv_blocked_registers", "kv_blocked_wide")
+
+
 def phase_t2t_op_times(dev, smi):
     """Kernel 5 at batch 128 at both tokenizer stages of the t2t preset, on
     the split_heads views of fused qkv rows: its time, its twin's (at the
-    kernel's chunk), SDPA's and its bound; and kernel 2 at stage 1's width.
+    kernel's chunk), SDPA's and its bound, and its two launches (the layout
+    pass and the stage's variant, T2T_KV_KERNELS) in device time; and
+    kernel 2 at stage 1's width.
     Returns kernel 5's (ms, twin ms, library ms, (bound ms, bound by)) summed
     over the two stages: its work in one forward."""
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+    from vit_tpu_torch.tools.ab_attention import launch_ms
 
     fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -1899,6 +1973,16 @@ def phase_t2t_op_times(dev, smi):
                   f"{sdpa_backend(q, k, v)} backend), bound {bnd:.4f} ms ({by}; operations "
                   f"{f / PEAK_BF16 * 1e3:.4f}, bytes {nb / PEAK_BYTES * 1e3:.4f}; "
                   f"{bnd / kern:.1%} of it) [{smi}]")
+            split = launch_ms(lambda: fa.flash_attention_kv_blocked(q, k, v), 2)
+            names = [name.replace("(anonymous namespace)::", "").split("(")[0] for name, _ in split]
+            variant = T2T_KV_KERNELS[s]
+            require("pad_rows_kernel" in names[0] and variant in names[1],
+                    f"T2T stage {s}: kernel 5 launched {names}, not the layout pass and {variant}")
+            dev_ms = sum(t for _, t in split)
+            print(f"op flash_attention_kv_blocked T2T stage {s} batch 128 launches (device): "
+                  f"{dev_ms:.4f} ms = layout pass {split[0][1]:.4f} ms, {names[1]} "
+                  f"{split[1][1]:.4f} ms ({f / split[1][1] / 1e9:.1f} TFLOP/s); SDPA {lib:.4f} ms, "
+                  f"bound {bnd:.4f} ms ({bnd / dev_ms:.1%} of it) [{smi}]")
             times = [t + x for t, x in zip(times, (kern, plain, lib))]
             flops, nbytes = flops + f, nbytes + nb
             del qkv, q, k, v

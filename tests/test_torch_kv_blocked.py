@@ -152,17 +152,61 @@ def test_qkv_dispatch_on_the_cpu_runs_the_card_kernels_twin(what, b, n, heads, d
 
 def test_t2t_stage_shapes_route_to_the_kv_blocked_kernel_and_fit():
     """At the t2t preset both tokenizer stages fail kernels 3 and 4 and fit
-    kernel 5: stage 0 with 32 query rows a block (two blocks an SM), stage 1
-    with 16 (one block); the encoder's 197 tokens of 8 x 64 take kernel 3's
-    limits."""
+    kernel 5: stage 0 on the register variant (128 query rows a block, one
+    block an SM), stage 1 on the two-phase variant (three ring stages, one
+    block an SM); the encoder's 197 tokens of 8 x 64 take kernel 3's limits.
+    At image_size 384 stage 1 has 2,304 keys: p goes to device memory."""
     assert not tqa.qkv_kernel_fits(3136, 147) and not tfa.core_fits(3136, 147, 147)
     assert not tqa.qkv_kernel_fits(784, 1323) and not tfa.core_fits(784, 1323, 1323)
     assert tqa.qkv_kernel_fits(197, 64) and tfa.core_fits(197, 64, 64)
-    qt0, b0 = tfa.kv_blocked_layout(147, 147)
-    qt1, b1 = tfa.kv_blocked_layout(1323, 1323)
-    assert qt0 == 32 and b0 <= tfa.MAX_SMEM // 2
-    assert qt1 == 16 and tfa.MAX_SMEM // 2 < b1 <= tfa.MAX_SMEM
-    assert tfa.kv_blocked_layout(2400, 2400)[0] == 0
+    p0 = tfa.kv_blocked_layout(3136, 147, 147)
+    p1 = tfa.kv_blocked_layout(784, 1323, 1323)
+    assert p0.variant == "registers" and p0.rows == 128 and p0.bytes <= tfa.MAX_SMEM
+    assert p1.variant == "two-phase" and p1.stages == 3
+    assert tfa.MAX_SMEM // 2 < p1.bytes <= tfa.MAX_SMEM
+    p384 = tfa.kv_blocked_layout(2304, 1323, 1323)
+    assert p384.variant == "two-phase-global" and p384.bytes <= tfa.MAX_SMEM
+
+
+# (Nk, D, Dv) -> (variant, warps, query rows, ring stages) of the kernel's
+# plan (kv_blocked_layout, the mirror of csrc kvb::plan_for), pinned: both
+# padded widths <= 160 take the register variant at any Nk; wider heads the
+# two-phase variant, three stages up to 896 keys, two up to 1,216, and past
+# that the two-phase variant with p in device memory.
+KV_PLANS = [
+    (3136, 147, 147, ("registers", 8, 128, 2)),
+    (100_000, 160, 160, ("registers", 8, 128, 2)),
+    (200, 16, 16, ("registers", 8, 128, 2)),
+    (130, 32, 48, ("registers", 8, 128, 2)),
+    (130, 161, 64, ("two-phase", 8, 64, 3)),
+    (130, 64, 161, ("two-phase", 8, 64, 3)),
+    (784, 1323, 1323, ("two-phase", 8, 64, 3)),
+    (896, 1323, 1323, ("two-phase", 8, 64, 3)),
+    (897, 1323, 1323, ("two-phase", 8, 64, 2)),
+    (1216, 4096, 4096, ("two-phase", 8, 64, 2)),
+    (1217, 200, 200, ("two-phase-global", 8, 64, 3)),
+    (1296, 1323, 1323, ("two-phase-global", 8, 64, 3)),
+    (2304, 1323, 1323, ("two-phase-global", 8, 64, 3)),
+    (100_000, 64, 4096, ("two-phase-global", 8, 64, 3)),
+]
+
+
+@pytest.mark.parametrize("nk,d,dv,plan", KV_PLANS)
+def test_kv_blocked_plan_is_pinned(nk, d, dv, plan):
+    got = tfa.kv_blocked_layout(nk, d, dv)
+    assert tuple(got)[:4] == plan
+    assert got.bytes <= tfa.MAX_SMEM
+
+
+def test_kv_blocked_scratch_holds_rows_padded_to_16_columns():
+    # T2T stage 0 at batch 2: q, k, v of 3136 rows of 147 -> 160 columns
+    assert tfa.kv_blocked_scratch(2, 1, 3136, 3136, 147, 147) == 2 * 3 * 3136 * 160
+    assert tfa.kv_blocked_scratch(2, 3, 40, 200, 32, 48) == 6 * (40 * 32 + 200 * 32 + 200 * 48)
+    # T2T stage 1 at image_size 384, batch 2: then each of the 2 x 36 blocks'
+    # bf16 p (64 rows x 2304 keys) and fp32 alpha (36 chunks x 64 rows)
+    qkv = 2 * 3 * 2304 * 1328
+    assert tfa.kv_blocked_scratch(2, 1, 2304, 2304, 1323, 1323) == \
+        qkv + 72 * 64 * 2304 + 2 * 72 * 36 * 64
 
 
 def test_kv_blocked_wrapper_refuses_cpu_tensors_and_fp32():
@@ -206,6 +250,17 @@ def cuda():
     (2, 1, 300, 300, 147, 147, None, False), (1, 1, 100, 150, 1323, 1323, None, False),
     (2, 3, 40, 200, 16, 16, (1, 1), True), (2, 2, 33, 130, 32, 48, (2, 2), False),
     (2, 1, 70, 150, 147, 147, (2, 1), True), (1, 2, 65, 64, 64, 64, (1, 2), False),
+    # D 48; the two-phase variant with each bias pattern, mask_self, Dv != D
+    # (one width at most 160, the other above), partial slices and passes,
+    # and at its two key limits (896 keys: three stages; 1,216: two)
+    (2, 2, 90, 190, 48, 48, (2, 1), True),
+    (2, 1, 130, 150, 1323, 1323, (2, 1), True), (1, 2, 70, 100, 1323, 1323, (1, 2), False),
+    (2, 2, 65, 130, 200, 300, (2, 2), True), (1, 1, 64, 129, 1323, 1323, (1, 1), False),
+    (2, 1, 80, 70, 96, 400, None, True), (1, 1, 50, 90, 400, 64, None, False),
+    (1, 1, 70, 896, 1323, 1323, None, False), (1, 1, 40, 1216, 176, 176, None, True),
+    # p in device memory: T2T's stage 1 at image_size 384 (2,304 keys), and
+    # with a bias, mask_self, Dv != D and a partial last chunk
+    (1, 1, 100, 2304, 1323, 1323, None, False), (2, 1, 70, 1300, 200, 300, (2, 1), True),
 ])
 def test_kv_blocked_kernel_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_self):
     inp = _inputs(7, b, h, nq, nk, d, dv, bias)
@@ -223,7 +278,7 @@ def test_kv_blocked_kernel_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_se
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(300, 147), (100, 1323)])
+@pytest.mark.parametrize("n,d", [(300, 147), (100, 1323), (3136, 147), (784, 1323)])
 def test_qkv_attention_runs_kernel_5_on_fused_rows(cuda, n, d):
     """T2T's tokenizer layout: one head as wide as the token, the fused qkv
     rows 2-byte aligned; the kernel reads per-head views, no copy."""
@@ -259,6 +314,44 @@ def test_mlp_kernel_at_t2t_widths_matches_twin(cuda, x_dtype, dim):
     assert out.dtype == m["x"].dtype
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= kernel_tol(ref, None, out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(3136, 147), (784, 1323), (2304, 1323)])
+def test_kv_blocked_kernel_is_batch_invariant(cuda, n, d):
+    """At both T2T stages (and stage 1 at image_size 384, p in device
+    memory) sample 1 alone comes out bitwise as it does in a batch of 3: a
+    row's sums do not depend on the batch or the block plan."""
+    qkv = _torch(np.random.default_rng(9).standard_normal((3, n, 3 * d)), "bfloat16", cuda)
+    full = ops.qkv_attention(qkv, 1)
+    alone = ops.qkv_attention(qkv[1:2].contiguous(), 1)
+    torch.testing.assert_close(alone, full[1:2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,d,dv", [(nk, d, dv) for nk, d, dv, _ in KV_PLANS])
+def test_kv_blocked_plan_mirrors_the_kernels(cuda, nk, d, dv):
+    import ctypes
+
+    from vit_tpu_torch.ops import _build
+
+    got = (ctypes.c_int * 5)()
+    _build.load_library().vt_kv_blocked_plan(nk, d, dv, ctypes.cast(got, ctypes.c_void_p))
+    plan = tfa.kv_blocked_layout(nk, d, dv)
+    assert (tfa.KV_VARIANTS[got[0]], *got[1:4]) == tuple(plan)[:4]
+    assert got[4] == plan.bytes
+
+
+@pytest.mark.cuda
+def test_kv_blocked_refuses_shapes_past_its_int_indices(cuda):
+    """2^31 query rows (a stride-0 view, nothing allocated) pass the
+    kernel's 32-bit row indices: refused before any launch."""
+    q = torch.zeros(1, 1, 1, 16, device=cuda, dtype=torch.bfloat16).expand(1, 1, 2**31, 16)
+    k = torch.zeros(1, 1, 8, 16, device=cuda, dtype=torch.bfloat16)
+    before = ops.launch_counts()["flash_attention_kv_blocked"]
+    with pytest.raises(NotImplementedError, match="2\\^31 - 1"):
+        tfa.flash_attention_kv_blocked(q, k, k)
+    assert ops.launch_counts()["flash_attention_kv_blocked"] == before
 
 
 # -- the dispatch contract between kernels 4 and 5 --------------------------------

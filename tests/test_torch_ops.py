@@ -208,6 +208,22 @@ def test_operands_must_start_on_16_byte_boundaries():
         tba._require_aligned(wqkv=w[8:4104].view(64, 64), bout=torch.zeros(68)[2:66])
 
 
+# (D, F) of each model's MLP -> the GEMM both of kernel 2's products run on
+# (fused_mlp.gemm_route, the mirror of csrc/fused_mlp.cu mlp_route_wgmma),
+# pinned: ViT-L; Twins-SVT's four stages (x4); CaiT and DeepViT; T2T's
+# encoder; T2T's tokenizer widths, whose rows are not 16-byte aligned.
+MLP_ROUTES = [
+    (1024, 4096, "wgmma"), (64, 256, "wgmma"), (128, 512, "wgmma"), (256, 1024, "wgmma"),
+    (512, 2048, "wgmma"), (1024, 2048, "wgmma"), (512, 512, "wgmma"),
+    (147, 147, "wmma"), (1323, 1323, "wmma"), (1024, 4100, "wmma"), (1028, 4096, "wmma"),
+]
+
+
+@pytest.mark.parametrize("dim,f,route", MLP_ROUTES)
+def test_mlp_gemm_route_is_pinned(dim, f, route):
+    assert tfm.gemm_route(dim, f) == route
+
+
 def test_gemm_sm90_refuses_cpu_tensors():
     a, b = torch.zeros(4, 64, dtype=torch.bfloat16), torch.zeros(64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -350,3 +366,81 @@ def test_attention_block_is_batch_invariant_at_vit_l_width(cuda, precision):
     full = ops.attention_block(*args, 16)
     alone = ops.attention_block(args[0][4:5].contiguous(), *args[1:], 16)
     torch.testing.assert_close(alone, full[4:5], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,f,route", MLP_ROUTES)
+def test_mlp_gemm_route_mirrors_the_kernels(cuda, dim, f, route):
+    from vit_tpu_torch.ops import _build
+
+    assert _build.load_library().vt_fused_mlp_route_wgmma(dim, f) == int(route == "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "mixed"])
+@pytest.mark.parametrize("activation", ["gelu", "gelu_exact", "hard_swish"])
+def test_mlp_kernel_on_the_wgmma_route_at_vit_l_width(cuda, precision, activation):
+    """Kernel 2 at ViT-L's widths (1024 / 4096: the wgmma GEMM) over 2 x 197
+    rows (M not a multiple of the 128-row tile), with LN and the residual,
+    against its twin."""
+    t = _cast(_mlp_inputs(10, 197, 1024, 4096), precision, lambda a, dt: _torch(a, dt, cuda))
+    kw = dict(activation=activation, residual=True)
+    out = ops.mlp(**t, **kw)
+    with ops.force_backend("torch"):
+        ref = ops.mlp(**t, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, t["x"], out.dtype), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "mixed"])
+def test_mlp_is_batch_invariant_at_vit_l_width(cuda, precision):
+    """Sample 4 alone comes out bitwise as it does inside a batch of 9 at
+    ViT-L's widths, where both products run on the wgmma GEMM."""
+    t = _cast(_mlp_inputs(11, 197, 1024, 4096), precision, lambda a, dt: _torch(a, dt, cuda))
+    x = torch.cat([t["x"]] * 5)[:9].contiguous()
+    full = ops.mlp(**{**t, "x": x})
+    alone = ops.mlp(**{**t, "x": x[4:5].contiguous()})
+    torch.testing.assert_close(alone, full[4:5], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_mlp_refuses_misaligned_operands_on_the_wgmma_route(cuda):
+    """At widths the wgmma GEMM takes, an operand that does not start on a
+    16-byte boundary raises before any launch; it is not sent to the WMMA
+    GEMM instead."""
+    t = _cast(_mlp_inputs(12, 8, 64, 256), "bf16", lambda a, dt: _torch(a, dt, cuda))
+    flat = torch.zeros(t["x"].numel() + 1, device=cuda, dtype=torch.bfloat16)
+    x = flat[1:].view_as(t["x"])
+    x.copy_(t["x"])
+    before = ops.launch_counts()["fused_mlp"]
+    with pytest.raises(ValueError, match="x does not start on a 16-byte boundary"):
+        tfm.fused_mlp(**{**t, "x": x})
+    assert ops.launch_counts()["fused_mlp"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["gelu", "gelu_exact", "hard_swish"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_sm90_applies_activation(cuda, activation, out_dtype):
+    """The wgmma GEMM's epilogue activation, act(A @ B + bias), against the
+    twin's activation of an fp32 product of the same operands, at kernel 2's
+    fc1 widths (K 1024, N 4096) and M 197. Bound: chip_smoke's GEMM bound
+    with the sum-order slack scaled by 1.5, the steepest slope of the three
+    activations (hard_swish's (2h + 3) / 6 below h = 3), plus 1e-6 of the
+    largest output for the fp32 formulas of tanh and erf against torch's."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    m, n, k = 197, 4096, 1024
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    b = (torch.randn(k, n, generator=gen, device=cuda) / k**0.5).bfloat16()
+    bias = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    out = tba.gemm_sm90(a, b, bias, None, out_dtype, activation=activation)
+    ref = tfm._activate(a.float() @ b.float() + bias, activation)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    slack = 2 * k * 2.0**-24 * (a.float().abs() @ b.float().abs()).max().item()
+    _, e = torch.frexp(ref.abs().max())
+    bound = 2.0 ** (e.item() - 8) + 1.5 * slack + 1e-6 * ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= bound, (err, bound)

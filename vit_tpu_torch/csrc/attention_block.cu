@@ -71,21 +71,23 @@ extern "C" int vt_attention_block(const void* x, int x_is_fp32, const void* ln_s
 }
 
 // The block's GEMM alone, for checks against an fp32 product:
-// C = round_once(A @ B + bias + residual), C and residual fp32 or bf16.
+// C = round_once(act(A @ B + bias) + residual), C and residual fp32 or bf16;
+// act is gemm.cuh's Act code (0 none, 1 gelu, 2 gelu_exact, 3 hard_swish).
 extern "C" int vt_gemm_bf16_sm90(const void* a, const void* b, void* c, const void* bias,
-                                 const void* residual, int out_is_fp32, int M, int N, int K,
-                                 void* stream) {
+                                 const void* residual, int act, int out_is_fp32, int M, int N,
+                                 int K, void* stream) {
   using vt::bf16;
   const auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   const float* bi = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < vt::kActNone || act > vt::kActHardSwish) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (out_is_fp32)
     e = vt::gemm_bf16_sm90<float>(h(a), h(b), static_cast<float*>(c), bi,
-                                  static_cast<const float*>(residual), vt::kActNone, M, N, K, s);
+                                  static_cast<const float*>(residual), act, M, N, K, s);
   else
-    e = vt::gemm_bf16_sm90<bf16>(h(a), h(b), static_cast<bf16*>(c), bi, h(residual),
-                                 vt::kActNone, M, N, K, s);
+    e = vt::gemm_bf16_sm90<bf16>(h(a), h(b), static_cast<bf16*>(c), bi, h(residual), act, M, N,
+                                 K, s);
   return static_cast<int>(e);
 }
 

@@ -95,26 +95,10 @@ __host__ __device__ inline Layout layout(int warps, int D, int Dv, int stages) {
   return L;
 }
 
-// -- PTX: cp.async, ldmatrix, mma.sync -----------------------------------------
+// -- PTX: ldmatrix, mma.sync (cp.async: common.cuh) ----------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most one group (the newest) is still in flight.
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
@@ -443,7 +427,7 @@ attention_sm90_resident(attn90::Operand<const bf16> q, attn90::Operand<const bf1
   cp_async_commit();
   for (int c = 0; c < B.nc; ++c) load_rows_async(vst(c), L.ldv, B.vp, v.sr, c * KC, KC, pr.Nk, Dv);
   cp_async_commit();
-  cp_async_wait1();  // Q and K
+  cp_async_wait<1>();  // Q and K
   __syncthreads();
 
   unsigned qf[DK][4];
@@ -480,7 +464,7 @@ attention_sm90_resident(attn90::Operand<const bf16> q, attn90::Operand<const bf1
     }
     nm = make_norm(quad_sum(l0), quad_sum(l1), m0, m1, lo0, lo1);
   }
-  cp_async_wait0();  // V
+  cp_async_wait<0>();  // V
   __syncthreads();
   if (!B.active) return;
   // Pass 3: P V.
@@ -541,7 +525,7 @@ attention_sm90_streamed(attn90::Operand<const bf16> q, attn90::Operand<const bf1
   for (int n = 0; n < 2 * DVN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   for (int s = 0; s < steps; ++s) {
     fetch(s + 1);
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();
     const int pass = s / B.nc, c = s % B.nc;
     if (B.active) {

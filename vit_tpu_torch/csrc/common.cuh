@@ -33,6 +33,22 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// cp.async: 16 bytes global -> shared, bypassing L1, zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// The copies issued since the last commit become one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N groups (the newest) are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Rows of x -> bf16 rows of y, one warp per row.
 //
 // With `scale` set: flax.linen.LayerNorm's exact formula in fp32 (fast

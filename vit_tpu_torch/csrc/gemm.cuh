@@ -62,18 +62,6 @@ constexpr size_t C_BYTES = size_t(BM) * C_LD * sizeof(float);
 constexpr size_t SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 }  // namespace gemm
 
-// 16-byte global -> shared copy; zero-fills the destination when !pred.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The 8 bf16 at columns [col, col + 8) of a row into shared memory with
 // 2-byte loads, zero past `ncols` or when !ok: rows that are not 16-byte
 // aligned.

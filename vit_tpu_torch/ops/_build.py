@@ -55,6 +55,7 @@ _SIGNATURES = {
     "vt_gemm_bf16_sm90": [
         _P, _P, _P,          # a [M, K], b [K, N] (bf16), c [M, N]
         _P, _P,              # bias (fp32 [N], NULL = none), residual (c's dtype, NULL = none)
+        _I,                  # activation (gemm.cuh Act: 0 none)
         _I,                  # out_is_fp32
         _I, _I, _I,          # M, N, K
         _P,                  # cudaStream_t
@@ -69,6 +70,9 @@ _SIGNATURES = {
         _I, _I,              # activation, residual
         _F,                  # ln_eps
         _P,                  # cudaStream_t
+    ],
+    "vt_fused_mlp_route_wgmma": [
+        _I, _I,              # D, F: 1 when both products run on the wgmma GEMM
     ],
     "vt_talking_heads_block": [
         _P, _I,              # x, x_is_fp32
@@ -125,7 +129,12 @@ _SIGNATURES = {
         _I, _I, _F,          # D, Dv, scale
         _P, _I, _I,          # bias (fp32, NULL = none), bias_b, bias_h (axis is full)
         _I,                  # mask_self
+        _P,                  # scratch: the padded q, k, v rows (bf16)
         _P,                  # cudaStream_t
+    ],
+    "vt_kv_blocked_plan": [
+        _I, _I, _I,          # Nk, D, Dv
+        _P,                  # int[5]: variant, warps, query rows, stages, shared-memory bytes
     ],
     "vt_window_attention_block": [
         _P, _I,              # xw, x_is_fp32

@@ -25,6 +25,8 @@ import torch
 from vit_tpu_torch.ops import _build
 
 MASK_VALUE = -1e30
+# Activation codes of the GEMM epilogues (csrc/gemm.cuh enum Act; 0 is none).
+ACTIVATIONS = {"gelu": 1, "gelu_exact": 2, "hard_swish": 3}
 MAX_TOKENS = 1024  # the score rows of one query tile live in shared memory
 
 # torch.exp on the CPU runs MKL's vector math, which sets itself up on its
@@ -110,14 +112,17 @@ def _require_aligned(**tensors) -> None:
                              f"(storage offset {t.storage_offset()})")
 
 
-def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16):
-    """``round_once(a @ b + bias + residual)`` on the card: the wgmma GEMM of
-    the block (``csrc/gemm_sm90.cuh``) alone, for checks against an fp32
-    product of the same operands. ``a`` ``[M, K]`` and ``b`` ``[K, N]`` bf16,
-    N and K multiples of 8; ``bias`` fp32 ``[N]``; ``residual`` ``[M, N]`` of
-    ``out_dtype`` (bf16 or fp32). Returns a new ``[M, N]`` tensor."""
+def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, activation=None):
+    """``round_once(act(a @ b + bias) + residual)`` on the card: the wgmma
+    GEMM of kernels 1 and 2 (``csrc/gemm_sm90.cuh``) alone, for checks
+    against an fp32 product of the same operands. ``a`` ``[M, K]`` and ``b``
+    ``[K, N]`` bf16, N and K multiples of 8; ``bias`` fp32 ``[N]``;
+    ``residual`` ``[M, N]`` of ``out_dtype`` (bf16 or fp32); ``activation``
+    None or a key of ``ACTIVATIONS``. Returns a new ``[M, N]`` tensor."""
     if not a.is_cuda:
         raise ValueError("gemm_sm90 takes CUDA tensors")
+    if activation is not None and activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be None or one of {sorted(ACTIVATIONS)}, got {activation}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2 or b.dim() != 2:
@@ -148,7 +153,7 @@ def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16):
             a.data_ptr(), b.data_ptr(), c.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             residual.data_ptr() if residual is not None else None,
-            int(out_dtype == torch.float32), m, n, k, stream,
+            ACTIVATIONS.get(activation, 0), int(out_dtype == torch.float32), m, n, k, stream,
         )
     _build.check(lib, rc, "gemm_sm90 kernel")
     return c

@@ -21,7 +21,7 @@ Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -78,26 +78,64 @@ def core_fits(nk: int, d: int, dv: int) -> bool:
     return True
 
 
-def kv_blocked_layout(d: int, dv: int) -> tuple:
-    """(query rows, shared-memory bytes) of one block of the kv-blocked kernel
-    (``csrc/flash_attention_kv_blocked.cu`` ``layout``): the Q tile, one
-    64 x 64 K or V slice, the fp32 scores and bf16 p of a 64-key chunk, the
-    fp32 accumulator, and m, l, alpha per row. 32 query rows when the block
-    fits half of 227 KB, else 16; (0, bytes) when 16 rows do not fit."""
+class KvPlan(NamedTuple):
+    """How the kv-blocked kernel runs a shape (``csrc/flash_attention_kv_blocked.cu``
+    ``Plan``): its variant, warps and query rows a block, ring stages and
+    shared-memory bytes."""
+
+    variant: str
+    warps: int
+    rows: int
+    stages: int
+    bytes: int
+
+
+KV_VARIANTS = {1: "registers", 2: "two-phase", 3: "two-phase-global"}  # csrc kvb::Variant
+
+
+def kv_blocked_layout(nk: int, d: int, dv: int) -> KvPlan:
+    """The plan of the kv-blocked kernel (``kvb::plan_for``), mirrored. D and
+    Dv are padded to multiples of 16 by the kernel's layout pass. Up to 160
+    padded columns each, the register variant: 8 warps of 16 query rows, Q,
+    the chunk's scores and the accumulator in registers, the Q tile and a
+    two-stage ring of 64-key K and V chunks in shared memory, any Nk. Wider,
+    the two-phase variant: 8 warps, 64 query rows, a ring of 128-column Q and
+    K slices (phase 1) or 256-column V slices (phase 2), and the bf16 p and
+    alpha of every 64-key chunk in shared memory: three stages up to 896
+    keys, two up to 1,216. Past that, ``two-phase-global``: p and alpha in
+    the scratch in device memory (``kv_blocked_scratch``), each chunk's p
+    brought into the ring stage beside its V slice, three stages, any Nk."""
     a = lambda v: round_up(v, 128)
     dp, dvp = round_up(d, 16), round_up(dv, 16)
+    if dp <= 160 and dvp <= 160:
+        ldq = max(dp, dvp) + 8
+        stage = a(a(KV_CHUNK * (dp + 8) * 2) + KV_CHUNK * (dvp + 8) * 2)
+        return KvPlan("registers", 8, 128, 2, a(128 * ldq * 2) + 2 * stage)
+    nc = -(-nk // KV_CHUNK)
+    qk, v_bytes = 2 * 64 * 136 * 2, KV_CHUNK * 264 * 2
 
-    def size(qt):
-        kv_off = a(qt * (dp + 8) * 2)
-        s_off = a(kv_off + 64 * 72 * 2)
-        p_off = a(s_off + qt * 68 * 4)
-        acc_off = a(p_off + qt * 72 * 2)
-        stat_off = a(acc_off + qt * (dvp + 4) * 4)
-        return a(stat_off + 3 * qt * 4)
+    def wide(stages, pg):
+        stage = a(max(qk, a(v_bytes) + 64 * (KV_CHUNK + 8) * 2 if pg else v_bytes))
+        p_alpha = 0 if pg else a(64 * (nc * KV_CHUNK + 8) * 2) + a(nc * 64 * 4)
+        return stages * stage + p_alpha + a(64 * 4) + a(4 * 64 * 4)
 
-    if size(32) <= MAX_SMEM // 2:
-        return 32, size(32)
-    return (16 if size(16) <= MAX_SMEM else 0), size(16)
+    for stages in (3, 2):
+        if wide(stages, False) <= MAX_SMEM:
+            return KvPlan("two-phase", 8, 64, stages, wide(stages, False))
+    return KvPlan("two-phase-global", 8, 64, 3, wide(3, True))
+
+
+def kv_blocked_scratch(b: int, h: int, nq: int, nk: int, d: int, dv: int) -> int:
+    """bf16 elements of the kernel's scratch: q, k and v of every (b, h) as
+    rows padded to multiples of 16 columns, as the layout pass writes them;
+    under the ``two-phase-global`` plan then each block's bf16 p (64 rows x
+    the keys padded to 64) and fp32 alpha (two bf16 elements each)."""
+    dp, dvp = round_up(d, 16), round_up(dv, 16)
+    elems = b * h * (nq * dp + nk * dp + nk * dvp)
+    if kv_blocked_layout(nk, d, dv).variant == "two-phase-global":
+        blocks, nc = b * h * -(-nq // 64), -(-nk // KV_CHUNK)
+        elems += blocks * 64 * nc * KV_CHUNK + 2 * blocks * nc * 64
+    return elems
 
 
 def reference_attention(q, k, v, bias=None, *, scale=None, mask_self=False):
@@ -184,18 +222,20 @@ def _check_operands(name, q, k, v, bias):
     return b, h, nq, nk, d, dv, bias, bias_b, bias_h
 
 
-def _launch(name, entry, q, k, v, bias, bias_b, bias_h, scale, mask_self):
+def _launch(name, entry, q, k, v, bias, bias_b, bias_h, scale, mask_self, scratch=None):
     b, h, nq, d = q.shape
     nk, dv = k.shape[2], v.shape[3]
     lib = _build.load_library()
     out = torch.empty(b, nq, h, dv, device=q.device, dtype=v.dtype).transpose(1, 2)
     strides = lambda t: (t.data_ptr(), *t.stride()[:3])
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *strides(q), *strides(k), *strides(v), *strides(out),
             b, h, nq, nk, d, dv, float(d**-0.5 if scale is None else scale),
-            None if bias is None else bias.data_ptr(), bias_b, bias_h, int(mask_self), stream,
+            None if bias is None else bias.data_ptr(), bias_b, bias_h, int(mask_self), *extra,
+            stream,
         )
     _build.check(lib, rc, f"{name} kernel")
     _build.count_launch(name)
@@ -240,18 +280,24 @@ def flash_attention_kv_blocked(
     """The online-softmax kernel on the card, with ``flash_attention``'s
     contract: q, k, v bf16 read through their strides, an optional fp32 bias
     ``[B|1, H|1, Nq, Nk]``, ``mask_self``; returns ``[B, H, Nq, Dv]`` bf16
-    laid out ``[B, Nq, H, Dv]``. Any Nk (K and V stream through in chunks of
-    ``KV_CHUNK`` keys), D and Dv of any size whose block fits shared memory
-    (``kv_blocked_layout``), rows 2-byte aligned (unit column stride): the
-    ``split_heads`` views of T2T's fused qkv rows need no copy. Its twin at
-    ``block_k=KV_CHUNK`` rounds p at the same places."""
+    laid out ``[B, Nq, H, Dv]``. Rows need unit column stride and 2-byte
+    alignment only: the kernel's layout pass first copies q, k and v into
+    scratch rows padded to multiples of 16 columns (``kv_blocked_scratch``),
+    so the ``split_heads`` views of T2T's fused qkv rows need no copy here.
+    Any D, Dv and Nk (``kv_blocked_layout``), while B*H times the blocks of
+    a (b, h) and B*H*max(Nq, Nk) stay within 2^31 - 1 (the kernel's int
+    indices). Its twin at ``block_k=KV_CHUNK`` rounds p at the same
+    places."""
     b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands(
         "flash_attention_kv_blocked", q, k, v, bias)
-    if kv_blocked_layout(d, dv)[0] == 0:
+    rows = kv_blocked_layout(nk, d, dv).rows
+    if b * h * -(-nq // rows) > 2**31 - 1 or b * h * max(nq, nk) > 2**31 - 1:
         raise NotImplementedError(
-            f"head widths D={d}, Dv={dv}: 16 query rows of the kv-blocked kernel need "
-            f"{kv_blocked_layout(d, dv)[1]} B of shared memory, more than 227 KB")
+            f"B*H = {b * h} with Nq = {nq}, Nk = {nk}: the kv-blocked kernel indexes its blocks "
+            f"and its padded rows with 32-bit ints, and these exceed 2^31 - 1")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must have unit column stride")
+    scratch = torch.empty(kv_blocked_scratch(b, h, nq, nk, d, dv), device=q.device,
+                          dtype=torch.bfloat16)
     return _launch("flash_attention_kv_blocked", "vt_flash_attention_kv_blocked", q, k, v, bias,
-                   bias_b, bias_h, scale, mask_self)
+                   bias_b, bias_h, scale, mask_self, scratch)

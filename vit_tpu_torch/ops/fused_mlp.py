@@ -15,10 +15,17 @@ import torch
 import torch.nn.functional as F
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
+from vit_tpu_torch.ops.block_attention import ACTIVATIONS, _ln_f32, _mm, _require_aligned
 
-# Activation codes shared with csrc/gemm.cuh (enum Act).
-ACTIVATIONS = {"gelu": 1, "gelu_exact": 2, "hard_swish": 3}
+
+def gemm_route(dim: int, f: int) -> str:
+    """Which GEMM runs both products of the kernel at widths ``dim`` (D) and
+    ``f`` (F), chosen in C before any launch (``csrc/fused_mlp.cu``
+    ``mlp_route_wgmma``): ``"wgmma"`` (``csrc/gemm_sm90.cuh``, wgmma fed by
+    TMA) when both are multiples of 8, TMA's 16-byte row strides; else
+    ``"wmma"`` (``csrc/gemm.cuh``, tiles loaded 2 bytes at a time: T2T's
+    tokenizer widths 147 and 1323)."""
+    return "wgmma" if dim % 8 == 0 and f % 8 == 0 else "wmma"
 
 
 def _activate(h, activation: str):
@@ -67,9 +74,11 @@ def fused_mlp(
 ) -> torch.Tensor:
     """The MLP block on the card over tokens ``x`` ``[..., T, D]`` (bf16 or
     fp32); ``w1`` ``[D, F]`` and ``w2`` ``[F, D]`` bf16; biases and LN
-    parameters fp32 or None. D and F of any size: rows that are not 16-byte
-    aligned (D or F not a multiple of 8, as T2T's 147 and 1323) load 2 bytes
-    at a time. Returns ``x``'s shape and dtype."""
+    parameters fp32 or None. D and F of any size: where both are multiples
+    of 8 the two products run on the wgmma GEMM, and every operand must then
+    start on a 16-byte boundary (else this raises); other widths (T2T's 147
+    and 1323) run on the WMMA GEMM (``gemm_route``). Returns ``x``'s shape
+    and dtype."""
     if not x.is_cuda:
         raise ValueError("fused_mlp takes CUDA tensors")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -97,6 +106,9 @@ def fused_mlp(
     if ln_bias is not None and ln_scale is None:
         raise ValueError("ln_bias without ln_scale")
 
+    if gemm_route(dim, f) == "wgmma":
+        _require_aligned(**{name: t for name, t in
+                            dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2).items() if t is not None})
     lib = _build.load_library()
     t = x.numel() // dim
     opts = dict(device=x.device, dtype=torch.bfloat16)

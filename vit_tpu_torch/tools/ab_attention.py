@@ -1,6 +1,7 @@
 """Two trees of the repo on one card, in turns: parent, change, change, parent.
 
-    python3 -m vit_tpu_torch.tools.ab_attention PARENT_DIR CHANGE_DIR [--e2e] [--log FILE]
+    python3 -m vit_tpu_torch.tools.ab_attention PARENT_DIR CHANGE_DIR [--e2e]
+        [--p50-pairs N] [--log FILE]
 
 Each turn is a child process that imports the tree's own ``vit_tpu_torch``
 and ``chip_smoke`` (so each side builds and runs its own kernels) and
@@ -15,11 +16,25 @@ measures, at batch 128 unless named:
   keys, 8 heads of 64), each as the mean of CUDA events around 20 wrapper
   calls (what chip_smoke's op lines take) and as device time from
   ``torch.profiler``;
+- kernel 2 (``fused_mlp``) at ViT-L (1024 / 4096) at batch 1, 8 and 128 in
+  the bf16 stream, split into its three launches (LayerNorm, fc1, fc2), and
+  kernel 5 (``flash_attention_kv_blocked``) at both T2T tokenizer stages
+  (3136 tokens of width 147, 784 of 1323; one head) at batch 128 on the
+  ``split_heads`` views of fused qkv rows, split into its launches, each in
+  device time (``call_ms``: a tree launches as many kernels as its design
+  has);
 - every kernel's time at the shape of PERF.md's table, through the tree's
   own ``chip_smoke.phase_op_times`` and ``phase_t2t_op_times``;
 - with ``--e2e``: ViT-L/16 bf16 img/s at batch 128 and p50 at batch 1,
-  Twins-SVT img/s at batch 128 (bf16) and the int8 ``auto`` p50 at batch 1
-  and 8 (ViT-L), random weights from chip_smoke's seeds.
+  Twins-SVT and T2T-ViT img/s at batch 128 (bf16) and the int8 ``auto`` p50
+  at batch 1 and 8 (ViT-L), random weights from chip_smoke's seeds;
+- with ``--p50-pairs N``, after the four turns: ViT-L/16 bf16 p50 at batch
+  1 (100 forwards, weights drawn on the card) in N pairs of fresh
+  processes, the pair's order alternating (parent first in even pairs).
+  That forward is host-bound and its p50 moves by milliseconds from one
+  process to the next, so two turns a side cannot settle it; every
+  reading is printed, with each side's median and the pairs the change
+  won.
 
 The parent process prints each side's mean over its two turns, the change
 against the parent, and the card's name and power limit. The children's own
@@ -35,6 +50,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 TAG = "AB_RESULT "
@@ -59,31 +75,66 @@ def _device_ms(fn, iters=10) -> float:
     return total / iters / 1e3
 
 
-def launch_ms(fn, n, iters=10) -> list:
-    """``(kernel name, ms)`` for each of the ``n`` kernel launches of one call
-    of ``fn``, in launch order: the device time of each launch over the last
-    ``iters`` of ``iters + 1`` profiled calls (the profiler can miss the first
-    launches of its window), averaged. Raises unless those calls ran the same
-    kernels in the same order."""
+def _marked_events(fn, calls) -> list:
+    """The device events of ``calls`` calls of ``fn``, profiled, in launch
+    order. The profiler can miss the launches of the first milliseconds of
+    its window (on the H100, from 3 to about 40 launches of 40 us calls), so
+    ``fn`` first runs, synchronised, for 50 ms; then, after a 50 ms gap, the
+    calls run inside a marked range, and the events that start past the
+    middle of the gap are theirs, whatever the offset between the host's and
+    the device's clocks in the trace."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(3):
-        fn()
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 1):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.05:
             fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)[-n * iters:]
+            torch.cuda.synchronize()
+        time.sleep(0.05)
+        with record_function("ab_marked_calls"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    # (the range shows on the device's timeline too, as an annotation)
+    events = prof.events()
+    mark = min(e.time_range.start for e in events if e.name == "ab_marked_calls") - 25_000
+    return sorted((e for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "ab_marked_calls" and e.time_range.start >= mark),
+                  key=lambda e: e.time_range.start)
+
+
+def launch_ms(fn, n, iters=10) -> list:
+    """``(kernel name, ms)`` for each of the ``n`` kernel launches of one call
+    of ``fn``, in launch order: the device time of each launch over ``iters``
+    profiled calls (``_marked_events``), averaged. Raises unless those calls
+    ran the same ``n`` kernels in the same order."""
+    evs = _marked_events(fn, iters)
     names = [e.name for e in evs[:n]]
     if len(evs) != n * iters or any(evs[i].name != names[i % n] for i in range(len(evs))):
         raise RuntimeError(f"{len(evs)} device events do not repeat every {n}: "
                            f"{[e.name[:120] for e in evs[:2 * n]]}")
     return [(names[j], sum(evs[i * n + j].time_range.elapsed_us() for i in range(iters))
              / iters / 1e3) for j in range(n)]
+
+
+def call_ms(fn, iters=10) -> list:
+    """``launch_ms`` of every launch of one call of ``fn``, however many
+    kernels it launches (counted in one marked call first)."""
+    return launch_ms(fn, len(_marked_events(fn, 1)), iters)
+
+
+def _split(res, prefix, split) -> None:
+    """A call's device time and its launches into ``res``: the total, each
+    launch by position (its name in the ``kernels`` entry)."""
+    res[f"{prefix} device ms"] = sum(t for _, t in split)
+    for i, (_, t) in enumerate(split):
+        res[f"{prefix} launch {i} ms"] = t
+    res[f"{prefix} kernels"] = " | ".join(
+        name.replace("(anonymous namespace)::", "").split("(")[0] for name, _ in split)
 
 
 def kernel1_ms(cs, ba, gen, dev, b, x_dtype) -> dict:
@@ -111,6 +162,9 @@ def child(tree: Path, e2e: bool) -> dict:
     from vit_tpu_torch.ops import _build
 
     assert Path(cs.__file__).resolve().parent == tree.resolve(), cs.__file__
+    # the tree's chip_smoke splits launches with this tool's launch_ms, so
+    # that both sides are timed alike
+    importlib.import_module("vit_tpu_torch.tools.ab_attention").launch_ms = launch_ms
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
@@ -118,7 +172,10 @@ def child(tree: Path, e2e: bool) -> dict:
     dev = torch.device("cuda:0")
     smi = cs.nvidia_smi()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
-    res = {}
+    # End to end first, while the process is fresh: a host-bound forward
+    # (ViT-L at batch 1 once kernel 2 is fast) shows as latency any host
+    # work that the profiling windows below may leave behind.
+    res = _e2e(cs, dev) if e2e else {}
     with torch.inference_mode():
         for cfg, x_dtype in (("bf16", torch.bfloat16), ("mixed", torch.float32)):
             for b in (1, 8, 128):
@@ -127,6 +184,19 @@ def child(tree: Path, e2e: bool) -> dict:
                 for what in K1_LAUNCHES:
                     res[f"k1 ViT-L {cfg} batch {b} {what} ms"] = k1[what]
                 res[f"k1 ViT-L {cfg} batch {b} kernels"] = ", ".join(k1["kernels"])
+        fm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
+        for b in (1, 8, 128):
+            m_in = cs.mlp_inputs(gen, cs.N_TOKENS, 1024, 4096, torch.bfloat16, dev)
+            m_in["x"] = torch.randn(b, cs.N_TOKENS, 1024, generator=gen, device=dev).bfloat16()
+            _split(res, f"k2 ViT-L bf16 batch {b}",
+                   call_ms(lambda: fm.fused_mlp(**m_in, activation="gelu", residual=False)))
+            del m_in
+        for s, (n, d) in enumerate(cs.T2T_STAGES):
+            qkv = torch.randn(128, n, 3 * d, generator=gen, device=dev).bfloat16()
+            q, k, v = cs.split_heads(qkv, 1)
+            _split(res, f"k5 T2T stage {s} batch 128", call_ms(
+                lambda: fa.flash_attention_kv_blocked(q, k, v)))
+            del qkv, q, k, v
         for b in (1, 4, 128):
             qkv = torch.randn(b, cs.N_TOKENS, 3 * 1024, generator=gen, device=dev).bfloat16()
             fn = lambda: qa.fused_qkv_attention(qkv, 16)
@@ -143,19 +213,16 @@ def child(tree: Path, e2e: bool) -> dict:
     for name, (kern, _, _, _) in cs.phase_op_times(dev, smi).items():
         res[f"op {name} ms"] = kern
     res["op flash_attention_kv_blocked ms"] = cs.phase_t2t_op_times(dev, smi)[0]
-    torch.cuda.empty_cache()
-    if e2e:
-        res.update(_e2e(cs, dev))
     res["card"] = smi
     return res
 
 
 def _e2e(cs, dev) -> dict:
-    """ViT-L bf16 img/s at batch 128 and p50 at batch 1; Twins-SVT img/s at
-    batch 128 (bf16); int8 auto p50 at batch 1, 8."""
+    """ViT-L bf16 img/s at batch 128 and p50 at batch 1; T2T-ViT and
+    Twins-SVT img/s at batch 128 (bf16); int8 auto p50 at batch 1, 8."""
     import torch
 
-    from vit_tpu_torch.models import TwinsSVT, ViT
+    from vit_tpu_torch.models import T2TViT, TwinsSVT, ViT
     from vit_tpu_torch.utils import from_jax_params, quantize_vit
 
     out = {}
@@ -164,13 +231,22 @@ def _e2e(cs, dev) -> dict:
     vit.load_state_dict(from_jax_params(cs.vit_tree(cs.VIT_L, cs.SEED)), strict=True)
     vit.eval()
     with torch.inference_mode():
-        for b, reps in ((128, 5), (1, 9)):
+        # batch 1 is host-bound, and the host's clock jitters: 60 forwards
+        for b, reps in ((128, 5), (1, 60)):
             x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
             cs.p50_ms(lambda: vit(x), 2)
             p50 = cs.p50_ms(lambda: vit(x), reps)
             out[f"vit-l bf16 batch {b} p50 ms"] = p50
             if b == 128:
                 out["vit-l bf16 batch 128 img/s"] = 128 / p50 * 1e3
+    t2t = T2TViT(**cs.T2T, dtype=torch.bfloat16, device=dev).eval()
+    t2t.load_state_dict(from_jax_params(cs.t2t_tree(cs.T2T, cs.SEED + 13), t2t.jax_stages))
+    with torch.inference_mode():
+        x = torch.randn(128, 224, 224, 3, generator=gen, device=dev).bfloat16()
+        cs.p50_ms(lambda: t2t(x), 2)
+        out["t2t bf16 batch 128 img/s"] = 128 / cs.p50_ms(lambda: t2t(x), 5) * 1e3
+    del t2t
+    torch.cuda.empty_cache()
     twins = TwinsSVT(**cs.TWINS, dtype=torch.bfloat16, device=dev).eval()
     twins.load_state_dict(from_jax_params(cs.twins_tree(cs.TWINS, cs.SEED + 11), twins.jax_stages))
     with torch.inference_mode():
@@ -189,17 +265,83 @@ def _e2e(cs, dev) -> dict:
     return out
 
 
+def p50_child(tree: Path) -> dict:
+    """ViT-L/16 bf16 p50 at batch 1 in a fresh process, in the tree's own
+    code: weights drawn on the card (the time does not depend on them)."""
+    sys.path.insert(0, str(tree))
+    import importlib
+
+    import torch
+
+    cs = importlib.import_module("chip_smoke")
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.ops import _build
+
+    assert Path(cs.__file__).resolve().parent == tree.resolve(), cs.__file__
+    _build.build()
+    _build.load_library()
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 22)
+    vit = ViT(**cs.VIT_L, dtype=torch.bfloat16, device=dev).eval()
+    with torch.no_grad():
+        for prm in vit.parameters():
+            prm.copy_(0.02 * torch.randn(prm.shape, generator=gen, device=dev))
+    with torch.inference_mode():
+        x = torch.randn(1, 224, 224, 3, generator=gen, device=dev).bfloat16()
+        cs.p50_ms(lambda: vit(x), 5)
+        return {"vit-l bf16 batch 1 p50 ms": cs.p50_ms(lambda: vit(x), 100)}
+
+
+def _run_child(args, side, tree, log, extra) -> dict:
+    """One turn in a child process; its result, or None if it failed."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), str(args.parent), str(args.change),
+           "--child", str(tree.resolve())] + extra
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
+    log.write(f"== {side} {tree} {' '.join(extra)}\n{proc.stdout}\n{proc.stderr}\n")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TAG)]
+    if proc.returncode != 0 or not lines:
+        print(f"{side} turn failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+        return None
+    return json.loads(lines[-1][len(TAG):])
+
+
+def p50_pairs(args, log, card) -> None:
+    """ViT-L bf16 batch-1 p50 in args.p50_pairs pairs of fresh processes."""
+    key = "vit-l bf16 batch 1 p50 ms"
+    got = {"parent": [], "change": []}
+    for i in range(args.p50_pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for side in order:
+            res = _run_child(args, side, getattr(args, side), log, ["--p50-only"])
+            if res is None:
+                raise SystemExit(1)
+            got[side].append(res[key])
+        print(f"p50 pair {i}: parent {got['parent'][-1]:.4f}, change {got['change'][-1]:.4f}",
+              flush=True)
+    p, c = statistics.median(got["parent"]), statistics.median(got["change"])
+    won = sum(ci < pi for pi, ci in zip(got["parent"], got["change"]))
+    fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
+    print(f"ab {key} ({args.p50_pairs} fresh-process pairs): parent median {p:.4f} "
+          f"(min {min(got['parent']):.4f}, max {max(got['parent']):.4f}), change median {c:.4f} "
+          f"(min {min(got['change']):.4f}, max {max(got['change']):.4f}) ({c / p - 1:+.2%}); "
+          f"change faster in {won} of {args.p50_pairs} pairs [{card}]")
+    print(f"ab {key} readings: parent {fmt(got['parent'])}; change {fmt(got['change'])}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path)
     ap.add_argument("change", type=Path)
     ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--p50-pairs", type=int, default=0)
     ap.add_argument("--log", type=Path,
                     default=Path(__file__).resolve().parent.parent / "_build" / "ab_attention.log")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--p50-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(TAG + json.dumps(child(args.child, args.e2e)), flush=True)
+        res = p50_child(args.child) if args.p50_only else child(args.child, args.e2e)
+        print(TAG + json.dumps(res), flush=True)
         return 0
 
     args.log.parent.mkdir(parents=True, exist_ok=True)
@@ -208,20 +350,18 @@ def main() -> int:
     runs = {"parent": [], "change": []}
     with args.log.open("w") as log:
         for side, tree in turns:
-            cmd = [sys.executable, str(Path(__file__).resolve()), str(args.parent),
-                   str(args.change), "--child", str(tree.resolve())]
-            cmd += ["--e2e"] if args.e2e else []
-            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
-            log.write(f"== {side} {tree}\n{proc.stdout}\n{proc.stderr}\n")
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TAG)]
-            if proc.returncode != 0 or not lines:
-                print(f"{side} turn failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+            res = _run_child(args, side, tree, log, ["--e2e"] if args.e2e else [])
+            if res is None:
                 return 1
-            res = json.loads(lines[-1][len(TAG):])
             runs[side].append(res)
             print(f"turn {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
                                                if not isinstance(v, str)), flush=True)
     card = runs["change"][0]["card"]
+    for key in runs["change"][0]:
+        if key not in runs["parent"][0]:  # a launch the parent's design does not have
+            if not isinstance(runs["change"][0][key], str):
+                c = statistics.mean(r[key] for r in runs["change"])
+                print(f"ab {key}: change only {c:.4f} [{card}]")
     for key in runs["parent"][0]:
         if key == "card" or key not in runs["change"][0]:
             continue
@@ -234,6 +374,9 @@ def main() -> int:
                      abs(runs["change"][0][key] - runs["change"][1][key]))
         print(f"ab {key}: parent {p:.4f}, change {c:.4f} ({c / p - 1:+.2%}; largest gap between "
               f"one side's two turns {spread:.4f}) [{card}]")
+    if args.p50_pairs:
+        with args.log.open("a") as log:
+            p50_pairs(args, log, card)
     return 0
 
 
