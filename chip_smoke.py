@@ -44,7 +44,8 @@ Runs, in order, and exits non-zero at the first failure:
      against their twins at the shapes of the twins_svt preset (GSA at 64,
      16, 4 and 1 keys; 7x7 windows; batch 128's 65,536 window-head pairs) and
      at small shapes (each bias pattern, mask_self, Nq != Nk, Dv != D, Nk 197
-     and 1,088), with
+     and 1,088; the window kernel's four-launch route at windows of 100
+     tokens and its o-tile route at C 512), with
      the twins with a fault planted (padded keys unmasked, the bias
      transposed, windows attending across each other) shown to fail the
      bound; the preset (random weights from a seed, bf16) served through
@@ -57,9 +58,12 @@ Runs, in order, and exits non-zero at the first failure:
      four launches (torch.profiler), with each GEMM's TFLOP/s beside
      cuBLAS's on the same operands; the MLP kernel's three launches the
      same way at ViT-L batch 1, 8 and 128 (LayerNorm, then both products on
-     the wgmma GEMM, or the run fails); kernel 3 also at batch 1 and 4 (the int8
-     buckets that run it) and kernel 4 at the other three GSA shapes, each
-     beside SDPA;
+     the wgmma GEMM, or the run fails); the talking-heads kernel's four
+     launches the same way at the CaiT preset (LayerNorm, the wgmma GEMM,
+     the head-mix core, the wgmma GEMM, or the run fails); the window kernel
+     at Twins' three LSA stages, each one launch of the fused kernel (or the
+     run fails); kernel 3 also at batch 1 and 4 (the int8 buckets that run
+     it) and kernel 4 at the other three GSA shapes, each beside SDPA;
  10. the T2T-ViT slice: the kv-blocked flash kernel against its twin (the same
      64-key chunk) at the two tokenizer stages of the t2t preset through
      ``ops.qkv_attention`` on fused qkv rows (3136 tokens of width 147 and
@@ -1453,8 +1457,10 @@ def phase_twins_kernels(dev):
     at small shapes: each bias pattern, mask_self, Nq != Nk, Nk not a
     multiple of 64, Dv != D. Kernel 6 at the three local shapes (batch 8)
     without a bias and with a [H, S, S] and a [1, S, S] one, and at batch
-    128's 65,536 (window, head) pairs. The twins with a fault planted must
-    fail the bound. Returns max |err| per kernel at the preset's shapes."""
+    128's 65,536 (window, head) pairs (the fused route), then on its other
+    routes: windows of 100 tokens (four launches) and C 512 (o-tile). The
+    twins with a fault planted must fail the bound. Returns max |err| per
+    kernel at the preset's shapes."""
     fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
     wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
@@ -1503,6 +1509,19 @@ def phase_twins_kernels(dev):
                 _planted(f"{name}: the twin with windows attending across each other",
                          window_fault_twin(a, 8, bias), ref, fails)
             del inp, a, out, ref
+    # the routes the preset does not take: windows past 64 tokens (10 x 10)
+    # on the four-launch pipeline, C 512 on the o-tile variant
+    for nw, sw, dim, bias_heads in ((256, 100, 64, 8), (512, 49, 512, 1)):
+        inp = attn_inputs(gen, nw, sw, dim, 8, 64, torch.bfloat16, dev)
+        a = [inp[key] for key in args]
+        bias = r(bias_heads, sw, sw)
+        name = (f"window_attention_block S {sw} C {dim} ({wa.route(sw, dim, 8, 64)} route) "
+                f"bias {list(bias.shape)}")
+        out = wa.fused_window_attention_block(*a, 8, bias)
+        ref = wa.xla_window_attention_block(*a, 8, bias)
+        torch.cuda.synchronize()
+        check_close(name, out, ref, None)
+        del inp, a, out, ref
     require(not fails, "; ".join(fails))
     return worst
 
@@ -1655,6 +1674,66 @@ def attention_block_launches(a, heads, smi):
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
 
 
+def window_block_launches(w, heads, what, smi):
+    """One op line: the window block's device time at these inputs
+    (torch.profiler) and its TFLOP/s (the unpadded work). Fails unless the
+    call is one launch of the fused kernel (windows of up to 64 tokens)."""
+    from vit_tpu_torch.ops import window_attention as wa
+    from vit_tpu_torch.tools.ab_attention import call_ms
+
+    x, wqkv = w[0], w[3]
+    nw, sw, dim = x.shape
+    hd = wqkv.shape[1] // 3
+    split = call_ms(lambda: wa.fused_window_attention_block(*w, heads))
+    names = [n.replace("(anonymous namespace)::", "").split("(")[0] for n, _ in split]
+    require(len(split) == 1 and "window_block_fused" in names[0],
+            f"window_attention_block {what} launched {names}, not one window_block_fused")
+    t = split[0][1]
+    rows = nw * sw
+    flops = 2 * rows * dim * 3 * hd + 4 * nw * hd * sw * sw + 2 * rows * hd * dim
+    plan = wa.plan_for(sw, dim, heads, hd // heads)
+    print(f"op window_attention_block {what} launches (device): {t:.4f} ms = {names[0]} "
+          f"({flops / t / 1e9:.1f} TFLOP/s unpadded; {plan.route}, {plan.groups} windows a "
+          f"block, {plan.smem_bytes} B) [{smi}]")
+
+
+# What the names of the talking-heads kernel's four launches hold, in order:
+# the LayerNorm rows, the wgmma GEMM, the head-mix core, the wgmma GEMM.
+TH_KERNELS = ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "head_mix_kernel",
+              "gemm_bf16_sm90_kernel")
+TH_LAUNCHES = ("ln", "qkv gemm", "head mix", "out gemm")
+
+
+def talking_heads_launches(h, heads, smi):
+    """One op line: kernel 7's device time at these inputs split into its
+    four launches (torch.profiler), each GEMM's TFLOP/s beside one cuBLAS
+    product of the same operands. Fails unless they are TH_KERNELS."""
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    rb = _rb()
+    x, wqkv, wout = h[0], h[3], h[4]
+    split = launch_ms(lambda: rb.fused_talking_heads_block(*h, heads), len(TH_KERNELS))
+    names = [name for name, _ in split]
+    require(all(key in name for key, name in zip(TH_KERNELS, names)),
+            f"talking_heads_block launched {names}, not {list(TH_KERNELS)}")
+    rows, dim = x.shape[0] * x.shape[1], x.shape[2]
+    flops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
+    xn = torch.randn(rows, dim, device=x.device).bfloat16()
+    o = torch.randn(rows, wout.shape[0], device=x.device).bfloat16()
+    cublas = {"qkv gemm": cuda_ms(lambda: xn @ wqkv), "out gemm": cuda_ms(lambda: o @ wout)}
+    parts = []
+    for what, (_, t) in zip(TH_LAUNCHES, split):
+        part = f"{what} {t:.4f} ms"
+        if what in flops:
+            part += (f" ({flops[what] / t / 1e9:.1f} TFLOP/s; cuBLAS {cublas[what]:.4f} ms, "
+                     f"{flops[what] / cublas[what] / 1e9:.1f} TFLOP/s)")
+        parts.append(part)
+    print(f"op talking_heads_block CaiT preset batch {x.shape[0]} {str(x.dtype)[6:]} launches "
+          f"(device): {sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
+    print("op talking_heads_block kernels: "
+          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+
+
 # What the names of the MLP kernel's three launches hold, by its GEMM route
 # (ops.fused_mlp.gemm_route): the LayerNorm rows, then both products on the
 # wgmma GEMM where D and F are multiples of 8, else on the WMMA GEMM.
@@ -1701,7 +1780,8 @@ def phase_op_times(dev, smi):
     """Each kernel at batch 128, bf16, at the shape of its path (ViT-L, the
     CaiT or the DeepViT preset, Twins' stage 1): its time, its twin's, its
     library composite's, and its bound; and lines for kernel 3 at ViT-L
-    batch 1 and 4 and kernel 4 at Twins' GSA stages 2-4. Returns the batch
+    batch 1 and 4, kernel 4 at Twins' GSA stages 2-4 and kernel 6 at its LSA
+    stages 2 and 3; kernels 1, 2, 6 and 7 also by launch. Returns the batch
     128 figures of the table, by kernel."""
     from vit_tpu_torch.ops import block_attention as ba
     from vit_tpu_torch.ops import quant_block as qb
@@ -1797,6 +1877,8 @@ def phase_op_times(dev, smi):
                 bound(2 * rows_h * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows_h * hd * dim,
                       nbytes=size(*h) + size(h[0]), fp32_flops=mix_flops),
             )
+            if kind == "th":
+                talking_heads_launches(h, heads, smi)
             del h, lib_h
         # kernels 4 and 6 at the Twins preset's stage 1: GSA (3136 queries, 64
         # keys) and LSA (64 windows of 49 tokens an image), no bias
@@ -1816,19 +1898,28 @@ def phase_op_times(dev, smi):
             else:
                 extra.append((f"flash_attention Twins GSA stage {s} ({nq} x {nk} keys)", times))
             del q, k, v
-        nw, sw, cw = b * 64, 49, 64
-        w_in = attn_inputs(gen, nw, sw, cw, th, d, torch.bfloat16, dev)
-        w = [w_in[key] for key in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
-        lib_w = [w[0], bf(w[1]), bf(w[2]), w[3], w[4], bf(w[5])]
-        rows_w, hd_w = nw * sw, th * d
-        ms["window_attention_block"] = (
-            cuda_ms(lambda: wa.fused_window_attention_block(*w, th)),
-            cuda_ms(lambda: wa.xla_window_attention_block(*w, th), iters=5),
-            cuda_ms(lambda: library_window_block(*lib_w, th)),
-            bound(2 * rows_w * cw * 3 * hd_w + 4 * nw * th * sw * sw * d + 2 * rows_w * hd_w * cw,
-                  nbytes=size(*w) + size(w[0])),
-        )
-        del w, lib_w, w_in
+        # kernel 6 at the three LSA stages (7 x 7 windows; C 64, 128, 256)
+        sw, hd_w = 49, th * d
+        for s, (windows, cw) in enumerate(((64, 64), (16, 128), (4, 256)), start=1):
+            nw = b * windows
+            w_in = attn_inputs(gen, nw, sw, cw, th, d, torch.bfloat16, dev)
+            w = [w_in[key] for key in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+            lib_w = [w[0], bf(w[1]), bf(w[2]), w[3], w[4], bf(w[5])]
+            rows_w = nw * sw
+            times = (
+                cuda_ms(lambda: wa.fused_window_attention_block(*w, th)),
+                cuda_ms(lambda: wa.xla_window_attention_block(*w, th), iters=5),
+                cuda_ms(lambda: library_window_block(*lib_w, th)),
+                bound(2 * rows_w * cw * 3 * hd_w + 4 * nw * th * sw * sw * d
+                      + 2 * rows_w * hd_w * cw, nbytes=size(*w) + size(w[0])),
+            )
+            if s == 1:
+                ms["window_attention_block"] = times
+            else:
+                extra.append((f"window_attention_block Twins LSA stage {s} ({nw} windows of 49, "
+                              f"C {cw})", times))
+            window_block_launches(w, th, f"Twins LSA stage {s} batch {b}", smi)
+            del w, lib_w, w_in
     shapes = {"talking_heads_block": "CaiT preset (n 64)",
               "reattention_block": "DeepViT preset (n 65)",
               "flash_attention": "Twins GSA stage 1 (3136 x 64 keys)",

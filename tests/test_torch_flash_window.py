@@ -200,6 +200,31 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_name_the_kv_blocked_item():
     tfa.check_core_shape(1088, 64, 64)  # the most keys whose score rows fit 227 KB
 
 
+# (S, C, heads, dim_head) -> (route, windows a block, shared-memory bytes) of
+# kernel 6 (csrc/window_attention_block.cu win::plan_for, mirrored by
+# plan_for; the card test below holds the mirror to the C code): Twins' three
+# LSA stages, S on both sides of 64, C 64 and 512, dim_head 32 and 128.
+WINDOW_PLANS = [
+    ((49, 64, 8, 64), ("registers", 2, 82944)),   # Twins LSA stage 1
+    ((49, 128, 8, 64), ("registers", 2, 126976)),  # stage 2
+    ((49, 256, 8, 64), ("registers", 2, 159744)),  # stage 3
+    ((16, 64, 8, 64), ("registers", 8, 82944)),
+    ((64, 64, 8, 64), ("registers", 2, 82944)),
+    ((65, 64, 8, 64), ("four-launch", 0, 0)),
+    ((49, 512, 8, 64), ("o-tile", 1, 206848)),
+    ((49, 64, 8, 32), ("o-tile", 2, 150528)),
+    ((49, 64, 4, 128), ("o-tile", 1, 162816)),
+    ((49, 512, 4, 128), ("o-tile", 1, 220160)),
+    ((49, 512, 8, 128), ("four-launch", 0, 0)),   # the o tile alone is 130 KB
+]
+
+
+@pytest.mark.parametrize("shape,plan", WINDOW_PLANS)
+def test_window_plan_is_pinned(shape, plan):
+    assert tuple(twa.plan_for(*shape)) == plan
+    assert twa.route(*shape) == plan[0]
+
+
 # -- on the card: each kernel against its twin ---------------------------------
 
 
@@ -277,7 +302,7 @@ def test_window_kernel_matches_twin(cuda, x_dtype, nw, s, c, heads, bias):
 @pytest.mark.cuda
 def test_window_kernel_takes_65536_window_head_pairs(cuda):
     """Twins' stage 1 at batch 128: 8192 windows x 8 heads, one pair past
-    what a grid's y dimension holds."""
+    what a grid's y dimension holds (4,096 blocks of the fused route)."""
     w = _window_inputs(10, 8192, 49, 64, 8, 64, (8,))
     args = [_torch(w[k], "bfloat16" if k in ("xw", "wqkv", "wout") else "float32", cuda)
             for k in W_ARGS]
@@ -286,6 +311,110 @@ def test_window_kernel_takes_65536_window_head_pairs(cuda):
     ref = twa.xla_window_attention_block(*args, 8, tb)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= kernel_tol(ref, None, out.dtype)
+
+
+# -- kernel 6 as one fused launch ----------------------------------------------
+
+
+def _window_card(seed, nw, s, c, heads, d, bias, x_dtype, dev):
+    w = _window_inputs(seed, nw, s, c, heads, d, bias)
+    args = [_torch(w[k], x_dtype if k == "xw" else "bfloat16" if k[0] == "w" else "float32", dev)
+            for k in W_ARGS]
+    return args, None if bias is None else _torch(w["bias"], "float32", dev)
+
+
+def _window_check(args, heads, tb):
+    out = twa.fused_window_attention_block(*args, heads, tb)
+    ref = twa.xla_window_attention_block(*args, heads, tb)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, None, out.dtype), err
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [None, (8,), (1,)])
+@pytest.mark.parametrize("windows,c", [(64, 64), (16, 128), (4, 256)])
+def test_window_kernel_at_the_twins_lsa_stages(cuda, windows, c, bias):
+    """Twins' three LSA stages at batch 8 (7x7 windows, 8 heads of 64), with
+    no bias, a per-head [8, 49, 49] and a shared [1, 49, 49] one."""
+    args, tb = _window_card(30 + c, 8 * windows, 49, c, 8, 64, bias, "bfloat16", cuda)
+    assert twa.route(49, c, 8, 64) == "registers"
+    _window_check(args, 8, tb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,s,c,heads,d,bias,x_dtype,route", [
+    (40, 16, 64, 8, 64, (8,), "bfloat16", "registers"),
+    (33, 64, 64, 4, 64, (1,), "bfloat16", "registers"),
+    (12, 65, 64, 4, 64, (4,), "bfloat16", "four-launch"),
+    (10, 100, 128, 2, 64, None, "float32", "four-launch"),
+    (64, 49, 64, 8, 64, (8,), "float32", "registers"),
+    (16, 49, 256, 8, 64, None, "float32", "registers"),
+    (9, 49, 512, 8, 64, (8,), "bfloat16", "o-tile"),
+    (9, 49, 512, 8, 64, None, "float32", "o-tile"),
+    (21, 49, 64, 8, 32, (8,), "bfloat16", "o-tile"),
+    (11, 49, 64, 4, 128, (1,), "bfloat16", "o-tile"),
+    (7, 33, 72, 3, 32, (3,), "float32", "o-tile"),
+])
+def test_window_kernel_edge_shapes(cuda, nw, s, c, heads, d, bias, x_dtype, route):
+    """S 16 and 64 (one and four warps a window), windows past 64 tokens on
+    the four-launch route, the fp32 stream, C 512, dim_head 32 and 128, C
+    and S not multiples of 16 or 64, an odd NW (a block's last window
+    missing)."""
+    assert twa.route(s, c, heads, d) == route
+    args, tb = _window_card(40 + s + c, nw, s, c, heads, d, bias, x_dtype, cuda)
+    _window_check(args, heads, tb)
+
+
+@pytest.mark.cuda
+def test_window_kernel_is_batch_invariant(cuda):
+    """Window 0 of Twins' stage 1 alone (one block, its second window
+    missing) and among batch 128's 8,192 windows: bitwise equal."""
+    args, tb = _window_card(50, 8192, 49, 64, 8, 64, (8,), "bfloat16", cuda)
+    full = twa.fused_window_attention_block(*args, 8, tb)
+    alone = [args[0][:1].contiguous(), *args[1:]]
+    torch.testing.assert_close(twa.fused_window_attention_block(*alone, 8, tb), full[:1],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", WINDOW_PLANS)
+def test_window_plan_mirrors_the_kernel(cuda, shape, plan):
+    import ctypes
+
+    from vit_tpu_torch.ops import _build
+
+    got = (ctypes.c_int * 3)()
+    assert _build.load_library().vt_window_attention_plan(
+        *shape, ctypes.cast(got, ctypes.c_void_p)) == 0
+    assert (twa.VARIANTS[got[0]], got[1], got[2]) == plan
+
+
+@pytest.mark.cuda
+def test_window_kernel_fused_route_stores_no_intermediates(cuda):
+    """On the fused route the wrapper allocates only the output: the peak
+    memory of a stage-1 call at batch 128 stays near the output's bytes.
+    Weights one element off a 16-byte boundary take the four-launch route,
+    which also holds xn, qkv and the attention output, and agree with the
+    twin."""
+    args, tb = _window_card(51, 8192, 49, 64, 8, 64, None, "bfloat16", cuda)
+    shifted = torch.empty(args[3].numel() + 1, device=cuda, dtype=args[3].dtype)[1:]
+    misaligned = [*args[:3], shifted.view_as(args[3]).copy_(args[3]), *args[4:]]
+    out_bytes = args[0].numel() * 2
+    peaks = []
+    for a in (args, misaligned):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        twa.fused_window_attention_block(*a, 8, tb)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    assert peaks[0] <= out_bytes + (1 << 20), peaks
+    assert peaks[1] >= out_bytes + 8192 * 49 * (64 + 3 * 512 + 512) * 2, peaks
+    _window_check(misaligned, 8, tb)
 
 
 # -- kernel 4 on the register-resident core (csrc/attention_core_sm90.cuh) -------

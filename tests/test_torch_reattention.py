@@ -333,3 +333,47 @@ def test_kernel_is_batch_invariant(cuda, kind):
     full = _run(kind, args, 16)
     alone = _run(kind, [args[0][3:4].contiguous(), *args[1:]], 16)
     torch.testing.assert_close(alone, full[3:4], rtol=0, atol=0)
+
+
+# -- kernel 7's products on the wgmma GEMM (csrc/gemm_sm90.cuh) -------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,x_dtype,residual", [
+    (8, "bfloat16", False), (8, "bfloat16", True), (128, "bfloat16", False),
+    (128, "bfloat16", True), (8, "float32", False), (128, "float32", True),
+])
+def test_talking_heads_at_the_cait_preset(cuda, b, x_dtype, residual):
+    """The CaiT preset's patch-stage shape (64 tokens, dim 1024, 16 heads of
+    64), both products on the wgmma GEMM, with and without the residual, in
+    both streams."""
+    args = _card("th", b, 64, 1024, 16, 64, x_dtype, cuda, seed=6)
+    out = trb.fused_talking_heads_block(*args, 16, residual=residual)
+    ref = trb.xla_talking_heads_block(*args, 16, 64**-0.5, residual=residual)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= kernel_tol(ref, args[0] if residual else None, out.dtype), err
+
+
+@pytest.mark.cuda
+def test_talking_heads_is_batch_invariant_at_the_cait_preset(cuda):
+    """Sample 77 alone and inside batch 128 (other GEMM tiles): bitwise equal."""
+    args = _card("th", 128, 64, 1024, 16, 64, "bfloat16", cuda, seed=7)
+    full = trb.fused_talking_heads_block(*args, 16, residual=True)
+    alone = trb.fused_talking_heads_block(args[0][77:78].contiguous(), *args[1:], 16,
+                                          residual=True)
+    torch.testing.assert_close(alone, full[77:78], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_talking_heads_refuses_a_misaligned_operand(cuda):
+    """The wgmma GEMM's TMA loads need 16-byte starts: x one element into its
+    storage is refused before any launch."""
+    args = _card("th", 2, 64, 256, 4, 64, "bfloat16", cuda, seed=8)
+    x = torch.empty(args[0].numel() + 1, device=cuda, dtype=args[0].dtype)[1:]
+    x = x.view_as(args[0]).copy_(args[0])
+    before = ops.launch_counts()["talking_heads_block"]
+    with pytest.raises(ValueError, match="16-byte"):
+        trb.fused_talking_heads_block(x, *args[1:], 4)
+    assert ops.launch_counts()["talking_heads_block"] == before

@@ -49,7 +49,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows of x -> bf16 rows of y, one warp per row.
+// One row of x -> one bf16 row of y, by one warp (lane `lane` of 32).
 //
 // With `scale` set: flax.linen.LayerNorm's exact formula in fp32 (fast
 // variance, the scale folded into the reciprocal square root):
@@ -57,19 +57,11 @@ __device__ __forceinline__ void cp_async_wait() {
 //   y = (x - mean) * mul + bias.
 // This is not F.layer_norm, whose two-pass variance rounds differently.
 // With `scale` NULL the row is only rounded to bf16 (the MLP without LN).
-//
-// Memory-bound (reads D values, writes D bf16 per row). A later PR fuses
-// this into the GEMM's A-tile prologue and drops the xn round trip.
+// y may lie in shared memory (the fused window block's xn tile).
 template <typename T>
-__global__ void ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                               const float* __restrict__ bias, bf16* __restrict__ y,
-                               int rows, int D, float eps) {
-  const int warps = blockDim.x / 32;
-  const int row = blockIdx.x * warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * D;
-  bf16* yr = y + (size_t)row * D;
+__device__ __forceinline__ void ln_row(const T* __restrict__ xr, const float* __restrict__ scale,
+                                       const float* __restrict__ bias, bf16* yr, int D, float eps,
+                                       int lane) {
   if (scale == nullptr) {
     for (int c = lane; c < D; c += 32) store_as(yr + c, to_f32(xr[c]));
     return;
@@ -90,6 +82,18 @@ __global__ void ln_rows_kernel(const T* __restrict__ x, const float* __restrict_
     const float b = bias != nullptr ? bias[c] : 0.f;
     store_as(yr + c, (to_f32(xr[c]) - mean) * mul + b);
   }
+}
+
+// Rows of x -> bf16 rows of y (ln_row), one warp per row. Memory-bound
+// (reads D values, writes D bf16 per row).
+template <typename T>
+__global__ void ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                               const float* __restrict__ bias, bf16* __restrict__ y,
+                               int rows, int D, float eps) {
+  const int warps = blockDim.x / 32;
+  const int row = blockIdx.x * warps + threadIdx.x / 32;
+  if (row >= rows) return;
+  ln_row(x + (size_t)row * D, scale, bias, y + (size_t)row * D, D, eps, threadIdx.x % 32);
 }
 
 template <typename T>

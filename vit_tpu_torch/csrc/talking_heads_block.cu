@@ -7,16 +7,24 @@
 // only what the TPU kernel rounds to bf16 before its next use (xn, qkv at
 // :191-193, each head's P V at :230-234):
 //   1. ln_rows:            flax LayerNorm in fp32 (eps 1e-5 in CaiT) -> bf16 xn
-//   2. gemm_bf16:          xn @ Wqkv -> bf16 qkv                  (compute-bound)
+//   2. gemm_bf16_sm90:     xn @ Wqkv -> bf16 qkv                  (compute-bound)
 //   3. head_mix_core:      per (query tile, sample), all heads: scores, the
 //                          pre-softmax mix, mask, softmax, the post-softmax
 //                          mix, P V                      (latency-bound)
-//   4. gemm_bf16:          attn @ Wout + bout [+ x] -> x.dtype    (compute-bound)
+//   4. gemm_bf16_sm90:     attn @ Wout + bout [+ x] -> x.dtype    (compute-bound)
 // CaiT's patch stage calls it without the residual: LayerScale gates the
 // delta outside (vit_tpu/nn/attention.py:258-271).
+//
+// Bound: operations. At the CaiT preset (64 tokens, dim 1024, 16 heads of
+// 64) the two products are 68.7 of the block's 70.9 tensor-core GFLOP at
+// batch 128. On the WMMA GEMM of gemm.cuh (~160 TFLOP/s) they took half the
+// kernel; both run on gemm_sm90.cuh (wgmma fed by TMA, the GEMM of kernels 1 and 2). Its TMA
+// needs every row stride and operand start 16-byte aligned: the wrapper
+// requires D % 8 == 0 and dim_head % 16 == 0, and a misaligned operand
+// fails the call before any launch (cudaErrorInvalidValue).
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "head_mix_core.cuh"
 
 namespace vt {
@@ -29,14 +37,20 @@ cudaError_t talking_heads_block(const T* x, const float* ln_scale, const float* 
                                 bf16* attn_out, int B, int N, int D, int H, int Dh, float scale,
                                 float eps, int residual, int true_n, cudaStream_t stream) {
   const int rows = B * N, HD = H * Dh;
+  const auto misaligned = [](const void* p) {
+    return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (misaligned(x) || misaligned(wqkv) || misaligned(wout) || misaligned(bout) ||
+      misaligned(out) || misaligned(xn) || misaligned(qkv) || misaligned(attn_out))
+    return cudaErrorInvalidValue;  // checked before any launch: nothing half done
   cudaError_t e = ln_rows<T>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
   if (e != cudaSuccess) return e;
-  e = gemm_bf16<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  e = gemm_bf16_sm90<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
   if (e != cudaSuccess) return e;
   e = head_mix_core<hmix::kTalkingHeads>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm, stream);
   if (e != cudaSuccess) return e;
-  return gemm_bf16<T>(attn_out, wout, out, bout, residual ? x : nullptr, kActNone, rows, D, HD,
-                      stream);
+  return gemm_bf16_sm90<T>(attn_out, wout, out, bout, residual ? x : nullptr, kActNone, rows, D,
+                           HD, stream);
 }
 
 }  // namespace

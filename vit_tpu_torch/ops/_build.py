@@ -142,10 +142,14 @@ _SIGNATURES = {
         _P, _P, _P,          # wqkv, wout (bf16), bout (fp32)
         _P, _I,              # bias (fp32 [1|H, S, S], NULL = none), bias_h (per head)
         _P,                  # out (xw's dtype)
-        _P, _P, _P,          # scratch: xn, qkv, attn (bf16)
+        _P, _P, _P,          # scratch: xn, qkv, attn (bf16; NULL on the fused variants)
         _I, _I, _I, _I, _I,  # NW, S, C, heads, dim_head
         _F, _F,              # scale, ln_eps
         _P,                  # cudaStream_t
+    ],
+    "vt_window_attention_plan": [
+        _I, _I, _I, _I,      # S, C, heads, dim_head
+        _P,                  # int[3]: variant, windows a block, shared-memory bytes
     ],
     "vt_quant_attention_block": [
         _P,                  # x (bf16)

@@ -35,7 +35,9 @@ from typing import Optional
 import torch
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import MASK_VALUE, _ln_f32, _mm, _softmax
+from vit_tpu_torch.ops.block_attention import (
+    MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax,
+)
 
 MAX_TOKENS = 256  # the fp32 score tiles of all heads live in one block's shared memory
 MAX_HEADS = 16
@@ -265,6 +267,8 @@ def fused_talking_heads_block(
     hh = (heads, heads)
     d = _check_block("talking_heads_block", x, ln_scale, ln_bias, wqkv, wout, bout,
                               heads, {"mix_pre": (mix_pre, hh), "mix_post": (mix_post, hh)})
+    # both products run on the wgmma GEMM, whose TMA loads need 16-byte starts
+    _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
     scale = d**-0.5 if scale is None else scale
     return _launch(
         "talking_heads_block", x, heads, d, true_n, intermediates,

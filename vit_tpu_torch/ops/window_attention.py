@@ -2,7 +2,9 @@
 shared per-window bias) -> out GEMM + bias. No residual.
 
 Port of ``vit_tpu/ops/window_attention.py``. ``fused_window_attention_block``
-is the Hopper kernel (``csrc/window_attention_block.cu``);
+is the Hopper kernel (``csrc/window_attention_block.cu``): one fused launch
+a group of windows up to 64 tokens, the four-launch pipeline for longer
+windows (``plan_for`` mirrors the kernel's choice);
 ``xla_window_attention_block`` is its plain PyTorch twin and mirrors the JAX
 twin op for op: flax LayerNorm in fp32 (``block_attention._ln_f32``, the
 formula of ``window_attention.py:45-51``), fp32 products of bf16-rounded
@@ -16,13 +18,76 @@ there too, so the port computes each window on its own.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from vit_tpu_torch.core.utils import round_up
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
-from vit_tpu_torch.ops.flash_attention import check_core_shape
+from vit_tpu_torch.ops.flash_attention import MAX_SMEM, check_core_shape
+
+# The kernel's routes, by the C code of each (csrc/window_attention_block.cu
+# win::Variant): the four-launch pipeline, and the fused kernel with the
+# output's fp32 sums in registers or with every head's P V in an o tile.
+VARIANTS = ("four-launch", "registers", "o-tile")
+MAX_FUSED_S = 64  # the longest window of the fused kernel
+_MAX_WARPS, _NC, _STAGES = 8, 64, 3
+
+
+class WindowPlan(NamedTuple):
+    """How the kernel runs a window shape (``win::plan_for``): its route
+    (``VARIANTS``), the windows a block (0 on the four-launch route) and a
+    block's shared-memory bytes."""
+
+    route: str
+    groups: int
+    smem_bytes: int
+
+
+def _smem_bytes(variant: str, g: int, s: int, c: int, heads: int, d: int):
+    """``win::layout``: the bytes of a block (the xn tile, the K and V tiles
+    or the output staging, the o tile of the o-tile variant, the weight ring
+    of 64- or 128-row tiles), and of the region that stages rows of x (the
+    K, V and o tiles)."""
+    a = lambda v: round_up(v, 128)
+    rows = g * round_up(s, 16)
+    warps = rows // 16
+    kv = max(2 * rows * (d + 8) * 2, warps * 16 * (_NC + 8) * 4)
+    o_tile = a(rows * (heads * d + 8) * 2) if variant == "o-tile" else 0
+    kr = 128 if c > 64 and d <= 64 else 64
+    stage = a(kr * (max(d, _NC) + 8) * 2)
+    return a(rows * (round_up(c, 16) + 8) * 2) + a(kv) + o_tile + _STAGES * stage, a(kv) + o_tile
+
+
+def plan_for(s: int, c: int, heads: int, d: int) -> WindowPlan:
+    """The kernel's plan for windows of ``s`` tokens of width ``c``,
+    ``heads`` heads of ``d``, operands on 16-byte boundaries
+    (``win::plan_for``, mirrored). The fused routes take S <= 64, d % 16 == 0
+    up to 128 and c % 8 == 0; ``registers`` also needs d == 64 and c <= 256
+    (Twins' three LSA stages), ``o-tile`` takes the rest while a block of
+    one window fits 227 KB; other shapes run the four-launch pipeline.
+    Blocks of 8 warps (two windows of 33-64 tokens), fewer windows while the
+    tiles exceed 227 KB or an fp32 row of x exceeds the bytes that stage
+    it."""
+    four = WindowPlan("four-launch", 0, 0)
+    if not (1 <= s <= MAX_FUSED_S and d % 16 == 0 and 16 <= d <= 128 and c % 8 == 0 and c >= 8):
+        return four
+
+    def fit(variant):
+        wpw = round_up(s, 16) // 16
+        for g in range(max(1, _MAX_WARPS // wpw), 0, -1):
+            nbytes, x_region = _smem_bytes(variant, g, s, c, heads, d)
+            if nbytes <= MAX_SMEM and x_region >= 4 * c:
+                return WindowPlan(variant, g, nbytes)
+        return None
+
+    return (fit("registers") if d == 64 and c <= 256 else None) or fit("o-tile") or four
+
+
+def route(s: int, c: int, heads: int, d: int) -> str:
+    """The kernel's route for this window shape (``plan_for``)."""
+    return plan_for(s, c, heads, d).route
 
 
 def xla_window_attention_block(
@@ -69,7 +134,9 @@ def fused_window_attention_block(
     ``ln_bias`` and ``bout`` fp32 ``[C]``; ``bias`` an optional per-window
     bias shared by every window, any shape that reshapes to ``[1|H, S, S]``
     (fp32 in the kernel). No residual. Returns a new tensor of ``xw``'s shape
-    and dtype, computed on the current stream."""
+    and dtype, computed on the current stream. The route follows
+    ``plan_for``; an ``xw`` or weights that do not start on a 16-byte
+    boundary take the four-launch pipeline."""
     if not xw.is_cuda:
         raise ValueError("fused_window_attention_block takes CUDA tensors")
     if xw.dim() != 3 or xw.dtype not in (torch.bfloat16, torch.float32):
@@ -108,12 +175,15 @@ def fused_window_attention_block(
     if scale is None:
         scale = d**-0.5
 
+    four_launch = plan_for(s, c, heads, d).route == "four-launch"  # the kernel's choice, mirrored
+    # the fused kernel copies x and the weights 16 bytes at a time
+    four_launch |= any(t.data_ptr() % 16 for t in (xw, wqkv, wout))
     lib = _build.load_library()
     rows = nw * s
     opts = dict(device=xw.device, dtype=torch.bfloat16)
-    xn = torch.empty(rows, c, **opts)
-    qkv = torch.empty(rows, 3 * hd, **opts)
-    attn = torch.empty(rows, hd, **opts)
+    scratch = [None] * 3  # xn, qkv, attn: only the four-launch pipeline stores them
+    if four_launch:
+        scratch = [torch.empty(rows, n, **opts) for n in (c, 3 * hd, hd)]
     out = torch.empty_like(xw)
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
@@ -122,7 +192,7 @@ def fused_window_attention_block(
             ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
             None if bias is None else bias.data_ptr(), bias_h,
-            out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
             nw, s, c, heads, d, float(scale), float(ln_eps), stream,
         )
     _build.check(lib, rc, "window_attention_block kernel")
