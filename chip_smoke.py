@@ -18,11 +18,14 @@ Runs, in order, and exits non-zero at the first failure:
   4. the kernel path's logits against the port's plain fp32 path;
   5. times: img/s and p50 latency, kernels against the plain path; device
      time by kernel of one bf16 forward at batch 128 (torch.profiler);
-  6. the int8 (W8A8) slice: the int8 GEMM and the row quantizer bit-exact
-     against torch._int_mm and quantize_rows, the three int8-path kernels
+  6. the int8 (W8A8) slice: both int8 GEMMs (kernel 10's WMMA one, and
+     kernel 9's s8 wgmma one with its weights K-major, at ViT-L's shapes,
+     4096 x 1024 x 1024 and tails) and the row quantizer bit-exact against
+     torch._int_mm and quantize_rows, the three int8-path kernels
      against their twins (the fused-qkv attention at ViT-L batch 1, 8 and
      128 and at small bias shapes; the two W8A8 blocks stage by stage, and the twins
-     with a fault planted shown to fail their bound), and ``quantize_vit`` of
+     with a fault planted shown to fail their bound, as kernel 9 must when
+     fed the square wout in [in, out] where [out, in] belongs), and ``quantize_vit`` of
      the same ViT-L served in the ``auto`` mode through ``BatchingServer``
      (buckets 1 and 4 run ``w8`` / ``w8a8`` on the fused-qkv attention
      kernel, 16 and 64 the two W8A8 block kernels), with the launch counts
@@ -58,9 +61,14 @@ Runs, in order, and exits non-zero at the first failure:
      four launches (torch.profiler), with each GEMM's TFLOP/s beside
      cuBLAS's on the same operands; the MLP kernel's three launches the
      same way at ViT-L batch 1, 8 and 128 (LayerNorm, then both products on
-     the wgmma GEMM, or the run fails); the talking-heads kernel's four
-     launches the same way at the CaiT preset (LayerNorm, the wgmma GEMM,
-     the head-mix core, the wgmma GEMM, or the run fails); the window kernel
+     the wgmma GEMM, or the run fails); the talking-heads and re-attention
+     kernels' four launches the same way at the CaiT and DeepViT presets
+     (LayerNorm, the wgmma GEMM, the head-mix core, the wgmma GEMM, or the
+     run fails); the W8A8 attention block's five launches at ViT-L
+     (LayerNorm and quantizer, the s8 wgmma GEMM, the register-resident
+     core, the quantizer, the s8 wgmma GEMM, or the run fails) with each
+     GEMM's TOPS beside torch._int_mm's; the s8 wgmma GEMM alone at 4096 x
+     1024 x 1024 beside torch._int_mm and the WMMA GEMM; the window kernel
      at Twins' three LSA stages, each one launch of the fused kernel (or the
      run fails); kernel 3 also at batch 1 and 4 (the int8 buckets that run
      it) and kernel 4 at the other three GSA shapes, each beside SDPA;
@@ -361,6 +369,16 @@ def planted_fault(fault: str):
         yield
 
 
+def qblock_kernel_args(args):
+    """Kernel 9's arguments from its twin's (QBLOCK_ARGS): the two int8
+    weights K-major, ``[out, in]``, as ``QuantViT`` keeps them for it."""
+    from vit_tpu_torch.ops.quant_block import kmajor
+
+    a = list(args)
+    a[3], a[5] = kmajor(args[3]), kmajor(args[5])
+    return a
+
+
 def quant_block_twin(args, heads=None, true_n=None, activation="gelu"):
     """The twin of kernel 9 (``heads`` given) or kernel 10."""
     from vit_tpu_torch.ops import quant_block as qb
@@ -385,7 +403,8 @@ def check_quant_block(name, args, heads=None, true_n=None, activation="gelu"):
         out = qb.fused_quant_mlp(*args, activation=activation, intermediates=st)
         w_b, s_b, bias = args[6:9]
     else:
-        out = qb.fused_quant_attention_block(*args, heads, true_n=true_n, intermediates=st)
+        out = qb.fused_quant_attention_block(*qblock_kernel_args(args), heads, true_n=true_n,
+                                             intermediates=st)
         w_b, s_b, bias = args[5:8]
     ref = quant_block_twin(args, heads, true_n, activation)
     torch.cuda.synchronize()
@@ -916,6 +935,20 @@ def phase_int8_kernels(dev):
         print(f"gemm_s8 [{m}x{k}] @ [{k}x{n}]: int32 sums differing from torch._int_mm: {differ} "
               f"(must be 0)")
         require(differ == 0, f"gemm_s8 {m}x{k}x{n}: {differ} int32 sums differ")
+    # kernel 9's s8 wgmma GEMM (b K-major): ViT-L's two products at batch 8, the
+    # 4096 x 1024 x 1024 dot of scripts/probe_int8.py (S7), and tails (the CPU's
+    # torch._int_mm takes every shape)
+    for m, k, n in ((rows, 1024, 3072), (rows, 1024, 1024), (4096, 1024, 1024), (5, 64, 48),
+                    (197, 1040, 16), (300, 208, 144)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        b_nk = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        got = qb.gemm_s8_sm90_i32(a, b_nk)
+        ref = int_mm(a, b_nk.t()) if m > 16 else int_mm(a.cpu(), b_nk.cpu().t()).to(dev)
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum().item())
+        print(f"gemm_s8_sm90 [{m}x{k}] @ [{n}x{k}]^T: int32 sums differing from torch._int_mm: "
+              f"{differ} (must be 0)")
+        require(differ == 0, f"gemm_s8_sm90 {m}x{k}x{n}: {differ} int32 sums differ")
 
     worst = {"qkv_attention": 0.0, "quant_attention_block": 0.0, "quant_mlp": 0.0}
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
@@ -963,6 +996,18 @@ def phase_int8_kernels(dev):
                       f"{(bad.float() - ref.float()).abs().max().item():.6g} (must fail the check)")
                 if ok:
                     fails.append(f"{name}: the bound does not see {fault}")
+            if name.startswith("quant_attention_block"):
+                # wout is square at ViT-L (1024 x 1024): its [in, out] codes pass the
+                # K-major shape check, so the bound has to see that layout
+                bad = qblock_kernel_args(a)
+                bad[5] = a[5]
+                out = qb.fused_quant_attention_block(*bad, kw["heads"])
+                ulps, differ, ok = int8_out_check(out, ref)
+                print(f"{name}: the kernel fed wout [in, out] where [out, in] belongs: {ulps:.3g} "
+                      f"bf16 ulps from the twin, {differ:.3g} of the values differ (must fail "
+                      f"the check)")
+                if ok:
+                    fails.append(f"{name}: the bound does not see wout in the wrong layout")
     require(not fails, "; ".join(fails))
     return worst
 
@@ -1697,25 +1742,31 @@ def window_block_launches(w, heads, what, smi):
           f"block, {plan.smem_bytes} B) [{smi}]")
 
 
-# What the names of the talking-heads kernel's four launches hold, in order:
-# the LayerNorm rows, the wgmma GEMM, the head-mix core, the wgmma GEMM.
+# What the names of the four launches of the head-mixing kernels 7 and 8
+# hold, in order: the LayerNorm rows, the wgmma GEMM, the head-mix core, the
+# wgmma GEMM.
 TH_KERNELS = ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "head_mix_kernel",
               "gemm_bf16_sm90_kernel")
 TH_LAUNCHES = ("ln", "qkv gemm", "head mix", "out gemm")
+HM_WHAT = {"th": ("talking_heads_block", "CaiT preset"),
+           "ra": ("reattention_block", "DeepViT preset")}
 
 
-def talking_heads_launches(h, heads, smi):
-    """One op line: kernel 7's device time at these inputs split into its
-    four launches (torch.profiler), each GEMM's TFLOP/s beside one cuBLAS
-    product of the same operands. Fails unless they are TH_KERNELS."""
+def head_mix_launches(kind, h, heads, smi):
+    """One op line: kernel 7's (``kind`` "th") or 8's ("ra") device time at
+    these inputs split into its four launches (torch.profiler), each GEMM's
+    TFLOP/s beside one cuBLAS product of the same operands, and the core's
+    plan. Fails unless they are TH_KERNELS."""
     from vit_tpu_torch.tools.ab_attention import launch_ms
 
     rb = _rb()
     x, wqkv, wout = h[0], h[3], h[4]
-    split = launch_ms(lambda: rb.fused_talking_heads_block(*h, heads), len(TH_KERNELS))
-    names = [name for name, _ in split]
-    require(all(key in name for key, name in zip(TH_KERNELS, names)),
-            f"talking_heads_block launched {names}, not {list(TH_KERNELS)}")
+    name, preset = HM_WHAT[kind]
+    fused = rb.fused_talking_heads_block if kind == "th" else rb.fused_reattention_block
+    split = launch_ms(lambda: fused(*h, heads), len(TH_KERNELS))
+    names = [n for n, _ in split]
+    require(all(key in n for key, n in zip(TH_KERNELS, names)),
+            f"{name} launched {names}, not {list(TH_KERNELS)}")
     rows, dim = x.shape[0] * x.shape[1], x.shape[2]
     flops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
     xn = torch.randn(rows, dim, device=x.device).bfloat16()
@@ -1728,10 +1779,82 @@ def talking_heads_launches(h, heads, smi):
             part += (f" ({flops[what] / t / 1e9:.1f} TFLOP/s; cuBLAS {cublas[what]:.4f} ms, "
                      f"{flops[what] / cublas[what] / 1e9:.1f} TFLOP/s)")
         parts.append(part)
-    print(f"op talking_heads_block CaiT preset batch {x.shape[0]} {str(x.dtype)[6:]} launches "
+    plan = rb.head_mix_plan(x.shape[1], heads, wqkv.shape[1] // 3 // heads)
+    print(f"op {name} {preset} batch {x.shape[0]} {str(x.dtype)[6:]} launches "
           f"(device): {sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
-    print("op talking_heads_block kernels: "
+    print(f"op {name} kernels: "
+          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names)
+          + f" (head-mix core {plan.variant}, {plan.slab_tiles} key tiles a slab, "
+          f"{plan.stages} ring stages, {plan.smem_bytes} B)")
+
+
+# What the names of kernel 9's five launches hold, in order: the LayerNorm and
+# row quantizer, the s8 wgmma GEMM, the register-resident attention core, the
+# row quantizer, the s8 wgmma GEMM.
+Q9_KERNELS = ("ln_quant_rows_kernel", "gemm_s8_sm90_kernel", "attention_sm90_",
+              "quant_rows_kernel", "gemm_s8_sm90_kernel")
+Q9_LAUNCHES = ("ln quant", "qkv gemm", "attention", "quant rows", "out gemm")
+
+
+def quant_block_launches(q, heads, smi):
+    """One op line: kernel 9's device time at these inputs (QBLOCK_ARGS)
+    split into its five launches (torch.profiler), each GEMM's TOPS beside
+    one torch._int_mm of the same operands: the card measurement of the
+    attention-block half of scripts/tune_quant_r3.py's phase split (S6).
+    Fails unless they are Q9_KERNELS."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    x, wqkv, wout = q[0], q[3], q[5]
+    kq = qblock_kernel_args(q)
+    split = launch_ms(lambda: qb.fused_quant_attention_block(*kq, heads), len(Q9_KERNELS))
+    names = [n for n, _ in split]
+    require(all(key in n for key, n in zip(Q9_KERNELS, names)),
+            f"quant_attention_block launched {names}, not {list(Q9_KERNELS)}")
+    rows, dim = x.shape[0] * x.shape[1], x.shape[2]
+    ops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 40)
+    xq = torch.randint(-127, 128, (rows, dim), generator=gen, device=x.device, dtype=torch.int8)
+    aq = torch.randint(-127, 128, (rows, wout.shape[0]), generator=gen, device=x.device,
+                       dtype=torch.int8)
+    lib = {"qkv gemm": cuda_ms(lambda: torch._int_mm(xq, wqkv)),
+           "out gemm": cuda_ms(lambda: torch._int_mm(aq, wout))}
+    parts = []
+    for what, (_, t) in zip(Q9_LAUNCHES, split):
+        part = f"{what} {t:.4f} ms"
+        if what in ops:
+            part += (f" ({ops[what] / t / 1e9:.1f} TOPS; torch._int_mm {lib[what]:.4f} ms, "
+                     f"{ops[what] / lib[what] / 1e9:.1f} TOPS)")
+        parts.append(part)
+    print(f"op quant_attention_block ViT-L int8 batch {x.shape[0]} launches (device): "
+          f"{sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
+    print("op quant_attention_block kernels: "
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+
+
+def gemm_s8_sm90_line(dev, smi):
+    """One op line: the s8 wgmma GEMM at scripts/probe_int8.py's 4096 x 1024
+    x 1024 int8 dot (S7), raw int32 sums, beside torch._int_mm and the WMMA
+    GEMM of kernel 10 on the same operands, against its bound; the sums must
+    equal torch._int_mm's."""
+    from vit_tpu_torch.ops import quant_block as qb
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    m, k, n = 4096, 1024, 1024
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    b_nk = b.t().contiguous()
+    differ = int((qb.gemm_s8_sm90_i32(a, b_nk) != torch._int_mm(a, b)).sum().item())
+    require(differ == 0, f"gemm_s8_sm90 S7: {differ} int32 sums differ from torch._int_mm")
+    ops = 2 * m * k * n
+    t = cuda_ms(lambda: qb.gemm_s8_sm90_i32(a, b_nk), iters=50)
+    lib = cuda_ms(lambda: torch._int_mm(a, b), iters=50)
+    wmma = cuda_ms(lambda: qb.gemm_s8_i32(a, b), iters=50)
+    bnd, by = bound(int8_ops=ops, nbytes=m * k + k * n + 4 * m * n)
+    print(f"op gemm_s8_sm90 S7 [{m}x{k}] @ [{n}x{k}]^T int32: kernel {t:.4f} ms "
+          f"({ops / t / 1e9:.1f} TOPS), torch._int_mm {lib:.4f} ms ({ops / lib / 1e9:.1f} TOPS), "
+          f"gemm_s8 (WMMA) {wmma:.4f} ms ({ops / wmma / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}; "
+          f"{bnd / t:.1%} of it); sums differing from torch._int_mm: {differ} [{smi}]")
 
 
 # What the names of the MLP kernel's three launches hold, by its GEMM route
@@ -1838,14 +1961,17 @@ def phase_op_times(dev, smi):
             del qkv
         q_in = qblock_inputs(gen, b, n, dim, heads, d, dev)
         q = [q_in[k] for k in QBLOCK_ARGS]
+        kq = qblock_kernel_args(q)
         ms["quant_attention_block"] = (
-            cuda_ms(lambda: qb.fused_quant_attention_block(*q, heads)),
+            cuda_ms(lambda: qb.fused_quant_attention_block(*kq, heads)),
             cuda_ms(lambda: qb.xla_quant_attention_block(*q, heads, d**-0.5), iters=5),
             cuda_ms(lambda: library_quant_block(*q, heads)),
             bound(attn_flops, 2 * rows * dim * 3 * hd + 2 * rows * hd * dim,
                   nbytes=size(*q) + size(q[0])),
         )
-        del q, q_in
+        quant_block_launches(q, heads, smi)
+        del q, kq, q_in
+        gemm_s8_sm90_line(dev, smi)
         qm_in = qmlp_inputs(gen, 8, 16 * n, dim, f, torch.bfloat16, dev)
         qm = [qm_in[k] for k in QMLP_ARGS]
         ms["quant_mlp"] = (
@@ -1877,8 +2003,7 @@ def phase_op_times(dev, smi):
                 bound(2 * rows_h * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows_h * hd * dim,
                       nbytes=size(*h) + size(h[0]), fp32_flops=mix_flops),
             )
-            if kind == "th":
-                talking_heads_launches(h, heads, smi)
+            head_mix_launches(kind, h, heads, smi)
             del h, lib_h
         # kernels 4 and 6 at the Twins preset's stage 1: GSA (3136 queries, 64
         # keys) and LSA (64 windows of 49 tokens an image), no bias
@@ -2221,12 +2346,17 @@ def main() -> int:
         "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:53"),
         "qkv_attention": ("vit_tpu_torch/csrc/qkv_attention.cu",
                           "vit_tpu/ops/qkv_attention.py:32"),
-        "quant_attention_block": ("vit_tpu_torch/csrc/quant_block.cu",
+        "quant_attention_block": ("vit_tpu_torch/csrc/quant_block.cu, "
+                                  "vit_tpu_torch/csrc/gemm_s8_sm90.cuh, "
+                                  "vit_tpu_torch/csrc/attention_core_sm90.cuh",
                                   "vit_tpu/ops/quant_block.py:37"),
         "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu", "vit_tpu/ops/quant_block.py:189"),
-        "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu",
+        "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu, "
+                                "vit_tpu_torch/csrc/head_mix_core.cuh",
                                 "vit_tpu/ops/reattention_block.py:146"),
-        "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu",
+        "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu, "
+                              "vit_tpu_torch/csrc/gemm_sm90.cuh, "
+                              "vit_tpu_torch/csrc/head_mix_core.cuh",
                               "vit_tpu/ops/reattention_block.py:38"),
         "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
                             "vit_tpu/ops/flash_attention.py:45"),

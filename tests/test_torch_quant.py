@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INT8_FAULTS, bf16_ulps, check_quant_block, codes_differ, int8_out_check,
-                        kernel_tol, planted_fault, quant_block_twin, tie_rows)
+from chip_smoke import (INT8_FAULTS, INT8_ROWS_TOL, bf16_ulps, check_quant_block, codes_differ,
+                        int8_out_check, kernel_tol, planted_fault, qblock_kernel_args,
+                        quant_block_twin, tie_rows)
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import quant as tq
 from vit_tpu_torch.ops import quant_block as tqb
@@ -347,6 +348,37 @@ def test_gemm_s8_is_exact(cuda, m, k, n):
     torch.testing.assert_close(tqb.gemm_s8_i32(a, b).cpu(), ref, rtol=0, atol=0)
 
 
+# Kernel 9's s8 wgmma GEMM (csrc/gemm_s8_sm90.cuh, b K-major [N, K]): ViT-L's
+# qkv and out products at batch 1 and 8, the 4096 x 1024 x 1024 dot of
+# scripts/probe_int8.py, and tails: M 5 and 197, N and K multiples of 16 that
+# do not fill a 128 x 128 x 128 tile.
+S8_SM90_SHAPES = [(197, 1024, 3072), (197, 1024, 1024), (1576, 1024, 3072), (1576, 1024, 1024),
+                  (4096, 1024, 1024), (5, 64, 48), (197, 1040, 16), (300, 208, 144),
+                  (5, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", S8_SM90_SHAPES)
+def test_gemm_s8_sm90_is_exact(cuda, m, k, n):
+    """The s8 wgmma GEMM gives torch._int_mm's int32 sums bit for bit (on
+    the CPU, which takes every shape)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+    b_nk = torch.randint(-127, 128, (n, k), generator=gen, device=cuda, dtype=torch.int8)
+    ref = tq.int_mm(a.cpu(), b_nk.cpu().t())
+    torch.testing.assert_close(tqb.gemm_s8_sm90_i32(a, b_nk).cpu(), ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_gemm_s8_sm90_refuses_what_tma_cannot_read(cuda):
+    a = torch.zeros(32, 40, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tqb.gemm_s8_sm90_i32(a, torch.zeros(32, 40, device=cuda, dtype=torch.int8))
+    a = torch.zeros(32 * 64 + 1, device=cuda, dtype=torch.int8)[1:].view(32, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tqb.gemm_s8_sm90_i32(a, torch.zeros(32, 64, device=cuda, dtype=torch.int8))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fn", ["quantize_rows", "quantize_channelwise"])
 def test_quantizers_on_the_card_match_the_cpu(cuda, fn):
@@ -403,6 +435,45 @@ def test_quant_attention_block_kernel_matches_twin(cuda, n, true_n, heads, d):
     assert ops.launch_counts()["quant_attention_block"] == before + 1
     assert out.dtype == torch.bfloat16 and out.shape == t["x"].shape
     assert not fails, fails
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,heads,d", [(197, 16, 64), (48, 4, 64), (40, 4, 32), (300, 2, 64)])
+def test_quant_attention_rows_are_fp32_on_the_sm90_core(cuda, n, heads, d):
+    """Kernel 9's attention stage (the register-resident core with fp32 rows
+    out: ViT-L's 197 tokens, 4 key tiles, the streamed variant at Dh 32 and
+    past 208 keys) against the twin's on the kernel's own qkv."""
+    inp = _qblock_inputs(17, 2, n, heads * d, heads, d)
+    t = _cast(inp, "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    args = [t[k] for k in QBLOCK_ARGS]
+    st = {}
+    tqb.fused_quant_attention_block(*qblock_kernel_args(args), heads, intermediates=st)
+    torch.cuda.synchronize()
+    assert st["attn"].dtype == torch.float32
+    ref = tqb._attention_f32(st["qkv"].view(2, n, -1), heads, d**-0.5).reshape(2 * n, -1)
+    rel = ((st["attn"] - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= INT8_ROWS_TOL["attention"], rel
+
+
+@pytest.mark.cuda
+def test_quant_attention_block_sees_wout_in_the_wrong_layout(cuda):
+    """``wout`` is square at these widths (and at ViT-L's), so vit_tpu's
+    [in, out] codes pass the K-major shape check: fed where [out, in]
+    belongs, the output must fail kernel 9's bound."""
+    t = _cast(_qblock_inputs(18, 2, 197, 256, 4, 64), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    args = [t[k] for k in QBLOCK_ARGS]
+    bad = qblock_kernel_args(args)
+    bad[5] = args[5]
+    out = tqb.fused_quant_attention_block(*bad, 4)
+    ulps, differ, ok = int8_out_check(out, quant_block_twin(args, heads=4))
+    assert not ok and ulps > 2 * 8.0, (ulps, differ)
+
+
+@pytest.mark.cuda
+def test_quant_attention_block_refuses_wqkv_in_the_wrong_layout(cuda):
+    t = _cast(_qblock_inputs(19, 1, 17, 64, 4, 16), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    with pytest.raises(TypeError, match="K-major"):
+        tqb.fused_quant_attention_block(*(t[k] for k in QBLOCK_ARGS), 4)
 
 
 @pytest.mark.cuda

@@ -77,6 +77,39 @@ def test_quantize_vit_matches_jax_and_from_jax_quant_round_trips():
     assert tm.encoder.blocks[0].attn.qkv_kernel.dtype == torch.float32
 
 
+def _kmajor_follows(qm):
+    for block in qm.encoder.blocks:
+        a = block.attn
+        for name in ("qkv_kernel", "out_kernel"):
+            copy = getattr(a, f"{name}_kmajor")
+            assert copy.is_contiguous() and copy.dtype == torch.int8
+            torch.testing.assert_close(copy, getattr(a, name).t(), rtol=0, atol=0)
+
+
+def test_quant_vit_keeps_k_major_codes_beside_the_state_dict():
+    """The attention-block kernel reads the int8 weights K-major: QuantViT
+    derives those copies when it is built and after each load_state_dict
+    (strict loading of from_jax_quant's tree included), and keeps them out of
+    the state dict, whose codes stay in vit_tpu's [in, out] layout."""
+    from vit_tpu.utils.quantize import quantize_vit as jax_quantize_vit
+
+    _, variables, tm = _jax_pair(None)
+    qm = quantize_vit(tm)
+    _kmajor_follows(qm)
+    assert not any("kmajor" in k for k in qm.state_dict())
+    fresh = QuantViT(**CFG, device="cpu")
+    _kmajor_follows(fresh)
+    fresh.load_state_dict(from_jax_quant(jax_quantize_vit(variables)), strict=True)
+    _kmajor_follows(fresh)
+    torch.testing.assert_close(fresh.encoder.blocks[1].attn.out_kernel_kmajor,
+                               qm.encoder.blocks[1].attn.out_kernel_kmajor, rtol=0, atol=0)
+    state = {k: -v if v.dtype == torch.int8 else v for k, v in qm.state_dict().items()}
+    fresh.load_state_dict(state, strict=True)  # a second load moves them again
+    _kmajor_follows(fresh)
+    torch.testing.assert_close(fresh.encoder.blocks[0].attn.qkv_kernel_kmajor,
+                               -qm.encoder.blocks[0].attn.qkv_kernel_kmajor, rtol=0, atol=0)
+
+
 def test_from_jax_quant_refuses_a_qkv_bias_tree():
     _, variables, _ = _jax_pair(None)
     from vit_tpu.utils.quantize import quantize_vit as jax_quantize_vit

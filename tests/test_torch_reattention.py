@@ -194,6 +194,45 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         trb.fused_reattention_block(*(ra[k] for k in RA_ARGS), 2)
 
 
+# (n, heads, dim_head) -> (variant, slab tiles, ring stages, shared-memory
+# bytes) of the head-mix core of kernels 7 and 8 (csrc/head_mix_core.cuh
+# hmix::plan_for, mirrored by head_mix_plan; the card test below holds the
+# mirror to the C code): the CaiT and DeepViT presets, CARD_CASES' other
+# shapes, the widest rows at Dh 16, 64 and 128, and one head.
+HEAD_MIX_PLANS = [
+    ((64, 16, 64), ("resident", 4, 4, 215168)),   # CaiT preset
+    ((65, 16, 64), ("resident", 5, 4, 231552)),   # DeepViT preset
+    ((197, 16, 64), ("streamed", 7, 3, 227456)),
+    ((200, 16, 48), ("streamed", 8, 3, 219264)),
+    ((256, 16, 128), ("streamed", 5, 2, 223360)),
+    ((65, 16, 128), ("resident", 5, 2, 223360)),
+    ((128, 16, 128), ("streamed", 5, 2, 223360)),
+    ((256, 16, 16), ("streamed", 11, 3, 219264)),
+    ((112, 16, 64), ("resident", 7, 3, 227456)),  # the 8-tile register row, 16 heads
+    ((50, 3, 16), ("resident", 4, 4, 23680)),
+    ((5, 2, 16), ("resident", 1, 4, 10368)),
+    ((256, 1, 128), ("streamed", 16, 3, 31616)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", HEAD_MIX_PLANS)
+def test_head_mix_plan_is_pinned(shape, plan):
+    assert tuple(trb.head_mix_plan(*shape)) == plan
+
+
+def test_head_mix_plan_covers_the_kernels_domain():
+    """Every shape the wrappers take (n <= 256, heads <= 16, dim_head % 16
+    == 0 up to 128) has a plan that fits 227 KB."""
+    for n in (1, 16, 17, 65, 128, 129, 197, 256):
+        for heads in (1, 3, 16):
+            for d in (16, 48, 64, 128):
+                p = trb.head_mix_plan(n, heads, d)
+                assert p.slab_tiles >= 1 and 2 <= p.stages <= 4, (n, heads, d, p)
+                assert p.smem_bytes <= 232448, (n, heads, d, p)
+                if p.variant == "resident":  # the whole row in one slab, in registers
+                    assert p.slab_tiles == -(-n // 16) <= 8, (n, heads, d, p)
+
+
 # -- on the card: each kernel against its twin --------------------------------
 
 
@@ -230,6 +269,12 @@ CARD_CASES = [
     ("th", 256, 16, 128, "bfloat16"), ("th", 200, 16, 48, "bfloat16"), ("th", 5, 2, 16, "float32"),
     ("ra", 65, 16, 64, "bfloat16"), ("ra", 65, 16, 64, "float32"), ("ra", 197, 16, 64, "bfloat16"),
     ("ra", 256, 16, 128, "bfloat16"), ("ra", 200, 16, 48, "bfloat16"), ("ra", 50, 3, 16, "float32"),
+    # the head-mix core's plans: a resident row at Dh 128, a streamed one at Dh 16 (11-tile slab)
+    ("th", 65, 16, 128, "bfloat16"), ("ra", 65, 16, 128, "bfloat16"),
+    ("th", 256, 16, 16, "bfloat16"), ("ra", 256, 16, 16, "bfloat16"),
+    ("th", 129, 1, 128, "float32"), ("ra", 1, 2, 16, "bfloat16"),
+    # the resident variant's 8-tile score row (6-8 key tiles)
+    ("th", 112, 16, 64, "bfloat16"), ("ra", 112, 16, 64, "bfloat16"), ("ra", 128, 4, 32, "float32"),
 ]
 
 
@@ -328,11 +373,38 @@ def test_kernels_refuse_what_they_do_not_cover(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["th", "ra"])
-def test_kernel_is_batch_invariant(cuda, kind):
-    args = _card(kind, 5, 65, 256, 16, 64, "bfloat16", cuda, seed=3)
+@pytest.mark.parametrize("n", [65, 197])  # the core's resident and streamed variants
+def test_kernel_is_batch_invariant(cuda, kind, n):
+    args = _card(kind, 5, n, 256, 16, 64, "bfloat16", cuda, seed=3)
     full = _run(kind, args, 16)
     alone = _run(kind, [args[0][3:4].contiguous(), *args[1:]], 16)
     torch.testing.assert_close(alone, full[3:4], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", HEAD_MIX_PLANS)
+def test_head_mix_plan_mirrors_the_kernel(cuda, shape, plan):
+    import ctypes
+
+    from vit_tpu_torch.ops import _build
+
+    got = (ctypes.c_int * 4)()
+    assert _build.load_library().vt_head_mix_plan(*shape, ctypes.cast(got, ctypes.c_void_p)) == 0
+    assert (trb.HEAD_MIX_VARIANTS[got[0]], got[1], got[2], got[3]) == plan
+
+
+@pytest.mark.cuda
+def test_reattention_refuses_a_misaligned_operand(cuda):
+    """Kernel 8's products run on the wgmma GEMM, whose TMA loads need
+    16-byte starts: x one element into its storage is refused before any
+    launch."""
+    args = _card("ra", 2, 65, 256, 4, 64, "bfloat16", cuda, seed=9)
+    x = torch.empty(args[0].numel() + 1, device=cuda, dtype=args[0].dtype)[1:]
+    x = x.view_as(args[0]).copy_(args[0])
+    before = ops.launch_counts()["reattention_block"]
+    with pytest.raises(ValueError, match="16-byte"):
+        trb.fused_reattention_block(x, *args[1:], 4)
+    assert ops.launch_counts()["reattention_block"] == before
 
 
 # -- kernel 7's products on the wgmma GEMM (csrc/gemm_sm90.cuh) -------------------

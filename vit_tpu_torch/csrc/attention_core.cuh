@@ -1,10 +1,7 @@
-// The softmax-attention core shared by two kernels:
-//   - the window attention block (window_attention_block.cu, kernel 6): one
-//     window per batch entry, a per-window bias shared by every window;
-//   - the W8A8 attention block (quant_block.cu, kernel 9): fp32 output,
-//     true_n mask.
-// The float attention block (kernel 1), the fused-qkv attention (kernel 3)
-// and the flash attention (kernel 4) run on the register-resident core of
+// The softmax-attention core of the window attention block's four-launch
+// route (window_attention_block.cu, kernel 6, windows of more than 64 tokens
+// or tiles past 227 KB): one window per batch entry, a per-window bias shared
+// by every window. Kernels 1, 3, 4 and 9 run on the register-resident core of
 // attention_core_sm90.cuh, which computes the same softmax and takes its
 // Operand, Problem and ScoreTerms from here.
 //
@@ -43,8 +40,8 @@ constexpr int QT = 32;  // query rows per block
 constexpr int KC = 64;  // keys per K/V chunk in shared memory
 constexpr int WARPS = 4, THREADS = WARPS * 32;
 constexpr int MAX_SMEM = 232448;  // 227 KB, the most one block may use
-// flash_attention.py:40: the mask_self diagonal. The key mask (kernel 9 here,
-// kernel 1 on attention_core_sm90.cuh) keeps block_attention.py's -1e30.
+// flash_attention.py:40: the mask_self diagonal. The key mask (kernels 1 and
+// 9, on attention_core_sm90.cuh) keeps block_attention.py's -1e30.
 constexpr float MASK_SELF = -0.7f * FLT_MAX;
 
 struct Layout {
@@ -56,7 +53,7 @@ __host__ __device__ inline size_t align128(size_t v) { return (v + 127) & ~size_
 
 // Shared memory: the Q tile, one K or V chunk, the fp32 score rows of the
 // tile over all Nk keys (reused to stage the output), and the bf16 P rows.
-// With Dv == D it is the fused-qkv layout's (kernels 6 and 9).
+// With Dv == D it is the fused-qkv layout's (kernel 6).
 __host__ __device__ inline Layout layout(int Nk, int D, int Dv) {
   Layout L;
   L.n_pad = (Nk + KC - 1) / KC * KC;
@@ -268,7 +265,7 @@ cudaError_t attention_core(attn::Operand<const bf16> q, attn::Operand<const bf16
 }
 
 // Self-attention on the fused [B*N, 3*H*Dh] qkv rows ([q | k | v], each
-// [H, Dh]) into out [B*N, H*Dh]: the layout of kernels 6 and 9.
+// [H, Dh]) into out [B*N, H*Dh]: the layout of kernel 6's four-launch route.
 template <typename OutT>
 cudaError_t attention_core(const bf16* qkv, OutT* out, int B, int N, int H, int Dh, float scale,
                            attn::ScoreTerms st, cudaStream_t stream) {

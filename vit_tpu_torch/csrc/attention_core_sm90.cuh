@@ -1,5 +1,7 @@
-// The register-resident softmax-attention core for Hopper, under kernels 3
-// (qkv_attention.cu) and 4 (flash_attention.cu).
+// The register-resident softmax-attention core for Hopper, under kernels 1
+// (attention_block.cu), 3 (qkv_attention.cu), 4 (flash_attention.cu) and 9
+// (quant_block.cu, which takes its rows in fp32, unrounded: store_out's fp32
+// overload; the bf16 instances are the same code as before it).
 //
 // What it computes is the exact softmax of attention_core.cuh, per query row
 // in jax.nn.softmax's order (vit_tpu/ops/qkv_attention.py:54-70,
@@ -356,21 +358,41 @@ __device__ __forceinline__ void store_out(const float (&o)[2 * DVN][4], bf16* q_
   }
 }
 
+// o unrounded into fp32 rows (kernel 9's attention, quantized per row over
+// all heads next): straight from the accumulators, a value pair a lane, so
+// that a quad's four pairs fill one 32-byte sector.
+template <int DVN, bool FIXED>
+__device__ __forceinline__ void store_out(const float (&o)[2 * DVN][4], bf16*, int, float* dst,
+                                          long long sr, int row0, int Nq, int Dv, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2 * DVN; ++n) {
+    if (FIXED || n < Dv / 8) {
+      float* p = dst + (row0 + g) * sr + n * 8 + 2 * t4;
+      if (row0 + g < Nq) *reinterpret_cast<float2*>(p) = make_float2(o[n][0], o[n][1]);
+      if (row0 + g + 8 < Nq) *reinterpret_cast<float2*>(p + 8 * sr) = make_float2(o[n][2], o[n][3]);
+    }
+  }
+}
+
 // What every thread of a block derives from blockIdx and the problem.
+template <typename OutT>
 struct Block {
   int W, warp, lane, row_block, row_warp, nkt, nc;
   bool active;  // the warp has query rows
   const bf16 *qp, *kp, *vp;
-  bf16* op;
+  OutT* op;
   Rows R;
 };
 
-__device__ __forceinline__ Block block_setup(const Operand<const bf16>& q,
-                                             const Operand<const bf16>& k,
-                                             const Operand<const bf16>& v,
-                                             const Operand<bf16>& out, const Problem& pr,
-                                             float scale, const ScoreTerms& st, int groups) {
-  Block B;
+template <typename OutT>
+__device__ __forceinline__ Block<OutT> block_setup(const Operand<const bf16>& q,
+                                                   const Operand<const bf16>& k,
+                                                   const Operand<const bf16>& v,
+                                                   const Operand<OutT>& out, const Problem& pr,
+                                                   float scale, const ScoreTerms& st,
+                                                   int groups) {
+  Block<OutT> B;
   B.W = blockDim.x / 32;
   B.warp = threadIdx.x / 32;
   B.lane = threadIdx.x % 32;
@@ -404,16 +426,16 @@ __device__ __forceinline__ Block block_setup(const Operand<const bf16>& q,
 // (at most 4 + 4 chunks, 74 KB), and all are in flight from the start: Q and
 // K in one cp.async group, V in the next, so the block waits for memory once
 // for each while V arrives during passes 1 and 2.
-template <int KT>
+template <int KT, typename OutT>
 __global__ void __launch_bounds__(attn90::MAX_WARPS * 32)
 attention_sm90_resident(attn90::Operand<const bf16> q, attn90::Operand<const bf16> k,
-                        attn90::Operand<const bf16> v, attn90::Operand<bf16> out,
+                        attn90::Operand<const bf16> v, attn90::Operand<OutT> out,
                         attn90::Problem pr, float scale, attn90::ScoreTerms st, int groups) {
   using namespace attn90;
   constexpr int NC = (KT + 3) / 4;  // chunks of KC keys
   constexpr int DK = 4, DVN = 4, D = 16 * DK, Dv = 16 * DVN;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Block B = block_setup(q, k, v, out, pr, scale, st, groups);
+  const Block<OutT> B = block_setup(q, k, v, out, pr, scale, st, groups);
   const Layout L = layout(B.W, D, Dv, 0);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* q_warp = Qs + B.warp * 16 * L.ldq;
@@ -486,14 +508,14 @@ attention_sm90_resident(attn90::Operand<const bf16> q, attn90::Operand<const bf1
 // rows too long or heads too wide to keep in registers. Step s of the ring
 // is pass s / nc over chunk s % nc, in stage s % 2; pass 3's chunks carry K
 // and V.
-template <int DK, int DVN>
+template <int DK, int DVN, typename OutT>
 __global__ void __launch_bounds__(attn90::MAX_WARPS * 32)
 attention_sm90_streamed(attn90::Operand<const bf16> q, attn90::Operand<const bf16> k,
-                        attn90::Operand<const bf16> v, attn90::Operand<bf16> out,
+                        attn90::Operand<const bf16> v, attn90::Operand<OutT> out,
                         attn90::Problem pr, float scale, attn90::ScoreTerms st, int groups) {
   using namespace attn90;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Block B = block_setup(q, k, v, out, pr, scale, st, groups);
+  const Block<OutT> B = block_setup(q, k, v, out, pr, scale, st, groups);
   const int D = pr.D, Dv = pr.Dv, dk = D / 16, dvn = Dv / 16;
   const Layout L = layout(B.W, D, Dv, 0);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -568,19 +590,24 @@ attention_sm90_streamed(attn90::Operand<const bf16> q, attn90::Operand<const bf1
 
 namespace attn90 {
 constexpr int MAX_SMEM = 232448;  // 227 KB, the most one block may use
-// A kernel of the core; the resident ones hold every chunk at once.
+// A kernel of the core, by output type (bf16 rows; fp32 rows for kernel 9);
+// the resident ones hold every chunk at once.
+template <typename OutT>
 struct Variant {
-  void (*kernel)(Operand<const bf16>, Operand<const bf16>, Operand<const bf16>, Operand<bf16>,
+  void (*kernel)(Operand<const bf16>, Operand<const bf16>, Operand<const bf16>, Operand<OutT>,
                  Problem, float, ScoreTerms, int);
   bool resident;
 };
 
-inline Variant variant(const Problem& pr) {
+template <typename OutT = bf16>
+inline Variant<OutT> variant(const Problem& pr) {
   const int nkt = (pr.Nk + 15) / 16;
   if (pr.D == 64 && pr.Dv == 64 && nkt <= RESIDENT_TILES)
-    return {nkt <= 4 ? attention_sm90_resident<4> : attention_sm90_resident<RESIDENT_TILES>, true};
-  if (pr.D <= 64 && pr.Dv <= 64) return {attention_sm90_streamed<4, 4>, false};
-  return {attention_sm90_streamed<8, 8>, false};
+    return {nkt <= 4 ? attention_sm90_resident<4, OutT>
+                     : attention_sm90_resident<RESIDENT_TILES, OutT>,
+            true};
+  if (pr.D <= 64 && pr.Dv <= 64) return {attention_sm90_streamed<4, 4, OutT>, false};
+  return {attention_sm90_streamed<8, 8, OutT>, false};
 }
 
 // How a launch runs: warps a block and the shared memory a block takes.
@@ -600,7 +627,8 @@ struct Plan {
 //   ones; W = 4 was the fastest at all four shapes;
 // - then, while the blocks would leave more than three quarters of the SMs
 //   idle (ViT-L at batch 1: 32 blocks of 7), smaller blocks.
-inline Plan plan_for(const Variant& var, const Problem& pr) {
+template <typename OutT>
+inline Plan plan_for(const Variant<OutT>& var, const Problem& pr) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -617,17 +645,19 @@ inline Plan plan_for(const Variant& var, const Problem& pr) {
 }  // namespace attn90
 
 // The general entry: q [B, H, Nq, D], k [B, H, Nk, D], v [B, H, Nk, Dv], out
-// [B, H, Nq, Dv], each through its own strides (unit column stride; base, sb,
-// sh and sr 16-byte aligned). D, Dv multiples of 16 up to 128; any Nk >= 1.
+// [B, H, Nq, Dv] (bf16, or fp32 unrounded), each through its own strides
+// (unit column stride; base, sb, sh and sr 16-byte aligned). D, Dv multiples
+// of 16 up to 128; any Nk >= 1.
+template <typename OutT>
 inline cudaError_t attention_core_sm90(attn::Operand<const bf16> q, attn::Operand<const bf16> k,
-                                       attn::Operand<const bf16> v, attn::Operand<bf16> out,
+                                       attn::Operand<const bf16> v, attn::Operand<OutT> out,
                                        attn::Problem pr, float scale, attn::ScoreTerms st,
                                        cudaStream_t stream) {
   using namespace attn90;
   if (pr.D % 16 != 0 || pr.D < 16 || pr.D > 128 || pr.Dv % 16 != 0 || pr.Dv < 16 ||
       pr.Dv > 128 || pr.Nk < 1 || pr.Nq < 1 || pr.B < 1 || pr.H < 1)
     return cudaErrorInvalidValue;
-  const Variant var = variant(pr);
+  const Variant<OutT> var = variant<OutT>(pr);
   const Plan plan = plan_for(var, pr);
   const int groups = ((pr.Nq + 15) / 16 + plan.warps - 1) / plan.warps;
   const long long blocks = (long long)pr.B * pr.H * groups;
@@ -641,15 +671,16 @@ inline cudaError_t attention_core_sm90(attn::Operand<const bf16> q, attn::Operan
 }
 
 // Self-attention on the fused [B*N, 3*H*Dh] qkv rows ([q | k | v], each
-// [H, Dh]) into out [B*N, H*Dh].
-inline cudaError_t attention_core_sm90(const bf16* qkv, bf16* out, int B, int N, int H, int Dh,
+// [H, Dh]) into out [B*N, H*Dh] (bf16, or fp32 for kernel 9).
+template <typename OutT>
+inline cudaError_t attention_core_sm90(const bf16* qkv, OutT* out, int B, int N, int H, int Dh,
                                        float scale, attn::ScoreTerms st, cudaStream_t stream) {
   using attn::Operand;
   const long long HD = (long long)H * Dh, row = 3 * HD;
   const Operand<const bf16> q{qkv, N * row, Dh, row};
   const Operand<const bf16> k{qkv + HD, N * row, Dh, row};
   const Operand<const bf16> v{qkv + 2 * HD, N * row, Dh, row};
-  const Operand<bf16> o{out, N * HD, Dh, HD};
+  const Operand<OutT> o{out, N * HD, Dh, HD};
   return attention_core_sm90(q, k, v, o, attn::Problem{B, H, N, N, Dh, Dh}, scale, st, stream);
 }
 

@@ -1,8 +1,8 @@
-// Tiled bf16 x bf16 -> fp32 GEMM with a fused epilogue, under the MLP
-// (fused_mlp.cu, kernel 2), the window attention block (kernel 6) and the
-// head-mixing blocks (kernels 7 and 8). The float attention block (kernel 1)
-// runs its products on the wgmma GEMM of gemm_sm90.cuh, which takes the
-// activations (Act, activate) from here.
+// Tiled bf16 x bf16 -> fp32 GEMM with a fused epilogue, under the MLP at
+// widths that are not multiples of 8 (fused_mlp.cu, kernel 2: T2T's
+// tokenizer) and the window attention block's four-launch route (kernel 6).
+// Kernels 1, 2 (elsewhere), 7 and 8 run their products on the wgmma GEMM of
+// gemm_sm90.cuh, which takes the activations (Act, activate) from here.
 //
 //   C[M, N] = round_once( act(A[M, K] @ B[K, N] + bias[N]) + residual[M, N] )
 //

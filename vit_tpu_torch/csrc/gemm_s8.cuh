@@ -1,5 +1,7 @@
-// Tiled int8 x int8 -> int32 GEMM with a dequant epilogue, shared by both
-// W8A8 kernels (quant_block.cu).
+// Tiled int8 x int8 -> int32 GEMM with a dequant epilogue, under the W8A8
+// MLP (quant_block.cu, kernel 10). The W8A8 attention block (kernel 9) runs
+// its products on the s8 wgmma GEMM of gemm_s8_sm90.cuh, which keeps this
+// epilogue's op order; kernel 10 moves there in its own PR.
 //
 //   acc[M, N] = A[M, K] @ B[K, N]                      (int32, exact)
 //   C = round_once( act((acc * s_row[m]) * s_col[n] + bias[n]) + residual )
@@ -26,8 +28,7 @@
 // every operand is kept in 16-byte-wide column panels, so that each 16x16
 // WMMA tile is 256 contiguous bytes (load_matrix_sync wants 32-byte-aligned
 // tiles; a 16-byte K step of a row-major int8 tile would not be). No split-K,
-// so results are batch-invariant. Later PRs move to wgmma (m64nNk32 s8) fed
-// by TMA.
+// so results are batch-invariant.
 #pragma once
 
 #include <mma.h>

@@ -6,37 +6,61 @@
 //     columns zeroed.
 // Then P, rounded to bf16, times V per head, rounded to bf16 into the rows of
 // out [B*N, H*Dh]. This is the arithmetic of
-// vit_tpu/ops/reattention_block.py:90-135 and :202-235.
+// vit_tpu/ops/reattention_block.py:90-135 and :202-235, with the rounding
+// sites of the twins:
+//   - the scores in fp32 (mma.sync sums), scaled with __fmul_rn;
+//   - the exact softmax per (head, row) in jax.nn.softmax's order: the row
+//     max, e = expf(s - m), l = sum(e), p = e / l (IEEE division);
+//   - each head mix a sequential sum over h = 0..H-1 of mix[h, g] * x_h with
+//     __fmul_rn / __fadd_rn (no fused multiply-add), the head LayerNorm
+//     spelled out the same way.
 //
-// A head mix couples all H heads at every (i, j), so one block owns one
-// sample's query tile across every head: block (query tile, b). It writes the
-// fp32 scores of all heads, S_h = Q_h K_h^T (QT rows x n_pad keys each), into
-// a slab in shared memory, then works on the slab in place:
-//   - a mix pass: each thread owns (i, j) positions, reads the H values into
-//     registers and writes back the H mixed ones. Each mix is a sequential
-//     sum over h = 0..H-1 with __fmul_rn / __fadd_rn, the head LayerNorm
-//     spelled out the same way, so no fused multiply-add moves a value
-//     against the twin's separate ops;
-//   - softmax: one warp per (head, row), in jax.nn.softmax's order;
-//   - each row of P rounded to bf16 in place (in its own fp32 storage).
-// P @ V then streams V chunks through WMMA, as attention_core.cuh does.
+// Bound: at the CaiT and DeepViT presets (batch 128, 16 heads of 64, 64 / 65
+// tokens) the core reads ~51 MB of qkv and writes ~17 MB for ~2.2 GFLOP of
+// Q K^T and P V and ~0.3 G fp32 mix operations: ~0.02 ms on the H100. A
+// first design took 1.109 ms at DeepViT (NVIDIA H100 80GB HBM3, 700.00 W):
+// four warps a block walked the 16 heads one after another with synchronous
+// copies between barriers, and the scores went through an fp32 slab in row
+// order that every pass read and wrote again. This one takes 0.149 ms there
+// on the same card (0.117 at CaiT), bound by its latency between barriers:
+// one 16-warp block an SM.
 //
-// Shared memory: the slab is H * QT * (n_pad + 4) fp32. At H = 16 a 16-row
-// query tile fits up to n_pad = 160; past that the tile is 8 rows (WMMA's
-// 8x32x16 bf16 shape), 133 KB at n = 256. The mixes and the head LN
-// parameters sit beside it.
-//
-// Bound: at the CaiT and DeepViT presets, batch 128, the whole block is
-// bound by operations: ~69 GFLOP of qkv and out GEMMs around the core's ~2
-// GFLOP of Q K^T and P V and ~0.5 GFLOP of fp32 head mixing. The core loads
-// its K and V chunks one after another, without prefetch; a later PR
-// overlaps them and keeps P in registers.
+// Design. A block owns 16 query rows of one sample across every head, since
+// a mix couples all H heads at each (i, j): block (query tile, b), one warp a
+// head (32 H threads).
+// - Warp h computes S_h = Q_h K_h^T on mma.sync.m16n8k16 from ldmatrix
+//   fragments (attention_core_sm90.cuh's helpers) and keeps the scores in its
+//   accumulator registers; P_h V_h runs the same way, V through
+//   ldmatrix.trans, with P_h's bf16 A fragments built from the fp32 values
+//   in registers. Keys are padded to 16.
+// - Each warp streams its own tiles (its Q tile, then 16-key K and V tiles
+//   of its head) through a private ring of 2-4 stages in shared memory by
+//   cp.async, the next tiles in flight while one is multiplied; no block
+//   barrier guards a copy. The V tiles arrive during the softmax and the mix.
+// - The mix crosses heads, so the values go through one fp32 slab [H][16
+//   rows x keys] laid out in accumulator-fragment order: a warp writes and
+//   reads its own head's plane as two float4 a key tile a lane, and the
+//   mixing threads walk positions one a thread, neighbouring threads on
+//   neighbouring positions, all without bank conflicts, keeping only the H
+//   sums in registers. One write and one read of the slab a mix pass on each
+//   side; query rows past N are not mixed.
+// - The softmax runs in registers, row by row with quad shuffles.
+// - The output leaves as bf16 pairs into a ring stage and goes to memory in
+//   16-byte stores (attn90::store_out).
+// - Two variants (plan_for): `resident`, for rows of up to RESIDENT_TILES
+//   key tiles whose slab fits beside the rings (every preset: 64, 65 tokens),
+//   keeps the scores in registers through the softmax and mixes the whole
+//   row at once; `streamed` covers the rest of the domain (n <= 256, Dh up to
+//   128) by recomputing the scores, bitwise the same, in passes over the K
+//   tiles (the max, the sum, then chunk by chunk of the slab's width: p, the
+//   mix, P V; talking heads recompute the pre-mix in each pass).
 #pragma once
 
 #include <math.h>
-#include <mma.h>
 
-#include "attention_core.cuh"
+#include <type_traits>
+
+#include "attention_core_sm90.cuh"  // attn90: ldmatrix, mma.sync, load_q, tile_pv, store_out
 #include "common.cuh"
 
 namespace vt {
@@ -45,34 +69,10 @@ namespace {
 namespace hmix {
 constexpr int MAX_H = 16;
 constexpr int MAX_N = 256;
-constexpr int WARPS = 4, THREADS = WARPS * 32;
-constexpr int MAX_SMEM = 232448;  // 227 KB, the most one block may use
+constexpr int RESIDENT_TILES = 8;  // score rows of up to 128 keys in registers
+constexpr int MAX_SMEM = 232448;   // 227 KB, the most one block may use
+constexpr size_t PARAM_BYTES = size_t(2 * MAX_H * MAX_H + 2 * MAX_H) * sizeof(float);
 enum Mode : int { kTalkingHeads = 0, kReattention = 1 };
-
-struct Layout {
-  int n_pad, lds, ldq, dh_pad, ldkv, ldo;
-  size_t q_off, kv_off, o_off, par_off, bytes;
-};
-
-// QT query rows per block; WMMA tiles of QT x TN with TN = 256 / QT, and
-// K / V chunks of KC = 4 * TN keys (one tile per warp in the score product).
-__host__ __device__ inline Layout layout(int qt, int N, int H, int Dh) {
-  using attn::align128;
-  const int tn = 256 / qt, kc = 4 * tn;
-  Layout L;
-  L.n_pad = (N + 31) / 32 * 32;
-  L.lds = L.n_pad + 4;
-  L.ldq = Dh + 8;
-  L.dh_pad = (Dh + tn - 1) / tn * tn;  // V panel columns [Dh, dh_pad) stay zero
-  L.ldkv = L.dh_pad + 8;
-  L.ldo = L.dh_pad + 4;
-  L.q_off = align128(size_t(H) * qt * L.lds * sizeof(float));
-  L.kv_off = align128(L.q_off + size_t(qt) * L.ldq * sizeof(bf16));
-  L.o_off = align128(L.kv_off + size_t(kc) * L.ldkv * sizeof(bf16));
-  L.par_off = align128(L.o_off + size_t(qt) * L.ldo * sizeof(float));
-  L.bytes = align128(L.par_off + size_t(2 * MAX_H * MAX_H + 2 * MAX_H) * sizeof(float));
-  return L;
-}
 
 struct Params {
   const float* mix_a;     // [H, H]: the pre-softmax mix / the re-attention mix
@@ -83,272 +83,473 @@ struct Params {
   float* dbg_mixed;  // NULL or [B, H, N, N] fp32: the mixed scores / the mixed softmax r
   float* dbg_p;      // NULL or [B, H, N, N] fp32: the post-mixed P / the normalised r'
 };
+
+// How a launch runs: the variant, the slab's width in 16-key tiles, the ring
+// stages of each warp and the shared memory of a block.
+struct Plan {
+  int resident, ct, stages;
+  size_t bytes;
+};
+
+// Shared memory: the slab (H planes of 16 rows x 16 ct keys, fp32), the mix
+// and head-LN parameters, then each warp's ring of 16 x (Dh + 8) bf16 stages
+// (+8 staggers the banks of ldmatrix's row reads).
+__host__ __device__ inline size_t stage_bytes(int Dh) { return size_t(16) * (Dh + 8) * 2; }
+__host__ __device__ inline size_t ring_off(int H, int ct) {
+  return size_t(H) * ct * 256 * sizeof(float) + PARAM_BYTES;
+}
+__host__ __device__ inline size_t smem_bytes(int H, int ct, int stages, int Dh) {
+  return ring_off(H, ct) + size_t(H) * stages * stage_bytes(Dh);
+}
+
+// The plan of a shape (ops/reattention_block.py head_mix_plan mirrors it):
+// resident where the row has at most RESIDENT_TILES key tiles and its whole
+// slab fits beside rings of two stages, with the deepest ring (up to 4) that
+// fits; else streamed, with a 3-stage ring where that leaves a slab of 4
+// tiles (or the whole row), else 2 stages and the widest slab that fits.
+inline Plan plan_for(int N, int H, int Dh) {
+  const int nkt = (N + 15) / 16;
+  if (nkt <= RESIDENT_TILES)
+    for (int s = 4; s >= 2; --s)
+      if (smem_bytes(H, nkt, s, Dh) <= size_t(MAX_SMEM))
+        return Plan{1, nkt, s, smem_bytes(H, nkt, s, Dh)};
+  for (int s = 3; s >= 2; --s) {
+    const long long room =
+        MAX_SMEM - (long long)(PARAM_BYTES + size_t(H) * s * stage_bytes(Dh));
+    const int fit = room > 0 ? int(room / (H * 256 * sizeof(float))) : 0;
+    const int ct = fit < nkt ? fit : nkt;
+    if (ct >= (nkt < 4 ? nkt : 4) || (s == 2 && ct >= 1))
+      return Plan{0, ct, s, smem_bytes(H, ct, s, Dh)};
+  }
+  return Plan{0, 0, 0, 0};
+}
 }  // namespace hmix
 
-// y[g] = sum_h w[h * H + g] * x[h], in h order, each product and add rounded.
-__device__ __forceinline__ void mix_heads(const float (&x)[hmix::MAX_H], const float* w, int H,
-                                          float (&y)[hmix::MAX_H]) {
+// cp.async.wait_group with a count known at run time (a ring of 2-4 stages).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// A tile's values in the slab: s[0..3] then s[4..7] of every lane, float4s.
+__device__ __forceinline__ void put_tile(float* plane, int j, int lane, const float (&s)[8]) {
+  float4* p = reinterpret_cast<float4*>(plane + j * 256);
+  p[lane] = make_float4(s[0], s[1], s[2], s[3]);
+  p[32 + lane] = make_float4(s[4], s[5], s[6], s[7]);
+}
+__device__ __forceinline__ void get_tile(const float* plane, int j, int lane, float (&s)[8]) {
+  const float4* p = reinterpret_cast<const float4*>(plane + j * 256);
+  const float4 a = p[lane], b = p[32 + lane];
+  s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
+  s[4] = b.x, s[5] = b.y, s[6] = b.z, s[7] = b.w;
+}
+
+// S (16 rows x 16 keys) = Q K^T of one K tile in shared memory: s[0..3] keys
+// 0-7 (rows r0 and r0 + 8, columns 2 t4 + {0, 1}), s[4..7] keys 8-15.
+template <int DK>
+__device__ __forceinline__ void score_tile(float (&s)[8], const unsigned (&qf)[DK][4],
+                                           const bf16* ks, int ld, int dk, int lane) {
 #pragma unroll
-  for (int g = 0; g < hmix::MAX_H; ++g) {
+  for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  const bf16* base = ks + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+    if (kk < dk) {
+      unsigned b[4];
+      attn90::ldsm_x4(b, base + kk * 16);
+      attn90::mma_bf16(s, qf[kk], b[0], b[1]);
+      attn90::mma_bf16(s + 4, qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The head LayerNorm of one position's H mixed values, in place
+// (reattention_block.py:116-123), padded key columns zeroed (the LN bias
+// would turn them into bias_g).
+__device__ __forceinline__ void head_ln(float (&y)[hmix::MAX_H], int H, const float* lns,
+                                        const float* lnb, float inv_h, float eps, bool real) {
+  float sum = y[0], sq = __fmul_rn(y[0], y[0]);
+#pragma unroll
+  for (int g = 1; g < hmix::MAX_H; ++g) {
     if (g < H) {
-      float acc = __fmul_rn(w[g], x[0]);
+      sum = __fadd_rn(sum, y[g]);
+      sq = __fadd_rn(sq, __fmul_rn(y[g], y[g]));
+    }
+  }
+  const float mean = __fmul_rn(sum, inv_h);
+  const float var = fmaxf(__fsub_rn(__fmul_rn(sq, inv_h), __fmul_rn(mean, mean)), 0.0f);
+  const float inv = rsqrtf(__fadd_rn(var, eps));
 #pragma unroll
-      for (int h = 1; h < hmix::MAX_H; ++h)
-        if (h < H) acc = __fadd_rn(acc, __fmul_rn(w[h * H + g], x[h]));
-      y[g] = acc;
+  for (int g = 0; g < hmix::MAX_H; ++g)
+    if (g < H) y[g] = real ? ln_value(y[g], mean, inv, lns[g], lnb[g]) : 0.0f;
+}
+
+enum MixPass : int { kPreMix = 0, kPostMix = 1, kReMix = 2 };
+
+// One mix pass over the slab's first `len` key tiles (keys from 16 * tile0),
+// by every thread of the block, one position at a time, in place:
+//   y[g] = sum_h w[h][g] * x[h], in h order, each product and add rounded,
+// with x[h] read from plane h as the sum reaches it and the mix row h (16
+// floats, rows MAX_H apart) as four float4 broadcasts, so that only the H
+// sums stay in registers. Positions of query rows past N are left as they
+// are: their rows are never stored. `dbg` writes the checked intermediates.
+template <int PASS>
+__device__ __forceinline__ void mix_slab(float* slab, int plane, int len, int tile0, int q0,
+                                         int b, int N, int H, float scale, int valid,
+                                         const float* w, const float* lns, const float* lnb,
+                                         const hmix::Params& prm, bool dbg) {
+  using hmix::MAX_H;
+  for (int p = threadIdx.x; p < len * 256; p += blockDim.x) {
+    // p = ((j * 2 + half) * 32 + lane) * 4 + e: value s[4 half + e] of that lane in tile j
+    const int j = p >> 8, half = (p >> 7) & 1, ln = (p >> 2) & 31, e = p & 3;
+    const int row = (ln >> 2) + ((e >> 1) & 1) * 8;
+    const int col = (tile0 + j) * 16 + half * 8 + 2 * (ln & 3) + (e & 1);
+    const int q = q0 + row;
+    if (q >= N) continue;
+    float y[MAX_H];
+#pragma unroll
+    for (int h = 0; h < MAX_H; ++h) {
+      if (h < H) {
+        float x = slab[h * plane + p];
+        if (PASS == kPreMix) x = __fmul_rn(x, scale);
+        const float4* wr = reinterpret_cast<const float4*>(w + h * MAX_H);
+#pragma unroll
+        for (int g4 = 0; g4 < MAX_H / 4; ++g4) {
+          if (4 * g4 < H) {
+            const float4 w4 = wr[g4];
+            const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int g = 4 * g4 + u;
+              if (g < H) y[g] = h == 0 ? __fmul_rn(wv[u], x) : __fadd_rn(y[g], __fmul_rn(wv[u], x));
+            }
+          }
+        }
+      }
+    }
+    float* first = PASS == kPostMix ? prm.dbg_p : prm.dbg_mixed;
+    const bool keep = dbg && col < N;
+    const size_t o = (((size_t)b * H) * N + q) * N + col;  // head 0's (q, col)
+    if (PASS == kReMix) {
+#pragma unroll
+      for (int g = 0; g < MAX_H; ++g)
+        if (g < H && keep && first != nullptr) first[o + (size_t)g * N * N] = y[g];
+      head_ln(y, H, lns, lnb, prm.inv_h, prm.ln_eps, col < valid);
+      first = prm.dbg_p;
+    }
+#pragma unroll
+    for (int g = 0; g < MAX_H; ++g) {
+      if (g < H) {
+        if (PASS == kPreMix && col >= valid) y[g] = -1e30f;  // padded keys masked after the pre-mix
+        slab[g * plane + p] = y[g];
+        if (keep && first != nullptr) first[o + (size_t)g * N * N] = y[g];
+      }
     }
   }
 }
 
-// Softmax of every (head, row) of the slab over the real keys (c < valid),
-// scaling the scores first when `scale_first`; P is 0 on keys [valid, n_pad).
-__device__ __forceinline__ void softmax_rows(float* S, int rows, int lds, int n_pad, int valid,
-                                             bool scale_first, float scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += hmix::WARPS) {
-    float* row = S + (size_t)r * lds;
-    float m = -INFINITY;
-    for (int c = lane; c < valid; c += 32) {
-      float s = row[c];
-      if (scale_first) s = __fmul_rn(s, scale);
-      row[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int c = lane; c < valid; c += 32) {
-      const float e = expf(row[c] - m);
-      row[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int c = lane; c < n_pad; c += 32) row[c] = c < valid ? row[c] / l : 0.0f;
-  }
-}
-
-template <int QT, int MODE>
-__global__ void __launch_bounds__(hmix::THREADS)
+// Block (query tile of 16 rows, b), warp h = head h. KT > 0: the resident
+// variant, whose scores stay in registers through the softmax (nkt <= KT,
+// one slab chunk); KT = 0: the streamed one. DK: Dh / 16 at most (4 or 8).
+template <int MODE, int KT, int DK>
+__global__ void __launch_bounds__(hmix::MAX_H * 32, 1)
 head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H, int Dh,
-                float scale, int valid, hmix::Params prm) {
-  using namespace nvcuda;
+                float scale, int valid, hmix::Params prm, hmix::Plan plan) {
   using namespace hmix;
-  constexpr int TN = 256 / QT, KC = 4 * TN;
+  constexpr bool RESIDENT = KT > 0;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(QT, N, H, Dh);
-  float* S = reinterpret_cast<float*>(smem);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q_off);
-  bf16* KVs = reinterpret_cast<bf16*>(smem + L.kv_off);
-  float* Os = reinterpret_cast<float*>(smem + L.o_off);
-  float* mix_a = reinterpret_cast<float*>(smem + L.par_off);
+  const int ct = plan.ct, plane = ct * 256, stages = plan.stages;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* mix_a = reinterpret_cast<float*>(smem + size_t(H) * plane * sizeof(float));
   float* mix_b = mix_a + MAX_H * MAX_H;
   float* lns = mix_b + MAX_H * MAX_H;
   float* lnb = lns + MAX_H;
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y, q0 = blockIdx.x * 16;
+  const int HD = H * Dh, stride = 3 * HD, ld = Dh + 8, dk = Dh / 16;
+  const int nkt = (N + 15) / 16, nch = (nkt + ct - 1) / ct;
+  const int steps = 1 + (RESIDENT ? 2 : 4) * nkt;
+  bf16* ring = reinterpret_cast<bf16*>(smem + ring_off(H, ct)) + (size_t)h * stages * 16 * ld;
+  const bf16* base = qkv + (size_t)b * N * stride + h * Dh;
 
-  const int b = blockIdx.y, q0 = blockIdx.x * QT;
-  const int HD = H * Dh, stride = 3 * HD;
-  const bf16* base = qkv + (size_t)b * N * stride;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_pad = L.n_pad, lds = L.lds;
-  const int chunks = (n_pad + KC - 1) / KC;
-
-  for (int e = threadIdx.x; e < H * H; e += blockDim.x) {
-    mix_a[e] = prm.mix_a[e];
-    if (MODE == kTalkingHeads) mix_b[e] = prm.mix_b[e];
+  for (int e = threadIdx.x; e < H * H; e += blockDim.x) {  // rows MAX_H apart
+    mix_a[e / H * MAX_H + e % H] = prm.mix_a[e];
+    if (MODE == kTalkingHeads) mix_b[e / H * MAX_H + e % H] = prm.mix_b[e];
   }
   if (MODE == kReattention && threadIdx.x < H) {
     lns[threadIdx.x] = prm.ln_scale[threadIdx.x];
     lnb[threadIdx.x] = prm.ln_bias[threadIdx.x];
   }
-  const int zc = L.dh_pad - Dh;
-  for (int e = threadIdx.x; e < KC * zc; e += blockDim.x)
-    KVs[(e / zc) * L.ldkv + Dh + e % zc] = __float2bfloat16(0.0f);
 
-  // 1. S_h = Q_h K_h^T in fp32 for every head, chunk by chunk of keys.
-  for (int h = 0; h < H; ++h) {
-    for (int ch = 0; ch < chunks; ++ch) {
-      __syncthreads();  // the previous readers of Qs / KVs are done
-      if (ch == 0) load_panel(Qs, L.ldq, base, q0, QT, N, stride, h * Dh, Dh);
-      load_panel(KVs, L.ldkv, base, ch * KC, KC, N, stride, HD + h * Dh, Dh);
-      __syncthreads();
-      const int col = ch * KC + warp * TN;
-      if (col < n_pad) {
-        wmma::fragment<wmma::accumulator, QT, TN, 16, float> acc;
-        wmma::fill_fragment(acc, 0.0f);
-        for (int kk = 0; kk < Dh; kk += 16) {
-          wmma::fragment<wmma::matrix_a, QT, TN, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, QT, TN, 16, bf16, wmma::col_major> kt;
-          wmma::load_matrix_sync(a, Qs + kk, L.ldq);
-          wmma::load_matrix_sync(kt, KVs + warp * TN * L.ldkv + kk, L.ldkv);  // K^T
-          wmma::mma_sync(acc, a, kt, acc);
+  // The warp's stream: step 0 its Q tile; then (resident) K tiles 0..nkt-1
+  // and V tiles 0..nkt-1; (streamed) the K tiles twice, then each chunk's K
+  // tiles and V tiles. Rows past N are zero-filled.
+  const auto stage = [&](int s) { return ring + (s % stages) * 16 * ld; };
+  const auto fetch = [&](int s) {
+    if (s < steps) {
+      int col = 0, row0 = q0;  // Q
+      if (s > 0) {
+        int r = s - 1, which = 1, tile;
+        if (RESIDENT) {
+          which = r < nkt ? 1 : 2;
+          tile = r < nkt ? r : r - nkt;
+        } else if (r < 2 * nkt) {
+          tile = r % nkt;
+        } else {
+          r -= 2 * nkt;
+          const int c = r / (2 * ct), w = r % (2 * ct), len = min(ct, nkt - c * ct);
+          which = w < len ? 1 : 2;
+          tile = c * ct + (w < len ? w : w - len);
         }
-        wmma::store_matrix_sync(S + (size_t)h * QT * lds + col, acc, lds, wmma::mem_row_major);
+        col = which * HD;
+        row0 = tile * 16;
+      }
+      bf16* dst = stage(s);
+      const int per_row = Dh / 8;
+      for (int i = lane; i < 16 * per_row; i += 32) {
+        const int r = i / per_row, c = (i % per_row) * 8;
+        const bool ok = row0 + r < N;
+        cp_async16(dst + r * ld + c, ok ? base + (size_t)(row0 + r) * stride + col + c : base, ok);
       }
     }
-  }
-  __syncthreads();
-
-  // 2. The head mixes and softmax, in place on the slab.
-  const auto at = [&](int g, int i, int j) -> float& { return S[((size_t)g * QT + i) * lds + j]; };
-  const auto dbg = [&](float* d, int g, int i, int j, float v) {
-    const int q = q0 + i;
-    if (d != nullptr && q < N && j < N) d[(((size_t)b * H + g) * N + q) * N + j] = v;
+    cp_async_commit();
   };
-  float x[MAX_H], y[MAX_H];
-  if (MODE == kTalkingHeads) {
-    for (int e = threadIdx.x; e < QT * n_pad; e += blockDim.x) {
-      const int i = e / n_pad, j = e % n_pad;
-#pragma unroll
-      for (int h = 0; h < MAX_H; ++h)
-        if (h < H) x[h] = __fmul_rn(at(h, i, j), scale);
-      mix_heads(x, mix_a, H, y);
-#pragma unroll
-      for (int g = 0; g < MAX_H; ++g) {
-        if (g < H) {
-          const float v = j < valid ? y[g] : -1e30f;  // masked after the pre-mix
-          at(g, i, j) = v;
-          dbg(prm.dbg_mixed, g, i, j, v);
-        }
-      }
-    }
-    __syncthreads();
-    softmax_rows(S, H * QT, lds, n_pad, valid, false, 1.0f);
-    __syncthreads();
-    for (int e = threadIdx.x; e < QT * n_pad; e += blockDim.x) {
-      const int i = e / n_pad, j = e % n_pad;
-#pragma unroll
-      for (int h = 0; h < MAX_H; ++h)
-        if (h < H) x[h] = at(h, i, j);
-      mix_heads(x, mix_b, H, y);
-#pragma unroll
-      for (int g = 0; g < MAX_H; ++g) {
-        if (g < H) {
-          at(g, i, j) = y[g];
-          dbg(prm.dbg_p, g, i, j, y[g]);
-        }
-      }
-    }
-  } else {
-    softmax_rows(S, H * QT, lds, n_pad, valid, true, scale);
-    __syncthreads();
-    for (int e = threadIdx.x; e < QT * n_pad; e += blockDim.x) {
-      const int i = e / n_pad, j = e % n_pad;
-#pragma unroll
-      for (int h = 0; h < MAX_H; ++h)
-        if (h < H) x[h] = at(h, i, j);
-      mix_heads(x, mix_a, H, y);
-      // LayerNorm across the heads (reattention_block.py:116-123)
-      float sum = y[0], sq = __fmul_rn(y[0], y[0]);
-#pragma unroll
-      for (int g = 1; g < MAX_H; ++g) {
-        if (g < H) {
-          sum = __fadd_rn(sum, y[g]);
-          sq = __fadd_rn(sq, __fmul_rn(y[g], y[g]));
-        }
-      }
-      const float mean = __fmul_rn(sum, prm.inv_h);
-      const float var = fmaxf(__fsub_rn(__fmul_rn(sq, prm.inv_h), __fmul_rn(mean, mean)), 0.0f);
-      const float inv = rsqrtf(__fadd_rn(var, prm.ln_eps));
-#pragma unroll
-      for (int g = 0; g < MAX_H; ++g) {
-        if (g < H) {
-          // the LN bias turns padded key columns into bias_g: zero them
-          const float v = j < valid ? ln_value(y[g], mean, inv, lns[g], lnb[g]) : 0.0f;
-          at(g, i, j) = v;
-          dbg(prm.dbg_mixed, g, i, j, y[g]);
-          dbg(prm.dbg_p, g, i, j, v);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. Each row of P rounded to bf16, in place: the bf16 row takes the first
-  //    half of its own fp32 row's storage (row stride 2 * lds bf16).
-  for (int r = warp; r < H * QT; r += WARPS) {
-    float* row = S + (size_t)r * lds;
-    float v[MAX_N / 32];
-#pragma unroll
-    for (int u = 0; u < MAX_N / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (c < n_pad) v[u] = row[c];
-    }
+  int step = 0;
+  // The next step's stage, once it has landed; the stage of the step before
+  // it is refilled (every lane is done reading it).
+  const auto acquire = [&]() -> const bf16* {
     __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(row);
-#pragma unroll
-    for (int u = 0; u < MAX_N / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (c < n_pad) prow[c] = __float2bfloat16(v[u]);
-    }
-  }
+    fetch(step + stages - 1);
+    cp_async_wait_upto(stages - 1);
+    __syncwarp();
+    return stage(step++);
+  };
+  for (int s = 0; s < stages - 1; ++s) fetch(s);
 
-  // 4. O_g = P_g V_g per head, fp32 fragments over the key chunks; each
-  //    head's rows rounded to bf16 into out.
-  const int ldp = 2 * lds;
-  const int otiles = L.dh_pad / TN;  // <= 8: at most 2 per warp
-  for (int g = 0; g < H; ++g) {
-    const bf16* P = reinterpret_cast<const bf16*>(S + (size_t)g * QT * lds);
-    wmma::fragment<wmma::accumulator, QT, TN, 16, float> oacc[2];
+  unsigned qf[DK][4];
+  attn90::load_q<DK, false>(qf, acquire(), ld, dk, lane);
+  float* own = slab + h * plane;
+  const int t4 = lane & 3;
+  // the key of value i of a lane's tile t
+  const auto key = [&](int t, int i) { return 16 * t + (i >> 2) * 8 + 2 * t4 + (i & 1); };
+  const auto scores = [&](float (&s)[8]) { score_tile<DK>(s, qf, acquire(), ld, dk, lane); };
+  // re-attention's softmax input: scaled scores, keys past `valid` out
+  const auto scaled = [&](float (&s)[8], int t) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) wmma::fill_fragment(oacc[u], 0.0f);
-    for (int ch = 0; ch < chunks; ++ch) {
-      __syncthreads();  // KVs and Os are free
-      load_panel(KVs, L.ldkv, base, ch * KC, KC, N, stride, 2 * HD + g * Dh, Dh);
-      __syncthreads();
-      const int keys = min(KC, n_pad - ch * KC);
+    for (int i = 0; i < 8; ++i) s[i] = key(t, i) < valid ? __fmul_rn(s[i], scale) : -INFINITY;
+  };
+  const auto fold_max = [](const float (&s)[8], float& m0, float& m1) {
+    m0 = fmaxf(m0, fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5])));
+    m1 = fmaxf(m1, fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7])));
+  };
+  const auto exps = [](float (&s)[8], float m0, float m1) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int t = warp + WARPS * u;
-        if (t < otiles) {
-          for (int kk = 0; kk < keys; kk += 16) {
-            wmma::fragment<wmma::matrix_a, QT, TN, 16, bf16, wmma::row_major> p;
-            wmma::fragment<wmma::matrix_b, QT, TN, 16, bf16, wmma::row_major> v;
-            wmma::load_matrix_sync(p, P + ch * KC + kk, ldp);
-            wmma::load_matrix_sync(v, KVs + kk * L.ldkv + t * TN, L.ldkv);
-            wmma::mma_sync(oacc[u], p, v, oacc[u]);
+    for (int i = 0; i < 8; ++i) s[i] = expf(s[i] - (((i >> 1) & 1) ? m1 : m0));
+  };
+  const auto add_sums = [](const float (&s)[8], float& l0, float& l1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if ((i >> 1) & 1) l1 += s[i];
+      else l0 += s[i];
+    }
+  };
+  const auto divide = [](float (&s)[8], float l0, float l1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = __fdiv_rn(s[i], ((i >> 1) & 1) ? l1 : l0);
+  };
+  // o += P (tile j of the warp's plane) V (the next step's tile)
+  using Acc = float[2 * DK][4];
+  const auto pv_from_slab = [&](Acc& o, int j) {
+    float p[8];
+    get_tile(own, j, lane, p);
+    const unsigned a[4] = {attn90::pack_bf16(p[0], p[1]), attn90::pack_bf16(p[2], p[3]),
+                           attn90::pack_bf16(p[4], p[5]), attn90::pack_bf16(p[6], p[7])};
+    attn90::tile_pv<DK, false>(o, a, acquire(), ld, dk, lane);
+  };
+  const auto mix = [&](int pass, int len, int tile0, bool dbg) {
+    __syncthreads();  // every warp's plane is written
+    if (pass == kPreMix)
+      mix_slab<kPreMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
+                        dbg);
+    else if (pass == kPostMix)
+      mix_slab<kPostMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_b, lns, lnb, prm,
+                         dbg);
+    else
+      mix_slab<kReMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
+                       dbg);
+    __syncthreads();  // the mixed values are in place
+  };
+  // o rounded to bf16 through a free ring stage, 16-byte stores
+  const auto store = [&](const Acc& o) {
+    __syncwarp();
+    attn90::store_out<DK, false>(o, stage(step), ld, out + (size_t)b * N * HD + h * Dh, HD, q0,
+                                 N, Dh, lane);
+  };
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if constexpr (RESIDENT) {
+    float S[KT][8];
+    if (MODE == kReattention) {
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (t < nkt) {
+          scores(S[t]);
+          scaled(S[t], t);
+          fold_max(S[t], m0, m1);
+        }
+    } else {
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (t < nkt) {
+          scores(S[t]);
+          put_tile(own, t, lane, S[t]);
+        }
+      mix(kPreMix, nkt, 0, true);
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (t < nkt) {
+          get_tile(own, t, lane, S[t]);
+          fold_max(S[t], m0, m1);
+        }
+    }
+    m0 = attn90::quad_max(m0);
+    m1 = attn90::quad_max(m1);
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (t < nkt) {
+        exps(S[t], m0, m1);
+        add_sums(S[t], l0, l1);
+      }
+    l0 = attn90::quad_sum(l0);
+    l1 = attn90::quad_sum(l1);
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (t < nkt) {
+        divide(S[t], l0, l1);
+        put_tile(own, t, lane, S[t]);
+      }
+    if (MODE == kReattention) mix(kReMix, nkt, 0, true);
+    else mix(kPostMix, nkt, 0, true);
+    Acc o = {};
+    for (int t = 0; t < nkt; ++t) pv_from_slab(o, t);
+    store(o);
+  } else {
+    // passes 1 and 2: the row max, then the row sum, each over every K tile
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 1) {
+        m0 = attn90::quad_max(m0);
+        m1 = attn90::quad_max(m1);
+      }
+      for (int c = 0; c < nch; ++c) {
+        const int len = min(ct, nkt - c * ct);
+        for (int j = 0; j < len; ++j) {
+          float s[8];
+          scores(s);
+          if (MODE == kReattention) {
+            scaled(s, c * ct + j);
+            if (pass == 0) {
+              fold_max(s, m0, m1);
+            } else {
+              exps(s, m0, m1);
+              add_sums(s, l0, l1);
+            }
+          } else {
+            put_tile(own, j, lane, s);
+          }
+        }
+        if (MODE == kTalkingHeads) {
+          mix(kPreMix, len, c * ct, false);
+          for (int j = 0; j < len; ++j) {
+            float s[8];
+            get_tile(own, j, lane, s);
+            if (pass == 0) {
+              fold_max(s, m0, m1);
+            } else {
+              exps(s, m0, m1);
+              add_sums(s, l0, l1);
+            }
           }
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int t = warp + WARPS * u;
-      if (t < otiles) wmma::store_matrix_sync(Os + t * TN, oacc[u], L.ldo, wmma::mem_row_major);
+    l0 = attn90::quad_sum(l0);
+    l1 = attn90::quad_sum(l1);
+    // pass 3, chunk by chunk: p into the slab, the mix, P V
+    Acc o = {};
+    for (int c = 0; c < nch; ++c) {
+      const int len = min(ct, nkt - c * ct);
+      for (int j = 0; j < len; ++j) {
+        float s[8];
+        scores(s);
+        if (MODE == kReattention) {
+          scaled(s, c * ct + j);
+          exps(s, m0, m1);
+          divide(s, l0, l1);
+        }
+        put_tile(own, j, lane, s);
+      }
+      if (MODE == kTalkingHeads) {
+        mix(kPreMix, len, c * ct, true);
+        for (int j = 0; j < len; ++j) {
+          float s[8];
+          get_tile(own, j, lane, s);
+          exps(s, m0, m1);
+          divide(s, l0, l1);
+          put_tile(own, j, lane, s);
+        }
+        mix(kPostMix, len, c * ct, true);
+      } else {
+        mix(kReMix, len, c * ct, true);
+      }
+      for (int j = 0; j < len; ++j) pv_from_slab(o, j);
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < QT * Dh; e += blockDim.x) {
-      const int r = e / Dh, c = e % Dh;
-      const int q = q0 + r;
-      if (q < N) out[((size_t)b * N + q) * HD + g * Dh + c] = __float2bfloat16(Os[r * L.ldo + c]);
-    }
+    store(o);
   }
 }
 
-template <int QT, int MODE>
+template <int MODE, int KT, int DK>
 cudaError_t launch_head_mix(const bf16* qkv, bf16* out, int B, int N, int H, int Dh, float scale,
-                            int valid, const hmix::Params& prm, cudaStream_t stream) {
-  const hmix::Layout L = hmix::layout(QT, N, H, Dh);
-  cudaError_t e = cudaFuncSetAttribute(head_mix_kernel<QT, MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L.bytes));
+                            int valid, const hmix::Params& prm, const hmix::Plan& plan,
+                            cudaStream_t stream) {
+  const auto kernel = head_mix_kernel<MODE, KT, DK>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(plan.bytes));
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + QT - 1) / QT, B);
-  head_mix_kernel<QT, MODE><<<grid, hmix::THREADS, L.bytes, stream>>>(qkv, out, N, H, Dh, scale,
-                                                                     valid, prm);
+  const dim3 grid((N + 15) / 16, B);
+  kernel<<<grid, H * 32, plan.bytes, stream>>>(qkv, out, N, H, Dh, scale, valid, prm, plan);
   return cudaGetLastError();
 }
 
-// The 16-row query tile where its slab fits, else the 8-row one.
+// The core on the fused [B*N, 3*H*Dh] qkv rows into out [B*N, H*Dh]: n <= 256,
+// H <= 16, Dh a multiple of 16 up to 128; keys from true_n on are padding.
 template <int MODE>
 cudaError_t head_mix_core(const bf16* qkv, bf16* out, int B, int N, int H, int Dh, float scale,
                           int true_n, const hmix::Params& prm, cudaStream_t stream) {
   using namespace hmix;
-  if (N < 1 || N > MAX_N || H < 1 || H > MAX_H || Dh % 16 != 0 || Dh > 128 || B < 1 ||
+  if (N < 1 || N > MAX_N || H < 1 || H > MAX_H || Dh < 16 || Dh % 16 != 0 || Dh > 128 || B < 1 ||
       B > 65535 || true_n < 1 || true_n > N)
     return cudaErrorInvalidValue;
-  if (layout(16, N, H, Dh).bytes <= size_t(MAX_SMEM))
-    return launch_head_mix<16, MODE>(qkv, out, B, N, H, Dh, scale, true_n, prm, stream);
-  if (layout(8, N, H, Dh).bytes > size_t(MAX_SMEM)) return cudaErrorInvalidValue;
-  return launch_head_mix<8, MODE>(qkv, out, B, N, H, Dh, scale, true_n, prm, stream);
+  const Plan plan = plan_for(N, H, Dh);
+  if (plan.ct < 1) return cudaErrorInvalidValue;
+  // the resident score row sized to the presets' 4-5 key tiles, or to 8
+  const auto launch = [&](auto kt, auto dk) {
+    return launch_head_mix<MODE, decltype(kt)::value, decltype(dk)::value>(
+        qkv, out, B, N, H, Dh, scale, true_n, prm, plan, stream);
+  };
+  using K0 = std::integral_constant<int, 0>;
+  using K5 = std::integral_constant<int, 5>;
+  using K8 = std::integral_constant<int, RESIDENT_TILES>;
+  using D4 = std::integral_constant<int, 4>;
+  using D8 = std::integral_constant<int, 8>;
+  const int nkt = (N + 15) / 16;
+  if (Dh > 64) {
+    if (!plan.resident) return launch(K0{}, D8{});
+    return nkt <= 5 ? launch(K5{}, D8{}) : launch(K8{}, D8{});
+  }
+  if (!plan.resident) return launch(K0{}, D4{});
+  return nkt <= 5 ? launch(K5{}, D4{}) : launch(K8{}, D4{});
 }
 
 }  // namespace

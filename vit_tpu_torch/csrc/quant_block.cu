@@ -10,14 +10,14 @@
 // quantizes or rounds, and the fp32 rows it quantizes are written out whole
 // and quantized in a row pass:
 //
-//   attention block (x bf16 [B*N, D]):
+//   attention block (x bf16 [B*N, D]; weights K-major, [out, in]):
 //     1. ln_quant_rows: flax LN in fp32 -> int8 codes + row scale  (memory)
-//     2. gemm_s8:       codes @ Wqkv_i8 -> (acc*s_row)*s_col -> bf16 qkv
-//     3. attention_core: per (batch, head, 32-query tile), fp32 out (memory /
-//                        latency; padded keys col >= true_n masked to -1e30)
+//     2. gemm_s8_sm90:  codes @ Wqkv_i8 -> (acc*s_row)*s_col -> bf16 qkv
+//     3. attention_core_sm90: the register-resident core, fp32 rows out
+//                        (padded keys col >= true_n masked to -1e30)
 //     4. quant_rows:    fp32 attention rows -> int8 + row scale     (memory)
-//     5. gemm_s8:       codes @ Wout_i8 -> (acc*s)*s_col + bout + x -> x.dtype
-//   MLP (x bf16 or fp32 [T, D]):
+//     5. gemm_s8_sm90:  codes @ Wout_i8 -> (acc*s)*s_col + bout + x -> x.dtype
+//   MLP (x bf16 or fp32 [T, D]; weights [in, out]):
 //     1. ln_quant_rows
 //     2. gemm_s8:       codes @ W1_i8 -> (acc*s)*s1 + b1 -> gelu -> fp32 h
 //     3. quant_rows:    h -> int8 + row scale                        (memory)
@@ -28,10 +28,17 @@
 // the hidden, 16 KB per token at ViT-L) are the cost of the split; a later
 // PR quantizes in the next GEMM's prologue or gives one block all heads of a
 // query tile, and keeps them on chip.
+//
+// The attention block runs on Hopper's own pieces: its two products on the
+// s8 wgmma GEMM fed by TMA (gemm_s8_sm90.cuh), which reads the weights
+// K-major, and its attention on the register-resident core of kernels 1, 3
+// and 4 (attention_core_sm90.cuh) with fp32 rows out. The MLP keeps the WMMA
+// GEMM of gemm_s8.cuh and vit_tpu's [in, out] weights until its own PR.
 
-#include "attention_core.cuh"
+#include "attention_core_sm90.cuh"
 #include "common.cuh"
 #include "gemm_s8.cuh"
+#include "gemm_s8_sm90.cuh"
 
 namespace vt {
 namespace {
@@ -43,17 +50,22 @@ cudaError_t quant_attention_block(const bf16* x, const float* ln_scale, const fl
                                   float* s_row2, int B, int N, int D, int H, int Dh, float scale,
                                   float eps, int true_n, cudaStream_t stream) {
   const int rows = B * N, HD = H * Dh;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (misaligned(x) || misaligned(wqkv) || misaligned(sqkv) || misaligned(wout) ||
+      misaligned(sout) || misaligned(bout) || misaligned(out) || misaligned(xq) ||
+      misaligned(qkv) || misaligned(attn_out) || misaligned(aq))
+    return cudaErrorInvalidValue;  // checked before any launch: nothing half done
   cudaError_t e = ln_quant_rows<bf16>(x, ln_scale, ln_bias, xq, s_row, rows, D, eps, stream);
   if (e != cudaSuccess) return e;
-  e = gemm_s8<bf16>(xq, wqkv, qkv, s_row, sqkv, nullptr, nullptr, kActNone, rows, 3 * HD, D,
-                    stream);
+  e = gemm_s8_sm90<bf16>(xq, wqkv, qkv, s_row, sqkv, nullptr, nullptr, kActNone, rows, 3 * HD, D,
+                         stream);
   if (e != cudaSuccess) return e;
-  e = attention_core<float>(qkv, attn_out, B, N, H, Dh, scale,
-                            attn::ScoreTerms{nullptr, 0, 0, true_n, N}, stream);
+  e = attention_core_sm90(qkv, attn_out, B, N, H, Dh, scale,
+                          attn::ScoreTerms{nullptr, 0, 0, true_n, N}, stream);
   if (e != cudaSuccess) return e;
   e = quant_rows(attn_out, aq, s_row2, rows, HD, stream);
   if (e != cudaSuccess) return e;
-  return gemm_s8<bf16>(aq, wout, out, s_row2, sout, bout, x, kActNone, rows, D, HD, stream);
+  return gemm_s8_sm90<bf16>(aq, wout, out, s_row2, sout, bout, x, kActNone, rows, D, HD, stream);
 }
 
 template <typename T>
@@ -128,12 +140,21 @@ extern "C" int vt_quant_rows(const void* v, void* q, void* row_scale, int rows, 
                                          static_cast<cudaStream_t>(stream)));
 }
 
-// The int8 GEMM alone, raw int32 sums out: the exactness check of gemm_s8
-// against torch._int_mm (chip_smoke.py, tests). Not on any model path.
+// The int8 GEMMs alone, raw int32 sums out: the exactness checks of gemm_s8
+// (b [K, N]) and gemm_s8_sm90 (b [N, K]) against torch._int_mm (chip_smoke.py,
+// tests). Not on any model path.
 extern "C" int vt_gemm_s8_i32(const void* a, const void* b, void* c, int M, int N, int K,
                               void* stream) {
   return static_cast<int>(vt::gemm_s8<int32_t>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<int32_t*>(c),
+      nullptr, nullptr, nullptr, nullptr, vt::kActNone, M, N, K,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vt_gemm_s8_sm90_i32(const void* a, const void* b_nk, void* c, int M, int N, int K,
+                                   void* stream) {
+  return static_cast<int>(vt::gemm_s8_sm90<int32_t>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b_nk), static_cast<int32_t*>(c),
       nullptr, nullptr, nullptr, nullptr, vt::kActNone, M, N, K,
       static_cast<cudaStream_t>(stream)));
 }

@@ -6,17 +6,24 @@
 // split at its GEMM boundaries as attention_block.cu is (xn, qkv at :69-78
 // and each head's P V at :128-134 are what the TPU kernel rounds to bf16):
 //   1. ln_rows:            flax LayerNorm in fp32 (eps 1e-6) -> bf16 xn
-//   2. gemm_bf16:          xn @ Wqkv -> bf16 qkv                  (compute-bound)
+//   2. gemm_bf16_sm90:     xn @ Wqkv -> bf16 qkv                  (compute-bound)
 //   3. head_mix_core:      per (query tile, sample), all heads: softmax, the
 //                          head mix, the LayerNorm across heads (eps 1e-6),
 //                          padded key columns zeroed, P V (latency-bound)
-//   4. gemm_bf16:          attn @ Wout + bout + x -> x.dtype      (compute-bound)
+//   4. gemm_bf16_sm90:     attn @ Wout + bout + x -> x.dtype      (compute-bound)
 // The head LayerNorm divides small differences between heads by a small
 // deviation, so it amplifies rounding (PARITY.md "Re-attention
 // conditioning"); chip_smoke.py holds this kernel stage by stage.
+//
+// Bound: operations. At the DeepViT preset (65 tokens, dim 1024, 16 heads of
+// 64) the two products are 69.8 of the block's 72.0 tensor-core GFLOP at
+// batch 128. They run on gemm_sm90.cuh (wgmma fed by TMA), as kernel 7's do;
+// its TMA needs every row stride and operand start 16-byte aligned: the
+// wrapper requires D % 8 == 0 and dim_head % 16 == 0, and a misaligned
+// operand fails the call before any launch (cudaErrorInvalidValue).
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "head_mix_core.cuh"
 
 namespace vt {
@@ -29,13 +36,19 @@ cudaError_t reattention_block(const T* x, const float* ln_scale, const float* ln
                               int B, int N, int D, int H, int Dh, float scale, float eps,
                               int true_n, cudaStream_t stream) {
   const int rows = B * N, HD = H * Dh;
+  const auto misaligned = [](const void* p) {
+    return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (misaligned(x) || misaligned(wqkv) || misaligned(wout) || misaligned(bout) ||
+      misaligned(out) || misaligned(xn) || misaligned(qkv) || misaligned(attn_out))
+    return cudaErrorInvalidValue;  // checked before any launch: nothing half done
   cudaError_t e = ln_rows<T>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
   if (e != cudaSuccess) return e;
-  e = gemm_bf16<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  e = gemm_bf16_sm90<bf16>(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
   if (e != cudaSuccess) return e;
   e = head_mix_core<hmix::kReattention>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm, stream);
   if (e != cudaSuccess) return e;
-  return gemm_bf16<T>(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
+  return gemm_bf16_sm90<T>(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
 }
 
 }  // namespace
@@ -68,4 +81,17 @@ extern "C" int vt_reattention_block(const void* x, int x_is_fp32, const void* ln
                                     static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D, H,
                                     Dh, scale, eps, true_n, s);
   return static_cast<int>(e);
+}
+
+// The head-mix core's plan for a shape (kernels 7 and 8): out[0] resident (1)
+// or streamed (0), out[1] the slab's width in 16-key tiles, out[2] ring
+// stages a warp, out[3] shared-memory bytes a block. ops/reattention_block.py
+// head_mix_plan mirrors it.
+extern "C" int vt_head_mix_plan(int N, int H, int Dh, int* out) {
+  const vt::hmix::Plan p = vt::hmix::plan_for(N, H, Dh);
+  out[0] = p.resident;
+  out[1] = p.ct;
+  out[2] = p.stages;
+  out[3] = static_cast<int>(p.bytes);
+  return 0;
 }

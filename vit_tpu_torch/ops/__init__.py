@@ -34,6 +34,7 @@ from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_kernel_fits
 from vit_tpu_torch.ops.quant_block import (
     fused_quant_attention_block,
     fused_quant_mlp,
+    kmajor as _kmajor,
     reference_quant_mlp,
     xla_quant_attention_block,
 )
@@ -188,13 +189,19 @@ def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
 
 def quant_attention_block(
     x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads: int, *,
-    scale=None, ln_eps=1e-6, true_n=None,
+    scale=None, ln_eps=1e-6, true_n=None, kmajor=None,
 ):
     """W8A8 attention block (LN -> row quant -> int8 qkv -> attention -> row
-    quant -> int8 out-proj -> +residual). ``true_n`` masks padded keys."""
+    quant -> int8 out-proj -> +residual). ``true_n`` masks padded keys.
+    ``wqkv_i8`` and ``wout_i8`` are vit_tpu's ``[in, out]`` codes; the
+    kernel reads ``kmajor``, the pair of their K-major ``[out, in]`` copies
+    (``QuantViT`` keeps them), and transposes the codes itself where it is
+    not given."""
     if _use_kernel(x):
+        if kmajor is None:
+            kmajor = (_kmajor(wqkv_i8), _kmajor(wout_i8))
         return fused_quant_attention_block(
-            x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads,
+            x, ln_scale, ln_bias, kmajor[0], sqkv, kmajor[1], sout, bout, heads,
             scale=scale, ln_eps=ln_eps, true_n=true_n,
         )
     if scale is None:

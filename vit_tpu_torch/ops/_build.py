@@ -154,7 +154,7 @@ _SIGNATURES = {
     "vt_quant_attention_block": [
         _P,                  # x (bf16)
         _P, _P,              # ln_scale, ln_bias (fp32)
-        _P, _P, _P, _P,      # wqkv (int8), sqkv (fp32), wout (int8), sout (fp32)
+        _P, _P, _P, _P,      # wqkv [3*H*Dh, D] (int8, K-major), sqkv (fp32), wout [D, H*Dh], sout
         _P,                  # bout (fp32)
         _P,                  # out (bf16)
         _P, _P, _P, _P,      # scratch: xq (int8), s_row (fp32), qkv (bf16), attn (fp32)
@@ -183,6 +183,15 @@ _SIGNATURES = {
         _P, _P, _P,          # a [M, K] int8, b [K, N] int8, c [M, N] int32
         _I, _I, _I,          # M, N, K
         _P,                  # cudaStream_t
+    ],
+    "vt_gemm_s8_sm90_i32": [
+        _P, _P, _P,          # a [M, K] int8, b [N, K] int8 (K-major), c [M, N] int32
+        _I, _I, _I,          # M, N, K
+        _P,                  # cudaStream_t
+    ],
+    "vt_head_mix_plan": [
+        _I, _I, _I,          # N, heads, dim_head
+        _P,                  # int[4]: resident, slab tiles, ring stages, shared-memory bytes
     ],
 }
 

@@ -1,8 +1,10 @@
 """The W8A8 encoder blocks: the int8 attention block and the int8 MLP.
 
 Port of ``vit_tpu/ops/quant_block.py``. ``fused_quant_attention_block`` and
-``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``, on the
-int8 GEMM of ``csrc/gemm_s8.cuh``); ``xla_quant_attention_block`` and
+``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``: the
+attention block on the s8 wgmma GEMM of ``csrc/gemm_s8_sm90.cuh``, which
+reads its weights K-major, and the register-resident attention core; the MLP
+on the int8 GEMM of ``csrc/gemm_s8.cuh``); ``xla_quant_attention_block`` and
 ``reference_quant_mlp`` are their plain PyTorch twins, written in the TPU
 kernels' own op order (quant_block.py:58-106, :204-221):
 
@@ -26,7 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import MASK_VALUE, MAX_TOKENS, _ln_f32, _mm, _softmax
+from vit_tpu_torch.ops.block_attention import (
+    MASK_VALUE, MAX_TOKENS, _ln_f32, _mm, _require_aligned, _softmax,
+)
 from vit_tpu_torch.ops.quant import int_mm, quantize_rows
 
 # Activation codes shared with csrc/gemm.cuh (enum Act); the int8 MLP takes two.
@@ -106,6 +110,12 @@ def _check_vec(name, t, size, device):
                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def kmajor(w_i8: torch.Tensor) -> torch.Tensor:
+    """The K-major ``[out, in]`` copy of int8 codes ``[in, out]`` that the
+    attention-block kernel reads (a contiguous transpose)."""
+    return w_i8.t().contiguous()
+
+
 def _check_weight(name, w, shape, device):
     if w.dtype != torch.int8 or tuple(w.shape) != shape or w.device != device or not w.is_contiguous():
         raise TypeError(f"{name} must be a contiguous int8 {list(shape)} tensor on {device}, "
@@ -128,9 +138,13 @@ def fused_quant_attention_block(
     true_n: Optional[int] = None,
     intermediates: Optional[dict] = None,
 ) -> torch.Tensor:
-    """The W8A8 attention block on the card. ``x`` ``[B, N, D]`` bf16;
-    ``wqkv_i8`` ``[D, 3*H*Dh]`` and ``wout_i8`` ``[H*Dh, D]`` int8 with
-    per-output-channel fp32 scales (``[1, N]`` or ``[N]``); ``ln_scale``,
+    """The W8A8 attention block on the card. ``x`` ``[B, N, D]`` bf16.
+
+    The int8 weights come K-major, ``[out, in]``: ``wqkv_i8`` ``[3*H*Dh,
+    D]`` and ``wout_i8`` ``[D, H*Dh]``, the transposes of vit_tpu's (and the
+    twin's) ``[in, out]`` codes, since Hopper's 8-bit wgmma reads both
+    operands K-major (``QuantViT`` keeps such copies; ``kmajor`` makes one).
+    Per-output-channel fp32 scales (``[1, N]`` or ``[N]``); ``ln_scale``,
     ``ln_bias``, ``bout`` fp32 ``[D]``. ``true_n`` masks padded keys. Returns
     a new tensor of ``x``'s shape and dtype, computed on the current stream.
     A dict passed as ``intermediates`` receives the stages' rows, ``[B*N,
@@ -147,13 +161,13 @@ def fused_quant_attention_block(
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     b, n, dim = x.shape
-    three_hd = wqkv_i8.shape[1] if wqkv_i8.dim() == 2 else -1
-    if three_hd % 3 or heads <= 0 or (three_hd // 3) % heads:
-        raise ValueError(f"wqkv {tuple(wqkv_i8.shape)} does not split into q, k, v of {heads} heads")
-    hd = three_hd // 3
-    d = hd // heads
-    _check_weight("wqkv_i8", wqkv_i8, (dim, three_hd), x.device)
-    _check_weight("wout_i8", wout_i8, (hd, dim), x.device)
+    hd = wout_i8.shape[1] if wout_i8.dim() == 2 else -1
+    if heads <= 0 or hd <= 0 or hd % heads:
+        raise ValueError(f"wout {tuple(wout_i8.shape)} (K-major, [D, H*Dh]) does not split "
+                         f"into {heads} heads")
+    three_hd, d = 3 * hd, hd // heads
+    _check_weight("wqkv_i8 (K-major)", wqkv_i8, (three_hd, dim), x.device)
+    _check_weight("wout_i8 (K-major)", wout_i8, (dim, hd), x.device)
     _check_vec("sqkv", sqkv, three_hd, x.device)
     _check_vec("sout", sout, dim, x.device)
     for name, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), ("bout", bout)):
@@ -171,6 +185,8 @@ def fused_quant_attention_block(
         raise ValueError(f"true_n={true_n} outside (0, {n}]")
     if scale is None:
         scale = d**-0.5
+    # the products' TMA loads need 16-byte starts
+    _require_aligned(x=x, wqkv_i8=wqkv_i8, sqkv=sqkv, wout_i8=wout_i8, sout=sout, bout=bout)
 
     lib = _build.load_library()
     rows = b * n
@@ -298,4 +314,26 @@ def gemm_s8_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.vt_gemm_s8_i32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
     _build.check(lib, rc, "gemm_s8 kernel")
+    return c
+
+
+def gemm_s8_sm90_i32(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
+    """The attention-block kernel's s8 wgmma GEMM alone: raw int32 sums of
+    ``a [M, K] @ b_nk.T`` with ``b_nk`` ``[N, K]`` K-major (int8, on the
+    card). For exactness checks against ``torch._int_mm``; no model path
+    calls it, and it counts no launch."""
+    if not (a.is_cuda and b_nk.is_cuda) or a.dtype != torch.int8 or b_nk.dtype != torch.int8:
+        raise ValueError("gemm_s8_sm90_i32 takes int8 CUDA tensors")
+    m, k = a.shape
+    n = b_nk.shape[0]
+    if (b_nk.shape[1] != k or k % 16 or n % 16 or not (a.is_contiguous() and b_nk.is_contiguous())):
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b_nk.shape)}^T: b is [N, K], and K "
+                         "and N must be multiples of 16")
+    _require_aligned(a=a, b_nk=b_nk)
+    lib = _build.load_library()
+    c = torch.empty(m, n, device=a.device, dtype=torch.int32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.vt_gemm_s8_sm90_i32(a.data_ptr(), b_nk.data_ptr(), c.data_ptr(), m, n, k, stream)
+    _build.check(lib, rc, "gemm_s8_sm90 kernel")
     return c

@@ -30,7 +30,7 @@ runs them on a kernel's own intermediates to hold it stage by stage.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,7 +39,7 @@ from vit_tpu_torch.ops.block_attention import (
     MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax,
 )
 
-MAX_TOKENS = 256  # the fp32 score tiles of all heads live in one block's shared memory
+MAX_TOKENS = 256  # the core's domain: n <= 256, heads <= 16, dim_head % 16 == 0 up to 128
 MAX_HEADS = 16
 
 _LATER = "ROADMAP.md Queue 1 item 5, head-mixing kernels beyond n <= 256, H <= 16, bf16 weights"
@@ -159,6 +159,51 @@ def xla_reattention_block(
 
 
 # -- the kernels ----------------------------------------------------------------
+
+# The head-mix core's variants (csrc/head_mix_core.cuh hmix::plan_for): the
+# scores of a warp's head in registers through the softmax, the whole row
+# mixed at once; or recomputed in passes over the K tiles, the row mixed
+# chunk by chunk of the slab's width.
+HEAD_MIX_VARIANTS = ("streamed", "resident")
+_HM_RESIDENT_TILES = 8
+_HM_MAX_SMEM = 232448  # 227 KB, the most one block may use
+_HM_PARAM_BYTES = (2 * MAX_HEADS * MAX_HEADS + 2 * MAX_HEADS) * 4
+
+
+class HeadMixPlan(NamedTuple):
+    """How the head-mix core of kernels 7 and 8 runs a shape: its variant
+    (``HEAD_MIX_VARIANTS``), the slab's width in 16-key tiles, the ring
+    stages of each warp and a block's shared-memory bytes."""
+
+    variant: str
+    slab_tiles: int
+    stages: int
+    smem_bytes: int
+
+
+def head_mix_plan(n: int, heads: int, d: int) -> HeadMixPlan:
+    """The core's plan for ``n`` tokens, ``heads`` heads of ``d``
+    (``hmix::plan_for``, mirrored). A block is 16 query rows of one sample
+    across every head, a warp a head. Its shared memory: the fp32 slab (16
+    rows x 16 keys a tile, a plane a head), the mix parameters, and each
+    warp's ring of 16 x (d + 8) bf16 stages. ``resident`` where the row has at
+    most 8 key tiles and its whole slab fits beside rings of two stages, with
+    the deepest ring (up to 4) that fits; else ``streamed``, with a 3-stage
+    ring where that leaves a slab of 4 tiles (or the whole row), else 2
+    stages and the widest slab that fits."""
+    nkt = -(-n // 16)
+    stage = 16 * (d + 8) * 2
+    size = lambda ct, s: heads * ct * 1024 + _HM_PARAM_BYTES + heads * s * stage
+    if nkt <= _HM_RESIDENT_TILES:
+        for s in (4, 3, 2):
+            if size(nkt, s) <= _HM_MAX_SMEM:
+                return HeadMixPlan("resident", nkt, s, size(nkt, s))
+    for s in (3, 2):
+        room = _HM_MAX_SMEM - (_HM_PARAM_BYTES + heads * s * stage)
+        ct = min(nkt, max(room, 0) // (heads * 1024))
+        if ct >= min(nkt, 4) or (s == 2 and ct >= 1):
+            return HeadMixPlan("streamed", ct, s, size(ct, s))
+    return HeadMixPlan("streamed", 0, 0, 0)
 
 
 def _check_block(name, x, ln_scale, ln_bias, wqkv, wout, bout, heads, mixes):
@@ -306,6 +351,8 @@ def fused_reattention_block(
         {"mix": (mix, (heads, heads)), "rln_scale": (rln_scale, (heads,)),
          "rln_bias": (rln_bias, (heads,))},
     )
+    # both products run on the wgmma GEMM, whose TMA loads need 16-byte starts
+    _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
     scale = d**-0.5 if scale is None else scale
     return _launch(
         "reattention_block", x, heads, d, true_n, intermediates,

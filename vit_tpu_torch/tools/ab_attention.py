@@ -22,16 +22,20 @@ measures, at batch 128 unless named:
   (3136 tokens of width 147, 784 of 1323; one head) at batch 128 on the
   ``split_heads`` views of fused qkv rows, kernel 6
   (``fused_window_attention_block``) at Twins' three LSA stages (7 x 7
-  windows, C 64, 128, 256, 8 heads of 64) and kernel 7
+  windows, C 64, 128, 256, 8 heads of 64), kernel 7
   (``fused_talking_heads_block``) at the CaiT preset (64 tokens, dim 1024,
-  16 heads of 64), at batch 128, each split into its launches in device time
-  (``call_ms``: a tree launches as many kernels as its design has);
+  16 heads of 64), kernel 8 (``fused_reattention_block``) at the DeepViT
+  preset (65 tokens, dim 1024, 16 heads of 64) and kernel 9
+  (``fused_quant_attention_block``) at ViT-L int8 (197 tokens), at batch
+  128, each split into its launches in device time (``call_ms``: a tree
+  launches as many kernels as its design has);
 - every kernel's time at the shape of PERF.md's table, through the tree's
   own ``chip_smoke.phase_op_times`` and ``phase_t2t_op_times``;
 - with ``--e2e``: ViT-L/16 bf16 img/s at batch 128 and p50 at batch 1,
   Twins-SVT, T2T-ViT, CaiT and DeepViT img/s at batch 128 (bf16) and the
-  int8 ``auto`` p50 at batch 1 and 8 (ViT-L), random weights from
-  chip_smoke's seeds (CaiT's and DeepViT's drawn on the card);
+  int8 ``auto`` p50 at batch 1, 8 and 128 and img/s at batch 128 (ViT-L),
+  random weights from chip_smoke's seeds (CaiT's and DeepViT's drawn on the
+  card);
 - with ``--p50-pairs N``, after the four turns: ViT-L/16 bf16 p50 at batch
   1 (100 forwards, weights drawn on the card) in N pairs of fresh
   processes, the pair's order alternating (parent first in even pairs).
@@ -231,6 +235,16 @@ def child(tree: Path, e2e: bool) -> dict:
         h = cs.hm_inputs(gen, "th", 128, 64, 1024, 16, 64, torch.bfloat16, dev)
         _split(res, "k7 CaiT batch 128", call_ms(lambda: rb.fused_talking_heads_block(*h, 16)))
         del h
+        h = cs.hm_inputs(gen, "ra", 128, 65, 1024, 16, 64, torch.bfloat16, dev)
+        _split(res, "k8 DeepViT batch 128", call_ms(lambda: rb.fused_reattention_block(*h, 16)))
+        del h
+        qb = importlib.import_module("vit_tpu_torch.ops.quant_block")
+        q_in = cs.qblock_inputs(gen, 128, cs.N_TOKENS, 1024, 16, 64, dev)
+        # a tree whose kernel 9 reads K-major weights says so (chip_smoke.qblock_kernel_args)
+        q = getattr(cs, "qblock_kernel_args", list)([q_in[k] for k in cs.QBLOCK_ARGS])
+        _split(res, "k9 ViT-L int8 batch 128",
+               call_ms(lambda: qb.fused_quant_attention_block(*q, 16)))
+        del q, q_in
     torch.cuda.empty_cache()
     for name, (kern, _, _, _) in cs.phase_op_times(dev, smi).items():
         res[f"op {name} ms"] = kern
@@ -242,7 +256,7 @@ def child(tree: Path, e2e: bool) -> dict:
 def _e2e(cs, dev) -> dict:
     """ViT-L bf16 img/s at batch 128 and p50 at batch 1; T2T-ViT, CaiT,
     DeepViT and Twins-SVT img/s at batch 128 (bf16); int8 auto p50 at batch
-    1, 8."""
+    1, 8 and 128, and img/s at 128."""
     import torch
 
     from vit_tpu_torch.models import CaiT, DeepViT, T2TViT, TwinsSVT, ViT
@@ -293,10 +307,12 @@ def _e2e(cs, dev) -> dict:
     qmodel = quantize_vit(vit)
     del vit
     with torch.inference_mode():
-        for b in (1, 8):
+        for b in (1, 8, 128):
             x = torch.randn(b, 224, 224, 3, generator=gen, device=dev).bfloat16()
             cs.p50_ms(lambda: qmodel(x), 3)
             out[f"int8 auto batch {b} p50 ms"] = cs.p50_ms(lambda: qmodel(x), 9)
+            if b == 128:
+                out["int8 auto batch 128 img/s"] = 128 / out[f"int8 auto batch {b} p50 ms"] * 1e3
     return out
 
 

@@ -37,6 +37,7 @@ from vit_tpu_torch.nn.embed import Dense, LayerNorm, PatchEmbed
 from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
 from vit_tpu_torch.ops.fused_mlp import _activate
 from vit_tpu_torch.ops.quant import dequantize, int8_matmul, quantize_channelwise
+from vit_tpu_torch.ops.quant_block import kmajor
 
 # The JAX package's threshold, measured on a TPU v5e (vit_tpu/utils/quantize.py:84-94):
 # the fused-kernel encoder from batch 8 up, XLA int8 at 2-7, weight-only at 1.
@@ -77,10 +78,23 @@ def _int8_buffer(module: nn.Module, name: str, k: int, n: int, device) -> None:
     module.register_buffer(f"{name}_scale", torch.ones(1, n, device=device))
 
 
+def _refresh_kmajor(module: "QuantAttention", incompatible_keys) -> None:
+    module.refresh_kmajor()
+
+
 class QuantAttention(nn.Module):
     """The attention half of a quantized layer: fp32 ``norm_scale``,
     ``norm_bias``, ``out_bias``; int8 ``qkv_kernel`` ``[D, 3*H*Dh]`` and
-    ``out_kernel`` ``[H*Dh, D]`` with their scales."""
+    ``out_kernel`` ``[H*Dh, D]`` with their scales.
+
+    The attention-block kernel reads the two int8 weights K-major (Hopper's
+    8-bit wgmma takes no transposed operand), so the module keeps
+    ``qkv_kernel_kmajor`` ``[3*H*Dh, D]`` and ``out_kernel_kmajor`` ``[D,
+    H*Dh]`` beside them: non-persistent buffers, derived when the module is
+    built and again after every ``load_state_dict``, so that the state dict
+    keeps vit_tpu's ``[in, out]`` layout and no forward transposes a weight.
+    Code that writes ``qkv_kernel`` or ``out_kernel`` in place otherwise
+    calls ``refresh_kmajor``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, *, device="cuda"):
         super().__init__()
@@ -92,6 +106,15 @@ class QuantAttention(nn.Module):
         self.out_bias = p(dim)
         _int8_buffer(self, "qkv_kernel", dim, 3 * inner, device)
         _int8_buffer(self, "out_kernel", inner, dim, device)
+        for name in ("qkv_kernel", "out_kernel"):
+            self.register_buffer(f"{name}_kmajor", kmajor(getattr(self, name)), persistent=False)
+        self.register_load_state_dict_post_hook(_refresh_kmajor)
+
+    @torch.no_grad()
+    def refresh_kmajor(self) -> None:
+        """Derive the K-major copies from the ``[in, out]`` codes."""
+        self.qkv_kernel_kmajor.copy_(self.qkv_kernel.t())
+        self.out_kernel_kmajor.copy_(self.out_kernel.t())
 
 
 class QuantFeedForward(nn.Module):
@@ -123,6 +146,7 @@ class QuantEncoderBlock(nn.Module):
             x = ops.quant_attention_block(
                 x, a.norm_scale, a.norm_bias, a.qkv_kernel, a.qkv_kernel_scale,
                 a.out_kernel, a.out_kernel_scale, a.out_bias, a.heads, scale=scale, ln_eps=eps,
+                kmajor=(a.qkv_kernel_kmajor, a.out_kernel_kmajor),
             ).to(dtype)
             return ops.quant_mlp(
                 x, f.ln_scale, f.ln_bias, f.w1, f.w1_scale, f.b1, f.w2, f.w2_scale, f.b2,
