@@ -18,14 +18,17 @@ Runs, in order, and exits non-zero at the first failure:
   4. the kernel path's logits against the port's plain fp32 path;
   5. times: img/s and p50 latency, kernels against the plain path; device
      time by kernel of one bf16 forward at batch 128 (torch.profiler);
-  6. the int8 (W8A8) slice: both int8 GEMMs (kernel 10's WMMA one, and
-     kernel 9's s8 wgmma one with its weights K-major, at ViT-L's shapes,
-     4096 x 1024 x 1024 and tails) and the row quantizer bit-exact against
-     torch._int_mm and quantize_rows, the three int8-path kernels
-     against their twins (the fused-qkv attention at ViT-L batch 1, 8 and
-     128 and at small bias shapes; the two W8A8 blocks stage by stage, and the twins
-     with a fault planted shown to fail their bound, as kernel 9 must when
-     fed the square wout in [in, out] where [out, in] belongs), and ``quantize_vit`` of
+  6. the int8 (W8A8) slice: the s8 wgmma GEMM of kernels 9 and 10 (weights
+     K-major; at ViT-L's four products, 4096 x 1024 x 1024 and tails)
+     bit-exact against torch._int_mm, and both row quantizers (the whole-row
+     one of kernel 9, the one from partial row maxes of kernel 10) bit-exact
+     against quantize_rows; the three int8-path kernels against their twins (the
+     fused-qkv attention at ViT-L batch 1, 8 and 128 and at small bias
+     shapes; the two W8A8 blocks stage by stage, kernel 10 at ViT-L batch
+     1, 8 and 128, in fp32 and at N tails too, and the twins with a fault
+     planted shown to fail their bound, as each kernel must when fed a
+     square weight in [in, out] where [out, in] belongs: kernel 9's wout,
+     kernel 10's w2 at D = F), and ``quantize_vit`` of
      the same ViT-L served in the ``auto`` mode through ``BatchingServer``
      (buckets 1 and 4 run ``w8`` / ``w8a8`` on the fused-qkv attention
      kernel, 16 and 64 the two W8A8 block kernels), with the launch counts
@@ -66,9 +69,12 @@ Runs, in order, and exits non-zero at the first failure:
      (LayerNorm, the wgmma GEMM, the head-mix core, the wgmma GEMM, or the
      run fails); the W8A8 attention block's five launches at ViT-L
      (LayerNorm and quantizer, the s8 wgmma GEMM, the register-resident
-     core, the quantizer, the s8 wgmma GEMM, or the run fails) with each
-     GEMM's TOPS beside torch._int_mm's; the s8 wgmma GEMM alone at 4096 x
-     1024 x 1024 beside torch._int_mm and the WMMA GEMM; the window kernel
+     core, the quantizer, the s8 wgmma GEMM, or the run fails) and the W8A8
+     MLP's four at ViT-L batch 1, 8 and 128 (LayerNorm and quantizer, the
+     s8 wgmma GEMM, the hidden's quantizer from partial row maxes, the s8
+     wgmma GEMM, or the run fails), with each GEMM's TOPS beside
+     torch._int_mm's; the s8 wgmma GEMM alone at 4096 x 1024 x 1024 beside
+     torch._int_mm; the window kernel
      at Twins' three LSA stages, each one launch of the fused kernel (or the
      run fails); kernel 3 also at batch 1 and 4 (the int8 buckets that run
      it) and kernel 4 at the other three GSA shapes, each beside SDPA;
@@ -379,6 +385,16 @@ def qblock_kernel_args(args):
     return a
 
 
+def qmlp_kernel_args(args):
+    """Kernel 10's arguments from its twin's (QMLP_ARGS): ``w1`` and ``w2``
+    K-major, ``[out, in]``, as ``QuantViT`` keeps them for it."""
+    from vit_tpu_torch.ops.quant_block import kmajor
+
+    a = list(args)
+    a[3], a[6] = kmajor(args[3]), kmajor(args[6])
+    return a
+
+
 def quant_block_twin(args, heads=None, true_n=None, activation="gelu"):
     """The twin of kernel 9 (``heads`` given) or kernel 10."""
     from vit_tpu_torch.ops import quant_block as qb
@@ -400,7 +416,7 @@ def check_quant_block(name, args, heads=None, true_n=None, activation="gelu"):
     st = {}
     x = args[0]
     if heads is None:
-        out = qb.fused_quant_mlp(*args, activation=activation, intermediates=st)
+        out = qb.fused_quant_mlp(*qmlp_kernel_args(args), activation=activation, intermediates=st)
         w_b, s_b, bias = args[6:9]
     else:
         out = qb.fused_quant_attention_block(*qblock_kernel_args(args), heads, true_n=true_n,
@@ -427,6 +443,9 @@ def check_quant_block(name, args, heads=None, true_n=None, activation="gelu"):
         kind, fp32 = "hidden", st["h"]
         rows_ref = qb._activate(g + args[5], activation)
         q2, s2 = st["hq"], st["s_row2"]
+        differ = int((st["h_amax"] != qb.partial_row_amax(fp32)).sum().item())
+        stage(differ == 0, f"hidden's partial row maxes (fc1's epilogue, by 128-column tile) "
+                           f"differing from those of the kernel's hidden: {differ} (must be 0)")
     else:
         differ = int((st["qkv"] != g.bfloat16()).sum().item())
         stage(differ == 0, f"qkv rows (dequant epilogue on the kernel's codes) differing "
@@ -909,37 +928,35 @@ def tie_rows(gen, rows, k, dev):
 
 
 def phase_int8_kernels(dev):
-    """The int8 GEMM and row quantizer bit-exact, and kernels 3, 9 and 10
-    against their twins, at the ViT-L shapes (batch 8) and at small masked
-    and bias shapes; the twins with a fault planted must fail the bound of
-    kernels 9 and 10."""
+    """The s8 wgmma GEMM and both row quantizers bit-exact, and kernels 3, 9
+    and 10 against their twins, at the ViT-L shapes (kernel 10 at batch 1, 8 and
+    128) and at small masked, bias and tail shapes; the twins with a fault
+    planted must fail the bound of kernels 9 and 10, and so must each kernel
+    fed a square weight in [in, out] where [out, in] belongs."""
     from vit_tpu_torch.ops import quant_block as qb
     from vit_tpu_torch.ops.quant import int_mm, quantize_rows
 
     qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    v = tie_rows(gen, 64, 1024, dev)
-    moved, _, s_ulps = codes_differ(*qb.quant_rows_f32(v), *quantize_rows(v))
-    halves = int((v.frac().abs() == 0.5).sum().item())
-    print(f"quant_rows on rows with {halves} values on a half: codes differing from quantize_rows "
-          f"{moved}, row scales {s_ulps:g} fp32 ulps (must be 0)")
-    require(moved == 0 and s_ulps == 0, f"quant_rows: {moved} codes differ from quantize_rows")
+    for k in (1024, 528):  # kernel 10's hidden quantizer also at a partial last tile
+        v = tie_rows(gen, 64, k, dev)
+        v[::2, [0, -1]] = v[::2, [-1, 0]]  # every other row's max in the last tile
+        moved, _, s_ulps = codes_differ(*qb.quant_rows_f32(v), *quantize_rows(v))
+        moved2, _, s_ulps2 = codes_differ(*qb.quant_rows_parts_f32(v, qb.partial_row_amax(v)),
+                                          *quantize_rows(v))
+        halves = int((v.frac().abs() == 0.5).sum().item())
+        print(f"quant_rows / quant_rows_parts on [64x{k}] rows with {halves} values on a half: "
+              f"codes differing from quantize_rows {moved} / {moved2}, row scales {s_ulps:g} / "
+              f"{s_ulps2:g} fp32 ulps (must be 0)")
+        require(moved == moved2 == 0 and s_ulps == s_ulps2 == 0,
+                f"quant_rows / quant_rows_parts at K {k}: {moved} / {moved2} codes differ "
+                f"from quantize_rows")
     rows = 8 * N_TOKENS
+    # the s8 wgmma GEMM (b K-major): ViT-L's four products at batch 8, the
+    # 4096 x 1024 x 1024 dot of scripts/probe_int8.py (S7), and tails (the
+    # CPU's torch._int_mm takes every shape)
     for m, k, n in ((rows, 1024, 3072), (rows, 1024, 1024), (rows, 1024, 4096), (rows, 4096, 1024),
-                    (37, 256, 48)):
-        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
-        b = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        got, ref = qb.gemm_s8_i32(a, b), int_mm(a, b)
-        torch.cuda.synchronize()
-        differ = int((got != ref).sum().item())
-        print(f"gemm_s8 [{m}x{k}] @ [{k}x{n}]: int32 sums differing from torch._int_mm: {differ} "
-              f"(must be 0)")
-        require(differ == 0, f"gemm_s8 {m}x{k}x{n}: {differ} int32 sums differ")
-    # kernel 9's s8 wgmma GEMM (b K-major): ViT-L's two products at batch 8, the
-    # 4096 x 1024 x 1024 dot of scripts/probe_int8.py (S7), and tails (the CPU's
-    # torch._int_mm takes every shape)
-    for m, k, n in ((rows, 1024, 3072), (rows, 1024, 1024), (4096, 1024, 1024), (5, 64, 48),
-                    (197, 1040, 16), (300, 208, 144)):
+                    (4096, 1024, 1024), (5, 64, 48), (197, 1040, 16), (300, 208, 144)):
         a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         b_nk = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
         got = qb.gemm_s8_sm90_i32(a, b_nk)
@@ -978,15 +995,24 @@ def phase_int8_kernels(dev):
          dict(heads=4, true_n=37)),
         ("quant_mlp ViT-L gelu", qmlp_inputs(gen, 8, N_TOKENS, 1024, 4096, torch.bfloat16, dev),
          dict(activation="gelu")),
+        ("quant_mlp batch 1 ViT-L gelu",
+         qmlp_inputs(gen, 1, N_TOKENS, 1024, 4096, torch.bfloat16, dev), dict(activation="gelu")),
+        ("quant_mlp batch 128 ViT-L gelu",
+         qmlp_inputs(gen, 128, N_TOKENS, 1024, 4096, torch.bfloat16, dev), dict(activation="gelu")),
+        ("quant_mlp batch 8 ViT-L fp32 gelu",
+         qmlp_inputs(gen, 8, N_TOKENS, 1024, 4096, torch.float32, dev), dict(activation="gelu")),
         ("quant_mlp small fp32 gelu_exact", qmlp_inputs(gen, 2, 33, 256, 512, torch.float32, dev),
          dict(activation="gelu_exact")),
+        ("quant_mlp N tails (D 208, F 528) bf16 gelu",
+         qmlp_inputs(gen, 3, 50, 208, 528, torch.bfloat16, dev), dict(activation="gelu")),
     ]
     for name, inp, kw in cases:
         a = [inp[k] for k in (QMLP_ARGS if name.startswith("quant_mlp") else QBLOCK_ARGS)]
         _, ref, err, f = check_quant_block(name, a, **kw)
         fails += f
         if "ViT-L" in name:
-            worst[name.split()[0]] = err
+            worst[name.split()[0]] = max(worst[name.split()[0]], err)
+        if name in ("quant_attention_block ViT-L", "quant_mlp ViT-L gelu"):
             for fault in INT8_FAULTS:
                 with planted_fault(fault):
                     bad = quant_block_twin(a, **kw)
@@ -996,18 +1022,31 @@ def phase_int8_kernels(dev):
                       f"{(bad.float() - ref.float()).abs().max().item():.6g} (must fail the check)")
                 if ok:
                     fails.append(f"{name}: the bound does not see {fault}")
-            if name.startswith("quant_attention_block"):
-                # wout is square at ViT-L (1024 x 1024): its [in, out] codes pass the
-                # K-major shape check, so the bound has to see that layout
-                bad = qblock_kernel_args(a)
-                bad[5] = a[5]
-                out = qb.fused_quant_attention_block(*bad, kw["heads"])
-                ulps, differ, ok = int8_out_check(out, ref)
-                print(f"{name}: the kernel fed wout [in, out] where [out, in] belongs: {ulps:.3g} "
-                      f"bf16 ulps from the twin, {differ:.3g} of the values differ (must fail "
-                      f"the check)")
-                if ok:
-                    fails.append(f"{name}: the bound does not see wout in the wrong layout")
+        del inp, a, ref
+    # A square weight in [in, out] passes the K-major shape check, so the bound
+    # has to see that layout: kernel 9's wout at ViT-L (1024 x 1024), kernel
+    # 10's w2 at D = F
+    for name, inp, kw in (
+        ("quant_attention_block ViT-L", qblock_inputs(gen, 8, N_TOKENS, 1024, 16, 64, dev),
+         dict(heads=16)),
+        ("quant_mlp D = F = 1024", qmlp_inputs(gen, 8, N_TOKENS, 1024, 1024, torch.bfloat16, dev),
+         {}),
+    ):
+        if "heads" in kw:
+            a = [inp[k] for k in QBLOCK_ARGS]
+            bad = qblock_kernel_args(a)
+            bad[5], what = a[5], "wout"
+            out = qb.fused_quant_attention_block(*bad, kw["heads"])
+        else:
+            a = [inp[k] for k in QMLP_ARGS]
+            bad = qmlp_kernel_args(a)
+            bad[6], what = a[6], "w2"
+            out = qb.fused_quant_mlp(*bad)
+        ulps, differ, ok = int8_out_check(out, quant_block_twin(a, **kw))
+        print(f"{name}: the kernel fed {what} [in, out] where [out, in] belongs: {ulps:.3g} "
+              f"bf16 ulps from the twin, {differ:.3g} of the values differ (must fail the check)")
+        if ok:
+            fails.append(f"{name}: the bound does not see {what} in the wrong layout")
     require(not fails, "; ".join(fails))
     return worst
 
@@ -1832,11 +1871,64 @@ def quant_block_launches(q, heads, smi):
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
 
 
+# What the names of kernel 10's four launches hold, in order: the LayerNorm
+# and row quantizer, fc1 on the s8 wgmma GEMM (its epilogue also writing the
+# hidden's partial row maxes), the hidden's quantizer from those partials,
+# fc2 on the s8 wgmma GEMM.
+Q10_KERNELS = ("ln_quant_rows_kernel", "gemm_s8_sm90_kernel", "quant_rows_parts_kernel",
+               "gemm_s8_sm90_kernel")
+Q10_LAUNCHES = ("ln quant", "fc1 gemm", "hidden quant", "fc2 gemm")
+
+
+def quant_mlp_launches(qm, smi):
+    """One op line: kernel 10's device time at these inputs (QMLP_ARGS)
+    split into its four launches (torch.profiler), each GEMM's TOPS beside
+    one torch._int_mm of the same operands: the card measurement of the MLP
+    half of scripts/tune_quant_r3.py's phase split (S6), each launch beside
+    its bound. Fails unless they are Q10_KERNELS."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    x, w1, w2 = qm[0], qm[3], qm[6]
+    km = qmlp_kernel_args(qm)
+    split = launch_ms(lambda: qb.fused_quant_mlp(*km), len(Q10_KERNELS))
+    names = [n for n, _ in split]
+    require(all(key in n for key, n in zip(Q10_KERNELS, names)),
+            f"quant_mlp launched {names}, not {list(Q10_KERNELS)}")
+    dim, f = w1.shape
+    rows = x.numel() // dim
+    ops = {"fc1 gemm": 2 * rows * dim * f, "fc2 gemm": 2 * rows * f * dim}
+    # each launch's bound: x, the codes, the fp32 hidden and the partial row
+    # maxes each read once and written once
+    xb, amax_b = rows * dim * x.element_size(), rows * -(-f // 128) * 4
+    bounds = {"ln quant": bound(nbytes=xb + rows * dim + 4 * rows),
+              "fc1 gemm": bound(int8_ops=ops["fc1 gemm"],
+                                nbytes=rows * dim + dim * f + 4 * rows * f + amax_b),
+              "hidden quant": bound(nbytes=4 * rows * f + amax_b + rows * f + 4 * rows),
+              "fc2 gemm": bound(int8_ops=ops["fc2 gemm"], nbytes=rows * f + f * dim + 2 * xb)}
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 42)
+    xq = torch.randint(-127, 128, (rows, dim), generator=gen, device=x.device, dtype=torch.int8)
+    hq = torch.randint(-127, 128, (rows, f), generator=gen, device=x.device, dtype=torch.int8)
+    lib = {"fc1 gemm": cuda_ms(lambda: torch._int_mm(xq, w1)),
+           "fc2 gemm": cuda_ms(lambda: torch._int_mm(hq, w2))}
+    parts = []
+    for what, (_, t) in zip(Q10_LAUNCHES, split):
+        bnd, by = bounds[what]
+        part = f"{what} {t:.4f} ms (bound {bnd:.4f}, {by}"
+        if what in ops:
+            part += (f"; {ops[what] / t / 1e9:.1f} TOPS; torch._int_mm {lib[what]:.4f} ms, "
+                     f"{ops[what] / lib[what] / 1e9:.1f} TOPS")
+        parts.append(part + ")")
+    print(f"op quant_mlp ViT-L int8 batch {rows // N_TOKENS} {str(x.dtype)[6:]} launches "
+          f"(device): {sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
+    print("op quant_mlp kernels: "
+          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+
+
 def gemm_s8_sm90_line(dev, smi):
     """One op line: the s8 wgmma GEMM at scripts/probe_int8.py's 4096 x 1024
-    x 1024 int8 dot (S7), raw int32 sums, beside torch._int_mm and the WMMA
-    GEMM of kernel 10 on the same operands, against its bound; the sums must
-    equal torch._int_mm's."""
+    x 1024 int8 dot (S7), raw int32 sums, beside torch._int_mm on the same
+    operands, against its bound; the sums must equal torch._int_mm's."""
     from vit_tpu_torch.ops import quant_block as qb
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
@@ -1849,12 +1941,11 @@ def gemm_s8_sm90_line(dev, smi):
     ops = 2 * m * k * n
     t = cuda_ms(lambda: qb.gemm_s8_sm90_i32(a, b_nk), iters=50)
     lib = cuda_ms(lambda: torch._int_mm(a, b), iters=50)
-    wmma = cuda_ms(lambda: qb.gemm_s8_i32(a, b), iters=50)
     bnd, by = bound(int8_ops=ops, nbytes=m * k + k * n + 4 * m * n)
     print(f"op gemm_s8_sm90 S7 [{m}x{k}] @ [{n}x{k}]^T int32: kernel {t:.4f} ms "
           f"({ops / t / 1e9:.1f} TOPS), torch._int_mm {lib:.4f} ms ({ops / lib / 1e9:.1f} TOPS), "
-          f"gemm_s8 (WMMA) {wmma:.4f} ms ({ops / wmma / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}; "
-          f"{bnd / t:.1%} of it); sums differing from torch._int_mm: {differ} [{smi}]")
+          f"bound {bnd:.4f} ms ({by}; {bnd / t:.1%} of it); sums differing from torch._int_mm: "
+          f"{differ} [{smi}]")
 
 
 # What the names of the MLP kernel's three launches hold, by its GEMM route
@@ -1974,13 +2065,18 @@ def phase_op_times(dev, smi):
         gemm_s8_sm90_line(dev, smi)
         qm_in = qmlp_inputs(gen, 8, 16 * n, dim, f, torch.bfloat16, dev)
         qm = [qm_in[k] for k in QMLP_ARGS]
+        km = qmlp_kernel_args(qm)
         ms["quant_mlp"] = (
-            cuda_ms(lambda: qb.fused_quant_mlp(*qm)),
+            cuda_ms(lambda: qb.fused_quant_mlp(*km)),
             cuda_ms(lambda: qb.reference_quant_mlp(*qm), iters=5),
             cuda_ms(lambda: library_quant_mlp(*qm)),
             bound(int8_ops=4 * rows * dim * f, nbytes=size(*qm) + size(qm[0])),
         )
-        del qm, qm_in
+        quant_mlp_launches(qm, smi)
+        for bk in (1, 8):  # the batch-1 and batch-8 forwards' rows
+            x_bk = qm[0].reshape(-1, dim)[: bk * n].contiguous()
+            quant_mlp_launches([x_bk, *qm[1:]], smi)
+        del qm, km, qm_in
         # kernels 7 and 8 at the CaiT (n = 64) and DeepViT (n = 65) presets
         rb = _rb()
         for k, kind, n, twin, lib_fn in (
@@ -2350,7 +2446,9 @@ def main() -> int:
                                   "vit_tpu_torch/csrc/gemm_s8_sm90.cuh, "
                                   "vit_tpu_torch/csrc/attention_core_sm90.cuh",
                                   "vit_tpu/ops/quant_block.py:37"),
-        "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu", "vit_tpu/ops/quant_block.py:189"),
+        "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu, "
+                      "vit_tpu_torch/csrc/gemm_s8_sm90.cuh",
+                      "vit_tpu/ops/quant_block.py:189"),
         "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu, "
                                 "vit_tpu_torch/csrc/head_mix_core.cuh",
                                 "vit_tpu/ops/reattention_block.py:146"),

@@ -19,7 +19,7 @@ import torch
 
 from chip_smoke import (INT8_FAULTS, INT8_ROWS_TOL, bf16_ulps, check_quant_block, codes_differ,
                         int8_out_check, kernel_tol, planted_fault, qblock_kernel_args,
-                        quant_block_twin, tie_rows)
+                        qmlp_kernel_args, quant_block_twin, tie_rows)
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import quant as tq
 from vit_tpu_torch.ops import quant_block as tqb
@@ -180,12 +180,12 @@ def _qblock_inputs(seed, b, n, dim, heads, d):
     )
 
 
-def _qmlp_inputs(seed, t, dim, f):
+def _qmlp_inputs(seed, t, dim, f, b=2, std=(0.08, 0.08)):
     rng = np.random.default_rng(seed)
-    w1_i8, s1 = _channelwise(rng.normal(0, 0.08, (dim, f)))
-    w2_i8, s2 = _channelwise(rng.normal(0, 0.08, (f, dim)))
+    w1_i8, s1 = _channelwise(rng.normal(0, std[0], (dim, f)))
+    w2_i8, s2 = _channelwise(rng.normal(0, std[1], (f, dim)))
     return dict(
-        x=rng.standard_normal((2, t, dim)),
+        x=rng.standard_normal((b, t, dim)),
         ln_scale=rng.normal(1, 0.1, dim), ln_bias=rng.normal(0, 0.1, dim),
         w1_i8=w1_i8, s1=s1, b1=rng.normal(0, 0.1, f),
         w2_i8=w2_i8, s2=s2, b2=rng.normal(0, 0.1, dim),
@@ -324,6 +324,54 @@ def test_int8_kernel_wrappers_refuse_cpu_tensors():
         tqb.fused_quant_mlp(*(tm[k] for k in QMLP_ARGS))
 
 
+def test_quant_mlp_on_cpu_ignores_kmajor_and_counts_nothing():
+    """On the CPU ``ops.quant_mlp`` runs the twin on the ``[in, out]``
+    codes, with or without the K-major copies the kernel would read."""
+    ops.reset_launch_counts()
+    tm = _cast(_qmlp_inputs(21, 9, 64, 128), "bfloat16", _torch)
+    args = [tm[k] for k in QMLP_ARGS]
+    plain = ops.quant_mlp(*args)
+    km = qmlp_kernel_args(args)
+    given = ops.quant_mlp(*args, kmajor=(km[3], km[6]))
+    torch.testing.assert_close(given, plain, rtol=0, atol=0)
+    torch.testing.assert_close(plain, tqb.reference_quant_mlp(*args), rtol=0, atol=0)
+    assert tuple(km[3].shape) == (128, 64) and tuple(km[6].shape) == (64, 128)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def _hidden_rows(kind, k):
+    """fp32 rows of width k whose max lies in the first tile of 128 columns
+    in some rows and in the last (partial at k = 208, 528) in the others."""
+    gen = torch.Generator().manual_seed(k)
+    if kind == "zeros":
+        return torch.zeros(6, k)
+    if kind == "ties":  # land on halves (chip_smoke.tie_rows); row 1 all zero
+        v = tie_rows(gen, 8, k, torch.device("cpu"))
+        v[::2, [0, -1]] = v[::2, [-1, 0]]
+        return v
+    v = torch.randn(8, k, generator=gen) * 3
+    v[::2, -1] = 40.0
+    v[1::2, 5] = -40.0
+    return v
+
+
+@pytest.mark.parametrize("k", [208, 528])
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+def test_quantize_rows_from_partials_is_quantize_rows(kind, k):
+    """The twin of kernel 10's hidden quantizer (the row max from partial
+    maxes of 128 columns, then the scale, then the codes) gives
+    quantize_rows' codes and scales bit for bit."""
+    v = _hidden_rows(kind, k)
+    parts = tqb.partial_row_amax(v)
+    assert tuple(parts.shape) == (v.shape[0], -(-k // tqb.S8_TILE_N))
+    last = v[:, (parts.shape[1] - 1) * tqb.S8_TILE_N:]  # 80 or 16 columns
+    torch.testing.assert_close(parts[:, -1], last.abs().amax(-1), rtol=0, atol=0)
+    codes, scale = tqb.quantize_rows_from_partials(v, parts)
+    ref_codes, ref_scale = tq.quantize_rows(v)
+    assert codes_differ(codes, scale, ref_codes, ref_scale) == (0, 0, 0.0)
+    torch.testing.assert_close(scale, ref_scale, rtol=0, atol=0)
+
+
 # -- on the card: each kernel against its twin --------------------------------
 
 
@@ -336,37 +384,55 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(197, 1024, 3072), (1576, 4096, 1024), (5, 64, 48), (300, 1040, 16)])
-def test_gemm_s8_is_exact(cuda, m, k, n):
-    """The kernels' int8 GEMM gives torch._int_mm's int32 sums bit for bit
-    (on the CPU, which takes every shape)."""
-    gen = torch.Generator(device=cuda).manual_seed(m)
-    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
-    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda, dtype=torch.int8)
-    ref = tq.int_mm(a.cpu(), b.cpu())
-    torch.testing.assert_close(tqb.gemm_s8_i32(a, b).cpu(), ref, rtol=0, atol=0)
-
-
-# Kernel 9's s8 wgmma GEMM (csrc/gemm_s8_sm90.cuh, b K-major [N, K]): ViT-L's
-# qkv and out products at batch 1 and 8, the 4096 x 1024 x 1024 dot of
-# scripts/probe_int8.py, and tails: M 5 and 197, N and K multiples of 16 that
-# do not fill a 128 x 128 x 128 tile.
+# The s8 wgmma GEMM of kernels 9 and 10 (csrc/gemm_s8_sm90.cuh, b K-major [N,
+# K]): kernel 9's qkv and out products at ViT-L batch 1 and 8, kernel 10's
+# fc1 and fc2 at batch 8 and 128, the 4096 x 1024 x 1024 dot of
+# scripts/probe_int8.py, and tails: M 5 and 197, N and K multiples of 16
+# that do not fill a 128 x 128 x 128 tile.
 S8_SM90_SHAPES = [(197, 1024, 3072), (197, 1024, 1024), (1576, 1024, 3072), (1576, 1024, 1024),
-                  (4096, 1024, 1024), (5, 64, 48), (197, 1040, 16), (300, 208, 144),
-                  (5, 16, 16)]
+                  (1576, 1024, 4096), (1576, 4096, 1024), (25216, 1024, 4096),
+                  (25216, 4096, 1024), (4096, 1024, 1024), (5, 64, 48), (197, 1040, 16),
+                  (300, 208, 144), (5, 16, 16)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", S8_SM90_SHAPES)
 def test_gemm_s8_sm90_is_exact(cuda, m, k, n):
     """The s8 wgmma GEMM gives torch._int_mm's int32 sums bit for bit (on
-    the CPU, which takes every shape)."""
+    the card from 17 rows, else on the CPU, which takes every shape)."""
     gen = torch.Generator(device=cuda).manual_seed(m + n)
     a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
     b_nk = torch.randint(-127, 128, (n, k), generator=gen, device=cuda, dtype=torch.int8)
-    ref = tq.int_mm(a.cpu(), b_nk.cpu().t())
-    torch.testing.assert_close(tqb.gemm_s8_sm90_i32(a, b_nk).cpu(), ref, rtol=0, atol=0)
+    ref = tq.int_mm(a, b_nk.t()) if m > 16 else tq.int_mm(a.cpu(), b_nk.cpu().t()).to(cuda)
+    torch.testing.assert_close(tqb.gemm_s8_sm90_i32(a, b_nk), ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", [None, "gelu", "gelu_exact"])
+@pytest.mark.parametrize("m,k,n", [(1576, 1024, 4096), (150, 256, 528), (37, 1040, 16)])
+def test_gemm_s8_sm90_applies_dequant_bias_and_gelu(cuda, m, k, n, activation):
+    """Kernel 10's fc1 alone: ``(acc * s_row) * s_col + bias``, bitwise the
+    twin's (``_quant_gemm``); the GELU within INT8_ROWS_TOL of torch's; and
+    the partial row maxes by 128-column tile (N tails at 528 and 16) bitwise
+    those of its own fp32 output."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+    w, s_col = tq.quantize_rows(torch.randn(n, k, generator=gen, device=cuda))
+    s_row = torch.rand(m, generator=gen, device=cuda) / 127 / k**0.5
+    bias = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    h, parts = tqb.gemm_s8_sm90_f32(a, w, s_row, s_col.reshape(-1), bias, activation,
+                                    row_max=True)
+    dequant = tqb._quant_gemm(a, s_row.view(-1, 1), w.t(), s_col)
+    pre = dequant + bias
+    if activation is None:
+        torch.testing.assert_close(h, pre, rtol=0, atol=0)
+    else:
+        ref = tqb._activate(pre, activation)
+        rel = ((h - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= INT8_ROWS_TOL["hidden"], rel
+    torch.testing.assert_close(parts, tqb.partial_row_amax(h), rtol=0, atol=0)
+    plain = tqb.gemm_s8_sm90_f32(a, w, s_row, s_col.reshape(-1))  # no bias, no activation
+    torch.testing.assert_close(plain, dequant, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -398,6 +464,17 @@ def test_quant_rows_kernel_rounds_half_to_even(cuda):
     for bit on rows whose values land on halves."""
     v = tie_rows(torch.Generator(device=cuda).manual_seed(15), 16, 1024, cuda)
     assert codes_differ(*tqb.quant_rows_f32(v), *tq.quantize_rows(v)) == (0, 0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [208, 528, 4096])
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+def test_quant_rows_parts_kernel_is_quantize_rows(cuda, kind, k):
+    """Kernel 10's hidden quantizer, the row max taken from partials of 128
+    columns, gives quantize_rows' codes and scales bit for bit."""
+    v = _hidden_rows(kind, k).to(cuda)
+    got = tqb.quant_rows_parts_f32(v, tqb.partial_row_amax(v))
+    assert codes_differ(*got, *tq.quantize_rows(v)) == (0, 0, 0.0)
 
 
 @pytest.mark.cuda
@@ -487,6 +564,74 @@ def test_quant_mlp_kernel_matches_twin(cuda, activation, dtype):
     assert ops.launch_counts()["quant_mlp"] == before + 1
     assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
     assert not fails, fails
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_quant_mlp_kernel_matches_twin_at_vit_l(cuda, b, dtype):
+    """Stage by stage at ViT-L's widths (1024 -> 4096) and 197 tokens: the
+    codes and scales bitwise, fc1's partial row maxes bitwise, the output
+    within int8_out_check's bound of the twin's. The weights are drawn at a
+    layer's own scale, N(0, 1 / fan_in), as chip_smoke draws them: the small
+    tests' 0.08 would make the output's std ~8 at these widths, and a row
+    whose LN codes moved a step (the LN sums in another order than the
+    twin's) then carries more than INT8_ULPS of noise at values near
+    INT8_FLOOR."""
+    inp = _qmlp_inputs(22, 197, 1024, 4096, b=b, std=(1024**-0.5, 4096**-0.5))
+    t = _cast(inp, dtype, lambda a, dt: _torch(a, dt, cuda))
+    out, _, _, fails = check_quant_block("quant_mlp", [t[k] for k in QMLP_ARGS])
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    assert not fails, fails
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,f", [(208, 528), (256, 1040), (1040, 208)])
+def test_quant_mlp_kernel_matches_twin_at_n_tails(cuda, dim, f):
+    """Widths that leave a partial last tile of 128 columns in fc1 (F) and
+    in fc2 (D)."""
+    t = _cast(_qmlp_inputs(23, 37, dim, f), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    out, _, _, fails = check_quant_block("quant_mlp", [t[k] for k in QMLP_ARGS])
+    assert out.shape == t["x"].shape
+    assert not fails, fails
+
+
+@pytest.mark.cuda
+def test_quant_mlp_sees_w2_in_the_wrong_layout(cuda):
+    """At D = F, vit_tpu's [in, out] ``w2`` passes the K-major shape check:
+    fed where [out, in] belongs, the output must fail kernel 10's bound."""
+    t = _cast(_qmlp_inputs(24, 197, 256, 256), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    args = [t[k] for k in QMLP_ARGS]
+    bad = qmlp_kernel_args(args)
+    bad[6] = args[6]
+    out = tqb.fused_quant_mlp(*bad)
+    ulps, differ, ok = int8_out_check(out, quant_block_twin(args))
+    assert not ok and ulps > 2 * 8.0, (ulps, differ)
+
+
+@pytest.mark.cuda
+def test_quant_mlp_refuses_w1_in_the_wrong_layout(cuda):
+    t = _cast(_qmlp_inputs(25, 17, 64, 128), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    with pytest.raises(TypeError, match="K-major"):
+        tqb.fused_quant_mlp(*(t[k] for k in QMLP_ARGS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "w1", "b2"])
+def test_quant_mlp_refuses_a_misaligned_operand(cuda, operand):
+    """Every operand of kernel 10 must start on a 16-byte boundary (its TMA
+    loads and vector loads); a view that starts inside its storage is
+    refused before any launch."""
+    t = _cast(_qmlp_inputs(26, 17, 64, 128), "bfloat16", lambda a, dt: _torch(a, dt, cuda))
+    args = qmlp_kernel_args([t[k] for k in QMLP_ARGS])
+    i = QMLP_ARGS.index(operand + ("_i8" if operand.startswith("w") else ""))
+    a = args[i]
+    shifted = torch.empty(a.numel() + 16, dtype=a.dtype, device=cuda)[1:1 + a.numel()]
+    args[i] = shifted.view(a.shape).copy_(a)
+    before = ops.launch_counts()["quant_mlp"]
+    with pytest.raises(ValueError, match="16-byte"):
+        tqb.fused_quant_mlp(*args)
+    assert ops.launch_counts()["quant_mlp"] == before
 
 
 @pytest.mark.cuda

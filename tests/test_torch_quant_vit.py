@@ -79,18 +79,20 @@ def test_quantize_vit_matches_jax_and_from_jax_quant_round_trips():
 
 def _kmajor_follows(qm):
     for block in qm.encoder.blocks:
-        a = block.attn
-        for name in ("qkv_kernel", "out_kernel"):
-            copy = getattr(a, f"{name}_kmajor")
+        for mod, name in (("attn", "qkv_kernel"), ("attn", "out_kernel"), ("ff", "w1"),
+                          ("ff", "w2")):
+            m = getattr(block, mod)
+            copy = getattr(m, f"{name}_kmajor")
             assert copy.is_contiguous() and copy.dtype == torch.int8
-            torch.testing.assert_close(copy, getattr(a, name).t(), rtol=0, atol=0)
+            torch.testing.assert_close(copy, getattr(m, name).t(), rtol=0, atol=0)
 
 
 def test_quant_vit_keeps_k_major_codes_beside_the_state_dict():
-    """The attention-block kernel reads the int8 weights K-major: QuantViT
-    derives those copies when it is built and after each load_state_dict
-    (strict loading of from_jax_quant's tree included), and keeps them out of
-    the state dict, whose codes stay in vit_tpu's [in, out] layout."""
+    """Both W8A8 kernels read the int8 weights K-major: QuantViT derives
+    those copies (of the attention's and the MLP's four weights) when it is
+    built and after each load_state_dict (strict loading of from_jax_quant's
+    tree included), and keeps them out of the state dict, whose codes stay in
+    vit_tpu's [in, out] layout."""
     from vit_tpu.utils.quantize import quantize_vit as jax_quantize_vit
 
     _, variables, tm = _jax_pair(None)
@@ -108,6 +110,9 @@ def test_quant_vit_keeps_k_major_codes_beside_the_state_dict():
     _kmajor_follows(fresh)
     torch.testing.assert_close(fresh.encoder.blocks[0].attn.qkv_kernel_kmajor,
                                -qm.encoder.blocks[0].attn.qkv_kernel_kmajor, rtol=0, atol=0)
+    torch.testing.assert_close(fresh.encoder.blocks[1].ff.w2_kmajor,
+                               -qm.encoder.blocks[1].ff.w2_kmajor, rtol=0, atol=0)
+    assert tuple(fresh.encoder.blocks[0].ff.w1_kmajor.shape) == (CFG["mlp_dim"], CFG["dim"])
 
 
 def test_from_jax_quant_refuses_a_qkv_bias_tree():

@@ -1,5 +1,5 @@
-// int8 x int8 -> int32 GEMM for Hopper on wgmma fed by TMA, with the dequant
-// epilogue of gemm_s8.cuh:
+// int8 x int8 -> int32 GEMM for Hopper on wgmma fed by TMA, with a dequant
+// epilogue:
 //
 //   acc[M, N] = A[M, K] @ B[N, K]^T                    (int32, exact)
 //   C = round_once( act((acc * s_row[m]) * s_col[n] + bias[n]) + residual )
@@ -9,17 +9,24 @@
 // of vit_tpu's [in, out] = [K, N] layout. Hopper's 8-bit wgmma reads both
 // operands K-major (its transpose bits exist only for 16-bit types), so the
 // owner of the weight keeps a K-major copy (QuantViT derives one when it is
-// built or loaded); nothing is transposed per call. The epilogue keeps
-// gemm_s8.cuh's op order (quant_block.py:70, :103-105): the int32 sum to fp32,
-// __fmul_rn by the row scale, then by the column scale, + bias, activation, +
-// residual in fp32, one rounding to OutT. OutT = int32_t stores the raw sums
-// (the exactness check against torch._int_mm).
+// built or loaded); nothing is transposed per call. The epilogue keeps the
+// TPU kernels' op order (quant_block.py:70, :103-105, :211, :220-221): the
+// int32 sum to fp32, __fmul_rn by the row scale, then by the column scale, +
+// bias, activation, + residual in fp32, one rounding to OutT. OutT = int32_t
+// stores the raw sums (the exactness check against torch._int_mm).
+//
+// kRowMax (kernel 10's fc1 only): the epilogue also writes, for each row of
+// the tile, max |C| over the tile's BN columns to amax_part[row * gridDim.x +
+// blockIdx.x]. The next pass takes the max of a row's partials and quantizes
+// the row with one read of it; a max is exact in any order, so its codes and
+// scale are those of a whole-row quantizer. Kernel 9's instantiations have
+// kRowMax false and compile to the code they had without it.
 //
 // Bound: compute. Kernel 9's qkv product at ViT-L batch 128 is 25,216 x
 // 3,072 x 1,024 (159 G int8 ops), far above the H100's ~590 op/byte int8
-// ridge; gemm_s8.cuh's WMMA 16x16x16 fragments fed by cp.async reach ~175
-// TOPS of the 1,979 TOP/s peak (NVIDIA H100 80GB HBM3, 700.00 W), and only
-// wgmma reaches the rest.
+// ridge; WMMA 16x16x16 fragments fed by cp.async reached ~175 TOPS of the
+// 1,979 TOP/s peak (NVIDIA H100 80GB HBM3, 700.00 W), and only wgmma
+// reaches the rest.
 //
 // Design: gemm_sm90.cuh's, with 8-bit operands. One block computes a 128 x
 // 128 tile of C over BK = 128 K-bytes a slice.
@@ -35,7 +42,8 @@
 // - Tails. M is free; N and K must be multiples of 16 (TMA's 16-byte global
 //   strides) and every operand 16-byte aligned. TMA zero-fills the rows and
 //   columns past M, N and K, so a partial tile adds zeros; the epilogue masks
-//   its stores at M and N.
+//   its stores at M and N (and, with kRowMax, lets the lanes past N join the
+//   row's warp max with 0).
 // - Epilogue: the int32 accumulators go to the free ring; each warp then
 //   walks its rows four columns a lane, so scale, bias and residual loads and
 //   the output stores cover whole rows.
@@ -102,13 +110,13 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
 }
 }  // namespace s8_90
 
-template <typename OutT>
+template <typename OutT, bool kRowMax = false>
 __global__ void __launch_bounds__(s8_90::THREADS, 1)
 gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_b, OutT* __restrict__ C,
                     const float* __restrict__ s_row, const float* __restrict__ s_col,
                     const float* __restrict__ bias, const OutT* __restrict__ residual, int act,
-                    int M, int N, int K) {
+                    float* __restrict__ amax_part, int M, int N, int K) {
   using namespace s8_90;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -182,37 +190,51 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
   __syncwarp();
   const int col = n0 + 4 * lane;  // N % 16 == 0: col < N covers col + 3
-  if (col >= N) return;
+  const bool live = col < N;
+  if constexpr (!kRowMax) {
+    if (!live) return;
+  }
   float4 sc = make_float4(0.f, 0.f, 0.f, 0.f), bv = sc;
   if constexpr (!std::is_same<OutT, int32_t>::value) {
-    sc = *reinterpret_cast<const float4*>(s_col + col);
-    if (bias != nullptr) bv = *reinterpret_cast<const float4*>(bias + col);
+    if (live) {
+      sc = *reinterpret_cast<const float4*>(s_col + col);
+      if (bias != nullptr) bv = *reinterpret_cast<const float4*>(bias + col);
+    }
   }
   for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
     const int row = m0 + wg * 64 + r;
-    if (row >= M) break;
-    const int4 acc = *reinterpret_cast<const int4*>(stage_c + r * C_LD + 4 * lane);
+    if (row >= M) break;  // the same for the whole warp
     const size_t o = (size_t)row * N + col;
     if constexpr (std::is_same<OutT, int32_t>::value) {
-      *reinterpret_cast<int4*>(C + o) = acc;
+      *reinterpret_cast<int4*>(C + o) = *reinterpret_cast<const int4*>(stage_c + r * C_LD + 4 * lane);
     } else {
-      const float sr = s_row[row];
-      float v[4] = {__fmul_rn(__fmul_rn(static_cast<float>(acc.x), sr), sc.x),
-                    __fmul_rn(__fmul_rn(static_cast<float>(acc.y), sr), sc.y),
-                    __fmul_rn(__fmul_rn(static_cast<float>(acc.z), sr), sc.z),
-                    __fmul_rn(__fmul_rn(static_cast<float>(acc.w), sr), sc.w)};
-      if (bias != nullptr)
-        v[0] = __fadd_rn(v[0], bv.x), v[1] = __fadd_rn(v[1], bv.y), v[2] = __fadd_rn(v[2], bv.z),
-        v[3] = __fadd_rn(v[3], bv.w);
-      if (act != kActNone) {
+      float amax = 0.f;  // lanes past N join the row's max with 0
+      if (live) {
+        const int4 acc = *reinterpret_cast<const int4*>(stage_c + r * C_LD + 4 * lane);
+        const float sr = s_row[row];
+        float v[4] = {__fmul_rn(__fmul_rn(static_cast<float>(acc.x), sr), sc.x),
+                      __fmul_rn(__fmul_rn(static_cast<float>(acc.y), sr), sc.y),
+                      __fmul_rn(__fmul_rn(static_cast<float>(acc.z), sr), sc.z),
+                      __fmul_rn(__fmul_rn(static_cast<float>(acc.w), sr), sc.w)};
+        if (bias != nullptr)
+          v[0] = __fadd_rn(v[0], bv.x), v[1] = __fadd_rn(v[1], bv.y),
+          v[2] = __fadd_rn(v[2], bv.z), v[3] = __fadd_rn(v[3], bv.w);
+        if (act != kActNone) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = activate(v[i], act);
-      }
-      if (residual != nullptr) {
+          for (int i = 0; i < 4; ++i) v[i] = activate(v[i], act);
+        }
+        if (residual != nullptr) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = __fadd_rn(v[i], to_f32(residual[o + i]));
+          for (int i = 0; i < 4; ++i) v[i] = __fadd_rn(v[i], to_f32(residual[o + i]));
+        }
+        store4(C + o, v[0], v[1], v[2], v[3]);
+        if constexpr (kRowMax)
+          amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
       }
-      store4(C + o, v[0], v[1], v[2], v[3]);
+      if constexpr (kRowMax) {
+        amax = warp_max(amax);
+        if (lane == 0) amax_part[(size_t)row * gridDim.x + blockIdx.x] = amax;
+      }
     }
   }
 }
@@ -233,31 +255,36 @@ inline bool encode_sw128_s8(CUtensorMap* map, const int8_t* ptr, int rows, int c
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A [M, K] int8 row-major, B [N, K] int8 (K-major), C [M, N] of OutT.
-template <typename OutT>
+// A [M, K] int8 row-major, B [N, K] int8 (K-major), C [M, N] of OutT. With
+// kRowMax, amax_part [M, ceil(N / 128)] fp32 receives each row's max |C| by
+// 128-column tile (gemm_s8_sm90_parts gives the count).
+inline int gemm_s8_sm90_parts(int N) { return (N + s8_90::BN - 1) / s8_90::BN; }
+
+template <typename OutT, bool kRowMax = false>
 cudaError_t gemm_s8_sm90(const int8_t* A, const int8_t* B, OutT* C, const float* s_row,
                          const float* s_col, const float* bias, const OutT* residual, int act,
-                         int M, int N, int K, cudaStream_t stream) {
+                         int M, int N, int K, cudaStream_t stream, float* amax_part = nullptr) {
   using namespace s8_90;
+  static_assert(!(kRowMax && std::is_same<OutT, int32_t>::value), "row max of a dequant output");
   const auto misaligned = [](const void* p) {
     return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0;
   };
   if (M < 1 || N < 1 || K < 1 || N % 16 || K % 16 || (M + BM - 1) / BM > 65535 || A == nullptr ||
       B == nullptr || misaligned(A) || misaligned(B) || misaligned(C) || misaligned(s_col) ||
-      misaligned(bias) || misaligned(residual))
+      misaligned(bias) || misaligned(residual) || (kRowMax && amax_part == nullptr))
     return cudaErrorInvalidValue;
   if (!std::is_same<OutT, int32_t>::value && (s_row == nullptr || s_col == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap tma_a, tma_b;
   if (!encode_sw128_s8(&tma_a, A, M, K, BK, BM) || !encode_sw128_s8(&tma_b, B, N, K, BK, BN))
     return cudaErrorInvalidValue;
-  const auto kernel = gemm_s8_sm90_kernel<OutT>;
+  const auto kernel = gemm_s8_sm90_kernel<OutT, kRowMax>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid(gemm_s8_sm90_parts(N), (M + BM - 1) / BM);
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(tma_a, tma_b, C, s_row, s_col, bias, residual,
-                                                act, M, N, K);
+                                                act, amax_part, M, N, K);
   return cudaGetLastError();
 }
 

@@ -213,11 +213,21 @@ def quant_attention_block(
 
 def quant_mlp(
     x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2, *,
-    activation: str = "gelu", ln_eps: float = 1e-6,
+    activation: str = "gelu", ln_eps: float = 1e-6, kmajor=None,
 ):
-    """W8A8 MLP block over tokens ``[..., T, D]``: LN, int8 GEMMs, residual."""
-    fn = fused_quant_mlp if _use_kernel(x) else reference_quant_mlp
-    return fn(
+    """W8A8 MLP block over tokens ``[..., T, D]``: LN, int8 GEMMs, residual.
+    ``w1_i8`` and ``w2_i8`` are vit_tpu's ``[in, out]`` codes; the kernel
+    reads ``kmajor``, the pair of their K-major ``[out, in]`` copies
+    (``QuantViT`` keeps them), and transposes the codes itself where it is
+    not given."""
+    if _use_kernel(x):
+        if kmajor is None:
+            kmajor = (_kmajor(w1_i8), _kmajor(w2_i8))
+        return fused_quant_mlp(
+            x, ln_scale, ln_bias, kmajor[0], s1, b1, kmajor[1], s2, b2,
+            activation=activation, ln_eps=ln_eps,
+        )
+    return reference_quant_mlp(
         x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
         activation=activation, ln_eps=ln_eps,
     )

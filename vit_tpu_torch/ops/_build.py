@@ -166,10 +166,11 @@ _SIGNATURES = {
     "vt_quant_mlp": [
         _P, _I,              # x, x_is_fp32
         _P, _P,              # ln_scale, ln_bias (fp32)
-        _P, _P, _P,          # w1 (int8), s1, b1 (fp32)
-        _P, _P, _P,          # w2 (int8), s2, b2 (fp32)
+        _P, _P, _P,          # w1 [F, D] (int8, K-major), s1, b1 (fp32)
+        _P, _P, _P,          # w2 [D, F] (int8, K-major), s2, b2 (fp32)
         _P,                  # out (x's dtype)
         _P, _P, _P, _P, _P,  # scratch: xq (int8), s_row, h (fp32), hq (int8), s_row2
+        _P,                  # scratch: the hidden's partial row maxes [T, ceil(F / 128)] (fp32)
         _I, _I, _I,          # T, D, F
         _I, _F,              # activation, ln_eps
         _P,                  # cudaStream_t
@@ -179,13 +180,22 @@ _SIGNATURES = {
         _I, _I,              # rows, K
         _P,                  # cudaStream_t
     ],
-    "vt_gemm_s8_i32": [
-        _P, _P, _P,          # a [M, K] int8, b [K, N] int8, c [M, N] int32
-        _I, _I, _I,          # M, N, K
+    "vt_quant_rows_parts": [
+        _P, _P, _I,          # v [rows, K] fp32, partial row maxes [rows, parts] fp32, parts
+        _P, _P,              # codes [rows, K] int8, row scales fp32
+        _I, _I,              # rows, K
         _P,                  # cudaStream_t
     ],
     "vt_gemm_s8_sm90_i32": [
         _P, _P, _P,          # a [M, K] int8, b [N, K] int8 (K-major), c [M, N] int32
+        _I, _I, _I,          # M, N, K
+        _P,                  # cudaStream_t
+    ],
+    "vt_gemm_s8_sm90_f32": [
+        _P, _P, _P,          # a [M, K] int8, b [N, K] int8 (K-major), c [M, N] fp32
+        _P, _P, _P,          # s_row [M], s_col [N], bias [N] (fp32; bias NULL = none)
+        _I,                  # activation (gemm.cuh Act: 0 none)
+        _P,                  # partial row maxes [M, ceil(N / 128)] fp32 (NULL = none)
         _I, _I, _I,          # M, N, K
         _P,                  # cudaStream_t
     ],
@@ -257,7 +267,8 @@ def build() -> Path:
                 failed.append(proc.stderr)
         so.with_suffix(".log").write_text("\n".join(log))
         if failed:
-            raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
+            raise RuntimeError(f"nvcc failed (its first errors; all in {so.with_suffix('.log')}):"
+                               f"\n{failed[0][:4000]}")
         os.replace(tmp_so, so)  # atomic: a concurrent process never loads half a file
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)

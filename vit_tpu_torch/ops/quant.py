@@ -24,7 +24,12 @@ def quantize_symmetric(v: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tenso
     """``(int8 codes, fp32 scale)`` with ``v ~= codes * scale``; the scale
     keeps the reduced ``dims`` as size 1."""
     vf = v.float()
-    amax = vf.abs().amax(dim=dims, keepdim=True)
+    return quantize_with_amax(vf, vf.abs().amax(dim=dims, keepdim=True))
+
+
+def quantize_with_amax(vf: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recipe's codes and scale of fp32 ``vf`` given its ``amax``
+    (reduced dims kept as size 1)."""
     # A tensor divisor, not the number 127.0: on CUDA, PyTorch divides by a
     # Python number as a product with its reciprocal, which is an ulp off the
     # true quotient for ~4% of values and then moves codes. full_like fills

@@ -1,12 +1,14 @@
 """The W8A8 encoder blocks: the int8 attention block and the int8 MLP.
 
 Port of ``vit_tpu/ops/quant_block.py``. ``fused_quant_attention_block`` and
-``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``: the
-attention block on the s8 wgmma GEMM of ``csrc/gemm_s8_sm90.cuh``, which
-reads its weights K-major, and the register-resident attention core; the MLP
-on the int8 GEMM of ``csrc/gemm_s8.cuh``); ``xla_quant_attention_block`` and
-``reference_quant_mlp`` are their plain PyTorch twins, written in the TPU
-kernels' own op order (quant_block.py:58-106, :204-221):
+``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``: both
+run their products on the s8 wgmma GEMM of ``csrc/gemm_s8_sm90.cuh``, which
+reads the int8 weights K-major; the attention block its attention on the
+register-resident core; the MLP takes its hidden's row max in fc1's
+epilogue, by 128-column tile, and quantizes the hidden in one read);
+``xla_quant_attention_block`` and ``reference_quant_mlp`` are their plain
+PyTorch twins, written in the TPU kernels' own op order
+(quant_block.py:58-106, :204-221):
 
 - flax LayerNorm in fp32, quantized per row from fp32 (never rounded first);
 - exact int8 x int8 -> int32 products (``ops.quant.int_mm``);
@@ -31,10 +33,13 @@ from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import (
     MASK_VALUE, MAX_TOKENS, _ln_f32, _mm, _require_aligned, _softmax,
 )
-from vit_tpu_torch.ops.quant import int_mm, quantize_rows
+from vit_tpu_torch.ops.quant import int_mm, quantize_rows, quantize_with_amax
 
 # Activation codes shared with csrc/gemm.cuh (enum Act); the int8 MLP takes two.
 ACTIVATIONS = {"gelu": 1, "gelu_exact": 2}
+# Columns of one output tile of the s8 wgmma GEMM (csrc/gemm_s8_sm90.cuh, BN):
+# the MLP kernel's fc1 writes each row's max |h| over each such tile.
+S8_TILE_N = 128
 
 _FP32_LATER = (
     "the W8A8 attention-block kernel takes a bf16 stream; fp32 runs only on the "
@@ -104,6 +109,23 @@ def reference_quant_mlp(
     return (out + xf).to(x.dtype)
 
 
+def partial_row_amax(v: torch.Tensor, tile: int = S8_TILE_N) -> torch.Tensor:
+    """max |v| of each row of ``v`` ``[rows, K]`` over each ``tile``
+    columns (the last tile partial): ``[rows, ceil(K / tile)]`` fp32, what
+    the MLP kernel's fc1 writes beside the hidden."""
+    rows, k = v.shape
+    parts = -(-k // tile)
+    return F.pad(v.float().abs(), (0, parts * tile - k)).view(rows, parts, tile).amax(-1)
+
+
+def quantize_rows_from_partials(v: torch.Tensor, amax_part: torch.Tensor):
+    """Twin of the MLP kernel's hidden quantizer: ``quantize_rows``' codes
+    and scales of ``v`` ``[rows, K]``, the row max taken as the max of its
+    partials ``amax_part`` ``[rows, parts]`` (``partial_row_amax``). A max is
+    exact in any order, so both give ``quantize_rows(v)`` bit for bit."""
+    return quantize_with_amax(v.float(), amax_part.amax(-1, keepdim=True))
+
+
 def _check_vec(name, t, size, device):
     if t.dtype != torch.float32 or t.numel() != size or t.device != device or not t.is_contiguous():
         raise TypeError(f"{name} must be a contiguous fp32 tensor of {size} values on {device}, "
@@ -111,8 +133,8 @@ def _check_vec(name, t, size, device):
 
 
 def kmajor(w_i8: torch.Tensor) -> torch.Tensor:
-    """The K-major ``[out, in]`` copy of int8 codes ``[in, out]`` that the
-    attention-block kernel reads (a contiguous transpose)."""
+    """The K-major ``[out, in]`` copy of int8 codes ``[in, out]`` that both
+    W8A8 kernels read (a contiguous transpose)."""
     return w_i8.t().contiguous()
 
 
@@ -231,11 +253,16 @@ def fused_quant_mlp(
     intermediates: Optional[dict] = None,
 ) -> torch.Tensor:
     """The W8A8 MLP on the card over tokens ``x`` ``[..., T, D]`` (bf16 or
-    fp32): always LN, always the residual. ``w1_i8`` ``[D, F]``, ``w2_i8``
-    ``[F, D]`` int8 with per-output-channel fp32 scales; biases and LN
-    parameters fp32. Returns ``x``'s shape and dtype. A dict passed as
-    ``intermediates`` receives the stages' rows for checks: ``xq``,
-    ``s_row`` (LN codes), ``h`` (fp32 hidden after the activation), ``hq``,
+    fp32): always LN, always the residual.
+
+    The int8 weights come K-major, ``[out, in]``: ``w1_i8`` ``[F, D]`` and
+    ``w2_i8`` ``[D, F]``, the transposes of vit_tpu's (and the twin's) ``[in,
+    out]`` codes, as for ``fused_quant_attention_block`` (``QuantViT`` keeps
+    such copies; ``kmajor`` makes one). Per-output-channel fp32 scales;
+    biases and LN parameters fp32. Returns ``x``'s shape and dtype. A dict
+    passed as ``intermediates`` receives the stages' rows for checks:
+    ``xq``, ``s_row`` (LN codes), ``h`` (fp32 hidden after the activation),
+    ``h_amax`` (its partial row maxes, ``partial_row_amax``), ``hq``,
     ``s_row2``."""
     if not x.is_cuda:
         raise ValueError("fused_quant_mlp takes CUDA tensors")
@@ -246,14 +273,16 @@ def fused_quant_mlp(
     if activation not in ACTIVATIONS:
         raise ValueError(f"the int8 MLP takes gelu or gelu_exact, got {activation!r}")
     dim = x.shape[-1]
-    f = w1_i8.shape[1] if w1_i8.dim() == 2 else -1
-    _check_weight("w1_i8", w1_i8, (dim, f), x.device)
-    _check_weight("w2_i8", w2_i8, (f, dim), x.device)
+    f = w1_i8.shape[0] if w1_i8.dim() == 2 else -1
+    _check_weight("w1_i8 (K-major)", w1_i8, (f, dim), x.device)
+    _check_weight("w2_i8 (K-major)", w2_i8, (dim, f), x.device)
     for name, t, size in (("s1", s1, f), ("b1", b1, f), ("s2", s2, dim), ("b2", b2, dim),
                           ("ln_scale", ln_scale, dim), ("ln_bias", ln_bias, dim)):
         _check_vec(name, t, size, x.device)
     if dim % 16 or f % 16:
         raise ValueError(f"the kernel takes D % 16 == 0 and F % 16 == 0 (got {dim}, {f})")
+    # the products' TMA loads and the epilogues' vector loads need 16-byte starts
+    _require_aligned(x=x, w1_i8=w1_i8, s1=s1, b1=b1, w2_i8=w2_i8, s2=s2, b2=b2)
 
     lib = _build.load_library()
     t = x.numel() // dim
@@ -263,6 +292,7 @@ def fused_quant_mlp(
     h = torch.empty(t, f, device=dev, dtype=torch.float32)
     hq = torch.empty(t, f, device=dev, dtype=torch.int8)
     s_row2 = torch.empty(t, device=dev, dtype=torch.float32)
+    h_amax = torch.empty(t, -(-f // S8_TILE_N), device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -271,13 +301,18 @@ def fused_quant_mlp(
             w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2_i8.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             xq.data_ptr(), s_row.data_ptr(), h.data_ptr(), hq.data_ptr(), s_row2.data_ptr(),
-            t, dim, f, ACTIVATIONS[activation], float(ln_eps), stream,
+            h_amax.data_ptr(), t, dim, f, ACTIVATIONS[activation], float(ln_eps), stream,
         )
     _build.check(lib, rc, "quant_mlp kernel")
     _build.count_launch("quant_mlp")
     if intermediates is not None:
-        intermediates.update(xq=xq, s_row=s_row, h=h, hq=hq, s_row2=s_row2)
+        intermediates.update(xq=xq, s_row=s_row, h=h, h_amax=h_amax, hq=hq, s_row2=s_row2)
     return out
+
+
+def _check_rows(v, name):
+    if not v.is_cuda or v.dtype != torch.float32 or v.dim() != 2 or not v.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous fp32 [rows, K] CUDA tensor")
 
 
 def quant_rows_f32(v: torch.Tensor):
@@ -285,8 +320,7 @@ def quant_rows_f32(v: torch.Tensor):
     [rows])`` of fp32 rows ``v`` ``[rows, K]`` on the card. For checks
     against ``quantize_rows``; no model path calls it, and it counts no
     launch."""
-    if not v.is_cuda or v.dtype != torch.float32 or v.dim() != 2 or not v.is_contiguous():
-        raise ValueError("quant_rows_f32 takes a contiguous fp32 [rows, K] CUDA tensor")
+    _check_rows(v, "quant_rows_f32")
     rows, k = v.shape
     lib = _build.load_library()
     q = torch.empty(rows, k, device=v.device, dtype=torch.int8)
@@ -298,38 +332,49 @@ def quant_rows_f32(v: torch.Tensor):
     return q, s
 
 
-def gemm_s8_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernels' int8 GEMM alone: raw int32 sums of ``a [M, K] @ b [K,
-    N]`` (int8, on the card). For exactness checks against
-    ``torch._int_mm``; no model path calls it, and it counts no launch."""
-    if not (a.is_cuda and b.is_cuda) or a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise ValueError("gemm_s8_i32 takes int8 CUDA tensors")
-    m, k = a.shape
-    n = b.shape[1]
-    if b.shape[0] != k or k % 16 or n % 16 or not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}: K and N must be multiples of 16")
+def quant_rows_parts_f32(v: torch.Tensor, amax_part: torch.Tensor):
+    """The MLP kernel's hidden quantizer alone: ``(int8 codes, fp32 row
+    scales [rows])`` of fp32 rows ``v`` ``[rows, K]`` on the card, the row
+    max taken from the partials ``amax_part`` ``[rows, parts]`` fp32
+    (``partial_row_amax``). For checks against ``quantize_rows``; no model
+    path calls it, and it counts no launch."""
+    _check_rows(v, "quant_rows_parts_f32")
+    rows, k = v.shape
+    if k % 16:
+        raise ValueError(f"K must be a multiple of 16, got {k}")
+    _check_rows(amax_part, "quant_rows_parts_f32's partials")
+    if amax_part.shape[0] != rows or amax_part.device != v.device:
+        raise ValueError(f"partials {tuple(amax_part.shape)} for rows {tuple(v.shape)}")
+    _require_aligned(v=v)
     lib = _build.load_library()
-    c = torch.empty(m, n, device=a.device, dtype=torch.int32)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.vt_gemm_s8_i32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
-    _build.check(lib, rc, "gemm_s8 kernel")
-    return c
+    q = torch.empty(rows, k, device=v.device, dtype=torch.int8)
+    s = torch.empty(rows, device=v.device, dtype=torch.float32)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.vt_quant_rows_parts(v.data_ptr(), amax_part.data_ptr(), amax_part.shape[1],
+                                     q.data_ptr(), s.data_ptr(), rows, k, stream)
+    _build.check(lib, rc, "quant_rows_parts kernel")
+    return q, s
 
 
-def gemm_s8_sm90_i32(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
-    """The attention-block kernel's s8 wgmma GEMM alone: raw int32 sums of
-    ``a [M, K] @ b_nk.T`` with ``b_nk`` ``[N, K]`` K-major (int8, on the
-    card). For exactness checks against ``torch._int_mm``; no model path
-    calls it, and it counts no launch."""
+def _check_s8_operands(name, a, b_nk):
     if not (a.is_cuda and b_nk.is_cuda) or a.dtype != torch.int8 or b_nk.dtype != torch.int8:
-        raise ValueError("gemm_s8_sm90_i32 takes int8 CUDA tensors")
+        raise ValueError(f"{name} takes int8 CUDA tensors")
     m, k = a.shape
     n = b_nk.shape[0]
     if (b_nk.shape[1] != k or k % 16 or n % 16 or not (a.is_contiguous() and b_nk.is_contiguous())):
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b_nk.shape)}^T: b is [N, K], and K "
                          "and N must be multiples of 16")
     _require_aligned(a=a, b_nk=b_nk)
+    return m, n, k
+
+
+def gemm_s8_sm90_i32(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
+    """The W8A8 kernels' s8 wgmma GEMM alone: raw int32 sums of ``a [M, K]
+    @ b_nk.T`` with ``b_nk`` ``[N, K]`` K-major (int8, on the card). For
+    exactness checks against ``torch._int_mm``; no model path calls it, and
+    it counts no launch."""
+    m, n, k = _check_s8_operands("gemm_s8_sm90_i32", a, b_nk)
     lib = _build.load_library()
     c = torch.empty(m, n, device=a.device, dtype=torch.int32)
     with torch.cuda.device(a.device):
@@ -337,3 +382,32 @@ def gemm_s8_sm90_i32(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
         rc = lib.vt_gemm_s8_sm90_i32(a.data_ptr(), b_nk.data_ptr(), c.data_ptr(), m, n, k, stream)
     _build.check(lib, rc, "gemm_s8_sm90 kernel")
     return c
+
+
+def gemm_s8_sm90_f32(a, b_nk, s_row, s_col, bias=None, activation=None, row_max=False):
+    """The s8 wgmma GEMM alone with its fp32 dequant epilogue, as the MLP
+    kernel's fc1 runs it: ``act((a @ b_nk.T) * s_row * s_col + bias)`` for
+    int8 ``a`` ``[M, K]``, ``b_nk`` ``[N, K]`` and fp32 ``s_row`` ``[M]``,
+    ``s_col`` and ``bias`` ``[N]``; ``activation`` None, "gelu" or
+    "gelu_exact". With ``row_max`` it returns ``(c, partials)``, the
+    partials ``[M, ceil(N / 128)]`` written by the epilogue. For checks; no
+    model path calls it, and it counts no launch."""
+    m, n, k = _check_s8_operands("gemm_s8_sm90_f32", a, b_nk)
+    _check_vec("s_row", s_row, m, a.device)
+    _check_vec("s_col", s_col, n, a.device)
+    _require_aligned(s_col=s_col)
+    if bias is not None:
+        _check_vec("bias", bias, n, a.device)
+        _require_aligned(bias=bias)
+    act = 0 if activation is None else ACTIVATIONS[activation]
+    lib = _build.load_library()
+    c = torch.empty(m, n, device=a.device, dtype=torch.float32)
+    parts = torch.empty(m, -(-n // S8_TILE_N), device=a.device) if row_max else None
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.vt_gemm_s8_sm90_f32(
+            a.data_ptr(), b_nk.data_ptr(), c.data_ptr(), s_row.data_ptr(), s_col.data_ptr(),
+            None if bias is None else bias.data_ptr(), act,
+            None if parts is None else parts.data_ptr(), m, n, k, stream)
+    _build.check(lib, rc, "gemm_s8_sm90 kernel")
+    return (c, parts) if row_max else c

@@ -27,6 +27,7 @@ measures, at batch 128 unless named:
   16 heads of 64), kernel 8 (``fused_reattention_block``) at the DeepViT
   preset (65 tokens, dim 1024, 16 heads of 64) and kernel 9
   (``fused_quant_attention_block``) at ViT-L int8 (197 tokens), at batch
+  128, and kernel 10 (``fused_quant_mlp``) at ViT-L int8 at batch 1, 8 and
   128, each split into its launches in device time (``call_ms``: a tree
   launches as many kernels as its design has);
 - every kernel's time at the shape of PERF.md's table, through the tree's
@@ -245,6 +246,12 @@ def child(tree: Path, e2e: bool) -> dict:
         _split(res, "k9 ViT-L int8 batch 128",
                call_ms(lambda: qb.fused_quant_attention_block(*q, 16)))
         del q, q_in
+        for b in (1, 8, 128):
+            m_in = cs.qmlp_inputs(gen, b, cs.N_TOKENS, 1024, 4096, torch.bfloat16, dev)
+            # a tree whose kernel 10 reads K-major weights says so (chip_smoke.qmlp_kernel_args)
+            qm = getattr(cs, "qmlp_kernel_args", list)([m_in[k] for k in cs.QMLP_ARGS])
+            _split(res, f"k10 ViT-L int8 batch {b}", call_ms(lambda: qb.fused_quant_mlp(*qm)))
+            del qm, m_in
     torch.cuda.empty_cache()
     for name, (kern, _, _, _) in cs.phase_op_times(dev, smi).items():
         res[f"op {name} ms"] = kern

@@ -78,11 +78,32 @@ def _int8_buffer(module: nn.Module, name: str, k: int, n: int, device) -> None:
     module.register_buffer(f"{name}_scale", torch.ones(1, n, device=device))
 
 
-def _refresh_kmajor(module: "QuantAttention", incompatible_keys) -> None:
+def _refresh_kmajor(module: "_KMajorCodes", incompatible_keys) -> None:
     module.refresh_kmajor()
 
 
-class QuantAttention(nn.Module):
+class _KMajorCodes(nn.Module):
+    """A module whose int8 weights (``[in, out]``) the W8A8 kernels read
+    K-major: ``keep_kmajor`` gives each a non-persistent copy
+    ``<name>_kmajor`` (``[out, in]``), derived now and again after every
+    ``load_state_dict``, so that the state dict keeps vit_tpu's layout and no
+    forward transposes a weight."""
+
+    def keep_kmajor(self, *names: str) -> None:
+        self.kmajor_names = names
+        for name in names:
+            self.register_buffer(f"{name}_kmajor", kmajor(getattr(self, name)), persistent=False)
+        self.register_load_state_dict_post_hook(_refresh_kmajor)
+
+    @torch.no_grad()
+    def refresh_kmajor(self) -> None:
+        """Derive the K-major copies from the ``[in, out]`` codes (after an
+        in-place write of a weight)."""
+        for name in self.kmajor_names:
+            getattr(self, f"{name}_kmajor").copy_(getattr(self, name).t())
+
+
+class QuantAttention(_KMajorCodes):
     """The attention half of a quantized layer: fp32 ``norm_scale``,
     ``norm_bias``, ``out_bias``; int8 ``qkv_kernel`` ``[D, 3*H*Dh]`` and
     ``out_kernel`` ``[H*Dh, D]`` with their scales.
@@ -90,11 +111,8 @@ class QuantAttention(nn.Module):
     The attention-block kernel reads the two int8 weights K-major (Hopper's
     8-bit wgmma takes no transposed operand), so the module keeps
     ``qkv_kernel_kmajor`` ``[3*H*Dh, D]`` and ``out_kernel_kmajor`` ``[D,
-    H*Dh]`` beside them: non-persistent buffers, derived when the module is
-    built and again after every ``load_state_dict``, so that the state dict
-    keeps vit_tpu's ``[in, out]`` layout and no forward transposes a weight.
-    Code that writes ``qkv_kernel`` or ``out_kernel`` in place otherwise
-    calls ``refresh_kmajor``."""
+    H*Dh]`` beside them (``_KMajorCodes``). Code that writes ``qkv_kernel``
+    or ``out_kernel`` in place otherwise calls ``refresh_kmajor``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, *, device="cuda"):
         super().__init__()
@@ -106,21 +124,17 @@ class QuantAttention(nn.Module):
         self.out_bias = p(dim)
         _int8_buffer(self, "qkv_kernel", dim, 3 * inner, device)
         _int8_buffer(self, "out_kernel", inner, dim, device)
-        for name in ("qkv_kernel", "out_kernel"):
-            self.register_buffer(f"{name}_kmajor", kmajor(getattr(self, name)), persistent=False)
-        self.register_load_state_dict_post_hook(_refresh_kmajor)
-
-    @torch.no_grad()
-    def refresh_kmajor(self) -> None:
-        """Derive the K-major copies from the ``[in, out]`` codes."""
-        self.qkv_kernel_kmajor.copy_(self.qkv_kernel.t())
-        self.out_kernel_kmajor.copy_(self.out_kernel.t())
+        self.keep_kmajor("qkv_kernel", "out_kernel")
 
 
-class QuantFeedForward(nn.Module):
+class QuantFeedForward(_KMajorCodes):
     """The MLP half of a quantized layer: fp32 ``ln_scale``, ``ln_bias``,
     ``b1``, ``b2``; int8 ``w1`` ``[D, F]`` and ``w2`` ``[F, D]`` with their
-    scales."""
+    scales.
+
+    The MLP kernel reads both int8 weights K-major too, so the module keeps
+    ``w1_kmajor`` ``[F, D]`` and ``w2_kmajor`` ``[D, F]`` beside them
+    (``_KMajorCodes``)."""
 
     def __init__(self, dim: int, hidden_dim: int, *, device="cuda"):
         super().__init__()
@@ -131,6 +145,7 @@ class QuantFeedForward(nn.Module):
         self.b2 = p(dim)
         _int8_buffer(self, "w1", dim, hidden_dim, device)
         _int8_buffer(self, "w2", hidden_dim, dim, device)
+        self.keep_kmajor("w1", "w2")
 
 
 class QuantEncoderBlock(nn.Module):
@@ -150,7 +165,7 @@ class QuantEncoderBlock(nn.Module):
             ).to(dtype)
             return ops.quant_mlp(
                 x, f.ln_scale, f.ln_bias, f.w1, f.w1_scale, f.b1, f.w2, f.w2_scale, f.b2,
-                activation=activation, ln_eps=eps,
+                activation=activation, ln_eps=eps, kmajor=(f.w1_kmajor, f.w2_kmajor),
             ).to(dtype)
         qmm = _make_qmm(mode, dtype)
         xn = _ln_f32(x.float(), a.norm_scale, a.norm_bias, eps).to(dtype)
