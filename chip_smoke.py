@@ -92,7 +92,21 @@ Runs, in order, and exits non-zero at the first failure:
      one forward at batch 128; the kv-blocked kernel at both stages at batch
      128 against its twin, SDPA and its bound, with its two launches (the
      layout pass, then the register or the two-phase variant) in device
-     time.
+     time;
+ 11. the zoo slice: the attention block kernel at the three stage shapes of
+     the pit preset (962, 257 and 65 tokens at dims 256, 512 and 1024, 16
+     heads of 64) and the fused-qkv attention kernel at parallel_vit's (257
+     tokens, 8 heads of 64), each at batch 8 and 128 against its twin, with
+     the attention core's variant each launch took; the pit, simple_vit,
+     parallel_vit and efficient presets (random weights from a seed, bf16)
+     served through ``BatchingServer`` with the launch counts per forward
+     (PiT 9 attention blocks and 9 MLPs, SimpleViT and EfficientViT 6 and
+     6, ParallelViT 12 fused-qkv attentions and 12 MLPs, no other kernel);
+     their logits against the port's plain fp32 path beside the plain bf16
+     path's; img/s and p50 latency; device time by kernel of one forward at
+     batch 128; the attention block at PiT's stage 0 and the fused-qkv
+     kernel at ParallelViT's shape, batch 128, against their twins, library
+     composites and bounds.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
@@ -211,8 +225,48 @@ FAMILY_LAUNCHES = {
               "attention_block": 0},
     "t2t": {"flash_attention_kv_blocked": 2, "attention_block": 5, "fused_mlp": 7,
             "qkv_attention": 0, "flash_attention": 0},
+    # the zoo slice: PiT's 3 + 3 + 3 layers, SimpleViT's and EfficientViT's 6,
+    # ParallelViT's 6 layers of two unfused branches
+    "pit": {"attention_block": 9, "fused_mlp": 9},
+    "simple_vit": {"attention_block": 6, "fused_mlp": 6},
+    "parallel_vit": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
+    "efficient": {"attention_block": 6, "fused_mlp": 6},
 }
-IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224}
+IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
+              "simple_vit": 256, "parallel_vit": 256, "efficient": 256}
+# The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
+# vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
+# 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
+# (inner 1024); SimpleViT 64 tokens, EfficientViT 65 (its injected encoder as
+# the keyword arguments of the port's Transformer); ParallelViT 257 tokens,
+# 8 heads of 64 in each of its two unfused attention branches a layer.
+PIT = dict(image_size=224, patch_size=14, num_classes=1000, dim=256, depth=(3, 3, 3), heads=16,
+           mlp_dim=2048)
+PIT_STAGES = ((962, 256), (257, 512), (65, 1024))  # (tokens, dim) of each stage
+SIMPLE_VIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
+                  mlp_dim=2048)
+PARALLEL_VIT = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=6, heads=8,
+                    mlp_dim=2048, num_parallel_branches=2)
+PARALLEL_N = 257
+EFFICIENT = dict(image_size=256, patch_size=32, num_classes=1000, dim=512,
+                 transformer=dict(dim=512, depth=6, heads=8, dim_head=64, mlp_dim=2048))
+ZOO_FAMILIES = ("pit", "simple_vit", "parallel_vit", "efficient")
+# The attention core's variant at each of the slice's token counts
+# (attn90::variant: the resident variant up to 13 key tiles at head width 64,
+# the streamed one beyond).
+ZOO_CORE = {962: "attention_sm90_streamed", 257: "attention_sm90_streamed",
+            64: "attention_sm90_resident", 65: "attention_sm90_resident"}
+# Kernel 1 at each of the slice's shapes, as the models call it: (what,
+# tokens, dim, heads, LayerNorm eps); 64-wide heads throughout.
+ZOO_ATTN = tuple((f"PiT stage {s}", n, dim, 16, 1e-5) for s, (n, dim) in enumerate(PIT_STAGES)) + (
+    ("SimpleViT", 64, 1024, 16, 1e-5), ("EfficientViT", 65, 512, 8, 1e-6))
+# Kernel 2 at each of the slice's shapes: (what, tokens, D, F, LayerNorm eps).
+# ParallelViT's feed-forward branches keep vit_tpu's eps 1e-6 (its quirk),
+# EfficientViT's injected Transformer its default 1e-6.
+ZOO_MLP = tuple((f"PiT stage {s}", n, dim, 2048, 1e-5) for s, (n, dim) in enumerate(PIT_STAGES)) + (
+    ("SimpleViT", 64, 1024, 2048, 1e-5), ("ParallelViT", PARALLEL_N, 1024, 2048, 1e-6),
+    ("EfficientViT", 65, 512, 2048, 1e-6))
+
 # Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
 # each stage run by the twin on the kernel's own input to it:
 # - qkv (LN and the qkv GEMM; the LN sums in another order, which can move an
@@ -488,6 +542,11 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_names(split) -> list:
+    """The kernel names of ``launch_ms``'s (name, ms) pairs, shortened."""
+    return [name.replace("(anonymous namespace)::", "").split("(")[0] for name, _ in split]
+
+
 # -- inputs -------------------------------------------------------------------
 
 
@@ -663,6 +722,15 @@ def twins_tree(c: dict, seed: int) -> dict:
     return {"params": params}
 
 
+def _stack(w, depth, dim, heads, dim_head, mlp):
+    """A ``vit_tpu`` Transformer's tree: its layers stacked under ``blocks``
+    when deeper than 1, else the unscanned ``attn_0`` / ``ff_0``."""
+    blocks = {"attn": _raw_attn(w, depth, dim, heads * dim_head), "ff": _ff(w, depth, dim, mlp)}
+    if depth > 1:
+        return {"blocks": blocks}
+    return _squeeze_depth({"attn_0": blocks["attn"], "ff_0": blocks["ff"]})
+
+
 def t2t_tree(c: dict, seed: int) -> dict:
     """A T2T-ViT variables tree of config ``c`` (``T2TViT``'s keyword
     arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
@@ -687,13 +755,99 @@ def t2t_tree(c: dict, seed: int) -> dict:
     params["proj"] = {"kernel": w.lecun(layer_dim, dim), "bias": w.zeros(dim)}
     params["cls"] = w.tokens(1, 1, dim)
     params["pos_embedding"] = w.tokens(1, side * side + 1, dim)
-    blocks = {"attn": _raw_attn(w, depth, dim, c["heads"] * c.get("dim_head", 64)),
-              "ff": _ff(w, depth, dim, c["mlp_dim"])}
-    params["encoder"] = ({"blocks": blocks} if depth > 1 else
-                         _squeeze_depth({"attn_0": blocks["attn"], "ff_0": blocks["ff"]}))
+    params["encoder"] = _stack(w, depth, dim, c["heads"], c.get("dim_head", 64), c["mlp_dim"])
     params["head_norm"] = {"scale": w.ones(dim)}
     params["head"] = {"kernel": w.lecun(dim, c["num_classes"]), "bias": w.zeros(c["num_classes"])}
     return {"params": params}
+
+
+def pit_tree(c: dict, seed: int) -> dict:
+    """A PiT variables tree of config ``c`` (``PiT``'s keyword arguments) in
+    ``vit_tpu``'s layout, drawn as ``init`` draws it: the overlapping patch
+    projection ``proj``, a ``stage_{s}`` stack a stage (stacked when deeper
+    than 1), a ``pool_{s}`` between stages (depthwise and pointwise HWIO conv
+    kernels, the cls token's Dense), ``head_norm`` without a bias."""
+    from vit_tpu_torch.core.utils import cast_tuple, conv_output_size
+
+    w = _Init(seed)
+    dim, p, depth = c["dim"], c["patch_size"], c["depth"]
+    side = conv_output_size(c["image_size"], p, p // 2)
+    params = {"proj": {"kernel": w.lecun(p * p * c.get("channels", 3), dim), "bias": w.zeros(dim)},
+              "cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, side * side + 1, dim)}
+    for s, (d, heads) in enumerate(zip(depth, cast_tuple(c["heads"], len(depth)))):
+        params[f"stage_{s}"] = _stack(w, d, dim, heads, c.get("dim_head", 64), c["mlp_dim"])
+        if s + 1 < len(depth):
+            params[f"pool_{s}"] = {
+                "downsample": {
+                    "depthwise": {"kernel": w.lecun_conv(3, 3, 1, dim), "bias": w.zeros(dim)},
+                    "pointwise": {"kernel": w.lecun_conv(1, 1, dim, 2 * dim),
+                                  "bias": w.zeros(2 * dim)}},
+                "cls_proj": {"kernel": w.lecun(dim, 2 * dim), "bias": w.zeros(2 * dim)}}
+            dim *= 2
+    params["head_norm"] = {"scale": w.ones(dim)}
+    params["head"] = {"kernel": w.lecun(dim, c["num_classes"]), "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def simple_vit_tree(c: dict, seed: int) -> dict:
+    """A SimpleViT variables tree of config ``c`` in ``vit_tpu``'s layout,
+    drawn as ``init`` draws it: no cls token or positional parameter (the
+    sin-cos table is fixed), ``head_norm`` without a bias."""
+    w = _Init(seed)
+    dim = c["dim"]
+    return {"params": {
+        "patch_embed": _patch_embed(w, c),
+        "encoder": _stack(w, c["depth"], dim, c["heads"], c.get("dim_head", 64), c["mlp_dim"]),
+        "head_norm": {"scale": w.ones(dim)},
+        "head": {"kernel": w.lecun(dim, c["num_classes"]), "bias": w.zeros(c["num_classes"])},
+    }}
+
+
+def parallel_vit_tree(c: dict, seed: int) -> dict:
+    """A ParallelViT variables tree of config ``c`` in ``vit_tpu``'s layout,
+    drawn as ``init`` draws it: never stacked, the branches of layer i named
+    ``attn_{i}_{b}`` and ``ff_{i}_{b}``."""
+    w = _Init(seed)
+    dim, inner, mlp = c["dim"], c["heads"] * c.get("dim_head", 64), c["mlp_dim"]
+    n_tokens = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    params = {"cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n_tokens, dim),
+              "patch_embed": _patch_embed(w, c)}
+    encoder = {}
+    for i in range(c["depth"]):
+        for b in range(c.get("num_parallel_branches", 2)):
+            encoder[f"attn_{i}_{b}"] = _squeeze_depth(_raw_attn(w, 1, dim, inner))
+            encoder[f"ff_{i}_{b}"] = _squeeze_depth(_ff(w, 1, dim, mlp))
+    params["encoder"] = encoder
+    return {"params": {**params, **_head(w, c)}}
+
+
+def efficient_tree(c: dict, seed: int) -> dict:
+    """An EfficientViT variables tree of config ``c`` in ``vit_tpu``'s layout,
+    drawn as ``init`` draws it; ``c["transformer"]`` holds the keyword
+    arguments of the injected ``Transformer``, whose parameters sit under
+    ``transformer``."""
+    w = _Init(seed)
+    t = c["transformer"]
+    n_tokens = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    return {"params": {
+        "cls": w.tokens(1, 1, c["dim"]), "pos_embedding": w.tokens(1, n_tokens, c["dim"]),
+        "patch_embed": _patch_embed(w, c),
+        "transformer": _stack(w, t["depth"], t["dim"], t["heads"], t.get("dim_head", 64),
+                              t["mlp_dim"]),
+        **_head(w, c),
+    }}
+
+
+def build_efficient(c: dict, dtype=None, device="cuda"):
+    """The port's EfficientViT of config ``c``, its encoder the port's
+    ``Transformer`` of ``c["transformer"]``."""
+    from vit_tpu_torch.models import EfficientViT
+    from vit_tpu_torch.nn import Transformer
+
+    t = c["transformer"]
+    encoder = Transformer(t["dim"], t["depth"], t["heads"], t.get("dim_head", 64), t["mlp_dim"],
+                          dtype=dtype, device=device)
+    return EfficientViT(**{**c, "transformer": encoder}, dtype=dtype, device=device)
 
 
 # -- phases -------------------------------------------------------------------
@@ -1377,8 +1531,7 @@ def build_head_mix_models(dev):
 
 
 def serve_family(model, fam, requests):
-    """BatchingServer -> InferencePipeline -> CaiT / DeepViT / Twins-SVT on
-    the card. Sets the launch counts to 0 before the run and returns them as
+    """BatchingServer -> InferencePipeline -> a family's model on the card. Sets the launch counts to 0 before the run and returns them as
     read just after it; holds each kernel to its launches per forward and
     the server rows to direct calls."""
     from vit_tpu_torch import ops
@@ -1754,8 +1907,7 @@ def attention_block_launches(a, heads, smi):
         parts.append(part)
     print(f"op attention_block ViT-L batch {x.shape[0]} {str(x.dtype)[6:]} launches (device): "
           f"{sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
-    print("op attention_block kernels: "
-          + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
+    print("op attention_block kernels: " + " | ".join(kernel_names(split)))
 
 
 def window_block_launches(w, heads, what, smi):
@@ -2286,7 +2438,7 @@ def phase_t2t_op_times(dev, smi):
                   f"{f / PEAK_BF16 * 1e3:.4f}, bytes {nb / PEAK_BYTES * 1e3:.4f}; "
                   f"{bnd / kern:.1%} of it) [{smi}]")
             split = launch_ms(lambda: fa.flash_attention_kv_blocked(q, k, v), 2)
-            names = [name.replace("(anonymous namespace)::", "").split("(")[0] for name, _ in split]
+            names = kernel_names(split)
             variant = T2T_KV_KERNELS[s]
             require("pad_rows_kernel" in names[0] and variant in names[1],
                     f"T2T stage {s}: kernel 5 launched {names}, not the layout pass and {variant}")
@@ -2315,6 +2467,168 @@ def phase_t2t_op_times(dev, smi):
           f"{kern:.3f} ms, twin {plain:.3f} ms, library {lib:.3f} ms, bound {bnd[0]:.4f} ms "
           f"({bnd[1]}; {bnd[0] / kern:.1%} of it) [{smi}]")
     return kern, plain, lib, bnd
+
+
+# -- the zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT -----------------
+
+
+def phase_zoo_kernels(dev):
+    """Kernel 1 at each ZOO_ATTN shape (PiT's three stages: 16 heads of 64,
+    inner 1024 against dims 256 / 512 / 1024, 962 and 257 keys on the core's
+    streamed variant; SimpleViT's and EfficientViT's), kernel 2 at each
+    ZOO_MLP shape (without the residual, as FeedForward calls it, and with
+    it) and kernel 3 at ParallelViT's (257 tokens, 8 heads of 64), each at
+    batch 8 and 128 against its twin, with the kernels each launch took
+    (from the profiler's names): kernel 1's four must be BLOCK_KERNELS on
+    the core variant of ZOO_CORE, kernel 2's three the wgmma route's."""
+    from vit_tpu_torch.ops import block_attention as ba
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for what, n, dim, heads, eps in ZOO_ATTN:
+        for b in (8, 128):
+            inp = attn_inputs(gen, b, n, dim, heads, 64, torch.bfloat16, dev)
+            a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+            out = ba.fused_attention_block(*a, heads, ln_eps=eps)
+            ref = ba.xla_attention_block(*a, heads, 64**-0.5, eps)
+            torch.cuda.synchronize()
+            name = (f"attention_block {what} ({n} tokens, dim {dim}, inner {heads * 64}) "
+                    f"batch {b}")
+            check_close(name, out, ref, inp["x"])
+            del out, ref
+            if b == 8:
+                names = kernel_names(launch_ms(
+                    lambda: ba.fused_attention_block(*a, heads, ln_eps=eps),
+                    len(BLOCK_KERNELS), iters=3))
+                print(f"{name}: launches {' | '.join(names)}")
+                require(all(key in nm for key, nm in zip(BLOCK_KERNELS, names))
+                        and ZOO_CORE[n] in names[2],
+                        f"{name}: launched {names}, not {list(BLOCK_KERNELS)} on {ZOO_CORE[n]}")
+            del inp, a
+    for what, n, dim, f, eps in ZOO_MLP:
+        for b in (8, 128):
+            inp = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, b=b)
+            for residual in (False, True):
+                kw = dict(activation="gelu", residual=residual, ln_eps=eps)
+                out = fused_mlp(**inp, **kw)
+                ref = reference_mlp(**inp, **kw)
+                torch.cuda.synchronize()
+                check_close(f"fused_mlp {what} ({n} tokens, D {dim}, F {f}, "
+                            f"{'with' if residual else 'no'} residual) batch {b}", out, ref,
+                            inp["x"] if residual else None)
+                del out, ref
+            if b == 8:
+                mlp_launches(inp, dict(activation="gelu", residual=False, ln_eps=eps),
+                             f"{what} (8 x {n} tokens)", nvidia_smi())
+            del inp
+    for b in (8, 128):
+        qkv = torch.randn(b, PARALLEL_N, 3 * 512, generator=gen, device=dev).bfloat16()
+        out = qa.fused_qkv_attention(qkv, 8)
+        ref = qa.xla_qkv_attention(qkv, 8)
+        torch.cuda.synchronize()
+        name = f"qkv_attention ParallelViT ({PARALLEL_N} tokens, 8 heads of 64) batch {b}"
+        check_close(name, out, ref, None)
+        names = kernel_names(launch_ms(lambda: qa.fused_qkv_attention(qkv, 8), 1, iters=3))
+        print(f"{name}: launches {' | '.join(names)}")
+        require(ZOO_CORE[PARALLEL_N] in names[0], f"{name}: launched {names}, not "
+                f"{ZOO_CORE[PARALLEL_N]}")
+        del qkv, out, ref
+
+
+def build_zoo_models(dev):
+    """The PiT, SimpleViT, ParallelViT and EfficientViT presets from weights
+    drawn with a seed, in bf16 and fp32, loaded through from_jax_params."""
+    from vit_tpu_torch.models import ParallelViT, PiT, SimpleViT
+    from vit_tpu_torch.utils import from_jax_params
+
+    ctors = {"pit": (lambda dt: PiT(**PIT, dtype=dt, device=dev), lambda: pit_tree(PIT, SEED + 16)),
+             "simple_vit": (lambda dt: SimpleViT(**SIMPLE_VIT, dtype=dt, device=dev),
+                            lambda: simple_vit_tree(SIMPLE_VIT, SEED + 17)),
+             "parallel_vit": (lambda dt: ParallelViT(**PARALLEL_VIT, dtype=dt, device=dev),
+                              lambda: parallel_vit_tree(PARALLEL_VIT, SEED + 18)),
+             "efficient": (lambda dt: build_efficient(EFFICIENT, dt, dev),
+                           lambda: efficient_tree(EFFICIENT, SEED + 19))}
+    models = {}
+    for fam, (ctor, tree) in ctors.items():
+        for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+            models[(fam, config)] = ctor(dtype).eval()
+        state = from_jax_params(tree(), models[(fam, "bf16")].jax_stages)
+        for config in ("bf16", "fp32"):
+            models[(fam, config)].load_state_dict(state, strict=True)
+        n = sum(p.numel() for p in models[(fam, "bf16")].parameters())
+        print(f"{fam} preset: {n / 1e6:.1f} M parameters")
+    return models
+
+
+def phase_zoo_op_times(dev, smi):
+    """Kernel 1 at PiT's stage 0 and kernel 3 at ParallelViT's shape, batch
+    128: each one's time, its twin's, its library composite's (LayerNorm,
+    cuBLAS, SDPA, cuBLAS; SDPA) and its bound, and kernel 1's four launches
+    in device time."""
+    from vit_tpu_torch.ops import block_attention as ba
+    from vit_tpu_torch.tools.ab_attention import K1_LAUNCHES, launch_ms
+
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    bf = lambda t: t.bfloat16()
+    b, (n, dim), heads, d = 128, PIT_STAGES[0], 16, 64
+    hd, rows = heads * d, b * PIT_STAGES[0][0]
+    with torch.inference_mode():
+        inp = attn_inputs(gen, b, n, dim, heads, d, torch.bfloat16, dev)
+        a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+        lib_a = [a[0], bf(a[1]), bf(a[2]), a[3], a[4], bf(a[5])]
+        kern = cuda_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=1e-5), iters=10)
+        plain = cuda_ms(lambda: ba.xla_attention_block(*a, heads, d**-0.5, 1e-5), iters=3,
+                        warmup=1)
+        lib = cuda_ms(lambda: library_attention_block(*lib_a, heads), iters=10)
+        bnd, by = bound(2 * rows * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows * hd * dim,
+                        nbytes=size(*a) + size(a[0]))
+        print(f"op attention_block PiT stage 0 ([{b}, {n}, {dim}], {heads} x {d}) batch {b} bf16: "
+              f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (LayerNorm + "
+              f"cuBLAS + SDPA + cuBLAS), bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it) [{smi}]")
+        split = launch_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=1e-5),
+                          len(BLOCK_KERNELS))
+        print(f"op attention_block PiT stage 0 batch {b} launches (device): "
+              f"{sum(t for _, t in split):.4f} ms = "
+              + ", ".join(f"{what} {t:.4f} ms ({name})"
+                          for what, (_, t), name in zip(K1_LAUNCHES, split, kernel_names(split)))
+              + f" [{smi}]")
+        del inp, a, lib_a
+        qkv = torch.randn(b, PARALLEL_N, 3 * 512, generator=gen, device=dev).bfloat16()
+        q, k, v = split_heads(qkv, 8)
+        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, 8), iters=10)
+        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, 8), iters=3, warmup=1)
+        lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v)), iters=10)
+        bnd, by = bound(4 * b * 8 * PARALLEL_N**2 * 64, nbytes=size(qkv) + b * PARALLEL_N * 512 * 2)
+        print(f"op qkv_attention ParallelViT ([{b}, {PARALLEL_N}, 1536], 8 x 64) batch {b} bf16: "
+              f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
+              f"{sdpa_backend(q, k, v)} backend), bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of "
+              f"it) [{smi}]")
+
+
+def phase_zoo(dev, smi, requests):
+    """Phase 11: the kernels at the zoo's new shapes; each preset served
+    through BatchingServer with its launch counts per forward (and no other
+    kernel launched); the logits against the plain fp32 path; img/s, p50
+    and device time by kernel; the two op lines."""
+    phase_zoo_kernels(dev)
+    t0 = time.perf_counter()
+    models = build_zoo_models(dev)
+    print(f"zoo weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    for fam in ZOO_FAMILIES:
+        counts = serve_family(models[(fam, "bf16")], fam, requests)
+        other = {k: c for k, c in counts.items() if c and k not in FAMILY_LAUNCHES[fam]}
+        require(not other, f"slice {fam}: kernels off its path launched: {other}")
+    phase_family_e2e(models, ZOO_FAMILIES, dev, requests)
+    for fam in ZOO_FAMILIES:
+        phase_times({f"{fam} bf16": models[(fam, "bf16")]}, IMAGE_SIZE[fam], dev, smi)
+        phase_profile(f"{fam} bf16", models[(fam, "bf16")], IMAGE_SIZE[fam], dev, smi)
+    del models
+    torch.cuda.empty_cache()
+    phase_zoo_op_times(dev, smi)
 
 
 def main() -> int:
@@ -2433,6 +2747,9 @@ def main() -> int:
     del t2t_models
     torch.cuda.empty_cache()
     op_ms["flash_attention_kv_blocked"] = phase_t2t_op_times(dev, smi)
+
+    # 11. the zoo slice: the PiT, SimpleViT, ParallelViT and EfficientViT presets, bf16
+    phase_zoo(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

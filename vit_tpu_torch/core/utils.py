@@ -10,6 +10,11 @@ def pair(t) -> Tuple[Any, Any]:
     return t if isinstance(t, tuple) else (t, t)
 
 
+def cast_tuple(val, length: int = 1) -> tuple:
+    """Broadcast a scalar to a tuple of ``length``; pass tuples through."""
+    return val if isinstance(val, tuple) else ((val,) * length)
+
+
 def conv_output_size(image_size: int, kernel_size: int, stride: int, padding: int = 0) -> int:
     return int(((image_size - kernel_size + (2 * padding)) / stride) + 1)
 

@@ -41,13 +41,13 @@ class DeepViT(nn.Module):
         if pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
         self.pool = pool
-        self.jax_stages = {"encoder/blocks": depth}
         num_patches = (ih // ph) * (iw // pw)
         self.patch_embed = PatchEmbed(dim, ph, out_dtype=dtype, device=device)
         self.cls = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embedding = nn.Parameter(torch.zeros(1, num_patches + 1, dim, device=device))
         self.encoder = Transformer(dim, depth, heads, dim_head, mlp_dim, reattention=True,
                                    dtype=dtype, device=device)
+        self.jax_stages = {f"encoder/{k}": v for k, v in self.encoder.jax_stages.items()}
         self.head_norm = LayerNorm(dim, device=device)
         self.head = Dense(dim, num_classes, device=device)
 

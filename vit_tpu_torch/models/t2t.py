@@ -28,7 +28,7 @@ from torch import nn
 from vit_tpu_torch import ops
 from vit_tpu_torch.core.utils import conv_output_size
 from vit_tpu_torch.nn.blocks import Transformer
-from vit_tpu_torch.nn.embed import Dense, LayerNorm
+from vit_tpu_torch.nn.embed import Dense, LayerNorm, mean_tokens
 
 
 class T2TViT(nn.Module):
@@ -45,21 +45,22 @@ class T2TViT(nn.Module):
         if pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
         self.pool, self.t2t_layers = pool, tuple(t2t_layers)
-        self.jax_stages = {"encoder/blocks": depth}
+        self.jax_stages = {}
         layer_dim, side = channels, image_size
         for i, (kernel, stride) in enumerate(self.t2t_layers):
             layer_dim *= kernel**2
             side = conv_output_size(side, kernel, stride, stride // 2)
             if i < len(self.t2t_layers) - 1:
-                self.add_module(f"t2t_{i}", Transformer(
-                    layer_dim, 1, 1, layer_dim, layer_dim, norm_eps=1e-5, dtype=dtype,
-                    device=device))
-                self.jax_stages[f"t2t_{i}/blocks"] = 1
+                layer = Transformer(layer_dim, 1, 1, layer_dim, layer_dim, norm_eps=1e-5,
+                                    dtype=dtype, device=device)
+                self.add_module(f"t2t_{i}", layer)
+                self.jax_stages.update({f"t2t_{i}/{k}": v for k, v in layer.jax_stages.items()})
         self.proj = Dense(layer_dim, dim, dtype=dtype, device=device)
         self.cls = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embedding = nn.Parameter(torch.zeros(1, side * side + 1, dim, device=device))
         self.encoder = Transformer(dim, depth, heads, dim_head, mlp_dim, norm_eps=1e-5,
                                    dtype=dtype, device=device)
+        self.jax_stages.update({f"encoder/{k}": v for k, v in self.encoder.jax_stages.items()})
         self.head_norm = LayerNorm(dim, eps=1e-5, use_bias=False, dtype=dtype, device=device)
         self.head = Dense(dim, num_classes, dtype=dtype, device=device)
 
@@ -75,5 +76,5 @@ class T2TViT(nn.Module):
         dim = x.shape[-1]
         x = torch.cat([self.cls.to(x.dtype).expand(b, 1, dim), x], dim=1)
         x = self.encoder(x + self.pos_embedding.to(x.dtype))
-        x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
+        x = mean_tokens(x) if self.pool == "mean" else x[:, 0]
         return self.head(self.head_norm(x))

@@ -2,5 +2,12 @@
 
 from vit_tpu_torch.nn.attention import Attention, mha_tokens  # noqa: F401
 from vit_tpu_torch.nn.blocks import EncoderBlock, FeedForward, Transformer  # noqa: F401
-from vit_tpu_torch.nn.conv import PEG, Conv, ConvMLP, PatchEmbedding  # noqa: F401
-from vit_tpu_torch.nn.embed import Dense, LayerNorm, PatchEmbed  # noqa: F401
+from vit_tpu_torch.nn.conv import (  # noqa: F401
+    PEG,
+    Conv,
+    ConvMLP,
+    DepthWiseConv2d,
+    PatchEmbedding,
+    Pool,
+)
+from vit_tpu_torch.nn.embed import Dense, LayerNorm, PatchEmbed, mean_tokens  # noqa: F401

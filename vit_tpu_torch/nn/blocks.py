@@ -1,5 +1,6 @@
 """Feed-forward block and encoder stack (port of ``vit_tpu/nn/blocks.py``:
-the plain stack and DeepViT's re-attention stack).
+the plain stack, DeepViT's re-attention stack and ParallelViT's parallel
+branches).
 
 The depth is a Python loop over a ``ModuleList``: no ``nn.scan`` analogue,
 no sample packing and no Mosaic row padding, so the stream runs at its real
@@ -76,13 +77,40 @@ class Transformer(nn.Module):
     is unfused, as ``vit_tpu``'s unscanned layer (blocks.py:350-357,
     :402-416): ``x + attn(x)``, then ``x + ff(x)``. Re-attention at depth 1
     (``vit_tpu``'s materializing path without the residual) builds and
-    loads, and raises when called."""
+    loads, and raises when called.
+
+    With ``parallel_branches`` N > 1 (ParallelViT; blocks.py:430-460) the
+    stack is never scanned or fused, at any depth: layer i adds to x the sum
+    of N unfused attention branches ``attn_{i}_{b}`` of x (each
+    ``ops.qkv_attention``), then the sum of N feed-forward branches
+    ``ff_{i}_{b}``. The branches are summed in JAX's order, ``(0 + a0) +
+    a1``, in the stream's dtype, and x is added after the sum.
+
+    ``jax_stages`` maps the stacked prefix under this module's name to the
+    depth (``{"blocks": depth}``; none with parallel branches), for a model's
+    own ``jax_stages``."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 parallel_branches: int = 1, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
+        self.depth, self.branches = depth, parallel_branches
         self.unported = depth == 1 and reattention
+        if parallel_branches > 1:
+            self.jax_stages = {}
+            for i in range(depth):
+                for b in range(parallel_branches):
+                    self.add_module(f"attn_{i}_{b}", Attention(
+                        dim, heads, dim_head, reattention=reattention, norm_eps=norm_eps,
+                        dtype=dtype, device=device))
+                for b in range(parallel_branches):
+                    # vit_tpu builds the FF branches without ln_eps and activation
+                    # (blocks.py:453-457): LayerNorm eps 1e-6 and the tanh GELU,
+                    # whatever norm_eps and activation the stack was given.
+                    self.add_module(f"ff_{i}_{b}", FeedForward(dim, mlp_dim, dtype=dtype,
+                                                               device=device))
+            return
+        self.jax_stages = {"blocks": depth}
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
                          fuse_residual=depth > 1 or reattention, activation=activation,
@@ -95,6 +123,11 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 "re-attention in a stack of depth 1 (vit_tpu's materializing path without the "
                 "residual) is not ported yet (ROADMAP.md Queue 1 item 5, attention variants)")
+        if self.branches > 1:
+            for i in range(self.depth):
+                for kind in ("attn", "ff"):
+                    x = x + sum(getattr(self, f"{kind}_{i}_{b}")(x) for b in range(self.branches))
+            return x
         for block in self.blocks:
             x = block(x)
         return x

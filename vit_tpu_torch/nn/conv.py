@@ -1,6 +1,7 @@
 """Convolutional modules over NHWC feature maps (port of ``vit_tpu/nn/conv.py``:
-``PEG``, ``PatchEmbedding`` and the LayerNorm branch of ``ConvMLP``, on a
-flax-``nn.Conv`` container).
+``PEG``, ``PatchEmbedding``, ``DepthWiseConv2d`` without BatchNorm, PiT's
+``Pool`` and the LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv``
+container).
 
 The convolutions lie outside every TPU kernel (XLA ran them on the TPU), so
 they are ``F.conv2d``; ``ConvMLP`` is the fused MLP kernel over the token
@@ -80,6 +81,48 @@ class PEG(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.proj(x)
+
+
+class DepthWiseConv2d(nn.Module):
+    """A depthwise conv (``depthwise``: ``dim_in`` groups, SAME padding,
+    stride ``stride``) then a 1x1 conv (``pointwise``), both with a bias:
+    the PiT flavour of ``vit_tpu``'s module. CvT's BatchNorm between the two
+    is not ported."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int, *,
+                 batch_norm: bool = False, dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        if batch_norm:
+            raise NotImplementedError(
+                "DepthWiseConv2d with batch_norm (CvT) is not ported yet (ROADMAP.md Queue 1 "
+                "item 6)")
+        self.depthwise = Conv(dim_in, dim_in, kernel_size, strides=stride,
+                              feature_group_count=dim_in, dtype=dtype, device=device)
+        self.pointwise = Conv(dim_in, dim_out, 1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
+class Pool(nn.Module):
+    """PiT's token pooling: the patch tokens ``[B, 1 + side**2, dim_in]`` as a
+    ``side`` x ``side`` map through ``downsample`` (``DepthWiseConv2d``, 3x3,
+    stride 2, to ``dim``), the cls token through ``cls_proj`` (a flax Dense
+    in ``dtype``), the cls token back in front. This is ``vit_tpu``'s Pool,
+    which pools (the upstream one never runs: bug register #2)."""
+
+    def __init__(self, dim_in: int, dim: int, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.downsample = DepthWiseConv2d(dim_in, dim, 3, 2, dtype=dtype, device=device)
+        self.cls_proj = Dense(dim_in, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cls, tokens = x[:, :1], x[:, 1:]
+        b, n, c = tokens.shape
+        side = int(round(n**0.5))
+        fmap = self.downsample(tokens.reshape(b, side, side, c))
+        return torch.cat([self.cls_proj(cls), fmap.reshape(b, -1, fmap.shape[-1])], dim=1)
 
 
 class PatchEmbedding(nn.Module):

@@ -1,5 +1,5 @@
-"""Patch embedding and the flax-named parameter containers (port of
-``vit_tpu/nn/embed.py:PatchEmbed``)."""
+"""Patch embedding, the flax-named parameter containers and the token mean
+(port of ``vit_tpu/nn/embed.py:PatchEmbed``)."""
 
 from __future__ import annotations
 
@@ -48,6 +48,12 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         y = _ln_f32(x.float(), self.scale, 0.0 if self.bias is None else self.bias, self.eps)
         return y if self.dtype is None else y.to(self.dtype)
+
+
+def mean_tokens(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=1)``: the tokens summed in fp32, divided by their
+    count in fp32, rounded once to ``x``'s dtype (the mean pool)."""
+    return (x.float().sum(dim=1) / x.shape[1]).to(x.dtype)
 
 
 class PatchEmbed(nn.Module):

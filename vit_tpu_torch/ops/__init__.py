@@ -29,7 +29,11 @@ from vit_tpu_torch.ops.flash_attention import (
     reference_attention_kv_blocked,
 )
 from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
-from vit_tpu_torch.ops.patch_embed import extract_patches, patchify  # noqa: F401
+from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
+    extract_patches,
+    patchify,
+    posemb_sincos_2d,
+)
 from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_kernel_fits, xla_qkv_attention
 from vit_tpu_torch.ops.quant_block import (
     fused_quant_attention_block,
@@ -90,6 +94,7 @@ __all__ = [
     "xla_window_attention_block",
     "patchify",
     "extract_patches",
+    "posemb_sincos_2d",
     "window_partition",
     "window_unpartition",
     "dilated_partition",

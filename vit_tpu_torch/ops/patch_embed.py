@@ -1,9 +1,11 @@
-"""Patch extraction (port of ``vit_tpu/ops/patch_embed.py``: ``patchify`` and
-``extract_patches``). Both are gathers in plain PyTorch: neither is a Pallas
-kernel in ``vit_tpu``."""
+"""Patch extraction and the fixed positional embedding (port of
+``vit_tpu/ops/patch_embed.py``: ``patchify``, ``extract_patches`` and
+``posemb_sincos_2d``). Plain PyTorch and numpy: none is a Pallas kernel in
+``vit_tpu``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,3 +44,19 @@ def extract_patches(x: torch.Tensor, kernel: int, stride: int, padding: str = "S
     wo = (x.shape[3] - kernel) // stride + 1
     cols = cols.reshape(b, c, kernel * kernel, ho, wo).permute(0, 3, 4, 2, 1)
     return cols.reshape(b, ho, wo, kernel * kernel * c)
+
+
+def posemb_sincos_2d(h: int, w: int, dim: int, temperature: float = 10000.0,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Fixed 2-D sin-cos positional embedding ``[h*w, dim]`` (SimpleViT's),
+    on the CPU. Computed in numpy float64 and cast once to ``dtype``, as
+    ``vit_tpu``'s is, so the two are bitwise equal."""
+    if dim % 4:
+        raise ValueError(f"the sin-cos embedding needs dim % 4 == 0, got {dim}")
+    y, x = np.mgrid[:h, :w]
+    omega = np.arange(dim // 4) / (dim // 4 - 1)
+    omega = 1.0 / (temperature**omega)
+    y = y.flatten()[:, None] * omega[None, :]
+    x = x.flatten()[:, None] * omega[None, :]
+    pe = np.concatenate([np.sin(x), np.cos(x), np.sin(y), np.cos(y)], axis=1)
+    return torch.from_numpy(pe).to(dtype)
