@@ -106,13 +106,33 @@ Runs, in order, and exits non-zero at the first failure:
      path's; img/s and p50 latency; device time by kernel of one forward at
      batch 128; the attention block at PiT's stage 0 and the fused-qkv
      kernel at ParallelViT's shape, batch 128, against their twins, library
-     composites and bounds.
+     composites and bounds;
+ 12. the zoo's second slice: the attention block kernel at cross_vit's two
+     encoder shapes (257 tokens at dim 192, 17 at 384; 8 heads of 64), the
+     MLP kernel at the slice's five shapes and the fused-qkv kernel at
+     patch_merger_vit's 256 and 8 tokens, each at batch 8 and 128 against
+     its twin, with the core's variant each launch took; the plain code's
+     bf16 products on the card (``Dense`` on cuBLAS at T2T's and SPT's
+     widths within one bf16 ulp of its plain product; the unfused attention
+     branch, its output projection on the wgmma GEMM, within kernel_tol of
+     its twin) and their times beside the plain products; the cross_vit,
+     patch_merger_vit and vit_small_datasets presets (random weights from a
+     seed, bf16) served through ``BatchingServer`` with the launch counts per
+     forward (CrossViT 20 attention blocks and 20 MLPs; PatchMerger-ViT 12
+     fused-qkv attentions and 12 MLPs; the small-dataset ViT 6 MLPs and no
+     attention kernel: its LSA stays on the plain materializing path), their
+     logits against the port's plain fp32 path beside the plain bf16 path's;
+     img/s and p50 latency; device time by kernel of one forward at batch
+     128; the attention block and the MLP kernel at CrossViT's small branch
+     and the fused-qkv kernel at PatchMerger-ViT's 256 tokens, batch 128,
+     against their twins, library composites and bounds.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import json
@@ -231,9 +251,17 @@ FAMILY_LAUNCHES = {
     "simple_vit": {"attention_block": 6, "fused_mlp": 6},
     "parallel_vit": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
     "efficient": {"attention_block": 6, "fused_mlp": 6},
+    # the zoo's second slice: CrossViT's 4 rounds of a small (2 layers) and a
+    # large (3 layers) encoder; PatchMerger-ViT's 12 unfused layers; the
+    # small-dataset ViT's 6 LSA layers, whose attention stays off every kernel
+    "cross_vit": {"attention_block": 20, "fused_mlp": 20, "qkv_attention": 0},
+    "patch_merger_vit": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
+    "vit_small_datasets": {"fused_mlp": 6, "attention_block": 0, "qkv_attention": 0,
+                           "flash_attention": 0, "flash_attention_kv_blocked": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
-              "simple_vit": 256, "parallel_vit": 256, "efficient": 256}
+              "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
+              "patch_merger_vit": 256, "vit_small_datasets": 256}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -255,7 +283,9 @@ ZOO_FAMILIES = ("pit", "simple_vit", "parallel_vit", "efficient")
 # (attn90::variant: the resident variant up to 13 key tiles at head width 64,
 # the streamed one beyond).
 ZOO_CORE = {962: "attention_sm90_streamed", 257: "attention_sm90_streamed",
-            64: "attention_sm90_resident", 65: "attention_sm90_resident"}
+            256: "attention_sm90_streamed", 64: "attention_sm90_resident",
+            65: "attention_sm90_resident", 17: "attention_sm90_resident",
+            8: "attention_sm90_resident"}
 # Kernel 1 at each of the slice's shapes, as the models call it: (what,
 # tokens, dim, heads, LayerNorm eps); 64-wide heads throughout.
 ZOO_ATTN = tuple((f"PiT stage {s}", n, dim, 16, 1e-5) for s, (n, dim) in enumerate(PIT_STAGES)) + (
@@ -266,6 +296,35 @@ ZOO_ATTN = tuple((f"PiT stage {s}", n, dim, 16, 1e-5) for s, (n, dim) in enumera
 ZOO_MLP = tuple((f"PiT stage {s}", n, dim, 2048, 1e-5) for s, (n, dim) in enumerate(PIT_STAGES)) + (
     ("SimpleViT", 64, 1024, 2048, 1e-5), ("ParallelViT", PARALLEL_N, 1024, 2048, 1e-6),
     ("EfficientViT", 65, 512, 2048, 1e-6))
+
+# The zoo's second slice at the presets of vit_tpu/models/presets.py:71-90 (the
+# upstream README's), bf16. CrossViT's small branch sees 257 tokens at dim 192,
+# its large branch 17 at dim 384, each with 8 heads of 64 (inner 512), and its
+# cls tokens cross-attend through the low-query path (plain PyTorch);
+# PatchMerger-ViT 256 tokens (no cls) at dim 1024, 8 heads of 64, merged to 8
+# after layer 6; the small-dataset ViT 257 tokens at dim 1024 with LSA (16 heads
+# of 64, the materializing path: plain PyTorch) and SPT's K = 3840.
+CROSS_VIT = dict(image_size=256, num_classes=1000, depth=4, sm_dim=192, sm_patch_size=16,
+                 sm_enc_depth=2, sm_enc_heads=8, sm_enc_mlp_dim=2048, lg_dim=384,
+                 lg_patch_size=64, lg_enc_depth=3, lg_enc_heads=8, lg_enc_mlp_dim=2048,
+                 cross_attn_depth=2, cross_attn_heads=8)
+PATCH_MERGER = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=12, heads=8,
+                    mlp_dim=2048, patch_merge_layer=6, patch_merge_num_tokens=8)
+SMALL_DATASETS = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=6,
+                      heads=16, mlp_dim=2048)
+ZOO2_FAMILIES = ("cross_vit", "patch_merger_vit", "vit_small_datasets")
+# Kernel 1 at CrossViT's two encoder shapes: (what, tokens, dim, heads, eps).
+ZOO2_ATTN = (("CrossViT small", 257, 192, 8, 1e-5), ("CrossViT large", 17, 384, 8, 1e-5))
+# Kernel 2 at the slice's five MLP shapes: (what, tokens, D, F, eps).
+ZOO2_MLP = (("CrossViT small", 257, 192, 2048, 1e-5), ("CrossViT large", 17, 384, 2048, 1e-5),
+            ("PatchMerger", 256, 1024, 2048, 1e-5), ("PatchMerger merged", 8, 1024, 2048, 1e-5),
+            ("SmallDatasets", 257, 1024, 2048, 1e-5))
+# Kernel 3 at PatchMerger-ViT's two shapes: (what, tokens), 8 heads of 64.
+ZOO2_QKV = (("PatchMerger", 256), ("PatchMerger merged", 8))
+# The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
+# against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
+# sample) and SPT's (K 3840 -> 1024, 256 tokens): (what, rows a sample, K, N).
+DENSE_SHAPES = (("T2T proj", 196, 11907, 512), ("SPT proj", 256, 3840, 1024))
 
 # Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
 # each stage run by the twin on the kernel's own input to it:
@@ -850,6 +909,97 @@ def build_efficient(c: dict, dtype=None, device="cuda"):
     return EfficientViT(**{**c, "transformer": encoder}, dtype=dtype, device=device)
 
 
+
+def cross_vit_tree(c: dict, seed: int) -> dict:
+    """A CrossViT variables tree of config ``c`` (``CrossViT``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: each branch's embedder, each round's two encoders
+    (stacked when deeper than 1, each with ``final_norm``) and cross blocks
+    (the Dense projections only where the widths differ), the bias-free head
+    norms."""
+    import inspect
+
+    from vit_tpu_torch.models import CrossViT
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(CrossViT).parameters.items()}, **c}
+    dims = {br: c[f"{br}_dim"] for br in ("sm", "lg")}
+    params = {}
+    for br, dim in dims.items():
+        p = c[f"{br}_patch_size"]
+        params[f"{br}_embedder"] = {
+            "patch_embed": {"proj": {"kernel": w.lecun(p * p * c["channels"], dim),
+                                     "bias": w.zeros(dim)}},
+            "cls": w.tokens(1, 1, dim),
+            "pos_embedding": w.tokens(1, (c["image_size"] // p) ** 2 + 1, dim)}
+    inner = c["cross_attn_heads"] * c["cross_attn_dim_head"]
+    for i in range(c["depth"]):
+        for br, dim in dims.items():
+            enc = _stack(w, c[f"{br}_enc_depth"], dim, c[f"{br}_enc_heads"],
+                         c[f"{br}_enc_dim_head"], c[f"{br}_enc_mlp_dim"])
+            enc["final_norm"] = {"scale": w.ones(dim), "bias": w.zeros(dim)}
+            params[f"{br}_enc_{i}"] = enc
+        for j in range(c["cross_attn_depth"]):
+            block = {}
+            for name, d_in, d_out in (("sm_attends_lg", dims["sm"], dims["lg"]),
+                                      ("lg_attends_sm", dims["lg"], dims["sm"])):
+                block[name] = {"norm": {"scale": w.ones(d_out), "bias": w.zeros(d_out)},
+                               "to_q": {"kernel": w.lecun(d_out, inner)},
+                               "to_kv": {"kernel": w.lecun(d_out, 2 * inner)},
+                               "to_out": {"kernel": w.lecun(inner, d_out), "bias": w.zeros(d_out)}}
+                if d_in != d_out:
+                    block[f"{name}_proj_in"] = {"kernel": w.lecun(d_in, d_out),
+                                                "bias": w.zeros(d_out)}
+                    block[f"{name}_proj_out"] = {"kernel": w.lecun(d_out, d_in),
+                                                 "bias": w.zeros(d_in)}
+            params[f"cross_{i}_{j}"] = block
+    for br, dim in dims.items():
+        params[f"{br}_head_norm"] = {"scale": w.ones(dim)}
+        params[f"{br}_head"] = {"kernel": w.lecun(dim, c["num_classes"]),
+                                "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def patch_merger_tree(c: dict, seed: int) -> dict:
+    """A PatchMerger-ViT variables tree of config ``c`` in ``vit_tpu``'s
+    layout, drawn as ``init`` draws it: never stacked, layer i's modules
+    ``attn_{i}`` / ``ff_{i}``, the merger's queries normal(1)."""
+    w = _Init(seed)
+    dim, inner, mlp = c["dim"], c["heads"] * c.get("dim_head", 64), c["mlp_dim"]
+    params = {"patch_embed": _patch_embed(w, c),
+              "pos_embedding": w.tokens(1, (c["image_size"] // c["patch_size"]) ** 2, dim)}
+    for i in range(c["depth"]):
+        params[f"attn_{i}"] = _squeeze_depth(_raw_attn(w, 1, dim, inner))
+        params[f"ff_{i}"] = _squeeze_depth(_ff(w, 1, dim, mlp))
+    params["merger"] = {
+        "queries": w.rng.standard_normal((c.get("patch_merge_num_tokens", 8), dim),
+                                         dtype=np.float32),
+        "norm": {"scale": w.ones(dim), "bias": w.zeros(dim)}}
+    return {"params": {**params, **_head(w, c)}}
+
+
+def vit_small_datasets_tree(c: dict, seed: int) -> dict:
+    """A ViT-for-small-datasets variables tree of config ``c`` in
+    ``vit_tpu``'s layout, drawn as ``init`` draws it: SPT's bias-free norm
+    over 5 x the patch's values, the encoder stacked when deeper than 1, each
+    layer's ``log_temperature`` at its init, log(dim_head**-0.5)."""
+    w = _Init(seed)
+    dim, p, depth, dim_head = c["dim"], c["patch_size"], c["depth"], c.get("dim_head", 64)
+    patch_dim = p * p * 5 * c.get("channels", 3)
+    params = {"spt": {"norm": {"scale": w.ones(patch_dim)},
+                      "proj": {"kernel": w.lecun(patch_dim, dim), "bias": w.zeros(dim)}},
+              "cls": w.tokens(1, 1, dim),
+              "pos_embedding": w.tokens(1, (c["image_size"] // p) ** 2 + 1, dim)}
+    encoder = _stack(w, depth, dim, c["heads"], dim_head, c["mlp_dim"])
+    log_tau = w.full(np.log(dim_head**-0.5), depth)
+    if depth > 1:
+        encoder["blocks"]["attn"]["log_temperature"] = log_tau
+    else:
+        encoder["attn_0"]["log_temperature"] = log_tau[0]
+    params["encoder"] = encoder
+    return {"params": {**params, **_head(w, c)}}
+
+
 # -- phases -------------------------------------------------------------------
 
 
@@ -1368,6 +1518,30 @@ def phase_profile(name, model, image_size, dev, smi):
           f"(host clock, profiler on) [{smi}]")
     for ms, count, key in rows[:8]:
         print(f"profile {name} batch 128: {ms:8.3f} ms x{count:<4d} {key[:90]}")
+    ops = aten_ops(model, x[:1])
+    print(f"profile {name}: one forward at batch 1 dispatches {sum(ops.values())} aten ops "
+          f"(the host's work beside the kernels' own launches); most: "
+          + ", ".join(f"{k} x{c}" for k, c in ops.most_common(4)))
+
+
+def aten_ops(model, x) -> collections.Counter:
+    """The aten ops that one forward of ``model`` on ``x`` dispatches, by
+    name (each is at least one call into PyTorch from the host)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.inference_mode(), Count() as count:
+        model(x)
+    torch.cuda.synchronize()
+    return count.ops
 
 
 # -- the head-mixing slice: CaiT and DeepViT ---------------------------------
@@ -2472,22 +2646,22 @@ def phase_t2t_op_times(dev, smi):
 # -- the zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT -----------------
 
 
-def phase_zoo_kernels(dev):
-    """Kernel 1 at each ZOO_ATTN shape (PiT's three stages: 16 heads of 64,
-    inner 1024 against dims 256 / 512 / 1024, 962 and 257 keys on the core's
-    streamed variant; SimpleViT's and EfficientViT's), kernel 2 at each
-    ZOO_MLP shape (without the residual, as FeedForward calls it, and with
-    it) and kernel 3 at ParallelViT's (257 tokens, 8 heads of 64), each at
-    batch 8 and 128 against its twin, with the kernels each launch took
-    (from the profiler's names): kernel 1's four must be BLOCK_KERNELS on
-    the core variant of ZOO_CORE, kernel 2's three the wgmma route's."""
+def phase_zoo_kernels(dev, attn_shapes, mlp_shapes, qkv_shapes, seed):
+    """Kernel 1 at each ``attn_shapes`` entry (what, tokens, dim, heads,
+    eps; 64-wide heads), kernel 2 at each ``mlp_shapes`` entry (what, tokens,
+    D, F, eps; without the residual, as FeedForward calls it, and with it)
+    and kernel 3 at each ``qkv_shapes`` entry (what, tokens; 8 heads of 64),
+    each at batch 8 and 128 against its twin, with the kernels each launch
+    took (from the profiler's names): kernel 1's four must be BLOCK_KERNELS
+    on the core variant of ZOO_CORE, kernel 2's three the wgmma route's,
+    kernel 3's one on ZOO_CORE's variant."""
     from vit_tpu_torch.ops import block_attention as ba
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
     from vit_tpu_torch.tools.ab_attention import launch_ms
 
     qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    for what, n, dim, heads, eps in ZOO_ATTN:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for what, n, dim, heads, eps in attn_shapes:
         for b in (8, 128):
             inp = attn_inputs(gen, b, n, dim, heads, 64, torch.bfloat16, dev)
             a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
@@ -2507,7 +2681,7 @@ def phase_zoo_kernels(dev):
                         and ZOO_CORE[n] in names[2],
                         f"{name}: launched {names}, not {list(BLOCK_KERNELS)} on {ZOO_CORE[n]}")
             del inp, a
-    for what, n, dim, f, eps in ZOO_MLP:
+    for what, n, dim, f, eps in mlp_shapes:
         for b in (8, 128):
             inp = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, b=b)
             for residual in (False, True):
@@ -2523,33 +2697,26 @@ def phase_zoo_kernels(dev):
                 mlp_launches(inp, dict(activation="gelu", residual=False, ln_eps=eps),
                              f"{what} (8 x {n} tokens)", nvidia_smi())
             del inp
-    for b in (8, 128):
-        qkv = torch.randn(b, PARALLEL_N, 3 * 512, generator=gen, device=dev).bfloat16()
-        out = qa.fused_qkv_attention(qkv, 8)
-        ref = qa.xla_qkv_attention(qkv, 8)
-        torch.cuda.synchronize()
-        name = f"qkv_attention ParallelViT ({PARALLEL_N} tokens, 8 heads of 64) batch {b}"
-        check_close(name, out, ref, None)
-        names = kernel_names(launch_ms(lambda: qa.fused_qkv_attention(qkv, 8), 1, iters=3))
-        print(f"{name}: launches {' | '.join(names)}")
-        require(ZOO_CORE[PARALLEL_N] in names[0], f"{name}: launched {names}, not "
-                f"{ZOO_CORE[PARALLEL_N]}")
-        del qkv, out, ref
+    for what, n in qkv_shapes:
+        for b in (8, 128):
+            qkv = torch.randn(b, n, 3 * 512, generator=gen, device=dev).bfloat16()
+            out = qa.fused_qkv_attention(qkv, 8)
+            ref = qa.xla_qkv_attention(qkv, 8)
+            torch.cuda.synchronize()
+            name = f"qkv_attention {what} ({n} tokens, 8 heads of 64) batch {b}"
+            check_close(name, out, ref, None)
+            names = kernel_names(launch_ms(lambda: qa.fused_qkv_attention(qkv, 8), 1, iters=3))
+            print(f"{name}: launches {' | '.join(names)}")
+            require(ZOO_CORE[n] in names[0], f"{name}: launched {names}, not {ZOO_CORE[n]}")
+            del qkv, out, ref
 
 
-def build_zoo_models(dev):
-    """The PiT, SimpleViT, ParallelViT and EfficientViT presets from weights
-    drawn with a seed, in bf16 and fp32, loaded through from_jax_params."""
-    from vit_tpu_torch.models import ParallelViT, PiT, SimpleViT
+def build_family_models(ctors):
+    """Each family's preset from weights drawn with a seed, in bf16 and fp32,
+    loaded through from_jax_params: ``ctors`` maps a family to (a
+    constructor taking the dtype, a function drawing the tree)."""
     from vit_tpu_torch.utils import from_jax_params
 
-    ctors = {"pit": (lambda dt: PiT(**PIT, dtype=dt, device=dev), lambda: pit_tree(PIT, SEED + 16)),
-             "simple_vit": (lambda dt: SimpleViT(**SIMPLE_VIT, dtype=dt, device=dev),
-                            lambda: simple_vit_tree(SIMPLE_VIT, SEED + 17)),
-             "parallel_vit": (lambda dt: ParallelViT(**PARALLEL_VIT, dtype=dt, device=dev),
-                              lambda: parallel_vit_tree(PARALLEL_VIT, SEED + 18)),
-             "efficient": (lambda dt: build_efficient(EFFICIENT, dt, dev),
-                           lambda: efficient_tree(EFFICIENT, SEED + 19))}
     models = {}
     for fam, (ctor, tree) in ctors.items():
         for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
@@ -2562,73 +2729,226 @@ def build_zoo_models(dev):
     return models
 
 
-def phase_zoo_op_times(dev, smi):
-    """Kernel 1 at PiT's stage 0 and kernel 3 at ParallelViT's shape, batch
-    128: each one's time, its twin's, its library composite's (LayerNorm,
-    cuBLAS, SDPA, cuBLAS; SDPA) and its bound, and kernel 1's four launches
-    in device time."""
+def build_zoo_models(dev):
+    """The PiT, SimpleViT, ParallelViT and EfficientViT presets."""
+    from vit_tpu_torch.models import ParallelViT, PiT, SimpleViT
+
+    return build_family_models({
+        "pit": (lambda dt: PiT(**PIT, dtype=dt, device=dev), lambda: pit_tree(PIT, SEED + 16)),
+        "simple_vit": (lambda dt: SimpleViT(**SIMPLE_VIT, dtype=dt, device=dev),
+                       lambda: simple_vit_tree(SIMPLE_VIT, SEED + 17)),
+        "parallel_vit": (lambda dt: ParallelViT(**PARALLEL_VIT, dtype=dt, device=dev),
+                         lambda: parallel_vit_tree(PARALLEL_VIT, SEED + 18)),
+        "efficient": (lambda dt: build_efficient(EFFICIENT, dt, dev),
+                      lambda: efficient_tree(EFFICIENT, SEED + 19))})
+
+
+def attention_block_op_line(what, b, n, dim, heads, eps, gen, smi):
+    """Kernel 1 at ``[b, n, dim]`` (heads of 64), bf16: its time, its twin's,
+    its library composite's (LayerNorm, cuBLAS, SDPA, cuBLAS) and its bound,
+    and its four launches in device time. Returns (kernel, twin, library,
+    (bound, bound_by)) in ms."""
     from vit_tpu_torch.ops import block_attention as ba
     from vit_tpu_torch.tools.ab_attention import K1_LAUNCHES, launch_ms
 
-    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     bf = lambda t: t.bfloat16()
-    b, (n, dim), heads, d = 128, PIT_STAGES[0], 16, 64
-    hd, rows = heads * d, b * PIT_STAGES[0][0]
+    d = 64
+    hd, rows = heads * d, b * n
     with torch.inference_mode():
-        inp = attn_inputs(gen, b, n, dim, heads, d, torch.bfloat16, dev)
+        inp = attn_inputs(gen, b, n, dim, heads, d, torch.bfloat16, gen.device)
         a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
         lib_a = [a[0], bf(a[1]), bf(a[2]), a[3], a[4], bf(a[5])]
-        kern = cuda_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=1e-5), iters=10)
-        plain = cuda_ms(lambda: ba.xla_attention_block(*a, heads, d**-0.5, 1e-5), iters=3,
+        kern = cuda_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=eps), iters=10)
+        plain = cuda_ms(lambda: ba.xla_attention_block(*a, heads, d**-0.5, eps), iters=3,
                         warmup=1)
         lib = cuda_ms(lambda: library_attention_block(*lib_a, heads), iters=10)
-        bnd, by = bound(2 * rows * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows * hd * dim,
-                        nbytes=size(*a) + size(a[0]))
-        print(f"op attention_block PiT stage 0 ([{b}, {n}, {dim}], {heads} x {d}) batch {b} bf16: "
+        bnd = bound(2 * rows * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows * hd * dim,
+                    nbytes=size(*a) + size(a[0]))
+        print(f"op attention_block {what} ([{b}, {n}, {dim}], {heads} x {d}) batch {b} bf16: "
               f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (LayerNorm + "
-              f"cuBLAS + SDPA + cuBLAS), bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it) [{smi}]")
-        split = launch_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=1e-5),
+              f"cuBLAS + SDPA + cuBLAS), bound {bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / kern:.1%} "
+              f"of it) [{smi}]")
+        split = launch_ms(lambda: ba.fused_attention_block(*a, heads, ln_eps=eps),
                           len(BLOCK_KERNELS))
-        print(f"op attention_block PiT stage 0 batch {b} launches (device): "
+        print(f"op attention_block {what} batch {b} launches (device): "
               f"{sum(t for _, t in split):.4f} ms = "
-              + ", ".join(f"{what} {t:.4f} ms ({name})"
-                          for what, (_, t), name in zip(K1_LAUNCHES, split, kernel_names(split)))
+              + ", ".join(f"{part} {t:.4f} ms ({name})"
+                          for part, (_, t), name in zip(K1_LAUNCHES, split, kernel_names(split)))
               + f" [{smi}]")
-        del inp, a, lib_a
-        qkv = torch.randn(b, PARALLEL_N, 3 * 512, generator=gen, device=dev).bfloat16()
+    return kern, plain, lib, bnd
+
+
+def fused_mlp_op_line(what, b, n, dim, f, eps, gen, smi):
+    """Kernel 2 at ``[b, n, dim]`` with F ``f``, bf16, without the residual:
+    its time, its twin's, its library composite's (LayerNorm, addmm, GELU,
+    addmm) and its bound. Returns (kernel, twin, library, (bound,
+    bound_by)) in ms."""
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    with torch.inference_mode():
+        m_in = mlp_inputs(gen, n, dim, f, torch.bfloat16, gen.device, b=b)
+        mkw = dict(activation="gelu", residual=False, ln_eps=eps)
+        lib_m = {k: v.bfloat16() if v.dim() == 1 else v for k, v in m_in.items()}
+        kern = cuda_ms(lambda: fused_mlp(**m_in, **mkw), iters=10)
+        plain = cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=3, warmup=1)
+        lib = cuda_ms(lambda: library_mlp(**lib_m), iters=10)
+        bnd = bound(4 * b * n * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"]))
+        print(f"op fused_mlp {what} ([{b}, {n}, {dim}], F {f}) batch {b} bf16: kernel "
+              f"{kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (LayerNorm + addmm + "
+              f"GELU + addmm), bound {bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / kern:.1%} of it) "
+              f"[{smi}]")
+    return kern, plain, lib, bnd
+
+
+def qkv_attention_op_line(what, b, n, gen, smi):
+    """Kernel 3 at ``[b, n, 3 x 512]`` (8 heads of 64), bf16: its time, its
+    twin's, SDPA's and its bound. Returns (kernel, twin, library, (bound,
+    bound_by)) in ms."""
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    with torch.inference_mode():
+        qkv = torch.randn(b, n, 3 * 512, generator=gen, device=gen.device).bfloat16()
         q, k, v = split_heads(qkv, 8)
         kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, 8), iters=10)
         plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, 8), iters=3, warmup=1)
         lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v)), iters=10)
-        bnd, by = bound(4 * b * 8 * PARALLEL_N**2 * 64, nbytes=size(qkv) + b * PARALLEL_N * 512 * 2)
-        print(f"op qkv_attention ParallelViT ([{b}, {PARALLEL_N}, 1536], 8 x 64) batch {b} bf16: "
+        bnd = bound(4 * b * 8 * n**2 * 64, nbytes=size(qkv) + b * n * 512 * 2)
+        print(f"op qkv_attention {what} ([{b}, {n}, 1536], 8 x 64) batch {b} bf16: "
               f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
-              f"{sdpa_backend(q, k, v)} backend), bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of "
-              f"it) [{smi}]")
+              f"{sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"{bnd[0] / kern:.1%} of it) [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def serve_families(models, fams, dev, smi, requests):
+    """Each family's preset served through BatchingServer with its launch
+    counts per forward (and no other kernel launched); the logits against
+    the plain fp32 path; img/s, p50 and device time by kernel."""
+    for fam in fams:
+        counts = serve_family(models[(fam, "bf16")], fam, requests)
+        other = {k: c for k, c in counts.items() if c and k not in FAMILY_LAUNCHES[fam]}
+        require(not other, f"slice {fam}: kernels off its path launched: {other}")
+    phase_family_e2e(models, fams, dev, requests)
+    for fam in fams:
+        phase_times({f"{fam} bf16": models[(fam, "bf16")]}, IMAGE_SIZE[fam], dev, smi)
+        phase_profile(f"{fam} bf16", models[(fam, "bf16")], IMAGE_SIZE[fam], dev, smi)
 
 
 def phase_zoo(dev, smi, requests):
     """Phase 11: the kernels at the zoo's new shapes; each preset served
-    through BatchingServer with its launch counts per forward (and no other
-    kernel launched); the logits against the plain fp32 path; img/s, p50
-    and device time by kernel; the two op lines."""
-    phase_zoo_kernels(dev)
+    (serve_families); the two op lines (kernel 1 at PiT's stage 0, kernel 3
+    at ParallelViT's shape, batch 128)."""
+    phase_zoo_kernels(dev, ZOO_ATTN, ZOO_MLP, (("ParallelViT", PARALLEL_N),), SEED + 15)
     t0 = time.perf_counter()
     models = build_zoo_models(dev)
     print(f"zoo weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
-    for fam in ZOO_FAMILIES:
-        counts = serve_family(models[(fam, "bf16")], fam, requests)
-        other = {k: c for k, c in counts.items() if c and k not in FAMILY_LAUNCHES[fam]}
-        require(not other, f"slice {fam}: kernels off its path launched: {other}")
-    phase_family_e2e(models, ZOO_FAMILIES, dev, requests)
-    for fam in ZOO_FAMILIES:
-        phase_times({f"{fam} bf16": models[(fam, "bf16")]}, IMAGE_SIZE[fam], dev, smi)
-        phase_profile(f"{fam} bf16", models[(fam, "bf16")], IMAGE_SIZE[fam], dev, smi)
+    serve_families(models, ZOO_FAMILIES, dev, smi, requests)
     del models
     torch.cuda.empty_cache()
-    phase_zoo_op_times(dev, smi)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    attention_block_op_line("PiT stage 0", 128, *PIT_STAGES[0], 16, 1e-5, gen, smi)
+    qkv_attention_op_line("ParallelViT", 128, PARALLEL_N, gen, smi)
+
+
+def check_plain_products(dev, smi):
+    """The bf16 products of the plain code on the card against their plain
+    products (``force_backend("torch")``: an fp32 product of the rounded
+    operands): ``Dense`` (cuBLAS) at DENSE_SHAPES, batch 8, each value within
+    one bf16 ulp plus the fp32 sum-order slack of K products; the unfused
+    attention branch at PatchMerger-ViT's width (its output projection on the
+    wgmma GEMM, the fp32 bias in the epilogue) within kernel_tol, batch 8 and
+    128; each timed at batch 128 beside its plain product."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.nn import Attention, Dense
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    for what, rows, k, n in DENSE_SHAPES:
+        dense = Dense(k, n, use_bias=False, dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            dense.kernel.copy_(r(k, n) / k**0.5)
+        for b in (8, 128):
+            x = r(b, rows, k).bfloat16()
+            with torch.inference_mode():
+                out = dense(x)
+                with ops.force_backend("torch"):
+                    ref = dense(x)
+                if b == 8:
+                    ref32 = ref.float()
+                    ulp = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8)
+                    slack = 2 * k * 2.0**-24 * (x.float().abs()
+                                                @ dense.kernel.bfloat16().float().abs())
+                    excess = ((out.float() - ref32).abs() - ulp - slack).max().item()
+                    print(f"dense {what} [{b}, {rows}, {k}] -> {n} bf16 on the card (cuBLAS): "
+                          f"max|err| {(out.float() - ref32).abs().max().item():.6g}, beyond one "
+                          f"ulp + slack {max(excess, 0.0):.6g}")
+                    require(excess <= 0.0, f"dense {what}: {excess} beyond one bf16 ulp + slack")
+                else:
+                    kern = cuda_ms(lambda: dense(x), iters=10)
+                    with ops.force_backend("torch"):
+                        plain = cuda_ms(lambda: dense(x), iters=3, warmup=1)
+                    print(f"op dense {what} [{b}, {rows}, {k}] -> {n} bf16: cuBLAS bf16 "
+                          f"{kern:.4f} ms, plain fp32 product {plain:.4f} ms [{smi}]")
+            del x, out, ref
+    attn = Attention(1024, 8, 64, norm_eps=1e-5, device=dev)
+    with torch.no_grad():
+        for name, p in attn.named_parameters():
+            p.copy_(1.0 + 0.1 * r(*p.shape) if name == "norm_scale" else
+                    0.1 * r(*p.shape) if p.dim() == 1 else r(*p.shape) / p.shape[0] ** 0.5)
+    for b in (8, 128):
+        x = r(b, 256, 1024).bfloat16()
+        with torch.inference_mode():
+            out = attn(x)
+            with ops.force_backend("torch"):
+                ref = attn(x)
+            torch.cuda.synchronize()
+            check_close(f"unfused attention PatchMerger-ViT ([{b}, 256, 1024], 8 x 64; the out "
+                        f"projection on the wgmma GEMM) batch {b}", out, ref, None)
+            if b == 128:
+                o = r(b, 256, 512).bfloat16()
+                w = attn.out_kernel.bfloat16()
+                kern = cuda_ms(lambda: attn._out_projection(o, w, torch.bfloat16), iters=10)
+                with ops.force_backend("torch"):
+                    plain = cuda_ms(lambda: attn._out_projection(o, w, torch.bfloat16), iters=3,
+                                    warmup=1)
+                print(f"op unfused out projection [{b}, 256, 512] -> 1024 bf16: wgmma GEMM "
+                      f"{kern:.4f} ms, plain fp32 product {plain:.4f} ms [{smi}]")
+        del x, out, ref
+
+
+def build_zoo2_models(dev):
+    """The CrossViT, PatchMerger-ViT and small-dataset ViT presets."""
+    from vit_tpu_torch.models import CrossViT, PatchMergerViT, ViTSmallDatasets
+
+    return build_family_models({
+        "cross_vit": (lambda dt: CrossViT(**CROSS_VIT, dtype=dt, device=dev),
+                      lambda: cross_vit_tree(CROSS_VIT, SEED + 21)),
+        "patch_merger_vit": (lambda dt: PatchMergerViT(**PATCH_MERGER, dtype=dt, device=dev),
+                             lambda: patch_merger_tree(PATCH_MERGER, SEED + 22)),
+        "vit_small_datasets": (lambda dt: ViTSmallDatasets(**SMALL_DATASETS, dtype=dt,
+                                                           device=dev),
+                               lambda: vit_small_datasets_tree(SMALL_DATASETS, SEED + 23))})
+
+
+def phase_zoo2(dev, smi, requests):
+    """Phase 12: the kernels at the second zoo slice's shapes; the plain
+    code's bf16 products on the card; each preset served (serve_families);
+    the op lines (kernels 1 and 2 at CrossViT's small branch, kernel 3 at
+    PatchMerger-ViT's 256 tokens, batch 128)."""
+    phase_zoo_kernels(dev, ZOO2_ATTN, ZOO2_MLP, ZOO2_QKV, SEED + 25)
+    check_plain_products(dev, smi)
+    t0 = time.perf_counter()
+    models = build_zoo2_models(dev)
+    print(f"zoo slice 2 weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    serve_families(models, ZOO2_FAMILIES, dev, smi, requests)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    attention_block_op_line("CrossViT small", 128, *ZOO2_ATTN[0][1:], gen, smi)
+    fused_mlp_op_line("CrossViT small", 128, *ZOO2_MLP[0][1:], gen, smi)
+    qkv_attention_op_line("PatchMerger", 128, ZOO2_QKV[0][1], gen, smi)
 
 
 def main() -> int:
@@ -2646,6 +2966,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 cuBLAS products (Dense) sum in fp32 and round once, as vit_tpu's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
@@ -2750,6 +3072,9 @@ def main() -> int:
 
     # 11. the zoo slice: the PiT, SimpleViT, ParallelViT and EfficientViT presets, bf16
     phase_zoo(dev, smi, requests)
+
+    # 12. the zoo's second slice: the CrossViT, PatchMerger-ViT and small-dataset ViT presets
+    phase_zoo2(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -143,10 +143,13 @@ def test_converter_rejects_a_wrong_layout():
 
 # Each flag in a configuration the port still refuses. Talking heads and
 # re-attention run alone (tests/test_torch_cait_deepvit.py); together, or
-# re-attention without the residual its kernel adds, they raise.
+# re-attention without the residual its kernel adds, they raise. LSA's two
+# flags run on the raw-parameter branch (tests/test_torch_small_vits.py) and
+# raise on the cross-attention branch.
 UNPORTED = {
     "qkv_bias": {}, "talking_heads": {"reattention": True},
-    "reattention": {"fuse_residual": False}, "mask_self": {}, "learned_temperature": {},
+    "reattention": {"fuse_residual": False}, "mask_self": {"cross": True},
+    "learned_temperature": {"cross": True},
 }
 
 

@@ -1,16 +1,19 @@
 """Models of the port: ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT``, ``T2TViT``, ``PiT``,
-``SimpleViT``, ``ParallelViT`` and ``EfficientViT`` so far (the rest of the zoo is
-ROADMAP.md Queue 1 item 6)."""
+``SimpleViT``, ``ParallelViT``, ``EfficientViT``, ``CrossViT``, ``PatchMergerViT`` and
+``ViTSmallDatasets`` so far (the rest of the zoo is ROADMAP.md Queue 1 item 6)."""
 
 from vit_tpu_torch.models.cait import CaiT
+from vit_tpu_torch.models.cross_vit import CrossViT
 from vit_tpu_torch.models.deepvit import DeepViT
 from vit_tpu_torch.models.efficient import EfficientViT
 from vit_tpu_torch.models.parallel_vit import ParallelViT
+from vit_tpu_torch.models.patch_merger import PatchMergerViT
 from vit_tpu_torch.models.pit import PiT
 from vit_tpu_torch.models.simple_vit import SimpleViT
 from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
+from vit_tpu_torch.models.vit_small_datasets import ViTSmallDatasets
 
-__all__ = ["CaiT", "DeepViT", "EfficientViT", "ParallelViT", "PiT", "SimpleViT", "T2TViT",
-           "TwinsSVT", "ViT"]
+__all__ = ["CaiT", "CrossViT", "DeepViT", "EfficientViT", "ParallelViT", "PatchMergerViT",
+           "PiT", "SimpleViT", "T2TViT", "TwinsSVT", "ViT", "ViTSmallDatasets"]

@@ -10,4 +10,11 @@ from vit_tpu_torch.nn.conv import (  # noqa: F401
     PatchEmbedding,
     Pool,
 )
-from vit_tpu_torch.nn.embed import Dense, LayerNorm, PatchEmbed, mean_tokens  # noqa: F401
+from vit_tpu_torch.nn.embed import (  # noqa: F401
+    SPT,
+    Dense,
+    LayerNorm,
+    PatchEmbed,
+    PatchMerger,
+    mean_tokens,
+)

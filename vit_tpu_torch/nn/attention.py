@@ -16,9 +16,21 @@ before its first call:
   ``vit_tpu`` does not scan) or without an output projection (``heads ==
   1`` and ``dim_head == dim``: T2T's tokenizer), the layer takes the
   unfused branch (:307-354): the LayerNorm and the qkv product outside any
-  kernel, ``ops.qkv_attention`` (or, with a head mix, the materializing
-  path), the optional output projection rounded to the residual's dtype,
-  and the delta returned (the residual added only with ``fuse_residual``).
+  kernel, ``ops.qkv_attention`` (or, with a head mix or LSA, the
+  materializing path), the optional output projection rounded to the
+  residual's dtype, and the delta returned (the residual added only with
+  ``fuse_residual``). On the card a bf16 output projection runs on the
+  wgmma GEMM of kernels 1 and 2 (``ops.block_attention.gemm_sm90``), its
+  fp32 bias in the epilogue, wherever the width and the inner width are
+  multiples of 8 (every preset's); elsewhere, in fp32, on the CPU and under
+  ``ops.force_backend("torch")``, an fp32 product of the rounded operands.
+- **LSA** (Locality Self-Attention, :178-194, :471-481) on that branch:
+  ``mask_self`` sets the score diagonal to ``flash_attention.MASK_VALUE``,
+  ``learned_temperature`` scales the scores by ``exp(log_temperature)``
+  (an fp32 scalar, ``log(dim_head**-0.5)`` at init). Either flag takes the
+  unfused branch and the materializing path at every depth, with or
+  without ``fuse_residual``, as ``vit_tpu``'s fusion gates exclude both:
+  no LSA layer reaches a block kernel.
 - **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
   LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
   ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
@@ -31,22 +43,24 @@ before its first call:
 ``mha_tokens`` (:70-91) is the functional attention of the window and
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
-Still raising, each naming its ROADMAP item: ``qkv_bias``, ``mask_self`` and
-``learned_temperature`` (LSA), both head mixes at once, and re-attention or
-talking heads without the output projection, or re-attention without
-``fuse_residual`` (JAX's materializing path).
+Still raising, each naming its ROADMAP item: ``qkv_bias``, cross-attention
+with ``mask_self`` or ``learned_temperature``, both head mixes at once, and
+re-attention or talking heads without the output projection, or
+re-attention without ``fuse_residual`` (JAX's materializing path).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.nn.embed import Dense, LayerNorm
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
+from vit_tpu_torch.nn.embed import Dense, LayerNorm, _mm_rounded
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax, gemm_sm90
+from vit_tpu_torch.ops.flash_attention import MASK_VALUE
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
 
@@ -82,16 +96,6 @@ def mha_tokens(q, k, v, heads: int, *, scale=None) -> torch.Tensor:
     return merge_heads(ops.attention(q, k, v, scale=scale))
 
 
-def _mm_rounded(a, b, dtype):
-    """``a @ b`` accumulated in fp32 and rounded once to ``dtype`` (JAX's
-    ``preferred_element_type=f32`` then ``astype``): on the card a bf16
-    product is one cuBLAS bf16 GEMM, which sums in fp32 and rounds once; a
-    plain product outside any kernel, as XLA's is in ``vit_tpu``."""
-    if a.is_cuda and a.dtype == b.dtype == dtype == torch.bfloat16:
-        return torch.matmul(a, b)
-    return _mm(a, b, dtype)
-
-
 def _einsum(eq, a, b, dtype=torch.float32):
     """fp32 einsum of operands already rounded to their dtype (JAX's
     ``preferred_element_type=f32``), rounded once to ``dtype``."""
@@ -105,8 +109,9 @@ class Attention(nn.Module):
     ``qkv_kernel`` ``[D, 3*H*Dh]``; ``out_kernel`` ``[H*Dh, D]``;
     ``out_bias`` ``[D]``; ``mix_heads_pre`` / ``mix_heads_post`` ``[H, H]``
     with ``talking_heads``; ``reattn_weights`` ``[H, H]``, ``reattn_scale``,
-    ``reattn_bias`` ``[H]`` with ``reattention``. All fp32; the GEMM weights
-    are cast to ``dtype`` (None: the stream dtype) per call.
+    ``reattn_bias`` ``[H]`` with ``reattention``; ``log_temperature`` (0-d)
+    with ``learned_temperature``. All fp32; the GEMM weights are cast to
+    ``dtype`` (None: the stream dtype) per call.
 
     Cross-attention (``cross=True``): ``norm`` (``scale``, ``bias``),
     ``norm_context`` with ``norm_context``, ``to_q/kernel``,
@@ -122,8 +127,11 @@ class Attention(nn.Module):
                  lowq_cross: Optional[bool] = None, norm_eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if qkv_bias or mask_self or learned_temperature:
-            raise NotImplementedError(f"qkv_bias / mask_self / learned_temperature: {_LATER}")
+        if qkv_bias:
+            raise NotImplementedError(f"qkv_bias: {_LATER}")
+        if cross and (mask_self or learned_temperature):
+            raise NotImplementedError(f"cross-attention with mask_self / learned_temperature: "
+                                      f"{_LATER}")
         if talking_heads and reattention:
             raise NotImplementedError(f"talking heads together with re-attention: {_LATER}")
         # vit_tpu/nn/attention.py:157-162
@@ -136,6 +144,7 @@ class Attention(nn.Module):
         inner = heads * dim_head
         self.dim, self.heads, self.dim_head, self.scale = dim, heads, dim_head, dim_head**-0.5
         self.talking_heads, self.reattention = talking_heads, reattention
+        self.mask_self, self.learned_temperature = mask_self, learned_temperature
         self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
         self.norm_eps, self.dtype = norm_eps, dtype
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
@@ -152,6 +161,9 @@ class Attention(nn.Module):
             if self.project_out:
                 self.out_kernel = p(inner, dim)
                 self.out_bias = p(dim)
+        if learned_temperature:
+            self.log_temperature = nn.Parameter(
+                torch.tensor(math.log(self.scale), dtype=torch.float32, device=device))
         if talking_heads:
             self.mix_heads_pre = p(heads, heads)
             self.mix_heads_post = p(heads, heads)
@@ -168,7 +180,8 @@ class Attention(nn.Module):
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
         mix = self.talking_heads or self.reattention
-        if not (self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
+        lsa = self.mask_self or self.learned_temperature
+        if lsa or not (self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
             return self._unfused(x, dtype)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
@@ -193,19 +206,33 @@ class Attention(nn.Module):
         attention.py:307-354): flax's LayerNorm in fp32 cast to ``dtype``,
         the qkv product rounded once, ``ops.qkv_attention`` (the fused-qkv
         kernel, or the kv-blocked one for widths and lengths it cannot
-        hold) or, with a head mix, the materializing path, the output
-        projection in fp32 plus its bias rounded to x's dtype. Returns the
-        delta, or the delta plus x with ``fuse_residual``."""
+        hold) or, with a head mix or LSA, the materializing path, the output
+        projection summed in fp32 plus its fp32 bias, rounded once to x's
+        dtype. Returns the delta, or the delta plus x with
+        ``fuse_residual``."""
         xn = _ln_f32(x.float(), self.norm_scale, self.norm_bias, self.norm_eps).to(dtype)
         qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
-        if self.talking_heads or self.reattention:
+        if self.talking_heads or self.reattention or self.mask_self or self.learned_temperature:
             q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
             out = merge_heads(self._materializing_attention(q, k, v))
         else:
             out = ops.qkv_attention(qkv, self.heads, scale=self.scale)
         if self.project_out:
-            out = (_mm(out, self.out_kernel.to(dtype)) + self.out_bias).to(x.dtype)
+            out = self._out_projection(out, self.out_kernel.to(dtype), x.dtype)
         return out + x if self.fuse_residual else out
+
+    def _out_projection(self, out, w, out_dtype):
+        """``round_once(out @ w + out_bias)`` to ``out_dtype`` (vit_tpu/nn/
+        attention.py:345-348). On the card with bf16 operands whose widths
+        are multiples of 8: the wgmma GEMM (``gemm_sm90``), the fp32 bias in
+        its epilogue. Else an fp32 product of the rounded operands."""
+        k, n = w.shape
+        if (ops._use_kernel(out) and out.dtype == w.dtype == torch.bfloat16
+                and n % 8 == 0 and k % 8 == 0):
+            rows = out.reshape(-1, k).contiguous()
+            y = gemm_sm90(rows, w, bias=self.out_bias, out_dtype=out_dtype)
+            return y.reshape(*out.shape[:-1], n)
+        return (_mm(out, w) + self.out_bias).to(out_dtype)
 
     def _cross_attention(self, x, context, kv_include_self):
         """The flax branch (vit_tpu/nn/attention.py:356-410)."""
@@ -265,8 +292,13 @@ class Attention(nn.Module):
 
     def _materializing_attention(self, q, k, v):
         """The score-materializing path (vit_tpu/nn/attention.py:471-504):
-        talking-heads mixes and re-attention on ``[B, H, Nq, Nk]`` scores."""
-        s = _einsum("bhid,bhjd->bhij", q, k) * self.scale
+        LSA's learned scale and masked diagonal, talking-heads mixes and
+        re-attention on ``[B, H, Nq, Nk]`` fp32 scores."""
+        scale = torch.exp(self.log_temperature) if self.learned_temperature else self.scale
+        s = _einsum("bhid,bhjd->bhij", q, k) * scale
+        if self.mask_self:
+            nq, nk = s.shape[-2:]
+            s = s.masked_fill(torch.eye(nq, nk, dtype=torch.bool, device=s.device), MASK_VALUE)
         if self.talking_heads:
             s = torch.einsum("bhij,hg->bgij", s, self.mix_heads_pre)
         p = _softmax(s)

@@ -1,6 +1,6 @@
 """Feed-forward block and encoder stack (port of ``vit_tpu/nn/blocks.py``:
-the plain stack, DeepViT's re-attention stack and ParallelViT's parallel
-branches).
+the plain stack, DeepViT's re-attention stack, ParallelViT's parallel
+branches, LSA's stack and the optional final LayerNorm).
 
 The depth is a Python loop over a ``ModuleList``: no ``nn.scan`` analogue,
 no sample packing and no Mosaic row padding, so the stream runs at its real
@@ -19,6 +19,7 @@ from torch import nn
 
 from vit_tpu_torch import ops
 from vit_tpu_torch.nn.attention import Attention
+from vit_tpu_torch.nn.embed import LayerNorm
 
 
 class FeedForward(nn.Module):
@@ -51,15 +52,19 @@ class FeedForward(nn.Module):
 class EncoderBlock(nn.Module):
     """One pre-norm residual block: attention (with ``fuse_residual``, the
     residual inside the kernel; DeepViT's re-attention with
-    ``reattention``; without it, ``x + attn(x)``) then ``x + FeedForward(x)``,
-    each sum in JAX's promotion of the two dtypes."""
+    ``reattention``; LSA with ``mask_self`` / ``learned_temperature``, never
+    fused; without ``fuse_residual``, ``x + attn(x)``) then ``x +
+    FeedForward(x)``, each sum in JAX's promotion of the two dtypes."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
-                 reattention: bool = False, fuse_residual: bool = True, activation: str = "gelu",
-                 norm_eps: float = 1e-6, dtype: Optional[torch.dtype] = None, device="cuda"):
+                 reattention: bool = False, mask_self: bool = False,
+                 learned_temperature: bool = False, fuse_residual: bool = True,
+                 activation: str = "gelu", norm_eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.fuse_residual = fuse_residual
-        self.attn = Attention(dim, heads, dim_head, reattention=reattention,
+        self.attn = Attention(dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
+                              learned_temperature=learned_temperature,
                               fuse_residual=fuse_residual, norm_eps=norm_eps, dtype=dtype,
                               device=device)
         self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
@@ -86,22 +91,35 @@ class Transformer(nn.Module):
     ``ff_{i}_{b}``. The branches are summed in JAX's order, ``(0 + a0) +
     a1``, in the stream's dtype, and x is added after the sum.
 
+    ``mask_self`` and ``learned_temperature`` (LSA) reach every layer's
+    attention, which then takes the unfused branch at every depth
+    (blocks.py:396-397 pass both to the scanned and unscanned layers).
+
+    With ``final_norm`` a flax LayerNorm (eps ``norm_eps``, output in
+    ``dtype``; None: fp32) named ``final_norm`` follows the stack, outside
+    ``blocks`` (blocks.py:396-397, :460-461).
+
     ``jax_stages`` maps the stacked prefix under this module's name to the
     depth (``{"blocks": depth}``; none with parallel branches), for a model's
     own ``jax_stages``."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
-                 reattention: bool = False, activation: str = "gelu", norm_eps: float = 1e-6,
-                 parallel_branches: int = 1, dtype: Optional[torch.dtype] = None, device="cuda"):
+                 reattention: bool = False, mask_self: bool = False,
+                 learned_temperature: bool = False, activation: str = "gelu",
+                 norm_eps: float = 1e-6, parallel_branches: int = 1, final_norm: bool = False,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.depth, self.branches = depth, parallel_branches
         self.unported = depth == 1 and reattention
+        self.final_norm = (LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+                           if final_norm else None)
         if parallel_branches > 1:
             self.jax_stages = {}
             for i in range(depth):
                 for b in range(parallel_branches):
                     self.add_module(f"attn_{i}_{b}", Attention(
-                        dim, heads, dim_head, reattention=reattention, norm_eps=norm_eps,
+                        dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
+                        learned_temperature=learned_temperature, norm_eps=norm_eps,
                         dtype=dtype, device=device))
                 for b in range(parallel_branches):
                     # vit_tpu builds the FF branches without ln_eps and activation
@@ -113,6 +131,7 @@ class Transformer(nn.Module):
         self.jax_stages = {"blocks": depth}
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
+                         mask_self=mask_self, learned_temperature=learned_temperature,
                          fuse_residual=depth > 1 or reattention, activation=activation,
                          norm_eps=norm_eps, dtype=dtype, device=device)
             for _ in range(depth)
@@ -127,7 +146,7 @@ class Transformer(nn.Module):
             for i in range(self.depth):
                 for kind in ("attn", "ff"):
                     x = x + sum(getattr(self, f"{kind}_{i}_{b}")(x) for b in range(self.branches))
-            return x
-        for block in self.blocks:
-            x = block(x)
-        return x
+        else:
+            for block in self.blocks:
+                x = block(x)
+        return x if self.final_norm is None else self.final_norm(x)

@@ -1,5 +1,6 @@
-"""Patch embedding, the flax-named parameter containers and the token mean
-(port of ``vit_tpu/nn/embed.py:PatchEmbed``)."""
+"""Patch embedding, the flax-named parameter containers, the token mean, and
+the token embedders of the small-dataset and merging families (port of
+``vit_tpu/nn/embed.py``: ``PatchEmbed``, ``SPT``, ``PatchMerger``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,20 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
+
+
+def _mm_rounded(a, b, dtype):
+    """``a @ b`` accumulated in fp32 and rounded once to ``dtype`` (JAX's
+    ``preferred_element_type=f32`` then ``astype``): on the card a bf16
+    product is one cuBLAS bf16 GEMM, which sums in fp32 and rounds once
+    (with ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off, as chip_smoke sets it: PyTorch's default lets cuBLAS add split-K
+    partials in bf16); a plain product outside any kernel, as XLA's is in
+    ``vit_tpu``."""
+    if a.is_cuda and a.dtype == b.dtype == dtype == torch.bfloat16:
+        return torch.matmul(a, b)
+    return _mm(a, b, dtype)
 
 
 class Dense(nn.Module):
@@ -18,7 +32,12 @@ class Dense(nn.Module):
     fp32, what flax infers from fp32 parameters) is the computation dtype:
     the input and the kernel are cast to it, the product is rounded once to
     it, and the bias is cast to it and added in it. With ``dtype=bfloat16``
-    the bias add is a bf16 add, unlike the raw-parameter blocks' fp32 bias."""
+    the bias add is a bf16 add, unlike the raw-parameter blocks' fp32 bias.
+
+    The product: on a CUDA tensor in bf16, one cuBLAS bf16 GEMM
+    (``_mm_rounded``: fp32 sums, one rounding); in fp32, on the CPU and
+    under ``ops.force_backend("torch")``, ``_mm`` (an fp32 product of the
+    rounded operands). Both round at the same place, in other sum orders."""
 
     def __init__(self, features_in: int, features: int, *, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
@@ -28,7 +47,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x):
-        y = _mm(x.to(self.dtype), self.kernel.to(self.dtype), self.dtype)
+        x, w = x.to(self.dtype), self.kernel.to(self.dtype)
+        y = (_mm_rounded if ops._use_kernel(x) else _mm)(x, w, self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -71,3 +91,48 @@ class PatchEmbed(nn.Module):
     def forward(self, img):
         x = self.proj(ops.patchify(img, self.patch_size))
         return x.to(self.out_dtype) if self.out_dtype is not None else x
+
+
+class SPT(nn.Module):
+    """Shifted Patch Tokenization (``vit_tpu/nn/embed.py:SPT``): the image and
+    its four 1-px shifts (``ops.spt_shifts``), patchified, then a LayerNorm
+    without bias (eps 1e-5) and a Dense ``proj``, both in ``dtype`` (None:
+    fp32). Parameters: ``norm/scale``, ``proj/{kernel, bias}``."""
+
+    def __init__(self, dim: int, patch_size: int, channels: int = 3, *,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        self.patch_size = patch_size
+        patch_dim = patch_size * patch_size * 5 * channels
+        self.norm = LayerNorm(patch_dim, eps=1e-5, use_bias=False, dtype=dtype, device=device)
+        self.proj = Dense(patch_dim, dim, dtype=dtype, device=device)
+
+    def forward(self, img):
+        return self.proj(self.norm(ops.patchify(ops.spt_shifts(img), self.patch_size)))
+
+
+class PatchMerger(nn.Module):
+    """Learned-attention token merging (``vit_tpu/nn/embed.py:PatchMerger``):
+    ``[B, N, D] -> [B, T, D]``, T learned fp32 ``queries`` ``[T, D]``
+    attending the tokens normed by ``norm`` (a flax LayerNorm in ``dtype``,
+    eps 1e-6). It rounds where ``vit_tpu`` run op by op rounds, in the
+    stream's dtype throughout: the queries cast to it and then scaled by
+    ``dim**-0.5``, both products summed in fp32 and rounded once (a bf16 dot
+    without ``preferred_element_type``), and ``jax.nn.softmax``'s max / exp /
+    sum / divide on the rounded scores, each op rounded. Plain PyTorch:
+    ``vit_tpu`` computes it outside any Pallas kernel."""
+
+    def __init__(self, dim: int, num_tokens_out: int, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.scale = dim**-0.5
+        self.queries = nn.Parameter(torch.zeros(num_tokens_out, dim, device=device))
+        self.norm = LayerNorm(dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        xn = self.norm(x)
+        dt = xn.dtype
+        q = self.queries.to(dt) * self.scale
+        attn = torch.einsum("qd,bnd->bqn", q.float(), xn.float()).to(dt)
+        p = _softmax(attn)
+        return torch.einsum("bqn,bnd->bqd", p.float(), xn.float()).to(dt)

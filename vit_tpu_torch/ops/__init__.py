@@ -33,6 +33,7 @@ from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
     extract_patches,
     patchify,
     posemb_sincos_2d,
+    spt_shifts,
 )
 from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_kernel_fits, xla_qkv_attention
 from vit_tpu_torch.ops.quant_block import (
@@ -95,6 +96,7 @@ __all__ = [
     "patchify",
     "extract_patches",
     "posemb_sincos_2d",
+    "spt_shifts",
     "window_partition",
     "window_unpartition",
     "dilated_partition",

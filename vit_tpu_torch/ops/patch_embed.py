@@ -1,6 +1,6 @@
 """Patch extraction and the fixed positional embedding (port of
-``vit_tpu/ops/patch_embed.py``: ``patchify``, ``extract_patches`` and
-``posemb_sincos_2d``). Plain PyTorch and numpy: none is a Pallas kernel in
+``vit_tpu/ops/patch_embed.py``: ``patchify``, ``extract_patches``,
+``spt_shifts`` and ``posemb_sincos_2d``). Plain PyTorch and numpy: none is a Pallas kernel in
 ``vit_tpu``."""
 
 from __future__ import annotations
@@ -44,6 +44,21 @@ def extract_patches(x: torch.Tensor, kernel: int, stride: int, padding: str = "S
     wo = (x.shape[3] - kernel) // stride + 1
     cols = cols.reshape(b, c, kernel * kernel, ho, wo).permute(0, 3, 4, 2, 1)
     return cols.reshape(b, ho, wo, kernel * kernel * c)
+
+
+def spt_shifts(x: torch.Tensor) -> torch.Tensor:
+    """Shifted Patch Tokenization's input expansion: the image and four
+    zero-filled 1-px axis-aligned shifts of it, concatenated on channels in
+    ``vit_tpu``'s order [x, right, left, down, up]: ``[B, H, W, C] -> [B, H,
+    W, 5C]``. A gather, so bitwise equal to ``vit_tpu``'s."""
+    h, w = x.shape[1], x.shape[2]
+    pieces = [x]
+    for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):  # (rows, columns) moved
+        # F.pad takes the last axis first: channels, then columns, then rows
+        padded = F.pad(x, (0, 0, max(dx, 0), max(-dx, 0), max(dy, 0), max(-dy, 0)))
+        y0, x0 = max(-dy, 0), max(-dx, 0)
+        pieces.append(padded[:, y0:y0 + h, x0:x0 + w, :])
+    return torch.cat(pieces, dim=-1)
 
 
 def posemb_sincos_2d(h: int, w: int, dim: int, temperature: float = 10000.0,
