@@ -125,7 +125,25 @@ Runs, in order, and exits non-zero at the first failure:
      img/s and p50 latency; device time by kernel of one forward at batch
      128; the attention block and the MLP kernel at CrossViT's small branch
      and the fused-qkv kernel at PatchMerger-ViT's 256 tokens, batch 128,
-     against their twins, library composites and bounds.
+     against their twins, library composites and bounds;
+ 13. the zoo's third slice: the window kernel at the crossformer preset's
+     eight window shapes (7 x 7 windows and dilated ones of 8 x 8 down to
+     1 x 1 tokens, C 64 to 512, heads of 32, a per-head bias, and once the
+     quirk mode's shared one), each at batch 8 and 128 against its twin on
+     the o-tile route as one launch, with the twins with a fault planted
+     (padded keys unmasked, the bias transposed, a per-head bias read as
+     head 0's, windows attending across each other) shown to fail the
+     bound; the fused-qkv kernel at the nest preset's three levels (196
+     tokens, heads of 32) on the core's streamed variant; the MLP kernel at
+     the slice's seven shapes; both presets (random weights from a seed,
+     bf16) served through ``BatchingServer`` with the launch counts per
+     forward (CrossFormer 28 window blocks and 28 MLPs, NesT 12 fused-qkv
+     attentions and 12 MLPs, no other kernel); their logits against the
+     port's plain fp32 path beside the plain bf16 path's; img/s and p50
+     latency; device time by kernel of one forward at batch 128; the window
+     kernel at stage 0's SDA and stage 3's LDA, the fused-qkv kernel at
+     NesT's level 0 and the MLP kernel at the first stage of each, batch
+     128, against their twins, library composites and bounds.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
@@ -258,10 +276,16 @@ FAMILY_LAUNCHES = {
     "patch_merger_vit": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
     "vit_small_datasets": {"fused_mlp": 6, "attention_block": 0, "qkv_attention": 0,
                            "flash_attention": 0, "flash_attention_kv_blocked": 0},
+    # the third zoo slice: CrossFormer's 14 blocks of [SDA, MLP, LDA, MLP];
+    # NesT's 2 + 2 + 8 layers of block attention and MLP
+    "crossformer": {"window_attention_block": 28, "fused_mlp": 28, "attention_block": 0,
+                    "qkv_attention": 0, "flash_attention": 0},
+    "nest": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
               "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
-              "patch_merger_vit": 256, "vit_small_datasets": 256}
+              "patch_merger_vit": 256, "vit_small_datasets": 256, "crossformer": 224,
+              "nest": 224}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -321,6 +345,37 @@ ZOO2_MLP = (("CrossViT small", 257, 192, 2048, 1e-5), ("CrossViT large", 17, 384
             ("SmallDatasets", 257, 1024, 2048, 1e-5))
 # Kernel 3 at PatchMerger-ViT's two shapes: (what, tokens), 8 heads of 64.
 ZOO2_QKV = (("PatchMerger", 256), ("PatchMerger merged", 8))
+# The third zoo slice at the presets of vit_tpu/models/presets.py:139-142
+# (crossformer) and :102-105 (nest, NesT-T), 224 px, bf16. CrossFormer runs
+# every attention on kernel 6 with 32-wide heads (heads = C / 32) and a
+# per-head DPB bias [H, S, S]: SDA on 7 x 7 windows, LDA on dilated windows of
+# 8 x 8, 4 x 4, 2 x 2 and 1 x 1 tokens. NesT runs kernel 3 on 196-token blocks
+# (16, 4 and 1 a sample) with 3, 6 and 12 heads of 32.
+CROSSFORMER = dict(num_classes=1000, dim=(64, 128, 256, 512), depth=(2, 2, 8, 2),
+                   global_window_size=(8, 4, 2, 1), local_window_size=7)
+NEST = dict(image_size=224, patch_size=4, num_classes=1000, dim=96, heads=3, num_hierarchies=3,
+            block_repeats=(2, 2, 8))
+ZOO3_FAMILIES = ("crossformer", "nest")
+# Kernel 6 at CrossFormer's eight window shapes: (what, windows a sample, S,
+# C), heads of 32; every one on the o-tile variant (window_attention.plan_for).
+CROSSFORMER_WINDOWS = (
+    ("stage 0 SDA", 64, 49, 64), ("stage 0 LDA", 49, 64, 64),
+    ("stage 1 SDA", 16, 49, 128), ("stage 1 LDA", 49, 16, 128),
+    ("stage 2 SDA", 4, 49, 256), ("stage 2 LDA", 49, 4, 256),
+    ("stage 3 SDA", 1, 49, 512), ("stage 3 LDA", 49, 1, 512))
+CROSSFORMER_ROUTE = "o-tile"
+# Kernel 2 at the slice's seven MLP shapes, as ConvMLP calls it: (what, tokens
+# a sample, D, F, eps); NesT's tokens are its blocks' (16, 4, 1 x 196).
+ZOO3_MLP = tuple((f"CrossFormer stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
+                 enumerate(((3136, 64), (784, 128), (196, 256), (49, 512)))) + tuple(
+    (f"NesT level {li}", n, c, 4 * c, 1e-5) for li, (n, c) in
+    enumerate(((3136, 96), (784, 192), (196, 384))))
+# Kernel 3 at NesT's three levels: (what, blocks a sample, tokens, heads), heads
+# of 32: the core's streamed variant (attn90::variant: D < 64).
+NEST_QKV = (("NesT level 0", 16, 196, 3), ("NesT level 1", 4, 196, 6),
+            ("NesT level 2", 1, 196, 12))
+NEST_CORE = "attention_sm90_streamed"
+
 # The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
 # against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
 # sample) and SPT's (K 3840 -> 1024, 256 tokens): (what, rows a sample, K, N).
@@ -998,6 +1053,87 @@ def vit_small_datasets_tree(c: dict, seed: int) -> dict:
         encoder["attn_0"]["log_temperature"] = log_tau[0]
     params["encoder"] = encoder
     return {"params": {**params, **_head(w, c)}}
+
+
+def _dpb(w, depth, dim, out):
+    """A DynamicPositionBias tree: ``fc0..fc3`` Dense (2 -> dim/4 -> ... ->
+    ``out``), ``ln0..ln2`` bias-free LayerNorms."""
+    h = dim // 4
+    tree = {f"fc{i}": {"kernel": w.lecun(depth, a, b), "bias": w.zeros(depth, b)}
+            for i, (a, b) in enumerate(((2, h), (h, h), (h, h), (h, out)))}
+    tree.update({f"ln{i}": {"scale": w.ones(depth, h)} for i in range(3)})
+    return tree
+
+
+def crossformer_tree(c: dict, seed: int) -> dict:
+    """A CrossFormer variables tree of config ``c`` (``CrossFormer``'s
+    keyword arguments; its defaults for the rest) in ``vit_tpu``'s layout,
+    drawn as ``init`` draws it: each stage's cross-scale embedding (HWIO conv
+    kernels, the channels halved from scale to scale), its blocks stacked
+    under ``stage_{s}`` when deeper than 1, each attention's raw parameters
+    and DPB (one output with ``reference_quirks``, else one a head of 32)."""
+    import inspect
+
+    from vit_tpu_torch.models import CrossFormer
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(CrossFormer).parameters.items()}, **c}
+    params, dim_in = {}, 3
+    for s, (dim, depth) in enumerate(zip(c["dim"], c["depth"])):
+        kernels = sorted(c["cross_embed_kernel_sizes"][s])
+        dims = [dim // 2 ** (i + 1) for i in range(len(kernels))]
+        dims[-1] = dim - sum(dims[:-1])
+        params[f"embed_{s}"] = {f"conv_{i}": {"kernel": w.lecun_conv(k, k, dim_in, d),
+                                              "bias": w.zeros(d)}
+                                for i, (k, d) in enumerate(zip(kernels, dims))}
+        heads = dim // 32
+        block = {}
+        for name in ("sda", "mlp1", "lda", "mlp2"):
+            if name.startswith("mlp"):
+                block[name] = {"ff": _ff(w, depth, dim, 4 * dim)}
+            else:
+                block[name] = {**_raw_attn(w, depth, dim, heads * 32),
+                               "dpb": _dpb(w, depth, dim, 1 if c["reference_quirks"] else heads)}
+        params[f"stage_{s}"] = block if depth > 1 else _squeeze_depth(block)
+        dim_in = dim
+    params["head"] = {"kernel": w.lecun(dim_in, c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def nest_tree(c: dict, seed: int) -> dict:
+    """A NesT variables tree of config ``c`` in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: never stacked; widths and heads doubling from one
+    hierarchy to the next, a learned ``(1, side, side, dim)`` position table
+    a hierarchy, bias-free qkv and out Dense kernels, an ``agg_{li}``
+    (HWIO 3x3 conv, LayerNorm) between hierarchies."""
+    from vit_tpu_torch.core.utils import cast_tuple
+
+    w = _Init(seed)
+    n_h, p = c["num_hierarchies"], c["patch_size"]
+    side = c["image_size"] // p // 2 ** (n_h - 1)
+    dims = [2**i * c["dim"] for i in range(n_h)]
+    repeats = cast_tuple(c["block_repeats"], n_h)
+    params = {"proj": {"kernel": w.lecun(p * p * 3, dims[0]),
+                       "bias": w.zeros(dims[0])}}
+    for li, dim in enumerate(dims):
+        params[f"pos_emb_{li}"] = w.tokens(1, side, side, dim)
+        for r in range(repeats[li]):
+            params[f"attn_{li}_{r}"] = {
+                "norm": {"scale": w.ones(dim), "bias": w.zeros(dim)},
+                "to_qkv": {"kernel": w.lecun(dim, 3 * dim)},
+                "to_out": {"kernel": w.lecun(dim, dim)}}
+            params[f"ff_{li}_{r}"] = {"ff": _squeeze_depth(_ff(w, 1, dim, c.get("mlp_mult", 4)
+                                                               * dim))}
+        if li + 1 < n_h:
+            params[f"agg_{li}"] = {"conv": {"kernel": w.lecun_conv(3, 3, dim, dims[li + 1]),
+                                            "bias": w.zeros(dims[li + 1])},
+                                   "norm": {"scale": w.ones(dims[li + 1]),
+                                            "bias": w.zeros(dims[li + 1])}}
+    params["head_norm"] = {"scale": w.ones(dims[-1]), "bias": w.zeros(dims[-1])}
+    params["head"] = {"kernel": w.lecun(dims[-1], c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
 
 
 # -- phases -------------------------------------------------------------------
@@ -1831,15 +1967,41 @@ def kv_fault_twin(fault, q, k, v, bias=None, mask_self=False, block_k=64):
     return (acc / l).to(v.dtype)
 
 
-def window_fault_twin(args, heads, bias=None):
-    """The window twin with windows attending across each other: pairs of
-    windows as one window of 2S tokens, the bias tiled over the pair (the
-    TPU kernel's packing without its block-diagonal mask). An even NW."""
+WINDOW_FAULTS = ("windows attending across each other", "padded keys unmasked",
+                 "bias transposed", "per-head bias read as head 0's")
+
+
+def window_fault_twin(args, heads, bias=None, fault=WINDOW_FAULTS[0]):
+    """The window twin with one of WINDOW_FAULTS planted: pairs of windows as
+    one window of 2S tokens, the bias tiled over the pair (the TPU kernel's
+    packing without its block-diagonal mask; an even NW); each window's keys
+    padded with zero k and v rows to the kernel's 16-row tiles and left
+    unmasked (S not a multiple of 16; LN eps 1e-5, the default scale); the
+    bias added transposed; or a per-head bias ``[H, S, S]`` read as head 0's
+    by every head."""
     wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
     nw, s, c = args[0].shape
-    tiled = None if bias is None else bias.reshape(-1, s, s).repeat(1, 2, 2)
-    out = wa.xla_window_attention_block(args[0].reshape(nw // 2, 2 * s, c), *args[1:], heads, tiled)
-    return out.reshape(nw, s, c)
+    if fault == WINDOW_FAULTS[0]:
+        tiled = None if bias is None else bias.reshape(-1, s, s).repeat(1, 2, 2)
+        out = wa.xla_window_attention_block(args[0].reshape(nw // 2, 2 * s, c), *args[1:], heads,
+                                            tiled)
+        return out.reshape(nw, s, c)
+    if fault == WINDOW_FAULTS[2]:
+        return wa.xla_window_attention_block(*args, heads, bias.reshape(-1, s, s).mT)
+    if fault == WINDOW_FAULTS[3]:
+        return wa.xla_window_attention_block(*args, heads, bias.reshape(-1, s, s)[:1])
+    xw, ln_scale, ln_bias, wqkv, wout, bout = args
+    hd = wqkv.shape[1] // 3
+    d, pad = hd // heads, -s % 16
+    xn = wa._ln_f32(xw.float(), ln_scale.float(), ln_bias.float(), 1e-5).to(wqkv.dtype)
+    split = lambda t: t.reshape(nw, s, heads, d).transpose(1, 2)
+    q, k, v = (split(t) for t in wa._mm(xn, wqkv, wqkv.dtype).split(hd, dim=-1))
+    k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    sc = wa._mm(q, k.mT) * d**-0.5
+    if bias is not None:
+        sc = sc + F.pad(bias.reshape(1, -1, s, s).float(), (0, pad))
+    o = wa._mm(wa._softmax(sc).to(v.dtype), v, v.dtype).transpose(1, 2).reshape(nw, s, hd)
+    return (wa._mm(o.to(wout.dtype), wout) + bout.float()).to(xw.dtype)
 
 
 def _planted(name, bad, ref, fails):
@@ -2031,12 +2193,15 @@ def library_reattention(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, 
     return torch.matmul(merge_heads(torch.matmul(r.bfloat16(), v)), wout) + bout + x
 
 
-def library_window_block(x, ln_scale, ln_bias, wqkv, wout, bout, heads):
+def library_window_block(x, ln_scale, ln_bias, wqkv, wout, bout, heads, bias=None):
     """The window block from library calls: F.layer_norm, cuBLAS bf16 GEMMs,
-    SDPA over the windows (no residual)."""
+    SDPA over the windows with the bias ``[1|H, S, S]`` as its ``attn_mask``
+    (no residual)."""
     dim = x.shape[-1]
     xn = F.layer_norm(x, (dim,), ln_scale, ln_bias, 1e-5)
-    o = merge_heads(F.scaled_dot_product_attention(*split_heads(torch.matmul(xn, wqkv), heads)))
+    q, k, v = split_heads(torch.matmul(xn, wqkv), heads)
+    mask = None if bias is None else bias.reshape(-1, *bias.shape[-2:]).to(q.dtype)
+    o = merge_heads(F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
     return torch.matmul(o, wout) + bout
 
 
@@ -2951,6 +3116,185 @@ def phase_zoo2(dev, smi, requests):
     qkv_attention_op_line("PatchMerger", 128, ZOO2_QKV[0][1], gen, smi)
 
 
+# -- the zoo's third slice: CrossFormer and NesT --------------------------------
+
+
+def window_plan_c(s, c, heads, d):
+    """The C side's plan of a window shape (``vt_window_attention_plan``)."""
+    import ctypes
+
+    from vit_tpu_torch.ops import _build
+
+    wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+    got = (ctypes.c_int * 3)()
+    require(_build.load_library().vt_window_attention_plan(
+        s, c, heads, d, ctypes.cast(got, ctypes.c_void_p)) == 0, "vt_window_attention_plan failed")
+    return wa.WindowPlan(wa.VARIANTS[got[0]], got[1], got[2])
+
+
+def phase_zoo3_kernels(dev):
+    """Kernel 6 at CrossFormer's eight window shapes (CROSSFORMER_WINDOWS;
+    heads of 32) at batch 8 and 128 with a per-head bias ``[H, S, S]``, and at
+    stage 0's SDA with the quirk mode's shared ``[1, S, S]``; each on
+    CROSSFORMER_ROUTE (the C plan equal to ``plan_for``'s), one launch of the
+    fused kernel. The twins with a fault planted must fail the bound: the
+    padded keys unmasked (S 1, 4 and 49), the bias transposed and a per-head
+    bias read as head 0's (S 4 and 49), windows attending across each other
+    (S 49). Kernel 3 at NesT's three levels (NEST_QKV), batch 8 and 128, on
+    NEST_CORE. Kernel 2 at ZOO3_MLP (``phase_zoo_kernels``). Each window
+    shape's kernel and twin times at batch 128."""
+    from vit_tpu_torch.tools.ab_attention import call_ms, launch_ms
+
+    wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+    fails = []
+    for what, per, sw, c in CROSSFORMER_WINDOWS:
+        heads = c // 32
+        plan = wa.plan_for(sw, c, heads, 32)
+        c_plan = window_plan_c(sw, c, heads, 32)
+        print(f"window_attention_block CrossFormer {what} (S {sw}, C {c}, {heads} x 32): plan "
+              f"{tuple(plan)}, C plan {tuple(c_plan)}")
+        require(plan.route == CROSSFORMER_ROUTE and tuple(c_plan) == tuple(plan),
+                f"CrossFormer {what}: plan {tuple(plan)}, C plan {tuple(c_plan)}, not "
+                f"{CROSSFORMER_ROUTE}")
+        for b in (8, 128):
+            inp = attn_inputs(gen, b * per, sw, c, heads, 32, torch.bfloat16, dev)
+            a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+            biases = [r(heads, sw, sw)] + ([r(1, sw, sw)] if what == "stage 0 SDA" else [])
+            for bias in biases:
+                name = (f"window_attention_block CrossFormer {what} batch {b} ({b * per} windows "
+                        f"of {sw}) bias {list(bias.shape)}")
+                out = wa.fused_window_attention_block(*a, heads, bias)
+                ref = wa.xla_window_attention_block(*a, heads, bias)
+                torch.cuda.synchronize()
+                check_close(name, out, ref, None)
+                if b == 128 and bias.shape[0] == heads:
+                    kern = cuda_ms(lambda: wa.fused_window_attention_block(*a, heads, bias))
+                    plain = cuda_ms(lambda: wa.xla_window_attention_block(*a, heads, bias),
+                                    iters=3, warmup=1)
+                    print(f"{name}: kernel {kern:.4f} ms, twin {plain:.4f} ms [{nvidia_smi()}]")
+                if b == 8 and bias.shape[0] == heads:
+                    faults = [WINDOW_FAULTS[1]] if sw % 16 else []
+                    if sw > 1:
+                        faults += [WINDOW_FAULTS[2], WINDOW_FAULTS[3]]
+                    if sw == 49:
+                        faults.append(WINDOW_FAULTS[0])
+                    for fault in faults:
+                        _planted(f"{name}: the twin with {fault}",
+                                 window_fault_twin(a, heads, bias, fault), ref, fails)
+                del out, ref
+            if b == 8:
+                names = kernel_names(call_ms(lambda: wa.fused_window_attention_block(
+                    *a, heads, biases[0]), iters=3))
+                print(f"window_attention_block CrossFormer {what}: launches {' | '.join(names)}")
+                require(len(names) == 1 and "window_block_fused" in names[0],
+                        f"CrossFormer {what}: launched {names}, not one window_block_fused")
+            del inp, a
+    for what, blocks, n, heads in NEST_QKV:
+        for b in (8, 128):
+            qkv = torch.randn(b * blocks, n, 3 * heads * 32, generator=gen, device=dev).bfloat16()
+            out = qa.fused_qkv_attention(qkv, heads, scale=32**-0.5)
+            ref = qa.xla_qkv_attention(qkv, heads, scale=32**-0.5)
+            torch.cuda.synchronize()
+            name = f"qkv_attention {what} ([{b * blocks}, {n}, {3 * heads * 32}], {heads} x 32)"
+            check_close(f"{name} batch {b}", out, ref, None)
+            names = kernel_names(launch_ms(lambda: qa.fused_qkv_attention(qkv, heads), 1, iters=3))
+            print(f"{name} batch {b}: launches {' | '.join(names)}")
+            require(NEST_CORE in names[0], f"{name}: launched {names}, not {NEST_CORE}")
+            del qkv, out, ref
+    require(not fails, "; ".join(fails))
+    phase_zoo_kernels(dev, (), ZOO3_MLP, (), SEED + 28)
+
+
+def build_zoo3_models(dev):
+    """The CrossFormer and NesT presets."""
+    from vit_tpu_torch.models import CrossFormer, NesT
+
+    return build_family_models({
+        "crossformer": (lambda dt: CrossFormer(**CROSSFORMER, dtype=dt, device=dev),
+                        lambda: crossformer_tree(CROSSFORMER, SEED + 29)),
+        "nest": (lambda dt: NesT(**NEST, dtype=dt, device=dev),
+                 lambda: nest_tree(NEST, SEED + 30))})
+
+
+def window_block_op_line(what, nw, sw, c, heads, gen, smi):
+    """Kernel 6 at ``[nw, sw, c]`` (heads of 32) with a per-head bias, bf16:
+    its time, its twin's, its library composite's (LayerNorm, cuBLAS, SDPA
+    with the bias as its mask, cuBLAS) and its bound, and its launches in
+    device time. Returns (kernel, twin, library, (bound, bound_by)) in ms."""
+    wa = importlib.import_module("vit_tpu_torch.ops.window_attention")
+    from vit_tpu_torch.tools.ab_attention import call_ms
+
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    bf = lambda t: t.bfloat16()
+    d, hd, rows = 32, heads * 32, nw * sw
+    with torch.inference_mode():
+        inp = attn_inputs(gen, nw, sw, c, heads, d, torch.bfloat16, gen.device)
+        a = [inp[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout")]
+        bias = torch.randn(heads, sw, sw, generator=gen, device=gen.device)
+        lib_a = [a[0], bf(a[1]), bf(a[2]), a[3], a[4], bf(a[5])]
+        kern = cuda_ms(lambda: wa.fused_window_attention_block(*a, heads, bias), iters=10)
+        plain = cuda_ms(lambda: wa.xla_window_attention_block(*a, heads, bias), iters=3, warmup=1)
+        lib = cuda_ms(lambda: library_window_block(*lib_a, heads, bias), iters=10)
+        bnd = bound(2 * rows * c * 3 * hd + 4 * nw * hd * sw * sw + 2 * rows * hd * c,
+                    nbytes=size(*a, bias) + size(a[0]))
+        split = call_ms(lambda: wa.fused_window_attention_block(*a, heads, bias))
+        plan = wa.plan_for(sw, c, heads, d)
+    print(f"op window_attention_block CrossFormer {what} ([{nw}, {sw}, {c}], {heads} x {d}, bias "
+          f"[{heads}, {sw}, {sw}]) bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library "
+          f"{lib:.4f} ms (LayerNorm + cuBLAS + SDPA with the bias as its mask + cuBLAS), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / kern:.1%} of it); device "
+          + ", ".join(f"{n} {t:.4f} ms" for n, (_, t) in zip(kernel_names(split), split))
+          + f" ({plan.route}, {plan.groups} windows a block, {plan.smem_bytes} B) [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def nest_qkv_op_line(what, b, blocks, n, heads, gen, smi):
+    """Kernel 3 at ``[b * blocks, n, 3 * heads * 32]``, bf16: its time, its
+    twin's, SDPA's and its bound. Returns (kernel, twin, library, (bound,
+    bound_by)) in ms."""
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    rows, hd = b * blocks, heads * 32
+    with torch.inference_mode():
+        qkv = torch.randn(rows, n, 3 * hd, generator=gen, device=gen.device).bfloat16()
+        q, k, v = split_heads(qkv, heads)
+        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads), iters=10)
+        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=3, warmup=1)
+        lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v)), iters=10)
+        bnd = bound(4 * rows * hd * n * n, nbytes=size(qkv) + rows * n * hd * 2)
+        print(f"op qkv_attention {what} ([{rows}, {n}, {3 * hd}], {heads} x 32) batch {b} bf16: "
+              f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
+              f"{sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"{bnd[0] / kern:.1%} of it) [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def phase_zoo3(dev, smi, requests):
+    """Phase 13: the kernels at CrossFormer's and NesT's shapes
+    (``phase_zoo3_kernels``); both presets served (serve_families); the op
+    lines (kernel 6 at stage 0's SDA and stage 3's LDA, kernel 3 at NesT's
+    level 0, kernel 2 at CrossFormer's stage 0 and NesT's level 0, batch
+    128)."""
+    t_phase = time.perf_counter()
+    phase_zoo3_kernels(dev)
+    t0 = time.perf_counter()
+    models = build_zoo3_models(dev)
+    print(f"zoo slice 3 weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    serve_families(models, ZOO3_FAMILIES, dev, smi, requests)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    for what, per, sw, c in (CROSSFORMER_WINDOWS[0], CROSSFORMER_WINDOWS[-1]):
+        window_block_op_line(what, 128 * per, sw, c, c // 32, gen, smi)
+    nest_qkv_op_line(*NEST_QKV[0][:1], 128, *NEST_QKV[0][1:], gen, smi)
+    for what, n, dim, f, eps in (ZOO3_MLP[0], ZOO3_MLP[4]):
+        fused_mlp_op_line(what, 128, n, dim, f, eps, gen, smi)
+    print(f"phase 13 (CrossFormer and NesT) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -3075,6 +3419,9 @@ def main() -> int:
 
     # 12. the zoo's second slice: the CrossViT, PatchMerger-ViT and small-dataset ViT presets
     phase_zoo2(dev, smi, requests)
+
+    # 13. the zoo's third slice: the CrossFormer and NesT presets
+    phase_zoo3(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -1,11 +1,14 @@
 """Module layer of the port (mirrors ``vit_tpu/nn``)."""
 
 from vit_tpu_torch.nn.attention import Attention, mha_tokens  # noqa: F401
+from vit_tpu_torch.nn.bias import DynamicPositionBias  # noqa: F401
 from vit_tpu_torch.nn.blocks import EncoderBlock, FeedForward, Transformer  # noqa: F401
 from vit_tpu_torch.nn.conv import (  # noqa: F401
     PEG,
+    Aggregate,
     Conv,
     ConvMLP,
+    CrossEmbedLayer,
     DepthWiseConv2d,
     PatchEmbedding,
     Pool,

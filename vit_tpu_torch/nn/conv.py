@@ -1,7 +1,7 @@
 """Convolutional modules over NHWC feature maps (port of ``vit_tpu/nn/conv.py``:
 ``PEG``, ``PatchEmbedding``, ``DepthWiseConv2d`` without BatchNorm, PiT's
-``Pool`` and the LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv``
-container).
+``Pool``, CrossFormer's ``CrossEmbedLayer``, NesT's ``Aggregate`` and the
+LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv`` container).
 
 The convolutions lie outside every TPU kernel (XLA ran them on the TPU), so
 they are ``F.conv2d``; ``ConvMLP`` is the fused MLP kernel over the token
@@ -18,7 +18,7 @@ from torch import nn
 
 from vit_tpu_torch.core.utils import cdiv, pair
 from vit_tpu_torch.nn.blocks import FeedForward
-from vit_tpu_torch.nn.embed import Dense
+from vit_tpu_torch.nn.embed import Dense, LayerNorm
 
 
 def same_padding(n: int, k: int, s: int) -> tuple:
@@ -29,7 +29,9 @@ def same_padding(n: int, k: int, s: int) -> tuple:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` over ``[B, H, W, C]``, SAME padding. The kernel is
+    """flax ``nn.Conv`` over ``[B, H, W, C]``: ``padding`` "SAME" (the
+    default) or flax's explicit ``[(low, high), (low, high)]`` zeros of the
+    two spatial axes. The kernel is
     kept in PyTorch's OIHW layout (``from_jax_params`` turns flax's HWIO).
     ``dtype`` (None: fp32, what flax infers from fp32 parameters) is the
     computation dtype: input and kernel are cast to it, the convolution sums
@@ -43,10 +45,13 @@ class Conv(nn.Module):
     cudnn.allow_tf32``: the caller turns TF32 off for an fp32 reference."""
 
     def __init__(self, features_in: int, features: int, kernel_size, *, strides=1,
-                 feature_group_count: int = 1, use_bias: bool = True,
+                 padding="SAME", feature_group_count: int = 1, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.kernel_size, self.strides = pair(kernel_size), pair(strides)
+        if padding != "SAME" and len(padding) != 2:
+            raise ValueError(f"padding must be 'SAME' or two (low, high) pairs, got {padding!r}")
+        self.padding = padding
         self.groups = feature_group_count
         self.dtype = dtype or torch.float32
         kh, kw = self.kernel_size
@@ -57,7 +62,10 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x.shape
         (kh, kw), (sh, sw) = self.kernel_size, self.strides
-        ph, pw = same_padding(h, kh, sh), same_padding(w, kw, sw)
+        if self.padding == "SAME":
+            ph, pw = same_padding(h, kh, sh), same_padding(w, kw, sw)
+        else:
+            ph, pw = (tuple(p) for p in self.padding)
         xc = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
         if any(ph + pw):
             xc = F.pad(xc, (*pw, *ph))
@@ -141,6 +149,54 @@ class PatchEmbedding(nn.Module):
         b, h, w, c = x.shape
         x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
         return self.proj(x.reshape(b, h // p, w // p, c * p * p))
+
+
+class CrossEmbedLayer(nn.Module):
+    """CrossFormer's cross-scale embedding: convs of the sorted
+    ``kernel_sizes`` at one ``stride`` (``conv_{i}``), the channels halved
+    from scale to scale (the last conv takes the remainder), each padded
+    ``((k - s) // 2, (k - s + 1) // 2)`` explicitly (not SAME), the outputs
+    concatenated on channels."""
+
+    def __init__(self, dim_in: int, dim: int, kernel_sizes, stride: int = 2, *,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
+        super().__init__()
+        kernels = sorted(kernel_sizes)
+        dims = [dim // 2 ** (i + 1) for i in range(len(kernels))]
+        dims[-1] = dim - sum(dims[:-1])
+        for i, (k, d) in enumerate(zip(kernels, dims)):
+            pad = ((k - stride) // 2, (k - stride + 1) // 2)
+            self.add_module(f"conv_{i}", Conv(dim_in, d, k, strides=stride, padding=[pad, pad],
+                                              dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([conv(x) for conv in self.children()], dim=-1)
+
+
+def max_pool_same(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")`` over
+    ``[B, H, W, C]``: SAME's pads (the odd pixel at the end: ``(0, 1)`` at 56
+    and 28) filled with -inf. ``F.max_pool2d(padding=...)`` pads both sides
+    alike, which would shift every window."""
+    _, h, w, _ = x.shape
+    (pt, pb), (pl, pr) = same_padding(h, 3, 2), same_padding(w, 3, 2)
+    xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(xc, 3, 2).permute(0, 2, 3, 1)
+
+
+class Aggregate(nn.Module):
+    """NesT's block aggregation: a 3x3 SAME ``conv``, a flax LayerNorm
+    (``norm``, flax's default eps 1e-6) in ``dtype``, then a 3x3 max pool of
+    stride 2, SAME (``max_pool_same``)."""
+
+    def __init__(self, dim_in: int, dim: int, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.conv = Conv(dim_in, dim, 3, dtype=dtype, device=device)
+        self.norm = LayerNorm(dim, eps=1e-6, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_same(self.norm(self.conv(x)))
 
 
 class ConvMLP(nn.Module):

@@ -54,6 +54,8 @@ from vit_tpu_torch.ops.window_attention import (
     xla_window_attention_block,
 )
 from vit_tpu_torch.ops.windows import (  # noqa: F401
+    block_partition,
+    block_unpartition,
     dilated_partition,
     dilated_unpartition,
     window_partition,
@@ -101,6 +103,8 @@ __all__ = [
     "window_unpartition",
     "dilated_partition",
     "dilated_unpartition",
+    "block_partition",
+    "block_unpartition",
 ]
 
 _backend_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(

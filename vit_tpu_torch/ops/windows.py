@@ -1,7 +1,9 @@
-"""Window partitions and their inverses (port of ``vit_tpu/ops/windows.py:16-53``).
+"""Window and block partitions and their inverses (port of
+``vit_tpu/ops/windows.py:16-72``).
 
 Layout only (``reshape`` / ``permute`` / ``contiguous``): windows fold into
-the leading axis, so the window attention block sees ``[B * windows, S, C]``.
+the leading axis, so the window attention block sees ``[B * windows, S, C]``;
+NesT's blocks keep their spatial layout, ``[B * blocks, H/n, W/n, C]``.
 """
 
 from __future__ import annotations
@@ -42,3 +44,20 @@ def dilated_unpartition(x: torch.Tensor, wsz: int, h: int, w: int) -> torch.Tens
     c = x.shape[-1]
     x = x.reshape(b, gh, gw, wsz, wsz, c).permute(0, 3, 1, 4, 2, 5)
     return x.reshape(b, h, w, c)
+
+
+def block_partition(x: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """NesT's block split ``[B, H, W, C] -> [B*n*n, H/n, W/n, C]``: each
+    block keeps its spatial layout."""
+    b, h, w, c = x.shape
+    bh, bw = h // n_blocks, w // n_blocks
+    x = x.reshape(b, n_blocks, bh, n_blocks, bw, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * n_blocks * n_blocks, bh, bw, c)
+
+
+def block_unpartition(x: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Inverse of :func:`block_partition`."""
+    bn, bh, bw, c = x.shape
+    b = bn // (n_blocks * n_blocks)
+    x = x.reshape(b, n_blocks, n_blocks, bh, bw, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, n_blocks * bh, n_blocks * bw, c)
