@@ -143,7 +143,27 @@ Runs, in order, and exits non-zero at the first failure:
      latency; device time by kernel of one forward at batch 128; the window
      kernel at stage 0's SDA and stage 3's LDA, the fused-qkv kernel at
      NesT's level 0 and the MLP kernel at the first stage of each, batch
-     128, against their twins, library composites and bounds.
+     128, against their twins, library composites and bounds;
+ 14. the zoo's fourth slice: the kv-blocked flash kernel at the
+     scalable_vit preset's IWSA stage 0 (one 4,096-token window, heads of
+     32, through ``ops.qkv_attention`` on fused rows) and its SSA stages 0-2
+     (4096 / 1024 / 256 queries against 64 conv-reduced keys, key width 40,
+     through ``mha_tokens``), with the C plan and the launches checked and
+     the twin with alpha dropped shown to fail the bound; the flash kernel
+     at SSA stage 3; the fused-qkv kernel at IWSA's 1,024-, 256- and
+     64-token maps and region_vit's eight shapes (50-token joint windows
+     with a [1, 4, 50, 50] bias, 64 to 1 region tokens), with the twins with
+     the padded keys unmasked or the bias transposed shown to fail; the MLP
+     kernel at the slice's eight shapes; each at batch 8 and 128 against its
+     twin; both presets (random weights from a seed, bf16) served through
+     ``BatchingServer`` with the launch counts per forward (ScalableViT 26
+     kv-blocked, 2 flash, 24 fused-qkv, 52 MLP; RegionViT 28 fused-qkv, 14
+     MLP; no other kernel); logits against the plain fp32 path beside the
+     plain bf16 control, top-1 agreement; img/s, p50, device time by kernel;
+     op lines for kernels 5, 4, 3 and 2 at batch 128.
+The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
+flags (``nn.embed.fp32_bf16_sums``), so this script leaves
+``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
 Then one JSON line describes each kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; imports no JAX.
 """
@@ -281,11 +301,19 @@ FAMILY_LAUNCHES = {
     "crossformer": {"window_attention_block": 28, "fused_mlp": 28, "attention_block": 0,
                     "qkv_attention": 0, "flash_attention": 0},
     "nest": {"qkv_attention": 12, "fused_mlp": 12, "attention_block": 0},
+    # the fourth zoo slice: ScalableViT's 26 blocks (SSA on kernel 5 at stages
+    # 0-2 and kernel 4 at stage 3; IWSA on kernel 5 at stage 0, kernel 3 after;
+    # two MLPs each); RegionViT's 14 layers (a regional and a joint pass of one
+    # attention on kernel 3, one MLP each)
+    "scalable_vit": {"flash_attention_kv_blocked": 26, "flash_attention": 2, "qkv_attention": 24,
+                     "fused_mlp": 52, "attention_block": 0, "window_attention_block": 0},
+    "region_vit": {"flash_attention_kv_blocked": 0, "flash_attention": 0, "qkv_attention": 28,
+                   "fused_mlp": 14, "attention_block": 0, "window_attention_block": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
               "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
               "patch_merger_vit": 256, "vit_small_datasets": 256, "crossformer": 224,
-              "nest": 224}
+              "nest": 224, "scalable_vit": 256, "region_vit": 224}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -375,11 +403,49 @@ ZOO3_MLP = tuple((f"CrossFormer stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
 NEST_QKV = (("NesT level 0", 16, 196, 3), ("NesT level 1", 4, 196, 6),
             ("NesT level 2", 1, 196, 12))
 NEST_CORE = "attention_sm90_streamed"
+# The zoo's fourth slice at the presets of vit_tpu/models/presets.py:128-138
+# (scalable_vit @256, region_vit @224), bf16. ScalableViT's SSA attends 4096 /
+# 1024 / 256 / 64 queries to 64 keys reduced by convs (key width 40, value
+# width 32; 32 and 32 at stage 3), its IWSA 4096 / 1024 / 256 / 64 tokens in one
+# window a map, heads of 32 throughout. RegionViT's one attention a layer (4
+# heads of 32) runs over 64 / 16 / 4 / 1 region tokens, then over windows of 49
+# local tokens behind their region token (50) with a [1, 4, 50, 50] bias.
+SCALABLE_VIT = dict(num_classes=1000, dim=64, heads=(2, 4, 8, 16), depth=(2, 2, 20, 2),
+                    ssa_dim_key=(40, 40, 40, 32), reduction_factor=(8, 4, 2, 1),
+                    window_size=(64, 32, None, None))
+REGION_VIT = dict(dim=(64, 128, 256, 512), depth=(2, 2, 8, 2), window_size=7, num_classes=1000,
+                  tokenize_local_3_conv=False, use_peg=False)
+ZOO4_FAMILIES = ("scalable_vit", "region_vit")
+# Kernel 5 at the slice's four shapes: (what, tokens a sample, keys, heads, D,
+# Dv); IWSA's through ops.qkv_attention on fused rows (the 4,096-token window
+# fails qkv_kernel_fits), SSA's through mha_tokens (D 40 fails core_fits).
+ZOO4_KV = (("IWSA stage 0", 4096, 4096, 2, 32, 32), ("SSA stage 0", 4096, 64, 2, 40, 32),
+           ("SSA stage 1", 1024, 64, 4, 40, 32), ("SSA stage 2", 256, 64, 8, 40, 32))
+ZOO4_KV_VARIANT = "registers"  # flash_attention.kv_blocked_layout at every ZOO4_KV shape
+# Kernel 4 at SSA stage 3: (what, tokens, keys, heads, D, Dv).
+ZOO4_FLASH = ("SSA stage 3", 64, 64, 16, 32, 32)
+# Kernel 3 at the slice's eleven shapes: (what, windows a sample, tokens,
+# heads, with the bias), heads of 32.
+ZOO4_QKV = (("IWSA stage 1", 1, 1024, 4, False), ("IWSA stage 2", 1, 256, 8, False),
+            ("IWSA stage 3", 1, 64, 16, False)) + tuple(
+    (f"RegionViT stage {s} {kind}", per, n, 4, kind == "joint")
+    for s, (wins, regions) in enumerate(((64, 64), (16, 16), (4, 4), (1, 1)))
+    for kind, per, n in (("joint", wins, 50), ("regional", 1, regions)))
+ZOO4_CORE = "attention_sm90_streamed"  # attn90::variant at D 32, every ZOO4 shape of kernels 3, 4
+# Kernel 2 at the slice's eight MLP shapes: (what, tokens a sample, D, F, eps);
+# RegionViT's are its joint tokens, 50 a window.
+ZOO4_MLP = tuple((f"ScalableViT stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
+                 enumerate(((4096, 64), (1024, 128), (256, 256), (64, 512)))) + tuple(
+    (f"RegionViT stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
+    enumerate(((3200, 64), (800, 128), (200, 256), (50, 512))))
 
 # The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
 # against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
-# sample) and SPT's (K 3840 -> 1024, 256 tokens): (what, rows a sample, K, N).
-DENSE_SHAPES = (("T2T proj", 196, 11907, 512), ("SPT proj", 256, 3840, 1024))
+# sample), SPT's (K 3840 -> 1024, 256 tokens) and RegionViT's region_proj (K
+# 2352 -> 64, 64 regions): (what, rows a sample, K, N). At batch 1 these are
+# the shapes where cuBLAS would split K.
+DENSE_SHAPES = (("T2T proj", 196, 11907, 512), ("SPT proj", 256, 3840, 1024),
+                ("RegionViT region_proj", 64, 2352, 64))
 
 # Kernels 7 and 8 against their twins, stage by stage (check_head_mix_block),
 # each stage run by the twin on the kernel's own input to it:
@@ -716,6 +782,10 @@ class _Init:
 
     def tokens(self, *shape):
         return _trunc_normal(self.rng, shape, 0.02)
+
+    def embed(self, num, features):
+        """A flax ``nn.Embed`` table: its fan-in is ``features``."""
+        return _trunc_normal(self.rng, (num, features), features**-0.5 / 0.87962566103423978)
 
     def normal(self, *shape):
         return self.rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
@@ -1131,6 +1201,122 @@ def nest_tree(c: dict, seed: int) -> dict:
                                    "norm": {"scale": w.ones(dims[li + 1]),
                                             "bias": w.zeros(dims[li + 1])}}
     params["head_norm"] = {"scale": w.ones(dims[-1]), "bias": w.zeros(dims[-1])}
+    params["head"] = {"kernel": w.lecun(dims[-1], c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def _ln(w, depth, dim, bias=True):
+    return {"scale": w.ones(depth, dim), **({"bias": w.zeros(depth, dim)} if bias else {})}
+
+
+def _conv(w, depth, k, c_in, c_out, bias=True):
+    """A flax Conv: an HWIO kernel and its bias."""
+    return {"kernel": w.lecun_conv(depth, k, k, c_in, c_out),
+            **({"bias": w.zeros(depth, c_out)} if bias else {})}
+
+
+def _scalable_block(w, depth, dim, heads, sk, sv, r, ik, iv, mult):
+    """One ScalableViT block (``ssa``, ``ff1``, ``iwsa``, ``ff2``), each leaf
+    with a leading depth axis."""
+    return {
+        "ssa": {"norm": _ln(w, depth, dim), "to_q": {"kernel": w.lecun(depth, dim, sk * heads)},
+                "to_k": _conv(w, depth, r, dim, sk * heads, bias=False),
+                "to_v": _conv(w, depth, r, dim, sv * heads, bias=False),
+                "to_out": {"kernel": w.lecun(depth, sv * heads, dim), "bias": w.zeros(depth, dim)}},
+        "ff1": {"ff": _ff(w, depth, dim, mult * dim)},
+        "iwsa": {"norm": _ln(w, depth, dim), "to_q": {"kernel": w.lecun(depth, dim, ik * heads)},
+                 "to_k": {"kernel": w.lecun(depth, dim, ik * heads)},
+                 "to_v": {"kernel": w.lecun(depth, dim, iv * heads)},
+                 "lim": _conv(w, depth, 3, iv * heads, iv * heads),
+                 "to_out": {"kernel": w.lecun(depth, iv * heads, dim),
+                            "bias": w.zeros(depth, dim)}},
+        "ff2": {"ff": _ff(w, depth, dim, mult * dim)},
+    }
+
+
+def scalable_vit_tree(c: dict, seed: int) -> dict:
+    """A ScalableViT variables tree of config ``c`` (``ScalableViT``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: the patchify conv; each stage's first block unscanned
+    (``ssa_{s}_0`` ... ``ff2_{s}_0``) with its ``peg_{s}``, the other blocks
+    under ``stage_{s}`` (stacked when more than one), ``stage_norm_{s}``,
+    ``down_{s}``; HWIO conv kernels; the head."""
+    import inspect
+
+    from vit_tpu_torch.core.utils import cast_tuple
+    from vit_tpu_torch.models import ScalableViT
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(ScalableViT).parameters.items()
+            if p.default is not inspect.Parameter.empty}, **c}
+    n = len(c["depth"])
+    dims = [2**i * c["dim"] for i in range(n)]
+    per = [cast_tuple(c[k], n) for k in ("heads", "ssa_dim_key", "ssa_dim_value",
+                                         "reduction_factor", "iwsa_dim_key", "iwsa_dim_value")]
+    params = {"patchify": _squeeze_depth(_conv(w, 1, 7, c["channels"], c["dim"]))}
+    for s, dim in enumerate(dims):
+        block = lambda depth: _scalable_block(w, depth, dim, *(p[s] for p in per),
+                                              c["ff_expansion_factor"])
+        for name, sub in _squeeze_depth(block(1)).items():
+            params[f"{name}_{s}_0"] = sub
+        params[f"peg_{s}"] = {"proj": _squeeze_depth(_conv(w, 1, 3, 1, dim))}
+        rest = c["depth"][s] - 1
+        if rest:
+            params[f"stage_{s}"] = block(rest) if rest > 1 else _squeeze_depth(block(1))
+        params[f"stage_norm_{s}"] = _squeeze_depth(_ln(w, 1, dim))
+        if s + 1 < n:
+            params[f"down_{s}"] = {"conv": _squeeze_depth(_conv(w, 1, 3, dim, dims[s + 1]))}
+    params["head_norm"] = _squeeze_depth(_ln(w, 1, dims[-1]))
+    params["head"] = {"kernel": w.lecun(dims[-1], c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params}
+
+
+def region_vit_tree(c: dict, seed: int) -> dict:
+    """A RegionViT variables tree of config ``c`` (``RegionViT``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: the local tokenizer (one 8x8 conv, or three 3x3 convs
+    and two bias-free LayerNorms), ``region_proj``, each stage's Downsample
+    (two, or one shared ``down_{s}`` with ``reference_quirks``), optional
+    PEG, and its ``rel_pos_bias`` table and ``blocks`` (one attention with
+    raw parameters and one MLP a layer, stacked when deeper than 1); the
+    bias-free ``head_norm`` and the head."""
+    import inspect
+
+    from vit_tpu_torch.models import RegionViT
+    from vit_tpu_torch.models.region_vit import DIM_HEAD, HEADS
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(RegionViT).parameters.items()
+            if p.default is not inspect.Parameter.empty}, **c}
+    dims, d0 = c["dim"], c["dim"][0]
+    one = lambda tree: _squeeze_depth(tree)
+    if c["tokenize_local_3_conv"]:
+        params = {"local_conv0": one(_conv(w, 1, 3, 3, d0)),
+                  "local_norm0": one(_ln(w, 1, d0, bias=False)),
+                  "local_conv1": one(_conv(w, 1, 3, d0, d0)),
+                  "local_norm1": one(_ln(w, 1, d0, bias=False)),
+                  "local_conv2": one(_conv(w, 1, 3, d0, d0))}
+    else:
+        params = {"local_conv": one(_conv(w, 1, 8, 3, d0))}
+    p = c["local_patch_size"] * c["window_size"]
+    region_in = (d0 if c["reference_quirks"] else 3) * p * p
+    params["region_proj"] = {"kernel": w.lecun(region_in, d0), "bias": w.zeros(d0)}
+    span = 2 * c["window_size"] - 1
+    for s, (dim, depth) in enumerate(zip(dims, c["depth"])):
+        if s > 0:
+            names = ("down",) if c["reference_quirks"] else ("local_down", "region_down")
+            for name in names:
+                params[f"{name}_{s}"] = {"conv": one(_conv(w, 1, 3, dims[s - 1], dim))}
+            if c["use_peg"]:
+                params[f"peg_{s}"] = {"proj": one(_conv(w, 1, 3, 1, dim))}
+        blocks = {"attn": _raw_attn(w, depth, dim, HEADS * DIM_HEAD),
+                  "ff": _ff(w, depth, dim, 4 * dim)}
+        params[f"stage_{s}"] = {
+            "rel_pos_bias": {"rel_pos_bias": {"embedding": w.embed(span * span, HEADS)}},
+            "blocks": blocks if depth > 1 else one(blocks)}
+    params["head_norm"] = {"scale": w.ones(dims[-1])}
     params["head"] = {"kernel": w.lecun(dims[-1], c["num_classes"]),
                       "bias": w.zeros(c["num_classes"])}
     return {"params": params}
@@ -1651,7 +1837,7 @@ def phase_profile(name, model, image_size, dev, smi):
                    if e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"profile {name} batch 128: device busy {busy:.3f} ms in a {wall:.3f} ms forward "
-          f"(host clock, profiler on) [{smi}]")
+          f"(host clock, profiler on; idle {max(0.0, 1 - busy / wall):.1%}) [{smi}]")
     for ms, count, key in rows[:8]:
         print(f"profile {name} batch 128: {ms:8.3f} ms x{count:<4d} {key[:90]}")
     ops = aten_ops(model, x[:1])
@@ -1900,10 +2086,12 @@ def phase_family_e2e(models, fams, dev, requests):
         err = (out - ref).abs().max().item()
         control = (plain - ref).abs().max().item()
         top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        top1_plain = (plain.argmax(-1) == ref.argmax(-1)).float().mean().item()
         print(f"e2e {fam} bf16 kernels vs plain fp32: max|dlogit| {err:.6g}; control (plain bf16 "
               f"vs plain fp32) {control:.6g}; bound {HM_E2E_RATIO} x control "
-              f"{HM_E2E_RATIO * control:.6g} (max|logit| {ref.abs().max().item():.4g}); top-1 "
-              f"agreement with fp32 {top1:.3f}")
+              f"{HM_E2E_RATIO * control:.6g} (max|logit| {ref.abs().max().item():.4g})")
+        print(f"e2e {fam} bf16 kernels: top-1 agreement with plain fp32 {top1:.3f} (the plain "
+              f"bf16 path's: {top1_plain:.3f})")
         require(torch.isfinite(out).all().item(), f"e2e {fam}: non-finite logits")
         require(err <= HM_E2E_RATIO * control, f"e2e {fam}: {err} > {HM_E2E_RATIO} x {control}")
 
@@ -3017,11 +3205,23 @@ def phase_zoo(dev, smi, requests):
     qkv_attention_op_line("ParallelViT", 128, PARALLEL_N, gen, smi)
 
 
+def dense_excess(out, ref, x, w) -> float:
+    """How far ``out``, a bf16 product of ``x @ w``, lies beyond one bf16 ulp
+    of each value of ``ref`` (the plain product) plus the fp32 sum-order
+    slack of its K products, 2 K 2^-24 sum |x_k w_k|: at most 0 within the
+    bound."""
+    ref32 = ref.float()
+    ulp = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8)
+    slack = 2 * x.shape[-1] * 2.0**-24 * (x.float().abs() @ w.float().abs())
+    return ((out.float() - ref32).abs() - ulp - slack).max().item()
+
+
 def check_plain_products(dev, smi):
     """The bf16 products of the plain code on the card against their plain
     products (``force_backend("torch")``: an fp32 product of the rounded
-    operands): ``Dense`` (cuBLAS) at DENSE_SHAPES, batch 8, each value within
-    one bf16 ulp plus the fp32 sum-order slack of K products; the unfused
+    operands), with the process's cuBLAS flags at PyTorch's defaults:
+    ``Dense`` (cuBLAS, ``fp32_bf16_sums``) at DENSE_SHAPES, batch 1 and 8,
+    each value within ``dense_excess``'s bound; the unfused
     attention branch at PatchMerger-ViT's width (its output projection on the
     wgmma GEMM, the fp32 bias in the epilogue) within kernel_tol, batch 8 and
     128; each timed at batch 128 beside its plain product."""
@@ -3034,21 +3234,17 @@ def check_plain_products(dev, smi):
         dense = Dense(k, n, use_bias=False, dtype=torch.bfloat16, device=dev)
         with torch.no_grad():
             dense.kernel.copy_(r(k, n) / k**0.5)
-        for b in (8, 128):
+        for b in (1, 8, 128):
             x = r(b, rows, k).bfloat16()
             with torch.inference_mode():
                 out = dense(x)
                 with ops.force_backend("torch"):
                     ref = dense(x)
-                if b == 8:
-                    ref32 = ref.float()
-                    ulp = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1] - 8)
-                    slack = 2 * k * 2.0**-24 * (x.float().abs()
-                                                @ dense.kernel.bfloat16().float().abs())
-                    excess = ((out.float() - ref32).abs() - ulp - slack).max().item()
+                if b < 128:
+                    excess = dense_excess(out, ref, x, dense.kernel.bfloat16())
                     print(f"dense {what} [{b}, {rows}, {k}] -> {n} bf16 on the card (cuBLAS): "
-                          f"max|err| {(out.float() - ref32).abs().max().item():.6g}, beyond one "
-                          f"ulp + slack {max(excess, 0.0):.6g}")
+                          f"max|err| {(out.float() - ref.float()).abs().max().item():.6g}, beyond "
+                          f"one ulp + slack {max(excess, 0.0):.6g}")
                     require(excess <= 0.0, f"dense {what}: {excess} beyond one bf16 ulp + slack")
                 else:
                     kern = cuda_ms(lambda: dense(x), iters=10)
@@ -3251,22 +3447,29 @@ def window_block_op_line(what, nw, sw, c, heads, gen, smi):
     return kern, plain, lib, bnd
 
 
-def nest_qkv_op_line(what, b, blocks, n, heads, gen, smi):
-    """Kernel 3 at ``[b * blocks, n, 3 * heads * 32]``, bf16: its time, its
-    twin's, SDPA's and its bound. Returns (kernel, twin, library, (bound,
-    bound_by)) in ms."""
+def narrow_qkv_op_line(what, b, blocks, n, heads, gen, smi, biased=False):
+    """Kernel 3 at ``[b * blocks, n, 3 * heads * 32]`` (heads of 32), bf16,
+    with a ``[1, heads, n, n]`` fp32 bias where ``biased``: its time, its
+    twin's, SDPA's (the bias as its mask) and its bound. Returns (kernel,
+    twin, library, (bound, bound_by)) in ms."""
     qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     rows, hd = b * blocks, heads * 32
     with torch.inference_mode():
         qkv = torch.randn(rows, n, 3 * hd, generator=gen, device=gen.device).bfloat16()
+        bias = torch.randn(1, heads, n, n, generator=gen, device=gen.device) if biased else None
+        mask = None if bias is None else bias.bfloat16()
         q, k, v = split_heads(qkv, heads)
-        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads), iters=10)
-        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=3, warmup=1)
-        lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v)), iters=10)
-        bnd = bound(4 * rows * hd * n * n, nbytes=size(qkv) + rows * n * hd * 2)
-        print(f"op qkv_attention {what} ([{rows}, {n}, {3 * hd}], {heads} x 32) batch {b} bf16: "
-              f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
+        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads, bias), iters=10)
+        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads, bias), iters=3, warmup=1)
+        lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+                      iters=10)
+        bnd = bound(4 * rows * hd * n * n,
+                    nbytes=size(qkv) + rows * n * hd * 2 + (0 if bias is None else size(bias)))
+        print(f"op qkv_attention {what} ([{rows}, {n}, {3 * hd}], {heads} x 32"
+              + ("" if bias is None else f", bias [1, {heads}, {n}, {n}]")
+              + f") batch {b} bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library "
+              f"{lib:.4f} ms (SDPA{'' if bias is None else ' with the bias as its mask'}, "
               f"{sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
               f"{bnd[0] / kern:.1%} of it) [{smi}]")
     return kern, plain, lib, bnd
@@ -3289,10 +3492,203 @@ def phase_zoo3(dev, smi, requests):
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     for what, per, sw, c in (CROSSFORMER_WINDOWS[0], CROSSFORMER_WINDOWS[-1]):
         window_block_op_line(what, 128 * per, sw, c, c // 32, gen, smi)
-    nest_qkv_op_line(*NEST_QKV[0][:1], 128, *NEST_QKV[0][1:], gen, smi)
+    narrow_qkv_op_line(*NEST_QKV[0][:1], 128, *NEST_QKV[0][1:], gen, smi)
     for what, n, dim, f, eps in (ZOO3_MLP[0], ZOO3_MLP[4]):
         fused_mlp_op_line(what, 128, n, dim, f, eps, gen, smi)
     print(f"phase 13 (CrossFormer and NesT) took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- the zoo's fourth slice: ScalableViT and RegionViT ------------------------------
+
+
+def kv_plan_c(nk, d, dv):
+    """The C side's plan of kernel 5 at a shape (``vt_kv_blocked_plan``)."""
+    import ctypes
+
+    from vit_tpu_torch.ops import _build
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    got = (ctypes.c_int * 5)()
+    _build.load_library().vt_kv_blocked_plan(nk, d, dv, ctypes.cast(got, ctypes.c_void_p))
+    return fa.KvPlan(fa.KV_VARIANTS[got[0]], *got[1:5])
+
+
+def zoo4_attention_inputs(gen, what, b, nq, nk, heads, d, dv):
+    """ScalableViT's attention at a ZOO4_KV / ZOO4_FLASH shape, batch ``b``,
+    as the model calls it: IWSA's fused ``[b, nq, 3 x heads x d]`` rows
+    through ``ops.qkv_attention``, SSA's query rows and conv key and value
+    rows through ``mha_tokens``. Returns (the call, and q, k, v: the
+    split-heads views the kernel reads)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.nn.attention import mha_tokens
+    from vit_tpu_torch.nn.attention import split_heads as split_rows
+
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=gen.device).bfloat16()
+    scale = d**-0.5
+    if what.startswith("IWSA"):
+        qkv = r(b, nq, 3 * heads * d)
+        return (lambda: ops.qkv_attention(qkv, heads, scale=scale)), *split_heads(qkv, heads)
+    rows = r(b, nq, heads * d), r(b, nk, heads * d), r(b, nk, heads * dv)
+    return ((lambda: mha_tokens(*rows, heads, scale=scale)),
+            *(split_rows(t, heads) for t in rows))
+
+
+def phase_zoo4_kernels(dev):
+    """Kernel 5 at ZOO4_KV (IWSA stage 0 through ``ops.qkv_attention`` on
+    fused rows, SSA stages 0-2 through ``mha_tokens``), batch 8 and 128,
+    against its twin at the kernel's 64-key chunk: the dispatch must take
+    kernel 5 (one launch, nothing else), the C plan must equal
+    ``kv_blocked_layout``'s (ZOO4_KV_VARIANT), the launches the layout pass
+    and that variant; the twin with alpha dropped must fail the bound at
+    IWSA stage 0 (SSA's 64 keys are one chunk, where alpha is 1). Kernel 4
+    at ZOO4_FLASH through ``mha_tokens`` (``core_fits``) on ZOO4_CORE. Kernel
+    3 at ZOO4_QKV (``qkv_kernel_fits``) on ZOO4_CORE, RegionViT's joint
+    windows with a ``[1, 4, 50, 50]`` bias; at stage 0's joint windows the
+    twins with the 14 padded keys of the 64-key tile unmasked, or the bias
+    transposed, must fail. Kernel 2 at ZOO4_MLP (``phase_zoo_kernels``)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    fails = []
+
+    def launched(call):
+        before = ops.launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        return out, {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
+
+    for what, nq, nk, heads, d, dv in ZOO4_KV + (ZOO4_FLASH,):
+        resident = fa.core_fits(nk, d, dv)
+        kernel = "flash_attention" if resident else "flash_attention_kv_blocked"
+        if resident:
+            require(what == ZOO4_FLASH[0], f"ScalableViT {what}: core_fits takes it, not kernel 5")
+        elif what.startswith("IWSA"):
+            require(not qa.qkv_kernel_fits(nq, d), f"ScalableViT {what}: kernel 3 would take it")
+        if not resident:
+            plan, c_plan = fa.kv_blocked_layout(nk, d, dv), kv_plan_c(nk, d, dv)
+            print(f"{kernel} ScalableViT {what} (Nq {nq}, Nk {nk}, {heads} heads, D {d}, Dv {dv}): "
+                  f"plan {tuple(plan)}, C plan {tuple(c_plan)}")
+            require(tuple(plan) == tuple(c_plan) and plan.variant == ZOO4_KV_VARIANT,
+                    f"ScalableViT {what}: plan {tuple(plan)}, C plan {tuple(c_plan)}, not "
+                    f"{ZOO4_KV_VARIANT}")
+        for b in (8, 128):
+            call, q, k, v = zoo4_attention_inputs(gen, what, b, nq, nk, heads, d, dv)
+            out, grew = launched(call)
+            name = f"{kernel} ScalableViT {what} (Nq {nq}, Nk {nk}, {heads} x D {d} / Dv {dv}) batch {b}"
+            require(grew == {kernel: 1}, f"{name}: launched {grew}, not one {kernel}")
+            if resident:
+                ref = fa.reference_attention(q, k, v, scale=d**-0.5)
+            else:
+                ref = fa.reference_attention_kv_blocked(q, k, v, scale=d**-0.5, block_k=fa.KV_CHUNK)
+            ref = merge_heads(ref)
+            check_close(name, out, ref, None)
+            if b == 8:
+                names = kernel_names(launch_ms(call, 1 if resident else 2, iters=3))
+                print(f"{name}: launches {' | '.join(names)}")
+                require((ZOO4_CORE in names[0]) if resident else
+                        ("pad_rows_kernel" in names[0] and f"kv_blocked_{ZOO4_KV_VARIANT}" in names[1]),
+                        f"{name}: launched {names}")
+                if nk > fa.KV_CHUNK:
+                    _planted(f"{name}: the twin with {KV_FAULTS[0]}",
+                             merge_heads(kv_fault_twin(KV_FAULTS[0], q, k, v)), ref, fails)
+            del call, q, k, v, out, ref
+    for what, per, n, heads, biased in ZOO4_QKV:
+        require(qa.qkv_kernel_fits(n, 32), f"{what}: kernel 3 does not take {n} tokens")
+        bias = torch.randn(1, heads, n, n, generator=gen, device=dev) if biased else None
+        for b in (8, 128):
+            qkv = torch.randn(b * per, n, 3 * heads * 32, generator=gen, device=dev).bfloat16()
+            call = lambda: ops.qkv_attention(qkv, heads, bias, scale=32**-0.5)
+            out, grew = launched(call)
+            ref = qa.xla_qkv_attention(qkv, heads, bias, scale=32**-0.5)
+            name = (f"qkv_attention {what} ([{b * per}, {n}, {3 * heads * 32}], {heads} x 32"
+                    + (f", bias [1, {heads}, {n}, {n}]" if biased else "") + f") batch {b}")
+            require(grew == {"qkv_attention": 1}, f"{name}: launched {grew}")
+            check_close(name, out, ref, None)
+            names = kernel_names(launch_ms(call, 1, iters=3))
+            print(f"{name}: launches {' | '.join(names)}")
+            require(ZOO4_CORE in names[0], f"{name}: launched {names}, not {ZOO4_CORE}")
+            if b == 8 and biased and "stage 0" in what:
+                q, k, v = split_heads(qkv, heads)
+                for fault in FLASH_FAULTS:
+                    _planted(f"{name}: the twin with {fault}",
+                             merge_heads(flash_fault_twin(fault, q, k, v, bias)), ref, fails)
+            del qkv, out, ref
+    require(not fails, "; ".join(fails))
+    phase_zoo_kernels(dev, (), ZOO4_MLP, (), SEED + 33)
+
+
+def build_zoo4_models(dev):
+    """The ScalableViT and RegionViT presets."""
+    from vit_tpu_torch.models import RegionViT, ScalableViT
+
+    return build_family_models({
+        "scalable_vit": (lambda dt: ScalableViT(**SCALABLE_VIT, dtype=dt, device=dev),
+                         lambda: scalable_vit_tree(SCALABLE_VIT, SEED + 34)),
+        "region_vit": (lambda dt: RegionViT(**REGION_VIT, dtype=dt, device=dev),
+                       lambda: region_vit_tree(REGION_VIT, SEED + 35))})
+
+
+def zoo4_flash_op_line(what, b, nq, nk, heads, d, dv, gen, smi):
+    """Kernel 4 or 5, whichever ``ops.attention`` takes (``core_fits``), at a
+    ZOO4_KV / ZOO4_FLASH shape at batch ``b`` on the model's views, bf16: its
+    time, its twin's (kernel 5's at its 64-key chunk), SDPA's and its bound,
+    and its launches in device time. Returns (kernel, twin, library, (bound,
+    bound_by)) in ms."""
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    resident = fa.core_fits(nk, d, dv)
+    name = "flash_attention" if resident else "flash_attention_kv_blocked"
+    scale = d**-0.5
+    with torch.inference_mode():
+        _, q, k, v = zoo4_attention_inputs(gen, what, b, nq, nk, heads, d, dv)
+        if resident:
+            kernel = lambda: fa.flash_attention(q, k, v, scale=scale)
+            twin = lambda: fa.reference_attention(q, k, v, scale=scale)
+        else:
+            kernel = lambda: fa.flash_attention_kv_blocked(q, k, v, scale=scale)
+            twin = lambda: fa.reference_attention_kv_blocked(q, k, v, scale=scale,
+                                                             block_k=fa.KV_CHUNK)
+        kern = cuda_ms(kernel, iters=10)
+        plain = cuda_ms(twin, iters=3, warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=10)
+        bnd = bound(2 * b * heads * nq * nk * (d + dv),
+                    nbytes=2 * (q.numel() + k.numel() + v.numel() + b * nq * heads * dv))
+        split = launch_ms(kernel, 1 if resident else 2)
+    print(f"op {name} ScalableViT {what} (q [{b}, {heads}, {nq}, {d}], k / v {nk} keys, Dv {dv}) "
+          f"batch {b} bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms "
+          f"(SDPA, {sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
+          f"{bnd[0] / kern:.1%} of it); device "
+          + ", ".join(f"{n} {t:.4f} ms" for n, (_, t) in zip(kernel_names(split), split))
+          + f" [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def phase_zoo4(dev, smi, requests):
+    """Phase 14: the kernels at ScalableViT's and RegionViT's shapes
+    (``phase_zoo4_kernels``); both presets served (serve_families); the op
+    lines (kernel 5 at IWSA stage 0 and SSA stage 0, kernel 4 at SSA stage 3,
+    kernel 3 at IWSA stage 1 and RegionViT's stage-0 joint windows, kernel 2
+    at the first stage of each, batch 128)."""
+    t_phase = time.perf_counter()
+    phase_zoo4_kernels(dev)
+    t0 = time.perf_counter()
+    models = build_zoo4_models(dev)
+    print(f"zoo slice 4 weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    serve_families(models, ZOO4_FAMILIES, dev, smi, requests)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    for what, *shape in (ZOO4_KV[0], ZOO4_KV[1], ZOO4_FLASH):
+        zoo4_flash_op_line(what, 128, *shape, gen, smi)
+    for what, per, n, heads, biased in (ZOO4_QKV[0], ZOO4_QKV[3]):
+        narrow_qkv_op_line(what, 128, per, n, heads, gen, smi, biased)
+    for what, n, dim, f, eps in (ZOO4_MLP[0], ZOO4_MLP[4]):
+        fused_mlp_op_line(what, 128, n, dim, f, eps, gen, smi)
+    print(f"phase 14 (ScalableViT and RegionViT) took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3310,8 +3706,6 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 cuBLAS products (Dense) sum in fp32 and round once, as vit_tpu's
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
@@ -3422,6 +3816,9 @@ def main() -> int:
 
     # 13. the zoo's third slice: the CrossFormer and NesT presets
     phase_zoo3(dev, smi, requests)
+
+    # 14. the zoo's fourth slice: the ScalableViT and RegionViT presets
+    phase_zoo4(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -1,7 +1,7 @@
 """Models of the port: ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT``, ``T2TViT``, ``PiT``,
 ``SimpleViT``, ``ParallelViT``, ``EfficientViT``, ``CrossViT``, ``PatchMergerViT``,
-``ViTSmallDatasets``, ``CrossFormer`` and ``NesT`` so far (the rest of the zoo is
-ROADMAP.md Queue 1 item 6)."""
+``ViTSmallDatasets``, ``CrossFormer``, ``NesT``, ``ScalableViT`` and ``RegionViT`` so
+far (the rest of the zoo is ROADMAP.md Queue 1 item 6)."""
 
 from vit_tpu_torch.models.cait import CaiT
 from vit_tpu_torch.models.cross_vit import CrossViT
@@ -12,6 +12,8 @@ from vit_tpu_torch.models.nest import NesT
 from vit_tpu_torch.models.parallel_vit import ParallelViT
 from vit_tpu_torch.models.patch_merger import PatchMergerViT
 from vit_tpu_torch.models.pit import PiT
+from vit_tpu_torch.models.region_vit import RegionViT
+from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.simple_vit import SimpleViT
 from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
@@ -19,4 +21,5 @@ from vit_tpu_torch.models.vit import ViT
 from vit_tpu_torch.models.vit_small_datasets import ViTSmallDatasets
 
 __all__ = ["CaiT", "CrossFormer", "CrossViT", "DeepViT", "EfficientViT", "NesT", "ParallelViT",
-           "PatchMergerViT", "PiT", "SimpleViT", "T2TViT", "TwinsSVT", "ViT", "ViTSmallDatasets"]
+           "PatchMergerViT", "PiT", "RegionViT", "ScalableViT", "SimpleViT", "T2TViT", "TwinsSVT",
+           "ViT", "ViTSmallDatasets"]

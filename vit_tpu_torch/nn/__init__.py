@@ -1,7 +1,11 @@
 """Module layer of the port (mirrors ``vit_tpu/nn``)."""
 
 from vit_tpu_torch.nn.attention import Attention, mha_tokens  # noqa: F401
-from vit_tpu_torch.nn.bias import DynamicPositionBias  # noqa: F401
+from vit_tpu_torch.nn.bias import (  # noqa: F401
+    DynamicPositionBias,
+    ReferenceWindowRelPosBias,
+    WindowRelPosBias,
+)
 from vit_tpu_torch.nn.blocks import EncoderBlock, FeedForward, Transformer  # noqa: F401
 from vit_tpu_torch.nn.conv import (  # noqa: F401
     PEG,
@@ -10,6 +14,7 @@ from vit_tpu_torch.nn.conv import (  # noqa: F401
     ConvMLP,
     CrossEmbedLayer,
     DepthWiseConv2d,
+    Downsample,
     PatchEmbedding,
     Pool,
 )

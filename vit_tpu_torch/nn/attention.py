@@ -24,6 +24,11 @@ before its first call:
   fp32 bias in the epilogue, wherever the width and the inner width are
   multiples of 8 (every preset's); elsewhere, in fp32, on the CPU and under
   ``ops.force_backend("torch")``, an fp32 product of the rounded operands.
+- **an additive bias** on that branch (``forward(x, bias=...)``, fp32
+  ``[1|B, 1|H, N, N]``: RegionViT's relative positions): a bias keeps the
+  layer off every block kernel, as ``vit_tpu``'s ``bias is None`` term does
+  (:213-221); ``ops.qkv_attention`` or the materializing path adds it to
+  the scaled scores.
 - **LSA** (Locality Self-Attention, :178-194, :471-481) on that branch:
   ``mask_self`` sets the score diagonal to ``flash_attention.MASK_VALUE``,
   ``learned_temperature`` scales the scores by ``exp(log_temperature)``
@@ -44,7 +49,7 @@ before its first call:
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
 Still raising, each naming its ROADMAP item: ``qkv_bias``, cross-attention
-with ``mask_self`` or ``learned_temperature``, both head mixes at once, and
+with ``mask_self``, ``learned_temperature`` or a bias, both head mixes at once, and
 re-attention or talking heads without the output projection, or
 re-attention without ``fuse_residual`` (JAX's materializing path).
 """
@@ -173,16 +178,20 @@ class Attention(nn.Module):
             self.reattn_bias = p(heads)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                kv_include_self: bool = False) -> torch.Tensor:
+                kv_include_self: bool = False, bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         if self.cross:
+            if bias is not None:
+                raise NotImplementedError(f"a bias on cross-attention: {_LATER}")
             return self._cross_attention(x, context, kv_include_self)
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
         mix = self.talking_heads or self.reattention
         lsa = self.mask_self or self.learned_temperature
-        if lsa or not (self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
-            return self._unfused(x, dtype)
+        if lsa or bias is not None or not (
+                self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
+            return self._unfused(x, dtype, bias)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
         kw = dict(scale=self.scale, ln_eps=self.norm_eps)
@@ -201,12 +210,13 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         return n <= FUSE_MAX_TOKENS and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES
 
-    def _unfused(self, x, dtype):
+    def _unfused(self, x, dtype, bias=None):
         """The raw-parameter branch outside the fused block (vit_tpu/nn/
         attention.py:307-354): flax's LayerNorm in fp32 cast to ``dtype``,
         the qkv product rounded once, ``ops.qkv_attention`` (the fused-qkv
         kernel, or the kv-blocked one for widths and lengths it cannot
-        hold) or, with a head mix or LSA, the materializing path, the output
+        hold) or, with a head mix or LSA, the materializing path, either
+        adding ``bias`` to the scaled scores; the output
         projection summed in fp32 plus its fp32 bias, rounded once to x's
         dtype. Returns the delta, or the delta plus x with
         ``fuse_residual``."""
@@ -214,9 +224,9 @@ class Attention(nn.Module):
         qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
         if self.talking_heads or self.reattention or self.mask_self or self.learned_temperature:
             q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
-            out = merge_heads(self._materializing_attention(q, k, v))
+            out = merge_heads(self._materializing_attention(q, k, v, bias))
         else:
-            out = ops.qkv_attention(qkv, self.heads, scale=self.scale)
+            out = ops.qkv_attention(qkv, self.heads, bias, scale=self.scale)
         if self.project_out:
             out = self._out_projection(out, self.out_kernel.to(dtype), x.dtype)
         return out + x if self.fuse_residual else out
@@ -290,12 +300,14 @@ class Attention(nn.Module):
         u = _einsum("bhqj,bjd->bhqd", p.to(c.dtype), c, dtype)
         return merge_heads(_einsum("bhqd,dhe->bhqe", u, wv, dtype))
 
-    def _materializing_attention(self, q, k, v):
+    def _materializing_attention(self, q, k, v, bias=None):
         """The score-materializing path (vit_tpu/nn/attention.py:471-504):
-        LSA's learned scale and masked diagonal, talking-heads mixes and
-        re-attention on ``[B, H, Nq, Nk]`` fp32 scores."""
+        the bias, LSA's learned scale and masked diagonal, talking-heads
+        mixes and re-attention on ``[B, H, Nq, Nk]`` fp32 scores."""
         scale = torch.exp(self.log_temperature) if self.learned_temperature else self.scale
         s = _einsum("bhid,bhjd->bhij", q, k) * scale
+        if bias is not None:
+            s = s + bias.float()
         if self.mask_self:
             nq, nk = s.shape[-2:]
             s = s.masked_fill(torch.eye(nq, nk, dtype=torch.bool, device=s.device), MASK_VALUE)

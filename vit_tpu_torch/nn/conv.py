@@ -1,7 +1,8 @@
 """Convolutional modules over NHWC feature maps (port of ``vit_tpu/nn/conv.py``:
-``PEG``, ``PatchEmbedding``, ``DepthWiseConv2d`` without BatchNorm, PiT's
-``Pool``, CrossFormer's ``CrossEmbedLayer``, NesT's ``Aggregate`` and the
-LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv`` container).
+``PEG``, ``Downsample``, ``PatchEmbedding``, ``DepthWiseConv2d`` without
+BatchNorm, PiT's ``Pool``, CrossFormer's ``CrossEmbedLayer``, NesT's
+``Aggregate`` and the LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv``
+container).
 
 The convolutions lie outside every TPU kernel (XLA ran them on the TPU), so
 they are ``F.conv2d``; ``ConvMLP`` is the fused MLP kernel over the token
@@ -89,6 +90,19 @@ class PEG(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.proj(x)
+
+
+class Downsample(nn.Module):
+    """The stage transition of ScalableViT and RegionViT: a 3x3 stride-2 SAME
+    ``conv`` with a bias, ``dim_in -> dim`` channels."""
+
+    def __init__(self, dim_in: int, dim: int, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.conv = Conv(dim_in, dim, 3, strides=2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
 
 
 class DepthWiseConv2d(nn.Module):

@@ -4,6 +4,7 @@ the token embedders of the small-dataset and merging families (port of
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -13,16 +14,37 @@ from vit_tpu_torch import ops
 from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
 
 
+@contextlib.contextmanager
+def fp32_bf16_sums():
+    """Turn ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off inside the scope and give the caller's setting back after it, split-K
+    part included where this PyTorch has one. PyTorch's default, on, lets
+    cuBLAS add a bf16 GEMM's split-K partials in bf16; off, it sums in fp32
+    and rounds once. PyTorch reads the flag when each matmul is issued, so
+    only the products issued inside the scope see it. The flag is global to
+    the process: a forward of the port runs on one thread at a time (the
+    serving worker's), and a product issued by another thread during the
+    scope would see it off too."""
+    flags = torch.backends.cuda.matmul
+    caller = flags.allow_bf16_reduced_precision_reduction
+    split_k = getattr(flags, "allow_bf16_reduced_precision_reduction_split_k", None)
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = (
+            caller if split_k is None else (caller, split_k))
+
+
 def _mm_rounded(a, b, dtype):
     """``a @ b`` accumulated in fp32 and rounded once to ``dtype`` (JAX's
     ``preferred_element_type=f32`` then ``astype``): on the card a bf16
-    product is one cuBLAS bf16 GEMM, which sums in fp32 and rounds once
-    (with ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    off, as chip_smoke sets it: PyTorch's default lets cuBLAS add split-K
-    partials in bf16); a plain product outside any kernel, as XLA's is in
-    ``vit_tpu``."""
+    product is one cuBLAS bf16 GEMM issued under ``fp32_bf16_sums`` (fp32
+    sums, one rounding, whatever the caller's flag); a plain product outside
+    any kernel, as XLA's is in ``vit_tpu``."""
     if a.is_cuda and a.dtype == b.dtype == dtype == torch.bfloat16:
-        return torch.matmul(a, b)
+        with fp32_bf16_sums():
+            return torch.matmul(a, b)
     return _mm(a, b, dtype)
 
 
