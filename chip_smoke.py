@@ -160,7 +160,24 @@ Runs, in order, and exits non-zero at the first failure:
      kv-blocked, 2 flash, 24 fused-qkv, 52 MLP; RegionViT 28 fused-qkv, 14
      MLP; no other kernel); logits against the plain fp32 path beside the
      plain bf16 control, top-1 agreement; img/s, p50, device time by kernel;
-     op lines for kernels 5, 4, 3 and 2 at batch 128.
+     op lines for kernels 5, 4, 3 and 2 at batch 128;
+ 15. the zoo's fifth slice: the flash kernel at the cvt preset's three
+     stages (3,136 queries against 784 keys, 784 against 196, 196 against
+     49; heads of 64; k and v the halves of one projection's rows) and at
+     the levit preset's five (key width 32, value width 64, an fp32
+     per-head bias, 196 / 49 / 16 queries against 196 / 49 / 16 keys, the
+     downsampling layers' stride-2 queries against the full map), with the
+     twins with the padded keys unmasked, the bias transposed or the bias
+     permuted across heads shown to fail; the MLP kernel at the slice's six
+     shapes (CvT's GELU with a LayerNorm of eps 1e-5, LeViT's hard-swish
+     without a LayerNorm); each at batch 8 and 128 against its twin; both
+     presets (random weights and BatchNorm statistics from a seed) folded
+     with ``fold_batch_norm`` and served in bf16 through ``BatchingServer``
+     with the launch counts per forward (CvT 13 flash, 13 MLP; LeViT 14
+     flash, 14 MLP; no other kernel); logits against the unfolded plain fp32
+     path (BatchNorm on the plain path) beside the folded plain bf16
+     control, top-1 agreement; img/s, p50, device time by kernel; op lines
+     for kernels 4 and 2 at every new shape at batch 128.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -309,11 +326,17 @@ FAMILY_LAUNCHES = {
                      "fused_mlp": 52, "attention_block": 0, "window_attention_block": 0},
     "region_vit": {"flash_attention_kv_blocked": 0, "flash_attention": 0, "qkv_attention": 28,
                    "fused_mlp": 14, "attention_block": 0, "window_attention_block": 0},
+    # the fifth zoo slice: CvT's 1 + 2 + 10 layers, LeViT's 4 + 1 + 4 + 1 + 4
+    # (every attention on kernel 4, one MLP after each)
+    "cvt": {"flash_attention": 13, "fused_mlp": 13, "flash_attention_kv_blocked": 0,
+            "attention_block": 0, "qkv_attention": 0, "window_attention_block": 0},
+    "levit": {"flash_attention": 14, "fused_mlp": 14, "flash_attention_kv_blocked": 0,
+              "attention_block": 0, "qkv_attention": 0, "window_attention_block": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
               "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
               "patch_merger_vit": 256, "vit_small_datasets": 256, "crossformer": 224,
-              "nest": 224, "scalable_vit": 256, "region_vit": 224}
+              "nest": 224, "scalable_vit": 256, "region_vit": 224, "cvt": 224, "levit": 224}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -438,6 +461,42 @@ ZOO4_MLP = tuple((f"ScalableViT stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
                  enumerate(((4096, 64), (1024, 128), (256, 256), (64, 512)))) + tuple(
     (f"RegionViT stage {s}", n, c, 4 * c, 1e-5) for s, (n, c) in
     enumerate(((3200, 64), (800, 128), (200, 256), (50, 512))))
+
+# The zoo's fifth slice at the presets of vit_tpu/models/presets.py:93-101
+# (cvt and levit @224), bf16, each BatchNorm folded into its conv. CvT's
+# attention: 3136 / 784 / 196 queries against a key map reduced by a stride-2
+# depthwise conv (784 / 196 / 49 keys), 1 / 3 / 4 heads of 64. LeViT's: keys
+# of 32 and values of 64 a head, an fp32 [1, H, Nq, Nk] bias, 196 / 49 / 16
+# tokens a stage, the downsampling layers' stride-2 queries against the full
+# map. Its MLP is hard-swish without a LayerNorm.
+CVT = dict(num_classes=1000, s1_emb_dim=64, s2_emb_dim=192, s3_emb_dim=384, s1_depth=1,
+           s2_depth=2, s3_depth=10, s3_heads=4)
+LEVIT = dict(image_size=224, num_classes=1000, stages=3, dim=(256, 384, 512), depth=4,
+             heads=(4, 6, 8), mlp_mult=2)
+ZOO5_FAMILIES = ("cvt", "levit")
+# Kernel 4 at the slice's eight shapes: (what, heads, queries, keys, D, Dv, with
+# the bias).
+ZOO5_FLASH = (("CvT stage 1", 1, 3136, 784, 64, 64, False),
+              ("CvT stage 2", 3, 784, 196, 64, 64, False),
+              ("CvT stage 3", 4, 196, 49, 64, 64, False),
+              ("LeViT stage 0", 4, 196, 196, 32, 64, True),
+              ("LeViT down 0", 8, 49, 196, 32, 64, True),
+              ("LeViT stage 1", 6, 49, 49, 32, 64, True),
+              ("LeViT down 1", 12, 16, 49, 32, 64, True),
+              ("LeViT stage 2", 8, 16, 16, 32, 64, True))
+# The flash twin's planted faults of this slice, beside FLASH_FAULTS: (what,
+# fault). CvT stage 1's 784 keys leave 16 padded keys in the last 64-key chunk.
+ZOO5_FLASH_FAULTS = (("CvT stage 1", "padded keys unmasked"),
+                     ("LeViT stage 0", "bias transposed"),
+                     ("LeViT stage 0", "bias permuted across heads"),
+                     ("LeViT down 0", "bias permuted across heads"),
+                     ("LeViT down 0", "padded keys unmasked"))
+# Kernel 2 at the slice's six shapes: (what, tokens a sample, D, F, LayerNorm
+# eps or None, activation).
+ZOO5_MLP = tuple((f"CvT stage {s + 1}", n, c, 4 * c, 1e-5, "gelu") for s, (n, c) in
+                 enumerate(((3136, 64), (784, 192), (196, 384)))) + tuple(
+    (f"LeViT {what}", n, c, 2 * c, None, "hard_swish") for what, n, c in
+    (("stage 0", 196, 256), ("stage 1", 49, 384), ("stage 2", 16, 512)))
 
 # The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
 # against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
@@ -1322,6 +1381,109 @@ def region_vit_tree(c: dict, seed: int) -> dict:
     return {"params": params}
 
 
+def _bn(w, dim, stats):
+    """A flax BatchNorm as ``init`` leaves it (``scale`` ones, ``bias``
+    zeros), its running statistics added to ``stats``: means drawn from
+    normal(0, 0.3), variances exp(normal(0, 0.3)), so that a fold is far
+    from the identity."""
+    stats.update(mean=np.float32(0.3) * w.rng.standard_normal(dim, dtype=np.float32),
+                 var=np.exp(np.float32(0.3) * w.rng.standard_normal(dim, dtype=np.float32)))
+    return {"scale": w.ones(dim), "bias": w.zeros(dim)}
+
+
+def cvt_tree(c: dict, seed: int) -> dict:
+    """A CvT variables tree of config ``c`` (``CvT``'s keyword arguments; its
+    defaults for the rest) in ``vit_tpu``'s layout, unfolded: ``params``
+    (each stage's ``embed_{s}`` conv and ``embed_norm_{s}``; each layer's
+    ``attn_{s}_{i}`` with the bias-free depthwise / BatchNorm / pointwise
+    ``to_q`` and ``to_kv`` and the bias-free ``to_out``, and ``ff_{s}_{i}``;
+    the head) and ``batch_stats`` (each BatchNorm's mean and var)."""
+    import inspect
+
+    from vit_tpu_torch.models import CvT
+    from vit_tpu_torch.models.cvt import STAGES
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(CvT).parameters.items()
+            if p.default is not inspect.Parameter.empty}, **c}
+    params, stats = {}, {}
+    dim_in = 3
+    for s in STAGES:
+        g = lambda k: c[f"s{s}_{k}"]
+        dim, inner = g("emb_dim"), g("heads") * 64
+        params[f"embed_{s}"] = _squeeze_depth(_conv(w, 1, g("emb_kernel"), dim_in, dim))
+        params[f"embed_norm_{s}"] = _squeeze_depth(_ln(w, 1, dim))
+        for i in range(g("depth")):
+            attn, st = {"norm": _squeeze_depth(_ln(w, 1, dim))}, {}
+            for name, out in (("to_q", inner), ("to_kv", 2 * inner)):
+                st[name] = {"bn": {}}
+                attn[name] = {"depthwise": {"kernel": w.lecun_conv(g("proj_kernel"),
+                                                                   g("proj_kernel"), 1, dim)},
+                              "bn": _bn(w, dim, st[name]["bn"]),
+                              "pointwise": {"kernel": w.lecun_conv(1, 1, dim, out)}}
+            attn["to_out"] = {"kernel": w.lecun(inner, dim)}
+            params[f"attn_{s}_{i}"], stats[f"attn_{s}_{i}"] = attn, st
+            params[f"ff_{s}_{i}"] = {"ff": _squeeze_depth(_ff(w, 1, dim, g("mlp_mult") * dim))}
+        dim_in = dim
+    params["head"] = {"kernel": w.lecun(dim_in, c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def levit_tree(c: dict, seed: int) -> dict:
+    """A LeViT variables tree of config ``c`` (``LeViT``'s keyword arguments;
+    its defaults for the rest) in ``vit_tpu``'s layout, unfolded: ``params``
+    (the four ``stem_{i}`` convs; each layer's ``{name}_attn_{d}`` with its
+    1x1 ``{p}_conv`` (a bias on ``to_out`` only), ``{p}_bn`` and the
+    ``pos_bias`` table, and its norm-free ``{name}_mlp_{d}``; the head and
+    the distillation head) and ``batch_stats``."""
+    import inspect
+    import math
+
+    from vit_tpu_torch.core.utils import cast_tuple
+    from vit_tpu_torch.models import LeViT
+    from vit_tpu_torch.models.levit import STEM
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(LeViT).parameters.items()
+            if p.default is not inspect.Parameter.empty}, **c}
+    n = c["stages"]
+    dims, depths, heads = (cast_tuple(c[k], n) for k in ("dim", "depth", "heads"))
+    dk, dv = c["dim_key"], c["dim_value"]
+    widths = (3, *STEM, dims[0])
+    params = {f"stem_{i}": _squeeze_depth(_conv(w, 1, 3, widths[i], widths[i + 1]))
+              for i in range(4)}
+    stats = {}
+
+    def layer(name, d, dim, h, fmap, dim_out):
+        """``{name}_attn_{d}`` (the table over the ``fmap`` x ``fmap`` key
+        map) and ``{name}_mlp_{d}``, in ``init``'s order."""
+        attn, st = {}, {}
+        for p, (c_in, feat) in {"to_q": (dim, h * dk), "to_k": (dim, h * dk),
+                                "to_v": (dim, h * dv), "to_out": (h * dv, dim_out)}.items():
+            attn[f"{p}_conv"] = _squeeze_depth(_conv(w, 1, 1, c_in, feat, bias=p == "to_out"))
+            st[f"{p}_bn"] = {}
+            attn[f"{p}_bn"] = _bn(w, feat, st[f"{p}_bn"])
+        attn["pos_bias"] = {"pos_bias": {"embedding": w.embed(fmap * fmap, h)}}
+        params[f"{name}_attn_{d}"], stats[f"{name}_attn_{d}"] = attn, st
+        ff = _squeeze_depth(_ff(w, 1, dim_out, c["mlp_mult"] * dim_out))
+        params[f"{name}_mlp_{d}"] = {"ff": {k: v for k, v in ff.items() if not k.startswith("ln_")}}
+
+    fmap = c["image_size"] // 16
+    for s in range(n):
+        for d in range(depths[s]):
+            layer(f"stage_{s}", d, dims[s], heads[s], fmap, dims[s])
+        if s + 1 < n:
+            layer(f"down_{s}", 0, dims[s], 2 * heads[s], fmap, dims[s + 1])
+            fmap = math.ceil(fmap / 2)
+    params["head"] = {"kernel": w.lecun(dims[-1], c["num_classes"]),
+                      "bias": w.zeros(c["num_classes"])}
+    if c["num_distill_classes"] is not None:
+        params["distill_head"] = {"kernel": w.lecun(dims[-1], c["num_distill_classes"]),
+                                  "bias": w.zeros(c["num_distill_classes"])}
+    return {"params": params, "batch_stats": stats}
+
+
 # -- phases -------------------------------------------------------------------
 
 
@@ -2105,12 +2267,15 @@ FLASH_FAULTS = ("padded keys unmasked", "bias transposed")
 def flash_fault_twin(fault, q, k, v, bias=None, mask_self=False):
     """The flash twin with one of FLASH_FAULTS planted: the keys padded with
     zero rows to the kernel's 64-key chunk and left unmasked (Nk must not be
-    a multiple of 64), or the bias added transposed (a square bias)."""
+    a multiple of 64), or the bias added transposed (a square bias); or with
+    "bias permuted across heads": head h reads head h - 1's bias."""
     fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
     if fault == FLASH_FAULTS[0]:
         pad = -k.shape[2] % 64
         k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
         bias = None if bias is None else F.pad(bias, (0, pad))
+    elif fault == "bias permuted across heads":
+        bias = bias.roll(1, dims=1)
     else:
         bias = bias.mT
     return fa.reference_attention(q, k, v, bias, mask_self=mask_self)
@@ -2922,10 +3087,10 @@ def build_t2t_models(dev):
     return models
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, mask=None) -> str:
     """The backend F.scaled_dot_product_attention picks for these inputs."""
     names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
-    choice = int(torch._fused_sdp_choice(q, k, v))
+    choice = int(torch._fused_sdp_choice(q, k, v, mask))
     return names.get(choice, f"backend {choice}")
 
 
@@ -3002,7 +3167,9 @@ def phase_t2t_op_times(dev, smi):
 def phase_zoo_kernels(dev, attn_shapes, mlp_shapes, qkv_shapes, seed):
     """Kernel 1 at each ``attn_shapes`` entry (what, tokens, dim, heads,
     eps; 64-wide heads), kernel 2 at each ``mlp_shapes`` entry (what, tokens,
-    D, F, eps; without the residual, as FeedForward calls it, and with it)
+    D, F, the LayerNorm's eps or None for none, and optionally the
+    activation, GELU by default; without the residual, as FeedForward calls
+    it, and with it)
     and kernel 3 at each ``qkv_shapes`` entry (what, tokens; 8 heads of 64),
     each at batch 8 and 128 against its twin, with the kernels each launch
     took (from the profiler's names): kernel 1's four must be BLOCK_KERNELS
@@ -3034,20 +3201,22 @@ def phase_zoo_kernels(dev, attn_shapes, mlp_shapes, qkv_shapes, seed):
                         and ZOO_CORE[n] in names[2],
                         f"{name}: launched {names}, not {list(BLOCK_KERNELS)} on {ZOO_CORE[n]}")
             del inp, a
-    for what, n, dim, f, eps in mlp_shapes:
+    for what, n, dim, f, eps, *act in mlp_shapes:
+        act = act[0] if act else "gelu"
         for b in (8, 128):
-            inp = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, b=b)
+            inp = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, ln=eps is not None, b=b)
             for residual in (False, True):
-                kw = dict(activation="gelu", residual=residual, ln_eps=eps)
+                kw = dict(activation=act, residual=residual, ln_eps=eps or 0.0)
                 out = fused_mlp(**inp, **kw)
                 ref = reference_mlp(**inp, **kw)
                 torch.cuda.synchronize()
-                check_close(f"fused_mlp {what} ({n} tokens, D {dim}, F {f}, "
-                            f"{'with' if residual else 'no'} residual) batch {b}", out, ref,
+                check_close(f"fused_mlp {what} ({n} tokens, D {dim}, F {f}, {act}, "
+                            + ("no LayerNorm, " if eps is None else "")
+                            + f"{'with' if residual else 'no'} residual) batch {b}", out, ref,
                             inp["x"] if residual else None)
                 del out, ref
             if b == 8:
-                mlp_launches(inp, dict(activation="gelu", residual=False, ln_eps=eps),
+                mlp_launches(inp, dict(activation=act, residual=False, ln_eps=eps or 0.0),
                              f"{what} (8 x {n} tokens)", nvidia_smi())
             del inp
     for what, n in qkv_shapes:
@@ -3132,26 +3301,35 @@ def attention_block_op_line(what, b, n, dim, heads, eps, gen, smi):
     return kern, plain, lib, bnd
 
 
-def fused_mlp_op_line(what, b, n, dim, f, eps, gen, smi):
-    """Kernel 2 at ``[b, n, dim]`` with F ``f``, bf16, without the residual:
-    its time, its twin's, its library composite's (LayerNorm, addmm, GELU,
-    addmm) and its bound. Returns (kernel, twin, library, (bound,
-    bound_by)) in ms."""
-    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+def fused_mlp_op_line(what, b, n, dim, f, eps, gen, smi, activation="gelu"):
+    """Kernel 2 at ``[b, n, dim]`` with F ``f``, bf16, without the residual,
+    with a LayerNorm of eps ``eps`` (None: without one): its time, its
+    twin's, its library composite's ((LayerNorm,) addmm, the activation,
+    addmm) and its bound, then its three launches in device time
+    (``mlp_launches``). Returns (kernel, twin, library, (bound, bound_by))
+    in ms."""
+    from vit_tpu_torch.ops.fused_mlp import _activate, fused_mlp, reference_mlp
 
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     with torch.inference_mode():
-        m_in = mlp_inputs(gen, n, dim, f, torch.bfloat16, gen.device, b=b)
-        mkw = dict(activation="gelu", residual=False, ln_eps=eps)
+        m_in = mlp_inputs(gen, n, dim, f, torch.bfloat16, gen.device, ln=eps is not None, b=b)
+        mkw = dict(activation=activation, residual=False, ln_eps=eps or 0.0)
         lib_m = {k: v.bfloat16() if v.dim() == 1 else v for k, v in m_in.items()}
         kern = cuda_ms(lambda: fused_mlp(**m_in, **mkw), iters=10)
         plain = cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=3, warmup=1)
-        lib = cuda_ms(lambda: library_mlp(**lib_m), iters=10)
+        if activation == "gelu" and eps is not None:
+            lib = cuda_ms(lambda: library_mlp(**lib_m), iters=10)
+        else:
+            x, w1, b1, w2, b2 = (lib_m[k] for k in ("x", "w1", "b1", "w2", "b2"))
+            lib = cuda_ms(lambda: torch.addmm(b2, _activate(torch.addmm(
+                b1, x.flatten(0, -2), w1), activation), w2), iters=10)
         bnd = bound(4 * b * n * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"]))
-        print(f"op fused_mlp {what} ([{b}, {n}, {dim}], F {f}) batch {b} bf16: kernel "
-              f"{kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (LayerNorm + addmm + "
-              f"GELU + addmm), bound {bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / kern:.1%} of it) "
-              f"[{smi}]")
+        print(f"op fused_mlp {what} ([{b}, {n}, {dim}], F {f}, {activation}, "
+              f"{'no LayerNorm' if eps is None else f'LayerNorm eps {eps:g}'}) batch {b} bf16: "
+              f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms "
+              f"({'' if eps is None else 'LayerNorm + '}addmm + {activation} + addmm), bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / kern:.1%} of it) [{smi}]")
+        mlp_launches(m_in, mkw, f"{what} ({b} x {n} tokens)", smi)
     return kern, plain, lib, bnd
 
 
@@ -3691,6 +3869,165 @@ def phase_zoo4(dev, smi, requests):
     print(f"phase 14 (ScalableViT and RegionViT) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the zoo's fifth slice: CvT and LeViT ------------------------------------------
+
+
+def zoo5_attention_inputs(gen, b, heads, nq, nk, d, dv, biased, fault=None):
+    """The slice's attention at batch ``b`` as the model calls it, through
+    ``mha_tokens``: CvT's query rows and the two halves (k, then v) of one
+    ``[b, nk, 2 x heads x d]`` projection; LeViT's three projections and an
+    fp32 ``[1, heads, nq, nk]`` bias (normal(0, 2), the size of the scores).
+    With ``fault`` (for the planted fault of padded keys unmasked), the
+    queries positive and the keys and the bias negative, so that every real
+    score is well below the zero score of a padded key. Returns (the call,
+    q, k, v: the split-heads views the kernel reads, and the bias)."""
+    from vit_tpu_torch.nn.attention import mha_tokens
+    from vit_tpu_torch.nn.attention import split_heads as split_rows
+
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=gen.device)
+    scale = d**-0.5
+    if biased:
+        q, k, v = r(b, nq, heads * d), r(b, nk, heads * d), r(b, nk, heads * dv)
+        bias = 2.0 * r(1, heads, nq, nk)
+        if fault:
+            q, k, bias = q.abs(), -k.abs(), -bias.abs()
+    else:
+        q, kv = r(b, nq, heads * d), r(b, nk, 2 * heads * d)
+        if fault:
+            q, kv[..., :heads * d] = q.abs(), -kv[..., :heads * d].abs()
+        k, v = kv.bfloat16().chunk(2, dim=-1)
+        bias = None
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    call = lambda: mha_tokens(q, k, v, heads, scale=scale, bias=bias)
+    return (call, *(split_rows(t, heads) for t in (q, k, v)), bias)
+
+
+def phase_zoo5_kernels(dev):
+    """Kernel 4 at ZOO5_FLASH through ``mha_tokens`` (``core_fits`` at every
+    shape: one ``flash_attention`` launch and nothing else by the counts, on
+    an ``attention_sm90_`` variant by the profiler), batch 8 and 128,
+    against its twin; at batch 8 the twins of ZOO5_FLASH_FAULTS must fail
+    the bound (the padded keys on inputs where they would carry the
+    softmax, and the kernel must meet the bound there too). Kernel 2 at
+    ZOO5_MLP (``phase_zoo_kernels``)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    fails = []
+    for what, heads, nq, nk, d, dv, biased in ZOO5_FLASH:
+        require(fa.core_fits(nk, d, dv), f"{what}: kernel 4 does not take {nk} keys")
+        faults = [fault for w, fault in ZOO5_FLASH_FAULTS if w == what]
+        for b in (8, 128):
+            call, q, k, v, bias = zoo5_attention_inputs(gen, b, heads, nq, nk, d, dv, biased)
+            before = ops.launch_counts()
+            out = call()
+            torch.cuda.synchronize()
+            grew = {k_: c - before[k_] for k_, c in ops.launch_counts().items() if c != before[k_]}
+            name = (f"flash_attention {what} ({heads} heads, Nq {nq}, Nk {nk}, D {d}, Dv {dv}"
+                    + (f", bias [1, {heads}, {nq}, {nk}]" if biased else "") + f") batch {b}")
+            require(grew == {"flash_attention": 1}, f"{name}: launched {grew}")
+            ref = merge_heads(fa.reference_attention(q, k, v, bias, scale=d**-0.5))
+            check_close(name, out, ref, None)
+            if b == 8:
+                names = kernel_names(launch_ms(call, 1, iters=3))
+                print(f"{name}: launches {' | '.join(names)}; smem_bytes (the dispatch "
+                      f"contract) {fa.smem_bytes(nk, d, dv)} of {fa.MAX_SMEM}")
+                require("attention_sm90_" in names[0], f"{name}: launched {names}")
+                for fault in faults:
+                    fq, fk, fv, fb = q, k, v, bias
+                    if fault == FLASH_FAULTS[0]:
+                        fcall, fq, fk, fv, fb = zoo5_attention_inputs(gen, b, heads, nq, nk, d,
+                                                                      dv, biased, fault=True)
+                        fref = merge_heads(fa.reference_attention(fq, fk, fv, fb,
+                                                                  scale=d**-0.5))
+                        check_close(f"{name} (scores below the padded keys')", fcall(), fref,
+                                    None)
+                    else:
+                        fref = ref
+                    _planted(f"{name}: the twin with {fault}",
+                             merge_heads(flash_fault_twin(fault, fq, fk, fv, fb)), fref, fails)
+            del call, q, k, v, out, ref
+    require(not fails, "; ".join(fails))
+    phase_zoo_kernels(dev, (), ZOO5_MLP, (), SEED + 41)
+
+
+def build_zoo5_models(dev):
+    """The CvT and LeViT presets from one unfolded tree each (params and
+    BatchNorm statistics drawn from a seed): ``bf16`` folded
+    (``fold_batch_norm``, ``fold_bn=True``), ``fp32`` unfolded, its
+    BatchNorms on the plain path."""
+    from vit_tpu_torch.models import CvT, LeViT
+    from vit_tpu_torch.utils import fold_batch_norm, from_jax_params
+
+    models = {}
+    for fam, ctor, cfg, tree in (("cvt", CvT, CVT, cvt_tree), ("levit", LeViT, LEVIT, levit_tree)):
+        t = tree(cfg, SEED + (38 if fam == "cvt" else 39))
+        for config, dtype, fold in (("bf16", torch.bfloat16, True), ("fp32", None, False)):
+            model = ctor(**cfg, fold_bn=fold, dtype=dtype, device=dev).eval()
+            model.load_state_dict(from_jax_params(fold_batch_norm(t) if fold else t,
+                                                  model.jax_stages), strict=True)
+            models[(fam, config)] = model
+        n = sum(p.numel() for p in models[(fam, "bf16")].parameters())
+        print(f"{fam} preset: {n / 1e6:.1f} M parameters (folded)")
+    return models
+
+
+def zoo5_flash_op_line(what, b, heads, nq, nk, d, dv, biased, gen, smi):
+    """Kernel 4 at a ZOO5_FLASH shape at batch ``b`` on the model's views,
+    bf16: its time, its twin's, SDPA's (the bias as its float mask, in
+    bf16) and its bound, and its launch in device time. Returns (kernel,
+    twin, library, (bound, bound_by)) in ms."""
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    scale = d**-0.5
+    with torch.inference_mode():
+        _, q, k, v, bias = zoo5_attention_inputs(gen, b, heads, nq, nk, d, dv, biased)
+        mask = None if bias is None else bias.bfloat16()
+        kernel = lambda: fa.flash_attention(q, k, v, bias, scale=scale)
+        kern = cuda_ms(kernel, iters=10)
+        plain = cuda_ms(lambda: fa.reference_attention(q, k, v, bias, scale=scale), iters=3,
+                        warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                             scale=scale), iters=10)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + b * nq * heads * dv)
+        bnd = bound(2 * b * heads * nq * nk * (d + dv),
+                    nbytes=nbytes + (0 if bias is None else 4 * bias.numel()))
+        split = launch_ms(kernel, 1)
+    print(f"op flash_attention {what} (q [{b}, {heads}, {nq}, {d}], k / v {nk} keys, Dv {dv}"
+          + (f", fp32 bias [1, {heads}, {nq}, {nk}]" if biased else "")
+          + f") batch {b} bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms "
+          f"(SDPA, {sdpa_backend(q, k, v, mask)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
+          f"{bnd[0] / kern:.1%} of it); device "
+          + ", ".join(f"{n} {t:.4f} ms" for n, (_, t) in zip(kernel_names(split), split))
+          + f" [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def phase_zoo5(dev, smi, requests):
+    """Phase 15: the kernels at CvT's and LeViT's shapes
+    (``phase_zoo5_kernels``); both presets folded and served
+    (serve_families; the control is the unfolded fp32 model); the op lines
+    (kernel 4 at the eight attention shapes, kernel 2 at the six MLP
+    shapes, batch 128)."""
+    t_phase = time.perf_counter()
+    phase_zoo5_kernels(dev)
+    t0 = time.perf_counter()
+    models = build_zoo5_models(dev)
+    print(f"zoo slice 5 weights drawn, folded and loaded in {time.perf_counter() - t0:.1f} s")
+    serve_families(models, ZOO5_FAMILIES, dev, smi, requests)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    for what, *shape in ZOO5_FLASH:
+        zoo5_flash_op_line(what, 128, *shape, gen, smi)
+    for what, n, dim, f, eps, act in ZOO5_MLP:
+        fused_mlp_op_line(what, 128, n, dim, f, eps, gen, smi, activation=act)
+    print(f"phase 15 (CvT and LeViT) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -3819,6 +4156,9 @@ def main() -> int:
 
     # 14. the zoo's fourth slice: the ScalableViT and RegionViT presets
     phase_zoo4(dev, smi, requests)
+
+    # 15. the zoo's fifth slice: the CvT and LeViT presets, folded
+    phase_zoo5(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

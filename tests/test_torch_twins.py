@@ -158,8 +158,14 @@ def test_conv_modules_match_flax(module, dtype):
 
 
 def test_conv_mlp_batch_norm_raises():
-    with pytest.raises(NotImplementedError, match="LeViT"):
-        ConvMLP(8, batch_norm=True, device="cpu")
+    """The BatchNorm branch builds (``up``, ``bn1``, ``down``, ``bn2``, no
+    biases unfolded); its BatchNorms raise in training mode, which the port
+    does not have (tests/test_torch_cvt_levit.py holds the branch against
+    flax)."""
+    m = ConvMLP(8, batch_norm=True, device="cpu")
+    assert m.bn1 is not None and m.bn2 is not None and m.up.bias is None
+    with pytest.raises(NotImplementedError, match="training"):
+        m.bn1(torch.zeros(1, 2, 2, 32), train=True)
 
 
 def test_layer_norm_dtype_is_flax():

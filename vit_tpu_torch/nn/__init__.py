@@ -3,6 +3,7 @@
 from vit_tpu_torch.nn.attention import Attention, mha_tokens  # noqa: F401
 from vit_tpu_torch.nn.bias import (  # noqa: F401
     DynamicPositionBias,
+    LeViTAttentionBias,
     ReferenceWindowRelPosBias,
     WindowRelPosBias,
 )
@@ -20,6 +21,7 @@ from vit_tpu_torch.nn.conv import (  # noqa: F401
 )
 from vit_tpu_torch.nn.embed import (  # noqa: F401
     SPT,
+    BatchNorm,
     Dense,
     LayerNorm,
     PatchEmbed,

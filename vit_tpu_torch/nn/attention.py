@@ -90,15 +90,16 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def mha_tokens(q, k, v, heads: int, *, scale=None) -> torch.Tensor:
+def mha_tokens(q, k, v, heads: int, *, scale=None, bias=None) -> torch.Tensor:
     """Multi-head attention over token layouts ``[B, N, H*D]`` -> ``[B, N,
     H*Dv]`` (``vit_tpu/nn/attention.py:70-91``): split the heads, one
-    ``ops.attention`` (the flash kernel on the card), merge the heads. The
-    splits are views; on the card merging the heads is one too."""
+    ``ops.attention`` (the flash kernel on the card) with the additive
+    ``bias`` ``[B|1, H|1, Nq, Nk]`` where given, merge the heads. The splits
+    are views; on the card merging the heads is one too."""
     q, k, v = (split_heads(t, heads) for t in (q, k, v))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return merge_heads(ops.attention(q, k, v, scale=scale))
+    return merge_heads(ops.attention(q, k, v, bias, scale=scale))
 
 
 def _einsum(eq, a, b, dtype=torch.float32):

@@ -1,6 +1,6 @@
 """Relative-position attention-bias tables (port of ``vit_tpu/nn/bias.py``):
-RegionViT's ``WindowRelPosBias`` and ``ReferenceWindowRelPosBias``, and
-CrossFormer's ``DynamicPositionBias``.
+LeViT's ``LeViTAttentionBias``, RegionViT's ``WindowRelPosBias`` and
+``ReferenceWindowRelPosBias``, and CrossFormer's ``DynamicPositionBias``.
 
 Each produces the additive fp32 ``bias`` that a window or attention kernel
 adds to its scores. Plain PyTorch: ``vit_tpu`` computes the tables outside
@@ -8,6 +8,8 @@ every Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +35,30 @@ class Embed(nn.Module):
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         return self.embedding[idx]
+
+
+class LeViTAttentionBias(nn.Module):
+    """LeViT's learned bias indexed by ``(|dy|, |dx|)``: a table
+    ``pos_bias/embedding`` ``[kv_side**2, heads]``, read at ``|dy| * kv_side
+    + |dx|`` for each query of the ``q_side`` x ``q_side`` map at its
+    coordinates times ``q_stride`` (2 on a downsampling layer) against each
+    key of the ``kv_side`` x ``kv_side`` map (the index a buffer, on the
+    model's device). ``forward()`` returns fp32 ``[1, heads, q_side**2,
+    kv_side**2]``."""
+
+    def __init__(self, heads: int, fmap_size: int, q_fmap_size: Optional[int] = None,
+                 q_stride: int = 1, *, device="cuda"):
+        super().__init__()
+        kv_side = fmap_size
+        q_side = q_fmap_size or kv_side
+        self.pos_bias = Embed(kv_side * kv_side, heads, device=device)
+        q_coords = _grid_coords(q_side, q_side) * q_stride
+        rel = np.abs(q_coords[:, None, :] - _grid_coords(kv_side, kv_side)[None, :, :])
+        self.register_buffer("index", torch.as_tensor(rel[..., 0] * kv_side + rel[..., 1],
+                                                      device=device), persistent=False)
+
+    def forward(self) -> torch.Tensor:
+        return self.pos_bias(self.index).permute(2, 0, 1)[None]
 
 
 class _TableBias(nn.Module):

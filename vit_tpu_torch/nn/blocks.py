@@ -25,20 +25,26 @@ from vit_tpu_torch.nn.embed import LayerNorm
 class FeedForward(nn.Module):
     """Pre-norm MLP ``LN -> Dense -> activation -> Dense`` as one
     ``ops.mlp`` call. Parameters keep ``vit_tpu``'s names and layout
-    (``w1 [D, F]``, ``w2 [F, D]``); the residual add stays with the caller,
-    as in the JAX module."""
+    (``w1 [D, F]``, ``w2 [F, dim_out]``, ``dim_out`` None: D); the residual
+    add stays with the caller, as in the JAX module. ``pre_norm=False`` has
+    no LayerNorm and no ``ln_*`` parameters (LeViT's MLP): the kernel runs
+    without its LayerNorm prologue. The kernel takes ``dim_out == D`` only,
+    as ``vit_tpu``'s Pallas kernel does; another ``dim_out`` runs on the
+    plain twin and raises on the card."""
 
     def __init__(self, dim: int, hidden_dim: int, *, activation: str = "gelu",
-                 ln_eps: float = 1e-6, dtype: Optional[torch.dtype] = None, device="cuda"):
+                 ln_eps: float = 1e-6, pre_norm: bool = True, dim_out: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
+        dim_out = dim_out or dim
         self.activation, self.ln_eps, self.dtype = activation, ln_eps, dtype
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         self.w1 = p(dim, hidden_dim)
         self.b1 = p(hidden_dim)
-        self.w2 = p(hidden_dim, dim)
-        self.b2 = p(dim)
-        self.ln_scale = p(dim, fill=1.0)
-        self.ln_bias = p(dim)
+        self.w2 = p(hidden_dim, dim_out)
+        self.b2 = p(dim_out)
+        self.ln_scale = p(dim, fill=1.0) if pre_norm else None
+        self.ln_bias = p(dim) if pre_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or x.dtype

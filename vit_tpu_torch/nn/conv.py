@@ -1,12 +1,13 @@
 """Convolutional modules over NHWC feature maps (port of ``vit_tpu/nn/conv.py``:
-``PEG``, ``Downsample``, ``PatchEmbedding``, ``DepthWiseConv2d`` without
-BatchNorm, PiT's ``Pool``, CrossFormer's ``CrossEmbedLayer``, NesT's
-``Aggregate`` and the LayerNorm branch of ``ConvMLP``, on a flax-``nn.Conv``
-container).
+``PEG``, ``Downsample``, ``PatchEmbedding``, ``DepthWiseConv2d`` (PiT's
+flavour, and CvT's with an inference BatchNorm, folded or not), PiT's
+``Pool``, CrossFormer's ``CrossEmbedLayer``, NesT's ``Aggregate`` and both
+branches of ``ConvMLP``, on a flax-``nn.Conv`` container).
 
 The convolutions lie outside every TPU kernel (XLA ran them on the TPU), so
-they are ``F.conv2d``; ``ConvMLP`` is the fused MLP kernel over the token
-view, as in the JAX package.
+they are ``F.conv2d``; ``ConvMLP``'s token branch is the fused MLP kernel
+over the token view, as in the JAX package, and its BatchNorm branch is
+plain PyTorch, as ``vit_tpu``'s is plain XLA.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from torch import nn
 
 from vit_tpu_torch.core.utils import cdiv, pair
 from vit_tpu_torch.nn.blocks import FeedForward
-from vit_tpu_torch.nn.embed import Dense, LayerNorm
+from vit_tpu_torch.nn.embed import BatchNorm, Dense, LayerNorm
+from vit_tpu_torch.ops.fused_mlp import _activate
 
 
 def same_padding(n: int, k: int, s: int) -> tuple:
@@ -107,23 +109,29 @@ class Downsample(nn.Module):
 
 class DepthWiseConv2d(nn.Module):
     """A depthwise conv (``depthwise``: ``dim_in`` groups, SAME padding,
-    stride ``stride``) then a 1x1 conv (``pointwise``), both with a bias:
-    the PiT flavour of ``vit_tpu``'s module. CvT's BatchNorm between the two
-    is not ported."""
+    stride ``stride``), then with ``batch_norm`` a BatchNorm (``bn``, eps
+    1e-5, in ``dtype``: CvT's projections), then a 1x1 conv (``pointwise``).
+    ``use_bias`` gives both convs a bias (PiT's flavour: no BatchNorm). With
+    ``fold_bn`` the BatchNorm is folded into the depthwise conv
+    (``utils.fold_batch_norm``): there is no ``bn``, and the depthwise conv
+    has a bias whatever ``use_bias``, added in ``dtype`` after the
+    convolution's rounding, as flax adds it."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int, *,
-                 batch_norm: bool = False, dtype: Optional[torch.dtype] = None, device="cuda"):
+                 use_bias: bool = True, batch_norm: bool = False, fold_bn: bool = False,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "DepthWiseConv2d with batch_norm (CvT) is not ported yet (ROADMAP.md Queue 1 "
-                "item 6)")
+        folded = batch_norm and fold_bn
         self.depthwise = Conv(dim_in, dim_in, kernel_size, strides=stride,
-                              feature_group_count=dim_in, dtype=dtype, device=device)
-        self.pointwise = Conv(dim_in, dim_out, 1, dtype=dtype, device=device)
+                              feature_group_count=dim_in, use_bias=use_bias or folded,
+                              dtype=dtype, device=device)
+        self.bn = (BatchNorm(dim_in, dtype=dtype, device=device)
+                   if batch_norm and not folded else None)
+        self.pointwise = Conv(dim_in, dim_out, 1, use_bias=use_bias, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise(self.depthwise(x))
+        x = self.depthwise(x)
+        return self.pointwise(x if self.bn is None else self.bn(x))
 
 
 class Pool(nn.Module):
@@ -214,19 +222,36 @@ class Aggregate(nn.Module):
 
 
 class ConvMLP(nn.Module):
-    """Conv-1x1 MLP over an NHWC map: the tokens of the map through
-    ``FeedForward`` (``ff``; LayerNorm eps 1e-5), one ``ops.mlp`` call."""
+    """Conv-1x1 MLP over an NHWC map, ``dim -> dim * mult -> dim_out`` (None:
+    ``dim``). Without ``batch_norm``: the tokens of the map through
+    ``FeedForward`` (``ff``; with ``pre_norm`` its LayerNorm of eps
+    ``ln_eps``), one ``ops.mlp`` call. With ``batch_norm`` (the LeViT
+    flavour of ``vit_tpu``, run by no model): 1x1 conv ``up``, BatchNorm
+    ``bn1``, hard-swish in ``dtype`` op by op, 1x1 conv ``down``, BatchNorm
+    ``bn2``, plain PyTorch; the convs have a bias only with ``fold_bn``,
+    where the two BatchNorms are folded into them."""
 
     def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu",
-                 batch_norm: bool = False, ln_eps: float = 1e-5,
+                 pre_norm: bool = True, batch_norm: bool = False, fold_bn: bool = False,
+                 dim_out: Optional[int] = None, ln_eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "ConvMLP with batch_norm (LeViT) is not ported yet (ROADMAP.md Queue 1 item 6)")
-        self.ff = FeedForward(dim, dim * mult, activation=activation, ln_eps=ln_eps, dtype=dtype,
-                              device=device)
+        dim_out = dim_out or dim
+        self.batch_norm = batch_norm
+        if not batch_norm:
+            self.ff = FeedForward(dim, dim * mult, activation=activation, ln_eps=ln_eps,
+                                  pre_norm=pre_norm, dim_out=dim_out, dtype=dtype, device=device)
+            return
+        kw = dict(dtype=dtype, device=device)
+        self.up = Conv(dim, dim * mult, 1, use_bias=fold_bn, **kw)
+        self.bn1 = None if fold_bn else BatchNorm(dim * mult, **kw)
+        self.down = Conv(dim * mult, dim_out, 1, use_bias=fold_bn, **kw)
+        self.bn2 = None if fold_bn else BatchNorm(dim_out, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.batch_norm:
+            norm = lambda bn, t: t if bn is None else bn(t)
+            h = _activate(norm(self.bn1, self.up(x)), "hard_swish")
+            return norm(self.bn2, self.down(h))
         b, h, w, c = x.shape
         return self.ff(x.reshape(b, h * w, c)).reshape(b, h, w, -1)

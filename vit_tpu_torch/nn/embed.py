@@ -1,6 +1,7 @@
-"""Patch embedding, the flax-named parameter containers, the token mean, and
-the token embedders of the small-dataset and merging families (port of
-``vit_tpu/nn/embed.py``: ``PatchEmbed``, ``SPT``, ``PatchMerger``)."""
+"""Patch embedding, the flax-named parameter containers (Dense, LayerNorm and
+the inference BatchNorm), the token mean, and the token embedders of the
+small-dataset and merging families (port of ``vit_tpu/nn/embed.py``:
+``PatchEmbed``, ``SPT``, ``PatchMerger``)."""
 
 from __future__ import annotations
 
@@ -90,6 +91,31 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         y = _ln_f32(x.float(), self.scale, 0.0 if self.bias is None else self.bias, self.eps)
         return y if self.dtype is None else y.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True, epsilon=eps, dtype=dtype)``
+    over the last axis, at inference only: fp32 parameters ``scale`` and
+    ``bias``, fp32 buffers ``mean`` and ``var`` (flax's ``batch_stats``).
+    flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    in fp32, rounded once to ``dtype`` (None: fp32, what flax infers from the
+    fp32 statistics). ``train=True`` raises: the port does not train."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
+
+    def forward(self, x, train: bool = False):
+        if train:
+            raise NotImplementedError("BatchNorm with batch statistics (training) is not ported "
+                                      "(ROADMAP.md Queue 1 item 7)")
+        y = (x.float() - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) + self.bias
+        return y.to(self.dtype or torch.float32)
 
 
 def mean_tokens(x: torch.Tensor) -> torch.Tensor:

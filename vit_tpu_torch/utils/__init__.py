@@ -1,5 +1,6 @@
 """Utilities of the port."""
 
+from vit_tpu_torch.utils.bn_folding import fold_batch_norm  # noqa: F401
 from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
 from vit_tpu_torch.utils.quantize import (  # noqa: F401
     W8A8_KERNEL_MIN_BATCH,

@@ -18,6 +18,9 @@ change:
   OIHW. Every leaf named ``kernel`` that is 4-D once unstacked is turned (a
   scanned conv kernel is 5-D and a scanned Dense kernel 3-D, so the turn
   comes after the unstacking).
+
+A BatchNorm's running statistics (``batch_stats/<path>/{mean, var}``) go
+to the buffers of the same path, beside the parameters.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ def from_jax_params(
     tree: Mapping[str, Any], stages: Optional[Mapping[str, Optional[int]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Convert a ``vit_tpu`` model's ``init`` variables (nested dicts of
-    numpy arrays, with or without the top ``params`` key) into a
+    numpy arrays, with or without the top ``params`` key; with
+    ``batch_stats`` beside ``params`` where the model has BatchNorms) into a
     ``state_dict`` for the port's model that loads with ``strict=True``.
 
     ``stages`` maps each stack's path prefix to its depth, as the port's
@@ -61,10 +65,16 @@ def from_jax_params(
     - ``<stage>/<name>`` -> ``<stage>.0.<name>`` (depth 1), and likewise the
       unscanned ``encoder/attn_0/<name>`` -> ``encoder.blocks.0.attn.<name>``;
     - every other ``a/b/c`` -> ``a.b.c``;
-    - a 4-D ``kernel`` (a conv's, HWIO) -> OIHW.
+    - a 4-D ``kernel`` (a conv's, HWIO) -> OIHW;
+    - ``batch_stats/<path>/{mean, var}`` -> ``<path>.{mean, var}``, by the
+      same rules.
     """
-    if "params" in tree:
-        tree = tree["params"]
+    leaves = _flatten(tree["params"] if "params" in tree else tree)
+    stats = _flatten(tree.get("batch_stats", {})) if "params" in tree else {}
+    shared = stats.keys() & leaves.keys()
+    if shared:
+        raise ValueError(f"batch_stats and params share paths: {sorted(shared)}")
+    leaves.update(stats)
     stages = {"encoder/blocks": None} if stages is None else stages
     state, seen = {}, set()
 
@@ -73,7 +83,7 @@ def from_jax_params(
             arr = arr.permute(3, 2, 0, 1).contiguous()
         state[key] = arr
 
-    for path, value in _flatten(tree).items():
+    for path, value in leaves.items():
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
         m = _UNSCANNED.match(path)
         if m and stages.get(f"{m['stage']}/blocks") == 1:
