@@ -177,7 +177,20 @@ Runs, in order, and exits non-zero at the first failure:
      flash, 14 MLP; no other kernel); logits against the unfolded plain fp32
      path (BatchNorm on the plain path) beside the folded plain bf16
      control, top-1 agreement; img/s, p50, device time by kernel; op lines
-     for kernels 4 and 2 at every new shape at batch 128.
+     for kernels 4 and 2 at every new shape at batch 128;
+ 16. ViT-MoE at the constructor of docs/MODELS.md:437-439 (224 px, dim 512,
+     depth 8, 8 heads of 64, MLP 2048, 8 experts, top-2, every second MLP
+     routed): the attention block and the MLP kernel at its shapes (197
+     tokens) at batch 8 and 128 against their twins; the model (random
+     weights from a seed, bf16) served through ``BatchingServer`` with the
+     launch counts per forward (8 attention blocks, 4 MLPs, no other
+     kernel: the MoE layers are plain PyTorch); logits against the plain
+     fp32 path beside the plain bf16 control, and the share of routes on
+     which the kernel path and the plain paths agree; img/s, p50, device
+     time by kernel; one MoE layer's device ms split into router, dispatch,
+     expert products and combine, its share of a forward and the share of
+     routed choices dropped; op lines for kernels 1 and 2 at batch 128;
+     ``python -m vit_tpu_torch smoke all`` on the card.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -332,11 +345,15 @@ FAMILY_LAUNCHES = {
             "attention_block": 0, "qkv_attention": 0, "window_attention_block": 0},
     "levit": {"flash_attention": 14, "fused_mlp": 14, "flash_attention_kv_blocked": 0,
               "attention_block": 0, "qkv_attention": 0, "window_attention_block": 0},
+    # ViT-MoE: 8 fused attention blocks, 4 dense MLPs; its 4 MoE layers run no kernel
+    "vit_moe": {"attention_block": 8, "fused_mlp": 4, "qkv_attention": 0, "flash_attention": 0,
+                "flash_attention_kv_blocked": 0, "window_attention_block": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
               "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
               "patch_merger_vit": 256, "vit_small_datasets": 256, "crossformer": 224,
-              "nest": 224, "scalable_vit": 256, "region_vit": 224, "cvt": 224, "levit": 224}
+              "nest": 224, "scalable_vit": 256, "region_vit": 224, "cvt": 224, "levit": 224,
+              "vit_moe": 224}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -358,7 +375,8 @@ ZOO_FAMILIES = ("pit", "simple_vit", "parallel_vit", "efficient")
 # (attn90::variant: the resident variant up to 13 key tiles at head width 64,
 # the streamed one beyond).
 ZOO_CORE = {962: "attention_sm90_streamed", 257: "attention_sm90_streamed",
-            256: "attention_sm90_streamed", 64: "attention_sm90_resident",
+            256: "attention_sm90_streamed", N_TOKENS: "attention_sm90_resident",
+            64: "attention_sm90_resident",
             65: "attention_sm90_resident", 17: "attention_sm90_resident",
             8: "attention_sm90_resident"}
 # Kernel 1 at each of the slice's shapes, as the models call it: (what,
@@ -497,6 +515,17 @@ ZOO5_MLP = tuple((f"CvT stage {s + 1}", n, c, 4 * c, 1e-5, "gelu") for s, (n, c)
                  enumerate(((3136, 64), (784, 192), (196, 384)))) + tuple(
     (f"LeViT {what}", n, c, 2 * c, None, "hard_swish") for what, n, c in
     (("stage 0", 196, 256), ("stage 1", 49, 384), ("stage 2", 16, 512)))
+
+# ViT-MoE at the constructor of docs/MODELS.md:437-439, 224 px, bf16. It is a
+# preset neither of vit_tpu nor of the port (vit_tpu/models/vit_moe.py:1-4: not
+# in MODEL_REGISTRY). 197 tokens at dim 512, 8 heads of 64: kernel 1 at every
+# layer's attention, kernel 2 at the dense MLPs of layers 0, 2, 4, 6; the MoE
+# layers 1, 3, 5, 7 (8 experts of F 2048, top-2, 62 slots an expert a sample)
+# are plain PyTorch, as vit_tpu computes them in XLA (nn/moe.py:117-130).
+VIT_MOE = dict(image_size=224, patch_size=16, num_classes=1000, dim=512, depth=8, heads=8,
+               mlp_dim=2048, num_experts=8, num_selected=2, moe_every=2)
+MOE_ATTN = (("ViT-MoE", N_TOKENS, 512, 8, 1e-6),)
+MOE_MLP = (("ViT-MoE", N_TOKENS, 512, 2048, 1e-6),)
 
 # The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
 # against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
@@ -1081,18 +1110,6 @@ def efficient_tree(c: dict, seed: int) -> dict:
     }}
 
 
-def build_efficient(c: dict, dtype=None, device="cuda"):
-    """The port's EfficientViT of config ``c``, its encoder the port's
-    ``Transformer`` of ``c["transformer"]``."""
-    from vit_tpu_torch.models import EfficientViT
-    from vit_tpu_torch.nn import Transformer
-
-    t = c["transformer"]
-    encoder = Transformer(t["dim"], t["depth"], t["heads"], t.get("dim_head", 64), t["mlp_dim"],
-                          dtype=dtype, device=device)
-    return EfficientViT(**{**c, "transformer": encoder}, dtype=dtype, device=device)
-
-
 
 def cross_vit_tree(c: dict, seed: int) -> dict:
     """A CrossViT variables tree of config ``c`` (``CrossViT``'s keyword
@@ -1482,6 +1499,37 @@ def levit_tree(c: dict, seed: int) -> dict:
         params["distill_head"] = {"kernel": w.lecun(dims[-1], c["num_distill_classes"]),
                                   "bias": w.zeros(c["num_distill_classes"])}
     return {"params": params, "batch_stats": stats}
+
+
+def vit_moe_tree(c: dict, seed: int) -> dict:
+    """A ViT-MoE variables tree of config ``c`` (``ViTMoE``'s keyword
+    arguments; its defaults for the rest) in ``vit_tpu``'s layout, drawn as
+    ``init`` draws it: nothing scanned; each layer's ``attn_{i}``, then
+    ``moe_{i}`` (every ``moe_every``-th) or ``ff_{i}``. flax's lecun-normal
+    fan-in of an ``[E, D, F]`` expert table is E * D, all but its last axis
+    (``lecun_conv``'s rule)."""
+    import inspect
+
+    from vit_tpu_torch.models import ViTMoE
+
+    w = _Init(seed)
+    c = {**{k: p.default for k, p in inspect.signature(ViTMoE).parameters.items()
+            if p.default is not inspect.Parameter.empty}, **c}
+    dim, mlp, e = c["dim"], c["mlp_dim"], c["num_experts"]
+    n_tokens = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    params = {"patch_embed": _patch_embed(w, c), "cls": w.tokens(1, 1, dim),
+              "pos_embedding": w.tokens(1, n_tokens, dim)}
+    for i in range(c["depth"]):
+        params[f"attn_{i}"] = _squeeze_depth(_raw_attn(w, 1, dim, c["heads"] * c["dim_head"]))
+        if (i + 1) % c["moe_every"] == 0:
+            params[f"moe_{i}"] = {
+                "expert_w1": w.lecun_conv(e, dim, mlp), "expert_b1": w.zeros(e, mlp),
+                "expert_w2": w.lecun_conv(e, mlp, dim), "expert_b2": w.zeros(e, dim),
+                "ln_scale": w.ones(dim), "ln_bias": w.zeros(dim),
+                "router": {"kernel": w.lecun(dim, e), "bias": w.zeros(e)}}
+        else:
+            params[f"ff_{i}"] = _squeeze_depth(_ff(w, 1, dim, mlp))
+    return {"params": {**params, **_head(w, c)}}
 
 
 # -- phases -------------------------------------------------------------------
@@ -3253,7 +3301,7 @@ def build_family_models(ctors):
 
 def build_zoo_models(dev):
     """The PiT, SimpleViT, ParallelViT and EfficientViT presets."""
-    from vit_tpu_torch.models import ParallelViT, PiT, SimpleViT
+    from vit_tpu_torch.models import EfficientViT, ParallelViT, PiT, SimpleViT
 
     return build_family_models({
         "pit": (lambda dt: PiT(**PIT, dtype=dt, device=dev), lambda: pit_tree(PIT, SEED + 16)),
@@ -3261,7 +3309,7 @@ def build_zoo_models(dev):
                        lambda: simple_vit_tree(SIMPLE_VIT, SEED + 17)),
         "parallel_vit": (lambda dt: ParallelViT(**PARALLEL_VIT, dtype=dt, device=dev),
                          lambda: parallel_vit_tree(PARALLEL_VIT, SEED + 18)),
-        "efficient": (lambda dt: build_efficient(EFFICIENT, dt, dev),
+        "efficient": (lambda dt: EfficientViT(**EFFICIENT, dtype=dt, device=dev),
                       lambda: efficient_tree(EFFICIENT, SEED + 19))})
 
 
@@ -4028,6 +4076,132 @@ def phase_zoo5(dev, smi, requests):
     print(f"phase 15 (CvT and LeViT) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
+# -- ViT-MoE: routed expert MLPs beside kernels 1 and 2 -------------------------
+
+
+def build_vit_moe_models(dev):
+    """The ViT-MoE constructor of VIT_MOE from weights drawn with a seed."""
+    from vit_tpu_torch.models import ViTMoE
+
+    return build_family_models({"vit_moe": (lambda dt: ViTMoE(**VIT_MOE, dtype=dt, device=dev),
+                                            lambda: vit_moe_tree(VIT_MOE, SEED + 44))})
+
+
+def moe_routes(model, x, plain=False):
+    """The experts that each MoE layer of ``model`` picks for the tokens of
+    ``x`` (``[layers, B, S, k]``), on the kernel path or, with ``plain``, the
+    plain path (``force_backend``)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.nn import MoEFeedForward
+
+    routes = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: routes.append(m.route(a[0])[2]))
+             for m in model.modules() if isinstance(m, MoEFeedForward)]
+    try:
+        with torch.inference_mode(), (ops.force_backend("torch") if plain
+                                      else contextlib.nullcontext()):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.stack(routes)
+
+
+def moe_route_agreement(models, dev, requests):
+    """The share of (token, choice) routes on which the bf16 kernel path
+    agrees with the plain bf16 path and with the plain fp32 path, on the 8
+    inputs of ``phase_family_e2e``: a near-tied top-2 choice can flip."""
+    from vit_tpu_torch.pipeline import preprocess
+
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    x16 = preprocess(raw, image_size=IMAGE_SIZE["vit_moe"], dtype=torch.bfloat16)
+    x32 = preprocess(raw, image_size=IMAGE_SIZE["vit_moe"], dtype=torch.float32)
+    kern = moe_routes(models[("vit_moe", "bf16")], x16)
+    plain = moe_routes(models[("vit_moe", "bf16")], x16, plain=True)
+    fp32 = moe_routes(models[("vit_moe", "fp32")], x32, plain=True)
+    same = (kern == plain).float().mean().item()
+    same32 = (kern == fp32).float().mean().item()
+    control = (plain == fp32).float().mean().item()
+    print(f"e2e vit_moe routes: {kern.numel()} (token, choice) routes over {kern.shape[0]} MoE "
+          f"layers; bf16 kernel path agrees with the plain bf16 path on {same:.4f}, with plain "
+          f"fp32 on {same32:.4f} (plain bf16 with plain fp32: {control:.4f})")
+    require(same > 0.9, f"vit_moe: the kernel path's routes agree with the plain path's on only "
+            f"{same:.4f}")
+
+
+def moe_layer_line(model, dev, smi, layer="moe_1"):
+    """One MoE layer of ``model`` at batch 128 on the activations the model
+    feeds it: its device ms split into the router and top-k, positions and
+    dispatch, the two expert products, and the combine; its share of a
+    forward; the share of routed choices dropped at the capacity."""
+    from vit_tpu_torch.nn import moe
+
+    m = getattr(model, layer)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    img = torch.randn(128, 224, 224, 3, generator=gen, device=dev).bfloat16()
+    got = []
+    hook = m.register_forward_pre_hook(lambda mod, a: got.append(a[0]))
+    with torch.inference_mode():
+        model(img)
+    hook.remove()
+    x = got[0]
+    b, s, d = x.shape
+    e, k = m.num_experts, m.num_selected
+    cap = moe.expert_capacity(s, k, e, m.capacity_factor)
+    with torch.inference_mode():
+        xn, _, idx, gates = m.route(x)
+        pos, keep = moe.positions(idx, e, cap)
+        h = moe.dispatch(xn, idx, pos, keep, e, cap, x.dtype)
+        out = m.experts(h)
+        t = {"router + top-k": cuda_ms(lambda: m.route(x), iters=10),
+             "positions + dispatch": cuda_ms(lambda: moe.dispatch(
+                 xn, idx, *moe.positions(idx, e, cap), e, cap, x.dtype), iters=10),
+             "expert products": cuda_ms(lambda: m.experts(h), iters=10),
+             "combine": cuda_ms(lambda: moe.combine(out, idx, pos, keep, gates, cap).to(x.dtype),
+                                iters=10)}
+        layer_ms = cuda_ms(lambda: m(x), iters=10)
+        fwd = cuda_ms(lambda: model(img), iters=3, warmup=1)
+    flops = 2 * 2 * e * b * cap * d * m.expert_w1.shape[-1]
+    n_moe = sum(1 for name, _ in model.named_children() if name.startswith("moe_"))
+    dropped = 1.0 - keep.float().mean().item()
+    print(f"op moe layer {layer} ([{b}, {s}, {d}], {e} experts of F {m.expert_w1.shape[-1]}, "
+          f"top-{k}, {cap} slots an expert a sample) batch {b} bf16: {layer_ms:.4f} ms = "
+          + ", ".join(f"{part} {ms:.4f}" for part, ms in t.items())
+          + f" ms (each timed alone); expert products {flops / 1e12:.3f} TFLOP "
+          f"({flops / t['expert products'] / 1e9:.1f} TFLOP/s, bound {flops / PEAK_BF16 * 1e3:.4f} "
+          f"ms); {n_moe} layers {n_moe * layer_ms:.3f} of a {fwd:.3f} ms forward "
+          f"({n_moe * layer_ms / fwd:.1%}); {dropped:.4f} of the {keep.numel()} routed choices "
+          f"dropped [{smi}]")
+
+
+def phase_vit_moe(dev, smi, requests):
+    """Phase 16: kernels 1 and 2 at ViT-MoE's shapes (``phase_zoo_kernels``);
+    the model served (serve_families) with the routes of the kernel path
+    against the plain paths; one MoE layer's split; the op lines (kernels 1
+    and 2, batch 128); ``python -m vit_tpu_torch smoke all`` on the card."""
+    from vit_tpu_torch.__main__ import main as cli
+
+    t_phase = time.perf_counter()
+    phase_zoo_kernels(dev, MOE_ATTN, MOE_MLP, (), SEED + 43)
+    t0 = time.perf_counter()
+    models = build_vit_moe_models(dev)
+    print(f"ViT-MoE weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    serve_families(models, ("vit_moe",), dev, smi, requests)
+    moe_route_agreement(models, dev, requests)
+    moe_layer_line(models[("vit_moe", "bf16")], dev, smi)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    attention_block_op_line("ViT-MoE", 128, *MOE_ATTN[0][1:], gen, smi)
+    fused_mlp_op_line("ViT-MoE", 128, *MOE_MLP[0][1:], gen, smi)
+    t0 = time.perf_counter()
+    rc = cli(["smoke", "all"])
+    print(f"python -m vit_tpu_torch smoke all on the card: rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(rc == 0, f"python -m vit_tpu_torch smoke all returned {rc} on the card")
+    print(f"phase 16 (ViT-MoE) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4159,6 +4333,9 @@ def main() -> int:
 
     # 15. the zoo's fifth slice: the CvT and LeViT presets, folded
     phase_zoo5(dev, smi, requests)
+
+    # 16. ViT-MoE (routed expert MLPs beside kernels 1 and 2); the CLI on the card
+    phase_vit_moe(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -27,7 +27,6 @@ from chip_smoke import (
     PARALLEL_VIT,
     SIMPLE_VIT,
     ZOO_MLP,
-    build_efficient,
     efficient_tree,
     kernel_tol,
     parallel_vit_tree,
@@ -107,7 +106,7 @@ def _jax_model(fam, cfg, dtype=None):
 
 def _port_model(fam, cfg, dtype=None, device="cpu"):
     if fam == "efficient":
-        return build_efficient(cfg, dtype, device)
+        return EfficientViT(**cfg, dtype=dtype, device=device)
     return {"simple_vit": SimpleViT, "parallel_vit": ParallelViT}[fam](**cfg, dtype=dtype,
                                                                       device=device)
 

@@ -11,14 +11,18 @@ layout and names so each module has an obvious counterpart:
                                self-attention blocks, with CaiT's talking
                                heads or DeepViT's re-attention, CaiT's class
                                cross-attention, ``mha_tokens``), feed-forward
-                               block, encoder stack, conv modules (PEG,
-                               patch embedding, conv MLP).
-- ``vit_tpu_torch.models``   — ``ViT``, ``DeepViT``, ``CaiT``, ``TwinsSVT``,
-                               ``T2TViT``.
+                               block, the routed expert MLP (MoE), encoder
+                               stack, conv modules (PEG, patch embedding,
+                               conv MLP).
+- ``vit_tpu_torch.models``   — the 18 families of ``vit_tpu/models`` and
+                               ``ViTMoE``; ``MODEL_REGISTRY`` (tiny configs),
+                               ``REFERENCE_PRESETS`` and ``create``.
 - ``vit_tpu_torch.utils``    — ``from_jax_params`` / ``from_jax_quant``:
                                ``vit_tpu`` trees -> this package's
                                ``state_dict``; ``quantize_vit`` -> ``QuantViT``,
-                               the int8 (W8A8) ViT.
+                               the int8 (W8A8) ViT; ``fold_batch_norm``;
+                               position-table resizing (``pos_embed``).
+- ``python -m vit_tpu_torch`` — ``list``, ``smoke``, ``version``.
 - ``vit_tpu_torch.pipeline`` — on-device preprocess + bucketed batches.
 - ``vit_tpu_torch.data``     — native JPEG decode front-end.
 - ``vit_tpu_torch.serving``  — dynamic request batching.

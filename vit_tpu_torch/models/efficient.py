@@ -3,25 +3,27 @@
 
 Patch embedding, cls token and positional embedding, then any encoder
 module ``transformer(x)`` (the port's ``Transformer``, or another efficient
-stack), then the cls token or the mean of the tokens through a LayerNorm and
-a Dense head in fp32. The encoder's parameters sit under ``transformer``, as
+stack; or a dict of the port ``Transformer``'s keyword arguments, which the
+shell builds in its own dtype and on its device), then the cls token or the
+mean of the tokens through a LayerNorm and a Dense head in fp32. The encoder's parameters sit under ``transformer``, as
 in ``vit_tpu``'s tree; ``jax_stages`` takes the encoder's own stacked
 prefixes (``transformer.jax_stages``, where it has them).
 
 Parameters are zeros and ones at construction, on the card unless the
-caller passes ``device="cpu"`` (the encoder is built by the caller, on the
-same device); ``from_jax_params(tree, model.jax_stages)`` converts a
+caller passes ``device="cpu"`` (an encoder module is built by the caller,
+on the same device); ``from_jax_params(tree, model.jax_stages)`` converts a
 ``vit_tpu`` variables tree.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Mapping, Optional, Union
 
 import torch
 from torch import nn
 
 from vit_tpu_torch.core.utils import pair
+from vit_tpu_torch.nn.blocks import Transformer
 from vit_tpu_torch.nn.embed import Dense, LayerNorm, PatchEmbed, mean_tokens
 
 
@@ -34,8 +36,8 @@ class EfficientViT(nn.Module):
     encoder_name = "transformer"
 
     def __init__(self, *, image_size: int, patch_size: int, num_classes: int, dim: int,
-                 transformer: nn.Module, pool: str = "cls", channels: int = 3,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 transformer: Union[nn.Module, Mapping[str, Any]], pool: str = "cls",
+                 channels: int = 3, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         ih, iw = pair(image_size)
         ph, pw = pair(patch_size)
@@ -47,6 +49,8 @@ class EfficientViT(nn.Module):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
         self.pool = pool
         num_patches = (ih // ph) * (iw // pw)
+        if isinstance(transformer, Mapping):
+            transformer = Transformer(**transformer, dtype=dtype, device=device)
         self.patch_embed = PatchEmbed(dim, ph, channels, out_dtype=dtype, device=device)
         self.cls = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embedding = nn.Parameter(torch.zeros(1, num_patches + 1, dim, device=device))

@@ -28,3 +28,5 @@ from vit_tpu_torch.nn.embed import (  # noqa: F401
     PatchMerger,
     mean_tokens,
 )
+from vit_tpu_torch.nn.identity import Identity  # noqa: F401
+from vit_tpu_torch.nn.moe import MoEFeedForward  # noqa: F401
