@@ -190,7 +190,22 @@ Runs, in order, and exits non-zero at the first failure:
      time by kernel; one MoE layer's device ms split into router, dispatch,
      expert products and combine, its share of a forward and the share of
      routed choices dropped; op lines for kernels 1 and 2 at batch 128;
-     ``python -m vit_tpu_torch smoke all`` on the card.
+     ``python -m vit_tpu_torch smoke all`` on the card;
+ 17. training ViT-L/16 @224 in bf16 at full width and depth: the autograd
+     Functions of kernels 1 and 2 (``ops.AttentionBlockFn``, ``ops.MlpFn``:
+     the kernel forward, the twin's recompute backward) against autograd
+     through their twins at ViT-L's layer shapes, batch 8 and 128, every
+     input and weight gradient within kernel_tol's form, with planted
+     backward faults (the residual's identity term dropped; the LayerNorm
+     gradients swapped) failing it; one step at batch 8, the kernel path's
+     loss and per-parameter gradients against the plain bf16 and fp32
+     paths (each within GRAD_RATIO of the plain bf16 path's distance from
+     fp32; every gradient present and finite); eight AdamW steps at batch
+     128 through ``vit_tpu_torch.train`` with remat (the loss must fall;
+     exactly TRAIN_LAUNCHES and TRAIN_RECOMPUTES a step), with train img/s,
+     step ms, peak memory and one step's device busy share and top
+     operations; ``python -m vit_tpu_torch.train`` with
+     ``--checkpoint-dir``, then ``--resume``.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -653,6 +668,135 @@ def check_close(name, out, ref, base):
     require(torch.isfinite(out.float()).all().item(), f"{name}: non-finite output")
     require(err <= tol, f"{name}: error {err} > {tol}")
     return err
+
+
+# -- phase 17 helpers: the autograd Functions of kernels 1 and 2 ------------------
+
+FN_ARGS = {"attention_block": ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout"),
+           "fused_mlp": ("x", "w1", "b1", "w2", "b2", "ln_scale", "ln_bias")}
+# Faults planted in a Function's backward, each of which the gradient bound
+# must see: the residual's identity term dropped from x's gradient, and the
+# gradients of ln_scale and ln_bias (both [D]) returned in each other's slots.
+FUNCTION_FAULTS = ("residual identity dropped", "ln_scale and ln_bias gradients swapped")
+# Skipping the cotangent cast is no fault in PyTorch: the engine hands every
+# backward its cotangent in its output's dtype (x's), so ``g.to(x.dtype)``
+# never changes a value. It is checked to give the same gradients bit for bit.
+CAST_SKIPPED = "cotangent cast skipped"
+
+
+def twin_forward(kind):
+    """The plain twin of kernel ``kind`` with its kernel wrapper's signature:
+    a Function's forward in its place runs the twin on the CPU."""
+    from vit_tpu_torch import ops
+
+    return ops.xla_attention_block if kind == "attention_block" else ops.reference_mlp
+
+
+def function_twin(kind, kw):
+    """The plain twin of kernel ``kind`` (``FN_ARGS``) with its options."""
+    ba = importlib.import_module("vit_tpu_torch.ops.block_attention")
+    fm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
+
+    if kind == "attention_block":
+        return lambda *a: ba.xla_attention_block(*a, kw["heads"], kw["scale"], kw["ln_eps"],
+                                                 kw.get("true_n"), kw.get("block_tokens"))
+    return lambda *a: fm.reference_mlp(*a, activation=kw["activation"],
+                                       residual=kw["residual"], ln_eps=kw["ln_eps"])
+
+
+def function_grads(kind, args, kw, g, forward=None):
+    """Input and weight gradients of kernel ``kind``'s autograd Function
+    (``ops.AttentionBlockFn`` / ``ops.MlpFn``) at cotangent ``g``: forward
+    through ``forward`` (None: the kernel wrapper), backward its recompute
+    through the twin. ``args`` in ``FN_ARGS`` order, None where absent."""
+    from vit_tpu_torch import ops
+
+    leaves = [None if a is None else a.detach().requires_grad_() for a in args]
+    if kind == "attention_block":
+        out = ops.AttentionBlockFn.apply(forward or ops.fused_attention_block, *leaves,
+                                         kw["heads"], kw["scale"], kw["ln_eps"],
+                                         kw.get("true_n"), kw.get("block_tokens"))
+    else:
+        out = ops.MlpFn.apply(forward or ops.fused_mlp, *leaves, kw["activation"],
+                              kw["residual"], kw["ln_eps"])
+    present = [a for a in leaves if a is not None]
+    grads = iter(torch.autograd.grad(out, present, g))
+    return [None if a is None else next(grads) for a in leaves]
+
+
+def twin_grads(kind, args, kw, g):
+    """The same gradients by autograd through the twin directly."""
+    leaves = [None if a is None else a.detach().requires_grad_() for a in args]
+    out = function_twin(kind, kw)(*leaves)
+    present = [a for a in leaves if a is not None]
+    grads = iter(torch.autograd.grad(out, present, g))
+    return [None if a is None else next(grads) for a in leaves]
+
+
+def faulty_grads(kind, args, kw, g, fault):
+    """The recompute backward of ``kind``'s Function with ``fault``
+    (``FUNCTION_FAULTS`` or ``CAST_SKIPPED``) planted, on the same inputs."""
+    from vit_tpu_torch.ops.block_attention import recompute_vjp
+
+    twin = function_twin(kind, kw)
+    need = [a is not None for a in args]
+    if fault == FUNCTION_FAULTS[0]:
+        return recompute_vjp(lambda x, *w: twin(x, *w) - x + x.detach(), args, need, g)
+    if fault == FUNCTION_FAULTS[1]:
+        grads = recompute_vjp(twin, args, need, g)
+        i, j = (FN_ARGS[kind].index(n) for n in ("ln_scale", "ln_bias"))
+        grads[i], grads[j] = grads[j], grads[i]
+        return grads
+    with torch.enable_grad():  # CAST_SKIPPED: recompute_vjp without g.to(x.dtype)
+        leaves = [None if a is None else a.detach().requires_grad_() for a in args]
+        present = [a for a in leaves if a is not None]
+        grads = iter(torch.autograd.grad(twin(*leaves), present, g))
+    return [None if a is None else next(grads) for a in leaves]
+
+
+def grad_errors(kind, grads, ref):
+    """(name, max |err|, kernel_tol of the reference gradient) for each
+    gradient present: ``kernel_tol``'s form applied to a gradient (2% of its
+    largest value, plus one bf16 ulp of it where it is bf16)."""
+    return [(name, (a.float() - b.float()).abs().max().item(), kernel_tol(b, None, b.dtype))
+            for name, a, b in zip(FN_ARGS[kind], grads, ref) if b is not None]
+
+
+def check_function(what, kind, args, kw, g, forward=None, faults=True):
+    """``kind``'s Function against autograd through its twin: every gradient
+    within ``grad_errors``' bound; each of ``FUNCTION_FAULTS`` that applies
+    must exceed it (the identity fault needs a residual), and
+    ``CAST_SKIPPED`` must give the same gradients. Returns the worst
+    error."""
+    from vit_tpu_torch import ops
+
+    with ops.force_backend("torch"):
+        ref = twin_grads(kind, args, kw, g)
+    grads = function_grads(kind, args, kw, g, forward)
+    worst = 0.0
+    for name, err, tol in grad_errors(kind, grads, ref):
+        print(f"function {kind} {what}: d{name} max_abs_err {err:.6g} tol {tol:.6g}")
+        require(err <= tol, f"function {kind} {what}: d{name} error {err} > {tol}")
+        worst = max(worst, err)
+    require(all(torch.isfinite(t.float()).all().item() for t in grads if t is not None),
+            f"function {kind} {what}: a non-finite gradient")
+    if not faults:
+        return worst
+    residual = kind == "attention_block" or kw["residual"]
+    for fault in FUNCTION_FAULTS[0 if residual else 1:]:
+        with ops.force_backend("torch"):
+            bad = faulty_grads(kind, args, kw, g, fault)
+        over = [(n, e, t) for n, e, t in grad_errors(kind, bad, ref) if e > t]
+        print(f"function {kind} {what}, planted '{fault}': over the bound at "
+              f"{[f'd{n} {e:.4g} > {t:.4g}' for n, e, t in over]} (must fail)")
+        require(bool(over), f"function {kind} {what}: the bound does not see '{fault}'")
+    with ops.force_backend("torch"):
+        same = faulty_grads(kind, args, kw, g, CAST_SKIPPED)
+    diff = max(e for _, e, _ in grad_errors(kind, same, ref))
+    print(f"function {kind} {what}, '{CAST_SKIPPED}': max |diff| {diff:.3g} from the twin "
+          f"(the cotangent arrives in x's dtype, {g.dtype}: no fault in PyTorch)")
+    require(diff == 0.0, f"function {kind} {what}: skipping the cotangent cast moved a gradient")
+    return worst
 
 
 def bf16_ulps(out, ref) -> float:
@@ -4202,6 +4346,261 @@ def phase_vit_moe(dev, smi, requests):
     print(f"phase 16 (ViT-MoE) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
+# -- phase 17: training ViT-L/16 on kernels 1 and 2 ----------------------------------
+
+TRAIN_BATCH = 128
+TRAIN_STEPS = (2, 6)  # untimed, then timed
+TRAIN_LR = 1e-4
+# Each parameter's gradient, kernel path against plain fp32, may be at most
+# this many times the plain bf16 path's distance from plain fp32.
+GRAD_RATIO = 1.5
+# Launches of a training step at depth 24 with remat: each block's forward,
+# then remat's recompute of it, on each kernel; and each Function's backward.
+TRAIN_LAUNCHES = {"attention_block": 48, "fused_mlp": 48}
+TRAIN_RECOMPUTES = {"attention_block": 24, "fused_mlp": 24}
+
+
+def phase_train_functions(dev):
+    """17a: kernel 1's and 2's autograd Functions against autograd through
+    their twins at ViT-L's layer shapes, batch 8 and 128 (``check_function``:
+    every gradient within kernel_tol's form, the planted faults failing it).
+    Kernel 2 with the residual off, as ``FeedForward`` calls it, and on, where
+    the identity fault applies."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    d = VIT_L["dim"]
+    for b in (8, TRAIN_BATCH):
+        a = attn_inputs(gen, b, N_TOKENS, d, VIT_L["heads"], VIT_L["dim_head"],
+                        torch.bfloat16, dev)
+        args = [a[k] for k in FN_ARGS["attention_block"]]
+        g = torch.randn(args[0].shape, generator=gen, device=dev).bfloat16()
+        kw = dict(heads=VIT_L["heads"], scale=VIT_L["dim_head"] ** -0.5, ln_eps=1e-6)
+        check_function(f"ViT-L [{b}, {N_TOKENS}, {d}]", "attention_block", args, kw, g)
+        del a, args
+        for residual in (False, True):
+            m = mlp_inputs(gen, N_TOKENS, d, VIT_L["mlp_dim"], torch.bfloat16, dev, b=b)
+            args = [m.get(k) for k in FN_ARGS["fused_mlp"]]
+            kw = dict(activation="gelu", residual=residual, ln_eps=1e-6)
+            check_function(f"ViT-L [{b}, {N_TOKENS}, {d}] F {VIT_L['mlp_dim']} residual "
+                           f"{residual}", "fused_mlp", args, kw, g)
+            del m, args
+        torch.cuda.empty_cache()
+
+
+def vit_l_train_model(dev, gen):
+    """ViT-L/16 in bf16 at full width and depth, drawn by ``init_params``."""
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils import init_params
+
+    return init_params(ViT(**VIT_L, dtype=torch.bfloat16, device=dev), gen)
+
+
+def rel_l2(a, b) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def phase_train_grads(dev):
+    """17b: one step's loss and gradients at full depth, batch 8: the kernel
+    path (kernels 1 and 2 forward, the Functions' recompute backward, remat)
+    against the plain bf16 path and plain fp32 (the twins, autograd through
+    them). Each parameter's relative L2 from fp32 must be at most
+    GRAD_RATIO times the plain bf16 path's; every encoder parameter gets a
+    finite gradient on the kernel path."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    model = vit_l_train_model(dev, gen)
+    model32 = ViT(**VIT_L, device=dev)
+    model32.load_state_dict(model.state_dict())
+    x = torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, VIT_L["num_classes"], (8,), generator=gen, device=dev)
+
+    def grads(m, plain, remat):
+        m.zero_grad(set_to_none=True)
+        scope = ops.force_backend("torch") if plain else contextlib.nullcontext()
+        with scope:
+            loss = cross_entropy_loss(m(x, train=True, remat=remat), y)
+            loss.backward()
+        return loss.item(), {k: None if p.grad is None else p.grad.detach().clone()
+                             for k, p in m.named_parameters()}
+
+    ops.reset_launch_counts()
+    loss_k, gk = grads(model, False, True)
+    counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+    loss_p, gp = grads(model, True, False)
+    loss_32, g32 = grads(model32, True, False)
+    del model, model32
+    torch.cuda.empty_cache()
+    print(f"train grads ViT-L batch 8: loss kernel {loss_k:.6f}, plain bf16 {loss_p:.6f}, "
+          f"plain fp32 {loss_32:.6f}; launches {counts['attention_block']} + "
+          f"{counts['fused_mlp']}, recomputes {recomputes}")
+    missing = [k for k, g in gk.items() if g is None or not torch.isfinite(g).all().item()]
+    require(not missing, f"train grads: no finite gradient on the kernel path for {missing[:5]}")
+    rows = []
+    for k in gk:
+        rk, rp = rel_l2(gk[k], g32[k]), rel_l2(gp[k], g32[k])
+        rows.append((rk / rp if rp > 0 else (0.0 if rk == 0 else float("inf")), k, rk, rp))
+    rows.sort(reverse=True)
+    for ratio, k, rk, rp in rows[:5]:
+        print(f"train grads {k}: rel L2 from fp32 kernel {rk:.4g}, plain bf16 {rp:.4g} "
+              f"(ratio {ratio:.3f}, bound {GRAD_RATIO})")
+    print(f"train grads: {len(rows)} parameter tensors, median ratio "
+          f"{statistics.median(r[0] for r in rows):.3f}, encoder params with a finite "
+          f"gradient {sum(k.startswith('encoder.') for k in gk)}")
+    require(rows[0][0] <= GRAD_RATIO,
+            f"train grads {rows[0][1]}: {rows[0][2]} from fp32, {rows[0][0]:.3f}x the plain "
+            f"bf16 path's {rows[0][3]}")
+    require(abs(loss_k - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), 1e-3),
+            f"train grads: loss {loss_k} from fp32 {loss_32} beyond {GRAD_RATIO}x the plain "
+            f"bf16 path's {loss_p}")
+
+
+def phase_train_steps(dev, smi):
+    """17c: ``vit_tpu_torch.train`` at ViT-L/16 @224, bf16, batch 128:
+    ``init_params`` from a seed, a fixed batch, AdamW at TRAIN_LR without
+    warmup, remat, TRAIN_STEPS[0] untimed steps (the second profiled) then
+    TRAIN_STEPS[1] timed ones (CUDA events, each ended by a read of its
+    loss). Requires finite losses, the last below the first, and exactly
+    TRAIN_LAUNCHES and TRAIN_RECOMPUTES a step (and no other kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch import train as tt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    model = vit_l_train_model(dev, gen)
+    opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+    state = tt.create_train_state(model, opt, gen, init=False)
+    images = torch.randn(TRAIN_BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, VIT_L["num_classes"], (TRAIN_BATCH,), generator=gen, device=dev)
+    step = tt.make_train_step(model, opt, remat=True)
+    losses = []
+    for i in range(TRAIN_STEPS[0]):
+        if i == TRAIN_STEPS[0] - 1:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                losses.append(float(step(state, images, labels)))
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        else:
+            t0 = time.perf_counter()
+            losses.append(float(step(state, images, labels)))
+            print(f"train step {state.step} (first, untimed): loss {losses[-1]:.5f}, "
+                  f"{time.perf_counter() - t0:.1f} s host clock")
+    kernels, busy, by_kind = step_kernels(prof)
+    print(f"train profile ViT-L batch {TRAIN_BATCH}: device busy {busy:.1f} ms in a "
+          f"{wall:.1f} ms step (host clock, profiler on; idle {max(0.0, 1 - busy / wall):.1%}); "
+          f"loss {losses[-1]:.5f} [{smi}]")
+    print(f"train profile ViT-L batch {TRAIN_BATCH}: by kind, ms: "
+          + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})" for k, v in by_kind.items()))
+    for ms, count, key in kernels[:10]:
+        print(f"train profile ViT-L batch {TRAIN_BATCH}: {ms:9.2f} ms x{count:<5d} {key[:90]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS[1]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(state, images, labels)
+        end.record()
+        losses.append(float(loss))
+        times.append(start.elapsed_time(end))
+        print(f"train step {state.step}: loss {losses[-1]:.5f}, {times[-1]:.1f} ms (CUDA events)")
+    counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = statistics.mean(times)
+    n = TRAIN_STEPS[1]
+    per_step = {k: v / n for k, v in counts.items() if v}
+    flops = 3 * vit_forward_flops(VIT_L, TRAIN_BATCH)
+    print(f"train ViT-L/16 @224 bf16 batch {TRAIN_BATCH}: {TRAIN_BATCH / ms * 1e3:.1f} train "
+          f"img/s, MFU {flops / (ms * 1e-3) / PEAK_BF16:.2%} ({flops / 1e12:.2f} TFLOP a step, 3x "
+          f"the forward's, at the bf16 peak), "
+          f"step {ms:.1f} ms (mean of {n}; min {min(times):.1f}, max {max(times):.1f}), "
+          f"peak memory {peak:.2f} GiB; launches a step {per_step}, backward recomputes a step "
+          f"{ {k: v / n for k, v in recomputes.items()} } [{smi}]")
+    require(all(np.isfinite(losses)), f"train: a non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"train: the loss did not fall over {len(losses)} steps: "
+                                    f"{losses}")
+    want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
+    require({k: v for k, v in counts.items() if v} == want,
+            f"train: launches {counts}, not {TRAIN_LAUNCHES} a step")
+    require(recomputes == {k: v * n for k, v in TRAIN_RECOMPUTES.items()},
+            f"train: recomputes {recomputes}, not {TRAIN_RECOMPUTES} a step")
+    del state, model, step
+    torch.cuda.empty_cache()
+
+
+def vit_forward_flops(c, batch) -> float:
+    """Multiply-add FLOPs (2 a product term) of one ViT forward: the patch
+    embedding, each layer's qkv, scores, P V, out and MLP products, and the
+    head."""
+    n = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    d, inner, f = c["dim"], c["heads"] * c["dim_head"], c["mlp_dim"]
+    layer = 2 * n * (3 * d * inner + inner * d + 2 * d * f) + 4 * n * n * inner
+    embed = 2 * (n - 1) * c["patch_size"] ** 2 * 3 * d
+    return batch * (c["depth"] * layer + embed + 2 * d * c["num_classes"])
+
+
+# the kinds of a training step's device time, by kernel name
+STEP_KINDS = (("kernels 1-2 (vt::)", ("vt::",)),
+              ("fp32 GEMM (cuBLAS / CUTLASS)", ("f32f32", "sgemm")),
+              ("bf16 GEMM (cuBLAS)", ("bf16", "s16816gemm", "gemm")),
+              ("elementwise, reductions, copies", ("",)))
+
+
+def step_kernels(prof):
+    """The device kernels of a profiled window: (ms, launches, name) sorted,
+    their busy ms, and that time by STEP_KINDS. Counts only events the card
+    ran (the CPU ops that launched them carry the same time again), and not
+    CUPTI's "Command Buffer Full" markers (the host queueing ahead)."""
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0 and not e.key.startswith("Command Buffer")),
+                  reverse=True)
+    by_kind = dict.fromkeys([k for k, _ in STEP_KINDS], 0.0)
+    for ms, _, key in rows:
+        kind = next(k for k, marks in STEP_KINDS if any(m in key for m in marks))
+        by_kind[kind] += ms
+    return rows, sum(r[0] for r in rows), by_kind
+
+
+def phase_train_cli(dev):
+    """17d: ``python -m vit_tpu_torch.train --model vit --steps 3 --batch 8``
+    on the card with ``--checkpoint-dir``, then ``--resume`` from it; each
+    must return 0, the second from step 3."""
+    import tempfile
+
+    scratch = REPO / "vit_tpu_torch" / "_build"
+    with tempfile.TemporaryDirectory(dir=scratch) as run:
+        base = [sys.executable, "-m", "vit_tpu_torch.train", "--model", "vit", "--batch", "8"]
+        for extra in (["--steps", "3", "--checkpoint-dir", run, "--save-every", "2"],
+                      ["--steps", "2", "--resume", run, "--checkpoint-dir", run]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, cwd=REPO, capture_output=True, text=True,
+                                  timeout=600)
+            print(f"train cli {' '.join(base[1:] + extra)}: rc {proc.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
+                print(f"train cli | {line}")
+            require(proc.returncode == 0, f"python -m vit_tpu_torch.train returned "
+                                          f"{proc.returncode}")
+        require("at step 3" in proc.stdout and "step 5: loss" in proc.stdout,
+                "train cli: the resumed run did not continue from step 3 to 5")
+
+
+def phase_train(dev, smi):
+    """Phase 17: training ViT-L/16 on kernels 1 and 2 (17a-d)."""
+    t_phase = time.perf_counter()
+    phase_train_functions(dev)
+    phase_train_grads(dev)
+    phase_train_steps(dev, smi)
+    phase_train_cli(dev)
+    print(f"phase 17 (training) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4336,6 +4735,9 @@ def main() -> int:
 
     # 16. ViT-MoE (routed expert MLPs beside kernels 1 and 2); the CLI on the card
     phase_vit_moe(dev, smi, requests)
+
+    # 17. training ViT-L/16: kernels 1 and 2 forward, their Functions' backward
+    phase_train(dev, smi)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

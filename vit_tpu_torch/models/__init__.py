@@ -8,9 +8,11 @@ neither. Nothing is built on import: a config holds keyword arguments only
 (``efficient``'s encoder as the port ``Transformer``'s).
 
 ``TRAINING_ONLY_DROPPED``: the training-only keys of ``vit_tpu``'s configs
-that a port constructor does not take (the port serves, so dropout and
-stochastic depth do nothing), dropped from that family's registry config
-and preset. Every other config key is ``vit_tpu``'s, with its value.
+that a port constructor does not take (those families are served, not
+trained, by the port, so dropout and stochastic depth do nothing), dropped
+from that family's registry config and preset. ``ViT`` trains
+(``vit_tpu_torch.train``) and takes its dropout keys. Every other config key
+is ``vit_tpu``'s, with its value.
 """
 
 from vit_tpu_torch.models.cait import CaiT
@@ -39,7 +41,7 @@ __all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "EfficientViT", 
            "TRAINING_ONLY_DROPPED"]
 
 _DROPOUT = ("dropout", "emb_dropout")
-TRAINING_ONLY_DROPPED = {"vit": _DROPOUT, "parallel_vit": _DROPOUT, "patch_merger_vit": _DROPOUT,
+TRAINING_ONLY_DROPPED = {"parallel_vit": _DROPOUT, "patch_merger_vit": _DROPOUT,
                          "vit_small_datasets": _DROPOUT, "cross_vit": _DROPOUT, "pit": _DROPOUT}
 
 # name -> (class, tiny smoke config, image size): vit_tpu/models/__init__.py:55-174

@@ -41,6 +41,7 @@ REFERENCE_PRESETS: Dict[str, Tuple[Callable[..., Any], Dict[str, Any], int]] = {
     "vit": (ViT, dict(
         image_size=256, patch_size=32, num_classes=1000,
         dim=1024, depth=6, heads=16, mlp_dim=2048,
+        dropout=0.1, emb_dropout=0.1,
     ), 256),
     "simple_vit": (SimpleViT, dict(
         image_size=256, patch_size=32, num_classes=1000,

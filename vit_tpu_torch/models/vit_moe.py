@@ -31,8 +31,8 @@ class ViTMoE(nn.Module):
     """``[B, H, W, 3]`` images -> ``[B, num_classes]`` fp32 logits.
 
     ``dtype``: the stream and GEMM operand dtype (None: fp32). ``dropout``
-    is accepted and does nothing: the port serves, as ``vit_tpu`` does with
-    ``train=False``. ``forward(img, return_aux=True)`` also returns the
+    is accepted and does nothing: the port serves it, as ``vit_tpu`` does
+    with ``train=False`` (``vit_tpu_torch.train`` refuses a rate above 0). ``forward(img, return_aux=True)`` also returns the
     MoE layers' load-balance losses, in layer order (``vit_tpu`` sows
     them)."""
 
@@ -50,7 +50,7 @@ class ViTMoE(nn.Module):
             raise ValueError("square patches only")
         if pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
-        self.depth, self.moe_every, self.pool = depth, moe_every, pool
+        self.depth, self.moe_every, self.pool, self.dropout = depth, moe_every, pool, dropout
         self.jax_stages = {}
         num_patches = (ih // ph) * (iw // pw)
         self.patch_embed = PatchEmbed(dim, ph, out_dtype=dtype, device=device)

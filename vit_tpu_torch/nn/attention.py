@@ -45,6 +45,16 @@ before its first call:
   kernel. The rest runs ``ops.attention`` (the flash kernel on the card;
   :401-402), or, with a head mix, the materializing path in plain PyTorch.
 
+**Dropout** (``dropout``, :183-194, :329-349, :502-503): with
+``forward(..., train=True)`` and ``dropout`` above 0 the self-attention
+branch takes the unfused path with the materialized scores, as
+``vit_tpu``'s ``needs_materialized`` does: dropout on the probabilities
+(``attn_drop``) and on the output projection (``out_drop``), flax's
+``Dropout`` (keep with probability ``1 - p``, kept values divided by it),
+its masks drawn from the ``generator`` passed in. ``train=True`` with
+``dropout`` 0 takes the inference routes. Cross-attention takes no
+dropout.
+
 ``mha_tokens`` (:70-91) is the functional attention of the window and
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
@@ -102,6 +112,17 @@ def mha_tokens(q, k, v, heads: int, *, scale=None, bias=None) -> torch.Tensor:
     return merge_heads(ops.attention(q, k, v, bias, scale=scale))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training: each value kept with
+    probability ``1 - rate`` and divided by it, else zero (in ``x``'s
+    dtype), the mask drawn from ``generator`` (None: PyTorch's default)."""
+    if rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _einsum(eq, a, b, dtype=torch.float32):
     """fp32 einsum of operands already rounded to their dtype (JAX's
     ``preferred_element_type=f32``), rounded once to ``dtype``."""
@@ -117,7 +138,8 @@ class Attention(nn.Module):
     with ``talking_heads``; ``reattn_weights`` ``[H, H]``, ``reattn_scale``,
     ``reattn_bias`` ``[H]`` with ``reattention``; ``log_temperature`` (0-d)
     with ``learned_temperature``. All fp32; the GEMM weights are cast to
-    ``dtype`` (None: the stream dtype) per call.
+    ``dtype`` (None: the stream dtype) per call. ``dropout``: the rate of
+    ``attn_drop`` and ``out_drop`` under ``forward(..., train=True)``.
 
     Cross-attention (``cross=True``): ``norm`` (``scale``, ``bias``),
     ``norm_context`` with ``norm_context``, ``to_q/kernel``,
@@ -131,7 +153,7 @@ class Attention(nn.Module):
                  learned_temperature: bool = False, fuse_residual: bool = False,
                  cross: bool = False, norm_context: bool = False,
                  lowq_cross: Optional[bool] = None, norm_eps: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         if qkv_bias:
             raise NotImplementedError(f"qkv_bias: {_LATER}")
@@ -152,7 +174,7 @@ class Attention(nn.Module):
         self.talking_heads, self.reattention = talking_heads, reattention
         self.mask_self, self.learned_temperature = mask_self, learned_temperature
         self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
-        self.norm_eps, self.dtype = norm_eps, dtype
+        self.norm_eps, self.dtype, self.dropout = norm_eps, dtype, dropout
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         if cross:
             self.norm = LayerNorm(dim, eps=norm_eps, device=device)
@@ -179,20 +201,24 @@ class Attention(nn.Module):
             self.reattn_bias = p(heads)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                kv_include_self: bool = False, bias: Optional[torch.Tensor] = None
+                kv_include_self: bool = False, bias: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        drop = self.dropout if train else 0.0
         if self.cross:
             if bias is not None:
                 raise NotImplementedError(f"a bias on cross-attention: {_LATER}")
+            if drop:
+                raise NotImplementedError(f"dropout on cross-attention: {_LATER}")
             return self._cross_attention(x, context, kv_include_self)
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         dtype = self.dtype or x.dtype
         mix = self.talking_heads or self.reattention
         lsa = self.mask_self or self.learned_temperature
-        if lsa or bias is not None or not (
+        if drop or lsa or bias is not None or not (
                 self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
-            return self._unfused(x, dtype, bias)
+            return self._unfused(x, dtype, bias, drop, generator)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
         kw = dict(scale=self.scale, ln_eps=self.norm_eps)
@@ -211,35 +237,38 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         return n <= FUSE_MAX_TOKENS and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES
 
-    def _unfused(self, x, dtype, bias=None):
+    def _unfused(self, x, dtype, bias=None, drop=0.0, generator=None):
         """The raw-parameter branch outside the fused block (vit_tpu/nn/
         attention.py:307-354): flax's LayerNorm in fp32 cast to ``dtype``,
         the qkv product rounded once, ``ops.qkv_attention`` (the fused-qkv
         kernel, or the kv-blocked one for widths and lengths it cannot
-        hold) or, with a head mix or LSA, the materializing path, either
-        adding ``bias`` to the scaled scores; the output
-        projection summed in fp32 plus its fp32 bias, rounded once to x's
-        dtype. Returns the delta, or the delta plus x with
-        ``fuse_residual``."""
+        hold) or, with a head mix, LSA or dropout (``drop``, its rate), the
+        materializing path, either adding ``bias`` to the scaled scores; the
+        output projection summed in fp32 plus its fp32 bias, rounded once to
+        x's dtype, then ``out_drop``. Returns the delta, or the delta plus x
+        with ``fuse_residual``."""
         xn = _ln_f32(x.float(), self.norm_scale, self.norm_bias, self.norm_eps).to(dtype)
         qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
-        if self.talking_heads or self.reattention or self.mask_self or self.learned_temperature:
+        if (self.talking_heads or self.reattention or self.mask_self or self.learned_temperature
+                or drop):
             q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
-            out = merge_heads(self._materializing_attention(q, k, v, bias))
+            out = merge_heads(self._materializing_attention(q, k, v, bias, drop, generator))
         else:
             out = ops.qkv_attention(qkv, self.heads, bias, scale=self.scale)
         if self.project_out:
             out = self._out_projection(out, self.out_kernel.to(dtype), x.dtype)
+            out = dropout(out, drop, generator)
         return out + x if self.fuse_residual else out
 
     def _out_projection(self, out, w, out_dtype):
         """``round_once(out @ w + out_bias)`` to ``out_dtype`` (vit_tpu/nn/
         attention.py:345-348). On the card with bf16 operands whose widths
         are multiples of 8: the wgmma GEMM (``gemm_sm90``), the fp32 bias in
-        its epilogue. Else an fp32 product of the rounded operands."""
+        its epilogue. Else, and under grad (the GEMM has no backward), an
+        fp32 product of the rounded operands."""
         k, n = w.shape
         if (ops._use_kernel(out) and out.dtype == w.dtype == torch.bfloat16
-                and n % 8 == 0 and k % 8 == 0):
+                and n % 8 == 0 and k % 8 == 0 and not ops.needs_grad(out, w, self.out_bias)):
             rows = out.reshape(-1, k).contiguous()
             y = gemm_sm90(rows, w, bias=self.out_bias, out_dtype=out_dtype)
             return y.reshape(*out.shape[:-1], n)
@@ -301,10 +330,11 @@ class Attention(nn.Module):
         u = _einsum("bhqj,bjd->bhqd", p.to(c.dtype), c, dtype)
         return merge_heads(_einsum("bhqd,dhe->bhqe", u, wv, dtype))
 
-    def _materializing_attention(self, q, k, v, bias=None):
+    def _materializing_attention(self, q, k, v, bias=None, drop=0.0, generator=None):
         """The score-materializing path (vit_tpu/nn/attention.py:471-504):
         the bias, LSA's learned scale and masked diagonal, talking-heads
-        mixes and re-attention on ``[B, H, Nq, Nk]`` fp32 scores."""
+        mixes and re-attention on ``[B, H, Nq, Nk]`` fp32 scores, then
+        ``attn_drop`` at rate ``drop`` on the probabilities."""
         scale = torch.exp(self.log_temperature) if self.learned_temperature else self.scale
         s = _einsum("bhid,bhjd->bhij", q, k) * scale
         if bias is not None:
@@ -320,5 +350,6 @@ class Attention(nn.Module):
         if self.reattention:
             p = torch.einsum("bhij,hg->bgij", p, self.reattn_weights)
             p = _ln_f32(p.permute(0, 2, 3, 1), self.reattn_scale, self.reattn_bias, 1e-6)
-            p = p.permute(0, 3, 1, 2)
+            p = p.permute(0, 3, 1, 2).to(v.dtype)
+        p = dropout(p, drop, generator)
         return _einsum("bhij,bhjd->bhid", p.to(v.dtype), v, v.dtype)

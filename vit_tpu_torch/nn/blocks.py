@@ -8,6 +8,16 @@ token count (197 at ViT-L/16 @224). ``vit_tpu`` scans only stacks deeper
 than 1; its one unscanned layer takes the unfused attention branch and adds
 each delta to the stream in the stream's dtype, and so does the port's
 stack of depth 1.
+
+Training: ``forward(x, train=True, generator=...)`` takes ``vit_tpu``'s
+dropout routes where ``dropout`` is above 0 (the MLP on its plain path,
+``FeedForward``; attention materialized, ``nn.Attention``), and the
+inference routes where it is 0. ``Transformer.forward(..., remat=True)``
+checkpoints each ``EncoderBlock`` (``torch.utils.checkpoint``,
+non-reentrant), as ``vit_tpu`` wraps each scanned block in ``nn.remat``
+(blocks.py:365-370): the backward runs the block's forward again. Each
+block draws its dropout masks from a generator of its own, seeded from the
+caller's once a step, so the recompute draws the same masks.
 """
 
 from __future__ import annotations
@@ -16,10 +26,13 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.nn.attention import Attention
+from vit_tpu_torch.nn.attention import Attention, dropout
 from vit_tpu_torch.nn.embed import LayerNorm
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
+from vit_tpu_torch.ops.fused_mlp import _activate
 
 
 class FeedForward(nn.Module):
@@ -30,14 +43,21 @@ class FeedForward(nn.Module):
     no LayerNorm and no ``ln_*`` parameters (LeViT's MLP): the kernel runs
     without its LayerNorm prologue. The kernel takes ``dim_out == D`` only,
     as ``vit_tpu``'s Pallas kernel does; another ``dim_out`` runs on the
-    plain twin and raises on the card."""
+    plain twin and raises on the card.
+
+    With ``forward(x, train=True)`` and ``dropout`` above 0, the plain path
+    of ``vit_tpu`` (blocks.py:78-91) instead: fp32 LayerNorm, fp32 products
+    of operands rounded to ``dtype`` plus the fp32 biases, dropout after the
+    activation (``drop1``) and after the second product (``drop2``), then
+    one rounding to x's dtype."""
 
     def __init__(self, dim: int, hidden_dim: int, *, activation: str = "gelu",
                  ln_eps: float = 1e-6, pre_norm: bool = True, dim_out: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         dim_out = dim_out or dim
         self.activation, self.ln_eps, self.dtype = activation, ln_eps, dtype
+        self.dropout = dropout
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         self.w1 = p(dim, hidden_dim)
         self.b1 = p(hidden_dim)
@@ -46,13 +66,25 @@ class FeedForward(nn.Module):
         self.ln_scale = p(dim, fill=1.0) if pre_norm else None
         self.ln_bias = p(dim) if pre_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dtype = self.dtype or x.dtype
+        if train and self.dropout > 0.0:
+            return self._dropout_path(x, dtype, generator)
         return ops.mlp(
             x, self.w1.to(dtype), self.b1, self.w2.to(dtype), self.b2,
             self.ln_scale, self.ln_bias,
             activation=self.activation, residual=False, ln_eps=self.ln_eps,
         )
+
+    def _dropout_path(self, x, dtype, generator):
+        h = x.float()
+        if self.ln_scale is not None:
+            h = _ln_f32(h, self.ln_scale, self.ln_bias, self.ln_eps)
+        h = _mm(h.to(dtype), self.w1.to(dtype)) + self.b1
+        h = dropout(_activate(h, self.activation), self.dropout, generator)
+        h = _mm(h.to(dtype), self.w2.to(dtype)) + self.b2
+        return dropout(h, self.dropout, generator).to(x.dtype)
 
 
 class EncoderBlock(nn.Module):
@@ -65,20 +97,22 @@ class EncoderBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, mask_self: bool = False,
                  learned_temperature: bool = False, fuse_residual: bool = True,
-                 activation: str = "gelu", norm_eps: float = 1e-6,
+                 activation: str = "gelu", norm_eps: float = 1e-6, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.fuse_residual = fuse_residual
         self.attn = Attention(dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
                               learned_temperature=learned_temperature,
-                              fuse_residual=fuse_residual, norm_eps=norm_eps, dtype=dtype,
-                              device=device)
-        self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
+                              fuse_residual=fuse_residual, norm_eps=norm_eps, dropout=dropout,
                               dtype=dtype, device=device)
+        self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
+                              dropout=dropout, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.attn(x) if self.fuse_residual else x + self.attn(x)
-        return x + self.ff(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        a = self.attn(x, train=train, generator=generator)
+        x = a if self.fuse_residual else x + a
+        return x + self.ff(x, train=train, generator=generator)
 
 
 class Transformer(nn.Module):
@@ -107,15 +141,22 @@ class Transformer(nn.Module):
 
     ``jax_stages`` maps the stacked prefix under this module's name to the
     depth (``{"blocks": depth}``; none with parallel branches), for a model's
-    own ``jax_stages``."""
+    own ``jax_stages``.
+
+    ``dropout`` (plain stack only) reaches every block's attention and MLP;
+    ``forward(x, train=, generator=, remat=)`` as the module docstring
+    says."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, mask_self: bool = False,
                  learned_temperature: bool = False, activation: str = "gelu",
                  norm_eps: float = 1e-6, parallel_branches: int = 1, final_norm: bool = False,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        self.depth, self.branches = depth, parallel_branches
+        if dropout and parallel_branches > 1:
+            raise NotImplementedError("dropout in parallel branches is not ported "
+                                      "(ROADMAP.md Queue 1 item 7)")
+        self.depth, self.branches, self.dropout = depth, parallel_branches, dropout
         self.unported = depth == 1 and reattention
         self.final_norm = (LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
                            if final_norm else None)
@@ -139,11 +180,13 @@ class Transformer(nn.Module):
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
                          mask_self=mask_self, learned_temperature=learned_temperature,
                          fuse_residual=depth > 1 or reattention, activation=activation,
-                         norm_eps=norm_eps, dtype=dtype, device=device)
+                         norm_eps=norm_eps, dropout=dropout, dtype=dtype, device=device)
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, remat: bool = False
+                ) -> torch.Tensor:
         if self.unported:
             raise NotImplementedError(
                 "re-attention in a stack of depth 1 (vit_tpu's materializing path without the "
@@ -153,6 +196,27 @@ class Transformer(nn.Module):
                 for kind in ("attn", "ff"):
                     x = x + sum(getattr(self, f"{kind}_{i}_{b}")(x) for b in range(self.branches))
         else:
+            remat = remat and torch.is_grad_enabled()
             for block in self.blocks:
-                x = block(x)
+                seed = _draw_seed(generator) if train and self.dropout else None
+                if remat:
+                    x = checkpoint(_run_block, block, x, train, seed, use_reentrant=False)
+                else:
+                    x = _run_block(block, x, train, seed)
         return x if self.final_norm is None else self.final_norm(x)
+
+
+def _draw_seed(generator: Optional[torch.Generator]) -> int:
+    """One draw from ``generator`` (None: PyTorch's default CPU one): the
+    seed of a block's own dropout generator."""
+    device = generator.device if generator is not None else "cpu"
+    return int(torch.randint(0, 2**62, (1,), generator=generator, device=device))
+
+
+def _run_block(block, x, train, seed):
+    """A block with its dropout masks drawn from a generator of its own,
+    made from ``seed``. ``torch.utils.checkpoint`` restores PyTorch's default
+    generators for its recompute but not a caller's; a fresh generator from
+    the same seed gives the recompute the forward's masks."""
+    gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
+    return block(x, train, gen)

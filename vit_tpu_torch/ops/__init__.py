@@ -10,7 +10,18 @@ is the twin of the kernel the card would run.
 ``force_backend("torch")`` is the one explicit way to run the twins on CUDA
 (comparisons and timings use it; the serving path never does).
 
-Each kernel wrapper counts its launches: ``launch_counts()``.
+Gradients: on the CPU the twins are plain PyTorch, differentiated by autograd.
+On the card a kernel writes its output through raw pointers, outside the
+autograd graph, so ``attention_block`` and ``mlp`` go through autograd
+Functions (``AttentionBlockFn``, ``MlpFn``) when grad mode is on and an
+operand requires grad: the kernel forward, and ``vit_tpu``'s recompute
+backward through the twin. Otherwise (serving runs under
+``torch.inference_mode()``) they launch the kernel exactly as before. The
+wrappers of kernels 3-10 have no Function yet and raise under grad
+(``_build.refuse_grad``).
+
+Each kernel wrapper counts its launches: ``launch_counts()``; each
+Function's backward its recomputes: ``recompute_counts()``.
 """
 
 from __future__ import annotations
@@ -19,8 +30,17 @@ import contextlib
 import contextvars
 from typing import Optional
 
-from vit_tpu_torch.ops._build import launch_counts, reset_launch_counts  # noqa: F401
-from vit_tpu_torch.ops.block_attention import fused_attention_block, xla_attention_block
+from vit_tpu_torch.ops._build import (  # noqa: F401
+    launch_counts,
+    needs_grad,
+    recompute_counts,
+    reset_launch_counts,
+)
+from vit_tpu_torch.ops.block_attention import (
+    AttentionBlockFn,
+    fused_attention_block,
+    xla_attention_block,
+)
 from vit_tpu_torch.ops.flash_attention import (
     core_fits,
     flash_attention,
@@ -28,7 +48,7 @@ from vit_tpu_torch.ops.flash_attention import (
     reference_attention,
     reference_attention_kv_blocked,
 )
-from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+from vit_tpu_torch.ops.fused_mlp import MlpFn, fused_mlp, reference_mlp
 from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
     extract_patches,
     patchify,
@@ -74,7 +94,11 @@ __all__ = [
     "window_attention_block",
     "force_backend",
     "launch_counts",
+    "recompute_counts",
     "reset_launch_counts",
+    "needs_grad",
+    "AttentionBlockFn",
+    "MlpFn",
     "fused_attention_block",
     "xla_attention_block",
     "fused_mlp",
@@ -156,14 +180,19 @@ def attention_block(
 
     ``true_n``: real token count of a padded stream (padded key columns are
     masked). ``block_tokens``: per-sample stride of a sample-packed stream
-    (block-diagonal attention). Both paths apply the same masks."""
-    if _use_kernel(x):
-        return fused_attention_block(
-            x, ln_scale, ln_bias, wqkv, wout, bout, heads,
-            scale=scale, ln_eps=ln_eps, true_n=true_n, block_tokens=block_tokens,
-        )
+    (block-diagonal attention). Both paths apply the same masks. On the card
+    under grad, through ``AttentionBlockFn``."""
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
+    if _use_kernel(x):
+        operands = (x, ln_scale, ln_bias, wqkv, wout, bout)
+        if needs_grad(*operands):
+            return AttentionBlockFn.apply(fused_attention_block, *operands, heads, scale, ln_eps,
+                                          true_n, block_tokens)
+        return fused_attention_block(
+            *operands, heads, scale=scale, ln_eps=ln_eps, true_n=true_n,
+            block_tokens=block_tokens,
+        )
     return xla_attention_block(
         x, ln_scale, ln_bias, wqkv, wout, bout, heads, scale, ln_eps, true_n,
         block_tokens,
@@ -174,7 +203,11 @@ def mlp(
     x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
     activation: str = "gelu", residual: bool = True, ln_eps: float = 1e-6,
 ):
-    """Fused MLP block over tokens ``[..., T, D]``."""
+    """Fused MLP block over tokens ``[..., T, D]``. On the card under grad,
+    through ``MlpFn``."""
+    if _use_kernel(x) and needs_grad(x, w1, b1, w2, b2, ln_scale, ln_bias):
+        return MlpFn.apply(fused_mlp, x, w1, b1, w2, b2, ln_scale, ln_bias, activation,
+                           residual, ln_eps)
     fn = fused_mlp if _use_kernel(x) else reference_mlp
     return fn(
         x, w1, b1, w2, b2, ln_scale, ln_bias,

@@ -24,6 +24,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -303,7 +305,10 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_block", "quant_mlp",
            "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block",
            "flash_attention_kv_blocked")
+# the kernels whose wrappers have an autograd Function (ops/__init__.py)
+DIFFERENTIABLE = ("attention_block", "fused_mlp")
 _counts = collections.Counter()
+_recomputes = collections.Counter()
 _counts_lock = threading.Lock()
 
 
@@ -312,12 +317,44 @@ def count_launch(name: str) -> None:
         _counts[name] += 1
 
 
+def count_recompute(name: str) -> None:
+    with _counts_lock:
+        _recomputes[name] += 1
+
+
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last reset."""
     with _counts_lock:
         return {k: _counts[k] for k in KERNELS}
 
 
+def recompute_counts() -> dict:
+    """Backward passes of each kernel's autograd Function since the last
+    reset: each recomputes the kernel's plain twin and differentiates it."""
+    with _counts_lock:
+        return {k: _recomputes[k] for k in DIFFERENTIABLE}
+
+
 def reset_launch_counts() -> None:
     with _counts_lock:
         _counts.clear()
+        _recomputes.clear()
+
+
+def needs_grad(*operands) -> bool:
+    """Whether autograd would record an op on these operands: grad mode on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in operands)
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise where an autograd graph would be cut: a kernel without an
+    autograd Function writes its output through raw pointers, so under grad
+    mode an operand that requires grad would get no gradient, silently.
+    Silent under ``torch.no_grad()`` and ``torch.inference_mode()``."""
+    if needs_grad(*operands):
+        raise NotImplementedError(
+            f"{name} has no backward yet: call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors (its plain twin); its autograd "
+            "Function is ROADMAP.md Queue 1 item 7")

@@ -119,6 +119,7 @@ def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, activati
     ``[K, N]`` bf16, N and K multiples of 8; ``bias`` fp32 ``[N]``;
     ``residual`` ``[M, N]`` of ``out_dtype`` (bf16 or fp32); ``activation``
     None or a key of ``ACTIVATIONS``. Returns a new ``[M, N]`` tensor."""
+    _build.refuse_grad("gemm_sm90", a, b, bias, residual)
     if not a.is_cuda:
         raise ValueError("gemm_sm90 takes CUDA tensors")
     if activation is not None and activation not in ACTIVATIONS:
@@ -240,3 +241,53 @@ def fused_attention_block(
     _build.check(lib, rc, "attention_block kernel")
     _build.count_launch("attention_block")
     return out
+
+
+class AttentionBlockFn(torch.autograd.Function):
+    """The attention block as an autograd Function (``vit_tpu``'s
+    ``_attention_block_ad``, ``vit_tpu/ops/block_attention.py:284-323``).
+
+    Forward: ``forward_fn`` (the kernel, ``fused_attention_block``, on the
+    main path; a CPU test passes the twin), saving only the six inputs, as
+    ``_ab_fwd`` does. Backward, as ``_ab_bwd``: the twin
+    ``xla_attention_block`` run again on the saved inputs under grad mode
+    and differentiated at the cotangent cast to ``x``'s dtype (PyTorch's
+    engine hands a Function its cotangent already in the output's dtype,
+    which is ``x``'s, so the cast never changes a value; it is kept to
+    mirror ``_ab_bwd``). Nothing of the forward but its inputs is kept: the
+    scores exist only inside the backward, in fp32, as in ``vit_tpu``.
+
+    ``apply(forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, heads,
+    scale, ln_eps, true_n, block_tokens)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, heads, scale, ln_eps,
+                true_n, block_tokens):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, wout, bout)
+        ctx.config = (heads, scale, ln_eps, true_n, block_tokens)
+        return forward_fn(x, ln_scale, ln_bias, wqkv, wout, bout, heads, scale=scale,
+                          ln_eps=ln_eps, true_n=true_n, block_tokens=block_tokens)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, scale, ln_eps, true_n, block_tokens = ctx.config
+        grads = recompute_vjp(
+            lambda *a: xla_attention_block(*a, heads, scale, ln_eps, true_n, block_tokens),
+            ctx.saved_tensors, ctx.needs_input_grad[1:7], g)
+        _build.count_recompute("attention_block")
+        return (None, *grads, None, None, None, None, None)
+
+
+def recompute_vjp(twin, saved, needs_grad, g):
+    """The recompute backward of a kernel's Function: ``twin`` run again on
+    the detached ``saved`` inputs under grad mode and differentiated at
+    ``g`` cast to the first input's dtype (``jax.vjp(f, *res)`` then
+    ``vjp(g.astype(res[0].dtype))``). Returns one gradient per saved input,
+    None where the input is None or needs none."""
+    with torch.enable_grad():
+        args = [None if t is None else t.detach().requires_grad_(bool(need))
+                for t, need in zip(saved, needs_grad)]
+        out = twin(*args)
+        wrt = [a for a in args if a is not None and a.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g.to(saved[0].dtype)))
+    return [next(grads) if a is not None and a.requires_grad else None for a in args]

@@ -196,6 +196,7 @@ def _check_operands(name, q, k, v, bias):
     """Shapes, dtypes and devices of a flash kernel's operands; returns
     (b, h, nq, nk, d, dv, the bias as contiguous fp32 or None, bias_b,
     bias_h)."""
+    _build.refuse_grad(name, q, k, v, bias)
     if not q.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:

@@ -15,7 +15,13 @@ import torch
 import torch.nn.functional as F
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import ACTIVATIONS, _ln_f32, _mm, _require_aligned
+from vit_tpu_torch.ops.block_attention import (
+    ACTIVATIONS,
+    _ln_f32,
+    _mm,
+    _require_aligned,
+    recompute_vjp,
+)
 
 
 def gemm_route(dim: int, f: int) -> str:
@@ -128,3 +134,31 @@ def fused_mlp(
     _build.check(lib, rc, "fused_mlp kernel")
     _build.count_launch("fused_mlp")
     return out
+
+
+class MlpFn(torch.autograd.Function):
+    """The MLP block as an autograd Function (``vit_tpu``'s ``_mlp_ad``,
+    ``vit_tpu/ops/fused_mlp.py:163-195``): ``forward_fn`` (the kernel,
+    ``fused_mlp``; a CPU test passes the twin) forward, saving only the
+    seven inputs as ``_mlp_fwd`` does; backward as ``_mlp_bwd``, the twin
+    ``reference_mlp`` recomputed on them and differentiated at the
+    cotangent cast to ``x``'s dtype (``block_attention.recompute_vjp``).
+    ``b1``, ``b2``, ``ln_scale`` and ``ln_bias`` may be None, and get no
+    gradient.
+
+    ``apply(forward_fn, x, w1, b1, w2, b2, ln_scale, ln_bias, activation,
+    residual, ln_eps)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, w1, b1, w2, b2, ln_scale, ln_bias, activation, residual,
+                ln_eps):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ln_scale, ln_bias)
+        ctx.config = dict(activation=activation, residual=residual, ln_eps=ln_eps)
+        return forward_fn(x, w1, b1, w2, b2, ln_scale, ln_bias, **ctx.config)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = recompute_vjp(lambda *a: reference_mlp(*a, **ctx.config), ctx.saved_tensors,
+                              ctx.needs_input_grad[1:8], g)
+        _build.count_recompute("fused_mlp")
+        return (None, *grads, None, None, None)

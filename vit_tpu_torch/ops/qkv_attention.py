@@ -60,6 +60,7 @@ def fused_qkv_attention(
     """Attention of ``qkv`` ``[B, N, 3*H*D]`` bf16 on the card, with an
     optional additive fp32 bias ``[1|B, 1|H, N, N]``. Returns ``[B, N,
     H*D]`` bf16, computed on the current stream."""
+    _build.refuse_grad("fused_qkv_attention", qkv, bias)
     if not qkv.is_cuda:
         raise ValueError("fused_qkv_attention takes CUDA tensors")
     if qkv.dim() != 3:

@@ -172,6 +172,7 @@ def fused_quant_attention_block(
     A dict passed as ``intermediates`` receives the stages' rows, ``[B*N,
     ...]``, for checks: ``xq``, ``s_row`` (LN codes), ``qkv``, ``attn``
     (fp32), ``aq``, ``s_row2``."""
+    _build.refuse_grad("fused_quant_attention_block", x, ln_scale, ln_bias, sqkv, sout, bout)
     if not x.is_cuda:
         raise ValueError("fused_quant_attention_block takes CUDA tensors")
     if x.dim() != 3:
@@ -264,6 +265,7 @@ def fused_quant_mlp(
     ``xq``, ``s_row`` (LN codes), ``h`` (fp32 hidden after the activation),
     ``h_amax`` (its partial row maxes, ``partial_row_amax``), ``hq``,
     ``s_row2``."""
+    _build.refuse_grad("fused_quant_mlp", x, ln_scale, ln_bias, s1, b1, s2, b2)
     if not x.is_cuda:
         raise ValueError("fused_quant_mlp takes CUDA tensors")
     if x.dtype not in (torch.bfloat16, torch.float32):

@@ -209,6 +209,8 @@ def head_mix_plan(n: int, heads: int, d: int) -> HeadMixPlan:
 def _check_block(name, x, ln_scale, ln_bias, wqkv, wout, bout, heads, mixes):
     """Validates the operands of either kernel (``mixes``: the head-mix
     operands by name, each with its shape); returns dim_head."""
+    _build.refuse_grad(name, x, ln_scale, ln_bias, wqkv, wout, bout,
+                       *(t for t, _ in mixes.values()))
     if not x.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors")
     if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):

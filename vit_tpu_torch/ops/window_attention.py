@@ -137,6 +137,8 @@ def fused_window_attention_block(
     and dtype, computed on the current stream. The route follows
     ``plan_for``; an ``xw`` or weights that do not start on a 16-byte
     boundary take the four-launch pipeline."""
+    _build.refuse_grad("fused_window_attention_block", xw, ln_scale, ln_bias, wqkv, wout, bout,
+                       bias)
     if not xw.is_cuda:
         raise ValueError("fused_window_attention_block takes CUDA tensors")
     if xw.dim() != 3 or xw.dtype not in (torch.bfloat16, torch.float32):

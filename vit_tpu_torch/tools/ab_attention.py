@@ -33,7 +33,8 @@ measures, at batch 128 unless named:
 - every kernel's time at the shape of PERF.md's table, through the tree's
   own ``chip_smoke.phase_op_times`` and ``phase_t2t_op_times``;
 - with ``--e2e``: ViT-L/16 bf16 img/s at batch 128 and p50 at batch 1,
-  Twins-SVT, T2T-ViT, CaiT and DeepViT img/s at batch 128 (bf16) and the
+  Twins-SVT, T2T-ViT, CaiT, DeepViT and CrossFormer img/s at batch 128
+  (bf16) and the
   int8 ``auto`` p50 at batch 1, 8 and 128 and img/s at batch 128 (ViT-L),
   random weights from chip_smoke's seeds (CaiT's and DeepViT's drawn on the
   card);
@@ -262,11 +263,11 @@ def child(tree: Path, e2e: bool) -> dict:
 
 def _e2e(cs, dev) -> dict:
     """ViT-L bf16 img/s at batch 128 and p50 at batch 1; T2T-ViT, CaiT,
-    DeepViT and Twins-SVT img/s at batch 128 (bf16); int8 auto p50 at batch
-    1, 8 and 128, and img/s at 128."""
+    DeepViT, Twins-SVT and CrossFormer img/s at batch 128 (bf16); int8 auto
+    p50 at batch 1, 8 and 128, and img/s at 128."""
     import torch
 
-    from vit_tpu_torch.models import CaiT, DeepViT, T2TViT, TwinsSVT, ViT
+    from vit_tpu_torch.models import CaiT, CrossFormer, DeepViT, T2TViT, TwinsSVT, ViT
     from vit_tpu_torch.utils import from_jax_params, quantize_vit
 
     out = {}
@@ -310,6 +311,16 @@ def _e2e(cs, dev) -> dict:
         cs.p50_ms(lambda: twins(x), 2)
         out["twins bf16 batch 128 img/s"] = 128 / cs.p50_ms(lambda: twins(x), 5) * 1e3
     del twins
+    torch.cuda.empty_cache()
+    # CrossFormer: the most host-bound preset at batch 128 (~35% idle)
+    cf = CrossFormer(**cs.CROSSFORMER, dtype=torch.bfloat16, device=dev).eval()
+    cf.load_state_dict(from_jax_params(cs.crossformer_tree(cs.CROSSFORMER, cs.SEED + 29),
+                                       cf.jax_stages))
+    with torch.inference_mode():
+        x = torch.randn(128, 224, 224, 3, generator=gen, device=dev).bfloat16()
+        cs.p50_ms(lambda: cf(x), 2)
+        out["crossformer bf16 batch 128 img/s"] = 128 / cs.p50_ms(lambda: cf(x), 5) * 1e3
+    del cf
     torch.cuda.empty_cache()
     qmodel = quantize_vit(vit)
     del vit

@@ -1,0 +1,70 @@
+"""Parameter initialisation as ``vit_tpu``'s flax ``init`` draws it.
+
+The port's constructors build zeros and ones (``models/vit.py``); a trainer
+starts from ``init_params(model, generator)``, which gives each parameter of
+the ViT path the distribution of its ``vit_tpu`` initializer:
+
+- ``lecun_normal`` (flax's ``variance_scaling(1, "fan_in",
+  "truncated_normal")``: a unit normal truncated at +-2, times
+  ``sqrt(1 / fan_in) / 0.87962566103423978``, the truncated normal's
+  standard deviation at 2) for the raw-parameter kernels ``qkv_kernel``,
+  ``out_kernel``, ``w1``, ``w2`` (``vit_tpu/nn/attention.py:256-263``,
+  ``nn/blocks.py:47-60``) and every flax ``Dense`` ``kernel``
+  (``patch_embed/proj``, ``head``); fan-in is the kernel's ``[in, out]``
+  first axis;
+- ``truncated_normal(0.02)`` for ``cls`` and ``pos_embedding``
+  (``vit_tpu/models/vit.py:60-69``);
+- zeros for biases, ones for LayerNorm scales.
+
+The draws cannot be flax's (another generator); the distributions and the
+shapes are. A parameter of another initializer raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+# flax's truncated-normal correction: the std of a unit normal truncated at +-2
+TRUNC_STD = 0.87962566103423978
+_LECUN = ("qkv_kernel", "out_kernel", "w1", "w2", "kernel")
+_TOKENS = ("cls", "pos_embedding")
+_ZEROS = ("bias", "b1", "b2", "out_bias", "norm_bias", "ln_bias")
+_ONES = ("scale", "norm_scale", "ln_scale")
+
+
+def truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``truncated_normal(std)`` in place: a normal of standard
+    deviation ``std`` truncated at +-2 ``std``."""
+    return nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
+                                 generator=generator)
+
+
+def lecun_std(fan_in: int) -> float:
+    """The scale of flax's ``lecun_normal`` before its truncation at +-2."""
+    return math.sqrt(1.0 / fan_in) / TRUNC_STD
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``model`` in place, in the order of
+    ``named_parameters``, as ``vit_tpu``'s initializer of the same name
+    draws it; returns ``model``. ``generator`` lies on the parameters'
+    device."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _LECUN and p.dim() == 2:
+            truncated_normal_(p, lecun_std(p.shape[0]), generator)
+        elif leaf in _TOKENS:
+            truncated_normal_(p, 0.02, generator)
+        elif leaf in _ZEROS:
+            p.zero_()
+        elif leaf in _ONES:
+            p.fill_(1.0)
+        else:
+            raise NotImplementedError(
+                f"{name} {tuple(p.shape)}: no vit_tpu initializer ported for it (init_params "
+                "covers the ViT path; ROADMAP.md Queue 1 item 7)")
+    return model
