@@ -205,7 +205,27 @@ Runs, in order, and exits non-zero at the first failure:
      exactly TRAIN_LAUNCHES and TRAIN_RECOMPUTES a step), with train img/s,
      step ms, peak memory and one step's device busy share and top
      operations; ``python -m vit_tpu_torch.train`` with
-     ``--checkpoint-dir``, then ``--resume``.
+     ``--checkpoint-dir``, then ``--resume``;
+ 18. a Hugging Face ViT-B/16 (google/vit-base-patch16-224's config:
+     qkv biases, the erf GELU, LayerNorm eps 1e-12): the flash kernel on
+     the qkv-bias branch's ``[B, 12, 197, 64]`` views, the fused-qkv kernel
+     at the int8 path's ``[B, 197, 2304]`` rows (batch 1, 8, 128) and the
+     MLP kernel with the erf GELU at 197 x 768, F 3072, against their twins
+     (a twin with the tanh GELU shown to fail on inputs in the GELU's
+     negative tail; constant rows at eps 1e-12); the model from a numpy HF
+     ``state_dict`` (``hf_vit_state_dict``, random from a seed) through
+     ``vit_from_hf``, served in bf16 through ``BatchingServer`` with 12
+     flash and 12 MLP launches a forward and nothing else, its logits
+     against the plain fp32 path beside the plain bf16 control; img/s, p50,
+     device time by kernel; ``quantize_vit`` of it in ``auto`` at batch 1,
+     8 and 128 (kernel 3 twelve times a forward, ``w8a8_kernel`` refused),
+     its logits within HF_INT8_RATIO of its twin path's distance from fp32;
+     op lines of kernels 4, 3 and 2 at these shapes; ``quantize_weights`` of
+     ViT-L and ``quantized_apply`` bit for bit the dequantized model
+     (kernels 1 and 2 24 times each, ``tree_nbytes``); the SimpleViT preset
+     through ``simple_vit_apply_w8a8`` in ``w8a8_kernel`` (kernels 9 and 10
+     six times each); one ``make_train_step(qat=True)`` step at ViT-L's
+     width; ``probe_devices`` and ``memory_stats``.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -219,6 +239,7 @@ import collections
 import contextlib
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -363,12 +384,16 @@ FAMILY_LAUNCHES = {
     # ViT-MoE: 8 fused attention blocks, 4 dense MLPs; its 4 MoE layers run no kernel
     "vit_moe": {"attention_block": 8, "fused_mlp": 4, "qkv_attention": 0, "flash_attention": 0,
                 "flash_attention_kv_blocked": 0, "window_attention_block": 0},
+    # a Hugging Face ViT-B/16: 12 layers of the qkv-bias branch (kernel 4 on the
+    # bias-added q, k, v views), 12 MLPs with the erf GELU; never a block kernel
+    "hf_vit": {"flash_attention": 12, "fused_mlp": 12, "attention_block": 0, "qkv_attention": 0,
+               "flash_attention_kv_blocked": 0, "window_attention_block": 0},
 }
 IMAGE_SIZE = {"cait": 256, "deepvit": 256, "twins": 224, "t2t": 224, "pit": 224,
               "simple_vit": 256, "parallel_vit": 256, "efficient": 256, "cross_vit": 256,
               "patch_merger_vit": 256, "vit_small_datasets": 256, "crossformer": 224,
               "nest": 224, "scalable_vit": 256, "region_vit": 224, "cvt": 224, "levit": 224,
-              "vit_moe": 224}
+              "vit_moe": 224, "hf_vit": 224}
 # The zoo slice: PiT, SimpleViT, ParallelViT and EfficientViT at the presets of
 # vit_tpu/models/presets.py (the upstream README's), bf16. PiT's stages see
 # 962, 257 and 65 tokens at dims 256, 512 and 1024, with 16 heads of 64
@@ -541,6 +566,28 @@ VIT_MOE = dict(image_size=224, patch_size=16, num_classes=1000, dim=512, depth=8
                mlp_dim=2048, num_experts=8, num_selected=2, moe_every=2)
 MOE_ATTN = (("ViT-MoE", N_TOKENS, 512, 8, 1e-6),)
 MOE_MLP = (("ViT-MoE", N_TOKENS, 512, 2048, 1e-6),)
+
+# Phase 18: google/vit-base-patch16-224's architecture, as its config.json
+# gives it (HF's ViTConfig names; the weights are drawn from a seed by
+# hf_vit_state_dict, nothing is downloaded): ViT-B/16 @224 with qkv biases, the
+# erf GELU, LayerNorm eps 1e-12 and 1000 labels.
+HF_VIT_B = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                intermediate_size=3072, hidden_act="gelu", layer_norm_eps=1e-12, image_size=224,
+                patch_size=16, num_channels=3, qkv_bias=True, num_labels=1000)
+HF_N = (224 // 16) ** 2 + 1  # 197 tokens
+# The kernels phase 18 holds at the HF model's shapes, batch 128: kernel 4 on
+# the [128, 12, 197, 64] views, kernel 3 on the int8 path's fused [128, 197,
+# 2304] rows, kernel 2 at 25,216 rows of 768 with F 3072 and the erf GELU.
+HF_FLASH = ("HF ViT-B/16", 12, HF_N, 64)
+HF_MLP = (("HF ViT-B/16", HF_N, 768, 3072, 1e-12, "gelu_exact"),)
+# Phase 18c: the int8 auto path's logits against plain fp32 within this many
+# times the plain int8 path's own distance from them (the twins of kernel 3
+# in its place, same codes).
+HF_INT8_RATIO = 1.5
+# Phase 18d: ViT-L/16 for quantized_apply, at full width and depth.
+QAPPLY_BATCH = 8
+# Phase 18f: one QAT step at ViT-L/16's width, depth cut to this.
+QAT_DEPTH, QAT_BATCH = 4, 16
 
 # The bf16 products of the plain code on the card (phase 12): Dense (cuBLAS)
 # against its plain product at T2T's proj (K 11907 -> 512, 196 tokens a
@@ -1643,6 +1690,37 @@ def levit_tree(c: dict, seed: int) -> dict:
         params["distill_head"] = {"kernel": w.lecun(dims[-1], c["num_distill_classes"]),
                                   "bias": w.zeros(c["num_distill_classes"])}
     return {"params": params, "batch_stats": stats}
+
+
+def hf_vit_state_dict(cfg: dict, seed: int) -> dict:
+    """A Hugging Face ``ViTForImageClassification`` ``state_dict`` of config
+    ``cfg`` (``HF_VIT_B``'s keys) as numpy arrays, drawn from ``seed``: the
+    linear and conv weights normal(0, 0.02) (HF's ``initializer_range``),
+    the tokens truncated normal(0.02), biases normal(0, 0.02) and LayerNorm
+    scales 1 + normal(0, 0.1) and biases normal(0, 0.02), so that no bias or
+    norm parameter is a bare zero or one."""
+    rng = np.random.default_rng(seed)
+    d, f, c = cfg["hidden_size"], cfg["intermediate_size"], cfg.get("num_channels", 3)
+    p, n = cfg["patch_size"], (cfg["image_size"] // cfg["patch_size"]) ** 2 + 1
+    w = lambda *shape: rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+    ln = lambda: (1 + 5 * w(d), w(d))
+    sd = {"vit.embeddings.cls_token": _trunc_normal(rng, (1, 1, d), 0.02),
+          "vit.embeddings.position_embeddings": _trunc_normal(rng, (1, n, d), 0.02),
+          "vit.embeddings.patch_embeddings.projection.weight": w(d, c, p, p),
+          "vit.embeddings.patch_embeddings.projection.bias": w(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        l = f"vit.encoder.layer.{i}."
+        for name, (out_f, in_f) in (("attention.attention.query", (d, d)),
+                                    ("attention.attention.key", (d, d)),
+                                    ("attention.attention.value", (d, d)),
+                                    ("attention.output.dense", (d, d)),
+                                    ("intermediate.dense", (f, d)), ("output.dense", (d, f))):
+            sd[f"{l}{name}.weight"], sd[f"{l}{name}.bias"] = w(out_f, in_f), w(out_f)
+        for name in ("layernorm_before", "layernorm_after"):
+            sd[f"{l}{name}.weight"], sd[f"{l}{name}.bias"] = ln()
+    sd["vit.layernorm.weight"], sd["vit.layernorm.bias"] = ln()
+    sd["classifier.weight"], sd["classifier.bias"] = w(cfg["num_labels"], d), w(cfg["num_labels"])
+    return sd
 
 
 def vit_moe_tree(c: dict, seed: int) -> dict:
@@ -3509,10 +3587,14 @@ def fused_mlp_op_line(what, b, n, dim, f, eps, gen, smi, activation="gelu"):
         lib_m = {k: v.bfloat16() if v.dim() == 1 else v for k, v in m_in.items()}
         kern = cuda_ms(lambda: fused_mlp(**m_in, **mkw), iters=10)
         plain = cuda_ms(lambda: reference_mlp(**m_in, **mkw), iters=3, warmup=1)
+        x, w1, b1, w2, b2 = (lib_m[k] for k in ("x", "w1", "b1", "w2", "b2"))
         if activation == "gelu" and eps is not None:
             lib = cuda_ms(lambda: library_mlp(**lib_m), iters=10)
+        elif eps is not None:
+            ln = lambda: F.layer_norm(x, (dim,), lib_m["ln_scale"], lib_m["ln_bias"], eps)
+            lib = cuda_ms(lambda: torch.addmm(b2, _activate(torch.addmm(
+                b1, ln().flatten(0, -2), w1), activation), w2), iters=10)
         else:
-            x, w1, b1, w2, b2 = (lib_m[k] for k in ("x", "w1", "b1", "w2", "b2"))
             lib = cuda_ms(lambda: torch.addmm(b2, _activate(torch.addmm(
                 b1, x.flatten(0, -2), w1), activation), w2), iters=10)
         bnd = bound(4 * b * n * dim * f, nbytes=size(*m_in.values()) + size(m_in["x"]))
@@ -3525,20 +3607,21 @@ def fused_mlp_op_line(what, b, n, dim, f, eps, gen, smi, activation="gelu"):
     return kern, plain, lib, bnd
 
 
-def qkv_attention_op_line(what, b, n, gen, smi):
-    """Kernel 3 at ``[b, n, 3 x 512]`` (8 heads of 64), bf16: its time, its
-    twin's, SDPA's and its bound. Returns (kernel, twin, library, (bound,
+def qkv_attention_op_line(what, b, n, gen, smi, heads=8):
+    """Kernel 3 at ``[b, n, 3 x heads x 64]``, bf16: its time, its twin's,
+    SDPA's and its bound. Returns (kernel, twin, library, (bound,
     bound_by)) in ms."""
     qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    inner = heads * 64
     with torch.inference_mode():
-        qkv = torch.randn(b, n, 3 * 512, generator=gen, device=gen.device).bfloat16()
-        q, k, v = split_heads(qkv, 8)
-        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, 8), iters=10)
-        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, 8), iters=3, warmup=1)
+        qkv = torch.randn(b, n, 3 * inner, generator=gen, device=gen.device).bfloat16()
+        q, k, v = split_heads(qkv, heads)
+        kern = cuda_ms(lambda: qa.fused_qkv_attention(qkv, heads), iters=10)
+        plain = cuda_ms(lambda: qa.xla_qkv_attention(qkv, heads), iters=3, warmup=1)
         lib = cuda_ms(lambda: merge_heads(F.scaled_dot_product_attention(q, k, v)), iters=10)
-        bnd = bound(4 * b * 8 * n**2 * 64, nbytes=size(qkv) + b * n * 512 * 2)
-        print(f"op qkv_attention {what} ([{b}, {n}, 1536], 8 x 64) batch {b} bf16: "
+        bnd = bound(4 * b * heads * n**2 * 64, nbytes=size(qkv) + b * n * inner * 2)
+        print(f"op qkv_attention {what} ([{b}, {n}, {3 * inner}], {heads} x 64) batch {b} bf16: "
               f"kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
               f"{sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
               f"{bnd[0] / kern:.1%} of it) [{smi}]")
@@ -4601,6 +4684,391 @@ def phase_train(dev, smi):
     print(f"phase 17 (training) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
+# -- phase 18: a Hugging Face ViT-B/16 checkpoint, its int8 path, the weight-only
+# transforms and QAT, the health lines ---------------------------------------------
+
+
+def hf_flash_inputs(gen, b, heads, n, d):
+    """q, k, v as the qkv-bias branch gives kernel 4 them: the split-heads
+    views of one bf16 ``[b, n, 3 * heads * d]`` projection with its bias
+    added."""
+    inner = heads * d
+    qkv = (torch.randn(b, n, 3 * inner, generator=gen, device=gen.device)
+           + 0.1 * torch.randn(3 * inner, generator=gen, device=gen.device)).bfloat16()
+    q, k, v = (t.reshape(b, n, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    return qkv, q, k, v
+
+
+HF_MLP_FAULT = "the tanh GELU in place of the erf"
+
+
+def gelu_tail_inputs(gen, t, dim, f, dev, b=8):
+    """MLP inputs whose hidden sits in the GELU's negative tail (pre-
+    activations -3.2 +- 0.2, where the tanh form is 10-25% off the erf form;
+    at N(0, 1) pre-activations the two differ by < 0.1% of the output, within
+    kernel_tol), with positive ``w2`` and no ``b2``, so that the output is the
+    activation's own sum: the inputs on which kernel_tol sees the GELU's
+    form."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return dict(x=r(b, t, dim).bfloat16(), ln_scale=1.0 + 0.1 * r(dim), ln_bias=0.1 * r(dim),
+                w1=(0.05 * r(dim, f) / dim**0.5).bfloat16(), b1=-3.2 + 0.1 * r(f),
+                w2=(r(f, dim).abs() / f**0.5).bfloat16(), b2=torch.zeros(dim, device=dev))
+
+
+def phase_hf_kernels(dev):
+    """18a: kernel 4 at the HF model's ``[B, 12, 197, 64]`` views, kernel 3
+    at its int8 path's fused ``[B, 197, 2304]`` rows (batch 1, 8, 128), each
+    against its twin within kernel_tol, with the launches each took; kernel 2
+    at ``HF_MLP`` (``phase_zoo_kernels``: batch 8 and 128, with and without
+    the residual, the wgmma route) and on ``gelu_tail_inputs``, where its
+    twin with the tanh GELU must fail the bound, at full width; its LayerNorm at eps 1e-12 on constant
+    rows (the fast variance cancels below 0: finite only through the
+    clamp)."""
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    qa = importlib.import_module("vit_tpu_torch.ops.qkv_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    what, heads, n, d = HF_FLASH
+    for b in (8, 128):
+        _, q, k, v = hf_flash_inputs(gen, b, heads, n, d)
+        out = fa.flash_attention(q, k, v, scale=d**-0.5)
+        ref = fa.reference_attention(q, k, v, scale=d**-0.5)
+        torch.cuda.synchronize()
+        name = f"flash_attention {what} ([{b}, {heads}, {n}, {d}] views of the biased qkv) batch {b}"
+        check_close(name, out, ref, None)
+        names = kernel_names(launch_ms(lambda: fa.flash_attention(q, k, v, scale=d**-0.5), 1,
+                                       iters=3))
+        print(f"{name}: launches {' | '.join(names)}")
+        require(len(names) == 1 and "attention_sm90" in names[0],
+                f"{name}: launched {names}, not one attention_sm90 core")
+        del q, k, v, out, ref
+    for b in (1, 8, 128):
+        qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device=dev).bfloat16()
+        out = qa.fused_qkv_attention(qkv, heads)
+        ref = qa.xla_qkv_attention(qkv, heads)
+        torch.cuda.synchronize()
+        name = f"qkv_attention {what} int8 path ([{b}, {n}, {3 * heads * d}], {heads} x {d}) batch {b}"
+        check_close(name, out, ref, None)
+        names = kernel_names(launch_ms(lambda: qa.fused_qkv_attention(qkv, heads), 1, iters=3))
+        print(f"{name}: launches {' | '.join(names)}")
+        require(len(names) == 1 and "attention_sm90" in names[0],
+                f"{name}: launched {names}, not one attention_sm90 core")
+        del qkv, out, ref
+    phase_zoo_kernels(dev, (), HF_MLP, (), SEED + 61)
+    _, n_mlp, dim, f, eps, act = HF_MLP[0]
+    inp = gelu_tail_inputs(gen, n_mlp, dim, f, dev, b=128)
+    kw = dict(activation=act, residual=False, ln_eps=eps)
+    out = fused_mlp(**inp, **kw)
+    ref = reference_mlp(**inp, **kw)
+    torch.cuda.synchronize()
+    check_close(f"fused_mlp {what} batch 128, the GELU's negative tail", out, ref, None)
+    tol = kernel_tol(ref, None, torch.bfloat16)
+    bad = reference_mlp(**inp, **dict(kw, activation="gelu"))
+    bad_err = (bad.float() - ref.float()).abs().max().item()
+    print(f"fused_mlp {what} batch 128 twin with {HF_MLP_FAULT}, the GELU's negative tail: "
+          f"max |err| {bad_err:.6g} against bound {tol:.6g} (must fail it)")
+    require(bad_err > tol, f"fused_mlp {what}: the bound does not see {HF_MLP_FAULT}")
+    del inp, out, ref, bad
+    inp = mlp_inputs(gen, n_mlp, dim, f, torch.bfloat16, dev, b=2)
+    inp["x"][0, :64] = 0.1
+    inp["x"][1, :64] = -3.3
+    x = inp["x"][:, :64].float()
+    raw = (x * x).mean(-1) - x.mean(-1) ** 2
+    out = fused_mlp(**inp, **kw)
+    ref = reference_mlp(**inp, **kw)
+    torch.cuda.synchronize()
+    print(f"fused_mlp {what}: 128 constant rows at eps {eps:g}, their fast variance before the "
+          f"clamp down to {raw.min().item():.3g}")
+    check_close(f"fused_mlp {what} constant rows at eps {eps:g}", out, ref, inp["x"])
+
+
+def hf_flash_op_line(gen, smi, b=128):
+    """Kernel 4 at the HF model's shape: its time, its twin's, SDPA's and its
+    bound (q, k, v read once, the output written once; 4 b h n^2 d
+    operations), with its launch in device time. Returns (kernel, twin,
+    library, (bound, bound_by)) in ms."""
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    what, heads, n, d = HF_FLASH
+    with torch.inference_mode():
+        _, q, k, v = hf_flash_inputs(gen, b, heads, n, d)
+        kernel = lambda: fa.flash_attention(q, k, v, scale=d**-0.5)
+        kern = cuda_ms(kernel, iters=10)
+        plain = cuda_ms(lambda: fa.reference_attention(q, k, v, scale=d**-0.5), iters=3, warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10)
+        bnd = bound(4 * b * heads * n * n * d, nbytes=2 * 4 * b * heads * n * d)
+        split = launch_ms(kernel, 1)
+    print(f"op flash_attention {what} ([{b}, {heads}, {n}, {d}], the qkv-bias branch's views) "
+          f"batch {b} bf16: kernel {kern:.4f} ms, twin {plain:.4f} ms, library {lib:.4f} ms (SDPA, "
+          f"{sdpa_backend(q, k, v)} backend), bound {bnd[0]:.4f} ms ({bnd[1]}; "
+          f"{bnd[0] / kern:.1%} of it); device "
+          + ", ".join(f"{nm} {t:.4f} ms" for nm, (_, t) in zip(kernel_names(split), split))
+          + f" [{smi}]")
+    return kern, plain, lib, bnd
+
+
+def build_hf_vit_models(dev):
+    """HF ViT-B/16 from a numpy ``state_dict`` (``hf_vit_state_dict``) and
+    its config dict, through ``vit_from_hf`` (``import_hf_vit_params``), in
+    bf16 (served) and fp32 (the plain control)."""
+    from vit_tpu_torch.utils import hf_vit_config, vit_from_hf
+
+    t0 = time.perf_counter()
+    sd = hf_vit_state_dict(HF_VIT_B, SEED + 62)
+    cfg = hf_vit_config(HF_VIT_B)
+    require(cfg["qkv_bias"] and cfg["activation"] == "gelu_exact" and cfg["norm_eps"] == 1e-12,
+            f"hf_vit_config: {cfg}")
+    models = {("hf_vit", "bf16"): vit_from_hf(sd, HF_VIT_B, dtype=torch.bfloat16, device=dev),
+              ("hf_vit", "fp32"): vit_from_hf(sd, HF_VIT_B, device=dev)}
+    n = sum(p.numel() for p in models[("hf_vit", "bf16")].parameters())
+    print(f"HF ViT-B/16 (google/vit-base-patch16-224's config, weights from seed {SEED + 62}): "
+          f"{n / 1e6:.1f} M parameters, drawn and imported in {time.perf_counter() - t0:.1f} s; "
+          f"config {cfg}")
+    return models
+
+
+def phase_hf_int8(models, dev, smi):
+    """18c: ``quantize_vit`` of the bf16 HF model in ``auto`` at batch 1, 8
+    and 128: ``w8`` at 1, and from 2 the ``w8a8`` mode the qkv bias falls
+    back to (the W8A8 block kernels have no bias input): kernel 3 twelve
+    times a forward, no W8A8 block kernel. Its logits against the plain fp32
+    path within HF_INT8_RATIO x the plain int8 path's own distance (the same
+    model with kernel 3's twin in its place), and its p50."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils import quantize_vit, resolve_quant_mode
+
+    qm = quantize_vit(models[("hf_vit", "bf16")])
+    require(qm.qkv_bias, "quantize_vit dropped the qkv bias")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    for b in (1, 8, 128):
+        raw = torch.randint(0, 256, (b, 256, 256, 3), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        x16 = preprocess(raw, image_size=224, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            out = qm(x16)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            with ops.force_backend("torch"):
+                ref = models[("hf_vit", "fp32")](preprocess(raw, image_size=224,
+                                                            dtype=torch.float32))
+                plain = qm(x16)
+        err = (out - ref).abs().max().item()
+        control = (plain - ref).abs().max().item()
+        mode = "w8" if b == 1 else "w8a8"
+        print(f"int8 HF ViT-B/16 auto batch {b} ({mode}; resolve_quant_mode gives "
+              f"{resolve_quant_mode(b)}): launches {counts}; max|dlogit| against plain fp32 "
+              f"{err:.6g}, control (the same codes on kernel 3's twin) {control:.6g}, bound "
+              f"{HF_INT8_RATIO} x control {HF_INT8_RATIO * control:.6g} (max|logit| "
+              f"{ref.abs().max().item():.4g})")
+        require(counts["qkv_attention"] == 12, f"int8 HF batch {b}: qkv_attention launched "
+                f"{counts['qkv_attention']} times, want 12")
+        other = {k: c for k, c in counts.items() if c and k != "qkv_attention"}
+        require(not other, f"int8 HF batch {b}: kernels off its path launched: {other}")
+        require(torch.isfinite(out).all().item(), f"int8 HF batch {b}: non-finite logits")
+        require(err <= HF_INT8_RATIO * control,
+                f"int8 HF batch {b}: {err} > {HF_INT8_RATIO} x {control}")
+        with torch.inference_mode():
+            ms = p50_ms(lambda: qm(x16), 3 if b == 128 else 5)
+        line = f"int8 times HF ViT-B/16 auto batch {b}: p50 {ms:.3f} ms"
+        if b == 128:
+            line += f"; img/s {b / ms * 1e3:.1f}"
+        print(f"{line} [{smi}]")
+    with torch.inference_mode():
+        try:
+            qm(x16[:8], mode="w8a8_kernel")
+            refused = False
+        except ValueError:
+            refused = True
+    require(refused, "w8a8_kernel on a qkv-bias model did not raise")
+    print("int8 HF ViT-B/16: mode w8a8_kernel refused (the W8A8 block kernel has no bias input)")
+
+
+def phase_quantized_apply(dev, smi):
+    """18d: ``quantize_weights`` of ViT-L/16 bf16 (full width and depth,
+    ``init_params`` from a seed) and ``quantized_apply`` at batch
+    QAPPLY_BATCH: the logits equal, bit for bit, those of the model loaded
+    with ``dequantize_weights``, through 24 + 24 launches of kernels 1 and 2
+    and nothing else; ``tree_nbytes`` before and after."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils import (
+        dequantize_weights,
+        init_params,
+        quantize_weights,
+        quantized_apply,
+        tree_nbytes,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    model = init_params(ViT(**VIT_L, dtype=torch.bfloat16, device=dev), gen).eval()
+    t0 = time.perf_counter()
+    qstate = quantize_weights(model)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    n_w8 = sum(isinstance(v, dict) for v in qstate.values())
+    before, after = tree_nbytes(model), tree_nbytes(qstate)
+    print(f"quantize_weights ViT-L/16: {n_w8} tensors to int8 in {t_q:.2f} s; tree_nbytes "
+          f"{before / 2**20:.1f} MiB -> {after / 2**20:.1f} MiB (ratio {after / before:.4f})")
+    x = torch.randn(QAPPLY_BATCH, 224, 224, 3, generator=gen, device=dev).bfloat16()
+    loaded = ViT(**VIT_L, dtype=torch.bfloat16, device=dev).eval()
+    loaded.load_state_dict(dequantize_weights(qstate), strict=True)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = quantized_apply(model, qstate, x)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ref = loaded(x)
+        float_out = model(x)
+        ms = p50_ms(lambda: quantized_apply(model, qstate, x), 5)
+        ms_float = p50_ms(lambda: model(x), 5)
+    print(f"quantized_apply ViT-L/16 batch {QAPPLY_BATCH}: launches {counts}; bitwise equal to the "
+          f"dequantized model {bool(torch.equal(out, ref))}; max|dlogit| against the float weights "
+          f"{(out - float_out).abs().max().item():.6g} (max|logit| "
+          f"{float_out.abs().max().item():.4g}); p50 {ms:.3f} ms (the float model {ms_float:.3f}) "
+          f"[{smi}]")
+    want = {"attention_block": VIT_L["depth"], "fused_mlp": VIT_L["depth"]}
+    require({k: c for k, c in counts.items() if c} == want,
+            f"quantized_apply launched {counts}, want {want}")
+    require(torch.equal(out, ref), "quantized_apply differs from the dequantized model")
+    require(after < 0.3 * before, f"tree_nbytes ratio {after / before}")
+    del model, loaded, qstate
+    torch.cuda.empty_cache()
+
+
+def phase_simple_vit_int8(dev, smi):
+    """18e: ``simple_vit_apply_w8a8`` of the SimpleViT preset in
+    ``w8a8_kernel`` mode at batch 8 and 128: kernels 9 and 10 six times a
+    forward each and nothing else; the logits against the plain fp32
+    SimpleViT within HF_INT8_RATIO x the same codes on the kernels' twins."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models import SimpleViT
+    from vit_tpu_torch.utils import from_jax_params, quantize_vit, simple_vit_apply_w8a8
+
+    models = {}
+    state = from_jax_params(simple_vit_tree(SIMPLE_VIT, SEED + 17))
+    for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        models[config] = SimpleViT(**SIMPLE_VIT, dtype=dtype, device=dev).eval()
+        models[config].load_state_dict(state, strict=True)
+    qm = quantize_vit(models["bf16"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 65)
+    depth = SIMPLE_VIT["depth"]
+    for b in (8, 128):
+        x = torch.randn(b, 256, 256, 3, generator=gen, device=dev)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            out = simple_vit_apply_w8a8(qm, x.bfloat16(), mode="w8a8_kernel")
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            with ops.force_backend("torch"):
+                ref = models["fp32"](x)
+                plain = simple_vit_apply_w8a8(qm, x.bfloat16(), mode="w8a8_kernel")
+            ms = p50_ms(lambda: simple_vit_apply_w8a8(qm, x.bfloat16(), mode="w8a8_kernel"),
+                        3 if b == 128 else 5)
+        err = (out - ref).abs().max().item()
+        control = (plain - ref).abs().max().item()
+        print(f"simple_vit_apply_w8a8 SimpleViT preset w8a8_kernel batch {b}: launches {counts}; "
+              f"max|dlogit| against plain fp32 {err:.6g}, control (kernels 9 and 10's twins) "
+              f"{control:.6g}, bound {HF_INT8_RATIO * control:.6g} (max|logit| "
+              f"{ref.abs().max().item():.4g}); p50 {ms:.3f} ms"
+              + (f", img/s {b / ms * 1e3:.1f}" if b == 128 else "") + f" [{smi}]")
+        want = {"quant_attention_block": depth, "quant_mlp": depth}
+        require({k: c for k, c in counts.items() if c} == want,
+                f"simple_vit_apply_w8a8 launched {counts}, want {want}")
+        require(torch.isfinite(out).all().item(), "simple_vit_apply_w8a8: non-finite logits")
+        require(err <= HF_INT8_RATIO * control,
+                f"simple_vit_apply_w8a8 batch {b}: {err} > {HF_INT8_RATIO} x {control}")
+    del models, qm
+    torch.cuda.empty_cache()
+
+
+def phase_qat_and_health(dev, smi):
+    """18f: one ``make_train_step(qat=True)`` step at ViT-L/16's width
+    (depth QAT_DEPTH, batch QAT_BATCH, AdamW, remat): every gradient finite,
+    kernels 1 and 2 twice a layer (the forward and remat's) with one
+    recompute each; the forward inside ``fake_quantized`` equals
+    ``quantized_apply`` of ``quantize_weights`` bit for bit. Then
+    ``probe_devices`` and ``memory_stats``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch import train as tt
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils import (
+        init_params,
+        memory_stats,
+        probe_devices,
+        quantize_weights,
+        quantized_apply,
+    )
+    from vit_tpu_torch.utils.quantize import fake_quantized
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 66)
+    model = init_params(ViT(**dict(VIT_L, depth=QAT_DEPTH), dtype=torch.bfloat16, device=dev),
+                        gen)
+    images = torch.randn(QAT_BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, VIT_L["num_classes"], (QAT_BATCH,), generator=gen, device=dev)
+    with torch.inference_mode():
+        with fake_quantized(model):
+            ste = model(images[:4].bfloat16())
+        deployed = quantized_apply(model, quantize_weights(model), images[:4].bfloat16())
+    opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+    state = tt.create_train_state(model, opt, gen, init=False)
+    step = tt.make_train_step(model, opt, remat=True, qat=True)
+    ops.reset_launch_counts()
+    before = dict(ops.recompute_counts())
+    t0 = time.perf_counter()
+    loss = float(step(state, images, labels))
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    recomputes = {k: v - before.get(k, 0) for k, v in ops.recompute_counts().items()}
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    finite = all(g is not None and torch.isfinite(g).all().item() for g in grads.values())
+    print(f"qat step ViT-L width, depth {QAT_DEPTH}, batch {QAT_BATCH}: loss {loss:.5f} in "
+          f"{dt:.2f} s (first step, host clock); launches {counts}; recomputes {recomputes}; "
+          f"{len(grads)} gradients all finite {finite}; fake-quantized forward bitwise the "
+          f"deployed quantized_apply {bool(torch.equal(ste, deployed))} [{smi}]")
+    want = {"attention_block": 2 * QAT_DEPTH, "fused_mlp": 2 * QAT_DEPTH}
+    require({k: c for k, c in counts.items() if c} == want, f"qat step launched {counts}")
+    require(all(recomputes.get(k, 0) == QAT_DEPTH for k in want),
+            f"qat step recomputes {recomputes}")
+    require(finite and math.isfinite(loss), "qat step: a gradient or the loss is not finite")
+    require(torch.equal(ste, deployed), "the fake-quantized forward differs from the deployed one")
+    del model, state, grads
+    torch.cuda.empty_cache()
+    report = probe_devices()
+    print(f"health: probe_devices {report}")
+    require(report["ok"], f"probe_devices: {report}")
+    print(f"health: memory_stats {memory_stats()}")
+
+
+def phase_hf_vit(dev, smi, requests):
+    """Phase 18 (18a-18f, each a function above). Returns the op lines'
+    figures of kernels 2, 3 and 4 at the HF model's shapes."""
+    t_phase = time.perf_counter()
+    phase_hf_kernels(dev)
+    models = build_hf_vit_models(dev)
+    serve_families(models, ("hf_vit",), dev, smi, requests)
+    phase_hf_int8(models, dev, smi)
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 67)
+    what, heads, n, _ = HF_FLASH
+    op_ms = {"flash_attention": hf_flash_op_line(gen, smi),
+             "qkv_attention": qkv_attention_op_line(f"{what} int8 path", 128, n, gen, smi,
+                                                    heads=heads),
+             "fused_mlp": fused_mlp_op_line(what, 128, *HF_MLP[0][1:5], gen, smi,
+                                            activation=HF_MLP[0][5])}
+    phase_quantized_apply(dev, smi)
+    phase_simple_vit_int8(dev, smi)
+    phase_qat_and_health(dev, smi)
+    print(f"phase 18 (HF ViT-B/16, int8, weight-only int8, QAT) took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return op_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -4738,6 +5206,11 @@ def main() -> int:
 
     # 17. training ViT-L/16: kernels 1 and 2 forward, their Functions' backward
     phase_train(dev, smi)
+
+    # 18. a Hugging Face ViT-B/16 (the qkv-bias branch on kernels 4 and 2), its
+    # int8 path on kernel 3, quantized_apply, simple_vit_apply_w8a8 on kernels 9
+    # and 10, a QAT step, the health lines
+    phase_hf_vit(dev, smi, requests)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

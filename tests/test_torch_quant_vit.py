@@ -116,13 +116,21 @@ def test_quant_vit_keeps_k_major_codes_beside_the_state_dict():
 
 
 def test_from_jax_quant_refuses_a_qkv_bias_tree():
+    """A quantized tree with a qkv bias converts (the qkv-bias layout is
+    ported) to ``encoder.blocks.{i}.attn.qkv_bias``, which a ``QuantViT``
+    without a qkv bias refuses to load and a ``QuantViT(qkv_bias=True)``
+    loads."""
     _, variables, _ = _jax_pair(None)
     from vit_tpu.utils.quantize import quantize_vit as jax_quantize_vit
 
     qvars = jax_quantize_vit(variables)
-    qvars["params"]["encoder"]["blocks"]["attn"]["qkv_bias"] = np.zeros((2, 192), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_jax_quant(qvars)
+    bias = np.arange(2 * 192, dtype=np.float32).reshape(2, 192)
+    qvars["params"]["encoder"]["blocks"]["attn"]["qkv_bias"] = bias
+    state = from_jax_quant(qvars)
+    np.testing.assert_array_equal(state["encoder.blocks.1.attn.qkv_bias"].numpy(), bias[1])
+    with pytest.raises(RuntimeError, match="qkv_bias"):
+        QuantViT(**CFG, device="cpu").load_state_dict(state, strict=True)
+    QuantViT(**CFG, qkv_bias=True, device="cpu").load_state_dict(state, strict=True)
 
 
 def test_resolve_quant_mode_matches_jax():

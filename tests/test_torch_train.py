@@ -604,13 +604,13 @@ def test_named_optimizers_refuse_muon_and_unknown_names():
 
 
 def test_training_refuses_what_is_not_ported():
-    state = _tiny_state()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tt.make_train_step(state.model, qat=True)
+    """Every family but ViT and ViT-MoE still raises, with or without
+    ``qat`` (QAT itself is ported: tests/test_torch_quant_weights.py)."""
     from vit_tpu_torch.models import SimpleViT
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.make_train_step(SimpleViT(**CFG, depth=1, device="cpu"))
+    for qat in (False, True):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tt.make_train_step(SimpleViT(**CFG, depth=1, device="cpu"), qat=qat)
 
 
 # -- eval --------------------------------------------------------------------------

@@ -145,9 +145,10 @@ def test_converter_rejects_a_wrong_layout():
 # re-attention run alone (tests/test_torch_cait_deepvit.py); together, or
 # re-attention without the residual its kernel adds, they raise. LSA's two
 # flags run on the raw-parameter branch (tests/test_torch_small_vits.py) and
-# raise on the cross-attention branch.
+# raise on the cross-attention branch. A qkv bias runs alone
+# (tests/test_torch_interop.py) and raises beside a head mix.
 UNPORTED = {
-    "qkv_bias": {}, "talking_heads": {"reattention": True},
+    "qkv_bias": {"talking_heads": True}, "talking_heads": {"reattention": True},
     "reattention": {"fuse_residual": False}, "mask_self": {"cross": True},
     "learned_temperature": {"cross": True},
 }
@@ -174,17 +175,21 @@ def test_depth_one_reattention_raises_when_called():
 
 
 def test_cross_attention_raises():
-    """Cross-attention with LSA's ``mask_self`` or a qkv bias is not ported
-    and raises; without a head mix or the low-query path it runs the flash
-    route (``ops.attention``)."""
+    """Cross-attention with LSA's ``mask_self`` is not ported and raises;
+    without a head mix or the low-query path it runs the flash route
+    (``ops.attention``), and so it does with a qkv bias (its ``to_q`` and
+    ``to_kv`` then carry one; tests/test_torch_interop.py holds it to
+    vit_tpu's)."""
     from vit_tpu_torch.nn import Attention
 
     x = torch.zeros(1, 5, 64)
-    for kw in (dict(mask_self=True), dict(qkv_bias=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Attention(64, 4, 16, cross=True, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Attention(64, 4, 16, cross=True, device="cpu", mask_self=True)
+    biased = Attention(64, 4, 16, cross=True, device="cpu", qkv_bias=True)
+    assert biased.to_q.bias is not None and biased.to_kv.bias is not None
     with torch.inference_mode():
         assert Attention(64, 4, 16, cross=True, device="cpu")(x, context=x).shape == (1, 5, 64)
+        assert biased(x, context=x).shape == (1, 5, 64)
 
 
 def _constructors():

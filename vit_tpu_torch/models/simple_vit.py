@@ -43,6 +43,10 @@ class SimpleViT(nn.Module):
         if ph != pw:
             raise ValueError("square patches only")
         self.channels_first = channels_first
+        # the constructor's arguments, for quantize_vit to build the int8 model
+        self.config = dict(image_size=image_size, patch_size=patch_size, num_classes=num_classes,
+                           dim=dim, depth=depth, heads=heads, mlp_dim=mlp_dim, channels=channels,
+                           dim_head=dim_head, channels_first=channels_first, dtype=dtype)
         self.patch_embed = PatchEmbed(dim, ph, channels, out_dtype=dtype, device=device)
         # the sin-cos table in the stream's dtype, made once (not a parameter)
         self.register_buffer("pos_sincos", ops.posemb_sincos_2d(

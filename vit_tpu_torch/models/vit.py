@@ -32,12 +32,15 @@ class ViT(nn.Module):
     mixed config: ``dtype=bfloat16, residual_dtype=float32``).
     ``dropout``, ``emb_dropout``: ``vit_tpu``'s rates, used only by
     ``forward(..., train=True)``.
+    ``qkv_bias``, ``activation="gelu_exact"`` and ``norm_eps``: the knobs of
+    a Hugging Face or timm ViT checkpoint (``utils.interop``): each layer's
+    attention then takes the flax branch with a qkv bias (``nn.Attention``).
     """
 
     def __init__(self, *, image_size: int, patch_size: int, num_classes: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, pool: str = "cls", dim_head: int = 64,
-                 channels: int = 3, activation: str = "gelu", norm_eps: float = 1e-6,
-                 dropout: float = 0.0, emb_dropout: float = 0.0,
+                 channels: int = 3, qkv_bias: bool = False, activation: str = "gelu",
+                 norm_eps: float = 1e-6, dropout: float = 0.0, emb_dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None,
                  residual_dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
@@ -53,15 +56,16 @@ class ViT(nn.Module):
         # the constructor's arguments, for quantize_vit to rebuild the model
         self.config = dict(image_size=image_size, patch_size=patch_size, num_classes=num_classes,
                            dim=dim, depth=depth, heads=heads, mlp_dim=mlp_dim, pool=pool,
-                           dim_head=dim_head, channels=channels, activation=activation,
-                           norm_eps=norm_eps, dtype=dtype)
+                           dim_head=dim_head, channels=channels, qkv_bias=qkv_bias,
+                           activation=activation, norm_eps=norm_eps, dtype=dtype)
         num_patches = (ih // ph) * (iw // pw)
         self.patch_embed = PatchEmbed(dim, ph, channels, out_dtype=residual_dtype or dtype,
                                       device=device)
         self.cls = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embedding = nn.Parameter(torch.zeros(1, num_patches + 1, dim, device=device))
-        self.encoder = Transformer(dim, depth, heads, dim_head, mlp_dim, activation=activation,
-                                   norm_eps=norm_eps, dropout=dropout, dtype=dtype, device=device)
+        self.encoder = Transformer(dim, depth, heads, dim_head, mlp_dim, qkv_bias=qkv_bias,
+                                   activation=activation, norm_eps=norm_eps, dropout=dropout,
+                                   dtype=dtype, device=device)
         self.jax_stages = {f"encoder/{k}": v for k, v in self.encoder.jax_stages.items()}
         self.head_norm = LayerNorm(dim, eps=norm_eps, device=device)
         self.head = Dense(dim, num_classes, device=device)

@@ -38,12 +38,24 @@ before its first call:
   no LSA layer reaches a block kernel.
 - **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
   LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
-  ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype), with
-  ``context`` and ``kv_include_self``. Few queries against many keys take
-  the reassociated low-query path (``lowq_cross``; the FLOP gate of :387),
-  in plain PyTorch, as the JAX package computes it outside any Pallas
-  kernel. The rest runs ``ops.attention`` (the flash kernel on the card;
-  :401-402), or, with a head mix, the materializing path in plain PyTorch.
+  ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype; ``to_q`` and
+  ``to_kv`` with a bias under ``qkv_bias``), with ``context`` and
+  ``kv_include_self``. Few queries against many keys take the reassociated
+  low-query path (``lowq_cross``; the FLOP gate of :387; never with a qkv
+  bias, :379-381), in plain PyTorch, as the JAX package computes it outside
+  any Pallas kernel. The rest runs ``ops.attention`` (the flash kernel on
+  the card; :401-402), or, with a head mix, the materializing path in plain
+  PyTorch.
+- **self-attention with a qkv bias, flax parameters** (:356-410, the branch
+  Hugging Face and timm ViTs take: vit_tpu fuses a layer only without a qkv
+  bias, :196): ``norm`` (flax LayerNorm in fp32), ``to_qkv`` (a ``Dense``
+  with a bias in the module dtype: the product rounded once, then the bias
+  added in that dtype), ``ops.attention`` on the q, k, v views (the flash
+  kernel, kernel 4, on the card), ``to_out``, and the residual added with
+  ``fuse_residual``. No block kernel takes this branch (``fuses`` is False):
+  their qkv product has no bias input. With ``forward(..., train=True)`` and
+  ``dropout`` above 0, the materializing path with ``attn_drop``, then
+  ``out_drop`` after ``to_out``.
 
 **Dropout** (``dropout``, :183-194, :329-349, :502-503): with
 ``forward(..., train=True)`` and ``dropout`` above 0 the self-attention
@@ -58,10 +70,11 @@ dropout.
 ``mha_tokens`` (:70-91) is the functional attention of the window and
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
 
-Still raising, each naming its ROADMAP item: ``qkv_bias``, cross-attention
-with ``mask_self``, ``learned_temperature`` or a bias, both head mixes at once, and
-re-attention or talking heads without the output projection, or
-re-attention without ``fuse_residual`` (JAX's materializing path).
+Still raising, each naming its ROADMAP item: ``qkv_bias`` with a head mix
+or LSA, cross-attention with ``mask_self``, ``learned_temperature`` or a
+bias, both head mixes at once, and re-attention or talking heads without
+the output projection, or re-attention without ``fuse_residual`` (JAX's
+materializing path).
 """
 
 from __future__ import annotations
@@ -143,8 +156,13 @@ class Attention(nn.Module):
 
     Cross-attention (``cross=True``): ``norm`` (``scale``, ``bias``),
     ``norm_context`` with ``norm_context``, ``to_q/kernel``,
-    ``to_kv/kernel``, ``to_out/{kernel, bias}``, and the head mixes as
-    above. ``forward(x, context, kv_include_self)``.
+    ``to_kv/kernel`` (each with a ``bias`` under ``qkv_bias``),
+    ``to_out/{kernel, bias}``, and the head mixes as above.
+    ``forward(x, context, kv_include_self)``.
+
+    Self-attention with ``qkv_bias``: ``norm`` (``scale``, ``bias``),
+    ``to_qkv/{kernel, bias}`` ``[D, 3*H*Dh]``, ``to_out/{kernel, bias}``
+    (without the output projection, none).
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *,
@@ -155,8 +173,9 @@ class Attention(nn.Module):
                  lowq_cross: Optional[bool] = None, norm_eps: float = 1e-6,
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if qkv_bias:
-            raise NotImplementedError(f"qkv_bias: {_LATER}")
+        if qkv_bias and not cross and (talking_heads or reattention or mask_self
+                                       or learned_temperature):
+            raise NotImplementedError(f"qkv_bias with a head mix or LSA: {_LATER}")
         if cross and (mask_self or learned_temperature):
             raise NotImplementedError(f"cross-attention with mask_self / learned_temperature: "
                                       f"{_LATER}")
@@ -174,14 +193,19 @@ class Attention(nn.Module):
         self.talking_heads, self.reattention = talking_heads, reattention
         self.mask_self, self.learned_temperature = mask_self, learned_temperature
         self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
-        self.norm_eps, self.dtype, self.dropout = norm_eps, dtype, dropout
+        self.norm_eps, self.dtype, self.dropout, self.qkv_bias = norm_eps, dtype, dropout, qkv_bias
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         if cross:
             self.norm = LayerNorm(dim, eps=norm_eps, device=device)
             self.norm_context = LayerNorm(dim, eps=norm_eps, device=device) if norm_context else None
-            self.to_q = Dense(dim, inner, use_bias=False, dtype=dtype, device=device)
-            self.to_kv = Dense(dim, 2 * inner, use_bias=False, dtype=dtype, device=device)
+            self.to_q = Dense(dim, inner, use_bias=qkv_bias, dtype=dtype, device=device)
+            self.to_kv = Dense(dim, 2 * inner, use_bias=qkv_bias, dtype=dtype, device=device)
             self.to_out = Dense(inner, dim, dtype=dtype, device=device)
+        elif qkv_bias:
+            self.norm = LayerNorm(dim, eps=norm_eps, device=device)
+            self.to_qkv = Dense(dim, 3 * inner, dtype=dtype, device=device)
+            if self.project_out:
+                self.to_out = Dense(inner, dim, dtype=dtype, device=device)
         else:
             self.norm_scale = p(dim, fill=1.0)
             self.norm_bias = p(dim)
@@ -213,6 +237,8 @@ class Attention(nn.Module):
             return self._cross_attention(x, context, kv_include_self)
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
+        if self.qkv_bias:
+            return self._flax_self_attention(x, bias, drop, generator)
         dtype = self.dtype or x.dtype
         mix = self.talking_heads or self.reattention
         lsa = self.mask_self or self.learned_temperature
@@ -233,9 +259,27 @@ class Attention(nn.Module):
     def fuses(self, n: int) -> bool:
         """Whether a layer of ``n`` tokens runs as one block kernel: inside
         ``vit_tpu``'s two terms (``FUSE_MAX_TOKENS``,
-        ``FUSE_MAX_WEIGHT_BYTES``), as ``vit_tpu`` decides it."""
+        ``FUSE_MAX_WEIGHT_BYTES``), as ``vit_tpu`` decides it. Never with a
+        qkv bias: the block kernels' qkv product has no bias input."""
         inner = self.heads * self.dim_head
-        return n <= FUSE_MAX_TOKENS and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES
+        return (not self.qkv_bias and n <= FUSE_MAX_TOKENS
+                and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES)
+
+    def _flax_self_attention(self, x, bias=None, drop=0.0, generator=None):
+        """Self-attention with a qkv bias (vit_tpu/nn/attention.py:356-410):
+        flax's LayerNorm in fp32, ``to_qkv`` (rounded once to the module
+        dtype, then its bias added in it), ``ops.attention`` on the q, k, v
+        views (with dropout, the materializing path), ``to_out`` and
+        ``out_drop``; the residual added with ``fuse_residual``."""
+        q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))
+        if drop:
+            out = self._materializing_attention(q, k, v, bias, drop, generator)
+        else:
+            out = ops.attention(q, k, v, bias, scale=self.scale)
+        out = merge_heads(out)
+        if self.project_out:
+            out = dropout(self.to_out(out), drop, generator)
+        return out + x if self.fuse_residual else out
 
     def _unfused(self, x, dtype, bias=None, drop=0.0, generator=None):
         """The raw-parameter branch outside the fused block (vit_tpu/nn/
@@ -290,7 +334,8 @@ class Attention(nn.Module):
         q = self.to_q(x)
         n_q, n_kv, inner = q.shape[1], kv_src.shape[1], self.heads * self.dim_head
         lowq = (
-            not self.reattention
+            not self.qkv_bias
+            and not self.reattention
             and (self.lowq_cross if self.lowq_cross is not None
                  else 4 * n_q * (inner + n_kv) <= n_kv * inner)
         )

@@ -91,18 +91,19 @@ class EncoderBlock(nn.Module):
     """One pre-norm residual block: attention (with ``fuse_residual``, the
     residual inside the kernel; DeepViT's re-attention with
     ``reattention``; LSA with ``mask_self`` / ``learned_temperature``, never
-    fused; without ``fuse_residual``, ``x + attn(x)``) then ``x +
-    FeedForward(x)``, each sum in JAX's promotion of the two dtypes."""
+    fused; with ``qkv_bias``, the flax branch, never fused; without
+    ``fuse_residual``, ``x + attn(x)``) then ``x + FeedForward(x)``, each
+    sum in JAX's promotion of the two dtypes."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, mask_self: bool = False,
-                 learned_temperature: bool = False, fuse_residual: bool = True,
-                 activation: str = "gelu", norm_eps: float = 1e-6, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None, device="cuda"):
+                 learned_temperature: bool = False, qkv_bias: bool = False,
+                 fuse_residual: bool = True, activation: str = "gelu", norm_eps: float = 1e-6,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.fuse_residual = fuse_residual
         self.attn = Attention(dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
-                              learned_temperature=learned_temperature,
+                              learned_temperature=learned_temperature, qkv_bias=qkv_bias,
                               fuse_residual=fuse_residual, norm_eps=norm_eps, dropout=dropout,
                               dtype=dtype, device=device)
         self.ff = FeedForward(dim, mlp_dim, activation=activation, ln_eps=norm_eps,
@@ -135,6 +136,12 @@ class Transformer(nn.Module):
     attention, which then takes the unfused branch at every depth
     (blocks.py:396-397 pass both to the scanned and unscanned layers).
 
+    ``qkv_bias`` (with the erf GELU, ``activation="gelu_exact"``, and the
+    checkpoint's ``norm_eps``: Hugging Face and timm ViTs) gives every
+    layer's attention a qkv bias: the flax branch (``nn.Attention``), never a
+    block kernel (blocks.py:241-246). ``vit_tpu`` does not pad such a stack
+    (blocks.py:312), and the port pads no stack.
+
     With ``final_norm`` a flax LayerNorm (eps ``norm_eps``, output in
     ``dtype``; None: fp32) named ``final_norm`` follows the stack, outside
     ``blocks`` (blocks.py:396-397, :460-461).
@@ -149,9 +156,10 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *,
                  reattention: bool = False, mask_self: bool = False,
-                 learned_temperature: bool = False, activation: str = "gelu",
-                 norm_eps: float = 1e-6, parallel_branches: int = 1, final_norm: bool = False,
-                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
+                 learned_temperature: bool = False, qkv_bias: bool = False,
+                 activation: str = "gelu", norm_eps: float = 1e-6, parallel_branches: int = 1,
+                 final_norm: bool = False, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         if dropout and parallel_branches > 1:
             raise NotImplementedError("dropout in parallel branches is not ported "
@@ -166,7 +174,8 @@ class Transformer(nn.Module):
                 for b in range(parallel_branches):
                     self.add_module(f"attn_{i}_{b}", Attention(
                         dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
-                        learned_temperature=learned_temperature, norm_eps=norm_eps,
+                        learned_temperature=learned_temperature, qkv_bias=qkv_bias,
+                        norm_eps=norm_eps,
                         dtype=dtype, device=device))
                 for b in range(parallel_branches):
                     # vit_tpu builds the FF branches without ln_eps and activation
@@ -179,7 +188,8 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
                          mask_self=mask_self, learned_temperature=learned_temperature,
-                         fuse_residual=depth > 1 or reattention, activation=activation,
+                         qkv_bias=qkv_bias, fuse_residual=depth > 1 or reattention,
+                         activation=activation,
                          norm_eps=norm_eps, dropout=dropout, dtype=dtype, device=device)
             for _ in range(depth)
         )

@@ -23,13 +23,15 @@ forward with ``train=True`` (on the card kernels 1 and 2 forward, their
 autograd Functions' recompute backward, ``ops.AttentionBlockFn`` /
 ``ops.MlpFn``), per-block remat, ``accum_steps`` microbatches averaged before
 one update, soft targets under ``augment_fn``, distillation under
-``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``.
+``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``,
+weight-only int8 QAT under ``qat`` (``utils.quantize.fake_quantized``).
 Training is ported for ``ViT`` and ``ViTMoE``; every other family raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import sys
@@ -263,16 +265,18 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
     switches the loss to soft targets. ``teacher_apply(images) -> logits``
     trains the (single-head) student on ``distillation_loss``.
     ``moe_aux_weight`` adds that weight times the mean of ViT-MoE's
-    load-balance losses. ``remat`` checkpoints each encoder block. ``qat``
-    is not ported (ROADMAP.md Queue 1 item 4, the weight-only transforms).
+    load-balance losses. ``remat`` checkpoints each encoder block.
+    ``qat=True`` trains through the weight-only int8 view
+    (``utils.quantize.fake_quantized``, vit_tpu/train.py:234-237): the
+    forward, and remat's recompute in the backward, see exactly the weights
+    the deployed ``quantized_apply`` of ``quantize_weights`` will use, and
+    the gradients pass straight through to the float parameters.
     ``optimizer``: the recipe the state was built with (its clip)."""
-    if qat:
-        raise NotImplementedError("qat needs fake_quantize_weights, not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     apply = _trainable(model, moe_aux_weight, remat)
     clip = (optimizer or make_optimizer()).grad_clip_norm
+    from vit_tpu_torch.utils.quantize import fake_quantized
 
     def loss_of(images, labels, generator):
         if augment_fn is not None:
@@ -298,8 +302,9 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
         state.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=images.device)
         for imgs, lbls in zip(images.chunk(accum_steps), labels.chunk(accum_steps)):
-            loss_i = loss_of(imgs, lbls, state.generator)
-            loss_i.backward()
+            with fake_quantized(state.model) if qat else contextlib.nullcontext():
+                loss_i = loss_of(imgs, lbls, state.generator)
+                loss_i.backward()
             loss = loss + loss_i.detach()
         params = [p for p in state.model.parameters() if p.grad is not None]
         if accum_steps > 1:

@@ -2,14 +2,29 @@
 
 from vit_tpu_torch.utils.bn_folding import fold_batch_norm  # noqa: F401
 from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
+from vit_tpu_torch.utils.health import memory_stats, probe_devices, with_retry  # noqa: F401
 from vit_tpu_torch.utils.init import init_params  # noqa: F401
+from vit_tpu_torch.utils.interop import (  # noqa: F401
+    export_vit_to_hf,
+    hf_vit_config,
+    import_hf_vit_params,
+    vit_from_hf,
+)
+from vit_tpu_torch.utils.parity import fp64_vit_forward, max_logit_err  # noqa: F401
 from vit_tpu_torch.utils.pos_embed import (  # noqa: F401
     adapt_vit_resolution,
     interpolate_pos_embedding,
 )
 from vit_tpu_torch.utils.quantize import (  # noqa: F401
     W8A8_KERNEL_MIN_BATCH,
+    QuantSimpleViT,
     QuantViT,
+    dequantize_weights,
+    fake_quantize_weights,
     quantize_vit,
+    quantize_weights,
+    quantized_apply,
     resolve_quant_mode,
+    simple_vit_apply_w8a8,
+    tree_nbytes,
 )

@@ -120,13 +120,9 @@ def from_jax_quant(qvars: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     1, N)``) into a ``state_dict`` for ``vit_tpu_torch.utils.QuantViT`` that
     loads with ``strict=True``. The codes stay int8 and keep their layout:
     layer i's ``quant/to_qkv/w[i]`` becomes ``encoder.blocks.{i}.attn.
-    qkv_kernel``, its scale ``...qkv_kernel_scale``."""
-    attn = qvars["params"]["encoder"]["blocks"]["attn"]
-    if "qkv_bias" in attn:
-        raise NotImplementedError(
-            "quantized trees with a qkv bias (HF/timm imports) are not ported yet "
-            "(ROADMAP.md Queue 1 item 4, qkv-bias layout)"
-        )
+    qkv_kernel``, its scale ``...qkv_kernel_scale``. A tree with a qkv bias
+    (a Hugging Face or timm import) gives ``encoder.blocks.{i}.attn.qkv_bias``
+    too, for a ``QuantViT(qkv_bias=True)``."""
     state = from_jax_params(qvars["params"])
     for name, (mod, weight) in zip(_QUANT_NAMES, QUANT_WEIGHTS):
         codes = np.asarray(qvars["quant"][name]["w"])
