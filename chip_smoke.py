@@ -225,7 +225,22 @@ Runs, in order, and exits non-zero at the first failure:
      (kernels 1 and 2 24 times each, ``tree_nbytes``); the SimpleViT preset
      through ``simple_vit_apply_w8a8`` in ``w8a8_kernel`` (kernels 9 and 10
      six times each); one ``make_train_step(qat=True)`` step at ViT-L's
-     width; ``probe_devices`` and ``memory_stats``.
+     width; ``probe_devices`` and ``memory_stats``;
+ 19. the serving programs exported ahead of time (``vit_tpu_torch.utils.aot``
+     on ``torch.export``, every kernel a ``torch.library`` operator):
+     ViT-L/16 in bf16 at buckets 1 and 128 and ``quantize_vit`` of it in
+     ``auto`` at buckets 1 and 8 (``w8`` on kernel 3; ``w8a8_kernel`` on
+     kernels 9 and 10) through ``export_serving``, each bucket's loaded
+     program bit for bit the eager model on the same uint8 images with its
+     exact launch counts a forward; ``ExportedServing`` with a ragged batch
+     of 3 and a chunked one of 130 against eager rows within SERVER_TOL;
+     export and load seconds, artifact MB, p50 at batch 1 and 128 exported
+     against eager; then the CaiT, DeepViT, Twins-SVT, T2T-ViT,
+     PatchMerger-ViT and HF ViT-B/16 presets (random weights, bf16, batch
+     2) exported, saved and loaded, each program bit for bit eager with
+     eager's launch counts (FAMILY_LAUNCHES), so that each of the ten
+     kernels, the wgmma GEMM of the unfused output projection and the bf16
+     ``Dense`` product runs as an operator of an exported program.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -5069,6 +5084,239 @@ def phase_hf_vit(dev, smi, requests):
     return op_ms
 
 
+# -- phase 19: the serving programs exported ahead of time --------------------------
+
+# ViT-L's buckets, and the launches of one forward of each bucket's program.
+AOT_BUCKETS = {"bf16": (1, 128), "int8": (1, 8)}
+AOT_LAUNCHES = {
+    ("bf16", 1): {"attention_block": 24, "fused_mlp": 24},
+    ("bf16", 128): {"attention_block": 24, "fused_mlp": 24},
+    ("int8", 1): {"qkv_attention": 24},  # auto: w8
+    ("int8", 8): {"quant_attention_block": 24, "quant_mlp": 24},  # auto: w8a8_kernel
+}
+# The families that carry the other operators into an exported program, at
+# batch AOT_BATCH: CaiT (kernel 7), DeepViT (8), Twins-SVT (6, 4, 2), T2T-ViT
+# (5), PatchMerger-ViT (3 and the wgmma GEMM of the unfused output
+# projection), the HF ViT-B/16 (the bf16 Dense product, 4, 2). Each preset at
+# the depth AOT_DEPTHS cuts it to, its widths kept: every kind of launch
+# stays, and the bytes to serialize shrink from 2.9 to 0.9 GB. T2T-ViT stays
+# whole: at depth 1 its encoder is unfused (vit_tpu's unscanned layer) and
+# takes kernel 3 in place of kernel 1.
+# The families whose graphs must hold the two operators that count no launch:
+AOT_FAMILIES = ("cait", "deepvit", "twins", "t2t", "patch_merger_vit", "hf_vit")
+AOT_DEPTHS = {"cait": dict(depth=2, cls_depth=1), "deepvit": dict(depth=2),
+              "twins": dict(s3_depth=1, s4_depth=1), "t2t": {},
+              "patch_merger_vit": dict(depth=2, patch_merge_layer=1),
+              "hf_vit": dict(num_hidden_layers=2)}
+AOT_BATCH = 2
+AOT_UNCOUNTED = {"patch_merger_vit": "gemm_sm90", "hf_vit": "mm_rounded"}
+PORT_OP_NAMESPACES = ("aten", "vit_tpu_torch")
+
+
+def program_ops(program) -> collections.Counter:
+    """Nodes of each ``vit_tpu_torch::`` operator in a loaded program's
+    graph; fails on a node that calls anything but an ``aten`` or a port
+    operator (or takes an item of a tuple)."""
+    import operator
+
+    counts = collections.Counter()
+    for node in program.graph.nodes:
+        if node.op != "call_function" or node.target is operator.getitem:
+            continue
+        namespace = getattr(node.target, "namespace", None)
+        require(namespace in PORT_OP_NAMESPACES, f"exported graph calls {node.format_node()}")
+        if namespace == "vit_tpu_torch":
+            counts[node.target._schema.name.split("::")[1]] += 1
+    return counts
+
+
+def counted(fn, *args):
+    """``fn(*args)`` under inference mode with the launch counts set to 0
+    just before it; returns the output and the nonzero counts read just
+    after it."""
+    from vit_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in ops.launch_counts().items() if n}
+
+
+def aot_model_check(what, model, blob, buckets, gen, dev):
+    """19a: each bucket's program of ``blob`` against ``model`` on the same
+    uint8 images (bitwise, AOT_LAUNCHES a forward); returns the loaded
+    ``ExportedServing`` and its load seconds."""
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils import ExportedServing
+
+    t0 = time.perf_counter()
+    served = ExportedServing(blob)
+    t_load = time.perf_counter() - t0
+    require(served.buckets == list(buckets) and served.device == dev,
+            f"{what}: buckets {served.buckets} on {served.device}")
+    for b in buckets:
+        raw = torch.randint(0, 256, (b, 256, 256, 3), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        eager, want = counted(lambda r: model(preprocess(r, image_size=224)), raw)
+        out, got = counted(served.run, raw)
+        same = bool(torch.equal(out, eager))
+        print(f"aot {what} bucket {b}: exported vs eager bitwise {same} (max|dlogit| "
+              f"{(out.float() - eager.float()).abs().max().item():.6g}); launches exported "
+              f"{got}, eager {want}")
+        require(want == AOT_LAUNCHES[(what, b)], f"aot {what} bucket {b}: eager launched {want}")
+        require(got == want, f"aot {what} bucket {b}: the exported program launched {got}")
+        require(same, f"aot {what} bucket {b}: the exported program differs from eager")
+    return served, t_load
+
+
+def aot_rows_check(what, model, served, gen, dev, mode=None):
+    """19b: a ragged batch of 3 and a chunked one of 130 through
+    ``ExportedServing`` against eager rows (``mode``: the int8 mode of the
+    bucket the rows ride in) within SERVER_TOL of the largest logit."""
+    from vit_tpu_torch.pipeline import preprocess
+
+    for n in (3, 130):
+        raw = torch.randint(0, 256, (n, 256, 256, 3), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        with torch.inference_mode():
+            x = preprocess(raw, image_size=224)
+            eager = (model(x) if mode is None else model(x, mode=mode)).float()
+        rows = torch.from_numpy(served(raw.cpu().numpy())).to(dev)
+        err = (rows - eager).abs().max().item()
+        tol = SERVER_TOL * eager.abs().max().item()
+        print(f"aot {what} ExportedServing batch {n}: rows {tuple(rows.shape)} vs eager "
+              f"max|dlogit| {err:.6g} tol {tol:.6g}")
+        require(rows.shape == eager.shape and err <= tol,
+                f"aot {what} batch {n}: rows differ from eager by {err}")
+
+
+def aot_p50(what, model, served, gen, dev, smi):
+    """19c: p50 at batch 1 and 128 of the exported program against eager,
+    uint8 images to logits on the card, in turns (exported, eager, eager,
+    exported)."""
+    from vit_tpu_torch.pipeline import preprocess
+
+    for b in (1, 128):
+        raw = torch.randint(0, 256, (b, 256, 256, 3), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        with torch.inference_mode():
+            exported = lambda: served.run(raw)
+            eager = lambda: model(preprocess(raw, image_size=224))
+            reps = 5 if b == 128 else 20
+            for f in (exported, eager):
+                p50_ms(f, 2)  # warm-up
+            runs = {"x": [], "e": []}
+            for f, side in ((exported, "x"), (eager, "e"), (eager, "e"), (exported, "x")):
+                runs[side].append(p50_ms(f, reps))
+        print(f"aot {what} batch {b}: p50 exported {statistics.mean(runs['x']):.3f} ms, eager "
+              f"{statistics.mean(runs['e']):.3f} ms (runs {runs}) [{smi}]")
+        if b == 1:  # the host's share: the aten ops each side dispatches a forward
+            ops_x = aten_ops(served.run, raw)
+            ops_e = aten_ops(lambda r: model(preprocess(r, image_size=224)), raw)
+            print(f"aot {what} batch 1: aten ops a forward exported {sum(ops_x.values())} "
+                  f"({ops_x['aten._assert_tensor_metadata.default']} "
+                  f"_assert_tensor_metadata), eager {sum(ops_e.values())}")
+
+
+def build_aot_families(dev):
+    """The AOT_FAMILIES' presets in bf16 at AOT_DEPTHS with parameters drawn
+    from a seed (``vit_tpu_torch.__main__.init_parameters``); the HF ViT-B/16
+    from ``hf_vit_state_dict``."""
+    from vit_tpu_torch.__main__ import init_parameters
+    from vit_tpu_torch.models import CaiT, DeepViT, PatchMergerViT, T2TViT, TwinsSVT
+    from vit_tpu_torch.utils import vit_from_hf
+
+    ctors = {"cait": (CaiT, CAIT), "deepvit": (DeepViT, DEEPVIT), "twins": (TwinsSVT, TWINS),
+             "t2t": (T2TViT, T2T), "patch_merger_vit": (PatchMergerViT, PATCH_MERGER)}
+    for i, fam in enumerate(AOT_FAMILIES):
+        if fam == "hf_vit":
+            cfg = dict(HF_VIT_B, **AOT_DEPTHS[fam])
+            model = vit_from_hf(hf_vit_state_dict(cfg, SEED + 62), cfg, dtype=torch.bfloat16,
+                                device=dev)
+        else:
+            ctor, cfg = ctors[fam]
+            model = ctor(**dict(cfg, **AOT_DEPTHS[fam]), dtype=torch.bfloat16, device=dev)
+            init_parameters(model, torch.Generator().manual_seed(SEED + 90 + i))
+        yield fam, model.eval()
+
+
+def phase_aot_vit(state, dev, smi):
+    """Phase 19a-19c: ViT-L in bf16 from ``state`` (phase 3's weights, kept
+    on the host) and its int8 auto ``QuantViT``, exported (bf16 at buckets
+    1 and 128, int8 at 1 and 8) and checked. Returns the launches of one
+    forward of each exported program, by program."""
+    from vit_tpu_torch.utils import export_serving, quantize_vit
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    model = build_model(state, dev, "bf16")
+    models = {"bf16": model, "int8": quantize_vit(model)}
+    print(f"aot: ViT-L loaded and quantized in {time.perf_counter() - t_phase:.1f} s")
+    exported = {}
+    for what in ("bf16", "int8"):
+        buckets = AOT_BUCKETS[what]
+        t0 = time.perf_counter()
+        blob = export_serving(models[what], image_size=224, batch_buckets=buckets,
+                              decode_size=256, dtype=torch.bfloat16)
+        t_export = time.perf_counter() - t0
+        served, t_load = aot_model_check(what, models[what], blob, buckets, gen, dev)
+        print(f"aot {what} buckets {buckets}: export {t_export:.1f} s, artifact "
+              f"{len(blob) / 1e6:.1f} MB, load {t_load:.1f} s [{smi}]")
+        del blob
+        mode = None if what == "bf16" else "w8a8_kernel"  # the mode of bucket 8
+        aot_rows_check(what, models[what], served, gen, dev, mode)
+        if what == "bf16":
+            aot_p50(what, models[what], served, gen, dev, smi)
+        exported.update({f"ViT-L {what} bucket {b}": AOT_LAUNCHES[(what, b)] for b in buckets})
+        del served
+    del model, models
+    torch.cuda.empty_cache()
+    print(f"phase 19a-19c (ViT-L exported) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return exported
+
+
+def phase_aot_families(dev, smi):
+    """Phase 19d: each of AOT_FAMILIES exported at AOT_BATCH, against eager
+    (bitwise, the same launches). Returns the launches of one forward of
+    each exported program, by program."""
+    from vit_tpu_torch.utils import export_forward, load_forward
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    exported = {}
+    for fam, model in build_aot_families(dev):
+        size = IMAGE_SIZE[fam]
+        x = torch.randn(AOT_BATCH, size, size, 3, generator=gen, device=dev).bfloat16()
+        t0 = time.perf_counter()
+        blob = export_forward(model, x)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_forward(blob)
+        t_load = time.perf_counter() - t0
+        eager, want = counted(model, x)
+        out, got = counted(program, x)
+        nodes = program_ops(program)
+        same = bool(torch.equal(out, eager))
+        print(f"aot {fam} batch {AOT_BATCH}: export {t_export:.1f} s, {len(blob) / 1e6:.1f} MB, "
+              f"load {t_load:.1f} s; exported vs eager bitwise {same}; launches exported {got}, "
+              f"eager {want}; operator nodes {dict(nodes)}")
+        require({k for k, n in FAMILY_LAUNCHES[fam].items() if n} == set(want),
+                f"aot {fam}: eager launched {want}")
+        require(got == want, f"aot {fam}: the exported program launched {got}")
+        require({k: n for k, n in nodes.items() if k in want} == want,
+                f"aot {fam}: operator nodes {dict(nodes)}")
+        if fam in AOT_UNCOUNTED:
+            require(nodes[AOT_UNCOUNTED[fam]] > 0, f"aot {fam}: no {AOT_UNCOUNTED[fam]} node")
+        require(same, f"aot {fam}: the exported program differs from eager")
+        exported[f"{fam} batch {AOT_BATCH}"] = got
+        del model, program, blob
+        torch.cuda.empty_cache()
+    print(f"phase 19d (families exported) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return exported
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -5104,9 +5352,8 @@ def main() -> int:
 
     # 3. the float slice, bf16 then mixed
     t0 = time.perf_counter()
-    state = from_jax_params(vit_tree(VIT_L, SEED))
-    models = {c: build_model(state, dev, c) for c in ("bf16", "mixed", "fp32")}
-    del state
+    vit_state = from_jax_params(vit_tree(VIT_L, SEED))  # on the host, kept for phase 19
+    models = {c: build_model(vit_state, dev, c) for c in ("bf16", "mixed", "fp32")}
     print(f"ViT-L weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(N_REQUESTS)]
@@ -5211,6 +5458,13 @@ def main() -> int:
     # int8 path on kernel 3, quantized_apply, simple_vit_apply_w8a8 on kernels 9
     # and 10, a QAT step, the health lines
     phase_hf_vit(dev, smi, requests)
+
+    # 19. the serving programs exported ahead of time, every kernel an operator:
+    # ViT-L's (19a-19c, phase 3's weights), then the other families' (19d)
+    exported = phase_aot_vit(vit_state, dev, smi)
+    del vit_state
+    exported.update(phase_aot_families(dev, smi))
+    print(f"exported programs' launches a forward: {json.dumps(exported)}")
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

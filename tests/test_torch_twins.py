@@ -241,6 +241,27 @@ def test_server_answers_requests(tiny):
     np.testing.assert_allclose(rows, direct, atol=1e-5, rtol=0)
 
 
+def test_exports_loads_and_runs_with_its_global_attention(tiny):
+    """The global attention is the attribute ``global_`` (``global`` is a
+    Python keyword, and ``ExportedProgram.module()`` writes each parameter's
+    path as code), while the state dict keeps vit_tpu's name: the converted
+    tree loads strictly, ``state_dict()`` gives its keys back, and the
+    program exported, saved and loaded equals the eager model bit for bit."""
+    from vit_tpu_torch.utils import export_forward, load_forward
+
+    cfg, img, tree = tiny
+    model = TwinsSVT(**cfg, dtype=torch.bfloat16, device="cpu")
+    state = from_jax_params(tree, model.jax_stages)
+    model.load_state_dict(state, strict=True)
+    assert set(model.state_dict()) == set(state)
+    assert not any(".global_." in k for k in model.state_dict())
+    x = torch.from_numpy(img[:1]).bfloat16()
+    program = load_forward(export_forward(model.eval(), x))
+    assert any(".global_." in k for k, _ in program.named_parameters())
+    with torch.inference_mode():
+        assert torch.equal(program(x), model(x))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,out,k,stride,groups,n", [
     (64, 1024, 7, 7, 1, 56), (256, 1024, 7, 7, 1, 14), (512, 1024, 7, 7, 1, 7),

@@ -35,8 +35,7 @@ from vit_tpu_torch import ops
 from vit_tpu_torch.core.utils import cast_tuple
 from vit_tpu_torch.nn.attention import mha_tokens
 from vit_tpu_torch.nn.conv import PEG, Conv, ConvMLP, Downsample
-from vit_tpu_torch.nn.embed import Dense, LayerNorm, _mm_rounded
-from vit_tpu_torch.ops.block_attention import _mm
+from vit_tpu_torch.nn.embed import Dense, LayerNorm, mm_rounded
 
 
 class _SSA(nn.Module):
@@ -98,7 +97,7 @@ class _IWSA(nn.Module):
         dt = self.dtype or x.dtype
         wqkv = torch.cat([self.to_q.kernel, self.to_k.kernel, self.to_v.kernel], dim=1).to(dt)
         x = x.to(dt)
-        qkv = (_mm_rounded if ops._use_kernel(x) else _mm)(x, wqkv, dt)  # [b, h, w, 2hk + hv]
+        qkv = mm_rounded(x, wqkv, dt)  # [b, h, w, 2hk + hv]
         hk = self.hk
         local_out = self.lim(qkv[..., 2 * hk:])
         if self.fused:

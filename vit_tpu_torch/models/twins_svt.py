@@ -83,9 +83,33 @@ class _GlobalAttention(nn.Module):
         return self.to_out(out.reshape(b, h, w, -1))
 
 
+def _rename_prefix(state_dict, old: str, new: str) -> None:
+    """Rename the keys of ``state_dict`` that start with ``old`` to start
+    with ``new``, in place, keeping the order of the keys."""
+    keys = list(state_dict)
+    first = next((i for i, k in enumerate(keys) if k.startswith(old)), len(keys))
+    for k in keys[first:]:
+        v = state_dict.pop(k)
+        state_dict[new + k[len(old):] if k.startswith(old) else k] = v
+
+
+def _global_name_out(module, state_dict, prefix, local_metadata) -> None:
+    _rename_prefix(state_dict, prefix + "global_.", prefix + "global.")
+
+
+def _global_name_in(module, state_dict, prefix, *args) -> None:
+    _rename_prefix(state_dict, prefix + "global.", prefix + "global_.")
+
+
 class _TwinsLayer(nn.Module):
     """One [local, ff1, global, ff2] layer (global-only without
-    ``has_local``), each a pre-norm residual branch."""
+    ``has_local``), each a pre-norm residual branch.
+
+    "global" is a Python keyword, so the global attention is the attribute
+    ``global_``: ``torch.export`` writes each parameter's path as Python
+    code. The state dict keeps ``vit_tpu``'s name, ``global``: a hook renames
+    the keys on the way out of ``state_dict`` and another on the way into
+    ``load_state_dict``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_mult: int,
                  local_patch_size: int, global_k: int, has_local: bool, *,
@@ -96,15 +120,16 @@ class _TwinsLayer(nn.Module):
         if has_local:
             self.local = _LocalAttention(dim, heads, dim_head, local_patch_size, **kw)
             self.ff1 = ConvMLP(dim, mlp_mult, **kw)
-        # "global" is a Python keyword: the submodule is registered by name
-        self.add_module("global", _GlobalAttention(dim, heads, dim_head, global_k, **kw))
+        self.global_ = _GlobalAttention(dim, heads, dim_head, global_k, **kw)
         self.ff2 = ConvMLP(dim, mlp_mult, **kw)
+        self.register_state_dict_post_hook(_global_name_out)
+        self.register_load_state_dict_pre_hook(_global_name_in)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.local is not None:
             x = x + self.local(x)
             x = x + self.ff1(x)
-        x = x + self._modules["global"](x)
+        x = x + self.global_(x)
         return x + self.ff2(x)
 
 

@@ -20,10 +20,12 @@ before its first call:
   materializing path), the optional output projection rounded to the
   residual's dtype, and the delta returned (the residual added only with
   ``fuse_residual``). On the card a bf16 output projection runs on the
-  wgmma GEMM of kernels 1 and 2 (``ops.block_attention.gemm_sm90``), its
-  fp32 bias in the epilogue, wherever the width and the inner width are
-  multiples of 8 (every preset's); elsewhere, in fp32, on the CPU and under
-  ``ops.force_backend("torch")``, an fp32 product of the rounded operands.
+  wgmma GEMM of kernels 1 and 2 (``ops.block_attention.gemm_sm90``; in an
+  exported program the operator ``vit_tpu_torch::gemm_sm90``), its fp32
+  bias in the epilogue, wherever the width and the inner width are
+  multiples of 8 (every preset's); elsewhere, in fp32, on the CPU (its twin
+  ``reference_gemm``), under grad and under ``ops.force_backend("torch")``,
+  an fp32 product of the rounded operands.
 - **an additive bias** on that branch (``forward(x, bias=...)``, fp32
   ``[1|B, 1|H, N, N]``: RegionViT's relative positions): a bias keeps the
   layer off every block kernel, as ``vit_tpu``'s ``bias is None`` term does
@@ -86,8 +88,10 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.nn.embed import Dense, LayerNorm, _mm_rounded
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax, gemm_sm90
+from vit_tpu_torch.nn.embed import Dense, LayerNorm, mm_rounded
+from vit_tpu_torch.ops.block_attention import (
+    _ln_f32, _mm, _softmax, gemm_sm90, gemm_sm90_op, reference_gemm,
+)
 from vit_tpu_torch.ops.flash_attention import MASK_VALUE
 
 _LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
@@ -292,7 +296,7 @@ class Attention(nn.Module):
         x's dtype, then ``out_drop``. Returns the delta, or the delta plus x
         with ``fuse_residual``."""
         xn = _ln_f32(x.float(), self.norm_scale, self.norm_bias, self.norm_eps).to(dtype)
-        qkv = _mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
+        qkv = mm_rounded(xn, self.qkv_kernel.to(dtype), dtype)
         if (self.talking_heads or self.reattention or self.mask_self or self.learned_temperature
                 or drop):
             q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
@@ -306,15 +310,16 @@ class Attention(nn.Module):
 
     def _out_projection(self, out, w, out_dtype):
         """``round_once(out @ w + out_bias)`` to ``out_dtype`` (vit_tpu/nn/
-        attention.py:345-348). On the card with bf16 operands whose widths
-        are multiples of 8: the wgmma GEMM (``gemm_sm90``), the fp32 bias in
-        its epilogue. Else, and under grad (the GEMM has no backward), an
-        fp32 product of the rounded operands."""
+        attention.py:345-348). With bf16 operands whose widths are
+        multiples of 8 and no operand that needs grad (the GEMM has no
+        backward): on the card the wgmma GEMM (``gemm_sm90``), the fp32 bias
+        in its epilogue; on the CPU its twin (``ops._route``). Else an fp32
+        product of the rounded operands."""
         k, n = w.shape
-        if (ops._use_kernel(out) and out.dtype == w.dtype == torch.bfloat16
-                and n % 8 == 0 and k % 8 == 0 and not ops.needs_grad(out, w, self.out_bias)):
-            rows = out.reshape(-1, k).contiguous()
-            y = gemm_sm90(rows, w, bias=self.out_bias, out_dtype=out_dtype)
+        if (out.dtype == w.dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0
+                and not ops.needs_grad(out, w, self.out_bias)):
+            args = (out.reshape(-1, k).contiguous(), w, self.out_bias, None, out_dtype, None)
+            y = ops._route(gemm_sm90_op, gemm_sm90, reference_gemm, *args)(*args)
             return y.reshape(*out.shape[:-1], n)
         return (_mm(out, w) + self.out_bias).to(out_dtype)
 

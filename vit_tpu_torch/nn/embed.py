@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
+from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
 
 
@@ -49,6 +50,24 @@ def _mm_rounded(a, b, dtype):
     return _mm(a, b, dtype)
 
 
+mm_rounded_op = _build.define_op(
+    "mm_rounded(Tensor a, Tensor b, ScalarType dtype) -> Tensor",
+    cuda=_mm_rounded, cpu=_mm,
+    fake=lambda a, b, dtype: a.new_empty(*a.shape[:-1], b.shape[-1], dtype=dtype),
+)
+
+
+def mm_rounded(a, b, dtype):
+    """The product of ``Dense``: ``_mm`` but for a bf16 product, which runs
+    ``_mm_rounded`` on the card, ``_mm`` on the CPU and under
+    ``ops.force_backend("torch")``, and, while ``torch.export`` traces it,
+    the operator ``vit_tpu_torch::mm_rounded``, so that ``fp32_bf16_sums``
+    travels into an exported program (``ops._route``)."""
+    if a.dtype == b.dtype == dtype == torch.bfloat16:
+        return ops._route(mm_rounded_op, _mm_rounded, _mm, a, b, dtype)(a, b, dtype)
+    return _mm(a, b, dtype)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``, with the kernel in flax's ``[in, out]`` layout (not
     ``nn.Linear``'s ``[out, in]``) and fp32 parameters. ``dtype`` (None:
@@ -60,7 +79,9 @@ class Dense(nn.Module):
     The product: on a CUDA tensor in bf16, one cuBLAS bf16 GEMM
     (``_mm_rounded``: fp32 sums, one rounding); in fp32, on the CPU and
     under ``ops.force_backend("torch")``, ``_mm`` (an fp32 product of the
-    rounded operands). Both round at the same place, in other sum orders."""
+    rounded operands). Both round at the same place, in other sum orders. An
+    exported program holds the operator ``vit_tpu_torch::mm_rounded``
+    (``mm_rounded``)."""
 
     def __init__(self, features_in: int, features: int, *, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
@@ -71,7 +92,7 @@ class Dense(nn.Module):
 
     def forward(self, x):
         x, w = x.to(self.dtype), self.kernel.to(self.dtype)
-        y = (_mm_rounded if ops._use_kernel(x) else _mm)(x, w, self.dtype)
+        y = mm_rounded(x, w, self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 

@@ -10,15 +10,23 @@ is the twin of the kernel the card would run.
 ``force_backend("torch")`` is the one explicit way to run the twins on CUDA
 (comparisons and timings use it; the serving path never does).
 
-Gradients: on the CPU the twins are plain PyTorch, differentiated by autograd.
-On the card a kernel writes its output through raw pointers, outside the
-autograd graph, so ``attention_block`` and ``mlp`` go through autograd
-Functions (``AttentionBlockFn``, ``MlpFn``) when grad mode is on and an
-operand requires grad: the kernel forward, and ``vit_tpu``'s recompute
-backward through the twin. Otherwise (serving runs under
-``torch.inference_mode()``) they launch the kernel exactly as before. The
-wrappers of kernels 3-10 have no Function yet and raise under grad
-(``_build.refuse_grad``).
+Each kernel is also a ``torch.library`` operator,
+``torch.ops.vit_tpu_torch.<name>`` (``_build.define_op``): the kernel on a
+CUDA tensor, the twin on a CPU tensor, and a fake implementation that gives
+``torch.export`` the output's shape, dtype and strides. An entry calls the
+operator only while a graph is traced (``_route``), so that an exported
+program (``utils.aot``) holds one node per launch; an eager call runs the
+kernel or the twin itself, outside the dispatcher, whose round trip into
+Python would cost host time on every launch. Under ``force_backend("torch")``
+the entries call the twins, never an operator.
+
+Gradients: on the CPU the twins are plain PyTorch, differentiated by autograd:
+under grad the entries call them directly. On the card a kernel writes its
+output through raw pointers, outside the autograd graph, so ``attention_block``
+and ``mlp`` go through autograd Functions (``AttentionBlockFn``, ``MlpFn``)
+when grad mode is on and an operand requires grad: the kernel forward, and
+``vit_tpu``'s recompute backward through the twin. The wrappers of kernels
+3-10 have no Function yet and raise under grad (``_build.refuse_grad``).
 
 Each kernel wrapper counts its launches: ``launch_counts()``; each
 Function's backward its recomputes: ``recompute_counts()``.
@@ -30,6 +38,8 @@ import contextlib
 import contextvars
 from typing import Optional
 
+import torch
+
 from vit_tpu_torch.ops._build import (  # noqa: F401
     launch_counts,
     needs_grad,
@@ -38,6 +48,7 @@ from vit_tpu_torch.ops._build import (  # noqa: F401
 )
 from vit_tpu_torch.ops.block_attention import (
     AttentionBlockFn,
+    attention_block_op,
     fused_attention_block,
     xla_attention_block,
 )
@@ -45,32 +56,44 @@ from vit_tpu_torch.ops.flash_attention import (
     core_fits,
     flash_attention,
     flash_attention_kv_blocked,
+    flash_attention_kv_blocked_op,
+    flash_attention_op,
     reference_attention,
     reference_attention_kv_blocked,
 )
-from vit_tpu_torch.ops.fused_mlp import MlpFn, fused_mlp, reference_mlp
+from vit_tpu_torch.ops.fused_mlp import MlpFn, fused_mlp, fused_mlp_op, reference_mlp
 from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
     extract_patches,
     patchify,
     posemb_sincos_2d,
     spt_shifts,
 )
-from vit_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_kernel_fits, xla_qkv_attention
+from vit_tpu_torch.ops.qkv_attention import (
+    fused_qkv_attention,
+    qkv_attention_op,
+    qkv_kernel_fits,
+    xla_qkv_attention,
+)
 from vit_tpu_torch.ops.quant_block import (
     fused_quant_attention_block,
     fused_quant_mlp,
     kmajor as _kmajor,
+    quant_attention_block_op,
+    quant_mlp_op,
     reference_quant_mlp,
     xla_quant_attention_block,
 )
 from vit_tpu_torch.ops.reattention_block import (
     fused_reattention_block,
     fused_talking_heads_block,
+    reattention_block_op,
+    talking_heads_block_op,
     xla_reattention_block,
     xla_talking_heads_block,
 )
 from vit_tpu_torch.ops.window_attention import (
     fused_window_attention_block,
+    window_attention_block_op,
     xla_window_attention_block,
 )
 from vit_tpu_torch.ops.windows import (  # noqa: F401
@@ -148,14 +171,46 @@ def force_backend(mode: str):
         _backend_override.reset(token)
 
 
+def _forced() -> bool:
+    """Whether ``force_backend("torch")`` is in force."""
+    return _backend_override.get() == "torch"
+
+
+def _check_device(x) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or twin for device {x.device}")
+
+
 def _use_kernel(x) -> bool:
-    if _backend_override.get() == "torch":
-        return False
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or twin for device {x.device}")
+    _check_device(x)
+    return not _forced() and x.device.type == "cuda"
+
+
+def _route(op, kernel, twin, *args):
+    """The one of ``op``, ``kernel`` and ``twin`` that an entry runs on
+    ``args``; the three take the same positional arguments, the first a
+    tensor. While ``torch.export`` (or ``torch.compile``) traces the call and
+    no operand needs grad: the operator, one node of the graph. Otherwise, on
+    a CUDA tensor the kernel (or its autograd Function), on a CPU tensor and
+    under ``force_backend("torch")`` the twin."""
+    if torch.compiler.is_compiling() and not _forced() and not needs_grad(*args):
+        _check_device(args[0])
+        return op
+    return kernel if _use_kernel(args[0]) else twin
+
+
+def _attention_block_kernel(*args):
+    """Kernel 1, through ``AttentionBlockFn`` where an operand needs grad."""
+    if needs_grad(*args):
+        return AttentionBlockFn.apply(fused_attention_block, *args)
+    return fused_attention_block(*args)
+
+
+def _mlp_kernel(*args):
+    """Kernel 2, through ``MlpFn`` where an operand needs grad."""
+    if needs_grad(*args):
+        return MlpFn.apply(fused_mlp, *args)
+    return fused_mlp(*args)
 
 
 def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
@@ -165,11 +220,14 @@ def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
     resident-K/V kernel where its core takes the shape (``core_fits``: D, Dv
     multiples of 16 up to 128, score rows within shared memory), else the
     kv-blocked kernel."""
+    args = (q, k, v, bias, float(q.shape[3] ** -0.5 if scale is None else scale),
+            bool(mask_self))
     if core_fits(k.shape[2], q.shape[3], v.shape[3]):
-        fn = flash_attention if _use_kernel(q) else reference_attention
+        fn = _route(flash_attention_op, flash_attention, reference_attention, *args)
     else:
-        fn = flash_attention_kv_blocked if _use_kernel(q) else reference_attention_kv_blocked
-    return fn(q, k, v, bias, scale=scale, mask_self=mask_self)
+        fn = _route(flash_attention_kv_blocked_op, flash_attention_kv_blocked,
+                    reference_attention_kv_blocked, *args)
+    return fn(*args)
 
 
 def attention_block(
@@ -184,19 +242,9 @@ def attention_block(
     under grad, through ``AttentionBlockFn``."""
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
-    if _use_kernel(x):
-        operands = (x, ln_scale, ln_bias, wqkv, wout, bout)
-        if needs_grad(*operands):
-            return AttentionBlockFn.apply(fused_attention_block, *operands, heads, scale, ln_eps,
-                                          true_n, block_tokens)
-        return fused_attention_block(
-            *operands, heads, scale=scale, ln_eps=ln_eps, true_n=true_n,
-            block_tokens=block_tokens,
-        )
-    return xla_attention_block(
-        x, ln_scale, ln_bias, wqkv, wout, bout, heads, scale, ln_eps, true_n,
-        block_tokens,
-    )
+    args = (x, ln_scale, ln_bias, wqkv, wout, bout, int(heads), float(scale), float(ln_eps),
+            true_n, block_tokens)
+    return _route(attention_block_op, _attention_block_kernel, xla_attention_block, *args)(*args)
 
 
 def mlp(
@@ -205,14 +253,8 @@ def mlp(
 ):
     """Fused MLP block over tokens ``[..., T, D]``. On the card under grad,
     through ``MlpFn``."""
-    if _use_kernel(x) and needs_grad(x, w1, b1, w2, b2, ln_scale, ln_bias):
-        return MlpFn.apply(fused_mlp, x, w1, b1, w2, b2, ln_scale, ln_bias, activation,
-                           residual, ln_eps)
-    fn = fused_mlp if _use_kernel(x) else reference_mlp
-    return fn(
-        x, w1, b1, w2, b2, ln_scale, ln_bias,
-        activation=activation, residual=residual, ln_eps=ln_eps,
-    )
+    args = (x, w1, b1, w2, b2, ln_scale, ln_bias, activation, bool(residual), float(ln_eps))
+    return _route(fused_mlp_op, _mlp_kernel, reference_mlp, *args)(*args)
 
 
 def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
@@ -222,11 +264,11 @@ def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
     ``attention`` on strided per-head views of the fused rows (no copy), as
     ``vit_tpu``'s dispatcher does for shapes its kernel cannot hold."""
     b, n, three_hd = qkv.shape
-    if qkv_kernel_fits(n, three_hd // 3 // heads):
-        if _use_kernel(qkv):
-            return fused_qkv_attention(qkv, heads, bias, scale=scale)
-        return xla_qkv_attention(qkv, heads, bias, scale=scale)
-    q, k, v = qkv.view(b, n, 3, heads, three_hd // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    d = three_hd // 3 // heads
+    if qkv_kernel_fits(n, d):
+        args = (qkv, int(heads), bias, float(d**-0.5 if scale is None else scale))
+        return _route(qkv_attention_op, fused_qkv_attention, xla_qkv_attention, *args)(*args)
+    q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
     out = attention(q, k, v, bias, scale=scale)
     return out.transpose(1, 2).reshape(b, n, three_hd // 3)
 
@@ -238,21 +280,19 @@ def quant_attention_block(
     """W8A8 attention block (LN -> row quant -> int8 qkv -> attention -> row
     quant -> int8 out-proj -> +residual). ``true_n`` masks padded keys.
     ``wqkv_i8`` and ``wout_i8`` are vit_tpu's ``[in, out]`` codes; the
-    kernel reads ``kmajor``, the pair of their K-major ``[out, in]`` copies
-    (``QuantViT`` keeps them), and transposes the codes itself where it is
-    not given."""
-    if _use_kernel(x):
-        if kmajor is None:
-            kmajor = (_kmajor(wqkv_i8), _kmajor(wout_i8))
-        return fused_quant_attention_block(
-            x, ln_scale, ln_bias, kmajor[0], sqkv, kmajor[1], sout, bout, heads,
-            scale=scale, ln_eps=ln_eps, true_n=true_n,
-        )
+    kernel (and its operator) reads ``kmajor``, the pair of their K-major
+    ``[out, in]`` copies (``QuantViT`` keeps them), and transposes the codes
+    itself where it is not given."""
     if scale is None:
         scale = (wqkv_i8.shape[1] // 3 // heads) ** -0.5
-    return xla_quant_attention_block(
-        x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, heads, scale, ln_eps, true_n,
-    )
+    args = [x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout, int(heads), float(scale),
+            float(ln_eps), true_n]
+    fn = _route(quant_attention_block_op, fused_quant_attention_block, xla_quant_attention_block,
+                *args)
+    if fn is not xla_quant_attention_block:
+        args[3], args[5] = kmajor if kmajor is not None else (_kmajor(wqkv_i8),
+                                                              _kmajor(wout_i8))
+    return fn(*args)
 
 
 def quant_mlp(
@@ -261,20 +301,14 @@ def quant_mlp(
 ):
     """W8A8 MLP block over tokens ``[..., T, D]``: LN, int8 GEMMs, residual.
     ``w1_i8`` and ``w2_i8`` are vit_tpu's ``[in, out]`` codes; the kernel
-    reads ``kmajor``, the pair of their K-major ``[out, in]`` copies
-    (``QuantViT`` keeps them), and transposes the codes itself where it is
-    not given."""
-    if _use_kernel(x):
-        if kmajor is None:
-            kmajor = (_kmajor(w1_i8), _kmajor(w2_i8))
-        return fused_quant_mlp(
-            x, ln_scale, ln_bias, kmajor[0], s1, b1, kmajor[1], s2, b2,
-            activation=activation, ln_eps=ln_eps,
-        )
-    return reference_quant_mlp(
-        x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
-        activation=activation, ln_eps=ln_eps,
-    )
+    (and its operator) reads ``kmajor``, the pair of their K-major ``[out,
+    in]`` copies (``QuantViT`` keeps them), and transposes the codes itself
+    where it is not given."""
+    args = [x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2, activation, float(ln_eps)]
+    fn = _route(quant_mlp_op, fused_quant_mlp, reference_quant_mlp, *args)
+    if fn is not reference_quant_mlp:
+        args[3], args[6] = kmajor if kmajor is not None else (_kmajor(w1_i8), _kmajor(w2_i8))
+    return fn(*args)
 
 
 def talking_heads_block(
@@ -283,16 +317,12 @@ def talking_heads_block(
 ):
     """CaiT talking-heads block (LN -> qkv -> scores -> pre-softmax head mix
     -> softmax -> post-softmax head mix -> P V -> out-proj [-> +residual])."""
-    if _use_kernel(x):
-        return fused_talking_heads_block(
-            x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads,
-            scale=scale, ln_eps=ln_eps, residual=residual,
-        )
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
-    return xla_talking_heads_block(
-        x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads, scale, ln_eps, residual,
-    )
+    args = (x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, int(heads), float(scale),
+            float(ln_eps), bool(residual))
+    return _route(talking_heads_block_op, fused_talking_heads_block, xla_talking_heads_block,
+                  *args)(*args)
 
 
 def reattention_block(
@@ -301,17 +331,12 @@ def reattention_block(
 ):
     """DeepViT re-attention block (LN -> qkv -> softmax -> head mix ->
     LayerNorm across heads -> P V -> out-proj -> +residual)."""
-    if _use_kernel(x):
-        return fused_reattention_block(
-            x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads,
-            scale=scale, ln_eps=ln_eps, reattn_eps=reattn_eps,
-        )
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
-    return xla_reattention_block(
-        x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads, scale, ln_eps,
-        reattn_eps,
-    )
+    args = (x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, int(heads),
+            float(scale), float(ln_eps), float(reattn_eps))
+    return _route(reattention_block_op, fused_reattention_block, xla_reattention_block,
+                  *args)(*args)
 
 
 def window_attention_block(
@@ -320,5 +345,9 @@ def window_attention_block(
     """Fused multi-window attention block over windowed tokens ``[NW, S, C]``
     (LN -> qkv -> per-window attention (+ a shared bias ``[1|H, S, S]``) ->
     out-proj + bias), without the residual."""
-    fn = fused_window_attention_block if _use_kernel(xw) else xla_window_attention_block
-    return fn(xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias, scale=scale, ln_eps=ln_eps)
+    if scale is None:
+        scale = (wqkv.shape[1] // 3 // heads) ** -0.5
+    args = (xw, ln_scale, ln_bias, wqkv, wout, bout, int(heads), bias, float(scale),
+            float(ln_eps))
+    return _route(window_attention_block_op, fused_window_attention_block,
+                  xla_window_attention_block, *args)(*args)

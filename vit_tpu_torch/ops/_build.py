@@ -7,6 +7,14 @@ takes seconds). The library is named by a hash of the sources and
 flags, so an edit rebuilds; it lives in ``vit_tpu_torch/_build/``, which git
 ignores. Nothing is built or loaded until the first kernel launch.
 
+Each launch site is also a ``torch.library`` operator in the
+``vit_tpu_torch`` namespace (``define_op``), defined in Python: its CUDA
+implementation is the kernel wrapper, its CPU implementation the kernel's
+plain twin, and its fake implementation gives the output's shape, dtype and
+strides without touching data, so that ``torch.export`` records the launch
+as one node of the graph (``ops._route`` says when an entry calls it).
+Defining the operators builds and loads nothing.
+
 Mirrors the on-demand native build of ``vit_tpu/data.py:_load_native``, with
 one difference: a failed build raises. A CUDA tensor never falls back to a
 plain PyTorch path.
@@ -291,6 +299,30 @@ def load_library() -> ctypes.CDLL:
             lib.vt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+# -- the operator namespace ---------------------------------------------------
+
+LIB = torch.library.Library("vit_tpu_torch", "DEF")
+
+
+def define_op(schema: str, *, cuda, cpu, fake):
+    """Define ``vit_tpu_torch::<name>`` from ``schema`` (``"<name>(Tensor x,
+    ...) -> Tensor"``) with its CUDA implementation (the kernel wrapper), its
+    CPU one (the twin) and its fake, each taking the schema's arguments
+    positionally. Returns the operator's overload."""
+    name = schema.split("(", 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"vit_tpu_torch::{name}", fake, lib=LIB)
+    return getattr(torch.ops.vit_tpu_torch, name).default
+
+
+def contiguous_like(x, *_):
+    """Fake output of an operator whose output is a new contiguous tensor of
+    ``x``'s shape and dtype."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

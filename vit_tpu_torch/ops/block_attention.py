@@ -13,7 +13,12 @@ On Hopper that does not fit in shared memory, so the kernel splits at its
 GEMM boundaries and stores only the tensors the TPU kernel itself rounds to
 bf16 before their next use (``xn``, qkv, the attention output): the math is
 unchanged. Its two products run on a wgmma GEMM fed by TMA
-(``csrc/gemm_sm90.cuh``); ``gemm_sm90`` calls that GEMM alone, for checks.
+(``csrc/gemm_sm90.cuh``); ``gemm_sm90`` calls that GEMM alone (the unfused
+attention's output projection, and checks).
+
+``attention_block_op`` and ``gemm_sm90_op`` are the two launches as
+``torch.library`` operators (``_build.define_op``): the kernel on a CUDA
+tensor, the twin on a CPU one, a fake for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from vit_tpu_torch.ops import _build
 
@@ -52,6 +58,17 @@ def _mm(a, b, dtype=torch.float32):
     (A bf16 matmul on the CPU rounds its output to bf16; JAX's
     ``preferred_element_type=f32`` does not.)"""
     return torch.matmul(a.float(), b.float()).to(dtype)
+
+
+def _activate(h, activation: str):
+    """The epilogue activations of kernel 2 and the wgmma GEMM, on fp32."""
+    if activation == "gelu":  # flax nn.gelu's default: the tanh form
+        return F.gelu(h, approximate="tanh")
+    if activation == "gelu_exact":  # erf form, HF/timm ViTs
+        return F.gelu(h)
+    if activation == "hard_swish":  # LeViT MLP flavor
+        return h * F.relu6(h + 3.0) / 6.0
+    raise ValueError(activation)
 
 
 def _softmax(s):
@@ -160,6 +177,29 @@ def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, activati
     return c
 
 
+def reference_gemm(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, activation=None):
+    """Plain PyTorch twin of ``gemm_sm90``: the fp32 product of the stored
+    operands, ``+ bias`` and the activation in fp32, ``+ residual`` in fp32,
+    one rounding to ``out_dtype``."""
+    y = _mm(a, b)
+    if bias is not None:
+        y = y + bias.float()
+    if activation is not None:
+        y = _activate(y, activation)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+gemm_sm90_op = _build.define_op(
+    "gemm_sm90(Tensor a, Tensor b, Tensor? bias, Tensor? residual, ScalarType out_dtype, "
+    "str? activation) -> Tensor",
+    cuda=gemm_sm90, cpu=reference_gemm,
+    fake=lambda a, b, bias, residual, out_dtype, activation: a.new_empty(
+        a.shape[0], b.shape[1], dtype=out_dtype),
+)
+
+
 def fused_attention_block(
     x: torch.Tensor,
     ln_scale: torch.Tensor,
@@ -168,7 +208,6 @@ def fused_attention_block(
     wout: torch.Tensor,
     bout: torch.Tensor,
     heads: int,
-    *,
     scale: Optional[float] = None,
     ln_eps: float = 1e-6,
     true_n: Optional[int] = None,
@@ -241,6 +280,13 @@ def fused_attention_block(
     _build.check(lib, rc, "attention_block kernel")
     _build.count_launch("attention_block")
     return out
+
+
+attention_block_op = _build.define_op(
+    "attention_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor wqkv, Tensor wout, "
+    "Tensor bout, int heads, float scale, float ln_eps, int? true_n, int? block_tokens) -> Tensor",
+    cuda=fused_attention_block, cpu=xla_attention_block, fake=_build.contiguous_like,
+)
 
 
 class AttentionBlockFn(torch.autograd.Function):

@@ -17,6 +17,9 @@ Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
   is its twin, in the TPU kernel's op order over chunks of ``block_k`` keys:
   the running max, the running sum and the fp32 accumulator, the
   unnormalised p rounded to v's dtype, one division at the end.
+
+``flash_attention_op`` and ``flash_attention_kv_blocked_op`` are the two
+kernels as ``torch.library`` operators (``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -138,7 +141,7 @@ def kv_blocked_scratch(b: int, h: int, nq: int, nk: int, d: int, dv: int) -> int
     return elems
 
 
-def reference_attention(q, k, v, bias=None, *, scale=None, mask_self=False):
+def reference_attention(q, k, v, bias=None, scale=None, mask_self=False):
     """Plain PyTorch twin (``vit_tpu``'s ``reference_attention``):
     ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H, Nk, Dv]`` -> ``[B, H, Nq,
     Dv]`` in v's dtype; ``bias`` broadcastable to ``[B, H, Nq, Nk]``."""
@@ -154,7 +157,7 @@ def reference_attention(q, k, v, bias=None, *, scale=None, mask_self=False):
     return _mm(p.to(v.dtype), v, v.dtype)
 
 
-def reference_attention_kv_blocked(q, k, v, bias=None, *, scale=None, mask_self=False,
+def reference_attention_kv_blocked(q, k, v, bias=None, scale=None, mask_self=False,
                                    block_k=None):
     """Plain PyTorch twin of the kv-blocked kernel (``vit_tpu``'s
     ``_kv_blocked_kernel``, op for op), over chunks of ``block_k`` keys
@@ -248,7 +251,6 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
-    *,
     scale: Optional[float] = None,
     mask_self: bool = False,
 ) -> torch.Tensor:
@@ -274,7 +276,6 @@ def flash_attention_kv_blocked(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
-    *,
     scale: Optional[float] = None,
     mask_self: bool = False,
 ) -> torch.Tensor:
@@ -302,3 +303,25 @@ def flash_attention_kv_blocked(
                           dtype=torch.bfloat16)
     return _launch("flash_attention_kv_blocked", "vt_flash_attention_kv_blocked", q, k, v, bias,
                    bias_b, bias_h, scale, mask_self, scratch)
+
+
+def _flash_fake(q, k, v, bias, scale, mask_self):
+    """The output as each implementation lays it out: the kernels write
+    ``[B, Nq, H, Dv]`` and return its ``[B, H, Nq, Dv]`` view; the twins a
+    contiguous ``[B, H, Nq, Dv]``."""
+    b, h, nq, _ = q.shape
+    dv = v.shape[3]
+    if q.device.type == "cuda":
+        return v.new_empty(b, nq, h, dv).transpose(1, 2)
+    return v.new_empty(b, h, nq, dv)
+
+
+_FLASH_SCHEMA = "(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, bool mask_self) -> Tensor"
+flash_attention_op = _build.define_op(
+    "flash_attention" + _FLASH_SCHEMA,
+    cuda=flash_attention, cpu=reference_attention, fake=_flash_fake,
+)
+flash_attention_kv_blocked_op = _build.define_op(
+    "flash_attention_kv_blocked" + _FLASH_SCHEMA,
+    cuda=flash_attention_kv_blocked, cpu=reference_attention_kv_blocked, fake=_flash_fake,
+)

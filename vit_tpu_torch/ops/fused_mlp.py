@@ -5,6 +5,8 @@ Port of ``vit_tpu/ops/fused_mlp.py``. ``fused_mlp`` is the Hopper kernel
 mirrors the JAX twin op for op (flax LayerNorm in fp32, fp32 products of
 bf16-rounded operands, biases added on the fp32 accumulator, the hidden
 activations rounded to the weight dtype once, between the two GEMMs).
+``fused_mlp_op`` is the kernel as a ``torch.library`` operator
+(``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -12,11 +14,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import (
     ACTIVATIONS,
+    _activate,
     _ln_f32,
     _mm,
     _require_aligned,
@@ -34,18 +36,8 @@ def gemm_route(dim: int, f: int) -> str:
     return "wgmma" if dim % 8 == 0 and f % 8 == 0 else "wmma"
 
 
-def _activate(h, activation: str):
-    if activation == "gelu":  # flax nn.gelu's default: the tanh form
-        return F.gelu(h, approximate="tanh")
-    if activation == "gelu_exact":  # erf form, HF/timm ViTs
-        return F.gelu(h)
-    if activation == "hard_swish":  # LeViT MLP flavor
-        return h * F.relu6(h + 3.0) / 6.0
-    raise ValueError(activation)
-
-
 def reference_mlp(
-    x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
+    x, w1, b1, w2, b2, ln_scale=None, ln_bias=None,
     activation: str = "gelu", residual: bool = True, ln_eps: float = 1e-6,
 ):
     """Plain PyTorch twin (``vit_tpu``'s ``reference_mlp``)."""
@@ -73,7 +65,6 @@ def fused_mlp(
     b2: Optional[torch.Tensor],
     ln_scale: Optional[torch.Tensor] = None,
     ln_bias: Optional[torch.Tensor] = None,
-    *,
     activation: str = "gelu",
     residual: bool = True,
     ln_eps: float = 1e-6,
@@ -134,6 +125,13 @@ def fused_mlp(
     _build.check(lib, rc, "fused_mlp kernel")
     _build.count_launch("fused_mlp")
     return out
+
+
+fused_mlp_op = _build.define_op(
+    "fused_mlp(Tensor x, Tensor w1, Tensor? b1, Tensor w2, Tensor? b2, Tensor? ln_scale, "
+    "Tensor? ln_bias, str activation, bool residual, float ln_eps) -> Tensor",
+    cuda=fused_mlp, cpu=reference_mlp, fake=_build.contiguous_like,
+)
 
 
 class MlpFn(torch.autograd.Function):

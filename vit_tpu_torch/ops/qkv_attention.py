@@ -12,6 +12,8 @@ qkv's dtype.
 Layout: ``qkv`` ``[B, N, 3*H*D]`` laid out ``[q | k | v]``, each part
 ``[H, D]``; the output is ``[B, N, H*D]``. No transposes or copies of the
 heads: the kernel reads its head panels out of the fused rows.
+``qkv_attention_op`` is the kernel as a ``torch.library`` operator
+(``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def qkv_kernel_fits(n: int, d: int) -> bool:
     return d % 16 == 0 and d <= 128 and n <= MAX_TOKENS
 
 
-def xla_qkv_attention(qkv, heads, bias=None, *, scale=None):
+def xla_qkv_attention(qkv, heads, bias=None, scale=None):
     """Plain PyTorch twin (``vit_tpu``'s ``xla_qkv_attention``)."""
     b, n, three_hd = qkv.shape
     hd = three_hd // 3
@@ -54,7 +56,6 @@ def fused_qkv_attention(
     qkv: torch.Tensor,
     heads: int,
     bias: Optional[torch.Tensor] = None,
-    *,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention of ``qkv`` ``[B, N, 3*H*D]`` bf16 on the card, with an
@@ -106,3 +107,10 @@ def fused_qkv_attention(
     _build.check(lib, rc, "qkv_attention kernel")
     _build.count_launch("qkv_attention")
     return out
+
+
+qkv_attention_op = _build.define_op(
+    "qkv_attention(Tensor qkv, int heads, Tensor? bias, float scale) -> Tensor",
+    cuda=fused_qkv_attention, cpu=xla_qkv_attention,
+    fake=lambda qkv, heads, bias, scale: qkv.new_empty(*qkv.shape[:2], qkv.shape[2] // 3),
+)

@@ -20,6 +20,10 @@ PyTorch twins, written in the TPU kernels' own op order
   H*Dh columns;
 - MLP: ``gelu`` (tanh form) or ``gelu_exact`` on the fp32 hidden, which is
   quantized over its whole width.
+
+``quant_attention_block_op`` and ``quant_mlp_op`` are the two kernels as
+``torch.library`` operators (``_build.define_op``); they take the int8
+weights K-major, as the kernels do.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ def xla_quant_attention_block(
 
 
 def reference_quant_mlp(
-    x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2, *,
+    x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
     activation: str = "gelu", ln_eps: float = 1e-6,
 ):
     """Plain PyTorch twin of the W8A8 MLP:
@@ -154,7 +158,6 @@ def fused_quant_attention_block(
     sout: torch.Tensor,
     bout: torch.Tensor,
     heads: int,
-    *,
     scale: Optional[float] = None,
     ln_eps: float = 1e-6,
     true_n: Optional[int] = None,
@@ -248,7 +251,6 @@ def fused_quant_mlp(
     w2_i8: torch.Tensor,
     s2: torch.Tensor,
     b2: torch.Tensor,
-    *,
     activation: str = "gelu",
     ln_eps: float = 1e-6,
     intermediates: Optional[dict] = None,
@@ -310,6 +312,25 @@ def fused_quant_mlp(
     if intermediates is not None:
         intermediates.update(xq=xq, s_row=s_row, h=h, h_amax=h_amax, hq=hq, s_row2=s_row2)
     return out
+
+
+quant_attention_block_op = _build.define_op(
+    "quant_attention_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor wqkv_kmajor, "
+    "Tensor sqkv, Tensor wout_kmajor, Tensor sout, Tensor bout, int heads, float scale, "
+    "float ln_eps, int? true_n) -> Tensor",
+    cuda=fused_quant_attention_block,
+    cpu=lambda x, ln_scale, ln_bias, wqkv_kmajor, sqkv, wout_kmajor, *rest:
+    xla_quant_attention_block(x, ln_scale, ln_bias, wqkv_kmajor.t(), sqkv, wout_kmajor.t(), *rest),
+    fake=_build.contiguous_like,
+)
+quant_mlp_op = _build.define_op(
+    "quant_mlp(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1_kmajor, Tensor s1, "
+    "Tensor b1, Tensor w2_kmajor, Tensor s2, Tensor b2, str activation, float ln_eps) -> Tensor",
+    cuda=fused_quant_mlp,
+    cpu=lambda x, ln_scale, ln_bias, w1_kmajor, s1, b1, w2_kmajor, *rest:
+    reference_quant_mlp(x, ln_scale, ln_bias, w1_kmajor.t(), s1, b1, w2_kmajor.t(), *rest),
+    fake=_build.contiguous_like,
+)
 
 
 def _check_rows(v, name):

@@ -26,6 +26,8 @@ kernels' own op order (reattention_block.py:69-143, :184-244):
 The stage helpers (``_qkv``, ``_scores``, ``_talking_heads_probs``,
 ``_reattention_probs``, ``_pv_out``) compose the twins; ``chip_smoke.py``
 runs them on a kernel's own intermediates to hold it stage by stage.
+``talking_heads_block_op`` and ``reattention_block_op`` are the two kernels
+as ``torch.library`` operators (``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -294,7 +296,6 @@ def fused_talking_heads_block(
     mix_pre: torch.Tensor,
     mix_post: torch.Tensor,
     heads: int,
-    *,
     scale: Optional[float] = None,
     ln_eps: float = 1e-5,
     residual: bool = False,
@@ -335,7 +336,6 @@ def fused_reattention_block(
     rln_scale: torch.Tensor,
     rln_bias: torch.Tensor,
     heads: int,
-    *,
     scale: Optional[float] = None,
     ln_eps: float = 1e-6,
     reattn_eps: float = 1e-6,
@@ -361,3 +361,17 @@ def fused_reattention_block(
         (ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias),
         (float(scale), float(ln_eps), float(reattn_eps)),
     )
+
+
+talking_heads_block_op = _build.define_op(
+    "talking_heads_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor wqkv, Tensor wout, "
+    "Tensor bout, Tensor mix_pre, Tensor mix_post, int heads, float scale, float ln_eps, "
+    "bool residual) -> Tensor",
+    cuda=fused_talking_heads_block, cpu=xla_talking_heads_block, fake=_build.contiguous_like,
+)
+reattention_block_op = _build.define_op(
+    "reattention_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor wqkv, Tensor wout, "
+    "Tensor bout, Tensor mix, Tensor rln_scale, Tensor rln_bias, int heads, float scale, "
+    "float ln_eps, float reattn_eps) -> Tensor",
+    cuda=fused_reattention_block, cpu=xla_reattention_block, fake=_build.contiguous_like,
+)

@@ -14,6 +14,9 @@ operands, qkv and each head's P V rounded to the weights' dtype,
 The TPU kernel packs G windows into one block-diagonal score tile, a device
 for the TPU's matrix unit; every window's softmax sees only its own keys
 there too, so the port computes each window on its own.
+
+``window_attention_block_op`` is the kernel as a ``torch.library`` operator
+(``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -91,7 +94,7 @@ def route(s: int, c: int, heads: int, d: int) -> str:
 
 
 def xla_window_attention_block(
-    xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias=None, *, scale=None, ln_eps=1e-5,
+    xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias=None, scale=None, ln_eps=1e-5,
 ):
     """Plain PyTorch twin (``vit_tpu``'s ``xla_window_attention_block``):
     ``out_proj(window_attention(qkv_proj(LN(xw))))`` of ``xw`` ``[NW, S,
@@ -123,7 +126,6 @@ def fused_window_attention_block(
     bout: torch.Tensor,
     heads: int,
     bias: Optional[torch.Tensor] = None,
-    *,
     scale: Optional[float] = None,
     ln_eps: float = 1e-5,
 ) -> torch.Tensor:
@@ -200,3 +202,11 @@ def fused_window_attention_block(
     _build.check(lib, rc, "window_attention_block kernel")
     _build.count_launch("window_attention_block")
     return out
+
+
+window_attention_block_op = _build.define_op(
+    "window_attention_block(Tensor xw, Tensor ln_scale, Tensor ln_bias, Tensor wqkv, "
+    "Tensor wout, Tensor bout, int heads, Tensor? bias, float scale, float ln_eps) -> Tensor",
+    cuda=fused_window_attention_block, cpu=xla_window_attention_block,
+    fake=_build.contiguous_like,
+)

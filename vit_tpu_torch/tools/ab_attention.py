@@ -2,6 +2,7 @@
 
     python3 -m vit_tpu_torch.tools.ab_attention PARENT_DIR CHANGE_DIR [--e2e]
         [--p50-pairs N] [--log FILE]
+    python3 -m vit_tpu_torch.tools.ab_attention PARENT_DIR CHANGE_DIR --serve PAIRS
 
 Each turn is a child process that imports the tree's own ``vit_tpu_torch``
 and ``chip_smoke`` (so each side builds and runs its own kernels) and
@@ -38,6 +39,14 @@ measures, at batch 128 unless named:
   int8 ``auto`` p50 at batch 1, 8 and 128 and img/s at batch 128 (ViT-L),
   random weights from chip_smoke's seeds (CaiT's and DeepViT's drawn on the
   card);
+- with ``--serve PAIRS``, instead of all the above, in PAIRS pairs of
+  fresh processes, the pair's order alternating: the p50 of one
+  bf16 forward at batch 1, 8 and 128 of ViT-L/16, the HF ViT-B/16, CaiT
+  and CrossFormer, weights drawn on the card (the time does not depend on
+  them), and at batch 1 the CPU time of the process a forward over 200
+  forwards back to back: the serving paths' host time, which a change of
+  dispatch moves, and whose wall clock moves by milliseconds from one
+  process to the next;
 - with ``--p50-pairs N``, after the four turns: ViT-L/16 bf16 p50 at batch
   1 (100 forwards, weights drawn on the card) in N pairs of fresh
   processes, the pair's order alternating (parent first in even pairs).
@@ -361,6 +370,62 @@ def p50_child(tree: Path) -> dict:
         return {"vit-l bf16 batch 1 p50 ms": cs.p50_ms(lambda: vit(x), 100)}
 
 
+SERVE_MODELS = ("vit-l", "hf vit-b/16", "cait", "crossformer")
+
+
+def serve_child(tree: Path) -> dict:
+    """``--serve``: p50 of a bf16 forward at batch 1, 8 and 128 of each of
+    SERVE_MODELS, in the tree's own code."""
+    sys.path.insert(0, str(tree))
+    import importlib
+
+    import torch
+
+    cs = importlib.import_module("chip_smoke")
+    from vit_tpu_torch.models import CaiT, CrossFormer, ViT
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.utils import vit_from_hf
+
+    assert Path(cs.__file__).resolve().parent == tree.resolve(), cs.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 23)
+    ctors = {
+        "vit-l": (lambda: ViT(**cs.VIT_L, dtype=torch.bfloat16, device=dev), 224),
+        "hf vit-b/16": (lambda: vit_from_hf(cs.hf_vit_state_dict(cs.HF_VIT_B, cs.SEED + 62),
+                                            cs.HF_VIT_B, dtype=torch.bfloat16, device=dev), 224),
+        "cait": (lambda: CaiT(**cs.CAIT, dtype=torch.bfloat16, device=dev), 256),
+        "crossformer": (lambda: CrossFormer(**cs.CROSSFORMER, dtype=torch.bfloat16, device=dev),
+                        224),
+    }
+    out = {"card": cs.nvidia_smi()}
+    for name in SERVE_MODELS:
+        ctor, size = ctors[name]
+        model = ctor().eval()
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.copy_(0.02 * torch.randn(prm.shape, generator=gen, device=dev))
+        with torch.inference_mode():
+            for b, reps in ((1, 60), (8, 30), (128, 6)):
+                x = torch.randn(b, size, size, 3, generator=gen, device=dev).bfloat16()
+                cs.p50_ms(lambda: model(x), 3)
+                out[f"{name} bf16 batch {b} p50 ms"] = cs.p50_ms(lambda: model(x), reps)
+                if b == 1:  # the host's CPU time a forward, 200 back to back
+                    torch.cuda.synchronize()
+                    t0 = time.process_time()
+                    for _ in range(200):
+                        model(x)
+                    torch.cuda.synchronize()
+                    out[f"{name} bf16 batch 1 host cpu ms a forward"] = (
+                        (time.process_time() - t0) / 200 * 1e3)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def _run_child(args, side, tree, log, extra) -> dict:
     """One turn in a child process; its result, or None if it failed."""
     cmd = [sys.executable, str(Path(__file__).resolve()), str(args.parent), str(args.change),
@@ -374,27 +439,35 @@ def _run_child(args, side, tree, log, extra) -> dict:
     return json.loads(lines[-1][len(TAG):])
 
 
-def p50_pairs(args, log, card) -> None:
-    """ViT-L bf16 batch-1 p50 in args.p50_pairs pairs of fresh processes."""
-    key = "vit-l bf16 batch 1 p50 ms"
+def pairs(args, log, n, extra, card=None) -> None:
+    """``n`` pairs of fresh child processes (``extra`` their mode), the
+    pair's order alternating (parent first in even pairs); for each number
+    they report: each side's median, min and max, the distance between the
+    parent's quartiles, and the pairs the change won (took less)."""
     got = {"parent": [], "change": []}
-    for i in range(args.p50_pairs):
+    for i in range(n):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
-            res = _run_child(args, side, getattr(args, side), log, ["--p50-only"])
+            res = _run_child(args, side, getattr(args, side), log, extra)
             if res is None:
                 raise SystemExit(1)
-            got[side].append(res[key])
-        print(f"p50 pair {i}: parent {got['parent'][-1]:.4f}, change {got['change'][-1]:.4f}",
-              flush=True)
-    p, c = statistics.median(got["parent"]), statistics.median(got["change"])
-    won = sum(ci < pi for pi, ci in zip(got["parent"], got["change"]))
+            got[side].append(res)
+        print(f"pair {i} done", flush=True)
+    card = card or got["change"][0]["card"]
     fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
-    print(f"ab {key} ({args.p50_pairs} fresh-process pairs): parent median {p:.4f} "
-          f"(min {min(got['parent']):.4f}, max {max(got['parent']):.4f}), change median {c:.4f} "
-          f"(min {min(got['change']):.4f}, max {max(got['change']):.4f}) ({c / p - 1:+.2%}); "
-          f"change faster in {won} of {args.p50_pairs} pairs [{card}]")
-    print(f"ab {key} readings: parent {fmt(got['parent'])}; change {fmt(got['change'])}")
+    for key, value in got["parent"][0].items():
+        if isinstance(value, str):
+            continue
+        xs = {side: [r[key] for r in got[side]] for side in got}
+        p, c = statistics.median(xs["parent"]), statistics.median(xs["change"])
+        won = sum(ci < pi for pi, ci in zip(xs["parent"], xs["change"]))
+        q1, _, q3 = statistics.quantiles(xs["parent"], n=4) if n > 1 else (p, p, p)
+        print(f"ab {key} ({n} fresh-process pairs): parent median {p:.4f} (min "
+              f"{min(xs['parent']):.4f}, max {max(xs['parent']):.4f}, quartiles {q1:.4f} - "
+              f"{q3:.4f}), change median {c:.4f} (min {min(xs['change']):.4f}, max "
+              f"{max(xs['change']):.4f}) ({c / p - 1:+.2%}); change faster in {won} of {n} "
+              f"pairs [{card}]")
+        print(f"ab {key} readings: parent {fmt(xs['parent'])}; change {fmt(xs['change'])}")
 
 
 def main() -> int:
@@ -403,23 +476,29 @@ def main() -> int:
     ap.add_argument("change", type=Path)
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--p50-pairs", type=int, default=0)
+    ap.add_argument("--serve", type=int, default=0, metavar="PAIRS")
     ap.add_argument("--log", type=Path,
                     default=Path(__file__).resolve().parent.parent / "_build" / "ab_attention.log")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--p50-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        res = p50_child(args.child) if args.p50_only else child(args.child, args.e2e)
+        if args.serve:
+            res = serve_child(args.child)
+        else:
+            res = p50_child(args.child) if args.p50_only else child(args.child, args.e2e)
         print(TAG + json.dumps(res), flush=True)
         return 0
 
     args.log.parent.mkdir(parents=True, exist_ok=True)
-    turns = [("parent", args.parent), ("change", args.change), ("change", args.change),
-             ("parent", args.parent)]
+    if args.serve:
+        with args.log.open("w") as log:
+            pairs(args, log, args.serve, ["--serve", "1"])
+        return 0
     runs = {"parent": [], "change": []}
     with args.log.open("w") as log:
-        for side, tree in turns:
-            res = _run_child(args, side, tree, log, ["--e2e"] if args.e2e else [])
+        for side in ("parent", "change", "change", "parent"):
+            res = _run_child(args, side, getattr(args, side), log, ["--e2e"] if args.e2e else [])
             if res is None:
                 return 1
             runs[side].append(res)
@@ -444,13 +523,15 @@ def main() -> int:
             continue
         p = statistics.mean(r[key] for r in runs["parent"])
         c = statistics.mean(r[key] for r in runs["change"])
-        spread = max(abs(runs["parent"][0][key] - runs["parent"][1][key]),
-                     abs(runs["change"][0][key] - runs["change"][1][key]))
+        readings = {side: [r[key] for r in runs[side]] for side in runs}
+        spread = max(max(xs) - min(xs) for xs in readings.values())
         print(f"ab {key}: parent {p:.4f}, change {c:.4f} ({c / p - 1:+.2%}; largest gap between "
-              f"one side's two turns {spread:.4f}) [{card}]")
+              f"one side's turns {spread:.4f}; readings parent "
+              f"{', '.join(f'{x:.4f}' for x in readings['parent'])}, change "
+              f"{', '.join(f'{x:.4f}' for x in readings['change'])}) [{card}]")
     if args.p50_pairs:
         with args.log.open("a") as log:
-            p50_pairs(args, log, card)
+            pairs(args, log, args.p50_pairs, ["--p50-only"], card)
     return 0
 
 
