@@ -240,7 +240,24 @@ Runs, in order, and exits non-zero at the first failure:
      2) exported, saved and loaded, each program bit for bit eager with
      eager's launch counts (FAMILY_LAUNCHES), so that each of the ten
      kernels, the wgmma GEMM of the unfused output projection and the bf16
-     ``Dense`` product runs as an operator of an exported program.
+     ``Dense`` product runs as an operator of an exported program;
+ 20. JPEG bytes on the card: the decoder the machine has (``native`` or
+     ``nvjpeg``, never PIL) holding the committed fixtures
+     (tests/data/torch_jpeg) to their digests within JPEG_TOL, with planted
+     faults (BGR order, a transposed image, dropped chroma) failing it and
+     the truncated fixture failing its own index; ms an image at 256 px;
+     ViT-L/16 bf16 (phase 3's weights) fed batches of 128 JPEGs through
+     ``classify_jpegs`` one at a time and through ``classify_jpeg_stream``:
+     logits bitwise equal, 24 launches of kernels 1 and 2 a batch, img/s of
+     each, decode ms, ``dispatch``'s host ms (under CUDA's sync debug mode:
+     it must not wait for the card) against the forward's device ms; JPEG
+     requests through ``BatchingServer``; ``python -m vit_tpu_torch.train
+     --data`` at ViT-L/16, batch 128, on a folder of the fixtures (finite
+     losses, phase 17's launches and recomputes a step, the step against
+     phase 17's); an async checkpoint save timed against its wait and
+     restored bit for bit to the state at ``save()``. NVIDIA's
+     compute-sanitizer refuses this card ("Device not supported"), so no
+     phase runs the kernels under it.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -255,6 +272,7 @@ import contextlib
 import importlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4628,6 +4646,7 @@ def phase_train_steps(dev, smi):
             f"train: recomputes {recomputes}, not {TRAIN_RECOMPUTES} a step")
     del state, model, step
     torch.cuda.empty_cache()
+    return ms
 
 
 def vit_forward_flops(c, batch) -> float:
@@ -4690,13 +4709,15 @@ def phase_train_cli(dev):
 
 
 def phase_train(dev, smi):
-    """Phase 17: training ViT-L/16 on kernels 1 and 2 (17a-d)."""
+    """Phase 17: training ViT-L/16 on kernels 1 and 2 (17a-d); returns 17c's
+    mean step ms."""
     t_phase = time.perf_counter()
     phase_train_functions(dev)
     phase_train_grads(dev)
-    phase_train_steps(dev, smi)
+    step_ms = phase_train_steps(dev, smi)
     phase_train_cli(dev)
     print(f"phase 17 (training) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return step_ms
 
 
 # -- phase 18: a Hugging Face ViT-B/16 checkpoint, its int8 path, the weight-only
@@ -5317,6 +5338,344 @@ def phase_aot_families(dev, smi):
     return exported
 
 
+# -- phase 20: JPEG bytes on the card: the decoder, the stream, folder training -------
+
+JPEG_DIR = REPO / "tests" / "data" / "torch_jpeg"
+JPEG_TRUNCATED = "truncated_640x480"
+DIGEST_SIZE = 256
+# A decode at DIGEST_SIZE against its stored digest (tests/make_torch_jpeg_fixtures.py,
+# made by the native libjpeg route): the largest error of a channel mean and of
+# an 8 x 8 area mean, in uint8 levels. nvJPEG (12.4, the H100 machine) was 0.509
+# and 1.94 off on the colour fixtures (its IDCT, chroma upsampling and colour
+# conversion are its own; the means sit ~0.5 level high), 0.001 and 0.125 on the
+# grayscale ones; the planted faults move the area means by 79 to 200 levels.
+JPEG_TOL = {"means": 1.0, "area": 4.0}
+JPEG_FAULTS = ("channels in BGR order", "image transposed", "chroma dropped")
+
+
+def jpeg_digest(img):
+    """The digest of a uint8 ``[S, S, 3]`` decode (S a multiple of 32): its
+    per-channel means ``[3]`` and a ``[32, 32, 3]`` map of area means."""
+    a = np.asarray(img, np.float64)
+    s = a.shape[0] // 32
+    area = a.reshape(32, s, 32, s, 3).mean(axis=(1, 3))
+    return a.mean(axis=(0, 1)).astype(np.float32), area.astype(np.float32)
+
+
+def jpeg_fixtures():
+    """(names, bytes) of the valid fixtures, sorted, the stored digests, and
+    the truncated fixture's bytes."""
+    digests = dict(np.load(JPEG_DIR / "digests.npz"))
+    names = sorted({k.split("/")[0] for k in digests})
+    data = [(JPEG_DIR / f"{n}.jpg").read_bytes() for n in names]
+    return names, data, digests, (JPEG_DIR / f"{JPEG_TRUNCATED}.jpg").read_bytes()
+
+
+def digest_errors(img, digests, name):
+    """(channel-mean error, area-mean error) of a decode against its digest."""
+    means, area = jpeg_digest(img)
+    return (float(np.abs(means - digests[f"{name}/means"]).max()),
+            float(np.abs(area - digests[f"{name}/area"]).max()))
+
+
+def planted_jpeg_fault(fault, imgs):
+    """``imgs`` (uint8 ``[N, S, S, 3]``) as a decoder with ``fault`` would
+    give them."""
+    if fault == JPEG_FAULTS[0]:
+        return imgs[..., ::-1]
+    if fault == JPEG_FAULTS[1]:
+        return imgs.transpose(0, 2, 1, 3)
+    luma = imgs.astype(np.float32) @ np.float32([0.299, 0.587, 0.114])
+    return np.repeat((luma + 0.5).astype(np.uint8)[..., None], 3, axis=-1)
+
+
+def check_jpeg_fixtures(decoder):
+    """Decode the fixtures at DIGEST_SIZE and hold each to its digest within
+    JPEG_TOL; every planted fault must fail it on some fixture, and the
+    truncated fixture, in a batch with the others, must fail its own index
+    only. Returns the worst (means, area) errors."""
+    names, data, digests, truncated = jpeg_fixtures()
+    imgs = decoder(data)
+    worst = [0.0, 0.0]
+    for name, img in zip(names, imgs):
+        errs = digest_errors(img, digests, name)
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+        print(f"jpeg {name}: channel means off by {errs[0]:.4g}, area means by {errs[1]:.4g}")
+        require(errs[0] <= JPEG_TOL["means"] and errs[1] <= JPEG_TOL["area"],
+                f"jpeg {name}: decode off its digest by {errs} (tolerance {JPEG_TOL})")
+    for fault in JPEG_FAULTS:
+        bad = planted_jpeg_fault(fault, imgs)
+        caught = [n for n, img in zip(names, bad)
+                  if (lambda e: e[0] > JPEG_TOL["means"] or e[1] > JPEG_TOL["area"])(
+                      digest_errors(img, digests, n))]
+        print(f"jpeg planted fault, {fault}: fails the digest on {len(caught)} of "
+              f"{len(names)} fixtures")
+        require(caught, f"jpeg: the digest does not see {fault}")
+    k = len(data) // 2
+    try:
+        decoder(data[:k] + [truncated] + data[k:])
+    except ValueError as e:
+        print(f"jpeg truncated fixture at index {k}: {e}")
+        require("corrupt" in str(e) and str(e).endswith(f"[{k}]"),
+                f"jpeg: the truncated fixture failed as {e!r}, not at index {k} alone")
+    else:
+        raise SmokeFailure("jpeg: the truncated fixture decoded without an error")
+    return worst
+
+
+STREAM_BATCH = 128
+STREAM_BATCHES = 8
+SERVER_JPEGS = 32
+FOLDER_FILES = 256
+FOLDER_STEPS = 4
+
+
+def jpeg_batches(data, k, n):
+    """``k`` batches of ``n`` JPEGs drawn from the fixtures, each batch in
+    its own order."""
+    return [[data[(b * 7 + i * (b + 1)) % len(data)] for i in range(n)] for b in range(k)]
+
+
+def phase_jpeg_decoder(smi):
+    """20a: the decoder the card machine has (never PIL), the fixtures held
+    to their digests with the planted faults failing, the truncated file
+    failing its own index, ms an image at DIGEST_SIZE px."""
+    from vit_tpu_torch.data import JpegDecoder
+
+    t0 = time.perf_counter()
+    decoder = JpegDecoder(size=DIGEST_SIZE)
+    backend = decoder.backend
+    print(f"jpeg decoder: backend {backend}, found or built in {time.perf_counter() - t0:.1f} s")
+    require(backend in ("native", "nvjpeg"),
+            f"jpeg: the decoder on the card machine is {backend!r}, not native or nvjpeg")
+    worst = check_jpeg_fixtures(decoder)
+    print(f"jpeg fixtures: worst channel-mean error {worst[0]:.4g}, area-mean error "
+          f"{worst[1]:.4g} (tolerance {JPEG_TOL})")
+    batch = jpeg_batches(jpeg_fixtures()[1], 1, STREAM_BATCH)[0]
+    decoder(batch)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decoder(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"jpeg decode {backend} at {DIGEST_SIZE} px: {ms / len(batch):.4f} ms an image "
+          f"({ms:.2f} ms a batch of {len(batch)}, median of 5, {decoder.threads} threads, "
+          f"{os.cpu_count()} cores) [{smi}]")
+    return decoder, ms
+
+
+def phase_jpeg_stream(vit_state, dev, smi, decoder, decode_ms):
+    """20b: STREAM_BATCHES batches of STREAM_BATCH JPEGs through ViT-L/16
+    bf16, once through ``classify_jpegs`` a batch at a time and once through
+    ``classify_jpeg_stream``: logits bitwise equal, exact launches, img/s of
+    each; ``dispatch`` run under CUDA's sync debug mode (it must not wait for
+    the card), its host ms against the forward's device ms; then JPEG
+    requests through ``BatchingServer`` within SERVER_TOL of direct calls."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.data import classify_jpeg_stream, classify_jpegs
+    from vit_tpu_torch.pipeline import InferencePipeline, to_device, to_host
+    from vit_tpu_torch.serving import BatchingServer
+
+    model = build_model(vit_state, dev, "bf16")
+    pipe = InferencePipeline(model, image_size=VIT_L["image_size"],
+                             batch_size=STREAM_BATCH).warm()
+    data = jpeg_fixtures()[1]
+    batches = jpeg_batches(data, STREAM_BATCHES, STREAM_BATCH)
+    want = {k: VIT_L["depth"] * STREAM_BATCHES for k in ("attention_block", "fused_mlp")}
+    outs, rates = {}, {}
+    for loop in ("serial", "stream", "stream", "serial"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if loop == "serial":
+            out = [classify_jpegs(pipe, b, decoder=decoder) for b in batches]
+        else:
+            out = list(classify_jpeg_stream(pipe, batches, decoder=decoder))
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        rates.setdefault(loop, []).append(STREAM_BATCHES * STREAM_BATCH / dt)
+        require(counts == want, f"jpeg {loop}: launches {counts}, not {want}")
+        require(all(o.shape == (STREAM_BATCH, 1000) and np.isfinite(o).all() for o in out),
+                f"jpeg {loop}: logits of the wrong shape or not finite")
+        if loop in outs:
+            require(all(np.array_equal(a, b) for a, b in zip(outs[loop], out)),
+                    f"jpeg {loop}: two runs of the same batches differ")
+        outs[loop] = out
+    equal = all(np.array_equal(a, b) for a, b in zip(outs["serial"], outs["stream"]))
+    print(f"jpeg stream vs serial: {STREAM_BATCHES} batches of {STREAM_BATCH}, logits bitwise "
+          f"equal {equal}; launches {want} in each run")
+    require(equal, "jpeg: classify_jpeg_stream's logits differ from classify_jpegs'")
+
+    raw = decoder(batches[0])
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipe.dispatch(raw)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    to_host(pending)
+    host, device, pageable, pinned = [], [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        pending = pipe.dispatch(raw)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        to_host(pending)
+        device.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(raw).to(dev)
+        pageable.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        to_device(raw, dev)
+        pinned.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median
+    print(f"jpeg stream ViT-L/16 bf16 batch {STREAM_BATCH}: serial {med(rates['serial']):.1f} "
+          f"img/s {[round(r, 1) for r in rates['serial']]}, stream {med(rates['stream']):.1f} "
+          f"img/s {[round(r, 1) for r in rates['stream']]} "
+          f"({med(rates['stream']) / med(rates['serial']):.3f}x); decode {decode_ms:.2f} ms a "
+          f"batch, dispatch {med(host):.2f} ms host, forward {med(device):.2f} ms device (CUDA "
+          f"events, median of 5); dispatch under sync debug mode 'error': no wait [{smi}]")
+    print(f"jpeg H2D of a [{STREAM_BATCH}, {DIGEST_SIZE}, {DIGEST_SIZE}, 3] uint8 batch: pageable "
+          f".to(device) {med(pageable):.2f} ms host, pinned non_blocking (to_device) "
+          f"{med(pinned):.2f} ms host")
+
+    requests = [data[i % len(data)] for i in range(SERVER_JPEGS)]
+    direct = np.concatenate([pipe(r[None]) for r in decoder(requests)])
+    with BatchingServer(pipe, decoder=decoder, max_wait_ms=5) as server:
+        rows, t_serve = submit_all(server, requests)
+    rows = np.stack(rows)
+    err = float(np.abs(rows - direct).max())
+    tol = SERVER_TOL * float(np.abs(direct).max())
+    print(f"jpeg server: {SERVER_JPEGS} JPEG requests in {t_serve * 1e3:.1f} ms; rows vs direct "
+          f"max|dlogit| {err:.6g} tol {tol:.6g}")
+    require(rows.shape == (SERVER_JPEGS, 1000) and np.isfinite(rows).all(),
+            f"jpeg server: rows {rows.shape} or not finite")
+    require(err <= tol, f"jpeg server: rows differ from direct calls by {err}")
+    del model, pipe
+    torch.cuda.empty_cache()
+
+
+def state_tensors(state) -> dict:
+    """Copies of a TrainState's parameters and optimizer moments, by name."""
+    out = {f"model.{k}": v.detach().clone() for k, v in state.model.state_dict().items()}
+    for i, (_, st) in enumerate(sorted(state.optimizer.state_dict()["state"].items())):
+        out.update({f"opt.{i}.{k}": v.detach().clone() for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    return out
+
+
+def phase_folder_train(dev, smi, synthetic_ms):
+    """20c: ``python -m vit_tpu_torch.train --data DIR`` (in this process, so
+    that the launch counters see it) at ViT-L/16, batch STREAM_BATCH, on
+    FOLDER_FILES copies of the fixtures, with ``--checkpoint-dir`` (its one
+    save after the timed steps): finite losses, exactly TRAIN_LAUNCHES and
+    TRAIN_RECOMPUTES a step, the step ms against phase 17's synthetic
+    step. Then the checkpoint restored, one
+    more step on the folder's batches, an async ``save`` timed against its
+    ``wait`` with a step between them, and the file restored: it must equal
+    the state at ``save``."""
+    import io
+    import re
+    import tempfile
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch import train as tt
+    from vit_tpu_torch.data import JpegFolderDataset
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils.checkpoint import CheckpointManager
+
+    data = jpeg_fixtures()[1]
+    with tempfile.TemporaryDirectory(dir=REPO / "vit_tpu_torch" / "_build") as run:
+        folder, ckpt = Path(run) / "jpegs", Path(run) / "ckpt"
+        folder.mkdir()
+        for i in range(FOLDER_FILES):
+            (folder / f"img_{i:04d}.jpg").write_bytes(data[i % len(data)])
+        argv = ["--model", "vit", "--config", json.dumps(VIT_L), "--data", str(folder),
+                "--batch", str(STREAM_BATCH), "--steps", str(FOLDER_STEPS), "--lr", str(TRAIN_LR),
+                "--checkpoint-dir", str(ckpt)]  # one save, after the timed steps
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tt.main(argv)
+        wall = time.perf_counter() - t0
+        counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+        for line in out.getvalue().strip().splitlines():
+            print(f"folder train | {line}")
+        print(f"folder train: python -m vit_tpu_torch.train {' '.join(argv)}: rc {rc} in "
+              f"{wall:.1f} s; launches {counts}, recomputes {recomputes}")
+        require(rc == 0, f"folder train: the CLI returned {rc}")
+        losses = [float(x) for x in re.findall(r"loss (\S+)", out.getvalue())]
+        require(losses and all(math.isfinite(x) for x in losses),
+                f"folder train: losses {losses}")
+        require({k: v for k, v in counts.items() if v} ==
+                {k: v * FOLDER_STEPS for k, v in TRAIN_LAUNCHES.items()},
+                f"folder train: launches {counts}, not {TRAIN_LAUNCHES} a step")
+        require(recomputes == {k: v * FOLDER_STEPS for k, v in TRAIN_RECOMPUTES.items()},
+                f"folder train: recomputes {recomputes}, not {TRAIN_RECOMPUTES} a step")
+        step_ms = float(re.search(r"\(([\d.]+) ms/step\)", out.getvalue()).group(1))
+        print(f"folder train ViT-L/16 @224 bf16 batch {STREAM_BATCH} on JPEGs: {step_ms:.1f} ms a "
+              f"step (host clock, steps 2-{FOLDER_STEPS}) against phase 17's synthetic "
+              f"{synthetic_ms:.1f} ms (CUDA events) [{smi}]")
+
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        model = ViT(**VIT_L, dtype=torch.bfloat16, device=dev)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw", grad_clip_norm=1.0)
+        state = tt.create_train_state(model, opt, gen, init=False)
+        mgr = CheckpointManager(ckpt, max_to_keep=3)
+        mgr.restore(state)
+        require(state.step == FOLDER_STEPS, f"folder train: restored step {state.step}")
+        files = sorted(folder.glob("*.jpg"))
+        dataset = JpegFolderDataset([(str(f), i % 1000) for i, f in enumerate(files)],
+                                    STREAM_BATCH, size=VIT_L["image_size"], seed=SEED,
+                                    device=dev)
+        batches = ((x, y) for _, x, y in dataset.epochs(2))
+        step = tt.make_train_step(model, opt)
+        float(step(state, *next(batches)))
+        saved_step = state.step
+        torch.cuda.synchronize()
+        want = state_tensors(state)
+        t0 = time.perf_counter()
+        require(mgr.save(state.step, state, force=True), "folder train: save() refused")
+        t_save = (time.perf_counter() - t0) * 1e3
+        loss = float(step(state, *next(batches)))  # changes every parameter the save copied
+        t_step = (time.perf_counter() - t0) * 1e3 - t_save
+        t0 = time.perf_counter()
+        mgr.wait()
+        t_wait = (time.perf_counter() - t0) * 1e3
+        mgr.close()
+        moved = sum(not torch.equal(v, want[k]) for k, v in state_tensors(state).items())
+        mgr.restore(state, saved_step)
+        got = state_tensors(state)
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        print(f"folder train async save at step {saved_step}: save() returned in {t_save:.1f} ms, "
+              f"a step after it took {t_step:.1f} ms (loss {loss:.5f}), wait() {t_wait:.1f} ms "
+              f"more; {moved} of {len(want)} tensors changed after save(); restored: "
+              f"{len(want) - len(differ)} of {len(want)} tensors bitwise the state at save() "
+              f"[{smi}]")
+        require(moved > 0, "folder train: the step after save() changed no tensor")
+        require(state.step == saved_step and not differ,
+                f"folder train: the restored state differs from the state at save(): "
+                f"{differ[:5]}")
+        del model, state, step, want, got, opt
+        torch.cuda.empty_cache()
+
+
+def phase_jpeg(vit_state, dev, smi, synthetic_ms):
+    """Phase 20: JPEG bytes on the card (20a-c)."""
+    t_phase = time.perf_counter()
+    decoder, decode_ms = phase_jpeg_decoder(smi)
+    phase_jpeg_stream(vit_state, dev, smi, decoder, decode_ms)
+    phase_folder_train(dev, smi, synthetic_ms)
+    print(f"phase 20 (JPEG bytes on the card) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -5452,7 +5811,7 @@ def main() -> int:
     phase_vit_moe(dev, smi, requests)
 
     # 17. training ViT-L/16: kernels 1 and 2 forward, their Functions' backward
-    phase_train(dev, smi)
+    train_ms = phase_train(dev, smi)
 
     # 18. a Hugging Face ViT-B/16 (the qkv-bias branch on kernels 4 and 2), its
     # int8 path on kernel 3, quantized_apply, simple_vit_apply_w8a8 on kernels 9
@@ -5462,9 +5821,13 @@ def main() -> int:
     # 19. the serving programs exported ahead of time, every kernel an operator:
     # ViT-L's (19a-19c, phase 3's weights), then the other families' (19d)
     exported = phase_aot_vit(vit_state, dev, smi)
-    del vit_state
     exported.update(phase_aot_families(dev, smi))
     print(f"exported programs' launches a forward: {json.dumps(exported)}")
+
+    # 20. JPEG bytes on the card: the decoder, classify_jpeg_stream and the
+    # BatchingServer on ViT-L (phase 3's weights), training from a folder of JPEGs
+    phase_jpeg(vit_state, dev, smi, train_ms)
+    del vit_state
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -697,6 +697,7 @@ def test_resumed_run_equals_the_uninterrupted_one(tmp_path, name):
         step(full, img, labels)
         if full.step == 2:
             mgr.save(full.step, full)
+    mgr.wait()  # the save is asynchronous: on disk once wait() returns
     resumed = _tiny_state(seed=4, optimizer=opt, dropout=0.1, emb_dropout=0.1)
     CheckpointManager(tmp_path / "run").restore(resumed)
     assert resumed.step == 2
@@ -790,10 +791,11 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from" in out and "at step 3" in out and "step 5: loss" in out
     assert CheckpointManager(run).all_steps() == [2, 3, 5]
-    for bad, err in ((["--dp", "2"], "item 8"), (["--data", "x"], "item 4"),
-                     (["--optimizer", "muon"], "item 7")):
+    for bad, err in ((["--dp", "2"], "item 8"), (["--optimizer", "muon"], "item 7")):
         with pytest.raises(NotImplementedError, match=err):
             tt.main(base + ["--steps", "1"] + bad)
+    with pytest.raises(ValueError, match="0 samples"):  # --data reads a folder of JPEGs
+        tt.main(base + ["--steps", "1", "--data", str(tmp_path / "no_jpegs")])
 
 
 def test_cli_without_a_card_exits_1(monkeypatch):

@@ -285,6 +285,37 @@ def build() -> Path:
     return so
 
 
+NVJPEG_SRC = SRC_DIR / "jpeg_nvjpeg.cpp"
+NVJPEG_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def build_nvjpeg() -> Path:
+    """Compile the nvJPEG decoder (``csrc/jpeg_nvjpeg.cpp``, host code only,
+    linked with the toolkit's ``libnvjpeg``) unless the library for this
+    source exists; returns its path. ``vit_tpu_torch/data.py`` loads it
+    where ``native/`` does not build. Raises where ``nvcc`` is missing or the
+    build fails (its output beside the library as ``<name>.log``)."""
+    h = hashlib.sha256(" ".join(NVJPEG_FLAGS).encode())
+    h.update(NVJPEG_SRC.read_bytes())
+    so = BUILD_DIR / f"libvit_nvjpeg_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix="nvjpeg-", suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVJPEG_FLAGS, "-o", tmp, str(NVJPEG_SRC), "-lnvjpeg"]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {NVJPEG_SRC.name}:\n{proc.stderr[:4000]}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
     global _lib

@@ -5,7 +5,9 @@
 uint8 images cross to the device once. ``InferencePipeline`` pads each
 host batch to the smallest batch bucket that holds it (default 1, 4, 16,
 ``batch_size``) and returns logits; ``dispatch`` only enqueues the work, so
-a caller can decode the next batch while the card computes.
+a caller can decode the next batch while the card computes: the batch goes
+to the card from pinned memory with ``non_blocking=True`` (``to_device``),
+and nothing in it waits for the card (no pageable copy, no read back).
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ def center_crop(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 
 def normalize(img, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.bfloat16):
-    mean = torch.tensor(mean, dtype=torch.float32, device=img.device)
-    std = torch.tensor(std, dtype=torch.float32, device=img.device)
+    """``(img - mean) / std`` cast to ``dtype``. ``mean`` and ``std`` given
+    as fp32 tensors on ``img``'s device are used as they are; sequences are
+    copied there first, and on a card that copy waits for the stream."""
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=img.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=img.device)
     return ((img - mean) / std).to(dtype)
 
 
@@ -97,10 +102,14 @@ class InferencePipeline:
                 batch_buckets.append(b)
                 b //= 4
         self.batch_buckets = sorted(set(int(b) for b in batch_buckets) | {batch_size})
+        # on the device once, so that no batch copies them (a copy that waits)
+        self._mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=self.device)
+        self._std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=self.device)
 
     def _run(self, raw: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            x = preprocess(raw, image_size=self.image_size, dtype=self.dtype)
+            x = preprocess(raw, image_size=self.image_size, mean=self._mean, std=self._std,
+                           dtype=self.dtype)
             return self.model(x)
 
     def _bucket_for(self, n: int) -> int:
@@ -120,7 +129,8 @@ class InferencePipeline:
 
     def dispatch(self, raw_images: np.ndarray):
         """Enqueue a host batch; returns the in-flight logits (one tensor on
-        the model's device per ``batch_size`` chunk) without waiting."""
+        the model's device per ``batch_size`` chunk) without waiting for the
+        card."""
         n = raw_images.shape[0]
         bs = self.batch_size
         pending = []
@@ -134,13 +144,25 @@ class InferencePipeline:
                 chunk = np.zeros((bucket,) + raw_images.shape[1:], raw_images.dtype)
             elif pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-            logits = self._run(torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device))
+            logits = self._run(to_device(chunk, self.device))
             pending.append(logits[: bucket - pad])
         return pending
 
     def __call__(self, raw_images: np.ndarray) -> np.ndarray:
         """Classify a host batch of any size; returns fp32 numpy logits."""
         return to_host(self.dispatch(raw_images))
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without blocking the host: on a card, a
+    pinned copy from PyTorch's caching host allocator, sent with
+    ``non_blocking=True`` on the current stream (the allocator records an
+    event there and reuses the pinned block only after the copy has landed);
+    on the CPU, the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def to_host(pending) -> np.ndarray:

@@ -33,7 +33,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
+import json
 import math
+import pathlib
 import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
@@ -356,16 +359,21 @@ def evaluate(model: nn.Module, batches: Iterable) -> dict:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m vit_tpu_torch.train",
-                                 description="Train a model of MODEL_REGISTRY on synthetic data "
-                                             "on one card (bf16).")
+                                 description="Train a model of MODEL_REGISTRY on one card (bf16), "
+                                             "on a folder of JPEGs or on synthetic data.")
     ap.add_argument("--model", default="vit", help="MODEL_REGISTRY name")
+    ap.add_argument("--config", default=None, metavar="JSON",
+                    help="constructor kwargs over the registry's tiny config, as a JSON object "
+                         "(e.g. ViT-L/16's)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--classes", type=int, default=1000)
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (not ported)")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (not ported)")
-    ap.add_argument("--data", default=None, help="directory of JPEGs (not ported)")
+    ap.add_argument("--data", default=None, metavar="DIR",
+                    help="directory of *.jpg files, file i (sorted) labelled i %% --classes, "
+                         "through JpegFolderDataset (synthetic if unset)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="CheckpointManager run dir: step-numbered saves, keeps the newest 3")
     ap.add_argument("--save-every", type=int, default=100, help="checkpoint cadence in steps")
@@ -389,9 +397,6 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.dp * args.tp > 1:
         raise NotImplementedError("--dp / --tp: multi-GPU training is ROADMAP.md Queue 1 item 8")
-    if args.data:
-        raise NotImplementedError("--data: JpegFolderDataset is not ported "
-                                  "(ROADMAP.md Queue 1 item 4)")
     if args.device == "cuda" and not torch.cuda.is_available():
         print("python -m vit_tpu_torch.train: no CUDA card (pass --device cpu)", file=sys.stderr)
         return 1
@@ -403,7 +408,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     ctor, cfg, size = MODEL_REGISTRY[args.model]
-    cfg = dict(cfg, num_classes=args.classes)
+    cfg = {**cfg, **json.loads(args.config or "{}"), "num_classes": args.classes}
     if "image_size" in cfg:
         cfg["image_size"] = args.image_size
     else:
@@ -411,9 +416,20 @@ def main(argv=None) -> int:
     model = ctor(**cfg, dtype=torch.bfloat16, device=dev)
 
     gen = torch.Generator(dev).manual_seed(args.seed)
-    images = torch.randn(args.batch, args.image_size, args.image_size, 3, generator=gen,
-                         device=dev).to(torch.bfloat16)
-    labels = torch.arange(args.batch, device=dev) % args.classes
+    if args.data:
+        from vit_tpu_torch.data import JpegFolderDataset
+
+        files = sorted(pathlib.Path(args.data).glob("*.jpg"))
+        dataset = JpegFolderDataset([(str(f), i % args.classes) for i, f in enumerate(files)],
+                                    args.batch, size=args.image_size, seed=args.seed, device=dev)
+        # shuffled epochs, decoded and copied to the card ahead of the step
+        batches = ((imgs, lbls) for _, imgs, lbls in
+                   dataset.epochs(-(-args.steps // len(dataset))))
+    else:
+        images = torch.randn(args.batch, args.image_size, args.image_size, 3, generator=gen,
+                             device=dev).to(torch.bfloat16)
+        labels = torch.arange(args.batch, device=dev) % args.classes
+        batches = itertools.repeat((images, labels))
     optimizer = make_optimizer(args.lr, name=args.optimizer, grad_clip_norm=1.0)
 
     mgr = CheckpointManager(args.checkpoint_dir, max_to_keep=3,
@@ -436,7 +452,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     loss = None
     for i in range(args.steps):
-        loss = step(state, images, labels)
+        loss = step(state, *next(batches))
         if ema is not None:
             ema.update(model)
         if i == 0:
@@ -454,7 +470,9 @@ def main(argv=None) -> int:
     if mgr is not None:
         mgr.save(state.step, state, metrics=None if loss is None else {"loss": float(loss)},
                  ema=ema, force=True)
+        mgr.wait()
         print(f"checkpoints at steps {mgr.all_steps()} in {args.checkpoint_dir}")
+        mgr.close()
     return 0
 
 

@@ -8,6 +8,7 @@ from vit_tpu_torch.utils.aot import (  # noqa: F401
 )
 from vit_tpu_torch.utils.bn_folding import fold_batch_norm  # noqa: F401
 from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
+from vit_tpu_torch.utils.debug import checked, debug_nans, kernel_sanitizer  # noqa: F401
 from vit_tpu_torch.utils.health import memory_stats, probe_devices, with_retry  # noqa: F401
 from vit_tpu_torch.utils.init import init_params  # noqa: F401
 from vit_tpu_torch.utils.interop import (  # noqa: F401
