@@ -257,7 +257,24 @@ Runs, in order, and exits non-zero at the first failure:
      phase 17's); an async checkpoint save timed against its wait and
      restored bit for bit to the state at ``save()``. NVIDIA's
      compute-sanitizer refuses this card ("Device not supported"), so no
-     phase runs the kernels under it.
+     phase runs the kernels under it;
+ 21. training Twins-SVT and T2T-ViT on kernels 3-6: the autograd Functions
+     of kernels 3-6 (``ops.QkvAttentionFn``, ``ops.FlashAttentionFn`` with
+     the Q-chunked flash backward, ``ops.WindowAttentionBlockFn``) against
+     autograd through their twins at NesT's and ParallelViT's fused rows,
+     Twins' four GSA and three LSA stages, T2T's two tokenizer stages
+     (batch 8 and 128) and CrossFormer's and RegionViT's biased windows
+     (the bias's gradient too), with planted faults failing the bound
+     (the flash backward's delta dropped, dK unscaled, a head-broadcast
+     dbias not summed, mask_self left out, a clamped last chunk; kernel
+     3's dq and dk swapped; kernel 6's LayerNorm gradients swapped);
+     kernel 5's backward memory at T2T's stage 0, batch 128 (at most
+     KV_BWD_MAX_BYTES above its inputs); one step of each preset in bf16
+     at batch 8, its loss and gradients against the plain bf16 and fp32
+     paths; each preset trained at batch 128 with AdamW (exact launches
+     and recomputes a step, step ms, train img/s, peak memory, the
+     Functions' backward ms, a profile by kernel and by op) and through
+     ``python -m vit_tpu_torch.train --model twins_svt|t2t``.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -269,6 +286,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -750,10 +768,18 @@ def check_close(name, out, ref, base):
     return err
 
 
-# -- phase 17 helpers: the autograd Functions of kernels 1 and 2 ------------------
+# -- phase 17 and 21 helpers: the autograd Functions of kernels 1-6 ----------------
 
 FN_ARGS = {"attention_block": ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout"),
            "fused_mlp": ("x", "w1", "b1", "w2", "b2", "ln_scale", "ln_bias")}
+# The Functions of kernels 3-6 (phase 21), by the kernel each launches forward:
+# their differentiable operands, in the order ``apply`` takes them.
+ZOO_FN_ARGS = {"qkv_attention": ("qkv", "bias"),
+               "flash_attention": ("q", "k", "v", "bias"),
+               "flash_attention_kv_blocked": ("q", "k", "v", "bias"),
+               "window_attention_block": ("xw", "ln_scale", "ln_bias", "wqkv", "wout", "bout",
+                                          "bias")}
+ALL_FN_ARGS = {**FN_ARGS, **ZOO_FN_ARGS}
 # Faults planted in a Function's backward, each of which the gradient bound
 # must see: the residual's identity term dropped from x's gradient, and the
 # gradients of ln_scale and ln_bias (both [D]) returned in each other's slots.
@@ -762,6 +788,16 @@ FUNCTION_FAULTS = ("residual identity dropped", "ln_scale and ln_bias gradients 
 # backward its cotangent in its output's dtype (x's), so ``g.to(x.dtype)``
 # never changes a value. It is checked to give the same gradients bit for bit.
 CAST_SKIPPED = "cotangent cast skipped"
+# Faults planted in the Q-chunked flash backward of kernels 4 and 5
+# (``flash_attention.flash_backward``): delta = rowsum(g * out) left out of dS;
+# dK without its scale; dbias of a head-broadcast bias [B|1, 1, Nq, Nk] taken
+# from the first head instead of summed over the heads; the forward's
+# mask_self diagonal left out of the recomputed scores; the last chunk of
+# queries clamped to end at Nq (re-reading earlier rows) instead of padded.
+FLASH_BWD_FAULTS = ("delta dropped", "dK unscaled", "dbias not reduced over a broadcast head axis",
+                    "mask_self left out of the backward", "a chunk that clamps instead of padding")
+# Kernel 3's: the q and k thirds of dqkv returned in each other's place.
+QKV_BWD_FAULTS = ("dq and dk swapped",)
 
 
 def twin_forward(kind):
@@ -769,36 +805,64 @@ def twin_forward(kind):
     a Function's forward in its place runs the twin on the CPU."""
     from vit_tpu_torch import ops
 
-    return ops.xla_attention_block if kind == "attention_block" else ops.reference_mlp
+    return {"attention_block": ops.xla_attention_block, "fused_mlp": ops.reference_mlp,
+            "qkv_attention": ops.xla_qkv_attention, "flash_attention": ops.reference_attention,
+            "flash_attention_kv_blocked": ops.reference_attention_kv_blocked,
+            "window_attention_block": ops.xla_window_attention_block}[kind]
 
 
 def function_twin(kind, kw):
-    """The plain twin of kernel ``kind`` (``FN_ARGS``) with its options."""
+    """The plain twin of kernel ``kind`` (``ALL_FN_ARGS``) with its options."""
     ba = importlib.import_module("vit_tpu_torch.ops.block_attention")
     fm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
 
     if kind == "attention_block":
         return lambda *a: ba.xla_attention_block(*a, kw["heads"], kw["scale"], kw["ln_eps"],
                                                  kw.get("true_n"), kw.get("block_tokens"))
-    return lambda *a: fm.reference_mlp(*a, activation=kw["activation"],
-                                       residual=kw["residual"], ln_eps=kw["ln_eps"])
+    if kind == "fused_mlp":
+        return lambda *a: fm.reference_mlp(*a, activation=kw["activation"],
+                                           residual=kw["residual"], ln_eps=kw["ln_eps"])
+    twin = twin_forward(kind)
+    if kind == "qkv_attention":
+        return lambda qkv, bias: twin(qkv, kw["heads"], bias, kw["scale"])
+    if kind == "window_attention_block":
+        return lambda *a: twin(*a[:6], kw["heads"], a[6], kw["scale"], kw["ln_eps"])
+    return lambda q, k, v, bias: twin(q, k, v, bias, kw["scale"], kw["mask_self"])
+
+
+def apply_function(kind, forward, leaves, kw):
+    """Kernel ``kind``'s autograd Function on ``leaves`` (``ALL_FN_ARGS``
+    order), forward through ``forward`` (None: the kernel wrapper)."""
+    from vit_tpu_torch import ops
+
+    if kind == "attention_block":
+        return ops.AttentionBlockFn.apply(forward or ops.fused_attention_block, *leaves,
+                                          kw["heads"], kw["scale"], kw["ln_eps"],
+                                          kw.get("true_n"), kw.get("block_tokens"))
+    if kind == "fused_mlp":
+        return ops.MlpFn.apply(forward or ops.fused_mlp, *leaves, kw["activation"],
+                               kw["residual"], kw["ln_eps"])
+    if kind == "qkv_attention":
+        qkv, bias = leaves
+        return ops.QkvAttentionFn.apply(forward or ops.fused_qkv_attention, qkv, kw["heads"],
+                                        bias, kw["scale"])
+    if kind == "window_attention_block":
+        return ops.WindowAttentionBlockFn.apply(
+            forward or ops.fused_window_attention_block, *leaves[:6], kw["heads"], leaves[6],
+            kw["scale"], kw["ln_eps"])
+    return ops.FlashAttentionFn.apply(forward or getattr(ops, kind), *leaves, kw["scale"],
+                                      kw["mask_self"])
 
 
 def function_grads(kind, args, kw, g, forward=None):
     """Input and weight gradients of kernel ``kind``'s autograd Function
-    (``ops.AttentionBlockFn`` / ``ops.MlpFn``) at cotangent ``g``: forward
-    through ``forward`` (None: the kernel wrapper), backward its recompute
-    through the twin. ``args`` in ``FN_ARGS`` order, None where absent."""
-    from vit_tpu_torch import ops
-
+    (``ops.AttentionBlockFn``, ``ops.MlpFn``, ``ops.QkvAttentionFn``,
+    ``ops.FlashAttentionFn``, ``ops.WindowAttentionBlockFn``) at cotangent
+    ``g``: forward through ``forward`` (None: the kernel wrapper), backward
+    its recompute through the twin (kernels 4 and 5: the Q-chunked flash
+    backward). ``args`` in ``ALL_FN_ARGS`` order, None where absent."""
     leaves = [None if a is None else a.detach().requires_grad_() for a in args]
-    if kind == "attention_block":
-        out = ops.AttentionBlockFn.apply(forward or ops.fused_attention_block, *leaves,
-                                         kw["heads"], kw["scale"], kw["ln_eps"],
-                                         kw.get("true_n"), kw.get("block_tokens"))
-    else:
-        out = ops.MlpFn.apply(forward or ops.fused_mlp, *leaves, kw["activation"],
-                              kw["residual"], kw["ln_eps"])
+    out = apply_function(kind, forward, leaves, kw)
     present = [a for a in leaves if a is not None]
     grads = iter(torch.autograd.grad(out, present, g))
     return [None if a is None else next(grads) for a in leaves]
@@ -813,19 +877,73 @@ def twin_grads(kind, args, kw, g):
     return [None if a is None else next(grads) for a in leaves]
 
 
+def _clamped_chunk(t, r0, chunk):
+    """FLASH_BWD_FAULTS[4]: the chunk's start clamped so that it ends at
+    Nq, as a ``dynamic_slice`` without the padding would read it."""
+    r0 = min(r0, t.shape[2] - chunk)
+    return t[:, :, r0:r0 + chunk]
+
+
+def flash_faulty_grads(args, kw, g, fault):
+    """``flash_backward`` with ``fault`` (FLASH_BWD_FAULTS) planted, on the
+    twin's forward output."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+
+    q, k, v, bias = args
+    scale, mask_self = kw["scale"], kw["mask_self"]
+    with torch.no_grad():
+        out = fa.reference_attention(q, k, v, bias, scale, mask_self)
+        if fault == FLASH_BWD_FAULTS[0]:  # delta = rowsum(g * 0) = 0
+            return list(fa.flash_backward(q, k, v, bias, torch.zeros_like(out), g, scale,
+                                          mask_self))
+        if fault == FLASH_BWD_FAULTS[1]:
+            dq, dk, dv, db = fa.flash_backward(q, k, v, bias, out, g, scale, mask_self)
+            return [dq, dk / scale, dv, db]
+        if fault == FLASH_BWD_FAULTS[2]:  # the bias taken per head, head 0's gradient kept
+            wide = bias.expand(bias.shape[0], q.shape[1], *bias.shape[2:])
+            dq, dk, dv, db = fa.flash_backward(q, k, v, wide, out, g, scale, mask_self)
+            return [dq, dk, dv, db[:, :1]]
+        if fault == FLASH_BWD_FAULTS[3]:
+            return list(fa.flash_backward(q, k, v, bias, out, g, scale, False))
+        with mock.patch.object(fa, "query_chunk", _clamped_chunk):
+            return list(fa.flash_backward(q, k, v, bias, out, g, scale, mask_self))
+
+
+def flash_faults(args, kw):
+    """The FLASH_BWD_FAULTS that change the gradients of these inputs: more
+    than one key for the second (over one key dK is zero: the softmax's
+    Jacobian cancels), a head-broadcast bias for the third, mask_self for
+    the fourth, a last chunk short of BLOCK_Q rows for the fifth."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+
+    q, k, _, bias = args
+    nq = q.shape[2]
+    return [f for f, applies in zip(FLASH_BWD_FAULTS, (
+        True, k.shape[2] > 1, bias is not None and bias.shape[1] == 1 and q.shape[1] > 1,
+        kw["mask_self"], nq > fa.BLOCK_Q and nq % fa.BLOCK_Q)) if applies]
+
+
 def faulty_grads(kind, args, kw, g, fault):
-    """The recompute backward of ``kind``'s Function with ``fault``
-    (``FUNCTION_FAULTS`` or ``CAST_SKIPPED``) planted, on the same inputs."""
+    """The backward of ``kind``'s Function with ``fault`` (``FUNCTION_FAULTS``,
+    ``CAST_SKIPPED``, ``FLASH_BWD_FAULTS`` or ``QKV_BWD_FAULTS``) planted, on
+    the same inputs."""
     from vit_tpu_torch.ops.block_attention import recompute_vjp
 
+    if fault in FLASH_BWD_FAULTS:
+        return flash_faulty_grads(args, kw, g, fault)
     twin = function_twin(kind, kw)
     need = [a is not None for a in args]
     if fault == FUNCTION_FAULTS[0]:
         return recompute_vjp(lambda x, *w: twin(x, *w) - x + x.detach(), args, need, g)
     if fault == FUNCTION_FAULTS[1]:
         grads = recompute_vjp(twin, args, need, g)
-        i, j = (FN_ARGS[kind].index(n) for n in ("ln_scale", "ln_bias"))
+        i, j = (ALL_FN_ARGS[kind].index(n) for n in ("ln_scale", "ln_bias"))
         grads[i], grads[j] = grads[j], grads[i]
+        return grads
+    if fault == QKV_BWD_FAULTS[0]:
+        grads = recompute_vjp(twin, args, need, g)
+        dq, dk, dv = grads[0].chunk(3, dim=-1)
+        grads[0] = torch.cat([dk, dq, dv], dim=-1)
         return grads
     with torch.enable_grad():  # CAST_SKIPPED: recompute_vjp without g.to(x.dtype)
         leaves = [None if a is None else a.detach().requires_grad_() for a in args]
@@ -834,20 +952,36 @@ def faulty_grads(kind, args, kw, g, fault):
     return [None if a is None else next(grads) for a in leaves]
 
 
+def function_faults(kind, args, kw):
+    """The planted faults ``check_function`` requires to fail for ``kind``."""
+    if kind in ("flash_attention", "flash_attention_kv_blocked"):
+        return flash_faults(args, kw)
+    if kind == "qkv_attention":
+        return list(QKV_BWD_FAULTS)
+    residual = kind == "attention_block" or kw.get("residual", False)
+    return list(FUNCTION_FAULTS[0 if residual else 1:])
+
+
 def grad_errors(kind, grads, ref):
     """(name, max |err|, kernel_tol of the reference gradient) for each
     gradient present: ``kernel_tol``'s form applied to a gradient (2% of its
-    largest value, plus one bf16 ulp of it where it is bf16)."""
-    return [(name, (a.float() - b.float()).abs().max().item(), kernel_tol(b, None, b.dtype))
-            for name, a, b in zip(FN_ARGS[kind], grads, ref) if b is not None]
+    largest value, plus one bf16 ulp of it where it is bf16). A reference
+    gradient that is exactly zero (queries attending one key: the softmax's
+    Jacobian cancels, and the flash backward's dP - delta leaves the
+    rounding of two equal values) is held to 1e-4 of the largest bound of
+    the others."""
+    rows = [(name, (a.float() - b.float()).abs().max().item(), kernel_tol(b, None, b.dtype))
+            for name, a, b in zip(ALL_FN_ARGS[kind], grads, ref) if b is not None]
+    floor = 1e-4 * max(t for _, _, t in rows)
+    return [(name, err, tol if tol > 0 else floor) for name, err, tol in rows]
 
 
 def check_function(what, kind, args, kw, g, forward=None, faults=True):
     """``kind``'s Function against autograd through its twin: every gradient
-    within ``grad_errors``' bound; each of ``FUNCTION_FAULTS`` that applies
-    must exceed it (the identity fault needs a residual), and
-    ``CAST_SKIPPED`` must give the same gradients. Returns the worst
-    error."""
+    within ``grad_errors``' bound; each of ``function_faults`` must exceed
+    it (the identity fault needs a residual), and, for the recompute
+    Functions of kernels 1 and 2, ``CAST_SKIPPED`` must give the same
+    gradients. Returns the worst error."""
     from vit_tpu_torch import ops
 
     with ops.force_backend("torch"):
@@ -862,14 +996,15 @@ def check_function(what, kind, args, kw, g, forward=None, faults=True):
             f"function {kind} {what}: a non-finite gradient")
     if not faults:
         return worst
-    residual = kind == "attention_block" or kw["residual"]
-    for fault in FUNCTION_FAULTS[0 if residual else 1:]:
+    for fault in function_faults(kind, args, kw):
         with ops.force_backend("torch"):
             bad = faulty_grads(kind, args, kw, g, fault)
         over = [(n, e, t) for n, e, t in grad_errors(kind, bad, ref) if e > t]
         print(f"function {kind} {what}, planted '{fault}': over the bound at "
               f"{[f'd{n} {e:.4g} > {t:.4g}' for n, e, t in over]} (must fail)")
         require(bool(over), f"function {kind} {what}: the bound does not see '{fault}'")
+    if kind not in FN_ARGS:
+        return worst
     with ops.force_backend("torch"):
         same = faulty_grads(kind, args, kw, g, CAST_SKIPPED)
     diff = max(e for _, e, _ in grad_errors(kind, same, ref))
@@ -4481,25 +4616,29 @@ def phase_train_functions(dev):
     their twins at ViT-L's layer shapes, batch 8 and 128 (``check_function``:
     every gradient within kernel_tol's form, the planted faults failing it).
     Kernel 2 with the residual off, as ``FeedForward`` calls it, and on, where
-    the identity fault applies."""
+    the identity fault applies. Returns the worst gradient error by kernel."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
     d = VIT_L["dim"]
+    worst = collections.defaultdict(float)
     for b in (8, TRAIN_BATCH):
         a = attn_inputs(gen, b, N_TOKENS, d, VIT_L["heads"], VIT_L["dim_head"],
                         torch.bfloat16, dev)
         args = [a[k] for k in FN_ARGS["attention_block"]]
         g = torch.randn(args[0].shape, generator=gen, device=dev).bfloat16()
         kw = dict(heads=VIT_L["heads"], scale=VIT_L["dim_head"] ** -0.5, ln_eps=1e-6)
-        check_function(f"ViT-L [{b}, {N_TOKENS}, {d}]", "attention_block", args, kw, g)
+        worst["attention_block"] = max(worst["attention_block"], check_function(
+            f"ViT-L [{b}, {N_TOKENS}, {d}]", "attention_block", args, kw, g))
         del a, args
         for residual in (False, True):
             m = mlp_inputs(gen, N_TOKENS, d, VIT_L["mlp_dim"], torch.bfloat16, dev, b=b)
             args = [m.get(k) for k in FN_ARGS["fused_mlp"]]
             kw = dict(activation="gelu", residual=residual, ln_eps=1e-6)
-            check_function(f"ViT-L [{b}, {N_TOKENS}, {d}] F {VIT_L['mlp_dim']} residual "
-                           f"{residual}", "fused_mlp", args, kw, g)
+            worst["fused_mlp"] = max(worst["fused_mlp"], check_function(
+                f"ViT-L [{b}, {N_TOKENS}, {d}] F {VIT_L['mlp_dim']} residual {residual}",
+                "fused_mlp", args, kw, g))
             del m, args
         torch.cuda.empty_cache()
+    return dict(worst)
 
 
 def vit_l_train_model(dev, gen):
@@ -4543,7 +4682,8 @@ def phase_train_grads(dev):
 
     ops.reset_launch_counts()
     loss_k, gk = grads(model, False, True)
-    counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+    counts = ops.launch_counts()
+    recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
     loss_p, gp = grads(model, True, False)
     loss_32, g32 = grads(model32, True, False)
     del model, model32
@@ -4624,7 +4764,8 @@ def phase_train_steps(dev, smi):
         losses.append(float(loss))
         times.append(start.elapsed_time(end))
         print(f"train step {state.step}: loss {losses[-1]:.5f}, {times[-1]:.1f} ms (CUDA events)")
-    counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+    counts = ops.launch_counts()
+    recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     ms = statistics.mean(times)
     n = TRAIN_STEPS[1]
@@ -4661,7 +4802,7 @@ def vit_forward_flops(c, batch) -> float:
 
 
 # the kinds of a training step's device time, by kernel name
-STEP_KINDS = (("kernels 1-2 (vt::)", ("vt::",)),
+STEP_KINDS = (("hand-written kernels (vt::)", ("vt::",)),
               ("fp32 GEMM (cuBLAS / CUTLASS)", ("f32f32", "sgemm")),
               ("bf16 GEMM (cuBLAS)", ("bf16", "s16816gemm", "gemm")),
               ("elementwise, reductions, copies", ("",)))
@@ -4710,14 +4851,14 @@ def phase_train_cli(dev):
 
 def phase_train(dev, smi):
     """Phase 17: training ViT-L/16 on kernels 1 and 2 (17a-d); returns 17c's
-    mean step ms."""
+    mean step ms and 17a's worst gradient error by kernel."""
     t_phase = time.perf_counter()
-    phase_train_functions(dev)
+    grad_worst = phase_train_functions(dev)
     phase_train_grads(dev)
     step_ms = phase_train_steps(dev, smi)
     phase_train_cli(dev)
     print(f"phase 17 (training) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
-    return step_ms
+    return step_ms, grad_worst
 
 
 # -- phase 18: a Hugging Face ViT-B/16 checkpoint, its int8 path, the weight-only
@@ -5605,7 +5746,8 @@ def phase_folder_train(dev, smi, synthetic_ms):
         with contextlib.redirect_stdout(out):
             rc = tt.main(argv)
         wall = time.perf_counter() - t0
-        counts, recomputes = ops.launch_counts(), ops.recompute_counts()
+        counts = ops.launch_counts()
+        recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
         for line in out.getvalue().strip().splitlines():
             print(f"folder train | {line}")
         print(f"folder train: python -m vit_tpu_torch.train {' '.join(argv)}: rc {rc} in "
@@ -5674,6 +5816,382 @@ def phase_jpeg(vit_state, dev, smi, synthetic_ms):
     phase_jpeg_stream(vit_state, dev, smi, decoder, decode_ms)
     phase_folder_train(dev, smi, synthetic_ms)
     print(f"phase 20 (JPEG bytes on the card) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+# -- phase 21: training Twins-SVT and T2T-ViT on kernels 3-6 ---------------------
+
+# The presets' launches a training step with remat (``zoo_train_counts``):
+# Twins 14 window blocks, 22 flash, 36 MLPs, each recomputed once in the
+# backward; T2T 2 kv-blocked flash and 12 MLPs, its encoder's 5 attention
+# blocks twice (the forward and remat's), recomputes 2, 7 and 5.
+ZOO_TRAIN_FAMILIES = ("twins", "t2t")
+
+
+def zoo_train_counts(model):
+    """(launches, recomputes) of each kernel a training step of a Twins-SVT
+    or T2T-ViT ``model`` takes with remat: Twins one launch and one backward
+    recompute a local attention (kernel 6), global attention (4) and ConvMLP
+    (2), nothing run again (it has no scanned stack); T2T kernel 5 and 2
+    once a tokenizer layer, its encoder's blocks twice where its depth
+    exceeds 1 (the forward and remat's) on kernels 1 and 2, else its one
+    layer unfused (kernel 3) once."""
+    names = collections.Counter(type(m).__name__ for m in model.modules())
+    if "_TwinsLayer" in names:
+        c = {"window_attention_block": names["_LocalAttention"],
+             "flash_attention": names["_GlobalAttention"], "fused_mlp": names["ConvMLP"]}
+        return c, dict(c)
+    tok, depth = len(model.t2t_layers) - 1, model.encoder.depth
+    runs, enc = (2, "attention_block") if depth > 1 else (1, "qkv_attention")
+    return ({"flash_attention_kv_blocked": tok, enc: runs * depth, "fused_mlp": tok + runs * depth},
+            {"flash_attention_kv_blocked": tok, enc: depth, "fused_mlp": tok + depth})
+
+
+# The most device memory kernel 5's backward may take above its inputs (q, k,
+# v, out, g) at T2T's stage 0, batch 128: the Q-chunked backward holds a few
+# [128, 1, 256, 3136] fp32 tensors (0.41 GB each) at once, fp32 copies of k and
+# v and the fp32 sums of dK and dV (0.24 GB each), where a recompute through
+# the twin would hold [128, 1, 3136, 3136] fp32 scores (5.04 GB) a tensor.
+KV_BWD_MAX_BYTES = 2.5e9
+
+
+def _function_line(kind, what, args, kw, gen):
+    """check_function of ``kind`` at a cotangent drawn in the output's shape
+    and dtype (the Function's forward, once without grad)."""
+    from vit_tpu_torch import ops
+
+    with torch.no_grad():
+        out = apply_function(kind, None, args, kw)
+    g = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    ops.reset_launch_counts()
+    worst = check_function(what, kind, args, kw, g)
+    return worst, g
+
+
+def kv_backward_peak(q, k, v, out, g, scale):
+    """Device bytes ``flash_backward`` takes above its inputs at its peak."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = fa.flash_backward(q, k, v, None, out, g, scale)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    return peak
+
+
+def phase_train_zoo_functions(dev, smi):
+    """21a: the Functions of kernels 3-6 against autograd through their twins
+    (fp32 products) at the shapes Twins-SVT, T2T-ViT and the zoo give them,
+    batch 8 and 128 (``check_function``: every gradient within kernel_tol's
+    form, the planted faults failing it): kernel 3 at NesT's level 0 and
+    ParallelViT's layer, and at RegionViT's joint windows with their bias
+    needing a gradient; kernel 4 at Twins' four GSA stages (Nq 3136 not a
+    multiple of BLOCK_Q); kernel 5 at T2T's two tokenizer stages on the
+    split_heads views of fused qkv rows; kernel 6 at Twins' three LSA stages
+    and at CrossFormer's stage-0 windows with a per-head bias needing a
+    gradient. Then the device memory of kernel 5's backward at T2T's stage
+    0, batch 128, above its inputs (at most KV_BWD_MAX_BYTES)."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst = collections.defaultdict(float)
+    for b in (8, TRAIN_BATCH):
+        for what, blocks, n, heads, d in (NEST_QKV[0] + (32,),
+                                          ("ParallelViT", 1, PARALLEL_N, 8, 64)):
+            qkv = r(b * blocks, n, 3 * heads * d).bfloat16()
+            kw = dict(heads=heads, scale=d**-0.5)
+            err, _ = _function_line("qkv_attention", f"{what} {list(qkv.shape)}", [qkv, None],
+                                    kw, gen)
+            worst["qkv_attention"] = max(worst["qkv_attention"], err)
+            del qkv
+        for s, n in enumerate((56, 28, 14, 7), start=1):
+            q, k, v = twins_qkv(gen, b, 8, n * n, (n // 7) ** 2, 64, 64, dev)
+            kw = dict(scale=0.125, mask_self=False)
+            err, _ = _function_line("flash_attention", f"GSA stage {s} batch {b}",
+                                    [q, k, v, None], kw, gen)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            del q, k, v
+        for s, (n, d) in enumerate(T2T_STAGES):
+            q, k, v = split_heads(r(b, n, 3 * d).bfloat16(), 1)
+            kw = dict(scale=d**-0.5, mask_self=False)
+            err, _ = _function_line("flash_attention_kv_blocked",
+                                    f"T2T stage {s} ({n} tokens of width {d}) batch {b}",
+                                    [q, k, v, None], kw, gen)
+            worst["flash_attention_kv_blocked"] = max(worst["flash_attention_kv_blocked"], err)
+            del q, k, v
+            torch.cuda.empty_cache()
+        for s, (n, dim) in enumerate(((56, 64), (28, 128), (14, 256)), start=1):
+            a = attn_inputs(gen, b * (n // 7) ** 2, 49, dim, 8, 64, torch.bfloat16, dev)
+            args = [a[k] for k in FN_ARGS["attention_block"]] + [None]
+            kw = dict(heads=8, scale=0.125, ln_eps=1e-5)
+            err, _ = _function_line("window_attention_block", f"LSA stage {s} batch {b}", args,
+                                    kw, gen)
+            worst["window_attention_block"] = max(worst["window_attention_block"], err)
+            del a, args
+        torch.cuda.empty_cache()
+    # the bias gradients: CrossFormer's per-head window bias (from its DPB
+    # MLPs) and RegionViT's joint-window bias, at batch 8
+    _, nwin, sw, c = CROSSFORMER_WINDOWS[0]
+    a = attn_inputs(gen, 8 * nwin, sw, c, c // 32, 32, torch.bfloat16, dev)
+    args = [a[k] for k in FN_ARGS["attention_block"]] + [r(c // 32, sw, sw)]
+    _function_line("window_attention_block", f"CrossFormer {CROSSFORMER_WINDOWS[0][0]} batch 8 "
+                   f"bias {list(args[-1].shape)}", args, dict(heads=c // 32, scale=32**-0.5,
+                                                              ln_eps=1e-5), gen)
+    qkv = r(8 * 64, 50, 3 * 4 * 32).bfloat16()
+    _function_line("qkv_attention", "RegionViT joint windows [512, 50, 384] bias [1, 4, 50, 50]",
+                   [qkv, r(1, 4, 50, 50)], dict(heads=4, scale=32**-0.5), gen)
+    # the memory of kernel 5's backward at T2T stage 0, batch 128
+    n, d = T2T_STAGES[0]
+    q, k, v = split_heads(r(TRAIN_BATCH, n, 3 * d).bfloat16(), 1)
+    with torch.no_grad():
+        out = fa.flash_attention_kv_blocked(q, k, v, None, d**-0.5)
+    g = r(*out.shape).bfloat16()
+    peak = kv_backward_peak(q, k, v, out, g, d**-0.5)
+    full = TRAIN_BATCH * n * n * 4
+    print(f"train zoo kv backward T2T stage 0 batch {TRAIN_BATCH}: peak {peak / 1e9:.3f} GB "
+          f"({peak / 2**30:.3f} GiB) above its inputs, chunks of {fa.BLOCK_Q} queries (one "
+          f"[{TRAIN_BATCH}, 1, {fa.BLOCK_Q}, {n}] fp32 tensor {TRAIN_BATCH * fa.BLOCK_Q * n * 4 / 1e9:.3f} "
+          f"GB; the whole scores {full / 1e9:.3f} GB), bound {KV_BWD_MAX_BYTES / 1e9:.1f} GB [{smi}]")
+    require(peak <= KV_BWD_MAX_BYTES,
+            f"kernel 5's backward took {peak / 1e9:.3f} GB above its inputs")
+    del q, k, v, out, g
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def zoo_train_model(fam, dev, gen, dtype=torch.bfloat16):
+    """The ``fam`` preset (TWINS, T2T) drawn by ``init_params``."""
+    from vit_tpu_torch.models import T2TViT, TwinsSVT
+    from vit_tpu_torch.utils import init_params
+
+    ctor, cfg = (TwinsSVT, TWINS) if fam == "twins" else (T2TViT, T2T)
+    return init_params(ctor(**cfg, dtype=dtype, device=dev), gen)
+
+
+def phase_train_zoo_grads(dev):
+    """21b: one step's loss and gradients of each preset in bf16 at batch 8:
+    the kernel path (kernels forward, the Functions' backward, remat) against
+    the plain bf16 path and plain fp32 (the twins, autograd through them).
+    Each parameter's relative L2 from fp32 must be at most GRAD_RATIO times
+    the plain bf16 path's, the loss as in 17b; every parameter's ``.grad``
+    set and finite on the kernel path, with each kernel's launches and
+    recomputes a step as ``zoo_train_counts`` gives them."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models import T2TViT, TwinsSVT
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    for fam in ZOO_TRAIN_FAMILIES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        model = zoo_train_model(fam, dev, gen)
+        ctor, cfg = (TwinsSVT, TWINS) if fam == "twins" else (T2TViT, T2T)
+        model32 = ctor(**cfg, device=dev)
+        model32.load_state_dict(model.state_dict())
+        want_launches, want_recomputes = zoo_train_counts(model)
+        size = IMAGE_SIZE[fam]
+        x = torch.randn(8, size, size, 3, generator=gen, device=dev)
+        y = torch.randint(0, 1000, (8,), generator=gen, device=dev)
+
+        def grads(m, plain, remat):
+            m.zero_grad(set_to_none=True)
+            scope = ops.force_backend("torch") if plain else contextlib.nullcontext()
+            with scope:
+                loss = cross_entropy_loss(m(x, train=True, remat=remat), y)
+                loss.backward()
+            return loss.item(), {k: None if p.grad is None else p.grad.detach().clone()
+                                 for k, p in m.named_parameters()}
+
+        ops.reset_launch_counts()
+        loss_k, gk = grads(model, False, True)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+        loss_p, gp = grads(model, True, False)
+        loss_32, g32 = grads(model32, True, False)
+        del model, model32
+        torch.cuda.empty_cache()
+        print(f"train zoo grads {fam} batch 8: loss kernel {loss_k:.6f}, plain bf16 "
+              f"{loss_p:.6f}, plain fp32 {loss_32:.6f}; launches {counts}, recomputes "
+              f"{recomputes}")
+        require(counts == want_launches,
+                f"train zoo grads {fam}: launches {counts}, not {want_launches}")
+        require(recomputes == want_recomputes,
+                f"train zoo grads {fam}: recomputes {recomputes}, not {want_recomputes}")
+        missing = [k for k, g in gk.items() if g is None or not torch.isfinite(g).all().item()]
+        require(not missing, f"train zoo grads {fam}: no finite gradient on the kernel path for "
+                             f"{missing[:5]}")
+        # Twins' stage-4 GSA attends one key: its query projection's gradient
+        # is exactly zero in the twins, rounding noise on the kernel path
+        zero = 1e-6 * max(g.double().norm().item() for g in g32.values())
+        zeros = [k for k, g in g32.items() if g.double().norm().item() <= zero]
+        noisy = [k for k in zeros if gk[k].double().norm().item() > zero]
+        print(f"train zoo grads {fam}: {len(zeros)} gradients zero in fp32 (at most {zero:.3g}); "
+              f"on the kernel path above that: {noisy}")
+        require(not noisy, f"train zoo grads {fam}: {noisy} not zero on the kernel path")
+        rows = []
+        for k in (k for k in gk if k not in zeros):
+            rk, rp = rel_l2(gk[k], g32[k]), rel_l2(gp[k], g32[k])
+            rows.append((rk / rp if rp > 0 else (0.0 if rk == 0 else float("inf")), k, rk, rp))
+        rows.sort(reverse=True)
+        for ratio, k, rk, rp in rows[:5]:
+            print(f"train zoo grads {fam} {k}: rel L2 from fp32 kernel {rk:.4g}, plain bf16 "
+                  f"{rp:.4g} (ratio {ratio:.3f}, bound {GRAD_RATIO})")
+        print(f"train zoo grads {fam}: {len(gk)} parameter tensors, all with a finite "
+              f"gradient; median ratio {statistics.median(r[0] for r in rows):.3f} over the "
+              f"{len(rows)} nonzero ones")
+        require(rows[0][0] <= GRAD_RATIO,
+                f"train zoo grads {fam} {rows[0][1]}: {rows[0][2]} from fp32, {rows[0][0]:.3f}x "
+                f"the plain bf16 path's {rows[0][3]}")
+        # the floor: one bf16 ulp of the loss (Twins' starts near 25)
+        floor = max(2.0**-8 * abs(loss_32), 1e-3)
+        require(abs(loss_k - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), floor),
+                f"train zoo grads {fam}: loss {loss_k} from fp32 {loss_32} beyond {GRAD_RATIO}x "
+                f"the plain bf16 path's {loss_p} (floor {floor:.3g})")
+        del gk, gp, g32
+
+
+ZOO_FUNCTIONS = ("AttentionBlockFn", "MlpFn", "QkvAttentionFn", "FlashAttentionFn",
+                 "WindowAttentionBlockFn")
+
+
+@contextlib.contextmanager
+def timed_backwards(spans):
+    """Record CUDA events around each autograd Function's backward of kernels
+    1-6 inside the scope: ``spans`` gets (Function name, start, end) for each
+    call; their elapsed times, read after a synchronize, are the device ms
+    of the backward recomputes (the kernels' launches between the events)."""
+    from vit_tpu_torch import ops
+
+    def timed(name, backward):
+        def run(ctx, *grads):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = backward(ctx, *grads)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return staticmethod(run)
+
+    with contextlib.ExitStack() as stack:
+        for name in ZOO_FUNCTIONS:
+            fn = getattr(ops, name)
+            stack.enter_context(mock.patch.object(fn, "backward", timed(name, fn.backward)))
+        yield
+
+
+def phase_train_zoo_steps(dev, smi):
+    """21c: ``vit_tpu_torch.train`` on each preset in bf16, batch 128:
+    ``init_params`` from a seed, a fixed batch, AdamW at TRAIN_LR, remat,
+    two warm-up steps (the second profiled) and three timed ones (CUDA
+    events, each ended by a read of its loss), the Functions' backwards
+    timed apart (``timed_backwards``). Requires finite losses and exactly
+    the launches and recomputes ``zoo_train_counts`` gives a step. Then the
+    trainer's CLI on each family's registry config for two steps."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch import train as tt
+
+    for fam in ZOO_TRAIN_FAMILIES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+        model = zoo_train_model(fam, dev, gen)
+        want_launches, want_recomputes = zoo_train_counts(model)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+        state = tt.create_train_state(model, opt, gen, init=False)
+        size = IMAGE_SIZE[fam]
+        images = torch.randn(TRAIN_BATCH, size, size, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+        step = tt.make_train_step(model, opt, remat=True)
+        losses = []
+        t0 = time.perf_counter()
+        losses.append(float(step(state, images, labels)))
+        print(f"train zoo {fam} step 1 (first, untimed): loss {losses[-1]:.5f}, "
+              f"{time.perf_counter() - t0:.1f} s host clock")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            losses.append(float(step(state, images, labels)))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels, busy, by_kind = step_kernels(prof)
+        print(f"train zoo profile {fam} batch {TRAIN_BATCH}: device busy {busy:.1f} ms in a "
+              f"{wall:.1f} ms step (host clock, profiler on; idle "
+              f"{max(0.0, 1 - busy / wall):.1%}); by kind, ms: "
+              + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})" for k, v in by_kind.items()))
+        for ms, count, key in kernels[:8]:
+            print(f"train zoo profile {fam}: {ms:9.2f} ms x{count:<5d} {key[:90]}")
+        ops_by_time = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in
+                              prof.key_averages() if e.key.startswith("aten::")
+                              and e.device_time_total > 0), reverse=True)
+        print(f"train zoo profile {fam} by op (device ms, calls): "
+              + "; ".join(f"{k} {ms:.1f} x{c}" for ms, c, k in ops_by_time[:8]))
+        # free the profile's host objects now, so that collecting them cannot
+        # stall the host (and idle the card) inside a timed step
+        del prof
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        times, spans = [], []
+        n = 3
+        with timed_backwards(spans):
+            for _ in range(n):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = step(state, images, labels)
+                end.record()
+                losses.append(float(loss))
+                times.append(start.elapsed_time(end))
+                print(f"train zoo {fam} step {state.step}: loss {losses[-1]:.5f}, "
+                      f"{times[-1]:.1f} ms (CUDA events)")
+        torch.cuda.synchronize()
+        recompute_ms = collections.defaultdict(float)
+        for name, s0, s1 in spans:
+            recompute_ms[name] += s0.elapsed_time(s1) / n
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ms = statistics.mean(times)
+        total = sum(recompute_ms.values())
+        print(f"train zoo {fam} preset bf16 batch {TRAIN_BATCH}: {TRAIN_BATCH / ms * 1e3:.1f} "
+              f"train img/s, step {ms:.1f} ms (mean of {n}; min {min(times):.1f}, max "
+              f"{max(times):.1f}), peak memory {peak:.2f} GiB; launches a step "
+              f"{ {k: v / n for k, v in counts.items()} }, backward recomputes a step "
+              f"{ {k: v / n for k, v in recomputes.items()} } [{smi}]")
+        print(f"train zoo {fam} backward recomputes: {total:.1f} ms a step "
+              f"({total / ms:.1%} of it; CUDA events around each Function's backward): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(recompute_ms.items())))
+        require(all(np.isfinite(losses)), f"train zoo {fam}: a non-finite loss in {losses}")
+        require(counts == {k: v * n for k, v in want_launches.items()},
+                f"train zoo {fam}: launches {counts}, not {want_launches} a step")
+        require(recomputes == {k: v * n for k, v in want_recomputes.items()},
+                f"train zoo {fam}: recomputes {recomputes}, not {want_recomputes} a step")
+        del state, model, step, images
+        torch.cuda.empty_cache()
+    for name in ("twins_svt", "t2t"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tt.main(["--model", name, "--steps", "2", "--batch", "8", "--classes", "10"])
+        lines = out.getvalue().strip().splitlines()
+        print(f"train zoo cli python -m vit_tpu_torch.train --model {name} --steps 2 --batch 8: "
+              f"rc {rc} in {time.perf_counter() - t0:.1f} s; {' | '.join(lines[-2:])}")
+        require(rc == 0 and "step 2: loss" in out.getvalue(),
+                f"python -m vit_tpu_torch.train --model {name} failed")
+
+
+def phase_train_zoo(dev, smi):
+    """Phase 21: training Twins-SVT and T2T-ViT on kernels 3-6 (21a-c);
+    returns 21a's worst gradient error by kernel."""
+    t_phase = time.perf_counter()
+    worst = phase_train_zoo_functions(dev, smi)
+    phase_train_zoo_grads(dev)
+    phase_train_zoo_steps(dev, smi)
+    print(f"phase 21 (training Twins-SVT and T2T-ViT) took {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return worst
 
 
 def main() -> int:
@@ -5811,7 +6329,7 @@ def main() -> int:
     phase_vit_moe(dev, smi, requests)
 
     # 17. training ViT-L/16: kernels 1 and 2 forward, their Functions' backward
-    train_ms = phase_train(dev, smi)
+    train_ms, grad_worst = phase_train(dev, smi)
 
     # 18. a Hugging Face ViT-B/16 (the qkv-bias branch on kernels 4 and 2), its
     # int8 path on kernel 3, quantized_apply, simple_vit_apply_w8a8 on kernels 9
@@ -5828,6 +6346,10 @@ def main() -> int:
     # BatchingServer on ViT-L (phase 3's weights), training from a folder of JPEGs
     phase_jpeg(vit_state, dev, smi, train_ms)
     del vit_state
+
+    # 21. training Twins-SVT and T2T-ViT: kernels 3-6 through their autograd
+    # Functions, the bf16 Dense backward under fp32 sums
+    grad_worst.update(phase_train_zoo(dev, smi))
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
@@ -5863,7 +6385,8 @@ def main() -> int:
         kern, plain, lib, (bnd, by) = op_ms[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[k], "max_abs_err": worst[k], "ms": kern,
-                        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+                        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                        "grad_max_abs_err": grad_worst.get(k)})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

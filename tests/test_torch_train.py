@@ -41,6 +41,12 @@ def _np(t):
         t, np.float32)
 
 
+def _nonzero(counts):
+    """The entries of a ``launch_counts`` / ``recompute_counts`` dict that
+    are not 0 (both name every kernel they count)."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def _rel(a, b):
     """Relative L2 distance of ``a`` from the reference ``b``."""
     a, b = _np(a).astype(np.float64), _np(b).astype(np.float64)
@@ -542,15 +548,15 @@ def test_function_launch_counts_under_remat(monkeypatch):
     ops.reset_launch_counts()
     tt.make_train_step(state.model, remat=True)(state, img, labels)
     assert calls == {"attention_block": 6, "fused_mlp": 6}
-    assert ops.recompute_counts() == {"attention_block": 3, "fused_mlp": 3}
+    assert _nonzero(ops.recompute_counts()) == {"attention_block": 3, "fused_mlp": 3}
     calls.update(attention_block=0, fused_mlp=0)
     ops.reset_launch_counts()
     tt.make_train_step(state.model, remat=False)(state, img, labels)
     assert calls == {"attention_block": 3, "fused_mlp": 3}
-    assert ops.recompute_counts() == {"attention_block": 3, "fused_mlp": 3}
+    assert _nonzero(ops.recompute_counts()) == {"attention_block": 3, "fused_mlp": 3}
     with torch.inference_mode():
         state.model(img)
-    assert ops.recompute_counts() == {"attention_block": 3, "fused_mlp": 3}
+    assert _nonzero(ops.recompute_counts()) == {"attention_block": 3, "fused_mlp": 3}
 
 
 # -- schedules, clipping, optimizers against optax ---------------------------------
@@ -844,7 +850,7 @@ def test_a_card_forward_under_grad_fills_every_gradient(cuda):
     tt.cross_entropy_loss(state.model(img, train=True),
                           torch.arange(4, device=cuda)).backward()
     assert ops.launch_counts()["attention_block"] == 2
-    assert ops.recompute_counts() == {"attention_block": 2, "fused_mlp": 2}
+    assert _nonzero(ops.recompute_counts()) == {"attention_block": 2, "fused_mlp": 2}
     for name, p in state.model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 

@@ -13,7 +13,17 @@ Dense head in the model dtype, so a bf16 model gives bf16 logits, as
 
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
-converts a ``vit_tpu`` variables tree (its conv kernels turned to OIHW).
+converts a ``vit_tpu`` variables tree (its conv kernels turned to OIHW), and
+``utils.init_params`` draws them as ``vit_tpu``'s ``init`` does.
+
+Training: ``forward(img, train=True, generator=...)`` applies ``dropout``
+where ``vit_tpu`` does (each attention's output, ``drop``, and each
+ConvMLP's ``drop1`` / ``drop2`` on its plain path), the masks drawn from
+``generator``. ``remat`` does nothing: ``vit_tpu`` checkpoints only the
+scanned ``Transformer`` blocks, and Twins has none. On the card the
+backward runs through the Functions of kernels 6, 4 and 2
+(``ops.WindowAttentionBlockFn``, ``ops.FlashAttentionFn``, ``ops.MlpFn``)
+and the bf16 ``Dense`` products' ``MmRoundedFn``.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
-from vit_tpu_torch.nn.attention import mha_tokens
+from vit_tpu_torch.nn.attention import dropout, mha_tokens
 from vit_tpu_torch.nn.conv import PEG, Conv, ConvMLP, PatchEmbedding
 from vit_tpu_torch.nn.embed import Dense, LayerNorm
 
@@ -36,11 +46,11 @@ class _LocalAttention(nn.Module):
     ``out_bias``), fp32, the GEMM weights cast to the model dtype per call."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, patch_size: int, *,
-                 dtype: Optional[torch.dtype], device):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype], device):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.scale, self.patch_size = heads, dim_head**-0.5, patch_size
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         self.norm_scale = p(dim, fill=1.0)
         self.norm_bias = p(dim)
@@ -48,7 +58,8 @@ class _LocalAttention(nn.Module):
         self.out_kernel = p(inner, dim)
         self.out_bias = p(dim)
 
-    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, fmap: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         _, h, w, _ = fmap.shape
         dtype = self.dtype or fmap.dtype
         out = ops.window_attention_block(
@@ -56,7 +67,8 @@ class _LocalAttention(nn.Module):
             self.qkv_kernel.to(dtype), self.out_kernel.to(dtype), self.out_bias, self.heads,
             scale=self.scale, ln_eps=1e-5,
         )
-        return ops.window_unpartition(out, self.patch_size, h, w)
+        out = ops.window_unpartition(out, self.patch_size, h, w)
+        return dropout(out, self.dropout, generator) if train else out
 
 
 class _GlobalAttention(nn.Module):
@@ -64,23 +76,25 @@ class _GlobalAttention(nn.Module):
     stride k (``to_kv``), flax modules in the model dtype."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, k: int, *,
-                 dtype: Optional[torch.dtype], device):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype], device):
         super().__init__()
         inner = heads * dim_head
-        self.heads, self.scale = heads, dim_head**-0.5
+        self.heads, self.scale, self.dropout = heads, dim_head**-0.5, dropout
         self.norm = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
         self.to_q = Dense(dim, inner, use_bias=False, dtype=dtype, device=device)
         self.to_kv = Conv(dim, 2 * inner, k, strides=k, use_bias=False, dtype=dtype, device=device)
         self.to_out = Dense(inner, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         x = self.norm(x)
         q = self.to_q(x)
         kv = self.to_kv(x)
         k, v = kv.reshape(b, -1, kv.shape[-1]).chunk(2, dim=-1)
         out = mha_tokens(q.reshape(b, h * w, -1), k, v, self.heads, scale=self.scale)
-        return self.to_out(out.reshape(b, h, w, -1))
+        out = self.to_out(out.reshape(b, h, w, -1))
+        return dropout(out, self.dropout, generator) if train else out
 
 
 def _rename_prefix(state_dict, old: str, new: str) -> None:
@@ -113,9 +127,9 @@ class _TwinsLayer(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_mult: int,
                  local_patch_size: int, global_k: int, has_local: bool, *,
-                 dtype: Optional[torch.dtype], device):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype], device):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dropout=dropout, dtype=dtype, device=device)
         self.local = self.ff1 = None
         if has_local:
             self.local = _LocalAttention(dim, heads, dim_head, local_patch_size, **kw)
@@ -125,12 +139,13 @@ class _TwinsLayer(nn.Module):
         self.register_state_dict_post_hook(_global_name_out)
         self.register_load_state_dict_pre_hook(_global_name_in)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.local is not None:
-            x = x + self.local(x)
-            x = x + self.ff1(x)
-        x = x + self.global_(x)
-        return x + self.ff2(x)
+            x = x + self.local(x, train, generator)
+            x = x + self.ff1(x, train, generator)
+        x = x + self.global_(x, train, generator)
+        return x + self.ff2(x, train, generator)
 
 
 class _TwinsBlock(nn.Module):
@@ -141,9 +156,10 @@ class _TwinsBlock(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(_TwinsLayer(**layer) for _ in range(depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, train, generator)
         return x
 
 
@@ -151,9 +167,8 @@ class TwinsSVT(nn.Module):
     """``[B, H, W, 3]`` images -> ``[B, num_classes]`` logits in the model
     dtype (None: fp32). Stage s has ``s{s}_emb_dim``, ``s{s}_patch_size``,
     ``s{s}_local_patch_size``, ``s{s}_global_k`` and ``s{s}_depth``; 8 heads
-    of 64 and an MLP of 4x in every stage, as ``vit_tpu``'s. ``dropout`` is
-    accepted and does nothing: the port serves, as ``vit_tpu`` does with
-    ``train=False``."""
+    of 64 and an MLP of 4x in every stage, as ``vit_tpu``'s. ``dropout``:
+    ``vit_tpu``'s rate, used only by ``forward(..., train=True)``."""
 
     def __init__(self, *, num_classes: int,
                  s1_emb_dim: int = 64, s1_patch_size: int = 4, s1_local_patch_size: int = 7,
@@ -178,7 +193,7 @@ class TwinsSVT(nn.Module):
         for s, (dim, patch_size, local_patch_size, global_k, depth) in enumerate(stages, start=1):
             layer = dict(dim=dim, heads=8, dim_head=64, mlp_mult=4,
                          local_patch_size=local_patch_size, global_k=global_k, has_local=s < 4,
-                         dtype=dtype, device=device)
+                         dropout=dropout, dtype=dtype, device=device)
             setattr(self, f"embed_{s}", PatchEmbedding(dim_in, dim, patch_size, dtype=dtype,
                                                        device=device))
             setattr(self, f"block_a_{s}", _TwinsBlock(depth, **layer))
@@ -188,12 +203,14 @@ class TwinsSVT(nn.Module):
             dim_in = dim
         self.head = Dense(dim_in, num_classes, dtype=dtype, device=device)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, remat: bool = False
+                ) -> torch.Tensor:
         x = img
         for s in range(1, 5):
             x = getattr(self, f"embed_{s}")(x)
-            x = getattr(self, f"block_a_{s}")(x)
+            x = getattr(self, f"block_a_{s}")(x, train, generator)
             x = getattr(self, f"peg_{s}")(x)
-            x = getattr(self, f"block_b_{s}")(x)
+            x = getattr(self, f"block_b_{s}")(x, train, generator)
         # jnp.mean over bf16 sums in fp32 and returns bf16
         return self.head(x.float().mean(dim=(1, 2)).to(x.dtype))

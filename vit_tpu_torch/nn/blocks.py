@@ -13,9 +13,10 @@ Training: ``forward(x, train=True, generator=...)`` takes ``vit_tpu``'s
 dropout routes where ``dropout`` is above 0 (the MLP on its plain path,
 ``FeedForward``; attention materialized, ``nn.Attention``), and the
 inference routes where it is 0. ``Transformer.forward(..., remat=True)``
-checkpoints each ``EncoderBlock`` (``torch.utils.checkpoint``,
-non-reentrant), as ``vit_tpu`` wraps each scanned block in ``nn.remat``
-(blocks.py:365-370): the backward runs the block's forward again. Each
+checkpoints each ``EncoderBlock`` of a stack deeper than 1
+(``torch.utils.checkpoint``, non-reentrant), as ``vit_tpu`` wraps each
+block of a scanned stack in ``nn.remat`` (blocks.py:365-370) and scans only
+stacks deeper than 1: the backward runs the block's forward again. Each
 block draws its dropout masks from a generator of its own, seeded from the
 caller's once a step, so the recompute draws the same masks.
 """
@@ -206,7 +207,7 @@ class Transformer(nn.Module):
                 for kind in ("attn", "ff"):
                     x = x + sum(getattr(self, f"{kind}_{i}_{b}")(x) for b in range(self.branches))
         else:
-            remat = remat and torch.is_grad_enabled()
+            remat = remat and torch.is_grad_enabled() and self.depth > 1
             for block in self.blocks:
                 seed = _draw_seed(generator) if train and self.dropout else None
                 if remat:

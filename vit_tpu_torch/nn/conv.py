@@ -229,18 +229,21 @@ class ConvMLP(nn.Module):
     flavour of ``vit_tpu``, run by no model): 1x1 conv ``up``, BatchNorm
     ``bn1``, hard-swish in ``dtype`` op by op, 1x1 conv ``down``, BatchNorm
     ``bn2``, plain PyTorch; the convs have a bias only with ``fold_bn``,
-    where the two BatchNorms are folded into them."""
+    where the two BatchNorms are folded into them. ``dropout`` reaches the
+    token branch's ``FeedForward`` (``forward(x, train=True, generator=)``:
+    its plain path with ``drop1`` and ``drop2``, as ``vit_tpu``'s)."""
 
     def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu",
                  pre_norm: bool = True, batch_norm: bool = False, fold_bn: bool = False,
-                 dim_out: Optional[int] = None, ln_eps: float = 1e-5,
+                 dim_out: Optional[int] = None, ln_eps: float = 1e-5, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         dim_out = dim_out or dim
         self.batch_norm = batch_norm
         if not batch_norm:
             self.ff = FeedForward(dim, dim * mult, activation=activation, ln_eps=ln_eps,
-                                  pre_norm=pre_norm, dim_out=dim_out, dtype=dtype, device=device)
+                                  pre_norm=pre_norm, dim_out=dim_out, dropout=dropout,
+                                  dtype=dtype, device=device)
             return
         kw = dict(dtype=dtype, device=device)
         self.up = Conv(dim, dim * mult, 1, use_bias=fold_bn, **kw)
@@ -248,10 +251,11 @@ class ConvMLP(nn.Module):
         self.down = Conv(dim * mult, dim_out, 1, use_bias=fold_bn, **kw)
         self.bn2 = None if fold_bn else BatchNorm(dim_out, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.batch_norm:
             norm = lambda bn, t: t if bn is None else bn(t)
             h = _activate(norm(self.bn1, self.up(x)), "hard_swish")
             return norm(self.bn2, self.down(h))
         b, h, w, c = x.shape
-        return self.ff(x.reshape(b, h * w, c)).reshape(b, h, w, -1)
+        return self.ff(x.reshape(b, h * w, c), train, generator).reshape(b, h, w, -1)

@@ -5,7 +5,6 @@ small-dataset and merging families (port of ``vit_tpu/nn/embed.py``:
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -13,29 +12,7 @@ from torch import nn
 
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
-
-
-@contextlib.contextmanager
-def fp32_bf16_sums():
-    """Turn ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    off inside the scope and give the caller's setting back after it, split-K
-    part included where this PyTorch has one. PyTorch's default, on, lets
-    cuBLAS add a bf16 GEMM's split-K partials in bf16; off, it sums in fp32
-    and rounds once. PyTorch reads the flag when each matmul is issued, so
-    only the products issued inside the scope see it. The flag is global to
-    the process: a forward of the port runs on one thread at a time (the
-    serving worker's), and a product issued by another thread during the
-    scope would see it off too."""
-    flags = torch.backends.cuda.matmul
-    caller = flags.allow_bf16_reduced_precision_reduction
-    split_k = getattr(flags, "allow_bf16_reduced_precision_reduction_split_k", None)
-    flags.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        flags.allow_bf16_reduced_precision_reduction = (
-            caller if split_k is None else (caller, split_k))
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax, fp32_bf16_sums
 
 
 def _mm_rounded(a, b, dtype):
@@ -57,14 +34,49 @@ mm_rounded_op = _build.define_op(
 )
 
 
+class MmRoundedFn(torch.autograd.Function):
+    """A bf16 product ``a [..., K] @ b [K, N]`` on the card as an autograd
+    Function: ``_mm_rounded`` forward; backward ``g @ bᵀ`` and ``aᵀ @ g``,
+    each one cuBLAS bf16 GEMM issued under ``fp32_bf16_sums`` (fp32 sums,
+    one rounding to bf16), as XLA transposes flax's ``Dense(dtype=bfloat16)``
+    (bf16 dots of the bf16 cotangent). Without it autograd would issue the
+    two products at the caller's cuBLAS flag, whose default adds split-K
+    partials in bf16.
+
+    ``apply(a, b)``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_rounded(a, b, torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with fp32_bf16_sums():
+            if ctx.needs_input_grad[0]:
+                da = torch.matmul(g, b.t())
+            if ctx.needs_input_grad[1]:
+                db = torch.matmul(a.reshape(-1, a.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+        return da, db
+
+
+def _mm_rounded_kernel(a, b, dtype):
+    """``_mm_rounded``, through ``MmRoundedFn`` where an operand needs
+    grad."""
+    return MmRoundedFn.apply(a, b) if ops.needs_grad(a, b) else _mm_rounded(a, b, dtype)
+
+
 def mm_rounded(a, b, dtype):
     """The product of ``Dense``: ``_mm`` but for a bf16 product, which runs
-    ``_mm_rounded`` on the card, ``_mm`` on the CPU and under
-    ``ops.force_backend("torch")``, and, while ``torch.export`` traces it,
-    the operator ``vit_tpu_torch::mm_rounded``, so that ``fp32_bf16_sums``
-    travels into an exported program (``ops._route``)."""
+    ``_mm_rounded`` on the card (under grad through ``MmRoundedFn``), ``_mm``
+    on the CPU and under ``ops.force_backend("torch")`` (differentiated by
+    autograd), and, while ``torch.export`` traces it, the operator
+    ``vit_tpu_torch::mm_rounded``, so that ``fp32_bf16_sums`` travels into an
+    exported program (``ops._route``)."""
     if a.dtype == b.dtype == dtype == torch.bfloat16:
-        return ops._route(mm_rounded_op, _mm_rounded, _mm, a, b, dtype)(a, b, dtype)
+        return ops._route(mm_rounded_op, _mm_rounded_kernel, _mm, a, b, dtype)(a, b, dtype)
     return _mm(a, b, dtype)
 
 
@@ -77,9 +89,10 @@ class Dense(nn.Module):
     the bias add is a bf16 add, unlike the raw-parameter blocks' fp32 bias.
 
     The product: on a CUDA tensor in bf16, one cuBLAS bf16 GEMM
-    (``_mm_rounded``: fp32 sums, one rounding); in fp32, on the CPU and
-    under ``ops.force_backend("torch")``, ``_mm`` (an fp32 product of the
-    rounded operands). Both round at the same place, in other sum orders. An
+    (``_mm_rounded``: fp32 sums, one rounding; under grad its backward
+    products too, ``MmRoundedFn``); in fp32, on the CPU and under
+    ``ops.force_backend("torch")``, ``_mm`` (an fp32 product of the rounded
+    operands). Both round at the same place, in other sum orders. An
     exported program holds the operator ``vit_tpu_torch::mm_rounded``
     (``mm_rounded``)."""
 

@@ -22,11 +22,14 @@ the entries call the twins, never an operator.
 
 Gradients: on the CPU the twins are plain PyTorch, differentiated by autograd:
 under grad the entries call them directly. On the card a kernel writes its
-output through raw pointers, outside the autograd graph, so ``attention_block``
-and ``mlp`` go through autograd Functions (``AttentionBlockFn``, ``MlpFn``)
-when grad mode is on and an operand requires grad: the kernel forward, and
-``vit_tpu``'s recompute backward through the twin. The wrappers of kernels
-3-10 have no Function yet and raise under grad (``_build.refuse_grad``).
+output through raw pointers, outside the autograd graph, so the entries of
+kernels 1-6 go through autograd Functions when grad mode is on and an operand
+requires grad: the kernel forward, and ``vit_tpu``'s backward of that kernel
+(``AttentionBlockFn``, ``MlpFn``, ``QkvAttentionFn``,
+``WindowAttentionBlockFn``: its recompute through the twin;
+``FlashAttentionFn`` for kernels 4 and 5: the Q-chunked flash backward).
+Called directly under grad, a kernel wrapper raises
+(``_build.refuse_grad``); kernels 7-10 have no Function.
 
 Each kernel wrapper counts its launches: ``launch_counts()``; each
 Function's backward its recomputes: ``recompute_counts()``.
@@ -53,11 +56,12 @@ from vit_tpu_torch.ops.block_attention import (
     xla_attention_block,
 )
 from vit_tpu_torch.ops.flash_attention import (
-    core_fits,
+    FlashAttentionFn,
     flash_attention,
     flash_attention_kv_blocked,
     flash_attention_kv_blocked_op,
     flash_attention_op,
+    kernel_name,
     reference_attention,
     reference_attention_kv_blocked,
 )
@@ -69,6 +73,7 @@ from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
     spt_shifts,
 )
 from vit_tpu_torch.ops.qkv_attention import (
+    QkvAttentionFn,
     fused_qkv_attention,
     qkv_attention_op,
     qkv_kernel_fits,
@@ -92,6 +97,7 @@ from vit_tpu_torch.ops.reattention_block import (
     xla_talking_heads_block,
 )
 from vit_tpu_torch.ops.window_attention import (
+    WindowAttentionBlockFn,
     fused_window_attention_block,
     window_attention_block_op,
     xla_window_attention_block,
@@ -122,6 +128,9 @@ __all__ = [
     "needs_grad",
     "AttentionBlockFn",
     "MlpFn",
+    "QkvAttentionFn",
+    "FlashAttentionFn",
+    "WindowAttentionBlockFn",
     "fused_attention_block",
     "xla_attention_block",
     "fused_mlp",
@@ -199,33 +208,52 @@ def _route(op, kernel, twin, *args):
     return kernel if _use_kernel(args[0]) else twin
 
 
+def _differentiable(function, kernel, args):
+    """``kernel(*args)``, through its autograd ``function`` where an operand
+    needs grad."""
+    return function.apply(kernel, *args) if needs_grad(*args) else kernel(*args)
+
+
+# The kernels' entries on the card; each reads its wrapper's module global at
+# the call, so that a test can put a twin in a kernel's place.
 def _attention_block_kernel(*args):
-    """Kernel 1, through ``AttentionBlockFn`` where an operand needs grad."""
-    if needs_grad(*args):
-        return AttentionBlockFn.apply(fused_attention_block, *args)
-    return fused_attention_block(*args)
+    return _differentiable(AttentionBlockFn, fused_attention_block, args)
 
 
 def _mlp_kernel(*args):
-    """Kernel 2, through ``MlpFn`` where an operand needs grad."""
-    if needs_grad(*args):
-        return MlpFn.apply(fused_mlp, *args)
-    return fused_mlp(*args)
+    return _differentiable(MlpFn, fused_mlp, args)
+
+
+def _qkv_attention_kernel(*args):
+    return _differentiable(QkvAttentionFn, fused_qkv_attention, args)
+
+
+def _flash_kernel(*args):
+    return _differentiable(FlashAttentionFn, flash_attention, args)
+
+
+def _kv_blocked_kernel(*args):
+    return _differentiable(FlashAttentionFn, flash_attention_kv_blocked, args)
+
+
+def _window_kernel(*args):
+    return _differentiable(WindowAttentionBlockFn, fused_window_attention_block, args)
 
 
 def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
     """Multi-head attention ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H,
     Nk, Dv]`` -> ``[B, H, Nq, Dv]``, with an optional additive bias
     ``[B|1, H|1, Nq, Nk]`` and the ``mask_self`` diagonal (LSA). The
-    resident-K/V kernel where its core takes the shape (``core_fits``: D, Dv
-    multiples of 16 up to 128, score rows within shared memory), else the
-    kv-blocked kernel."""
+    resident-K/V kernel where its core takes the shape (``kernel_name``, by
+    ``core_fits``: D, Dv multiples of 16 up to 128, score rows within shared
+    memory), else the kv-blocked kernel. On the card under grad, through
+    ``FlashAttentionFn``."""
     args = (q, k, v, bias, float(q.shape[3] ** -0.5 if scale is None else scale),
             bool(mask_self))
-    if core_fits(k.shape[2], q.shape[3], v.shape[3]):
-        fn = _route(flash_attention_op, flash_attention, reference_attention, *args)
+    if kernel_name(k.shape[2], q.shape[3], v.shape[3]) == "flash_attention":
+        fn = _route(flash_attention_op, _flash_kernel, reference_attention, *args)
     else:
-        fn = _route(flash_attention_kv_blocked_op, flash_attention_kv_blocked,
+        fn = _route(flash_attention_kv_blocked_op, _kv_blocked_kernel,
                     reference_attention_kv_blocked, *args)
     return fn(*args)
 
@@ -262,12 +290,14 @@ def qkv_attention(qkv, heads: int, bias=None, *, scale=None):
     ``[B, N, H*D]``, with an optional additive bias ``[1|B, 1|H, N, N]``.
     The fused-qkv kernel where its limits hold (``qkv_kernel_fits``), else
     ``attention`` on strided per-head views of the fused rows (no copy), as
-    ``vit_tpu``'s dispatcher does for shapes its kernel cannot hold."""
+    ``vit_tpu``'s dispatcher does for shapes its kernel cannot hold. On the
+    card under grad, through ``QkvAttentionFn`` (or ``FlashAttentionFn`` on
+    the views)."""
     b, n, three_hd = qkv.shape
     d = three_hd // 3 // heads
     if qkv_kernel_fits(n, d):
         args = (qkv, int(heads), bias, float(d**-0.5 if scale is None else scale))
-        return _route(qkv_attention_op, fused_qkv_attention, xla_qkv_attention, *args)(*args)
+        return _route(qkv_attention_op, _qkv_attention_kernel, xla_qkv_attention, *args)(*args)
     q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
     out = attention(q, k, v, bias, scale=scale)
     return out.transpose(1, 2).reshape(b, n, three_hd // 3)
@@ -344,10 +374,11 @@ def window_attention_block(
 ):
     """Fused multi-window attention block over windowed tokens ``[NW, S, C]``
     (LN -> qkv -> per-window attention (+ a shared bias ``[1|H, S, S]``) ->
-    out-proj + bias), without the residual."""
+    out-proj + bias), without the residual. On the card under grad, through
+    ``WindowAttentionBlockFn``."""
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
     args = (xw, ln_scale, ln_bias, wqkv, wout, bout, int(heads), bias, float(scale),
             float(ln_eps))
-    return _route(window_attention_block_op, fused_window_attention_block,
-                  xla_window_attention_block, *args)(*args)
+    return _route(window_attention_block_op, _window_kernel, xla_window_attention_block,
+                  *args)(*args)

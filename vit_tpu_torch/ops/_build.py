@@ -369,7 +369,15 @@ KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_blo
            "talking_heads_block", "reattention_block", "flash_attention", "window_attention_block",
            "flash_attention_kv_blocked")
 # the kernels whose wrappers have an autograd Function (ops/__init__.py)
-DIFFERENTIABLE = ("attention_block", "fused_mlp")
+DIFFERENTIABLE = ("attention_block", "fused_mlp", "qkv_attention", "flash_attention",
+                  "window_attention_block", "flash_attention_kv_blocked")
+# the raw wrappers of kernels 3-6, each with the ops entry that runs it
+# through its autograd Function under grad
+GRAD_ENTRIES = {"fused_qkv_attention": "ops.qkv_attention (QkvAttentionFn)",
+                "flash_attention": "ops.attention (FlashAttentionFn)",
+                "flash_attention_kv_blocked": "ops.attention (FlashAttentionFn)",
+                "fused_window_attention_block":
+                    "ops.window_attention_block (WindowAttentionBlockFn)"}
 _counts = collections.Counter()
 _recomputes = collections.Counter()
 _counts_lock = threading.Lock()
@@ -393,7 +401,8 @@ def launch_counts() -> dict:
 
 def recompute_counts() -> dict:
     """Backward passes of each kernel's autograd Function since the last
-    reset: each recomputes the kernel's plain twin and differentiates it."""
+    reset: each recomputes the kernel's plain twin and differentiates it
+    (kernels 4 and 5: the Q-chunked flash backward)."""
     with _counts_lock:
         return {k: _recomputes[k] for k in DIFFERENTIABLE}
 
@@ -412,12 +421,20 @@ def needs_grad(*operands) -> bool:
 
 
 def refuse_grad(name: str, *operands) -> None:
-    """Raise where an autograd graph would be cut: a kernel without an
-    autograd Function writes its output through raw pointers, so under grad
-    mode an operand that requires grad would get no gradient, silently.
-    Silent under ``torch.no_grad()`` and ``torch.inference_mode()``."""
+    """Raise where an autograd graph would be cut: a kernel wrapper writes
+    its output through raw pointers, so under grad mode an operand that
+    requires grad would get no gradient, silently. Kernels 3-6 are
+    differentiated by the Functions their ops entries run (``GRAD_ENTRIES``);
+    kernels 7 and 8 (CaiT's talking heads, DeepViT's re-attention) have no
+    Function yet, and 9 and 10 are inference only. Silent under
+    ``torch.no_grad()`` and ``torch.inference_mode()``."""
     if needs_grad(*operands):
+        entry = GRAD_ENTRIES.get(name)
+        where = (f"under grad call {entry}, which differentiates it" if entry else
+                 "it has no autograd Function (kernels 7 and 8 wait for theirs; 9 and 10 are "
+                 "inference only)")
         raise NotImplementedError(
-            f"{name} has no backward yet: call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors (its plain twin); its autograd "
-            "Function is ROADMAP.md Queue 1 item 7")
+            f"{name} writes its output outside the autograd graph: {where}; or call it under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors (its plain twin). "
+            "Kernels 1-6 train through autograd Functions; what is left of training is "
+            "ROADMAP.md Queue 1 item 7")

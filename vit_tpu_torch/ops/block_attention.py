@@ -23,6 +23,7 @@ tensor, the twin on a CPU one, a fake for ``torch.export``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -58,6 +59,28 @@ def _mm(a, b, dtype=torch.float32):
     (A bf16 matmul on the CPU rounds its output to bf16; JAX's
     ``preferred_element_type=f32`` does not.)"""
     return torch.matmul(a.float(), b.float()).to(dtype)
+
+
+@contextlib.contextmanager
+def fp32_bf16_sums():
+    """Turn ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off inside the scope and give the caller's setting back after it, split-K
+    part included where this PyTorch has one. PyTorch's default, on, lets
+    cuBLAS add a bf16 GEMM's split-K partials in bf16; off, it sums in fp32
+    and rounds once. PyTorch reads the flag when each matmul is issued, so
+    only the products issued inside the scope see it. The flag is global to
+    the process: a forward of the port runs on one thread at a time (the
+    serving worker's), and a product issued by another thread during the
+    scope would see it off too."""
+    flags = torch.backends.cuda.matmul
+    caller = flags.allow_bf16_reduced_precision_reduction
+    split_k = getattr(flags, "allow_bf16_reduced_precision_reduction_split_k", None)
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = (
+            caller if split_k is None else (caller, split_k))
 
 
 def _activate(h, activation: str):

@@ -20,6 +20,10 @@ Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
 
 ``flash_attention_op`` and ``flash_attention_kv_blocked_op`` are the two
 kernels as ``torch.library`` operators (``_build.define_op``).
+
+``FlashAttentionFn`` differentiates both kernels: the kernel forward, and
+``flash_backward``, the port of ``vit_tpu``'s Q-chunked recompute backward
+(``_flash_bwd``), which holds the scores of one chunk of queries at a time.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from vit_tpu_torch.core.utils import round_up
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import _mm, _softmax
+from vit_tpu_torch.ops.block_attention import _mm, _softmax, fp32_bf16_sums
 
 # -0.7 * float32 max: the mask_self fill, as vit_tpu/ops/flash_attention.py:40
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -40,6 +44,7 @@ _KV_BLOCKED = "run the kv-blocked kernel, flash_attention_kv_blocked (ROADMAP.md
 _FP32 = ("fp32 operands (the TPU kernels' Precision.HIGHEST) run only on the twins: neither "
          "flash_attention nor flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5) takes them")
 KV_CHUNK = 64  # keys per chunk of the kv-blocked kernel (csrc kvb::KC)
+BLOCK_Q = 256  # queries per chunk of the backward (vit_tpu's block_q default)
 
 
 def smem_bytes(nk: int, d: int, dv: int) -> int:
@@ -325,3 +330,128 @@ flash_attention_kv_blocked_op = _build.define_op(
     "flash_attention_kv_blocked" + _FLASH_SCHEMA,
     cuda=flash_attention_kv_blocked, cpu=reference_attention_kv_blocked, fake=_flash_fake,
 )
+
+
+def kernel_name(nk: int, d: int, dv: int) -> str:
+    """The kernel ``ops.attention`` runs at this shape: the resident-K/V
+    kernel where its core takes it (``core_fits``), else the kv-blocked
+    one. The one place that choice is made."""
+    return "flash_attention" if core_fits(nk, d, dv) else "flash_attention_kv_blocked"
+
+
+def query_chunk(t, r0: int, chunk: int):
+    """Rows ``r0 .. r0 + chunk`` of ``t``'s query axis (dim 2), zero rows
+    past its end: every chunk of the backward has ``chunk`` rows, as
+    ``_flash_bwd`` pads q, g, out and the bias to whole chunks. (Its
+    ``dynamic_slice`` would otherwise clamp the last chunk's start and read
+    earlier rows again, ``vit_tpu/ops/flash_attention.py:545-547``.)"""
+    part = t[:, :, r0:r0 + chunk]
+    pad = chunk - part.shape[2]
+    return torch.nn.functional.pad(part, (0, 0, 0, pad)) if pad else part
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` over ``[n, i, k] x [n, k, j]`` with fp32 sums and an fp32
+    result: two bf16 operands on the card are one cuBLAS bf16 GEMM that
+    writes fp32, issued under ``fp32_bf16_sums`` (JAX's
+    ``preferred_element_type=f32``); anything else an fp32 product."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        with fp32_bf16_sums():
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def flash_backward(q, k, v, bias, out, g, scale, mask_self=False):
+    """Gradients ``(dq, dk, dv, dbias)`` of ``attention(q, k, v, bias)`` at
+    the cotangent ``g``, from the forward's ``out``: ``vit_tpu``'s
+    ``_flash_bwd`` (``vit_tpu/ops/flash_attention.py:509-597``), the
+    backward of kernels 4 and 5, line by line.
+
+    The queries run in chunks of ``min(BLOCK_Q, Nq)`` rows (``query_chunk``
+    pads the last). A chunk's scores ``s`` are q times k in their own dtype
+    summed in fp32 (``_bmm_f32``), ``* scale``, ``+ bias`` in fp32, the
+    ``mask_self`` diagonal at ``MASK_VALUE``; ``p = softmax(s)`` in
+    ``jax.nn.softmax``'s order. With g and out in fp32: ``dV += pᵀ g``,
+    ``dP = g vᵀ``, ``delta = rowsum(g ∘ out)``, ``dS = p ∘ (dP - delta)``,
+    ``dQ = scale · dS k``, ``dK += scale · dSᵀ q``, every product but the
+    scores' of fp32 operands; ``dbias`` is ``dS`` summed over the bias's
+    broadcast axes (``B|1``, ``H|1``). dK and dV add up in fp32 over the
+    chunks; each gradient is cast once to its input's dtype. ``dbias`` is
+    None without a bias. The extra memory is a few ``B * H * chunk * Nk``
+    fp32 tensors (the scores and dP of one chunk), and fp32 copies of k, v,
+    dK and dV."""
+    b, h, nq, d = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    bh = b * h
+    chunk = min(BLOCK_Q, nq)
+    kt = k.reshape(bh, nk, d).transpose(1, 2)
+    kf = k.float().reshape(bh, nk, d)
+    vf = v.float().reshape(bh, nk, dv)
+    dk = torch.zeros(bh, nk, d, device=q.device)
+    dvv = torch.zeros(bh, nk, dv, device=q.device)
+    dq = torch.empty(b, h, nq, d, device=q.device, dtype=q.dtype)
+    db = None
+    if bias is not None:
+        db = torch.empty(bias.shape[0], bias.shape[1], nq, nk, device=q.device)
+    cols = torch.arange(nk, device=q.device)
+    for r0 in range(0, nq, chunk):
+        rows = min(chunk, nq - r0)
+        qc = query_chunk(q, r0, chunk).reshape(bh, chunk, d)
+        gc = query_chunk(g, r0, chunk).float().reshape(bh, chunk, dv)
+        oc = query_chunk(out, r0, chunk).float().reshape(bh, chunk, dv)
+        s = _bmm_f32(qc, kt).mul_(scale).view(b, h, chunk, nk)
+        if bias is not None:
+            s.add_(query_chunk(bias, r0, chunk).float())
+        if mask_self:
+            diag = (torch.arange(r0, r0 + chunk, device=q.device)[:, None] == cols[None, :])
+            s.masked_fill_(diag, MASK_VALUE)
+        p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()  # jax.nn.softmax, in place
+        p = p.div_(p.sum(dim=-1, keepdim=True)).view(bh, chunk, nk)
+        dvv.baddbmm_(p.transpose(1, 2), gc)
+        ds = torch.bmm(gc, vf.transpose(1, 2))  # dP
+        ds.sub_((gc * oc).sum(dim=-1, keepdim=True)).mul_(p)  # p * (dP - delta)
+        del p, s
+        dq[:, :, r0:r0 + rows] = torch.bmm(ds, kf).mul_(scale).view(
+            b, h, chunk, d)[:, :, :rows].to(q.dtype)
+        dk.baddbmm_(ds.transpose(1, 2), qc.float(), alpha=scale)
+        if db is not None:
+            dbc = ds.view(b, h, chunk, nk)
+            if bias.shape[0] == 1:
+                dbc = dbc.sum(dim=0, keepdim=True)
+            if bias.shape[1] == 1:
+                dbc = dbc.sum(dim=1, keepdim=True)
+            db[:, :, r0:r0 + rows] = dbc[:, :, :rows]
+        del ds
+    return (dq, dk.view(b, h, nk, d).to(k.dtype), dvv.view(b, h, nk, dv).to(v.dtype),
+            None if db is None else db.to(bias.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernels 4 and 5 as an autograd Function (``vit_tpu``'s
+    ``_flash_attention_ad`` and ``_flash_kv_blocked_ad``,
+    ``vit_tpu/ops/flash_attention.py:447-600``).
+
+    Forward: ``forward_fn`` (on the main path the kernel ``ops.attention``
+    picks, ``flash_attention`` or ``flash_attention_kv_blocked``; a CPU test
+    passes a twin), saving ``(q, k, v, bias, out)`` as ``_flash_fwd`` does:
+    ``out`` stands in for the softmax statistics (``delta``). Backward:
+    ``flash_backward`` at the cotangent, counted as a recompute of the
+    kernel the shape dispatches to (``kernel_name``).
+
+    ``apply(forward_fn, q, k, v, bias, scale, mask_self)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, q, k, v, bias, scale, mask_self):
+        out = forward_fn(q, k, v, bias, scale, mask_self)
+        ctx.save_for_backward(q, k, v, bias, out)
+        ctx.config = (scale, mask_self)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out = ctx.saved_tensors
+        scale, mask_self = ctx.config
+        grads = flash_backward(q, k, v, bias, out, g, scale, mask_self)
+        _build.count_recompute(kernel_name(k.shape[2], q.shape[3], v.shape[3]))
+        need = ctx.needs_input_grad[1:5]
+        return (None, *(t if n else None for t, n in zip(grads, need)), None, None)

@@ -13,7 +13,8 @@ Layout: ``qkv`` ``[B, N, 3*H*D]`` laid out ``[q | k | v]``, each part
 ``[H, D]``; the output is ``[B, N, H*D]``. No transposes or copies of the
 heads: the kernel reads its head panels out of the fused rows.
 ``qkv_attention_op`` is the kernel as a ``torch.library`` operator
-(``_build.define_op``).
+(``_build.define_op``). ``QkvAttentionFn`` is its autograd Function: the
+kernel forward, ``vit_tpu``'s recompute backward.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import MAX_TOKENS, _mm, _softmax
+from vit_tpu_torch.ops.block_attention import MAX_TOKENS, _mm, _softmax, recompute_vjp
 
 # The fp32 qkv path (the TPU kernel's Precision.HIGHEST) runs only on the twin.
 _FP32_LATER = "fp32 qkv on the card is not ported yet (ROADMAP.md Queue 2 item 3, fp32 path)"
@@ -114,3 +115,33 @@ qkv_attention_op = _build.define_op(
     cuda=fused_qkv_attention, cpu=xla_qkv_attention,
     fake=lambda qkv, heads, bias, scale: qkv.new_empty(*qkv.shape[:2], qkv.shape[2] // 3),
 )
+
+
+class QkvAttentionFn(torch.autograd.Function):
+    """Attention on fused qkv rows as an autograd Function (``vit_tpu``'s
+    ``_qkv_attention_ad``, ``vit_tpu/ops/qkv_attention.py:129-152``).
+
+    Forward: ``forward_fn`` (the kernel, ``fused_qkv_attention``, on the
+    main path; a CPU test passes the twin), saving only ``(qkv, bias)``, as
+    ``_qkv_attention_fwd`` does. Backward, as ``_qkv_attention_bwd``: the
+    twin ``xla_qkv_attention`` recomputed on them and differentiated
+    (``block_attention.recompute_vjp``), with ``dbias`` where the bias needs
+    a gradient (summed over its broadcast batch and head axes by autograd,
+    as by ``jax.vjp``). The n x n scores exist only inside the backward.
+
+    ``apply(forward_fn, qkv, heads, bias, scale)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, qkv, heads, bias, scale):
+        ctx.save_for_backward(qkv, bias)
+        ctx.config = (heads, scale)
+        return forward_fn(qkv, heads, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, scale = ctx.config
+        needs = (ctx.needs_input_grad[1], ctx.needs_input_grad[3])
+        dqkv, dbias = recompute_vjp(lambda a, b: xla_qkv_attention(a, heads, b, scale),
+                                    ctx.saved_tensors, needs, g)
+        _build.count_recompute("qkv_attention")
+        return None, dqkv, None, dbias, None

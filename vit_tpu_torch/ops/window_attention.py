@@ -16,7 +16,8 @@ for the TPU's matrix unit; every window's softmax sees only its own keys
 there too, so the port computes each window on its own.
 
 ``window_attention_block_op`` is the kernel as a ``torch.library`` operator
-(``_build.define_op``).
+(``_build.define_op``). ``WindowAttentionBlockFn`` is its autograd
+Function: the kernel forward, ``vit_tpu``'s recompute backward.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from vit_tpu_torch.core.utils import round_up
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax
+from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax, recompute_vjp
 from vit_tpu_torch.ops.flash_attention import MAX_SMEM, check_core_shape
 
 # The kernel's routes, by the C code of each (csrc/window_attention_block.cu
@@ -210,3 +211,38 @@ window_attention_block_op = _build.define_op(
     cuda=fused_window_attention_block, cpu=xla_window_attention_block,
     fake=_build.contiguous_like,
 )
+
+
+class WindowAttentionBlockFn(torch.autograd.Function):
+    """The window-attention block as an autograd Function (``vit_tpu``'s
+    ``_window_attention_block_ad``, ``vit_tpu/ops/window_attention.py:298-329``).
+
+    Forward: ``forward_fn`` (the kernel, ``fused_window_attention_block``,
+    however ``plan_for`` routes it; a CPU test passes the twin), saving only
+    the seven inputs, as ``_wab_fwd`` does. Backward, as ``_wab_bwd``: the
+    twin ``xla_window_attention_block`` recomputed on them and
+    differentiated at the cotangent cast to ``xw``'s dtype
+    (``block_attention.recompute_vjp``), ``dbias`` in the shape and dtype
+    the shared bias came in (CrossFormer's comes from its position-bias
+    MLPs, which it reaches through autograd).
+
+    ``apply(forward_fn, xw, ln_scale, ln_bias, wqkv, wout, bout, heads,
+    bias, scale, ln_eps)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias, scale,
+                ln_eps):
+        ctx.save_for_backward(xw, ln_scale, ln_bias, wqkv, wout, bout, bias)
+        ctx.config = (heads, scale, ln_eps)
+        return forward_fn(xw, ln_scale, ln_bias, wqkv, wout, bout, heads, bias, scale, ln_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, scale, ln_eps = ctx.config
+        need = ctx.needs_input_grad
+        grads = recompute_vjp(
+            lambda xw, s, b, wq, wo, bo, bias: xla_window_attention_block(
+                xw, s, b, wq, wo, bo, heads, bias, scale, ln_eps),
+            ctx.saved_tensors, (*need[1:7], need[8]), g)
+        _build.count_recompute("window_attention_block")
+        return (None, *grads[:6], None, grads[6], None, None)

@@ -19,13 +19,18 @@ step's dropout and augmentation draws). ``make_optimizer`` returns an
   adds 1e-6 to the norm).
 
 ``make_train_step`` returns ``step(state, images, labels) -> loss``: the
-forward with ``train=True`` (on the card kernels 1 and 2 forward, their
-autograd Functions' recompute backward, ``ops.AttentionBlockFn`` /
-``ops.MlpFn``), per-block remat, ``accum_steps`` microbatches averaged before
+forward with ``train=True`` (on the card the kernels forward and their
+autograd Functions' backward: ``ops.AttentionBlockFn`` and ``ops.MlpFn`` for
+ViT; ``ops.WindowAttentionBlockFn``, ``ops.FlashAttentionFn`` and
+``ops.MlpFn`` for Twins-SVT; ``ops.FlashAttentionFn`` on kernel 5,
+``ops.AttentionBlockFn`` and ``ops.MlpFn`` for T2T-ViT; a bf16 ``Dense``
+through ``nn.embed.MmRoundedFn``), per-block remat, ``accum_steps``
+microbatches averaged before
 one update, soft targets under ``augment_fn``, distillation under
 ``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``,
 weight-only int8 QAT under ``qat`` (``utils.quantize.fake_quantized``).
-Training is ported for ``ViT`` and ``ViTMoE``; every other family raises.
+Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT`` and ``T2TViT``; every
+other family raises.
 """
 
 from __future__ import annotations
@@ -233,13 +238,13 @@ def create_train_state(model: nn.Module, optimizer: Optional[Optimizer] = None,
 def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable:
     """``apply(images, generator) -> (logits, aux_losses)`` in training mode,
     or raise for a model whose training is not ported."""
-    from vit_tpu_torch.models import ViT, ViTMoE
+    from vit_tpu_torch.models import T2TViT, TwinsSVT, ViT, ViTMoE
     from vit_tpu_torch.nn.embed import BatchNorm
 
     if any(isinstance(m, BatchNorm) for m in model.modules()):
         raise NotImplementedError("BatchNorm with batch statistics is not ported "
-                                  "(ROADMAP.md Queue 1 item 7)")
-    if isinstance(model, ViT):
+                                  "(ROADMAP.md Queue 1 item 7, step 2)")
+    if isinstance(model, (ViT, TwinsSVT, T2TViT)):
         if moe_aux_weight:
             raise ValueError("moe_aux_weight needs a model with MoE layers")
         return lambda x, gen: (model(x, train=True, generator=gen, remat=remat), [])
@@ -248,8 +253,10 @@ def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable
             raise NotImplementedError("ViT-MoE's dropout in training is not ported "
                                       "(ROADMAP.md Queue 1 item 7)")
         return lambda x, gen: model(x, return_aux=True)
-    raise NotImplementedError(f"training {type(model).__name__} is not ported "
-                              "(ROADMAP.md Queue 1 item 7)")
+    raise NotImplementedError(
+        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, Twins-SVT and T2T-ViT "
+        "train; the other families wait for ROADMAP.md Queue 1 item 7 (step 3 for their "
+        "modules, step 5 for the Functions of kernels 7 and 8 of CaiT and DeepViT)")
 
 
 def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,

@@ -2,19 +2,26 @@
 
 The port's constructors build zeros and ones (``models/vit.py``); a trainer
 starts from ``init_params(model, generator)``, which gives each parameter of
-the ViT path the distribution of its ``vit_tpu`` initializer:
+ViT, Twins-SVT and T2T-ViT the distribution of its ``vit_tpu``
+initializer:
 
 - ``lecun_normal`` (flax's ``variance_scaling(1, "fan_in",
   "truncated_normal")``: a unit normal truncated at +-2, times
   ``sqrt(1 / fan_in) / 0.87962566103423978``, the truncated normal's
   standard deviation at 2) for the raw-parameter kernels ``qkv_kernel``,
   ``out_kernel``, ``w1``, ``w2`` (``vit_tpu/nn/attention.py:256-263``,
-  ``nn/blocks.py:47-60``) and every flax ``Dense`` ``kernel``
-  (``patch_embed/proj``, ``head``); fan-in is the kernel's ``[in, out]``
-  first axis;
+  ``nn/blocks.py:47-60``; Twins' local attention,
+  ``vit_tpu/models/twins_svt.py:52-59``) and every flax ``Dense``
+  ``kernel`` (``patch_embed/proj``, ``head``, Twins' ``to_q``, T2T's
+  ``proj``); fan-in is the kernel's ``[in, out]`` first axis. Every flax
+  ``Conv`` ``kernel`` too (Twins' ``to_kv`` and PEG's depthwise ``proj``):
+  flax's fan-in of an HWIO kernel is ``kh * kw * in / groups``, which over
+  the port's OIHW kernel is ``I * kh * kw`` (``I`` already ``in /
+  groups``);
 - ``truncated_normal(0.02)`` for ``cls`` and ``pos_embedding``
-  (``vit_tpu/models/vit.py:60-69``);
-- zeros for biases, ones for LayerNorm scales.
+  (``vit_tpu/models/vit.py:60-69``, ``models/t2t.py:75-80``);
+- zeros for biases (conv biases too), ones for LayerNorm scales
+  (``norm_scale`` of Twins' local attention).
 
 The draws cannot be flax's (another generator); the distributions and the
 shapes are. A parameter of another initializer raises.
@@ -57,6 +64,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _LECUN and p.dim() == 2:
             truncated_normal_(p, lecun_std(p.shape[0]), generator)
+        elif leaf == "kernel" and p.dim() == 4:  # a conv kernel, OIHW
+            truncated_normal_(p, lecun_std(p[0].numel()), generator)
         elif leaf in _TOKENS:
             truncated_normal_(p, 0.02, generator)
         elif leaf in _ZEROS:
@@ -66,5 +75,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             raise NotImplementedError(
                 f"{name} {tuple(p.shape)}: no vit_tpu initializer ported for it (init_params "
-                "covers the ViT path; ROADMAP.md Queue 1 item 7)")
+                "covers ViT, Twins-SVT and T2T-ViT; ROADMAP.md Queue 1 item 7)")
     return model
