@@ -274,7 +274,22 @@ Runs, in order, and exits non-zero at the first failure:
      paths; each preset trained at batch 128 with AdamW (exact launches
      and recomputes a step, step ms, train img/s, peak memory, the
      Functions' backward ms, a profile by kernel and by op) and through
-     ``python -m vit_tpu_torch.train --model twins_svt|t2t``.
+     ``python -m vit_tpu_torch.train --model twins_svt|t2t``;
+ 22. training CaiT and DeepViT on kernels 7 and 8 (``HEAD_MIX_TRAIN``: the
+     presets' widths at dropout 0, emb_dropout 0.1, CaiT's stochastic depth
+     0.05): ``ops.TalkingHeadsBlockFn`` and ``ops.ReattentionBlockFn``
+     against autograd through their twins at the presets' shapes (64 and
+     65 tokens, batch 8 and 128) with planted faults failing the bound (a
+     head mix transposed in the recompute, the residual's gradient dropped,
+     the LayerNorm gradients swapped, kernel 8 recomputed on tokens padded
+     to 80); one step of each preset in bf16 at batch 8 on three draws,
+     the kernel path and the Functions on the twins' forward against the
+     plain bf16 and fp32 paths, and kernels 7 and 8 forward against the
+     fp32 twin; each preset at batch 128 with AdamW (exact
+     launches and recomputes a step, ms, img/s, peak memory, the Functions'
+     backward ms, a profile), CaiT with muon, CaiT at the preset's own
+     dropout 0.1 (no kernel 7 launch), and ``python -m vit_tpu_torch.train
+     --model cait --optimizer muon``.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -768,7 +783,7 @@ def check_close(name, out, ref, base):
     return err
 
 
-# -- phase 17 and 21 helpers: the autograd Functions of kernels 1-6 ----------------
+# -- phase 17, 21 and 22 helpers: the autograd Functions of kernels 1-8 -----------
 
 FN_ARGS = {"attention_block": ("x", "ln_scale", "ln_bias", "wqkv", "wout", "bout"),
            "fused_mlp": ("x", "w1", "b1", "w2", "b2", "ln_scale", "ln_bias")}
@@ -779,7 +794,11 @@ ZOO_FN_ARGS = {"qkv_attention": ("qkv", "bias"),
                "flash_attention_kv_blocked": ("q", "k", "v", "bias"),
                "window_attention_block": ("xw", "ln_scale", "ln_bias", "wqkv", "wout", "bout",
                                           "bias")}
-ALL_FN_ARGS = {**FN_ARGS, **ZOO_FN_ARGS}
+# The Functions of kernels 7 and 8 (phase 22): every operand differentiable.
+HEAD_MIX_FN_ARGS = {"talking_heads_block": FN_ARGS["attention_block"] + ("mix_pre", "mix_post"),
+                    "reattention_block": FN_ARGS["attention_block"] + ("mix", "rln_scale",
+                                                                       "rln_bias")}
+ALL_FN_ARGS = {**FN_ARGS, **ZOO_FN_ARGS, **HEAD_MIX_FN_ARGS}
 # Faults planted in a Function's backward, each of which the gradient bound
 # must see: the residual's identity term dropped from x's gradient, and the
 # gradients of ln_scale and ln_bias (both [D]) returned in each other's slots.
@@ -798,6 +817,15 @@ FLASH_BWD_FAULTS = ("delta dropped", "dK unscaled", "dbias not reduced over a br
                     "mask_self left out of the backward", "a chunk that clamps instead of padding")
 # Kernel 3's: the q and k thirds of dqkv returned in each other's place.
 QKV_BWD_FAULTS = ("dq and dk swapped",)
+# Kernels 7 and 8's: the recompute run with a head mix transposed (the mixes
+# are mix[h, g], the source head as the row: kernel 7's pre- and
+# post-softmax mixes, kernel 8's one mix after the softmax), and kernel 8's
+# recompute on x padded to the kernel's multiple of 16 tokens with the
+# padded keys left in (vit_tpu saves the unpadded x; the head LayerNorm's
+# bias would revive padded key columns).
+HEAD_MIX_BWD_FAULTS = ("pre-softmax mix transposed in the recompute",
+                       "post-softmax mix transposed in the recompute",
+                       "recomputed on tokens padded to a multiple of 16")
 
 
 def twin_forward(kind):
@@ -808,7 +836,9 @@ def twin_forward(kind):
     return {"attention_block": ops.xla_attention_block, "fused_mlp": ops.reference_mlp,
             "qkv_attention": ops.xla_qkv_attention, "flash_attention": ops.reference_attention,
             "flash_attention_kv_blocked": ops.reference_attention_kv_blocked,
-            "window_attention_block": ops.xla_window_attention_block}[kind]
+            "window_attention_block": ops.xla_window_attention_block,
+            "talking_heads_block": ops.xla_talking_heads_block,
+            "reattention_block": ops.xla_reattention_block}[kind]
 
 
 def function_twin(kind, kw):
@@ -827,6 +857,10 @@ def function_twin(kind, kw):
         return lambda qkv, bias: twin(qkv, kw["heads"], bias, kw["scale"])
     if kind == "window_attention_block":
         return lambda *a: twin(*a[:6], kw["heads"], a[6], kw["scale"], kw["ln_eps"])
+    if kind == "talking_heads_block":
+        return lambda *a: twin(*a, kw["heads"], kw["scale"], kw["ln_eps"], kw["residual"])
+    if kind == "reattention_block":
+        return lambda *a: twin(*a, kw["heads"], kw["scale"], kw["ln_eps"], kw["reattn_eps"])
     return lambda q, k, v, bias: twin(q, k, v, bias, kw["scale"], kw["mask_self"])
 
 
@@ -850,6 +884,14 @@ def apply_function(kind, forward, leaves, kw):
         return ops.WindowAttentionBlockFn.apply(
             forward or ops.fused_window_attention_block, *leaves[:6], kw["heads"], leaves[6],
             kw["scale"], kw["ln_eps"])
+    if kind == "talking_heads_block":
+        return ops.TalkingHeadsBlockFn.apply(forward or ops.fused_talking_heads_block, *leaves,
+                                             kw["heads"], kw["scale"], kw["ln_eps"],
+                                             kw["residual"])
+    if kind == "reattention_block":
+        return ops.ReattentionBlockFn.apply(forward or ops.fused_reattention_block, *leaves,
+                                            kw["heads"], kw["scale"], kw["ln_eps"],
+                                            kw["reattn_eps"])
     return ops.FlashAttentionFn.apply(forward or getattr(ops, kind), *leaves, kw["scale"],
                                       kw["mask_self"])
 
@@ -857,7 +899,8 @@ def apply_function(kind, forward, leaves, kw):
 def function_grads(kind, args, kw, g, forward=None):
     """Input and weight gradients of kernel ``kind``'s autograd Function
     (``ops.AttentionBlockFn``, ``ops.MlpFn``, ``ops.QkvAttentionFn``,
-    ``ops.FlashAttentionFn``, ``ops.WindowAttentionBlockFn``) at cotangent
+    ``ops.FlashAttentionFn``, ``ops.WindowAttentionBlockFn``,
+    ``ops.TalkingHeadsBlockFn``, ``ops.ReattentionBlockFn``) at cotangent
     ``g``: forward through ``forward`` (None: the kernel wrapper), backward
     its recompute through the twin (kernels 4 and 5: the Q-chunked flash
     backward). ``args`` in ``ALL_FN_ARGS`` order, None where absent."""
@@ -925,8 +968,8 @@ def flash_faults(args, kw):
 
 def faulty_grads(kind, args, kw, g, fault):
     """The backward of ``kind``'s Function with ``fault`` (``FUNCTION_FAULTS``,
-    ``CAST_SKIPPED``, ``FLASH_BWD_FAULTS`` or ``QKV_BWD_FAULTS``) planted, on
-    the same inputs."""
+    ``CAST_SKIPPED``, ``FLASH_BWD_FAULTS``, ``QKV_BWD_FAULTS`` or
+    ``HEAD_MIX_BWD_FAULTS``) planted, on the same inputs."""
     from vit_tpu_torch.ops.block_attention import recompute_vjp
 
     if fault in FLASH_BWD_FAULTS:
@@ -945,6 +988,17 @@ def faulty_grads(kind, args, kw, g, fault):
         dq, dk, dv = grads[0].chunk(3, dim=-1)
         grads[0] = torch.cat([dk, dq, dv], dim=-1)
         return grads
+    if fault in HEAD_MIX_BWD_FAULTS[:2]:
+        names = ALL_FN_ARGS[kind]
+        i = names.index("mix" if kind == "reattention_block" else
+                        ("mix_pre", "mix_post")[HEAD_MIX_BWD_FAULTS.index(fault)])
+        return recompute_vjp(lambda *a: twin(*a[:i], a[i].t(), *a[i + 1:]), args, need, g)
+    if fault == HEAD_MIX_BWD_FAULTS[2]:
+        n = args[0].shape[1]
+        pad = -n % 16
+        return recompute_vjp(
+            lambda x, *w: twin(torch.nn.functional.pad(x, (0, 0, 0, pad)), *w)[:, :n],
+            args, need, g)
     with torch.enable_grad():  # CAST_SKIPPED: recompute_vjp without g.to(x.dtype)
         leaves = [None if a is None else a.detach().requires_grad_() for a in args]
         present = [a for a in leaves if a is not None]
@@ -958,8 +1012,13 @@ def function_faults(kind, args, kw):
         return flash_faults(args, kw)
     if kind == "qkv_attention":
         return list(QKV_BWD_FAULTS)
-    residual = kind == "attention_block" or kw.get("residual", False)
-    return list(FUNCTION_FAULTS[0 if residual else 1:])
+    residual = kind in ("attention_block", "reattention_block") or kw.get("residual", False)
+    faults = list(FUNCTION_FAULTS[0 if residual else 1:])
+    if kind == "talking_heads_block":
+        faults += HEAD_MIX_BWD_FAULTS[:2]
+    elif kind == "reattention_block":
+        faults += HEAD_MIX_BWD_FAULTS[1:2] + HEAD_MIX_BWD_FAULTS[2:] * bool(args[0].shape[1] % 16)
+    return faults
 
 
 def grad_errors(kind, grads, ref):
@@ -5846,6 +5905,24 @@ def zoo_train_counts(model):
             {"flash_attention_kv_blocked": tok, enc: depth, "fused_mlp": tok + depth})
 
 
+def head_mix_train_counts(model, remat=True):
+    """(launches, recomputes) of each kernel a training step of a CaiT or
+    DeepViT ``model`` takes at dropout 0: CaiT without remat (vit_tpu's
+    scans its stages without it) one talking-heads launch and recompute a
+    patch layer (kernel 7) and one MLP a layer of both stages (kernel 2);
+    DeepViT one re-attention block (kernel 8) and MLP a layer, twice under
+    ``remat`` where its depth exceeds 1 (the forward and remat's), each
+    recomputed once."""
+    if hasattr(model, "patch_stage"):
+        patch, cls = len(model.patch_stage.blocks), len(model.cls_stage.blocks)
+        c = {"talking_heads_block": patch, "fused_mlp": patch + cls}
+        return c, dict(c)
+    depth = model.encoder.depth
+    runs = 2 if remat and depth > 1 else 1
+    return ({"reattention_block": runs * depth, "fused_mlp": runs * depth},
+            {"reattention_block": depth, "fused_mlp": depth})
+
+
 # The most device memory kernel 5's backward may take above its inputs (q, k,
 # v, out, g) at T2T's stage 0, batch 128: the Q-chunked backward holds a few
 # [128, 1, 256, 3136] fp32 tensors (0.41 GB each) at once, fp32 copies of k and
@@ -6051,13 +6128,13 @@ def phase_train_zoo_grads(dev):
 
 
 ZOO_FUNCTIONS = ("AttentionBlockFn", "MlpFn", "QkvAttentionFn", "FlashAttentionFn",
-                 "WindowAttentionBlockFn")
+                 "WindowAttentionBlockFn", "TalkingHeadsBlockFn", "ReattentionBlockFn")
 
 
 @contextlib.contextmanager
 def timed_backwards(spans):
     """Record CUDA events around each autograd Function's backward of kernels
-    1-6 inside the scope: ``spans`` gets (Function name, start, end) for each
+    1-8 inside the scope: ``spans`` gets (Function name, start, end) for each
     call; their elapsed times, read after a synchronize, are the device ms
     of the backward recomputes (the kernels' launches between the events)."""
     from vit_tpu_torch import ops
@@ -6190,6 +6267,319 @@ def phase_train_zoo(dev, smi):
     phase_train_zoo_grads(dev)
     phase_train_zoo_steps(dev, smi)
     print(f"phase 21 (training Twins-SVT and T2T-ViT) took {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return worst
+
+
+# -- phase 22: training CaiT and DeepViT on kernels 7 and 8 ---------------------
+
+# The presets as they train through kernels 7 and 8: their widths, dropout 0
+# (the presets' own 0.1 takes vit_tpu's materializing route in training, which
+# launches neither kernel), emb_dropout 0.1 and CaiT's layer_dropout 0.05 kept.
+# A step: CaiT 12 talking-heads blocks and 14 MLPs, each recomputed once (no
+# remat: vit_tpu's CaiT has none); DeepViT 12 re-attention blocks and 12 MLPs
+# (the forward and remat's), 6 and 6 recomputes (``head_mix_train_counts``).
+HEAD_MIX_TRAIN = {"cait": dict(CAIT, emb_dropout=0.1, layer_dropout=0.05),
+                  "deepvit": dict(DEEPVIT, emb_dropout=0.1)}
+CAIT_PRESET_DROPOUT = dict(CAIT, dropout=0.1, emb_dropout=0.1, layer_dropout=0.05)
+MUON_STEPS = 3
+
+
+def phase_train_heads_functions(dev):
+    """22a: ``TalkingHeadsBlockFn`` and ``ReattentionBlockFn`` against
+    autograd through their twins (fp32 products) at the CaiT (64 tokens,
+    no residual, as CaiT calls it) and DeepViT (65 tokens, padded to 80 by
+    the kernel) preset shapes, batch 8 and 128 (``check_function``: every
+    gradient within kernel_tol's form, the planted faults of
+    ``function_faults`` failing it: the LayerNorm gradients swapped, a head
+    mix transposed, the residual's gradient dropped, kernel 8 recomputed on
+    the padded tokens). Returns the worst gradient error by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    worst = collections.defaultdict(float)
+    cases = (("talking_heads_block", "th", "CaiT", 64,
+              dict(heads=16, scale=0.125, ln_eps=1e-5, residual=False)),
+             ("reattention_block", "ra", "DeepViT", 65,
+              dict(heads=16, scale=0.125, ln_eps=1e-6, reattn_eps=1e-6)))
+    for b in (8, TRAIN_BATCH):
+        for kind, short, what, n, kw in cases:
+            args = hm_inputs(gen, short, b, n, 1024, 16, 64, torch.bfloat16, dev)
+            err, _ = _function_line(kind, f"{what} preset [{b}, {n}, 1024] batch {b}", args, kw,
+                                    gen)
+            worst[kind] = max(worst[kind], err)
+            del args
+        torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def head_mix_train_model(fam, dev, gen, cfg=None):
+    """The ``fam`` preset in bf16 at ``HEAD_MIX_TRAIN``'s rates (or
+    ``cfg``), drawn by ``init_params``."""
+    from vit_tpu_torch.models import CaiT, DeepViT
+    from vit_tpu_torch.utils import init_params
+
+    ctor = CaiT if fam == "cait" else DeepViT
+    return init_params(ctor(**(cfg or HEAD_MIX_TRAIN[fam]), dtype=torch.bfloat16, device=dev),
+                       gen)
+
+
+HEAD_MIX_GRAD_DRAWS = 3
+HEAD_MIX_KERNELS = {"cait": ("fused_talking_heads_block", "xla_talking_heads_block"),
+                    "deepvit": ("fused_reattention_block", "xla_reattention_block")}
+
+
+def head_mix_forward_distance(fam, dev, gen):
+    """Kernel 7 (CaiT: 64 tokens, no residual) or 8 (DeepViT: 65 tokens) at
+    the preset's shape, batch 8, on ``hm_inputs``: the relative L2 of the
+    block's update (out - x) from the fp32 twin's (every operand in fp32),
+    the kernel's and the bf16 twin's. Prints both."""
+    kind, n = ("th", 64) if fam == "cait" else ("ra", 65)
+    args = hm_inputs(gen, kind, 8, n, 1024, 16, 64, torch.bfloat16, dev)
+    x32 = args[0].float()
+    with torch.no_grad():
+        ref = head_mix_twin(kind, [a.float() for a in args], 16) - x32 * (kind == "ra")
+        delta = lambda out: out.float() - x32 * (kind == "ra")
+        kernel = getattr(_rb(), HEAD_MIX_KERNELS[fam][0])(*args, 16, 0.125)
+        dk, dt = rel_l2(delta(kernel), ref), rel_l2(delta(head_mix_twin(kind, args, 16)), ref)
+    print(f"train heads forward {fam} [8, {n}, 1024]: the block's update (out - x) rel L2 "
+          f"from the fp32 twin: kernel {dk:.4g}, bf16 twin {dt:.4g} (ratio {dk / dt:.3f})")
+
+
+def phase_train_heads_grads(dev):
+    """22b: one step's loss and gradients of each preset in bf16 at batch 8,
+    on HEAD_MIX_GRAD_DRAWS draws of the images, labels, embedding dropout
+    and CaiT's stochastic-depth gates (the parameters drawn once), four
+    ways: the kernel path (kernels 7 or 8 and 2 forward, the Functions'
+    backward; DeepViT with remat), the same Functions with the twin of
+    kernel 7 or 8 as their forward ("twin-forward": what differs from the
+    kernel path is that kernel's forward alone), the plain bf16 path and
+    plain fp32. Each parameter's relative L2 from fp32 on every draw at most
+    GRAD_RATIO times the plain bf16 path's largest over the draws: a
+    parameter's own noise level, which a small tensor (DeepViT's
+    ``reattn_scale`` ``[16]``, a near-cancelling sum over every (i, j) of a
+    head) reads only roughly on one draw. The head-mix parameters' ratios
+    to the plain path's distance on the same draw are printed for both
+    Function paths, so that a systematic offset of the kernel's forward
+    shows beside the twin-forward's. The loss as in 21b; every ``.grad``
+    set and finite on the kernel path, with the launches and recomputes of
+    ``head_mix_train_counts``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    for fam in HEAD_MIX_TRAIN:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+        model = head_mix_train_model(fam, dev, gen)
+        model32 = type(model)(**HEAD_MIX_TRAIN[fam], device=dev)
+        model32.load_state_dict(model.state_dict())
+        want_launches, want_recomputes = head_mix_train_counts(model)
+        wrapper, twin = HEAD_MIX_KERNELS[fam]
+        twin_forward = mock.patch.object(ops, wrapper, getattr(ops, twin))
+        head_mix_forward_distance(fam, dev, gen)
+        mixes = [k for k, _ in model.named_parameters() if "mix_heads" in k or "reattn_" in k]
+        dists = collections.defaultdict(list)  # name -> [(kernel, twin-forward, plain)] a draw
+        for draw in range(HEAD_MIX_GRAD_DRAWS):
+            x = torch.randn(8, 256, 256, 3, generator=gen, device=dev)
+            y = torch.randint(0, 1000, (8,), generator=gen, device=dev)
+
+            def grads(m, scope, remat):
+                m.zero_grad(set_to_none=True)
+                draws = torch.Generator(device=dev).manual_seed(SEED + 82 + draw)
+                with scope:
+                    loss = cross_entropy_loss(m(x, train=True, generator=draws, remat=remat), y)
+                    loss.backward()
+                return loss.item(), {k: p.grad.detach().clone() if p.grad is not None else None
+                                     for k, p in m.named_parameters()}
+
+            ops.reset_launch_counts()
+            loss_k, gk = grads(model, contextlib.nullcontext(), True)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+            loss_t, gt = grads(model, twin_forward, True)
+            loss_p, gp = grads(model, ops.force_backend("torch"), False)
+            loss_32, g32 = grads(model32, ops.force_backend("torch"), False)
+            require(counts == want_launches,
+                    f"train heads grads {fam}: launches {counts}, not {want_launches}")
+            require(recomputes == want_recomputes,
+                    f"train heads grads {fam}: recomputes {recomputes}, not {want_recomputes}")
+            missing = [k for k, g in gk.items()
+                       if g is None or not torch.isfinite(g).all().item()]
+            require(not missing, f"train heads grads {fam}: no finite gradient on the kernel "
+                                 f"path for {missing[:5]}")
+            for k in gk:
+                dists[k].append(tuple(rel_l2(g[k], g32[k]) for g in (gk, gt, gp)))
+            ratios = lambda i, names: sorted((dists[k][-1][i] / dists[k][-1][2], k)
+                                             for k in names)
+            med = lambda rs: statistics.median(r for r, _ in rs)
+            mk, mt, al = ratios(0, mixes), ratios(1, mixes), ratios(0, gk)
+            print(f"train heads grads {fam} batch 8 draw {draw}: loss kernel {loss_k:.6f}, "
+                  f"twin-forward {loss_t:.6f}, plain bf16 {loss_p:.6f}, plain fp32 "
+                  f"{loss_32:.6f}; launches {counts}, recomputes {recomputes}; rel L2 from "
+                  f"fp32 over the plain bf16 path's, {len(mixes)} head-mix parameters: kernel "
+                  f"median {med(mk):.3f}, max {mk[-1][0]:.3f} ({mk[-1][1]}), twin-forward "
+                  f"median {med(mt):.3f}, max {mt[-1][0]:.3f} ({mt[-1][1]}); all {len(al)} "
+                  f"parameter tensors: kernel median {med(al):.3f}")
+            lfloor = max(2.0**-8 * abs(loss_32), 1e-3)
+            require(abs(loss_k - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), lfloor),
+                    f"train heads grads {fam} draw {draw}: loss {loss_k} from fp32 {loss_32} "
+                    f"beyond {GRAD_RATIO}x the plain bf16 path's {loss_p} (floor {lfloor:.3g})")
+            del gk, gt, gp, g32
+        del model, model32
+        torch.cuda.empty_cache()
+        rows = sorted(((max(rk for rk, _, _ in ds) / max(rp for _, _, rp in ds), k)
+                       for k, ds in dists.items()), reverse=True)
+        for ratio, k in rows[:4]:
+            print(f"train heads grads {fam} {k}: rel L2 from fp32 by draw, kernel / "
+                  f"twin-forward / plain bf16: "
+                  + "; ".join(f"{rk:.4g} / {rt:.4g} / {rp:.4g}" for rk, rt, rp in dists[k])
+                  + f" ({ratio:.3f} of the plain path's largest, bound {GRAD_RATIO})")
+        require(rows[0][0] <= GRAD_RATIO,
+                f"train heads grads {fam} {rows[0][1]}: {rows[0][0]:.3f}x the plain bf16 "
+                f"path's largest distance from fp32 over {HEAD_MIX_GRAD_DRAWS} draws")
+
+
+def timed_steps(what, state, step, images, labels, n, smi):
+    """``n`` steps timed by CUDA events (each ended by a read of its loss),
+    the Functions' backwards timed apart (``timed_backwards``); prints the
+    step, train img/s, peak memory, the Functions' share and the launches
+    and recomputes a step. Returns (losses, ms, launches, recomputes) with
+    the counts a step."""
+    from vit_tpu_torch import ops
+
+    dev = images.device
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    times, spans, losses = [], [], []
+    with timed_backwards(spans):
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(state, images, labels)
+            end.record()
+            losses.append(float(loss))
+            times.append(start.elapsed_time(end))
+            print(f"{what} step {state.step}: loss {losses[-1]:.5f}, {times[-1]:.1f} ms "
+                  f"(CUDA events)")
+    torch.cuda.synchronize()
+    recompute_ms = collections.defaultdict(float)
+    for name, s0, s1 in spans:
+        recompute_ms[name] += s0.elapsed_time(s1) / n
+    counts = {k: v / n for k, v in ops.launch_counts().items() if v}
+    recomputes = {k: v / n for k, v in ops.recompute_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = statistics.mean(times)
+    total = sum(recompute_ms.values())
+    print(f"{what} bf16 batch {images.shape[0]}: {images.shape[0] / ms * 1e3:.1f} train img/s, "
+          f"step {ms:.1f} ms (mean of {n}; min {min(times):.1f}, max {max(times):.1f}), peak "
+          f"memory {peak:.2f} GiB; launches a step {counts}, backward recomputes a step "
+          f"{recomputes} [{smi}]")
+    print(f"{what} backward recomputes: {total:.1f} ms a step ({total / ms:.1%} of it; CUDA "
+          f"events around each Function's backward): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(recompute_ms.items())))
+    return losses, ms, counts, recomputes
+
+
+def phase_train_heads_steps(dev, smi):
+    """22c: ``vit_tpu_torch.train`` on each preset (``HEAD_MIX_TRAIN``) in
+    bf16, batch 128: ``init_params`` from a seed, a fixed batch, AdamW at
+    TRAIN_LR, remat (CaiT ignores it, as vit_tpu's), a warm-up step, a
+    profiled one and three timed ones (``timed_steps``): finite losses and
+    exactly the launches and recomputes of ``head_mix_train_counts``. Then
+    MUON_STEPS muon steps on CaiT (finite losses, the same counts), two CaiT
+    steps at the preset's own dropout 0.1 (no talking-heads launch: vit_tpu's
+    dropout route materializes the scores), and the trainer's CLI on CaiT
+    with ``--optimizer muon`` at the preset's widths, two steps."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch import train as tt
+
+    for fam in HEAD_MIX_TRAIN:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+        model = head_mix_train_model(fam, dev, gen)
+        want_launches, want_recomputes = head_mix_train_counts(model)
+        images = torch.randn(TRAIN_BATCH, 256, 256, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+        runs = [("adamw", 3)] + ([("muon", MUON_STEPS)] if fam == "cait" else [])
+        for name, n in runs:
+            if name == "muon":
+                model = head_mix_train_model(fam, dev, torch.Generator(device=dev).manual_seed(
+                    SEED + 83))
+            opt = tt.make_optimizer(TRAIN_LR, name=name)
+            state = tt.create_train_state(model, opt, gen, init=False)
+            step = tt.make_train_step(model, opt, remat=True)
+            t0 = time.perf_counter()
+            first = float(step(state, images, labels))
+            print(f"train heads {fam} {name} step 1 (first, untimed): loss {first:.5f}, "
+                  f"{time.perf_counter() - t0:.1f} s host clock")
+            if name == "adamw":
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    float(step(state, images, labels))
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                kernels, busy, by_kind = step_kernels(prof)
+                print(f"train heads profile {fam} batch {TRAIN_BATCH}: device busy {busy:.1f} ms "
+                      f"in a {wall:.1f} ms step (host clock, profiler on; idle "
+                      f"{max(0.0, 1 - busy / wall):.1%}); by kind, ms: "
+                      + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})"
+                                  for k, v in by_kind.items()))
+                for ms, count, key in kernels[:6]:
+                    print(f"train heads profile {fam}: {ms:9.2f} ms x{count:<5d} {key[:90]}")
+                del prof
+            losses, ms, counts, recomputes = timed_steps(f"train heads {fam} {name}", state, step,
+                                                         images, labels, n, smi)
+            require(all(np.isfinite([first] + losses)),
+                    f"train heads {fam} {name}: a non-finite loss in {[first] + losses}")
+            require(counts == want_launches,
+                    f"train heads {fam} {name}: launches {counts}, not {want_launches} a step")
+            require(recomputes == want_recomputes,
+                    f"train heads {fam} {name}: recomputes {recomputes}, not {want_recomputes}")
+            del state, step
+        del model, images
+        torch.cuda.empty_cache()
+    # the preset's own dropout: vit_tpu's th_fusable is false in training
+    gen = torch.Generator(device=dev).manual_seed(SEED + 84)
+    model = head_mix_train_model("cait", dev, gen, cfg=CAIT_PRESET_DROPOUT)
+    opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+    state = tt.create_train_state(model, opt, gen, init=False)
+    images = torch.randn(TRAIN_BATCH, 256, 256, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    step = tt.make_train_step(model, opt, remat=True)
+    float(step(state, images, labels))
+    losses, ms, counts, recomputes = timed_steps("train heads cait preset dropout 0.1", state,
+                                                 step, images, labels, 2, smi)
+    require(np.isfinite(losses).all(), f"train heads cait dropout 0.1: loss {losses}")
+    require(counts.get("talking_heads_block", 0) == 0,
+            f"train heads cait dropout 0.1: {counts} launched kernel 7")
+    del state, step, model, images
+    torch.cuda.empty_cache()
+    cfg = {k: v for k, v in HEAD_MIX_TRAIN["cait"].items() if k not in ("num_classes",
+                                                                          "image_size")}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tt.main(["--model", "cait", "--config", json.dumps(cfg), "--optimizer", "muon",
+                      "--steps", "2", "--batch", "8", "--image-size", "256"])
+    lines = out.getvalue().strip().splitlines()
+    print(f"train heads cli python -m vit_tpu_torch.train --model cait --config <the preset's, "
+          f"dropout 0> --optimizer muon --steps 2 --batch 8: rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-2:])}")
+    require(rc == 0 and "step 2: loss" in out.getvalue(),
+            "python -m vit_tpu_torch.train --model cait --optimizer muon failed")
+
+
+def phase_train_heads(dev, smi):
+    """Phase 22: training CaiT and DeepViT on kernels 7 and 8 (22a-c);
+    returns 22a's worst gradient error by kernel."""
+    t_phase = time.perf_counter()
+    worst = phase_train_heads_functions(dev)
+    phase_train_heads_grads(dev)
+    phase_train_heads_steps(dev, smi)
+    print(f"phase 22 (training CaiT and DeepViT) took {time.perf_counter() - t_phase:.1f} s "
           f"[{smi}]")
     return worst
 
@@ -6350,6 +6740,10 @@ def main() -> int:
     # 21. training Twins-SVT and T2T-ViT: kernels 3-6 through their autograd
     # Functions, the bf16 Dense backward under fp32 sums
     grad_worst.update(phase_train_zoo(dev, smi))
+
+    # 22. training CaiT and DeepViT: kernels 7 and 8 through their autograd
+    # Functions, LayerScale with stochastic depth, the muon optimizer
+    grad_worst.update(phase_train_heads(dev, smi))
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

@@ -684,12 +684,10 @@ def test_init_params_matches_flax_init_in_shape_and_distribution(model):
 
 
 def test_init_params_refuses_unknown_parameters_with_the_roadmap_item():
-    from vit_tpu_torch.models import CaiT
+    from vit_tpu_torch.models import MODEL_REGISTRY, NesT
 
-    with pytest.raises(NotImplementedError, match="Twins-SVT and T2T-ViT; ROADMAP.md"):
-        init_params(CaiT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=1,
-                         cls_depth=1, heads=4, mlp_dim=128, dim_head=16, device="cpu"),
-                    torch.Generator())
+    with pytest.raises(NotImplementedError, match="CaiT and DeepViT; ROADMAP.md"):
+        init_params(NesT(**MODEL_REGISTRY["nest"][1], device="cpu"), torch.Generator())
 
 
 # -- the trainer ---------------------------------------------------------------------
@@ -716,7 +714,8 @@ def test_trainer_accepts_both_families_and_its_cli_trains_them(name, capsys):
 
 def test_refuse_grad_points_at_the_functions():
     """Kernels 3-6 called raw under grad name the entry that differentiates
-    them; the others say they have no Function."""
+    them; the int8 kernels say they have no Function (kernels 7 and 8 name
+    theirs: tests/test_torch_train_heads.py)."""
     leaf = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match=r"ops\.attention \(FlashAttentionFn\)"):
         ops.flash_attention(leaf, leaf, leaf)
@@ -725,7 +724,8 @@ def test_refuse_grad_points_at_the_functions():
     with pytest.raises(NotImplementedError, match="WindowAttentionBlockFn"):
         twa.fused_window_attention_block(leaf, leaf, leaf, leaf, leaf, leaf, 1)
     with pytest.raises(NotImplementedError, match="no autograd Function .*item 7"):
-        ops.fused_talking_heads_block(leaf, leaf, leaf, leaf, leaf, leaf, leaf, leaf, 1)
+        ops.fused_quant_mlp(leaf, leaf, leaf, torch.zeros(2, dtype=torch.int8), leaf, leaf,
+                            torch.zeros(2, dtype=torch.int8), leaf, leaf)
 
 
 # -- on the card -------------------------------------------------------------------------

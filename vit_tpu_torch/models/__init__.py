@@ -10,8 +10,8 @@ neither. Nothing is built on import: a config holds keyword arguments only
 ``TRAINING_ONLY_DROPPED``: the training-only keys of ``vit_tpu``'s configs
 that a port constructor does not take (those families are served, not
 trained, by the port, so dropout and stochastic depth do nothing), dropped
-from that family's registry config and preset. ``ViT`` trains
-(``vit_tpu_torch.train``) and takes its dropout keys. Every other config key
+from that family's registry config and preset. ``ViT``, ``CaiT`` and
+``DeepViT`` train (``vit_tpu_torch.train``) and take their dropout keys. Every other config key
 is ``vit_tpu``'s, with its value.
 """
 

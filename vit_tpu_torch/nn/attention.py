@@ -65,9 +65,13 @@ branch takes the unfused path with the materialized scores, as
 ``vit_tpu``'s ``needs_materialized`` does: dropout on the probabilities
 (``attn_drop``) and on the output projection (``out_drop``), flax's
 ``Dropout`` (keep with probability ``1 - p``, kept values divided by it),
-its masks drawn from the ``generator`` passed in. ``train=True`` with
-``dropout`` 0 takes the inference routes. Cross-attention takes no
-dropout.
+its masks drawn from the ``generator`` passed in (``bernoulli``).
+``train=True`` with ``dropout`` 0 takes the inference routes, as
+``vit_tpu``'s ``th_fusable`` and ``reattn_fusable`` (:227-249) do: the
+talking-heads and re-attention kernels only there. Cross-attention drops
+at the same rate: ``attn_drop`` on its probabilities (the low-query path's
+after the post-softmax mix, :462; else the materializing path, :503) and
+``out_drop`` after ``to_out`` (:409).
 
 ``mha_tokens`` (:70-91) is the functional attention of the window and
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
@@ -129,6 +133,15 @@ def mha_tokens(q, k, v, heads: int, *, scale=None, bias=None) -> torch.Tensor:
     return merge_heads(ops.attention(q, k, v, bias, scale=scale))
 
 
+def bernoulli(keep_prob: float, shape, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """The port's ``jax.random.bernoulli``: a bool tensor of ``shape``, each
+    value True with probability ``keep_prob``, drawn from ``generator``
+    (None: PyTorch's default). Every dropout mask and CaiT's
+    stochastic-depth gate is drawn here."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout(rate)`` in training: each value kept with
     probability ``1 - rate`` and divided by it, else zero (in ``x``'s
@@ -136,7 +149,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     if rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = bernoulli(keep_prob, x.shape, generator, x.device)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -236,9 +249,7 @@ class Attention(nn.Module):
         if self.cross:
             if bias is not None:
                 raise NotImplementedError(f"a bias on cross-attention: {_LATER}")
-            if drop:
-                raise NotImplementedError(f"dropout on cross-attention: {_LATER}")
-            return self._cross_attention(x, context, kv_include_self)
+            return self._cross_attention(x, context, kv_include_self, drop, generator)
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
         if self.qkv_bias:
@@ -323,8 +334,11 @@ class Attention(nn.Module):
             return y.reshape(*out.shape[:-1], n)
         return (_mm(out, w) + self.out_bias).to(out_dtype)
 
-    def _cross_attention(self, x, context, kv_include_self):
-        """The flax branch (vit_tpu/nn/attention.py:356-410)."""
+    def _cross_attention(self, x, context, kv_include_self, drop=0.0, generator=None):
+        """The flax branch (vit_tpu/nn/attention.py:356-410), with dropout
+        at rate ``drop``: ``attn_drop`` on the probabilities (the low-query
+        path's after its post-softmax mix, :462; the materializing path's,
+        :503), then ``out_drop`` after ``to_out`` (:409)."""
         if context is None:
             raise ValueError("cross-attention takes a context")
         residual = x
@@ -345,23 +359,24 @@ class Attention(nn.Module):
                  else 4 * n_q * (inner + n_kv) <= n_kv * inner)
         )
         if lowq:
-            out = self._lowq_cross_attention(q, kv_src)
+            out = self._lowq_cross_attention(q, kv_src, drop, generator)
         else:
             k, v = self.to_kv(kv_src).chunk(2, dim=-1)
             q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
-            if self.talking_heads or self.reattention:
-                out = merge_heads(self._materializing_attention(q, k, v))
+            if self.talking_heads or self.reattention or drop:
+                out = merge_heads(self._materializing_attention(q, k, v, None, drop, generator))
             else:
                 out = merge_heads(ops.attention(q, k, v, scale=self.scale))
-        out = self.to_out(out)
+        out = dropout(self.to_out(out), drop, generator)
         return out + residual if self.fuse_residual else out
 
-    def _lowq_cross_attention(self, q, context):
+    def _lowq_cross_attention(self, q, context, drop=0.0, generator=None):
         """Reassociated cross-attention for few queries (vit_tpu/nn/
         attention.py:424-469): ``q (C W_k)^T = (q W_k^T) C^T`` and
         ``p (C W_v) = (p C) W_v``, so no op is proportional to the context
         length times the width twice. Scores stay materialized, so the
-        talking-heads mixes slot in unchanged."""
+        talking-heads mixes and ``attn_drop`` (rate ``drop``) slot in
+        unchanged."""
         h, e = self.heads, self.dim_head
         d_model = context.shape[-1]
         dtype = self.dtype or context.dtype
@@ -377,6 +392,7 @@ class Attention(nn.Module):
         p = _softmax(s)
         if self.talking_heads:
             p = torch.einsum("bhqj,hg->bgqj", p, self.mix_heads_post)
+        p = dropout(p, drop, generator)
         u = _einsum("bhqj,bjd->bhqd", p.to(c.dtype), c, dtype)
         return merge_heads(_einsum("bhqd,dhe->bhqe", u, wv, dtype))
 

@@ -23,13 +23,14 @@ the entries call the twins, never an operator.
 Gradients: on the CPU the twins are plain PyTorch, differentiated by autograd:
 under grad the entries call them directly. On the card a kernel writes its
 output through raw pointers, outside the autograd graph, so the entries of
-kernels 1-6 go through autograd Functions when grad mode is on and an operand
+kernels 1-8 go through autograd Functions when grad mode is on and an operand
 requires grad: the kernel forward, and ``vit_tpu``'s backward of that kernel
 (``AttentionBlockFn``, ``MlpFn``, ``QkvAttentionFn``,
-``WindowAttentionBlockFn``: its recompute through the twin;
-``FlashAttentionFn`` for kernels 4 and 5: the Q-chunked flash backward).
-Called directly under grad, a kernel wrapper raises
-(``_build.refuse_grad``); kernels 7-10 have no Function.
+``WindowAttentionBlockFn``, ``TalkingHeadsBlockFn``, ``ReattentionBlockFn``:
+its recompute through the twin; ``FlashAttentionFn`` for kernels 4 and 5:
+the Q-chunked flash backward). Called directly under grad, a kernel wrapper
+raises (``_build.refuse_grad``); kernels 9 and 10 have no Function (they are
+inference only in ``vit_tpu`` too).
 
 Each kernel wrapper counts its launches: ``launch_counts()``; each
 Function's backward its recomputes: ``recompute_counts()``.
@@ -89,6 +90,8 @@ from vit_tpu_torch.ops.quant_block import (
     xla_quant_attention_block,
 )
 from vit_tpu_torch.ops.reattention_block import (
+    ReattentionBlockFn,
+    TalkingHeadsBlockFn,
     fused_reattention_block,
     fused_talking_heads_block,
     reattention_block_op,
@@ -131,6 +134,8 @@ __all__ = [
     "QkvAttentionFn",
     "FlashAttentionFn",
     "WindowAttentionBlockFn",
+    "TalkingHeadsBlockFn",
+    "ReattentionBlockFn",
     "fused_attention_block",
     "xla_attention_block",
     "fused_mlp",
@@ -240,6 +245,14 @@ def _window_kernel(*args):
     return _differentiable(WindowAttentionBlockFn, fused_window_attention_block, args)
 
 
+def _talking_heads_kernel(*args):
+    return _differentiable(TalkingHeadsBlockFn, fused_talking_heads_block, args)
+
+
+def _reattention_kernel(*args):
+    return _differentiable(ReattentionBlockFn, fused_reattention_block, args)
+
+
 def attention(q, k, v, bias=None, *, scale=None, mask_self: bool = False):
     """Multi-head attention ``[B, H, Nq, D]``, ``[B, H, Nk, D]``, ``[B, H,
     Nk, Dv]`` -> ``[B, H, Nq, Dv]``, with an optional additive bias
@@ -346,12 +359,13 @@ def talking_heads_block(
     scale=None, ln_eps=1e-5, residual=False,
 ):
     """CaiT talking-heads block (LN -> qkv -> scores -> pre-softmax head mix
-    -> softmax -> post-softmax head mix -> P V -> out-proj [-> +residual])."""
+    -> softmax -> post-softmax head mix -> P V -> out-proj [-> +residual]).
+    On the card under grad, through ``TalkingHeadsBlockFn``."""
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
     args = (x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, int(heads), float(scale),
             float(ln_eps), bool(residual))
-    return _route(talking_heads_block_op, fused_talking_heads_block, xla_talking_heads_block,
+    return _route(talking_heads_block_op, _talking_heads_kernel, xla_talking_heads_block,
                   *args)(*args)
 
 
@@ -360,12 +374,13 @@ def reattention_block(
     scale=None, ln_eps=1e-6, reattn_eps=1e-6,
 ):
     """DeepViT re-attention block (LN -> qkv -> softmax -> head mix ->
-    LayerNorm across heads -> P V -> out-proj -> +residual)."""
+    LayerNorm across heads -> P V -> out-proj -> +residual). On the card
+    under grad, through ``ReattentionBlockFn``."""
     if scale is None:
         scale = (wqkv.shape[1] // 3 // heads) ** -0.5
     args = (x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, int(heads),
             float(scale), float(ln_eps), float(reattn_eps))
-    return _route(reattention_block_op, fused_reattention_block, xla_reattention_block,
+    return _route(reattention_block_op, _reattention_kernel, xla_reattention_block,
                   *args)(*args)
 
 

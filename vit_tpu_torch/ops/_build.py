@@ -370,14 +370,17 @@ KERNELS = ("attention_block", "fused_mlp", "qkv_attention", "quant_attention_blo
            "flash_attention_kv_blocked")
 # the kernels whose wrappers have an autograd Function (ops/__init__.py)
 DIFFERENTIABLE = ("attention_block", "fused_mlp", "qkv_attention", "flash_attention",
-                  "window_attention_block", "flash_attention_kv_blocked")
-# the raw wrappers of kernels 3-6, each with the ops entry that runs it
+                  "window_attention_block", "flash_attention_kv_blocked", "talking_heads_block",
+                  "reattention_block")
+# the raw wrappers of kernels 3-8, each with the ops entry that runs it
 # through its autograd Function under grad
 GRAD_ENTRIES = {"fused_qkv_attention": "ops.qkv_attention (QkvAttentionFn)",
                 "flash_attention": "ops.attention (FlashAttentionFn)",
                 "flash_attention_kv_blocked": "ops.attention (FlashAttentionFn)",
                 "fused_window_attention_block":
-                    "ops.window_attention_block (WindowAttentionBlockFn)"}
+                    "ops.window_attention_block (WindowAttentionBlockFn)",
+                "talking_heads_block": "ops.talking_heads_block (TalkingHeadsBlockFn)",
+                "reattention_block": "ops.reattention_block (ReattentionBlockFn)"}
 _counts = collections.Counter()
 _recomputes = collections.Counter()
 _counts_lock = threading.Lock()
@@ -423,18 +426,17 @@ def needs_grad(*operands) -> bool:
 def refuse_grad(name: str, *operands) -> None:
     """Raise where an autograd graph would be cut: a kernel wrapper writes
     its output through raw pointers, so under grad mode an operand that
-    requires grad would get no gradient, silently. Kernels 3-6 are
+    requires grad would get no gradient, silently. Kernels 3-8 are
     differentiated by the Functions their ops entries run (``GRAD_ENTRIES``);
-    kernels 7 and 8 (CaiT's talking heads, DeepViT's re-attention) have no
-    Function yet, and 9 and 10 are inference only. Silent under
+    kernels 9 and 10 (the int8 blocks) and ``gemm_sm90`` have none: the int8
+    kernels are inference only, in ``vit_tpu`` too. Silent under
     ``torch.no_grad()`` and ``torch.inference_mode()``."""
     if needs_grad(*operands):
         entry = GRAD_ENTRIES.get(name)
         where = (f"under grad call {entry}, which differentiates it" if entry else
-                 "it has no autograd Function (kernels 7 and 8 wait for theirs; 9 and 10 are "
-                 "inference only)")
+                 "it has no autograd Function (kernels 9 and 10 are inference only)")
         raise NotImplementedError(
             f"{name} writes its output outside the autograd graph: {where}; or call it under "
             "torch.no_grad() or torch.inference_mode(), or on CPU tensors (its plain twin). "
-            "Kernels 1-6 train through autograd Functions; what is left of training is "
+            "Kernels 1-8 train through autograd Functions; what is left of training is "
             "ROADMAP.md Queue 1 item 7")

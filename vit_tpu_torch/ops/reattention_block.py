@@ -27,7 +27,13 @@ The stage helpers (``_qkv``, ``_scores``, ``_talking_heads_probs``,
 ``_reattention_probs``, ``_pv_out``) compose the twins; ``chip_smoke.py``
 runs them on a kernel's own intermediates to hold it stage by stage.
 ``talking_heads_block_op`` and ``reattention_block_op`` are the two kernels
-as ``torch.library`` operators (``_build.define_op``).
+as ``torch.library`` operators (``_build.define_op``). ``TalkingHeadsBlockFn``
+and ``ReattentionBlockFn`` are their autograd Functions: the kernel
+forward, ``vit_tpu``'s recompute backward. What the backward recomputes
+(``recompute_talking_heads_block``, ``recompute_reattention_block``) is
+``vit_tpu``'s XLA twin: the twin's function with each head mix one einsum
+and flax's LayerNorm across the heads, which needs no bitwise match with
+the kernel and runs a mix in one pass where the twin takes one a head.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import (
-    MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax,
+    MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax, recompute_vjp,
 )
 
 MAX_TOKENS = 256  # the core's domain: n <= 256, heads <= 16, dim_head % 16 == 0 up to 128
@@ -158,6 +164,43 @@ def xla_reattention_block(
     s, v = _scores(_qkv(x, ln_scale, ln_bias, wqkv, ln_eps), heads, scale)
     _, p = _reattention_probs(s, mix, rln_scale, rln_bias, reattn_eps, true_n)
     return _pv_out(p, v, x, wout, bout, True)
+
+
+# -- the backwards' recomputes ---------------------------------------------------
+
+
+def _einsum_mix(t, mix):
+    """``_mix_heads`` as one product over the heads, ``vit_tpu``'s
+    ``einsum('bhij,hg->bgij')``: the same function in another sum order."""
+    return torch.einsum("bhij,hg->bgij", t, mix.float())
+
+
+def recompute_talking_heads_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads, scale,
+    ln_eps=1e-5, residual=False,
+):
+    """What ``TalkingHeadsBlockFn``'s backward differentiates: ``vit_tpu``'s
+    ``xla_talking_heads_block``, which its ``_th_bwd`` recomputes. The twin's
+    stages, with each head mix one einsum (``_einsum_mix``) where the twin
+    sums a head at a time in the kernel's order; the real tokens only, so
+    no key is masked."""
+    s, v = _scores(_qkv(x, ln_scale, ln_bias, wqkv, ln_eps), heads, scale)
+    p = _einsum_mix(_softmax(_einsum_mix(s, mix_pre)), mix_post)
+    return _pv_out(p, v, x, wout, bout, residual)
+
+
+def recompute_reattention_block(
+    x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads, scale,
+    ln_eps=1e-6, reattn_eps=1e-6,
+):
+    """What ``ReattentionBlockFn``'s backward differentiates: ``vit_tpu``'s
+    ``xla_reattention_block``, which its ``_reattn_bwd`` recomputes: the mix
+    one einsum, the LayerNorm across the heads flax's (``_ln_f32`` over the
+    head axis moved last); the real tokens only."""
+    s, v = _scores(_qkv(x, ln_scale, ln_bias, wqkv, ln_eps), heads, scale)
+    r = _einsum_mix(_softmax(s), mix).permute(0, 2, 3, 1)
+    r = _ln_f32(r, rln_scale.float(), rln_bias.float(), reattn_eps).permute(0, 3, 1, 2)
+    return _pv_out(r, v, x, wout, bout, True)
 
 
 # -- the kernels ----------------------------------------------------------------
@@ -375,3 +418,73 @@ reattention_block_op = _build.define_op(
     "float ln_eps, float reattn_eps) -> Tensor",
     cuda=fused_reattention_block, cpu=xla_reattention_block, fake=_build.contiguous_like,
 )
+
+
+class TalkingHeadsBlockFn(torch.autograd.Function):
+    """The talking-heads block as an autograd Function (``vit_tpu``'s
+    ``_th_ad``, ``vit_tpu/ops/reattention_block.py:361-387``).
+
+    Forward: ``forward_fn`` (the kernel, ``fused_talking_heads_block``, on
+    the main path; a CPU test passes the twin), saving only the eight
+    operands, as ``_th_fwd`` does. Backward, as ``_th_bwd``:
+    ``recompute_talking_heads_block`` (the twin's function with einsum head
+    mixes, as ``vit_tpu``'s XLA twin) run on them, with ``residual``, and
+    differentiated at the cotangent cast to ``x``'s dtype
+    (``block_attention.recompute_vjp``): gradients for ``x``, ``ln_scale``,
+    ``ln_bias``, ``wqkv``, ``wout``, ``bout``, ``mix_pre`` and ``mix_post``.
+    The ``[B, H, N, N]`` scores exist only inside the backward.
+
+    ``apply(forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre,
+    mix_post, heads, scale, ln_eps, residual)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post,
+                heads, scale, ln_eps, residual):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post)
+        ctx.config = (heads, scale, ln_eps, residual)
+        return forward_fn(x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post, heads, scale,
+                          ln_eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, scale, ln_eps, residual = ctx.config
+        grads = recompute_vjp(
+            lambda *a: recompute_talking_heads_block(*a, heads, scale, ln_eps, residual),
+            ctx.saved_tensors, ctx.needs_input_grad[1:9], g)
+        _build.count_recompute("talking_heads_block")
+        return (None, *grads, None, None, None, None)
+
+
+class ReattentionBlockFn(torch.autograd.Function):
+    """The re-attention block as an autograd Function (``vit_tpu``'s
+    ``_reattn_ad``, ``vit_tpu/ops/reattention_block.py:544-570``).
+
+    Forward: ``forward_fn`` (the kernel, ``fused_reattention_block``, which
+    pads the tokens to a multiple of 16 inside and masks the padded keys; a
+    CPU test passes the twin), saving only the nine operands as given: the
+    unpadded ``x``, as ``_reattn_fwd`` saves it. Backward, as
+    ``_reattn_bwd``: ``recompute_reattention_block`` (``vit_tpu``'s XLA
+    twin: an einsum mix, flax's LayerNorm across the heads) run on the real
+    tokens and differentiated at the cotangent cast to ``x``'s dtype,
+    so no padded key column reaches a gradient: gradients for ``x``, the
+    LayerNorm, the weights, ``mix``, ``rln_scale`` and ``rln_bias``.
+
+    ``apply(forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, mix,
+    rln_scale, rln_bias, heads, scale, ln_eps, reattn_eps)``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias,
+                heads, scale, ln_eps, reattn_eps):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias)
+        ctx.config = (heads, scale, ln_eps, reattn_eps)
+        return forward_fn(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads,
+                          scale, ln_eps, reattn_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, scale, ln_eps, reattn_eps = ctx.config
+        grads = recompute_vjp(
+            lambda *a: recompute_reattention_block(*a, heads, scale, ln_eps, reattn_eps),
+            ctx.saved_tensors, ctx.needs_input_grad[1:10], g)
+        _build.count_recompute("reattention_block")
+        return (None, *grads, None, None, None, None)

@@ -12,6 +12,9 @@ step's dropout and augmentation draws). ``make_optimizer`` returns an
   ``sqrt(v / (1 - b2^t))``);
 - ``lamb``: ``Lamb``, optax's ``lamb`` (``scale_by_adam`` with eps 1e-6,
   ``add_decayed_weights``, ``scale_by_trust_ratio``, the learning rate);
+- ``muon``: ``Muon``, optax's ``contrib.muon`` (Nesterov momentum
+  orthogonalized by Newton-Schulz on the leaves of ``vit_tpu``'s tree that
+  are matrices, NAdamW on the others);
 - the learning rate a float or a schedule of the update count, evaluated as
   optax does: the first update uses ``schedule(0)``;
 - ``grad_clip_norm``: ``clip_by_global_norm``, optax's rule (``g / norm *
@@ -23,19 +26,24 @@ forward with ``train=True`` (on the card the kernels forward and their
 autograd Functions' backward: ``ops.AttentionBlockFn`` and ``ops.MlpFn`` for
 ViT; ``ops.WindowAttentionBlockFn``, ``ops.FlashAttentionFn`` and
 ``ops.MlpFn`` for Twins-SVT; ``ops.FlashAttentionFn`` on kernel 5,
-``ops.AttentionBlockFn`` and ``ops.MlpFn`` for T2T-ViT; a bf16 ``Dense``
+``ops.AttentionBlockFn`` and ``ops.MlpFn`` for T2T-ViT;
+``ops.TalkingHeadsBlockFn`` and ``ops.MlpFn`` for CaiT;
+``ops.ReattentionBlockFn`` and ``ops.MlpFn`` for DeepViT; a bf16 ``Dense``
 through ``nn.embed.MmRoundedFn``), per-block remat, ``accum_steps``
 microbatches averaged before
 one update, soft targets under ``augment_fn``, distillation under
 ``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``,
 weight-only int8 QAT under ``qat`` (``utils.quantize.fake_quantized``).
-Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT`` and ``T2TViT``; every
-other family raises.
+Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT``, ``T2TViT``, ``CaiT``
+and ``DeepViT``; every other family raises. CaiT and DeepViT reach kernels 7
+and 8 only at ``dropout=0``: their presets' ``dropout=0.1`` takes
+``vit_tpu``'s materializing route in training, which launches neither.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -166,7 +174,140 @@ def trust_groups(model: nn.Module) -> List[List[nn.Parameter]]:
     return list(groups.values())
 
 
-OPTIMIZERS = ("adamw", "lamb")
+def leaf_groups(model: nn.Module) -> List[Tuple[int, List[nn.Parameter]]]:
+    """``trust_groups`` with the rank of each group's leaf in ``vit_tpu``'s
+    tree: the parameter's own rank, one more for the layers of a scanned
+    stack (a group of more than one parameter), whose leaf stacks them."""
+    return [(g[0].dim() + (len(g) > 1), g) for g in trust_groups(model)]
+
+
+# optax 0.2.6's ``contrib.muon`` defaults, as ``vit_tpu`` builds it
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+NS_STEPS = 5
+MUON_BETA = 0.95
+MUON_EPS = 1e-8
+
+
+def orthogonalize(x: torch.Tensor) -> torch.Tensor:
+    """optax's ``orthogonalize_via_newton_schulz`` of a matrix: transposed
+    where it has more rows than columns, divided by its Frobenius norm plus
+    ``MUON_EPS``, then ``NS_STEPS`` quintic Newton-Schulz steps ``a X + (b A
+    + (c A) A) X``, ``A = X X^T``, in optax's operation order."""
+    a, b, c = NS_COEFFS
+    tall = x.shape[0] > x.shape[1]
+    if tall:
+        x = x.t()
+    x = x / (torch.linalg.norm(x) + MUON_EPS)
+    for _ in range(NS_STEPS):
+        gram = x @ x.t()
+        x = a * x + (b * gram + (c * gram) @ gram) @ x
+    return x.t() if tall else x
+
+
+class Muon(torch.optim.Optimizer):
+    """optax's ``contrib.muon`` (0.2.6) as ``vit_tpu``'s ``make_optimizer``
+    builds it: one parameter group a leaf of ``vit_tpu``'s tree
+    (``leaf_groups``), labelled as optax labels the tree: ``muon`` where the
+    leaf is a matrix, else ``adam``. The rank is the leaf's, not the port
+    parameter's: a stack that ``vit_tpu`` scans holds its layers in one leaf
+    of one more rank, so a depth-24 ViT's ``qkv_kernel`` ``[24, D, 3HD]``
+    takes Adam while its stacked biases and LayerNorm scales ``[24, D]``
+    take muon, orthogonalized across the layers. That is ``vit_tpu``'s
+    behaviour, mirrored here.
+
+    ``muon`` groups: momentum ``mu = (1 - beta) g + beta mu`` (``beta`` =
+    ``MUON_BETA``), Nesterov ``beta mu / (1 - beta^(t+1)) + (1 - beta) g /
+    (1 - beta^t)``, the leaf stacked and ``orthogonalize``d, scaled by
+    ``sqrt(max(1, cols / rows))``, plus ``weight_decay`` times the
+    parameter, times ``-lr``. ``adam`` groups: optax's ``adamw(b1, b2,
+    MUON_EPS, weight_decay, nesterov=True)``, as muon builds it with
+    ``vit_tpu``'s ``adam_weight_decay=weight_decay``: the same Nesterov
+    first moment with ``b1``, ``nu / (1 - b2^t)``, ``mu_hat / (sqrt(nu_hat)
+    + eps)``, plus the decayed weights, times ``-lr``. Groups are dicts
+    ``{"params": [...], "muon": bool}`` sharing ``lr``, ``weight_decay`` and
+    ``betas`` (``Optimizer.build`` drives them with one ``LambdaLR``)."""
+
+    def __init__(self, params, lr=1e-3, weight_decay=0.0, betas=(0.9, 0.999)):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=betas, muon=False))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update. The elementwise parts run as multi-tensor
+        (``torch._foreach_*``) ops, in optax's operation order, over every
+        group of one label and update count; Newton-Schulz runs a leaf at a
+        time."""
+        if closure is not None:
+            raise NotImplementedError("Muon takes no closure")
+        buckets = collections.defaultdict(list)
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            if len(params) != len(group["params"]):
+                raise ValueError("a stacked leaf's layers must all have gradients")
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    if not group["muon"]:
+                        state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+            buckets[group["muon"], self.state[params[0]]["step"]].append((group, params))
+        for (muon, t), entries in buckets.items():
+            group = entries[0][0]
+            params = [p for _, ps in entries for p in ps]
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["mu"] for p in params]
+            if muon:
+                _moments_(mus, grads, MUON_BETA)
+                mu_hat = iter(_nesterov(mus, grads, MUON_BETA, t))
+                updates = []
+                for _, ps in entries:
+                    updates += self._orthogonalized([next(mu_hat) for _ in ps])
+            else:
+                b1, b2 = group["betas"]
+                nus = [self.state[p]["nu"] for p in params]
+                _moments_(mus, grads, b1)
+                _moments_(nus, torch._foreach_mul(grads, grads), b2)
+                updates = _nesterov(mus, grads, b1, t)
+                denom = torch._foreach_sqrt(torch._foreach_div(nus, 1 - b2**t))
+                torch._foreach_add_(denom, MUON_EPS)
+                torch._foreach_div_(updates, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(updates, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_add_(params, torch._foreach_mul(updates, -group["lr"]))
+        return None
+
+    @staticmethod
+    def _orthogonalized(mu_hat):
+        """The leaf of ``mu_hat`` (its layers stacked), orthogonalized and
+        scaled by ``sqrt(max(1, cols / rows))``, split back into its layers."""
+        leaf = torch.stack(mu_hat) if len(mu_hat) > 1 else mu_hat[0]
+        if leaf.dim() != 2:
+            raise ValueError(f"muon takes matrices, got a leaf of shape {tuple(leaf.shape)}")
+        u = orthogonalize(leaf)
+        u = math.sqrt(max(1.0, leaf.shape[1] / leaf.shape[0])) * u
+        return list(u.unbind(0)) if len(mu_hat) > 1 else [u]
+
+
+def _moments_(ms, xs, decay):
+    """optax's ``update_moment`` in place over lists: ``m = (1 - decay) x +
+    decay m``."""
+    torch._foreach_mul_(ms, decay)
+    torch._foreach_add_(ms, torch._foreach_mul(xs, 1 - decay))
+
+
+def _nesterov(ms, gs, decay, t):
+    """optax's Nesterov first moment at update ``t``: ``decay m / (1 -
+    decay^(t+1)) + (1 - decay) g / (1 - decay^t)``, new tensors."""
+    hat = torch._foreach_div(ms, 1 - decay ** (t + 1))
+    torch._foreach_mul_(hat, decay)
+    torch._foreach_add_(hat, torch._foreach_mul(torch._foreach_div(gs, 1 - decay**t), 1 - decay))
+    return hat
+
+
+OPTIMIZERS = ("adamw", "lamb", "muon")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,11 +326,17 @@ class Optimizer:
     def build(self, model: nn.Module
               ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
         """The optimizer on ``model``'s parameters (LAMB's in
-        ``trust_groups``) at a base rate of 1 and its ``LambdaLR``, which
-        sets update k's rate to ``learning_rate(k)``."""
+        ``trust_groups``, muon's in ``leaf_groups``, labelled by rank) at a
+        base rate of 1 and its ``LambdaLR``, which sets update k's rate to
+        ``learning_rate(k)``. muon's Adam leaves decay at ``weight_decay``
+        too, as ``vit_tpu`` passes ``adam_weight_decay=weight_decay``."""
         kw = dict(lr=1.0, betas=(self.b1, self.b2), weight_decay=self.weight_decay)
-        opt = (torch.optim.AdamW(model.parameters(), eps=1e-8, **kw) if self.name == "adamw"
-               else Lamb([{"params": g} for g in trust_groups(model)], eps=1e-6, **kw))
+        if self.name == "adamw":
+            opt = torch.optim.AdamW(model.parameters(), eps=1e-8, **kw)
+        elif self.name == "lamb":
+            opt = Lamb([{"params": g} for g in trust_groups(model)], eps=1e-6, **kw)
+        else:
+            opt = Muon([{"params": g, "muon": rank == 2} for rank, g in leaf_groups(model)], **kw)
         lr = self.learning_rate
         schedule = lr if callable(lr) else (lambda _: lr)
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
@@ -198,11 +345,8 @@ class Optimizer:
 def make_optimizer(learning_rate: Union[float, Schedule] = 1e-3, weight_decay: float = 0.05, *,
                    name: str = "adamw", grad_clip_norm: Optional[float] = None,
                    b1: float = 0.9, b2: float = 0.999) -> Optimizer:
-    """``vit_tpu``'s named optimizer factory: ``"adamw"`` or ``"lamb"``, with
-    ``grad_clip_norm`` clipping the global norm first. ``"muon"`` is not
-    ported (ROADMAP.md Queue 1 item 7)."""
-    if name == "muon":
-        raise NotImplementedError("the muon optimizer is not ported (ROADMAP.md Queue 1 item 7)")
+    """``vit_tpu``'s named optimizer factory: ``"adamw"``, ``"lamb"`` or
+    ``"muon"``, with ``grad_clip_norm`` clipping the global norm first."""
     if name not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r} (adamw|lamb|muon)")
     return Optimizer(name, learning_rate, weight_decay, b1, b2, grad_clip_norm)
@@ -238,13 +382,13 @@ def create_train_state(model: nn.Module, optimizer: Optional[Optimizer] = None,
 def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable:
     """``apply(images, generator) -> (logits, aux_losses)`` in training mode,
     or raise for a model whose training is not ported."""
-    from vit_tpu_torch.models import T2TViT, TwinsSVT, ViT, ViTMoE
+    from vit_tpu_torch.models import CaiT, DeepViT, T2TViT, TwinsSVT, ViT, ViTMoE
     from vit_tpu_torch.nn.embed import BatchNorm
 
     if any(isinstance(m, BatchNorm) for m in model.modules()):
         raise NotImplementedError("BatchNorm with batch statistics is not ported "
                                   "(ROADMAP.md Queue 1 item 7, step 2)")
-    if isinstance(model, (ViT, TwinsSVT, T2TViT)):
+    if isinstance(model, (ViT, TwinsSVT, T2TViT, CaiT, DeepViT)):
         if moe_aux_weight:
             raise ValueError("moe_aux_weight needs a model with MoE layers")
         return lambda x, gen: (model(x, train=True, generator=gen, remat=remat), [])
@@ -254,9 +398,9 @@ def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable
                                       "(ROADMAP.md Queue 1 item 7)")
         return lambda x, gen: model(x, return_aux=True)
     raise NotImplementedError(
-        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, Twins-SVT and T2T-ViT "
-        "train; the other families wait for ROADMAP.md Queue 1 item 7 (step 3 for their "
-        "modules, step 5 for the Functions of kernels 7 and 8 of CaiT and DeepViT)")
+        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, CaiT, DeepViT, Twins-SVT "
+        "and T2T-ViT train; the other families wait for ROADMAP.md Queue 1 item 7 (step 3 for "
+        "their modules)")
 
 
 def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,

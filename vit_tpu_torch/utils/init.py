@@ -2,8 +2,8 @@
 
 The port's constructors build zeros and ones (``models/vit.py``); a trainer
 starts from ``init_params(model, generator)``, which gives each parameter of
-ViT, Twins-SVT and T2T-ViT the distribution of its ``vit_tpu``
-initializer:
+ViT, Twins-SVT, T2T-ViT, CaiT and DeepViT the distribution of its
+``vit_tpu`` initializer:
 
 - ``lecun_normal`` (flax's ``variance_scaling(1, "fan_in",
   "truncated_normal")``: a unit normal truncated at +-2, times
@@ -21,7 +21,16 @@ initializer:
 - ``truncated_normal(0.02)`` for ``cls`` and ``pos_embedding``
   (``vit_tpu/models/vit.py:60-69``, ``models/t2t.py:75-80``);
 - zeros for biases (conv biases too), ones for LayerNorm scales
-  (``norm_scale`` of Twins' local attention).
+  (``norm_scale`` of Twins' local attention);
+- flax's ``normal(0.02)``, not truncated, for the head mixes
+  ``mix_heads_pre``, ``mix_heads_post`` and ``reattn_weights``
+  (``vit_tpu/nn/attention.py:251-257``, ``:413-421``); ones for
+  ``reattn_scale``, zeros for ``reattn_bias``;
+- CaiT's LayerScales ``ls_attn`` and ``ls_ff``: the constant
+  ``layer_scale_eps(model_depth)`` (``vit_tpu/models/cait.py:47-51``,
+  ``:93-98``), which each block keeps as ``ls_eps``. Its cross-attention's
+  ``to_q``, ``to_kv`` and ``to_out`` kernels are flax ``Dense`` kernels:
+  lecun, as above.
 
 The draws cannot be flax's (another generator); the distributions and the
 shapes are. A parameter of another initializer raises.
@@ -38,8 +47,10 @@ from torch import nn
 TRUNC_STD = 0.87962566103423978
 _LECUN = ("qkv_kernel", "out_kernel", "w1", "w2", "kernel")
 _TOKENS = ("cls", "pos_embedding")
-_ZEROS = ("bias", "b1", "b2", "out_bias", "norm_bias", "ln_bias")
-_ONES = ("scale", "norm_scale", "ln_scale")
+_ZEROS = ("bias", "b1", "b2", "out_bias", "norm_bias", "ln_bias", "reattn_bias")
+_ONES = ("scale", "norm_scale", "ln_scale", "reattn_scale")
+_MIXES = ("mix_heads_pre", "mix_heads_post", "reattn_weights")
+_LAYER_SCALES = ("ls_attn", "ls_ff")
 
 
 def truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -60,8 +71,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``named_parameters``, as ``vit_tpu``'s initializer of the same name
     draws it; returns ``model``. ``generator`` lies on the parameters'
     device."""
+    modules = dict(model.named_modules())
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        owner, _, leaf = name.rpartition(".")
         if leaf in _LECUN and p.dim() == 2:
             truncated_normal_(p, lecun_std(p.shape[0]), generator)
         elif leaf == "kernel" and p.dim() == 4:  # a conv kernel, OIHW
@@ -72,8 +84,12 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.zero_()
         elif leaf in _ONES:
             p.fill_(1.0)
+        elif leaf in _MIXES:
+            nn.init.normal_(p, 0.0, 0.02, generator=generator)
+        elif leaf in _LAYER_SCALES:
+            p.fill_(modules[owner].ls_eps)
         else:
             raise NotImplementedError(
                 f"{name} {tuple(p.shape)}: no vit_tpu initializer ported for it (init_params "
-                "covers ViT, Twins-SVT and T2T-ViT; ROADMAP.md Queue 1 item 7)")
+                "covers ViT, Twins-SVT, T2T-ViT, CaiT and DeepViT; ROADMAP.md Queue 1 item 7)")
     return model
