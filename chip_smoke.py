@@ -289,7 +289,27 @@ Runs, in order, and exits non-zero at the first failure:
      launches and recomputes a step, ms, img/s, peak memory, the Functions'
      backward ms, a profile), CaiT with muon, CaiT at the preset's own
      dropout 0.1 (no kernel 7 launch), and ``python -m vit_tpu_torch.train
-     --model cait --optimizer muon``.
+     --model cait --optimizer muon``;
+ 23. training CvT, LeViT, PiT and SimpleViT (``BN_TRAIN``: the presets'
+     widths at dropout 0): ``BatchNorm(train=True)`` on the card at CvT's
+     stage-1 and LeViT's stage-0 shapes, bf16 and fp32, with a dead channel
+     (its fast variance below zero before the clamp on the host), against
+     the same module on the host (output, new running statistics, the
+     gradients), with planted faults failing the bounds (the unbiased
+     running variance, torch's momentum convention, the running statistics
+     in the training forward, the statistics over the batch axis alone, one
+     update done twice); ``FlashAttentionFn``, ``MlpFn`` and
+     ``AttentionBlockFn`` at the new shapes (LeViT's learned bias and its
+     dbias, CvT's 3,136 queries against 784 keys, hard-swish without a
+     LayerNorm, PiT's 962 tokens) with planted faults; one step of each
+     preset in bf16 at batch 8 on three draws against the plain bf16 and
+     fp32 paths (gradients and running statistics); each preset at batch
+     128 with AdamW (exact launches and recomputes a step, ms, img/s, peak
+     memory, the Functions' backward ms, a profile); CvT and LeViT so
+     trained folded from their own state and served; LeViT at its preset's
+     dropout 0.1 and distilled from a frozen smaller LeViT; ``python -m
+     vit_tpu_torch.train --model levit|cvt`` with a checkpoint and a
+     resume.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -303,6 +323,7 @@ import collections
 import contextlib
 import gc
 import importlib
+import itertools
 import json
 import math
 import os
@@ -815,6 +836,14 @@ CAST_SKIPPED = "cotangent cast skipped"
 # queries clamped to end at Nq (re-reading earlier rows) instead of padded.
 FLASH_BWD_FAULTS = ("delta dropped", "dK unscaled", "dbias not reduced over a broadcast head axis",
                     "mask_self left out of the backward", "a chunk that clamps instead of padding")
+# A learned bias broadcast over the batch (LeViT's ``pos_bias`` table, [1, H,
+# Nq, Nk]): dbias taken from the first sample instead of summed over the
+# batch. Planted where the bias is batch-broadcast and B > 1.
+FLASH_BIAS_BWD_FAULT = "dbias not reduced over a broadcast batch axis"
+# Kernel 2 without its LayerNorm (LeViT's MLP: no ln_scale or ln_bias to
+# swap): the recompute run with the tanh GELU where the forward ran
+# hard-swish.
+MLP_BWD_FAULTS = ("recomputed with the tanh GELU in place of hard-swish",)
 # Kernel 3's: the q and k thirds of dqkv returned in each other's place.
 QKV_BWD_FAULTS = ("dq and dk swapped",)
 # Kernels 7 and 8's: the recompute run with a head mix transposed (the mixes
@@ -948,6 +977,10 @@ def flash_faulty_grads(args, kw, g, fault):
             return [dq, dk, dv, db[:, :1]]
         if fault == FLASH_BWD_FAULTS[3]:
             return list(fa.flash_backward(q, k, v, bias, out, g, scale, False))
+        if fault == FLASH_BIAS_BWD_FAULT:  # the bias taken per sample, sample 0's kept
+            wide = bias.expand(q.shape[0], *bias.shape[1:])
+            dq, dk, dv, db = fa.flash_backward(q, k, v, wide, out, g, scale, mask_self)
+            return [dq, dk, dv, db[:1]]
         with mock.patch.object(fa, "query_chunk", _clamped_chunk):
             return list(fa.flash_backward(q, k, v, bias, out, g, scale, mask_self))
 
@@ -961,9 +994,12 @@ def flash_faults(args, kw):
 
     q, k, _, bias = args
     nq = q.shape[2]
-    return [f for f, applies in zip(FLASH_BWD_FAULTS, (
+    faults = [f for f, applies in zip(FLASH_BWD_FAULTS, (
         True, k.shape[2] > 1, bias is not None and bias.shape[1] == 1 and q.shape[1] > 1,
         kw["mask_self"], nq > fa.BLOCK_Q and nq % fa.BLOCK_Q)) if applies]
+    if bias is not None and bias.shape[0] == 1 and q.shape[0] > 1:
+        faults.append(FLASH_BIAS_BWD_FAULT)
+    return faults
 
 
 def faulty_grads(kind, args, kw, g, fault):
@@ -972,8 +1008,11 @@ def faulty_grads(kind, args, kw, g, fault):
     ``HEAD_MIX_BWD_FAULTS``) planted, on the same inputs."""
     from vit_tpu_torch.ops.block_attention import recompute_vjp
 
-    if fault in FLASH_BWD_FAULTS:
+    if fault in FLASH_BWD_FAULTS or fault == FLASH_BIAS_BWD_FAULT:
         return flash_faulty_grads(args, kw, g, fault)
+    if fault == MLP_BWD_FAULTS[0]:
+        twin = function_twin(kind, dict(kw, activation="gelu"))
+        return recompute_vjp(twin, args, [a is not None for a in args], g)
     twin = function_twin(kind, kw)
     need = [a is not None for a in args]
     if fault == FUNCTION_FAULTS[0]:
@@ -1014,6 +1053,10 @@ def function_faults(kind, args, kw):
         return list(QKV_BWD_FAULTS)
     residual = kind in ("attention_block", "reattention_block") or kw.get("residual", False)
     faults = list(FUNCTION_FAULTS[0 if residual else 1:])
+    if kind == "fused_mlp" and args[5] is None:  # no LayerNorm: nothing to swap
+        faults.remove(FUNCTION_FAULTS[1])
+    if kind == "fused_mlp" and kw["activation"] == "hard_swish":
+        faults += MLP_BWD_FAULTS
     if kind == "talking_heads_block":
         faults += HEAD_MIX_BWD_FAULTS[:2]
     elif kind == "reattention_block":
@@ -6584,6 +6627,592 @@ def phase_train_heads(dev, smi):
     return worst
 
 
+# -- phase 23: training the BatchNorm and pooling families ----------------------
+
+# BatchNorm in training mode (``nn.embed.BatchNorm(train=True)``, flax's) at
+# the shapes CvT's stage 1 and LeViT's stage 0 give it: (what, map, channels,
+# momentum). CvT's to_q BatchNorm (flax's default momentum 0.99) and LeViT's
+# to_v BatchNorm (0.9).
+BN_SHAPES = (("CvT stage 1 to_q", (56, 56), 64, 0.99), ("LeViT stage 0 to_v", (14, 14), 256, 0.9))
+# Faults planted in a training BatchNorm, each of which the bounds of
+# ``bn_errors`` must see: the running variance updated with the unbiased
+# (n / (n - 1)) batch variance; torch's momentum convention (the new batch
+# statistic weighted by ``momentum``, as ``F.batch_norm`` takes it); the
+# running statistics used in the training forward; the statistics over the
+# batch axis alone (per position); the running update applied twice.
+BN_FAULTS = ("the unbiased running variance", "torch's momentum convention",
+             "the running statistics in the training forward",
+             "statistics over the batch axis alone", "one update done twice")
+# The dead channel's scale: the channel is constant, so its normalised value
+# is the rounding of x - mean times rsqrt(eps); a small scale keeps that
+# rounding (which differs between the card's sum order and the host's) below
+# the bounds, as the port's CPU tests keep a dead channel's scale at 4e-3.
+BN_DEAD_SCALE = 4e-3
+
+
+def bn_inputs(gen, b, hw, c, dtype, dead):
+    """``[b, *hw, c]`` in ``dtype`` (per-channel offsets and spreads, so that
+    the means are not near 0), channel 0 dead: ``dead`` but at one value, its
+    bf16 neighbour, so that the channel's mean rounds; fp32 scale
+    (the dead channel's BN_DEAD_SCALE) and bias; a cotangent."""
+    dev = gen.device
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = r(b, *hw, c) * (0.5 + r(c).abs()) + r(c)
+    x[..., 0] = dead
+    x[0, 0, 0, 0] = dead * (1 + 2.0**-7)  # its bf16 neighbour: E[x] not a bf16 value
+    scale, bias = 1.0 + 0.2 * r(c), 0.1 * r(c)
+    scale[0] = BN_DEAD_SCALE
+    return x.to(dtype), scale, bias, r(b, *hw, c).to(dtype)
+
+
+def bn_module(c, momentum, scale, bias, dtype, dev):
+    """A ``BatchNorm`` of ``c`` channels in ``dtype`` on ``dev`` with these
+    parameters, its running statistics cleared to 0 (so that after one
+    update they are ``(1 - momentum)`` times the batch's, and a bound on
+    them sees a relative fault of the batch statistic)."""
+    from vit_tpu_torch.nn.embed import BatchNorm
+
+    bn = BatchNorm(c, momentum=momentum, dtype=dtype, device=dev)
+    with torch.no_grad():
+        bn.scale.copy_(scale)
+        bn.bias.copy_(bias)
+        bn.mean.zero_()
+        bn.var.zero_()
+    return bn
+
+
+def bn_faulty(bn, x, fault):
+    """``bn(x, train=True)`` with ``fault`` (``BN_FAULTS``) planted: the
+    output, and ``bn``'s running statistics updated as the fault would."""
+    xf = x.float()
+    n, m = xf[..., 0].numel(), bn.momentum
+    axes = (0,) if fault == BN_FAULTS[3] else tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=axes)
+    var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+    with torch.no_grad():
+        ra_mean, ra_var = bn.mean.clone(), bn.var.clone()
+        smean, svar = mean, var
+        if fault == BN_FAULTS[3]:
+            smean, svar = (t.reshape(-1, t.shape[-1]).mean(0) for t in (mean, var))
+        if fault == BN_FAULTS[0]:
+            svar = var * n / (n - 1)
+        for _ in range(2 if fault == BN_FAULTS[4] else 1):
+            for ra, stat in ((bn.mean, smean), (bn.var, svar)):
+                ra.copy_(((1.0 - m) * ra + m * stat) if fault == BN_FAULTS[1]
+                         else (m * ra + (1.0 - m) * stat))
+    if fault == BN_FAULTS[2]:
+        mean, var = ra_mean, ra_var
+    y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.scale) + bn.bias
+    return y.to(bn.dtype or torch.float32)
+
+
+def bn_errors(y, mean, var, ref_y, ref_mean, ref_var, dtype):
+    """(name, max |err|, bound) of a training BatchNorm's output and new
+    running statistics against the reference: the output within one bf16
+    ulp of its largest value in bf16 (2^-17 of it in fp32: the fp32 sum
+    orders of the statistics), the statistics within 2e-6 of their largest
+    (fp32 means over at least 1,568 values a channel)."""
+    rows = []
+    for name, a, b, rel in (("out", y, ref_y, 2.0**-8 if dtype == torch.bfloat16 else 2.0**-17),
+                            ("running mean", mean, ref_mean, 2e-6),
+                            ("running var", var, ref_var, 2e-6)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        rows.append((name, (a - b).abs().max().item(), rel * b.abs().max().item()))
+    return rows
+
+
+def bn_dead_value(gen, b, hw, c, dtype):
+    """A dead channel's value ``2^e (1 + k / 128)`` (bf16-exact; see
+    ``bn_inputs``) whose fast variance ``E[x^2] - E[x]^2`` the host computes
+    below zero before the clamp at this shape, and that value."""
+    for e, k in itertools.product((-10, -6, -2, 2), range(1, 128)):
+        dead = 2.0**e * (1 + k / 128)
+        x = bn_inputs(torch.Generator(device=gen.device).manual_seed(0), b, hw, c, dtype,
+                      dead)[0].float().cpu()
+        axes = tuple(range(x.dim() - 1))
+        pre = ((x * x).mean(dim=axes) - x.mean(dim=axes) ** 2)[0].item()
+        if pre < 0:
+            return dead, pre
+    raise SmokeFailure(f"no dead channel value with a negative fast variance at {hw} x {c}")
+
+
+def phase_train_bn_batchnorm(dev):
+    """23a, first half: ``BatchNorm(train=True)`` on the card at BN_SHAPES,
+    batch 8 and 128, bf16 and fp32, with a dead channel (constant, its fast
+    variance below zero before the clamp on the host), against the same
+    module on the host in fp32: output and new running statistics within
+    ``bn_errors``' bounds, the gradients of x, scale and bias within
+    kernel_tol's form; at batch 8 each of BN_FAULTS planted on the card
+    must exceed a bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    for what, hw, c, momentum in BN_SHAPES:
+        dead, pre = bn_dead_value(gen, 8, hw, c, torch.bfloat16)
+        for b in (8, TRAIN_BATCH):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, scale, bias, g = bn_inputs(gen, b, hw, c, dtype, dead)
+                name = f"batchnorm {what} [{b}, {hw[0]}, {hw[1]}, {c}] {str(dtype)[6:]}"
+                bn = bn_module(c, momentum, scale, bias, dtype, dev)
+                ref = bn_module(c, momentum, scale.cpu(), bias.cpu(), None, "cpu")
+                xs = [x.detach().requires_grad_(), x.detach().float().cpu().requires_grad_()]
+                y, ry = bn(xs[0], train=True), ref(xs[1], train=True)
+                y.backward(g)
+                ry.backward(g.float().cpu())
+                xf = x.float()
+                axes = tuple(range(x.dim() - 1))
+                card_pre = ((xf * xf).mean(dim=axes) - xf.mean(dim=axes) ** 2)[0].item()
+                rows = bn_errors(y, bn.mean, bn.var, ry, ref.mean, ref.var, dtype)
+                for gname, a, r in (("dx", xs[0].grad, xs[1].grad), ("dscale", bn.scale.grad,
+                                                                    ref.scale.grad),
+                                    ("dbias", bn.bias.grad, ref.bias.grad)):
+                    rows.append((gname, (a.float().cpu() - r).abs().max().item(),
+                                 kernel_tol(r, None, a.dtype)))
+                print(f"{name}: " + ", ".join(f"{n} {e:.4g} (bound {t:.4g})" for n, e, t in rows)
+                      + f"; dead channel {dead:.8g}: fast variance before the clamp host "
+                      f"{pre:.4g} (batch 8), card {card_pre:.4g}")
+                for n, e, t in rows:
+                    require(e <= t, f"{name}: {n} error {e} > {t}")
+                require(torch.isfinite(y.float()).all().item(), f"{name}: non-finite output")
+                if b == 8:
+                    for fault in BN_FAULTS:
+                        fbn = bn_module(c, momentum, scale, bias, dtype, dev)
+                        with torch.no_grad():
+                            fy = bn_faulty(fbn, x, fault)
+                        ref2 = bn_module(c, momentum, scale.cpu(), bias.cpu(), None, "cpu")
+                        with torch.no_grad():
+                            ry2 = ref2(x.float().cpu(), train=True)
+                        over = [(n, e, t) for n, e, t in bn_errors(fy, fbn.mean, fbn.var, ry2,
+                                                                   ref2.mean, ref2.var, dtype)
+                                if not e <= t]
+                        print(f"{name}, planted '{fault}': over the bound at "
+                              f"{[f'{n} {e:.4g} > {t:.4g}' for n, e, t in over]} (must fail)")
+                        require(bool(over), f"{name}: the bound does not see '{fault}'")
+                del x, xs, y, ry, bn, ref, g
+            torch.cuda.empty_cache()
+
+
+# The Functions at the shapes the four families train them (23a, second half):
+# kernel 4 at LeViT's stage 0 (4 heads, D 32, Dv 64, the fp32 pos_bias
+# [1, 4, 196, 196] needing a gradient) and first downsampling layer (8 heads,
+# 49 queries against 196 keys), and at CvT's stage 1 (3,136 queries against
+# 784 keys, one head of 64, no bias); kernel 2 at LeViT's stage-0 MLP
+# (hard-swish, no LayerNorm, F 512) and CvT's stage 1 (LN eps 1e-5, F 256);
+# kernel 1 at PiT's stage 0 (962 tokens, dim 256, 16 heads of 64).
+BN_TRAIN_FLASH = (("LeViT stage 0", 4, 196, 196, 32, 64, True),
+                  ("LeViT down 0", 8, 49, 196, 32, 64, True),
+                  ("CvT stage 1", 1, 3136, 784, 64, 64, False))
+BN_TRAIN_MLP = (("LeViT stage 0", 196, 256, 512, None, "hard_swish"),
+                ("CvT stage 1", 3136, 64, 256, 1e-5, "gelu"))
+
+
+def phase_train_bn_functions(dev):
+    """23a, second half: ``FlashAttentionFn``, ``MlpFn`` and
+    ``AttentionBlockFn`` against autograd through their twins at
+    BN_TRAIN_FLASH, BN_TRAIN_MLP and PiT's stage 0 (``PIT_STAGES[0]``),
+    batch 8 (``check_function``: every gradient within kernel_tol's form,
+    the planted faults failing it: LeViT's batch-broadcast bias with its
+    dbias not summed over the batch, delta dropped, dK unscaled, CvT's
+    padded last chunk of queries; kernel 2's hard-swish recomputed as the
+    GELU; kernel 1's residual gradient dropped and LayerNorm gradients
+    swapped). Returns the worst gradient error by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst = collections.defaultdict(float)
+    b = 8
+    for what, heads, nq, nk, d, dv, biased in BN_TRAIN_FLASH:
+        q, k, v = (r(b, heads, n, w).bfloat16() for n, w in ((nq, d), (nk, d), (nk, dv)))
+        bias = 2.0 * r(1, heads, nq, nk) if biased else None
+        kw = dict(scale=d**-0.5, mask_self=False)
+        err, _ = _function_line("flash_attention", f"{what} q {list(q.shape)} k {nk} keys Dv {dv}"
+                                + (f" bias {list(bias.shape)}" if biased else "") + f" batch {b}",
+                                [q, k, v, bias], kw, gen)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    for what, n, dim, f, eps, act in BN_TRAIN_MLP:
+        m = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, ln=eps is not None, b=b)
+        args = [m.get(k) for k in FN_ARGS["fused_mlp"]]
+        kw = dict(activation=act, residual=False, ln_eps=eps or 1e-6)
+        err, _ = _function_line("fused_mlp", f"{what} [{b}, {n}, {dim}] F {f} {act}"
+                                + ("" if eps else " no LayerNorm"), args, kw, gen)
+        worst["fused_mlp"] = max(worst["fused_mlp"], err)
+    n, dim = PIT_STAGES[0]
+    a = attn_inputs(gen, b, n, dim, 16, 64, torch.bfloat16, dev)
+    err, _ = _function_line("attention_block", f"PiT stage 0 [{b}, {n}, {dim}] 16 heads of 64",
+                            [a[k] for k in FN_ARGS["attention_block"]],
+                            dict(heads=16, scale=0.125, ln_eps=1e-5), gen)
+    worst["attention_block"] = err
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def bn_train_counts(model):
+    """(launches, recomputes) of each kernel a training step of a CvT, LeViT,
+    PiT or SimpleViT ``model`` takes with remat: CvT and LeViT one flash launch
+    (kernel 4) an attention layer and one MLP (kernel 2) a layer at dropout
+    0 (above it the MLP takes its plain path), each recomputed once, nothing
+    run again (no scanned stack, so ``remat`` recomputes nothing: no
+    BatchNorm runs twice); PiT and SimpleViT on each stack deeper than 1 one
+    attention block (kernel 1) and MLP a layer, twice under ``remat`` (the
+    forward and remat's), each recomputed once, and on a stack of depth 1
+    its unfused layer, kernel 3 and kernel 2 once each (dropout 0)."""
+    from vit_tpu_torch.nn.blocks import Transformer
+    from vit_tpu_torch.nn.conv import ConvMLP
+
+    launches, recomputes = collections.Counter(), collections.Counter()
+    attn = sum(type(m).__name__ in ("_ConvAttention", "_LeViTAttention") for m in model.modules())
+    if attn:
+        mlps = sum(isinstance(m, ConvMLP) and not m.dropout for m in model.modules())
+        launches.update({"flash_attention": attn, "fused_mlp": mlps})
+        recomputes.update(launches)
+    for t in (m for m in model.modules() if isinstance(m, Transformer)):
+        if t.depth > 1:
+            launches.update({"attention_block": 2 * t.depth, "fused_mlp": 2 * t.depth})
+            recomputes.update({"attention_block": t.depth, "fused_mlp": t.depth})
+        else:
+            launches.update({"qkv_attention": 1, "fused_mlp": 1})
+            recomputes.update({"qkv_attention": 1, "fused_mlp": 1})
+    return ({k: v for k, v in launches.items() if v}, {k: v for k, v in recomputes.items() if v})
+
+
+# The four presets as they train here (``vit_tpu/models/presets.py:52``,
+# ``:93-110``): their widths at dropout 0; LeViT at its preset's own dropout
+# 0.1 and with a distillation head apart (23c).
+BN_TRAIN = {"cvt": CVT, "levit": LEVIT, "pit": PIT, "simple_vit": SIMPLE_VIT}
+LEVIT_PRESET_DROPOUT = dict(LEVIT, dropout=0.1)
+LEVIT_DISTILL = dict(LEVIT, num_distill_classes=1000)
+# The frozen teacher of the distillation run: a smaller LeViT (two stages).
+LEVIT_TEACHER = dict(image_size=224, num_classes=1000, stages=2, dim=(128, 256), depth=2,
+                     heads=(2, 4), mlp_mult=2)
+BN_GRAD_DRAWS = 3
+BN_GRAD_BATCH = 8
+# Gradients that are zero but for rounding: a bias before a softmax over
+# keys (LeViT's to_k_bn), before a BatchNorm, or feeding only BatchNorms
+# (the loss does not see a per-channel shift there). At most BN_ZERO of the
+# largest gradient's norm in fp32 on every draw, they are held by size: on
+# the kernel path at most one bf16 ulp (2^-8) of the largest norm (the flash
+# backward's ``dP - delta`` reads the forward's bf16 output, so its
+# rowsum is not exactly zero, as in ``vit_tpu``'s).
+BN_ZERO = 1e-5
+# LeViT in bf16 is badly conditioned (ROADMAP "LeViT bf16"): every bf16 path's
+# gradients lie 0.5-3 (relative L2) from fp32's, so the kernel path cannot
+# meet phase 22's rule against the plain bf16 path (1.78x at one BatchNorm
+# bias on an H100). It is held in fp32 instead: the Functions
+# (``FlashAttentionFn``'s flash backward, ``MlpFn``'s recompute) with their
+# twins as the forward, the model in fp32, against autograd through the
+# plain fp32 path, each gradient within BN_FP32_TOL (relative L2; its CPU
+# test's bound: two fp32 sum orders put the tiny LeViT 3.2e-5 apart) and the
+# zero gradients within BN_ZERO of the largest. The bf16 kernel path still
+# runs (launches, recomputes, finite gradients) and its ratios are printed.
+BN_FP32_HELD = ("levit",)
+BN_FP32_TOL = 1e-4
+
+
+def bn_train_model(fam, dev, gen, cfg=None):
+    """The ``fam`` preset (``BN_TRAIN``, or ``cfg``) drawn by
+    ``init_params``."""
+    from vit_tpu_torch.models import CvT, LeViT, PiT, SimpleViT
+    from vit_tpu_torch.utils import init_params
+
+    ctor = {"cvt": CvT, "levit": LeViT, "pit": PiT, "simple_vit": SimpleViT}[fam]
+    return init_params(ctor(**(cfg or BN_TRAIN[fam]), dtype=torch.bfloat16, device=dev), gen)
+
+
+def _buffers(model):
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.rsplit(".", 1)[-1] in ("mean", "var")}
+
+
+def phase_train_bn_grads(dev):
+    """23b: one step's loss and gradients of each preset in bf16 at batch
+    BN_GRAD_BATCH on BN_GRAD_DRAWS draws of the images and labels (the
+    parameters drawn once), three ways: the kernel path (the kernels
+    forward, the Functions' backward; PiT and SimpleViT with remat), the
+    plain bf16 path and plain fp32. Phase 22's rule: each parameter's
+    relative L2 from fp32 on every draw at most GRAD_RATIO times the plain
+    bf16 path's largest over the draws, but for gradients zero in fp32
+    (BN_ZERO), held by size; the loss as in 21b. Each path starts
+    from the same running statistics; the new ones of the kernel path (the
+    batch's, moved once) are held to the same rule, a BatchNorm's relative
+    L2 from fp32 at most GRAD_RATIO times the plain bf16 path's largest.
+    LeViT (BN_FP32_HELD) is held in fp32 instead, as BN_FP32_TOL's comment
+    says. Every ``.grad`` set and finite on the kernel path, with the
+    launches and recomputes of ``bn_train_counts``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    for fam, cfg in BN_TRAIN.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+        model = bn_train_model(fam, dev, gen)
+        model32 = type(model)(**cfg, device=dev)
+        model32.load_state_dict(model.state_dict())
+        start = _buffers(model)
+        want_launches, want_recomputes = bn_train_counts(model)
+        size = IMAGE_SIZE[fam]
+        dists = collections.defaultdict(list)  # name -> [(kernel, plain)] a draw
+        norms = collections.defaultdict(list)  # name -> [(kernel, fp32)] a draw, over the max
+        for draw in range(BN_GRAD_DRAWS):
+            x = torch.randn(BN_GRAD_BATCH, size, size, 3, generator=gen, device=dev)
+            y = torch.randint(0, 1000, (BN_GRAD_BATCH,), generator=gen, device=dev)
+
+            def grads(m, plain, remat):
+                m.zero_grad(set_to_none=True)
+                m.load_state_dict(start, strict=False)
+                scope = ops.force_backend("torch") if plain else contextlib.nullcontext()
+                with scope:
+                    loss = cross_entropy_loss(m(x, train=True, remat=remat), y)
+                    loss.backward()
+                return loss.item(), {k: None if p.grad is None else p.grad.detach().clone()
+                                     for k, p in m.named_parameters()}, _buffers(m)
+
+            ops.reset_launch_counts()
+            loss_k, gk, bk = grads(model, False, True)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+            loss_p, gp, bp = grads(model, True, False)
+            loss_32, g32, b32 = grads(model32, True, False)
+            if fam in BN_FP32_HELD:
+                with mock.patch.object(ops, "flash_attention", ops.reference_attention), \
+                        mock.patch.object(ops, "fused_mlp", ops.reference_mlp):
+                    ops.reset_launch_counts()
+                    loss_f, gf, _ = grads(model32, False, True)
+                    frecomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+                require(frecomputes == want_recomputes,
+                        f"train bn grads {fam} fp32: recomputes {frecomputes}")
+                top32 = max(g.double().norm().item() for g in g32.values())
+                for k in gf:
+                    small = g32[k].double().norm().item() <= BN_ZERO * top32
+                    err = ((gf[k].double() - g32[k].double()).norm().item() / top32 if small
+                           else rel_l2(gf[k], g32[k]))
+                    dists["fp32 " + k].append((err, BN_ZERO if small else BN_FP32_TOL))
+                print(f"train bn grads {fam} fp32 draw {draw}: loss of the Functions on the "
+                      f"twins' forward {loss_f:.6f}, plain fp32 {loss_32:.6f}; recomputes "
+                      f"{frecomputes}")
+            require(counts == want_launches,
+                    f"train bn grads {fam}: launches {counts}, not {want_launches}")
+            require(recomputes == want_recomputes,
+                    f"train bn grads {fam}: recomputes {recomputes}, not {want_recomputes}")
+            missing = [k for k, g in gk.items() if g is None or not torch.isfinite(g).all().item()]
+            require(not missing, f"train bn grads {fam}: no finite gradient on the kernel path "
+                                 f"for {missing[:5]}")
+            top = max(g.double().norm().item() for g in g32.values())
+            for k in gk:
+                dists[k].append((rel_l2(gk[k], g32[k]), rel_l2(gp[k], g32[k])))
+                norms[k].append((gk[k].double().norm().item() / top,
+                                 g32[k].double().norm().item() / top))
+            for k in bk:
+                dists["buffer " + k].append((rel_l2(bk[k], b32[k]), rel_l2(bp[k], b32[k])))
+            al = sorted((dists[k][-1][0] / max(dists[k][-1][1], 1e-30), k) for k in gk)
+            print(f"train bn grads {fam} batch {BN_GRAD_BATCH} draw {draw}: loss kernel "
+                  f"{loss_k:.6f}, plain bf16 {loss_p:.6f}, plain fp32 {loss_32:.6f}; launches "
+                  f"{counts}, recomputes {recomputes}; rel L2 from fp32 over the plain bf16 "
+                  f"path's, {len(al)} parameter tensors: median "
+                  f"{statistics.median(r for r, _ in al):.3f}, max {al[-1][0]:.3f} ({al[-1][1]})")
+            lfloor = max(2.0**-8 * abs(loss_32), 1e-3)
+            require(abs(loss_k - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), lfloor),
+                    f"train bn grads {fam} draw {draw}: loss {loss_k} from fp32 {loss_32} beyond "
+                    f"{GRAD_RATIO}x the plain bf16 path's {loss_p} (floor {lfloor:.3g})")
+            del gk, gp, g32
+        del model, model32
+        torch.cuda.empty_cache()
+        zeros = [k for k, ns in norms.items() if max(n32 for _, n32 in ns) <= BN_ZERO]
+        loud = sorted((max(nk for nk, _ in norms[k]), k) for k in zeros)
+        if zeros:
+            print(f"train bn grads {fam}: {len(zeros)} gradients zero in fp32 (at most {BN_ZERO} "
+                  f"of the largest norm), held by size: on the kernel path at most "
+                  f"{loud[-1][0]:.3g} of the largest ({loud[-1][1]}), bound {2.0**-8:.3g}")
+        require(not zeros or loud[-1][0] <= 2.0**-8,
+                f"train bn grads {fam} {loud[-1][1] if zeros else ''}: a zero gradient at "
+                f"{loud[-1][0] if zeros else 0} of the largest norm on the kernel path")
+        held32 = sorted(((max(e / t for e, t in ds), k) for k, ds in dists.items()
+                         if k.startswith("fp32 ")), reverse=True)
+        for k in [k for k in dists if k.startswith("fp32 ")]:
+            del dists[k]
+        if held32:
+            print(f"train bn grads {fam} held in fp32: {len(held32)} gradients of the Functions "
+                  f"(twins' forward) against the plain fp32 path, worst "
+                  f"{held32[0][0]:.3f} of its bound ({held32[0][1][5:]}; bound {BN_FP32_TOL} "
+                  f"relative L2, {BN_ZERO} of the largest norm for a zero gradient)")
+            require(held32[0][0] <= 1.0, f"train bn grads {fam} fp32 {held32[0][1]}: "
+                                         f"{held32[0][0]:.3f} of its bound")
+        rows = sorted(((max(rk for rk, _ in ds) / max(max(rp for _, rp in ds), 1e-30), k)
+                       for k, ds in dists.items() if k not in zeros), reverse=True)
+        for ratio, k in rows[:4]:
+            print(f"train bn grads {fam} {k}: rel L2 from fp32 by draw, kernel / plain bf16: "
+                  + "; ".join(f"{rk:.4g} / {rp:.4g}" for rk, rp in dists[k])
+                  + f" ({ratio:.3f} of the plain path's largest, bound {GRAD_RATIO})")
+        nbuf = sum(k.startswith("buffer ") for k in dists)
+        print(f"train bn grads {fam}: {len(dists) - nbuf - len(zeros)} parameter tensors and "
+              f"{nbuf} running statistics "
+              + ("printed, held in fp32 above" if fam in BN_FP32_HELD else
+                 f"held to {GRAD_RATIO}x the plain bf16 path")
+              + f" over {BN_GRAD_DRAWS} draws")
+        require(fam in BN_FP32_HELD or rows[0][0] <= GRAD_RATIO,
+                f"train bn grads {fam} {rows[0][1]}: {rows[0][0]:.3f}x the plain bf16 path's "
+                f"largest distance from fp32 over {BN_GRAD_DRAWS} draws")
+
+
+def bn_fold_and_serve(fam, model, cfg, dev, requests):
+    """The trained ``model`` (bf16, unfolded) folded from its own state
+    (``fold_batch_norm_state``) into a ``fold_bn=True`` model and served
+    through ``BatchingServer`` (``serve_family``: FAMILY_LAUNCHES a
+    forward); its rows against the unfolded model's eval logits in fp32
+    (its state in an fp32 model, the plain path) within HM_E2E_RATIO times
+    the plain bf16 unfolded model's distance from them, on the same
+    preprocessed requests."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils import fold_batch_norm_state
+
+    state = model.state_dict()
+    folded = type(model)(**cfg, fold_bn=True, dtype=torch.bfloat16, device=dev).eval()
+    folded.load_state_dict(fold_batch_norm_state(state), strict=True)
+    model32 = type(model)(**cfg, device=dev).eval()
+    model32.load_state_dict(state)
+    serve_family(folded, fam, requests)
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    x32 = preprocess(raw, image_size=IMAGE_SIZE[fam], dtype=torch.float32)
+    x16 = preprocess(raw, image_size=IMAGE_SIZE[fam], dtype=torch.bfloat16)
+    with torch.inference_mode():
+        out = folded(x16).float()
+        with ops.force_backend("torch"):
+            ref = model32(x32)
+            plain = model.eval()(x16).float()
+    model.train()
+    err, control = (out - ref).abs().max().item(), (plain - ref).abs().max().item()
+    print(f"train bn fold {fam}: folded bf16 (served) against the unfolded model's eval logits "
+          f"in fp32: max|dlogit| {err:.6g}; control (the unfolded plain bf16 path) "
+          f"{control:.6g}; bound {HM_E2E_RATIO} x control (max|logit| "
+          f"{ref.abs().max().item():.4g})")
+    require(torch.isfinite(out).all().item(), f"train bn fold {fam}: non-finite logits")
+    require(err <= HM_E2E_RATIO * control, f"train bn fold {fam}: {err} > {HM_E2E_RATIO} x "
+                                           f"{control}")
+
+
+def phase_train_bn_steps(dev, smi, requests):
+    """23c: ``vit_tpu_torch.train`` on each preset (``BN_TRAIN``) in bf16,
+    batch 128: ``init_params`` from a seed, a fixed batch, AdamW at
+    TRAIN_LR, remat, a warm-up step, a profiled one and three timed ones
+    (``timed_steps``): finite losses, exactly the launches and recomputes of
+    ``bn_train_counts``, and (CvT, LeViT) running statistics that moved and
+    stayed finite. CvT and LeViT, so trained, are folded and served
+    (``bn_fold_and_serve``). Then two timed LeViT steps at the preset's own
+    dropout 0.1 (kernel 4 still launched: its dropout comes after
+    ``to_out_bn``; kernel 2 not: its MLP takes the plain path), and two
+    with a distillation head trained on a frozen smaller LeViT
+    (LEVIT_TEACHER, eval mode, its BatchNorms on their running statistics;
+    its forward's launches counted beside the student's).
+    Last, ``python -m vit_tpu_torch.train --model levit|cvt`` for two steps
+    with a checkpoint, and one more step resumed from it."""
+    import io
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch import train as tt
+
+    for fam, cfg in BN_TRAIN.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 93)
+        model = bn_train_model(fam, dev, gen)
+        want_launches, want_recomputes = bn_train_counts(model)
+        size = IMAGE_SIZE[fam]
+        images = torch.randn(TRAIN_BATCH, size, size, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+        state = tt.create_train_state(model, opt, gen, init=False)
+        step = tt.make_train_step(model, opt, remat=True)
+        start = _buffers(model)
+        t0 = time.perf_counter()
+        first = float(step(state, images, labels))
+        print(f"train bn {fam} step 1 (first, untimed): loss {first:.5f}, "
+              f"{time.perf_counter() - t0:.1f} s host clock")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(state, images, labels))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels, busy, by_kind = step_kernels(prof)
+        print(f"train bn profile {fam} batch {TRAIN_BATCH}: device busy {busy:.1f} ms in a "
+              f"{wall:.1f} ms step (host clock, profiler on; idle "
+              f"{max(0.0, 1 - busy / wall):.1%}); by kind, ms: "
+              + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})" for k, v in by_kind.items()))
+        for ms, count, key in kernels[:6]:
+            print(f"train bn profile {fam}: {ms:9.2f} ms x{count:<5d} {key[:90]}")
+        del prof
+        losses, ms, counts, recomputes = timed_steps(f"train bn {fam}", state, step, images,
+                                                     labels, 3, smi)
+        require(all(np.isfinite([first] + losses)),
+                f"train bn {fam}: a non-finite loss in {[first] + losses}")
+        require(counts == want_launches,
+                f"train bn {fam}: launches {counts}, not {want_launches} a step")
+        require(recomputes == want_recomputes,
+                f"train bn {fam}: recomputes {recomputes}, not {want_recomputes} a step")
+        moved = _buffers(model)
+        if start:
+            still = [k for k in start if torch.equal(start[k], moved[k])]
+            require(not still and all(torch.isfinite(v).all().item() for v in moved.values()),
+                    f"train bn {fam}: running statistics unmoved or non-finite: {still[:4]}")
+            print(f"train bn {fam}: {len(moved)} running statistics moved by 5 steps, all "
+                  f"finite")
+            bn_fold_and_serve(fam, model, cfg, dev, requests)
+        del state, step, model, images
+        torch.cuda.empty_cache()
+    # LeViT at its preset's dropout, and with a distillation head on a teacher
+    gen = torch.Generator(device=dev).manual_seed(SEED + 94)
+    images = torch.randn(TRAIN_BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    teacher = bn_train_model("levit", dev, gen, cfg=LEVIT_TEACHER).eval()
+    for what, cfg, kw in (("preset dropout 0.1", LEVIT_PRESET_DROPOUT, {}),
+                          ("distillation head, frozen teacher", LEVIT_DISTILL,
+                           dict(teacher_apply=lambda im: teacher(im)))):
+        model = bn_train_model("levit", dev, gen, cfg=cfg)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+        state = tt.create_train_state(model, opt, gen, init=False)
+        step = tt.make_train_step(model, opt, remat=True, **kw)
+        float(step(state, images, labels))
+        losses, ms, counts, _ = timed_steps(f"train bn levit {what}", state, step, images,
+                                            labels, 2, smi)
+        require(np.isfinite(losses).all(), f"train bn levit {what}: loss {losses}")
+        want, _ = bn_train_counts(model)
+        if "distill" in what:  # and the teacher's forward: one launch a layer
+            want = dict(collections.Counter(want) + collections.Counter(
+                bn_train_counts(teacher)[0]))
+        require(counts == want, f"train bn levit {what}: launches {counts}, not {want}")
+        if "distill" in what:
+            moved = model.distill_head.kernel.grad
+            require(moved is not None and moved.abs().max().item() > 0,
+                    "train bn levit: the distillation head got no gradient")
+        del state, step, model
+        torch.cuda.empty_cache()
+    del teacher, images
+    for name in ("levit", "cvt"):
+        with tempfile.TemporaryDirectory(dir=REPO / "vit_tpu_torch" / "_build") as ckpt:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            base = ["--model", name, "--batch", "8", "--classes", "10", "--image-size", "64"]
+            with contextlib.redirect_stdout(out):
+                rc = tt.main(base + ["--steps", "2", "--checkpoint-dir", ckpt])
+                rc2 = tt.main(base + ["--steps", "1", "--resume", ckpt])
+            lines = out.getvalue().strip().splitlines()
+            print(f"train bn cli python -m vit_tpu_torch.train --model {name} --steps 2 "
+                  f"--checkpoint-dir D, then --resume D --steps 1: rc {rc}, {rc2} in "
+                  f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-3:])}")
+            require(rc == 0 and rc2 == 0 and "resumed from" in out.getvalue()
+                    and "step 3: loss" in out.getvalue(),
+                    f"python -m vit_tpu_torch.train --model {name} with a resume failed")
+
+
+def phase_train_bn(dev, smi, requests):
+    """Phase 23: training CvT, LeViT, PiT and SimpleViT (23a-c); returns
+    23a's worst gradient error by kernel."""
+    t_phase = time.perf_counter()
+    phase_train_bn_batchnorm(dev)
+    worst = phase_train_bn_functions(dev)
+    phase_train_bn_grads(dev)
+    phase_train_bn_steps(dev, smi, requests)
+    print(f"phase 23 (training CvT, LeViT, PiT and SimpleViT) took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -6744,6 +7373,11 @@ def main() -> int:
     # 22. training CaiT and DeepViT: kernels 7 and 8 through their autograd
     # Functions, LayerScale with stochastic depth, the muon optimizer
     grad_worst.update(phase_train_heads(dev, smi))
+
+    # 23. training CvT, LeViT, PiT and SimpleViT: BatchNorm with batch
+    # statistics, LeViT's two heads, kernels 4, 2 and 1 under grad at their shapes
+    for k, err in phase_train_bn(dev, smi, requests).items():
+        grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

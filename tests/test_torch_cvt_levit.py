@@ -282,8 +282,15 @@ def test_batch_norm_matches_flax(dtype):
 
 
 def test_batch_norm_does_not_train():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchNorm(4, device="cpu")(torch.zeros(1, 4), train=True)
+    """At inference (``train=False``, the serving path) a BatchNorm does not
+    train: its running statistics stay as loaded. Only ``train=True`` moves
+    them (tests/test_torch_train_bn.py holds that against flax)."""
+    bn = BatchNorm(4, device="cpu")
+    x = torch.arange(8.0).reshape(2, 4)
+    bn(x)
+    assert torch.equal(bn.mean, torch.zeros(4)) and torch.equal(bn.var, torch.ones(4))
+    bn(x, train=True)
+    assert not torch.equal(bn.mean, torch.zeros(4))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -527,11 +534,11 @@ def test_family_matches_jax(dtype, mode, fold, tiny):
         assert err <= 2 * gap, (err, gap)
 
 
-def _kv_swapped(self, x):
+def _kv_swapped(self, x, train=False, generator=None):
     """``_ConvAttention.forward`` with v taken as the first half of ``to_kv``."""
     b, h, w, _ = x.shape
     x = self.norm(x)
-    q, kv = self.to_q(x), self.to_kv(x)
+    q, kv = self.to_q(x, train), self.to_kv(x, train)
     v, k = kv.reshape(b, -1, 2 * self.inner).chunk(2, dim=-1)
     out = mha_tokens(q.reshape(b, h * w, self.inner), k, v, self.heads, scale=self.scale)
     return self.to_out(out.reshape(b, h, w, self.inner))

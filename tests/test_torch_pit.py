@@ -120,13 +120,18 @@ def test_depthwise_conv_and_pool_match_flax(module, dtype):
 
 def test_depthwise_batch_norm_raises():
     """CvT's flavour builds (a BatchNorm ``bn`` between the convs, no biases
-    without ``use_bias``); its BatchNorm raises in training mode, which the
-    port does not have (tests/test_torch_cvt_levit.py holds the module
-    against flax)."""
+    without ``use_bias``) and trains; folded (``fold_bn``) it has no ``bn``
+    and raises in training mode, inference only as ``vit_tpu`` asserts
+    (tests/test_torch_cvt_levit.py holds the module against flax,
+    tests/test_torch_train_bn.py its training)."""
     m = DepthWiseConv2d(8, 16, 3, 1, use_bias=False, batch_norm=True, device="cpu")
     assert m.bn is not None and m.depthwise.bias is None and m.pointwise.bias is None
-    with pytest.raises(NotImplementedError, match="training"):
-        m.bn(torch.zeros(1, 2, 2, 8), train=True)
+    assert m(torch.zeros(1, 2, 2, 8), train=True).shape == (1, 2, 2, 16)
+    folded = DepthWiseConv2d(8, 16, 3, 1, use_bias=False, batch_norm=True, fold_bn=True,
+                             device="cpu")
+    assert folded.bn is None and folded.depthwise.bias is not None
+    with pytest.raises(ValueError, match="inference only"):
+        folded(torch.zeros(1, 2, 2, 8), train=True)
 
 
 @pytest.mark.parametrize("cfg", ["preset", "tiny (1, 1)", "tiny (2, 2)"])

@@ -612,13 +612,14 @@ def test_named_optimizers_refuse_muon_and_unknown_names():
 
 
 def test_training_refuses_what_is_not_ported():
-    """Every family but ViT and ViT-MoE still raises, with or without
-    ``qat`` (QAT itself is ported: tests/test_torch_quant_weights.py)."""
-    from vit_tpu_torch.models import SimpleViT
+    """A family whose training is not ported (the small-dataset ViT) still
+    raises, with or without ``qat`` (QAT itself is ported:
+    tests/test_torch_quant_weights.py)."""
+    from vit_tpu_torch.models import ViTSmallDatasets
 
     for qat in (False, True):
         with pytest.raises(NotImplementedError, match="item 7"):
-            tt.make_train_step(SimpleViT(**CFG, depth=1, device="cpu"), qat=qat)
+            tt.make_train_step(ViTSmallDatasets(**CFG, depth=1, device="cpu"), qat=qat)
 
 
 # -- eval --------------------------------------------------------------------------

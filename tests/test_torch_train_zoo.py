@@ -695,18 +695,18 @@ def test_init_params_refuses_unknown_parameters_with_the_roadmap_item():
 
 @pytest.mark.parametrize("name", ["twins_svt", "t2t"])
 def test_trainer_accepts_both_families_and_its_cli_trains_them(name, capsys):
-    """``_trainable`` takes Twins-SVT and T2T-ViT (and a BatchNorm model or
-    another family still raises, naming what trains and item 7's step);
+    """``_trainable`` takes Twins-SVT and T2T-ViT (and a family not yet
+    ported still raises, naming what trains and item 7's step);
     ``python -m vit_tpu_torch.train --model twins_svt|t2t`` trains the
     registry's tiny config on the CPU."""
-    from vit_tpu_torch.models import MODEL_REGISTRY, CvT, SimpleViT
+    from vit_tpu_torch.models import MODEL_REGISTRY, CrossViT, EfficientViT
 
     ctor, cfg, _ = MODEL_REGISTRY[name]
     assert callable(tt._trainable(ctor(**cfg, device="cpu"), 0.0, True))
-    with pytest.raises(NotImplementedError, match="Twins-SVT and T2T-ViT train"):
-        tt.make_train_step(SimpleViT(**MODEL_REGISTRY["simple_vit"][1], device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7, step 2"):
-        tt.make_train_step(CvT(**MODEL_REGISTRY["cvt"][1], device="cpu"))
+    with pytest.raises(NotImplementedError, match="Twins-SVT, T2T-ViT.* train"):
+        tt.make_train_step(EfficientViT(**MODEL_REGISTRY["efficient"][1], device="cpu"))
+    with pytest.raises(NotImplementedError, match=r"item 7 \(step 3"):
+        tt.make_train_step(CrossViT(**MODEL_REGISTRY["cross_vit"][1], device="cpu"))
     assert tt.main(["--device", "cpu", "--model", name, "--batch", "2", "--steps", "2",
                     "--classes", "10", "--image-size", "64"]) == 0
     assert "step 2: loss" in capsys.readouterr().out

@@ -159,13 +159,16 @@ def test_conv_modules_match_flax(module, dtype):
 
 def test_conv_mlp_batch_norm_raises():
     """The BatchNorm branch builds (``up``, ``bn1``, ``down``, ``bn2``, no
-    biases unfolded); its BatchNorms raise in training mode, which the port
-    does not have (tests/test_torch_cvt_levit.py holds the branch against
-    flax)."""
+    biases unfolded) and trains; folded (``fold_bn``) it raises in training
+    mode, inference only as ``vit_tpu`` asserts
+    (tests/test_torch_cvt_levit.py holds the branch against flax,
+    tests/test_torch_train_bn.py its training)."""
     m = ConvMLP(8, batch_norm=True, device="cpu")
     assert m.bn1 is not None and m.bn2 is not None and m.up.bias is None
-    with pytest.raises(NotImplementedError, match="training"):
-        m.bn1(torch.zeros(1, 2, 2, 32), train=True)
+    assert m(torch.randn(2, 2, 2, 8), train=True).shape == (2, 2, 2, 8)
+    folded = ConvMLP(8, batch_norm=True, fold_bn=True, device="cpu")
+    with pytest.raises(ValueError, match="inference only"):
+        folded(torch.zeros(1, 2, 2, 8), train=True)
 
 
 def test_layer_norm_dtype_is_flax():

@@ -185,7 +185,9 @@ def _named(params: ParamSource) -> Dict[str, torch.Tensor]:
 class Ema:
     """An exponential moving average of parameters (the eval-time weights of
     the DeiT and CaiT recipes): an fp32 shadow ``params`` by name, moved by
-    ``update`` to ``e * decay + p * (1 - decay)``, in place."""
+    ``update`` to ``e * decay + p * (1 - decay)``, in place. Parameters
+    only, as ``vit_tpu``'s over ``state.params``: a BatchNorm's running
+    statistics are buffers and are not averaged."""
 
     def __init__(self, params: Dict[str, torch.Tensor], decay: float):
         self.params, self.decay = params, decay

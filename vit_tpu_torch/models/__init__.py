@@ -10,8 +10,9 @@ neither. Nothing is built on import: a config holds keyword arguments only
 ``TRAINING_ONLY_DROPPED``: the training-only keys of ``vit_tpu``'s configs
 that a port constructor does not take (those families are served, not
 trained, by the port, so dropout and stochastic depth do nothing), dropped
-from that family's registry config and preset. ``ViT``, ``CaiT`` and
-``DeepViT`` train (``vit_tpu_torch.train``) and take their dropout keys. Every other config key
+from that family's registry config and preset. ``ViT``, ``CaiT``,
+``DeepViT``, ``CvT``, ``LeViT`` and ``PiT`` train (``vit_tpu_torch.train``)
+and take their dropout keys. Every other config key
 is ``vit_tpu``'s, with its value.
 """
 
@@ -42,7 +43,7 @@ __all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "EfficientViT", 
 
 _DROPOUT = ("dropout", "emb_dropout")
 TRAINING_ONLY_DROPPED = {"parallel_vit": _DROPOUT, "patch_merger_vit": _DROPOUT,
-                         "vit_small_datasets": _DROPOUT, "cross_vit": _DROPOUT, "pit": _DROPOUT}
+                         "vit_small_datasets": _DROPOUT, "cross_vit": _DROPOUT}
 
 # name -> (class, tiny smoke config, image size): vit_tpu/models/__init__.py:55-174
 MODEL_REGISTRY = {

@@ -95,6 +95,7 @@ REFERENCE_PRESETS: Dict[str, Tuple[Callable[..., Any], Dict[str, Any], int]] = {
     "pit": (PiT, dict(
         image_size=224, patch_size=14, num_classes=1000,
         dim=256, depth=(3, 3, 3), heads=16, mlp_dim=2048,
+        dropout=0.1, emb_dropout=0.1,
     ), 224),
     "t2t": (T2TViT, dict(
         image_size=224, num_classes=1000, dim=512,

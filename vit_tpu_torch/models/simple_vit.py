@@ -8,6 +8,12 @@ MLP kernels from depth 2), the mean of the tokens (``mean_tokens``, as
 ``jnp.mean``), then a LayerNorm without bias and a Dense head in fp32.
 Images are NHWC; ``channels_first=True`` takes NCHW, as the upstream model.
 
+Training (``forward(img, train=True, remat=...)``): there is no dropout, so
+``train`` changes nothing; under grad ``remat`` checkpoints each encoder
+block of a stack deeper than 1, as ``vit_tpu`` scans and remats it. The
+kernels run forward and ``ops.AttentionBlockFn`` / ``ops.MlpFn``
+differentiate them.
+
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
 converts a ``vit_tpu`` variables tree.
@@ -57,9 +63,12 @@ class SimpleViT(nn.Module):
         self.head_norm = LayerNorm(dim, eps=1e-5, use_bias=False, device=device)
         self.head = Dense(dim, num_classes, device=device)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, remat: bool = False
+                ) -> torch.Tensor:
         if self.channels_first:
             img = img.permute(0, 2, 3, 1)
         x = self.patch_embed(img)
-        x = self.encoder(x + self.pos_sincos.to(x.dtype))
+        x = self.encoder(x + self.pos_sincos.to(x.dtype), train=train, generator=generator,
+                         remat=remat)
         return self.head(self.head_norm(mean_tokens(x)))

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.core.utils import cdiv, pair
+from vit_tpu_torch.nn.attention import dropout
 from vit_tpu_torch.nn.blocks import FeedForward
 from vit_tpu_torch.nn.embed import BatchNorm, Dense, LayerNorm
 from vit_tpu_torch.ops.fused_mlp import _activate
@@ -115,13 +116,17 @@ class DepthWiseConv2d(nn.Module):
     ``fold_bn`` the BatchNorm is folded into the depthwise conv
     (``utils.fold_batch_norm``): there is no ``bn``, and the depthwise conv
     has a bias whatever ``use_bias``, added in ``dtype`` after the
-    convolution's rounding, as flax adds it."""
+    convolution's rounding, as flax adds it. ``forward(x, train=True)``
+    normalises with the batch's statistics and updates the running ones
+    (``BatchNorm``); a folded module is inference only and refuses it, as
+    ``vit_tpu`` asserts."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int, *,
                  use_bias: bool = True, batch_norm: bool = False, fold_bn: bool = False,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         folded = batch_norm and fold_bn
+        self.folded = folded
         self.depthwise = Conv(dim_in, dim_in, kernel_size, strides=stride,
                               feature_group_count=dim_in, use_bias=use_bias or folded,
                               dtype=dtype, device=device)
@@ -129,9 +134,11 @@ class DepthWiseConv2d(nn.Module):
                    if batch_norm and not folded else None)
         self.pointwise = Conv(dim_in, dim_out, 1, use_bias=use_bias, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train and self.folded:
+            raise ValueError("a BatchNorm-folded model is inference only (train=True)")
         x = self.depthwise(x)
-        return self.pointwise(x if self.bn is None else self.bn(x))
+        return self.pointwise(x if self.bn is None else self.bn(x, train))
 
 
 class Pool(nn.Module):
@@ -227,11 +234,14 @@ class ConvMLP(nn.Module):
     ``FeedForward`` (``ff``; with ``pre_norm`` its LayerNorm of eps
     ``ln_eps``), one ``ops.mlp`` call. With ``batch_norm`` (the LeViT
     flavour of ``vit_tpu``, run by no model): 1x1 conv ``up``, BatchNorm
-    ``bn1``, hard-swish in ``dtype`` op by op, 1x1 conv ``down``, BatchNorm
-    ``bn2``, plain PyTorch; the convs have a bias only with ``fold_bn``,
-    where the two BatchNorms are folded into them. ``dropout`` reaches the
-    token branch's ``FeedForward`` (``forward(x, train=True, generator=)``:
-    its plain path with ``drop1`` and ``drop2``, as ``vit_tpu``'s)."""
+    ``bn1``, hard-swish in ``dtype`` op by op, dropout, 1x1 conv ``down``,
+    BatchNorm ``bn2``, plain PyTorch; the convs have a bias only with
+    ``fold_bn``, where the two BatchNorms are folded into them (and
+    ``train=True`` is refused). ``forward(x, train=True, generator=)``
+    trains: the token branch's ``FeedForward`` takes its plain path with
+    ``drop1`` and ``drop2`` where ``dropout`` is above 0, as ``vit_tpu``'s;
+    the BatchNorm branch normalises with the batch's statistics and drops
+    the activation at ``dropout``."""
 
     def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu",
                  pre_norm: bool = True, batch_norm: bool = False, fold_bn: bool = False,
@@ -239,7 +249,7 @@ class ConvMLP(nn.Module):
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         dim_out = dim_out or dim
-        self.batch_norm = batch_norm
+        self.batch_norm, self.fold_bn, self.dropout = batch_norm, fold_bn, dropout
         if not batch_norm:
             self.ff = FeedForward(dim, dim * mult, activation=activation, ln_eps=ln_eps,
                                   pre_norm=pre_norm, dim_out=dim_out, dropout=dropout,
@@ -254,8 +264,12 @@ class ConvMLP(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.batch_norm:
-            norm = lambda bn, t: t if bn is None else bn(t)
+            if train and self.fold_bn:
+                raise ValueError("a BatchNorm-folded model is inference only (train=True)")
+            norm = lambda bn, t: t if bn is None else bn(t, train)
             h = _activate(norm(self.bn1, self.up(x)), "hard_swish")
+            if train:
+                h = dropout(h, self.dropout, generator)
             return norm(self.bn2, self.down(h))
         b, h, w, c = x.shape
         return self.ff(x.reshape(b, h * w, c), train, generator).reshape(b, h, w, -1)

@@ -1,5 +1,5 @@
 """Patch embedding, the flax-named parameter containers (Dense, LayerNorm and
-the inference BatchNorm), the token mean, and the token embedders of the
+the BatchNorm), the token mean, and the token embedders of the
 small-dataset and merging families (port of ``vit_tpu/nn/embed.py``:
 ``PatchEmbed``, ``SPT``, ``PatchMerger``)."""
 
@@ -128,17 +128,29 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True, epsilon=eps, dtype=dtype)``
-    over the last axis, at inference only: fp32 parameters ``scale`` and
+    """flax ``nn.BatchNorm(use_running_average=not train, momentum=momentum,
+    epsilon=eps, dtype=dtype)`` over the last axis (flax 0.12's
+    ``_compute_stats`` and ``_normalize``): fp32 parameters ``scale`` and
     ``bias``, fp32 buffers ``mean`` and ``var`` (flax's ``batch_stats``).
-    flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
-    in fp32, rounded once to ``dtype`` (None: fp32, what flax infers from the
-    fp32 statistics). ``train=True`` raises: the port does not train."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
+    Both modes normalise as flax's ``_normalize``: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in fp32, rounded once to ``dtype``
+    (None: fp32, what flax infers from the fp32 statistics). At inference
+    ``mean`` and ``var`` are the running statistics. With ``train=True``
+    they are the batch's, over every axis but the last, in fp32 whatever
+    x's dtype: ``E[x]`` and flax's fast variance ``max(0, E[x^2] - E[x]^2)``
+    (``torch.maximum`` splits the gradient of a tie as ``jnp.maximum``
+    does), and the gradients flow through both. The running statistics then
+    move without grad, in flax's convention: ``ra = momentum * ra + (1 -
+    momentum) * batch``, the running variance the biased batch variance.
+    (``F.batch_norm`` takes ``1 - momentum`` and keeps the unbiased
+    variance.) Each training forward updates them once: a recompute of it
+    would update them again."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, momentum: float = 0.99,
+                 dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.scale = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("mean", torch.zeros(dim, device=device))
@@ -146,9 +158,21 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         if train:
-            raise NotImplementedError("BatchNorm with batch statistics (training) is not ported "
-                                      "(ROADMAP.md Queue 1 item 7)")
-        y = (x.float() - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) + self.bias
+            # flax casts x to fp32 apart for the statistics and for the
+            # normalisation: a bf16 x gets the two paths' gradients each
+            # rounded to bf16, then summed
+            xs = x.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xs.mean(dim=axes)
+            var = torch.maximum(torch.zeros((), device=x.device),
+                                (xs * xs).mean(dim=axes) - mean * mean)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x.float() - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
         return y.to(self.dtype or torch.float32)
 
 

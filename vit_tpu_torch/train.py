@@ -34,8 +34,10 @@ microbatches averaged before
 one update, soft targets under ``augment_fn``, distillation under
 ``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``,
 weight-only int8 QAT under ``qat`` (``utils.quantize.fake_quantized``).
-Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT``, ``T2TViT``, ``CaiT``
-and ``DeepViT``; every other family raises. CaiT and DeepViT reach kernels 7
+Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT``, ``T2TViT``,
+``CaiT``, ``DeepViT``, ``CvT``, ``LeViT``, ``PiT`` and ``SimpleViT``; every
+other family raises, and so does a BatchNorm-folded (``fold_bn=True``) CvT or
+LeViT, which is inference only. CaiT and DeepViT reach kernels 7
 and 8 only at ``dropout=0``: their presets' ``dropout=0.1`` takes
 ``vit_tpu``'s materializing route in training, which launches neither.
 """
@@ -380,15 +382,18 @@ def create_train_state(model: nn.Module, optimizer: Optional[Optimizer] = None,
 
 
 def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable:
-    """``apply(images, generator) -> (logits, aux_losses)`` in training mode,
-    or raise for a model whose training is not ported."""
-    from vit_tpu_torch.models import CaiT, DeepViT, T2TViT, TwinsSVT, ViT, ViTMoE
-    from vit_tpu_torch.nn.embed import BatchNorm
+    """``apply(images, generator) -> (logits, aux_losses)`` in training mode
+    (``logits`` a pair ``(class, distill)`` for a two-head LeViT), or raise
+    for a model whose training is not ported, or that cannot train: a
+    BatchNorm-folded CvT or LeViT is inference only."""
+    from vit_tpu_torch.models import (
+        CaiT, CvT, DeepViT, LeViT, PiT, SimpleViT, T2TViT, TwinsSVT, ViT, ViTMoE,
+    )
 
-    if any(isinstance(m, BatchNorm) for m in model.modules()):
-        raise NotImplementedError("BatchNorm with batch statistics is not ported "
-                                  "(ROADMAP.md Queue 1 item 7, step 2)")
-    if isinstance(model, (ViT, TwinsSVT, T2TViT, CaiT, DeepViT)):
+    if isinstance(model, (CvT, LeViT)) and _folded(model):
+        raise ValueError(f"a BatchNorm-folded {type(model).__name__} (fold_bn=True) is "
+                         "inference only: train the unfolded model, then fold it")
+    if isinstance(model, (ViT, TwinsSVT, T2TViT, CaiT, DeepViT, CvT, LeViT, PiT, SimpleViT)):
         if moe_aux_weight:
             raise ValueError("moe_aux_weight needs a model with MoE layers")
         return lambda x, gen: (model(x, train=True, generator=gen, remat=remat), [])
@@ -398,9 +403,17 @@ def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable
                                       "(ROADMAP.md Queue 1 item 7)")
         return lambda x, gen: model(x, return_aux=True)
     raise NotImplementedError(
-        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, CaiT, DeepViT, Twins-SVT "
-        "and T2T-ViT train; the other families wait for ROADMAP.md Queue 1 item 7 (step 3 for "
-        "their modules)")
+        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, CaiT, DeepViT, Twins-SVT, "
+        "T2T-ViT, CvT, LeViT, PiT and SimpleViT train; the other families wait for ROADMAP.md "
+        "Queue 1 item 7 (step 3 for their modules)")
+
+
+def _folded(model: nn.Module) -> bool:
+    """Whether ``model``'s BatchNorms are folded into its convs
+    (``fold_bn=True``): it has conv layers that would carry one and none."""
+    from vit_tpu_torch.nn.embed import BatchNorm
+
+    return not any(isinstance(m, BatchNorm) for m in model.modules())
 
 
 def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
@@ -414,10 +427,17 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
 
     ``accum_steps=K`` splits the batch into K microbatches, sums their
     gradients, divides by K and makes one update (``vit_tpu/train.py:301-334``:
-    with mean losses, the full batch's gradient up to rounding).
+    with mean losses, the full batch's gradient up to rounding); a
+    BatchNorm normalises each microbatch with its own statistics and
+    updates its running ones K times, in microbatch order, as ``vit_tpu``
+    threads them through its scan (``:179``).
     ``augment_fn(generator, images, labels) -> (images, target_probs)``
     switches the loss to soft targets. ``teacher_apply(images) -> logits``
-    trains the (single-head) student on ``distillation_loss``.
+    trains the student on ``distillation_loss``: a two-head student (LeViT
+    with ``num_distill_classes``) its ``distill_head`` on the teacher and its
+    class head on the targets, a single-head student its one head on both
+    (``vit_tpu/train.py:264-276``); without a teacher a two-head student
+    trains its class head alone.
     ``moe_aux_weight`` adds that weight times the mean of ViT-MoE's
     load-balance losses. ``remat`` checkpoints each encoder block.
     ``qat=True`` trains through the weight-only int8 view
@@ -436,12 +456,16 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
         if augment_fn is not None:
             images, targets = augment_fn(generator, images, labels)
         logits, aux = apply(images, generator)
+        distill = None
+        if isinstance(logits, tuple):  # LeViT's distillation head
+            logits, distill = logits
         if teacher_apply is not None:
             t = targets if augment_fn is not None else aug.one_hot(labels, logits.shape[-1])
             with torch.no_grad():
                 teacher = teacher_apply(images)
-            loss = aug.distillation_loss(logits, logits, t, teacher, alpha=distill_alpha,
-                                         tau=distill_tau, hard=distill_hard)
+            loss = aug.distillation_loss(logits, logits if distill is None else distill, t,
+                                         teacher, alpha=distill_alpha, tau=distill_tau,
+                                         hard=distill_hard)
         elif augment_fn is not None:
             loss = aug.soft_cross_entropy(logits, targets)
         else:
@@ -460,7 +484,10 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
                 loss_i = loss_of(imgs, lbls, state.generator)
                 loss_i.backward()
             loss = loss + loss_i.detach()
-        params = [p for p in state.model.parameters() if p.grad is not None]
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p in params:  # optax's zero gradient of a leaf the loss never reads
+            if p.grad is None:  # (a two-head LeViT's distill_head without a teacher)
+                p.grad = torch.zeros_like(p)
         if accum_steps > 1:
             for p in params:
                 p.grad.div_(accum_steps)
@@ -477,7 +504,9 @@ def make_train_step(model: nn.Module, optimizer: Optional[Optimizer] = None, *,
 
 def make_eval_step(model: nn.Module) -> Callable:
     """``eval_step(images, labels) -> (loss, top1)`` of the model's current
-    parameters, in inference mode (deterministic)."""
+    parameters, in inference mode (deterministic; BatchNorms on their running
+    statistics), on the class head of a two-head LeViT
+    (``vit_tpu/train.py:360``)."""
 
     def step(images, labels):
         with torch.inference_mode():

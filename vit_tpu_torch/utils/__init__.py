@@ -6,7 +6,7 @@ from vit_tpu_torch.utils.aot import (  # noqa: F401
     export_serving,
     load_forward,
 )
-from vit_tpu_torch.utils.bn_folding import fold_batch_norm  # noqa: F401
+from vit_tpu_torch.utils.bn_folding import fold_batch_norm, fold_batch_norm_state  # noqa: F401
 from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
 from vit_tpu_torch.utils.debug import checked, debug_nans, kernel_sanitizer  # noqa: F401
 from vit_tpu_torch.utils.health import memory_stats, probe_devices, with_retry  # noqa: F401

@@ -1,5 +1,6 @@
 """BatchNorm folding, the inference-time load transform of CvT and LeViT (a
-numpy copy of ``vit_tpu/utils/bn_folding.py``).
+numpy copy of ``vit_tpu/utils/bn_folding.py``, and its counterpart over the
+port's own ``state_dict``).
 
 At inference a BatchNorm with running statistics is the per-channel affine
 map ``z -> a*z + c``, ``a = scale / sqrt(var + eps)``, ``c = bias - a*mean``.
@@ -18,8 +19,14 @@ Usage::
     model = CvT(..., fold_bn=True)
     model.load_state_dict(from_jax_params(folded, model.jax_stages))
 
+A model the port has trained folds from its own state (train -> fold ->
+serve, as ``vit_tpu``'s flow goes)::
+
+    folded = CvT(..., fold_bn=True)
+    folded.load_state_dict(fold_batch_norm_state(trained.state_dict()))
+
 The fold runs in float64 and casts back to the kernel's dtype, op for op as
-``vit_tpu``'s, so both give the same arrays bit for bit.
+``vit_tpu``'s, so all three give the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping
 
 import numpy as np
+import torch
 
 # BN node name -> the conv (in the same parent scope) whose output it normalizes.
 _STATIC_PAIRS = {"bn": "depthwise", "bn1": "up", "bn2": "down"}
@@ -107,3 +115,44 @@ def fold_batch_norm(variables: Mapping[str, Any], *, eps: float = 1e-5) -> Dict[
     folded = {k: v for k, v in variables.items() if k not in ("params", "batch_stats")}
     folded["params"] = params
     return folded
+
+
+def fold_batch_norm_state(state: Mapping[str, torch.Tensor], *,
+                          eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """``fold_batch_norm`` over a port model's ``state_dict``: each
+    BatchNorm ``<scope>.<bn>`` (``scale``, ``bias`` and the running ``mean``
+    and ``var``) folded into the conv ``<scope>.<conv>`` that produces its
+    input (the pairs above), whose OIHW ``kernel`` is scaled along its
+    output channels and which gains (or updates) its ``bias``. Returns a new
+    state dict without the BatchNorms, which a model built with
+    ``fold_bn=True`` loads; ``state`` is left as it is. Raises where a
+    BatchNorm has no conv beside it and where there is none to fold."""
+    out = dict(state)
+    folded = 0
+    for key in state:
+        if not key.endswith(".mean"):
+            continue
+        bn = key[:-len(".mean")]
+        if any(f"{bn}.{leaf}" not in state for leaf in ("var", "scale", "bias")):
+            continue
+        scope, _, name = bn.rpartition(".")
+        conv_name = _conv_name_for(name)
+        conv = f"{scope}.{conv_name}" if scope else conv_name
+        if conv_name is None or f"{conv}.kernel" not in state:
+            raise ValueError(f"unrecognized BatchNorm '{bn}' (no adjacent conv); "
+                             "fold_batch_norm_state only knows the CvT/LeViT patterns")
+        f64 = lambda leaf: state[f"{bn}.{leaf}"].detach().double()
+        a64 = f64("scale") / torch.sqrt(f64("var") + eps)
+        c64 = f64("bias") - a64 * f64("mean")
+        kernel = state[f"{conv}.kernel"]
+        out[f"{conv}.kernel"] = (kernel.detach().double() * a64[:, None, None, None]).to(
+            kernel.dtype)
+        b0 = state.get(f"{conv}.bias")
+        b64 = 0.0 if b0 is None else b0.detach().double()
+        out[f"{conv}.bias"] = (a64 * b64 + c64).to(kernel.dtype)
+        for leaf in ("mean", "var", "scale", "bias"):
+            del out[f"{bn}.{leaf}"]
+        folded += 1
+    if folded == 0:
+        raise ValueError("no BatchNorm found to fold")
+    return out

@@ -2,8 +2,8 @@
 
 The port's constructors build zeros and ones (``models/vit.py``); a trainer
 starts from ``init_params(model, generator)``, which gives each parameter of
-ViT, Twins-SVT, T2T-ViT, CaiT and DeepViT the distribution of its
-``vit_tpu`` initializer:
+ViT, Twins-SVT, T2T-ViT, CaiT, DeepViT, CvT, LeViT, PiT and SimpleViT the
+distribution of its ``vit_tpu`` initializer:
 
 - ``lecun_normal`` (flax's ``variance_scaling(1, "fan_in",
   "truncated_normal")``: a unit normal truncated at +-2, times
@@ -17,11 +17,19 @@ ViT, Twins-SVT, T2T-ViT, CaiT and DeepViT the distribution of its
   ``Conv`` ``kernel`` too (Twins' ``to_kv`` and PEG's depthwise ``proj``):
   flax's fan-in of an HWIO kernel is ``kh * kw * in / groups``, which over
   the port's OIHW kernel is ``I * kh * kw`` (``I`` already ``in /
-  groups``);
+  groups``; a depthwise kernel's fan-in is ``kh * kw``: CvT's projections,
+  PiT's ``Pool``);
 - ``truncated_normal(0.02)`` for ``cls`` and ``pos_embedding``
-  (``vit_tpu/models/vit.py:60-69``, ``models/t2t.py:75-80``);
-- zeros for biases (conv biases too), ones for LayerNorm scales
-  (``norm_scale`` of Twins' local attention);
+  (``vit_tpu/models/vit.py:60-69``, ``models/t2t.py:75-80``,
+  ``models/pit.py:55-64``);
+- zeros for biases (conv biases too), ones for LayerNorm and BatchNorm
+  scales (``norm_scale`` of Twins' local attention); a BatchNorm's running
+  statistics (buffers, not parameters) go back to mean 0 and variance 1,
+  flax's ``batch_stats`` at ``init``;
+- flax ``nn.Embed``'s default for an ``embedding`` table (LeViT's
+  ``pos_bias``): ``variance_scaling(1, "fan_in", "normal", out_axis=0)``,
+  which over ``[num, features]`` is an untruncated normal of standard
+  deviation ``sqrt(1 / features)``;
 - flax's ``normal(0.02)``, not truncated, for the head mixes
   ``mix_heads_pre``, ``mix_heads_post`` and ``reattn_weights``
   (``vit_tpu/nn/attention.py:251-257``, ``:413-421``); ones for
@@ -43,6 +51,8 @@ import math
 import torch
 from torch import nn
 
+from vit_tpu_torch.nn.embed import BatchNorm
+
 # flax's truncated-normal correction: the std of a unit normal truncated at +-2
 TRUNC_STD = 0.87962566103423978
 _LECUN = ("qkv_kernel", "out_kernel", "w1", "w2", "kernel")
@@ -50,6 +60,7 @@ _TOKENS = ("cls", "pos_embedding")
 _ZEROS = ("bias", "b1", "b2", "out_bias", "norm_bias", "ln_bias", "reattn_bias")
 _ONES = ("scale", "norm_scale", "ln_scale", "reattn_scale")
 _MIXES = ("mix_heads_pre", "mix_heads_post", "reattn_weights")
+_EMBED = ("embedding",)
 _LAYER_SCALES = ("ls_attn", "ls_ff")
 
 
@@ -86,10 +97,17 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(1.0)
         elif leaf in _MIXES:
             nn.init.normal_(p, 0.0, 0.02, generator=generator)
+        elif leaf in _EMBED and p.dim() == 2:
+            nn.init.normal_(p, 0.0, p.shape[1] ** -0.5, generator=generator)
         elif leaf in _LAYER_SCALES:
             p.fill_(modules[owner].ls_eps)
         else:
             raise NotImplementedError(
                 f"{name} {tuple(p.shape)}: no vit_tpu initializer ported for it (init_params "
-                "covers ViT, Twins-SVT, T2T-ViT, CaiT and DeepViT; ROADMAP.md Queue 1 item 7)")
+                "covers ViT, Twins-SVT, T2T-ViT, CvT, LeViT, PiT, SimpleViT, CaiT and DeepViT; "
+                "ROADMAP.md Queue 1 item 7)")
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mean.zero_()
+            m.var.fill_(1.0)
     return model
