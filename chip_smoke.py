@@ -846,6 +846,12 @@ FLASH_BIAS_BWD_FAULT = "dbias not reduced over a broadcast batch axis"
 MLP_BWD_FAULTS = ("recomputed with the tanh GELU in place of hard-swish",)
 # Kernel 3's: the q and k thirds of dqkv returned in each other's place.
 QKV_BWD_FAULTS = ("dq and dk swapped",)
+# Kernel 3's with a learned bias broadcast over the batch of windows
+# (RegionViT's joint pass: a [1, H, N, N] table for b * n_win windows): dbias
+# taken from the first window instead of summed over all of them; dbias with
+# its heads in reverse order (each head's gradient handed to another head's
+# column of the gathered table). Planted where they apply (B > 1, H > 1).
+QKV_BIAS_BWD_FAULTS = ("dbias not summed over the windows", "dbias heads in reverse order")
 # Kernels 7 and 8's: the recompute run with a head mix transposed (the mixes
 # are mix[h, g], the source head as the row: kernel 7's pre- and
 # post-softmax mixes, kernel 8's one mix after the softmax), and kernel 8's
@@ -1004,8 +1010,9 @@ def flash_faults(args, kw):
 
 def faulty_grads(kind, args, kw, g, fault):
     """The backward of ``kind``'s Function with ``fault`` (``FUNCTION_FAULTS``,
-    ``CAST_SKIPPED``, ``FLASH_BWD_FAULTS``, ``QKV_BWD_FAULTS`` or
-    ``HEAD_MIX_BWD_FAULTS``) planted, on the same inputs."""
+    ``CAST_SKIPPED``, ``FLASH_BWD_FAULTS``, ``QKV_BWD_FAULTS``,
+    ``QKV_BIAS_BWD_FAULTS`` or ``HEAD_MIX_BWD_FAULTS``) planted, on the same
+    inputs."""
     from vit_tpu_torch.ops.block_attention import recompute_vjp
 
     if fault in FLASH_BWD_FAULTS or fault == FLASH_BIAS_BWD_FAULT:
@@ -1027,6 +1034,13 @@ def faulty_grads(kind, args, kw, g, fault):
         dq, dk, dv = grads[0].chunk(3, dim=-1)
         grads[0] = torch.cat([dk, dq, dv], dim=-1)
         return grads
+    if fault == QKV_BIAS_BWD_FAULTS[0]:  # the bias taken per window, window 0's kept
+        qkv, bias = args
+        grads = recompute_vjp(twin, [qkv, bias.expand(qkv.shape[0], *bias.shape[1:])], need, g)
+        return [grads[0], grads[1][:1]]
+    if fault == QKV_BIAS_BWD_FAULTS[1]:
+        grads = recompute_vjp(twin, args, need, g)
+        return [grads[0], grads[1].flip(1)]
     if fault in HEAD_MIX_BWD_FAULTS[:2]:
         names = ALL_FN_ARGS[kind]
         i = names.index("mix" if kind == "reattention_block" else
@@ -1045,12 +1059,23 @@ def faulty_grads(kind, args, kw, g, fault):
     return [None if a is None else next(grads) for a in leaves]
 
 
+def qkv_bias_faults(args):
+    """The QKV_BIAS_BWD_FAULTS that change kernel 3's gradients on these
+    inputs: a bias broadcast over more than one window for the first, more
+    than one head of it for the second."""
+    qkv, bias = args
+    if bias is None:
+        return []
+    return [f for f, applies in zip(QKV_BIAS_BWD_FAULTS, (
+        bias.shape[0] == 1 and qkv.shape[0] > 1, bias.shape[1] > 1)) if applies]
+
+
 def function_faults(kind, args, kw):
     """The planted faults ``check_function`` requires to fail for ``kind``."""
     if kind in ("flash_attention", "flash_attention_kv_blocked"):
         return flash_faults(args, kw)
     if kind == "qkv_attention":
-        return list(QKV_BWD_FAULTS)
+        return list(QKV_BWD_FAULTS) + qkv_bias_faults(args)
     residual = kind in ("attention_block", "reattention_block") or kw.get("residual", False)
     faults = list(FUNCTION_FAULTS[0 if residual else 1:])
     if kind == "fused_mlp" and args[5] is None:  # no LayerNorm: nothing to swap
@@ -4910,6 +4935,25 @@ STEP_KINDS = (("hand-written kernels (vt::)", ("vt::",)),
               ("elementwise, reductions, copies", ("",)))
 
 
+def profiled_step(what, state, step, images, labels):
+    """One step under ``torch.profiler``: prints the device's busy ms in the
+    step's host-clock ms (the idle share), by kind and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(state, images, labels))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, busy, by_kind = step_kernels(prof)
+    print(f"{what} profile batch {images.shape[0]}: device busy {busy:.1f} ms in a {wall:.1f} ms "
+          f"step (host clock, profiler on; idle {max(0.0, 1 - busy / wall):.1%}); by kind, ms: "
+          + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})" for k, v in by_kind.items()))
+    for ms, count, key in kernels[:6]:
+        print(f"{what} profile: {ms:9.2f} ms x{count:<5d} {key[:90]}")
+
+
 def step_kernels(prof):
     """The device kernels of a profiled window: (ms, launches, name) sorted,
     their busy ms, and that time by STEP_KINDS. Counts only events the card
@@ -7104,8 +7148,6 @@ def phase_train_bn_steps(dev, smi, requests):
     import io
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
-
     from vit_tpu_torch import train as tt
 
     for fam, cfg in BN_TRAIN.items():
@@ -7123,20 +7165,7 @@ def phase_train_bn_steps(dev, smi, requests):
         first = float(step(state, images, labels))
         print(f"train bn {fam} step 1 (first, untimed): loss {first:.5f}, "
               f"{time.perf_counter() - t0:.1f} s host clock")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            float(step(state, images, labels))
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels, busy, by_kind = step_kernels(prof)
-        print(f"train bn profile {fam} batch {TRAIN_BATCH}: device busy {busy:.1f} ms in a "
-              f"{wall:.1f} ms step (host clock, profiler on; idle "
-              f"{max(0.0, 1 - busy / wall):.1%}); by kind, ms: "
-              + ", ".join(f"{k} {v:.1f} ({v / max(busy, 1e-9):.1%})" for k, v in by_kind.items()))
-        for ms, count, key in kernels[:6]:
-            print(f"train bn profile {fam}: {ms:9.2f} ms x{count:<5d} {key[:90]}")
-        del prof
+        profiled_step(f"train bn {fam}", state, step, images, labels)
         losses, ms, counts, recomputes = timed_steps(f"train bn {fam}", state, step, images,
                                                      labels, 3, smi)
         require(all(np.isfinite([first] + losses)),
@@ -7209,6 +7238,377 @@ def phase_train_bn(dev, smi, requests):
     phase_train_bn_grads(dev)
     phase_train_bn_steps(dev, smi, requests)
     print(f"phase 23 (training CvT, LeViT, PiT and SimpleViT) took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return worst
+
+
+# -- phase 24: training the kernel-3 and branch families ---------------------------
+
+
+def branch_train_counts(model, remat=True):
+    """(launches, recomputes) of each kernel a training step of an
+    EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT or RegionViT
+    ``model`` takes. A plain ``Transformer`` (EfficientViT's encoder,
+    CrossViT's): deeper than 1, one attention block (kernel 1) and MLP
+    (kernel 2) a layer, twice under ``remat`` (the forward and remat's), each
+    recomputed once; of depth 1 its unfused layer, kernel 3 and kernel 2 once
+    each. ParallelViT's stack (never scanned, never rematted): kernel 3 and
+    kernel 2 once a branch of each layer. PatchMerger-ViT: kernel 3 and 2
+    once a layer; NesT: kernel 3 once a block attention and kernel 2 once a
+    ConvMLP; RegionViT: kernel 3 twice a layer (the regional and the joint
+    pass of its one ``attn``) and kernel 2 once. Each launch outside a
+    rematted stack is recomputed once. Above dropout 0 an attention
+    materializes and an MLP takes its plain path, launching nothing, but
+    NesT's block attention, which has no attention dropout (its drop comes
+    after ``to_out``) and stays on kernel 3. CrossViT's cross-attention runs
+    the low-query path in plain PyTorch at every shape of its presets and
+    tiny config."""
+    from vit_tpu_torch.nn.blocks import Transformer
+
+    launches, recomputes = collections.Counter(), collections.Counter()
+
+    def once(kind, n=1):
+        launches[kind] += n
+        recomputes[kind] += n
+
+    for t in (m for m in model.modules() if isinstance(m, Transformer)):
+        if t.dropout:
+            continue
+        if t.branches > 1:
+            once("qkv_attention", t.depth * t.branches)
+            once("fused_mlp", t.depth * t.branches)
+        elif t.depth > 1:
+            runs = 2 if remat else 1
+            for kind in ("attention_block", "fused_mlp"):
+                launches[kind] += runs * t.depth
+                recomputes[kind] += t.depth
+        else:
+            once("qkv_attention")
+            once("fused_mlp")
+    kind = type(model).__name__
+    if kind == "PatchMergerViT":
+        for i in range(model.depth):
+            if not getattr(model, f"attn_{i}").dropout:
+                once("qkv_attention")
+            if not getattr(model, f"ff_{i}").dropout:
+                once("fused_mlp")
+    elif kind == "NesT":
+        for m in model.modules():
+            if type(m).__name__ == "_BlockAttention":
+                once("qkv_attention")
+            elif type(m).__name__ == "ConvMLP" and not m.dropout:
+                once("fused_mlp")
+    elif kind == "RegionViT":
+        for m in (m for m in model.modules() if type(m).__name__ == "_R2LBlock"):
+            if not m.attn.dropout:
+                once("qkv_attention", 2)
+            if not m.ff.dropout:
+                once("fused_mlp")
+    return dict(launches), dict(recomputes)
+
+
+# A fault planted in RegionViT's training forward (24b and the CPU tests):
+# each layer's regional pass run on its ``attn``'s parameters detached, so
+# that the shared module's gradient holds the joint pass's part alone.
+REGION_REGIONAL_FAULT = "the regional pass's gradient dropped from the shared attn"
+
+
+@contextlib.contextmanager
+def region_regional_detached(model):
+    """REGION_REGIONAL_FAULT planted in every RegionViT layer of ``model``
+    inside the scope: its ``attn`` called without a bias (the regional
+    pass) reads its parameters detached."""
+    attns = [m.attn for m in model.modules() if type(m).__name__ == "_R2LBlock"]
+
+    def planted(attn):
+        plain = type(attn).forward
+
+        def forward(x, *a, bias=None, **kw):
+            if bias is not None:
+                return plain(attn, x, *a, bias=bias, **kw)
+            live = dict(attn._parameters)
+            attn._parameters.update({k: v.detach() for k, v in live.items() if v is not None})
+            try:
+                return plain(attn, x, *a, **kw)
+            finally:
+                attn._parameters.update(live)
+        return forward
+
+    for attn in attns:
+        attn.forward = planted(attn)
+    try:
+        yield
+    finally:
+        for attn in attns:
+            del attn.forward
+
+
+# 24a: the Functions at the shapes the six families train them. Kernel 3:
+# (what, sequences a sample, tokens, heads, head width, a [1, H, N, N] bias
+# needing a gradient): ParallelViT's branches (257 tokens, 8 heads of 64),
+# PatchMerger-ViT's layers before the merge (256: no cls token), NesT's
+# level 0 (16 blocks of 196 tokens, 3 heads of 32), RegionViT's stage-0
+# regional pass (64 region tokens) and joint pass (64 windows of 50 tokens,
+# 4 heads of 32, with the stage's bias). Kernel 1: (what, tokens, dim,
+# heads, eps), 64-wide heads: CrossViT's small and large branches,
+# EfficientViT's encoder. Kernel 2: (what, sequences a sample, tokens, D,
+# F, eps) at each family's widths.
+BRANCH_QKV = (("ParallelViT branch", 1, PARALLEL_N, 8, 64, False),
+              ("PatchMerger-ViT layer", 1, 256, 8, 64, False),
+              ("NesT level 0", 16, 196, 3, 32, False),
+              ("RegionViT stage 0 regional", 1, 64, 4, 32, False),
+              ("RegionViT stage 0 joint", 64, 50, 4, 32, True))
+BRANCH_ATTN = (("CrossViT small branch", 257, 192, 8, 1e-5),
+               ("CrossViT large branch", 17, 384, 8, 1e-5), ("EfficientViT", 65, 512, 8, 1e-6))
+BRANCH_MLP = (("CrossViT small branch", 1, 257, 192, 2048, 1e-5),
+              ("CrossViT large branch", 1, 17, 384, 2048, 1e-5),
+              ("EfficientViT", 1, 65, 512, 2048, 1e-6),
+              ("ParallelViT branch", 1, PARALLEL_N, 1024, 2048, 1e-6),
+              ("PatchMerger-ViT layer", 1, 256, 1024, 2048, 1e-5),
+              ("NesT level 0", 16, 196, 96, 384, 1e-5),
+              ("RegionViT stage 0 joint", 64, 50, 64, 256, 1e-5))
+BRANCH_FN_BATCH = 8
+
+
+def phase_train_branch_functions(dev):
+    """24a: ``QkvAttentionFn``, ``AttentionBlockFn`` and ``MlpFn`` against
+    autograd through their twins at BRANCH_QKV, BRANCH_ATTN and BRANCH_MLP,
+    batch BRANCH_FN_BATCH (``check_function``: every gradient within
+    kernel_tol's form, the planted faults failing it; at RegionViT's joint
+    pass also its bias's two, QKV_BIAS_BWD_FAULTS: dbias not summed over the
+    windows, its heads reversed). Returns the worst gradient error by
+    kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst = collections.defaultdict(float)
+    b = BRANCH_FN_BATCH
+    for what, per, n, heads, d, biased in BRANCH_QKV:
+        qkv = r(b * per, n, 3 * heads * d).bfloat16()
+        bias = r(1, heads, n, n) if biased else None
+        err, _ = _function_line("qkv_attention", f"{what} {list(qkv.shape)}"
+                                + (f" bias {list(bias.shape)}" if biased else ""),
+                                [qkv, bias], dict(heads=heads, scale=d**-0.5), gen)
+        worst["qkv_attention"] = max(worst["qkv_attention"], err)
+    for what, n, dim, heads, eps in BRANCH_ATTN:
+        a = attn_inputs(gen, b, n, dim, heads, 64, torch.bfloat16, dev)
+        err, _ = _function_line("attention_block", f"{what} [{b}, {n}, {dim}] {heads} heads of 64",
+                                [a[k] for k in FN_ARGS["attention_block"]],
+                                dict(heads=heads, scale=0.125, ln_eps=eps), gen)
+        worst["attention_block"] = max(worst["attention_block"], err)
+    for what, per, n, dim, f, eps in BRANCH_MLP:
+        m = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, b=b * per)
+        err, _ = _function_line("fused_mlp", f"{what} [{b * per}, {n}, {dim}] F {f}",
+                                [m.get(k) for k in FN_ARGS["fused_mlp"]],
+                                dict(activation="gelu", residual=False, ln_eps=eps), gen)
+        worst["fused_mlp"] = max(worst["fused_mlp"], err)
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+# The six presets as they train here (``vit_tpu/models/presets.py``): their
+# widths at dropout 0; CrossViT, ParallelViT and PatchMerger-ViT also at
+# their presets' own dropout 0.1 (24c), where every attention materializes
+# and every MLP takes its plain path: no kernel launches.
+BRANCH_TRAIN = {"efficient": EFFICIENT, "cross_vit": dict(CROSS_VIT, dropout=0.0, emb_dropout=0.0),
+                "parallel_vit": PARALLEL_VIT, "patch_merger_vit": PATCH_MERGER, "nest": NEST,
+                "region_vit": REGION_VIT}
+BRANCH_PRESET_DROPOUT = {"cross_vit": dict(CROSS_VIT, dropout=0.1, emb_dropout=0.1),
+                         "parallel_vit": dict(PARALLEL_VIT, dropout=0.1, emb_dropout=0.1),
+                         "patch_merger_vit": dict(PATCH_MERGER, dropout=0.1, emb_dropout=0.1)}
+BRANCH_GRAD_DRAWS = 3
+# Batch 32, not phase 23's 8: CrossViT's cls cross-attention parameters
+# (``norm``, ``proj_in``) take their gradient from one token a sample, so at
+# batch 8 their relative L2 from fp32 swings by half from draw to draw on
+# both paths, and the largest of three draws put the kernel path 1.62x the
+# plain path's at ``cross_3_1.lg_attends_sm_proj_in.bias`` (1.52x over eight
+# draws; mean over eight draws 1.16x, median of the 410 tensors 1.015),
+# with kernels 1 and 2 as far from the fp32 twin forward as the bf16 twin
+# (0.009195 against 0.009194 at the small branch). At batch 32 the largest
+# of three draws was 1.34x, of eight 1.16x (an H100 80GB HBM3 at 700 W).
+BRANCH_GRAD_BATCH = 32
+
+
+def branch_train_model(fam, dev, gen, cfg=None, dtype=torch.bfloat16):
+    """The ``fam`` preset (``BRANCH_TRAIN``, or ``cfg``) drawn by
+    ``init_params``."""
+    from vit_tpu_torch import models
+    from vit_tpu_torch.utils import init_params
+
+    ctor = {"efficient": models.EfficientViT, "cross_vit": models.CrossViT,
+            "parallel_vit": models.ParallelViT, "patch_merger_vit": models.PatchMergerViT,
+            "nest": models.NesT, "region_vit": models.RegionViT}[fam]
+    return init_params(ctor(**(cfg or BRANCH_TRAIN[fam]), dtype=dtype, device=dev), gen)
+
+
+def phase_train_branch_grads(dev):
+    """24b: one step's loss and gradients of each preset in bf16 at batch
+    BRANCH_GRAD_BATCH on BRANCH_GRAD_DRAWS draws of the images and labels
+    (the parameters drawn once), three ways: the kernel path (the kernels
+    forward, the Functions' backward, remat), the plain bf16 path and plain
+    fp32. Phase 22's rule: each parameter's relative L2 from fp32 on every
+    draw at most GRAD_RATIO times the plain bf16 path's largest over the
+    draws; gradients zero in fp32 (at most BN_ZERO of the largest norm on
+    every draw: RegionViT's last layer's bias table, whose region query reads
+    the table's zero row and whose local outputs the head never reads) held
+    by size, at most one bf16 ulp (2^-8) of the largest on the kernel path;
+    the loss as in 21b. Every ``.grad`` set and finite on the kernel path,
+    with the launches and recomputes of ``branch_train_counts``. Then, on
+    RegionViT's first draw, REGION_REGIONAL_FAULT planted on the kernel
+    path must break the rule."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    for fam, cfg in BRANCH_TRAIN.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+        model = branch_train_model(fam, dev, gen)
+        model32 = type(model)(**cfg, device=dev)
+        model32.load_state_dict(model.state_dict())
+        want_launches, want_recomputes = branch_train_counts(model)
+        size = IMAGE_SIZE[fam]
+        dists = collections.defaultdict(list)  # name -> [(kernel, plain)] a draw
+        norms = collections.defaultdict(list)  # name -> [(kernel, fp32)] a draw, over the max
+        for draw in range(BRANCH_GRAD_DRAWS):
+            x = torch.randn(BRANCH_GRAD_BATCH, size, size, 3, generator=gen, device=dev)
+            y = torch.randint(0, 1000, (BRANCH_GRAD_BATCH,), generator=gen, device=dev)
+
+            def grads(m, scope, remat):
+                m.zero_grad(set_to_none=True)
+                with scope:
+                    loss = cross_entropy_loss(m(x, train=True, remat=remat), y)
+                    loss.backward()
+                return loss.item(), {k: None if p.grad is None else p.grad.detach().clone()
+                                     for k, p in m.named_parameters()}
+
+            ops.reset_launch_counts()
+            loss_k, gk = grads(model, contextlib.nullcontext(), True)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+            loss_p, gp = grads(model, ops.force_backend("torch"), False)
+            loss_32, g32 = grads(model32, ops.force_backend("torch"), False)
+            require(counts == want_launches,
+                    f"train branch grads {fam}: launches {counts}, not {want_launches}")
+            require(recomputes == want_recomputes,
+                    f"train branch grads {fam}: recomputes {recomputes}, not {want_recomputes}")
+            missing = [k for k, g in gk.items() if g is None or not torch.isfinite(g).all().item()]
+            require(not missing, f"train branch grads {fam}: no finite gradient on the kernel "
+                                 f"path for {missing[:5]}")
+            top = max(g.double().norm().item() for g in g32.values())
+            for k in gk:
+                dists[k].append((rel_l2(gk[k], g32[k]), rel_l2(gp[k], g32[k])))
+                norms[k].append((gk[k].double().norm().item() / top,
+                                 g32[k].double().norm().item() / top))
+            al = sorted((dists[k][-1][0] / max(dists[k][-1][1], 1e-30), k) for k in gk)
+            print(f"train branch grads {fam} batch {BRANCH_GRAD_BATCH} draw {draw}: loss kernel "
+                  f"{loss_k:.6f}, plain bf16 {loss_p:.6f}, plain fp32 {loss_32:.6f}; launches "
+                  f"{counts}, recomputes {recomputes}; rel L2 from fp32 over the plain bf16 "
+                  f"path's, {len(al)} parameter tensors: median "
+                  f"{statistics.median(r for r, _ in al):.3f}, max {al[-1][0]:.3f} ({al[-1][1]})")
+            lfloor = max(2.0**-8 * abs(loss_32), 1e-3)
+            require(abs(loss_k - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), lfloor),
+                    f"train branch grads {fam} draw {draw}: loss {loss_k} from fp32 {loss_32} "
+                    f"beyond {GRAD_RATIO}x the plain bf16 path's {loss_p} (floor {lfloor:.3g})")
+            if fam == "region_vit" and draw == 0:
+                _, gf = grads(model, region_regional_detached(model), True)
+                fault = max((rel_l2(gf[k], g32[k]) / max(dists[k][0][1], 1e-30), k) for k in gf
+                            if norms[k][0][1] > BN_ZERO)
+                print(f"train branch grads region_vit, planted '{REGION_REGIONAL_FAULT}': "
+                      f"{fault[0]:.3f}x the plain bf16 path's distance at {fault[1]} (must "
+                      f"exceed {GRAD_RATIO})")
+                require(fault[0] > GRAD_RATIO,
+                        f"train branch grads: the rule does not see '{REGION_REGIONAL_FAULT}'")
+                del gf
+            del gk, gp, g32
+        del model, model32
+        torch.cuda.empty_cache()
+        zeros = [k for k, ns in norms.items() if max(n32 for _, n32 in ns) <= BN_ZERO]
+        loud = sorted((max(nk for nk, _ in norms[k]), k) for k in zeros)
+        if zeros:
+            print(f"train branch grads {fam}: {len(zeros)} gradients zero in fp32 (at most "
+                  f"{BN_ZERO} of the largest norm), held by size: on the kernel path at most "
+                  f"{loud[-1][0]:.3g} of the largest ({loud[-1][1]}), bound {2.0**-8:.3g}")
+        require(not zeros or loud[-1][0] <= 2.0**-8,
+                f"train branch grads {fam} {loud[-1][1] if zeros else ''}: a zero gradient at "
+                f"{loud[-1][0] if zeros else 0} of the largest norm on the kernel path")
+        rows = sorted(((max(rk for rk, _ in ds) / max(max(rp for _, rp in ds), 1e-30), k)
+                       for k, ds in dists.items() if k not in zeros), reverse=True)
+        for ratio, k in rows[:3]:
+            print(f"train branch grads {fam} {k}: rel L2 from fp32 by draw, kernel / plain bf16: "
+                  + "; ".join(f"{rk:.4g} / {rp:.4g}" for rk, rp in dists[k])
+                  + f" ({ratio:.3f} of the plain path's largest, bound {GRAD_RATIO})")
+        print(f"train branch grads {fam}: {len(rows)} parameter tensors held to {GRAD_RATIO}x "
+              f"the plain bf16 path over {BRANCH_GRAD_DRAWS} draws")
+        require(rows[0][0] <= GRAD_RATIO,
+                f"train branch grads {fam} {rows[0][1]}: {rows[0][0]:.3f}x the plain bf16 path's "
+                f"largest distance from fp32 over {BRANCH_GRAD_DRAWS} draws")
+
+
+def phase_train_branch_steps(dev, smi):
+    """24c: ``vit_tpu_torch.train`` on each preset (``BRANCH_TRAIN``) in bf16,
+    batch TRAIN_BATCH: ``init_params`` from a seed, a fixed batch, AdamW at
+    TRAIN_LR, remat, a warm-up step, a profiled one (``profiled_step``) and
+    three timed ones (``timed_steps``: step ms, img/s, the Functions'
+    backward ms, peak GiB): finite losses and exactly the launches and
+    recomputes of ``branch_train_counts``. Then two timed steps of CrossViT,
+    ParallelViT and PatchMerger-ViT at their presets' dropout 0.1 (no kernel
+    launched), and ``python -m vit_tpu_torch.train --model region_vit`` for
+    two steps with a checkpoint and one more resumed from it."""
+    import io
+    import tempfile
+
+    from vit_tpu_torch import train as tt
+
+    runs = [(fam, cfg, 3) for fam, cfg in BRANCH_TRAIN.items()] + [
+        (fam, cfg, 2) for fam, cfg in BRANCH_PRESET_DROPOUT.items()]
+    for fam, cfg, n in runs:
+        what = f"train branch {fam}" + (" dropout 0.1" if cfg.get("dropout") else "")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 102)
+        model = branch_train_model(fam, dev, gen, cfg)
+        want_launches, want_recomputes = branch_train_counts(model)
+        size = IMAGE_SIZE[fam]
+        images = torch.randn(TRAIN_BATCH, size, size, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+        state = tt.create_train_state(model, opt, gen, init=False)
+        step = tt.make_train_step(model, opt, remat=True)
+        t0 = time.perf_counter()
+        first = float(step(state, images, labels))
+        print(f"{what} step 1 (first, untimed): loss {first:.5f}, "
+              f"{time.perf_counter() - t0:.1f} s host clock")
+        if n == 3:
+            profiled_step(what, state, step, images, labels)
+        losses, ms, counts, recomputes = timed_steps(what, state, step, images, labels, n, smi)
+        require(all(np.isfinite([first] + losses)),
+                f"{what}: a non-finite loss in {[first] + losses}")
+        require(counts == want_launches, f"{what}: launches {counts}, not {want_launches} a step")
+        require(recomputes == want_recomputes,
+                f"{what}: recomputes {recomputes}, not {want_recomputes} a step")
+        del state, step, model, images
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=REPO / "vit_tpu_torch" / "_build") as ckpt:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        base = ["--model", "region_vit", "--batch", "8", "--classes", "10", "--image-size", "112"]
+        with contextlib.redirect_stdout(out):
+            rc = tt.main(base + ["--steps", "2", "--checkpoint-dir", ckpt])
+            rc2 = tt.main(base + ["--steps", "1", "--resume", ckpt])
+        lines = out.getvalue().strip().splitlines()
+        print(f"train branch cli python -m vit_tpu_torch.train --model region_vit --steps 2 "
+              f"--checkpoint-dir D, then --resume D --steps 1: rc {rc}, {rc2} in "
+              f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-3:])}")
+        require(rc == 0 and rc2 == 0 and "resumed from" in out.getvalue()
+                and "step 3: loss" in out.getvalue(),
+                "python -m vit_tpu_torch.train --model region_vit with a resume failed")
+
+
+def phase_train_branch(dev, smi):
+    """Phase 24: training EfficientViT, CrossViT, ParallelViT,
+    PatchMerger-ViT, NesT and RegionViT (24a-c); returns 24a's worst
+    gradient error by kernel."""
+    t_phase = time.perf_counter()
+    worst = phase_train_branch_functions(dev)
+    phase_train_branch_grads(dev)
+    phase_train_branch_steps(dev, smi)
+    print(f"phase 24 (training the kernel-3 and branch families) took "
           f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
     return worst
 
@@ -7377,6 +7777,12 @@ def main() -> int:
     # 23. training CvT, LeViT, PiT and SimpleViT: BatchNorm with batch
     # statistics, LeViT's two heads, kernels 4, 2 and 1 under grad at their shapes
     for k, err in phase_train_bn(dev, smi, requests).items():
+        grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
+
+    # 24. training EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT and
+    # RegionViT: kernels 1, 2 and 3 under grad at their shapes, branch and block
+    # dropout, RegionViT's bias gradient through kernel 3
+    for k, err in phase_train_branch(dev, smi).items():
         grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
 
     sources = {

@@ -508,8 +508,9 @@ def _lim_after_to_out(self, x):
         self.lim(qkv[..., 2 * self.hk:])
 
 
-def _region_token_appended(self, local_tokens, region, bias, window):
-    """``_R2LBlock.forward`` with each region token behind its window."""
+def _region_token_appended(self, local_tokens, region, bias, window, *_):
+    """``_R2LBlock.forward`` with each region token behind its window (its
+    training arguments ignored: the test runs inference)."""
     b, lh, lw, d = local_tokens.shape
     n_win = region.shape[1]
     region = region + self.attn(region)

@@ -857,9 +857,9 @@ def test_trained_model_folds_and_serves_as_it_evaluates(model):
 def test_trainer_takes_the_four_families_and_refuses_a_folded_model():
     """``_trainable`` takes CvT, LeViT (one head and two), PiT and
     SimpleViT; a ``fold_bn=True`` CvT or LeViT is inference only (and so is
-    its training forward); EfficientViT and CrossViT still raise, naming
+    its training forward); ScalableViT and CrossFormer still raise, naming
     item 7 step 3."""
-    from vit_tpu_torch.models import CrossViT, EfficientViT
+    from vit_tpu_torch.models import CrossFormer, ScalableViT
 
     for model in MODELS:
         assert callable(tt._trainable(_port(model), 0.0, True)), model
@@ -870,7 +870,7 @@ def test_trainer_takes_the_four_families_and_refuses_a_folded_model():
             tt.make_train_step(folded)
         with pytest.raises(ValueError, match="inference only"):
             folded(torch.zeros(1, MODELS[name][2], MODELS[name][2], 3), train=True)
-    for name, cls in (("efficient", EfficientViT), ("cross_vit", CrossViT)):
+    for name, cls in (("scalable_vit", ScalableViT), ("crossformer", CrossFormer)):
         with pytest.raises(NotImplementedError, match=r"item 7 \(step 3"):
             tt.make_train_step(cls(**MODEL_REGISTRY[name][1], device="cpu"))
 

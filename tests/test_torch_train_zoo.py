@@ -684,10 +684,11 @@ def test_init_params_matches_flax_init_in_shape_and_distribution(model):
 
 
 def test_init_params_refuses_unknown_parameters_with_the_roadmap_item():
-    from vit_tpu_torch.models import MODEL_REGISTRY, NesT
+    from vit_tpu_torch.models import MODEL_REGISTRY, ViTSmallDatasets
 
-    with pytest.raises(NotImplementedError, match="CaiT and DeepViT; ROADMAP.md"):
-        init_params(NesT(**MODEL_REGISTRY["nest"][1], device="cpu"), torch.Generator())
+    with pytest.raises(NotImplementedError, match="NesT and RegionViT; ROADMAP.md"):
+        init_params(ViTSmallDatasets(**MODEL_REGISTRY["vit_small_datasets"][1], device="cpu"),
+                    torch.Generator())
 
 
 # -- the trainer ---------------------------------------------------------------------
@@ -696,17 +697,18 @@ def test_init_params_refuses_unknown_parameters_with_the_roadmap_item():
 @pytest.mark.parametrize("name", ["twins_svt", "t2t"])
 def test_trainer_accepts_both_families_and_its_cli_trains_them(name, capsys):
     """``_trainable`` takes Twins-SVT and T2T-ViT (and a family not yet
-    ported still raises, naming what trains and item 7's step);
+    ported still raises, naming what is left and item 7's step);
     ``python -m vit_tpu_torch.train --model twins_svt|t2t`` trains the
     registry's tiny config on the CPU."""
-    from vit_tpu_torch.models import MODEL_REGISTRY, CrossViT, EfficientViT
+    from vit_tpu_torch.models import MODEL_REGISTRY, CrossFormer, ScalableViT
 
     ctor, cfg, _ = MODEL_REGISTRY[name]
     assert callable(tt._trainable(ctor(**cfg, device="cpu"), 0.0, True))
-    with pytest.raises(NotImplementedError, match="Twins-SVT, T2T-ViT.* train"):
-        tt.make_train_step(EfficientViT(**MODEL_REGISTRY["efficient"][1], device="cpu"))
+    with pytest.raises(NotImplementedError, match="ScalableViT, CrossFormer.* the other families "
+                                                  "train"):
+        tt.make_train_step(ScalableViT(**MODEL_REGISTRY["scalable_vit"][1], device="cpu"))
     with pytest.raises(NotImplementedError, match=r"item 7 \(step 3"):
-        tt.make_train_step(CrossViT(**MODEL_REGISTRY["cross_vit"][1], device="cpu"))
+        tt.make_train_step(CrossFormer(**MODEL_REGISTRY["crossformer"][1], device="cpu"))
     assert tt.main(["--device", "cpu", "--model", name, "--batch", "2", "--steps", "2",
                     "--classes", "10", "--image-size", "64"]) == 0
     assert "step 2: loss" in capsys.readouterr().out

@@ -229,9 +229,11 @@ def test_family_matches_jax(dtype, mode, tiny, monkeypatch):
         assert err <= 2 * max(control, 0.02), (err, control)
 
 
-def _fused_chain(self, x):
+def _fused_chain(self, x, **_):
     """A planted fault: each layer's branches as fused blocks (the residual
-    inside each), run one after another like the layers of a plain stack."""
+    inside each), run one after another like the layers of a plain stack.
+    The training keywords ``Transformer.forward`` takes are ignored: the
+    test runs inference."""
     for i in range(self.depth):
         for kind in ("attn", "ff"):
             for b in range(self.branches):

@@ -10,10 +10,10 @@ neither. Nothing is built on import: a config holds keyword arguments only
 ``TRAINING_ONLY_DROPPED``: the training-only keys of ``vit_tpu``'s configs
 that a port constructor does not take (those families are served, not
 trained, by the port, so dropout and stochastic depth do nothing), dropped
-from that family's registry config and preset. ``ViT``, ``CaiT``,
-``DeepViT``, ``CvT``, ``LeViT`` and ``PiT`` train (``vit_tpu_torch.train``)
-and take their dropout keys. Every other config key
-is ``vit_tpu``'s, with its value.
+from that family's registry config and preset: only the small-dataset
+ViT's, whose training is not ported. The families that train
+(``vit_tpu_torch.train``) take their dropout keys. Every other config key is
+``vit_tpu``'s, with its value.
 """
 
 from vit_tpu_torch.models.cait import CaiT
@@ -42,8 +42,7 @@ __all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "EfficientViT", 
            "TRAINING_ONLY_DROPPED"]
 
 _DROPOUT = ("dropout", "emb_dropout")
-TRAINING_ONLY_DROPPED = {"parallel_vit": _DROPOUT, "patch_merger_vit": _DROPOUT,
-                         "vit_small_datasets": _DROPOUT, "cross_vit": _DROPOUT}
+TRAINING_ONLY_DROPPED = {"vit_small_datasets": _DROPOUT}
 
 # name -> (class, tiny smoke config, image size): vit_tpu/models/__init__.py:55-174
 MODEL_REGISTRY = {
@@ -95,7 +94,7 @@ MODEL_REGISTRY = {
              lg_patch_size=16, sm_enc_depth=1, lg_enc_depth=1, sm_enc_mlp_dim=64,
              lg_enc_mlp_dim=128, cross_attn_depth=1, depth=1, sm_enc_heads=2,
              lg_enc_heads=2, cross_attn_heads=2, sm_enc_dim_head=16, lg_enc_dim_head=16,
-             cross_attn_dim_head=16),
+             cross_attn_dim_head=16, dropout=0.0, emb_dropout=0.0),
         64,
     ),
     "crossformer": (

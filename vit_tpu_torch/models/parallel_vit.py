@@ -8,6 +8,13 @@ each attention branch runs ``ops.qkv_attention`` (the fused-qkv kernel on
 the card) and each feed-forward branch the MLP kernel. The cls token or the
 mean of the tokens goes through a LayerNorm and a Dense head in fp32.
 
+Training (``forward(img, train=True, generator=..., remat=...)``):
+``emb_drop`` (``emb_dropout``) after the position add, then ``dropout`` in
+every branch (``Transformer``: each attention branch materialized with its
+dropouts above 0, on ``ops.QkvAttentionFn`` at 0; each feed-forward branch
+on its plain path above 0, on ``ops.MlpFn`` at 0). ``vit_tpu`` never scans a
+parallel stack, so ``remat`` checkpoints nothing.
+
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
 converts a ``vit_tpu`` variables tree.
@@ -33,10 +40,11 @@ class ParallelViT(EfficientViT):
     def __init__(self, *, image_size: int, patch_size: int, num_classes: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, pool: str = "cls",
                  num_parallel_branches: int = 2, dim_head: int = 64, channels: int = 3,
+                 dropout: float = 0.0, emb_dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         encoder = Transformer(dim, depth, heads, dim_head, mlp_dim, norm_eps=1e-5,
-                              parallel_branches=num_parallel_branches, dtype=dtype,
-                              device=device)
+                              parallel_branches=num_parallel_branches, dropout=dropout,
+                              dtype=dtype, device=device)
         super().__init__(image_size=image_size, patch_size=patch_size, num_classes=num_classes,
-                         dim=dim, transformer=encoder, pool=pool, channels=channels, dtype=dtype,
-                         device=device)
+                         dim=dim, transformer=encoder, pool=pool, channels=channels,
+                         emb_dropout=emb_dropout, dtype=dtype, device=device)

@@ -60,12 +60,13 @@ REFERENCE_PRESETS: Dict[str, Tuple[Callable[..., Any], Dict[str, Any], int]] = {
     "parallel_vit": (ParallelViT, dict(
         image_size=256, patch_size=16, num_classes=1000,
         dim=1024, depth=6, heads=8, mlp_dim=2048,
-        num_parallel_branches=2,
+        num_parallel_branches=2, dropout=0.1, emb_dropout=0.1,
     ), 256),
     "patch_merger_vit": (PatchMergerViT, dict(
         image_size=256, patch_size=16, num_classes=1000,
         dim=1024, depth=12, heads=8, mlp_dim=2048,
         patch_merge_layer=6, patch_merge_num_tokens=8,
+        dropout=0.1, emb_dropout=0.1,
     ), 256),
     "vit_small_datasets": (ViTSmallDatasets, dict(
         image_size=256, patch_size=16, num_classes=1000,
@@ -78,6 +79,7 @@ REFERENCE_PRESETS: Dict[str, Tuple[Callable[..., Any], Dict[str, Any], int]] = {
         lg_dim=384, lg_patch_size=64, lg_enc_depth=3, lg_enc_heads=8,
         lg_enc_mlp_dim=2048,
         cross_attn_depth=2, cross_attn_heads=8,
+        dropout=0.1, emb_dropout=0.1,
     ), 256),
     "cvt": (CvT, dict(
         num_classes=1000, s1_emb_dim=64, s2_emb_dim=192, s3_emb_dim=384,

@@ -18,6 +18,20 @@ region tokens space-to-depthed (channel-major) from the local map, so the
 windows span the local/region ratio; one Downsample shared by both token
 sets; the clipped out-of-range bias gather; the 4-D unpooled logits.
 
+Training (``forward(img, train=True, generator=..., remat=...)``): each
+layer's one ``attn`` runs the regional and the joint pass, so its gradients
+add up over both uses (vit_tpu/models/region_vit.py:52-79). At
+``attn_dropout`` 0 both passes run ``ops.qkv_attention`` (on the card
+``ops.QkvAttentionFn``), the joint one with the stage's relative-position
+bias, whose ``dbias`` autograd sums over the ``b * n_win`` windows and
+scatters back into the gathered table (with ``reference_quirks`` the clipped
+indices gather one entry many times, and their gradients add). Above 0 both
+passes materialize with ``attn_drop`` and ``out_drop``; ``ff_dropout`` puts
+the MLP on its plain path with ``drop1`` and ``drop2``. Masks are drawn
+layer after layer, regional pass, joint pass, MLP, as ``vit_tpu``'s
+``nn.scan`` over a stage draws them. ``vit_tpu`` does not remat a stage's
+scan, so ``remat`` checkpoints nothing.
+
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
 converts a ``vit_tpu`` variables tree (a stage's ``blocks`` are scanned
@@ -45,22 +59,28 @@ HEADS, DIM_HEAD = 4, 32  # every stage's attention, as vit_tpu's _R2LStage defau
 
 class _R2LBlock(nn.Module):
     """One regional-to-local layer: ``attn`` (one module for the regional
-    and the joint pass) and ``ff`` (on the joint tokens), LayerNorm eps 1e-5."""
+    and the joint pass, dropout ``attn_dropout``) and ``ff`` (on the joint
+    tokens, dropout ``ff_dropout``), LayerNorm eps 1e-5."""
 
-    def __init__(self, dim: int, *, dtype: Optional[torch.dtype], device):
+    def __init__(self, dim: int, *, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 dtype: Optional[torch.dtype], device):
         super().__init__()
-        self.attn = Attention(dim, HEADS, DIM_HEAD, norm_eps=1e-5, dtype=dtype, device=device)
-        self.ff = FeedForward(dim, 4 * dim, ln_eps=1e-5, dtype=dtype, device=device)
+        self.attn = Attention(dim, HEADS, DIM_HEAD, norm_eps=1e-5, dropout=attn_dropout,
+                              dtype=dtype, device=device)
+        self.ff = FeedForward(dim, 4 * dim, ln_eps=1e-5, dropout=ff_dropout, dtype=dtype,
+                              device=device)
 
-    def forward(self, local_tokens, region, bias, window: int):
+    def forward(self, local_tokens, region, bias, window: int, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, lh, lw, d = local_tokens.shape
         n_win = region.shape[1]
-        region = region + self.attn(region)
+        kw = dict(train=train, generator=generator)
+        region = region + self.attn(region, **kw)
         # each window (ops.window_partition's row-major order) behind its region token
         joint = torch.cat([region.reshape(b * n_win, 1, d),
                            ops.window_partition(local_tokens, window)], dim=1)
-        joint = joint + self.attn(joint, bias=bias)
-        joint = joint + self.ff(joint)
+        joint = joint + self.attn(joint, bias=bias, **kw)
+        joint = joint + self.ff(joint, **kw)
         return (ops.window_unpartition(joint[:, 1:], window, lh, lw),
                 joint[:, :1].reshape(b, n_win, d))
 
@@ -73,6 +93,7 @@ class _R2LStage(nn.Module):
     grid."""
 
     def __init__(self, dim: int, window_size: int, depth: int, *, reference_quirks: bool,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  dtype: Optional[torch.dtype], device):
         super().__init__()
         self.window_size, self.reference_quirks = window_size, reference_quirks
@@ -81,10 +102,12 @@ class _R2LStage(nn.Module):
         else:
             self.rel_pos_bias = WindowRelPosBias(HEADS, window_size, prepend_tokens=1,
                                                  device=device)
-        block = lambda: _R2LBlock(dim, dtype=dtype, device=device)
+        block = lambda: _R2LBlock(dim, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                                  dtype=dtype, device=device)
         self.blocks = nn.ModuleList(block() for _ in range(depth)) if depth > 1 else block()
 
-    def forward(self, local_tokens, region_tokens):
+    def forward(self, local_tokens, region_tokens, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, lh, lw, d = local_tokens.shape
         rh, rw = region_tokens.shape[1:3]
         wsz_h, wsz_w = lh // rh, lw // rw
@@ -100,7 +123,7 @@ class _R2LStage(nn.Module):
         region = region_tokens.reshape(b, rh * rw, d)
         blocks = self.blocks if isinstance(self.blocks, nn.ModuleList) else (self.blocks,)
         for block in blocks:
-            local_tokens, region = block(local_tokens, region, bias, wsz_h)
+            local_tokens, region = block(local_tokens, region, bias, wsz_h, train, generator)
         return local_tokens, region.reshape(b, rh, rw, d)
 
 
@@ -112,8 +135,7 @@ class RegionViT(nn.Module):
     ``local_down_{s}`` and ``region_down_{s}`` (one ``down_{s}`` with
     ``reference_quirks``), ``peg_{s}`` with ``use_peg``, ``stage_{s}``,
     ``head_norm`` (no bias), ``head``. ``attn_dropout`` and ``ff_dropout``
-    are accepted and do nothing: the port serves, as ``vit_tpu`` does with
-    ``train=False``."""
+    act only under ``forward(..., train=True)``."""
 
     def __init__(self, *, dim=(64, 128, 256, 512), depth=(2, 2, 8, 2), window_size: int = 7,
                  num_classes: int = 1000, tokenize_local_3_conv: bool = False,
@@ -146,8 +168,9 @@ class RegionViT(nn.Module):
                     self.add_module(f"region_down_{s}", Downsample(dim[s - 1], dim[s], **kw))
                 if use_peg:
                     self.add_module(f"peg_{s}", PEG(dim[s], **kw))
-            self.add_module(f"stage_{s}", _R2LStage(dim[s], window_size, depth[s],
-                                                    reference_quirks=reference_quirks, **kw))
+            self.add_module(f"stage_{s}", _R2LStage(
+                dim[s], window_size, depth[s], reference_quirks=reference_quirks,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout, **kw))
             if depth[s] > 1:
                 self.jax_stages[f"stage_{s}/blocks"] = depth[s]
         self.head_norm = LayerNorm(dim[-1], eps=1e-5, use_bias=False, **kw)
@@ -171,7 +194,9 @@ class RegionViT(nn.Module):
         b, h, w, _ = img.shape
         return self.region_proj(ops.patchify(img, p).reshape(b, h // p, w // p, -1))
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, remat: bool = False
+                ) -> torch.Tensor:
         _, h, w, _ = img.shape
         p = self.region_patch_size
         if h % p or w % p:
@@ -188,7 +213,8 @@ class RegionViT(nn.Module):
                     region_tokens = getattr(self, f"region_down_{s}")(region_tokens)
                 if self.use_peg:
                     local_tokens = getattr(self, f"peg_{s}")(local_tokens)
-            local_tokens, region_tokens = getattr(self, f"stage_{s}")(local_tokens, region_tokens)
+            local_tokens, region_tokens = getattr(self, f"stage_{s}")(local_tokens, region_tokens,
+                                                                      train, generator)
         if self.reference_quirks:  # the reference's unpooled 4-D logits
             return self.head(self.head_norm(region_tokens))
         # jnp.mean over bf16 sums in fp32 and returns bf16

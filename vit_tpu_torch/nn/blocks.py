@@ -18,7 +18,9 @@ checkpoints each ``EncoderBlock`` of a stack deeper than 1
 block of a scanned stack in ``nn.remat`` (blocks.py:365-370) and scans only
 stacks deeper than 1: the backward runs the block's forward again. Each
 block draws its dropout masks from a generator of its own, seeded from the
-caller's once a step, so the recompute draws the same masks.
+caller's once a step, so the recompute draws the same masks. A stack with
+parallel branches is never scanned in ``vit_tpu``, so nothing there is
+checkpointed: ``remat`` changes nothing on it, as on a stack of depth 1.
 """
 
 from __future__ import annotations
@@ -131,7 +133,12 @@ class Transformer(nn.Module):
     of N unfused attention branches ``attn_{i}_{b}`` of x (each
     ``ops.qkv_attention``), then the sum of N feed-forward branches
     ``ff_{i}_{b}``. The branches are summed in JAX's order, ``(0 + a0) +
-    a1``, in the stream's dtype, and x is added after the sum.
+    a1``, in the stream's dtype, and x is added after the sum. Under
+    ``train`` with ``dropout`` above 0 each branch drops as ``vit_tpu``'s
+    (blocks.py:431-456): each attention branch materialized with
+    ``attn_drop`` and ``out_drop``, each feed-forward branch on its plain
+    path with ``drop1`` and ``drop2``, the masks drawn branch after branch
+    in that order.
 
     ``mask_self`` and ``learned_temperature`` (LSA) reach every layer's
     attention, which then takes the unfused branch at every depth
@@ -151,7 +158,7 @@ class Transformer(nn.Module):
     depth (``{"blocks": depth}``; none with parallel branches), for a model's
     own ``jax_stages``.
 
-    ``dropout`` (plain stack only) reaches every block's attention and MLP;
+    ``dropout`` reaches every layer's attention and MLP (every branch's);
     ``forward(x, train=, generator=, remat=)`` as the module docstring
     says."""
 
@@ -162,9 +169,6 @@ class Transformer(nn.Module):
                  final_norm: bool = False, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if dropout and parallel_branches > 1:
-            raise NotImplementedError("dropout in parallel branches is not ported "
-                                      "(ROADMAP.md Queue 1 item 7)")
         self.depth, self.branches, self.dropout = depth, parallel_branches, dropout
         self.unported = depth == 1 and reattention
         self.final_norm = (LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
@@ -176,14 +180,13 @@ class Transformer(nn.Module):
                     self.add_module(f"attn_{i}_{b}", Attention(
                         dim, heads, dim_head, reattention=reattention, mask_self=mask_self,
                         learned_temperature=learned_temperature, qkv_bias=qkv_bias,
-                        norm_eps=norm_eps,
-                        dtype=dtype, device=device))
+                        norm_eps=norm_eps, dropout=dropout, dtype=dtype, device=device))
                 for b in range(parallel_branches):
                     # vit_tpu builds the FF branches without ln_eps and activation
                     # (blocks.py:453-457): LayerNorm eps 1e-6 and the tanh GELU,
                     # whatever norm_eps and activation the stack was given.
-                    self.add_module(f"ff_{i}_{b}", FeedForward(dim, mlp_dim, dtype=dtype,
-                                                               device=device))
+                    self.add_module(f"ff_{i}_{b}", FeedForward(dim, mlp_dim, dropout=dropout,
+                                                               dtype=dtype, device=device))
             return
         self.jax_stages = {"blocks": depth}
         self.blocks = nn.ModuleList(
@@ -205,7 +208,8 @@ class Transformer(nn.Module):
         if self.branches > 1:
             for i in range(self.depth):
                 for kind in ("attn", "ff"):
-                    x = x + sum(getattr(self, f"{kind}_{i}_{b}")(x) for b in range(self.branches))
+                    branches = (getattr(self, f"{kind}_{i}_{b}") for b in range(self.branches))
+                    x = x + sum(f(x, train=train, generator=generator) for f in branches)
         else:
             remat = remat and torch.is_grad_enabled() and self.depth > 1
             for block in self.blocks:

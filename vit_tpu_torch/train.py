@@ -28,18 +28,27 @@ ViT; ``ops.WindowAttentionBlockFn``, ``ops.FlashAttentionFn`` and
 ``ops.MlpFn`` for Twins-SVT; ``ops.FlashAttentionFn`` on kernel 5,
 ``ops.AttentionBlockFn`` and ``ops.MlpFn`` for T2T-ViT;
 ``ops.TalkingHeadsBlockFn`` and ``ops.MlpFn`` for CaiT;
-``ops.ReattentionBlockFn`` and ``ops.MlpFn`` for DeepViT; a bf16 ``Dense``
+``ops.ReattentionBlockFn`` and ``ops.MlpFn`` for DeepViT;
+``ops.AttentionBlockFn`` and ``ops.MlpFn`` for EfficientViT's encoder and
+CrossViT's encoders deeper than 1; ``ops.QkvAttentionFn`` and ``ops.MlpFn``
+for ParallelViT's branches, PatchMerger-ViT's layers, NesT's blocks and
+RegionViT's regional and joint passes, the latter's relative-position bias
+taking its gradient through it; a bf16 ``Dense``
 through ``nn.embed.MmRoundedFn``), per-block remat, ``accum_steps``
 microbatches averaged before
 one update, soft targets under ``augment_fn``, distillation under
 ``teacher_apply``, ViT-MoE's load-balance loss under ``moe_aux_weight``,
 weight-only int8 QAT under ``qat`` (``utils.quantize.fake_quantized``).
 Training is ported for ``ViT``, ``ViTMoE``, ``TwinsSVT``, ``T2TViT``,
-``CaiT``, ``DeepViT``, ``CvT``, ``LeViT``, ``PiT`` and ``SimpleViT``; every
-other family raises, and so does a BatchNorm-folded (``fold_bn=True``) CvT or
-LeViT, which is inference only. CaiT and DeepViT reach kernels 7
-and 8 only at ``dropout=0``: their presets' ``dropout=0.1`` takes
-``vit_tpu``'s materializing route in training, which launches neither.
+``CaiT``, ``DeepViT``, ``CvT``, ``LeViT``, ``PiT``, ``SimpleViT``,
+``EfficientViT``, ``CrossViT``, ``ParallelViT``, ``PatchMergerViT``,
+``NesT`` and ``RegionViT``; ScalableViT, CrossFormer and the small-dataset
+ViT raise, and so do ViT-MoE with dropout and a BatchNorm-folded
+(``fold_bn=True``) CvT or LeViT, which is inference only. CaiT and DeepViT
+reach kernels 7 and 8 only at ``dropout=0``: their presets' ``dropout=0.1``
+takes ``vit_tpu``'s materializing route in training, which launches
+neither; so do the presets' ``dropout=0.1`` of CrossViT, ParallelViT and
+PatchMerger-ViT keep kernels 1, 2 and 3 out of their steps.
 """
 
 from __future__ import annotations
@@ -386,26 +395,26 @@ def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable
     (``logits`` a pair ``(class, distill)`` for a two-head LeViT), or raise
     for a model whose training is not ported, or that cannot train: a
     BatchNorm-folded CvT or LeViT is inference only."""
-    from vit_tpu_torch.models import (
-        CaiT, CvT, DeepViT, LeViT, PiT, SimpleViT, T2TViT, TwinsSVT, ViT, ViTMoE,
-    )
+    from vit_tpu_torch import models as m
 
-    if isinstance(model, (CvT, LeViT)) and _folded(model):
+    if isinstance(model, (m.CvT, m.LeViT)) and _folded(model):
         raise ValueError(f"a BatchNorm-folded {type(model).__name__} (fold_bn=True) is "
                          "inference only: train the unfolded model, then fold it")
-    if isinstance(model, (ViT, TwinsSVT, T2TViT, CaiT, DeepViT, CvT, LeViT, PiT, SimpleViT)):
+    if isinstance(model, (m.ViT, m.TwinsSVT, m.T2TViT, m.CaiT, m.DeepViT, m.CvT, m.LeViT, m.PiT,
+                          m.SimpleViT, m.EfficientViT, m.CrossViT, m.PatchMergerViT, m.NesT,
+                          m.RegionViT)):
         if moe_aux_weight:
             raise ValueError("moe_aux_weight needs a model with MoE layers")
         return lambda x, gen: (model(x, train=True, generator=gen, remat=remat), [])
-    if isinstance(model, ViTMoE):
+    if isinstance(model, m.ViTMoE):
         if model.dropout:
             raise NotImplementedError("ViT-MoE's dropout in training is not ported "
-                                      "(ROADMAP.md Queue 1 item 7)")
+                                      "(ROADMAP.md Queue 1 item 7, step 3)")
         return lambda x, gen: model(x, return_aux=True)
     raise NotImplementedError(
-        f"training {type(model).__name__} is not ported: ViT, ViT-MoE, CaiT, DeepViT, Twins-SVT, "
-        "T2T-ViT, CvT, LeViT, PiT and SimpleViT train; the other families wait for ROADMAP.md "
-        "Queue 1 item 7 (step 3 for their modules)")
+        f"training {type(model).__name__} is not ported: ScalableViT, CrossFormer, the "
+        "small-dataset ViT and ViT-MoE's dropout wait for ROADMAP.md Queue 1 item 7 (step 3, its "
+        "last group); the other families train")
 
 
 def _folded(model: nn.Module) -> bool:

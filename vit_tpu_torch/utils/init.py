@@ -2,7 +2,8 @@
 
 The port's constructors build zeros and ones (``models/vit.py``); a trainer
 starts from ``init_params(model, generator)``, which gives each parameter of
-ViT, Twins-SVT, T2T-ViT, CaiT, DeepViT, CvT, LeViT, PiT and SimpleViT the
+ViT, Twins-SVT, T2T-ViT, CaiT, DeepViT, CvT, LeViT, PiT, SimpleViT,
+EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT and RegionViT the
 distribution of its ``vit_tpu`` initializer:
 
 - ``lecun_normal`` (flax's ``variance_scaling(1, "fan_in",
@@ -13,21 +14,28 @@ distribution of its ``vit_tpu`` initializer:
   ``nn/blocks.py:47-60``; Twins' local attention,
   ``vit_tpu/models/twins_svt.py:52-59``) and every flax ``Dense``
   ``kernel`` (``patch_embed/proj``, ``head``, Twins' ``to_q``, T2T's
-  ``proj``); fan-in is the kernel's ``[in, out]`` first axis. Every flax
+  ``proj``, CrossViT's cross-attention projections, NesT's bias-free
+  ``to_qkv`` and ``to_out``); fan-in is the kernel's ``[in, out]`` first
+  axis. Every flax
   ``Conv`` ``kernel`` too (Twins' ``to_kv`` and PEG's depthwise ``proj``):
   flax's fan-in of an HWIO kernel is ``kh * kw * in / groups``, which over
   the port's OIHW kernel is ``I * kh * kw`` (``I`` already ``in /
   groups``; a depthwise kernel's fan-in is ``kh * kw``: CvT's projections,
-  PiT's ``Pool``);
+  PiT's ``Pool``; NesT's aggregates, RegionViT's tokenizers, downsamples
+  and PEGs);
 - ``truncated_normal(0.02)`` for ``cls`` and ``pos_embedding``
   (``vit_tpu/models/vit.py:60-69``, ``models/t2t.py:75-80``,
-  ``models/pit.py:55-64``);
+  ``models/pit.py:55-64``, each CrossViT embedder's,
+  ``models/cross_vit.py:40-48``) and NesT's ``pos_emb_{li}``
+  (``models/nest.py:93-98``);
+- flax's ``normal(1.0)``, not truncated, for PatchMerger's ``queries``
+  (``vit_tpu/nn/embed.py:74-79``);
 - zeros for biases (conv biases too), ones for LayerNorm and BatchNorm
   scales (``norm_scale`` of Twins' local attention); a BatchNorm's running
   statistics (buffers, not parameters) go back to mean 0 and variance 1,
   flax's ``batch_stats`` at ``init``;
 - flax ``nn.Embed``'s default for an ``embedding`` table (LeViT's
-  ``pos_bias``): ``variance_scaling(1, "fan_in", "normal", out_axis=0)``,
+  ``pos_bias``, RegionViT's ``rel_pos_bias``): ``variance_scaling(1, "fan_in", "normal", out_axis=0)``,
   which over ``[num, features]`` is an untruncated normal of standard
   deviation ``sqrt(1 / features)``;
 - flax's ``normal(0.02)``, not truncated, for the head mixes
@@ -57,6 +65,8 @@ from vit_tpu_torch.nn.embed import BatchNorm
 TRUNC_STD = 0.87962566103423978
 _LECUN = ("qkv_kernel", "out_kernel", "w1", "w2", "kernel")
 _TOKENS = ("cls", "pos_embedding")
+_TOKENS_PREFIX = "pos_emb_"  # NesT's pos_emb_{li}
+_UNIT_NORMAL = ("queries",)
 _ZEROS = ("bias", "b1", "b2", "out_bias", "norm_bias", "ln_bias", "reattn_bias")
 _ONES = ("scale", "norm_scale", "ln_scale", "reattn_scale")
 _MIXES = ("mix_heads_pre", "mix_heads_post", "reattn_weights")
@@ -89,8 +99,10 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             truncated_normal_(p, lecun_std(p.shape[0]), generator)
         elif leaf == "kernel" and p.dim() == 4:  # a conv kernel, OIHW
             truncated_normal_(p, lecun_std(p[0].numel()), generator)
-        elif leaf in _TOKENS:
+        elif leaf in _TOKENS or leaf.startswith(_TOKENS_PREFIX):
             truncated_normal_(p, 0.02, generator)
+        elif leaf in _UNIT_NORMAL:
+            nn.init.normal_(p, 0.0, 1.0, generator=generator)
         elif leaf in _ZEROS:
             p.zero_()
         elif leaf in _ONES:
@@ -104,7 +116,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             raise NotImplementedError(
                 f"{name} {tuple(p.shape)}: no vit_tpu initializer ported for it (init_params "
-                "covers ViT, Twins-SVT, T2T-ViT, CvT, LeViT, PiT, SimpleViT, CaiT and DeepViT; "
+                "covers ViT, Twins-SVT, T2T-ViT, CvT, LeViT, PiT, SimpleViT, CaiT, DeepViT, "
+                "EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT and RegionViT; "
                 "ROADMAP.md Queue 1 item 7)")
     for m in model.modules():
         if isinstance(m, BatchNorm):
