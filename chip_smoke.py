@@ -852,6 +852,18 @@ QKV_BWD_FAULTS = ("dq and dk swapped",)
 # its heads in reverse order (each head's gradient handed to another head's
 # column of the gathered table). Planted where they apply (B > 1, H > 1).
 QKV_BIAS_BWD_FAULTS = ("dbias not summed over the windows", "dbias heads in reverse order")
+# Kernel 5's Function on the strided q, k, v views of one tensor of fused rows
+# (ScalableViT's IWSA at 4,096 tokens): dq and dk handed back in each other's
+# place, so that the q third of the fused rows' gradient takes the k third's.
+# Planted where q and k are views of one storage at one shape.
+VIEW_BWD_FAULT = "the q and k thirds of the view gradient swapped"
+# Kernel 6's with CrossFormer's shared bias (``reference_quirks``: one [1, 1,
+# S, S] table for every head): dbias taken from the first head instead of
+# summed over the heads. Planted where the bias is shared by more than one
+# head over windows of more than one token (with one token the softmax's
+# Jacobian is zero, and so is dbias); QKV_BIAS_BWD_FAULTS[1], its heads
+# reversed, where it is per head.
+WINDOW_BIAS_BWD_FAULT = "dbias not summed over the heads of a shared bias"
 # Kernels 7 and 8's: the recompute run with a head mix transposed (the mixes
 # are mix[h, g], the source head as the row: kernel 7's pre- and
 # post-softmax mixes, kernel 8's one mix after the softmax), and kernel 8's
@@ -987,6 +999,8 @@ def flash_faulty_grads(args, kw, g, fault):
             wide = bias.expand(q.shape[0], *bias.shape[1:])
             dq, dk, dv, db = fa.flash_backward(q, k, v, wide, out, g, scale, mask_self)
             return [dq, dk, dv, db[:1]]
+        if fault is None:  # no fault: the backward as it is
+            return list(fa.flash_backward(q, k, v, bias, out, g, scale, mask_self))
         with mock.patch.object(fa, "query_chunk", _clamped_chunk):
             return list(fa.flash_backward(q, k, v, bias, out, g, scale, mask_self))
 
@@ -1005,6 +1019,9 @@ def flash_faults(args, kw):
         kw["mask_self"], nq > fa.BLOCK_Q and nq % fa.BLOCK_Q)) if applies]
     if bias is not None and bias.shape[0] == 1 and q.shape[0] > 1:
         faults.append(FLASH_BIAS_BWD_FAULT)
+    if (q.shape == k.shape and q.untyped_storage().data_ptr()
+            == k.untyped_storage().data_ptr()):
+        faults.append(VIEW_BWD_FAULT)
     return faults
 
 
@@ -1017,6 +1034,9 @@ def faulty_grads(kind, args, kw, g, fault):
 
     if fault in FLASH_BWD_FAULTS or fault == FLASH_BIAS_BWD_FAULT:
         return flash_faulty_grads(args, kw, g, fault)
+    if fault == VIEW_BWD_FAULT:
+        dq, dk, dv, db = flash_faulty_grads(args, kw, g, None)
+        return [dk, dq, dv, db]
     if fault == MLP_BWD_FAULTS[0]:
         twin = function_twin(kind, dict(kw, activation="gelu"))
         return recompute_vjp(twin, args, [a is not None for a in args], g)
@@ -1040,7 +1060,16 @@ def faulty_grads(kind, args, kw, g, fault):
         return [grads[0], grads[1][:1]]
     if fault == QKV_BIAS_BWD_FAULTS[1]:
         grads = recompute_vjp(twin, args, need, g)
-        return [grads[0], grads[1].flip(1)]
+        i = ALL_FN_ARGS[kind].index("bias")
+        grads[i] = grads[i].flip(1)
+        return grads
+    if fault == WINDOW_BIAS_BWD_FAULT:  # the bias taken per head, head 0's gradient kept
+        i = ALL_FN_ARGS[kind].index("bias")
+        wide = list(args)
+        wide[i] = args[i].expand(1, kw["heads"], *args[i].shape[2:])
+        grads = recompute_vjp(twin, wide, need, g)
+        grads[i] = grads[i][:, :1]
+        return grads
     if fault in HEAD_MIX_BWD_FAULTS[:2]:
         names = ALL_FN_ARGS[kind]
         i = names.index("mix" if kind == "reattention_block" else
@@ -1076,6 +1105,12 @@ def function_faults(kind, args, kw):
         return flash_faults(args, kw)
     if kind == "qkv_attention":
         return list(QKV_BWD_FAULTS) + qkv_bias_faults(args)
+    if kind == "window_attention_block":
+        bias, s = args[6], args[0].shape[1]
+        return list(FUNCTION_FAULTS[1:]) + [f for f, applies in (
+            (QKV_BIAS_BWD_FAULTS[1], bias is not None and bias.shape[1] > 1 and s > 1),
+            (WINDOW_BIAS_BWD_FAULT, bias is not None and bias.shape[1] == 1 and kw["heads"] > 1
+             and s > 1)) if applies]
     residual = kind in ("attention_block", "reattention_block") or kw.get("residual", False)
     faults = list(FUNCTION_FAULTS[0 if residual else 1:])
     if kind == "fused_mlp" and args[5] is None:  # no LayerNorm: nothing to swap
@@ -7245,14 +7280,16 @@ def phase_train_bn(dev, smi, requests):
 # -- phase 24: training the kernel-3 and branch families ---------------------------
 
 
-def branch_train_counts(model, remat=True):
+def branch_train_counts(model, remat=True, image_size=None):
     """(launches, recomputes) of each kernel a training step of an
-    EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT or RegionViT
-    ``model`` takes. A plain ``Transformer`` (EfficientViT's encoder,
-    CrossViT's): deeper than 1, one attention block (kernel 1) and MLP
+    EfficientViT, CrossViT, ParallelViT, PatchMerger-ViT, NesT, RegionViT,
+    ScalableViT (at ``image_size``), CrossFormer, small-dataset ViT or
+    ViT-MoE ``model`` takes. A plain ``Transformer`` (EfficientViT's
+    encoder, CrossViT's, the small-dataset ViT's): deeper than 1, one
+    attention block (kernel 1; none for LSA, which materializes) and MLP
     (kernel 2) a layer, twice under ``remat`` (the forward and remat's), each
-    recomputed once; of depth 1 its unfused layer, kernel 3 and kernel 2 once
-    each. ParallelViT's stack (never scanned, never rematted): kernel 3 and
+    recomputed once; of depth 1 its unfused layer, kernel 3 (none for LSA)
+    and kernel 2 once each. ParallelViT's stack (never scanned, never rematted): kernel 3 and
     kernel 2 once a branch of each layer. PatchMerger-ViT: kernel 3 and 2
     once a layer; NesT: kernel 3 once a block attention and kernel 2 once a
     ConvMLP; RegionViT: kernel 3 twice a layer (the regional and the joint
@@ -7262,7 +7299,12 @@ def branch_train_counts(model, remat=True):
     NesT's block attention, which has no attention dropout (its drop comes
     after ``to_out``) and stays on kernel 3. CrossViT's cross-attention runs
     the low-query path in plain PyTorch at every shape of its presets and
-    tiny config."""
+    tiny config. ScalableViT: each SSA's and IWSA's attention at every rate
+    (``scalable_attention_kernels``), kernel 2 once a ConvMLP at dropout 0;
+    CrossFormer: kernel 6 once an SDA or LDA at every rate (its dropout
+    follows the kernel), kernel 2 once a ConvMLP at 0; ViT-MoE (never
+    rematted): kernel 1 once an attention and kernel 2 once a dense MLP at
+    dropout 0, nothing above it (its MoE layers are plain PyTorch)."""
     from vit_tpu_torch.nn.blocks import Transformer
 
     launches, recomputes = collections.Counter(), collections.Counter()
@@ -7274,16 +7316,18 @@ def branch_train_counts(model, remat=True):
     for t in (m for m in model.modules() if isinstance(m, Transformer)):
         if t.dropout:
             continue
+        lsa = t.branches == 1 and t.blocks[0].attn.learned_temperature
         if t.branches > 1:
             once("qkv_attention", t.depth * t.branches)
             once("fused_mlp", t.depth * t.branches)
         elif t.depth > 1:
             runs = 2 if remat else 1
-            for kind in ("attention_block", "fused_mlp"):
+            for kind in ("fused_mlp",) if lsa else ("attention_block", "fused_mlp"):
                 launches[kind] += runs * t.depth
                 recomputes[kind] += t.depth
         else:
-            once("qkv_attention")
+            if not lsa:
+                once("qkv_attention")
             once("fused_mlp")
     kind = type(model).__name__
     if kind == "PatchMergerViT":
@@ -7304,7 +7348,52 @@ def branch_train_counts(model, remat=True):
                 once("qkv_attention", 2)
             if not m.ff.dropout:
                 once("fused_mlp")
+    elif kind in ("ScalableViT", "CrossFormer"):
+        if kind == "ScalableViT":
+            for k in scalable_attention_kernels(model, image_size):
+                once(k)
+        for m in model.modules():
+            if type(m).__name__ == "_LSDAttention":
+                once("window_attention_block")
+            elif type(m).__name__ == "ConvMLP" and not m.dropout:
+                once("fused_mlp")
+    elif kind == "ViTMoE" and not model.dropout:
+        once("attention_block", model.depth)
+        once("fused_mlp", sum(not model._is_moe(i) for i in range(model.depth)))
     return dict(launches), dict(recomputes)
+
+
+def scalable_attention_kernels(model, image_size):
+    """The kernel each SSA and IWSA of a ScalableViT ``model`` runs at
+    ``image_size``, in block order (the dispatch of ``ops.attention`` and
+    ``ops.qkv_attention``): SSA attends the ``h * w`` map to the ``ceil(h /
+    r)``-square map of its stride-r convs (kernel 4 where its core takes the
+    key and value widths, else kernel 5); IWSA's windows of ``wsz * wsz``
+    tokens (None: the map) run kernel 3 where ``qkv_kernel_fits`` holds,
+    else ``ops.attention`` on the fused rows' views; with ``iwsa_dim_key !=
+    iwsa_dim_value``, ``ops.attention`` on its split views. The map starts
+    at ``ceil(image_size / 4)`` (the stride-4 SAME patchify) and halves
+    (rounding up) at each Downsample."""
+    from vit_tpu_torch.ops import kernel_name, qkv_kernel_fits
+
+    kinds, side = [], -(-image_size // 4)
+    for s in range(model.n_stages):
+        rest = getattr(model, f"stage_{s}", None)
+        rest = list(rest) if isinstance(rest, torch.nn.ModuleList) else [] if rest is None else [
+            rest]
+        pairs = [(getattr(model, f"ssa_{s}_0"), getattr(model, f"iwsa_{s}_0"))] + [
+            (b.ssa, b.iwsa) for b in rest]
+        for ssa, iwsa in pairs:
+            r = ssa.to_k.strides[0]
+            d, dv = (t.shape[0 if t.dim() == 4 else 1] // ssa.heads
+                     for t in (ssa.to_q.kernel, ssa.to_v.kernel))
+            kinds.append(kernel_name(-(-side // r) ** 2, d, dv))
+            n = (iwsa.window_size or side) ** 2
+            dk, dv = (t.shape[1] // iwsa.heads for t in (iwsa.to_q.kernel, iwsa.to_v.kernel))
+            kinds.append("qkv_attention" if iwsa.fused and qkv_kernel_fits(n, dk) else
+                         kernel_name(n, dk, dv))
+        side = -(-side // 2)
+    return kinds
 
 
 # A fault planted in RegionViT's training forward (24b and the CPU tests):
@@ -7341,6 +7430,68 @@ def region_regional_detached(model):
     finally:
         for attn in attns:
             del attn.forward
+
+
+# Faults planted in the training forwards of phase 25's families (25b and the
+# CPU tests), one a family: CrossFormer's position-bias MLPs cut out of the
+# graph (each DynamicPositionBias's output detached, so that kernel 6's dbias
+# reaches no parameter); the small-dataset ViT's LSA scale without its
+# gradient (each ``log_temperature`` read detached); ViT-MoE's expert-hidden
+# dropout keeping its mask's values without dividing them by the keep
+# probability (the same mask, drawn through ``nn.attention.bernoulli``).
+DPB_DETACHED_FAULT = "the position-bias MLPs' output detached"
+LSA_TEMPERATURE_FAULT = "log_temperature detached"
+EXPERT_MASK_FAULT = "the expert dropout mask applied without 1/keep"
+
+
+@contextlib.contextmanager
+def _detached_parameters(modules, names):
+    """Inside the scope, each of ``modules`` reads its parameters ``names``
+    detached (a parameter so read gets no gradient)."""
+    live = [(m, {k: m._parameters[k] for k in names}) for m in modules]
+    for m, params in live:
+        m._parameters.update({k: v.detach() for k, v in params.items()})
+    try:
+        yield
+    finally:
+        for m, params in live:
+            m._parameters.update(params)
+
+
+@contextlib.contextmanager
+def crossformer_dpb_detached(model):
+    """DPB_DETACHED_FAULT planted in every attention of a CrossFormer
+    ``model`` inside the scope."""
+    dpbs = [m for m in model.modules() if type(m).__name__ == "DynamicPositionBias"]
+    for dpb in dpbs:
+        dpb.forward = (lambda plain: lambda w: plain(w).detach())(dpb.forward)
+    try:
+        yield
+    finally:
+        for dpb in dpbs:
+            del dpb.forward
+
+
+def lsa_temperature_detached(model):
+    """LSA_TEMPERATURE_FAULT planted in every LSA attention of ``model``
+    inside the scope."""
+    return _detached_parameters([m for m in model.modules()
+                                 if getattr(m, "learned_temperature", False)],
+                                ("log_temperature",))
+
+
+@contextlib.contextmanager
+def moe_mask_unscaled():
+    """EXPERT_MASK_FAULT planted in ``nn.moe`` inside the scope."""
+    moe = importlib.import_module("vit_tpu_torch.nn.moe")
+    attention = importlib.import_module("vit_tpu_torch.nn.attention")
+
+    def unscaled(x, rate, generator):
+        keep = attention.bernoulli(1.0 - rate, x.shape, generator, x.device)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    with mock.patch.object(moe, "apply_dropout", unscaled):
+        yield
 
 
 # 24a: the Functions at the shapes the six families train them. Kernel 3:
@@ -7613,6 +7764,430 @@ def phase_train_branch(dev, smi):
     return worst
 
 
+# -- phase 25: training ScalableViT, CrossFormer, the small-dataset ViT, ViT-MoE -----
+
+
+@contextlib.contextmanager
+def flash_view_swapped():
+    """VIEW_BWD_FAULT planted in ``FlashAttentionFn``'s backward inside the
+    scope, wherever its q and k are views of one storage at one shape
+    (ScalableViT's IWSA beyond ``qkv_kernel_fits``)."""
+    from vit_tpu_torch import ops
+
+    plain = ops.FlashAttentionFn.backward
+
+    def backward(ctx, g):
+        grads = list(plain(ctx, g))
+        q, k = ctx.saved_tensors[:2]
+        if q.shape == k.shape and q.untyped_storage().data_ptr() == k.untyped_storage().data_ptr():
+            grads[1], grads[2] = grads[2], grads[1]
+        return tuple(grads)
+
+    with mock.patch.object(ops.FlashAttentionFn, "backward", staticmethod(backward)):
+        yield
+
+
+# 25a: the Functions at the shapes the four families train them, batch
+# WINDOW_MOE_FN_BATCH (IWSA stage 0 at WINDOW_MOE_VIEW_BATCH: autograd through
+# the twin holds [B, 2, 4096, 4096] fp32 scores). Kernel 5 / 4 through
+# FlashAttentionFn: (what, queries, keys, heads, D, Dv, on the views of fused
+# rows). Kernel 3: (what, tokens, heads). Kernel 6: (what, windows a sample,
+# S, C, bias heads). Kernel 2: (what, tokens, D, F, eps). Kernel 1: (what,
+# tokens, dim, heads, eps), heads of 64.
+WINDOW_MOE_FLASH = (("IWSA stage 0", 4096, 4096, 2, 32, 32, True),
+                    ("SSA stage 0", 4096, 64, 2, 40, 32, False),
+                    ("SSA stage 3", 64, 64, 16, 32, 32, False))
+WINDOW_MOE_QKV = (("IWSA stage 1", 1024, 4),)
+WINDOW_MOE_WINDOWS = (("CrossFormer stage 0 SDA", 64, 49, 64, 2),
+                      ("CrossFormer stage 0 SDA, quirks' shared bias", 64, 49, 64, 1),
+                      ("CrossFormer stage 0 LDA", 49, 64, 64, 2),
+                      ("CrossFormer stage 3 LDA", 49, 1, 512, 16))
+WINDOW_MOE_MLP = (("ScalableViT stage 0", 4096, 64, 256, 1e-5),
+                  ("ScalableViT stage 3", 64, 512, 2048, 1e-5),
+                  ("CrossFormer stage 0", 3136, 64, 256, 1e-5),
+                  ("CrossFormer stage 3", 49, 512, 2048, 1e-5),
+                  ("small-dataset ViT", 257, 1024, 2048, 1e-5),
+                  ("ViT-MoE dense", N_TOKENS, 512, 2048, 1e-6))
+WINDOW_MOE_ATTN = (("ViT-MoE", N_TOKENS, 512, 8, 1e-6),)
+WINDOW_MOE_FN_BATCH = 8
+WINDOW_MOE_VIEW_BATCH = 4
+
+
+def phase_train_window_moe_functions(dev):
+    """25a: ``FlashAttentionFn`` (kernel 5 on the strided q, k, v views of
+    IWSA stage 0's fused rows and at SSA's 40-wide keys, kernel 4 at SSA
+    stage 3), ``QkvAttentionFn`` at IWSA stage 1, ``WindowAttentionBlockFn``
+    at CrossFormer's windows with a [1, H, S, S] or the quirks' [1, 1, S, S]
+    bias needing a gradient, ``MlpFn`` and ``AttentionBlockFn`` against
+    autograd through their twins (``check_function``: every gradient within
+    kernel_tol's form, the planted faults failing it: VIEW_BWD_FAULT on the
+    views, QKV_BIAS_BWD_FAULTS[1] with a per-head bias, WINDOW_BIAS_BWD_FAULT
+    with the shared one). Returns the worst gradient error by kernel."""
+    from vit_tpu_torch.ops import kernel_name
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    worst = collections.defaultdict(float)
+    b = WINDOW_MOE_FN_BATCH
+    for what, nq, nk, heads, d, dv, views in WINDOW_MOE_FLASH:
+        if views:
+            bb = WINDOW_MOE_VIEW_BATCH
+            qkv = r(bb, nq, 3 * heads * d).bfloat16()
+            q, k, v = qkv.view(bb, nq, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+            shape = f"views of [{bb}, {nq}, {3 * heads * d}]"
+        else:  # split-head views of separate projections, as mha_tokens gives them
+            split = lambda n, w: r(b, n, heads * w).bfloat16().view(b, n, heads, w).transpose(1, 2)
+            q, k, v = split(nq, d), split(nk, d), split(nk, dv)
+            shape = f"[{b}, {heads}, {nq}, {d}] x [{nk}, {d}] x [{nk}, {dv}]"
+        kind = kernel_name(nk, d, dv)
+        err, _ = _function_line(kind, f"{what} {shape}", [q, k, v, None],
+                                dict(scale=d**-0.5, mask_self=False), gen)
+        worst[kind] = max(worst[kind], err)
+    for what, n, heads in WINDOW_MOE_QKV:
+        qkv = r(b, n, 3 * heads * 32).bfloat16()
+        err, _ = _function_line("qkv_attention", f"{what} {list(qkv.shape)}", [qkv, None],
+                                dict(heads=heads, scale=32**-0.5), gen)
+        worst["qkv_attention"] = max(worst["qkv_attention"], err)
+    for what, per, s, c, bias_heads in WINDOW_MOE_WINDOWS:
+        args = [r(b * per, s, c).bfloat16(), 1 + 0.1 * r(c), 0.1 * r(c),
+                (r(c, 3 * c) * c**-0.5).bfloat16(), (r(c, c) * c**-0.5).bfloat16(), 0.1 * r(c),
+                r(1, bias_heads, s, s)]
+        err, _ = _function_line("window_attention_block",
+                                f"{what} [{b * per}, {s}, {c}] bias [1, {bias_heads}, {s}, {s}]",
+                                args, dict(heads=c // 32, scale=32**-0.5, ln_eps=1e-5), gen)
+        worst["window_attention_block"] = max(worst["window_attention_block"], err)
+    for what, n, dim, f, eps in WINDOW_MOE_MLP:
+        m = mlp_inputs(gen, n, dim, f, torch.bfloat16, dev, b=b)
+        err, _ = _function_line("fused_mlp", f"{what} [{b}, {n}, {dim}] F {f}",
+                                [m.get(k) for k in FN_ARGS["fused_mlp"]],
+                                dict(activation="gelu", residual=False, ln_eps=eps), gen)
+        worst["fused_mlp"] = max(worst["fused_mlp"], err)
+    for what, n, dim, heads, eps in WINDOW_MOE_ATTN:
+        a = attn_inputs(gen, b, n, dim, heads, 64, torch.bfloat16, dev)
+        err, _ = _function_line("attention_block", f"{what} [{b}, {n}, {dim}] {heads} heads of 64",
+                                [a[k] for k in FN_ARGS["attention_block"]],
+                                dict(heads=heads, scale=0.125, ln_eps=eps), gen)
+        worst["attention_block"] = max(worst["attention_block"], err)
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+# The four as they train here: the presets' widths (ViT-MoE at the
+# docs/MODELS.md:437-439 constructor, VIT_MOE) at dropout 0, and (25c) at
+# each preset's own dropout: ScalableViT's 0.1, the small-dataset ViT's 0.1 /
+# 0.1, ViT-MoE at 0.1; CrossFormer's preset has none, so attn_dropout =
+# ff_dropout = 0.1.
+WINDOW_MOE_TRAIN = {"scalable_vit": dict(SCALABLE_VIT, dropout=0.0), "crossformer": CROSSFORMER,
+                    "vit_small_datasets": SMALL_DATASETS, "vit_moe": VIT_MOE}
+WINDOW_MOE_PRESET_DROPOUT = {
+    "scalable_vit": dict(SCALABLE_VIT, dropout=0.1),
+    "crossformer": dict(CROSSFORMER, attn_dropout=0.1, ff_dropout=0.1),
+    "vit_small_datasets": dict(SMALL_DATASETS, dropout=0.1, emb_dropout=0.1),
+    "vit_moe": dict(VIT_MOE, dropout=0.1)}
+# 25b's planted fault a family, each of which must break the rule.
+WINDOW_MOE_FAULTS = {"scalable_vit": (VIEW_BWD_FAULT, lambda m: flash_view_swapped()),
+                     "crossformer": (DPB_DETACHED_FAULT, crossformer_dpb_detached),
+                     "vit_small_datasets": (LSA_TEMPERATURE_FAULT, lsa_temperature_detached),
+                     "vit_moe": (EXPERT_MASK_FAULT, lambda m: moe_mask_unscaled())}
+
+
+def window_moe_train_model(fam, dev, gen, cfg=None, dtype=torch.bfloat16):
+    """The ``fam`` model (``WINDOW_MOE_TRAIN``, or ``cfg``) drawn by
+    ``init_params``."""
+    from vit_tpu_torch import models
+    from vit_tpu_torch.utils import init_params
+
+    ctor = {"scalable_vit": models.ScalableViT, "crossformer": models.CrossFormer,
+            "vit_small_datasets": models.ViTSmallDatasets, "vit_moe": models.ViTMoE}[fam]
+    return init_params(ctor(**(cfg or WINDOW_MOE_TRAIN[fam]), dtype=dtype, device=dev), gen)
+
+
+def _train_forward(model, x, remat, generator=None):
+    """The logits of a training forward (ViT-MoE's takes no ``remat``)."""
+    if type(model).__name__ == "ViTMoE":
+        return model(x, train=True, generator=generator)
+    return model(x, train=True, generator=generator, remat=remat)
+
+
+# The kernel wrappers of kernels 1-6 by the kernel each launches: swapped for
+# their twins (``twin_forwards``), the Functions run on the twins' forward.
+TWIN_FORWARD_WRAPPERS = {"fused_attention_block": "attention_block", "fused_mlp": "fused_mlp",
+                         "fused_qkv_attention": "qkv_attention",
+                         "flash_attention": "flash_attention",
+                         "flash_attention_kv_blocked": "flash_attention_kv_blocked",
+                         "fused_window_attention_block": "window_attention_block"}
+# 25b's bound on the kernel path's median, over a draw's parameter tensors, of
+# each tensor's relative L2 from fp32 over the plain bf16 path's. Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W, CrossFormer at batch 32: 0.957-1.092
+# over eight draws, 0.993-1.046 over three at batch 64, where single tensors
+# read up to 4.07x (the DPBs' parameters, whose gradients are near-cancelling
+# sums of dS over every window) while the twin-forward path read 1.000 median
+# and at most 1.153x over the draws, and kernel 6's forward lay as far from
+# the fp32 twin as the bf16 twin (0.005701 and 0.005701). Not applied to
+# ViT-MoE (``WINDOW_MOE_ROUTED``): a token whose top-k route flips on a
+# forward's last bit moves whole expert rows, so its kernel path read a median
+# of 1.398 on one draw (``moe_3.router.bias`` 21x), where its
+# twin-forward path equals the plain path to the last bit. Its kernels'
+# forward at these shapes is phase 16's (``MOE_ATTN``, ``MOE_MLP``), with the
+# routes' agreement (``moe_route_agreement``).
+WINDOW_MOE_KERNEL_MEDIAN = 1.2
+WINDOW_MOE_ROUTED = ("vit_moe",)
+# 25b's draws, and its rule on the error norms' root mean square over them,
+# with the 0-d parameters of one name pooled over the layers: a
+# near-cancelling scalar's gradient is rounding noise around a value that
+# crosses zero from draw to draw, and a largest-over-draws ratio of two such
+# noises swings wide. Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+# the small-dataset ViT's ``log_temperature`` of layer 3 lay 0.0008 to 1.167
+# from fp32 in relative L2 on the plain bf16 path over eight draws, and the
+# twin-forward path's largest error, whose forward differs from the plain
+# path's only in its products' sum orders, read 2.28x the plain path's over
+# three draws, 1.98x over eight (in relative and in absolute norm alike);
+# pooled, on the rms of eight draws, at most 1.014x, and no other
+# tensor of the four families above 1.071x.
+WINDOW_MOE_GRAD_DRAWS = 4
+
+
+def twin_forwards():
+    """Inside the scope each kernel wrapper of kernels 1-6 is its twin: the
+    ops' entries still take the card's route through the autograd
+    Functions, so what differs from the kernel path is the kernels' forward
+    alone."""
+    from vit_tpu_torch import ops
+
+    stack = contextlib.ExitStack()
+    for wrapper, kind in TWIN_FORWARD_WRAPPERS.items():
+        stack.enter_context(mock.patch.object(ops, wrapper, twin_forward(kind)))
+    return stack
+
+
+def pooled_name(name, shape):
+    """25b's pool of a parameter: a 0-d one's name with its layer indices as
+    ``*`` (the small-dataset ViT's ``encoder.blocks.*.attn.log_temperature``),
+    any other's own name."""
+    if shape:
+        return name
+    return ".".join("*" if part.isdigit() else part for part in name.split("."))
+
+
+def phase_train_window_moe_grads(dev):
+    """25b: one step's loss and gradients of each of the four at batch
+    BRANCH_GRAD_BATCH on WINDOW_MOE_GRAD_DRAWS draws (the parameters drawn once),
+    at dropout 0 (``WINDOW_MOE_TRAIN``), four ways: the kernel path (the
+    kernels forward, the Functions' backward, remat), the twin-forward path
+    (the same Functions on the twins' forward, ``twin_forwards``), the plain
+    bf16 path and plain fp32. The Functions are held on the twin-forward
+    path: each parameter's error norm from fp32, its root mean square over
+    the draws (0-d parameters of one name pooled over the layers,
+    ``pooled_name``), at most GRAD_RATIO times the plain bf16 path's. The
+    kernels' forward is held by the kernel path's median over
+    the parameter tensors of a draw of each tensor's relative L2 from fp32
+    over the plain path's, at most WINDOW_MOE_KERNEL_MEDIAN (but ViT-MoE's,
+    WINDOW_MOE_ROUTED): its single tensors are not held to GRAD_RATIO,
+    because these families' gradients amplify a forward's last-bit
+    differences where phase 24's did not (CrossFormer's position-bias MLPs
+    and the small-dataset ViT's ``log_temperature`` are near-cancelling sums
+    over every score; a ViT-MoE token whose route flips moves whole expert
+    rows).
+    Gradients zero in fp32 held by size on the kernel path; every ``.grad``
+    set and finite there, with ``branch_train_counts``' launches and
+    recomputes; the loss as in 21b. On the first draw the family's
+    WINDOW_MOE_FAULTS fault, planted on the twin-forward path, must break the
+    rule (ViT-MoE's at dropout 0.1, one mask draw shared by the three paths,
+    against that dropout's plain bf16 path)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.train import cross_entropy_loss
+
+    med = lambda rows: statistics.median(r for r, _ in rows)
+    for fam, cfg in WINDOW_MOE_TRAIN.items():
+        t_fam = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+        model = window_moe_train_model(fam, dev, gen)
+        model32 = type(model)(**cfg, device=dev)
+        model32.load_state_dict(model.state_dict())
+        size = IMAGE_SIZE[fam]
+        want_launches, want_recomputes = branch_train_counts(model, image_size=size)
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        dists = collections.defaultdict(list)  # name -> [(kernel, twin-forward, plain)] a draw
+        errs = collections.defaultdict(list)  # the same, each error's norm
+        norms = collections.defaultdict(list)  # name -> [(kernel, fp32)] a draw, over the max
+        for draw in range(WINDOW_MOE_GRAD_DRAWS):
+            x = torch.randn(BRANCH_GRAD_BATCH, size, size, 3, generator=gen, device=dev)
+            y = torch.randint(0, 1000, (BRANCH_GRAD_BATCH,), generator=gen, device=dev)
+
+            def grads(m, scope, remat, seed=None):
+                m.zero_grad(set_to_none=True)
+                g = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+                with scope:
+                    loss = cross_entropy_loss(_train_forward(m, x, remat, g), y)
+                    loss.backward()
+                return loss.item(), {k: torch.zeros_like(p) if p.grad is None else
+                                     p.grad.detach().clone() for k, p in m.named_parameters()}
+
+            ops.reset_launch_counts()
+            loss_k, gk = grads(model, contextlib.nullcontext(), True)
+            missing = [k for k, p in model.named_parameters()
+                       if p.grad is None or not torch.isfinite(p.grad).all().item()]
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+            loss_t, gt = grads(model, twin_forwards(), True)
+            loss_p, gp = grads(model, ops.force_backend("torch"), False)
+            loss_32, g32 = grads(model32, ops.force_backend("torch"), False)
+            require(counts == want_launches,
+                    f"train window-moe grads {fam}: launches {counts}, not {want_launches}")
+            require(recomputes == want_recomputes,
+                    f"train window-moe grads {fam}: recomputes {recomputes}, not "
+                    f"{want_recomputes}")
+            require(not missing, f"train window-moe grads {fam}: no finite gradient on the kernel "
+                                 f"path for {missing[:5]}")
+            top = max(g.double().norm().item() for g in g32.values())
+            for k in gk:
+                dists[k].append((rel_l2(gk[k], g32[k]), rel_l2(gt[k], g32[k]),
+                                 rel_l2(gp[k], g32[k])))
+                errs[k].append(tuple((g[k].double() - g32[k].double()).norm().item()
+                                     for g in (gk, gt, gp)))
+                norms[k].append((gk[k].double().norm().item() / top,
+                                 g32[k].double().norm().item() / top))
+            live = [k for k in gk if norms[k][-1][1] > BN_ZERO]
+            mk, mt = (sorted((dists[k][-1][i] / max(dists[k][-1][2], 1e-30), k) for k in live)
+                      for i in (0, 1))
+            print(f"train window-moe grads {fam} batch {BRANCH_GRAD_BATCH} draw {draw}: loss "
+                  f"kernel {loss_k:.6f}, twin-forward {loss_t:.6f}, plain bf16 {loss_p:.6f}, "
+                  f"plain fp32 {loss_32:.6f}; launches {counts}, recomputes {recomputes}; rel L2 "
+                  f"from fp32 over the plain bf16 path's, {len(live)} parameter tensors: kernel "
+                  f"median {med(mk):.3f}, max {mk[-1][0]:.3f} ({mk[-1][1]}); twin-forward "
+                  f"median {med(mt):.3f}, max {mt[-1][0]:.3f} ({mt[-1][1]})")
+            require(fam in WINDOW_MOE_ROUTED or med(mk) <= WINDOW_MOE_KERNEL_MEDIAN,
+                    f"train window-moe grads {fam} draw {draw}: the kernel path's median ratio "
+                    f"{med(mk):.3f} over {WINDOW_MOE_KERNEL_MEDIAN}")
+            lfloor = max(2.0**-8 * abs(loss_32), 1e-3)
+            for what, loss in (("kernel", loss_k), ("twin-forward", loss_t)):
+                require(abs(loss - loss_32) <= GRAD_RATIO * max(abs(loss_p - loss_32), lfloor),
+                        f"train window-moe grads {fam} draw {draw}: the {what} path's loss {loss} "
+                        f"from fp32 {loss_32} beyond {GRAD_RATIO}x the plain bf16 path's {loss_p} "
+                        f"(floor {lfloor:.3g})")
+            if draw == 0:
+                fault, scope = WINDOW_MOE_FAULTS[fam]
+                if fam == "vit_moe":  # the fault acts above dropout 0: the three paths there
+                    md, md32 = (type(model)(**cfg, dropout=0.1, dtype=dt, device=dev)
+                                for dt in (torch.bfloat16, None))
+                    for m in (md, md32):
+                        m.load_state_dict(model.state_dict())
+                    _, ref = grads(md32, ops.force_backend("torch"), False, SEED + 112)
+                    _, base = grads(md, ops.force_backend("torch"), False, SEED + 112)
+                    _, gf = grads(md, scope(md), True, SEED + 112)
+                    del md, md32
+                else:
+                    ref, base = g32, gp
+                    with twin_forwards():
+                        _, gf = grads(model, scope(model), True)
+                big = max(t.double().norm().item() for t in ref.values())
+                worst_fault = max((rel_l2(gf[k], ref[k]) / max(rel_l2(base[k], ref[k]), 1e-30), k)
+                                  for k in gf if ref[k].double().norm().item() > BN_ZERO * big)
+                print(f"train window-moe grads {fam}, planted '{fault}' on the twin-forward path: "
+                      f"{worst_fault[0]:.3f}x the plain bf16 path's distance at {worst_fault[1]} "
+                      f"(must exceed {GRAD_RATIO})")
+                require(worst_fault[0] > GRAD_RATIO,
+                        f"train window-moe grads {fam}: the rule does not see '{fault}'")
+                del gf, ref, base
+            del gk, gt, gp, g32
+        del model, model32
+        torch.cuda.empty_cache()
+        zeros = [k for k, ns in norms.items() if max(n32 for _, n32 in ns) <= BN_ZERO]
+        loud = sorted((max(nk for nk, _ in norms[k]), k) for k in zeros)
+        if zeros:
+            print(f"train window-moe grads {fam}: {len(zeros)} gradients zero in fp32 (at most "
+                  f"{BN_ZERO} of the largest norm), held by size: on the kernel path at most "
+                  f"{loud[-1][0]:.3g} of the largest ({loud[-1][1]}), bound {2.0**-8:.3g}")
+        require(not zeros or loud[-1][0] <= 2.0**-8,
+                f"train window-moe grads {fam} {loud[-1][1] if zeros else ''}: a zero gradient "
+                f"at {loud[-1][0] if zeros else 0} of the largest norm on the kernel path")
+        pools = collections.defaultdict(list)
+        for k in errs:
+            if k not in zeros:
+                pools[pooled_name(k, shapes[k])].append(k)
+        ms = lambda ks, i: math.sqrt(sum(e[i] ** 2 for k in ks for e in errs[k]))
+        rows = sorted(((ms(ks, 1) / max(ms(ks, 2), 1e-30), name, ks[0])
+                       for name, ks in pools.items()), reverse=True)
+        for ratio, name, k in rows[:3]:
+            print(f"train window-moe grads {fam} {name}: rel L2 from fp32 by draw ({k}), kernel "
+                  "/ twin-forward / plain bf16: "
+                  + "; ".join(f"{rk:.4g} / {rt:.4g} / {rp:.4g}" for rk, rt, rp in dists[k])
+                  + f" (twin-forward's rms error norm {ratio:.3f} of the plain path's, bound "
+                  f"{GRAD_RATIO})")
+        print(f"train window-moe grads {fam}: {len(rows)} parameter tensors (0-d ones pooled) held "
+              f"to {GRAD_RATIO}x the plain bf16 path on the twin-forward path over "
+              f"{WINDOW_MOE_GRAD_DRAWS} draws "
+              f"({time.perf_counter() - t_fam:.1f} s)")
+        require(rows[0][0] <= GRAD_RATIO,
+                f"train window-moe grads {fam} {rows[0][1]}: the twin-forward path's rms error "
+                f"norm {rows[0][0]:.3f}x the plain bf16 path's over {WINDOW_MOE_GRAD_DRAWS} "
+                "draws")
+
+
+def phase_train_window_moe_steps(dev, smi):
+    """25c: ``vit_tpu_torch.train`` on each of the four at batch TRAIN_BATCH,
+    bf16, AdamW at TRAIN_LR, remat: at dropout 0 (``WINDOW_MOE_TRAIN``) a
+    warm-up step, a profiled one and three timed ones, and at each preset's
+    own dropout (``WINDOW_MOE_PRESET_DROPOUT``) a warm-up and two timed
+    (``timed_steps``: step ms, img/s, the Functions' backward ms, peak GiB):
+    finite losses and exactly the launches and recomputes of
+    ``branch_train_counts``. Then ``python -m vit_tpu_torch.train --model
+    crossformer`` for two steps."""
+    import io
+
+    from vit_tpu_torch import train as tt
+
+    runs = [(fam, cfg, 3, "dropout 0") for fam, cfg in WINDOW_MOE_TRAIN.items()] + [
+        (fam, cfg, 2, "preset dropout") for fam, cfg in WINDOW_MOE_PRESET_DROPOUT.items()]
+    for fam, cfg, n, which in runs:
+        what = f"train window-moe {fam} {which}"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 113)
+        model = window_moe_train_model(fam, dev, gen, cfg)
+        size = IMAGE_SIZE[fam]
+        want_launches, want_recomputes = branch_train_counts(model, image_size=size)
+        images = torch.randn(TRAIN_BATCH, size, size, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+        opt = tt.make_optimizer(TRAIN_LR, name="adamw")
+        state = tt.create_train_state(model, opt, gen, init=False)
+        step = tt.make_train_step(model, opt, remat=True)
+        t0 = time.perf_counter()
+        first = float(step(state, images, labels))
+        print(f"{what} step 1 (first, untimed): loss {first:.5f}, "
+              f"{time.perf_counter() - t0:.1f} s host clock")
+        if n == 3:
+            profiled_step(what, state, step, images, labels)
+        losses, ms, counts, recomputes = timed_steps(what, state, step, images, labels, n, smi)
+        require(all(np.isfinite([first] + losses)),
+                f"{what}: a non-finite loss in {[first] + losses}")
+        require(counts == want_launches, f"{what}: launches {counts}, not {want_launches} a step")
+        require(recomputes == want_recomputes,
+                f"{what}: recomputes {recomputes}, not {want_recomputes} a step")
+        del state, step, model, images
+        torch.cuda.empty_cache()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tt.main(["--model", "crossformer", "--batch", "8", "--classes", "10",
+                      "--image-size", "112", "--steps", "2"])
+    lines = out.getvalue().strip().splitlines()
+    print(f"train window-moe cli python -m vit_tpu_torch.train --model crossformer --steps 2: "
+          f"rc {rc} in {time.perf_counter() - t0:.1f} s; {' | '.join(lines[-2:])}")
+    require(rc == 0 and "step 2: loss" in out.getvalue(),
+            "python -m vit_tpu_torch.train --model crossformer failed")
+
+
+def phase_train_window_moe(dev, smi):
+    """Phase 25: training ScalableViT, CrossFormer, the small-dataset ViT and
+    ViT-MoE (25a-c); returns 25a's worst gradient error by kernel."""
+    t_phase = time.perf_counter()
+    worst = phase_train_window_moe_functions(dev)
+    phase_train_window_moe_grads(dev)
+    phase_train_window_moe_steps(dev, smi)
+    print(f"phase 25 (training ScalableViT, CrossFormer, the small-dataset ViT and ViT-MoE) "
+          f"took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -7783,6 +8358,12 @@ def main() -> int:
     # RegionViT: kernels 1, 2 and 3 under grad at their shapes, branch and block
     # dropout, RegionViT's bias gradient through kernel 3
     for k, err in phase_train_branch(dev, smi).items():
+        grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
+
+    # 25. training ScalableViT, CrossFormer, the small-dataset ViT and ViT-MoE:
+    # kernel 5's backward on IWSA's fused-row views, kernel 6's dbias into
+    # CrossFormer's position-bias MLPs, LSA's learned temperature, expert dropout
+    for k, err in phase_train_window_moe(dev, smi).items():
         grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
 
     sources = {

@@ -496,8 +496,9 @@ def test_family_matches_jax(dtype, mode, tiny):
         assert err <= 2 * max(control, 0.02), (err, control)
 
 
-def _lim_after_to_out(self, x):
-    """``_IWSA.forward`` with the LIM added after ``to_out``, not before."""
+def _lim_after_to_out(self, x, *_, **__):
+    """``_IWSA.forward`` with the LIM added after ``to_out``, not before (its
+    training arguments ignored: the test runs inference)."""
     b, h, w, _ = x.shape
     x = self.norm(x)
     wqkv = torch.cat([self.to_q.kernel, self.to_k.kernel, self.to_v.kernel], dim=1).to(x.dtype)

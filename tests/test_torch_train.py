@@ -612,14 +612,17 @@ def test_named_optimizers_refuse_muon_and_unknown_names():
 
 
 def test_training_refuses_what_is_not_ported():
-    """A family whose training is not ported (the small-dataset ViT) still
-    raises, with or without ``qat`` (QAT itself is ported:
-    tests/test_torch_quant_weights.py)."""
+    """The small-dataset ViT, the last family whose training was not ported,
+    now trains, with or without ``qat`` (QAT itself is ported:
+    tests/test_torch_quant_weights.py); a module outside the zoo still
+    raises, with or without it."""
     from vit_tpu_torch.models import ViTSmallDatasets
 
     for qat in (False, True):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tt.make_train_step(ViTSmallDatasets(**CFG, depth=1, device="cpu"), qat=qat)
+        assert callable(tt.make_train_step(ViTSmallDatasets(**CFG, depth=1, device="cpu"),
+                                           qat=qat))
+        with pytest.raises(NotImplementedError, match="Linear is not ported"):
+            tt.make_train_step(torch.nn.Linear(4, 4), qat=qat)
 
 
 # -- eval --------------------------------------------------------------------------
@@ -671,10 +674,17 @@ def test_init_params_matches_flax_init_in_shape_and_distribution():
 
 
 def test_init_params_refuses_unknown_parameters():
+    """The small-dataset ViT initializes now (its LSA ``log_temperature``
+    the constant of its init); a parameter of another name (``nn.Linear``'s
+    ``weight``) still raises."""
     from vit_tpu_torch.models import ViTSmallDatasets
+    from vit_tpu_torch.nn.attention import log_temperature_init
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        init_params(ViTSmallDatasets(**CFG, depth=1, device="cpu"), torch.Generator())
+    tm = init_params(ViTSmallDatasets(**CFG, depth=1, device="cpu"), torch.Generator())
+    assert torch.equal(tm.encoder.blocks[0].attn.log_temperature.detach(),
+                       log_temperature_init(CFG["dim_head"]))
+    with pytest.raises(NotImplementedError, match="weight .* no vit_tpu initializer"):
+        init_params(torch.nn.Linear(4, 4), torch.Generator())
 
 
 # -- checkpoints ---------------------------------------------------------------------

@@ -12,13 +12,16 @@ with the launches and recomputes a step that
 ``chip_smoke.branch_train_counts`` gives).
 
 The helpers here serve ``tests/test_torch_train_blocks.py`` (NesT and
-RegionViT) too: ``SPECS`` holds the six families' tiny configs.
+RegionViT), ``tests/test_torch_train_windows.py`` (ScalableViT, CrossFormer)
+and ``tests/test_torch_train_lsa_moe.py`` (the small-dataset ViT, ViT-MoE)
+too: ``SPECS`` holds the ten families' tiny configs.
 
 CPU tests feed the same numpy inputs (``default_rng(seed)``) through both
 packages. The card tests carry the ``cuda`` marker: ``python -m pytest
 --noconftest -m cuda tests/test_torch_train_branches.py``.
 """
 
+import contextlib
 import functools
 import inspect
 
@@ -32,7 +35,8 @@ from test_torch_train_zoo import _KernelsAsTwins
 from vit_tpu_torch import ops
 from vit_tpu_torch import train as tt
 from vit_tpu_torch.models import (
-    MODEL_REGISTRY, CrossViT, EfficientViT, NesT, ParallelViT, PatchMergerViT, RegionViT,
+    MODEL_REGISTRY, CrossFormer, CrossViT, EfficientViT, NesT, ParallelViT, PatchMergerViT,
+    RegionViT, ScalableViT, ViTMoE, ViTSmallDatasets,
 )
 from vit_tpu_torch.utils import from_jax_params, init_params
 
@@ -66,7 +70,19 @@ def _reg(name, **over):
 # with remat) and its large one at 1 (unfused: kernel 3); RegionViT with its
 # first stage at depth 2 (scanned in vit_tpu) and, apart, with
 # ``reference_quirks`` (the clipped bias gather; one 28 x 28 window of 785
-# joint tokens at stage 0, 14 x 14 at stage 1).
+# joint tokens at stage 0, 14 x 14 at stage 1). ScalableViT with a single
+# block (stage 0's rest unscanned) and two scanned ones (stage 1), and, apart,
+# ("scalable_vit split") with SSA keys of 24 and values of 16 (kernel 5 on the
+# card) and IWSA keys of 24 and values of 16 (``mha_tokens`` on split views of
+# the fused rows, kernel 5) in ``reference_block_order``. CrossFormer with two
+# heads of 32 in each stage, stage 0 scanned (49- and 16-token windows) and
+# stage 1's LDA on 1-token windows, in both ``reference_quirks`` modes. The
+# small-dataset ViT at the registry's config; ViT-MoE at tests/test_moe.py's
+# (4 experts, top-2, its MoE in layer 1) with heads of 16.
+_SCALABLE = _reg("scalable_vit", depth=(2, 3))
+_CROSSFORMER = _reg("crossformer", dim=(64, 64), depth=(2, 1), global_window_size=(4, 1))
+_VIT_MOE = dict(image_size=32, patch_size=8, num_classes=10, dim=32, depth=2, heads=2,
+                mlp_dim=64, dim_head=16, num_experts=4, num_selected=2, moe_every=2)
 SPECS = {
     "efficient": (EfficientViT, _reg("efficient"), 64, cs.efficient_tree),
     "cross_vit": (CrossViT, _reg("cross_vit", sm_enc_depth=2), 64, cs.cross_vit_tree),
@@ -76,6 +92,17 @@ SPECS = {
     "region_vit": (RegionViT, _reg("region_vit", depth=(2, 1)), 112, cs.region_vit_tree),
     "region_vit quirks": (RegionViT, _reg("region_vit", reference_quirks=True, use_peg=False),
                           112, cs.region_vit_tree),
+    "scalable_vit": (ScalableViT, _SCALABLE, 64, cs.scalable_vit_tree),
+    "scalable_vit split": (ScalableViT, dict(_SCALABLE, depth=(1, 2), ssa_dim_key=24,
+                                             ssa_dim_value=16, iwsa_dim_key=24,
+                                             iwsa_dim_value=16, reference_block_order=True),
+                           64, cs.scalable_vit_tree),
+    "crossformer": (CrossFormer, _CROSSFORMER, 112, cs.crossformer_tree),
+    "crossformer quirks": (CrossFormer, dict(_CROSSFORMER, reference_quirks=True), 112,
+                           cs.crossformer_tree),
+    "vit_small_datasets": (ViTSmallDatasets, _reg("vit_small_datasets"), 64,
+                           cs.vit_small_datasets_tree),
+    "vit_moe": (ViTMoE, _VIT_MOE, 32, cs.vit_moe_tree),
 }
 FAMILIES = ("efficient", "cross_vit", "parallel_vit", "patch_merger_vit")
 
@@ -119,7 +146,18 @@ def jax_model(model, precision="fp32", **over):
     cfg = _with(cfg, over)
     if "transformer" in cfg:
         cfg = dict(cfg, transformer=JaxTransformer(**cfg["transformer"]))
-    return getattr(jm, cls.__name__)(**cfg, dtype=None if precision == "fp32" else jnp.bfloat16)
+    from vit_tpu.models.vit_moe import ViTMoE as JaxViTMoE
+
+    jcls = JaxViTMoE if cls is ViTMoE else getattr(jm, cls.__name__)  # not in vit_tpu.models
+    return jcls(**cfg, dtype=None if precision == "fp32" else jnp.bfloat16)
+
+
+def train_logits(tm, img, remat=False):
+    """The port's training forward: ViT-MoE's takes no ``remat`` (nothing of
+    it is scanned in vit_tpu)."""
+    if isinstance(tm, ViTMoE):
+        return tm(img, train=True)
+    return tm(img, train=True, remat=remat)
 
 
 def logits_2d(logits):
@@ -196,21 +234,26 @@ def assert_grads(tm, ref, gtol):
         assert err <= max(tol * norm(ref[name]), floor), (name, _rel(p.grad, ref[name]))
 
 
-def check_loss_and_grads(model, precision, mode, route, monkeypatch):
+def check_loss_and_grads(model, precision, mode, route, monkeypatch, against_fp32=()):
     """The tiny model's loss and every gradient against vit_tpu's
     (``jax_loss_and_grads``) within the bounds above; on the card's route
-    with ``branch_train_counts``' launches and recomputes, with remat."""
+    with ``branch_train_counts``' launches and recomputes, with remat.
+
+    ``against_fp32``: the bf16 gradients (names) that vit_tpu's CPU modes
+    both round far from its fp32 ones, so that their gap says nothing of the
+    port's. Each is held to vit_tpu's fp32 gradient instead: its relative L2
+    from it at most that of vit_tpu's bf16 gradient in ``mode``."""
     img, labels = images(0, BATCH, SPECS[model][2])
     jloss, jgrads = jax_loss_and_grads(model, precision, mode)
     tm = port(model, precision)
     if route == "functions":
         kernels = _KernelsAsTwins(monkeypatch)
     ops.reset_launch_counts()
-    loss = tt.cross_entropy_loss(logits_2d(tm(torch.from_numpy(img), train=True, remat=True)),
+    loss = tt.cross_entropy_loss(logits_2d(train_logits(tm, torch.from_numpy(img), remat=True)),
                                  torch.from_numpy(labels))
     loss.backward()
     if route == "functions":
-        launches, recomputes = cs.branch_train_counts(tm)
+        launches, recomputes = cs.branch_train_counts(tm, image_size=SPECS[model][2])
         assert launches and kernels.launched() == launches
         assert {k: v for k, v in ops.recompute_counts().items() if v} == recomputes
     ref = from_jax_params({"params": jgrads}, tm.jax_stages)
@@ -222,6 +265,11 @@ def check_loss_and_grads(model, precision, mode, route, monkeypatch):
         other = from_jax_params({"params": ograds}, tm.jax_stages)
         gtol = {k: 2 * max(_rel(other[k], ref[k]), BF16_FLOOR[0]) for k in ref}
         ltol = 2 * max(abs(oloss - jloss), BF16_FLOOR[1])
+        if against_fp32:
+            f32 = from_jax_params({"params": jax_loss_and_grads(model, "fp32", "xla")[1]},
+                                  tm.jax_stages)
+            for k in against_fp32:
+                ref[k], gtol[k] = f32[k], _rel(ref[k], f32[k])
     assert abs(loss.item() - jloss) <= ltol, (loss.item(), jloss)
     assert_grads(tm, ref, gtol)
 
@@ -296,17 +344,19 @@ def resync(tm, state, before):
                                     "exp_avg": mu[k].clone(), "exp_avg_sq": nu[k].clone()}
 
 
-def check_adamw_steps(model):
+def check_adamw_steps(model, zeros=None):
     """Two AdamW updates of the port's trainer against vit_tpu's within the
     rule above (RESYNC's second from vit_tpu's state), the first loss within
-    1e-5."""
+    1e-5. ``zeros(tm)``: the number of values whose gradient is zero by
+    construction in the update just made; the most of any update so far is
+    left out of the count KEPT_SHARE takes its share of."""
     tm = port(model)
     opt = tt.make_optimizer(ADAM_LR, name="adamw", grad_clip_norm=0.5)
     state = tt.create_train_state(tm, opt, init=False)
     step = tt.make_train_step(tm, opt, remat=True)
     params = dict(tm.named_parameters())
     x, y = (torch.from_numpy(a) for a in images(1, 4, SPECS[model][2]))
-    gmin = {}
+    gmin, exempt = {}, 0
     for n, (jloss, jparams, before) in enumerate(jax_steps(model), start=1):
         if model in RESYNC and n > 1:
             resync(tm, state, before)
@@ -325,7 +375,9 @@ def check_adamw_steps(model):
             over.append((float(err.masked_fill(big, 0).max()), k))
         assert max(held)[0] <= STEP_TOL, (n, sorted(held)[-3:])
         assert max(over)[0] <= ADAM_OVER, (n, sorted(over)[-3:])
-        assert kept >= KEPT_SHARE * sum(p.numel() for p in params.values()), (n, kept)
+        exempt = max(exempt, zeros(tm) if zeros else 0)
+        total = sum(p.numel() for p in params.values()) - exempt
+        assert kept >= KEPT_SHARE * total, (n, kept, total)
 
 
 @pytest.mark.parametrize("model", FAMILIES)
@@ -344,7 +396,11 @@ DROP = {"efficient": dict(emb_dropout=RATE, dropout=RATE),
         "parallel_vit": dict(emb_dropout=RATE, dropout=RATE),
         "patch_merger_vit": dict(emb_dropout=RATE, dropout=RATE),
         "nest": dict(dropout=RATE),
-        "region_vit": dict(attn_dropout=RATE, ff_dropout=RATE)}
+        "region_vit": dict(attn_dropout=RATE, ff_dropout=RATE),
+        "scalable_vit": dict(dropout=RATE),
+        "crossformer": dict(attn_dropout=RATE, ff_dropout=RATE),
+        "vit_small_datasets": dict(emb_dropout=RATE, dropout=RATE),
+        "vit_moe": dict(dropout=RATE)}
 # vit_tpu pads a ``Transformer``'s stream to 8-row tiles (fp32) around its
 # layers (blocks.py:300-340, auto_pad): its feed-forward draws its masks on
 # the padded rows, its attention on the real ones. The families whose
@@ -416,24 +472,26 @@ def plant_padded_mlp_draws(monkeypatch, queue):
     monkeypatch.setattr(blocks, "dropout", planted)
 
 
-def port_drop_grads(model, monkeypatch, queue):
+def port_drop_grads(model, monkeypatch, queue, scope=None):
     """The port's loss at DROP's rates with ``queue``'s masks planted (no
-    remat: a recompute would read the queue again); the model after its
-    backward."""
+    remat: a recompute would read the queue again), inside ``scope(tm)``
+    where given (a planted fault); the model after its backward."""
     tm = port(model, **DROP[model.split()[0]])
     _plant_port(monkeypatch, queue)
     if model in PADDED_STACKS:
         plant_padded_mlp_draws(monkeypatch, queue)
     img, labels = images(0, BATCH, SPECS[model][2])
-    loss = tt.cross_entropy_loss(logits_2d(tm(torch.from_numpy(img), train=True)),
-                                 torch.from_numpy(labels))
-    loss.backward()
+    with scope(tm) if scope else contextlib.nullcontext():
+        loss = tt.cross_entropy_loss(logits_2d(train_logits(tm, torch.from_numpy(img))),
+                                     torch.from_numpy(labels))
+        loss.backward()
     return loss, tm
 
 
 # the draws of each tiny model at DROP's rates, in vit_tpu's order
 N_DRAWS = {"efficient": 9, "cross_vit": 18, "parallel_vit": 17, "patch_merger_vit": 17,
-           "nest": 6, "region_vit": 18}
+           "nest": 6, "region_vit": 18, "scalable_vit": 30, "scalable_vit split": 18,
+           "crossformer": 18, "vit_small_datasets": 9, "vit_moe": 7}
 
 
 def check_dropout(model, monkeypatch):
@@ -492,7 +550,8 @@ def check_init_params(model):
     ``embedding`` tables (RegionViT's ``rel_pos_bias``) nn.Embed's
     untruncated normal of std ``1 / sqrt(heads)``, each pooled over the
     model; the rest truncated at two standard deviations of lecun_normal
-    (fan-in the kernel's first axis, a conv's ``I * kh * kw``) or of 0.02
+    (fan-in the kernel's first axis, a conv's ``I * kh * kw``, ViT-MoE's
+    ``[E, in, out]`` expert kernels' ``E * in``) or of 0.02
     (``cls``, ``pos_embedding``, NesT's ``pos_emb_{li}``), within 10% of
     their std where they hold 1,000 values."""
     import jax
@@ -512,7 +571,7 @@ def check_init_params(model):
     for k, r in ref.items():
         p = ours[k]
         assert p.shape == r.shape, k
-        if r.std() == 0:
+        if r.dim() == 0 or r.numel() == 1 or r.std() == 0:  # a constant: bit for bit
             assert torch.equal(p, r), k
             continue
         leaf = k.split(".")[-1]
@@ -523,7 +582,8 @@ def check_init_params(model):
             continue
         fan_std = 0.02 * 0.87962566 if (leaf in ("cls", "pos_embedding")
                                         or leaf.startswith("pos_emb_")) else (
-            p[0].numel() if p.dim() == 4 else p.shape[0]) ** -0.5
+            p[0].numel() if p.dim() == 4 else p.shape[0] * p.shape[1] if p.dim() == 3
+            else p.shape[0]) ** -0.5
         assert float(p.abs().max()) <= 2 * fan_std / 0.87962566 * (1 + 1e-6), k
         assert float(r.abs().max()) <= 2 * fan_std / 0.87962566 * (1 + 1e-6), k
         if p.numel() >= 1000:
@@ -614,14 +674,15 @@ def test_trainer_and_cli_take_the_family(name, tmp_path, capsys):
 
 
 def test_presets_take_their_dropout_back():
-    """CrossViT's, ParallelViT's and PatchMerger-ViT's presets carry
-    vit_tpu's ``dropout`` and ``emb_dropout`` of 0.1 again (only the
-    small-dataset ViT's stay dropped) and build models that keep them;
-    CrossViT's constructor defaults to vit_tpu's 0.1."""
+    """CrossViT's, ParallelViT's, PatchMerger-ViT's and (since the
+    small-dataset ViT trains) the small-dataset ViT's presets carry
+    vit_tpu's ``dropout`` and ``emb_dropout`` of 0.1 again (no family's keys
+    stay dropped) and build models that keep them; CrossViT's constructor
+    defaults to vit_tpu's 0.1."""
     from vit_tpu_torch.models import REFERENCE_PRESETS, TRAINING_ONLY_DROPPED
 
-    assert TRAINING_ONLY_DROPPED == {"vit_small_datasets": ("dropout", "emb_dropout")}
-    for name in ("cross_vit", "parallel_vit", "patch_merger_vit"):
+    assert TRAINING_ONLY_DROPPED == {}
+    for name in ("cross_vit", "parallel_vit", "patch_merger_vit", "vit_small_datasets"):
         cfg = REFERENCE_PRESETS[name][1]
         assert cfg["dropout"] == cfg["emb_dropout"] == 0.1, name
     defaults = inspect.signature(CrossViT).parameters
@@ -652,9 +713,9 @@ def card_step_fills_every_gradient(model, dev):
                      torch.Generator(dev).manual_seed(0))
     x = torch.randn(2, size, size, 3, device=dev)
     ops.reset_launch_counts()
-    tt.cross_entropy_loss(logits_2d(tm(x, train=True, remat=True)),
+    tt.cross_entropy_loss(logits_2d(train_logits(tm, x, remat=True)),
                           torch.arange(2, device=dev)).backward()
-    want, recomputes = cs.branch_train_counts(tm)
+    want, recomputes = cs.branch_train_counts(tm, image_size=size)
     assert {k: v for k, v in ops.launch_counts().items() if v} == want, model
     assert {k: v for k, v in ops.recompute_counts().items() if v} == recomputes, model
     for name, p in tm.named_parameters():

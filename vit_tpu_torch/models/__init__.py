@@ -8,12 +8,10 @@ neither. Nothing is built on import: a config holds keyword arguments only
 (``efficient``'s encoder as the port ``Transformer``'s).
 
 ``TRAINING_ONLY_DROPPED``: the training-only keys of ``vit_tpu``'s configs
-that a port constructor does not take (those families are served, not
-trained, by the port, so dropout and stochastic depth do nothing), dropped
-from that family's registry config and preset: only the small-dataset
-ViT's, whose training is not ported. The families that train
-(``vit_tpu_torch.train``) take their dropout keys. Every other config key is
-``vit_tpu``'s, with its value.
+that a port constructor does not take, dropped from that family's registry
+config and preset: none, since every family trains (``vit_tpu_torch.train``)
+and takes its dropout keys. Every config key is ``vit_tpu``'s, with its
+value.
 """
 
 from vit_tpu_torch.models.cait import CaiT
@@ -41,8 +39,7 @@ __all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "EfficientViT", 
            "T2TViT", "TwinsSVT", "ViT", "ViTMoE", "ViTSmallDatasets", "MODEL_REGISTRY",
            "TRAINING_ONLY_DROPPED"]
 
-_DROPOUT = ("dropout", "emb_dropout")
-TRAINING_ONLY_DROPPED = {"vit_small_datasets": _DROPOUT}
+TRAINING_ONLY_DROPPED = {}
 
 # name -> (class, tiny smoke config, image size): vit_tpu/models/__init__.py:55-174
 MODEL_REGISTRY = {

@@ -1,6 +1,7 @@
 """Reference-scale presets (port of ``vit_tpu/models/presets.py``): every
 family at the hyperparameters the upstream README documents (the same
-numbers as ``docs/MODELS.md``), less ``TRAINING_ONLY_DROPPED``'s keys.
+numbers as ``docs/MODELS.md``), less ``TRAINING_ONLY_DROPPED``'s keys
+(none now).
 
     from vit_tpu_torch.models.presets import create
     model, image_size = create("cait", dtype=torch.bfloat16)   # on the card
@@ -71,6 +72,7 @@ REFERENCE_PRESETS: Dict[str, Tuple[Callable[..., Any], Dict[str, Any], int]] = {
     "vit_small_datasets": (ViTSmallDatasets, dict(
         image_size=256, patch_size=16, num_classes=1000,
         dim=1024, depth=6, heads=16, mlp_dim=2048,
+        dropout=0.1, emb_dropout=0.1,
     ), 256),
     "cross_vit": (CrossViT, dict(
         image_size=256, num_classes=1000, depth=4,

@@ -17,6 +17,19 @@ model gives bf16 logits, as ``vit_tpu``'s does.
 ``reference_block_order=True`` runs each block's second ConvMLP before its
 IWSA, the reference's execution order as ``vit_tpu`` reproduces it.
 
+Training (``forward(img, train=True, generator=..., remat=...)``): each
+SSA's and IWSA's ``drop`` after ``to_out`` (``dropout``; their attention
+stays on ``ops.attention`` / ``ops.qkv_attention``, so on the card
+``ops.FlashAttentionFn`` and ``ops.QkvAttentionFn`` at every rate: at the
+preset, kernel 5 on strided views of IWSA stage 0's fused rows and at
+SSA's 40-wide keys, kernel 4 at SSA stage 3, kernel 3 at IWSA stages 1-3),
+then each ConvMLP's ``drop1`` and ``drop2`` on its plain path above 0
+(``ops.MlpFn`` at 0). Masks are drawn block after block in ``vit_tpu``'s
+order: SSA, ff1, then IWSA and ff2 (ff2 and IWSA with
+``reference_block_order``); a stage's scanned blocks each draw their own.
+The PEG, the LIM and ``Downsample`` have no dropout. ``vit_tpu`` does not
+remat a stage's scan, so ``remat`` checkpoints nothing.
+
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
 converts a ``vit_tpu`` variables tree (``stage_{s}`` is scanned there when
@@ -33,6 +46,7 @@ from torch import nn
 
 from vit_tpu_torch import ops
 from vit_tpu_torch.core.utils import cast_tuple
+from vit_tpu_torch.nn.attention import dropout as apply_dropout
 from vit_tpu_torch.nn.attention import mha_tokens
 from vit_tpu_torch.nn.conv import PEG, Conv, ConvMLP, Downsample
 from vit_tpu_torch.nn.embed import Dense, LayerNorm, mm_rounded
@@ -42,27 +56,31 @@ class _SSA(nn.Module):
     """Scalable self-attention: ``norm`` (eps 1e-5), ``to_q`` (a bias-free
     Dense), ``to_k`` / ``to_v`` (bias-free r x r stride-r convs), attention
     at scale ``dim_key**-0.5``, ``to_out`` (a Dense, its bias added in the
-    dtype after the rounding); all in the model dtype."""
+    dtype after the rounding); all in the model dtype. ``drop`` at rate
+    ``dropout`` after ``to_out`` under ``train``."""
 
     def __init__(self, dim: int, heads: int, dim_key: int, dim_value: int,
-                 reduction_factor: int, *, dtype: Optional[torch.dtype], device):
+                 reduction_factor: int, *, dropout: float = 0.0, dtype: Optional[torch.dtype],
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         hk, hv, r = dim_key * heads, dim_value * heads, reduction_factor
-        self.heads, self.scale = heads, dim_key**-0.5
+        self.heads, self.scale, self.dropout = heads, dim_key**-0.5, dropout
         self.norm = LayerNorm(dim, eps=1e-5, **kw)
         self.to_q = Dense(dim, hk, use_bias=False, **kw)
         self.to_k = Conv(dim, hk, r, strides=r, use_bias=False, **kw)
         self.to_v = Conv(dim, hv, r, strides=r, use_bias=False, **kw)
         self.to_out = Dense(hv, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         x = self.norm(x)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         out = mha_tokens(q.reshape(b, h * w, -1), k.reshape(b, -1, k.shape[-1]),
                          v.reshape(b, -1, v.shape[-1]), self.heads, scale=self.scale)
-        return self.to_out(out.reshape(b, h, w, -1))
+        out = self.to_out(out.reshape(b, h, w, -1))
+        return apply_dropout(out, self.dropout, generator) if train else out
 
 
 class _IWSA(nn.Module):
@@ -71,14 +89,20 @@ class _IWSA(nn.Module):
     ``[in, out]`` layout, held by Dense modules that are never called,
     concatenated per call; fp32 sums rounded once to the dtype), the LIM (``lim``: a 3x3 SAME conv with a bias over the value
     columns), attention inside ``window_size`` windows (None: the whole
-    map), the LIM added back, then ``to_out``."""
+    map), the LIM added back, then ``to_out`` and, under ``train``, ``drop``
+    at rate ``dropout``. Under grad the fused product's weight gradient
+    (``MmRoundedFn``) flattens the map's leading axes, and the strided q, k,
+    v views of the fused rows send their gradients back into their thirds
+    through autograd."""
 
     def __init__(self, dim: int, window_size: Optional[int], heads: int, dim_key: int,
-                 dim_value: int, *, dtype: Optional[torch.dtype], device):
+                 dim_value: int, *, dropout: float = 0.0, dtype: Optional[torch.dtype],
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         hk, hv = dim_key * heads, dim_value * heads
         self.window_size, self.heads, self.scale = window_size, heads, dim_key**-0.5
+        self.dropout = dropout
         self.hk, self.fused = hk, dim_key == dim_value
         self.dtype = dtype
         self.norm = LayerNorm(dim, eps=1e-5, **kw)
@@ -88,7 +112,8 @@ class _IWSA(nn.Module):
         self.lim = Conv(hv, hv, 3, **kw)
         self.to_out = Dense(hv, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         wsz = self.window_size or h
         if h % wsz or w % wsz:
@@ -106,23 +131,26 @@ class _IWSA(nn.Module):
             q, k, v = (ops.window_partition(t, wsz)
                        for t in (qkv[..., :hk], qkv[..., hk:2 * hk], qkv[..., 2 * hk:]))
             out = mha_tokens(q, k, v, self.heads, scale=self.scale)
-        out = ops.window_unpartition(out, wsz, h, w) + local_out
-        return self.to_out(out)
+        out = self.to_out(ops.window_unpartition(out, wsz, h, w) + local_out)
+        return apply_dropout(out, self.dropout, generator) if train else out
 
 
-def _block(x, ssa, ff1, iwsa, ff2, reference_block_order: bool, peg=None):
+def _block(x, ssa, ff1, iwsa, ff2, reference_block_order: bool, peg=None, train=False,
+           generator=None):
     """One block, each module a residual branch: SSA, ff1, the PEG where
     given (a stage's first block), then IWSA and ff2, or ff2 and IWSA with
-    ``reference_block_order``."""
-    x = x + ssa(x)
-    x = x + ff1(x)
+    ``reference_block_order``; under ``train`` each draws its masks in that
+    order."""
+    kw = dict(train=train, generator=generator)
+    x = x + ssa(x, **kw)
+    x = x + ff1(x, **kw)
     if peg is not None:
         x = peg(x)
     if reference_block_order:
-        x = x + ff2(x)
-        return x + iwsa(x)
-    x = x + iwsa(x)
-    return x + ff2(x)
+        x = x + ff2(x, **kw)
+        return x + iwsa(x, **kw)
+    x = x + iwsa(x, **kw)
+    return x + ff2(x, **kw)
 
 
 class _ScalableBlock(nn.Module):
@@ -132,17 +160,20 @@ class _ScalableBlock(nn.Module):
     def __init__(self, dim: int, heads: int, ssa_dim_key: int, ssa_dim_value: int,
                  reduction_factor: int, iwsa_dim_key: int, iwsa_dim_value: int,
                  window_size: Optional[int], ff_expansion_factor: int, *,
-                 reference_block_order: bool, dtype: Optional[torch.dtype], device):
+                 reference_block_order: bool, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype], device):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dropout=dropout, dtype=dtype, device=device)
         self.reference_block_order = reference_block_order
         self.ssa = _SSA(dim, heads, ssa_dim_key, ssa_dim_value, reduction_factor, **kw)
         self.ff1 = ConvMLP(dim, ff_expansion_factor, **kw)
         self.iwsa = _IWSA(dim, window_size, heads, iwsa_dim_key, iwsa_dim_value, **kw)
         self.ff2 = ConvMLP(dim, ff_expansion_factor, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _block(x, self.ssa, self.ff1, self.iwsa, self.ff2, self.reference_block_order)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _block(x, self.ssa, self.ff1, self.iwsa, self.ff2, self.reference_block_order,
+                      train=train, generator=generator)
 
 
 class ScalableViT(nn.Module):
@@ -153,8 +184,7 @@ class ScalableViT(nn.Module):
     ``peg_{s}`` between its halves; ``stage_{s}`` holding its other blocks
     (a list when there are more than one, the block itself at one, absent at
     none); ``stage_norm_{s}`` (eps 1e-5); ``down_{s}``; ``head_norm``,
-    ``head``. ``dropout`` is accepted and does nothing: the port serves, as
-    ``vit_tpu`` does with ``train=False``."""
+    ``head``. ``dropout`` acts only under ``forward(..., train=True)``."""
 
     def __init__(self, *, num_classes: int, dim: int, depth: tuple, heads, reduction_factor,
                  window_size=None, iwsa_dim_key=32, iwsa_dim_value=32, ssa_dim_key=32,
@@ -173,7 +203,8 @@ class ScalableViT(nn.Module):
             h, sk, sv, r, ik, iv, wsz = (p[s] for p in per)
             block = lambda: _ScalableBlock(dims[s], h, sk, sv, r, ik, iv, wsz,
                                            ff_expansion_factor,
-                                           reference_block_order=reference_block_order, **kw)
+                                           reference_block_order=reference_block_order,
+                                           dropout=dropout, **kw)
             for name, mod in block().named_children():  # the first block, unscanned
                 self.add_module(f"{name}_{s}_0", mod)
             self.add_module(f"peg_{s}", PEG(dims[s], **kw))
@@ -190,15 +221,17 @@ class ScalableViT(nn.Module):
         self.head_norm = LayerNorm(dims[-1], eps=1e-5, **kw)
         self.head = Dense(dims[-1], num_classes, **kw)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, remat: bool = False
+                ) -> torch.Tensor:
         x = self.patchify(img)
         for s in range(self.n_stages):
             x = _block(x, *(getattr(self, f"{m}_{s}_0") for m in ("ssa", "ff1", "iwsa", "ff2")),
-                       self.reference_block_order, getattr(self, f"peg_{s}"))
+                       self.reference_block_order, getattr(self, f"peg_{s}"), train, generator)
             rest = getattr(self, f"stage_{s}", None)
             for block in (rest if isinstance(rest, nn.ModuleList) else
                           () if rest is None else (rest,)):
-                x = block(x)
+                x = block(x, train, generator)
             x = getattr(self, f"stage_norm_{s}")(x)
             if s + 1 < self.n_stages:
                 x = getattr(self, f"down_{s}")(x)

@@ -7,6 +7,14 @@ loop, named as the flax tree names them: ``attn_{i}`` (the fused attention
 block, kernel 1 on the card, with the residual inside), then ``moe_{i}`` or
 ``ff_{i}`` (kernel 2), each delta added to the stream by the model.
 
+Training (``forward(img, train=True, generator=...)``): at ``dropout`` 0
+the inference routes (on the card ``ops.AttentionBlockFn`` and
+``ops.MlpFn``); above 0 each ``attn_{i}`` materializes with ``attn_drop``
+and ``out_drop`` (``vit_tpu``'s ``needs_materialized``), then ``moe_{i}``
+drops its expert hiddens or ``ff_{i}`` takes its plain path with
+``drop1`` and ``drop2``, the masks drawn layer after layer in that order.
+``vit_tpu`` scans nothing here, so there is nothing to remat.
+
 Parameters are zeros and ones at construction, on the card unless the
 caller passes ``device="cpu"``; ``from_jax_params(tree, model.jax_stages)``
 converts a ``vit_tpu`` variables tree (nothing is scanned: ``jax_stages``
@@ -31,10 +39,10 @@ class ViTMoE(nn.Module):
     """``[B, H, W, 3]`` images -> ``[B, num_classes]`` fp32 logits.
 
     ``dtype``: the stream and GEMM operand dtype (None: fp32). ``dropout``
-    is accepted and does nothing: the port serves it, as ``vit_tpu`` does
-    with ``train=False`` (``vit_tpu_torch.train`` refuses a rate above 0). ``forward(img, return_aux=True)`` also returns the
-    MoE layers' load-balance losses, in layer order (``vit_tpu`` sows
-    them)."""
+    reaches every attention, MoE layer and MLP, and acts only under
+    ``forward(..., train=True)``. ``forward(img, return_aux=True)`` also
+    returns the MoE layers' load-balance losses, in layer order
+    (``vit_tpu`` sows them)."""
 
     def __init__(self, *, image_size: int, patch_size: int, num_classes: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, num_experts: int = 8,
@@ -58,14 +66,16 @@ class ViTMoE(nn.Module):
         self.pos_embedding = nn.Parameter(torch.zeros(1, num_patches + 1, dim, device=device))
         for i in range(depth):
             self.add_module(f"attn_{i}", Attention(dim, heads, dim_head, fuse_residual=True,
-                                                   norm_eps=norm_eps, dtype=dtype, device=device))
+                                                   norm_eps=norm_eps, dropout=dropout,
+                                                   dtype=dtype, device=device))
             if self._is_moe(i):
                 self.add_module(f"moe_{i}", MoEFeedForward(
                     dim, mlp_dim, num_experts=num_experts, num_selected=num_selected,
-                    capacity_factor=capacity_factor, ln_eps=norm_eps, dtype=dtype,
-                    device=device))
+                    capacity_factor=capacity_factor, dropout=dropout, ln_eps=norm_eps,
+                    dtype=dtype, device=device))
             else:
-                self.add_module(f"ff_{i}", FeedForward(dim, mlp_dim, ln_eps=norm_eps, dtype=dtype,
+                self.add_module(f"ff_{i}", FeedForward(dim, mlp_dim, ln_eps=norm_eps,
+                                                       dropout=dropout, dtype=dtype,
                                                        device=device))
         self.head_norm = LayerNorm(dim, eps=norm_eps, device=device)
         self.head = Dense(dim, num_classes, device=device)
@@ -73,21 +83,23 @@ class ViTMoE(nn.Module):
     def _is_moe(self, i: int) -> bool:
         return (i + 1) % self.moe_every == 0
 
-    def forward(self, img: torch.Tensor, return_aux: bool = False):
+    def forward(self, img: torch.Tensor, return_aux: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.patch_embed(img)
         b, _, dim = x.shape
         x = torch.cat([self.cls.to(x.dtype).expand(b, 1, dim), x], dim=1)
         x = x + self.pos_embedding.to(x.dtype)
         aux = []
+        kw = dict(train=train, generator=generator)
         for i in range(self.depth):
-            x = getattr(self, f"attn_{i}")(x)
+            x = getattr(self, f"attn_{i}")(x, **kw)
             if self._is_moe(i):
-                delta = getattr(self, f"moe_{i}")(x, return_aux=return_aux)
+                delta = getattr(self, f"moe_{i}")(x, return_aux=return_aux, **kw)
                 if return_aux:
                     delta, loss = delta
                     aux.append(loss)
             else:
-                delta = getattr(self, f"ff_{i}")(x)
+                delta = getattr(self, f"ff_{i}")(x, **kw)
             x = x + delta
         x = x[:, 0] if self.pool == "cls" else mean_tokens(x)
         logits = self.head(self.head_norm(x))

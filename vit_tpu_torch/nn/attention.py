@@ -85,7 +85,6 @@ materializing path).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -151,6 +150,16 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     keep_prob = 1.0 - rate
     keep = bernoulli(keep_prob, x.shape, generator, x.device)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def log_temperature_init(dim_head: int, device="cpu") -> torch.Tensor:
+    """LSA's ``log_temperature`` at init, ``vit_tpu``'s
+    ``jnp.log(dim_head**-0.5)`` in fp32 (vit_tpu/nn/attention.py:181-184):
+    the scale rounded to fp32, then its fp32 log (correctly rounded, as
+    ``torch.log`` gives it). XLA's CPU log equals it at every power-of-two
+    width and at all but about 2.5% of the widths up to 4,096 (one ulp
+    apart at 29, 43, 133, ...)."""
+    return torch.log(torch.tensor(dim_head**-0.5, dtype=torch.float32)).to(device)
 
 
 def _einsum(eq, a, b, dtype=torch.float32):
@@ -231,8 +240,7 @@ class Attention(nn.Module):
                 self.out_kernel = p(inner, dim)
                 self.out_bias = p(dim)
         if learned_temperature:
-            self.log_temperature = nn.Parameter(
-                torch.tensor(math.log(self.scale), dtype=torch.float32, device=device))
+            self.log_temperature = nn.Parameter(log_temperature_init(dim_head, device))
         if talking_heads:
             self.mix_heads_pre = p(heads, heads)
             self.mix_heads_post = p(heads, heads)

@@ -25,6 +25,13 @@ fp32 result (JAX's ``preferred_element_type``): on the card a bf16 batched
 GEMM over the experts that returns fp32, issued under ``fp32_bf16_sums``;
 elsewhere an fp32 product of the rounded operands. Plain PyTorch throughout:
 ``vit_tpu`` runs this block in XLA, outside every Pallas kernel.
+
+Training (``forward(x, train=True, generator=...)``): the expert-hidden
+dropout at rate ``dropout``, after the activation and before the cast to
+the compute dtype (``vit_tpu/nn/moe.py:121-124``), its mask drawn over the
+buffer as flax draws it over ``[E, B, C, F]``, empty capacity slots
+included. Gradients reach the router through the gates (top-k, the
+positions and the dispatch are integer bookkeeping), as in ``vit_tpu``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
+from vit_tpu_torch.nn.attention import dropout as apply_dropout
 from vit_tpu_torch.nn.embed import Dense, fp32_bf16_sums
 from vit_tpu_torch.ops.block_attention import _ln_f32, _softmax
 from vit_tpu_torch.ops.fused_mlp import _activate
@@ -114,8 +122,12 @@ def _bmm_f32(a, b):
     """``a @ b`` batched over the experts with fp32 sums and an fp32 result,
     operands already rounded to their dtype: on the card in bf16 one cuBLAS
     bf16 GEMM that writes fp32 (no bf16 rounding of the product), issued
-    under ``fp32_bf16_sums``; else an fp32 product."""
-    if ops._use_kernel(a) and a.dtype == b.dtype == torch.bfloat16:
+    under ``fp32_bf16_sums``; else, and under grad (``bmm``'s ``out_dtype``
+    form has no derivative), an fp32 product, which autograd differentiates
+    in fp32 and casts back to each operand's dtype, as JAX transposes a dot
+    with ``preferred_element_type=f32``."""
+    if (a.is_cuda and ops._use_kernel(a) and a.dtype == b.dtype == torch.bfloat16
+            and not ops.needs_grad(a, b)):
         with fp32_bf16_sums():
             return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
@@ -128,8 +140,8 @@ class MoEFeedForward(nn.Module):
     layouts, fp32: ``expert_w1 [E, D, F]``, ``expert_b1 [E, F]``,
     ``expert_w2 [E, F, D]``, ``expert_b2 [E, D]``, ``ln_scale``, ``ln_bias``
     ``[D]``, ``router`` (``kernel [D, E]``, ``bias [E]``). ``dtype`` (None:
-    x's) is the expert products' operand dtype. ``dropout`` is accepted and
-    does nothing: the port serves (training is ROADMAP.md Queue 1 item 7)."""
+    x's) is the expert products' operand dtype. ``dropout``: the rate of
+    the expert-hidden dropout under ``forward(..., train=True)``."""
 
     def __init__(self, dim: int, hidden_dim: int, *, num_experts: int = 8,
                  num_selected: int = 2, capacity_factor: float = 1.25, dropout: float = 0.0,
@@ -140,7 +152,7 @@ class MoEFeedForward(nn.Module):
             raise ValueError(f"num_selected {num_selected} > num_experts {num_experts}")
         self.num_experts, self.num_selected = num_experts, num_selected
         self.capacity_factor, self.activation = capacity_factor, activation
-        self.ln_eps, self.dtype = ln_eps, dtype
+        self.ln_eps, self.dtype, self.dropout = ln_eps, dtype, dropout
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
         e = num_experts
         self.expert_w1 = p(e, dim, hidden_dim)
@@ -158,13 +170,16 @@ class MoEFeedForward(nn.Module):
         probs = _softmax(self.router(xn))
         return (xn, probs, *top_k(probs, self.num_selected))
 
-    def experts(self, h: torch.Tensor) -> torch.Tensor:
+    def experts(self, h: torch.Tensor, drop=None) -> torch.Tensor:
         """``[E, M, D]`` expert inputs in the compute dtype -> ``[E, M, D]``
-        fp32: ``x W1 + b1``, the activation in fp32, rounded to the dtype,
-        ``. W2 + b2``."""
+        fp32: ``x W1 + b1``, the activation in fp32, ``drop`` (training's
+        dropout, None: none) on it, rounded to the dtype, ``. W2 + b2``."""
         dt = h.dtype
         h = _bmm_f32(h, self.expert_w1.to(dt)) + self.expert_b1.unsqueeze(1)
-        h = _activate(h, self.activation).to(dt)
+        h = _activate(h, self.activation)
+        if drop is not None:
+            h = drop(h)
+        h = h.to(dt)
         return _bmm_f32(h, self.expert_w2.to(dt)) + self.expert_b2.unsqueeze(1)
 
     def aux_loss(self, probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -174,12 +189,17 @@ class MoEFeedForward(nn.Module):
         frac = nn.functional.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
         return e * (frac * probs.mean(dim=(0, 1))).sum()
 
-    def forward(self, x: torch.Tensor, return_aux: bool = False):
-        _, s, _ = x.shape
+    def forward(self, x: torch.Tensor, return_aux: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        b, s, _ = x.shape
         e = self.num_experts
         capacity = expert_capacity(s, self.num_selected, e, self.capacity_factor)
         xn, probs, idx, gates = self.route(x)
         pos, keep = positions(idx, e, capacity)
-        out = self.experts(dispatch(xn, idx, pos, keep, e, capacity, self.dtype or x.dtype))
+        drop = None
+        if train and self.dropout > 0.0:  # flax's mask over [E, B, C, F]
+            drop = lambda h: apply_dropout(h.view(e, b, capacity, -1), self.dropout,
+                                           generator).view_as(h)
+        out = self.experts(dispatch(xn, idx, pos, keep, e, capacity, self.dtype or x.dtype), drop)
         y = combine(out, idx, pos, keep, gates, capacity).to(x.dtype)
         return (y, self.aux_loss(probs, idx)) if return_aux else y

@@ -400,21 +400,18 @@ def _trainable(model: nn.Module, moe_aux_weight: float, remat: bool) -> Callable
     if isinstance(model, (m.CvT, m.LeViT)) and _folded(model):
         raise ValueError(f"a BatchNorm-folded {type(model).__name__} (fold_bn=True) is "
                          "inference only: train the unfolded model, then fold it")
+    if isinstance(model, m.ViTMoE):
+        return lambda x, gen: model(x, return_aux=True, train=True, generator=gen)
     if isinstance(model, (m.ViT, m.TwinsSVT, m.T2TViT, m.CaiT, m.DeepViT, m.CvT, m.LeViT, m.PiT,
-                          m.SimpleViT, m.EfficientViT, m.CrossViT, m.PatchMergerViT, m.NesT,
-                          m.RegionViT)):
+                          m.SimpleViT, m.EfficientViT, m.CrossViT, m.ParallelViT,
+                          m.PatchMergerViT, m.NesT, m.RegionViT, m.ScalableViT, m.CrossFormer,
+                          m.ViTSmallDatasets)):
         if moe_aux_weight:
             raise ValueError("moe_aux_weight needs a model with MoE layers")
         return lambda x, gen: (model(x, train=True, generator=gen, remat=remat), [])
-    if isinstance(model, m.ViTMoE):
-        if model.dropout:
-            raise NotImplementedError("ViT-MoE's dropout in training is not ported "
-                                      "(ROADMAP.md Queue 1 item 7, step 3)")
-        return lambda x, gen: model(x, return_aux=True)
     raise NotImplementedError(
-        f"training {type(model).__name__} is not ported: ScalableViT, CrossFormer, the "
-        "small-dataset ViT and ViT-MoE's dropout wait for ROADMAP.md Queue 1 item 7 (step 3, its "
-        "last group); the other families train")
+        f"training {type(model).__name__} is not ported: make_train_step trains the 18 "
+        "families of vit_tpu_torch.models and ViTMoE")
 
 
 def _folded(model: nn.Module) -> bool:
