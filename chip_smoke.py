@@ -309,7 +309,16 @@ Runs, in order, and exits non-zero at the first failure:
      trained folded from their own state and served; LeViT at its preset's
      dropout 0.1 and distilled from a frozen smaller LeViT; ``python -m
      vit_tpu_torch.train --model levit|cvt`` with a checkpoint and a
-     resume.
+     resume;
+ 24, 25. training the other families (``phase_train_branch``,
+     ``phase_train_window_moe``);
+ 26. reference checkpoints (``phase_import``): each of the 17 families'
+     ``vit-flax``-layout tree (``ref_<family>_tree``, random values from a
+     seed at its preset's widths) through the port's
+     ``import_reference_*_params`` and ``from_jax_params``, served a batch
+     of 8 in bf16 through the kernels with exact launches and held to the
+     plain fp32 path; then ViT-L/16 imported at 224 and served at 384 after
+     ``adapt_vit_resolution(method="cubic")``.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -1704,7 +1713,7 @@ def vit_small_datasets_tree(c: dict, seed: int) -> dict:
     """A ViT-for-small-datasets variables tree of config ``c`` in
     ``vit_tpu``'s layout, drawn as ``init`` draws it: SPT's bias-free norm
     over 5 x the patch's values, the encoder stacked when deeper than 1, each
-    layer's ``log_temperature`` at its init, log(dim_head**-0.5)."""
+    layer's ``log_temperature`` at its init, log(dim_head**-0.5) in fp32."""
     w = _Init(seed)
     dim, p, depth, dim_head = c["dim"], c["patch_size"], c["depth"], c.get("dim_head", 64)
     patch_dim = p * p * 5 * c.get("channels", 3)
@@ -1712,8 +1721,10 @@ def vit_small_datasets_tree(c: dict, seed: int) -> dict:
                       "proj": {"kernel": w.lecun(patch_dim, dim), "bias": w.zeros(dim)}},
               "cls": w.tokens(1, 1, dim),
               "pos_embedding": w.tokens(1, (c["image_size"] // p) ** 2 + 1, dim)}
+    from vit_tpu_torch.core.xla_math import lsa_log_temperature
+
     encoder = _stack(w, depth, dim, c["heads"], dim_head, c["mlp_dim"])
-    log_tau = w.full(np.log(dim_head**-0.5), depth)
+    log_tau = w.full(lsa_log_temperature(dim_head), depth)
     if depth > 1:
         encoder["blocks"]["attn"]["log_temperature"] = log_tau
     else:
@@ -2085,6 +2096,656 @@ def vit_moe_tree(c: dict, seed: int) -> dict:
 
 
 # -- phases -------------------------------------------------------------------
+
+
+# -- reference-layout trees (the vit-flax layout the importer reads) ------------
+
+
+class _RefInit:
+    """Leaves of a reference ``vit-flax`` tree drawn from a seed, fast
+    enough for the presets' 1.3 B parameters: uniform draws with the
+    standard deviation of ``vit_tpu``'s initializers (lecun-normal kernels
+    by their fan-in, 0.02 tokens and head mixes), and no bias or norm
+    parameter a constant (biases of deviation 0.02, LayerNorm scales 1 +
+    of deviation 0.1), so that a bias or a norm imported at the wrong place
+    moves the logits."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def uniform(self, shape, std):
+        x = self.rng.random(shape, dtype=np.float32)
+        x -= np.float32(0.5)
+        x *= np.float32(std * 12**0.5)
+        return x
+
+    def kernel(self, *shape):
+        """A Dense ``[in, out]`` or HWIO conv kernel: its fan-in is every
+        axis but the last."""
+        return self.uniform(shape, int(np.prod(shape[:-1])) ** -0.5)
+
+    def dense(self, n_in, n_out, bias=True):
+        return {"kernel": self.kernel(n_in, n_out),
+                **({"bias": self.uniform((n_out,), 0.02)} if bias else {})}
+
+    def conv(self, k, c_in, c_out, bias=True):
+        return {"kernel": self.kernel(k, k, c_in, c_out),
+                **({"bias": self.uniform((c_out,), 0.02)} if bias else {})}
+
+    def tokens(self, *shape):
+        return self.uniform(shape, 0.02)
+
+    def ln(self, dim, bias=True):
+        scale = 1 + self.uniform((dim,), 0.1)
+        return {"scale": scale, **({"bias": self.uniform((dim,), 0.02)} if bias else {})}
+
+    def prenorm(self, dim, bias=False):
+        return {"LayerNorm_0": self.ln(dim, bias)}
+
+    def channel_ln(self, dim):
+        """A channel LayerNorm: ``g`` and ``b`` of shape ``(1, 1, 1, dim)``."""
+        ln = self.ln(dim)
+        return {"g": ln["scale"].reshape(1, 1, 1, dim), "b": ln["bias"].reshape(1, 1, 1, dim)}
+
+    def ff(self, dim, hidden):
+        return {"Dense_0": self.dense(dim, hidden), "Dense_1": self.dense(hidden, dim)}
+
+    def conv_ff(self, dim, hidden, bias=True):
+        return {"Conv_0": self.conv(1, dim, hidden, bias), "Conv_1": self.conv(1, hidden, dim, bias)}
+
+    def bn(self, dim, stats):
+        """A BatchNorm's scale and bias; its running mean and a variance in
+        [1, 2] into ``stats`` (LeViT's norm-free stack grows its logits to
+        hundreds where variances below 1 scale each branch up)."""
+        stats.update(mean=self.uniform((dim,), 0.3), var=1.5 + self.uniform((dim,), 0.29))
+        return {"scale": 1 + self.uniform((dim,), 0.1), "bias": self.uniform((dim,), 0.02)}
+
+
+def _with_defaults(ctor, c: dict) -> dict:
+    import inspect
+
+    return {**{k: p.default for k, p in inspect.signature(ctor).parameters.items()
+               if p.default is not inspect.Parameter.empty}, **c}
+
+
+def _ref_transformer(w, depth, dim, inner, mlp, norm_bias=True, attention="Attention",
+                     out_bias=True):
+    """A reference vit-style ``Transformer``: ``PreNorm_{2i}`` /
+    ``PreNorm_{2i+1}``, ``{attention}_i`` (``Dense_0`` the bias-free qkv,
+    ``Dense_1`` the out projection, absent at ``out_bias=None``) and
+    ``FeedForward_i``."""
+    tr = {}
+    for i in range(depth):
+        tr[f"PreNorm_{2 * i}"] = w.prenorm(dim, norm_bias)
+        tr[f"PreNorm_{2 * i + 1}"] = w.prenorm(dim, norm_bias)
+        attn = {"Dense_0": w.dense(dim, 3 * inner, bias=False)}
+        if out_bias is not None:
+            attn["Dense_1"] = w.dense(inner, dim, bias=out_bias)
+        tr[f"{attention}_{i}"] = attn
+        tr[f"FeedForward_{i}"] = w.ff(dim, mlp)
+    return tr
+
+
+def _ref_split_transformer(w, depth, dim, heads, dim_head, mlp, mixes=False):
+    """A reference ``Transformer`` whose Attention keeps q (``Dense_0``), kv
+    (``Dense_1``) and out (``Dense_2``) apart (CrossViT's, CaiT's), with
+    CaiT's talking-heads mixes; scale-only PreNorms."""
+    inner, tr = heads * dim_head, {}
+    for i in range(depth):
+        tr[f"PreNorm_{2 * i}"], tr[f"PreNorm_{2 * i + 1}"] = w.prenorm(dim), w.prenorm(dim)
+        attn = {"Dense_0": w.dense(dim, inner, bias=False),
+                "Dense_1": w.dense(dim, 2 * inner, bias=False), "Dense_2": w.dense(inner, dim)}
+        if mixes:
+            attn.update(mix_heads_pre_attn=w.uniform((heads, heads), 0.02),
+                        mix_heads_post_attn=w.uniform((heads, heads), 0.02))
+        tr[f"Attention_{i}"] = attn
+        tr[f"FeedForward_{i}"] = w.ff(dim, mlp)
+    return tr
+
+
+def ref_vit_tree(c: dict, seed: int, reattention: bool = False) -> dict:
+    """A reference ``vit.py`` tree of config ``c`` (``ViT``'s keyword
+    arguments): ``Dense_0`` the patch projection, ``Transformer_0``,
+    ``LayerNorm_0`` and ``Dense_1`` the head; with ``reattention``,
+    ``deepvit.py``'s (each Attention's ``reattn_weights`` and head
+    LayerNorm)."""
+    w = _RefInit(seed)
+    dim, heads, dh = c["dim"], c["heads"], c.get("dim_head", 64)
+    n = (c["image_size"] // c["patch_size"]) ** 2
+    tr = _ref_transformer(w, c["depth"], dim, heads * dh, c["mlp_dim"])
+    if reattention:
+        for i in range(c["depth"]):
+            tr[f"Attention_{i}"].update(reattn_weights=w.uniform((heads, heads), 0.02),
+                                        LayerNorm_0=w.ln(heads))
+    return {"params": {"cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n + 1, dim),
+                       "Dense_0": w.dense(c["patch_size"] ** 2 * c.get("channels", 3), dim),
+                       "Transformer_0": tr, "LayerNorm_0": w.ln(dim),
+                       "Dense_1": w.dense(dim, c["num_classes"])}}
+
+
+def ref_deepvit_tree(c: dict, seed: int) -> dict:
+    return ref_vit_tree(c, seed, reattention=True)
+
+
+def ref_simple_vit_tree(c: dict, seed: int) -> dict:
+    """A reference ``simple_vit.py`` tree: ``Dense_1`` the patch projection,
+    ``Dense_0`` the head, the bias-free norms inside each Attention and
+    FeedForward, the out projections without a bias."""
+    w = _RefInit(seed)
+    dim, inner = c["dim"], c["heads"] * c.get("dim_head", 64)
+    tr = {}
+    for i in range(c["depth"]):
+        tr[f"Attention_{i}"] = {"LayerNorm_0": w.ln(dim, bias=False),
+                                "Dense_0": w.dense(dim, 3 * inner, bias=False),
+                                "Dense_1": w.dense(inner, dim, bias=False)}
+        tr[f"FeedForward_{i}"] = {"LayerNorm_0": w.ln(dim, bias=False), **w.ff(dim, c["mlp_dim"])}
+    return {"params": {"Dense_1": w.dense(c["patch_size"] ** 2 * c.get("channels", 3), dim),
+                       "Transformer_0": tr, "LayerNorm_0": w.ln(dim, bias=False),
+                       "Dense_0": w.dense(dim, c["num_classes"])}}
+
+
+def ref_lsa_tree(c: dict, seed: int) -> dict:
+    """A reference ``vit_small_datasets.py`` tree: ``SPT_0`` (a bias-free
+    LayerNorm over 5 x the patch's values, ``Dense_0``), ``LSA_i`` layers
+    behind scale-only PreNorms, the head's ``LayerNorm_0`` and ``Dense_0``."""
+    w = _RefInit(seed)
+    dim, p = c["dim"], c["patch_size"]
+    patch_dim = p * p * 5 * c.get("channels", 3)
+    tr = _ref_transformer(w, c["depth"], dim, c["heads"] * c.get("dim_head", 64), c["mlp_dim"],
+                          norm_bias=False, attention="LSA")
+    return {"params": {"SPT_0": {"LayerNorm_0": w.ln(patch_dim, bias=False),
+                                 "Dense_0": w.dense(patch_dim, dim)},
+                       "cls": w.tokens(1, 1, dim),
+                       "pos_embedding": w.tokens(1, (c["image_size"] // p) ** 2 + 1, dim),
+                       "Transformer_0": tr, "LayerNorm_0": w.ln(dim, bias=False),
+                       "Dense_0": w.dense(dim, c["num_classes"])}}
+
+
+def ref_parallel_vit_tree(c: dict, seed: int) -> dict:
+    """A reference ``parallel_vit.py`` tree: per layer d and branch b
+    ``Attention_{dB+b}`` (out projection without a bias) and
+    ``FeedForward_{dB+b}``, ``PreNorm_{2dB+b}`` and ``PreNorm_{2dB+B+b}``."""
+    w = _RefInit(seed)
+    dim, inner, branches = c["dim"], c["heads"] * c.get("dim_head", 64), c.get(
+        "num_parallel_branches", 2)
+    tr = {}
+    for d in range(c["depth"]):
+        for b in range(branches):
+            tr[f"Attention_{d * branches + b}"] = {"Dense_0": w.dense(dim, 3 * inner, bias=False),
+                                                   "Dense_1": w.dense(inner, dim, bias=False)}
+            tr[f"FeedForward_{d * branches + b}"] = w.ff(dim, c["mlp_dim"])
+        for k in range(2 * branches):
+            tr[f"PreNorm_{2 * d * branches + k}"] = w.prenorm(dim)
+    n = (c["image_size"] // c["patch_size"]) ** 2
+    return {"params": {"cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n + 1, dim),
+                       "Dense_0": w.dense(c["patch_size"] ** 2 * c.get("channels", 3), dim),
+                       "Transformer_0": tr, "LayerNorm_0": w.ln(dim, bias=False),
+                       "Dense_1": w.dense(dim, c["num_classes"])}}
+
+
+def ref_patch_merger_tree(c: dict, seed: int) -> dict:
+    """A reference ``patch_merger.py`` tree: ``Dense_1`` the patch
+    projection, a ``pos_embedding`` with one row more than the patches,
+    out projections without a bias, ``PatchMerger_0``'s bias-free norm (its
+    queries are no parameter), ``Dense_0`` the head."""
+    w = _RefInit(seed)
+    dim, inner = c["dim"], c["heads"] * c.get("dim_head", 64)
+    tr = _ref_transformer(w, c["depth"], dim, inner, c["mlp_dim"], norm_bias=False,
+                          out_bias=False)
+    tr["PatchMerger_0"] = w.prenorm(dim)
+    n = (c["image_size"] // c["patch_size"]) ** 2
+    return {"params": {"pos_embedding": w.tokens(1, n + 1, dim),
+                       "Dense_1": w.dense(c["patch_size"] ** 2 * c.get("channels", 3), dim),
+                       "Transformer_0": tr, "LayerNorm_0": w.ln(dim, bias=False),
+                       "Dense_0": w.dense(dim, c["num_classes"])}}
+
+
+def ref_cait_tree(c: dict, seed: int) -> dict:
+    """A reference ``cait.py`` tree: ``Transformer_0`` the patch layers,
+    ``Transformer_1`` the class layers, both with split q / kv / out
+    projections and talking-heads mixes; ``Dense_0`` the patch projection,
+    ``Dense_1`` the head."""
+    w = _RefInit(seed)
+    dim, heads, dh, mlp = c["dim"], c["heads"], c.get("dim_head", 64), c["mlp_dim"]
+    n = (c["image_size"] // c["patch_size"]) ** 2
+    return {"params": {
+        "cls": w.tokens(1, 1, dim), "pos_embedding": w.tokens(1, n, dim),
+        "Dense_0": w.dense(c["patch_size"] ** 2 * c.get("channels", 3), dim),
+        "Transformer_0": _ref_split_transformer(w, c["depth"], dim, heads, dh, mlp, mixes=True),
+        "Transformer_1": _ref_split_transformer(w, c["cls_depth"], dim, heads, dh, mlp,
+                                                mixes=True),
+        "LayerNorm_0": w.ln(dim, bias=False), "Dense_1": w.dense(dim, c["num_classes"])}}
+
+
+def ref_t2t_tree(c: dict, seed: int) -> dict:
+    """A reference ``t2t.py`` tree: ``RearrangeUnfoldTransformer_i`` (all
+    but the last tokenizer layer) each with a one-head Transformer as wide
+    as the token and no out projection, ``Dense_0`` the tokenizer's
+    projection, ``Transformer_0`` the encoder, ``LayerNorm_0`` + ``Dense_1``
+    the head."""
+    from vit_tpu_torch.core.utils import conv_output_size
+
+    w = _RefInit(seed)
+    dim, layers = c["dim"], c.get("t2t_layers", ((7, 4), (3, 2), (3, 2)))
+    layer_dim, side, params = c.get("channels", 3), c["image_size"], {}
+    for i, (kernel, stride) in enumerate(layers):
+        layer_dim *= kernel**2
+        side = conv_output_size(side, kernel, stride, stride // 2)
+        if i < len(layers) - 1:
+            params[f"RearrangeUnfoldTransformer_{i}"] = {"Transformer_0": _ref_transformer(
+                w, 1, layer_dim, layer_dim, layer_dim, out_bias=None)}
+    params.update(
+        Dense_0=w.dense(layer_dim, dim), cls=w.tokens(1, 1, dim),
+        pos_embedding=w.tokens(1, side * side + 1, dim),
+        Transformer_0=_ref_transformer(w, c["depth"], dim, c["heads"] * c.get("dim_head", 64),
+                                       c["mlp_dim"]),
+        LayerNorm_0=w.ln(dim, bias=False), Dense_1=w.dense(dim, c["num_classes"]))
+    return {"params": params}
+
+
+def ref_pit_tree(c: dict, seed: int) -> dict:
+    """A reference ``pit.py`` tree of one stage (``c["depth"] = (d,)``):
+    ``Dense_1`` the overlapping patch projection, ``Transformer_0``,
+    ``LayerNorm_0`` + ``Dense_0`` the head."""
+    from vit_tpu_torch.core.utils import conv_output_size
+
+    w = _RefInit(seed)
+    (depth,), dim, p = c["depth"], c["dim"], c["patch_size"]
+    side = conv_output_size(c["image_size"], p, p // 2)
+    return {"params": {
+        "Dense_1": w.dense(p * p * c.get("channels", 3), dim), "cls": w.tokens(1, 1, dim),
+        "pos_embedding": w.tokens(1, side * side + 1, dim),
+        "Transformer_0": _ref_transformer(w, depth, dim, c["heads"] * c.get("dim_head", 64),
+                                          c["mlp_dim"]),
+        "LayerNorm_0": w.ln(dim, bias=False), "Dense_0": w.dense(dim, c["num_classes"])}}
+
+
+def ref_cross_vit_tree(c: dict, seed: int) -> dict:
+    """A reference ``cross_vit.py`` tree: ``ImageEmbedder_{0,1}``;
+    ``MultiScaleEncoder_0`` with each round's ``Transformer_{2d}`` /
+    ``Transformer_{2d+1}`` (split projections, a final ``LayerNorm_0``) and
+    ``CrossTransformer_d`` (``ProjectInOut_{2j}`` / ``_{2j+1}`` beside the
+    cross ``Attention_{2j}`` / ``_{2j+1}`` and their ``PreNorm``s); the
+    heads ``LayerNorm_{0,1}`` + ``Dense_{0,1}``."""
+    from vit_tpu_torch.models import CrossViT
+
+    w = _RefInit(seed)
+    c = _with_defaults(CrossViT, c)
+    dims = {br: c[f"{br}_dim"] for br in ("sm", "lg")}
+    p = {}
+    for i, (br, dim) in enumerate(dims.items()):
+        ps = c[f"{br}_patch_size"]
+        p[f"ImageEmbedder_{i}"] = {"cls": w.tokens(1, 1, dim),
+                                   "pos_embedding": w.tokens(1, (c["image_size"] // ps) ** 2 + 1,
+                                                             dim),
+                                   "Dense_0": w.dense(ps * ps * c["channels"], dim)}
+    heads, dh = c["cross_attn_heads"], c["cross_attn_dim_head"]
+    msa = {}
+    for d in range(c["depth"]):
+        for i, (br, dim) in enumerate(dims.items()):
+            tr = _ref_split_transformer(w, c[f"{br}_enc_depth"], dim, c[f"{br}_enc_heads"],
+                                        c[f"{br}_enc_dim_head"], c[f"{br}_enc_mlp_dim"])
+            tr["LayerNorm_0"] = w.ln(dim, bias=False)
+            msa[f"Transformer_{2 * d + i}"] = tr
+        ct = {}
+        for j in range(c["cross_attn_depth"]):
+            for k, (d_in, d_out) in enumerate(((dims["sm"], dims["lg"]),
+                                               (dims["lg"], dims["sm"]))):
+                ct[f"ProjectInOut_{2 * j + k}"] = {"Dense_0": w.dense(d_in, d_out),
+                                                   "Dense_1": w.dense(d_out, d_in)}
+                ct[f"Attention_{2 * j + k}"] = {
+                    "Dense_0": w.dense(d_out, heads * dh, bias=False),
+                    "Dense_1": w.dense(d_out, 2 * heads * dh, bias=False),
+                    "Dense_2": w.dense(heads * dh, d_out)}
+                ct[f"PreNorm_{2 * j + k}"] = w.prenorm(d_out)
+        msa[f"CrossTransformer_{d}"] = ct
+    p["MultiScaleEncoder_0"] = msa
+    for i, dim in enumerate(dims.values()):
+        p[f"LayerNorm_{i}"] = w.ln(dim, bias=False)
+        p[f"Dense_{i}"] = w.dense(dim, c["num_classes"])
+    return {"params": p}
+
+
+def ref_twins_tree(c: dict, seed: int) -> dict:
+    """A reference ``twins_svt.py`` tree: ``PatchEmbedding_{s}`` and
+    ``PEG_{s}`` a stage, two Transformers a stage whose layers create
+    ``LocalAttention`` / ``MLP`` / ``GlobalAttention`` / ``MLP`` (stage 4
+    no local pair) with their PreNorms in that order; 1x1 convs throughout
+    but GSA's ``k x k`` key / value conv; ``Dense_0`` the head."""
+    from vit_tpu_torch.models import TwinsSVT
+
+    w = _RefInit(seed)
+    c = _with_defaults(TwinsSVT, c)
+    inner, dim_in, peg, p = 8 * 64, 3, c["peg_kernel_size"], {}
+    for s in range(1, 5):
+        dim, ps, k, depth = (c[f"s{s}_{n}"] for n in ("emb_dim", "patch_size", "global_k",
+                                                        "depth"))
+        p[f"PatchEmbedding_{s - 1}"] = {"Conv_0": w.conv(1, dim_in * ps * ps, dim)}
+        p[f"PEG_{s - 1}"] = {"Conv_0": w.conv(peg, 1, dim)}
+        for t in (2 * (s - 1), 2 * (s - 1) + 1):
+            tr, norms = {}, 0
+            for i in range(depth):
+                if s < 4:
+                    tr[f"LocalAttention_{i}"] = {"Conv_0": w.conv(1, dim, inner, bias=False),
+                                                 "Conv_1": w.conv(1, dim, 2 * inner, bias=False),
+                                                 "Conv_2": w.conv(1, inner, dim)}
+                    tr[f"MLP_{2 * i}"] = w.conv_ff(dim, 4 * dim)
+                tr[f"GlobalAttention_{i}"] = {"Conv_0": w.conv(1, dim, inner, bias=False),
+                                              "Conv_1": w.conv(k, dim, 2 * inner, bias=False),
+                                              "Conv_2": w.conv(1, inner, dim)}
+                tr[f"MLP_{2 * i + 1}" if s < 4 else f"MLP_{i}"] = w.conv_ff(dim, 4 * dim)
+                for _ in range(4 if s < 4 else 2):
+                    tr[f"PreNorm_{norms}"] = w.prenorm(dim)
+                    norms += 1
+            p[f"Transformer_{t}"] = tr
+        dim_in = dim
+    p["Dense_0"] = w.dense(dim_in, c["num_classes"])
+    return {"params": p}
+
+
+def ref_nest_tree(c: dict, seed: int) -> dict:
+    """A reference ``nest.py`` tree: ``Conv_0`` the 1x1 patch projection;
+    ``Transformer_i`` a hierarchy (a scalar-per-token ``pos_emb``, channel
+    LayerNorms ``g`` / ``b`` behind bias-free 1x1 conv attention and MLP);
+    ``Aggregate_i`` between hierarchies; ``LayerNorm_0`` + ``Dense_0`` the
+    head."""
+    from vit_tpu_torch.core.utils import cast_tuple
+
+    w = _RefInit(seed)
+    n_h, ps = c["num_hierarchies"], c["patch_size"]
+    side = c["image_size"] // ps // 2 ** (n_h - 1)
+    dims = [2**i * c["dim"] for i in range(n_h)]
+    repeats, mult = cast_tuple(c["block_repeats"], n_h), c.get("mlp_mult", 4)
+    p = {"Conv_0": w.conv(1, ps * ps * 3, dims[0])}
+    for li, dim in enumerate(dims):
+        tr = {"pos_emb": w.tokens(side * side)}
+        for d in range(repeats[li]):
+            tr[f"PreNorm_{2 * d}"] = {"LayerNorm_0": w.channel_ln(dim)}
+            tr[f"PreNorm_{2 * d + 1}"] = {"LayerNorm_0": w.channel_ln(dim)}
+            tr[f"Attention_{d}"] = {"Conv_0": w.conv(1, dim, 3 * dim, bias=False),
+                                    "Conv_1": w.conv(1, dim, dim, bias=False)}
+            tr[f"FeedForward_{d}"] = w.conv_ff(dim, mult * dim, bias=False)
+        p[f"Transformer_{li}"] = tr
+        if li + 1 < n_h:
+            p[f"Aggregate_{li}"] = {"Conv_0": w.conv(3, dim, dims[li + 1]),
+                                    "LayerNorm_0": w.channel_ln(dims[li + 1])}
+    p["LayerNorm_0"] = w.channel_ln(dims[-1])
+    p["Dense_0"] = w.dense(dims[-1], c["num_classes"])
+    return {"params": p}
+
+
+def ref_scalable_vit_tree(c: dict, seed: int) -> dict:
+    """A reference ``scalable_vit.py`` tree: ``Conv_0`` the patchify conv;
+    ``Transformer_s`` a stage (``PEG_0``, per layer ``ScalableSelfAttention_i``,
+    ``InteractiveWindowedSelfAttention_i``, ``MLP_{2i}``, ``MLP_{2i+1}`` and
+    ``PreNorm_{4i..4i+3}``, a final ``LayerNorm_0``); ``Downsample_s``
+    between stages; ``LayerNorm_0`` + ``Dense_0`` the head."""
+    from vit_tpu_torch.core.utils import cast_tuple
+    from vit_tpu_torch.models import ScalableViT
+
+    w = _RefInit(seed)
+    c = _with_defaults(ScalableViT, c)
+    n = len(c["depth"])
+    dims = [2**i * c["dim"] for i in range(n)]
+    per = [cast_tuple(c[k], n) for k in ("heads", "ssa_dim_key", "ssa_dim_value",
+                                         "reduction_factor", "iwsa_dim_key", "iwsa_dim_value")]
+    mult, p = c["ff_expansion_factor"], {"Conv_0": w.conv(7, c["channels"], c["dim"])}
+    for s, dim in enumerate(dims):
+        h, sk, sv, r, ik, iv = (x[s] for x in per)
+        tr = {"PEG_0": {"Conv_0": w.conv(3, 1, dim)}, "LayerNorm_0": w.ln(dim, bias=False)}
+        for i in range(c["depth"][s]):
+            tr[f"ScalableSelfAttention_{i}"] = {
+                "Conv_0": w.conv(1, dim, sk * h, bias=False), "Conv_1": w.conv(r, dim, sk * h, bias=False),
+                "Conv_2": w.conv(r, dim, sv * h, bias=False), "Conv_3": w.conv(1, sv * h, dim)}
+            tr[f"InteractiveWindowedSelfAttention_{i}"] = {
+                "Conv_0": w.conv(3, iv * h, iv * h), "Conv_1": w.conv(1, dim, ik * h, bias=False),
+                "Conv_2": w.conv(1, dim, ik * h, bias=False),
+                "Conv_3": w.conv(1, dim, iv * h, bias=False), "Conv_4": w.conv(1, iv * h, dim)}
+            tr[f"MLP_{2 * i}"] = w.conv_ff(dim, mult * dim)
+            tr[f"MLP_{2 * i + 1}"] = w.conv_ff(dim, mult * dim)
+            for k in range(4):
+                tr[f"PreNorm_{4 * i + k}"] = w.prenorm(dim)
+        p[f"Transformer_{s}"] = tr
+        if s + 1 < n:
+            p[f"Downsample_{s}"] = {"Conv_0": w.conv(3, dim, dims[s + 1])}
+    p["LayerNorm_0"] = w.ln(dims[-1], bias=False)
+    p["Dense_0"] = w.dense(dims[-1], c["num_classes"])
+    return {"params": p}
+
+
+def ref_cvt_tree(c: dict, seed: int) -> dict:
+    """A reference ``cvt.py`` tree (``params`` and ``batch_stats``): per
+    stage ``Conv_{s}`` and the channel ``LayerNorm_{s}``, then
+    ``Transformer_{s}`` (each Attention's ``DepthWiseConv2d_{0,1}`` =
+    depthwise ``Conv_0``, ``BatchNorm_0``, pointwise ``Conv_1``; its 1x1
+    out ``Conv_0``; a 1x1-conv FeedForward; scale-only PreNorms);
+    ``Dense_0`` the head."""
+    from vit_tpu_torch.models import CvT
+    from vit_tpu_torch.models.cvt import STAGES
+
+    w = _RefInit(seed)
+    c = _with_defaults(CvT, c)
+    p, bs, dim_in = {}, {}, 3
+    for s in STAGES:
+        g = lambda k: c[f"s{s}_{k}"]
+        dim, inner, pk = g("emb_dim"), g("heads") * 64, g("proj_kernel")
+        p[f"Conv_{s - 1}"] = w.conv(g("emb_kernel"), dim_in, dim)
+        p[f"LayerNorm_{s - 1}"] = w.channel_ln(dim)
+        tr, tr_bs = {}, {}
+        for i in range(g("depth")):
+            attn, attn_bs = {}, {}
+            for j, out in enumerate((inner, 2 * inner)):
+                attn_bs[f"DepthWiseConv2d_{j}"] = {"BatchNorm_0": {}}
+                attn[f"DepthWiseConv2d_{j}"] = {
+                    "Conv_0": w.conv(pk, 1, dim, bias=False),
+                    "BatchNorm_0": w.bn(dim, attn_bs[f"DepthWiseConv2d_{j}"]["BatchNorm_0"]),
+                    "Conv_1": w.conv(1, dim, out, bias=False)}
+            attn["Conv_0"] = w.conv(1, inner, dim, bias=False)
+            tr[f"Attention_{i}"], tr_bs[f"Attention_{i}"] = attn, attn_bs
+            tr[f"PreNorm_{2 * i}"], tr[f"PreNorm_{2 * i + 1}"] = w.prenorm(dim), w.prenorm(dim)
+            tr[f"FeedForward_{i}"] = w.conv_ff(dim, g("mlp_mult") * dim, bias=False)
+        p[f"Transformer_{s - 1}"], bs[f"Transformer_{s - 1}"] = tr, tr_bs
+        dim_in = dim
+    p["Dense_0"] = w.dense(dim_in, c["num_classes"])
+    return {"params": p, "batch_stats": bs}
+
+
+def ref_levit_tree(c: dict, seed: int) -> dict:
+    """A reference ``levit.py`` tree (``params`` and ``batch_stats``): the
+    stem's ``Conv_0..3``; ``Transformer_t`` alternating a stage's layers and
+    a downsampling layer (each Attention's ``Embed_0`` position table over
+    the key map, 1x1 ``Conv_0..3`` q / k / v / out with ``BatchNorm_0..3``;
+    a 1x1-conv ``MLP``); ``Dense_0`` the head (``Dense_1`` with a
+    distillation head, ``Dense_0`` then distilling)."""
+    import math
+
+    from vit_tpu_torch.core.utils import cast_tuple
+    from vit_tpu_torch.models import LeViT
+    from vit_tpu_torch.models.levit import STEM
+
+    w = _RefInit(seed)
+    c = _with_defaults(LeViT, c)
+    n = c["stages"]
+    dims, depths, heads = (cast_tuple(c[k], n) for k in ("dim", "depth", "heads"))
+    dk, dv = c["dim_key"], c["dim_value"]
+    widths = (3, *STEM, dims[0])
+    p = {f"Conv_{i}": w.conv(3, widths[i], widths[i + 1]) for i in range(4)}
+    bs = {}
+
+    def layer(tr, tr_bs, d, dim, h, fmap, dim_out):
+        attn, st = {"Embed_0": {"embedding": w.uniform((fmap * fmap, h), h**-0.5)}}, {}
+        for j, (c_in, feat) in enumerate(((dim, h * dk), (dim, h * dk), (dim, h * dv),
+                                          (h * dv, dim_out))):
+            attn[f"Conv_{j}"] = w.conv(1, c_in, feat, bias=j == 3)
+            st[f"BatchNorm_{j}"] = {}
+            attn[f"BatchNorm_{j}"] = w.bn(feat, st[f"BatchNorm_{j}"])
+        tr[f"Attention_{d}"], tr_bs[f"Attention_{d}"] = attn, st
+        tr[f"MLP_{d}"] = w.conv_ff(dim_out, c["mlp_mult"] * dim_out)
+
+    fmap, t = c["image_size"] // 16, 0
+    for s in range(n):
+        p[f"Transformer_{t}"], bs[f"Transformer_{t}"] = {}, {}
+        for d in range(depths[s]):
+            layer(p[f"Transformer_{t}"], bs[f"Transformer_{t}"], d, dims[s], heads[s], fmap,
+                  dims[s])
+        t += 1
+        if s + 1 < n:
+            p[f"Transformer_{t}"], bs[f"Transformer_{t}"] = {}, {}
+            layer(p[f"Transformer_{t}"], bs[f"Transformer_{t}"], 0, dims[s], 2 * heads[s], fmap,
+                  dims[s + 1])
+            fmap, t = math.ceil(fmap / 2), t + 1
+    if c["num_distill_classes"] is not None:
+        p["Dense_0"] = w.dense(dims[-1], c["num_distill_classes"])
+        p["Dense_1"] = w.dense(dims[-1], c["num_classes"])
+    else:
+        p["Dense_0"] = w.dense(dims[-1], c["num_classes"])
+    return {"params": p, "batch_stats": bs}
+
+
+def ref_crossformer_tree(c: dict, seed: int) -> dict:
+    """A reference ``crossformer.py`` tree: per stage ``CrossEmbedLayer_s``
+    (one conv a scale, the channels halved from scale to scale) and
+    ``Transformer_s`` (``Attention_{2i}`` short- and ``Attention_{2i+1}``
+    long-distance, each a channel ``LayerNorm_0``, 1x1 ``Conv_0`` qkv and
+    ``Conv_1`` out, and a ``DynamicPositionBias_0`` of one output;
+    ``MLP_{2i}``, ``MLP_{2i+1}``); ``Dense_0`` the head."""
+    from vit_tpu_torch.models import CrossFormer
+
+    w = _RefInit(seed)
+    c = _with_defaults(CrossFormer, c)
+    p, dim_in = {}, 3
+    for s, (dim, depth) in enumerate(zip(c["dim"], c["depth"])):
+        kernels = sorted(c["cross_embed_kernel_sizes"][s])
+        widths = [dim // 2 ** (i + 1) for i in range(len(kernels))]
+        widths[-1] = dim - sum(widths[:-1])
+        p[f"CrossEmbedLayer_{s}"] = {f"Conv_{i}": w.conv(k, dim_in, d)
+                                     for i, (k, d) in enumerate(zip(kernels, widths))}
+        h4, tr = dim // 4, {}
+        for i in range(2 * depth):
+            dpb = {f"Dense_{j}": w.dense(a, b)
+                   for j, (a, b) in enumerate(((2, h4), (h4, h4), (h4, h4), (h4, 1)))}
+            dpb.update({f"LayerNorm_{j}": w.ln(h4, bias=False) for j in range(3)})
+            tr[f"Attention_{i}"] = {"LayerNorm_0": w.channel_ln(dim),
+                                    "Conv_0": w.conv(1, dim, 3 * dim, bias=False),
+                                    "Conv_1": w.conv(1, dim, dim), "DynamicPositionBias_0": dpb}
+            tr[f"MLP_{i}"] = {"LayerNorm_0": w.channel_ln(dim), **w.conv_ff(dim, 4 * dim)}
+        p[f"Transformer_{s}"] = tr
+        dim_in = dim
+    p["Dense_0"] = w.dense(dim_in, c["num_classes"])
+    return {"params": p}
+
+
+def ref_region_vit_tree(c: dict, seed: int) -> dict:
+    """A reference ``region_vit_flax.py`` tree: ``Conv_0`` the local 8x8
+    tokenizer, ``Conv_1`` the region 1x1 projection of the local map's
+    space-to-depth, ``Downsample_{s-1}`` the downsample a stage shares,
+    ``R2LTransformer_s`` (``Embed_0`` the rel-pos table, ``Attention_i`` and
+    ``MLP_i`` with bias-free LayerNorms), ``LayerNorm_0`` + ``Dense_0`` the
+    head."""
+    from vit_tpu_torch.models import RegionViT
+    from vit_tpu_torch.models.region_vit import DIM_HEAD, HEADS
+
+    w = _RefInit(seed)
+    c = _with_defaults(RegionViT, c)
+    dims, d0 = c["dim"], c["dim"][0]
+    region = c["local_patch_size"] * c["window_size"]
+    span = 2 * c["window_size"] - 1
+    p = {"Conv_0": w.conv(8, 3, d0), "Conv_1": w.conv(1, d0 * region * region, d0)}
+    for s, (dim, depth) in enumerate(zip(dims, c["depth"])):
+        if s > 0:
+            p[f"Downsample_{s - 1}"] = {"Conv_0": w.conv(3, dims[s - 1], dim)}
+        tr = {"Embed_0": {"embedding": w.uniform((span * span, HEADS), HEADS**-0.5)}}
+        for i in range(depth):
+            tr[f"Attention_{i}"] = {"LayerNorm_0": w.ln(dim, bias=False),
+                                    "Dense_0": w.dense(dim, 3 * HEADS * DIM_HEAD, bias=False),
+                                    "Dense_1": w.dense(HEADS * DIM_HEAD, dim)}
+            tr[f"MLP_{i}"] = {"LayerNorm_0": w.ln(dim, bias=False), **w.ff(dim, 4 * dim)}
+        p[f"R2LTransformer_{s}"] = tr
+    p["LayerNorm_0"] = w.ln(dims[-1], bias=False)
+    p["Dense_0"] = w.dense(dims[-1], c["num_classes"])
+    return {"params": p}
+
+
+# family -> (REFERENCE_PRESETS' name, the reference tree's builder, the flags
+# the importer needs on the model); PiT's importer takes one stage only (the
+# reference's Pool never runs), so its config is cut to the first stage
+REF_FAMILIES = {
+    "vit": ("vit", ref_vit_tree, {}),
+    "deepvit": ("deepvit", ref_deepvit_tree, {}),
+    "simple_vit": ("simple_vit", ref_simple_vit_tree, {}),
+    "lsa": ("vit_small_datasets", ref_lsa_tree, {}),
+    "parallel_vit": ("parallel_vit", ref_parallel_vit_tree, {}),
+    "patch_merger": ("patch_merger_vit", ref_patch_merger_tree, {}),
+    "cait": ("cait", ref_cait_tree, {}),
+    "t2t": ("t2t", ref_t2t_tree, {}),
+    "pit": ("pit", ref_pit_tree, {}),
+    "cross_vit": ("cross_vit", ref_cross_vit_tree, {}),
+    "twins": ("twins_svt", ref_twins_tree, {}),
+    "nest": ("nest", ref_nest_tree, {}),
+    "scalable_vit": ("scalable_vit", ref_scalable_vit_tree, {"reference_block_order": True}),
+    "cvt": ("cvt", ref_cvt_tree, {}),
+    "levit": ("levit", ref_levit_tree, {}),
+    "crossformer": ("crossformer", ref_crossformer_tree, {"reference_quirks": True}),
+    "region_vit": ("region_vit", ref_region_vit_tree, {"reference_quirks": True}),
+}
+# the families whose importer takes ``scan``
+REF_SCAN = ("vit", "deepvit", "simple_vit", "lsa")
+
+
+def ref_config(fam: str, cfg: dict) -> dict:
+    """``cfg`` (a family's keyword arguments) with the flags its importer
+    needs; PiT cut to its first stage."""
+    cfg = {**cfg, **REF_FAMILIES[fam][2]}
+    if fam == "pit":
+        cfg["depth"] = tuple(cfg["depth"])[:1]
+    return cfg
+
+
+def reference_import(importer, fam: str, tree: dict, c: dict, scan: bool = True) -> dict:
+    """``importer``'s ``import_reference_{fam}_params`` of ``tree``, a
+    reference tree of family ``fam`` at config ``c`` (``ref_config``'s), with
+    the arguments the config gives. ``importer``: a module holding the 17
+    functions (``vit_tpu_torch.utils.importer``; ``vit_tpu``'s in the CPU
+    tests)."""
+    from vit_tpu_torch.core.utils import cast_tuple
+
+    f = getattr(importer, f"import_reference_{fam}_params")
+    if fam in REF_SCAN:
+        kw = {"dim_head": c.get("dim_head", 64)} if fam == "lsa" else {}
+        return f(tree, c["depth"], scan=scan, **kw)
+    if fam == "parallel_vit":
+        return f(tree, c["depth"], c.get("num_parallel_branches", 2))
+    if fam == "patch_merger":
+        return f(tree, c["depth"], c.get("patch_merge_layer", c["depth"] // 2),
+                 c.get("patch_merge_num_tokens", 8))
+    if fam == "cait":
+        return f(tree, c["depth"], c["cls_depth"])
+    if fam == "t2t":
+        return f(tree, c["depth"], len(c.get("t2t_layers", ((7, 4), (3, 2), (3, 2)))))
+    if fam == "pit":
+        return f(tree, c["depth"][0])
+    if fam == "cross_vit":
+        return f(tree, depth=c["depth"], sm_enc_depth=c["sm_enc_depth"],
+                 lg_enc_depth=c["lg_enc_depth"], cross_attn_depth=c["cross_attn_depth"])
+    if fam == "twins":
+        from vit_tpu_torch.models import TwinsSVT
+
+        c = _with_defaults(TwinsSVT, c)
+        return f(tree, depths=tuple(c[f"s{s}_depth"] for s in range(1, 5)))
+    if fam == "nest":
+        n_h = c["num_hierarchies"]
+        side = c["image_size"] // c["patch_size"] // 2 ** (n_h - 1)
+        return f(tree, n_h, cast_tuple(c["block_repeats"], n_h), (side,) * n_h)
+    if fam == "cvt":
+        from vit_tpu_torch.models import CvT
+
+        c = _with_defaults(CvT, c)
+        return f(tree, depths=tuple(c[f"s{s}_depth"] for s in range(1, 4)))
+    if fam == "levit":
+        n = c["stages"]
+        return f(tree, n, cast_tuple(c["depth"], n), c.get("dim_key", 32))
+    return f(tree, depths=tuple(c["depth"]))  # scalable_vit, crossformer, region_vit
+
 
 
 def phase_kernels(dev):
@@ -8188,6 +8849,146 @@ def phase_train_window_moe(dev, smi):
     return worst
 
 
+# -- reference checkpoints imported and served ----------------------------------
+
+
+IMPORT_SEED = SEED + 130
+IMPORT_BATCH = 8
+# Each kernel's launches a forward of each imported preset: the presets'
+# FAMILY_LAUNCHES (the ViT preset's 6 fused layers; PiT cut to its first
+# stage, 3), none of any other kernel.
+IMPORT_LAUNCHES = {
+    "vit": {"attention_block": 6, "fused_mlp": 6},
+    "deepvit": FAMILY_LAUNCHES["deepvit"], "simple_vit": FAMILY_LAUNCHES["simple_vit"],
+    "lsa": FAMILY_LAUNCHES["vit_small_datasets"], "parallel_vit": FAMILY_LAUNCHES["parallel_vit"],
+    "patch_merger": FAMILY_LAUNCHES["patch_merger_vit"], "cait": FAMILY_LAUNCHES["cait"],
+    "t2t": FAMILY_LAUNCHES["t2t"], "pit": {"attention_block": 3, "fused_mlp": 3},
+    "cross_vit": FAMILY_LAUNCHES["cross_vit"], "twins": FAMILY_LAUNCHES["twins"],
+    "nest": FAMILY_LAUNCHES["nest"], "scalable_vit": FAMILY_LAUNCHES["scalable_vit"],
+    "cvt": FAMILY_LAUNCHES["cvt"], "levit": FAMILY_LAUNCHES["levit"],
+    "crossformer": FAMILY_LAUNCHES["crossformer"], "region_vit": FAMILY_LAUNCHES["region_vit"],
+}
+# ViT-L/16 imported at 224 and served at 384 (a 24 x 24 grid, 577 tokens)
+# through kernels 1 and 2 after adapt_vit_resolution(method="cubic")
+IMPORT_ADAPT_SIZE, IMPORT_ADAPT_METHOD = 384, "cubic"
+
+
+def imported_models(fam, tree, cfg, dev):
+    """``tree`` (a reference tree) through the port's importer, loaded into
+    the family's model twice: bf16 for the kernels (CvT and LeViT with their
+    BatchNorms folded, ``fold_batch_norm``, as served) and fp32 unfolded for
+    the plain path."""
+    from vit_tpu_torch.models.presets import REFERENCE_PRESETS
+    from vit_tpu_torch.utils import fold_batch_norm, from_jax_params
+    from vit_tpu_torch.utils import importer
+
+    ctor = REFERENCE_PRESETS[REF_FAMILIES[fam][0]][0]
+    imported = reference_import(importer, fam, tree, cfg)
+    models = {}
+    for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        fold = config == "bf16" and "batch_stats" in imported
+        model = ctor(**cfg, **({"fold_bn": True} if fold else {}), dtype=dtype,
+                     device=dev).eval()
+        model.load_state_dict(from_jax_params(fold_batch_norm(imported) if fold else imported,
+                                              model.jax_stages), strict=True)
+        models[config] = model
+    return models
+
+
+def import_line(what, models, x32, x16, want, bound_of, smi):
+    """The imported model's kernel path (bf16) against its plain fp32 path
+    on one batch: the launch counts of that forward (exactly ``want``, zero
+    for every other kernel), the logit error within ``bound_of(control)``
+    (control: the plain bf16 path against plain fp32), the forward's ms."""
+    from vit_tpu_torch import ops
+
+    with torch.inference_mode():
+        with ops.force_backend("torch"):
+            ref = models["fp32"](x32).float()
+            plain = models["bf16"](x16).float()
+        ops.reset_launch_counts()
+        out = models["bf16"](x16).float()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms = cuda_ms(lambda: models["bf16"](x16), iters=5, warmup=1)
+    err = (out - ref).abs().max().item()
+    control = (plain - ref).abs().max().item()
+    bound = bound_of(control)
+    launched = {k: n for k, n in counts.items() if n}
+    print(f"import {what}: batch {x16.shape[0]} bf16 kernels vs plain fp32 max|dlogit| {err:.6g}, "
+          f"bound {bound:.6g} (control {control:.6g}; max|logit| {ref.abs().max().item():.4g}); "
+          f"{ms:.3f} ms a forward; launches {launched} [{smi}]")
+    require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+            f"import {what}: logits {tuple(out.shape)} not finite or not {tuple(ref.shape)}")
+    require(launched == {k: n for k, n in want.items() if n},
+            f"import {what}: launches {launched}, want {want}")
+    require(err <= bound, f"import {what}: {err} > bound {bound}")
+    return ms, counts
+
+
+def phase_import(dev, smi, requests):
+    """Phase 26: each of the 17 families' reference-layout tree
+    (``ref_<family>_tree``, at its REFERENCE_PRESETS widths and the flags
+    its importer needs, ``ref_config``) through the port's
+    ``import_reference_*_params``, loaded with ``from_jax_params`` and served
+    a batch of IMPORT_BATCH in bf16 through the kernels, held to its plain
+    fp32 path within HM_E2E_RATIO x control (the zoo phases' bound) with the
+    launches of IMPORT_LAUNCHES; then ViT-L/16 imported at 224, adapted to
+    IMPORT_ADAPT_SIZE by ``adapt_vit_resolution(method="cubic")`` and served
+    through kernels 1 and 2 within E2E_TOL (phase 4's bound). Returns the
+    launches by kernel over the phase's served forwards."""
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.models.presets import REFERENCE_PRESETS
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils import adapt_vit_resolution, from_jax_params
+    from vit_tpu_torch.utils import importer
+
+    t_phase = time.perf_counter()
+    raw = torch.from_numpy(np.stack(requests[:IMPORT_BATCH])).to(dev)
+    total = collections.Counter()  # over the counted forwards
+    for i, (fam, (preset, builder, _)) in enumerate(REF_FAMILIES.items()):
+        t0 = time.perf_counter()
+        cfg, size = ref_config(fam, REFERENCE_PRESETS[preset][1]), REFERENCE_PRESETS[preset][2]
+        models = imported_models(fam, builder(cfg, IMPORT_SEED + i), cfg, dev)
+        t_load = time.perf_counter() - t0
+        x32 = preprocess(raw, image_size=size, dtype=torch.float32)
+        x16 = preprocess(raw, image_size=size, dtype=torch.bfloat16)
+        _, counts = import_line(f"{fam} ({preset} preset, {size} px; drawn, imported and loaded "
+                                f"in {t_load:.2f} s)", models, x32, x16, IMPORT_LAUNCHES[fam],
+                                lambda control: HM_E2E_RATIO * control, smi)
+        total.update({k: n for k, n in counts.items() if n})
+        del models
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    state = from_jax_params(reference_import(importer, "vit", ref_vit_tree(VIT_L, IMPORT_SEED),
+                                             VIT_L))
+    side = IMPORT_ADAPT_SIZE // VIT_L["patch_size"]
+    state = adapt_vit_resolution(state, IMPORT_ADAPT_SIZE, VIT_L["patch_size"],
+                                 method=IMPORT_ADAPT_METHOD)
+    require(tuple(state["pos_embedding"].shape) == (1, side * side + 1, VIT_L["dim"]),
+            f"adapted pos_embedding {tuple(state['pos_embedding'].shape)}")
+    models = {}
+    for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        models[config] = ViT(**{**VIT_L, "image_size": IMPORT_ADAPT_SIZE}, dtype=dtype,
+                             device=dev).eval()
+        models[config].load_state_dict(state, strict=True)
+    t_load = time.perf_counter() - t0
+    x32 = preprocess(raw, image_size=IMPORT_ADAPT_SIZE, dtype=torch.float32)
+    x16 = preprocess(raw, image_size=IMPORT_ADAPT_SIZE, dtype=torch.bfloat16)
+    depth = VIT_L["depth"]
+    _, counts = import_line(f"ViT-L/16 at 224 adapted to {IMPORT_ADAPT_SIZE} px "
+                            f"({IMPORT_ADAPT_METHOD}, {side * side + 1} tokens; drawn, imported, "
+                            f"adapted and loaded in {t_load:.2f} s)", models, x32, x16,
+                            {"attention_block": depth, "fused_mlp": depth},
+                            lambda control: E2E_TOL["bf16"], smi)
+    total.update({k: n for k, n in counts.items() if n})
+    del models, state
+    torch.cuda.empty_cache()
+    print(f"phase 26 (reference imports) took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -8365,6 +9166,12 @@ def main() -> int:
     # CrossFormer's position-bias MLPs, LSA's learned temperature, expert dropout
     for k, err in phase_train_window_moe(dev, smi).items():
         grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
+
+    # 26. reference checkpoints: each family's vit-flax tree through the port's
+    # importer, served through the kernels; ViT-L/16 adapted to 384 px by cubic
+    # resampling of its position table
+    imported = phase_import(dev, smi, requests)
+    print(f"reference imports' launches over their 18 forwards: {json.dumps(imported)}")
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "

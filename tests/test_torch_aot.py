@@ -57,7 +57,7 @@ def _jax_vit(cfg):
     from vit_tpu.models import ViT as JaxViT
 
     model = JaxViT(**cfg)
-    variables = model.init({"params": jax.random.PRNGKey(0)}, jnp.ones((1, 32, 32, 3)))
+    variables = jax.jit(model.init)({"params": jax.random.PRNGKey(0)}, jnp.ones((1, 32, 32, 3)))
     return model, variables
 
 

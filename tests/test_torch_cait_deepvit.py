@@ -80,7 +80,8 @@ def _jax_vars(jax_model, img, seed=1):
     import jax
     import jax.numpy as jnp
 
-    return _perturbed(jax_model.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(img)), seed)
+    return _perturbed(jax.jit(jax_model.init)({"params": jax.random.PRNGKey(seed)},
+                                               jnp.asarray(img)), seed)
 
 
 def _logits_err(family, dtype, mode, monkeypatch, **kw):

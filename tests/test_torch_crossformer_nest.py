@@ -174,7 +174,7 @@ def _module_pair(jmod, tmod, x, dtype, seed):
 
     jd = getattr(jnp, dtype)
     xj = jnp.asarray(x).astype(jd)
-    tree = _perturbed(jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0), xj)), seed)
+    tree = _perturbed(jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.PRNGKey(0), xj)), seed)
     ref = _flax_apply(jmod, tree, xj, dtype)
     tmod.load_state_dict(from_jax_params(tree, {}), strict=True)
     with torch.inference_mode():

@@ -216,7 +216,7 @@ def _module_tree(jmod, x, seed):
     exp(normal(0, 0.3))), with dead channels."""
     import jax
 
-    tree = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0), x))
+    tree = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.PRNGKey(0), x))
     tree = _perturbed({k: dict(v) for k, v in tree.items()}, seed)
     if "batch_stats" in tree:
         rng = np.random.default_rng(seed)

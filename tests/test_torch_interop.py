@@ -79,7 +79,7 @@ def _vit_pair(config, depth=2, **extra):
     dt, rd = CONFIGS[config]
     cfg = dict(CFG, depth=depth, **extra)
     jm = JaxViT(**cfg, dtype=_dt(dt, jnp), residual_dtype=_dt(rd, jnp))
-    v = _perturbed(jm.init({"params": jax.random.PRNGKey(1)}, jnp.asarray(_images(1))))
+    v = _perturbed(jax.jit(jm.init)({"params": jax.random.PRNGKey(1)}, jnp.asarray(_images(1))))
     tm = ViT(**cfg, dtype=_dt(dt, torch), residual_dtype=_dt(rd, torch), device="cpu")
     tm.load_state_dict(from_jax_params(v, tm.jax_stages), strict=True)
     return jm, v, tm.eval()

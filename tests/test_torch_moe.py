@@ -78,7 +78,7 @@ def _jax_moe(routing, dtype):
                  dtype=jd)
     x = np.random.default_rng(7).standard_normal((B, S, D)).astype(np.float32)
     xj = jnp.asarray(x, jd or jnp.float32)
-    variables = _perturbed(jax.tree.map(np.asarray, mod.init(jax.random.PRNGKey(1), xj)), 8)
+    variables = _perturbed(jax.tree.map(np.asarray, jax.jit(mod.init)(jax.random.PRNGKey(1), xj)), 8)
     return mod, variables, x
 
 

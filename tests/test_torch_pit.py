@@ -108,7 +108,7 @@ def test_depthwise_conv_and_pool_match_flax(module, dtype):
         jmod = jconv.DepthWiseConv2d(8, 12, kernel_size=3, stride=2, dtype=jd)
         tmod = DepthWiseConv2d(8, 12, 3, 2, dtype=td, device="cpu")
     xj = jnp.asarray(x, jd or jnp.float32)
-    variables = _perturbed(jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0), xj)), 6)
+    variables = _perturbed(jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.PRNGKey(0), xj)), 6)
     ref = np.asarray(jmod.apply(variables, xj), np.float32)
     tmod.load_state_dict(from_jax_params(variables, {}), strict=True)
     with torch.inference_mode():

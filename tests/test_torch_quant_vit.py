@@ -45,7 +45,7 @@ def _jax_pair(dtype):
     from vit_tpu.models import ViT as JaxViT
 
     jm = JaxViT(**CFG, dtype=getattr(jnp, dtype) if dtype else None)
-    v = jm.init({"params": jax.random.PRNGKey(1)}, jnp.asarray(_images(1)))
+    v = jax.jit(jm.init)({"params": jax.random.PRNGKey(1)}, jnp.asarray(_images(1)))
     rng = np.random.default_rng(1)
     v = jax.tree.map(
         lambda a: np.asarray(a, np.float32) + 0.02 * rng.standard_normal(a.shape).astype(np.float32), v

@@ -61,7 +61,8 @@ def _pair(jax_cls, torch_cls, cfg, img, dtype=None, seed=1):
     import jax.numpy as jnp
 
     jm = jax_cls(**cfg, dtype=getattr(jnp, dtype) if dtype else None)
-    v = _perturbed(jm.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(img)), seed)
+    v = _perturbed(jax.jit(jm.init)({"params": jax.random.PRNGKey(seed)}, jnp.asarray(img)),
+                   seed)
     tm = torch_cls(**cfg, dtype=getattr(torch, dtype) if dtype else None, device="cpu")
     tm.load_state_dict(from_jax_params(v, tm.jax_stages), strict=True)
     return jm, v, tm.eval()

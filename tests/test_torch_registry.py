@@ -184,16 +184,17 @@ def test_interpolate_pos_embedding_matches_jax(grids):
 
     old, new = grids
     pos = np.random.default_rng(3).standard_normal((1, 1 + old[0] * old[1], 24)).astype(np.float32)
-    ref = np.asarray(jax_interpolate(jnp.asarray(pos), new))
-    out = interpolate_pos_embedding(torch.from_numpy(pos), new).numpy()
-    assert out.shape == ref.shape == (1, 1 + new[0] * new[1], 24)
-    if old == new:
-        np.testing.assert_array_equal(out, ref)
-        np.testing.assert_array_equal(out, pos)
-    else:
-        np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="linear"):
-        interpolate_pos_embedding(torch.from_numpy(pos), new, method="cubic")
+    for method in ("bilinear", "cubic"):  # cubic: Keys' kernel, a = -0.5, as jax.image's
+        ref = np.asarray(jax_interpolate(jnp.asarray(pos), new, method=method))
+        out = interpolate_pos_embedding(torch.from_numpy(pos), new, method=method).numpy()
+        assert out.shape == ref.shape == (1, 1 + new[0] * new[1], 24)
+        if old == new:
+            np.testing.assert_array_equal(out, ref)
+            np.testing.assert_array_equal(out, pos)
+        else:
+            np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="Unknown resize method"):
+        interpolate_pos_embedding(torch.from_numpy(pos), new, method="bicubic_torch")
 
 
 def test_adapt_vit_resolution_matches_jax():

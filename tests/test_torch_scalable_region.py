@@ -206,7 +206,7 @@ def _module_pair(jmod, tmod, x, dtype, seed, modes=("xla",)):
     import jax.numpy as jnp
 
     xj = jnp.asarray(x).astype(getattr(jnp, dtype))
-    tree = _perturbed(jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0), xj)), seed)
+    tree = _perturbed(jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.PRNGKey(0), xj)), seed)
     refs = {mode: _flax_apply(jmod, tree, xj, dtype, mode) for mode in modes}
     tmod.load_state_dict(from_jax_params(tree, {}), strict=True)
     with torch.inference_mode():

@@ -63,13 +63,14 @@ def test_loss_and_grads_match_jax(model, precision, mode, route, monkeypatch):
 # -- LSA's learned temperature ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dim_head", [8, 16, 32, 48, 64, 80, 96, 128])
+@pytest.mark.parametrize("dim_head", [8, 16, 32, 48, 64, 80, 96, 128, 21, 29, 43, 133])
 def test_log_temperature_init_is_vit_tpus_bit_for_bit(dim_head):
     """``log_temperature`` at construction and from ``init_params`` equals
     vit_tpu's ``jnp.full((), jnp.log(dim_head**-0.5), jnp.float32)`` bit for
-    bit at the head widths of the presets and tiny configs and the others
-    that are multiples of 16. (The float64 log rounded to fp32, the
-    constructor's value before, is one ulp off at widths 2, 6, 7, 21, ...)"""
+    bit at the head widths of the presets and tiny configs, the others
+    that are multiples of 16, and widths where other logs miss it: the
+    float64 log rounded to fp32 is one ulp off at 21, a correctly rounded
+    fp32 log at 29, 43 and 133."""
     import jax.numpy as jnp
 
     from vit_tpu_torch.nn.attention import Attention

@@ -4,10 +4,9 @@ and value widths in ``reference_block_order``, CrossFormer also with
 ``reference_quirks``' shared bias and a stage of 1-token windows), an IWSA
 window past 1,024 tokens against ``jax.vjp``, kernel 5's Function on strided
 views of fused rows and kernel 6's with CrossFormer's biases, with
-chip_smoke's planted faults, the position-bias MLPs cut out of the graph,
-AdamW steps against ``vit_tpu.train.make_train_step``, dropout with planted
-keep masks, ``init_params`` against flax's ``init``, and the trainer and its
-CLI.
+chip_smoke's planted faults, and the position-bias MLPs cut out of the
+graph. AdamW steps, dropout, ``init_params`` and the trainer are in
+``tests/test_torch_train_windows_steps.py``.
 
 The helpers are ``tests/test_torch_train_branches.py``'s (``SPECS``). The
 card tests carry the ``cuda`` marker: ``python -m pytest --noconftest -m
@@ -25,11 +24,7 @@ from test_torch_train_branches import (
     FP32_TOL,
     _rel,
     card_step_fills_every_gradient,
-    check_adamw_steps,
-    check_dropout,
-    check_init_params,
     check_loss_and_grads,
-    check_trainer_and_cli,
     images,
     jax_loss_and_grads,
     model_cases,
@@ -210,64 +205,6 @@ def test_detached_dpb_fails_the_bound(model, monkeypatch):
         p.grad is None or _rel(p.grad, ref[k]) > FP32_TOL)]
     assert len(over) >= 4, over
     assert abs(loss.item() - jloss) <= FP32_TOL
-
-
-# -- AdamW, dropout, init, the trainer ------------------------------------------------------
-
-
-def _one_token_zeros(tm):
-    """The values of the tiny CrossFormer whose gradient is zero by
-    construction: stage 1's LDA attends 1-token windows, where the softmax's
-    Jacobian is zero, so the q and k columns of its ``qkv_kernel`` and its
-    position-bias MLP get none (8,866 of 352,214 values)."""
-    lda = tm.stage_1[0].lda
-    return 2 * lda.qkv_kernel.shape[1] // 3 * lda.qkv_kernel.shape[0] + sum(
-        p.numel() for p in lda.dpb.parameters())
-
-
-@pytest.mark.parametrize("model", FAMILIES)
-def test_adamw_steps_match_jax(model):
-    """Two AdamW updates against vit_tpu's (test_torch_train_branches'
-    rule; CrossFormer's values with a gradient zero by construction left out
-    of KEPT_SHARE's count: with them 96.97% of its values kept their
-    gradient above ADAM_TAU in the first update, without them 99.48%)."""
-    check_adamw_steps(model, _one_token_zeros if model == "crossformer" else None)
-
-
-@pytest.mark.parametrize("model", FAMILIES + ("scalable_vit split",))
-def test_dropout_with_planted_masks_matches_jax(model, monkeypatch):
-    """ScalableViT at dropout 0.25 (each SSA's and IWSA's ``drop`` after
-    ``to_out``, their attention still on the kernels' route; each ConvMLP's
-    ``drop1`` and ``drop2`` on the plain path; stage 1's scanned blocks in
-    vit_tpu's order; "split": ff2 before IWSA) and CrossFormer at
-    attn_dropout and ff_dropout 0.25 (``drop`` after each attention's
-    inverse partition, kernel 6 still running; each ConvMLP's two): one
-    queue of planted masks, the same draws, loss and gradients within
-    1e-5."""
-    check_dropout(model, monkeypatch)
-
-
-@pytest.mark.parametrize("model", FAMILIES)
-def test_init_params_matches_flax_init(model):
-    check_init_params(model)
-
-
-@pytest.mark.parametrize("name", FAMILIES)
-def test_trainer_and_cli_take_the_family(name, tmp_path, capsys):
-    check_trainer_and_cli(name, tmp_path, capsys)
-
-
-def test_constructors_take_their_dropout():
-    """ScalableViT's ``dropout`` reaches every SSA, IWSA and ConvMLP;
-    CrossFormer's ``attn_dropout`` every SDA and LDA, its ``ff_dropout``
-    every ConvMLP (0 by default, as vit_tpu's)."""
-    rates = lambda tm: {(type(m).__name__, m.dropout) for m in tm.modules()
-                        if type(m).__name__ in ("_SSA", "_IWSA", "_LSDAttention", "ConvMLP")}
-    assert rates(port("scalable_vit", dropout=0.3)) == {("_SSA", 0.3), ("_IWSA", 0.3),
-                                                        ("ConvMLP", 0.3)}
-    assert rates(port("crossformer", attn_dropout=0.2, ff_dropout=0.3)) == {
-        ("_LSDAttention", 0.2), ("ConvMLP", 0.3)}
-    assert rates(port("crossformer")) == {("_LSDAttention", 0.0), ("ConvMLP", 0.0)}
 
 
 # -- on the card ------------------------------------------------------------------------------

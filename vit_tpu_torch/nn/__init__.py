@@ -26,6 +26,7 @@ from vit_tpu_torch.nn.embed import (  # noqa: F401
     LayerNorm,
     PatchEmbed,
     PatchMerger,
+    ProjectInOut,
     mean_tokens,
 )
 from vit_tpu_torch.nn.identity import Identity  # noqa: F401

@@ -91,6 +91,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch import ops
+from vit_tpu_torch.core.xla_math import lsa_log_temperature
 from vit_tpu_torch.nn.embed import Dense, LayerNorm, mm_rounded
 from vit_tpu_torch.ops.block_attention import (
     _ln_f32, _mm, _softmax, gemm_sm90, gemm_sm90_op, reference_gemm,
@@ -153,13 +154,11 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 
 
 def log_temperature_init(dim_head: int, device="cpu") -> torch.Tensor:
-    """LSA's ``log_temperature`` at init, ``vit_tpu``'s
-    ``jnp.log(dim_head**-0.5)`` in fp32 (vit_tpu/nn/attention.py:181-184):
-    the scale rounded to fp32, then its fp32 log (correctly rounded, as
-    ``torch.log`` gives it). XLA's CPU log equals it at every power-of-two
-    width and at all but about 2.5% of the widths up to 4,096 (one ulp
-    apart at 29, 43, 133, ...)."""
-    return torch.log(torch.tensor(dim_head**-0.5, dtype=torch.float32)).to(device)
+    """LSA's ``log_temperature`` at init, ``vit_tpu``'s fp32
+    ``jnp.log(dim_head**-0.5)`` (vit_tpu/nn/attention.py:181-184) as its
+    unjitted ``init`` takes it on XLA's CPU, bit for bit at every width:
+    ``core.xla_math.lsa_log_temperature``, which the importer uses too."""
+    return torch.tensor(lsa_log_temperature(dim_head), dtype=torch.float32, device=device)
 
 
 def _einsum(eq, a, b, dtype=torch.float32):

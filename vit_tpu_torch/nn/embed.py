@@ -242,3 +242,20 @@ class PatchMerger(nn.Module):
         attn = torch.einsum("qd,bnd->bqn", q.float(), xn.float()).to(dt)
         p = _softmax(attn)
         return torch.einsum("bqn,bnd->bqd", p.float(), xn.float()).to(dt)
+
+
+class ProjectInOut(nn.Module):
+    """The width bridge of CrossViT's reference layout
+    (``vit_tpu/nn/embed.py:ProjectInOut``): a Dense ``project_in`` from
+    ``dim_in`` to ``dim_out``, a callable run at ``dim_out``, a Dense
+    ``project_out`` back to ``dim_in``; both flax Denses in ``dtype`` (None:
+    fp32). ``forward(x, fn, *args, **kwargs)``."""
+
+    def __init__(self, dim_in: int, dim_out: int, *, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__()
+        self.project_in = Dense(dim_in, dim_out, dtype=dtype, device=device)
+        self.project_out = Dense(dim_out, dim_in, dtype=dtype, device=device)
+
+    def forward(self, x, fn, *args, **kwargs):
+        return self.project_out(fn(self.project_in(x), *args, **kwargs))

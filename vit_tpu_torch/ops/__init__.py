@@ -72,6 +72,7 @@ from vit_tpu_torch.ops.patch_embed import (  # noqa: F401
     patchify,
     posemb_sincos_2d,
     spt_shifts,
+    unpatchify,
 )
 from vit_tpu_torch.ops.qkv_attention import (
     QkvAttentionFn,
@@ -157,6 +158,7 @@ __all__ = [
     "fused_window_attention_block",
     "xla_window_attention_block",
     "patchify",
+    "unpatchify",
     "extract_patches",
     "posemb_sincos_2d",
     "spt_shifts",

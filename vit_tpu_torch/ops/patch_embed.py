@@ -1,5 +1,5 @@
 """Patch extraction and the fixed positional embedding (port of
-``vit_tpu/ops/patch_embed.py``: ``patchify``, ``extract_patches``,
+``vit_tpu/ops/patch_embed.py``: ``patchify``, ``unpatchify``, ``extract_patches``,
 ``spt_shifts`` and ``posemb_sincos_2d``). Plain PyTorch and numpy: none is a Pallas kernel in
 ``vit_tpu``."""
 
@@ -19,6 +19,15 @@ def patchify(x: torch.Tensor, patch_h: int, patch_w: int | None = None) -> torch
     gh, gw = h // patch_h, w // patch_w
     x = x.reshape(b, gh, patch_h, gw, patch_w, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, gh * gw, patch_h * patch_w * c)
+
+
+def unpatchify(x: torch.Tensor, grid_h: int, grid_w: int, patch_h: int, patch_w: int,
+               c: int) -> torch.Tensor:
+    """The inverse of :func:`patchify`: ``[B, gh*gw, ph*pw*C] -> [B, gh*ph,
+    gw*pw, C]``."""
+    b = x.shape[0]
+    x = x.reshape(b, grid_h, grid_w, patch_h, patch_w, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, grid_h * patch_h, grid_w * patch_w, c)
 
 
 def extract_patches(x: torch.Tensor, kernel: int, stride: int, padding: str = "SAME") -> torch.Tensor:

@@ -10,6 +10,25 @@ from vit_tpu_torch.utils.bn_folding import fold_batch_norm, fold_batch_norm_stat
 from vit_tpu_torch.utils.convert import from_jax_params, from_jax_quant  # noqa: F401
 from vit_tpu_torch.utils.debug import checked, debug_nans, kernel_sanitizer  # noqa: F401
 from vit_tpu_torch.utils.health import memory_stats, probe_devices, with_retry  # noqa: F401
+from vit_tpu_torch.utils.importer import (  # noqa: F401
+    import_reference_cait_params,
+    import_reference_cross_vit_params,
+    import_reference_crossformer_params,
+    import_reference_cvt_params,
+    import_reference_deepvit_params,
+    import_reference_levit_params,
+    import_reference_lsa_params,
+    import_reference_nest_params,
+    import_reference_parallel_vit_params,
+    import_reference_patch_merger_params,
+    import_reference_pit_params,
+    import_reference_region_vit_params,
+    import_reference_scalable_vit_params,
+    import_reference_simple_vit_params,
+    import_reference_t2t_params,
+    import_reference_twins_params,
+    import_reference_vit_params,
+)
 from vit_tpu_torch.utils.init import init_params  # noqa: F401
 from vit_tpu_torch.utils.interop import (  # noqa: F401
     export_vit_to_hf,
