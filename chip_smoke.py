@@ -318,7 +318,19 @@ Runs, in order, and exits non-zero at the first failure:
      ``import_reference_*_params`` and ``from_jax_params``, served a batch
      of 8 in bf16 through the kernels with exact launches and held to the
      plain fp32 path; then ViT-L/16 imported at 224 and served at 384 after
-     ``adapt_vit_resolution(method="cubic")``.
+     ``adapt_vit_resolution(method="cubic")``;
+ 27. kernels 7 and 8 over vit_tpu's whole fused domain
+     (``phase_head_mix_domain``): both kernels stage by stage at
+     CaiT-S24/384's, CaiT-M48/448's and DeepViT-384's shapes (576, 784 and
+     577 tokens; timm's cait_s24_384 and cait_m48_448) and on padded
+     streams, the twins with keys past the 16th tile skipped or padded key
+     columns unmasked failing the bound; the fp32 routes of kernels 7, 8
+     and 2 (``gemm_f32.cuh``, the fp32 head-mix core) against their fp32
+     twins, with bf16 qkv operands failing; the three configurations served
+     in bf16, CaiT-S24/384 and DeepViT-384 on the fp32 route too, with exact
+     launches and no twin called, against the plain fp32 path; the
+     attention variants on kernel 4; the Functions at 576 tokens and in
+     fp32; the kernels at batch 128 against twin, library and bound.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -418,6 +430,20 @@ CAIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=12,
             heads=16, dim_head=64, mlp_dim=2048)
 DEEPVIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
                dim_head=64, mlp_dim=2048)
+# Kernels 7 and 8 past 256 tokens (phase 27): CaiT at its own published
+# resolutions, timm's timm/models/cait.py cait_s24_384 (patch 16, embed 384,
+# depth 24, 8 heads; 576 patch tokens) and cait_m48_448 (patch 16, embed
+# 768, depth 48, 16 heads; 784 tokens), both with timm's two class-attention
+# layers and MLP ratio 4; and the DeepViT preset's widths at 384 px with
+# 16-px patches (577 tokens). No vit_tpu preset holds them; full depth and
+# width, random weights from a seed (cait_tree keeps LayerScale at 0.1, so
+# that every layer moves the logits; init's 1e-5 / 1e-6 at these depths
+# would hide them).
+CAIT_S24_384 = dict(image_size=384, patch_size=16, num_classes=1000, dim=384, depth=24,
+                    cls_depth=2, heads=8, dim_head=48, mlp_dim=1536)
+CAIT_M48_448 = dict(image_size=448, patch_size=16, num_classes=1000, dim=768, depth=48,
+                    cls_depth=2, heads=16, dim_head=48, mlp_dim=3072)
+DEEPVIT_384 = dict(DEEPVIT, image_size=384, patch_size=16)
 # Twins-SVT at the preset twins_svt of vit_tpu/models/presets.py:116-127
 # (224 px, the upstream README's), bf16. GSA attends 3136 / 784 / 196 / 49
 # queries to 64 / 16 / 4 / 1 keys; LSA runs 7x7 windows (S = 49) in stages
@@ -3449,10 +3475,12 @@ def build_head_mix_models(dev):
     return models
 
 
-def serve_family(model, fam, requests):
+def serve_family(model, fam, requests, fp32_counts=None):
     """BatchingServer -> InferencePipeline -> a family's model on the card. Sets the launch counts to 0 before the run and returns them as
     read just after it; holds each kernel to its launches per forward and
-    the server rows to direct calls."""
+    the server rows to direct calls. A dict passed as ``fp32_counts``
+    receives the fp32 routes' launches (``ops.fp32_launch_counts``) read at
+    the same moment, and the number of forwards under ``"forwards"``."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.pipeline import InferencePipeline
     from vit_tpu_torch.serving import BatchingServer
@@ -3468,6 +3496,8 @@ def serve_family(model, fam, requests):
         rows, t_serve = submit_all(server, requests)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    if fp32_counts is not None:
+        fp32_counts.update(ops.fp32_launch_counts(), forwards=len(forwards))
     hook.remove()
     served = forwards[len(pipe.batch_buckets):]
     direct = np.concatenate([pipe(r[None]) for r in requests])
@@ -3791,7 +3821,7 @@ def library_talking_heads(x, ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_p
     s = torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
     p = torch.softmax(torch.einsum("bhij,hg->bgij", s, mix_pre), dim=-1)
     p = torch.einsum("bhij,hg->bgij", p, mix_post)
-    return torch.matmul(merge_heads(torch.matmul(p.bfloat16(), v)), wout) + bout
+    return torch.matmul(merge_heads(torch.matmul(p.to(v.dtype), v)), wout) + bout
 
 
 def library_reattention(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias, heads):
@@ -3804,7 +3834,7 @@ def library_reattention(x, ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, 
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5, dim=-1)
     r = torch.einsum("bhij,hg->bgij", p, mix).permute(0, 2, 3, 1)
     r = F.layer_norm(r, (heads,), rln_scale, rln_bias, 1e-6).permute(0, 3, 1, 2)
-    return torch.matmul(merge_heads(torch.matmul(r.bfloat16(), v)), wout) + bout + x
+    return torch.matmul(merge_heads(torch.matmul(r.to(v.dtype), v)), wout) + bout + x
 
 
 def library_window_block(x, ln_scale, ln_bias, wqkv, wout, bout, heads, bias=None):
@@ -3892,29 +3922,33 @@ def window_block_launches(w, heads, what, smi):
 TH_KERNELS = ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "head_mix_kernel",
               "gemm_bf16_sm90_kernel")
 TH_LAUNCHES = ("ln", "qkv gemm", "head mix", "out gemm")
+# the fp32 route of kernels 7 and 8: the same four launches, fp32 throughout
+TH_F32_KERNELS = ("ln_rows_kernel", "gemm_f32_kernel", "head_mix_f32_kernel", "gemm_f32_kernel")
 HM_WHAT = {"th": ("talking_heads_block", "CaiT preset"),
            "ra": ("reattention_block", "DeepViT preset")}
 
 
-def head_mix_launches(kind, h, heads, smi):
+def head_mix_launches(kind, h, heads, smi, kernels=TH_KERNELS, preset=None):
     """One op line: kernel 7's (``kind`` "th") or 8's ("ra") device time at
     these inputs split into its four launches (torch.profiler), each GEMM's
-    TFLOP/s beside one cuBLAS product of the same operands, and the core's
-    plan. Fails unless they are TH_KERNELS."""
+    TFLOP/s beside one cuBLAS product of the same operands (in the weights'
+    dtype), and the core's plan. Fails unless they are ``kernels``
+    (TH_KERNELS on the bf16 route, TH_F32_KERNELS on the fp32 route)."""
     from vit_tpu_torch.tools.ab_attention import launch_ms
 
     rb = _rb()
     x, wqkv, wout = h[0], h[3], h[4]
-    name, preset = HM_WHAT[kind]
+    name, default = HM_WHAT[kind]
+    preset = preset or default
     fused = rb.fused_talking_heads_block if kind == "th" else rb.fused_reattention_block
-    split = launch_ms(lambda: fused(*h, heads), len(TH_KERNELS))
+    split = launch_ms(lambda: fused(*h, heads), len(kernels))
     names = [n for n, _ in split]
-    require(all(key in n for key, n in zip(TH_KERNELS, names)),
-            f"{name} launched {names}, not {list(TH_KERNELS)}")
+    require(all(key in n for key, n in zip(kernels, names)),
+            f"{name} launched {names}, not {list(kernels)}")
     rows, dim = x.shape[0] * x.shape[1], x.shape[2]
     flops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
-    xn = torch.randn(rows, dim, device=x.device).bfloat16()
-    o = torch.randn(rows, wout.shape[0], device=x.device).bfloat16()
+    xn = torch.randn(rows, dim, device=x.device).to(wqkv.dtype)
+    o = torch.randn(rows, wout.shape[0], device=x.device).to(wout.dtype)
     cublas = {"qkv gemm": cuda_ms(lambda: xn @ wqkv), "out gemm": cuda_ms(lambda: o @ wout)}
     parts = []
     for what, (_, t) in zip(TH_LAUNCHES, split):
@@ -3923,8 +3957,9 @@ def head_mix_launches(kind, h, heads, smi):
             part += (f" ({flops[what] / t / 1e9:.1f} TFLOP/s; cuBLAS {cublas[what]:.4f} ms, "
                      f"{flops[what] / cublas[what] / 1e9:.1f} TFLOP/s)")
         parts.append(part)
-    plan = rb.head_mix_plan(x.shape[1], heads, wqkv.shape[1] // 3 // heads)
-    print(f"op {name} {preset} batch {x.shape[0]} {str(x.dtype)[6:]} launches "
+    plan = rb.head_mix_plan(x.shape[1], heads, wqkv.shape[1] // 3 // heads,
+                            fp32=wqkv.dtype == torch.float32)
+    print(f"op {name} {preset} batch {x.shape[0]} {str(wqkv.dtype)[6:]} weights launches "
           f"(device): {sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
     print(f"op {name} kernels: "
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names)
@@ -4059,6 +4094,7 @@ def gemm_s8_sm90_line(dev, smi):
 MLP_KERNELS = {"wgmma": ("ln_rows_kernel", "gemm_bf16_sm90_kernel", "gemm_bf16_sm90_kernel"),
                "wmma": ("ln_rows_kernel", "gemm_bf16_kernel", "gemm_bf16_kernel")}
 MLP_LAUNCHES = ("ln", "fc1 gemm", "fc2 gemm")
+MLP_F32_KERNELS = ("ln_rows_kernel", "gemm_f32_kernel", "gemm_f32_kernel")  # the fp32 route
 
 
 def mlp_launches(m_in, mkw, what, smi):
@@ -8989,6 +9025,521 @@ def phase_import(dev, smi, requests):
     return dict(total)
 
 
+# -- phase 27: kernels 7 and 8 over vit_tpu's whole fused domain ------------------
+
+# The three configurations of phase 27 (CAIT_S24_384, CAIT_M48_448,
+# DEEPVIT_384), served in bf16 and, where marked, on the fp32 route.
+DOMAIN_CONFIGS = {"cait_s24_384": ("cait", CAIT_S24_384, True),
+                  "cait_m48_448": ("cait", CAIT_M48_448, False),
+                  "deepvit_384": ("deepvit", DEEPVIT_384, True)}
+# Launches a forward: a talking-heads block and an MLP in each patch layer,
+# two class layers (their MLPs on kernel 2, their cross-attention plain);
+# DeepViT's six re-attention blocks and MLPs. The same on the fp32 route.
+FAMILY_LAUNCHES.update({
+    "cait_s24_384": {"talking_heads_block": 24, "fused_mlp": 26, "attention_block": 0,
+                     "reattention_block": 0, "flash_attention": 0},
+    "cait_m48_448": {"talking_heads_block": 48, "fused_mlp": 50, "attention_block": 0,
+                     "reattention_block": 0, "flash_attention": 0},
+    "deepvit_384": {"reattention_block": 6, "fused_mlp": 6, "attention_block": 0,
+                    "talking_heads_block": 0, "flash_attention": 0},
+})
+IMAGE_SIZE.update(cait_s24_384=384, cait_m48_448=448, deepvit_384=384)
+# Kernels 7 and 8 stage by stage (check_head_mix_block) at the three shapes,
+# at batch DOMAIN_BATCH (the fp32 [B, H, N, N] stage buffers: 4 x 16 x 784^2
+# x 4 B = 157 MB each).
+DOMAIN_BATCH = 4
+# The fp32 routes of kernels 7, 8 and 2 against their fp32 twins on the card
+# (cuBLAS fp32 products, TF32 off): within DOMAIN_F32_TOL of the largest
+# change the block makes (both sides sum fp32 products in their own orders,
+# ~1e-7 relative; measured about 2e-6). A route that rounds its qkv (or fc1)
+# operands to bf16 moves the output by ~1e-3 of it and must fail.
+DOMAIN_F32_TOL = 1e-4
+# The fp32 route's logits against the plain fp32 path: within
+# DOMAIN_F32_E2E of max |logit|, and under DOMAIN_F32_SHARE of the bf16
+# kernel path's distance from it.
+DOMAIN_F32_E2E, DOMAIN_F32_SHARE = 1e-3, 0.1
+# The attention variants on the card (27c), at CaiT-S24/384's widths (8
+# heads of 48) over 197 tokens (kernel 4's resident core): (name, flags,
+# query tokens, context tokens or None, bias, kernel 4 launches a call).
+DOMAIN_VARIANTS = (
+    ("a: qkv bias, mask_self", dict(qkv_bias=True, mask_self=True), 197, None, False, 1),
+    ("a: qkv bias, talking heads", dict(qkv_bias=True, talking_heads=True), 197, None, False, 0),
+    ("b: cross, mask_self", dict(cross=True, mask_self=True), 64, 133, False, 1),
+    ("b: cross, bias", dict(cross=True), 64, 133, True, 1),
+    ("b: cross, learned temperature", dict(cross=True, learned_temperature=True), 1, 196, False, 0),
+    ("c: talking heads and re-attention", dict(talking_heads=True, reattention=True,
+                                               fuse_residual=True), 197, None, False, 0),
+    ("d: talking heads, no projection", dict(talking_heads=True, project_out=False), 197, None,
+     False, 0),
+    ("e: re-attention without the residual", dict(reattention=True), 197, None, False, 0),
+    ("f: post-norm self-attention", dict(pre_norm=False), 197, None, False, 1),
+)
+
+
+def _twin_calls():
+    """A context that counts every call of the plain twins of kernels 1, 2, 7
+    and 8 through the ops entries (the serving path must make none)."""
+    from vit_tpu_torch import ops
+
+    calls = collections.Counter()
+    stack = contextlib.ExitStack()
+    for name in ("xla_attention_block", "reference_mlp", "xla_talking_heads_block",
+                 "xla_reattention_block"):
+        real = getattr(ops, name)
+        stack.enter_context(mock.patch.object(
+            ops, name, lambda *a, _n=name, _f=real, **k: calls.update([_n]) or _f(*a, **k)))
+    return stack, calls
+
+
+def check_head_mix_fp32(name, kind, args, heads):
+    """Kernel 7 or 8 on its fp32 route against its fp32 twin, stage by stage
+    on the kernel's own intermediates (qkv, the mixed rows, P, each head's
+    P V, the output epilogue: each within HM_F32 of its max) and the output
+    within DOMAIN_F32_TOL of the largest change; the twin with its qkv
+    operands rounded to bf16 must fail that bound. Returns (max |err|, the
+    failures)."""
+    from vit_tpu_torch.ops.block_attention import _ln_f32, _mm
+
+    rb = _rb()
+    st = {}
+    x = args[0]
+    b, n, _ = x.shape
+    d = args[3].shape[1] // 3 // heads
+    residual = kind == "ra"
+    ln_eps = 1e-5 if kind == "th" else 1e-6
+    if kind == "th":
+        out = rb.fused_talking_heads_block(*args, heads, intermediates=st)
+    else:
+        out = rb.fused_reattention_block(*args, heads, intermediates=st)
+    ref = head_mix_twin(kind, args, heads, None, residual)
+    torch.cuda.synchronize()
+    fails = []
+
+    def stage(what, got, want, bound):
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        line = f"{what}: {rel:.3g} of its max (bound {bound:.3g})"
+        print(f"{name}: {line}")
+        if not rel <= bound:
+            fails.append(f"{name}: {line}")
+
+    require(all(t.dtype == torch.float32 for t in (st["qkv"], st["attn"], out)),
+            f"{name}: the fp32 route kept {st['qkv'].dtype} qkv, {st['attn'].dtype} rows")
+    stage("fp32 qkv against the twin's LN and product", st["qkv"],
+          rb._qkv(x, args[1], args[2], args[3], ln_eps).reshape(b * n, -1), HM_F32)
+    s, v = rb._scores(st["qkv"].view(b, n, -1), heads, d**-0.5)
+    if kind == "th":
+        mixed, _ = rb._talking_heads_probs(s, args[6], args[7])
+        p = rb._mix_heads(rb._softmax(st["mixed"]), args[7])
+    else:
+        mixed, _ = rb._reattention_probs(s, args[6], args[7], args[8], 1e-6)
+        p = rb._head_layer_norm(st["mixed"], args[7], args[8], 1e-6)
+    stage("fp32 mixed rows on the kernel's qkv", st["mixed"], mixed, HM_F32)
+    stage("fp32 P on the kernel's mixed rows", st["p"], p, HM_F32)
+    attn = _mm(st["p"], v).transpose(1, 2).reshape(b * n, -1)
+    stage("each head's fp32 P V on the kernel's P", st["attn"], attn, HM_F32)
+    o = _mm(st["attn"], args[4]) + args[5]
+    if residual:
+        o = o + x.reshape(b * n, -1)
+    stage("output epilogue on the kernel's rows", out.reshape(b * n, -1), o, HM_F32)
+    delta = (ref - x if residual else ref).abs().max().item()
+    err = (out - ref).abs().max().item()
+    tol = DOMAIN_F32_TOL * delta
+    print(f"{name}: output against the fp32 twin: max_abs_err {err:.6g}, {err / delta:.3g} of "
+          f"the largest change (bound {DOMAIN_F32_TOL:g})")
+    if not (torch.isfinite(out).all().item() and err <= tol):
+        fails.append(f"{name}: output error {err} > {tol}")
+    bf16_qkv = lambda x_, s_, b_, w, eps: _mm(_ln_f32(x_, s_, b_, eps).bfloat16(), w.bfloat16())
+    with mock.patch.object(rb, "_qkv", bf16_qkv):
+        bad = head_mix_twin(kind, args, heads, None, residual)
+    e = (bad - ref).abs().max().item()
+    print(f"{name}: the twin with its qkv operands rounded to bf16: max |err| {e:.6g} against "
+          f"{tol:.6g} (must fail the bound)")
+    if e <= tol:
+        fails.append(f"{name}: the bound does not see bf16 qkv operands")
+    return err, fails
+
+
+def check_mlp_fp32(name, m, activation="gelu"):
+    """Kernel 2 on its fp32 route against reference_mlp (fp32), within
+    DOMAIN_F32_TOL of the largest change; the twin with its fc1 operands
+    rounded to bf16 must fail. Returns max |err|."""
+    from vit_tpu_torch.ops.block_attention import _ln_f32, _activate, _mm
+
+    fm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
+    args = [m[k] for k in FN_ARGS["fused_mlp"]]
+    out = fm.fused_mlp(*args, activation, True, 1e-5)
+    ref = fm.reference_mlp(*args, activation, True, 1e-5)
+    torch.cuda.synchronize()
+    x = args[0]
+    delta = (ref - x).abs().max().item()
+    err = (out - ref).abs().max().item()
+    xn = _ln_f32(x, args[5], args[6], 1e-5)
+    h = _activate(_mm(xn.bfloat16(), args[1].bfloat16()) + args[2], activation)
+    bad = _mm(h, args[3]) + args[4] + x
+    e = (bad - ref).abs().max().item()
+    print(f"{name}: max_abs_err {err:.6g}, {err / delta:.3g} of the largest change (bound "
+          f"{DOMAIN_F32_TOL:g}); fc1 operands rounded to bf16: {e / delta:.3g} (must fail)")
+    require(torch.isfinite(out).all().item() and err <= DOMAIN_F32_TOL * delta,
+            f"{name}: error {err} > {DOMAIN_F32_TOL * delta}")
+    require(e > DOMAIN_F32_TOL * delta, f"{name}: the bound does not see bf16 fc1 operands")
+    return err
+
+
+def hm_inputs32(gen, kind, b, n, dim, heads, d, dev):
+    """hm_inputs on the fp32 route: x and the two weights drawn in fp32."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    args = hm_inputs(gen, kind, b, n, dim, heads, d, torch.float32, dev)
+    args[3] = r(dim, 3 * heads * d) / dim**0.5
+    args[4] = r(heads * d, dim) / (heads * d) ** 0.5
+    return args
+
+
+def mlp_inputs32(gen, t, dim, f, dev, b):
+    """mlp_inputs on the fp32 route: x and both weights drawn in fp32."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    m = mlp_inputs(gen, t, dim, f, torch.float32, dev, b=b)
+    m.update(w1=r(dim, f) / dim**0.5, w2=r(f, dim) / f**0.5)
+    return m
+
+
+def phase_domain_kernels(dev):
+    """27a: kernels 7 and 8 stage by stage at CaiT-S24/384's (576 tokens, 8
+    heads of 48), CaiT-M48/448's (784, 16 of 48) and DeepViT-384's (577, 16
+    of 64) shapes and on padded streams, with the twins with keys past the
+    16th tile skipped, or padded key columns left unmasked, failing the
+    bound; their fp32 routes and kernel 2's (CaiT-S24/384's MLP) against the
+    fp32 twins. Returns max |err| by kernel and route."""
+    rb = _rb()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 270)
+    bf = torch.bfloat16
+    b = DOMAIN_BATCH
+    cases = [
+        ("talking_heads_block CaiT-S24/384", "th", dict(b=b, n=576, dim=384, heads=8, d=48), {}),
+        ("talking_heads_block CaiT-M48/448", "th", dict(b=b, n=784, dim=768, heads=16, d=48), {}),
+        ("reattention_block DeepViT-384", "ra", dict(b=b, n=577, dim=1024, heads=16, d=64), {}),
+        ("talking_heads_block CaiT-M48/448 padded to 800", "th",
+         dict(b=2, n=800, dim=768, heads=16, d=48), dict(true_n=784)),
+        ("reattention_block DeepViT-384 padded to 592", "ra",
+         dict(b=2, n=592, dim=1024, heads=16, d=64, rln_bias=0.5), dict(true_n=577)),
+    ]
+    worst, fails = collections.defaultdict(float), []
+    for name, kind, shape, kw in cases:
+        heads = shape["heads"]
+        args = hm_inputs(gen, kind, dev=dev, x_dtype=bf, **shape)
+        ref, err, f = check_head_mix_block(name, kind, args, heads, **kw)
+        fails += f
+        worst[name.split()[0]] = max(worst[name.split()[0]], err)
+        residual = kind == "ra"
+        tol = kernel_tol(ref, args[0] if residual else None, ref.dtype)
+        tn = kw.get("true_n")
+        faults = [("key tiles past the 16th skipped", contextlib.nullcontext(), 256)]
+        if tn is not None:
+            hole = "_mask_keys" if kind == "th" else "_zero_padded_keys"
+            faults.append(("padded key columns left unmasked",
+                           mock.patch.object(rb, hole, lambda r, true_n: r), tn))
+        for fault, ctx, bad_n in faults:
+            with ctx:
+                bad = head_mix_twin(kind, args, heads, bad_n, residual)
+            rows = slice(None, tn)  # the real rows: padded ones are never read
+            e = (bad[:, rows].float() - ref[:, rows].float()).abs().max().item()
+            print(f"{name}: the twin with {fault}: max |err| {e:.6g} against tol {tol:.6g} "
+                  f"(must fail the bound)")
+            if e <= tol:
+                fails.append(f"{name}: the bound does not see {fault}")
+        del args, ref
+    torch.cuda.empty_cache()
+    for name, kind, shape in (
+            ("talking_heads_block fp32 route CaiT-S24/384", "th",
+             dict(b=b, n=576, dim=384, heads=8, d=48)),
+            ("reattention_block fp32 route DeepViT-384", "ra",
+             dict(b=b, n=577, dim=1024, heads=16, d=64))):
+        args = hm_inputs32(gen, kind, dev=dev, **shape)
+        err, f = check_head_mix_fp32(name, kind, args, shape["heads"])
+        fails += f
+        key = name.split()[0] + " (fp32 route)"
+        worst[key] = max(worst[key], err)
+        del args
+    m = mlp_inputs32(gen, 576, 384, 1536, dev, b)
+    worst["fused_mlp (fp32 route)"] = check_mlp_fp32(
+        "fused_mlp fp32 route CaiT-S24/384 [4, 576, 384] F 1536", m)
+    require(not fails, "; ".join(fails))
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def build_domain_models(dev, name):
+    """One configuration of DOMAIN_CONFIGS from weights drawn with a seed,
+    in bf16 and fp32 (the fp32 model is the fp32 route on the card and the
+    plain fp32 reference under force_backend)."""
+    from vit_tpu_torch.models import CaiT, DeepViT
+    from vit_tpu_torch.utils import from_jax_params
+
+    fam, cfg, _ = DOMAIN_CONFIGS[name]
+    seed = SEED + 271 + list(DOMAIN_CONFIGS).index(name)
+    tree = cait_tree(cfg, seed) if fam == "cait" else vit_tree(cfg, seed, reattention=True)
+    models, state = {}, None
+    for config, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        model = (CaiT if fam == "cait" else DeepViT)(**cfg, dtype=dtype, device=dev)
+        if state is None:
+            state = from_jax_params(tree, model.jax_stages)
+            del tree
+        model.load_state_dict(state, strict=True)
+        models[config] = model.eval()
+    return models
+
+
+def domain_e2e(name, models, dev, requests):
+    """The bf16 kernel path's logits against the plain fp32 path within
+    HM_E2E_RATIO x the control (the plain bf16 path); on the fp32 route,
+    within DOMAIN_F32_E2E of max |logit| and under DOMAIN_F32_SHARE of the
+    bf16 kernel path's distance. Returns the fp32 route's distance (None
+    without it)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    size = IMAGE_SIZE[name]
+    x32 = preprocess(raw, image_size=size, dtype=torch.float32)
+    x16 = preprocess(raw, image_size=size, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with ops.force_backend("torch"):
+            ref = models["fp32"](x32)
+            plain = models["bf16"](x16)
+        out = models["bf16"](x16)
+        route = models["fp32"](x32) if DOMAIN_CONFIGS[name][2] else None
+    top = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    control = (plain - ref).abs().max().item()
+    print(f"e2e {name} bf16 kernels vs plain fp32: max|dlogit| {err:.6g}; control (plain bf16 "
+          f"vs plain fp32) {control:.6g}; bound {HM_E2E_RATIO} x control "
+          f"{HM_E2E_RATIO * control:.6g} (max|logit| {top:.4g})")
+    require(torch.isfinite(out).all().item(), f"e2e {name}: non-finite logits")
+    require(err <= HM_E2E_RATIO * control, f"e2e {name}: {err} > {HM_E2E_RATIO} x {control}")
+    if route is None:
+        return None
+    e32 = (route - ref).abs().max().item()
+    print(f"e2e {name} fp32 route vs plain fp32: max|dlogit| {e32:.6g} ({e32 / top:.3g} of "
+          f"max|logit|, bound {DOMAIN_F32_E2E:g}); {e32 / err:.3g} of the bf16 kernel path's "
+          f"distance (bound {DOMAIN_F32_SHARE:g}); top-1 agreement "
+          f"{(route.argmax(-1) == ref.argmax(-1)).float().mean().item():.3f}")
+    require(torch.isfinite(route).all().item(), f"e2e {name}: non-finite fp32-route logits")
+    require(e32 <= DOMAIN_F32_E2E * top, f"e2e {name} fp32 route: {e32} > {DOMAIN_F32_E2E} x {top}")
+    require(e32 < DOMAIN_F32_SHARE * err, f"e2e {name} fp32 route: {e32} not under "
+            f"{DOMAIN_F32_SHARE} x the bf16 path's {err}")
+    return e32
+
+
+def phase_domain_serve(dev, smi, requests):
+    """27b: the three configurations served through BatchingServer in bf16
+    and (CaiT-S24/384, DeepViT-384) on the fp32 route, each with exactly
+    FAMILY_LAUNCHES a forward, the fp32 routes' launches exactly those on
+    the fp32 models and none on the bf16 ones, and no twin of kernels 1, 2,
+    7, 8 called; the logits against the plain fp32 path (domain_e2e).
+    Returns the fp32 routes' launches by kernel."""
+    fp32_launches = collections.Counter()
+    for name, (_, _, fp32) in DOMAIN_CONFIGS.items():
+        t0 = time.perf_counter()
+        models = build_domain_models(dev, name)
+        print(f"{name}: weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+        for config in ("bf16", "fp32") if fp32 else ("bf16",):
+            stack, calls = _twin_calls()
+            got = {}
+            with stack:
+                serve_family(models[config], name, requests, fp32_counts=got)
+            forwards = got.pop("forwards")
+            want = {k: n * forwards * (config == "fp32") for k, n in FAMILY_LAUNCHES[name].items()
+                    if k in got}
+            print(f"slice {name} {config}: fp32-route launches {got} (want {want}); twin calls "
+                  f"{dict(calls)} (want none)")
+            require(got == want, f"slice {name} {config}: fp32-route launches {got}, want {want}")
+            require(not calls, f"slice {name} {config}: twins called {dict(calls)}")
+            if config == "fp32":
+                fp32_launches.update(got)
+        domain_e2e(name, models, dev, requests)
+        del models
+        torch.cuda.empty_cache()
+    return dict(fp32_launches)
+
+
+def _random_module(module, gen):
+    """Every parameter of ``module`` drawn from ``gen`` (unit-scale products:
+    a kernel scaled by its fan-in; mixes at 0.3; LayerNorm scales near 1; the
+    learned temperature near its init)."""
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            r = torch.randn(prm.shape, generator=gen, device=prm.device)
+            if name == "log_temperature":  # LSA's scale near its init, dim_head**-0.5
+                prm.copy_(math.log(module.dim_head**-0.5) + 0.1 * r)
+            elif prm.dim() == 2 and "mix" not in name and "reattn" not in name:
+                prm.copy_(r / prm.shape[0] ** 0.5)
+            elif prm.dim() == 2:
+                prm.copy_(0.3 * r)
+            elif prm.dim() == 1:
+                prm.copy_((1.0 if "scale" in name else 0.0) + 0.1 * r)
+            else:
+                prm.copy_(0.1 * r)
+    return module
+
+
+def phase_domain_variants(dev):
+    """27c: the attention variants (DOMAIN_VARIANTS) on the card in bf16
+    against the port's plain fp32 path (the same parameters), within
+    HM_E2E_RATIO x the control (the plain bf16 path), each with exactly its
+    kernel 4 launches and no other kernel."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.nn import Attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 272)
+    dim, heads, dim_head = 384, 8, 48
+    for name, flags, n, n_ctx, biased, flash in DOMAIN_VARIANTS:
+        m32 = _random_module(Attention(dim, heads, dim_head, **flags, device=dev), gen)
+        m16 = Attention(dim, heads, dim_head, **flags, dtype=torch.bfloat16, device=dev)
+        m16.load_state_dict(m32.state_dict(), strict=True)
+        x = torch.randn(2, n, dim, generator=gen, device=dev)
+        ctx = None if n_ctx is None else torch.randn(2, n_ctx, dim, generator=gen, device=dev)
+        n_k = n if ctx is None else n + n_ctx
+        bias = 0.5 * torch.randn(1, heads, n, n_k, generator=gen, device=dev) if biased else None
+        call = lambda m, t: m(t[0], bias=bias) if ctx is None else m(t[0], t[1], True, bias=bias)
+        with torch.inference_mode():
+            with ops.force_backend("torch"):
+                ref = call(m32, (x, ctx)).float()
+            x16 = (x.bfloat16(), None if ctx is None else ctx.bfloat16())
+            with ops.force_backend("torch"):
+                plain = call(m16, x16).float()
+            ops.reset_launch_counts()
+            out = call(m16, x16).float()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        err = (out - ref).abs().max().item()
+        control = (plain - ref).abs().max().item()
+        want = {"flash_attention": flash} if flash else {}
+        print(f"variant {name} [2, {n}, {dim}]: kernel path vs plain fp32 max|d| {err:.6g}; "
+              f"control (plain bf16) {control:.6g}; bound {HM_E2E_RATIO} x control; launches "
+              f"{counts} (want {want})")
+        require(torch.isfinite(out).all().item(), f"variant {name}: non-finite output")
+        require(err <= HM_E2E_RATIO * control,
+                f"variant {name}: {err} > {HM_E2E_RATIO} x {control}")
+        require(counts == want, f"variant {name}: launches {counts}, want {want}")
+
+
+def phase_domain_functions(dev):
+    """27d: TalkingHeadsBlockFn, ReattentionBlockFn and MlpFn at the new
+    shapes (576 / 577 tokens) and on the fp32 route, against autograd
+    through their twins with the planted backward faults (check_function).
+    Returns the worst gradient error by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 273)
+    worst = collections.defaultdict(float)
+    th = dict(heads=8, scale=48**-0.5, ln_eps=1e-5, residual=False)
+    ra = dict(heads=16, scale=0.125, ln_eps=1e-6, reattn_eps=1e-6)
+    for route in ("bf16", "fp32"):
+        for kind, short, what, shape, kw in (
+                ("talking_heads_block", "th", "CaiT-S24/384", (4, 576, 384, 8, 48), th),
+                ("reattention_block", "ra", "DeepViT-384", (2, 577, 1024, 16, 64), ra)):
+            args = (hm_inputs(gen, short, *shape, torch.bfloat16, dev) if route == "bf16"
+                    else hm_inputs32(gen, short, *shape, dev))
+            if short == "ra":
+                # at 577 tokens the softmax rows are ~1/577 and the LayerNorm across
+                # the heads divides their small spread: at a unit head-LN scale the
+                # attention path's dx is ~270x the residual's identity, so 2% of it
+                # would hide the planted 'residual identity dropped'; a tenth keeps
+                # the identity above the bound
+                args[7] = 0.1 * args[7]
+            err, _ = _function_line(kind, f"{what} {list(shape[:3])} {route}", args, kw, gen)
+            worst[kind] = max(worst[kind], err)
+            del args
+    m = mlp_inputs32(gen, 576, 384, 1536, dev, 4)
+    args = [m[k] for k in FN_ARGS["fused_mlp"]]
+    err, _ = _function_line("fused_mlp", "CaiT-S24/384 [4, 576, 384] F 1536 fp32", args,
+                            dict(activation="gelu", residual=False, ln_eps=1e-5), gen)
+    worst["fused_mlp"] = err
+    torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def phase_domain_op_times(dev, smi):
+    """Kernels 7 and 8 at batch 128 at the three configurations' shapes
+    (bf16 route), on the fp32 route at CaiT-S24/384's and DeepViT-384's, and
+    kernel 2's fp32 route at CaiT-S24/384's MLP: kernel, twin, library
+    composite and bound, and each block's four launches in device time.
+    Returns the fp32 routes' (kernel, twin, library, (bound, by)) by kernel."""
+    rb = _rb()
+    fm = importlib.import_module("vit_tpu_torch.ops.fused_mlp")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 274)
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    b, out = 128, {}
+    for what, kind, n, dim, heads, d, dt in (
+            ("CaiT-S24/384", "th", 576, 384, 8, 48, torch.bfloat16),
+            ("CaiT-M48/448", "th", 784, 768, 16, 48, torch.bfloat16),
+            ("DeepViT-384", "ra", 577, 1024, 16, 64, torch.bfloat16),
+            ("CaiT-S24/384", "th", 576, 384, 8, 48, torch.float32),
+            ("DeepViT-384", "ra", 577, 1024, 16, 64, torch.float32)):
+        k = HM_WHAT[kind][0]
+        h = (hm_inputs(gen, kind, b, n, dim, heads, d, dt, dev) if dt == torch.bfloat16
+             else hm_inputs32(gen, kind, b, n, dim, heads, d, dev))
+        fused = rb.fused_talking_heads_block if kind == "th" else rb.fused_reattention_block
+        twin = rb.xla_talking_heads_block if kind == "th" else rb.xla_reattention_block
+        lib_fn = library_talking_heads if kind == "th" else library_reattention
+        lib_h = [t.to(dt) if i in (1, 2, 5) else t for i, t in enumerate(h)]
+        rows, hd = b * n, heads * d
+        mix_flops = (2 if kind == "th" else 1) * 2 * heads**2 * b * n * n
+        if kind == "ra":
+            mix_flops += 6 * heads * b * n * n
+        mm_flops = 2 * rows * dim * 3 * hd + 4 * b * heads * n * n * d + 2 * rows * hd * dim
+        bnd = (bound(mm_flops, nbytes=size(*h) + size(h[0]), fp32_flops=mix_flops)
+               if dt == torch.bfloat16 else
+               bound(nbytes=size(*h) + size(h[0]), fp32_flops=mm_flops + mix_flops))
+        with torch.inference_mode():
+            times = (cuda_ms(lambda: fused(*h, heads), iters=5, warmup=1),
+                     cuda_ms(lambda: twin(*h, heads, d**-0.5), iters=1, warmup=1),
+                     cuda_ms(lambda: lib_fn(*lib_h, heads), iters=2, warmup=1), bnd)
+            head_mix_launches(kind, h, heads, smi, TH_KERNELS if dt == torch.bfloat16
+                              else TH_F32_KERNELS, what)
+        kern, plain, lib, (bms, by) = times
+        print(f"op {k} {what} (n {n}) batch {b} {str(dt)[6:]} weights: kernel {kern:.4f} ms, twin "
+              f"{plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms ({by}; {bms / kern:.1%} "
+              f"of it) [{smi}]")
+        if dt == torch.float32:
+            out[f"{k} (fp32 route)"] = times
+        del h, lib_h
+        torch.cuda.empty_cache()
+    m = mlp_inputs32(gen, 576, 384, 1536, dev, b)
+    lib_m = dict(m)
+    with torch.inference_mode():
+        times = (cuda_ms(lambda: fm.fused_mlp(**m, activation="gelu", residual=False)),
+                 cuda_ms(lambda: fm.reference_mlp(**m, activation="gelu", residual=False), iters=5),
+                 cuda_ms(lambda: library_mlp(**lib_m)),
+                 bound(nbytes=size(*m.values()) + size(m["x"]),
+                       fp32_flops=4 * b * 576 * 384 * 1536))
+        from vit_tpu_torch.tools.ab_attention import launch_ms
+        split = launch_ms(lambda: fm.fused_mlp(**m, activation="gelu", residual=False), 3)
+    names = [nm for nm, _ in split]
+    require(all(key in nm for key, nm in zip(MLP_F32_KERNELS, names)),
+            f"fused_mlp fp32 route launched {names}, not {list(MLP_F32_KERNELS)}")
+    kern, plain, lib, (bms, by) = times
+    print(f"op fused_mlp CaiT-S24/384 [128, 576, 384] F 1536 fp32 weights: kernel {kern:.4f} ms "
+          f"({', '.join(f'{w} {t:.4f} ms' for w, (_, t) in zip(MLP_LAUNCHES, split))}), twin "
+          f"{plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms ({by}; {bms / kern:.1%} of "
+          f"it) [{smi}]")
+    out["fused_mlp (fp32 route)"] = times
+    del m, lib_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_head_mix_domain(dev, smi, requests):
+    """Phase 27: kernels 7 and 8 over vit_tpu's whole fused domain (27a-27d
+    and the op lines). Returns (max |err| by kernel and route, the fp32
+    routes' launches, their op times, the worst gradient error by kernel)."""
+    t0 = time.perf_counter()
+    worst = phase_domain_kernels(dev)
+    fp32_launches = phase_domain_serve(dev, smi, requests)
+    phase_domain_variants(dev)
+    grads = phase_domain_functions(dev)
+    op_ms = phase_domain_op_times(dev, smi)
+    print(f"phase 27 (kernels 7 and 8 over the fused domain): {time.perf_counter() - t0:.1f} s")
+    return worst, fp32_launches, op_ms, grads
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -9173,6 +9724,16 @@ def main() -> int:
     imported = phase_import(dev, smi, requests)
     print(f"reference imports' launches over their 18 forwards: {json.dumps(imported)}")
 
+    # 27. kernels 7 and 8 over vit_tpu's whole fused domain: CaiT-S24/384,
+    # CaiT-M48/448 and DeepViT at 384 px (576 to 784 tokens), the fp32 routes
+    # of kernels 7, 8 and 2, the attention variants on kernel 4
+    domain_worst, fp32_launches, fp32_ms, domain_grads = phase_head_mix_domain(dev, smi, requests)
+    for k, err in domain_worst.items():
+        if k in worst:
+            worst[k] = max(worst[k], err)
+    for k, err in domain_grads.items():
+        grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
+
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
                             "vit_tpu_torch/csrc/gemm_sm90.cuh, "
@@ -9189,6 +9750,7 @@ def main() -> int:
                       "vit_tpu_torch/csrc/gemm_s8_sm90.cuh",
                       "vit_tpu/ops/quant_block.py:189"),
         "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu, "
+                                "vit_tpu_torch/csrc/gemm_sm90.cuh, "
                                 "vit_tpu_torch/csrc/head_mix_core.cuh",
                                 "vit_tpu/ops/reattention_block.py:146"),
         "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu, "
@@ -9202,11 +9764,27 @@ def main() -> int:
         "flash_attention_kv_blocked": ("vit_tpu_torch/csrc/flash_attention_kv_blocked.cu",
                                        "vit_tpu/ops/flash_attention.py:209"),
     }
+    # the fp32 routes of kernels 2, 7 and 8 (phase 27): launches on the fp32
+    # models' served forwards, errors against the fp32 twins, times at batch 128
+    f32_sources = {
+        "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu, vit_tpu_torch/csrc/gemm_f32.cuh",
+                      "vit_tpu/ops/fused_mlp.py:53"),
+        "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu, "
+                                "vit_tpu_torch/csrc/gemm_f32.cuh, "
+                                "vit_tpu_torch/csrc/head_mix_core.cuh",
+                                "vit_tpu/ops/reattention_block.py:146"),
+        "reattention_block": ("vit_tpu_torch/csrc/reattention_block.cu, "
+                              "vit_tpu_torch/csrc/gemm_f32.cuh, "
+                              "vit_tpu_torch/csrc/head_mix_core.cuh",
+                              "vit_tpu/ops/reattention_block.py:38"),
+    }
+    rows = [(k, k, src, rep, op_ms[k], launches[k], worst[k]) for k, (src, rep) in sources.items()]
+    rows += [(f"{k} (fp32 route)", k, src, rep, fp32_ms[f"{k} (fp32 route)"], fp32_launches[k],
+              domain_worst[f"{k} (fp32 route)"]) for k, (src, rep) in f32_sources.items()]
     kernels = []
-    for k, (src, rep) in sources.items():
-        kern, plain, lib, (bnd, by) = op_ms[k]
-        kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": launches[k], "max_abs_err": worst[k], "ms": kern,
+    for name, k, src, rep, (kern, plain, lib, (bnd, by)), n, err in rows:
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": n, "max_abs_err": err, "ms": kern,
                         "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib,
                         "grad_max_abs_err": grad_worst.get(k)})
     print(smi)

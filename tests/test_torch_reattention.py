@@ -221,9 +221,10 @@ def test_head_mix_plan_is_pinned(shape, plan):
 
 
 def test_head_mix_plan_covers_the_kernels_domain():
-    """Every shape the wrappers take (n <= 256, heads <= 16, dim_head % 16
-    == 0 up to 128) has a plan that fits 227 KB."""
-    for n in (1, 16, 17, 65, 128, 129, 197, 256):
+    """Every shape the wrappers take (n <= 1,024, heads <= 16, dim_head % 16
+    == 0 up to 128) has a plan that fits 227 KB (the fp32 route's plans:
+    tests/test_torch_head_mix_domain.py)."""
+    for n in (1, 16, 17, 65, 128, 129, 197, 256, 257, 576, 577, 784, 1024):
         for heads in (1, 3, 16):
             for d in (16, 48, 64, 128):
                 p = trb.head_mix_plan(n, heads, d)
@@ -360,10 +361,19 @@ def test_planted_faults_fail_the_kernel_bound(cuda, fault):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_cover(cuda):
+    """fp32 weights and 257 tokens, refused before the fp32 route and the
+    longer rows were ported, now run (tests/test_torch_head_mix_domain.py
+    holds them to the twins); fp32 weights on a bf16 stream, 1,025 tokens
+    and 17 heads are still refused."""
     th = _card("th", 1, 17, 64, 4, 16, "float32", cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.talking_heads_block(*th[:3], th[3].float(), th[4].float(), *th[5:], 4)
+    assert ops.talking_heads_block(*th[:3], th[3].float(), th[4].float(), *th[5:], 4).shape == (
+        1, 17, 64)
+    with pytest.raises(TypeError, match="fp32 stream"):
+        ops.talking_heads_block(th[0].bfloat16(), *th[1:3], th[3].float(), th[4].float(), *th[5:],
+                                4)
     th = _card("th", 1, 257, 64, 4, 16, "bfloat16", cuda)
+    assert torch.isfinite(ops.talking_heads_block(*th, 4).float()).all()
+    th = _card("th", 1, 1025, 64, 4, 16, "bfloat16", cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.talking_heads_block(*th, 4)
     ra = _card("ra", 1, 17, 17 * 16, 17, 16, "bfloat16", cuda)

@@ -412,11 +412,21 @@ def test_attention_with_a_bias_matches_vit_tpu(case, dtype, monkeypatch):
     assert _module_err(out, ref) <= MODULE_TOL[dtype]
 
 
-def test_a_bias_on_cross_attention_raises():
-    attn = Attention(64, 4, 16, cross=True, device="cpu")
-    x = torch.zeros(1, 3, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn(x, x, bias=torch.zeros(1, 4, 3, 3))
+def test_a_bias_on_cross_attention_raises(monkeypatch):
+    """A bias on cross-attention raised before the attention variants were
+    ported (the name is kept from then). Now it runs the flash route with
+    the bias (``ops.attention``, kernel 4 on the card; no low-query path)
+    and matches vit_tpu's in both JAX modes within
+    tests/test_torch_attention_variants.py's 2e-5 of the largest output; the
+    bias with its keys reversed does not."""
+    from test_torch_attention_variants import TOL, _err, _outputs
+
+    for mode in ("xla", "interpret"):
+        out, ref = _outputs("b: cross, bias", "float32", mode, monkeypatch)
+        assert _err(out, ref) <= TOL["float32"], (mode, _err(out, ref))
+    out, ref = _outputs("b: cross, bias", "float32", "xla", monkeypatch,
+                        fault=lambda m, bias: bias.flip(-1))
+    assert _err(out, ref) > 10 * TOL["float32"]
 
 
 # -- the trees and the models --------------------------------------------------

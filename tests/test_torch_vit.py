@@ -141,50 +141,82 @@ def test_converter_rejects_a_wrong_layout():
         tm.load_state_dict(state, strict=True)
 
 
-# Each flag in a configuration the port still refuses. Talking heads and
-# re-attention run alone (tests/test_torch_cait_deepvit.py); together, or
-# re-attention without the residual its kernel adds, they raise. LSA's two
-# flags run on the raw-parameter branch (tests/test_torch_small_vits.py) and
-# raise on the cross-attention branch. A qkv bias runs alone
-# (tests/test_torch_interop.py) and raises beside a head mix.
+# Each flag in a configuration that raised before the attention variants
+# were ported (the names of the three tests below are kept from then): now
+# each runs, and is held to vit_tpu in bf16 (tests/test_torch_attention_
+# variants.py holds every variant in fp32 in both JAX modes). Each flag maps
+# to its variant there: a qkv bias beside a head mix, talking heads beside
+# re-attention, re-attention without the residual its kernel adds, LSA's two
+# flags on the cross-attention branch.
 UNPORTED = {
-    "qkv_bias": {"talking_heads": True}, "talking_heads": {"reattention": True},
-    "reattention": {"fuse_residual": False}, "mask_self": {"cross": True},
-    "learned_temperature": {"cross": True},
+    "qkv_bias": "a: qkv bias, talking heads",
+    "talking_heads": "c: talking heads and re-attention",
+    "reattention": "e: re-attention without the residual",
+    "mask_self": "b: cross, mask_self",
+    "learned_temperature": "b: cross, learned temperature, low-query",
 }
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED))
-def test_unported_attention_branches_raise(flag):
-    from vit_tpu_torch.nn import Attention
+def test_unported_attention_branches_raise(flag, monkeypatch):
+    """The configuration runs in bf16 and matches vit_tpu's (xla mode)
+    within one bf16 ulp of its largest output (tests/test_torch_attention_
+    variants.py's TOL; measured at most 3.1e-3 relative)."""
+    from test_torch_attention_variants import TOL, _err, _outputs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, **{flag: True}, **UNPORTED[flag], device="cpu")
+    out, ref = _outputs(UNPORTED[flag], "bfloat16", "xla", monkeypatch)
+    assert _err(out, ref) <= TOL["bfloat16"], _err(out, ref)
 
 
-def test_depth_one_reattention_raises_when_called():
-    """DeepViT at depth 1 would need vit_tpu's materializing re-attention
-    without the residual: the stack builds and loads, and raises when
-    called."""
+def test_depth_one_reattention_raises_when_called(monkeypatch):
+    """DeepViT's stack at depth 1 (vit_tpu's unscanned layer: re-attention
+    on the materializing path without the residual, then ``x + attn(x)``,
+    ``x + ff(x)``) runs, and matches vit_tpu's ``Transformer`` in bf16
+    (xla mode) within 4e-3 of its largest output (measured 0 here: both
+    round at the same sites)."""
+    import jax
+    import jax.numpy as jnp
+    from vit_tpu.nn.blocks import Transformer as JaxTransformer
+
     from vit_tpu_torch.nn import Transformer
 
-    stack = Transformer(64, 1, 4, 16, 128, reattention=True, device="cpu")
+    stack = Transformer(64, 1, 4, 16, 128, reattention=True, dtype=torch.bfloat16, device="cpu")
     assert "blocks.0.attn.reattn_weights" in stack.state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        stack(torch.zeros(1, 5, 64))
+    jstack = JaxTransformer(dim=64, depth=1, heads=4, dim_head=16, mlp_dim=128, reattention=True,
+                            dtype=jnp.bfloat16)
+    x = np.random.default_rng(3).standard_normal((2, 5, 64)).astype(np.float32)
+    v = jax.jit(jstack.init)(jax.random.PRNGKey(0), jnp.asarray(x))
+    rng = np.random.default_rng(4)
+    v = jax.tree.map(lambda a: np.asarray(a, np.float32)
+                     + 0.02 * rng.standard_normal(a.shape).astype(np.float32), v)
+    v["params"]["attn_0"]["reattn_weights"] *= 25
+    monkeypatch.setenv("VIT_TPU_BACKEND", "xla")
+    ref = np.asarray(jstack.apply(v, jnp.asarray(x, jnp.bfloat16)), np.float32)
+    # the stack's tree under a stage prefix, as a model holds it (attn_0 / ff_0)
+    state = from_jax_params({"encoder": v["params"]}, {"encoder/blocks": 1})
+    stack.load_state_dict({k[len("encoder."):]: t for k, t in state.items()}, strict=True)
+    with torch.inference_mode():
+        out = stack(torch.from_numpy(x).bfloat16()).float().numpy()
+    err = float(np.abs(out - ref).max() / np.abs(ref).max())
+    assert err <= 4e-3, err
 
 
-def test_cross_attention_raises():
-    """Cross-attention with LSA's ``mask_self`` is not ported and raises;
-    without a head mix or the low-query path it runs the flash route
-    (``ops.attention``), and so it does with a qkv bias (its ``to_q`` and
-    ``to_kv`` then carry one; tests/test_torch_interop.py holds it to
-    vit_tpu's)."""
+def test_cross_attention_raises(monkeypatch):
+    """Cross-attention with LSA's ``mask_self`` runs the flash route
+    (``ops.attention(mask_self=True)``, kernel 4 on the card; the
+    low-query gate excludes it) and matches vit_tpu's in both JAX modes
+    within 2e-5 of the largest output in fp32; without a head mix or the
+    low-query path it runs the flash route too, and so it does with a qkv
+    bias (its ``to_q`` and ``to_kv`` then carry one;
+    tests/test_torch_interop.py holds it to vit_tpu's)."""
+    from test_torch_attention_variants import TOL, _err, _outputs
+
     from vit_tpu_torch.nn import Attention
 
+    for mode in ("xla", "interpret"):
+        out, ref = _outputs("b: cross, mask_self", "float32", mode, monkeypatch)
+        assert _err(out, ref) <= TOL["float32"], (mode, _err(out, ref))
     x = torch.zeros(1, 5, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(64, 4, 16, cross=True, device="cpu", mask_self=True)
     biased = Attention(64, 4, 16, cross=True, device="cpu", qkv_bias=True)
     assert biased.to_q.bias is not None and biased.to_kv.bias is not None
     with torch.inference_mode():

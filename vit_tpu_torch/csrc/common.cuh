@@ -49,18 +49,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One row of x -> one bf16 row of y, by one warp (lane `lane` of 32).
+// One row of x -> one row of y (bf16, or fp32 on the fp32 routes of kernels 2,
+// 7 and 8), by one warp (lane `lane` of 32).
 //
 // With `scale` set: flax.linen.LayerNorm's exact formula in fp32 (fast
 // variance, the scale folded into the reciprocal square root):
 //   var = max(0, E[x^2] - mean^2); mul = rsqrt(var + eps) * scale;
 //   y = (x - mean) * mul + bias.
 // This is not F.layer_norm, whose two-pass variance rounds differently.
-// With `scale` NULL the row is only rounded to bf16 (the MLP without LN).
-// y may lie in shared memory (the fused window block's xn tile).
-template <typename T>
+// With `scale` NULL the row is only converted to y's type (the MLP without
+// LN). y may lie in shared memory (the fused window block's xn tile).
+template <typename T, typename Y>
 __device__ __forceinline__ void ln_row(const T* __restrict__ xr, const float* __restrict__ scale,
-                                       const float* __restrict__ bias, bf16* yr, int D, float eps,
+                                       const float* __restrict__ bias, Y* yr, int D, float eps,
                                        int lane) {
   if (scale == nullptr) {
     for (int c = lane; c < D; c += 32) store_as(yr + c, to_f32(xr[c]));
@@ -84,11 +85,11 @@ __device__ __forceinline__ void ln_row(const T* __restrict__ xr, const float* __
   }
 }
 
-// Rows of x -> bf16 rows of y (ln_row), one warp per row. Memory-bound
-// (reads D values, writes D bf16 per row).
-template <typename T>
+// Rows of x -> rows of y (ln_row), one warp per row. Memory-bound (reads D
+// values, writes D per row).
+template <typename T, typename Y>
 __global__ void ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                               const float* __restrict__ bias, bf16* __restrict__ y,
+                               const float* __restrict__ bias, Y* __restrict__ y,
                                int rows, int D, float eps) {
   const int warps = blockDim.x / 32;
   const int row = blockIdx.x * warps + threadIdx.x / 32;
@@ -96,13 +97,13 @@ __global__ void ln_rows_kernel(const T* __restrict__ x, const float* __restrict_
   ln_row(x + (size_t)row * D, scale, bias, y + (size_t)row * D, D, eps, threadIdx.x % 32);
 }
 
-template <typename T>
-cudaError_t ln_rows(const T* x, const float* scale, const float* bias, bf16* y, int rows,
+template <typename T, typename Y>
+cudaError_t ln_rows(const T* x, const float* scale, const float* bias, Y* y, int rows,
                     int D, float eps, cudaStream_t stream) {
   constexpr int kThreads = 256;
   constexpr int kRowsPerBlock = kThreads / 32;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  ln_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(x, scale, bias, y, rows, D, eps);
+  ln_rows_kernel<T, Y><<<blocks, kThreads, 0, stream>>>(x, scale, bias, y, rows, D, eps);
   return cudaGetLastError();
 }
 

@@ -24,9 +24,18 @@
 // device memory (2 x T x F bf16) is the cost of the split. A later PR keeps h
 // on chip (the hidden dim blocked inside one persistent kernel, as the TPU
 // kernel does) and the LayerNorm in the GEMM prologue.
+//
+// The fp32 route (vt_fused_mlp_f32): with fp32 x and weights the TPU kernel
+// runs both products at Precision.HIGHEST (fused_mlp.py:83-90) and keeps the
+// hidden in fp32. The same three launches on fp32 throughout: ln_rows to an
+// fp32 xn (or the copy without LN), fc1 with b1 and the activation in the
+// epilogue of gemm_f32.cuh (fp32 FMAs on the CUDA cores), fc2 with b2 [+ x].
+// Any D and F (T2T's 147 / 1,323 too): gemm_f32 reads unaligned rows one
+// float at a time.
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace vt {
@@ -87,3 +96,29 @@ extern "C" int vt_fused_mlp(const void* x, int x_is_fp32, const void* ln_scale,
 // 1 when vt_fused_mlp runs its two products on the wgmma GEMM at these
 // widths, 0 for the WMMA GEMM (ops/fused_mlp.py gemm_route pins the rule).
 extern "C" int vt_fused_mlp_route_wgmma(int D, int F) { return vt::mlp_route_wgmma(D, F); }
+
+// The fp32 route: x, w1, w2, the scratch (xn, h) and out all fp32.
+extern "C" int vt_fused_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                const void* w1, const void* b1, const void* w2, const void* b2,
+                                void* out, void* xn, void* h, int T, int D, int F, int act,
+                                int residual, float eps, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* y = static_cast<float*>(xn);
+  float* hid = static_cast<float*>(h);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = vt::ln_rows<float>(f(x), f(ln_scale), f(ln_bias), y, T, D, eps, s);
+  if (e == cudaSuccess) e = vt::gemm_f32(y, f(w1), hid, f(b1), nullptr, act, T, F, D, s);
+  if (e == cudaSuccess)
+    e = vt::gemm_f32(hid, f(w2), static_cast<float*>(out), f(b2), residual ? f(x) : nullptr,
+                     vt::kActNone, T, D, F, s);
+  return static_cast<int>(e);
+}
+
+// The fp32 GEMM alone (gemm_f32.cuh): c [M, N] = act(a [M, K] @ b [K, N] +
+// bias) + residual, fp32 throughout; bias and residual may be NULL.
+extern "C" int vt_gemm_f32(const void* a, const void* b, void* c, const void* bias,
+                           const void* residual, int act, int M, int N, int K, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return static_cast<int>(vt::gemm_f32(f(a), f(b), static_cast<float*>(c), f(bias), f(residual),
+                                       act, M, N, K, static_cast<cudaStream_t>(stream)));
+}

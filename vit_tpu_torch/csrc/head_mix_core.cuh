@@ -50,10 +50,22 @@
 // - Two variants (plan_for): `resident`, for rows of up to RESIDENT_TILES
 //   key tiles whose slab fits beside the rings (every preset: 64, 65 tokens),
 //   keeps the scores in registers through the softmax and mixes the whole
-//   row at once; `streamed` covers the rest of the domain (n <= 256, Dh up to
-//   128) by recomputing the scores, bitwise the same, in passes over the K
-//   tiles (the max, the sum, then chunk by chunk of the slab's width: p, the
-//   mix, P V; talking heads recompute the pre-mix in each pass).
+//   row at once; `streamed` covers the rest of the domain (n <= 1,024, the
+//   length up to which vit_tpu fuses a head-mixing layer; Dh up to 128) by
+//   recomputing the scores, bitwise the same, in passes over the K tiles
+//   (the max, the sum, then chunk by chunk of the slab's width: p, the mix,
+//   P V; talking heads recompute the pre-mix in each pass). CaiT-S24/384's
+//   576 tokens take 36 key tiles, CaiT-M48/448's 784 take 49, DeepViT's 577
+//   at 384 px take 37.
+//
+// The fp32 route (head_mix_f32_kernel, below): with fp32 x and weights the
+// TPU kernels run every product at Precision.HIGHEST, so qkv, P and each
+// head's output stay fp32. The same block, warps, slab, mixes, softmax and
+// passes as `streamed`, with Q K^T and P V as fp32 SIMT products (fused
+// multiply-adds on the CUDA cores, operands read through L1 from the fp32 qkv
+// rows) in place of the bf16 mma.sync tiles. A lane computes its eight
+// scores of a tile at the accumulator-fragment positions of the bf16 core, so
+// the slab, the mix passes and the softmax are shared as they are.
 #pragma once
 
 #include <math.h>
@@ -68,7 +80,7 @@ namespace {
 
 namespace hmix {
 constexpr int MAX_H = 16;
-constexpr int MAX_N = 256;
+constexpr int MAX_N = 1024;  // vit_tpu fuses a head-mixing layer up to 1,024 tokens
 constexpr int RESIDENT_TILES = 8;  // score rows of up to 128 keys in registers
 constexpr int MAX_SMEM = 232448;   // 227 KB, the most one block may use
 constexpr size_t PARAM_BYTES = size_t(2 * MAX_H * MAX_H + 2 * MAX_H) * sizeof(float);
@@ -250,6 +262,138 @@ __device__ __forceinline__ void mix_slab(float* slab, int plane, int len, int ti
   }
 }
 
+// The row softmax on a lane's eight values of a tile: value i belongs to
+// query row r0 + 8 ((i >> 1) & 1), so (m0, l0) and (m1, l1) are the two rows'
+// max and sum (a lane's partials; attn90::quad_max / quad_sum finish them).
+__device__ __forceinline__ void fold_max(const float (&s)[8], float& m0, float& m1) {
+  m0 = fmaxf(m0, fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5])));
+  m1 = fmaxf(m1, fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7])));
+}
+__device__ __forceinline__ void exps(float (&s)[8], float m0, float m1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = expf(s[i] - (((i >> 1) & 1) ? m1 : m0));
+}
+__device__ __forceinline__ void add_sums(const float (&s)[8], float& l0, float& l1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if ((i >> 1) & 1) l1 += s[i];
+    else l0 += s[i];
+  }
+}
+__device__ __forceinline__ void divide(float (&s)[8], float l0, float l1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = __fdiv_rn(s[i], ((i >> 1) & 1) ? l1 : l0);
+}
+
+// Re-attention's softmax input for key tile t: the scores scaled, keys from
+// `valid` on at -inf. Value i of lane quad t4 is key 16 t + 8 (i >> 2) + 2 t4 + (i & 1).
+__device__ __forceinline__ void scale_keys(float (&s)[8], int t, int t4, float scale, int valid) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    s[i] = 16 * t + (i >> 2) * 8 + 2 * t4 + (i & 1) < valid ? __fmul_rn(s[i], scale) : -INFINITY;
+}
+
+// One mix pass between block barriers: every warp's plane is written before
+// it, the mixed values are in place after it.
+__device__ __forceinline__ void mix_pass(int pass, float* slab, int plane, int len, int tile0,
+                                         int q0, int b, int N, int H, float scale, int valid,
+                                         const float* mix_a, const float* mix_b,
+                                         const float* lns, const float* lnb,
+                                         const hmix::Params& prm, bool dbg) {
+  __syncthreads();
+  if (pass == kPreMix)
+    mix_slab<kPreMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
+                      dbg);
+  else if (pass == kPostMix)
+    mix_slab<kPostMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_b, lns, lnb, prm,
+                       dbg);
+  else
+    mix_slab<kReMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
+                     dbg);
+  __syncthreads();
+}
+
+// The streamed variant's passes, shared by the bf16 and the fp32 core:
+// passes 1 and 2 take the row max, then the row sum, each over every K tile;
+// pass 3, chunk by chunk of the slab's width, puts p into the warp's plane,
+// mixes it and adds P V. scores(s, t) gives key tile t's fp32 scores (the
+// bf16 core takes its tiles from its ring in exactly this order); scaled(s, t)
+// is scale_keys; mix(pass, len, tile0, dbg) is mix_pass; pv(j, t) adds slab
+// tile j (key tile t) times V. Talking heads recompute the pre-mix each pass.
+template <int MODE, class Scores, class Scaled, class Mix, class PV>
+__device__ __forceinline__ void streamed_passes(float* own, int lane, int nkt, int ct,
+                                                const Scores& scores, const Scaled& scaled,
+                                                const Mix& mix, const PV& pv) {
+  const int nch = (nkt + ct - 1) / ct;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      m0 = attn90::quad_max(m0);
+      m1 = attn90::quad_max(m1);
+    }
+    for (int c = 0; c < nch; ++c) {
+      const int len = min(ct, nkt - c * ct);
+      for (int j = 0; j < len; ++j) {
+        float s[8];
+        scores(s, c * ct + j);
+        if (MODE == hmix::kReattention) {
+          scaled(s, c * ct + j);
+          if (pass == 0) {
+            fold_max(s, m0, m1);
+          } else {
+            exps(s, m0, m1);
+            add_sums(s, l0, l1);
+          }
+        } else {
+          put_tile(own, j, lane, s);
+        }
+      }
+      if (MODE == hmix::kTalkingHeads) {
+        mix(kPreMix, len, c * ct, false);
+        for (int j = 0; j < len; ++j) {
+          float s[8];
+          get_tile(own, j, lane, s);
+          if (pass == 0) {
+            fold_max(s, m0, m1);
+          } else {
+            exps(s, m0, m1);
+            add_sums(s, l0, l1);
+          }
+        }
+      }
+    }
+  }
+  l0 = attn90::quad_sum(l0);
+  l1 = attn90::quad_sum(l1);
+  for (int c = 0; c < nch; ++c) {
+    const int len = min(ct, nkt - c * ct);
+    for (int j = 0; j < len; ++j) {
+      float s[8];
+      scores(s, c * ct + j);
+      if (MODE == hmix::kReattention) {
+        scaled(s, c * ct + j);
+        exps(s, m0, m1);
+        divide(s, l0, l1);
+      }
+      put_tile(own, j, lane, s);
+    }
+    if (MODE == hmix::kTalkingHeads) {
+      mix(kPreMix, len, c * ct, true);
+      for (int j = 0; j < len; ++j) {
+        float s[8];
+        get_tile(own, j, lane, s);
+        exps(s, m0, m1);
+        divide(s, l0, l1);
+        put_tile(own, j, lane, s);
+      }
+      mix(kPostMix, len, c * ct, true);
+    } else {
+      mix(kReMix, len, c * ct, true);
+    }
+    for (int j = 0; j < len; ++j) pv(j, c * ct + j);
+  }
+}
+
 // Block (query tile of 16 rows, b), warp h = head h. KT > 0: the resident
 // variant, whose scores stay in registers through the softmax (nkt <= KT,
 // one slab chunk); KT = 0: the streamed one. DK: Dh / 16 at most (4 or 8).
@@ -269,7 +413,7 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
   const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.y, q0 = blockIdx.x * 16;
   const int HD = H * Dh, stride = 3 * HD, ld = Dh + 8, dk = Dh / 16;
-  const int nkt = (N + 15) / 16, nch = (nkt + ct - 1) / ct;
+  const int nkt = (N + 15) / 16;
   const int steps = 1 + (RESIDENT ? 2 : 4) * nkt;
   bf16* ring = reinterpret_cast<bf16*>(smem + ring_off(H, ct)) + (size_t)h * stages * 16 * ld;
   const bf16* base = qkv + (size_t)b * N * stride + h * Dh;
@@ -332,33 +476,10 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
   attn90::load_q<DK, false>(qf, acquire(), ld, dk, lane);
   float* own = slab + h * plane;
   const int t4 = lane & 3;
-  // the key of value i of a lane's tile t
-  const auto key = [&](int t, int i) { return 16 * t + (i >> 2) * 8 + 2 * t4 + (i & 1); };
-  const auto scores = [&](float (&s)[8]) { score_tile<DK>(s, qf, acquire(), ld, dk, lane); };
-  // re-attention's softmax input: scaled scores, keys past `valid` out
-  const auto scaled = [&](float (&s)[8], int t) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = key(t, i) < valid ? __fmul_rn(s[i], scale) : -INFINITY;
+  const auto scores = [&](float (&s)[8], int) {
+    score_tile<DK>(s, qf, acquire(), ld, dk, lane);
   };
-  const auto fold_max = [](const float (&s)[8], float& m0, float& m1) {
-    m0 = fmaxf(m0, fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5])));
-    m1 = fmaxf(m1, fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7])));
-  };
-  const auto exps = [](float (&s)[8], float m0, float m1) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = expf(s[i] - (((i >> 1) & 1) ? m1 : m0));
-  };
-  const auto add_sums = [](const float (&s)[8], float& l0, float& l1) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if ((i >> 1) & 1) l1 += s[i];
-      else l0 += s[i];
-    }
-  };
-  const auto divide = [](float (&s)[8], float l0, float l1) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = __fdiv_rn(s[i], ((i >> 1) & 1) ? l1 : l0);
-  };
+  const auto scaled = [&](float (&s)[8], int t) { scale_keys(s, t, t4, scale, valid); };
   // o += P (tile j of the warp's plane) V (the next step's tile)
   using Acc = float[2 * DK][4];
   const auto pv_from_slab = [&](Acc& o, int j) {
@@ -369,17 +490,8 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
     attn90::tile_pv<DK, false>(o, a, acquire(), ld, dk, lane);
   };
   const auto mix = [&](int pass, int len, int tile0, bool dbg) {
-    __syncthreads();  // every warp's plane is written
-    if (pass == kPreMix)
-      mix_slab<kPreMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
-                        dbg);
-    else if (pass == kPostMix)
-      mix_slab<kPostMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_b, lns, lnb, prm,
-                         dbg);
-    else
-      mix_slab<kReMix>(slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, lns, lnb, prm,
-                       dbg);
-    __syncthreads();  // the mixed values are in place
+    mix_pass(pass, slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, mix_b, lns, lnb,
+             prm, dbg);
   };
   // o rounded to bf16 through a free ring stage, 16-byte stores
   const auto store = [&](const Acc& o) {
@@ -387,15 +499,14 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
     attn90::store_out<DK, false>(o, stage(step), ld, out + (size_t)b * N * HD + h * Dh, HD, q0,
                                  N, Dh, lane);
   };
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
   if constexpr (RESIDENT) {
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     float S[KT][8];
     if (MODE == kReattention) {
 #pragma unroll
       for (int t = 0; t < KT; ++t)
         if (t < nkt) {
-          scores(S[t]);
+          scores(S[t], t);
           scaled(S[t], t);
           fold_max(S[t], m0, m1);
         }
@@ -403,7 +514,7 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
 #pragma unroll
       for (int t = 0; t < KT; ++t)
         if (t < nkt) {
-          scores(S[t]);
+          scores(S[t], t);
           put_tile(own, t, lane, S[t]);
         }
       mix(kPreMix, nkt, 0, true);
@@ -436,75 +547,9 @@ head_mix_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
     for (int t = 0; t < nkt; ++t) pv_from_slab(o, t);
     store(o);
   } else {
-    // passes 1 and 2: the row max, then the row sum, each over every K tile
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 1) {
-        m0 = attn90::quad_max(m0);
-        m1 = attn90::quad_max(m1);
-      }
-      for (int c = 0; c < nch; ++c) {
-        const int len = min(ct, nkt - c * ct);
-        for (int j = 0; j < len; ++j) {
-          float s[8];
-          scores(s);
-          if (MODE == kReattention) {
-            scaled(s, c * ct + j);
-            if (pass == 0) {
-              fold_max(s, m0, m1);
-            } else {
-              exps(s, m0, m1);
-              add_sums(s, l0, l1);
-            }
-          } else {
-            put_tile(own, j, lane, s);
-          }
-        }
-        if (MODE == kTalkingHeads) {
-          mix(kPreMix, len, c * ct, false);
-          for (int j = 0; j < len; ++j) {
-            float s[8];
-            get_tile(own, j, lane, s);
-            if (pass == 0) {
-              fold_max(s, m0, m1);
-            } else {
-              exps(s, m0, m1);
-              add_sums(s, l0, l1);
-            }
-          }
-        }
-      }
-    }
-    l0 = attn90::quad_sum(l0);
-    l1 = attn90::quad_sum(l1);
-    // pass 3, chunk by chunk: p into the slab, the mix, P V
     Acc o = {};
-    for (int c = 0; c < nch; ++c) {
-      const int len = min(ct, nkt - c * ct);
-      for (int j = 0; j < len; ++j) {
-        float s[8];
-        scores(s);
-        if (MODE == kReattention) {
-          scaled(s, c * ct + j);
-          exps(s, m0, m1);
-          divide(s, l0, l1);
-        }
-        put_tile(own, j, lane, s);
-      }
-      if (MODE == kTalkingHeads) {
-        mix(kPreMix, len, c * ct, true);
-        for (int j = 0; j < len; ++j) {
-          float s[8];
-          get_tile(own, j, lane, s);
-          exps(s, m0, m1);
-          divide(s, l0, l1);
-          put_tile(own, j, lane, s);
-        }
-        mix(kPostMix, len, c * ct, true);
-      } else {
-        mix(kReMix, len, c * ct, true);
-      }
-      for (int j = 0; j < len; ++j) pv_from_slab(o, j);
-    }
+    streamed_passes<MODE>(own, lane, nkt, ct, scores, scaled, mix,
+                          [&](int j, int) { pv_from_slab(o, j); });
     store(o);
   }
 }
@@ -522,7 +567,7 @@ cudaError_t launch_head_mix(const bf16* qkv, bf16* out, int B, int N, int H, int
   return cudaGetLastError();
 }
 
-// The core on the fused [B*N, 3*H*Dh] qkv rows into out [B*N, H*Dh]: n <= 256,
+// The core on the fused [B*N, 3*H*Dh] qkv rows into out [B*N, H*Dh]: n <= 1,024,
 // H <= 16, Dh a multiple of 16 up to 128; keys from true_n on are padding.
 template <int MODE>
 cudaError_t head_mix_core(const bf16* qkv, bf16* out, int B, int N, int H, int Dh, float scale,
@@ -550,6 +595,163 @@ cudaError_t head_mix_core(const bf16* qkv, bf16* out, int B, int N, int H, int D
   }
   if (!plan.resident) return launch(K0{}, D4{});
   return nkt <= 5 ? launch(K5{}, D4{}) : launch(K8{}, D4{});
+}
+
+// -- the fp32 route -----------------------------------------------------------
+
+namespace hmix {
+constexpr int F32_SLAB_TILES = 4;  // the slab's width: the rest of the SM's 256 KB is L1
+
+// The fp32 core's plan: always streamed, a slab of up to F32_SLAB_TILES key
+// tiles, no ring (ops/reattention_block.py head_mix_plan(fp32=True) mirrors it).
+inline Plan plan_f32(int N, int H) {
+  const int nkt = (N + 15) / 16;
+  const int ct = nkt < F32_SLAB_TILES ? nkt : F32_SLAB_TILES;
+  return Plan{0, ct, 0, size_t(H) * ct * 256 * sizeof(float) + PARAM_BYTES};
+}
+}  // namespace hmix
+
+// S (16 rows x 16 keys) of head h at key tile `tile`, fp32, in the bf16
+// core's fragment order: s[i] is row (lane / 4) + 8 ((i >> 1) & 1), key
+// 16 tile + 8 (i >> 2) + 2 (lane % 4) + (i & 1). Each score sums its Dh
+// products in order, four at a time. Rows and keys past N read row N - 1:
+// their scores are masked or never stored.
+__device__ __forceinline__ void score_tile_f32(float (&s)[8], const float* qkv, int row_q0,
+                                               int tile, int N, int stride, int HD, int hoff,
+                                               int Dh, int lane) {
+  const int ra = min(row_q0 + (lane >> 2), N - 1), rb = min(row_q0 + (lane >> 2) + 8, N - 1);
+  const int c0 = tile * 16 + 2 * (lane & 3);
+  const float* qa = qkv + (size_t)ra * stride + hoff;
+  const float* qb = qkv + (size_t)rb * stride + hoff;
+  const float* kr[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    kr[u] = qkv + (size_t)min(c0 + (u & 1) + 8 * (u >> 1), N - 1) * stride + HD + hoff;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  for (int d = 0; d < Dh; d += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(qa + d));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(qb + d));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 k = __ldg(reinterpret_cast<const float4*>(kr[u] + d));
+      // key u: (u & 1) the +1 column, (u >> 1) the +8 half -> s index 4 (u >> 1) + (u & 1)
+      const int ia = 4 * (u >> 1) + (u & 1), ib = ia + 2;
+      s[ia] = fmaf(a.x, k.x, s[ia]);
+      s[ia] = fmaf(a.y, k.y, s[ia]);
+      s[ia] = fmaf(a.z, k.z, s[ia]);
+      s[ia] = fmaf(a.w, k.w, s[ia]);
+      s[ib] = fmaf(b.x, k.x, s[ib]);
+      s[ib] = fmaf(b.y, k.y, s[ib]);
+      s[ib] = fmaf(b.z, k.z, s[ib]);
+      s[ib] = fmaf(b.w, k.w, s[ib]);
+    }
+  }
+}
+
+// Block (query tile of 16 rows, b), warp h = head h; the streamed passes of
+// head_mix_kernel on fp32 qkv rows. NDC: output columns a lane, Dh <= 32 NDC
+// (lane owns columns lane + 32 c of all 16 rows).
+template <int MODE, int NDC>
+__global__ void __launch_bounds__(hmix::MAX_H * 32, 1)
+head_mix_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int H, int Dh,
+                    float scale, int valid, hmix::Params prm, hmix::Plan plan) {
+  using namespace hmix;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ct = plan.ct, plane = ct * 256;
+  float* slab = reinterpret_cast<float*>(smem);
+  float* mix_a = reinterpret_cast<float*>(smem + size_t(H) * plane * sizeof(float));
+  float* mix_b = mix_a + MAX_H * MAX_H;
+  float* lns = mix_b + MAX_H * MAX_H;
+  float* lnb = lns + MAX_H;
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y, q0 = blockIdx.x * 16;
+  const int HD = H * Dh, stride = 3 * HD;
+  const int nkt = (N + 15) / 16;
+  const float* rows = qkv + (size_t)b * N * stride;  // this sample's qkv rows
+
+  for (int e = threadIdx.x; e < H * H; e += blockDim.x) {  // rows MAX_H apart
+    mix_a[e / H * MAX_H + e % H] = prm.mix_a[e];
+    if (MODE == kTalkingHeads) mix_b[e / H * MAX_H + e % H] = prm.mix_b[e];
+  }
+  if (MODE == kReattention && threadIdx.x < H) {
+    lns[threadIdx.x] = prm.ln_scale[threadIdx.x];
+    lnb[threadIdx.x] = prm.ln_bias[threadIdx.x];
+  }
+  __syncthreads();
+
+  float* own = slab + h * plane;
+  const int t4 = lane & 3;
+  const auto scores = [&](float (&s)[8], int t) {
+    score_tile_f32(s, rows, q0, t, N, stride, HD, h * Dh, Dh, lane);
+  };
+  const auto scaled = [&](float (&s)[8], int t) { scale_keys(s, t, t4, scale, valid); };
+  const auto mix = [&](int pass, int len, int tile0, bool dbg) {
+    mix_pass(pass, slab, plane, len, tile0, q0, b, N, H, scale, valid, mix_a, mix_b, lns, lnb,
+             prm, dbg);
+  };
+  // o[r][c] += sum_j P[r][j] V[j][lane + 32 c] over the 16 keys of slab tile j0
+  // (key tile `tile`), keys in order; P read from the warp's plane (one
+  // broadcast a key and row), V a coalesced row a key. Padded keys carry P = 0.
+  // Every lane reads every lane's P, so the warp syncs before the next chunk
+  // overwrites its plane.
+  float o[16][NDC];
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int c = 0; c < NDC; ++c) o[r][c] = 0.f;
+  const auto pv = [&](int j0, int tile) {
+    const float* pl = own + j0 * 256;
+    for (int jj = 0; jj < 16; ++jj) {
+      const float* vr = rows + (size_t)min(tile * 16 + jj, N - 1) * stride + 2 * HD + h * Dh;
+      float v[NDC];
+#pragma unroll
+      for (int c = 0; c < NDC; ++c) v[c] = lane + 32 * c < Dh ? __ldg(vr + lane + 32 * c) : 0.f;
+      const int half = jj >> 3, lo = (jj & 7) >> 1, odd = jj & 1;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        // (row r, key jj) in fragment order: lane (r & 7) * 4 + lo, value (r >> 3) * 2 + odd
+        const float p = pl[(half << 7) | ((((r & 7) << 2) | lo) << 2) | (((r >> 3) << 1) | odd)];
+#pragma unroll
+        for (int c = 0; c < NDC; ++c) o[r][c] = fmaf(p, v[c], o[r][c]);
+      }
+    }
+    __syncwarp();
+  };
+  streamed_passes<MODE>(own, lane, nkt, ct, scores, scaled, mix, pv);
+  // each head's output rows, fp32, coalesced
+  float* dst = out + (size_t)b * N * HD + h * Dh;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    if (q0 + r >= N) break;
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+      if (lane + 32 * c < Dh) dst[(size_t)(q0 + r) * HD + lane + 32 * c] = o[r][c];
+  }
+}
+
+// The fp32 core on fused [B*N, 3*H*Dh] fp32 qkv rows into fp32 out [B*N,
+// H*Dh]: the same domain as head_mix_core.
+template <int MODE>
+cudaError_t head_mix_core_f32(const float* qkv, float* out, int B, int N, int H, int Dh,
+                              float scale, int true_n, const hmix::Params& prm,
+                              cudaStream_t stream) {
+  using namespace hmix;
+  if (N < 1 || N > MAX_N || H < 1 || H > MAX_H || Dh < 16 || Dh % 16 != 0 || Dh > 128 || B < 1 ||
+      B > 65535 || true_n < 1 || true_n > N || reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const Plan plan = plan_f32(N, H);
+  const auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(plan.bytes));
+    if (e != cudaSuccess) return e;
+    const dim3 grid((N + 15) / 16, B);
+    kernel<<<grid, H * 32, plan.bytes, stream>>>(qkv, out, N, H, Dh, scale, true_n, prm, plan);
+    return cudaGetLastError();
+  };
+  if (Dh <= 32) return launch(head_mix_f32_kernel<MODE, 1>);
+  if (Dh <= 64) return launch(head_mix_f32_kernel<MODE, 2>);
+  return launch(head_mix_f32_kernel<MODE, 4>);
 }
 
 }  // namespace

@@ -21,8 +21,15 @@
 // its TMA needs every row stride and operand start 16-byte aligned: the
 // wrapper requires D % 8 == 0 and dim_head % 16 == 0, and a misaligned
 // operand fails the call before any launch (cudaErrorInvalidValue).
+//
+// The fp32 route (vt_reattention_block_f32): with fp32 x and weights the TPU
+// kernel runs its products at Precision.HIGHEST (reattention_block.py:61) and
+// rounds nothing to bf16: ln_rows to an fp32 xn, the qkv product on
+// gemm_f32.cuh, the fp32 head-mix core (head_mix_f32_kernel), the out product
+// with bout + x on gemm_f32.cuh.
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "head_mix_core.cuh"
 
@@ -49,6 +56,22 @@ cudaError_t reattention_block(const T* x, const float* ln_scale, const float* ln
   e = head_mix_core<hmix::kReattention>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm, stream);
   if (e != cudaSuccess) return e;
   return gemm_bf16_sm90<T>(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
+}
+
+cudaError_t reattention_block_f32(const float* x, const float* ln_scale, const float* ln_bias,
+                                  const float* wqkv, const float* wout, const float* bout,
+                                  const hmix::Params& prm, float* out, float* xn, float* qkv,
+                                  float* attn_out, int B, int N, int D, int H, int Dh, float scale,
+                                  float eps, int true_n, cudaStream_t stream) {
+  const int rows = B * N, HD = H * Dh;
+  cudaError_t e = ln_rows<float>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
+  if (e != cudaSuccess) return e;
+  e = gemm_f32(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  if (e != cudaSuccess) return e;
+  e = head_mix_core_f32<hmix::kReattention>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm,
+                                            stream);
+  if (e != cudaSuccess) return e;
+  return gemm_f32(attn_out, wout, out, bout, x, kActNone, rows, D, HD, stream);
 }
 
 }  // namespace
@@ -83,12 +106,39 @@ extern "C" int vt_reattention_block(const void* x, int x_is_fp32, const void* ln
   return static_cast<int>(e);
 }
 
+// The fp32 route: x, the weights, the scratch (xn, qkv, attn) and out all fp32.
+extern "C" int vt_reattention_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                        const void* wqkv, const void* wout, const void* bout,
+                                        const void* mix, const void* rln_scale,
+                                        const void* rln_bias, void* out, void* xn, void* qkv,
+                                        void* attn, void* dbg_mixed, void* dbg_p, int B, int N,
+                                        int D, int H, int Dh, float scale, float eps,
+                                        float reattn_eps, int true_n, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  const vt::hmix::Params prm{f(mix), nullptr, f(rln_scale), f(rln_bias), reattn_eps,
+                             static_cast<float>(1.0 / H), w(dbg_mixed), w(dbg_p)};
+  return static_cast<int>(vt::reattention_block_f32(
+      f(x), f(ln_scale), f(ln_bias), f(wqkv), f(wout), f(bout), prm, w(out), w(xn), w(qkv),
+      w(attn), B, N, D, H, Dh, scale, eps, true_n, static_cast<cudaStream_t>(stream)));
+}
+
 // The head-mix core's plan for a shape (kernels 7 and 8): out[0] resident (1)
 // or streamed (0), out[1] the slab's width in 16-key tiles, out[2] ring
 // stages a warp, out[3] shared-memory bytes a block. ops/reattention_block.py
 // head_mix_plan mirrors it.
 extern "C" int vt_head_mix_plan(int N, int H, int Dh, int* out) {
   const vt::hmix::Plan p = vt::hmix::plan_for(N, H, Dh);
+  out[0] = p.resident;
+  out[1] = p.ct;
+  out[2] = p.stages;
+  out[3] = static_cast<int>(p.bytes);
+  return 0;
+}
+
+// The fp32 core's plan (always streamed, no ring): out as vt_head_mix_plan's.
+extern "C" int vt_head_mix_plan_f32(int N, int H, int* out) {
+  const vt::hmix::Plan p = vt::hmix::plan_f32(N, H);
   out[0] = p.resident;
   out[1] = p.ct;
   out[2] = p.stages;

@@ -22,8 +22,16 @@
 // needs every row stride and operand start 16-byte aligned: the wrapper
 // requires D % 8 == 0 and dim_head % 16 == 0, and a misaligned operand
 // fails the call before any launch (cudaErrorInvalidValue).
+//
+// The fp32 route (vt_talking_heads_block_f32): with fp32 x and weights the TPU
+// kernel runs its products at Precision.HIGHEST (reattention_block.py:176) and
+// rounds nothing to bf16. The same four launches, each fp32 end to end:
+// ln_rows to an fp32 xn, the qkv product on gemm_f32.cuh (fp32 FMAs on the
+// CUDA cores), the fp32 head-mix core (head_mix_f32_kernel), the out
+// product with bout [+ x] on gemm_f32.cuh.
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "head_mix_core.cuh"
 
@@ -53,6 +61,24 @@ cudaError_t talking_heads_block(const T* x, const float* ln_scale, const float* 
                            HD, stream);
 }
 
+cudaError_t talking_heads_block_f32(const float* x, const float* ln_scale, const float* ln_bias,
+                                    const float* wqkv, const float* wout, const float* bout,
+                                    const hmix::Params& prm, float* out, float* xn, float* qkv,
+                                    float* attn_out, int B, int N, int D, int H, int Dh,
+                                    float scale, float eps, int residual, int true_n,
+                                    cudaStream_t stream) {
+  const int rows = B * N, HD = H * Dh;
+  cudaError_t e = ln_rows<float>(x, ln_scale, ln_bias, xn, rows, D, eps, stream);
+  if (e != cudaSuccess) return e;
+  e = gemm_f32(xn, wqkv, qkv, nullptr, nullptr, kActNone, rows, 3 * HD, D, stream);
+  if (e != cudaSuccess) return e;
+  e = head_mix_core_f32<hmix::kTalkingHeads>(qkv, attn_out, B, N, H, Dh, scale, true_n, prm,
+                                             stream);
+  if (e != cudaSuccess) return e;
+  return gemm_f32(attn_out, wout, out, bout, residual ? x : nullptr, kActNone, rows, D, HD,
+                  stream);
+}
+
 }  // namespace
 }  // namespace vt
 
@@ -80,4 +106,21 @@ extern "C" int vt_talking_heads_block(const void* x, int x_is_fp32, const void* 
                                       static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D,
                                       H, Dh, scale, eps, residual, true_n, s);
   return static_cast<int>(e);
+}
+
+// The fp32 route: x, the weights, the scratch (xn, qkv, attn) and out all fp32.
+extern "C" int vt_talking_heads_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                          const void* wqkv, const void* wout, const void* bout,
+                                          const void* mix_pre, const void* mix_post, void* out,
+                                          void* xn, void* qkv, void* attn, void* dbg_mixed,
+                                          void* dbg_p, int B, int N, int D, int H, int Dh,
+                                          float scale, float eps, int residual, int true_n,
+                                          void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  const vt::hmix::Params prm{f(mix_pre), f(mix_post), nullptr, nullptr, 0.0f, 0.0f,
+                             w(dbg_mixed), w(dbg_p)};
+  return static_cast<int>(vt::talking_heads_block_f32(
+      f(x), f(ln_scale), f(ln_bias), f(wqkv), f(wout), f(bout), prm, w(out), w(xn), w(qkv),
+      w(attn), B, N, D, H, Dh, scale, eps, residual, true_n, static_cast<cudaStream_t>(stream)));
 }

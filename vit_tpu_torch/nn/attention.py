@@ -1,23 +1,29 @@
 """Attention module (port of ``vit_tpu/nn/attention.py:Attention``, :148-504).
 
-Two of the JAX module's branches are ported; the branch is fixed at
-construction (``cross``), because a PyTorch module owns its parameters
-before its first call:
+Both of the JAX module's branches are ported, with its parameter names; the
+branch is fixed at construction (``raw``: pre-norm self-attention without a
+qkv bias; else the flax branch, self-attention or, with ``cross``,
+cross-attention), because a PyTorch module owns its parameters before its
+first call:
 
 - **self-attention with raw parameters** (:196-354): pre-norm, a fused qkv
-  projection without bias. With ``fuse_residual`` and an output projection
-  the whole block is one kernel call: ``ops.attention_block`` (ViT; the
-  residual inside), ``ops.talking_heads_block`` (CaiT; the residual inside
-  only with ``fuse_residual``) or ``ops.reattention_block`` (DeepViT; the
-  residual inside). On the CPU each runs its plain twin, in the kernel's op
-  order. A layer fuses only inside ``vit_tpu``'s two terms (:213-221; n <=
-  1024 tokens, dim x inner x 3 bf16 weights <= 8 MiB: ``Attention.fuses``).
-  Outside them, without ``fuse_residual`` (a stack of depth 1, which
-  ``vit_tpu`` does not scan) or without an output projection (``heads ==
-  1`` and ``dim_head == dim``: T2T's tokenizer), the layer takes the
-  unfused branch (:307-354): the LayerNorm and the qkv product outside any
-  kernel, ``ops.qkv_attention`` (or, with a head mix or LSA, the
-  materializing path), the optional output projection rounded to the
+  projection without bias. With an output projection the block is one
+  kernel call: ``ops.talking_heads_block`` (CaiT; the residual inside only
+  with ``fuse_residual``), or, with ``fuse_residual``,
+  ``ops.reattention_block`` (DeepViT) or ``ops.attention_block`` (ViT).
+  On the CPU each runs its plain twin, in the kernel's op order. A layer
+  fuses only inside ``vit_tpu``'s two terms (:213-221; n <= 1024 tokens,
+  dim x inner x 3 bf16 weights <= 8 MiB: ``Attention.fuses``), and neither
+  with both head mixes (talking heads with re-attention), nor with LSA, a
+  bias or dropout, nor without the output projection (``project_out``
+  False, or None with ``heads == 1`` and ``dim_head == dim``: T2T's
+  tokenizer), nor, for re-attention and the plain block, without
+  ``fuse_residual`` (a stack of depth 1, which ``vit_tpu`` does not scan).
+  Such a layer takes the unfused branch (:307-354): the LayerNorm and the
+  qkv product outside any kernel, ``ops.qkv_attention`` or, with a head mix,
+  LSA or dropout, the materializing path (the pre-softmax mix, the softmax,
+  the post-softmax mix, then the re-attention mix and the LayerNorm across
+  the heads, :471-504), the optional output projection rounded to the
   residual's dtype, and the delta returned (the residual added only with
   ``fuse_residual``). On the card a bf16 output projection runs on the
   wgmma GEMM of kernels 1 and 2 (``ops.block_attention.gemm_sm90``; in an
@@ -31,56 +37,45 @@ before its first call:
   layer off every block kernel, as ``vit_tpu``'s ``bias is None`` term does
   (:213-221); ``ops.qkv_attention`` or the materializing path adds it to
   the scaled scores.
-- **LSA** (Locality Self-Attention, :178-194, :471-481) on that branch:
-  ``mask_self`` sets the score diagonal to ``flash_attention.MASK_VALUE``,
+- **LSA** (Locality Self-Attention, :178-194, :471-481): ``mask_self`` sets
+  the score diagonal to ``flash_attention.MASK_VALUE``,
   ``learned_temperature`` scales the scores by ``exp(log_temperature)``
-  (an fp32 scalar, ``log(dim_head**-0.5)`` at init). Either flag takes the
-  unfused branch and the materializing path at every depth, with or
-  without ``fuse_residual``, as ``vit_tpu``'s fusion gates exclude both:
-  no LSA layer reaches a block kernel.
-- **cross-attention, flax parameters** (:356-410): ``norm`` (a flax
-  LayerNorm in fp32, on the queries only unless ``norm_context``), ``to_q``,
-  ``to_kv``, ``to_out`` (flax ``nn.Dense`` in the module dtype; ``to_q`` and
-  ``to_kv`` with a bias under ``qkv_bias``), with ``context`` and
-  ``kv_include_self``. Few queries against many keys take the reassociated
-  low-query path (``lowq_cross``; the FLOP gate of :387; never with a qkv
-  bias, :379-381), in plain PyTorch, as the JAX package computes it outside
-  any Pallas kernel. The rest runs ``ops.attention`` (the flash kernel on
-  the card; :401-402), or, with a head mix, the materializing path in plain
-  PyTorch.
-- **self-attention with a qkv bias, flax parameters** (:356-410, the branch
-  Hugging Face and timm ViTs take: vit_tpu fuses a layer only without a qkv
-  bias, :196): ``norm`` (flax LayerNorm in fp32), ``to_qkv`` (a ``Dense``
-  with a bias in the module dtype: the product rounded once, then the bias
-  added in that dtype), ``ops.attention`` on the q, k, v views (the flash
-  kernel, kernel 4, on the card), ``to_out``, and the residual added with
-  ``fuse_residual``. No block kernel takes this branch (``fuses`` is False):
-  their qkv product has no bias input. With ``forward(..., train=True)`` and
-  ``dropout`` above 0, the materializing path with ``attn_drop``, then
-  ``out_drop`` after ``to_out``.
+  (an fp32 scalar, ``log(dim_head**-0.5)`` at init). On the raw branch
+  either flag takes the materializing path at every depth, as
+  ``vit_tpu``'s fusion gates exclude both: no LSA layer reaches a block
+  kernel. On the flax branch ``mask_self`` alone runs ``ops.attention(...,
+  mask_self=True)`` (kernel 4 on the card, :398-402), and the learned
+  temperature materializes.
+- **the flax branch** (:356-410): ``norm`` (a flax LayerNorm in fp32, only
+  with ``pre_norm``; on the queries only unless ``norm_context``),
+  ``to_qkv`` (self-attention) or ``to_q`` and ``to_kv`` (cross-attention,
+  ``forward(x, context, kv_include_self)``), each a flax ``nn.Dense`` in
+  the module dtype with a bias under ``qkv_bias`` (the product rounded
+  once, then the bias added in that dtype), ``to_out`` with the output
+  projection; the head mixes, ``reattn_*`` and ``log_temperature`` as on
+  the raw branch. Hugging Face and timm ViTs take it (a qkv bias: vit_tpu
+  fuses a layer only without one, :196). The attention: ``ops.attention``
+  on the q, k, v views with the bias and ``mask_self`` (the flash kernel,
+  kernel 4, on the card), or, with a head mix, the learned temperature or
+  dropout, the materializing path. Few queries against many keys take the
+  reassociated low-query path (``lowq_cross``; the FLOP gate of :387; never
+  with a qkv bias, re-attention, ``mask_self`` or a bias, :379-386), in
+  plain PyTorch, as the JAX package computes it outside any Pallas kernel.
+  The residual is the input before the norm, added with ``fuse_residual``.
 
 **Dropout** (``dropout``, :183-194, :329-349, :502-503): with
-``forward(..., train=True)`` and ``dropout`` above 0 the self-attention
-branch takes the unfused path with the materialized scores, as
-``vit_tpu``'s ``needs_materialized`` does: dropout on the probabilities
-(``attn_drop``) and on the output projection (``out_drop``), flax's
-``Dropout`` (keep with probability ``1 - p``, kept values divided by it),
-its masks drawn from the ``generator`` passed in (``bernoulli``).
-``train=True`` with ``dropout`` 0 takes the inference routes, as
-``vit_tpu``'s ``th_fusable`` and ``reattn_fusable`` (:227-249) do: the
-talking-heads and re-attention kernels only there. Cross-attention drops
-at the same rate: ``attn_drop`` on its probabilities (the low-query path's
-after the post-softmax mix, :462; else the materializing path, :503) and
-``out_drop`` after ``to_out`` (:409).
+``forward(..., train=True)`` and ``dropout`` above 0 every branch takes the
+materialized scores, as ``vit_tpu``'s ``needs_materialized`` does: dropout
+on the probabilities (``attn_drop``) and on the output projection
+(``out_drop``), flax's ``Dropout`` (keep with probability ``1 - p``, kept
+values divided by it), its masks drawn from the ``generator`` passed in
+(``bernoulli``). ``train=True`` with ``dropout`` 0 takes the inference
+routes, as ``vit_tpu``'s ``th_fusable`` and ``reattn_fusable`` (:227-249)
+do: the talking-heads and re-attention kernels only there. The low-query
+path drops after its post-softmax mix (:462).
 
 ``mha_tokens`` (:70-91) is the functional attention of the window and
 pyramid families over ``[B, N, H*D]`` tokens (Twins-SVT's GSA).
-
-Still raising, each naming its ROADMAP item: ``qkv_bias`` with a head mix
-or LSA, cross-attention with ``mask_self``, ``learned_temperature`` or a
-bias, both head mixes at once, and re-attention or talking heads without
-the output projection, or re-attention without ``fuse_residual`` (JAX's
-materializing path).
 """
 
 from __future__ import annotations
@@ -97,8 +92,6 @@ from vit_tpu_torch.ops.block_attention import (
     _ln_f32, _mm, _softmax, gemm_sm90, gemm_sm90_op, reference_gemm,
 )
 from vit_tpu_torch.ops.flash_attention import MASK_VALUE
-
-_LATER = "not ported yet (ROADMAP.md Queue 1 item 5, attention variants)"
 
 # vit_tpu/nn/attention.py:213-221: vit_tpu fuses a layer into one block
 # kernel only when the fp32 score rows of n tokens and the bf16 qkv and out
@@ -185,9 +178,14 @@ class Attention(nn.Module):
     ``to_out/{kernel, bias}``, and the head mixes as above.
     ``forward(x, context, kv_include_self)``.
 
-    Self-attention with ``qkv_bias``: ``norm`` (``scale``, ``bias``),
-    ``to_qkv/{kernel, bias}`` ``[D, 3*H*Dh]``, ``to_out/{kernel, bias}``
-    (without the output projection, none).
+    Self-attention on the flax branch (``qkv_bias``, or ``pre_norm=False``):
+    ``norm`` (``scale``, ``bias``; none without ``pre_norm``),
+    ``to_qkv/{kernel, bias}`` ``[D, 3*H*Dh]`` (the bias only with
+    ``qkv_bias``), ``to_out/{kernel, bias}`` (without the output projection,
+    none), and the head mixes and ``log_temperature`` as above.
+
+    ``project_out``: None projects unless ``heads == 1`` and ``dim_head ==
+    dim``; True or False forces it, as ``vit_tpu``'s field does.
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *,
@@ -196,23 +194,16 @@ class Attention(nn.Module):
                  learned_temperature: bool = False, fuse_residual: bool = False,
                  cross: bool = False, norm_context: bool = False,
                  lowq_cross: Optional[bool] = None, norm_eps: float = 1e-6,
+                 pre_norm: bool = True, project_out: Optional[bool] = None,
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
-        if qkv_bias and not cross and (talking_heads or reattention or mask_self
-                                       or learned_temperature):
-            raise NotImplementedError(f"qkv_bias with a head mix or LSA: {_LATER}")
-        if cross and (mask_self or learned_temperature):
-            raise NotImplementedError(f"cross-attention with mask_self / learned_temperature: "
-                                      f"{_LATER}")
-        if talking_heads and reattention:
-            raise NotImplementedError(f"talking heads together with re-attention: {_LATER}")
-        # vit_tpu/nn/attention.py:157-162
-        self.project_out = not (heads == 1 and dim_head == dim)
-        if (talking_heads or reattention) and not self.project_out:
-            raise NotImplementedError(f"a head mix without an output projection: {_LATER}")
-        if reattention and not (cross or fuse_residual):
-            # the re-attention kernel adds the residual; JAX materializes without it
-            raise NotImplementedError(f"re-attention without fuse_residual: {_LATER}")
+        # vit_tpu/nn/attention.py:157-162: None skips the projection where
+        # heads == 1 and dim_head == dim, as the reference does
+        self.project_out = (not (heads == 1 and dim_head == dim) if project_out is None
+                            else bool(project_out))
+        # vit_tpu/nn/attention.py:251: the raw-parameter branch is pre-norm
+        # self-attention without a qkv bias; every other layer is the flax branch
+        self.raw = not cross and pre_norm and not qkv_bias
         inner = heads * dim_head
         self.dim, self.heads, self.dim_head, self.scale = dim, heads, dim_head, dim_head**-0.5
         self.talking_heads, self.reattention = talking_heads, reattention
@@ -220,15 +211,15 @@ class Attention(nn.Module):
         self.fuse_residual, self.cross, self.lowq_cross = fuse_residual, cross, lowq_cross
         self.norm_eps, self.dtype, self.dropout, self.qkv_bias = norm_eps, dtype, dropout, qkv_bias
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
-        if cross:
-            self.norm = LayerNorm(dim, eps=norm_eps, device=device)
-            self.norm_context = LayerNorm(dim, eps=norm_eps, device=device) if norm_context else None
-            self.to_q = Dense(dim, inner, use_bias=qkv_bias, dtype=dtype, device=device)
-            self.to_kv = Dense(dim, 2 * inner, use_bias=qkv_bias, dtype=dtype, device=device)
-            self.to_out = Dense(inner, dim, dtype=dtype, device=device)
-        elif qkv_bias:
-            self.norm = LayerNorm(dim, eps=norm_eps, device=device)
-            self.to_qkv = Dense(dim, 3 * inner, dtype=dtype, device=device)
+        if not self.raw:
+            self.norm = LayerNorm(dim, eps=norm_eps, device=device) if pre_norm else None
+            if cross:
+                self.norm_context = (LayerNorm(dim, eps=norm_eps, device=device)
+                                     if pre_norm and norm_context else None)
+                self.to_q = Dense(dim, inner, use_bias=qkv_bias, dtype=dtype, device=device)
+                self.to_kv = Dense(dim, 2 * inner, use_bias=qkv_bias, dtype=dtype, device=device)
+            else:
+                self.to_qkv = Dense(dim, 3 * inner, use_bias=qkv_bias, dtype=dtype, device=device)
             if self.project_out:
                 self.to_out = Dense(inner, dim, dtype=dtype, device=device)
         else:
@@ -254,29 +245,40 @@ class Attention(nn.Module):
                 ) -> torch.Tensor:
         drop = self.dropout if train else 0.0
         if self.cross:
-            if bias is not None:
-                raise NotImplementedError(f"a bias on cross-attention: {_LATER}")
-            return self._cross_attention(x, context, kv_include_self, drop, generator)
+            return self._cross_attention(x, context, kv_include_self, bias, drop, generator)
         if context is not None or kv_include_self:
             raise ValueError("a self-attention module takes no context; build it with cross=True")
-        if self.qkv_bias:
+        if not self.raw:
             return self._flax_self_attention(x, bias, drop, generator)
         dtype = self.dtype or x.dtype
-        mix = self.talking_heads or self.reattention
-        lsa = self.mask_self or self.learned_temperature
-        if drop or lsa or bias is not None or not (
-                self.fuses(x.shape[1]) and (mix or (self.fuse_residual and self.project_out))):
+        # vit_tpu/nn/attention.py:285-321: talking heads fuse with or without
+        # the residual; re-attention and the plain block only with it; none
+        # with both head mixes, LSA, a bias, dropout or without the projection
+        th = self.talking_heads and not self.reattention
+        ra = self.reattention and not self.talking_heads and self.fuse_residual
+        plain = not (self.talking_heads or self.reattention) and self.fuse_residual
+        if (drop or self.mask_self or self.learned_temperature or bias is not None
+                or not self.project_out or not self.fuses(x.shape[1]) or not (th or ra or plain)):
             return self._unfused(x, dtype, bias, drop, generator)
         w = (x, self.norm_scale, self.norm_bias, self.qkv_kernel.to(dtype),
              self.out_kernel.to(dtype), self.out_bias)
         kw = dict(scale=self.scale, ln_eps=self.norm_eps)
-        if self.talking_heads:
+        if th:
             return ops.talking_heads_block(*w, self.mix_heads_pre, self.mix_heads_post, self.heads,
                                            residual=self.fuse_residual, **kw)
-        if self.reattention:
+        if ra:
             return ops.reattention_block(*w, self.reattn_weights, self.reattn_scale,
                                          self.reattn_bias, self.heads, **kw)
         return ops.attention_block(*w, self.heads, **kw)
+
+    def _materialized(self, drop) -> bool:
+        """vit_tpu's ``needs_materialized`` (:226-231): a head mix, dropout in
+        training or the learned temperature keeps the scores in memory."""
+        return bool(self.talking_heads or self.reattention or drop or self.learned_temperature)
+
+    def _scale(self):
+        """The score scale: ``exp(log_temperature)`` (LSA) or ``dim_head**-0.5``."""
+        return torch.exp(self.log_temperature) if self.learned_temperature else self.scale
 
     def fuses(self, n: int) -> bool:
         """Whether a layer of ``n`` tokens runs as one block kernel: inside
@@ -288,20 +290,27 @@ class Attention(nn.Module):
                 and self.dim * inner * 3 * 2 <= FUSE_MAX_WEIGHT_BYTES)
 
     def _flax_self_attention(self, x, bias=None, drop=0.0, generator=None):
-        """Self-attention with a qkv bias (vit_tpu/nn/attention.py:356-410):
-        flax's LayerNorm in fp32, ``to_qkv`` (rounded once to the module
-        dtype, then its bias added in it), ``ops.attention`` on the q, k, v
-        views (with dropout, the materializing path), ``to_out`` and
-        ``out_drop``; the residual added with ``fuse_residual``."""
-        q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))
-        if drop:
+        """Self-attention on the flax branch (vit_tpu/nn/attention.py:356-410:
+        a qkv bias, or ``pre_norm=False``): flax's LayerNorm in fp32 (with
+        ``pre_norm``), ``to_qkv`` (rounded once to the module dtype, then its
+        bias added in it), ``ops.attention`` on the q, k, v views with the
+        bias and ``mask_self`` (the flash kernel, kernel 4, on the card) or,
+        with a head mix, the learned temperature or dropout, the
+        materializing path; ``to_out`` and ``out_drop`` with the output
+        projection; the residual (the input before the norm) added with
+        ``fuse_residual``."""
+        residual = x
+        if self.norm is not None:
+            x = self.norm(x)
+        q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=-1))
+        if self._materialized(drop):
             out = self._materializing_attention(q, k, v, bias, drop, generator)
         else:
-            out = ops.attention(q, k, v, bias, scale=self.scale)
+            out = ops.attention(q, k, v, bias, scale=self.scale, mask_self=self.mask_self)
         out = merge_heads(out)
         if self.project_out:
             out = dropout(self.to_out(out), drop, generator)
-        return out + x if self.fuse_residual else out
+        return out + residual if self.fuse_residual else out
 
     def _unfused(self, x, dtype, bias=None, drop=0.0, generator=None):
         """The raw-parameter branch outside the fused block (vit_tpu/nn/
@@ -341,15 +350,20 @@ class Attention(nn.Module):
             return y.reshape(*out.shape[:-1], n)
         return (_mm(out, w) + self.out_bias).to(out_dtype)
 
-    def _cross_attention(self, x, context, kv_include_self, drop=0.0, generator=None):
+    def _cross_attention(self, x, context, kv_include_self, bias=None, drop=0.0,
+                         generator=None):
         """The flax branch (vit_tpu/nn/attention.py:356-410), with dropout
         at rate ``drop``: ``attn_drop`` on the probabilities (the low-query
         path's after its post-softmax mix, :462; the materializing path's,
-        :503), then ``out_drop`` after ``to_out`` (:409)."""
+        :503), then ``out_drop`` after ``to_out`` (:409). ``mask_self`` masks
+        the diagonal of the ``[Nq, Nk]`` scores and ``bias`` is added to them,
+        on ``ops.attention`` (kernel 4 on the card) unless the scores are
+        materialized; either keeps the layer off the low-query path (:379-386)."""
         if context is None:
             raise ValueError("cross-attention takes a context")
         residual = x
-        x = self.norm(x)  # fp32, as flax LayerNorm(dtype=float32)
+        if self.norm is not None:
+            x = self.norm(x)  # fp32, as flax LayerNorm(dtype=float32)
         if self.norm_context is not None:
             context = self.norm_context(context)
         if kv_include_self:  # JAX's concatenate promotes: LN(x) fp32 with a bf16 context
@@ -362,6 +376,8 @@ class Attention(nn.Module):
         lowq = (
             not self.qkv_bias
             and not self.reattention
+            and not self.mask_self
+            and bias is None
             and (self.lowq_cross if self.lowq_cross is not None
                  else 4 * n_q * (inner + n_kv) <= n_kv * inner)
         )
@@ -370,11 +386,13 @@ class Attention(nn.Module):
         else:
             k, v = self.to_kv(kv_src).chunk(2, dim=-1)
             q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
-            if self.talking_heads or self.reattention or drop:
-                out = merge_heads(self._materializing_attention(q, k, v, None, drop, generator))
+            if self._materialized(drop):
+                out = merge_heads(self._materializing_attention(q, k, v, bias, drop, generator))
             else:
-                out = merge_heads(ops.attention(q, k, v, scale=self.scale))
-        out = dropout(self.to_out(out), drop, generator)
+                out = merge_heads(ops.attention(q, k, v, bias, scale=self.scale,
+                                                mask_self=self.mask_self))
+        if self.project_out:
+            out = dropout(self.to_out(out), drop, generator)
         return out + residual if self.fuse_residual else out
 
     def _lowq_cross_attention(self, q, context, drop=0.0, generator=None):
@@ -393,7 +411,7 @@ class Attention(nn.Module):
         qh = split_heads(q, h).to(dtype)
         c = context.to(dtype)
         t = _einsum("bhqe,dhe->bhqd", qh, wk, dtype)
-        s = _einsum("bhqd,bjd->bhqj", t, c) * self.scale
+        s = _einsum("bhqd,bjd->bhqj", t, c) * self._scale()
         if self.talking_heads:
             s = torch.einsum("bhqj,hg->bgqj", s, self.mix_heads_pre)
         p = _softmax(s)
@@ -408,8 +426,7 @@ class Attention(nn.Module):
         the bias, LSA's learned scale and masked diagonal, talking-heads
         mixes and re-attention on ``[B, H, Nq, Nk]`` fp32 scores, then
         ``attn_drop`` at rate ``drop`` on the probabilities."""
-        scale = torch.exp(self.log_temperature) if self.learned_temperature else self.scale
-        s = _einsum("bhid,bhjd->bhij", q, k) * scale
+        s = _einsum("bhid,bhjd->bhij", q, k) * self._scale()
         if bias is not None:
             s = s + bias.float()
         if self.mask_self:

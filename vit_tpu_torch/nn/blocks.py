@@ -124,9 +124,9 @@ class Transformer(nn.Module):
     ``blocks.{i}`` holds layer i of ``vit_tpu``'s stacked ``encoder/blocks``
     (at depth 1, its unscanned ``attn_0`` / ``ff_0``). At depth 1 the layer
     is unfused, as ``vit_tpu``'s unscanned layer (blocks.py:350-357,
-    :402-416): ``x + attn(x)``, then ``x + ff(x)``. Re-attention at depth 1
-    (``vit_tpu``'s materializing path without the residual) builds and
-    loads, and raises when called.
+    :402-416): ``x + attn(x)``, then ``x + ff(x)``; with re-attention that
+    is ``vit_tpu``'s materializing path without the residual (the mix and
+    the LayerNorm across the heads on the materialized scores).
 
     With ``parallel_branches`` N > 1 (ParallelViT; blocks.py:430-460) the
     stack is never scanned or fused, at any depth: layer i adds to x the sum
@@ -170,7 +170,6 @@ class Transformer(nn.Module):
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.depth, self.branches, self.dropout = depth, parallel_branches, dropout
-        self.unported = depth == 1 and reattention
         self.final_norm = (LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
                            if final_norm else None)
         if parallel_branches > 1:
@@ -192,7 +191,7 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dim_head, mlp_dim, reattention=reattention,
                          mask_self=mask_self, learned_temperature=learned_temperature,
-                         qkv_bias=qkv_bias, fuse_residual=depth > 1 or reattention,
+                         qkv_bias=qkv_bias, fuse_residual=depth > 1,
                          activation=activation,
                          norm_eps=norm_eps, dropout=dropout, dtype=dtype, device=device)
             for _ in range(depth)
@@ -201,10 +200,6 @@ class Transformer(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None, remat: bool = False
                 ) -> torch.Tensor:
-        if self.unported:
-            raise NotImplementedError(
-                "re-attention in a stack of depth 1 (vit_tpu's materializing path without the "
-                "residual) is not ported yet (ROADMAP.md Queue 1 item 5, attention variants)")
         if self.branches > 1:
             for i in range(self.depth):
                 for kind in ("attn", "ff"):

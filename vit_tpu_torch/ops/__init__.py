@@ -32,8 +32,10 @@ the Q-chunked flash backward). Called directly under grad, a kernel wrapper
 raises (``_build.refuse_grad``); kernels 9 and 10 have no Function (they are
 inference only in ``vit_tpu`` too).
 
-Each kernel wrapper counts its launches: ``launch_counts()``; each
-Function's backward its recomputes: ``recompute_counts()``.
+Each kernel wrapper counts its launches: ``launch_counts()``, and those of
+the fp32 routes of kernels 2, 7 and 8 (fp32 weights on an fp32 stream) also
+in ``fp32_launch_counts()``; each Function's backward its recomputes:
+``recompute_counts()``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Optional
 import torch
 
 from vit_tpu_torch.ops._build import (  # noqa: F401
+    fp32_launch_counts,
     launch_counts,
     needs_grad,
     recompute_counts,
@@ -127,6 +130,7 @@ __all__ = [
     "window_attention_block",
     "force_backend",
     "launch_counts",
+    "fp32_launch_counts",
     "recompute_counts",
     "reset_launch_counts",
     "needs_grad",

@@ -213,6 +213,51 @@ _SIGNATURES = {
         _I, _I, _I,          # N, heads, dim_head
         _P,                  # int[4]: resident, slab tiles, ring stages, shared-memory bytes
     ],
+    # the fp32 routes of kernels 7, 8 and 2 (x, weights, scratch and out fp32)
+    "vt_talking_heads_block_f32": [
+        _P, _P, _P,          # x, ln_scale, ln_bias
+        _P, _P, _P,          # wqkv, wout, bout
+        _P, _P,              # mix_pre, mix_post ([H, H])
+        _P,                  # out
+        _P, _P, _P,          # scratch: xn, qkv, attn
+        _P, _P,              # NULL or [B, H, N, N]: mixed scores, post-mixed P
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F, _I, _I,      # scale, ln_eps, residual, true_n
+        _P,                  # cudaStream_t
+    ],
+    "vt_reattention_block_f32": [
+        _P, _P, _P,          # x, ln_scale, ln_bias
+        _P, _P, _P,          # wqkv, wout, bout
+        _P, _P, _P,          # mix ([H, H]), rln_scale, rln_bias ([H])
+        _P,                  # out
+        _P, _P, _P,          # scratch: xn, qkv, attn
+        _P, _P,              # NULL or [B, H, N, N]: mixed softmax r, normalised r'
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F, _F, _I,      # scale, ln_eps, reattn_eps, true_n
+        _P,                  # cudaStream_t
+    ],
+    "vt_head_mix_plan_f32": [
+        _I, _I,              # N, heads
+        _P,                  # int[4]: as vt_head_mix_plan's
+    ],
+    "vt_fused_mlp_f32": [
+        _P,                  # x
+        _P, _P,              # ln_scale (NULL = no LN), ln_bias (NULL = 0)
+        _P, _P, _P, _P,      # w1, b1 (NULL = 0), w2, b2 (NULL = 0)
+        _P,                  # out
+        _P, _P,              # scratch: xn, h
+        _I, _I, _I,          # T, D, F
+        _I, _I,              # activation, residual
+        _F,                  # ln_eps
+        _P,                  # cudaStream_t
+    ],
+    "vt_gemm_f32": [
+        _P, _P, _P,          # a [M, K], b [K, N], c [M, N] (fp32)
+        _P, _P,              # bias [N], residual [M, N] (NULL = none)
+        _I,                  # activation (gemm.cuh Act: 0 none)
+        _I, _I, _I,          # M, N, K
+        _P,                  # cudaStream_t
+    ],
 }
 
 _lock = threading.Lock()
@@ -381,14 +426,21 @@ GRAD_ENTRIES = {"fused_qkv_attention": "ops.qkv_attention (QkvAttentionFn)",
                     "ops.window_attention_block (WindowAttentionBlockFn)",
                 "talking_heads_block": "ops.talking_heads_block (TalkingHeadsBlockFn)",
                 "reattention_block": "ops.reattention_block (ReattentionBlockFn)"}
+# the kernels with an fp32 route (fp32 x and weights, no bf16 rounding)
+FP32_ROUTES = ("fused_mlp", "talking_heads_block", "reattention_block")
 _counts = collections.Counter()
+_fp32_counts = collections.Counter()
 _recomputes = collections.Counter()
 _counts_lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, fp32: bool = False) -> None:
+    """One launch of kernel ``name``; ``fp32``: on its fp32 route (counted
+    in ``launch_counts`` too)."""
     with _counts_lock:
         _counts[name] += 1
+        if fp32:
+            _fp32_counts[name] += 1
 
 
 def count_recompute(name: str) -> None:
@@ -402,6 +454,13 @@ def launch_counts() -> dict:
         return {k: _counts[k] for k in KERNELS}
 
 
+def fp32_launch_counts() -> dict:
+    """Launches of each kernel's fp32 route (``FP32_ROUTES``) since the last
+    reset."""
+    with _counts_lock:
+        return {k: _fp32_counts[k] for k in FP32_ROUTES}
+
+
 def recompute_counts() -> dict:
     """Backward passes of each kernel's autograd Function since the last
     reset: each recomputes the kernel's plain twin and differentiates it
@@ -413,6 +472,7 @@ def recompute_counts() -> dict:
 def reset_launch_counts() -> None:
     with _counts_lock:
         _counts.clear()
+        _fp32_counts.clear()
         _recomputes.clear()
 
 

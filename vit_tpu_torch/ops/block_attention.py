@@ -152,6 +152,22 @@ def _require_aligned(**tensors) -> None:
                              f"(storage offset {t.storage_offset()})")
 
 
+def weights_route(x, *weights) -> str:
+    """The route of kernels 2, 7 and 8 for a stream ``x`` and its GEMM
+    weights: ``"bf16"`` for bf16 weights (x bf16 or fp32), ``"fp32"`` for
+    fp32 weights on an fp32 x. Anything else raises ``TypeError``: fp32
+    weights on a bf16 stream, or weights of two dtypes."""
+    dtypes = {w.dtype for w in weights}
+    if dtypes == {torch.bfloat16}:
+        return "bf16"
+    if dtypes == {torch.float32}:
+        if x.dtype != torch.float32:
+            raise TypeError(f"fp32 weights take an fp32 stream (x is {x.dtype}): vit_tpu runs "
+                            "fp32 weights at Precision.HIGHEST on fp32 activations only")
+        return "fp32"
+    raise TypeError(f"the weights must all be bf16 or all fp32, got {sorted(map(str, dtypes))}")
+
+
 def gemm_sm90(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, activation=None):
     """``round_once(act(a @ b + bias) + residual)`` on the card: the wgmma
     GEMM of kernels 1 and 2 (``csrc/gemm_sm90.cuh``) alone, for checks
@@ -212,6 +228,47 @@ def reference_gemm(a, b, bias=None, residual=None, out_dtype=torch.bfloat16, act
     if residual is not None:
         y = y + residual.float()
     return y.to(out_dtype)
+
+
+def gemm_f32(a, b, bias=None, residual=None, activation=None):
+    """``act(a @ b + bias) + residual`` in fp32 on the card: the fp32 GEMM of
+    the fp32 routes of kernels 2, 7 and 8 (``csrc/gemm_f32.cuh``: fp32 fused
+    multiply-adds on the CUDA cores, no TF32) alone, for checks against an
+    fp32 product of the same operands. ``a`` ``[M, K]``, ``b`` ``[K, N]``,
+    ``bias`` ``[N]`` and ``residual`` ``[M, N]``, all fp32, of any widths;
+    ``activation`` None or a key of ``ACTIVATIONS``. Its twin is
+    ``reference_gemm(..., out_dtype=torch.float32)``."""
+    _build.refuse_grad("gemm_f32", a, b, bias, residual)
+    if not a.is_cuda:
+        raise ValueError("gemm_f32 takes CUDA tensors")
+    if activation is not None and activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be None or one of {sorted(ACTIVATIONS)}, "
+                         f"got {activation}")
+    operands = {k: t for k, t in dict(a=a, b=b, bias=bias, residual=residual).items()
+                if t is not None}
+    if any(t.dtype != torch.float32 for t in operands.values()) or a.dim() != 2 or b.dim() != 2:
+        raise TypeError("operands must be fp32 and a, b 2-D, got "
+                        f"{[t.dtype for t in operands.values()]}")
+    (m, k), n = a.shape, b.shape[1]
+    if b.shape[0] != k:
+        raise ValueError(f"a {tuple(a.shape)} @ b {tuple(b.shape)}: K must agree")
+    if bias is not None and tuple(bias.shape) != (n,):
+        raise ValueError(f"bias must be [{n}], got {tuple(bias.shape)}")
+    if residual is not None and tuple(residual.shape) != (m, n):
+        raise ValueError(f"residual must be [{m}, {n}], got {tuple(residual.shape)}")
+    if any(t.device != a.device for t in operands.values()):
+        raise ValueError("all operands must be on one device")
+    if not all(t.is_contiguous() for t in operands.values()):
+        raise ValueError("operands must be contiguous")
+    lib = _build.load_library()
+    c = torch.empty(m, n, device=a.device, dtype=torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.vt_gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(bias), ptr(residual),
+                             ACTIVATIONS.get(activation, 0), m, n, k, stream)
+    _build.check(lib, rc, "gemm_f32 kernel")
+    return c
 
 
 gemm_sm90_op = _build.define_op(

@@ -7,6 +7,12 @@ bf16-rounded operands, biases added on the fp32 accumulator, the hidden
 activations rounded to the weight dtype once, between the two GEMMs).
 ``fused_mlp_op`` is the kernel as a ``torch.library`` operator
 (``_build.define_op``).
+
+Two routes, by the weights' dtype (``block_attention.weights_route``), as
+``vit_tpu``'s kernel picks its precision (fused_mlp.py:83-90): bf16 weights
+(x bf16 or fp32) run the bf16 products (``gemm_route``); fp32 weights on an
+fp32 x run the fp32 route (``csrc/gemm_f32.cuh``, fp32 sums of fp32
+operands, the hidden kept in fp32), ``Precision.HIGHEST``'s arithmetic.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from vit_tpu_torch.ops.block_attention import (
     _mm,
     _require_aligned,
     recompute_vjp,
+    weights_route,
 )
 
 
@@ -70,8 +77,9 @@ def fused_mlp(
     ln_eps: float = 1e-6,
 ) -> torch.Tensor:
     """The MLP block on the card over tokens ``x`` ``[..., T, D]`` (bf16 or
-    fp32); ``w1`` ``[D, F]`` and ``w2`` ``[F, D]`` bf16; biases and LN
-    parameters fp32 or None. D and F of any size: where both are multiples
+    fp32); ``w1`` ``[D, F]`` and ``w2`` ``[F, D]`` bf16, or fp32 with an
+    fp32 ``x`` (the fp32 route, any D and F); biases and LN parameters fp32
+    or None. On the bf16 route D and F of any size: where both are multiples
     of 8 the two products run on the wgmma GEMM, and every operand must then
     start on a 16-byte boundary (else this raises); other widths (T2T's 147
     and 1323) run on the WMMA GEMM (``gemm_route``). Returns ``x``'s shape
@@ -80,11 +88,7 @@ def fused_mlp(
         raise ValueError("fused_mlp takes CUDA tensors")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bf16 or fp32, got {x.dtype}")
-    if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the MLP kernel takes bf16 weights (got {w1.dtype}, {w2.dtype}); "
-            "fp32 weights run only on the plain twin"
-        )
+    fp32 = weights_route(x, w1, w2) == "fp32"
     if activation not in ACTIVATIONS:
         raise ValueError(activation)
     dim = x.shape[-1]
@@ -103,27 +107,27 @@ def fused_mlp(
     if ln_bias is not None and ln_scale is None:
         raise ValueError("ln_bias without ln_scale")
 
-    if gemm_route(dim, f) == "wgmma":
+    if not fp32 and gemm_route(dim, f) == "wgmma":
         _require_aligned(**{name: t for name, t in
                             dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2).items() if t is not None})
     lib = _build.load_library()
     t = x.numel() // dim
-    opts = dict(device=x.device, dtype=torch.bfloat16)
+    opts = dict(device=x.device, dtype=torch.float32 if fp32 else torch.bfloat16)
     xn = torch.empty(t, dim, **opts)
     h = torch.empty(t, f, **opts)
     out = torch.empty_like(x)
     ptr = lambda a: None if a is None else a.data_ptr()
+    head = (x.data_ptr(),) if fp32 else (x.data_ptr(), int(x.dtype == torch.float32))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.vt_fused_mlp(
-            x.data_ptr(), int(x.dtype == torch.float32),
-            ptr(ln_scale), ptr(ln_bias),
+        rc = (lib.vt_fused_mlp_f32 if fp32 else lib.vt_fused_mlp)(
+            *head, ptr(ln_scale), ptr(ln_bias),
             w1.data_ptr(), ptr(b1), w2.data_ptr(), ptr(b2),
             out.data_ptr(), xn.data_ptr(), h.data_ptr(),
             t, dim, f, ACTIVATIONS[activation], int(residual), float(ln_eps), stream,
         )
-    _build.check(lib, rc, "fused_mlp kernel")
-    _build.count_launch("fused_mlp")
+    _build.check(lib, rc, f"fused_mlp kernel ({'fp32' if fp32 else 'bf16'} route)")
+    _build.count_launch("fused_mlp", fp32=fp32)
     return out
 
 

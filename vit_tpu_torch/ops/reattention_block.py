@@ -27,13 +27,25 @@ The stage helpers (``_qkv``, ``_scores``, ``_talking_heads_probs``,
 ``_reattention_probs``, ``_pv_out``) compose the twins; ``chip_smoke.py``
 runs them on a kernel's own intermediates to hold it stage by stage.
 ``talking_heads_block_op`` and ``reattention_block_op`` are the two kernels
-as ``torch.library`` operators (``_build.define_op``). ``TalkingHeadsBlockFn``
-and ``ReattentionBlockFn`` are their autograd Functions: the kernel
-forward, ``vit_tpu``'s recompute backward. What the backward recomputes
-(``recompute_talking_heads_block``, ``recompute_reattention_block``) is
-``vit_tpu``'s XLA twin: the twin's function with each head mix one einsum
-and flax's LayerNorm across the heads, which needs no bitwise match with
-the kernel and runs a mix in one pass where the twin takes one a head.
+as ``torch.library`` operators (``_build.define_op``).
+
+Each kernel has two routes, chosen by the weights' dtype as ``vit_tpu``'s
+kernels choose their precision (reattention_block.py:61, :176): bf16
+weights (x bf16 or fp32) run the bf16 route (the wgmma GEMM, the head-mix
+core on mma.sync, P and each head's output rounded to bf16); fp32 weights
+with an fp32 x run the fp32 route (``csrc/gemm_f32.cuh`` and the fp32 core,
+``head_mix_f32_kernel``: every product an fp32 sum of fp32 operands, nothing
+rounded to bf16), as ``vit_tpu``'s kernels run fp32 weights at
+``Precision.HIGHEST``. fp32 weights on a bf16 stream are no ``vit_tpu``
+configuration and raise ``TypeError`` (``block_attention.weights_route``).
+
+``TalkingHeadsBlockFn`` and ``ReattentionBlockFn`` are their autograd
+Functions: the kernel forward, ``vit_tpu``'s recompute backward. What the
+backward recomputes (``recompute_talking_heads_block``,
+``recompute_reattention_block``) is ``vit_tpu``'s XLA twin: the twin's
+function with each head mix one einsum and flax's LayerNorm across the
+heads, which needs no bitwise match with the kernel and runs a mix in one
+pass where the twin takes one a head.
 """
 
 from __future__ import annotations
@@ -44,13 +56,18 @@ import torch
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import (
-    MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax, recompute_vjp,
+    MASK_VALUE, _ln_f32, _mm, _require_aligned, _softmax, recompute_vjp, weights_route,
 )
 
-MAX_TOKENS = 256  # the core's domain: n <= 256, heads <= 16, dim_head % 16 == 0 up to 128
+# the core's domain: vit_tpu fuses a head-mixing layer up to 1,024 tokens
+# (vit_tpu/nn/attention.py:213-249); heads <= 16, dim_head % 16 == 0 up to 128
+MAX_TOKENS = 1024
 MAX_HEADS = 16
+MAX_DIM_HEAD = 128
 
-_LATER = "ROADMAP.md Queue 1 item 5, head-mixing kernels beyond n <= 256, H <= 16, bf16 weights"
+_LATER = ("ROADMAP.md Queue 2 rows 7 and 8: the head-mix core runs one warp a head; more "
+          "than 16 heads or dim_head past 128 need another mapping, and vit_tpu fuses no "
+          "head-mixing layer past 1,024 tokens")
 
 
 # -- the twins' stages ----------------------------------------------------------
@@ -213,6 +230,7 @@ HEAD_MIX_VARIANTS = ("streamed", "resident")
 _HM_RESIDENT_TILES = 8
 _HM_MAX_SMEM = 232448  # 227 KB, the most one block may use
 _HM_PARAM_BYTES = (2 * MAX_HEADS * MAX_HEADS + 2 * MAX_HEADS) * 4
+_HM_F32_SLAB_TILES = 4  # the fp32 core's slab (hmix::F32_SLAB_TILES)
 
 
 class HeadMixPlan(NamedTuple):
@@ -226,7 +244,7 @@ class HeadMixPlan(NamedTuple):
     smem_bytes: int
 
 
-def head_mix_plan(n: int, heads: int, d: int) -> HeadMixPlan:
+def head_mix_plan(n: int, heads: int, d: int, fp32: bool = False) -> HeadMixPlan:
     """The core's plan for ``n`` tokens, ``heads`` heads of ``d``
     (``hmix::plan_for``, mirrored). A block is 16 query rows of one sample
     across every head, a warp a head. Its shared memory: the fp32 slab (16
@@ -235,8 +253,15 @@ def head_mix_plan(n: int, heads: int, d: int) -> HeadMixPlan:
     most 8 key tiles and its whole slab fits beside rings of two stages, with
     the deepest ring (up to 4) that fits; else ``streamed``, with a 3-stage
     ring where that leaves a slab of 4 tiles (or the whole row), else 2
-    stages and the widest slab that fits."""
+    stages and the widest slab that fits.
+
+    ``fp32``: the fp32 route's core (``hmix::plan_f32``): always
+    ``streamed``, a slab of up to ``_HM_F32_SLAB_TILES`` tiles and no ring
+    (its products read the fp32 qkv rows through L1)."""
     nkt = -(-n // 16)
+    if fp32:
+        ct = min(nkt, _HM_F32_SLAB_TILES)
+        return HeadMixPlan("streamed", ct, 0, heads * ct * 1024 + _HM_PARAM_BYTES)
     stage = 16 * (d + 8) * 2
     size = lambda ct, s: heads * ct * 1024 + _HM_PARAM_BYTES + heads * s * stage
     if nkt <= _HM_RESIDENT_TILES:
@@ -251,20 +276,29 @@ def head_mix_plan(n: int, heads: int, d: int) -> HeadMixPlan:
     return HeadMixPlan("streamed", 0, 0, 0)
 
 
+def check_domain(name: str, n: int, heads: int, d: int) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md outside the domain of
+    kernels 7 and 8 (both routes): n <= 1,024 tokens (where ``vit_tpu``
+    fuses a head-mixing layer), heads <= 16, dim_head a multiple of 16 up to
+    128."""
+    if not (0 < n <= MAX_TOKENS and 0 < heads <= MAX_HEADS and d % 16 == 0
+            and 0 < d <= MAX_DIM_HEAD):
+        raise NotImplementedError(
+            f"n={n}, heads={heads}, dim_head={d}: the {name} kernel takes n <= {MAX_TOKENS}, "
+            f"heads <= {MAX_HEADS} and dim_head % 16 == 0, <= {MAX_DIM_HEAD} ({_LATER})"
+        )
+
+
 def _check_block(name, x, ln_scale, ln_bias, wqkv, wout, bout, heads, mixes):
     """Validates the operands of either kernel (``mixes``: the head-mix
-    operands by name, each with its shape); returns dim_head."""
+    operands by name, each with its shape); returns (dim_head, the route)."""
     _build.refuse_grad(name, x, ln_scale, ln_bias, wqkv, wout, bout,
                        *(t for t, _ in mixes.values()))
     if not x.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors")
     if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be [B, N, D] bf16 or fp32, got {tuple(x.shape)} {x.dtype}")
-    if wqkv.dtype != torch.bfloat16 or wout.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the {name} kernel takes bf16 weights (got {wqkv.dtype}, {wout.dtype}); fp32 "
-            f"weights run only on the plain twin ({_LATER})"
-        )
+    route = weights_route(x, wqkv, wout)
     b, n, dim = x.shape
     hd = wqkv.shape[1] // 3 if wqkv.dim() == 2 else -1
     if heads <= 0 or hd <= 0 or hd % heads:
@@ -282,22 +316,19 @@ def _check_block(name, x, ln_scale, ln_bias, wqkv, wout, bout, heads, mixes):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
-    if dim % 8:
+    if route == "bf16" and dim % 8:
         raise ValueError(f"the kernel takes D % 8 == 0 (got {dim})")
-    if n > MAX_TOKENS or heads > MAX_HEADS or d % 16 or d > 128:
-        raise NotImplementedError(
-            f"n={n}, heads={heads}, dim_head={d}: the {name} kernel takes n <= {MAX_TOKENS}, "
-            f"heads <= {MAX_HEADS} and dim_head % 16 == 0, <= 128 ({_LATER})"
-        )
+    check_domain(name, n, heads, d)
     if b > 65535:
         raise ValueError(f"batch {b} > 65535 (one CUDA grid dimension)")
-    return d
+    return d, route
 
 
-def _launch(name, x, heads, d, true_n, intermediates, tensors, scalars):
-    """Allocates the output and scratch, runs the C entry ``vt_<name>`` on
-    the current stream with ``tensors`` (after x) and ``scalars`` (after the
-    shape), checks its rc and counts the launch."""
+def _launch(name, x, heads, d, route, true_n, intermediates, tensors, scalars):
+    """Allocates the output and scratch, runs the C entry ``vt_<name>`` (on
+    the fp32 route ``vt_<name>_f32``) on the current stream with ``tensors``
+    (after x) and ``scalars`` (after the shape), checks its rc and counts the
+    launch."""
     b, n, dim = x.shape
     hd = heads * d
     true_n = n if true_n is None else int(true_n)
@@ -305,7 +336,8 @@ def _launch(name, x, heads, d, true_n, intermediates, tensors, scalars):
         raise ValueError(f"true_n={true_n} outside (0, {n}]")
     lib = _build.load_library()
     rows = b * n
-    opts = dict(device=x.device, dtype=torch.bfloat16)
+    fp32 = route == "fp32"
+    opts = dict(device=x.device, dtype=torch.float32 if fp32 else torch.bfloat16)
     xn = torch.empty(rows, dim, **opts)
     qkv = torch.empty(rows, 3 * hd, **opts)
     attn = torch.empty(rows, hd, **opts)
@@ -315,15 +347,16 @@ def _launch(name, x, heads, d, true_n, intermediates, tensors, scalars):
         mixed = torch.empty(b, heads, n, n, device=x.device, dtype=torch.float32)
         p = torch.empty_like(mixed)
     ptr = lambda t: None if t is None else t.data_ptr()
+    head = (x.data_ptr(),) if fp32 else (x.data_ptr(), int(x.dtype == torch.float32))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"vt_{name}")(
-            x.data_ptr(), int(x.dtype == torch.float32), *(t.data_ptr() for t in tensors),
+        rc = getattr(lib, f"vt_{name}_f32" if fp32 else f"vt_{name}")(
+            *head, *(t.data_ptr() for t in tensors),
             out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ptr(mixed), ptr(p),
             b, n, dim, heads, d, *scalars, true_n, stream,
         )
-    _build.check(lib, rc, f"{name} kernel")
-    _build.count_launch(name)
+    _build.check(lib, rc, f"{name} kernel ({route} route)")
+    _build.count_launch(name, fp32=fp32)
     if intermediates is not None:
         intermediates.update(qkv=qkv, mixed=mixed, p=p, attn=attn)
     return out
@@ -349,20 +382,22 @@ def fused_talking_heads_block(
     ``residual``) on the card.
 
     ``x`` ``[B, N, D]`` bf16 or fp32; ``wqkv`` ``[D, 3*H*Dh]`` and ``wout``
-    ``[H*Dh, D]`` bf16; ``ln_scale``, ``ln_bias``, ``bout`` fp32 ``[D]``;
+    ``[H*Dh, D]`` bf16 (the bf16 route), or fp32 with an fp32 ``x`` (the
+    fp32 route; the intermediates then fp32 too); n <= 1,024, H <= 16,
+    Dh a multiple of 16 up to 128; ``ln_scale``, ``ln_bias``, ``bout`` fp32 ``[D]``;
     ``mix_pre``, ``mix_post`` fp32 ``[H, H]``. ``true_n`` masks padded keys.
     Returns a new tensor of ``x``'s shape and dtype, computed on the current
     stream. A dict passed as ``intermediates`` receives ``qkv`` ``[B*N,
     3*H*Dh]``, ``mixed`` (the pre-mixed, masked scores) and ``p`` (the
     post-mixed P), both fp32 ``[B, H, N, N]``, and ``attn`` ``[B*N, H*Dh]``."""
     hh = (heads, heads)
-    d = _check_block("talking_heads_block", x, ln_scale, ln_bias, wqkv, wout, bout,
-                              heads, {"mix_pre": (mix_pre, hh), "mix_post": (mix_post, hh)})
-    # both products run on the wgmma GEMM, whose TMA loads need 16-byte starts
-    _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
+    d, route = _check_block("talking_heads_block", x, ln_scale, ln_bias, wqkv, wout, bout,
+                            heads, {"mix_pre": (mix_pre, hh), "mix_post": (mix_post, hh)})
+    if route == "bf16":  # both products on the wgmma GEMM, whose TMA loads need 16-byte starts
+        _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
     scale = d**-0.5 if scale is None else scale
     return _launch(
-        "talking_heads_block", x, heads, d, true_n, intermediates,
+        "talking_heads_block", x, heads, d, route, true_n, intermediates,
         (ln_scale, ln_bias, wqkv, wout, bout, mix_pre, mix_post),
         (float(scale), float(ln_eps), int(residual)),
     )
@@ -391,16 +426,16 @@ def fused_reattention_block(
     H]`` and ``rln_scale``, ``rln_bias`` fp32 ``[H]``. A dict passed as
     ``intermediates`` receives ``qkv``, ``mixed`` (the mixed softmax ``r``),
     ``p`` (the normalised ``r'``, padded key columns zeroed) and ``attn``."""
-    d = _check_block(
+    d, route = _check_block(
         "reattention_block", x, ln_scale, ln_bias, wqkv, wout, bout, heads,
         {"mix": (mix, (heads, heads)), "rln_scale": (rln_scale, (heads,)),
          "rln_bias": (rln_bias, (heads,))},
     )
-    # both products run on the wgmma GEMM, whose TMA loads need 16-byte starts
-    _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
+    if route == "bf16":  # both products on the wgmma GEMM, whose TMA loads need 16-byte starts
+        _require_aligned(x=x, wqkv=wqkv, wout=wout, bout=bout)
     scale = d**-0.5 if scale is None else scale
     return _launch(
-        "reattention_block", x, heads, d, true_n, intermediates,
+        "reattention_block", x, heads, d, route, true_n, intermediates,
         (ln_scale, ln_bias, wqkv, wout, bout, mix, rln_scale, rln_bias),
         (float(scale), float(ln_eps), float(reattn_eps)),
     )

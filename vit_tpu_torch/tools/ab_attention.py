@@ -76,6 +76,8 @@ TAG = "AB_RESULT "
 GSA = ((3136, 64), (784, 16), (196, 4), (49, 1))
 LSA = ((64, 64), (16, 128), (4, 256))  # Twins' LSA stages: 7 x 7 windows an image, C
 K1_LAUNCHES = ("ln", "qkv gemm", "attention", "out gemm")
+FILLER_LAUNCHES = 128  # marker kernels that open each profiled window
+MARKER_CYCLES = 1000  # the marker kernel's spin, about a microsecond
 
 
 def _device_ms(fn, iters=10) -> float:
@@ -95,36 +97,40 @@ def _device_ms(fn, iters=10) -> float:
     return total / iters / 1e3
 
 
-def _marked_events(fn, calls) -> list:
+def _marked_events(fn, calls, burst=FILLER_LAUNCHES) -> list:
     """The device events of ``calls`` calls of ``fn``, profiled, in launch
-    order. The profiler can miss the launches of the first milliseconds of
-    its window (on the H100, from 3 to about 40 launches of 40 us calls), so
-    ``fn`` first runs, synchronised, for 50 ms; then, after a 50 ms gap, the
-    calls run inside a marked range, and the events that start past the
-    middle of the gap are theirs, whatever the offset between the host's and
-    the device's clocks in the trace."""
+    order. The calls are found on the device's own timeline, after a marker
+    kernel (``torch.cuda._sleep``'s ``spin_kernel``, which no wrapper
+    launches), and not by the host's clock: late in a long process on the
+    H100, a mark set on the host's clock 25 ms before the calls once kept
+    only the last two of the 40 launches of ten 25 ms calls of kernel 7,
+    in five windows in a row. The profiler can also miss the first launches of
+    its window (from 3 to about 40 launches of 40 us calls), so the window
+    opens with ``burst`` marker launches, then ``fn`` runs, synchronised,
+    for 50 ms and at least twice, then one marker, then the calls."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < 0.05:
+        for _ in range(burst):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        t0, warm = time.perf_counter(), 0
+        while time.perf_counter() - t0 < 0.05 or warm < 2:
             fn()
             torch.cuda.synchronize()
-        time.sleep(0.05)
-        with record_function("ab_marked_calls"):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    # (the range shows on the device's timeline too, as an annotation)
-    events = prof.events()
-    mark = min(e.time_range.start for e in events if e.name == "ab_marked_calls") - 25_000
-    return sorted((e for e in events if e.device_type == DeviceType.CUDA
-                   and e.name != "ab_marked_calls" and e.time_range.start >= mark),
-                  key=lambda e: e.time_range.start)
+            warm += 1
+        torch.cuda._sleep(MARKER_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    return events[marks[-1] + 1:] if marks else []
 
 
 def launch_ms(fn, n, iters=10, tries=5) -> list:

@@ -21,6 +21,13 @@ change:
 
 A BatchNorm's running statistics (``batch_stats/<path>/{mean, var}``) go
 to the buffers of the same path, beside the parameters.
+
+Every variant of ``nn.Attention`` keeps ``vit_tpu``'s names, so its tree
+maps by path: the flax branch's ``norm`` (absent without ``pre_norm``),
+``to_qkv`` or ``to_q`` / ``to_kv`` (their ``bias`` only with ``qkv_bias``)
+and ``to_out`` (absent without the output projection), with
+``mix_heads_pre`` / ``mix_heads_post``, ``reattn_*`` and ``log_temperature``
+beside them, as on the raw-parameter branch.
 """
 
 from __future__ import annotations
