@@ -330,7 +330,18 @@ Runs, in order, and exits non-zero at the first failure:
      in bf16, CaiT-S24/384 and DeepViT-384 on the fp32 route too, with exact
      launches and no twin called, against the plain fp32 path; the
      attention variants on kernel 4; the Functions at 576 tokens and in
-     fp32; the kernels at batch 128 against twin, library and bound.
+     fp32; the kernels at batch 128 against twin, library and bound;
+ 28. vit_tpu's default fp32 models (``phase_f32_models``): the fp32 routes
+     of kernels 1, 3, 4 and 6 (the fp32 core ``attention_f32.cuh``, the
+     blocks' products on ``gemm_f32.cuh``) against their fp32 twins at the
+     families' shapes, batch 128 (``F32_ROUTE_CASES``), with planted faults
+     (bf16 qkv, padded keys unmasked, the bias or the mask_self diagonal
+     dropped) failing the bound and each route batch-invariant bitwise;
+     ViT-L/16, NesT, Twins-SVT and CvT served in fp32 through
+     ``BatchingServer`` with exact launches, all on the fp32 routes, no twin
+     called, logits against the plain fp32 path; ViT-L's fp32 times; the
+     four Functions forward on the fp32 routes against autograd through the
+     twins; each route at batch 128 against twin, library and bound.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -2931,16 +2942,16 @@ def p50_ms(fn, reps) -> float:
     return statistics.median(times)
 
 
-def phase_times(models, image_size, dev, smi):
+def phase_times(models, image_size, dev, smi, x_dtype=torch.bfloat16):
     """img/s at batch 128 and p50 latency at batch 1, 8, 128 of each model
-    (a dict by config name): kernel path against the plain path on this
-    card, in turns (kernel, plain, plain, kernel)."""
+    (a dict by config name) on images of ``x_dtype``: kernel path against
+    the plain path on this card, in turns (kernel, plain, plain, kernel)."""
     from vit_tpu_torch import ops
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for config, model in models.items():
         for b in (1, 8, 128):
-            x = torch.randn(b, image_size, image_size, 3, generator=gen, device=dev).bfloat16()
+            x = torch.randn(b, image_size, image_size, 3, generator=gen, device=dev).to(x_dtype)
             with torch.inference_mode():
                 kernel = lambda: model(x)
 
@@ -3267,13 +3278,13 @@ def phase_int8_times(qmodel, dev, smi):
           f"{128 / pl * 1e3:.1f} (p50 {kern:.3f} / {pl:.3f} ms) [{smi}]")
 
 
-def phase_profile(name, model, image_size, dev, smi):
-    """Device time by kernel for one forward at batch 128, from
-    torch.profiler: where a slice's time goes."""
+def phase_profile(name, model, image_size, dev, smi, x_dtype=torch.bfloat16):
+    """Device time by kernel for one forward at batch 128 on images of
+    ``x_dtype``, from torch.profiler: where a slice's time goes."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn(128, image_size, image_size, 3, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(SEED + 6)).bfloat16()
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 6)).to(x_dtype)
     with torch.inference_mode():
         model(x)
         torch.cuda.synchronize()
@@ -3743,15 +3754,18 @@ def phase_twins_kernels(dev):
     return worst
 
 
-def build_twins_models(dev):
-    """The Twins-SVT preset from weights drawn with a seed, in bf16 and fp32,
-    loaded through from_jax_params."""
+def build_twins_models(dev, state=None):
+    """The Twins-SVT preset in bf16 and fp32 from weights drawn with a seed,
+    loaded through from_jax_params, or from ``state``, their state dict (the
+    draw takes ~20 s of the host's time)."""
     from vit_tpu_torch.models import TwinsSVT
     from vit_tpu_torch.utils import from_jax_params
 
     models = {("twins", config): TwinsSVT(**TWINS, dtype=dtype, device=dev).eval()
               for config, dtype in (("bf16", torch.bfloat16), ("fp32", None))}
-    state = from_jax_params(twins_tree(TWINS, SEED + 11), models[("twins", "bf16")].jax_stages)
+    if state is None:
+        state = from_jax_params(twins_tree(TWINS, SEED + 11),
+                                models[("twins", "bf16")].jax_stages)
     for model in models.values():
         model.load_state_dict(state, strict=True)
     n = sum(p.numel() for p in models[("twins", "bf16")].parameters())
@@ -5255,16 +5269,18 @@ def phase_zoo5_kernels(dev):
     phase_zoo_kernels(dev, (), ZOO5_MLP, (), SEED + 41)
 
 
-def build_zoo5_models(dev):
-    """The CvT and LeViT presets from one unfolded tree each (params and
-    BatchNorm statistics drawn from a seed): ``bf16`` folded
-    (``fold_batch_norm``, ``fold_bn=True``), ``fp32`` unfolded, its
+def build_zoo5_models(dev, fams=ZOO5_FAMILIES):
+    """The CvT and LeViT presets (``fams`` of them) from one unfolded tree
+    each (params and BatchNorm statistics drawn from a seed): ``bf16``
+    folded (``fold_batch_norm``, ``fold_bn=True``), ``fp32`` unfolded, its
     BatchNorms on the plain path."""
     from vit_tpu_torch.models import CvT, LeViT
     from vit_tpu_torch.utils import fold_batch_norm, from_jax_params
 
     models = {}
     for fam, ctor, cfg, tree in (("cvt", CvT, CVT, cvt_tree), ("levit", LeViT, LEVIT, levit_tree)):
+        if fam not in fams:
+            continue
         t = tree(cfg, SEED + (38 if fam == "cvt" else 39))
         for config, dtype, fold in (("bf16", torch.bfloat16, True), ("fp32", None, False)):
             model = ctor(**cfg, fold_bn=fold, dtype=dtype, device=dev).eval()
@@ -9077,13 +9093,15 @@ DOMAIN_VARIANTS = (
 
 
 def _twin_calls():
-    """A context that counts every call of the plain twins of kernels 1, 2, 7
-    and 8 through the ops entries (the serving path must make none)."""
+    """A context that counts every call of the plain twins of kernels 1-8
+    through the ops entries (the serving path must make none)."""
     from vit_tpu_torch import ops
 
     calls = collections.Counter()
     stack = contextlib.ExitStack()
-    for name in ("xla_attention_block", "reference_mlp", "xla_talking_heads_block",
+    for name in ("xla_attention_block", "reference_mlp", "xla_qkv_attention",
+                 "reference_attention", "reference_attention_kv_blocked",
+                 "xla_window_attention_block", "xla_talking_heads_block",
                  "xla_reattention_block"):
         real = getattr(ops, name)
         stack.enter_context(mock.patch.object(
@@ -9347,8 +9365,8 @@ def phase_domain_serve(dev, smi, requests):
             with stack:
                 serve_family(models[config], name, requests, fp32_counts=got)
             forwards = got.pop("forwards")
-            want = {k: n * forwards * (config == "fp32") for k, n in FAMILY_LAUNCHES[name].items()
-                    if k in got}
+            want = {k: FAMILY_LAUNCHES[name].get(k, 0) * forwards * (config == "fp32")
+                    for k in got}
             print(f"slice {name} {config}: fp32-route launches {got} (want {want}); twin calls "
                   f"{dict(calls)} (want none)")
             require(got == want, f"slice {name} {config}: fp32-route launches {got}, want {want}")
@@ -9540,6 +9558,432 @@ def phase_head_mix_domain(dev, smi, requests):
     return worst, fp32_launches, op_ms, grads
 
 
+# -- phase 28: vit_tpu's default fp32 models on the fp32 routes of kernels 1, 3, 4, 6 --
+
+# ViT-L/16 served in fp32 (28b): 24 attention blocks and 24 MLPs a forward.
+FAMILY_LAUNCHES["vit_l"] = {"attention_block": 24, "fused_mlp": 24, "qkv_attention": 0,
+                            "flash_attention": 0, "flash_attention_kv_blocked": 0,
+                            "window_attention_block": 0}
+IMAGE_SIZE["vit_l"] = 224
+# The fp32 models of 28b: vit_tpu's flagship and the NesT, Twins-SVT and CvT
+# presets (vit_tpu/models/presets.py:93-127), at its default precision.
+F32_FAMILIES = ("vit_l", "nest", "twins", "cvt")
+# The kernels that take the fp32 core (csrc/attention_f32.cuh), with what
+# their fp32 routes launch, in order (kernels 3 and 4: the core alone).
+F32_CORE_KERNELS = ("attention_block", "qkv_attention", "flash_attention",
+                    "window_attention_block")
+_F32_BLOCK = (("ln", "ln_rows_kernel"), ("qkv gemm", "gemm_f32_kernel"),
+              ("core", "attention_f32_kernel"), ("out gemm", "gemm_f32_kernel"))
+F32_LAUNCHES = {"attention_block": _F32_BLOCK, "window_attention_block": _F32_BLOCK,
+                "qkv_attention": (("core", "attention_f32_kernel"),),
+                "flash_attention": (("core", "attention_f32_kernel"),)}
+# 28a: each fp32 route against its fp32 twin on the card at the shapes of the
+# families that run it (phases 4, 11-15), batch 128 (its windows for kernel
+# 6): (what, kernel, shape, the faults planted in the twin, each of which
+# must fail DOMAIN_F32_TOL). ViT-L's stream is not padded in the port; the
+# second line pads it to 208 tokens with true_n 197, the key mask's case.
+# CrossFormer's 1-token windows see no bias (a one-key softmax is 1).
+F32_ROUTE_CASES = (
+    ("ViT-L/16 [128, 197, 1024], 16 x 64", "attention_block",
+     dict(b=128, n=197, dim=1024, heads=16, d=64), ("qkv weights rounded to bf16",)),
+    ("ViT-L/16 padded to 208 tokens, true_n 197", "attention_block",
+     dict(b=128, n=208, dim=1024, heads=16, d=64, true_n=197), ("padded keys left unmasked",)),
+    ("PiT stage 0 [128, 962, 256], 16 x 64", "attention_block",
+     dict(b=128, n=962, dim=256, heads=16, d=64), ("qkv weights rounded to bf16",)),
+    ("NesT level 0 [2048, 196, 288], 3 x 32", "qkv_attention",
+     dict(b=2048, n=196, heads=3, d=32), ("qkv rounded to bf16",)),
+    ("RegionViT joint windows [8192, 50, 384], bias [1, 4, 50, 50]", "qkv_attention",
+     dict(b=8192, n=50, heads=4, d=32, bias=(1, 4)), ("qkv rounded to bf16", "bias dropped")),
+    ("ScalableViT IWSA stage 1 [128, 1024, 384], 4 x 32", "qkv_attention",
+     dict(b=128, n=1024, heads=4, d=32), ("qkv rounded to bf16",)),
+    ("CvT stage 1 [128, 1, 3136 x 784 keys, 64]", "flash_attention",
+     dict(b=128, h=1, nq=3136, nk=784, d=64, dv=64), ("q, k and v rounded to bf16",)),
+    ("LeViT stage 0 [128, 4, 196, 32 / 64], bias [1, 4, 196, 196]", "flash_attention",
+     dict(b=128, h=4, nq=196, nk=196, d=32, dv=64, bias=(1, 4)),
+     ("q, k and v rounded to bf16", "bias dropped")),
+    ("Twins GSA stage 1 [128, 8, 3136 x 64 keys, 64] views", "flash_attention",
+     dict(b=128, h=8, nq=3136, nk=64, d=64, dv=64), ("q, k and v rounded to bf16",)),
+    ("mask_self [128, 16, 197, 64]", "flash_attention",
+     dict(b=128, h=16, nq=197, nk=197, d=64, dv=64, mask_self=True), ("mask_self dropped",)),
+    ("Twins LSA stage 1 [8192, 49, 64], 8 x 64", "window_attention_block",
+     dict(nw=8192, s=49, c=64, heads=8, d=64), ("qkv weights rounded to bf16",)),
+    ("CrossFormer stage 0 SDA [8192, 49, 64], 2 x 32, bias [2, 49, 49]",
+     "window_attention_block", dict(nw=8192, s=49, c=64, heads=2, d=32, bias=(2,)),
+     ("qkv weights rounded to bf16", "bias dropped")),
+    ("CrossFormer stage 3 LDA [6272, 1, 512], 16 x 32", "window_attention_block",
+     dict(nw=6272, s=1, c=512, heads=16, d=32, bias=(16,)), ("qkv weights rounded to bf16",)),
+)
+# The case of each kernel whose times stand in the kernels line.
+F32_HEADLINE = {"attention_block": 0, "qkv_attention": 3, "flash_attention": 6,
+                "window_attention_block": 10}
+
+
+def _randn(gen, dev):
+    """Unit-normal fp32 tensors of any size from ``gen`` on ``dev``."""
+    return lambda *size: torch.randn(*size, generator=gen, device=dev)
+
+
+def f32_route_inputs(r, kind, shape):
+    """fp32 inputs of kernel ``kind`` at ``shape`` (F32_ROUTE_CASES), in
+    ``ALL_FN_ARGS`` order, and its options (``function_twin``'s ``kw``),
+    each tensor drawn by ``r(*size)`` (unit normal): unit-scale
+    activations, weights scaled by their fan-in, a unit bias; kernel 4's q,
+    k, v as GSA's ``split_heads`` views where Dv == D."""
+    from vit_tpu_torch.nn.attention import split_heads
+
+    sh = dict(shape)
+    bias = sh.pop("bias", None)
+    if kind in ("attention_block", "window_attention_block"):
+        rows = (sh["b"], sh["n"]) if kind == "attention_block" else (sh["nw"], sh["s"])
+        dim = sh["dim"] if kind == "attention_block" else sh["c"]
+        heads, d = sh["heads"], sh["d"]
+        hd = heads * d
+        args = [r(*rows, dim), 1.0 + 0.1 * r(dim), 0.1 * r(dim), r(dim, 3 * hd) / dim**0.5,
+                r(hd, dim) / hd**0.5, 0.1 * r(dim)]
+        kw = dict(heads=heads, scale=d**-0.5)
+        if kind == "attention_block":
+            return args, dict(kw, ln_eps=1e-6, true_n=sh.get("true_n"))
+        return args + [None if bias is None else r(*bias, sh["s"], sh["s"])], dict(kw, ln_eps=1e-5)
+    if kind == "qkv_attention":
+        b, n, heads, d = sh["b"], sh["n"], sh["heads"], sh["d"]
+        return ([r(b, n, 3 * heads * d), None if bias is None else r(*bias, n, n)],
+                dict(heads=heads, scale=d**-0.5))
+    b, h, nq, nk, d, dv = (sh[k] for k in ("b", "h", "nq", "nk", "d", "dv"))
+    if dv == d:
+        q = split_heads(r(b, nq, h * d), h)
+        k, v = (split_heads(t, h) for t in r(b, nk, 2 * h * d).chunk(2, dim=-1))
+    else:
+        q, k, v = r(b, h, nq, d), r(b, h, nk, d), r(b, h, nk, dv)
+    return ([q, k, v, None if bias is None else r(*bias, nq, nk)],
+            dict(scale=d**-0.5, mask_self=sh.get("mask_self", False)))
+
+
+def f32_route_kernel(kind, kw):
+    """The kernel wrapper of ``kind`` on ``ALL_FN_ARGS``-ordered operands,
+    as ``function_twin`` gives its twin."""
+    from vit_tpu_torch import ops
+
+    if kind == "attention_block":
+        return lambda *a: ops.fused_attention_block(*a, kw["heads"], kw["scale"], kw["ln_eps"],
+                                                    kw.get("true_n"))
+    if kind == "qkv_attention":
+        return lambda qkv, bias: ops.fused_qkv_attention(qkv, kw["heads"], bias, kw["scale"])
+    if kind == "window_attention_block":
+        return lambda *a: ops.fused_window_attention_block(*a[:6], kw["heads"], a[6],
+                                                           kw["scale"], kw["ln_eps"])
+    return lambda q, k, v, bias: ops.flash_attention(q, k, v, bias, kw["scale"], kw["mask_self"])
+
+
+def f32_route_fault(fault, kind, args, kw):
+    """The twin of ``kind`` with one planted fault of F32_ROUTE_CASES."""
+    args, kw = list(args), dict(kw)
+    bf = lambda t: t.bfloat16().float()
+    if fault == "qkv weights rounded to bf16":
+        args[3] = bf(args[3])
+    elif fault in ("qkv rounded to bf16", "q, k and v rounded to bf16"):
+        n = 3 if kind == "flash_attention" else 1
+        args[:n] = [bf(t) for t in args[:n]]
+    elif fault == "padded keys left unmasked":
+        kw["true_n"] = None
+    elif fault == "bias dropped":
+        args[-1] = None
+    elif fault == "mask_self dropped":
+        kw["mask_self"] = False
+    else:
+        raise ValueError(fault)
+    return function_twin(kind, kw)(*args)
+
+
+def f32_route_change(kind, args, out, kw):
+    """The rows that count (the real tokens of a padded stream) and the
+    largest change the op makes there (kernel 1: out - x)."""
+    tn = kw.get("true_n")
+    rows = (slice(None), slice(None, tn)) if tn else (slice(None),)
+    base = args[0][rows] if kind == "attention_block" else 0.0
+    return rows, (out[rows] - base).abs().max().item()
+
+
+def f32_batch_slice(kind, args, part):
+    """``args`` of kernel ``kind`` cut to the samples (kernel 6: windows)
+    ``part``: x, qkv or q, k, v, and a bias whose batch axis is full."""
+    b = args[0].shape[0]
+    batched = {"attention_block": 1, "window_attention_block": 1, "qkv_attention": 2,
+               "flash_attention": 4}[kind]
+    return [t[part] if i < batched and t is not None and t.shape[0] == b else t
+            for i, t in enumerate(args)]
+
+
+def check_f32_route(name, kind, shape, faults, gen, dev):
+    """One F32_ROUTE_CASES line: the fp32 route (one fp32-counted launch,
+    fp32 out) within DOMAIN_F32_TOL of the largest change against its fp32
+    twin, each planted fault over that bound, and a slice of the batch (of
+    the windows for kernel 6) bitwise the full call's rows. Returns max
+    |err|."""
+    from vit_tpu_torch import ops
+
+    args, kw = f32_route_inputs(_randn(gen, dev), kind, shape)
+    kern = f32_route_kernel(kind, kw)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = kern(*args)
+        torch.cuda.synchronize()
+        counts = ops.fp32_launch_counts()
+        ref = function_twin(kind, kw)(*args)
+        rows, delta = f32_route_change(kind, args, ref, kw)
+        err = (out[rows] - ref[rows]).abs().max().item()
+        tol = DOMAIN_F32_TOL * delta
+        print(f"fp32 route {kind} {name}: max_abs_err {err:.6g}, {err / delta:.3g} of the largest "
+              f"change {delta:.4g} (bound {DOMAIN_F32_TOL:g}); fp32 launches {counts[kind]}")
+        require(out.dtype == torch.float32 and out.shape == ref.shape,
+                f"fp32 route {kind} {name}: out {out.dtype} {tuple(out.shape)}")
+        require(counts[kind] == 1 and sum(counts.values()) == 1,
+                f"fp32 route {kind} {name}: fp32 launches {counts}")
+        require(torch.isfinite(out[rows]).all().item() and err <= tol,
+                f"fp32 route {kind} {name}: error {err} > {tol}")
+        for fault in faults:
+            bad = f32_route_fault(fault, kind, args, kw)
+            e = (bad[rows] - ref[rows]).abs().max().item()
+            print(f"fp32 route {kind} {name}: the twin with {fault}: {e / delta:.3g} of the "
+                  f"largest change, {e / tol:.3g}x the bound (must fail)")
+            require(e > tol, f"fp32 route {kind} {name}: the bound does not see {fault}")
+            del bad
+        # batch invariance: samples 4 and 5 (windows 8-15) alone
+        part = slice(8, 16) if kind == "window_attention_block" else slice(4, 6)
+        alone = kern(*f32_batch_slice(kind, args, part))
+        require(torch.equal(alone, out[part]),
+                f"fp32 route {kind} {name}: rows {part} alone differ from the full call's")
+    del args, out, ref, alone
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_f32_kernels(dev):
+    """28a: every F32_ROUTE_CASES line. Returns max |err| by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 280)
+    worst = collections.defaultdict(float)
+    for name, kind, shape, faults in F32_ROUTE_CASES:
+        worst[kind] = max(worst[kind], check_f32_route(name, kind, shape, faults, gen, dev))
+    return dict(worst)
+
+
+def build_f32_models(dev, fam, states):
+    """28b's family ``fam`` in bf16 and fp32 from one tree drawn with a seed
+    (CvT: bf16 folded, fp32 unfolded, as phase 15 builds it); ViT-L's and
+    Twins-SVT's from the state dicts ``states`` that phases 3 and 8 drew."""
+    from vit_tpu_torch.models import NesT
+
+    if fam == "vit_l":
+        return {(fam, c): build_model(states["vit_l"], dev, c) for c in ("bf16", "fp32")}
+    if fam == "nest":
+        return build_family_models({"nest": (lambda dt: NesT(**NEST, dtype=dt, device=dev),
+                                             lambda: nest_tree(NEST, SEED + 30))})
+    if fam == "twins":
+        return build_twins_models(dev, states["twins"])
+    return build_zoo5_models(dev, fams=("cvt",))
+
+
+def f32_e2e(fam, models, dev, requests):
+    """The fp32 route's logits against the plain fp32 path (the fp32 model
+    under force_backend): within DOMAIN_F32_E2E of max |logit| and under
+    DOMAIN_F32_SHARE of the bf16 kernel path's distance. Returns the fp32
+    route's distance."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.pipeline import preprocess
+
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    size = IMAGE_SIZE[fam]
+    x32 = preprocess(raw, image_size=size, dtype=torch.float32)
+    x16 = preprocess(raw, image_size=size, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with ops.force_backend("torch"):
+            ref = models[(fam, "fp32")](x32)
+        route = models[(fam, "fp32")](x32)
+        out16 = models[(fam, "bf16")](x16)
+    top = ref.abs().max().item()
+    e16 = (out16.float() - ref).abs().max().item()
+    e32 = (route - ref).abs().max().item()
+    print(f"e2e {fam} fp32 route vs plain fp32: max|dlogit| {e32:.6g} ({e32 / top:.3g} of "
+          f"max|logit| {top:.4g}, bound {DOMAIN_F32_E2E:g}); {e32 / e16:.3g} of the bf16 kernel "
+          f"path's distance {e16:.6g} (bound {DOMAIN_F32_SHARE:g}); top-1 agreement "
+          f"{(route.argmax(-1) == ref.argmax(-1)).float().mean().item():.3f}")
+    require(route.dtype == torch.float32 and torch.isfinite(route).all().item(),
+            f"e2e {fam}: fp32-route logits {route.dtype}, finite {torch.isfinite(route).all()}")
+    require(e32 <= DOMAIN_F32_E2E * top, f"e2e {fam} fp32 route: {e32} > {DOMAIN_F32_E2E} x {top}")
+    require(e32 < DOMAIN_F32_SHARE * e16,
+            f"e2e {fam} fp32 route: {e32} not under {DOMAIN_F32_SHARE} x the bf16 path's {e16}")
+    return e32
+
+
+def phase_f32_serve(dev, smi, requests, states):
+    """28b: the F32_FAMILIES served in fp32 through BatchingServer at full
+    width and depth, each forward with exactly FAMILY_LAUNCHES launches, all
+    of them on the fp32 routes (ops.fp32_launch_counts), and no twin of
+    kernels 1-8 called; the logits against the plain fp32 path (f32_e2e).
+    ViT-L's times at batch 1, 8 and 128 against the plain fp32 path, and its
+    profile at batch 128. Returns
+    the fp32 routes' launches by kernel over the served forwards."""
+    fp32_launches = collections.Counter()
+    for fam in F32_FAMILIES:
+        t0 = time.perf_counter()
+        models = build_f32_models(dev, fam, states)
+        print(f"{fam}: weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+        stack, calls = _twin_calls()
+        got = {}
+        with stack:
+            serve_family(models[(fam, "fp32")], fam, requests, fp32_counts=got)
+        forwards = got.pop("forwards")
+        want = {k: FAMILY_LAUNCHES[fam].get(k, 0) * forwards for k in got}
+        print(f"slice {fam} fp32: fp32-route launches {got} (want {want}); twin calls "
+              f"{dict(calls)} (want none)")
+        require(got == want, f"slice {fam} fp32: fp32-route launches {got}, want {want}")
+        require(not calls, f"slice {fam} fp32: twins called {dict(calls)}")
+        fp32_launches.update(got)
+        f32_e2e(fam, models, dev, requests)
+        if fam == "vit_l":
+            phase_times({"vit_l fp32": models[(fam, "fp32")]}, 224, dev, smi,
+                        x_dtype=torch.float32)
+            phase_profile("vit_l fp32", models[(fam, "fp32")], 224, dev, smi,
+                          x_dtype=torch.float32)
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(fp32_launches)
+
+
+def phase_f32_functions(dev):
+    """28c: AttentionBlockFn, QkvAttentionFn, FlashAttentionFn and
+    WindowAttentionBlockFn forward on their fp32 routes (one fp32-counted
+    launch each) and backward through the twins' recompute, against autograd
+    through the twins, with the planted backward faults (check_function).
+    Returns the worst gradient error by kernel."""
+    from vit_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 281)
+    worst = {}
+    for kind, what, shape in (
+            ("attention_block", "[2, 197, 256], 4 x 64", dict(b=2, n=197, dim=256, heads=4, d=64)),
+            ("qkv_attention", "[4, 50, 384], bias [1, 4, 50, 50]",
+             dict(b=4, n=50, heads=4, d=32, bias=(1, 4))),
+            ("flash_attention", "[2, 4, 196, 32 / 64], bias [1, 4, 196, 196]",
+             dict(b=2, h=4, nq=196, nk=196, d=32, dv=64, bias=(1, 4))),
+            ("window_attention_block", "[16, 49, 64], 2 x 32, bias [2, 49, 49]",
+             dict(nw=16, s=49, c=64, heads=2, d=32, bias=(2,)))):
+        args, kw = f32_route_inputs(_randn(gen, dev), kind, shape)
+        err, _ = _function_line(kind, f"{what} fp32", args, kw, gen)
+        n32 = ops.fp32_launch_counts()[kind]
+        print(f"function {kind} {what} fp32: {n32} fp32-route launches in the checked call")
+        require(n32 >= 1, f"function {kind} {what}: its forward did not take the fp32 route")
+        worst[kind] = err
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_f32_op_times(dev, smi):
+    """28d: each F32_ROUTE_CASES line timed: the kernel (CUDA events) and its
+    device split by launch (torch.profiler; fails unless the launches are
+    F32_LAUNCHES'), the bound at PEAK_FP32 and PEAK_BYTES, the fp32 twin and
+    the fp32 library composite (TF32 off: F.layer_norm, fp32 cuBLAS, SDPA on
+    fp32 operands, fp32 cuBLAS). Returns (kernel, twin, library, (bound,
+    by)) of each kernel's F32_HEADLINE case."""
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 282)
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
+    out = {}
+    for i, (name, kind, shape, _) in enumerate(F32_ROUTE_CASES):
+        args, kw = f32_route_inputs(_randn(gen, dev), kind, shape)
+        kern, twin = f32_route_kernel(kind, kw), function_twin(kind, kw)
+        lib = f32_library(kind, args, kw)
+        flops = f32_route_flops(kind, args, kw)
+        with torch.inference_mode():
+            y = kern(*args)
+            times = (cuda_ms(lambda: kern(*args), iters=5, warmup=1),
+                     cuda_ms(lambda: twin(*args), iters=2, warmup=1),
+                     cuda_ms(lib, iters=3, warmup=1),
+                     bound(nbytes=size(*args) + size(y), fp32_flops=flops))
+            split = launch_ms(lambda: kern(*args), len(F32_LAUNCHES[kind]), iters=3)
+        names = kernel_names(split)
+        require(all(key in nm for (_, key), nm in zip(F32_LAUNCHES[kind], names)),
+                f"{kind} fp32 route launched {names}, not {[k for _, k in F32_LAUNCHES[kind]]}")
+        k_ms, t_ms, l_ms, (b_ms, by) = times
+        parts = ", ".join(f"{what} {t:.4f} ms" for (what, _), (_, t) in zip(F32_LAUNCHES[kind],
+                                                                          split))
+        core = split[[w for w, _ in F32_LAUNCHES[kind]].index("core")][1]
+        attn_flops = f32_route_flops(kind, args, kw, core_only=True)
+        print(f"op {kind} (fp32 route) {name}: kernel {k_ms:.4f} ms (device {parts}; core "
+              f"{attn_flops / core / 1e9:.1f} TFLOP/s), twin {t_ms:.4f} ms, library {l_ms:.4f} ms "
+              f"({k_ms / l_ms:.2f}x), bound {b_ms:.4f} ms ({by}; {b_ms / k_ms:.1%} of it) [{smi}]")
+        if F32_HEADLINE[kind] == i:
+            out[f"{kind} (fp32 route)"] = times
+        del args, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_route_flops(kind, args, kw, core_only=False):
+    """The fp32 operations of one call of ``kind`` at these inputs: both
+    products of the blocks and the core's Q K^T and P V."""
+    if kind == "flash_attention":
+        b, h, nq, d = args[0].shape
+        nk, dv = args[1].shape[2], args[2].shape[3]
+        return 2 * b * h * nq * nk * (d + dv)
+    heads = kw["heads"]
+    if kind == "qkv_attention":
+        b, n, three_hd = args[0].shape
+        return 4 * b * n * n * three_hd // 3
+    b, n, dim = args[0].shape
+    hd = args[4].shape[0]
+    core = 4 * b * n * n * hd
+    return core if core_only else core + 2 * b * n * dim * 3 * hd + 2 * b * n * hd * dim
+
+
+def f32_library(kind, args, kw):
+    """One call of the fp32 library composite of ``kind`` (the yardstick
+    only; the port calls none of it): F.layer_norm, fp32 cuBLAS, SDPA on fp32
+    operands with the bias (and mask_self's diagonal) as its additive mask."""
+    from vit_tpu_torch.ops.flash_attention import MASK_VALUE
+
+    if kind == "attention_block" and kw.get("true_n"):  # the padded keys masked out
+        x, ln_scale, ln_bias, wqkv, wout, bout = args
+        keys = (torch.arange(x.shape[1], device=x.device) < kw["true_n"]).view(1, -1)
+
+        def padded():
+            xn = F.layer_norm(x, (x.shape[-1],), ln_scale, ln_bias, kw["ln_eps"])
+            o = F.scaled_dot_product_attention(*split_heads(torch.matmul(xn, wqkv), kw["heads"]),
+                                               attn_mask=keys)
+            return torch.matmul(merge_heads(o), wout) + bout + x
+        return padded
+    if kind == "attention_block":
+        return lambda: library_attention_block(*args, kw["heads"])
+    if kind == "window_attention_block":
+        return lambda: library_window_block(*args[:6], kw["heads"], args[6])
+    if kind == "qkv_attention":
+        qkv, bias = args
+        return lambda: merge_heads(F.scaled_dot_product_attention(
+            *split_heads(qkv, kw["heads"]), attn_mask=bias, scale=kw["scale"]))
+    q, k, v, bias = args
+    mask = bias
+    if kw["mask_self"]:  # the diagonal's fill in the additive mask
+        eye = torch.eye(q.shape[2], k.shape[2], dtype=torch.bool, device=q.device)
+        base = torch.zeros(eye.shape, device=q.device) if bias is None else bias
+        mask = base.masked_fill(eye, MASK_VALUE)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=kw["scale"])
+
+
+def phase_f32_models(dev, smi, requests, states):
+    """Phase 28: vit_tpu's default fp32 models on the fp32 routes of kernels
+    1, 3, 4 and 6 (28a-28d); ``states``: ViT-L's and Twins-SVT's weights as
+    phases 3 and 8 drew them, by family. Returns (max |err| by kernel, the fp32 routes'
+    launches, their op times, the worst gradient error by kernel)."""
+    t0 = time.perf_counter()
+    worst = phase_f32_kernels(dev)
+    launches = phase_f32_serve(dev, smi, requests, states)
+    grads = phase_f32_functions(dev)
+    op_ms = phase_f32_op_times(dev, smi)
+    print(f"phase 28 (fp32 models on the fp32 core): {time.perf_counter() - t0:.1f} s")
+    return worst, launches, op_ms, grads
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -9575,7 +10019,7 @@ def main() -> int:
 
     # 3. the float slice, bf16 then mixed
     t0 = time.perf_counter()
-    vit_state = from_jax_params(vit_tree(VIT_L, SEED))  # on the host, kept for phase 19
+    vit_state = from_jax_params(vit_tree(VIT_L, SEED))  # on the host, kept for phases 19-28
     models = {c: build_model(vit_state, dev, c) for c in ("bf16", "mixed", "fp32")}
     print(f"ViT-L weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
@@ -9627,6 +10071,8 @@ def main() -> int:
     t0 = time.perf_counter()
     tw_models = build_twins_models(dev)
     print(f"Twins-SVT weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+    # kept on the host for phase 28
+    twins_state = {k: v.cpu() for k, v in tw_models[("twins", "fp32")].state_dict().items()}
     counts = serve_family(tw_models[("twins", "bf16")], "twins", requests)
     for k in ("window_attention_block", "flash_attention"):
         require(counts[k] > 0, f"{k} was not launched on the Twins-SVT path")
@@ -9691,7 +10137,6 @@ def main() -> int:
     # 20. JPEG bytes on the card: the decoder, classify_jpeg_stream and the
     # BatchingServer on ViT-L (phase 3's weights), training from a folder of JPEGs
     phase_jpeg(vit_state, dev, smi, train_ms)
-    del vit_state
 
     # 21. training Twins-SVT and T2T-ViT: kernels 3-6 through their autograd
     # Functions, the bf16 Dense backward under fp32 sums
@@ -9734,6 +10179,17 @@ def main() -> int:
     for k, err in domain_grads.items():
         grad_worst[k] = max(grad_worst.get(k) or 0.0, err)
 
+    # 28. vit_tpu's default fp32 models: the fp32 routes of kernels 1, 3, 4 and
+    # 6 on the fp32 core, ViT-L/16, NesT, Twins-SVT and CvT served in fp32
+    f32_worst, f32_launches, f32_ms, f32_grads = phase_f32_models(
+        dev, smi, requests, {"vit_l": vit_state, "twins": twins_state})
+    del vit_state, twins_state
+    for k in F32_CORE_KERNELS:
+        domain_worst[f"{k} (fp32 route)"] = f32_worst[k]
+        fp32_ms[f"{k} (fp32 route)"] = f32_ms[f"{k} (fp32 route)"]
+        fp32_launches[k] = f32_launches[k]
+        grad_worst[f"{k} (fp32 route)"] = f32_grads[k]
+
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
                             "vit_tpu_torch/csrc/gemm_sm90.cuh, "
@@ -9764,9 +10220,21 @@ def main() -> int:
         "flash_attention_kv_blocked": ("vit_tpu_torch/csrc/flash_attention_kv_blocked.cu",
                                        "vit_tpu/ops/flash_attention.py:209"),
     }
-    # the fp32 routes of kernels 2, 7 and 8 (phase 27): launches on the fp32
-    # models' served forwards, errors against the fp32 twins, times at batch 128
+    # the fp32 routes of kernels 2, 7 and 8 (phase 27) and 1, 3, 4 and 6 (phase
+    # 28): launches on the fp32 models' served forwards, errors against the
+    # fp32 twins, times at batch 128
+    f32_core = "vit_tpu_torch/csrc/attention_f32.cuh"
     f32_sources = {
+        "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
+                            f"vit_tpu_torch/csrc/gemm_f32.cuh, {f32_core}",
+                            "vit_tpu/ops/block_attention.py:45"),
+        "qkv_attention": (f"vit_tpu_torch/csrc/qkv_attention.cu, {f32_core}",
+                          "vit_tpu/ops/qkv_attention.py:32"),
+        "flash_attention": (f"vit_tpu_torch/csrc/flash_attention.cu, {f32_core}",
+                            "vit_tpu/ops/flash_attention.py:45"),
+        "window_attention_block": ("vit_tpu_torch/csrc/window_attention_block.cu, "
+                                   f"vit_tpu_torch/csrc/gemm_f32.cuh, {f32_core}",
+                                   "vit_tpu/ops/window_attention.py:54"),
         "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu, vit_tpu_torch/csrc/gemm_f32.cuh",
                       "vit_tpu/ops/fused_mlp.py:53"),
         "talking_heads_block": ("vit_tpu_torch/csrc/talking_heads_block.cu, "
@@ -9786,7 +10254,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": kern,
                         "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib,
-                        "grad_max_abs_err": grad_worst.get(k)})
+                        "grad_max_abs_err": grad_worst.get(name, grad_worst.get(k))})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

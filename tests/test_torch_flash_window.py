@@ -263,7 +263,9 @@ def test_flash_kernel_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_self):
 @pytest.mark.cuda
 def test_flash_kernel_reads_split_heads_views(cuda):
     """q, k, v as the split_heads views of [B, N, H*D] rows (GSA's layout),
-    not copied: the result equals the kernel's on contiguous copies."""
+    not copied: the result equals the kernel's on contiguous copies, on the
+    bf16 route and on the fp32 route (fp32 operands, which kernel 4 refused
+    before its fp32 route; kernel 5 still refuses them)."""
     from vit_tpu_torch.nn.attention import mha_tokens, split_heads
 
     rng = np.random.default_rng(8)
@@ -274,8 +276,14 @@ def test_flash_kernel_reads_split_heads_views(cuda):
     parts = [split_heads(t, 8).contiguous() for t in (q, k, v)]
     torch.testing.assert_close(out, tfa.flash_attention(*parts).transpose(1, 2).reshape(2, 100, -1),
                                rtol=0, atol=0)
+    views = [split_heads(t.float(), 8) for t in (q, k, v)]
+    before = ops.fp32_launch_counts()["flash_attention"]
+    out32 = tfa.flash_attention(*views)
+    assert ops.fp32_launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(out32, tfa.flash_attention(*(t.contiguous() for t in views)),
+                               rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 5"):
-        tfa.flash_attention(*(p.float() for p in parts))
+        tfa.flash_attention_kv_blocked(*(p.float() for p in parts))
 
 
 @pytest.mark.cuda

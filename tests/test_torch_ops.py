@@ -291,13 +291,20 @@ def test_mlp_kernel_matches_twin(cuda, precision, activation, variant):
 
 @pytest.mark.cuda
 def test_kernels_refuse_fp32_weights(cuda):
-    """Kernel 1 still refuses fp32 weights (its fp32 route is ROADMAP.md
-    Queue 2 row 1); kernel 2, which refused them too, now runs them on its
-    fp32 route (csrc/gemm_f32.cuh) within 1e-4 of the twin's largest change
-    (tests/test_torch_head_mix_domain.py holds it at the model shapes)."""
+    """Kernels 1 and 2 refused fp32 weights; both now run them on their fp32
+    routes (kernel 1: csrc/gemm_f32.cuh and the fp32 core
+    csrc/attention_f32.cuh; kernel 2: csrc/gemm_f32.cuh), each launch
+    counted there, within 1e-4 of the twin's largest change
+    (tests/test_torch_fp32_routes.py and tests/test_torch_head_mix_domain.py
+    hold them at the model shapes)."""
     t = _cast(_attn_inputs(7, 1, 17, 64, 4, 16), "fp32", lambda a, dt: _torch(a, dt, cuda))
-    with pytest.raises(NotImplementedError):
-        ops.attention_block(*t.values(), 4)
+    before = ops.fp32_launch_counts()["attention_block"]
+    out = ops.attention_block(*t.values(), 4)
+    assert ops.fp32_launch_counts()["attention_block"] == before + 1
+    with ops.force_backend("torch"):
+        ref = ops.attention_block(*t.values(), 4)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-4 * (ref - t["x"]).abs().max().item()
     m = _cast(_mlp_inputs(7, 8, 64, 128), "fp32", lambda a, dt: _torch(a, dt, cuda))
     before = ops.fp32_launch_counts()["fused_mlp"]
     out = ops.mlp(**m)

@@ -636,9 +636,19 @@ def test_quant_mlp_refuses_a_misaligned_operand(cuda, operand):
 
 @pytest.mark.cuda
 def test_int8_kernels_refuse_fp32_attention(cuda):
+    """Kernel 9 still refuses an fp32 stream (ROADMAP.md Queue 2 row 9);
+    kernel 3, which refused fp32 qkv too, now runs it on its fp32 route (the
+    fp32 core, csrc/attention_f32.cuh), its launch counted there, within
+    1e-4 of the twin's largest output."""
     qkv, _ = _qkv_inputs(12, 1, 17, 2, 16, None)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.qkv_attention(_torch(qkv, "float32", cuda), 2)
+    t32 = _torch(qkv, "float32", cuda)
+    before = ops.fp32_launch_counts()["qkv_attention"]
+    out = ops.qkv_attention(t32, 2)
+    assert ops.fp32_launch_counts()["qkv_attention"] == before + 1
+    with ops.force_backend("torch"):
+        ref = ops.qkv_attention(t32, 2)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     t = _cast(_qblock_inputs(12, 1, 17, 64, 4, 16), "float32", lambda a, dt: _torch(a, dt, cuda))
     with pytest.raises(ValueError, match="ROADMAP"):
         ops.quant_attention_block(*(t[k] for k in QBLOCK_ARGS), 4)

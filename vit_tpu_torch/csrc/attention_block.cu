@@ -19,9 +19,20 @@
 // plus bout, then plus x, rounded once to x's dtype (:125-130).
 // At ViT-L batch 128 the two products are 211.5 of the block's 231.8 GFLOP:
 // the block is bound by the tensor cores (0.23 ms at 989 TFLOP/s).
+//
+// The fp32 route (vt_attention_block_f32): with fp32 x and weights the TPU
+// kernel runs both products and the attention at Precision.HIGHEST
+// (block_attention.py:62-66), and rounds nothing to bf16. The same four
+// launches on fp32 throughout: ln_rows to an fp32 xn, the qkv product on
+// gemm_f32.cuh (fp32 FMAs on the CUDA cores), the fp32 core of
+// attention_f32.cuh with the same true_n / block_tokens key mask, the out
+// product with bout and x in gemm_f32's epilogue. Bound: operations at the
+// card's fp32 rate (ViT-L batch 128: 232 GFLOP, 3.5 ms at 67 TFLOP/s).
 
 #include "attention_core_sm90.cuh"
+#include "attention_f32.cuh"
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace vt {
@@ -67,6 +78,30 @@ extern "C" int vt_attention_block(const void* x, int x_is_fp32, const void* ln_s
                                   static_cast<bf16*>(out), static_cast<bf16*>(xn),
                                   static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, N, D, H,
                                   Dh, scale, eps, true_n, bt, s);
+  return static_cast<int>(e);
+}
+
+// The fp32 route: x, the weights, the scratch (xn, qkv, attn) and out all fp32.
+extern "C" int vt_attention_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                      const void* wqkv, const void* wout, const void* bout,
+                                      void* out, void* xn, void* qkv, void* attn, int B, int N,
+                                      int D, int H, int Dh, float scale, float eps, int true_n,
+                                      int bt, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* y = static_cast<float*>(xn);
+  float* qkv_ = static_cast<float*>(qkv);
+  float* attn_ = static_cast<float*>(attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = B * N, HD = H * Dh;
+  cudaError_t e = vt::ln_rows<float>(f(x), f(ln_scale), f(ln_bias), y, rows, D, eps, s);
+  if (e == cudaSuccess)
+    e = vt::gemm_f32(y, f(wqkv), qkv_, nullptr, nullptr, vt::kActNone, rows, 3 * HD, D, s);
+  if (e == cudaSuccess)
+    e = vt::attention_f32(qkv_, attn_, B, N, H, Dh, scale,
+                          vt::attn::ScoreTerms{nullptr, 0, 0, true_n, bt}, s);
+  if (e == cudaSuccess)
+    e = vt::gemm_f32(attn_, f(wout), static_cast<float*>(out), f(bout), f(x), vt::kActNone, rows,
+                     D, HD, s);
   return static_cast<int>(e);
 }
 

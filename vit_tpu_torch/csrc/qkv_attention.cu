@@ -18,11 +18,16 @@
 // through a cp.async ring, and picks its tile by the work: one warp a block
 // (208 blocks) at batch 1, seven at batch 128, so each block reads its K and
 // V once or twice. The bias, when given, is another N*N fp32 per (batch,
-// head) it varies over. Only bf16 qkv is taken: fp32 qkv (the TPU kernel's
-// Precision.HIGHEST path) is not ported yet, and the wrapper refuses it on
-// the card.
+// head) it varies over.
+//
+// The fp32 route (vt_qkv_attention_f32): fp32 qkv, which the TPU kernel runs
+// at Precision.HIGHEST (qkv_attention.py:44-48) with P kept in fp32, goes to
+// the fp32 core of attention_f32.cuh on the same fused rows, with the same
+// bias, into fp32 out. Bound: operations at the card's fp32 rate (NesT's
+// level 0 at batch 128: 2,048 blocks of 196 tokens, 3 heads of 32).
 
 #include "attention_core_sm90.cuh"
+#include "attention_f32.cuh"
 #include "common.cuh"
 
 extern "C" int vt_qkv_attention(const void* qkv, const void* bias, int bias_b, int bias_h,
@@ -34,4 +39,14 @@ extern "C" int vt_qkv_attention(const void* qkv, const void* bias, int bias_b, i
                                                 static_cast<bf16*>(out), B, N, H, Dh, scale, st,
                                                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(e);
+}
+
+// The fp32 route: qkv [B, N, 3*H*Dh] and out [B, N, H*Dh] fp32.
+extern "C" int vt_qkv_attention_f32(const void* qkv, const void* bias, int bias_b, int bias_h,
+                                    void* out, int B, int N, int H, int Dh, float scale,
+                                    void* stream) {
+  const vt::attn::ScoreTerms st{static_cast<const float*>(bias), bias_b, bias_h, N, N};
+  return static_cast<int>(vt::attention_f32(static_cast<const float*>(qkv),
+                                            static_cast<float*>(out), B, N, H, Dh, scale, st,
+                                            static_cast<cudaStream_t>(stream)));
 }

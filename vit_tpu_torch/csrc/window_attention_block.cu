@@ -66,11 +66,23 @@
 //      per-window bias [1|H, S, S]; its 1-D grid takes more than 65,535
 //      (window, head) pairs
 //   4. gemm_bf16: attn @ Wout + bout -> xw.dtype
+//
+// The fp32 route (vt_window_attention_block_f32): with fp32 xw and weights
+// the TPU kernel runs every product at Precision.HIGHEST
+// (window_attention.py:74-76) and rounds nothing to bf16. Four launches on
+// fp32 throughout, at any window size (CrossFormer's 1-token LDA windows to
+// Twins' 49): ln_rows to an fp32 xn, the qkv product on gemm_f32.cuh (fp32
+// FMAs on the CUDA cores), the fp32 core of attention_f32.cuh with the
+// windows as its batch axis and the shared bias [1|H, S, S], the out product
+// with bout in gemm_f32's epilogue, no residual. Bound: operations at the
+// card's fp32 rate.
 
 #include "attention_core.cuh"
 #include "attention_core_sm90.cuh"
+#include "attention_f32.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 
 namespace vt {
 namespace {
@@ -545,6 +557,31 @@ extern "C" int vt_window_attention_block(const void* x, int x_is_fp32, const voi
     e = vt::window_attention_block<bf16>(h(x), f(ln_scale), f(ln_bias), h(wqkv), h(wout),
                                          f(bout), f(bias), bias_h, static_cast<bf16*>(out), xn_,
                                          qkv_, attn_, NW, S, C, H, Dh, scale, eps, s);
+  return static_cast<int>(e);
+}
+
+// The fp32 route: xw, the weights, the scratch (xn, qkv, attn) and out all fp32.
+extern "C" int vt_window_attention_block_f32(const void* x, const void* ln_scale,
+                                             const void* ln_bias, const void* wqkv,
+                                             const void* wout, const void* bout,
+                                             const void* bias, int bias_h, void* out, void* xn,
+                                             void* qkv, void* attn, int NW, int S, int C, int H,
+                                             int Dh, float scale, float eps, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* y = static_cast<float*>(xn);
+  float* qkv_ = static_cast<float*>(qkv);
+  float* attn_ = static_cast<float*>(attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = NW * S, HD = H * Dh;
+  cudaError_t e = vt::ln_rows<float>(f(x), f(ln_scale), f(ln_bias), y, rows, C, eps, s);
+  if (e == cudaSuccess)
+    e = vt::gemm_f32(y, f(wqkv), qkv_, nullptr, nullptr, vt::kActNone, rows, 3 * HD, C, s);
+  if (e == cudaSuccess)
+    e = vt::attention_f32(qkv_, attn_, NW, S, H, Dh, scale,
+                          vt::attn::ScoreTerms{f(bias), 0, bias_h, S, S, 0}, s);
+  if (e == cudaSuccess)
+    e = vt::gemm_f32(attn_, f(wout), static_cast<float*>(out), f(bout), nullptr, vt::kActNone,
+                     rows, C, HD, s);
   return static_cast<int>(e);
 }
 

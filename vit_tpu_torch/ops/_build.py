@@ -251,6 +251,51 @@ _SIGNATURES = {
         _F,                  # ln_eps
         _P,                  # cudaStream_t
     ],
+    # the fp32 routes of kernels 1, 3, 4 and 6 on the fp32 core (csrc/attention_f32.cuh)
+    "vt_attention_block_f32": [
+        _P, _P, _P,          # x, ln_scale, ln_bias
+        _P, _P, _P,          # wqkv, wout, bout
+        _P,                  # out
+        _P, _P, _P,          # scratch: xn, qkv, attn
+        _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
+        _F, _F,              # scale, ln_eps
+        _I, _I,              # true_n, block_tokens
+        _P,                  # cudaStream_t
+    ],
+    "vt_qkv_attention_f32": [
+        _P,                  # qkv
+        _P, _I, _I,          # bias (NULL = none), bias_b, bias_h (axis is full)
+        _P,                  # out
+        _I, _I, _I, _I,      # B, N, heads, dim_head
+        _F,                  # scale
+        _P,                  # cudaStream_t
+    ],
+    "vt_flash_attention_f32": [
+        _P, _L, _L, _L,      # q and its batch, head, row strides (elements)
+        _P, _L, _L, _L,      # k
+        _P, _L, _L, _L,      # v
+        _P, _L, _L, _L,      # out
+        _I, _I, _I, _I,      # B, heads, Nq, Nk
+        _I, _I, _F,          # D, Dv, scale
+        _P, _I, _I,          # bias (NULL = none), bias_b, bias_h (axis is full)
+        _I,                  # mask_self
+        _P,                  # cudaStream_t
+    ],
+    "vt_window_attention_block_f32": [
+        _P,                  # xw
+        _P, _P,              # ln_scale, ln_bias
+        _P, _P, _P,          # wqkv, wout, bout
+        _P, _I,              # bias ([1|H, S, S], NULL = none), bias_h (per head)
+        _P,                  # out
+        _P, _P, _P,          # scratch: xn, qkv, attn
+        _I, _I, _I, _I, _I,  # NW, S, C, heads, dim_head
+        _F, _F,              # scale, ln_eps
+        _P,                  # cudaStream_t
+    ],
+    "vt_attention_f32_plan": [
+        _I, _I, _I,          # Nk, D, Dv
+        _P,                  # int[3]: query rows a block, threads, shared-memory bytes
+    ],
     "vt_gemm_f32": [
         _P, _P, _P,          # a [M, K], b [K, N], c [M, N] (fp32)
         _P, _P,              # bias [N], residual [M, N] (NULL = none)
@@ -426,8 +471,9 @@ GRAD_ENTRIES = {"fused_qkv_attention": "ops.qkv_attention (QkvAttentionFn)",
                     "ops.window_attention_block (WindowAttentionBlockFn)",
                 "talking_heads_block": "ops.talking_heads_block (TalkingHeadsBlockFn)",
                 "reattention_block": "ops.reattention_block (ReattentionBlockFn)"}
-# the kernels with an fp32 route (fp32 x and weights, no bf16 rounding)
-FP32_ROUTES = ("fused_mlp", "talking_heads_block", "reattention_block")
+# the kernels with an fp32 route (fp32 operands and weights, no bf16 rounding)
+FP32_ROUTES = ("attention_block", "fused_mlp", "qkv_attention", "talking_heads_block",
+               "reattention_block", "flash_attention", "window_attention_block")
 _counts = collections.Counter()
 _fp32_counts = collections.Counter()
 _recomputes = collections.Counter()

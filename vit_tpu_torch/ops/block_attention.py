@@ -14,7 +14,11 @@ GEMM boundaries and stores only the tensors the TPU kernel itself rounds to
 bf16 before their next use (``xn``, qkv, the attention output): the math is
 unchanged. Its two products run on a wgmma GEMM fed by TMA
 (``csrc/gemm_sm90.cuh``); ``gemm_sm90`` calls that GEMM alone (the unfused
-attention's output projection, and checks).
+attention's output projection, and checks). With fp32 weights on an fp32
+stream (``vit_tpu``'s default precision) the kernel takes its fp32 route
+(``weights_route``): the products on ``csrc/gemm_f32.cuh`` and the
+attention on the fp32 core ``csrc/attention_f32.cuh``, nothing rounded to
+bf16, as the TPU kernel runs fp32 weights at ``Precision.HIGHEST``.
 
 ``attention_block_op`` and ``gemm_sm90_op`` are the two launches as
 ``torch.library`` operators (``_build.define_op``): the kernel on a CUDA
@@ -153,7 +157,7 @@ def _require_aligned(**tensors) -> None:
 
 
 def weights_route(x, *weights) -> str:
-    """The route of kernels 2, 7 and 8 for a stream ``x`` and its GEMM
+    """The route of kernels 1, 2, 6, 7 and 8 for a stream ``x`` and its GEMM
     weights: ``"bf16"`` for bf16 weights (x bf16 or fp32), ``"fp32"`` for
     fp32 weights on an fp32 x. Anything else raises ``TypeError``: fp32
     weights on a bf16 stream, or weights of two dtypes."""
@@ -296,20 +300,18 @@ def fused_attention_block(
     """``x + out_proj(attention(qkv_proj(LN(x))))`` on the card.
 
     ``x`` ``[B, N, D]`` bf16 or fp32 (the mixed config's fp32 residual
-    stream); ``wqkv`` ``[D, 3*H*Dh]`` and ``wout`` ``[H*Dh, D]`` bf16;
-    ``ln_scale``, ``ln_bias`` and ``bout`` fp32 ``[D]``. ``true_n`` and
-    ``block_tokens`` mask keys exactly as the twin does. Returns a new
-    tensor of ``x``'s shape and dtype, computed on the current stream.
+    stream); ``wqkv`` ``[D, 3*H*Dh]`` and ``wout`` ``[H*Dh, D]`` bf16 (the
+    bf16 route), or fp32 with an fp32 ``x`` (the fp32 route, its
+    intermediates fp32 too); ``ln_scale``, ``ln_bias`` and ``bout`` fp32
+    ``[D]``. ``true_n`` and ``block_tokens`` mask keys exactly as the twin
+    does. Returns a new tensor of ``x``'s shape and dtype, computed on the
+    current stream.
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_block takes CUDA tensors")
     if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be [B, N, D] bf16 or fp32, got {tuple(x.shape)} {x.dtype}")
-    if wqkv.dtype != torch.bfloat16 or wout.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the attention-block kernel takes bf16 weights (got {wqkv.dtype}, "
-            f"{wout.dtype}); fp32 weights run only on the plain twin"
-        )
+    fp32 = weights_route(x, wqkv, wout) == "fp32"
     b, n, dim = x.shape
     hd = wqkv.shape[1] // 3
     if heads <= 0 or hd % heads:
@@ -325,7 +327,8 @@ def fused_attention_block(
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
-    _require_aligned(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv, wout=wout, bout=bout)
+    if not fp32:  # the wgmma GEMM's TMA loads
+        _require_aligned(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv, wout=wout, bout=bout)
     if d % 16 or d > 128 or dim % 8:
         raise ValueError(f"the kernel takes dim_head % 16 == 0, <= 128 and D % 8 == 0 (got {d}, {dim})")
     if n > MAX_TOKENS:
@@ -343,22 +346,22 @@ def fused_attention_block(
 
     lib = _build.load_library()
     rows = b * n
-    opts = dict(device=x.device, dtype=torch.bfloat16)
+    opts = dict(device=x.device, dtype=torch.float32 if fp32 else torch.bfloat16)
     xn = torch.empty(rows, dim, **opts)
     qkv = torch.empty(rows, 3 * hd, **opts)
     attn = torch.empty(rows, hd, **opts)
     out = torch.empty_like(x)
+    head = (x.data_ptr(),) if fp32 else (x.data_ptr(), int(x.dtype == torch.float32))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.vt_attention_block(
-            x.data_ptr(), int(x.dtype == torch.float32),
-            ln_scale.data_ptr(), ln_bias.data_ptr(),
+        rc = (lib.vt_attention_block_f32 if fp32 else lib.vt_attention_block)(
+            *head, ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
             out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
             b, n, dim, heads, d, float(scale), float(ln_eps), true_n, bt, stream,
         )
-    _build.check(lib, rc, "attention_block kernel")
-    _build.count_launch("attention_block")
+    _build.check(lib, rc, f"attention_block kernel ({'fp32' if fp32 else 'bf16'} route)")
+    _build.count_launch("attention_block", fp32=fp32)
     return out
 
 

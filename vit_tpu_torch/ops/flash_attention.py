@@ -41,8 +41,8 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SMEM = 232448  # 227 KB, the most shared memory one block may use
 
 _KV_BLOCKED = "run the kv-blocked kernel, flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5)"
-_FP32 = ("fp32 operands (the TPU kernels' Precision.HIGHEST) run only on the twins: neither "
-         "flash_attention nor flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5) takes them")
+_FP32_KV_BLOCKED = ("fp32 operands (the TPU kernel's Precision.HIGHEST) on the kv-blocked kernel "
+                    "are not ported yet: they run only on its twin (ROADMAP.md Queue 2 item 5)")
 KV_CHUNK = 64  # keys per chunk of the kv-blocked kernel (csrc kvb::KC)
 BLOCK_Q = 256  # queries per chunk of the backward (vit_tpu's block_q default)
 
@@ -73,6 +73,21 @@ def check_core_shape(nk: int, d: int, dv: int) -> None:
         raise NotImplementedError(
             f"{nk} keys: past kernel 4's limit at these widths (smem_bytes, the dispatch "
             f"contract); longer key sequences {_KV_BLOCKED}")
+
+
+def f32_core_bytes(nk: int, d: int, dv: int) -> int:
+    """Shared memory of a block of the fp32 core (``csrc/attention_f32.cuh``
+    ``af32::layout``, mirrored): the fp32 Q tile of 32 rows, one chunk of 64
+    K or V rows and the fp32 score rows of the tile over all ``nk`` keys,
+    each row padded by 4 floats. Within the domain of each kernel that runs
+    it (``core_fits``, ``qkv_kernel_fits``, the fused block's 1,024 tokens)
+    it stays within ``MAX_SMEM``, so the fp32 routes take every shape their
+    bf16 routes take."""
+    a = lambda v: round_up(v, 128)
+    n_pad = round_up(nk, 64)
+    kv_off = a(32 * (d + 4) * 4)
+    s_off = a(kv_off + 64 * (max(d, dv) + 4) * 4)
+    return a(s_off + 32 * (n_pad + 4) * 4)
 
 
 def core_fits(nk: int, d: int, dv: int) -> bool:
@@ -201,18 +216,17 @@ def reference_attention_kv_blocked(q, k, v, bias=None, scale=None, mask_self=Fal
 
 
 def _check_operands(name, q, k, v, bias):
-    """Shapes, dtypes and devices of a flash kernel's operands; returns
-    (b, h, nq, nk, d, dv, the bias as contiguous fp32 or None, bias_b,
-    bias_h)."""
+    """Shapes, dtypes and devices of a flash kernel's operands (q, k, v all
+    bf16, or all fp32); returns (b, h, nq, nk, d, dv, the bias as contiguous
+    fp32 or None, bias_b, bias_h)."""
     _build.refuse_grad(name, q, k, v, bias)
     if not q.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, H, N, D], got {q.shape}, {k.shape}, {v.shape}")
-    if q.dtype == torch.float32:
-        raise NotImplementedError(_FP32)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must be bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be all bf16 or all fp32, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     b, h, nq, d = q.shape
     nk, dv = k.shape[2], v.shape[3]
     if tuple(k.shape) != (b, h, nk, d) or tuple(v.shape) != (b, h, nk, dv) or nq < 1 or nk < 1:
@@ -247,7 +261,7 @@ def _launch(name, entry, q, k, v, bias, bias_b, bias_h, scale, mask_self, scratc
             stream,
         )
     _build.check(lib, rc, f"{name} kernel")
-    _build.count_launch(name)
+    _build.count_launch(name, fp32=q.dtype == torch.float32)
     return out
 
 
@@ -260,20 +274,23 @@ def flash_attention(
     mask_self: bool = False,
 ) -> torch.Tensor:
     """Attention of ``q`` ``[B, H, Nq, D]`` against ``k`` ``[B, H, Nk, D]``
-    and ``v`` ``[B, H, Nk, Dv]``, bf16, on the card; an optional additive
-    bias broadcastable as ``[B|1, H|1, Nq, Nk]`` (fp32 in the kernel);
-    ``mask_self`` masks the diagonal ``col == row``. The operands are read
-    through their strides (unit column stride, 16-byte aligned rows: the
-    ``split_heads`` views of ``[B, N, H*D]`` rows need no copy). Returns
-    ``[B, H, Nq, Dv]`` bf16, laid out ``[B, Nq, H, Dv]`` in memory so that
-    merging the heads is a view; computed on the current stream."""
+    and ``v`` ``[B, H, Nk, Dv]``, bf16, or fp32 (the fp32 route, on the fp32
+    core ``csrc/attention_f32.cuh``: every product fp32, P kept in fp32),
+    on the card; an optional additive bias broadcastable as ``[B|1, H|1,
+    Nq, Nk]`` (fp32 in the kernel); ``mask_self`` masks the diagonal ``col
+    == row``. The operands are read through their strides (unit column
+    stride, 16-byte aligned rows: the ``split_heads`` views of ``[B, N,
+    H*D]`` rows need no copy). Returns ``[B, H, Nq, Dv]`` in v's dtype, laid
+    out ``[B, Nq, H, Dv]`` in memory so that merging the heads is a view;
+    computed on the current stream."""
     b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands("flash_attention", q, k, v, bias)
     check_core_shape(nk, d, dv)
-    if any(t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16
+    step = 16 // q.element_size()  # elements in 16 bytes
+    if any(t.stride(-1) != 1 or any(s % step for s in t.stride()[:3]) or t.data_ptr() % 16
            for t in (q, k, v)):
         raise ValueError("q, k, v must have unit column stride and 16-byte aligned rows")
-    return _launch("flash_attention", "vt_flash_attention", q, k, v, bias, bias_b, bias_h, scale,
-                   mask_self)
+    entry = "vt_flash_attention_f32" if q.dtype == torch.float32 else "vt_flash_attention"
+    return _launch("flash_attention", entry, q, k, v, bias, bias_b, bias_h, scale, mask_self)
 
 
 def flash_attention_kv_blocked(
@@ -297,6 +314,8 @@ def flash_attention_kv_blocked(
     places."""
     b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands(
         "flash_attention_kv_blocked", q, k, v, bias)
+    if q.dtype == torch.float32:
+        raise NotImplementedError(_FP32_KV_BLOCKED)
     rows = kv_blocked_layout(nk, d, dv).rows
     if b * h * -(-nq // rows) > 2**31 - 1 or b * h * max(nq, nk) > 2**31 - 1:
         raise NotImplementedError(

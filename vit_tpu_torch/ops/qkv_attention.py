@@ -11,7 +11,10 @@ qkv's dtype.
 
 Layout: ``qkv`` ``[B, N, 3*H*D]`` laid out ``[q | k | v]``, each part
 ``[H, D]``; the output is ``[B, N, H*D]``. No transposes or copies of the
-heads: the kernel reads its head panels out of the fused rows.
+heads: the kernel reads its head panels out of the fused rows. fp32 qkv
+takes the kernel's fp32 route, on the fp32 core ``csrc/attention_f32.cuh``
+(every product fp32, P kept in fp32), as the TPU kernel runs fp32 at
+``Precision.HIGHEST``.
 ``qkv_attention_op`` is the kernel as a ``torch.library`` operator
 (``_build.define_op``). ``QkvAttentionFn`` is its autograd Function: the
 kernel forward, ``vit_tpu``'s recompute backward.
@@ -25,9 +28,6 @@ import torch
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.block_attention import MAX_TOKENS, _mm, _softmax, recompute_vjp
-
-# The fp32 qkv path (the TPU kernel's Precision.HIGHEST) runs only on the twin.
-_FP32_LATER = "fp32 qkv on the card is not ported yet (ROADMAP.md Queue 2 item 3, fp32 path)"
 
 
 def qkv_kernel_fits(n: int, d: int) -> bool:
@@ -59,18 +59,18 @@ def fused_qkv_attention(
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention of ``qkv`` ``[B, N, 3*H*D]`` bf16 on the card, with an
-    optional additive fp32 bias ``[1|B, 1|H, N, N]``. Returns ``[B, N,
-    H*D]`` bf16, computed on the current stream."""
+    """Attention of ``qkv`` ``[B, N, 3*H*D]`` bf16, or fp32 (the fp32
+    route), on the card, with an optional additive fp32 bias ``[1|B, 1|H,
+    N, N]``. Returns ``[B, N, H*D]`` in qkv's dtype, computed on the current
+    stream."""
     _build.refuse_grad("fused_qkv_attention", qkv, bias)
     if not qkv.is_cuda:
         raise ValueError("fused_qkv_attention takes CUDA tensors")
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be [B, N, 3*H*D], got {tuple(qkv.shape)}")
-    if qkv.dtype == torch.float32:
-        raise ValueError(_FP32_LATER)
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"qkv must be bf16, got {qkv.dtype}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv must be bf16 or fp32, got {qkv.dtype}")
+    fp32 = qkv.dtype == torch.float32
     b, n, three_hd = qkv.shape
     if three_hd % 3 or heads <= 0 or (three_hd // 3) % heads:
         raise ValueError(f"{three_hd} fused columns do not split into q, k, v of {heads} heads")
@@ -101,12 +101,12 @@ def fused_qkv_attention(
     out = torch.empty(b, n, hd, device=qkv.device, dtype=qkv.dtype)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.vt_qkv_attention(
+        rc = (lib.vt_qkv_attention_f32 if fp32 else lib.vt_qkv_attention)(
             qkv.data_ptr(), None if bias is None else bias.data_ptr(), bias_b, bias_h,
             out.data_ptr(), b, n, heads, d, float(scale), stream,
         )
-    _build.check(lib, rc, "qkv_attention kernel")
-    _build.count_launch("qkv_attention")
+    _build.check(lib, rc, f"qkv_attention kernel ({'fp32' if fp32 else 'bf16'} route)")
+    _build.count_launch("qkv_attention", fp32=fp32)
     return out
 
 

@@ -4,7 +4,10 @@ shared per-window bias) -> out GEMM + bias. No residual.
 Port of ``vit_tpu/ops/window_attention.py``. ``fused_window_attention_block``
 is the Hopper kernel (``csrc/window_attention_block.cu``): one fused launch
 a group of windows up to 64 tokens, the four-launch pipeline for longer
-windows (``plan_for`` mirrors the kernel's choice);
+windows, and for fp32 weights on an fp32 ``xw`` the fp32 route, four
+launches on ``csrc/gemm_f32.cuh`` and the fp32 core
+``csrc/attention_f32.cuh`` at any window size (``plan_for`` mirrors the
+kernel's choice);
 ``xla_window_attention_block`` is its plain PyTorch twin and mirrors the JAX
 twin op for op: flax LayerNorm in fp32 (``block_attention._ln_f32``, the
 formula of ``window_attention.py:45-51``), fp32 products of bf16-rounded
@@ -28,21 +31,25 @@ import torch
 
 from vit_tpu_torch.core.utils import round_up
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops.block_attention import _ln_f32, _mm, _softmax, recompute_vjp
-from vit_tpu_torch.ops.flash_attention import MAX_SMEM, check_core_shape
+from vit_tpu_torch.ops.block_attention import (
+    _ln_f32, _mm, _softmax, recompute_vjp, weights_route,
+)
+from vit_tpu_torch.ops.flash_attention import MAX_SMEM, check_core_shape, f32_core_bytes
 
 # The kernel's routes, by the C code of each (csrc/window_attention_block.cu
 # win::Variant): the four-launch pipeline, and the fused kernel with the
-# output's fp32 sums in registers or with every head's P V in an o tile.
-VARIANTS = ("four-launch", "registers", "o-tile")
+# output's fp32 sums in registers or with every head's P V in an o tile;
+# then the fp32 route (vt_window_attention_block_f32).
+VARIANTS = ("four-launch", "registers", "o-tile", "fp32")
 MAX_FUSED_S = 64  # the longest window of the fused kernel
 _MAX_WARPS, _NC, _STAGES = 8, 64, 3
 
 
 class WindowPlan(NamedTuple):
     """How the kernel runs a window shape (``win::plan_for``): its route
-    (``VARIANTS``), the windows a block (0 on the four-launch route) and a
-    block's shared-memory bytes."""
+    (``VARIANTS``), the windows a block (0 on the four-launch and fp32
+    routes) and a block's shared-memory bytes (on the fp32 route the fp32
+    core's, ``f32_core_bytes``)."""
 
     route: str
     groups: int
@@ -64,7 +71,7 @@ def _smem_bytes(variant: str, g: int, s: int, c: int, heads: int, d: int):
     return a(rows * (round_up(c, 16) + 8) * 2) + a(kv) + o_tile + _STAGES * stage, a(kv) + o_tile
 
 
-def plan_for(s: int, c: int, heads: int, d: int) -> WindowPlan:
+def plan_for(s: int, c: int, heads: int, d: int, fp32: bool = False) -> WindowPlan:
     """The kernel's plan for windows of ``s`` tokens of width ``c``,
     ``heads`` heads of ``d``, operands on 16-byte boundaries
     (``win::plan_for``, mirrored). The fused routes take S <= 64, d % 16 == 0
@@ -73,7 +80,11 @@ def plan_for(s: int, c: int, heads: int, d: int) -> WindowPlan:
     one window fits 227 KB; other shapes run the four-launch pipeline.
     Blocks of 8 warps (two windows of 33-64 tokens), fewer windows while the
     tiles exceed 227 KB or an fp32 row of x exceeds the bytes that stage
-    it."""
+    it. ``fp32`` (fp32 weights on an fp32 ``xw``): the fp32 route at every
+    window size, its core's block of 32 query rows a (window, head) taking
+    ``f32_core_bytes(s, d, d)``."""
+    if fp32:
+        return WindowPlan("fp32", 0, f32_core_bytes(s, d, d))
     four = WindowPlan("four-launch", 0, 0)
     if not (1 <= s <= MAX_FUSED_S and d % 16 == 0 and 16 <= d <= 128 and c % 8 == 0 and c >= 8):
         return four
@@ -133,7 +144,8 @@ def fused_window_attention_block(
     """``out_proj(window_attention(qkv_proj(LN(xw))))`` on the card.
 
     ``xw`` ``[NW, S, C]`` bf16 or fp32 (NW = batch x windows); ``wqkv``
-    ``[C, 3*H*Dh]`` and ``wout`` ``[H*Dh, C]`` bf16; ``ln_scale``,
+    ``[C, 3*H*Dh]`` and ``wout`` ``[H*Dh, C]`` bf16, or fp32 with an fp32
+    ``xw`` (the fp32 route, its intermediates fp32 too); ``ln_scale``,
     ``ln_bias`` and ``bout`` fp32 ``[C]``; ``bias`` an optional per-window
     bias shared by every window, any shape that reshapes to ``[1|H, S, S]``
     (fp32 in the kernel). No residual. Returns a new tensor of ``xw``'s shape
@@ -146,11 +158,7 @@ def fused_window_attention_block(
         raise ValueError("fused_window_attention_block takes CUDA tensors")
     if xw.dim() != 3 or xw.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"xw must be [NW, S, C] bf16 or fp32, got {tuple(xw.shape)} {xw.dtype}")
-    if wqkv.dtype != torch.bfloat16 or wout.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the window-attention kernel takes bf16 weights (got {wqkv.dtype}, {wout.dtype}); "
-            "fp32 weights run only on the plain twin (ROADMAP.md Queue 2 item 6)"
-        )
+    fp32 = weights_route(xw, wqkv, wout) == "fp32"
     nw, s, c = xw.shape
     hd = wqkv.shape[1] // 3
     if heads <= 0 or hd % heads:
@@ -180,28 +188,29 @@ def fused_window_attention_block(
     if scale is None:
         scale = d**-0.5
 
-    four_launch = plan_for(s, c, heads, d).route == "four-launch"  # the kernel's choice, mirrored
-    # the fused kernel copies x and the weights 16 bytes at a time
-    four_launch |= any(t.data_ptr() % 16 for t in (xw, wqkv, wout))
+    # the kernel's choice, mirrored; the fused kernel copies x and the
+    # weights 16 bytes at a time
+    route = plan_for(s, c, heads, d, fp32).route
+    stored = route in ("four-launch", "fp32") or any(t.data_ptr() % 16 for t in (xw, wqkv, wout))
     lib = _build.load_library()
     rows = nw * s
-    opts = dict(device=xw.device, dtype=torch.bfloat16)
-    scratch = [None] * 3  # xn, qkv, attn: only the four-launch pipeline stores them
-    if four_launch:
+    opts = dict(device=xw.device, dtype=torch.float32 if fp32 else torch.bfloat16)
+    scratch = [None] * 3  # xn, qkv, attn: only the four-launch pipelines store them
+    if stored:
         scratch = [torch.empty(rows, n, **opts) for n in (c, 3 * hd, hd)]
     out = torch.empty_like(xw)
+    head = (xw.data_ptr(),) if fp32 else (xw.data_ptr(), int(xw.dtype == torch.float32))
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
-        rc = lib.vt_window_attention_block(
-            xw.data_ptr(), int(xw.dtype == torch.float32),
-            ln_scale.data_ptr(), ln_bias.data_ptr(),
+        rc = (lib.vt_window_attention_block_f32 if fp32 else lib.vt_window_attention_block)(
+            *head, ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
             None if bias is None else bias.data_ptr(), bias_h,
             out.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
             nw, s, c, heads, d, float(scale), float(ln_eps), stream,
         )
-    _build.check(lib, rc, "window_attention_block kernel")
-    _build.count_launch("window_attention_block")
+    _build.check(lib, rc, f"window_attention_block kernel ({route} route)")
+    _build.count_launch("window_attention_block", fp32=fp32)
     return out
 
 
