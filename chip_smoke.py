@@ -342,6 +342,16 @@ Runs, in order, and exits non-zero at the first failure:
      called, logits against the plain fp32 path; ViT-L's fp32 times; the
      four Functions forward on the fp32 routes against autograd through the
      twins; each route at batch 128 against twin, library and bound.
+ 29. the fp32 bodies of kernels 5 and 9 (``phase_f32_kv_models``): kernel
+     5's fp32 route (an fp32 online softmax) against its fp32 twin at T2T's
+     and ScalableViT's shapes and at each bias pattern, mask_self and two
+     phases (``KV_F32_CASES``), planted faults (bf16 operands, a dropped
+     bias, unmasked padded keys, a skipped chunk, alpha left out) failing
+     the bound, the C plan and batch invariance; kernel 9's fp32 stream
+     stage by stage (``Q9_F32_CASES``); fp32 T2T-ViT, ScalableViT and
+     ``QuantViT(dtype=None)`` served with exact fp32 launches and no twin
+     called, logits against the plain fp32 path, img/s; FlashAttentionFn
+     on the route; op lines against twin, library and bound.
 The bf16 products of ``Dense`` sum in fp32 whatever the process's cuBLAS
 flags (``nn.embed.fp32_bf16_sums``), so this script leaves
 ``allow_bf16_reduced_precision_reduction`` at PyTorch's default.
@@ -3098,6 +3108,8 @@ def phase_int8_kernels(dev):
         fails += f
         if "ViT-L" in name:
             worst[name.split()[0]] = max(worst[name.split()[0]], err)
+        if name == "quant_mlp batch 8 ViT-L fp32 gelu":  # the kernels line's fp32 row
+            worst["quant_mlp (fp32 stream)"] = err
         if name in ("quant_attention_block ViT-L", "quant_mlp ViT-L gelu"):
             for fault in INT8_FAULTS:
                 with planted_fault(fault):
@@ -3486,8 +3498,9 @@ def build_head_mix_models(dev):
     return models
 
 
-def serve_family(model, fam, requests, fp32_counts=None):
-    """BatchingServer -> InferencePipeline -> a family's model on the card. Sets the launch counts to 0 before the run and returns them as
+def serve_family(model, fam, requests, fp32_counts=None, dtype=torch.bfloat16):
+    """BatchingServer -> InferencePipeline -> a family's model on the card,
+    the images preprocessed to ``dtype``. Sets the launch counts to 0 before the run and returns them as
     read just after it; holds each kernel to its launches per forward and
     the server rows to direct calls. A dict passed as ``fp32_counts``
     receives the fp32 routes' launches (``ops.fp32_launch_counts``) read at
@@ -3498,7 +3511,7 @@ def serve_family(model, fam, requests, fp32_counts=None):
 
     forwards = []
     hook = model.register_forward_hook(lambda m, a, o: forwards.append(a[0].shape[0]))
-    pipe = InferencePipeline(model, image_size=IMAGE_SIZE[fam], batch_size=64)
+    pipe = InferencePipeline(model, image_size=IMAGE_SIZE[fam], batch_size=64, dtype=dtype)
     require(pipe.batch_buckets == [1, 4, 16, 64], f"buckets {pipe.batch_buckets}")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3807,7 +3820,7 @@ def library_quant_block(x, ln_scale, ln_bias, wqkv_i8, sqkv, wout_i8, sout, bout
 
     b, n, dim = x.shape
     xq, sr = quantize_rows(F.layer_norm(x.float(), (dim,), ln_scale, ln_bias, 1e-6))
-    qkv = (torch._int_mm(xq.view(-1, dim), wqkv_i8).float() * sr.view(-1, 1) * sqkv).bfloat16()
+    qkv = (torch._int_mm(xq.view(-1, dim), wqkv_i8).float() * sr.view(-1, 1) * sqkv).to(x.dtype)
     o = merge_heads(F.scaled_dot_product_attention(*split_heads(qkv.view(b, n, -1), heads)))
     aq, sr2 = quantize_rows(o.float().view(b * n, -1))
     out = torch._int_mm(aq, wout_i8).float() * sr2 * sout + bout + x.view(b * n, dim).float()
@@ -3987,6 +4000,8 @@ def head_mix_launches(kind, h, heads, smi, kernels=TH_KERNELS, preset=None):
 Q9_KERNELS = ("ln_quant_rows_kernel", "gemm_s8_sm90_kernel", "attention_sm90_",
               "quant_rows_kernel", "gemm_s8_sm90_kernel")
 Q9_LAUNCHES = ("ln quant", "qkv gemm", "attention", "quant rows", "out gemm")
+# On an fp32 stream the attention runs on the fp32 core (attention_f32.cuh).
+Q9_F32_KERNELS = Q9_KERNELS[:2] + ("attention_f32_kernel",) + Q9_KERNELS[3:]
 
 
 def quant_block_launches(q, heads, smi):
@@ -3994,16 +4009,17 @@ def quant_block_launches(q, heads, smi):
     split into its five launches (torch.profiler), each GEMM's TOPS beside
     one torch._int_mm of the same operands: the card measurement of the
     attention-block half of scripts/tune_quant_r3.py's phase split (S6).
-    Fails unless they are Q9_KERNELS."""
+    Fails unless they are Q9_KERNELS (on an fp32 stream Q9_F32_KERNELS)."""
     from vit_tpu_torch.ops import quant_block as qb
     from vit_tpu_torch.tools.ab_attention import launch_ms
 
     x, wqkv, wout = q[0], q[3], q[5]
     kq = qblock_kernel_args(q)
-    split = launch_ms(lambda: qb.fused_quant_attention_block(*kq, heads), len(Q9_KERNELS))
+    want = Q9_F32_KERNELS if x.dtype == torch.float32 else Q9_KERNELS
+    split = launch_ms(lambda: qb.fused_quant_attention_block(*kq, heads), len(want))
     names = [n for n, _ in split]
-    require(all(key in n for key, n in zip(Q9_KERNELS, names)),
-            f"quant_attention_block launched {names}, not {list(Q9_KERNELS)}")
+    require(all(key in n for key, n in zip(want, names)),
+            f"quant_attention_block launched {names}, not {list(want)}")
     rows, dim = x.shape[0] * x.shape[1], x.shape[2]
     ops = {"qkv gemm": 2 * rows * dim * wqkv.shape[1], "out gemm": 2 * rows * wout.shape[0] * dim}
     gen = torch.Generator(device=x.device).manual_seed(SEED + 40)
@@ -4019,7 +4035,8 @@ def quant_block_launches(q, heads, smi):
             part += (f" ({ops[what] / t / 1e9:.1f} TOPS; torch._int_mm {lib[what]:.4f} ms, "
                      f"{ops[what] / lib[what] / 1e9:.1f} TOPS)")
         parts.append(part)
-    print(f"op quant_attention_block ViT-L int8 batch {x.shape[0]} launches (device): "
+    stream = "fp32 stream" if x.dtype == torch.float32 else "int8"
+    print(f"op quant_attention_block ViT-L {stream} batch {x.shape[0]} launches (device): "
           f"{sum(t for _, t in split):.4f} ms = " + ", ".join(parts) + f" [{smi}]")
     print("op quant_attention_block kernels: "
           + " | ".join(n.replace("(anonymous namespace)::", "").split("(")[0] for n in names))
@@ -4995,15 +5012,18 @@ def phase_zoo3(dev, smi, requests):
 # -- the zoo's fourth slice: ScalableViT and RegionViT ------------------------------
 
 
-def kv_plan_c(nk, d, dv):
-    """The C side's plan of kernel 5 at a shape (``vt_kv_blocked_plan``)."""
+def kv_plan_c(nk, d, dv, fp32=False):
+    """The C side's plan of kernel 5 at a shape (``vt_kv_blocked_plan``; its
+    fp32 route's, ``vt_kv_blocked_plan_f32``)."""
     import ctypes
 
     from vit_tpu_torch.ops import _build
 
     fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
     got = (ctypes.c_int * 5)()
-    _build.load_library().vt_kv_blocked_plan(nk, d, dv, ctypes.cast(got, ctypes.c_void_p))
+    lib = _build.load_library()
+    query = lib.vt_kv_blocked_plan_f32 if fp32 else lib.vt_kv_blocked_plan
+    query(nk, d, dv, ctypes.cast(got, ctypes.c_void_p))
     return fa.KvPlan(fa.KV_VARIANTS[got[0]], *got[1:5])
 
 
@@ -9671,7 +9691,8 @@ def f32_route_kernel(kind, kw):
     if kind == "window_attention_block":
         return lambda *a: ops.fused_window_attention_block(*a[:6], kw["heads"], a[6],
                                                            kw["scale"], kw["ln_eps"])
-    return lambda q, k, v, bias: ops.flash_attention(q, k, v, bias, kw["scale"], kw["mask_self"])
+    kernel = getattr(ops, kind)  # flash_attention or flash_attention_kv_blocked
+    return lambda q, k, v, bias: kernel(q, k, v, bias, kw["scale"], kw["mask_self"])
 
 
 def f32_route_fault(fault, kind, args, kw):
@@ -9983,6 +10004,542 @@ def phase_f32_models(dev, smi, requests, states):
     print(f"phase 28 (fp32 models on the fp32 core): {time.perf_counter() - t0:.1f} s")
     return worst, launches, op_ms, grads
 
+# -- phase 29: the fp32 bodies of kernels 5 and 9 -----------------------------------
+
+# The fp32 models of 29b: the T2T-ViT and ScalableViT presets at vit_tpu's
+# default precision launch as their bf16 forms do (FAMILY_LAUNCHES), every
+# launch on an fp32 route; QuantViT (dtype None) of ViT-L/16 from batch 8 runs
+# 24 W8A8 attention blocks and 24 W8A8 MLPs a forward on the fp32 stream.
+F32_KV_FAMILIES = ("t2t", "scalable_vit")
+QUANT_F32_LAUNCHES = {"quant_attention_block": 24, "quant_mlp": 24, "qkv_attention": 0,
+                      "attention_block": 0, "fused_mlp": 0}
+# Faults planted in kernel 5's fp32 twin (kv_f32_fault_twin), each of which
+# must fail DOMAIN_F32_TOL where it applies: q, k and v rounded to bf16 (the
+# bf16 route's operands); the bias dropped; the keys padded with zero rows to
+# a whole chunk and left unmasked (every case has at least 16 of them); chunk
+# 16 skipped (keys 1,024-1,087); the running max's rescale alpha left out of
+# l and the accumulator.
+KV_F32_FAULTS = ("operands rounded to bf16", "bias dropped", "padded keys unmasked",
+                 "chunk 16 skipped", "alpha rescale left out")
+# 29a: kernel 5's fp32 route against its fp32 twin at the kernel's 64-key
+# chunk: (what, shape, faults). views: q, k and v are the split_heads views of
+# fused [B, N, 3 H D] rows, as T2T's tokenizer and IWSA pass them; bias: its
+# [B|1, H|1]. Batch 8 (the twin's chunk scores are small there); times at 128
+# are 29d's.
+KV_F32_CASES = (
+    ("T2T stage 0 [8, 1, 3136, 147] views", dict(b=8, h=1, nq=3136, nk=3136, d=147, dv=147,
+                                                  views=True),
+     KV_F32_FAULTS[:1] + KV_F32_FAULTS[3:]),
+    ("T2T stage 1 [8, 1, 784, 1323] views", dict(b=8, h=1, nq=784, nk=784, d=1323, dv=1323,
+                                                  views=True),
+     (KV_F32_FAULTS[0], KV_F32_FAULTS[2], KV_F32_FAULTS[4])),
+    ("IWSA stage 0 [8, 2, 4096, 32] views", dict(b=8, h=2, nq=4096, nk=4096, d=32, dv=32,
+                                                  views=True),
+     KV_F32_FAULTS[:1] + KV_F32_FAULTS[3:]),
+    ("SSA stage 0 [8, 2, 4096 x 64 keys, 40 / 32]", dict(b=8, h=2, nq=4096, nk=64, d=40, dv=32),
+     KV_F32_FAULTS[:1]),
+    ("Nk 1000, D 40 / Dv 32, bias [1, 1], mask_self",
+     dict(b=8, h=2, nq=300, nk=1000, d=40, dv=32, bias=(1, 1), mask_self=True),
+     KV_F32_FAULTS[1:3] + KV_F32_FAULTS[4:]),
+    ("Nk 1000, D 64 / Dv 48, bias [B, H]", dict(b=8, h=2, nq=300, nk=1000, d=64, dv=48,
+                                               bias=(8, 2)), KV_F32_FAULTS[1:3]),
+    ("Nk 1000, D 147, bias [B, 1]", dict(b=8, h=2, nq=300, nk=1000, d=147, dv=147, bias=(8, 1)),
+     KV_F32_FAULTS[1:2]),
+    ("Nk 1000, D 32, bias [1, H]", dict(b=8, h=2, nq=300, nk=1000, d=32, dv=32, bias=(1, 2)),
+     KV_F32_FAULTS[1:2]),
+    ("two phases: Nk 1300, D 200 / Dv 300, bias [B, 1], mask_self",
+     dict(b=8, h=1, nq=300, nk=1300, d=200, dv=300, bias=(8, 1), mask_self=True),
+     KV_F32_FAULTS[1:]),
+)
+# 29d: kernel 5's fp32 route at batch 128 at each served shape, with its
+# launches a forward (T2T: one a tokenizer layer; ScalableViT's stage 0: two
+# layers of IWSA and two of SSA).
+KV_F32_OPS = ((0, 1), (1, 1), (2, 2), (3, 2))  # (KV_F32_CASES index, launches a forward)
+# 29a: kernel 9's fp32 stream stage by stage: (what, batch, tokens, dim,
+# heads, dim_head, true_n).
+Q9_F32_CASES = (("ViT-L/16 batch 8", 8, N_TOKENS, 1024, 16, 64, None),
+                ("ViT-L/16 batch 128", 128, N_TOKENS, 1024, 16, 64, None),
+                ("padded to 208 tokens, true_n 197", 8, 208, 1024, 16, 64, N_TOKENS))
+
+
+def kv_f32_inputs(r, shape):
+    """fp32 q, k, v and bias of a KV_F32_CASES shape, each drawn by ``r(*size)``
+    (unit normal), and the options (scale, mask_self)."""
+    b, h, nq, nk, d, dv = (shape[k] for k in ("b", "h", "nq", "nk", "d", "dv"))
+    if shape.get("views"):
+        q, k, v = split_heads(r(b, nq, 3 * h * d), h)
+    else:
+        q, k, v = r(b, h, nq, d), r(b, h, nk, d), r(b, h, nk, dv)
+    bias = shape.get("bias")
+    return ([q, k, v, None if bias is None else r(*bias, nq, nk)],
+            dict(scale=d**-0.5, mask_self=shape.get("mask_self", False)))
+
+
+def kv_f32_fault_twin(fault, q, k, v, bias, scale, mask_self):
+    """Kernel 5's fp32 twin at the kernel's chunk with one of KV_F32_FAULTS
+    planted."""
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+
+    twin = lambda q, k, v, bias: fa.reference_attention_kv_blocked(
+        q, k, v, bias, scale, mask_self, block_k=fa.KV_CHUNK)
+    if fault == KV_F32_FAULTS[0]:
+        return twin(*(t.bfloat16().float() for t in (q, k, v)), bias)
+    if fault == KV_F32_FAULTS[1]:
+        return twin(q, k, v, None)
+    if fault == KV_F32_FAULTS[2]:
+        pad = -k.shape[2] % fa.KV_CHUNK
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+        return twin(q, k, v, None if bias is None else F.pad(bias, (0, pad)))
+    # the twin's loop, with chunk 16 left out or alpha's rescale dropped
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    m = torch.full((b, h, nq, 1), -float("inf"), device=q.device)
+    l = torch.zeros((b, h, nq, 1), device=q.device)
+    acc = torch.zeros((b, h, nq, v.shape[3]), device=q.device)
+    rows = torch.arange(nq, device=q.device)[:, None]
+    for i, k0 in enumerate(range(0, nk, fa.KV_CHUNK)):
+        if fault == KV_F32_FAULTS[3] and i == 16:
+            continue
+        kb, vb = k[:, :, k0:k0 + fa.KV_CHUNK], v[:, :, k0:k0 + fa.KV_CHUNK]
+        s_ = fa._mm(q, kb.transpose(-1, -2)) * scale
+        if bias is not None:
+            s_ = s_ + bias[..., k0:k0 + fa.KV_CHUNK]
+        if mask_self:
+            s_ = s_.masked_fill(rows == torch.arange(k0, k0 + kb.shape[2], device=q.device),
+                                fa.MASK_VALUE)
+        m_new = torch.maximum(m, s_.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        if fault == KV_F32_FAULTS[4] and i > 0:
+            alpha = torch.ones_like(alpha)
+        p = torch.exp(s_ - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + fa._mm(p, vb)
+        m = m_new
+    return acc / l
+
+
+def check_kv_f32(name, shape, faults, gen, dev):
+    """One KV_F32_CASES line: the fp32 route (one fp32-counted launch, fp32
+    out, the C plan kv_blocked_layout's) within DOMAIN_F32_TOL of the largest
+    output against its fp32 twin at the kernel's chunk, each planted fault
+    over that bound, and samples 4 and 5 alone bitwise the full call's rows.
+    Returns max |err|."""
+    from vit_tpu_torch import ops
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    (q, k, v, bias), kw = kv_f32_inputs(_randn(gen, dev), shape)
+    nk, d, dv = k.shape[2], q.shape[3], v.shape[3]
+    plan, plan_c = fa.kv_blocked_layout(nk, d, dv, fp32=True), kv_plan_c(nk, d, dv, fp32=True)
+    require(plan == plan_c, f"kv f32 {name}: the C plan {plan_c} is not {plan}")
+    run = lambda q, k, v, bias: fa.flash_attention_kv_blocked(q, k, v, bias, kw["scale"],
+                                                              kw["mask_self"])
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = run(q, k, v, bias)
+        torch.cuda.synchronize()
+        counts = ops.fp32_launch_counts()
+        ref = fa.reference_attention_kv_blocked(q, k, v, bias, kw["scale"], kw["mask_self"],
+                                                block_k=fa.KV_CHUNK)
+        delta = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        tol = DOMAIN_F32_TOL * delta
+        print(f"fp32 route flash_attention_kv_blocked {name} ({plan.variant}, {plan.bytes} B of "
+              f"shared memory): max_abs_err {err:.6g}, {err / delta:.3g} of max |out| {delta:.4g} "
+              f"(bound {DOMAIN_F32_TOL:g}); fp32 launches {counts['flash_attention_kv_blocked']}")
+        require(out.dtype == torch.float32 and out.shape == ref.shape,
+                f"kv f32 {name}: out {out.dtype} {tuple(out.shape)}")
+        require(counts["flash_attention_kv_blocked"] == 1 and sum(counts.values()) == 1,
+                f"kv f32 {name}: fp32 launches {counts}")
+        require(torch.isfinite(out).all().item() and err <= tol,
+                f"kv f32 {name}: error {err} > {tol}")
+        for fault in faults:
+            bad = kv_f32_fault_twin(fault, q, k, v, bias, kw["scale"], kw["mask_self"])
+            e = (bad - ref).abs().max().item()
+            print(f"fp32 route flash_attention_kv_blocked {name}: the twin with {fault}: "
+                  f"{e / delta:.3g} of max |out|, {e / tol:.3g}x the bound (must fail)")
+            require(e > tol, f"kv f32 {name}: the bound does not see {fault}")
+            del bad
+        part = slice(4, 6)
+        cut = lambda t: t if t is None or t.shape[0] == 1 else t[part]
+        alone = run(cut(q), cut(k), cut(v), cut(bias))
+        require(torch.equal(alone, out[part]),
+                f"kv f32 {name}: samples {part} alone differ from the full call's")
+    del q, k, v, bias, out, ref, alone
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_quant_block_f32(name, args, heads, true_n):
+    """Kernel 9 on an fp32 stream against its fp32 twin, stage by stage on
+    the kernel's own intermediates: the LN codes and row scales as the bf16
+    stream's check holds them; qkv (the dequant epilogue of the kernel's
+    codes) within one fp32 ulp of its largest value; the fp32 attention rows
+    within DOMAIN_F32_TOL of the twin's rows on the kernel's qkv; the
+    attention codes quantize_rows' of the kernel's rows and the output the
+    epilogue of the kernel's codes, both bitwise; the output against the
+    twin within kernel_tol. Each fault of the stage it belongs to must fail
+    that stage's bound: the LN rounded to bf16 before quantizing, no
+    activation quantization (W8A16, at qkv), qkv rounded to bf16 (the bf16
+    stream's attention operands). Returns max |err| against the twin."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.ops.block_attention import _ln_f32
+    from vit_tpu_torch.ops.quant import quantize_rows
+
+    st = {}
+    x = args[0]
+    b, n, dim = x.shape
+    d = args[3].shape[1] // 3 // heads
+    with torch.inference_mode():
+        out = qb.fused_quant_attention_block(*qblock_kernel_args(args), heads, true_n=true_n,
+                                             intermediates=st)
+        ref = quant_block_twin(args, heads, true_n)
+        torch.cuda.synchronize()
+        rows = b * n
+        ln = _ln_f32(x.float(), args[1], args[2]).reshape(rows, dim)
+        xq, s_ref = quantize_rows(ln)
+        moved, step, s_ulps = codes_differ(st["xq"], st["s_row"], xq, s_ref)
+        bad_moved = codes_differ(st["xq"], st["s_row"], *quantize_rows(ln.bfloat16().float()))[0]
+        g = qb._quant_gemm(st["xq"], st["s_row"].view(-1, 1), args[3], args[4])
+        ulp = math.ldexp(1.0, math.frexp(g.abs().max().item())[1] - 24)
+        e_qkv = (st["qkv"] - g).abs().max().item()
+        w16 = torch.matmul(ln, args[3].float() * args[4].reshape(1, -1))  # W8A16
+        e_w16 = (w16 - g).abs().max().item()
+        rows_ref = qb._attention_f32(st["qkv"].view(b, n, -1), heads, d**-0.5, true_n)
+        rows_16 = qb._attention_f32(st["qkv"].view(b, n, -1).bfloat16().float(), heads,
+                                    d**-0.5, true_n)
+        top = rows_ref.abs().max().item()
+        rel = (st["attn"] - rows_ref.reshape(rows, -1)).abs().max().item() / top
+        rel_16 = (rows_16 - rows_ref).abs().max().item() / top
+        amoved, _, as_ulps = codes_differ(st["aq"], st["s_row2"], *quantize_rows(st["attn"]))
+        o = qb._quant_gemm(st["aq"], st["s_row2"].view(-1, 1), args[5], args[6]) + args[7]
+        o = o + x.reshape(rows, dim)
+        o_differ = int((o != out.reshape(rows, dim)).sum().item())
+        err = (out - ref).abs().max().item()
+        tol = kernel_tol(ref, x, out.dtype)
+    stages = [
+        (moved <= INT8_LN_MOVED * xq.numel() and step <= 1 and s_ulps <= INT8_LN_SCALE_ULPS,
+         f"LN codes moved {moved} of {xq.numel()} (step {step}), row scales {s_ulps:g} ulps"),
+        (bad_moved > INT8_LN_MOVED * xq.numel(),
+         f"LN rounded to bf16 before quantizing moves {bad_moved} codes (must fail)"),
+        (st["qkv"].dtype == torch.float32 and e_qkv <= ulp,
+         f"qkv {st['qkv'].dtype} within {e_qkv:.3g} of the epilogue on the kernel's codes "
+         f"(bound one ulp, {ulp:.3g})"),
+        (e_w16 > ulp, f"W8A16 qkv {e_w16:.3g} from it (must fail)"),
+        (rel <= DOMAIN_F32_TOL, f"fp32 attention rows {rel:.3g} of their max from the twin's on "
+                                f"the kernel's qkv (bound {DOMAIN_F32_TOL:g})"),
+        (rel_16 > DOMAIN_F32_TOL, f"on qkv rounded to bf16 {rel_16:.3g} (must fail)"),
+        (amoved == 0 and as_ulps == 0, f"attention codes differing from quantize_rows of the "
+                                       f"kernel's rows {amoved}, scales {as_ulps:g} ulps (must be 0)"),
+        (o_differ == 0, f"output differing bitwise from the epilogue on the kernel's codes "
+                        f"{o_differ} (must be 0)"),
+        (out.dtype == torch.float32 and torch.isfinite(out).all().item() and err <= tol,
+         f"output {out.dtype} against the twin: max_abs_err {err:.6g}, tol {tol:.6g} "
+         f"(kernel_tol, fp32)"),
+    ]
+    for ok, line in stages:
+        print(f"quant_attention_block fp32 stream {name}: {line}")
+    fails = [line for ok, line in stages if not ok]
+    require(not fails, f"quant_attention_block fp32 stream {name}: " + "; ".join(fails))
+    del st, out, ref, g, w16, rows_ref, rows_16, o
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_f32_kv_kernels(dev):
+    """29a: KV_F32_CASES and Q9_F32_CASES. Returns max |err| of kernels 5 and
+    9 at their served shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 290)
+    worst = {"flash_attention_kv_blocked": 0.0, "quant_attention_block": 0.0}
+    for i, (name, shape, faults) in enumerate(KV_F32_CASES):
+        err = check_kv_f32(name, shape, faults, gen, dev)
+        if i < 4:
+            worst["flash_attention_kv_blocked"] = max(worst["flash_attention_kv_blocked"], err)
+    for name, b, n, dim, heads, d, true_n in Q9_F32_CASES:
+        inp = qblock_inputs(gen, b, n, dim, heads, d, dev)
+        args = [inp[k] for k in QBLOCK_ARGS]
+        args[0] = args[0].float()
+        err = check_quant_block_f32(name, args, heads, true_n)
+        if true_n is None:
+            worst["quant_attention_block"] = max(worst["quant_attention_block"], err)
+        del inp, args
+    return worst
+
+
+def _twin_calls_int8():
+    """_twin_calls with the int8 kernels' twins counted too."""
+    from vit_tpu_torch import ops
+
+    stack, calls = _twin_calls()
+    for name in ("xla_quant_attention_block", "reference_quant_mlp"):
+        real = getattr(ops, name)
+        stack.enter_context(mock.patch.object(
+            ops, name, lambda *a, _n=name, _f=real, **k: calls.update([_n]) or _f(*a, **k)))
+    return stack, calls
+
+
+def phase_f32_kv_serve(dev, smi, requests, vit_state):
+    """29b: the F32_KV_FAMILIES served in fp32 through BatchingServer at full
+    width and depth, on fp32 images (vit_tpu's modules compute in the
+    stream's dtype where theirs is None, so T2T's tokenizer on bf16 images
+    would run bf16 kernels), as phase 28 serves its families: FAMILY_LAUNCHES
+    a forward, all of them on fp32 routes, no twin called, the logits
+    against the plain fp32 path by f32_e2e; and QuantViT (dtype None) of ViT-L/16
+    from phase 3's weights served in the auto mode, then at batch 8 and 128
+    in the kernel mode: QUANT_F32_LAUNCHES a forward on the fp32 stream, no
+    twin called, held as phase 6 holds the bf16-stream int8 model: at batch
+    8 each layer through the kernels against the same layer through the
+    twins on the same input (INT8_LAYER_*), and at both batches the logits
+    within INT8_FP32_TOL of the port's plain fp32 ViT-L. The distance from
+    the plain int8 path (the same model under force_backend, its twins in
+    fp32) is printed beside a control, the plain path on inputs one ulp
+    apart: a code that crosses a rounding boundary moves by a whole step,
+    so neither is near DOMAIN_F32_E2E (0.021 of max |logit| from the plain
+    int8 path at batch 8 on the H100). Each model's img/s at batch 128.
+    Returns the fp32 routes' launches."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models import ScalableViT
+    from vit_tpu_torch.pipeline import preprocess
+    from vit_tpu_torch.utils import quantize_vit
+
+    fp32_launches = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 291)
+
+    def img_s(model, size, what):
+        x = torch.randn(128, size, size, 3, generator=gen, device=dev)
+        with torch.inference_mode():
+            run = lambda: model(x)
+            p50_ms(run, 1)
+            ms = p50_ms(run, 3)
+        print(f"times {what} fp32 batch 128: p50 {ms:.3f} ms, img/s {128 / ms * 1e3:.1f} [{smi}]")
+
+    for fam in F32_KV_FAMILIES:
+        t0 = time.perf_counter()
+        if fam == "t2t":
+            models = build_t2t_models(dev)
+        else:
+            models = build_family_models({"scalable_vit": (
+                lambda dt: ScalableViT(**SCALABLE_VIT, dtype=dt, device=dev),
+                lambda: scalable_vit_tree(SCALABLE_VIT, SEED + 34))})
+        print(f"{fam}: weights drawn and loaded in {time.perf_counter() - t0:.1f} s")
+        stack, calls = _twin_calls()
+        got = {}
+        with stack:
+            serve_family(models[(fam, "fp32")], fam, requests, fp32_counts=got,
+                         dtype=torch.float32)
+        forwards = got.pop("forwards")
+        want = {k: FAMILY_LAUNCHES[fam].get(k, 0) * forwards for k in got}
+        print(f"slice {fam} fp32: fp32-route launches {got} (want {want}); twin calls "
+              f"{dict(calls)} (want none)")
+        require(got == want, f"slice {fam} fp32: fp32-route launches {got}, want {want}")
+        require(not calls, f"slice {fam} fp32: twins called {dict(calls)}")
+        fp32_launches.update(got)
+        f32_e2e(fam, models, dev, requests)
+        img_s(models[(fam, "fp32")], IMAGE_SIZE[fam], fam)
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    vit32 = build_model(vit_state, dev, "fp32")
+    qmodel = quantize_vit(vit32)
+    require(qmodel.dtype is None, f"QuantViT of the fp32 ViT-L has dtype {qmodel.dtype}")
+    stack, calls = _twin_calls_int8()
+    with stack:
+        counts = serve_int8(qmodel, requests, dev)
+    fp32_counts = {k: counts[k] for k in ("quant_attention_block", "quant_mlp")}
+    print(f"slice QuantViT fp32 stream (auto): launches {counts}; twin calls {dict(calls)} "
+          f"(want none)")
+    require(not calls, f"slice QuantViT fp32: twins called {dict(calls)}")
+    raw = torch.from_numpy(np.stack(requests[:8])).to(dev)
+    for b in (8, 128):
+        if b == 8:
+            x = preprocess(raw, image_size=224, dtype=torch.float32)
+        else:
+            x = torch.randn(b, 224, 224, 3, generator=gen, device=dev)
+        stack, calls = _twin_calls_int8()
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            with stack:
+                out = qmodel(x, mode="w8a8_kernel")
+            torch.cuda.synchronize()
+            got = {k: v for k, v in ops.fp32_launch_counts().items() if v}
+            allk = {k: v for k, v in ops.launch_counts().items() if v}
+            differ, ulps = [], []
+            if b == 8:  # each layer through the kernels and the twins on the same input
+                h = qmodel.embed(x)
+                for blk in qmodel.encoder.blocks:
+                    layer = lambda h: blk(h, "w8a8_kernel", torch.float32, qmodel.norm_eps,
+                                          qmodel.activation)
+                    k = layer(h)
+                    with ops.force_backend("torch"):
+                        h = layer(h)
+                    u, dv, _ = int8_out_check(k, h)
+                    ulps.append(u)
+                    differ.append(dv)
+            # one fp32 ulp added to 1% of the inputs: how far the plain int8
+            # path moves when a few codes cross a rounding boundary
+            moved = torch.rand(x.shape, generator=gen, device=dev) < 0.01
+            x_ulp = torch.where(moved, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
+            with ops.force_backend("torch"):
+                plain = qmodel(x, mode="w8a8_kernel")
+                control = (qmodel(x_ulp, mode="w8a8_kernel") - plain).abs().max().item()
+                ref32 = vit32(x)
+        want = {k: v for k, v in QUANT_F32_LAUNCHES.items() if v}
+        e_plain = (out - plain).abs().max().item()
+        e_fp32 = (out - ref32).abs().max().item()
+        p_fp32 = (plain - ref32).abs().max().item()
+        if b == 8:
+            print(f"e2e QuantViT fp32 stream batch 8: each layer, kernels vs twins on the same "
+                  f"input: up to {max(differ):.3g} of the values differ in bf16 (bound "
+                  f"{INT8_LAYER_DIFFER:g}), up to {max(ulps):g} bf16 ulps of max(|ref|, "
+                  f"{INT8_FLOOR}) (bound {INT8_LAYER_ULPS:g})")
+        print(f"e2e QuantViT fp32 stream batch {b}: fp32-route launches {got}, all {allk} (want "
+              f"{want}); twin calls {dict(calls)}; logits vs plain fp32 ViT-L: kernels {e_fp32:.6g}, "
+              f"plain int8 {p_fp32:.6g}, tol {INT8_FP32_TOL} (max|logit| "
+              f"{ref32.abs().max().item():.4g}); kernels vs plain int8 {e_plain:.6g} (control: "
+              f"plain vs plain on inputs one ulp apart {control:.6g}); top-1 agreement with fp32 "
+              f"{(out.argmax(-1) == ref32.argmax(-1)).float().mean().item():.3f}")
+        require(got == want and allk == want, f"QuantViT fp32 batch {b}: launches {allk}")
+        require(not calls, f"QuantViT fp32 batch {b}: twins called {dict(calls)}")
+        require(not differ or (max(differ) <= INT8_LAYER_DIFFER and max(ulps) <= INT8_LAYER_ULPS),
+                f"QuantViT fp32: a layer is {max(differ or [0]):.3g} / {max(ulps or [0]):g} ulps "
+                f"from its twins")
+        require(out.dtype == torch.float32 and torch.isfinite(out).all().item()
+                and e_fp32 <= INT8_FP32_TOL, f"QuantViT fp32 batch {b}: {e_fp32} from the fp32 "
+                                             f"path")
+        for k, v in got.items():
+            fp32_counts[k] += v
+        del x, x_ulp, out, plain, ref32
+    img_s(qmodel, 224, "QuantViT ViT-L/16 (w8a8_kernel)")
+    fp32_launches.update(fp32_counts)
+    del qmodel, vit32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(fp32_launches)
+
+
+def phase_f32_kv_functions(dev):
+    """29c: FlashAttentionFn under grad on kernel 5's fp32 route at a T2T
+    stage-0 shape (fused-row views) and at SSA's (D 40, Dv 32 against 64
+    keys, with a head bias), against autograd through the twin with the
+    planted backward faults (check_function). Returns the worst gradient
+    error."""
+    from vit_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 292)
+    worst = 0.0
+    for what, shape in (("T2T stage 0 [2, 1, 300, 147] views",
+                         dict(b=2, h=1, nq=300, nk=300, d=147, dv=147, views=True)),
+                        ("SSA [2, 2, 256 x 64 keys, 40 / 32], bias [1, 2]",
+                         dict(b=2, h=2, nq=256, nk=64, d=40, dv=32, bias=(1, 2)))):
+        args, kw = kv_f32_inputs(_randn(gen, dev), shape)
+        err, _ = _function_line("flash_attention_kv_blocked", f"{what} fp32", args, kw, gen)
+        n32 = ops.fp32_launch_counts()["flash_attention_kv_blocked"]
+        print(f"function flash_attention_kv_blocked {what} fp32: {n32} fp32-route launches in "
+              f"the checked call")
+        require(n32 >= 1, f"function flash_attention_kv_blocked {what}: not on the fp32 route")
+        worst = max(worst, err)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_f32_kv_op_times(dev, smi):
+    """29d: kernel 5's fp32 route at KV_F32_OPS at batch 128 (CUDA events;
+    its one launch by torch.profiler), the bound at PEAK_FP32, the fp32 twin
+    at the kernel's chunk and SDPA on the fp32 operands (TF32 off); kernel 9
+    on the fp32 stream at ViT-L/16 batch 128 (its five launches split), its
+    twin and the library composite (F.layer_norm, torch._int_mm, fp32 SDPA);
+    kernel 10 on the fp32 stream at the same rows. Returns (kernel, twin,
+    library, (bound, by)) of each: kernel 5's summed over its launches in one
+    forward of each fp32 model (T2T's two, ScalableViT's four)."""
+    from vit_tpu_torch.ops import quant_block as qb
+    from vit_tpu_torch.tools.ab_attention import launch_ms
+
+    fa = importlib.import_module("vit_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 293)
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
+    total, flops_all, bytes_all = [0.0, 0.0, 0.0], 0.0, 0.0
+    with torch.inference_mode():
+        for i, per_forward in KV_F32_OPS:
+            name, shape, _ = KV_F32_CASES[i]
+            name = name.replace("[8,", "[128,")
+            (q, k, v, _), kw = kv_f32_inputs(_randn(gen, dev), dict(shape, b=128))
+            run = lambda: fa.flash_attention_kv_blocked(q, k, v, None, kw["scale"])
+            kern = cuda_ms(run, iters=3, warmup=1)
+            twin = cuda_ms(lambda: fa.reference_attention_kv_blocked(
+                q, k, v, None, kw["scale"], block_k=fa.KV_CHUNK), iters=1, warmup=1)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=kw["scale"]),
+                          iters=3, warmup=1)
+            b, h, nq, d = q.shape
+            nk, dv = k.shape[2], v.shape[3]
+            flops = 2 * b * h * nq * nk * (d + dv)
+            nbytes = size(q, k, v) + 4 * b * h * nq * dv
+            bnd, by = bound(fp32_flops=flops, nbytes=nbytes)
+            split = launch_ms(run, 1, iters=3)
+            names = kernel_names(split)
+            require("kv_blocked_f32" in names[0], f"kv f32 {name}: launched {names}")
+            print(f"op flash_attention_kv_blocked (fp32 route) {name} batch 128: kernel "
+                  f"{kern:.3f} ms (device {names[0]} {split[0][1]:.3f} ms, "
+                  f"{flops / split[0][1] / 1e9:.2f} TFLOP/s), {per_forward} launch(es) a forward, "
+                  f"bound {bnd:.4f} ms ({by}; {bnd / kern:.1%} of it), twin {twin:.3f} ms, library "
+                  f"{lib:.3f} ms (SDPA fp32, {sdpa_backend(q, k, v)} backend; {kern / lib:.2f}x) "
+                  f"[{smi}]")
+            total = [t + per_forward * x for t, x in zip(total, (kern, twin, lib))]
+            flops_all, bytes_all = flops_all + per_forward * flops, bytes_all + per_forward * nbytes
+            del q, k, v
+            torch.cuda.empty_cache()
+        out = {"flash_attention_kv_blocked (fp32 route)":
+               (*total, bound(fp32_flops=flops_all, nbytes=bytes_all))}
+        print(f"op flash_attention_kv_blocked (fp32 route) summed over one forward of fp32 T2T-ViT "
+              f"and ScalableViT at batch 128: kernel {total[0]:.3f} ms, twin {total[1]:.3f} ms, "
+              f"library {total[2]:.3f} ms, bound {out['flash_attention_kv_blocked (fp32 route)'][3][0]:.4f} ms "
+              f"[{smi}]")
+        b, n, dim, heads, d, f = 128, N_TOKENS, 1024, 16, 64, 4096
+        rows, hd = b * n, heads * d
+        q_in = qblock_inputs(gen, b, n, dim, heads, d, dev)
+        qa = [q_in[k] for k in QBLOCK_ARGS]
+        qa[0] = qa[0].float()
+        kq = qblock_kernel_args(qa)
+        times = (cuda_ms(lambda: qb.fused_quant_attention_block(*kq, heads), iters=5),
+                 cuda_ms(lambda: qb.xla_quant_attention_block(*qa, heads, d**-0.5), iters=3),
+                 cuda_ms(lambda: library_quant_block(*qa, heads), iters=5),
+                 bound(int8_ops=2 * rows * dim * 3 * hd + 2 * rows * hd * dim,
+                       fp32_flops=4 * b * heads * n * n * d, nbytes=size(*qa) + size(qa[0])))
+        print(f"op quant_attention_block (fp32 stream) ViT-L/16 batch 128: kernel {times[0]:.3f} ms, "
+              f"24 launches a forward, twin {times[1]:.3f} ms, library {times[2]:.3f} ms "
+              f"(F.layer_norm, torch._int_mm, fp32 SDPA), bound {times[3][0]:.4f} ms "
+              f"({times[3][1]}; {times[3][0] / times[0]:.1%} of it) [{smi}]")
+        quant_block_launches(qa, heads, smi)
+        out["quant_attention_block (fp32 route)"] = times
+        del q_in, qa, kq
+        qm_in = qmlp_inputs(gen, b, n, dim, f, torch.float32, dev)
+        qm = [qm_in[k] for k in QMLP_ARGS]
+        km = qmlp_kernel_args(qm)
+        times = (cuda_ms(lambda: qb.fused_quant_mlp(*km), iters=5),
+                 cuda_ms(lambda: qb.reference_quant_mlp(*qm), iters=3),
+                 cuda_ms(lambda: library_quant_mlp(*qm), iters=5),
+                 bound(int8_ops=4 * rows * dim * f, nbytes=size(*qm) + size(qm[0])))
+        print(f"op quant_mlp (fp32 stream) ViT-L/16 batch 128: kernel {times[0]:.3f} ms, 24 "
+              f"launches a forward, twin {times[1]:.3f} ms, library {times[2]:.3f} ms, bound "
+              f"{times[3][0]:.4f} ms ({times[3][1]}; {times[3][0] / times[0]:.1%} of it) [{smi}]")
+        out["quant_mlp (fp32 route)"] = times
+        del qm_in, qm, km
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_f32_kv_models(dev, smi, requests, vit_state):
+    """Phase 29: the fp32 bodies of kernels 5 and 9 (29a-29d); ``vit_state``:
+    ViT-L's weights as phase 3 drew them. Returns (max |err| by kernel, the
+    fp32 routes' launches, their op times, kernel 5's worst gradient
+    error)."""
+    t0 = time.perf_counter()
+    worst = phase_f32_kv_kernels(dev)
+    launches = phase_f32_kv_serve(dev, smi, requests, vit_state)
+    grad = phase_f32_kv_functions(dev)
+    op_ms = phase_f32_kv_op_times(dev, smi)
+    print(f"phase 29 (the fp32 bodies of kernels 5 and 9): {time.perf_counter() - t0:.1f} s")
+    return worst, launches, op_ms, grad
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -10183,12 +10740,24 @@ def main() -> int:
     # 6 on the fp32 core, ViT-L/16, NesT, Twins-SVT and CvT served in fp32
     f32_worst, f32_launches, f32_ms, f32_grads = phase_f32_models(
         dev, smi, requests, {"vit_l": vit_state, "twins": twins_state})
-    del vit_state, twins_state
+    del twins_state
     for k in F32_CORE_KERNELS:
         domain_worst[f"{k} (fp32 route)"] = f32_worst[k]
         fp32_ms[f"{k} (fp32 route)"] = f32_ms[f"{k} (fp32 route)"]
         fp32_launches[k] = f32_launches[k]
         grad_worst[f"{k} (fp32 route)"] = f32_grads[k]
+
+    # 29. the fp32 bodies of kernels 5 and 9: kernel 5's fp32 online softmax,
+    # kernel 9's fp32 stream; T2T-ViT, ScalableViT and QuantViT served in fp32
+    kv_worst, kv_launches, kv_ms, kv_grad = phase_f32_kv_models(dev, smi, requests, vit_state)
+    del vit_state
+    for k in ("flash_attention_kv_blocked", "quant_attention_block"):
+        domain_worst[f"{k} (fp32 route)"] = kv_worst[k]
+    domain_worst["quant_mlp (fp32 route)"] = worst["quant_mlp (fp32 stream)"]
+    for k in ("flash_attention_kv_blocked", "quant_attention_block", "quant_mlp"):
+        fp32_ms[f"{k} (fp32 route)"] = kv_ms[f"{k} (fp32 route)"]
+        fp32_launches[k] = kv_launches[k]
+    grad_worst["flash_attention_kv_blocked (fp32 route)"] = kv_grad
 
     sources = {
         "attention_block": ("vit_tpu_torch/csrc/attention_block.cu, "
@@ -10245,6 +10814,14 @@ def main() -> int:
                               "vit_tpu_torch/csrc/gemm_f32.cuh, "
                               "vit_tpu_torch/csrc/head_mix_core.cuh",
                               "vit_tpu/ops/reattention_block.py:38"),
+        # phase 29: kernel 5's fp32 online softmax; kernels 9 and 10 on an fp32 stream
+        "flash_attention_kv_blocked": ("vit_tpu_torch/csrc/flash_attention_kv_blocked.cu",
+                                       "vit_tpu/ops/flash_attention.py:209"),
+        "quant_attention_block": ("vit_tpu_torch/csrc/quant_block.cu, "
+                                  f"vit_tpu_torch/csrc/gemm_s8_sm90.cuh, {f32_core}",
+                                  "vit_tpu/ops/quant_block.py:37"),
+        "quant_mlp": ("vit_tpu_torch/csrc/quant_block.cu, vit_tpu_torch/csrc/gemm_s8_sm90.cuh",
+                      "vit_tpu/ops/quant_block.py:189"),
     }
     rows = [(k, k, src, rep, op_ms[k], launches[k], worst[k]) for k, (src, rep) in sources.items()]
     rows += [(f"{k} (fp32 route)", k, src, rep, fp32_ms[f"{k} (fp32 route)"], fp32_launches[k],

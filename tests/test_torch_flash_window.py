@@ -264,8 +264,8 @@ def test_flash_kernel_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_self):
 def test_flash_kernel_reads_split_heads_views(cuda):
     """q, k, v as the split_heads views of [B, N, H*D] rows (GSA's layout),
     not copied: the result equals the kernel's on contiguous copies, on the
-    bf16 route and on the fp32 route (fp32 operands, which kernel 4 refused
-    before its fp32 route; kernel 5 still refuses them)."""
+    bf16 route and on the fp32 routes of kernels 4 and 5 (fp32 operands,
+    which both refused before their fp32 routes)."""
     from vit_tpu_torch.nn.attention import mha_tokens, split_heads
 
     rng = np.random.default_rng(8)
@@ -282,8 +282,11 @@ def test_flash_kernel_reads_split_heads_views(cuda):
     assert ops.fp32_launch_counts()["flash_attention"] == before + 1
     torch.testing.assert_close(out32, tfa.flash_attention(*(t.contiguous() for t in views)),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 5"):
-        tfa.flash_attention_kv_blocked(*(p.float() for p in parts))
+    before = ops.fp32_launch_counts()["flash_attention_kv_blocked"]
+    out32 = tfa.flash_attention_kv_blocked(*views)
+    assert ops.fp32_launch_counts()["flash_attention_kv_blocked"] == before + 1
+    torch.testing.assert_close(
+        out32, tfa.flash_attention_kv_blocked(*(t.contiguous() for t in views)), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The fp32 routes of kernels 1, 3, 4 and 6 (``vit_tpu``'s default precision):
+"""The fp32 routes of kernels 1, 3, 4, 5 and 6 (``vit_tpu``'s default precision):
 their twins against vit_tpu's interpret-mode kernels at ``Precision.HIGHEST``,
 the route choice and the fp32 core's fit rule, the fp32 presets' dispatch on
 the CPU, and the routes against their twins on the card.
@@ -110,7 +110,8 @@ def test_fp32_twins_match_interpret_mode(kind):
 def test_fp32_routes_are_counted():
     assert _build.FP32_ROUTES == ("attention_block", "fused_mlp", "qkv_attention",
                                   "talking_heads_block", "reattention_block", "flash_attention",
-                                  "window_attention_block")
+                                  "window_attention_block", "flash_attention_kv_blocked",
+                                  "quant_attention_block", "quant_mlp")
     assert set(ops.fp32_launch_counts()) == set(_build.FP32_ROUTES)
     assert set(_build.FP32_ROUTES) <= set(_build.KERNELS)
 
@@ -177,14 +178,15 @@ VIT_L_DEPTH = 2  # ViT-L/16's widths at depth 2: its 24 layers launch alike
 
 def _fp32_model(fam):
     import chip_smoke as cs
-    from vit_tpu_torch.models import CvT, NesT, TwinsSVT, ViT
+    from vit_tpu_torch.models import CvT, NesT, ScalableViT, T2TViT, TwinsSVT, ViT
 
     ctor, cfg = {"vit_l": (ViT, dict(cs.VIT_L, depth=VIT_L_DEPTH)), "nest": (NesT, cs.NEST),
-                 "twins": (TwinsSVT, cs.TWINS), "cvt": (CvT, cs.CVT)}[fam]
+                 "twins": (TwinsSVT, cs.TWINS), "cvt": (CvT, cs.CVT), "t2t": (T2TViT, cs.T2T),
+                 "scalable_vit": (ScalableViT, cs.SCALABLE_VIT)}[fam]
     return ctor(**cfg, device="cpu").eval(), cs.IMAGE_SIZE[fam]
 
 
-@pytest.mark.parametrize("fam", ["vit_l", "nest", "twins", "cvt"])
+@pytest.mark.parametrize("fam", ["vit_l", "nest", "twins", "cvt", "t2t", "scalable_vit"])
 def test_fp32_presets_route_as_the_card_would(fam, monkeypatch):
     """An fp32 model (``dtype=None``: vit_tpu's default) at batch 1 on the
     CPU calls each kernel's twin as often as chip_smoke's FAMILY_LAUNCHES
@@ -211,6 +213,35 @@ def test_fp32_presets_route_as_the_card_would(fam, monkeypatch):
     scale = VIT_L_DEPTH / 24 if fam == "vit_l" else 1
     assert calls == {k: int(n * scale) for k, n in FAMILY_LAUNCHES[fam].items() if n}
     assert dtypes == {torch.float32}
+
+
+def test_fp32_quant_vit_routes_as_the_card_would(monkeypatch):
+    """QuantViT of an fp32 ViT (``dtype`` None) at batch 8 on the CPU calls
+    the twins of kernels 9 and 10 once a layer each, every operand fp32 or
+    int8 codes: on the card both take their fp32 streams."""
+    import chip_smoke as cs
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils import quantize_vit
+
+    calls, dtypes = {}, set()
+    for name in ("xla_quant_attention_block", "reference_quant_mlp"):
+        real = getattr(ops, name)
+
+        def call(*a, _n=name, _f=real, **k):
+            calls[_n] = calls.get(_n, 0) + 1
+            dtypes.update(t.dtype for t in (*a, *k.values()) if isinstance(t, torch.Tensor))
+            return _f(*a, **k)
+
+        monkeypatch.setattr(ops, name, call)
+    qm = quantize_vit(ViT(**dict(cs.VIT_L, depth=VIT_L_DEPTH, image_size=32), device="cpu").eval())
+    assert qm.dtype is None
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 32, 32, 3),
+                                                                  dtype=np.float32))
+    with torch.inference_mode():
+        out = qm(x)
+    assert out.dtype == torch.float32 and out.shape == (8, 1000)
+    assert calls == {"xla_quant_attention_block": VIT_L_DEPTH, "reference_quant_mlp": VIT_L_DEPTH}
+    assert dtypes == {torch.float32, torch.int8}
 
 
 # -- on the card -----------------------------------------------------------------
@@ -295,20 +326,22 @@ def test_f32_core_plan_mirrors_the_kernel(cuda, nk, d, dv):
 
 
 @pytest.mark.cuda
-def test_kv_blocked_kernel_still_refuses_fp32(cuda):
-    """Kernel 5 has no fp32 route yet: its wrapper raises naming ROADMAP.md
-    Queue 2 item 5, and so does ops.attention at a shape kernel 4 does not
-    take (D 40)."""
+def test_kv_blocked_kernel_takes_fp32(cuda):
+    """ops.attention at a shape kernel 4 does not take (SSA's D 40 / Dv 32)
+    runs kernel 5's fp32 route: one launch counted there, fp32 out, within
+    DOMAIN_F32_TOL of its twin's largest output at the kernel's chunk."""
     args, kw = _inputs("flash_attention", dict(b=1, h=2, nq=64, nk=64, d=40, dv=32), 13, cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        tfa.flash_attention_kv_blocked(*args)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        ops.attention(*args[:3])
+    before = ops.fp32_launch_counts()["flash_attention_kv_blocked"]
+    out = ops.attention(*args[:3])
+    assert ops.fp32_launch_counts()["flash_attention_kv_blocked"] == before + 1
+    ref = tfa.reference_attention_kv_blocked(*args[:3], block_k=tfa.KV_CHUNK)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= DOMAIN_F32_TOL * ref.abs().max().item()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["attention_block", "qkv_attention", "flash_attention",
-                                  "window_attention_block"])
+                                  "window_attention_block", "flash_attention_kv_blocked"])
 def test_fp32_functions_forward_on_the_route(cuda, kind):
     """Each Function under grad: its forward on the fp32 route (one fp32
     launch), its gradients those of autograd through the twin within the
@@ -320,7 +353,9 @@ def test_fp32_functions_forward_on_the_route(cuda, kind):
     shape = {"attention_block": dict(b=2, n=65, dim=128, heads=2, d=64),
              "qkv_attention": dict(b=2, n=50, heads=4, d=32, bias=(1, 4)),
              "flash_attention": dict(b=2, h=4, nq=49, nk=196, d=32, dv=64, bias=(1, 4)),
-             "window_attention_block": dict(nw=8, s=49, c=64, heads=2, d=32, bias=(2,))}[kind]
+             "window_attention_block": dict(nw=8, s=49, c=64, heads=2, d=32, bias=(2,)),
+             "flash_attention_kv_blocked": dict(b=2, h=2, nq=100, nk=200, d=40, dv=32,
+                                                bias=(1, 2))}[kind]
     args, kw = _inputs(kind, shape, seed=14, device=cuda)
     with torch.no_grad():
         out = f32_route_kernel(kind, kw)(*args)

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KV_FAULTS, kernel_tol, kv_fault_twin
+from chip_smoke import (DOMAIN_F32_TOL, KV_F32_FAULTS, KV_FAULTS, kernel_tol, kv_f32_fault_twin,
+                        kv_fault_twin)
 from vit_tpu_torch import ops
 
 # ops/__init__ exports functions of the modules' own names
@@ -38,12 +39,16 @@ TOL = {"float32": 2e-5, "bfloat16": 2.0**-8}
 
 # (dtype, B, H, Nq, Nk, D, Dv, bias shape or None, mask_self, block_k):
 # several kv blocks, Nk not a multiple of the block, the four bias patterns,
-# mask_self, Dv != D, T2T's D = 147.
+# mask_self, Dv != D, T2T's D = 147; in fp32 also ScalableViT's SSA (D 40 /
+# Dv 32 against 64 keys) and widths past 160 (the fp32 route's two-phase
+# plan, Dv 300, and its sliced Q K^T, D 200).
 KV_CASES = [
     ("float32", 2, 2, 65, 300, 32, 32, None, False, 128),
     ("float32", 1, 2, 40, 200, 16, 16, (1, 1), True, 64),
     ("float32", 2, 2, 33, 130, 32, 48, (2, 2), False, 64),
     ("float32", 2, 1, 70, 150, 147, 147, (2, 1), True, 64),
+    ("float32", 2, 2, 100, 64, 40, 32, None, False, 64),
+    ("float32", 1, 1, 20, 100, 200, 300, (1, 1), True, 64),
     ("bfloat16", 2, 2, 65, 300, 32, 32, (1, 2), False, 128),
     ("bfloat16", 1, 2, 40, 200, 16, 16, (1, 1), True, 64),
     ("bfloat16", 2, 2, 33, 130, 32, 48, (2, 2), False, 64),
@@ -198,6 +203,57 @@ def test_kv_blocked_plan_is_pinned(nk, d, dv, plan):
     assert got.bytes <= tfa.MAX_SMEM
 
 
+# (Nk, D, Dv) -> the fp32 route's plan (kv_blocked_layout(fp32=True), the
+# mirror of csrc kvf::plan_for), pinned at the served shapes (T2T's two
+# tokenizer stages, ScalableViT's IWSA and SSA at stage 0) and around the
+# one-pass limit: Dv up to 160 (padded to 4) in one pass at any Nk, wider
+# in two phases; D past 160 slices Q K^T, in either.
+KV_F32_PLANS = [
+    (3136, 147, 147, ("f32-one-pass", 8, 32, 1, 68864)),
+    (784, 1323, 1323, ("f32-two-phase", 8, 32, 1, 71936)),
+    (4096, 32, 32, ("f32-one-pass", 8, 32, 1, 22784)),
+    (64, 40, 32, ("f32-one-pass", 8, 32, 1, 25856)),
+    (100_000, 160, 160, ("f32-one-pass", 8, 32, 1, 71936)),
+    (100, 161, 64, ("f32-one-pass", 8, 32, 1, 71936)),
+    (100, 64, 157, ("f32-one-pass", 8, 32, 1, 59648)),
+    (100, 64, 161, ("f32-two-phase", 8, 32, 1, 59648)),
+    (1, 3, 5, ("f32-one-pass", 8, 32, 1, 13568)),
+]
+
+
+@pytest.mark.parametrize("nk,d,dv,plan", KV_F32_PLANS)
+def test_kv_blocked_f32_plan_is_pinned(nk, d, dv, plan):
+    got = tfa.kv_blocked_layout(nk, d, dv, fp32=True)
+    assert tuple(got) == plan
+    assert got.bytes <= tfa.MAX_SMEM
+
+
+def test_kv_blocked_f32_scratch_holds_p_and_alpha_of_two_phases():
+    # one pass reads q, k and v in place: no scratch
+    assert tfa.kv_blocked_scratch(128, 1, 3136, 3136, 147, 147, fp32=True) == 0
+    assert tfa.kv_blocked_scratch(128, 2, 4096, 64, 40, 32, fp32=True) == 0
+    # T2T stage 1 at batch 2: 2 x 25 blocks of 32 rows, 13 chunks of 64 keys
+    assert tfa.kv_blocked_scratch(2, 1, 784, 784, 1323, 1323, fp32=True) == \
+        50 * 32 * 13 * 64 + 50 * 13 * 32
+
+
+@pytest.mark.parametrize("fault", (None,) + KV_F32_FAULTS)
+def test_kv_f32_bound_sees_planted_faults(fault):
+    """chip_smoke's fp32 faults (kv_f32_fault_twin) each move the fp32 twin
+    past the bound phase 29 holds the fp32 route to, DOMAIN_F32_TOL of max
+    |out|, at a shape where all apply: 1,100 keys in 18 chunks (chunk 16
+    whole, the last partial with 52 padded keys), a per-sample bias and
+    mask_self. Without a fault, its loop is the twin."""
+    inp = _inputs(16, 2, 2, 40, 1100, 40, 32, (2, 1))
+    q, k, v, bias = (None if a is None else _torch(a) for a in inp.values())
+    scale = 40**-0.5
+    ref = tfa.reference_attention_kv_blocked(q, k, v, bias, scale, True, block_k=tfa.KV_CHUNK)
+    got = kv_f32_fault_twin(fault, q, k, v, bias, scale, True)
+    err = (got - ref).abs().max().item()
+    tol = DOMAIN_F32_TOL * ref.abs().max().item()
+    assert err <= tol / 10 if fault is None else err > tol, (fault, err, tol)
+
+
 def test_kv_blocked_scratch_holds_rows_padded_to_16_columns():
     # T2T stage 0 at batch 2: q, k, v of 3136 rows of 147 -> 160 columns
     assert tfa.kv_blocked_scratch(2, 1, 3136, 3136, 147, 147) == 2 * 3 * 3136 * 160
@@ -340,6 +396,71 @@ def test_kv_blocked_plan_mirrors_the_kernels(cuda, nk, d, dv):
     plan = tfa.kv_blocked_layout(nk, d, dv)
     assert (tfa.KV_VARIANTS[got[0]], *got[1:4]) == tuple(plan)[:4]
     assert got[4] == plan.bytes
+
+
+# The fp32 route on the card: (B, H, Nq, Nk, D, Dv, bias, mask_self, views),
+# views: q, k, v the split_heads views of fused rows (T2T's tokenizer and
+# IWSA read so); T2T's stage 0 (one pass, 4-byte loads) and stage 1 (two
+# phases), IWSA's and SSA's widths (16-byte loads), each bias pattern,
+# mask_self, Nk not a multiple of 64, D past 160 with Dv below it, and
+# widths that are no multiple of 4.
+KV_F32_CARD = [
+    (2, 1, 300, 300, 147, 147, None, False, True),
+    (2, 1, 100, 784, 1323, 1323, None, False, True),
+    (2, 2, 300, 1000, 32, 32, None, False, True),
+    (2, 2, 256, 64, 40, 32, (1, 2), False, False),
+    (2, 3, 40, 200, 16, 16, (1, 1), True, False),
+    (2, 2, 33, 130, 32, 48, (2, 2), False, False),
+    (2, 1, 70, 150, 147, 147, (2, 1), True, False),
+    (2, 2, 65, 130, 200, 300, (2, 2), True, False),
+    (1, 1, 50, 90, 400, 64, None, False, False),
+    (2, 2, 37, 100, 3, 5, (2, 1), True, False),
+    (1, 1, 5, 1, 32, 32, None, True, False),
+]
+
+
+def _kv_f32_operands(seed, b, h, nq, nk, d, dv, bias, views, device):
+    inp = _inputs(seed, b, h, nq, nk, d, dv, bias)
+    if views:  # fused [B, N, 3 H D] rows, as ops.qkv_attention splits them
+        rows = np.random.default_rng(seed).standard_normal((b, nq, 3 * h * d))
+        q, k, v = _torch(rows, device=device).view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = (_torch(inp[n], device=device) for n in "qkv")
+    return q, k, v, None if bias is None else _torch(inp["bias"], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,nq,nk,d,dv,bias,mask_self,views", KV_F32_CARD)
+def test_kv_blocked_f32_route_matches_twin(cuda, b, h, nq, nk, d, dv, bias, mask_self, views):
+    """The fp32 route: one launch counted on it, fp32 out, within
+    DOMAIN_F32_TOL of the twin's largest output at the kernel's chunk."""
+    q, k, v, tb = _kv_f32_operands(17, b, h, nq, nk, d, dv, bias, views, cuda)
+    before = tfa._build.fp32_launch_counts()["flash_attention_kv_blocked"]
+    out = tfa.flash_attention_kv_blocked(q, k, v, tb, mask_self=mask_self)
+    torch.cuda.synchronize()
+    assert tfa._build.fp32_launch_counts()["flash_attention_kv_blocked"] == before + 1
+    ref = tfa.reference_attention_kv_blocked(q, k, v, tb, mask_self=mask_self,
+                                             block_k=tfa.KV_CHUNK)
+    assert out.dtype == torch.float32 and out.shape == (b, h, nq, dv)
+    err = (out - ref).abs().max().item()
+    assert err <= DOMAIN_F32_TOL * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,d", [(3136, 1, 147), (784, 1, 1323), (4096, 2, 32)])
+def test_kv_blocked_f32_route_is_batch_invariant(cuda, n, h, d):
+    qkv = _torch(np.random.default_rng(18).standard_normal((3, n, 3 * h * d)), device=cuda)
+    full = ops.qkv_attention(qkv, h)
+    alone = ops.qkv_attention(qkv[1:2].contiguous(), h)
+    torch.testing.assert_close(alone, full[1:2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,d,dv", [(nk, d, dv) for nk, d, dv, _ in KV_F32_PLANS])
+def test_kv_blocked_f32_plan_mirrors_the_kernel(cuda, nk, d, dv):
+    from chip_smoke import kv_plan_c
+
+    assert kv_plan_c(nk, d, dv, fp32=True) == tfa.kv_blocked_layout(nk, d, dv, fp32=True)
 
 
 @pytest.mark.cuda

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INT8_FAULTS, INT8_ROWS_TOL, bf16_ulps, check_quant_block, codes_differ,
-                        int8_out_check, kernel_tol, planted_fault, qblock_kernel_args,
-                        qmlp_kernel_args, quant_block_twin, tie_rows)
+from chip_smoke import (INT8_FAULTS, INT8_FP32_TOL, INT8_LAYER_DIFFER, INT8_LAYER_ULPS,
+                        INT8_ROWS_TOL, bf16_ulps, check_quant_block, check_quant_block_f32,
+                        codes_differ, int8_out_check, kernel_tol,
+                        planted_fault, qblock_kernel_args, qmlp_kernel_args, quant_block_twin,
+                        tie_rows)
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import quant as tq
 from vit_tpu_torch.ops import quant_block as tqb
@@ -636,10 +638,12 @@ def test_quant_mlp_refuses_a_misaligned_operand(cuda, operand):
 
 @pytest.mark.cuda
 def test_int8_kernels_refuse_fp32_attention(cuda):
-    """Kernel 9 still refuses an fp32 stream (ROADMAP.md Queue 2 row 9);
-    kernel 3, which refused fp32 qkv too, now runs it on its fp32 route (the
-    fp32 core, csrc/attention_f32.cuh), its launch counted there, within
-    1e-4 of the twin's largest output."""
+    """Neither kernel refuses an fp32 attention any longer: kernel 3 runs
+    fp32 qkv on its fp32 route (the fp32 core, csrc/attention_f32.cuh) and
+    kernel 9 an fp32 stream, each launch counted on its fp32 route, kernel
+    3 within 1e-4 of the twin's largest output and kernel 9 within
+    kernel_tol (at dim 256: the twin's torch._int_mm refuses K = 64 on the
+    card)."""
     qkv, _ = _qkv_inputs(12, 1, 17, 2, 16, None)
     t32 = _torch(qkv, "float32", cuda)
     before = ops.fp32_launch_counts()["qkv_attention"]
@@ -649,9 +653,68 @@ def test_int8_kernels_refuse_fp32_attention(cuda):
         ref = ops.qkv_attention(t32, 2)
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
-    t = _cast(_qblock_inputs(12, 1, 17, 64, 4, 16), "float32", lambda a, dt: _torch(a, dt, cuda))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.quant_attention_block(*(t[k] for k in QBLOCK_ARGS), 4)
+    t = _cast(_qblock_inputs(12, 1, 17, 256, 4, 64), "float32", lambda a, dt: _torch(a, dt, cuda))
+    args = [t[k] for k in QBLOCK_ARGS]
+    before = ops.fp32_launch_counts()["quant_attention_block"]
+    out = ops.quant_attention_block(*args, 4)
+    assert ops.fp32_launch_counts()["quant_attention_block"] == before + 1
+    ref = quant_block_twin(args, 4)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= kernel_tol(ref, args[0], out.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,true_n,heads,d", [(197, None, 4, 64), (224, 197, 4, 64), (48, 37, 4, 32)])
+def test_quant_attention_block_fp32_stream_matches_twin(cuda, n, true_n, heads, d):
+    """Kernel 9 on an fp32 stream stage by stage (chip_smoke.
+    check_quant_block_f32): the LN codes, qkv in fp32 within an ulp of the
+    epilogue, the fp32 attention rows within 1e-4 of the twin's, the codes
+    and the output epilogue bitwise, each stage's planted fault failing its
+    bound; one launch counted on the fp32 route."""
+    t = _cast(_qblock_inputs(19, 3, n, 256, heads, d), "float32",
+              lambda a, dt: _torch(a, dt, cuda))
+    before = ops.fp32_launch_counts()["quant_attention_block"]
+    check_quant_block_f32(f"n {n}", [t[k] for k in QBLOCK_ARGS], heads, true_n)
+    assert ops.fp32_launch_counts()["quant_attention_block"] == before + 1
+
+
+@pytest.mark.cuda
+def test_quant_vit_fp32_stream_at_batch_8(cuda):
+    """QuantViT with dtype None (vit_tpu's default) at batch 8 in the auto
+    mode: kernels 9 and 10 on the fp32 stream, once each a layer, every
+    launch on its fp32 route; held as chip_smoke holds the int8 model: each
+    layer through the kernels within INT8_LAYER_DIFFER / INT8_LAYER_ULPS of
+    the same layer through its twins on the same input, and the logits
+    within INT8_FP32_TOL of the plain fp32 ViT. (A code that crosses a
+    rounding boundary moves by a whole step, so the logits are not held to
+    DOMAIN_F32_E2E of the twins' path.)"""
+    from vit_tpu_torch.models import ViT
+    from vit_tpu_torch.utils import quantize_vit
+
+    torch.manual_seed(20)
+    model = ViT(image_size=64, patch_size=16, num_classes=10, dim=256, depth=2, heads=4,
+                mlp_dim=512, device=cuda)
+    qm = quantize_vit(model)
+    assert qm.dtype is None
+    img = _torch(np.random.default_rng(20).standard_normal((8, 64, 64, 3)), device=cuda)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = qm(img)
+        got = {k: v for k, v in ops.fp32_launch_counts().items() if v}
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        h = qm.embed(img)
+        for blk in qm.encoder.blocks:
+            layer = lambda h: blk(h, "w8a8_kernel", torch.float32, qm.norm_eps, qm.activation)
+            k = layer(h)
+            with ops.force_backend("torch"):
+                h = layer(h)
+            ulps, differ, _ = int8_out_check(k, h)
+            assert differ <= INT8_LAYER_DIFFER and ulps <= INT8_LAYER_ULPS, (differ, ulps)
+        with ops.force_backend("torch"):
+            ref32 = model(img)
+    assert got == launched == {"quant_attention_block": 2, "quant_mlp": 2}
+    assert out.dtype == torch.float32
+    assert (out - ref32).abs().max().item() <= INT8_FP32_TOL
 
 
 @pytest.mark.cuda

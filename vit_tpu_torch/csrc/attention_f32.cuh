@@ -1,6 +1,8 @@
 // The fp32 softmax-attention core for Hopper, under the fp32 routes of
 // kernels 1 (attention_block.cu), 3 (qkv_attention.cu), 4
-// (flash_attention.cu) and 6 (window_attention_block.cu).
+// (flash_attention.cu) and 6 (window_attention_block.cu); its row loader and
+// score tile (load_rows, score_tile) are also those of kernel 5's fp32 route
+// (flash_attention_kv_blocked.cu).
 //
 // With fp32 operands the TPU kernels run every product at Precision.HIGHEST
 // (vit_tpu/ops/block_attention.py:62-66, qkv_attention.py:44-48,
@@ -81,17 +83,60 @@ __host__ __device__ inline Layout layout(int Nk, int D, int Dv) {
   return L;
 }
 
-// Rows [row0, row0 + rows) of `cols` fp32 columns at src (row stride sr) into
-// shared memory at row stride ld, 16 bytes at a time; rows past n are zeros.
+// Rows [row0, row0 + rows) x columns [col0, col0 + cols4) of fp32 src (row
+// stride sr) into shared memory at row stride ld; rows past n and columns
+// past ncols are zeros. vec: 16 bytes at a time, the tile's float4s spread
+// over the block (src, sr, col0 and cols4 multiples of 4 floats, col0 + cols4
+// <= ncols); else 4 bytes at a time, a warp a row.
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long sr,
-                                          int row0, int rows, int n, int cols) {
-  const int chunks = cols / 4;
-  for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
-    const int r = c / chunks, dc = (c % chunks) * 4;
+                                          int row0, int rows, int n, int col0, int cols4,
+                                          int ncols, bool vec) {
+  if (vec) {
+    const int chunks = cols4 / 4;
+    for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
+      const int r = c / chunks, dc = (c % chunks) * 4;
+      const int g = row0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g < n) v = __ldg(reinterpret_cast<const float4*>(src + g * sr + col0 + dc));
+      *reinterpret_cast<float4*>(dst + r * ld + dc) = v;
+    }
+    return;
+  }
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < rows; r += blockDim.x / 32) {
     const int g = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < n) v = __ldg(reinterpret_cast<const float4*>(src + g * sr + dc));
-    *reinterpret_cast<float4*>(dst + r * ld + dc) = v;
+    const float* s = src + (long long)g * sr + col0;
+    for (int c = lane; c < cols4; c += 32)
+      dst[r * ld + c] = g < n && col0 + c < ncols ? __ldg(s + c) : 0.f;
+  }
+}
+
+// The 32 x 64 score tile's products over columns [0, cols4) (a multiple of 4)
+// of the Q rows at Qs (row stride ldq) and the 64 K rows at Ks (row stride
+// ldk), added to s0 and s1: thread (ty, tx) = (t / 16, t % 16) of 256 owns
+// rows ty, ty + 16 and keys tx + 16 j, reading a float4 of each a step of
+// four columns (6 shared loads for 32 FMAs), the columns summed in order.
+__device__ __forceinline__ void score_tile(float (&s0)[4], float (&s1)[4], const float* Qs,
+                                           int ldq, const float* Ks, int ldk, int cols4) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* qa = Qs + ty * ldq;
+  const float* qb = Qs + (ty + 16) * ldq;
+  const float* kr = Ks + tx * ldk;
+  for (int d = 0; d < cols4; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(qa + d);
+    const float4 c = *reinterpret_cast<const float4*>(qb + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kk = *reinterpret_cast<const float4*>(kr + j * 16 * ldk + d);
+      s0[j] = fmaf(a.x, kk.x, s0[j]);
+      s0[j] = fmaf(a.y, kk.y, s0[j]);
+      s0[j] = fmaf(a.z, kk.z, s0[j]);
+      s0[j] = fmaf(a.w, kk.w, s0[j]);
+      s1[j] = fmaf(c.x, kk.x, s1[j]);
+      s1[j] = fmaf(c.y, kk.y, s1[j]);
+      s1[j] = fmaf(c.z, kk.z, s1[j]);
+      s1[j] = fmaf(c.w, kk.w, s1[j]);
+    }
   }
 }
 }  // namespace af32
@@ -115,35 +160,17 @@ attention_f32_kernel(attn::Operand<const float> q, attn::Operand<const float> k,
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int chunks = L.n_pad / KC;
 
-  load_rows(Qs, L.ldq, q.at(b, h), q.sr, q0, QT, pr.Nq, D);
+  load_rows(Qs, L.ldq, q.at(b, h), q.sr, q0, QT, pr.Nq, 0, D, D, true);
 
-  // 1. S = Q K^T: thread (ty, tx) owns rows ty, ty + 16 and keys tx + 16 j.
+  // 1. S = Q K^T, chunk by chunk (score_tile).
   {
     const int tx = t % 16, ty = t / 16;
-    const float* qa = Qs + ty * L.ldq;
-    const float* qb = Qs + (ty + 16) * L.ldq;
-    const float* kr = KVs + tx * L.ldkv;
     for (int ch = 0; ch < chunks; ++ch) {
       __syncthreads();  // the Q tile is in; the last chunk's readers are done
-      load_rows(KVs, L.ldkv, k.at(b, h), k.sr, ch * KC, KC, Nk, D);
+      load_rows(KVs, L.ldkv, k.at(b, h), k.sr, ch * KC, KC, Nk, 0, D, D, true);
       __syncthreads();
       float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d = 0; d < D; d += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qa + d);
-        const float4 c = *reinterpret_cast<const float4*>(qb + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + j * 16 * L.ldkv + d);
-          s0[j] = fmaf(a.x, kk.x, s0[j]);
-          s0[j] = fmaf(a.y, kk.y, s0[j]);
-          s0[j] = fmaf(a.z, kk.z, s0[j]);
-          s0[j] = fmaf(a.w, kk.w, s0[j]);
-          s1[j] = fmaf(c.x, kk.x, s1[j]);
-          s1[j] = fmaf(c.y, kk.y, s1[j]);
-          s1[j] = fmaf(c.z, kk.z, s1[j]);
-          s1[j] = fmaf(c.w, kk.w, s1[j]);
-        }
-      }
+      score_tile(s0, s1, Qs, L.ldq, KVs, L.ldkv, D);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         Ss[ty * L.lds + ch * KC + tx + 16 * j] = s0[j];
@@ -198,7 +225,7 @@ attention_f32_kernel(attn::Operand<const float> q, attn::Operand<const float> k,
   for (int u = 0; u < 4; ++u) o[u] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int ch = 0; ch < chunks; ++ch) {
     __syncthreads();  // the softmax, or the last chunk's readers, are done
-    load_rows(KVs, L.ldkv, v.at(b, h), v.sr, ch * KC, KC, Nk, Dv);
+    load_rows(KVs, L.ldkv, v.at(b, h), v.sr, ch * KC, KC, Nk, 0, Dv, Dv, true);
     __syncthreads();
     if (g >= G) continue;
     const float* vc = KVs + 4 * g;

@@ -1,7 +1,8 @@
 // Online-softmax flash attention with K and V streamed in chunks, for Hopper:
 //   out[b, h] = softmax(q[b, h] k[b, h]^T * scale + bias[b|0, h|0], mask_self) v[b, h]
 // q [B, H, Nq, D], k [B, H, Nk, D], v [B, H, Nk, Dv] bf16, out [B, H, Nq, Dv]
-// bf16, each read or written through its own strides.
+// bf16, each read or written through its own strides (sections 1-3); or all
+// fp32, the TPU kernel's Precision.HIGHEST body (section 4, the fp32 route).
 //
 // Replaces vit_tpu/ops/flash_attention.py::_kv_blocked_kernel (the Pallas TPU
 // kernel, entry flash_attention_kv_blocked). Like the TPU kernel it keeps no
@@ -79,6 +80,7 @@
 #include <type_traits>
 
 #include "attention_core_sm90.cuh"  // load_rows_async, ldsm_x4(_trans), mma_bf16, quad_max/sum
+#include "attention_f32.cuh"        // af32::load_rows, af32::score_tile (the fp32 route)
 #include "common.cuh"                // cp_async_commit, cp_async_wait
 
 namespace vt {
@@ -746,6 +748,291 @@ __global__ void __launch_bounds__(kvb::WIDE_WARPS * 32, 1) kv_blocked_wide(kvb::
   }
 }
 
+// -- 4. the fp32 route -------------------------------------------------------------
+//
+// fp32 q, k and v, which the TPU kernel runs at Precision.HIGHEST
+// (flash_attention.py:242-246, :272-274): both products in full fp32, p never
+// rounded (its astype to v's dtype is a no-op). The same online softmax over
+// 64-key chunks, every step in fp32:
+//   s = __fmul_rn(q . k, scale) [__fadd_rn bias], keys past Nk left out (p =
+//   0), the mask_self diagonal at MASK_VALUE; m_new = max(m, rowmax s);
+//   alpha = expf(m - m_new); p = expf(s - m_new); l = alpha * l + rowsum p;
+//   acc = acc * alpha + p v (pv formed apart for the chunk, then added); at
+//   the end out = acc / l (a true division), fp32.
+// Every product is an fp32 fused multiply-add on the CUDA cores, as in the
+// fp32 core (attention_f32.cuh): no TF32, no bf16 operand.
+//
+// Design (simple first; no tensor cores, no cp.async ring): a block of 256
+// threads owns 32 query rows of one (b, h). Nothing is laid out first: the
+// loads (af32::load_rows, shared with the fp32 core) read q, k and v in
+// place through their strides, 16 bytes at a time where an operand's base,
+// strides and width are multiples of 4 floats (IWSA's fused-row views, SSA's
+// rows), else 4 bytes at a time, a warp a row
+// (T2T's fused rows are 588 and 5,292 bytes a head: no 16-byte load can read
+// them, and padding them into a scratch first, as the bf16 route does, would
+// cost a launch and a copy of q, k and v for loads that are coalesced
+// either way and reused by all 32 rows of the block).
+//   1. For each chunk, Q K^T summed over column slices of SLICE (160) floats
+//      of Q and K in shared memory (Q loaded once where it is one slice):
+//      the fp32 core's score tile (af32::score_tile: thread (ty, tx) owns
+//      rows ty, ty + 16 and keys tx + 16 j), summed over the slices in order.
+//   2. The chunk's online softmax, a warp for 4 rows, two keys a lane; p and
+//      alpha go to shared memory (one pass) or to the caller's scratch in
+//      device memory (two phases).
+//   3. One pass (Dv padded to 4 up to SLICE): the V chunk in shared memory,
+//      acc = acc * alpha + p V in registers, G = Dv / 4 float4 columns a
+//      row, thread t owning columns 4 (t % G) of rows t / G + u (256 / G).
+//      Two phases (wider Dv, T2T's stage 1): after the sweep, Dv in passes
+//      of SLICE columns, each sweeping the chunks again with their p and
+//      alpha brought back from the scratch. Q K^T is computed once.
+// Rows past Nq read zeros and are not stored. A row's arithmetic depends on
+// nothing but its own (b, h), so the route is batch-invariant.
+namespace kvf {
+constexpr int QT = 32;       // query rows a block
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int SLICE = 160;   // columns of a Q / K slice, and of a V pass
+constexpr int MAX_U = 6;     // rows a thread accumulates: QT / (THREADS / (SLICE / 4)), rounded up
+constexpr int LDS = kvb::KC + 4;  // row stride of the chunk's scores and p
+enum Variant : int { kOnePass = 4, kTwoPhase = 5 };
+
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+// Row stride (floats) of a tile `w4` columns wide: a multiple of 4 that is
+// odd in float4s, so that 8 rows' float4 reads hit 8 distinct bank groups.
+__host__ __device__ inline int tile_ld(int w4) { return w4 + 4 + 4 * ((w4 / 4) & 1); }
+
+struct Layout {
+  int ldqk, ldv;
+  size_t kv_off, s_off, alpha_off, l_off, bytes;
+};
+// Shared memory: the Q slice [QT][ldqk], one K slice or V pass of a chunk
+// [KC][max(ldqk, ldv)], the chunk's scores / p [QT][LDS], alpha [QT], l [QT]
+// (ops/flash_attention.py kv_blocked_layout(fp32=True) mirrors it).
+__host__ __device__ inline Layout layout(int D, int Dv) {
+  Layout L;
+  const int d4 = round4(D), dv4 = round4(Dv);
+  L.ldqk = tile_ld(d4 < SLICE ? d4 : SLICE);
+  L.ldv = tile_ld(dv4 < SLICE ? dv4 : SLICE);
+  const int ldkv = L.ldqk > L.ldv ? L.ldqk : L.ldv;
+  L.kv_off = kvb::align128(size_t(QT) * L.ldqk * sizeof(float));
+  L.s_off = L.kv_off + kvb::align128(size_t(kvb::KC) * ldkv * sizeof(float));
+  L.alpha_off = L.s_off + kvb::align128(size_t(QT) * LDS * sizeof(float));
+  L.l_off = L.alpha_off + kvb::align128(QT * sizeof(float));
+  L.bytes = L.l_off + kvb::align128(QT * sizeof(float));
+  return L;
+}
+
+struct Plan {
+  Variant variant;
+  size_t bytes;
+};
+inline Plan plan_for(int D, int Dv) {
+  return {round4(Dv) <= SLICE ? kOnePass : kTwoPhase, layout(D, Dv).bytes};
+}
+
+struct Args {
+  kvb::Operand<const float> q, k, v;
+  kvb::Operand<float> out;
+  kvb::Problem pr;
+  float scale;
+  const float* bias;  // [B|1, H|1, Nq, Nk], or NULL
+  int bias_b, bias_h, mask_self;
+  int groups;               // query tiles a (b, h)
+  int vec_q, vec_k, vec_v;  // 16-byte loads
+  // Two phases: [blocks][QT][nc * KC] p and [blocks][nc][QT] alpha; else NULL.
+  float* p;
+  float* alpha;
+};
+
+// acc[u] = acc[u] * alpha + p V for the rows of thread t: the columns 4 g
+// (g = t % G) of rows t / G + u (THREADS / G), G float4 columns in the pass.
+__device__ __forceinline__ void pv_chunk(float4 (&acc)[MAX_U], const float* Ss, const float* Vs,
+                                         int ldv, const float* As, int G) {
+  const int t = threadIdx.x, rs = THREADS / G, g = t % G, r0 = t / G;
+  if (r0 >= rs) return;
+  float4 pv[MAX_U];
+#pragma unroll
+  for (int u = 0; u < MAX_U; ++u) pv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* vc = Vs + 4 * g;
+  for (int j = 0; j < kvb::KC; j += 4) {
+    float4 vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vv[i] = *reinterpret_cast<const float4*>(vc + (j + i) * ldv);
+#pragma unroll
+    for (int u = 0; u < MAX_U; ++u) {
+      const int r = r0 + u * rs;
+      if (r < QT) {
+        const float4 p = *reinterpret_cast<const float4*>(Ss + r * LDS + j);
+        const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[u].x = fmaf(pj[i], vv[i].x, pv[u].x);
+          pv[u].y = fmaf(pj[i], vv[i].y, pv[u].y);
+          pv[u].z = fmaf(pj[i], vv[i].z, pv[u].z);
+          pv[u].w = fmaf(pj[i], vv[i].w, pv[u].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < MAX_U; ++u) {
+    const int r = r0 + u * rs;
+    if (r < QT) {
+      const float al = As[r];
+      acc[u].x = __fadd_rn(__fmul_rn(acc[u].x, al), pv[u].x);
+      acc[u].y = __fadd_rn(__fmul_rn(acc[u].y, al), pv[u].y);
+      acc[u].z = __fadd_rn(__fmul_rn(acc[u].z, al), pv[u].z);
+      acc[u].w = __fadd_rn(__fmul_rn(acc[u].w, al), pv[u].w);
+    }
+  }
+}
+
+// out = acc / l for columns col0 + 4 g .. of the thread's rows (pv_chunk's
+// mapping), 4 bytes at a time (the output rows need not be 16-byte aligned).
+__device__ __forceinline__ void store_rows(const float4 (&acc)[MAX_U], const float* Ls,
+                                           const Args& a, int b, int h, int q0, int col0, int G) {
+  const int t = threadIdx.x, rs = THREADS / G, g = t % G, r0 = t / G;
+  if (r0 >= rs) return;
+  float* op = a.out.at(b, h);
+#pragma unroll
+  for (int u = 0; u < MAX_U; ++u) {
+    const int r = r0 + u * rs, qr = q0 + r, c = col0 + 4 * g;
+    if (r >= QT || qr >= a.pr.Nq) continue;
+    const float l = Ls[r];
+    const float o[4] = {__fdiv_rn(acc[u].x, l), __fdiv_rn(acc[u].y, l), __fdiv_rn(acc[u].z, l),
+                        __fdiv_rn(acc[u].w, l)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < a.pr.Dv) op[qr * a.out.sr + c + i] = o[i];
+  }
+}
+}  // namespace kvf
+
+template <bool ONE_PASS>
+__global__ void __launch_bounds__(kvf::THREADS) kv_blocked_f32(kvf::Args a) {
+  using namespace kvf;
+  using af32::load_rows;
+  using af32::score_tile;
+  using kvb::KC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = a.pr.D, Dv = a.pr.Dv, Nq = a.pr.Nq, Nk = a.pr.Nk;
+  const Layout L = layout(D, Dv);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KVs = reinterpret_cast<float*>(smem + L.kv_off);
+  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
+  float* As = reinterpret_cast<float*>(smem + L.alpha_off);
+  float* Ls = reinterpret_cast<float*>(smem + L.l_off);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int bh = blockIdx.x / a.groups, b = bh / a.pr.H, h = bh % a.pr.H;
+  const int q0 = (blockIdx.x % a.groups) * QT;
+  const int nc = (Nk + KC - 1) / KC, d4 = round4(D), dv4 = round4(Dv);
+  const int slices = (d4 + SLICE - 1) / SLICE;
+  const float* qp = a.q.at(b, h);
+  const float* kp = a.k.at(b, h);
+  const float* vp = a.v.at(b, h);
+  const float* bias_bh = nullptr;
+  if (a.bias != nullptr) {
+    const int nbh = a.bias_h ? a.pr.H : 1;
+    bias_bh = a.bias + ((size_t)(a.bias_b ? b : 0) * nbh + (a.bias_h ? h : 0)) * (size_t)Nq * Nk;
+  }
+  float* Pg = ONE_PASS ? nullptr : a.p + (size_t)blockIdx.x * QT * nc * KC;
+  float* Ag = ONE_PASS ? nullptr : a.alpha + (size_t)blockIdx.x * nc * QT;
+  // the softmax state of rows warp + 8 i, the same in every lane
+  float m[QT / WARPS], l[QT / WARPS];
+#pragma unroll
+  for (int i = 0; i < QT / WARPS; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  const int G1 = dv4 / 4;  // one pass: float4 columns of V
+  float4 acc[MAX_U];
+#pragma unroll
+  for (int u = 0; u < MAX_U; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int tx = t % 16, ty = t / 16;
+  for (int c = 0; c < nc; ++c) {
+    // 1. the chunk's scores, summed over the column slices
+    float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sl = 0; sl < slices; ++sl) {
+      const int col0 = sl * SLICE, cols4 = min(SLICE, d4 - col0);
+      __syncthreads();  // the last readers of Qs, KVs and Ss are done
+      if (slices > 1 || c == 0)
+        load_rows(Qs, L.ldqk, qp, a.q.sr, q0, QT, Nq, col0, cols4, D, a.vec_q);
+      load_rows(KVs, L.ldqk, kp, a.k.sr, c * KC, KC, Nk, col0, cols4, D, a.vec_k);
+      __syncthreads();
+      score_tile(s0, s1, Qs, L.ldqk, KVs, L.ldqk, cols4);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      Ss[ty * LDS + tx + 16 * j] = s0[j];
+      Ss[(ty + 16) * LDS + tx + 16 * j] = s1[j];
+    }
+    __syncthreads();
+    // 2. the chunk's online softmax: warp w, rows w + 8 i, keys lane, lane + 32
+#pragma unroll
+    for (int i = 0; i < QT / WARPS; ++i) {
+      const int r = warp + WARPS * i, qr = q0 + r;
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c * KC + lane + 32 * e;
+        float v = __fmul_rn(Ss[r * LDS + lane + 32 * e], a.scale);
+        if (bias_bh != nullptr && qr < Nq && col < Nk)
+          v = __fadd_rn(v, __ldg(bias_bh + (size_t)qr * Nk + col));
+        if (a.mask_self && col == qr) v = kvb::MASK_VALUE;
+        x[e] = col < Nk ? v : -INFINITY;  // a chunk always holds a key below Nk
+      }
+      const float mn = fmaxf(m[i], warp_max(fmaxf(x[0], x[1])));
+      const float al = expf(m[i] - mn);  // 0 at chunk 0
+      const float p0 = expf(x[0] - mn), p1 = expf(x[1] - mn);  // 0 past Nk
+      l[i] = __fadd_rn(__fmul_rn(al, l[i]), warp_sum(__fadd_rn(p0, p1)));
+      m[i] = mn;
+      if (ONE_PASS) {
+        Ss[r * LDS + lane] = p0;
+        Ss[r * LDS + lane + 32] = p1;
+        if (lane == 0) As[r] = al;
+      } else {
+        Pg[(size_t)r * nc * KC + c * KC + lane] = p0;
+        Pg[(size_t)r * nc * KC + c * KC + lane + 32] = p1;
+        if (lane == 0) Ag[c * QT + r] = al;
+      }
+    }
+    if (ONE_PASS) {
+      // 3. acc = acc * alpha + p V over the chunk's V rows
+      __syncthreads();  // p and alpha are in; every warp is done with the K slice
+      load_rows(KVs, L.ldv, vp, a.v.sr, c * KC, KC, Nk, 0, dv4, Dv, a.vec_v);
+      __syncthreads();
+      pv_chunk(acc, Ss, KVs, L.ldv, As, G1);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < QT / WARPS; ++i) Ls[warp + WARPS * i] = l[i];
+  }
+  if (ONE_PASS) {
+    __syncthreads();
+    store_rows(acc, Ls, a, b, h, q0, 0, G1);
+    return;
+  }
+  // The second phase: Dv in passes of SLICE columns, each sweeping the chunks
+  // with their p and alpha from the scratch (written by this block above:
+  // plain loads, not the read-only path).
+  for (int col0 = 0; col0 < dv4; col0 += SLICE) {
+    const int cols4 = min(SLICE, dv4 - col0), G = cols4 / 4;
+#pragma unroll
+    for (int u = 0; u < MAX_U; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the last chunk's readers are done (and the scratch writes seen)
+      load_rows(KVs, L.ldv, vp, a.v.sr, c * KC, KC, Nk, col0, cols4, Dv, a.vec_v);
+      for (int i = t; i < QT * KC / 4; i += THREADS) {
+        const int r = i / (KC / 4), c4 = i % (KC / 4);
+        *reinterpret_cast<float4*>(Ss + r * LDS + 4 * c4) =
+            *reinterpret_cast<const float4*>(Pg + (size_t)r * nc * KC + c * KC + 4 * c4);
+      }
+      if (t < QT) As[t] = Ag[c * QT + t];
+      __syncthreads();
+      pv_chunk(acc, Ss, KVs, L.ldv, As, G);
+    }
+    store_rows(acc, Ls, a, b, h, q0, col0, G);
+  }
+}
+
 // -- launch ------------------------------------------------------------------------
 
 template <typename Kernel>
@@ -836,4 +1123,67 @@ extern "C" int vt_flash_attention_kv_blocked(
   else
     e = vt::launch_attention(kv_blocked_wide<3, true>, plan, a, blocks, s);
   return static_cast<int>(e);
+}
+
+// The fp32 route's plan (ops/flash_attention.py kv_blocked_layout(fp32=True)
+// mirrors it): out = {variant (4 one pass, 5 two phases), warps a block,
+// query rows a block, ring stages (1: none), shared-memory bytes}.
+extern "C" void vt_kv_blocked_plan_f32(int Nk, int D, int Dv, int* out) {
+  (void)Nk;  // any Nk: the chunks are streamed and p of two phases goes to the scratch
+  const vt::kvf::Plan p = vt::kvf::plan_for(D, Dv);
+  out[0] = p.variant;
+  out[1] = vt::kvf::WARPS;
+  out[2] = vt::kvf::QT;
+  out[3] = 1;
+  out[4] = static_cast<int>(p.bytes);
+}
+
+// The fp32 route: q, k, v and out fp32 through their (batch, head, row)
+// strides in elements, unit column stride, 4-byte aligned. scratch: under
+// plan variant 5, blocks*32*nc*64 floats of p then blocks*nc*32 of alpha
+// (blocks = B*H*ceil(Nq/32), nc = ceil(Nk/64)), 16-byte aligned; else
+// unused (may be NULL). One launch.
+extern "C" int vt_flash_attention_kv_blocked_f32(
+    const void* q, long long q_sb, long long q_sh, long long q_sr, const void* k, long long k_sb,
+    long long k_sh, long long k_sr, const void* v, long long v_sb, long long v_sh, long long v_sr,
+    void* out, long long o_sb, long long o_sh, long long o_sr, int B, int H, int Nq, int Nk, int D,
+    int Dv, float scale, const void* bias, int bias_b, int bias_h, int mask_self, void* scratch,
+    void* stream) {
+  using namespace vt::kvf;
+  using vt::kvb::KC;
+  using vt::kvb::Operand;
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || D < 1 || Dv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = plan_for(D, Dv);
+  const long long bh = (long long)B * H, groups = (Nq + QT - 1) / QT, blocks = bh * groups;
+  if (blocks > 0x7fffffffLL || bh * (Nq > Nk ? Nq : Nk) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (plan.variant == kTwoPhase &&
+      (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto vec = [](const void* p, long long sb, long long sh, long long sr, int w) {
+    return int(reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && sh % 4 == 0 &&
+               sr % 4 == 0 && w % 4 == 0);
+  };
+  const auto in = [](const void* p, long long sb, long long sh, long long sr) {
+    return Operand<const float>{static_cast<const float*>(p), sb, sh, sr};
+  };
+  float* ps = nullptr;
+  float* as = nullptr;
+  if (plan.variant == kTwoPhase) {
+    ps = static_cast<float*>(scratch);
+    as = ps + blocks * QT * ((Nk + KC - 1) / KC) * KC;
+  }
+  const Args a{in(q, q_sb, q_sh, q_sr), in(k, k_sb, k_sh, k_sr), in(v, v_sb, v_sh, v_sr),
+               Operand<float>{static_cast<float*>(out), o_sb, o_sh, o_sr},
+               vt::kvb::Problem{B, H, Nq, Nk, D, Dv}, scale, static_cast<const float*>(bias),
+               bias_b, bias_h, mask_self, static_cast<int>(groups),
+               vec(q, q_sb, q_sh, q_sr, D), vec(k, k_sb, k_sh, k_sr, D), vec(v, v_sb, v_sh, v_sr, Dv),
+               ps, as};
+  const auto kernel = plan.variant == kOnePass ? vt::kv_blocked_f32<true> : vt::kv_blocked_f32<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(plan.bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, plan.bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

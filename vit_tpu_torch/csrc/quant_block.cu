@@ -12,12 +12,15 @@
 // Hopper's own pieces, their products on the s8 wgmma GEMM fed by TMA
 // (gemm_s8_sm90.cuh), which reads the int8 weights K-major ([out, in]):
 //
-//   attention block (x bf16 [B*N, D]):
+//   attention block (x bf16 or fp32 [B*N, D]):
 //     1. ln_quant_rows: flax LN in fp32 -> int8 codes + row scale  (memory)
-//     2. gemm_s8_sm90:  codes @ Wqkv_i8 -> (acc*s_row)*s_col -> bf16 qkv
-//     3. attention_core_sm90: the register-resident core of kernels 1, 3
-//                        and 4, fp32 rows out (padded keys col >= true_n
-//                        masked to -1e30)
+//     2. gemm_s8_sm90:  codes @ Wqkv_i8 -> (acc*s_row)*s_col -> qkv in x's
+//                        dtype (the TPU kernel's acc_dtype, quant_block.py:122)
+//     3. bf16: attention_core_sm90, the register-resident core of kernels 1,
+//                        3 and 4; fp32: the fp32 core of attention_f32.cuh
+//                        on the same fused rows (kernel 3's fp32 route: every
+//                        product fp32, P never rounded). fp32 rows out, padded
+//                        keys col >= true_n masked to -1e30 (quant_block.py:88)
 //     4. quant_rows:    fp32 attention rows -> int8 + row scale     (memory)
 //     5. gemm_s8_sm90:  codes @ Wout_i8 -> (acc*s)*s_col + bout + x -> x.dtype
 //   MLP (x bf16 or fp32 [T, D]):
@@ -38,16 +41,19 @@
 // fc1's epilogue lets the quantizer read it once instead of twice.
 
 #include "attention_core_sm90.cuh"
+#include "attention_f32.cuh"
 #include "common.cuh"
 #include "gemm_s8_sm90.cuh"
 
 namespace vt {
 namespace {
 
-cudaError_t quant_attention_block(const bf16* x, const float* ln_scale, const float* ln_bias,
+// T: the stream's dtype (x, qkv, out), bf16 or fp32.
+template <typename T>
+cudaError_t quant_attention_block(const T* x, const float* ln_scale, const float* ln_bias,
                                   const int8_t* wqkv, const float* sqkv, const int8_t* wout,
-                                  const float* sout, const float* bout, bf16* out, int8_t* xq,
-                                  float* s_row, bf16* qkv, float* attn_out, int8_t* aq,
+                                  const float* sout, const float* bout, T* out, int8_t* xq,
+                                  float* s_row, T* qkv, float* attn_out, int8_t* aq,
                                   float* s_row2, int B, int N, int D, int H, int Dh, float scale,
                                   float eps, int true_n, cudaStream_t stream) {
   const int rows = B * N, HD = H * Dh;
@@ -56,17 +62,20 @@ cudaError_t quant_attention_block(const bf16* x, const float* ln_scale, const fl
       misaligned(sout) || misaligned(bout) || misaligned(out) || misaligned(xq) ||
       misaligned(qkv) || misaligned(attn_out) || misaligned(aq))
     return cudaErrorInvalidValue;  // checked before any launch: nothing half done
-  cudaError_t e = ln_quant_rows<bf16>(x, ln_scale, ln_bias, xq, s_row, rows, D, eps, stream);
+  cudaError_t e = ln_quant_rows<T>(x, ln_scale, ln_bias, xq, s_row, rows, D, eps, stream);
   if (e != cudaSuccess) return e;
-  e = gemm_s8_sm90<bf16>(xq, wqkv, qkv, s_row, sqkv, nullptr, nullptr, kActNone, rows, 3 * HD, D,
-                         stream);
+  e = gemm_s8_sm90<T>(xq, wqkv, qkv, s_row, sqkv, nullptr, nullptr, kActNone, rows, 3 * HD, D,
+                      stream);
   if (e != cudaSuccess) return e;
-  e = attention_core_sm90(qkv, attn_out, B, N, H, Dh, scale,
-                          attn::ScoreTerms{nullptr, 0, 0, true_n, N}, stream);
+  const attn::ScoreTerms keys{nullptr, 0, 0, true_n, N};
+  if constexpr (std::is_same<T, float>::value)
+    e = attention_f32(qkv, attn_out, B, N, H, Dh, scale, keys, stream);
+  else
+    e = attention_core_sm90(qkv, attn_out, B, N, H, Dh, scale, keys, stream);
   if (e != cudaSuccess) return e;
   e = quant_rows(attn_out, aq, s_row2, rows, HD, stream);
   if (e != cudaSuccess) return e;
-  return gemm_s8_sm90<bf16>(aq, wout, out, s_row2, sout, bout, x, kActNone, rows, D, HD, stream);
+  return gemm_s8_sm90<T>(aq, wout, out, s_row2, sout, bout, x, kActNone, rows, D, HD, stream);
 }
 
 // Rows of kernel 10's fp32 hidden -> int8 codes + row scales, one warp a
@@ -147,21 +156,33 @@ cudaError_t quant_mlp(const T* x, const float* ln_scale, const float* ln_bias, c
 }  // namespace
 }  // namespace vt
 
-extern "C" int vt_quant_attention_block(const void* x, const void* ln_scale, const void* ln_bias,
-                                        const void* wqkv, const void* sqkv, const void* wout,
-                                        const void* sout, const void* bout, void* out, void* xq,
-                                        void* s_row, void* qkv, void* attn, void* aq,
-                                        void* s_row2, int B, int N, int D, int H, int Dh,
+// x_is_fp32: x, qkv and out fp32 (the fp32 stream), else bf16.
+extern "C" int vt_quant_attention_block(const void* x, int x_is_fp32, const void* ln_scale,
+                                        const void* ln_bias, const void* wqkv, const void* sqkv,
+                                        const void* wout, const void* sout, const void* bout,
+                                        void* out, void* xq, void* s_row, void* qkv, void* attn,
+                                        void* aq, void* s_row2, int B, int N, int D, int H, int Dh,
                                         float scale, float eps, int true_n, void* stream) {
   using vt::bf16;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
-  const cudaError_t e = vt::quant_attention_block(
-      static_cast<const bf16*>(x), f(ln_scale), f(ln_bias), i8(wqkv), f(sqkv), i8(wout), f(sout),
-      f(bout), static_cast<bf16*>(out), static_cast<int8_t*>(xq), static_cast<float*>(s_row),
-      static_cast<bf16*>(qkv), static_cast<float*>(attn), static_cast<int8_t*>(aq),
-      static_cast<float*>(s_row2), B, N, D, H, Dh, scale, eps, true_n,
-      static_cast<cudaStream_t>(stream));
+  int8_t* xq_ = static_cast<int8_t*>(xq);
+  int8_t* aq_ = static_cast<int8_t*>(aq);
+  float* sr = static_cast<float*>(s_row);
+  float* sr2 = static_cast<float*>(s_row2);
+  float* attn_ = static_cast<float*>(attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (x_is_fp32)
+    e = vt::quant_attention_block<float>(
+        f(x), f(ln_scale), f(ln_bias), i8(wqkv), f(sqkv), i8(wout), f(sout), f(bout),
+        static_cast<float*>(out), xq_, sr, static_cast<float*>(qkv), attn_, aq_, sr2, B, N, D, H,
+        Dh, scale, eps, true_n, s);
+  else
+    e = vt::quant_attention_block<bf16>(
+        static_cast<const bf16*>(x), f(ln_scale), f(ln_bias), i8(wqkv), f(sqkv), i8(wout),
+        f(sout), f(bout), static_cast<bf16*>(out), xq_, sr, static_cast<bf16*>(qkv), attn_, aq_,
+        sr2, B, N, D, H, Dh, scale, eps, true_n, s);
   return static_cast<int>(e);
 }
 

@@ -32,14 +32,15 @@ the Q-chunked flash backward). Called directly under grad, a kernel wrapper
 raises (``_build.refuse_grad``); kernels 9 and 10 have no Function (they are
 inference only in ``vit_tpu`` too).
 
-fp32: kernels 1-4 and 6-8 have fp32 routes, taken on fp32 operands (and,
-for the blocks, fp32 weights on an fp32 stream: ``vit_tpu``'s default
-precision, whose kernels run at ``Precision.HIGHEST``): fp32 products on
+fp32: kernels 1-8 have fp32 routes, taken on fp32 operands (and, for the
+blocks, fp32 weights on an fp32 stream: ``vit_tpu``'s default precision,
+whose kernels run at ``Precision.HIGHEST``): fp32 products on
 ``csrc/gemm_f32.cuh``, the attention of kernels 1, 3, 4 and 6 on the fp32
-core ``csrc/attention_f32.cuh``, nothing rounded to bf16. Their Functions
-run that route forward under grad. Kernel 5 and the int8 kernels 9 and 10
-refuse fp32 operands on the card (ROADMAP.md Queue 2 rows 5 and 9); no
-route hands a shape over to a twin.
+core ``csrc/attention_f32.cuh``, kernel 5's fp32 online softmax
+(``csrc/flash_attention_kv_blocked.cu``), nothing rounded to bf16. Their
+Functions run that route forward under grad. The int8 kernels 9 and 10 take
+an fp32 stream beside their int8 weights (kernel 9's attention on the fp32
+core). No route hands an fp32 tensor on the card over to a twin.
 
 Each kernel wrapper counts its launches: ``launch_counts()``, and those of
 the fp32 routes also in ``fp32_launch_counts()``; each Function's backward

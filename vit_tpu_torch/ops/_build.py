@@ -162,12 +162,12 @@ _SIGNATURES = {
         _P,                  # int[3]: variant, windows a block, shared-memory bytes
     ],
     "vt_quant_attention_block": [
-        _P,                  # x (bf16)
+        _P, _I,              # x, x_is_fp32
         _P, _P,              # ln_scale, ln_bias (fp32)
         _P, _P, _P, _P,      # wqkv [3*H*Dh, D] (int8, K-major), sqkv (fp32), wout [D, H*Dh], sout
         _P,                  # bout (fp32)
-        _P,                  # out (bf16)
-        _P, _P, _P, _P,      # scratch: xq (int8), s_row (fp32), qkv (bf16), attn (fp32)
+        _P,                  # out (x's dtype)
+        _P, _P, _P, _P,      # scratch: xq (int8), s_row (fp32), qkv (x's dtype), attn (fp32)
         _P, _P,              # scratch: aq (int8), s_row2 (fp32)
         _I, _I, _I, _I, _I,  # B, N, D, heads, dim_head
         _F, _F, _I,          # scale, ln_eps, true_n
@@ -291,6 +291,23 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # NW, S, C, heads, dim_head
         _F, _F,              # scale, ln_eps
         _P,                  # cudaStream_t
+    ],
+    # the fp32 route of kernel 5 (csrc/flash_attention_kv_blocked.cu section 4)
+    "vt_flash_attention_kv_blocked_f32": [
+        _P, _L, _L, _L,      # q and its batch, head, row strides (elements)
+        _P, _L, _L, _L,      # k
+        _P, _L, _L, _L,      # v
+        _P, _L, _L, _L,      # out
+        _I, _I, _I, _I,      # B, heads, Nq, Nk
+        _I, _I, _F,          # D, Dv, scale
+        _P, _I, _I,          # bias (NULL = none), bias_b, bias_h (axis is full)
+        _I,                  # mask_self
+        _P,                  # scratch: p and alpha of the two-phase plan (NULL in one pass)
+        _P,                  # cudaStream_t
+    ],
+    "vt_kv_blocked_plan_f32": [
+        _I, _I, _I,          # Nk, D, Dv
+        _P,                  # int[5]: as vt_kv_blocked_plan's
     ],
     "vt_attention_f32_plan": [
         _I, _I, _I,          # Nk, D, Dv
@@ -471,9 +488,11 @@ GRAD_ENTRIES = {"fused_qkv_attention": "ops.qkv_attention (QkvAttentionFn)",
                     "ops.window_attention_block (WindowAttentionBlockFn)",
                 "talking_heads_block": "ops.talking_heads_block (TalkingHeadsBlockFn)",
                 "reattention_block": "ops.reattention_block (ReattentionBlockFn)"}
-# the kernels with an fp32 route (fp32 operands and weights, no bf16 rounding)
+# the kernels with an fp32 route (fp32 operands and weights, or an fp32 stream
+# beside the int8 weights of kernels 9 and 10; no bf16 rounding)
 FP32_ROUTES = ("attention_block", "fused_mlp", "qkv_attention", "talking_heads_block",
-               "reattention_block", "flash_attention", "window_attention_block")
+               "reattention_block", "flash_attention", "window_attention_block",
+               "flash_attention_kv_blocked", "quant_attention_block", "quant_mlp")
 _counts = collections.Counter()
 _fp32_counts = collections.Counter()
 _recomputes = collections.Counter()

@@ -12,11 +12,13 @@ Port of both kernels of ``vit_tpu/ops/flash_attention.py``:
   rounded to v's dtype before the fp32 P @ V, one rounding to v's dtype.
 - the online-softmax kernel (``_kv_blocked_kernel``, entry
   ``flash_attention_kv_blocked``): ``flash_attention_kv_blocked`` is the
-  Hopper kernel (``csrc/flash_attention_kv_blocked.cu``), for widths and key
-  counts the resident core cannot hold; ``reference_attention_kv_blocked``
-  is its twin, in the TPU kernel's op order over chunks of ``block_k`` keys:
-  the running max, the running sum and the fp32 accumulator, the
-  unnormalised p rounded to v's dtype, one division at the end.
+  Hopper kernel (``csrc/flash_attention_kv_blocked.cu``: bf16 on the tensor
+  cores; fp32, the TPU kernel's ``Precision.HIGHEST``, on the CUDA cores
+  with p never rounded), for widths and key counts the resident core cannot
+  hold; ``reference_attention_kv_blocked`` is its twin, in the TPU kernel's
+  op order over chunks of ``block_k`` keys: the running max, the running sum
+  and the fp32 accumulator, the unnormalised p rounded to v's dtype (a
+  no-op in fp32), one division at the end.
 
 ``flash_attention_op`` and ``flash_attention_kv_blocked_op`` are the two
 kernels as ``torch.library`` operators (``_build.define_op``).
@@ -41,9 +43,9 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SMEM = 232448  # 227 KB, the most shared memory one block may use
 
 _KV_BLOCKED = "run the kv-blocked kernel, flash_attention_kv_blocked (ROADMAP.md Queue 2 item 5)"
-_FP32_KV_BLOCKED = ("fp32 operands (the TPU kernel's Precision.HIGHEST) on the kv-blocked kernel "
-                    "are not ported yet: they run only on its twin (ROADMAP.md Queue 2 item 5)")
 KV_CHUNK = 64  # keys per chunk of the kv-blocked kernel (csrc kvb::KC)
+KV_F32_SLICE = 160  # columns of a Q / K slice and of a V pass of its fp32 route (csrc kvf::SLICE)
+KV_F32_ROWS = 32  # query rows a block of its fp32 route (csrc kvf::QT)
 BLOCK_Q = 256  # queries per chunk of the backward (vit_tpu's block_q default)
 
 
@@ -113,11 +115,39 @@ class KvPlan(NamedTuple):
     bytes: int
 
 
-KV_VARIANTS = {1: "registers", 2: "two-phase", 3: "two-phase-global"}  # csrc kvb::Variant
+# csrc kvb::Variant and, for the fp32 route, kvf::Variant
+KV_VARIANTS = {1: "registers", 2: "two-phase", 3: "two-phase-global", 4: "f32-one-pass",
+               5: "f32-two-phase"}
 
 
-def kv_blocked_layout(nk: int, d: int, dv: int) -> KvPlan:
-    """The plan of the kv-blocked kernel (``kvb::plan_for``), mirrored. D and
+def _f32_tile_ld(w4: int) -> int:
+    """Row stride in floats of an fp32 tile ``w4`` columns wide (``kvf::
+    tile_ld``): odd in float4s, so that 8 rows' float4 reads hit 8 distinct
+    bank groups."""
+    return w4 + 4 + 4 * ((w4 // 4) & 1)
+
+
+def _kv_blocked_layout_f32(d: int, dv: int) -> KvPlan:
+    """The plan of the kv-blocked kernel's fp32 route (``kvf::plan_for``),
+    mirrored: 8 warps, 32 query rows a block, no ring. Shared memory holds a
+    Q slice and a K slice (or a V pass) of up to ``KV_F32_SLICE`` columns
+    (D and Dv padded to multiples of 4), the chunk's fp32 scores and p,
+    alpha and l. ``f32-one-pass`` where Dv (padded) is at most
+    ``KV_F32_SLICE``: the accumulator stays in registers. Wider,
+    ``f32-two-phase``: p and alpha of every chunk go to the scratch in device
+    memory (``kv_blocked_scratch``), and Dv is walked in passes. Any Nk."""
+    a = lambda v: round_up(v, 128)
+    d4, dv4 = round_up(d, 4), round_up(dv, 4)
+    ldqk, ldv = _f32_tile_ld(min(d4, KV_F32_SLICE)), _f32_tile_ld(min(dv4, KV_F32_SLICE))
+    nbytes = (a(KV_F32_ROWS * ldqk * 4) + a(KV_CHUNK * max(ldqk, ldv) * 4)
+              + a(KV_F32_ROWS * (KV_CHUNK + 4) * 4) + 2 * a(KV_F32_ROWS * 4))
+    variant = "f32-one-pass" if dv4 <= KV_F32_SLICE else "f32-two-phase"
+    return KvPlan(variant, 8, KV_F32_ROWS, 1, nbytes)
+
+
+def kv_blocked_layout(nk: int, d: int, dv: int, fp32: bool = False) -> KvPlan:
+    """The plan of the kv-blocked kernel (``kvb::plan_for``), mirrored; with
+    ``fp32``, that of its fp32 route (``_kv_blocked_layout_f32``). D and
     Dv are padded to multiples of 16 by the kernel's layout pass. Up to 160
     padded columns each, the register variant: 8 warps of 16 query rows, Q,
     the chunk's scores and the accumulator in registers, the Q tile and a
@@ -128,6 +158,8 @@ def kv_blocked_layout(nk: int, d: int, dv: int) -> KvPlan:
     keys, two up to 1,216. Past that, ``two-phase-global``: p and alpha in
     the scratch in device memory (``kv_blocked_scratch``), each chunk's p
     brought into the ring stage beside its V slice, three stages, any Nk."""
+    if fp32:
+        return _kv_blocked_layout_f32(d, dv)
     a = lambda v: round_up(v, 128)
     dp, dvp = round_up(d, 16), round_up(dv, 16)
     if dp <= 160 and dvp <= 160:
@@ -148,11 +180,20 @@ def kv_blocked_layout(nk: int, d: int, dv: int) -> KvPlan:
     return KvPlan("two-phase-global", 8, 64, 3, wide(3, True))
 
 
-def kv_blocked_scratch(b: int, h: int, nq: int, nk: int, d: int, dv: int) -> int:
+def kv_blocked_scratch(b: int, h: int, nq: int, nk: int, d: int, dv: int,
+                       fp32: bool = False) -> int:
     """bf16 elements of the kernel's scratch: q, k and v of every (b, h) as
     rows padded to multiples of 16 columns, as the layout pass writes them;
     under the ``two-phase-global`` plan then each block's bf16 p (64 rows x
-    the keys padded to 64) and fp32 alpha (two bf16 elements each)."""
+    the keys padded to 64) and fp32 alpha (two bf16 elements each). With
+    ``fp32``, fp32 elements of the fp32 route's: none in one pass (q, k and
+    v are read in place); in two phases each block's p (32 rows x the keys
+    padded to 64) and alpha (a value for each chunk and row)."""
+    if fp32:
+        if _kv_blocked_layout_f32(d, dv).variant == "f32-one-pass":
+            return 0
+        blocks, nc = b * h * -(-nq // KV_F32_ROWS), -(-nk // KV_CHUNK)
+        return blocks * KV_F32_ROWS * nc * KV_CHUNK + blocks * nc * KV_F32_ROWS
     dp, dvp = round_up(d, 16), round_up(dv, 16)
     elems = b * h * (nq * dp + nk * dp + nk * dvp)
     if kv_blocked_layout(nk, d, dv).variant == "two-phase-global":
@@ -302,31 +343,36 @@ def flash_attention_kv_blocked(
     mask_self: bool = False,
 ) -> torch.Tensor:
     """The online-softmax kernel on the card, with ``flash_attention``'s
-    contract: q, k, v bf16 read through their strides, an optional fp32 bias
-    ``[B|1, H|1, Nq, Nk]``, ``mask_self``; returns ``[B, H, Nq, Dv]`` bf16
-    laid out ``[B, Nq, H, Dv]``. Rows need unit column stride and 2-byte
-    alignment only: the kernel's layout pass first copies q, k and v into
-    scratch rows padded to multiples of 16 columns (``kv_blocked_scratch``),
-    so the ``split_heads`` views of T2T's fused qkv rows need no copy here.
-    Any D, Dv and Nk (``kv_blocked_layout``), while B*H times the blocks of
-    a (b, h) and B*H*max(Nq, Nk) stay within 2^31 - 1 (the kernel's int
-    indices). Its twin at ``block_k=KV_CHUNK`` rounds p at the same
-    places."""
+    contract: q, k, v all bf16 or all fp32, read through their strides, an
+    optional fp32 bias ``[B|1, H|1, Nq, Nk]``, ``mask_self``; returns ``[B,
+    H, Nq, Dv]`` in v's dtype laid out ``[B, Nq, H, Dv]``. Rows need unit
+    column stride and element alignment only. bf16: the kernel's layout pass
+    first copies q, k and v into scratch rows padded to multiples of 16
+    columns (``kv_blocked_scratch``), so the ``split_heads`` views of T2T's
+    fused qkv rows need no copy here; p is rounded to bf16, as the TPU
+    kernel rounds it to v's dtype. fp32 (the TPU kernel's
+    ``Precision.HIGHEST``): the fp32 route reads q, k and v in place, every
+    product fp32 on the CUDA cores, p never rounded; its scratch holds p
+    and alpha where Dv is too wide for one pass. Any D, Dv and Nk
+    (``kv_blocked_layout``), while B*H times the blocks of a (b, h) and
+    B*H*max(Nq, Nk) stay within 2^31 - 1 (the kernel's int indices). Its
+    twin at ``block_k=KV_CHUNK`` rounds p at the same places (in fp32, at
+    none)."""
     b, h, nq, nk, d, dv, bias, bias_b, bias_h = _check_operands(
         "flash_attention_kv_blocked", q, k, v, bias)
-    if q.dtype == torch.float32:
-        raise NotImplementedError(_FP32_KV_BLOCKED)
-    rows = kv_blocked_layout(nk, d, dv).rows
+    fp32 = q.dtype == torch.float32
+    rows = kv_blocked_layout(nk, d, dv, fp32=fp32).rows
     if b * h * -(-nq // rows) > 2**31 - 1 or b * h * max(nq, nk) > 2**31 - 1:
         raise NotImplementedError(
             f"B*H = {b * h} with Nq = {nq}, Nk = {nk}: the kv-blocked kernel indexes its blocks "
             f"and its padded rows with 32-bit ints, and these exceed 2^31 - 1")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must have unit column stride")
-    scratch = torch.empty(kv_blocked_scratch(b, h, nq, nk, d, dv), device=q.device,
-                          dtype=torch.bfloat16)
-    return _launch("flash_attention_kv_blocked", "vt_flash_attention_kv_blocked", q, k, v, bias,
-                   bias_b, bias_h, scale, mask_self, scratch)
+    scratch = torch.empty(kv_blocked_scratch(b, h, nq, nk, d, dv, fp32=fp32), device=q.device,
+                          dtype=q.dtype)
+    entry = "vt_flash_attention_kv_blocked_f32" if fp32 else "vt_flash_attention_kv_blocked"
+    return _launch("flash_attention_kv_blocked", entry, q, k, v, bias, bias_b, bias_h, scale,
+                   mask_self, scratch)
 
 
 def _flash_fake(q, k, v, bias, scale, mask_self):

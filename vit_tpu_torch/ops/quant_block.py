@@ -4,8 +4,9 @@ Port of ``vit_tpu/ops/quant_block.py``. ``fused_quant_attention_block`` and
 ``fused_quant_mlp`` are the Hopper kernels (``csrc/quant_block.cu``: both
 run their products on the s8 wgmma GEMM of ``csrc/gemm_s8_sm90.cuh``, which
 reads the int8 weights K-major; the attention block its attention on the
-register-resident core; the MLP takes its hidden's row max in fc1's
-epilogue, by 128-column tile, and quantizes the hidden in one read);
+register-resident core, or on an fp32 stream on the fp32 core; the MLP
+takes its hidden's row max in fc1's epilogue, by 128-column tile, and
+quantizes the hidden in one read); both take a bf16 or an fp32 stream;
 ``xla_quant_attention_block`` and ``reference_quant_mlp`` are their plain
 PyTorch twins, written in the TPU kernels' own op order
 (quant_block.py:58-106, :204-221):
@@ -44,11 +45,6 @@ ACTIVATIONS = {"gelu": 1, "gelu_exact": 2}
 # Columns of one output tile of the s8 wgmma GEMM (csrc/gemm_s8_sm90.cuh, BN):
 # the MLP kernel's fc1 writes each row's max |h| over each such tile.
 S8_TILE_N = 128
-
-_FP32_LATER = (
-    "the W8A8 attention-block kernel takes a bf16 stream; fp32 runs only on the "
-    "plain twin (ROADMAP.md Queue 2 item 9, fp32 path)"
-)
 
 
 def _quant_gemm(a_i8, s_row, w_i8, w_scale):
@@ -163,7 +159,10 @@ def fused_quant_attention_block(
     true_n: Optional[int] = None,
     intermediates: Optional[dict] = None,
 ) -> torch.Tensor:
-    """The W8A8 attention block on the card. ``x`` ``[B, N, D]`` bf16.
+    """The W8A8 attention block on the card. ``x`` ``[B, N, D]`` bf16, or
+    fp32 (``vit_tpu``'s default stream, whose kernel keeps qkv, the scores'
+    operands and P in fp32: qkv written fp32 by the GEMM's epilogue, the
+    attention on the fp32 core ``csrc/attention_f32.cuh``).
 
     The int8 weights come K-major, ``[out, in]``: ``wqkv_i8`` ``[3*H*Dh,
     D]`` and ``wout_i8`` ``[D, H*Dh]``, the transposes of vit_tpu's (and the
@@ -173,17 +172,15 @@ def fused_quant_attention_block(
     ``ln_bias``, ``bout`` fp32 ``[D]``. ``true_n`` masks padded keys. Returns
     a new tensor of ``x``'s shape and dtype, computed on the current stream.
     A dict passed as ``intermediates`` receives the stages' rows, ``[B*N,
-    ...]``, for checks: ``xq``, ``s_row`` (LN codes), ``qkv``, ``attn``
-    (fp32), ``aq``, ``s_row2``."""
+    ...]``, for checks: ``xq``, ``s_row`` (LN codes), ``qkv`` (in x's
+    dtype), ``attn`` (fp32), ``aq``, ``s_row2``."""
     _build.refuse_grad("fused_quant_attention_block", x, ln_scale, ln_bias, sqkv, sout, bout)
     if not x.is_cuda:
         raise ValueError("fused_quant_attention_block takes CUDA tensors")
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
-    if x.dtype == torch.float32:
-        raise ValueError(_FP32_LATER)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or fp32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     b, n, dim = x.shape
@@ -219,7 +216,7 @@ def fused_quant_attention_block(
     dev = x.device
     xq = torch.empty(rows, dim, device=dev, dtype=torch.int8)
     s_row = torch.empty(rows, device=dev, dtype=torch.float32)
-    qkv = torch.empty(rows, three_hd, device=dev, dtype=torch.bfloat16)
+    qkv = torch.empty(rows, three_hd, device=dev, dtype=x.dtype)
     attn = torch.empty(rows, hd, device=dev, dtype=torch.float32)
     aq = torch.empty(rows, hd, device=dev, dtype=torch.int8)
     s_row2 = torch.empty(rows, device=dev, dtype=torch.float32)
@@ -227,7 +224,7 @@ def fused_quant_attention_block(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vt_quant_attention_block(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv_i8.data_ptr(), sqkv.data_ptr(), wout_i8.data_ptr(), sout.data_ptr(),
             bout.data_ptr(), out.data_ptr(),
             xq.data_ptr(), s_row.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
@@ -235,7 +232,7 @@ def fused_quant_attention_block(
             b, n, dim, heads, d, float(scale), float(ln_eps), true_n, stream,
         )
     _build.check(lib, rc, "quant_attention_block kernel")
-    _build.count_launch("quant_attention_block")
+    _build.count_launch("quant_attention_block", fp32=x.dtype == torch.float32)
     if intermediates is not None:
         intermediates.update(xq=xq, s_row=s_row, qkv=qkv, attn=attn, aq=aq, s_row2=s_row2)
     return out
@@ -308,7 +305,7 @@ def fused_quant_mlp(
             h_amax.data_ptr(), t, dim, f, ACTIVATIONS[activation], float(ln_eps), stream,
         )
     _build.check(lib, rc, "quant_mlp kernel")
-    _build.count_launch("quant_mlp")
+    _build.count_launch("quant_mlp", fp32=x.dtype == torch.float32)
     if intermediates is not None:
         intermediates.update(xq=xq, s_row=s_row, h=h, h_amax=h_amax, hq=hq, s_row2=s_row2)
     return out
